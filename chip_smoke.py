@@ -1,25 +1,41 @@
-"""Drive the PyTorch port's online predict lane on one CUDA card.
+"""Drive the PyTorch port's predict lane and tree fits on one CUDA card.
 
 Run from the repository root, with one card visible:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py fit-kernels fit  # device, build and the named phases
 
 Phases, one JSON line each:
 
-1. device  — CUDA must be available; the card's name and power limit.
-2. build   — build (or load) the CUDA kernel library from
-             ``learningorchestra_tpu_torch/kernels/csrc``.
-3. kernels — each kernel against its plain PyTorch version on the same
-             seeded inputs, at N in {1, 64, 4096, 1,048,576} rows, 1 and 20
-             trees of depth 5: identical labels and probabilities within
-             1e-6; times at 4096 and 1,048,576 rows.
-4. serve   — ``dt``, ``rf``, ``gb``, ``lr`` and ``nb`` checkpoints at full
-             width (16 features, 2 classes, depth 5, 20 trees or rounds) with
-             seeded parameters, written by the port and served by its HTTP
-             app over real sockets: single rows, 8 concurrent single rows
-             and one 4096-row request to each model, checked against the
-             plain forward on the CPU; 404, 406 and 413; the kernels' launch
-             counts must rise during this phase.
+1. device      — CUDA must be available; the card's name and power limit.
+2. build       — build (or load) the CUDA kernel libraries from
+                 ``learningorchestra_tpu_torch/kernels/csrc``, one nvcc per
+                 source, all started together.
+3. kernels     — each forward kernel (K6) against its plain PyTorch version
+                 on the same seeded inputs, at N in {1, 64, 4096, 1,048,576}
+                 rows, 1 and 20 trees of depth 5: identical labels and
+                 probabilities within 1e-6; times at 4096 and 1,048,576 rows.
+                 Also the times of the lr and nb forwards (K8, cuBLAS).
+4. serve       — ``dt``, ``rf``, ``gb``, ``lr`` and ``nb`` checkpoints at full
+                 width (16 features, 2 classes, depth 5, 20 trees or rounds)
+                 with seeded parameters, written by the port and served by its
+                 HTTP app over real sockets: single rows, 8 concurrent single
+                 rows and one 4096-row request to each model, checked against
+                 the plain forward on the CPU; 404, 406 and 413; the kernels'
+                 launch counts must rise during this phase.
+5. fit-kernels — each fit kernel (K1-K5) against its plain version on
+                 bench.py's synthetic rows at full width (1,000,000 x 16,
+                 32 bins), at every level of a depth-5 tree, with dt (class
+                 one-hot) and gb ((g, h)) channels: bins, counts, splits and
+                 routes identical, gb sums within 1e-5 relative; times,
+                 each call with L2 overwritten before it, no time below
+                 its bound.
+6. fit         — ``make_classifier("dt")`` and ``make_classifier("gb")`` fit
+                 the same 1,000,000 rows on the card, then evaluate_predict,
+                 save_model and one request each over HTTP. Held against
+                 plain-version fits on the card (dt: identical heaps and
+                 metrics; gb: margins and accuracy within 1e-3), and gb refit
+                 bit for bit; the fit kernels' launch counts per fit.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -28,6 +44,7 @@ exits non-zero without that last line. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -38,17 +55,20 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.ml import trees
+from learningorchestra_tpu_torch.ml import binning, make_classifier, trees
 from learningorchestra_tpu_torch.ml.checkpoint import (
     checkpoint_path,
     load_model,
+    model_from_arrays,
+    save_model,
     write_checkpoint,
 )
-from learningorchestra_tpu_torch.ml.trees import GBT_STEP, MAX_DEPTH, NUM_TREES
+from learningorchestra_tpu_torch.ml.trees import GBT_ROUNDS, GBT_STEP, MAX_DEPTH, NUM_TREES
 from learningorchestra_tpu_torch.serve import ServePlane
 from learningorchestra_tpu_torch.serve import config as serve_config
 from learningorchestra_tpu_torch.services.model_builder import create_app
@@ -68,13 +88,40 @@ LINEAR_TOL = 1e-5      # lr/nb: the GEMM sums in another order on the card
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+# Overwritten between the timed calls of a fit kernel, so that each call
+# reads its inputs from HBM: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 KERNEL_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/tree_forward.cu"
+FIT_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/tree_fit.cu"
 REPLACES = {
     "tree_ensemble_forward": (
         "learningorchestra_tpu/ml/trees.py:303 _descend under :364 _ensemble_forward"
     ),
     "gbt_forward": "learningorchestra_tpu/ml/trees.py:303 _descend under :648 _gbt_forward",
+}
+FIT_REPLACES = {
+    "apply_bins": "learningorchestra_tpu/ml/binning.py:37 apply_bins",
+    "level_histograms": "learningorchestra_tpu/ml/trees.py:66 _level_histograms",
+    "select_splits": (
+        "learningorchestra_tpu/ml/trees.py:160 _gini_gain, :181 _newton_gain, "
+        ":196 _select_splits"
+    ),
+    "route": "learningorchestra_tpu/ml/trees.py:235 _route (:217 _indicator_lookup)",
+    "leaf_sums": "learningorchestra_tpu/ml/trees.py:142 _leaf_sums",
+}
+FIT_ROWS = 1_000_000   # bench.py's synthetic rows
+GB_SUM_RTOL = 1e-5     # gb sums: float64 atomics in the plain version's scatter
+FIT_MARGIN_TOL = 1e-3  # gb fit against the plain-version fit: margins, accuracy
+# CUDA kernels of each device program; the profiler sums their device time
+DEVICE_KERNELS = {
+    "tree_ensemble_forward": ("tree_ensemble_forward_kernel",),
+    "gbt_forward": ("gbt_forward_kernel",),
+    "apply_bins": ("apply_bins_kernel",),
+    "level_histograms": ("level_histograms_kernel", "sum_partials_kernel"),
+    "select_splits": ("select_splits_kernel",),
+    "route": ("route_kernel",),
+    "leaf_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
 }
 
 
@@ -89,6 +136,17 @@ def emit(record: dict) -> None:
 def bench_rows(rng, rows: int, features: int = FEATURES) -> np.ndarray:
     """bench.py-style rows: uniform x 20, float32."""
     return rng.random((rows, features), dtype=np.float32) * 20.0
+
+
+def bench_synthetic(rows: int, seed: int = 0):
+    """bench.py's synthetic classification data (its ``_synthetic``): 16
+    uniform features in [0, 20), a noisy threshold on two of them."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((rows, FEATURES), dtype=np.float32) * 20.0
+    y = (
+        (X[:, 0] + X[:, 1] * 0.5 + rng.random(rows, dtype=np.float32) * 8) > 22
+    ).astype(np.int32)
+    return X, y
 
 
 def _heaps(rng, thresholds, count: int, depth: int, leaf_rate: float = 0.1):
@@ -208,18 +266,24 @@ def phase_device(torch) -> dict:
 
 def phase_build() -> None:
     started = time.perf_counter()
-    kernels.library()
-    ptxas = [
-        line.strip() for line in kernels.build_info.get("ptxas", "").splitlines()
-        if "registers" in line or "Compiling entry" in line
-    ]
-    emit({
-        "phase": "build",
-        "seconds": time.perf_counter() - started,
-        "built": kernels.build_info["built"],
-        "library": os.path.relpath(kernels.build_info["path"]),
-        "ptxas": ptxas,
-    })
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(max_workers=len(kernels.SOURCES)) as pool:
+        for future in [pool.submit(kernels.build, name) for name in kernels.SOURCES]:
+            future.result()
+    libraries = {}
+    for name in kernels.SOURCES:
+        kernels.library(name)
+        info = kernels.build_info[name]
+        libraries[name] = {
+            "seconds": info["seconds"],
+            "built": info["built"],
+            "library": os.path.relpath(info["path"]),
+            "ptxas": [
+                line.strip() for line in info["ptxas"].splitlines()
+                if "registers" in line or "Compiling entry" in line
+            ],
+        }
+    emit({"phase": "build", "seconds": time.perf_counter() - started, "libraries": libraries})
 
 
 def _kernel_inputs(torch, rows: int, count: int, seed: int):
@@ -244,10 +308,23 @@ def _kernel_inputs(torch, rows: int, count: int, seed: int):
     )
 
 
-def _event_ms(torch, fn, repeats: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the stream, back to back."""
+def _event_ms(torch, fn, repeats: int, flush=None) -> float:
+    """Mean milliseconds per call of ``fn`` on the stream: back to back,
+    or, given a ``flush`` buffer, each call alone right after the buffer
+    is overwritten, so that it finds none of its inputs in L2."""
     fn()
     torch.cuda.synchronize()
+    if flush is not None:
+        pairs = []
+        for _ in range(repeats):
+            flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in pairs) / repeats
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(repeats):
@@ -257,24 +334,41 @@ def _event_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def _device_ms(torch, fn, kernel_name: str, repeats: int):
-    """Mean device milliseconds of the kernel ``kernel_name`` per call, from
-    the profiler's trace of the card; None when the trace has no device
-    time for it."""
+def _profile_device_us(torch, fn, kernel_names=None) -> float:
+    """Device microseconds the profiler's trace of the card shows while
+    ``fn`` runs: of the CUDA kernels whose names contain one of
+    ``kernel_names``, or of every CUDA kernel when that is None."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    total_us, calls = 0.0, 0
+    total_us = 0.0
     for event in prof.key_averages():
-        if kernel_name in event.key:
-            total_us += getattr(event, "device_time_total", 0.0) or getattr(
-                event, "cuda_time_total", 0.0
+        if getattr(event, "device_type", None) is not None and "CUDA" not in str(event.device_type):
+            continue
+        if kernel_names is None or any(name in event.key for name in kernel_names):
+            total_us += getattr(event, "self_device_time_total", 0.0) or getattr(
+                event, "self_cuda_time_total", 0.0
             )
-            calls += event.count
-    return total_us / 1000.0 / calls if calls and total_us > 0 else None
+    return total_us
+
+
+def _device_ms(torch, fn, kernel_names, repeats: int, flush=None):
+    """Mean device milliseconds per call of ``fn`` in the CUDA kernels
+    named ``kernel_names``, from the profiler's trace of the card; None
+    when the trace has no device time for them. Given a ``flush`` buffer,
+    it is overwritten before each call (the fill's own kernel is not
+    counted)."""
+
+    def run():
+        for _ in range(repeats):
+            if flush is not None:
+                flush.zero_()
+            fn()
+
+    total_us = _profile_device_us(torch, run, kernel_names)
+    return total_us / 1000.0 / repeats if total_us > 0 else None
 
 
 def _bound(rows: int, count: int, kernel: str) -> tuple[float, str]:
@@ -323,13 +417,42 @@ def phase_kernels(torch) -> dict:
                     bound_ms, bound_by = _bound(rows, tree_count, name)
                     results[name]["by_rows"][rows] = {
                         "ms": _event_ms(torch, kernel, repeats),
-                        "device_ms": _device_ms(torch, kernel, f"{name}_kernel", repeats),
+                        "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], repeats),
                         "plain_ms": _event_ms(torch, plain, max(5, repeats // 10)),
                         "bound_ms": bound_ms,
                         "bound_by": bound_by,
                     }
-    emit({"phase": "kernels", "rows": KERNEL_ROWS, "trees": (1, TREES), **results})
+    linear = _linear_forward_times(torch)
+    emit({
+        "phase": "kernels", "rows": KERNEL_ROWS, "trees": (1, TREES), **results,
+        "linear_forwards": linear,
+    })
     return results
+
+
+def _linear_forward_times(torch) -> dict:
+    """The lr and nb forwards (K8: ``torch.matmul`` + softmax, no hand
+    kernel) at the serve and batch shapes, beside their bound: X read once,
+    the probabilities written once, over HBM bandwidth (their float32
+    operations, ~5 per weight, are far below the peak)."""
+    rng = np.random.default_rng(11)
+    checkpoints = synthetic_checkpoints(seed=0)
+    times = {}
+    for name in ("lr", "nb"):
+        model = model_from_arrays(*checkpoints[name])
+        times[name] = {}
+        for rows in TIMED_ROWS:
+            X = torch.from_numpy(bench_rows(rng, rows)).cuda()
+            bytes_moved = rows * FEATURES * 4 + rows * CLASSES * 4
+            ops = rows * CLASSES * (2 * FEATURES + 5)
+            byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+            op_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
+            times[name][rows] = {
+                "ms": _event_ms(torch, lambda: model._forward(X), 200 if rows <= 4096 else 50),
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            }
+    return times
 
 
 class _Client:
@@ -433,7 +556,7 @@ def phase_serve(torch, card: str) -> dict:
         finally:
             server.stop()
             plane.close()
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name in REPLACES if launches[name] == 0]
     if missing:
         raise AssertionError(f"the serve path never launched {missing}")
     record = {
@@ -452,32 +575,440 @@ def phase_serve(torch, card: str) -> dict:
     return record
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# The fit: kernels K1-K5 and the dt and gb fits
+# --------------------------------------------------------------------------
+
+def _fit_bound(
+    name: str, rows: int, n_nodes: int, channels: int, bins_read: int = 0
+) -> tuple[float, str]:
+    """Least milliseconds the card could take for one call at these shapes:
+    the bytes the function needs, each read once and each output written
+    once, over HBM bandwidth, against the float32 operations it needs over
+    the float32 peak. ``route`` needs one bin of each row whose node
+    splits (``bins_read``, from this run's data), not the whole matrix."""
+    F, B, K = FEATURES, MAX_BINS, channels
+    if name == "apply_bins":      # X, thresholds -> int8 bins; a 5-step search
+        bytes_moved = rows * F * 4 + F * (B - 1) * 4 + rows * F
+        ops = rows * F * int(np.ceil(np.log2(B)))
+    elif name == "level_histograms":   # bins, node, channels -> histogram
+        bytes_moved = rows * F + rows * 4 + rows * K * 4 + n_nodes * F * B * K * 4
+        ops = rows * F * K
+    elif name == "select_splits":  # histogram -> feature, bin; ~5 ops a channel
+        bytes_moved = n_nodes * F * B * K * 4 + n_nodes * 8
+        ops = n_nodes * F * B * (5 * K + 5)
+    elif name == "route":          # node, a bin per split row, split -> node
+        bytes_moved = rows * 4 * 2 + bins_read + n_nodes * 8
+        ops = rows * 2
+    else:                          # leaf_sums: leaf, channels -> sums
+        bytes_moved = rows * 4 + rows * K * 4 + n_nodes * K * 4
+        ops = rows * K
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _fit_channels(torch, y_dev, seed: int) -> dict:
+    """A fit's channels on the card: class one-hots (dt, gini) and the
+    (g, h) pairs of a boosting round at seeded margins (gb, newton)."""
+    rng = np.random.default_rng(seed)
+    margins = torch.from_numpy(rng.normal(size=y_dev.shape[0]).astype(np.float32)).to(y_dev.device)
+    p = torch.sigmoid(margins)
+    g = p - y_dev.to(torch.float32)
+    h = (p * (1 - p)).clamp(min=1e-6)
+    one_hot = torch.nn.functional.one_hot(y_dev.long(), CLASSES).to(torch.float32)
+    return {"gini": one_hot.contiguous(), "newton": torch.stack([g, h], dim=1)}
+
+
+def _sums_error(name: str, mode: str, got, want) -> float:
+    """Counts (dt) must be identical; gb sums agree within GB_SUM_RTOL of
+    each cell. Returns the largest absolute difference."""
+    if got.shape != want.shape or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name} ({mode}): bad output {tuple(got.shape)}")
+    difference = (got - want).abs()
+    if mode == "gini" and bool((difference > 0).any()):
+        raise AssertionError(f"{name} (gini): class counts differ")
+    relative = float((difference / want.abs().clamp(min=1e-30)).max())
+    if relative > GB_SUM_RTOL:
+        raise AssertionError(f"{name} ({mode}): relative difference {relative}")
+    return float(difference.max())
+
+
+def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
+    """Each fit kernel against its plain version on the same inputs, at
+    every level of a depth-DEPTH tree grown by the plain versions, for dt
+    and gb channels. Returns each kernel's largest difference and the
+    inputs of each (mode, level) for timing."""
+    errors = {name: 0.0 for name in FIT_REPLACES}
+    # searchsorted(side="left") at its edges: NaN past every threshold (inf
+    # ones too), +inf at the first inf threshold, -inf and -0.0 in bin 0
+    edges = torch.tensor([[0.0, 1.0, 2.0, np.inf, np.inf]], device=X_dev.device)
+    values = torch.tensor(
+        [[np.nan], [np.inf], [-np.inf], [-0.0], [0.0], [2.0], [0.5], [3.0]], device=X_dev.device
+    )
+    expected = [5, 3, 0, 0, 0, 2, 1, 3]
+    for apply in (binning.apply_bins, binning._apply_bins):
+        if apply(values, edges)[:, 0].tolist() != expected:
+            raise AssertionError(f"{apply.__name__}: edge values binned {apply(values, edges)[:, 0].tolist()}")
+    bins = binning.apply_bins(X_dev, thresholds)
+    if not torch.equal(bins, binning._apply_bins(X_dev, thresholds)):
+        raise AssertionError("apply_bins: bins differ")
+    cases = {}
+    for mode, channels in _fit_channels(torch, y_dev, seed).items():
+        node = torch.zeros(X_dev.shape[0], dtype=torch.int32, device=X_dev.device)
+        for level in range(DEPTH):
+            n_nodes = 2**level
+            hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+            plain_hist = trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+            errors["level_histograms"] = max(
+                errors["level_histograms"], _sums_error("level_histograms", mode, hist, plain_hist)
+            )
+            feature, bin_index = trees.select_splits(plain_hist, mode)
+            plain_feature, plain_bin = trees._select_plain(plain_hist, mode)
+            if not (torch.equal(feature, plain_feature) and torch.equal(bin_index, plain_bin)):
+                raise AssertionError(f"select_splits ({mode}, level {level}): splits differ")
+            routed = trees.route(bins, node, plain_feature, plain_bin)
+            plain_routed = trees._route(bins, node, plain_feature, plain_bin)
+            if not torch.equal(routed, plain_routed):
+                raise AssertionError(f"route ({mode}, level {level}): nodes differ")
+            cases[(mode, level)] = (node, channels, plain_hist, plain_feature, plain_bin)
+            node = plain_routed
+        sums = trees.leaf_sums(node, channels, 2**DEPTH)
+        plain_sums = trees._leaf_sums(node, channels, 2**DEPTH)
+        errors["leaf_sums"] = max(errors["leaf_sums"], _sums_error("leaf_sums", mode, sums, plain_sums))
+        cases[(mode, DEPTH)] = (node, channels, None, None, None)
+    return {"errors": errors, "bins": bins, "cases": cases}
+
+
+def phase_fit_kernels(torch) -> dict:
+    X, y = bench_synthetic(FIT_ROWS)
+    thresholds_np = binning.make_thresholds(X).astype(np.float32)
+    thresholds_np[3, -2:] = np.inf  # a feature with repeated inf thresholds
+    # values binning must place exactly, among the rows
+    X[:4, 0] = [np.nan, np.inf, -np.inf, -0.0]
+    X[4:6, 1] = thresholds_np[1, 7:9]
+    X[6:8, 3] = [np.inf, np.nan]
+    X_dev = torch.from_numpy(X).cuda()
+    y_dev = torch.from_numpy(y.astype(np.int64)).cuda()
+    thresholds = torch.from_numpy(thresholds_np).cuda()
+    checked = check_fit_kernels(torch, X_dev, y_dev, thresholds)
+    bins, cases = checked["bins"], checked["cases"]
+    rows = X.shape[0]
+    results = {name: {"max_abs_err": checked["errors"][name], "by_level": {}} for name in FIT_REPLACES}
+    # every call timed with a cold L2: the bounds count HBM bytes, and the
+    # inputs of K2, K4 and K5 (28, 21 and 12 MB) would otherwise stay in L2
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=X_dev.device)
+
+    def timed(name, key, kernel, plain, library, n_nodes, channels, bins_read=0):
+        bound_ms, bound_by = _fit_bound(name, rows, n_nodes, channels, bins_read)
+        results[name]["by_level"][key] = {
+            "ms": _event_ms(torch, kernel, 20, flush),
+            "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], 20, flush),
+            "plain_ms": _event_ms(torch, plain, 3, flush),
+            "library_ms": None if library is None else _event_ms(torch, library, 3, flush),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+
+    X_columns = X_dev.T.contiguous()
+    timed(
+        "apply_bins", "all",
+        lambda: binning.apply_bins(X_dev, thresholds),
+        lambda: binning._apply_bins(X_dev, thresholds),
+        lambda: torch.searchsorted(thresholds, X_columns, side="left"),
+        1, 1,
+    )
+    feature_offsets = torch.arange(FEATURES, device=bins.device) * MAX_BINS
+    for (mode, level), (node, channels, hist, feature, bin_index) in cases.items():
+        key = f"{mode}:{level}"
+        K = channels.shape[1]
+        if level == DEPTH:
+            n_leaves = 2**DEPTH
+            leaf = node.long()
+            timed(
+                "leaf_sums", key,
+                lambda: trees.leaf_sums(node, channels, n_leaves),
+                lambda: trees._leaf_sums(node, channels, n_leaves),
+                lambda: [torch.bincount(leaf, weights=channels[:, k], minlength=n_leaves) for k in range(K)],
+                n_leaves, K,
+            )
+            continue
+        n_nodes = 2**level
+        flat = (node.long()[:, None] * (FEATURES * MAX_BINS) + feature_offsets + bins.long()).reshape(-1)
+        weights = [channels[:, k : k + 1].expand(rows, FEATURES).reshape(-1) for k in range(K)]
+        timed(
+            "level_histograms", key,
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: [torch.bincount(flat, weights=w, minlength=n_nodes * FEATURES * MAX_BINS) for w in weights],
+            n_nodes, K,
+        )
+        timed(
+            "select_splits", key,
+            lambda: trees.select_splits(hist, mode),
+            lambda: trees._select_plain(hist, mode),
+            None, n_nodes, K,
+        )
+        # the rows whose node splits: each needs one bin
+        bins_read = int((feature.long()[node.long()] >= 0).sum())
+        timed(
+            "route", key,
+            lambda: trees.route(bins, node, feature, bin_index),
+            lambda: trees._route(bins, node, feature, bin_index),
+            None, n_nodes, K, bins_read,
+        )
+    for result in results.values():
+        # a fit's mean call: over the levels, dt and gb channels alike
+        levels = list(result["by_level"].values())
+        for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+            values = [level[field] for level in levels]
+            result[field] = None if None in values else sum(values) / len(values)
+        result["bound_by"] = levels[0]["bound_by"]
+    emit({"phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS, **results})
+    return results
+
+
+def _fit_launches(before: dict, after: dict) -> dict:
+    return {name: after[name] - before[name] for name in FIT_REPLACES}
+
+
+@contextlib.contextmanager
+def _plain_level_loop():
+    """Within the block, the fits of ``trees`` run the level loop's plain
+    versions in place of its kernels, on any device: the yardstick that a
+    fit by the kernels is held to. Raises if a kernel launched."""
+    plain = {
+        "level_histograms": trees._level_histograms,
+        "select_splits": trees._select_plain,
+        "route": trees._route,
+        "leaf_sums": trees._leaf_sums,
+    }
+    wrappers = {name: getattr(trees, name) for name in plain}
+    before = kernels.launches()
+    for name, function in plain.items():
+        setattr(trees, name, function)
+    try:
+        yield
+    finally:
+        for name, function in wrappers.items():
+            setattr(trees, name, function)
+    if kernels.launches() != before:
+        raise AssertionError("a plain-version fit launched a kernel")
+
+
+def phase_fit(torch, card: str) -> dict:
+    X, y = bench_synthetic(FIT_ROWS)
+    rows = X.shape[0]
+    started = time.perf_counter()
+    thresholds_np = binning.make_thresholds(X)
+    thresholds_s = time.perf_counter() - started
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    X_dev = torch.from_numpy(X).cuda()
+    y_dev = torch.from_numpy(y.astype(np.int64)).cuda()
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - started
+
+    # the main path: fit, evaluate, save, serve
+    models, record = {}, {"phase": "fit", "rows": rows, "features": FEATURES}
+    expected = {
+        "dt": {"apply_bins": 1, "level_histograms": DEPTH, "select_splits": DEPTH,
+               "route": DEPTH, "leaf_sums": 1},
+        "gb": {"apply_bins": 1, "level_histograms": DEPTH * GBT_ROUNDS,
+               "select_splits": DEPTH * GBT_ROUNDS, "route": DEPTH * GBT_ROUNDS,
+               "leaf_sums": GBT_ROUNDS},
+    }
+    kernels.reset_launches()
+    for name in ("dt", "gb"):
+        before = kernels.launches()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        model = make_classifier(name).fit(X, y)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - started
+        launches = _fit_launches(before, kernels.launches())
+        if launches != expected[name]:
+            raise AssertionError(f"{name} fit launched {launches}, expected {expected[name]}")
+        accuracy, weighted_f1, labels, probs = model.evaluate_predict(X, y, X)
+        if probs.shape != (rows, CLASSES) or not np.isfinite(probs).all():
+            raise AssertionError(f"{name}: probabilities of shape {probs.shape}")
+        if not 0.5 < accuracy <= 1.0:
+            raise AssertionError(f"{name}: accuracy {accuracy}")
+        models[name] = model
+        record[name] = {
+            "wall_s": wall_s,
+            "host_thresholds_s": thresholds_s,
+            "h2d_s": h2d_s,
+            "launches": launches,
+            "accuracy": accuracy,
+            "weighted_f1": weighted_f1,
+        }
+    serve_rows = bench_rows(np.random.default_rng(13), 8)
+    with tempfile.TemporaryDirectory() as models_dir:
+        for name, model in models.items():
+            save_model(model, checkpoint_path(models_dir, f"{name}_fit"))
+        plane = ServePlane()
+        server = ServerThread(create_app(models_dir=models_dir, serve=plane)).start()
+        try:
+            client = _Client(server.port)
+            for name, model in models.items():
+                status, body = client.call("POST", f"/models/{name}_fit/predict", {"rows": serve_rows.tolist()})
+                _check_answer(name, status, body, serve_rows, model.predict_proba(serve_rows), TREE_TOL)
+        finally:
+            server.stop()
+            plane.close()
+    torch.cuda.synchronize()
+    record["launches"] = kernels.launches()
+    missing = [name for name in FIT_REPLACES if record["launches"][name] == 0]
+    if missing:
+        raise AssertionError(f"the fit path never launched {missing}")
+
+    # held against fits by the plain versions on the card
+    thresholds = torch.from_numpy(thresholds_np.astype(np.float32)).cuda()
+    weights = torch.ones(rows, dtype=torch.float32, device=X_dev.device)
+    plain_bins = binning._apply_bins(X_dev, thresholds)
+    with _plain_level_loop():
+        features_heap, bins_heap, leaf_probs = trees._dt_fit(
+            plain_bins, y_dev, weights, CLASSES, DEPTH, MAX_BINS
+        )
+    plain_dt = trees._TreeEnsembleModel(
+        features_heap[None], trees._heap_thresholds(features_heap, bins_heap, thresholds)[None],
+        leaf_probs[None], DEPTH,
+    )
+    dt = models["dt"]
+    if not (
+        torch.equal(dt.features_heap, plain_dt.features_heap)
+        and torch.equal(dt.thresholds_heap, plain_dt.thresholds_heap)
+        and torch.equal(dt.leaf_probs, plain_dt.leaf_probs)
+    ):
+        raise AssertionError("dt: the kernels' heaps differ from the plain-version fit")
+    plain_metrics = plain_dt.evaluate_predict(X, y, X)[:2]
+    if plain_metrics != (record["dt"]["accuracy"], record["dt"]["weighted_f1"]):
+        raise AssertionError(f"dt: metrics {plain_metrics} of the plain-version fit differ")
+
+    bins = binning.apply_bins(X_dev, thresholds)
+
+    def gb_fit():
+        return trees._gbt_fit(bins, y_dev, weights, DEPTH, MAX_BINS, GBT_ROUNDS, GBT_STEP)
+
+    # no host sync anywhere in a level or boosting loop: any would raise here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = gb_fit()
+        direct_dt = trees._dt_fit(bins, y_dev, weights, CLASSES, DEPTH, MAX_BINS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(direct_dt[0], dt.features_heap[0]):
+        raise AssertionError("dt: the estimator's fit differs from the same fit run directly")
+    second = gb_fit()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("gb: a second fit with the kernels is not bit identical")
+    gb = models["gb"]
+    if not (
+        float(first[0]) == gb.f0
+        and torch.equal(first[1], gb.features_heap)
+        and torch.equal(first[3], gb.leaf_values)
+    ):
+        raise AssertionError("gb: the estimator's fit differs from the same fit run directly")
+    with _plain_level_loop():
+        plain = gb_fit()
+    differing = int(((first[1] != plain[1]) | (first[2] != plain[2])).sum())
+    margin_error = float((first[4] - plain[4]).abs().max())
+    y_dev_f = y_dev.to(torch.float32)
+    accuracy = float(((first[4] > 0).to(torch.float32) == y_dev_f).to(torch.float32).mean())
+    plain_accuracy = float(((plain[4] > 0).to(torch.float32) == y_dev_f).to(torch.float32).mean())
+    if margin_error > FIT_MARGIN_TOL or abs(accuracy - plain_accuracy) > FIT_MARGIN_TOL:
+        raise AssertionError(
+            f"gb: margins differ by {margin_error}, accuracy {accuracy} against {plain_accuracy}"
+        )
+    record["gb"].update(
+        heap_nodes_differing_from_plain=differing,
+        heap_nodes=int(first[1].numel()),
+        max_margin_err=margin_error,
+        train_accuracy_from_margins=accuracy,
+        plain_train_accuracy_from_margins=plain_accuracy,
+        rerun_bit_identical=True,
+    )
+    # the device's share of a fit's wall time: the trace's kernel time of
+    # one more fit through the estimator
+    for name in models:
+        record[name]["device_busy_ms"] = (
+            _profile_device_us(torch, lambda: make_classifier(name).fit(X, y)) / 1000.0
+        )
+    record["dt"]["heaps_identical_to_plain"] = True
+    record["host_syncs_in_fit_loops"] = 0
+    record["nvidia_smi"] = card
+    emit(record)
+    return record
+
+
+def check_bounds(summary) -> None:
+    """A time below its kernel's bound means that the bound or the timing
+    is wrong: raise."""
+    for entry in summary:
+        for key, at in {**entry.get("by_rows", {}), **entry.get("by_level", {})}.items():
+            for field in ("ms", "device_ms"):
+                if at[field] is not None and at[field] < at["bound_ms"]:
+                    raise AssertionError(
+                        f"{entry['name']} at {key}: {field} {at[field]} is below "
+                        f"its bound {at['bound_ms']}"
+                    )
+
+
+PHASES = ("kernels", "serve", "fit-kernels", "fit")
+
+
+def main(argv) -> int:
     import torch
 
+    wanted = argv or list(PHASES)
+    unknown = sorted(set(wanted) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; phases are {list(PHASES)}")
     device = phase_device(torch)
     phase_build()
-    kernel_results = phase_kernels(torch)
-    serve = phase_serve(torch, device["card"])
     summary = []
-    for name, result in kernel_results.items():
-        at_serve = result["by_rows"][4096]
-        summary.append({
-            "name": name,
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name],
-            "launches": serve["launches"][name],
-            "max_abs_err": result["max_abs_err"],
-            "rows": 4096,
-            "ms": at_serve["ms"],
-            "device_ms": at_serve["device_ms"],
-            "plain_ms": at_serve["plain_ms"],
-            "bound_ms": at_serve["bound_ms"],
-            "bound_by": at_serve["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes a tree-ensemble forward
-            "by_rows": result["by_rows"],
-        })
+    if "kernels" in wanted:
+        kernel_results = phase_kernels(torch)
+        serve = phase_serve(torch, device["card"]) if "serve" in wanted else None
+        for name, result in kernel_results.items():
+            at_serve = result["by_rows"][4096]
+            summary.append({
+                "name": name,
+                "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": REPLACES[name],
+                "launches": serve["launches"][name] if serve else None,
+                "max_abs_err": result["max_abs_err"],
+                "rows": 4096,
+                "ms": at_serve["ms"],
+                "device_ms": at_serve["device_ms"],
+                "plain_ms": at_serve["plain_ms"],
+                "bound_ms": at_serve["bound_ms"],
+                "bound_by": at_serve["bound_by"],
+                "library_ms": None,  # no single PyTorch call computes a tree-ensemble forward
+                "by_rows": result["by_rows"],
+            })
+    elif "serve" in wanted:
+        phase_serve(torch, device["card"])
+    fit_kernels = phase_fit_kernels(torch) if "fit-kernels" in wanted else None
+    fit = phase_fit(torch, device["card"]) if "fit" in wanted else None
+    if fit_kernels:
+        for name, result in fit_kernels.items():
+            summary.append({
+                "name": name,
+                "route": "cuda",
+                "source": FIT_SOURCE,
+                "replaces": FIT_REPLACES[name],
+                "launches": fit["launches"][name] if fit else None,
+                "max_abs_err": result["max_abs_err"],
+                "rows": FIT_ROWS,
+                **{field: result[field] for field in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"
+                )},
+                "by_level": result["by_level"],
+            })
+    check_bounds(summary)
     emit({"kernels": summary})
     print(device["card"], flush=True)
     emit({
@@ -492,4 +1023,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

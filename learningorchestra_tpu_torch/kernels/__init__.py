@@ -1,32 +1,40 @@
 """Hand-written CUDA kernels: build, binding and launch counters.
 
-Each kernel's source lives in ``csrc/``. At first use the source is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so the build takes
-seconds). The library lands in ``_build/`` under a name that carries a
-hash of the source, and is published with ``os.replace``, so two
-processes never load half a file and an edited source is rebuilt.
+Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
+
+- ``tree_forward.cu``: the tree forward (K6), for the predict lane;
+- ``tree_fit.cu``: the fit's level loop (K1-K5).
+
+A library lands in ``_build/`` under a name that carries a hash of its
+source, and is published with ``os.replace``, so two processes never load
+half a file and an edited source is rebuilt.
 
 The wrappers that launch these kernels live beside their plain PyTorch
-versions (``ml/trees.py``). Each wrapper adds one to its kernel's launch
-count where it launches, and nowhere else, so a run can show that its
-main path went through the kernel.
+versions (``ml/binning.py``, ``ml/trees.py``). Each wrapper adds one to
+its kernel's launch count where it launches, and nowhere else, so a run
+can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-TREE_FORWARD_SOURCE = os.path.join(_HERE, "csrc", "tree_forward.cu")
+# library name -> its source; each source builds into a library of its own
+SOURCES = {
+    "tree_forward": os.path.join(_HERE, "csrc", "tree_forward.cu"),
+    "tree_fit": os.path.join(_HERE, "csrc", "tree_fit.cu"),
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -34,14 +42,24 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# name -> launches; kernels of this library
-KERNEL_NAMES = ("tree_ensemble_forward", "gbt_forward")
+# kernel -> the library that holds it
+KERNEL_LIBRARIES = {
+    "tree_ensemble_forward": "tree_forward",
+    "gbt_forward": "tree_forward",
+    "apply_bins": "tree_fit",
+    "level_histograms": "tree_fit",
+    "select_splits": "tree_fit",
+    "route": "tree_fit",
+    "leaf_sums": "tree_fit",
+}
+KERNEL_NAMES = tuple(KERNEL_LIBRARIES)
 _launches = {name: 0 for name in KERNEL_NAMES}
 _launch_lock = threading.Lock()
 
-_library: Optional[ctypes.CDLL] = None
+_libraries: dict = {}
 _library_lock = threading.Lock()
-# what the last build in this process did: path, seconds, ptxas report
+# library name -> what its last build in this process did: path, seconds,
+# whether nvcc ran, and the ptxas report
 build_info: dict = {}
 
 
@@ -75,19 +93,21 @@ def _find_nvcc() -> str:
     )
 
 
-def build(source: str = TREE_FORWARD_SOURCE) -> str:
-    """Compile ``source`` into ``_build/`` unless a library built from the
-    same bytes is already there; returns the library's path."""
+def build(name: str) -> str:
+    """Compile library ``name`` into ``_build/`` unless a library built
+    from the same source bytes is already there; returns its path."""
+    source = SOURCES[name]
     with open(source, "rb") as handle:
         digest = hashlib.sha256(handle.read()).hexdigest()[:16]
-    stem = os.path.splitext(os.path.basename(source))[0]
-    target = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+    target = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if os.path.isfile(target):
-        build_info.update(path=target, seconds=0.0, built=False, ptxas="")
+        # keep the record of a build made earlier in this process
+        if build_info.get(name, {}).get("path") != target:
+            build_info[name] = dict(path=target, seconds=0.0, built=False, ptxas="")
         return target
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    partial = f"{target}.{os.getpid()}.tmp"
+    partial = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
     started = time.perf_counter()
     result = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", partial, source],
@@ -100,7 +120,7 @@ def build(source: str = TREE_FORWARD_SOURCE) -> str:
             f"nvcc failed to build {source}:\n{result.stdout}{result.stderr}"
         )
     os.replace(partial, target)
-    build_info.update(
+    build_info[name] = dict(
         path=target,
         seconds=time.perf_counter() - started,
         built=True,
@@ -109,16 +129,15 @@ def build(source: str = TREE_FORWARD_SOURCE) -> str:
     return target
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    global _library
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built at first use."""
     with _library_lock:
-        if _library is None:
-            _library = _bind(ctypes.CDLL(build()))
-        return _library
+        if name not in _libraries:
+            _libraries[name] = _BINDERS[name](ctypes.CDLL(build(name)))
+        return _libraries[name]
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lo_tree_ensemble_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, leaves, out
@@ -133,9 +152,50 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_gbt_forward.restype = c_int
-    lib.lo_error_string.argtypes = [c_int]
+    return _bind_errors(lib)
+
+
+def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lo_apply_bins.argtypes = [
+        ptr, ptr, ptr,                       # X, thresholds, bins
+        c_longlong, c_int, c_int,            # rows, F, thresholds per feature
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_level_histograms.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,             # bins, node, channels, partials, out
+        c_int, c_int, c_int, c_int, c_int,   # rows, F, nodes, bins, channels
+        c_int, c_int, c_int, c_int,          # chunks, rows/chunk, features/block, tile
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_select_splits.argtypes = [
+        ptr, ptr, ptr,                       # hist, feature, bin
+        c_int, c_int, c_int, c_int, c_int,   # nodes, F, bins, channels, mode
+        c_int, ptr,                          # device, stream
+    ]
+    lib.lo_route.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,             # bins, node, feature, split bin, out
+        c_int, c_int,                        # rows, F
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_leaf_sums.argtypes = [
+        ptr, ptr, ptr, ptr,                  # leaf, channels, partials, out
+        c_int, c_int, c_int,                 # rows, leaves, channels
+        c_int, c_int, c_int,                 # chunks, rows/chunk, warps
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    for entry in ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums"):
+        getattr(lib, f"lo_{entry}").restype = c_int
+    return _bind_errors(lib)
+
+
+def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.lo_error_string.argtypes = [ctypes.c_int]
     lib.lo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_BINDERS = {"tree_forward": _bind_tree_forward, "tree_fit": _bind_tree_fit}
 
 
 def check(lib: ctypes.CDLL, name: str, error: int) -> None:
@@ -143,3 +203,29 @@ def check(lib: ctypes.CDLL, name: str, error: int) -> None:
     if error != 0:
         message = lib.lo_error_string(error).decode(errors="replace")
         raise RuntimeError(f"{name} launch failed: CUDA error {error}: {message}")
+
+
+def check_operands(*tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    for tensor in tensors:
+        if tensor.device.type != "cuda":
+            raise ValueError(f"kernel operand on {tensor.device}, not a CUDA device")
+        if not tensor.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def max_blocks(device_index: int) -> int:
+    """Resident blocks enough to fill every SM; a kernel's grid-stride
+    loop covers the remaining items."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * 8
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call ``entry`` of kernel ``name``'s library with ``args``, raise if
+    the launch was refused, and count the launch."""
+    lib = library(KERNEL_LIBRARIES[name])
+    check(lib, name, getattr(lib, entry)(*args))
+    count_launch(name)

@@ -1,1 +1,15 @@
-"""Estimators: the predict half of every checkpoint kind (see ``checkpoint``)."""
+"""Estimators: the predict half of every checkpoint kind (see ``checkpoint``)
+and the fits ported so far (dt and gb, ``make_classifier``).
+
+Counterpart of ``learningorchestra_tpu/ml/__init__.py:17-29``.
+"""
+
+from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES, make_classifier
+from learningorchestra_tpu_torch.ml.evaluation import accuracy_score, f1_score
+
+__all__ = [
+    "CLASSIFIER_NAMES",
+    "make_classifier",
+    "accuracy_score",
+    "f1_score",
+]

@@ -1,40 +1,58 @@
-"""Tree-ensemble prediction: the heap walk on raw floats.
+"""Histogram-binned decision trees and gradient boosting: fits and forwards.
 
-Counterpart of the predict half of ``learningorchestra_tpu/ml/trees.py``:
-``_descend`` (:303), ``_ensemble_forward`` (:364, dt and rf),
-``_gbt_forward`` (:648, gb), ``_TreeEnsembleModel`` and ``GBTModel``.
-The fits (histograms, split search, routing) are not ported yet.
+Counterpart of ``learningorchestra_tpu/ml/trees.py``:
+
+- the fit's level programs (:66-246): ``_level_histograms`` (K2),
+  ``_leaf_sums`` (K5), ``_gini_gain`` / ``_newton_gain`` /
+  ``_select_splits`` (K3) and ``_route`` (K4);
+- the fits (:253-296, :389-392, :503-644): ``_grow``,
+  ``_fit_classification_tree``, ``_fit_newton_tree``, ``_dt_fit``,
+  ``_gbt_init``, ``_gbt_rounds_impl``, ``_gbt_fit``, and the estimators
+  ``DecisionTreeClassifier`` and ``GBTClassifier`` (:669-814);
+- prediction (:303-386, :647-666): ``_descend`` (K6),
+  ``_ensemble_forward`` (dt and rf), ``_gbt_forward`` (gb),
+  ``_TreeEnsembleModel`` and ``GBTModel``.
+
+The random forest's fit is not ported yet.
 
 A fitted tree is a static heap: ``features_heap (T, 2^D - 1)`` int32
 (``-1`` marks a node that stopped splitting), ``thresholds_heap`` float32
 of the same shape, and per-leaf ``leaf_probs (T, 2^D, C)`` or boosted
-``leaf_values (T, 2^D)``.
+``leaf_values (T, 2^D)``. A fit grows one tree level by level: rows carry
+a node index, each level builds a ``(node, feature, bin, channel)``
+histogram, picks each node's best split and routes the rows one level
+down. Channels are weighted class one-hots (gini splits, dt) or Newton
+``(g, h)`` pairs (gb).
 
-Two versions of each forward live here:
+Two versions of each device program live here:
 
-- the plain PyTorch functions ``_descend``, ``_ensemble_forward`` and
-  ``_gbt_forward``, which repeat the reference's arithmetic in the same
-  order (the tests hold them against the JAX functions, and the chip
-  smoke holds the kernel against them);
-- the wrappers ``ensemble_forward`` and ``gbt_forward``, which the models
-  call. On a CPU tensor a wrapper runs the plain function; on a CUDA
-  tensor it launches the hand-written kernel (``kernels/csrc/
-  tree_forward.cu``) or raises. Nothing falls back.
+- the plain PyTorch functions (``_level_histograms``, ``_select_splits``,
+  ``_route``, ``_leaf_sums``, ``_descend``, ...), which repeat the
+  reference's arithmetic in the reference's order (the tests hold them
+  against the JAX functions, and the chip smoke holds the kernels against
+  them);
+- the wrappers (``level_histograms``, ``select_splits``, ``route``,
+  ``leaf_sums``, ``ensemble_forward``, ``gbt_forward``), which the fits and
+  the models call. On a CPU tensor a wrapper runs the plain function; on a
+  CUDA tensor it launches the hand-written kernel (``kernels/csrc/
+  tree_fit.cu``, ``tree_forward.cu``) or raises. Nothing falls back.
 """
 
 from __future__ import annotations
 
-import functools
-
+import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.ml.base import FittedModel
+from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml.base import FittedModel, infer_num_classes, segment_steps
+from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
 
 MAX_DEPTH = 5          # MLlib default maxDepth
 NUM_TREES = 20         # MLlib default numTrees (RF)
 GBT_ROUNDS = 20        # MLlib default maxIter (GBT)
 GBT_STEP = 0.1         # MLlib default stepSize
+EPS = 1e-12
 
 # 2^MAX_SUPPORTED_DEPTH leaves per tree; deeper heaps are refused
 MAX_SUPPORTED_DEPTH = 20
@@ -140,21 +158,6 @@ def _check_heaps(X, features_heap, thresholds_heap, leaves, leaf_ndim, max_depth
         raise ValueError(f"X of shape {tuple(X.shape)} is too large for the kernel")
 
 
-def _check_kernel_operands(*tensors) -> None:
-    for tensor in tensors:
-        if tensor.device.type != "cuda":
-            raise ValueError(f"kernel operand on {tensor.device}, not a CUDA device")
-        if not tensor.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
-
-
-@functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int) -> int:
-    # enough resident blocks to fill every SM; the grid-stride loop
-    # covers the remaining rows
-    return torch.cuda.get_device_properties(device_index).multi_processor_count * 8
-
-
 def ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
     """Mean leaf class distribution ``(rows, C)`` over the trees."""
     _check_heaps(X, features_heap, thresholds_heap, leaf_probs, 3, max_depth)
@@ -163,20 +166,18 @@ def ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
         return _uniform(rows, num_classes, X.device)
     if X.device.type == "cpu":
         return _ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth)
-    _check_kernel_operands(X, features_heap, thresholds_heap, leaf_probs)
+    kernels.check_operands(X, features_heap, thresholds_heap, leaf_probs)
     out = torch.empty((rows, num_classes), dtype=torch.float32, device=X.device)
     if rows == 0:
         return out
-    lib = kernels.library()
-    error = lib.lo_tree_ensemble_forward(
+    kernels.launch(
+        "tree_ensemble_forward", "lo_tree_ensemble_forward",
         X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(),
         leaf_probs.data_ptr(), out.data_ptr(),
         rows, X.shape[1], features_heap.shape[0], max_depth, num_classes,
-        _max_blocks(X.device.index), X.device.index,
+        kernels.max_blocks(X.device.index), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
-    kernels.check(lib, "tree_ensemble_forward", error)
-    kernels.count_launch("tree_ensemble_forward")
     return out
 
 
@@ -187,22 +188,20 @@ def gbt_forward(X, f0, features_heap, thresholds_heap, leaf_values, step, max_de
         return _gbt_forward(
             X, f0, features_heap, thresholds_heap, leaf_values, step, max_depth
         )
-    _check_kernel_operands(X, features_heap, thresholds_heap, leaf_values)
+    kernels.check_operands(X, features_heap, thresholds_heap, leaf_values)
     rows = X.shape[0]
     out = torch.empty((rows, 2), dtype=torch.float32, device=X.device)
     if rows == 0:
         return out
-    lib = kernels.library()
-    error = lib.lo_gbt_forward(
+    kernels.launch(
+        "gbt_forward", "lo_gbt_forward",
         X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(),
         leaf_values.data_ptr(), out.data_ptr(),
         rows, X.shape[1], features_heap.shape[0], max_depth,
         float(f0), float(step),
-        _max_blocks(X.device.index), X.device.index,
+        kernels.max_blocks(X.device.index), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
-    kernels.check(lib, "gbt_forward", error)
-    kernels.count_launch("gbt_forward")
     return out
 
 
@@ -243,4 +242,535 @@ class GBTModel(FittedModel):
         return gbt_forward(
             X, self.f0, self.features_heap, self.thresholds_heap,
             self.leaf_values, self.step, self.max_depth,
+        )
+
+
+# --------------------------------------------------------------------------
+# Fit: the level programs, plain versions
+# --------------------------------------------------------------------------
+
+def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
+    """Per-row channel vectors summed into ``(node, feature, bin, K)``: a
+    scatter-add over rows, in float64, rounded once to float32 (see
+    :func:`_leaf_sums`)."""
+    rows, num_features = bins.shape
+    num_channels = channels.shape[1]
+    index = (
+        node.long()[:, None] * (num_features * max_bins)
+        + torch.arange(num_features, device=bins.device) * max_bins
+        + bins.long()
+    )
+    hist = torch.zeros(
+        (n_nodes * num_features * max_bins, num_channels),
+        dtype=torch.float64,
+        device=bins.device,
+    )
+    hist.index_add_(
+        0,
+        index.reshape(-1),
+        channels.to(torch.float64)[:, None, :]
+        .expand(rows, num_features, num_channels)
+        .reshape(-1, num_channels),
+    )
+    return hist.to(torch.float32).reshape(n_nodes, num_features, max_bins, num_channels)
+
+
+def _leaf_sums(leaf_of_row, channels, n_leaves: int):
+    """Per-leaf channel sums ``(n_leaves, K)``.
+
+    Sums of float32 channels are taken in float64 and rounded once to
+    float32, here and in the kernels: a float32 sum of a node's rows in
+    row order drifts by ~1e-5 relative over a few thousand rows, while the
+    reference's float32 matmul sums in blocks and lands within ~1e-7 of the
+    exact sum. In float64 the order of the adds no longer shows in the
+    float32 result, so the plain version and the kernels agree, and class
+    counts stay exact integers."""
+    sums = torch.zeros(
+        (n_leaves, channels.shape[1]), dtype=torch.float64, device=channels.device
+    )
+    sums.index_add_(0, leaf_of_row.long(), channels.to(torch.float64))
+    return sums.to(torch.float32)
+
+
+def _cumsum_bins(hist):
+    """Cumulative sum over the bin axis (2), one bin after the other, so
+    every element rounds as a sequential sum does on any device."""
+    left = torch.empty_like(hist)
+    running = hist[:, :, 0]
+    left[:, :, 0] = running
+    for b in range(1, hist.shape[2]):
+        running = running + hist[:, :, b]
+        left[:, :, b] = running
+    return left
+
+
+def _channel_sum(values):
+    """Sum over the last axis, in order from channel 0."""
+    total = values[..., 0]
+    for k in range(1, values.shape[-1]):
+        total = total + values[..., k]
+    return total
+
+
+def _gini_gain(hist):
+    """Split scores from class-count histograms ``(nodes, F, B, C)``:
+    ``sum_c l_c^2 / n_l + sum_c r_c^2 / n_r - parent``; -inf where a side
+    is empty."""
+    left = _cumsum_bins(hist)
+    total = left[:, :, -1:, :]
+    right = total - left
+    n_left = _channel_sum(left)
+    n_right = _channel_sum(right)
+    score_left = _channel_sum(left * left) / n_left.clamp(min=EPS)
+    score_right = _channel_sum(right * right) / n_right.clamp(min=EPS)
+    parent_total = total[:, :, 0, :]
+    parent = _channel_sum(parent_total * parent_total) / _channel_sum(parent_total).clamp(min=EPS)
+    gain = score_left + score_right - parent[:, :, None]
+    valid = (n_left > 0) & (n_right > 0)
+    return torch.where(valid, gain, -torch.inf)
+
+
+def _newton_gain(hist, lam=1.0):
+    """Split scores from ``(g, h)`` histograms ``(nodes, F, B, 2)``: the
+    second-order gain of logistic boosting; -inf where a side has no
+    hessian mass."""
+    left = _cumsum_bins(hist)
+    total = left[:, :, -1:, :]
+    right = total - left
+    g_left, h_left = left[..., 0], left[..., 1]
+    g_right, h_right = right[..., 0], right[..., 1]
+    score = g_left * g_left / (h_left + lam) + g_right * g_right / (h_right + lam)
+    parent = total[:, :, 0, 0] * total[:, :, 0, 0] / (total[:, :, 0, 1] + lam)
+    gain = score - parent[:, :, None]
+    valid = (h_left > EPS) & (h_right > EPS)
+    return torch.where(valid, gain, -torch.inf)
+
+
+_GAINS = {"gini": _gini_gain, "newton": _newton_gain}
+_MODES = {"gini": 0, "newton": 1}   # the kernel's mode argument
+
+
+def _select_splits(gain, subset_scores=None, subset_k=None):
+    """Best ``(feature, bin)`` per node from ``gain (nodes, F, B)``: the
+    first maximum over the flattened ``(F, B)`` (a NaN gain counts as the
+    maximum); a node whose best gain is not > 0, or is inf, becomes a leaf
+    (feature -1, the argmax's bin kept). ``subset_scores (nodes, F)``
+    restrict each node to the ``subset_k`` features of lowest score (the
+    random forest's per-node feature subsets; the scores are drawn by the
+    caller)."""
+    n_nodes, num_features, max_bins = gain.shape
+    if subset_scores is not None and subset_k is not None and subset_k < num_features:
+        kth = torch.sort(subset_scores, dim=1).values[:, subset_k - 1]
+        allowed = subset_scores <= kth[:, None]
+        gain = torch.where(allowed[:, :, None], gain, -torch.inf)
+    flat = gain.reshape(n_nodes, -1)
+    best = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best[:, None])[:, 0]
+    is_leaf = ~(best_gain > 0) | torch.isinf(best_gain)
+    feature = torch.where(is_leaf, -1, best // max_bins).to(torch.int32)
+    return feature, (best % max_bins).to(torch.int32)
+
+
+def _select_plain(hist, mode: str, subset_scores=None, subset_k=None):
+    return _select_splits(_GAINS[mode](hist), subset_scores, subset_k)
+
+
+def _route(bins, node, feature, bin_index):
+    """Each row one level down: right iff its bin at the node's feature is
+    above the node's split bin; feature -1 nodes send every row left."""
+    row_feature = feature[node.long()]
+    row_bin = bin_index[node.long()]
+    x_bin = bins.gather(1, row_feature.clamp(min=0).long()[:, None])[:, 0]
+    go_right = (x_bin.to(torch.int32) > row_bin) & (row_feature >= 0)
+    return node * 2 + go_right.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Fit: wrappers, plain version on the CPU, the CUDA kernel on the card
+# --------------------------------------------------------------------------
+
+# K2 and K5 sum a fixed split of the rows into chunks, one block each: at
+# most 264 chunks (two per SM of an H100) of at least 1,024 rows. The split
+# depends on the row count alone, so the order of every float sum, and
+# with it the fit, repeats bit for bit.
+_MAX_CHUNKS = 264
+_MIN_CHUNK_ROWS = 1024
+_TILE_ROWS = 256              # rows a K2 block stages in shared memory at a time
+_BLOCK_SHARED_BYTES = 48 * 1024   # a block's share, so several fit on an SM
+_SHARED_BYTES = 232_448       # shared memory one block may use on an H100
+_LEAF_WARPS = 8
+
+
+def _row_chunks(rows: int) -> tuple[int, int]:
+    """``(chunks, rows per chunk)``, with no empty chunk."""
+    chunks = max(1, min(_MAX_CHUNKS, -(-rows // _MIN_CHUNK_ROWS)))
+    per_chunk = max(1, -(-rows // chunks))
+    return -(-rows // per_chunk), per_chunk
+
+
+def _block_features(num_features: int, n_nodes: int, max_bins: int, num_channels: int) -> int:
+    """Features one K2 block takes (a warp each, at most 32): as many as
+    keep its float64 partial histogram and staged rows within a block's
+    share of shared memory, spread evenly over the blocks. One feature may
+    take up to all of it."""
+    staging = _TILE_ROWS * (4 * num_channels + 4)
+    per_feature = n_nodes * max_bins * num_channels * 8 + _TILE_ROWS
+    if staging + per_feature > _SHARED_BYTES:
+        raise ValueError(
+            f"a level histogram of {n_nodes} nodes x {max_bins} bins x "
+            f"{num_channels} channels does not fit one block's shared memory"
+        )
+    most = max(1, min(32, (_BLOCK_SHARED_BYTES - staging) // per_feature))
+    blocks = -(-num_features // most)
+    return -(-num_features // blocks)
+
+
+def _leaf_warps(n_leaves: int, num_channels: int) -> int:
+    """Warps of a K5 block, each with its own float64 copy of the sums."""
+    per_warp = n_leaves * num_channels * 8
+    if per_warp > _SHARED_BYTES:
+        raise ValueError(
+            f"leaf sums of {n_leaves} leaves x {num_channels} channels do not fit "
+            "one block's shared memory"
+        )
+    return max(1, min(_LEAF_WARPS, _BLOCK_SHARED_BYTES // per_warp))
+
+
+def _check_rows(bins, node, channels=None):
+    if not isinstance(bins, torch.Tensor) or bins.dim() != 2 or bins.dtype not in (
+        torch.int8, torch.int32
+    ):
+        raise TypeError("bins must be a 2-D int8 or int32 tensor")
+    if node.dtype != torch.int32 or node.shape != (bins.shape[0],):
+        raise TypeError("node must be an int32 tensor of one entry per row")
+    tensors = [node]
+    if channels is not None:
+        if channels.dtype != torch.float32 or channels.dim() != 2:
+            raise TypeError("channels must be a 2-D float32 tensor")
+        if channels.shape[0] != bins.shape[0]:
+            raise ValueError(f"{channels.shape[0]} channel rows for {bins.shape[0]} rows")
+        tensors.append(channels)
+    for tensor in tensors:
+        if tensor.device != bins.device:
+            raise ValueError(f"operands on {tensor.device} and {bins.device}")
+
+
+def _stream(tensor):
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
+    """``(n_nodes, F, max_bins, K)`` float32 sums of the rows' channels by
+    node, feature and bin (K2)."""
+    _check_rows(bins, node, channels)
+    if bins.device.type == "cpu":
+        return _level_histograms(bins, node, channels, n_nodes, max_bins)
+    kernels.check_operands(bins, node, channels)
+    if bins.dtype != torch.int8:
+        raise TypeError("the kernel takes int8 bins")
+    rows, num_features = bins.shape
+    num_channels = channels.shape[1]
+    shape = (n_nodes, num_features, max_bins, num_channels)
+    if rows == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=bins.device)
+    # the kernel writes every cell
+    out = torch.empty(shape, dtype=torch.float32, device=bins.device)
+    if out.numel() == 0:
+        return out
+    chunks, per_chunk = _row_chunks(rows)
+    block_features = _block_features(num_features, n_nodes, max_bins, num_channels)
+    partials = torch.empty((chunks,) + tuple(out.shape), dtype=torch.float64, device=bins.device)
+    kernels.launch(
+        "level_histograms", "lo_level_histograms",
+        bins.data_ptr(), node.data_ptr(), channels.data_ptr(),
+        partials.data_ptr(), out.data_ptr(),
+        rows, num_features, n_nodes, max_bins, num_channels,
+        chunks, per_chunk, block_features, _TILE_ROWS,
+        kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
+    )
+    return out
+
+
+def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
+    """Best ``(feature, bin)`` per node of ``hist (nodes, F, B, K)`` under
+    the ``"gini"`` or ``"newton"`` gain (K3); see :func:`_select_splits`."""
+    if not isinstance(hist, torch.Tensor) or hist.dtype != torch.float32 or hist.dim() != 4:
+        raise TypeError("hist must be a 4-D float32 tensor")
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
+    if mode == "newton" and hist.shape[3] != 2:
+        raise ValueError("the newton gain takes (g, h) channels: K must be 2")
+    if hist.device.type == "cpu":
+        return _select_plain(hist, mode, subset_scores, subset_k)
+    kernels.check_operands(hist)
+    if subset_scores is not None:
+        raise NotImplementedError("feature subsets are not yet ported to the kernel")
+    n_nodes, num_features, max_bins, num_channels = hist.shape
+    feature = torch.empty(n_nodes, dtype=torch.int32, device=hist.device)
+    bin_index = torch.empty(n_nodes, dtype=torch.int32, device=hist.device)
+    if n_nodes == 0:
+        return feature, bin_index
+    kernels.launch(
+        "select_splits", "lo_select_splits",
+        hist.data_ptr(), feature.data_ptr(), bin_index.data_ptr(),
+        n_nodes, num_features, max_bins, num_channels, _MODES[mode],
+        hist.device.index, _stream(hist),
+    )
+    return feature, bin_index
+
+
+def route(bins, node, feature, bin_index):
+    """Each row's node one level down (K4)."""
+    _check_rows(bins, node)
+    if feature.dtype != torch.int32 or bin_index.dtype != torch.int32:
+        raise TypeError("feature and bin_index must be int32")
+    if feature.dim() != 1 or feature.shape != bin_index.shape:
+        raise ValueError("feature and bin_index must be 1-D, one entry per node")
+    if feature.device != bins.device or bin_index.device != bins.device:
+        raise ValueError("the split and the rows must lie on one device")
+    if bins.device.type == "cpu":
+        return _route(bins, node, feature, bin_index)
+    kernels.check_operands(bins, node, feature, bin_index)
+    if bins.dtype != torch.int8:
+        raise TypeError("the kernel takes int8 bins")
+    out = torch.empty_like(node)
+    if bins.shape[0] == 0:
+        return out
+    kernels.launch(
+        "route", "lo_route",
+        bins.data_ptr(), node.data_ptr(), feature.data_ptr(), bin_index.data_ptr(),
+        out.data_ptr(), bins.shape[0], bins.shape[1],
+        kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
+    )
+    return out
+
+
+def leaf_sums(leaf_of_row, channels, n_leaves: int):
+    """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5)."""
+    if leaf_of_row.dtype != torch.int32 or leaf_of_row.dim() != 1:
+        raise TypeError("leaf_of_row must be a 1-D int32 tensor")
+    if channels.dtype != torch.float32 or channels.dim() != 2:
+        raise TypeError("channels must be a 2-D float32 tensor")
+    if channels.shape[0] != leaf_of_row.shape[0]:
+        raise ValueError(f"{channels.shape[0]} channel rows for {leaf_of_row.shape[0]} rows")
+    if channels.device != leaf_of_row.device:
+        raise ValueError(f"operands on {channels.device} and {leaf_of_row.device}")
+    if channels.device.type == "cpu":
+        return _leaf_sums(leaf_of_row, channels, n_leaves)
+    kernels.check_operands(leaf_of_row, channels)
+    rows, num_channels = channels.shape
+    if rows == 0:
+        return torch.zeros((n_leaves, num_channels), dtype=torch.float32, device=channels.device)
+    # the kernel writes every cell
+    out = torch.empty((n_leaves, num_channels), dtype=torch.float32, device=channels.device)
+    if out.numel() == 0:
+        return out
+    warps = _leaf_warps(n_leaves, num_channels)
+    chunks, per_chunk = _row_chunks(rows)
+    partials = torch.empty(
+        (chunks, n_leaves, num_channels), dtype=torch.float64, device=channels.device
+    )
+    kernels.launch(
+        "leaf_sums", "lo_leaf_sums",
+        leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        rows, n_leaves, num_channels, chunks, per_chunk, warps,
+        kernels.max_blocks(channels.device.index), channels.device.index, _stream(channels),
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
+# Fits. No host sync anywhere in a level or boosting loop: each level's
+# split feeds the next level's routing on the device.
+# --------------------------------------------------------------------------
+
+def _grow(bins, channels, mode: str, max_depth: int, max_bins: int):
+    """Grow one tree level by level. Returns the heap (features and split
+    bins per internal node) and every row's leaf index."""
+    node = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    features_heap, bins_heap = [], []
+    for level in range(max_depth):
+        hist = level_histograms(bins, node, channels, 2**level, max_bins)
+        feature, bin_index = select_splits(hist, mode)
+        features_heap.append(feature)
+        bins_heap.append(bin_index)
+        node = route(bins, node, feature, bin_index)
+    return torch.cat(features_heap), torch.cat(bins_heap), node
+
+
+def _fit_classification_tree(bins, one_hot, max_depth: int, max_bins: int):
+    features_heap, bins_heap, leaf_of_row = _grow(
+        bins, one_hot, "gini", max_depth, max_bins
+    )
+    leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth)
+    leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[:, None]
+    return features_heap, bins_heap, leaf_probs
+
+
+def _fit_newton_tree(bins, g, h, max_depth: int, max_bins: int):
+    channels = torch.stack([g, h], dim=1)
+    features_heap, bins_heap, leaf_of_row = _grow(
+        bins, channels, "newton", max_depth, max_bins
+    )
+    sums = leaf_sums(leaf_of_row, channels, 2**max_depth)
+    leaf_values = -sums[:, 0] / (sums[:, 1] + 1.0)
+    return features_heap, bins_heap, leaf_values, leaf_of_row
+
+
+def _dt_fit(bins, y, weights, num_classes: int, max_depth: int, max_bins: int):
+    one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
+    return _fit_classification_tree(
+        bins, one_hot * weights[:, None], max_depth, max_bins
+    )
+
+
+def _heap_thresholds(features_heap, bins_heap, thresholds):
+    """Float threshold per internal node: ``thresholds[f, b]`` (a split at
+    the last bin is never selected, its right side being empty)."""
+    safe_feature = features_heap.clamp(min=0).long()
+    safe_bin = bins_heap.clamp(max=thresholds.shape[1] - 1).long()
+    return thresholds[safe_feature, safe_bin]
+
+
+def _gbt_init(y, weights):
+    """``f0``, the log-odds of the weighted base rate, as a float32 device
+    scalar, and every row's starting margin."""
+    y_f = y.to(torch.float32)
+    n_real = weights.sum().clamp(min=1.0)
+    base_rate = ((y_f * weights).sum() / n_real).clamp(1e-6, 1 - 1e-6)
+    f0 = torch.log(base_rate / (1 - base_rate))
+    return f0, f0.expand(y.shape[0]).clone()
+
+
+def _gbt_rounds_impl(bins, y, weights, margins, max_depth: int, max_bins: int, rounds: int, step):
+    """``rounds`` boosting rounds, margins in and out; the heaps of the
+    rounds stacked. Each margin update rounds the product before the add."""
+    y_f = y.to(torch.float32)
+    # a fill on the device: a copy from the host would wait for the stream
+    step = torch.full((), float(step), dtype=torch.float32, device=margins.device)
+    features, split_bins, values = [], [], []
+    for _ in range(rounds):
+        p = torch.sigmoid(margins)
+        g = (p - y_f) * weights
+        h = (p * (1 - p)).clamp(min=1e-6) * weights
+        features_heap, bins_heap, leaf_values, leaf_of_row = _fit_newton_tree(
+            bins, g, h, max_depth, max_bins
+        )
+        margins = margins + step * leaf_values[leaf_of_row.long()]
+        features.append(features_heap)
+        split_bins.append(bins_heap)
+        values.append(leaf_values)
+    if rounds <= 0:
+        nodes, device = 2**max_depth - 1, margins.device
+        return (
+            margins,
+            torch.zeros((0, nodes), dtype=torch.int32, device=device),
+            torch.zeros((0, nodes), dtype=torch.int32, device=device),
+            torch.zeros((0, nodes + 1), dtype=torch.float32, device=device),
+        )
+    return margins, torch.stack(features), torch.stack(split_bins), torch.stack(values)
+
+
+# Per-segment budget in row*rounds (the reference's, so the segments match)
+_GB_ROW_ROUNDS_BUDGET = 40e6
+
+
+def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step):
+    """Sequential boosting in segments of ``segment_steps`` rounds; the
+    margins carry from one segment to the next. Returns ``f0``, the
+    stacked heaps and leaf values, and the final margins."""
+    f0, margins = _gbt_init(y, weights)
+    if rounds <= 0:
+        margins, features_heap, bins_heap, leaf_values = _gbt_rounds_impl(
+            bins, y, weights, margins, max_depth, max_bins, 0, step
+        )
+        return f0, features_heap, bins_heap, leaf_values, margins
+    chunk = segment_steps(rounds, bins.shape[0], _GB_ROW_ROUNDS_BUDGET, bins.shape[1])
+    # The key of the gbt resume artifact (reference ml/trees.py:594-600):
+    # a saved segment resumes only under the same chunking and
+    # hyperparameters. The progress sink that checks it comes with the
+    # builder.
+    scalars = {
+        "chunk": chunk,
+        "rounds": rounds,
+        "max_depth": max_depth,
+        "max_bins": max_bins,
+        "step": float(np.asarray(step)),
+    }
+    heaps = []
+    for _ in range(rounds // chunk):
+        margins, features_heap, bins_heap, leaf_values = _gbt_rounds_impl(
+            bins, y, weights, margins, max_depth, max_bins, chunk, step
+        )
+        heaps.append((features_heap, bins_heap, leaf_values))
+    features_heap, bins_heap, leaf_values = (torch.cat(parts) for parts in zip(*heaps))
+    return f0, features_heap, bins_heap, leaf_values, margins
+
+
+# --------------------------------------------------------------------------
+# Estimators
+# --------------------------------------------------------------------------
+
+def _fit_inputs(X, y, max_bins: int, device):
+    """Host thresholds (float64 quantiles, then float32 as the bins use
+    them) and the rows, labels and thresholds on ``device``."""
+    thresholds = make_thresholds(X, max_bins)
+    X_dev = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device)
+    y_dev = torch.from_numpy(np.asarray(y, dtype=np.int64)).to(device)
+    thresholds_dev = torch.from_numpy(thresholds.astype(np.float32)).to(device)
+    return X_dev, y_dev, thresholds_dev
+
+
+class DecisionTreeClassifier:
+    def __init__(
+        self, max_depth: int = MAX_DEPTH, max_bins: int = MAX_BINS, device: DeviceLike = None
+    ):
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.device = resolve_device(device)
+
+    def fit(self, X, y) -> _TreeEnsembleModel:
+        num_classes = infer_num_classes(y)
+        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        bins = apply_bins(X_dev, thresholds)
+        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
+        features_heap, bins_heap, leaf_probs = _dt_fit(
+            bins, y_dev, weights, num_classes, self.max_depth, self.max_bins
+        )
+        thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
+        return _TreeEnsembleModel(
+            features_heap[None], thresholds_heap[None], leaf_probs[None], self.max_depth
+        )
+
+
+class GBTClassifier:
+    """Binary gradient-boosted trees (MLlib GBTClassifier is binary-only)."""
+
+    def __init__(
+        self,
+        rounds: int = GBT_ROUNDS,
+        step: float = GBT_STEP,
+        max_depth: int = MAX_DEPTH,
+        max_bins: int = MAX_BINS,
+        device: DeviceLike = None,
+    ):
+        self.rounds = rounds
+        self.step = step
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.device = resolve_device(device)
+
+    def fit(self, X, y) -> GBTModel:
+        if infer_num_classes(y) > 2:
+            raise ValueError("GBTClassifier supports binary labels only (MLlib contract)")
+        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        bins = apply_bins(X_dev, thresholds)
+        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
+        f0, features_heap, bins_heap, leaf_values, _ = _gbt_fit(
+            bins, y_dev, weights, self.max_depth, self.max_bins, self.rounds, self.step
+        )
+        thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
+        # the fit's one device-to-host copy: f0, which the model keeps on the host
+        return GBTModel(
+            float(f0), features_heap, thresholds_heap, leaf_values, self.step, self.max_depth
         )
