@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's predict lane and tree fits on one CUDA card.
+"""Drive the PyTorch port's predict lane and its lr, dt, gb and nb fits on
+one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -29,13 +30,27 @@ Phases, one JSON line each:
                  one-hot) and gb ((g, h)) channels: bins, counts, splits and
                  routes identical, gb sums within 1e-5 relative; times,
                  each call with L2 overwritten before it, no time below
-                 its bound.
-6. fit         — ``make_classifier("dt")`` and ``make_classifier("gb")`` fit
-                 the same 1,000,000 rows on the card, then evaluate_predict,
+                 its bound. Then the size limits: K1, K2 and K4 at 255 bins
+                 (int32 bins) identical; K2 at a 2,048-node level with K = 2
+                 and K = 10 and K5 at 4,096 leaves with K = 10 (windows
+                 past one block's shared memory), counts identical and sums
+                 within 1e-5; K6 at 20 trees of depth 10 and at one tree of
+                 depth 12 with 20 classes, bit-equal. Then K7, both entry
+                 points, against the plain twin on the same rows
+                 standardized by scaler_stats, with 2 and 10 classes: loss
+                 within 1e-6 relative, gradient within 1e-6, a second launch
+                 bit identical; times cold (L2 overwritten) and warm.
+6. fit         — ``make_classifier(...)`` fits dt, gb, lr and nb on the same
+                 1,000,000 rows on the card, then evaluate_predict,
                  save_model and one request each over HTTP. Held against
                  plain-version fits on the card (dt: identical heaps and
-                 metrics; gb: margins and accuracy within 1e-3), and gb refit
-                 bit for bit; the fit kernels' launch counts per fit.
+                 metrics; gb: margins and accuracy within 1e-3; lr: losses
+                 within 1e-5 relative, the same stop segment, probabilities
+                 within 1e-4), gb and lr refit bit for bit, no host sync in
+                 a level, round or L-BFGS segment; nb's theta and prior
+                 within 4e-6 of a float64 host computation; a depth-12 dt
+                 of 10 classes with heaps identical to its plain-version
+                 fit; the fit kernels' launch counts per fit; K9's time.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -60,7 +75,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.ml import binning, make_classifier, trees
+from learningorchestra_tpu_torch.ml import (
+    binning,
+    evaluation,
+    logistic,
+    make_classifier,
+    naive_bayes,
+    trees,
+)
 from learningorchestra_tpu_torch.ml.checkpoint import (
     checkpoint_path,
     load_model,
@@ -110,9 +132,35 @@ FIT_REPLACES = {
     "route": "learningorchestra_tpu/ml/trees.py:235 _route (:217 _indicator_lookup)",
     "leaf_sums": "learningorchestra_tpu/ml/trees.py:142 _leaf_sums",
 }
+LOGISTIC_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/logistic.cu"
+LOGISTIC_REPLACES = {
+    "logistic_loss_grad": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn under value_and_grad "
+        "in :141 _fit_segment_impl"
+    ),
+    "logistic_trial_losses": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn in the Armijo loop "
+        ":176-200 of :141 _fit_segment_impl"
+    ),
+}
+FIT_KERNELS = tuple(FIT_REPLACES) + tuple(LOGISTIC_REPLACES)
 FIT_ROWS = 1_000_000   # bench.py's synthetic rows
 GB_SUM_RTOL = 1e-5     # gb sums: float64 atomics in the plain version's scatter
 FIT_MARGIN_TOL = 1e-3  # gb fit against the plain-version fit: margins, accuracy
+# K7 against its plain twin: both sum rows in float64; the logits round in
+# another order (fmaf in the kernel, cuBLAS in the twin)
+K7_LOSS_RTOL = 1e-6
+K7_GRAD_ATOL = 1e-6
+LR_LOSS_RTOL = 1e-5    # lr fit against the plain-version fit, per iteration
+LR_PROB_TOL = 1e-4     # and its probabilities
+# nb theta and prior against float64 on the host: each is a float32
+# difference of two logs near 16 (sums near 1e7), where one float32 step
+# is 1.9e-6
+NB_TOL = 4e-6
+DEEP_DEPTH, DEEP_CLASSES = 12, 10   # the deep dt: 2,048 nodes at its last level
+# H100 SXM float64 peak off the tensor cores (NVIDIA data sheet): K7 sums
+# its gradient in float64
+PEAK_FP64_OPS_PER_S = 33.5e12
 # CUDA kernels of each device program; the profiler sums their device time
 DEVICE_KERNELS = {
     "tree_ensemble_forward": ("tree_ensemble_forward_kernel",),
@@ -122,6 +170,8 @@ DEVICE_KERNELS = {
     "select_splits": ("select_splits_kernel",),
     "route": ("route_kernel",),
     "leaf_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
+    "logistic_loss_grad": ("loss_grad_kernel", "finish_kernel"),
+    "logistic_trial_losses": ("trial_losses_kernel", "finish_kernel"),
 }
 
 
@@ -352,6 +402,13 @@ def _profile_device_us(torch, fn, kernel_names=None) -> float:
                 event, "self_cuda_time_total", 0.0
             )
     return total_us
+
+
+def _busy_ms(torch, fn):
+    """Device milliseconds of every CUDA kernel in the trace of ``fn``;
+    None when the trace shows no device time (the profiler missed it)."""
+    total_us = _profile_device_us(torch, fn)
+    return total_us / 1000.0 if total_us > 0 else None
 
 
 def _device_ms(torch, fn, kernel_names, repeats: int, flush=None):
@@ -680,6 +737,204 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
     return {"errors": errors, "bins": bins, "cases": cases}
 
 
+def ten_classes(X: np.ndarray, seed: int = 3) -> np.ndarray:
+    """Ten roughly balanced classes of bench.py's rows: deciles of the
+    same noisy score that makes its two classes."""
+    rng = np.random.default_rng(seed)
+    score = X[:, 0] + X[:, 1] * 0.5 + rng.random(X.shape[0], dtype=np.float32) * 8
+    return np.digitize(score, np.quantile(score, np.linspace(0.1, 0.9, 9))).astype(np.int32)
+
+
+def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
+    """The kernels at the shapes past their former limits, against their
+    plain versions on the same inputs: int32 bins (255 bins), a 2,048-node
+    level and 4,096 leaves (windows of shared memory), and forests whose
+    heaps do not fit a block together (20 trees of depth 10) or at all (a
+    depth-12 tree of 20 classes)."""
+    record = {}
+    X_dev = torch.from_numpy(X).cuda()
+    y10 = torch.from_numpy(ten_classes(X).astype(np.int64)).cuda()
+    # R1: 255 bins, int32
+    thresholds = torch.from_numpy(binning.make_thresholds(X, 255).astype(np.float32)).cuda()
+    bins = binning.apply_bins(X_dev, thresholds)
+    if bins.dtype != torch.int32 or not torch.equal(bins, binning._apply_bins(X_dev, thresholds)):
+        raise AssertionError("apply_bins at 255 bins: bins differ (or are not int32)")
+    channels = _fit_channels(torch, y10 % 2, seed=8)
+    channels["gini"] = torch.nn.functional.one_hot(y10, DEEP_CLASSES).to(torch.float32)
+    node = torch.zeros(X.shape[0], dtype=torch.int32, device=X_dev.device)
+    errors = {"level_histograms": 0.0, "leaf_sums": 0.0}
+    for level in range(4):
+        plain = {}
+        for mode, values in channels.items():
+            hist = trees.level_histograms(bins, node, values, 2**level, 255)
+            plain[mode] = trees._level_histograms(bins, node, values, 2**level, 255)
+            errors["level_histograms"] = max(
+                errors["level_histograms"],
+                _sums_error("level_histograms (255 bins)", mode, hist, plain[mode]),
+            )
+        feature, bin_index = trees._select_plain(plain["newton"], "newton")
+        routed = trees.route(bins, node, feature, bin_index)
+        if not torch.equal(routed, trees._route(bins, node, feature, bin_index)):
+            raise AssertionError(f"route at 255 bins, level {level}: nodes differ")
+        node = routed
+    record["bins_255"] = {"int32": True, "levels": 4, "max_abs_err": errors["level_histograms"]}
+    # R2: a depth-12 level and 4,096 leaves
+    bins = binning.apply_bins(X_dev, torch.from_numpy(binning.make_thresholds(X).astype(np.float32)).cuda())
+    rng = np.random.default_rng(9)
+    deep = 2 ** (DEEP_DEPTH - 1)
+    node = torch.from_numpy(rng.integers(0, deep, X.shape[0]).astype(np.int32)).cuda()
+    leaf = torch.from_numpy(rng.integers(0, 2 * deep, X.shape[0]).astype(np.int32)).cuda()
+    timings = {}
+    for mode, values in channels.items():
+        K = values.shape[1]
+        hist = trees.level_histograms(bins, node, values, deep, MAX_BINS)
+        plain = trees._level_histograms(bins, node, values, deep, MAX_BINS)
+        errors["level_histograms"] = max(
+            errors["level_histograms"], _sums_error("level_histograms (2,048 nodes)", mode, hist, plain)
+        )
+        tiling = trees._block_features(FEATURES, deep, MAX_BINS, K, 1)
+        timings[f"level_histograms:{deep}x{K}"] = {
+            "ms": _event_ms(torch, lambda: trees.level_histograms(bins, node, values, deep, MAX_BINS), 3),
+            "windows": len(trees._windows(deep, tiling.nodes)),
+        }
+    sums = trees.leaf_sums(leaf, channels["gini"], 2 * deep)
+    plain = trees._leaf_sums(leaf, channels["gini"], 2 * deep)
+    errors["leaf_sums"] = _sums_error("leaf_sums (4,096 leaves)", "gini", sums, plain)
+    timings[f"leaf_sums:{2 * deep}x{DEEP_CLASSES}"] = {
+        "ms": _event_ms(torch, lambda: trees.leaf_sums(leaf, channels["gini"], 2 * deep), 3),
+        "windows": len(trees._windows(2 * deep, trees._leaf_warps(2 * deep, DEEP_CLASSES).leaves)),
+    }
+    record["wide_levels"] = {"max_abs_err": errors, "timings": timings}
+    # R3: forests past a block's shared memory, bit-equal to the plain forward
+    forests = {}
+    for count, depth, classes in ((TREES, 10, CLASSES), (1, DEEP_DEPTH, 20)):
+        fh, th, lp, lv = _forest(torch, X, count, depth, classes, seed=count + depth)
+        calls = {
+            "tree_ensemble_forward": (
+                lambda: trees.ensemble_forward(X_dev, fh, th, lp, depth),
+                lambda: trees._ensemble_forward(X_dev, fh, th, lp, depth),
+            ),
+            "gbt_forward": (
+                lambda: trees.gbt_forward(X_dev, -0.2, fh, th, lv, STEP, depth),
+                lambda: trees._gbt_forward(X_dev, -0.2, fh, th, lv, STEP, depth),
+            ),
+        }
+        for name, (kernel, plain) in calls.items():
+            if not torch.equal(kernel(), plain()):
+                raise AssertionError(f"{name} at {count} trees of depth {depth}: not bit-equal")
+            forests[f"{name}:{count}x{depth}x{classes}"] = {"ms": _event_ms(torch, kernel, 3)}
+    record["forests"] = {"bit_equal": True, "timings": forests}
+    return record
+
+
+def _forest(torch, X, count, depth, classes, seed):
+    """Heaps of ``count`` trees of ``depth`` on ``X``'s features, as a fit
+    writes them, and their leaf parameters, on the card."""
+    rng = np.random.default_rng(seed)
+    thresholds = binning.make_thresholds(X[:4096]).astype(np.float32)
+    features_heap, thresholds_heap = _heaps(rng, thresholds, count, depth, leaf_rate=0.02)
+    leaves = 2**depth
+    leaf_probs = rng.dirichlet(np.ones(classes), size=(count, leaves)).astype(np.float32)
+    leaf_values = rng.normal(size=(count, leaves)).astype(np.float32)
+    return tuple(
+        torch.from_numpy(array).cuda()
+        for array in (features_heap, thresholds_heap, leaf_probs, leaf_values)
+    )
+
+
+def _k7_bound(rows: int, features: int, classes: int, trial: bool) -> tuple[float, str]:
+    """Least milliseconds for one K7 call: X and y read once (the
+    parameters and outputs are bytes beside them) over HBM bandwidth,
+    against its operations at their type's peak: per row and candidate
+    2FC float32 for the logits and ~4C for the softmax, and for the
+    gradient 2FC + 2C float64."""
+    F, C = features, classes
+    candidates = 4 if trial else 1
+    params = candidates * (F * C + C) * 4
+    bytes_moved = rows * F * 4 + rows * 4 + params + (candidates if trial else F * C + C + 1) * 4
+    fp32_ops = rows * candidates * (2 * F * C + 4 * C)
+    fp64_ops = 0 if trial else rows * (2 * F * C + 2 * C + 1)
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = (fp32_ops / PEAK_FP32_OPS_PER_S + fp64_ops / PEAK_FP64_OPS_PER_S) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def check_logistic_kernels(torch, X: np.ndarray, y: np.ndarray, flush) -> dict:
+    """K7's two entry points against the plain twin at the fit's shape:
+    bench.py's rows standardized by scaler_stats, 2 and 10 classes, at a
+    seeded mid-fit point, reg 0 and 0.1. Times at reg 0: cold (L2
+    overwritten before each call) and warm (back to back)."""
+    mean, scale = logistic.scaler_stats(X)
+    X_dev = torch.from_numpy(logistic._standardized(X, mean, scale)).cuda()
+    rows = X.shape[0]
+    results = {name: {"max_abs_err": 0.0, "by_classes": {}} for name in LOGISTIC_REPLACES}
+    for classes, labels in ((CLASSES, y), (DEEP_CLASSES, ten_classes(X))):
+        rng = np.random.default_rng(classes)
+        y_dev = torch.from_numpy(labels.astype(np.int32)).cuda()
+
+        def cuda(*shape, scale_by=0.3):
+            return torch.from_numpy((rng.normal(size=shape) * scale_by).astype(np.float32)).cuda()
+
+        W, b, D, d = cuda(FEATURES, classes), cuda(classes), cuda(FEATURES, classes), cuda(classes)
+        steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X_dev.device)
+        W4 = (W[None] + steps[:, None, None] * D[None]).contiguous()
+        b4 = (b[None] + steps[:, None] * d[None]).contiguous()
+        for l2 in (0.0, 0.1):
+            got = logistic.loss_and_grad(W, b, X_dev, y_dev, l2)
+            want = logistic._loss_fn(W, b, X_dev, y_dev, l2)
+            again = logistic.loss_and_grad(W, b, X_dev, y_dev, l2)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"logistic_loss_grad ({classes} classes): a second launch differs")
+            loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+            grad_err = max(float((got[i] - want[i]).abs().max()) for i in (1, 2))
+            if not loss_rel <= K7_LOSS_RTOL or not grad_err <= K7_GRAD_ATOL:
+                raise AssertionError(
+                    f"logistic_loss_grad ({classes} classes, l2 {l2}): loss {loss_rel} "
+                    f"relative, gradient {grad_err}"
+                )
+            trial = logistic.trial_losses(W4, b4, X_dev, y_dev, l2)
+            plain_trial = logistic._trial_losses(W4, b4, X_dev, y_dev, l2)
+            if not torch.equal(trial, logistic.trial_losses(W4, b4, X_dev, y_dev, l2)):
+                raise AssertionError(f"logistic_trial_losses ({classes} classes): a second launch differs")
+            trial_rel = float(((trial - plain_trial).abs() / plain_trial.abs()).max())
+            if not trial_rel <= K7_LOSS_RTOL:
+                raise AssertionError(f"logistic_trial_losses ({classes} classes, l2 {l2}): {trial_rel} relative")
+            results["logistic_loss_grad"]["max_abs_err"] = max(
+                results["logistic_loss_grad"]["max_abs_err"],
+                grad_err, abs(float(got[0]) - float(want[0])),
+            )
+            results["logistic_trial_losses"]["max_abs_err"] = max(
+                results["logistic_trial_losses"]["max_abs_err"], float((trial - plain_trial).abs().max())
+            )
+        calls = {
+            "logistic_loss_grad": (
+                lambda: logistic.loss_and_grad(W, b, X_dev, y_dev, 0.0),
+                lambda: logistic._loss_fn(W, b, X_dev, y_dev, 0.0),
+            ),
+            "logistic_trial_losses": (
+                lambda: logistic.trial_losses(W4, b4, X_dev, y_dev, 0.0),
+                lambda: logistic._trial_losses(W4, b4, X_dev, y_dev, 0.0),
+            ),
+        }
+        for name, (kernel, plain) in calls.items():
+            bound_ms, bound_by = _k7_bound(rows, FEATURES, classes, name == "logistic_trial_losses")
+            results[name]["by_classes"][classes] = {
+                "ms": _event_ms(torch, kernel, 20, flush),
+                "warm_ms": _event_ms(torch, kernel, 50),
+                "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], 20, flush),
+                "plain_ms": _event_ms(torch, plain, 3, flush),
+                # no single PyTorch call computes the mean nll with its
+                # gradient, or at four parameter sets
+                "library_ms": None,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+    for result in results.values():
+        # the main path's shape: bench.py's two classes
+        result.update(result["by_classes"][CLASSES])
+    return results
+
+
 def phase_fit_kernels(torch) -> dict:
     X, y = bench_synthetic(FIT_ROWS)
     thresholds_np = binning.make_thresholds(X).astype(np.float32)
@@ -764,12 +1019,18 @@ def phase_fit_kernels(torch) -> dict:
             values = [level[field] for level in levels]
             result[field] = None if None in values else sum(values) / len(values)
         result["bound_by"] = levels[0]["bound_by"]
-    emit({"phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS, **results})
+    X, y = bench_synthetic(FIT_ROWS)
+    repairs = check_repairs(torch, X, y)
+    results.update(check_logistic_kernels(torch, X, y, flush))
+    emit({
+        "phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS,
+        **results, "repairs": repairs,
+    })
     return results
 
 
 def _fit_launches(before: dict, after: dict) -> dict:
-    return {name: after[name] - before[name] for name in FIT_REPLACES}
+    return {name: after[name] - before[name] for name in FIT_KERNELS}
 
 
 @contextlib.contextmanager
@@ -777,23 +1038,47 @@ def _plain_level_loop():
     """Within the block, the fits of ``trees`` run the level loop's plain
     versions in place of its kernels, on any device: the yardstick that a
     fit by the kernels is held to. Raises if a kernel launched."""
-    plain = {
+    with _plain(trees, {
         "level_histograms": trees._level_histograms,
         "select_splits": trees._select_plain,
         "route": trees._route,
         "leaf_sums": trees._leaf_sums,
-    }
-    wrappers = {name: getattr(trees, name) for name in plain}
+    }):
+        yield
+
+
+@contextlib.contextmanager
+def _plain_k7():
+    """Within the block, the lr fit runs K7's plain twin in place of the
+    kernel, on any device. Raises if a kernel launched."""
+    with _plain(logistic, {
+        "loss_and_grad": logistic._loss_fn,
+        "trial_losses": logistic._trial_losses,
+    }):
+        yield
+
+
+@contextlib.contextmanager
+def _plain(module, plain: dict):
+    wrappers = {name: getattr(module, name) for name in plain}
     before = kernels.launches()
     for name, function in plain.items():
-        setattr(trees, name, function)
+        setattr(module, name, function)
     try:
         yield
     finally:
         for name, function in wrappers.items():
-            setattr(trees, name, function)
+            setattr(module, name, function)
     if kernels.launches() != before:
         raise AssertionError("a plain-version fit launched a kernel")
+
+
+def _tree_launches(depth: int, rounds: int = 1) -> dict:
+    return {
+        "apply_bins": 1, "level_histograms": depth * rounds, "select_splits": depth * rounds,
+        "route": depth * rounds, "leaf_sums": rounds,
+        "logistic_loss_grad": 0, "logistic_trial_losses": 0,
+    }
 
 
 def phase_fit(torch, card: str) -> dict:
@@ -811,15 +1096,15 @@ def phase_fit(torch, card: str) -> dict:
 
     # the main path: fit, evaluate, save, serve
     models, record = {}, {"phase": "fit", "rows": rows, "features": FEATURES}
+    no_launches = {name: 0 for name in FIT_KERNELS}
     expected = {
-        "dt": {"apply_bins": 1, "level_histograms": DEPTH, "select_splits": DEPTH,
-               "route": DEPTH, "leaf_sums": 1},
-        "gb": {"apply_bins": 1, "level_histograms": DEPTH * GBT_ROUNDS,
-               "select_splits": DEPTH * GBT_ROUNDS, "route": DEPTH * GBT_ROUNDS,
-               "leaf_sums": GBT_ROUNDS},
+        "dt": _tree_launches(DEPTH),
+        "gb": _tree_launches(DEPTH, GBT_ROUNDS),
+        "lr": None,   # from the direct fit's iterations, below
+        "nb": no_launches,
     }
     kernels.reset_launches()
-    for name in ("dt", "gb"):
+    for name in ("dt", "gb", "lr", "nb"):
         before = kernels.launches()
         torch.cuda.synchronize()
         started = time.perf_counter()
@@ -827,7 +1112,7 @@ def phase_fit(torch, card: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - started
         launches = _fit_launches(before, kernels.launches())
-        if launches != expected[name]:
+        if expected[name] is not None and launches != expected[name]:
             raise AssertionError(f"{name} fit launched {launches}, expected {expected[name]}")
         accuracy, weighted_f1, labels, probs = model.evaluate_predict(X, y, X)
         if probs.shape != (rows, CLASSES) or not np.isfinite(probs).all():
@@ -837,12 +1122,12 @@ def phase_fit(torch, card: str) -> dict:
         models[name] = model
         record[name] = {
             "wall_s": wall_s,
-            "host_thresholds_s": thresholds_s,
-            "h2d_s": h2d_s,
             "launches": launches,
             "accuracy": accuracy,
             "weighted_f1": weighted_f1,
         }
+        if name in ("dt", "gb"):
+            record[name].update(host_thresholds_s=thresholds_s, h2d_s=h2d_s)
     serve_rows = bench_rows(np.random.default_rng(13), 8)
     with tempfile.TemporaryDirectory() as models_dir:
         for name, model in models.items():
@@ -853,17 +1138,36 @@ def phase_fit(torch, card: str) -> dict:
             client = _Client(server.port)
             for name, model in models.items():
                 status, body = client.call("POST", f"/models/{name}_fit/predict", {"rows": serve_rows.tolist()})
-                _check_answer(name, status, body, serve_rows, model.predict_proba(serve_rows), TREE_TOL)
+                tolerance = LINEAR_TOL if name in ("lr", "nb") else TREE_TOL
+                _check_answer(name, status, body, serve_rows, model.predict_proba(serve_rows), tolerance)
         finally:
             server.stop()
             plane.close()
     torch.cuda.synchronize()
     record["launches"] = kernels.launches()
-    missing = [name for name in FIT_REPLACES if record["launches"][name] == 0]
+    missing = [name for name in FIT_KERNELS if record["launches"][name] == 0]
     if missing:
         raise AssertionError(f"the fit path never launched {missing}")
 
-    # held against fits by the plain versions on the card
+    check_tree_fits(torch, X, y, X_dev, y_dev, thresholds_np, models, record)
+    check_lr_fit(torch, X, y, models["lr"], record)
+    check_nb_fit(torch, X, y, models["nb"], record)
+    record["dt_deep"] = check_deep_dt(torch, X)
+    record["K9"] = time_metrics(torch, y_dev)
+    # the device's share of a fit's wall time: the trace's kernel time of
+    # one more fit through the estimator
+    for name in models:
+        record[name]["device_busy_ms"] = _busy_ms(torch, lambda: make_classifier(name).fit(X, y))
+    record["host_syncs_in_fit_loops"] = 0
+    record["nvidia_smi"] = card
+    emit(record)
+    return record
+
+
+def check_tree_fits(torch, X, y, X_dev, y_dev, thresholds_np, models, record) -> None:
+    """dt and gb held against fits by the plain versions on the card; gb
+    refit bit for bit; no host sync in a level or boosting loop."""
+    rows = X.shape[0]
     thresholds = torch.from_numpy(thresholds_np.astype(np.float32)).cuda()
     weights = torch.ones(rows, dtype=torch.float32, device=X_dev.device)
     plain_bins = binning._apply_bins(X_dev, thresholds)
@@ -929,24 +1233,168 @@ def phase_fit(torch, card: str) -> dict:
         plain_train_accuracy_from_margins=plain_accuracy,
         rerun_bit_identical=True,
     )
-    # the device's share of a fit's wall time: the trace's kernel time of
-    # one more fit through the estimator
-    for name in models:
-        record[name]["device_busy_ms"] = (
-            _profile_device_us(torch, lambda: make_classifier(name).fit(X, y)) / 1000.0
-        )
     record["dt"]["heaps_identical_to_plain"] = True
-    record["host_syncs_in_fit_loops"] = 0
-    record["nvidia_smi"] = card
-    emit(record)
-    return record
+
+
+def check_lr_fit(torch, X, y, model, record) -> None:
+    """The estimator's lr fit against the same fit run directly (its K7
+    launches: two an iteration, one a segment), a second run bit for bit,
+    segments run with host syncs made errors, and a fit by the plain twin
+    on the card: losses within LR_LOSS_RTOL, the same stop segment and
+    probabilities within LR_PROB_TOL."""
+    started = time.perf_counter()
+    mean, scale = logistic.scaler_stats(X)
+    X_std = logistic._standardized(X, mean, scale)
+    host_scaler_s = time.perf_counter() - started
+    X_dev = torch.from_numpy(X_std).cuda()
+    y_dev = torch.from_numpy(y.astype(np.int32)).cuda()
+
+    def start():
+        W = torch.zeros((FEATURES, CLASSES), dtype=torch.float32, device=X_dev.device)
+        return W, torch.zeros(CLASSES, dtype=torch.float32, device=X_dev.device)
+
+    def fit():
+        return logistic._fit(*start(), X_dev, y_dev, 100, 0.0)
+
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    W, b, losses = fit()
+    torch.cuda.synchronize()
+    lbfgs_s = time.perf_counter() - started
+    iterations = losses.shape[0]
+    iters = logistic._segment_iters(100, X.shape[0], FEATURES, logistic._LR_TOL)
+    expected = {
+        **{name: 0 for name in FIT_KERNELS},
+        "logistic_loss_grad": iterations + iterations // iters,
+        "logistic_trial_losses": iterations,
+    }
+    if record["lr"]["launches"] != expected:
+        raise AssertionError(f"lr fit launched {record['lr']['launches']}, expected {expected}")
+    if not (torch.equal(W, model.w) and torch.equal(b, model.b)):
+        raise AssertionError("lr: the estimator's fit differs from the same fit run directly")
+    again = fit()
+    if not all(torch.equal(a, c) for a, c in zip((W, b, losses), again)):
+        raise AssertionError("lr: a second fit with the kernel is not bit identical")
+    # no host sync inside a segment: the loss copy between segments is the
+    # fit's one transfer
+    W_s, b_s = start()
+    state = logistic._lbfgs_state(W_s, b_s)
+    segment_losses = []
+    for _ in range(iterations // iters):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            W_s, b_s, state, part = logistic._fit_segment_impl(W_s, b_s, state, X_dev, y_dev, iters, 0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        segment_losses.append(part.cpu())
+    if not torch.equal(torch.cat(segment_losses), losses.cpu()):
+        raise AssertionError("lr: the segments run one by one differ from the fit")
+    with _plain_k7():
+        plain_W, plain_b, plain_losses = fit()
+    if plain_losses.shape != losses.shape:
+        raise AssertionError(
+            f"lr: {iterations} iterations with the kernel, {plain_losses.shape[0]} with the plain twin"
+        )
+    loss_rel = float(((losses - plain_losses).abs() / plain_losses.abs()).max())
+    probs = logistic._forward(X_dev, W, b, 0.0, 1.0)
+    plain_probs = logistic._forward(X_dev, plain_W, plain_b, 0.0, 1.0)
+    prob_err = float((probs - plain_probs).abs().max())
+    if loss_rel > LR_LOSS_RTOL or prob_err > LR_PROB_TOL:
+        raise AssertionError(f"lr: losses {loss_rel} relative, probabilities {prob_err} from the plain fit")
+    record["lr"].update(
+        host_scaler_s=host_scaler_s,
+        lbfgs_s=lbfgs_s,
+        lbfgs_device_busy_ms=_busy_ms(torch, fit),
+        iterations=iterations,
+        segments=iterations // iters,
+        first_loss=float(losses[0]),
+        last_loss=float(losses[-1]),
+        max_loss_rel_err_to_plain=loss_rel,
+        max_prob_err_to_plain=prob_err,
+        rerun_bit_identical=True,
+    )
+
+
+def check_nb_fit(torch, X, y, model, record) -> None:
+    """nb's theta and prior against a float64 computation on the host, and
+    a second fit bit for bit."""
+    classes = int(y.max()) + 1
+    sums = np.stack([X[y == c].astype(np.float64).sum(axis=0) for c in range(classes)])
+    counts = np.bincount(y, minlength=classes).astype(np.float64)
+    smoothed = sums + 1.0
+    theta = np.log(smoothed) - np.log(smoothed.sum(axis=1, keepdims=True))
+    prior = np.log(counts) - np.log(len(y))
+    theta_err = float(np.abs(model.theta.cpu().numpy() - theta).max())
+    prior_err = float(np.abs(model.prior.cpu().numpy() - prior).max())
+    if theta_err > NB_TOL or prior_err > NB_TOL:
+        raise AssertionError(f"nb: theta {theta_err}, prior {prior_err} from float64")
+    again = naive_bayes.NaiveBayes().fit(X, y)
+    if not (torch.equal(again.theta, model.theta) and torch.equal(again.prior, model.prior)):
+        raise AssertionError("nb: a second fit is not bit identical")
+    record["nb"].update(max_theta_err_to_f64=theta_err, max_prior_err_to_f64=prior_err, rerun_bit_identical=True)
+
+
+def check_deep_dt(torch, X) -> dict:
+    """A depth-12 dt of 10 classes (2,048 nodes at its last level, past
+    one block's shared memory) through the estimator, its heaps identical
+    to a fit by the plain versions on the card."""
+    y10 = ten_classes(X)
+    estimator = make_classifier("dt")
+    estimator.max_depth = DEEP_DEPTH
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    model = estimator.fit(X, y10)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - started
+    X_dev = torch.from_numpy(X).cuda()
+    y_dev = torch.from_numpy(y10.astype(np.int64)).cuda()
+    thresholds = torch.from_numpy(binning.make_thresholds(X).astype(np.float32)).cuda()
+    weights = torch.ones(X.shape[0], dtype=torch.float32, device=X_dev.device)
+    with _plain_level_loop():
+        features_heap, bins_heap, leaf_probs = trees._dt_fit(
+            binning._apply_bins(X_dev, thresholds), y_dev, weights, DEEP_CLASSES, DEEP_DEPTH, MAX_BINS
+        )
+    if not (
+        torch.equal(model.features_heap[0], features_heap)
+        and torch.equal(model.thresholds_heap[0], trees._heap_thresholds(features_heap, bins_heap, thresholds))
+        and torch.equal(model.leaf_probs[0], leaf_probs)
+    ):
+        raise AssertionError("deep dt: the kernels' heaps differ from the plain-version fit")
+    splits = int((features_heap >= 0).sum())
+    last_level = int((features_heap[2 ** (DEEP_DEPTH - 1) - 1 :] >= 0).sum())
+    if last_level == 0:
+        raise AssertionError("deep dt: the last level does not split")
+    return {
+        "depth": DEEP_DEPTH, "classes": DEEP_CLASSES, "wall_s": wall_s,
+        "splits": splits, "last_level_splits": last_level, "heaps_identical_to_plain": True,
+        "device_busy_ms": _busy_ms(torch, lambda: estimator.fit(X, y10)),
+    }
+
+
+def time_metrics(torch, y_dev) -> dict:
+    """K9 (the confusion matrix and its metrics, torch ops) at the fit's
+    rows, cold and warm, beside its bound: the two int64 label vectors
+    read once over HBM bandwidth."""
+    predicted = (y_dev + (torch.arange(y_dev.shape[0], device=y_dev.device) % 7 == 0)) % CLASSES
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=y_dev.device)
+
+    def call():
+        return evaluation.masked_metrics(y_dev, predicted, None, CLASSES)
+
+    return {
+        "ms": _event_ms(torch, call, 20, flush),
+        "warm_ms": _event_ms(torch, call, 50),
+        "bound_ms": 2 * y_dev.numel() * 8 / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
 
 
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
     for entry in summary:
-        for key, at in {**entry.get("by_rows", {}), **entry.get("by_level", {})}.items():
+        timed = {**entry.get("by_rows", {}), **entry.get("by_level", {}), **entry.get("by_classes", {})}
+        for key, at in timed.items():
             for field in ("ms", "device_ms"):
                 if at[field] is not None and at[field] < at["bound_ms"]:
                     raise AssertionError(
@@ -995,18 +1443,20 @@ def main(argv) -> int:
     fit = phase_fit(torch, device["card"]) if "fit" in wanted else None
     if fit_kernels:
         for name, result in fit_kernels.items():
+            k7 = name in LOGISTIC_REPLACES
             summary.append({
                 "name": name,
                 "route": "cuda",
-                "source": FIT_SOURCE,
-                "replaces": FIT_REPLACES[name],
+                "source": LOGISTIC_SOURCE if k7 else FIT_SOURCE,
+                "replaces": LOGISTIC_REPLACES[name] if k7 else FIT_REPLACES[name],
                 "launches": fit["launches"][name] if fit else None,
                 "max_abs_err": result["max_abs_err"],
                 "rows": FIT_ROWS,
                 **{field: result[field] for field in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"
                 )},
-                "by_level": result["by_level"],
+                **({"warm_ms": result["warm_ms"], "by_classes": result["by_classes"]} if k7
+                   else {"by_level": result["by_level"]}),
             })
     check_bounds(summary)
     emit({"kernels": summary})

@@ -5,14 +5,16 @@ Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 
 - ``tree_forward.cu``: the tree forward (K6), for the predict lane;
-- ``tree_fit.cu``: the fit's level loop (K1-K5).
+- ``tree_fit.cu``: the fit's level loop (K1-K5);
+- ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
+  and its Armijo trial losses (K7).
 
 A library lands in ``_build/`` under a name that carries a hash of its
 source, and is published with ``os.replace``, so two processes never load
 half a file and an edited source is rebuilt.
 
 The wrappers that launch these kernels live beside their plain PyTorch
-versions (``ml/binning.py``, ``ml/trees.py``). Each wrapper adds one to
+versions (``ml/binning.py``, ``ml/trees.py``, ``ml/logistic.py``). Each wrapper adds one to
 its kernel's launch count where it launches, and nowhere else, so a run
 can show that its main path went through the kernel.
 """
@@ -34,6 +36,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "tree_forward": os.path.join(_HERE, "csrc", "tree_forward.cu"),
     "tree_fit": os.path.join(_HERE, "csrc", "tree_fit.cu"),
+    "logistic": os.path.join(_HERE, "csrc", "logistic.cu"),
 }
 
 NVCC_FLAGS = (
@@ -51,6 +54,8 @@ KERNEL_LIBRARIES = {
     "select_splits": "tree_fit",
     "route": "tree_fit",
     "leaf_sums": "tree_fit",
+    "logistic_loss_grad": "logistic",
+    "logistic_trial_losses": "logistic",
 }
 KERNEL_NAMES = tuple(KERNEL_LIBRARIES)
 _launches = {name: 0 for name in KERNEL_NAMES}
@@ -158,14 +163,16 @@ def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_apply_bins.argtypes = [
-        ptr, ptr, ptr,                       # X, thresholds, bins
+        ptr, ptr, ptr, c_int,                # X, thresholds, bins, bin bytes
         c_longlong, c_int, c_int,            # rows, F, thresholds per feature
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_level_histograms.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # bins, node, channels, partials, out
+        ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, channels, partials, out
         c_int, c_int, c_int, c_int, c_int,   # rows, F, nodes, bins, channels
-        c_int, c_int, c_int, c_int,          # chunks, rows/chunk, features/block, tile
+        c_int, c_int,                        # chunks, rows/chunk
+        c_int, c_int, c_int,                 # window: nodes, bins, channels
+        c_int, c_int,                        # features/block, tile
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_select_splits.argtypes = [
@@ -174,18 +181,38 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, ptr,                          # device, stream
     ]
     lib.lo_route.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # bins, node, feature, split bin, out
+        ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, feature, split bin, out
         c_int, c_int,                        # rows, F
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_leaf_sums.argtypes = [
         ptr, ptr, ptr, ptr,                  # leaf, channels, partials, out
         c_int, c_int, c_int,                 # rows, leaves, channels
-        c_int, c_int, c_int,                 # chunks, rows/chunk, warps
+        c_int, c_int,                        # chunks, rows/chunk
+        c_int, c_int, c_int,                 # window: leaves, channels; warps
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     for entry in ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums"):
         getattr(lib, f"lo_{entry}").restype = c_int
+    return _bind_errors(lib)
+
+
+def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    lib.lo_logistic_loss_grad.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,        # X, y, W, b, partials, out
+        c_int, c_int, c_int,                 # rows, F, C
+        c_int, c_int, c_int, c_int,          # chunks, rows/chunk, tile, cell window
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_logistic_trial_losses.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,        # X, y, W4, b4, partials, out
+        c_int, c_int, c_int,                 # rows, F, C
+        c_int, c_int, c_int,                 # chunks, rows/chunk, tile
+        c_int, ptr,                          # device, stream
+    ]
+    lib.lo_logistic_loss_grad.restype = c_int
+    lib.lo_logistic_trial_losses.restype = c_int
     return _bind_errors(lib)
 
 
@@ -195,7 +222,11 @@ def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_BINDERS = {"tree_forward": _bind_tree_forward, "tree_fit": _bind_tree_fit}
+_BINDERS = {
+    "tree_forward": _bind_tree_forward,
+    "tree_fit": _bind_tree_fit,
+    "logistic": _bind_logistic,
+}
 
 
 def check(lib: ctypes.CDLL, name: str, error: int) -> None:
@@ -212,6 +243,25 @@ def check_operands(*tensors) -> None:
             raise ValueError(f"kernel operand on {tensor.device}, not a CUDA device")
         if not tensor.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+
+
+# The row-chunk kernels (K2, K5, K7) sum a fixed split of the rows into
+# chunks, one block each: at most 264 chunks (two per SM of an H100) of at
+# least 1,024 rows. The split depends on the row count alone, so the order
+# of every float sum, and with it a fit, repeats bit for bit.
+MAX_CHUNKS = 264
+MIN_CHUNK_ROWS = 1024
+# Shared memory one block may use on an H100, and the share a block keeps
+# to so that several fit on an SM
+SHARED_BYTES = 232_448
+BLOCK_SHARED_BYTES = 48 * 1024
+
+
+def row_chunks(rows: int) -> tuple[int, int]:
+    """``(chunks, rows per chunk)``, with no empty chunk."""
+    chunks = max(1, min(MAX_CHUNKS, -(-rows // MIN_CHUNK_ROWS)))
+    per_chunk = max(1, -(-rows // chunks))
+    return -(-rows // per_chunk), per_chunk
 
 
 @functools.lru_cache(maxsize=None)

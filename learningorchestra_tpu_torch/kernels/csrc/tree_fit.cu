@@ -45,10 +45,22 @@
 //     thresholds; NaN goes past every threshold (last bin).
 //   - K4 is one indexed load per row; the reference's select-sum lookup
 //     worked around serialized gathers on the TPU.
+//   - Bins are int8 while max_bins <= 127 and int32 above, as the
+//     reference's (ml/binning.py:54): K1 writes either, K2 and K4 read
+//     either (a template on the bin type; `bin_bytes` picks it).
+//   - Any level width. K2 keeps one feature's float64 histogram of a
+//     window of (node, bin, channel) cells in a block's shared memory;
+//     when a level's whole histogram does not fit, the entry point runs
+//     one pass per window, and rows whose cell lies outside the window
+//     are skipped. K5 does the same over (leaf, channel) windows. A
+//     cell's sum takes its rows in the same order in every window, so
+//     the result does not depend on the windows.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -68,15 +80,24 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 
 int round_up_warp(int n) { return ((n + 31) / 32) * 32; }
 
+// A window of histogram cells: nodes (or leaves) [node_begin, +nodes),
+// bins [bin_begin, +bins) and channels [channel_begin, +channels).
+struct Window {
+  int node_begin, nodes;
+  int bin_begin, bins;
+  int channel_begin, channels;
+};
+
 // ------------------------------------------------------------------ K1
 
 // Bin of each value: a binary search for the first threshold that is not
 // below it, which is searchsorted(side=left) on the feature's sorted
 // thresholds; NaN, below nothing, goes past every threshold.
+template <typename Bin>
 __global__ void __launch_bounds__(kThreads)
     apply_bins_kernel(const float* __restrict__ X,
                       const float* __restrict__ thresholds,
-                      int8_t* __restrict__ bins, long long total,
+                      Bin* __restrict__ bins, long long total,
                       int num_features, int num_thresholds) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
@@ -91,48 +112,78 @@ __global__ void __launch_bounds__(kThreads)
       if (__ldg(t + mid) < x) low = mid + 1;
       else high = mid;
     }
-    bins[i] = static_cast<int8_t>(low);
+    bins[i] = static_cast<Bin>(low);
   }
 }
 
 // ------------------------------------------------------------- K2, K5
 
-// Sum `chunks` float64 partial arrays of `cells` values in chunk order,
-// and round each sum once to float32.
+// partials[0][i] + partials[1][i] + ... in chunk order, the loads issued
+// sixteen at a time so that they are in flight together.
+__device__ __forceinline__ double sum_chunks(const double* __restrict__ partials,
+                                             int chunks, long long cells,
+                                             long long i) {
+  double sum = 0.0;
+  int c = 0;
+  for (; c + 16 <= chunks; c += 16) {
+    double value[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) value[j] = partials[(c + j) * cells + i];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sum = __dadd_rn(sum, value[j]);
+  }
+  for (; c < chunks; ++c) sum = __dadd_rn(sum, partials[c * cells + i]);
+  return sum;
+}
+
+// Sum `chunks` float64 partial arrays of one window's `cells` values in
+// chunk order, round each sum once to float32, and store it at its place
+// in the (nodes, F, B, K) output (K5: F = B = 1).
 __global__ void __launch_bounds__(kThreads)
     sum_partials_kernel(const double* __restrict__ partials,
-                        float* __restrict__ out, int chunks, long long cells) {
+                        float* __restrict__ out, int chunks, long long cells,
+                        Window w, int num_features, int max_bins,
+                        int num_channels) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    double sum = partials[i];
-    for (int c = 1; c < chunks; ++c) sum = __dadd_rn(sum, partials[c * cells + i]);
-    out[i] = __double2float_rn(sum);
+    const double sum = sum_chunks(partials, chunks, cells, i);
+    const int k = static_cast<int>(i % w.channels);
+    long long rest = i / w.channels;
+    const int b = static_cast<int>(rest % w.bins);
+    rest /= w.bins;
+    const int f = static_cast<int>(rest % num_features);
+    const long long nd = rest / num_features + w.node_begin;
+    out[((nd * num_features + f) * max_bins + w.bin_begin + b) * num_channels +
+        w.channel_begin + k] = __double2float_rn(sum);
   }
 }
 
 // Block (chunk, feature block): the partial histogram of the chunk's rows
-// over `block_features` features, laid out like the output
-// (node, feature, bin, channel). Warp w owns feature w of the block and
-// walks the chunk's rows 32 at a time, in order: the lanes whose rows
-// share a (node, bin) cell find each other with __match_any_sync, and the
-// lowest of them adds the group's channels, in row order, into the cell.
-// No two threads ever add into one cell.
+// over `block_features` features and the cells of window `w`, laid out
+// like the output (node, feature, bin, channel). All warps stage the rows;
+// warp w < block_features owns feature w of the block and walks the
+// chunk's rows 32 at a time, in order: the lanes
+// whose rows share a (node, bin) cell find each other with
+// __match_any_sync, and the lowest of them adds the group's channels, in
+// row order, into the cell. No two threads ever add into one cell. Rows
+// whose node or bin lies outside the window are skipped.
+template <typename Bin>
 __global__ void __launch_bounds__(1024) level_histograms_kernel(
-    const int8_t* __restrict__ bins, const int* __restrict__ node,
+    const Bin* __restrict__ bins, const int* __restrict__ node,
     const float* __restrict__ channels, double* __restrict__ partials,
-    int rows, int num_features, int n_nodes, int max_bins, int num_channels,
+    int rows, int num_features, int num_channels, Window w,
     int rows_per_chunk, int block_features, int tile_rows) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int chunk = blockIdx.x;
   const int f_begin = blockIdx.y * block_features;
   const int fb = min(block_features, num_features - f_begin);
-  const int K = num_channels;
-  const int hist_size = n_nodes * fb * max_bins * K;
+  const int K = w.channels;
+  const int hist_size = w.nodes * fb * w.bins * K;
   double* hist = reinterpret_cast<double*>(shared);
   float* tile_channels = reinterpret_cast<float*>(hist + hist_size);
   int* tile_node = reinterpret_cast<int*>(tile_channels + tile_rows * K);
-  int8_t* tile_bins = reinterpret_cast<int8_t*>(tile_node + tile_rows);
+  Bin* tile_bins = reinterpret_cast<Bin*>(tile_node + tile_rows);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -145,7 +196,8 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < n; i += blockDim.x) tile_node[i] = node[start + i];
     for (int i = threadIdx.x; i < n * K; i += blockDim.x)
-      tile_channels[i] = channels[static_cast<size_t>(start) * K + i];
+      tile_channels[i] = channels[static_cast<size_t>(start + i / K) * num_channels +
+                                  w.channel_begin + i % K];
     for (int i = threadIdx.x; i < n * fb; i += blockDim.x) {
       const int r = i / fb;
       tile_bins[i] =
@@ -155,16 +207,15 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
     if (warp >= fb) continue;
     for (int base = 0; base < n; base += 32) {
       const int r = base + lane;
-      int key = -1;  // no cell: past the tile, or a node or bin out of range
+      int key = -1;  // no cell: past the tile, or outside the window
       if (r < n) {
-        const int nd = tile_node[r];
-        const int b = tile_bins[r * fb + warp];
-        if (nd >= 0 && nd < n_nodes && b >= 0 && b < max_bins) key = nd * max_bins + b;
+        const int nd = tile_node[r] - w.node_begin;
+        const int b = static_cast<int>(tile_bins[r * fb + warp]) - w.bin_begin;
+        if (nd >= 0 && nd < w.nodes && b >= 0 && b < w.bins) key = nd * w.bins + b;
       }
       const unsigned group = __match_any_sync(0xffffffffu, key);
       if (key < 0 || lane != __ffs(group) - 1) continue;
-      double* dst =
-          hist + ((key / max_bins * fb + warp) * max_bins + key % max_bins) * K;
+      double* dst = hist + ((key / w.bins * fb + warp) * w.bins + key % w.bins) * K;
       for (int k = 0; k < K; ++k) {
         double sum = 0.0;
         for (unsigned members = group; members != 0; members &= members - 1)
@@ -174,32 +225,33 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
     }
   }
   __syncthreads();
-  double* out = partials + static_cast<size_t>(chunk) * n_nodes *
-                               num_features * max_bins * K;
+  double* out = partials + static_cast<size_t>(chunk) * w.nodes * num_features *
+                               w.bins * K;
   for (int i = threadIdx.x; i < hist_size; i += blockDim.x) {
     const int k = i % K;
     int rest = i / K;
-    const int b = rest % max_bins;
-    rest /= max_bins;
+    const int b = rest % w.bins;
+    rest /= w.bins;
     const int f = rest % fb;
     const int nd = rest / fb;
-    out[((static_cast<size_t>(nd) * num_features + f_begin + f) * max_bins + b) *
-            K + k] = hist[i];
+    out[((static_cast<size_t>(nd) * num_features + f_begin + f) * w.bins + b) * K +
+        k] = hist[i];
   }
 }
 
-// Block = one chunk of rows: the partial per-leaf channel sums. Each warp
-// walks its own contiguous part of the chunk, 32 rows at a time, into a
-// private copy of the sums (lanes of one leaf grouped as in K2); the
-// warps' copies are then added in warp order.
+// Block = one chunk of rows: the partial per-leaf channel sums of the
+// (leaf, channel) cells of window `w`. Each warp walks its own contiguous
+// part of the chunk, 32 rows at a time, into a private copy of the sums
+// (lanes of one leaf grouped as in K2; rows of a leaf outside the window
+// skipped); the warps' copies are then added in warp order.
 __global__ void __launch_bounds__(1024)
     leaf_sums_kernel(const int* __restrict__ leaf,
                      const float* __restrict__ channels,
-                     double* __restrict__ partials, int rows, int n_leaves,
-                     int num_channels, int rows_per_chunk) {
+                     double* __restrict__ partials, int rows,
+                     int num_channels, Window w, int rows_per_chunk) {
   extern __shared__ __align__(16) unsigned char shared[];
-  const int K = num_channels;
-  const int cells = n_leaves * K;
+  const int K = w.channels;
+  const int cells = w.nodes * K;
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -217,22 +269,23 @@ __global__ void __launch_bounds__(1024)
     const int r = base + lane;
     int key = -1;
     if (r < warp_end) {
-      const int l = leaf[r];
-      if (l >= 0 && l < n_leaves) key = l;
+      const int l = leaf[r] - w.node_begin;
+      if (l >= 0 && l < w.nodes) key = l;
     }
     const unsigned group = __match_any_sync(0xffffffffu, key);
     if (key < 0 || lane != __ffs(group) - 1) continue;
     for (int k = 0; k < K; ++k) {
       double sum = 0.0;
       for (unsigned members = group; members != 0; members &= members - 1)
-        sum = __dadd_rn(sum, channels[static_cast<size_t>(base + __ffs(members) - 1) * K + k]);
+        sum = __dadd_rn(sum, channels[static_cast<size_t>(base + __ffs(members) - 1) *
+                                          num_channels + w.channel_begin + k]);
       mine[key * K + k] = __dadd_rn(mine[key * K + k], sum);
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     double sum = sums[i];
-    for (int w = 1; w < warps; ++w) sum = __dadd_rn(sum, sums[w * cells + i]);
+    for (int w2 = 1; w2 < warps; ++w2) sum = __dadd_rn(sum, sums[w2 * cells + i]);
     partials[static_cast<size_t>(blockIdx.x) * cells + i] = sum;
   }
 }
@@ -357,8 +410,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ K4
 
+template <typename Bin>
 __global__ void __launch_bounds__(kThreads)
-    route_kernel(const int8_t* __restrict__ bins, const int* __restrict__ node,
+    route_kernel(const Bin* __restrict__ bins, const int* __restrict__ node,
                  const int* __restrict__ feature,
                  const int* __restrict__ split_bin, int* __restrict__ node_out,
                  int rows, int num_features) {
@@ -368,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
     const int f = __ldg(feature + nd);
     const int x_bin =
         f >= 0 && f < num_features
-            ? bins[static_cast<size_t>(row) * num_features + f]
+            ? static_cast<int>(bins[static_cast<size_t>(row) * num_features + f])
             : 0;
     const bool go_right = x_bin > __ldg(split_bin + nd) && f >= 0;
     node_out[row] = 2 * nd + (go_right ? 1 : 0);
@@ -380,6 +434,63 @@ int grid_for(long long items, int max_blocks) {
   return static_cast<int>(blocks < max_blocks ? blocks : max_blocks);
 }
 
+template <typename Bin>
+cudaError_t launch_apply_bins(const float* X, const float* thresholds,
+                              void* bins, long long total, int num_features,
+                              int num_thresholds, int max_blocks,
+                              cudaStream_t stream) {
+  apply_bins_kernel<Bin><<<grid_for(total, max_blocks), kThreads, 0, stream>>>(
+      X, thresholds, static_cast<Bin*>(bins), total, num_features,
+      num_thresholds);
+  return cudaGetLastError();
+}
+
+// One pass of K2 per window of cells: the histogram kernel, then the sum
+// of its chunks' partials into the window's cells of `out`.
+template <typename Bin>
+cudaError_t launch_level_histograms(
+    const void* bins, const int* node, const float* channels,
+    double* partials, float* out, int rows, int num_features, int n_nodes,
+    int max_bins, int num_channels, int chunks, int rows_per_chunk,
+    int window_nodes, int window_bins, int window_channels,
+    int block_features, int tile_rows, int max_blocks, cudaStream_t stream) {
+  const size_t shared_bytes =
+      sizeof(double) * static_cast<size_t>(window_nodes) * block_features *
+          window_bins * window_channels +
+      sizeof(float) * static_cast<size_t>(tile_rows) * window_channels +
+      sizeof(int) * tile_rows +
+      sizeof(Bin) * static_cast<size_t>(tile_rows) * block_features;
+  cudaError_t error = allow_shared(level_histograms_kernel<Bin>, shared_bytes);
+  if (error != cudaSuccess) return error;
+  const dim3 grid(chunks, (num_features + block_features - 1) / block_features);
+  // a warp per feature; at least eight warps, so that the staging of the
+  // rows, the zeroing and the write-out are not left to a single warp
+  const int threads = std::max(32 * block_features, kThreads);
+  for (int n0 = 0; n0 < n_nodes; n0 += window_nodes) {
+    for (int b0 = 0; b0 < max_bins; b0 += window_bins) {
+      for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
+        const Window w{n0, std::min(window_nodes, n_nodes - n0),
+                       b0, std::min(window_bins, max_bins - b0),
+                       k0, std::min(window_channels, num_channels - k0)};
+        const long long cells = static_cast<long long>(w.nodes) * num_features *
+                                w.bins * w.channels;
+        level_histograms_kernel<Bin><<<grid, threads, shared_bytes, stream>>>(
+            static_cast<const Bin*>(bins), node, channels, partials, rows,
+            num_features, num_channels, w, rows_per_chunk, block_features,
+            tile_rows);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+        sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, stream>>>(
+            partials, out, chunks, cells, w, num_features, max_bins,
+            num_channels);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+      }
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -387,52 +498,55 @@ extern "C" {
 // Each entry point launches on `stream` (PyTorch's current stream) of
 // `device`, does not synchronize, and returns cudaGetLastError() after its
 // launches: 0 means they were accepted. Outputs and scratch are allocated
-// by the caller.
+// by the caller. `bin_bytes` is 1 for int8 bins and 4 for int32 bins.
 
-int lo_apply_bins(const float* X, const float* thresholds, int8_t* bins,
-                  long long rows, int num_features, int num_thresholds,
-                  int max_blocks, int device, void* stream) {
+int lo_apply_bins(const float* X, const float* thresholds, void* bins,
+                  int bin_bytes, long long rows, int num_features,
+                  int num_thresholds, int max_blocks, int device,
+                  void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   const long long total = rows * num_features;
   if (total <= 0) return cudaSuccess;
-  apply_bins_kernel<<<grid_for(total, max_blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      X, thresholds, bins, total, num_features, num_thresholds);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1)
+    return launch_apply_bins<int8_t>(X, thresholds, bins, total, num_features,
+                                     num_thresholds, max_blocks, s);
+  if (bin_bytes == 4)
+    return launch_apply_bins<int32_t>(X, thresholds, bins, total, num_features,
+                                      num_thresholds, max_blocks, s);
+  return cudaErrorInvalidValue;
 }
 
-// partials: chunks * n_nodes * F * B * K doubles of scratch;
-// out: (n_nodes, F, B, K).
-int lo_level_histograms(const int8_t* bins, const int* node,
+// partials: chunks * window_nodes * F * window_bins * window_channels
+// doubles of scratch, reused by every window; out: (n_nodes, F, B, K).
+int lo_level_histograms(const void* bins, int bin_bytes, const int* node,
                         const float* channels, double* partials, float* out,
                         int rows, int num_features, int n_nodes, int max_bins,
                         int num_channels, int chunks, int rows_per_chunk,
-                        int block_features, int tile_rows, int max_blocks,
-                        int device, void* stream) {
+                        int window_nodes, int window_bins,
+                        int window_channels, int block_features,
+                        int tile_rows, int max_blocks, int device,
+                        void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  const long long cells = static_cast<long long>(n_nodes) * num_features *
-                          max_bins * num_channels;
-  if (cells <= 0) return cudaSuccess;
-  const size_t shared_bytes =
-      sizeof(double) * static_cast<size_t>(n_nodes) * block_features *
-          max_bins * num_channels +
-      sizeof(float) * static_cast<size_t>(tile_rows) * num_channels +
-      sizeof(int) * tile_rows + static_cast<size_t>(tile_rows) * block_features;
-  error = allow_shared(level_histograms_kernel, shared_bytes);
-  if (error != cudaSuccess) return error;
-  const dim3 grid(chunks, (num_features + block_features - 1) / block_features);
-  const int threads = 32 * block_features;  // a warp per feature
+  if (static_cast<long long>(n_nodes) * num_features * max_bins *
+          num_channels <= 0)
+    return cudaSuccess;
+  if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  level_histograms_kernel<<<grid, threads, shared_bytes, s>>>(
-      bins, node, channels, partials, rows, num_features, n_nodes, max_bins,
-      num_channels, rows_per_chunk, block_features, tile_rows);
-  error = cudaGetLastError();
-  if (error != cudaSuccess) return error;
-  sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, s>>>(
-      partials, out, chunks, cells);
-  return cudaGetLastError();
+  if (bin_bytes == 1)
+    return launch_level_histograms<int8_t>(
+        bins, node, channels, partials, out, rows, num_features, n_nodes,
+        max_bins, num_channels, chunks, rows_per_chunk, window_nodes,
+        window_bins, window_channels, block_features, tile_rows, max_blocks, s);
+  if (bin_bytes == 4)
+    return launch_level_histograms<int32_t>(
+        bins, node, channels, partials, out, rows, num_features, n_nodes,
+        max_bins, num_channels, chunks, rows_per_chunk, window_nodes,
+        window_bins, window_channels, block_features, tile_rows, max_blocks, s);
+  return cudaErrorInvalidValue;
 }
 
 // mode 0: gini over K class channels; mode 1: newton over (g, h), K = 2.
@@ -456,38 +570,60 @@ int lo_select_splits(const float* hist, int* feature, int* bin, int n_nodes,
   return cudaGetLastError();
 }
 
-int lo_route(const int8_t* bins, const int* node, const int* feature,
-             const int* split_bin, int* node_out, int rows, int num_features,
-             int max_blocks, int device, void* stream) {
+int lo_route(const void* bins, int bin_bytes, const int* node,
+             const int* feature, const int* split_bin, int* node_out, int rows,
+             int num_features, int max_blocks, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0) return cudaSuccess;
-  route_kernel<<<grid_for(rows, max_blocks), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      bins, node, feature, split_bin, node_out, rows, num_features);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1) {
+    route_kernel<int8_t><<<grid_for(rows, max_blocks), kThreads, 0, s>>>(
+        static_cast<const int8_t*>(bins), node, feature, split_bin, node_out,
+        rows, num_features);
+  } else if (bin_bytes == 4) {
+    route_kernel<int32_t><<<grid_for(rows, max_blocks), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(bins), node, feature, split_bin, node_out,
+        rows, num_features);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
-// partials: chunks * n_leaves * K doubles of scratch; out: (n_leaves, K).
+// partials: chunks * window_leaves * window_channels doubles of scratch,
+// reused by every window; out: (n_leaves, K).
 int lo_leaf_sums(const int* leaf, const float* channels, double* partials,
                  float* out, int rows, int n_leaves, int num_channels,
-                 int chunks, int rows_per_chunk, int warps, int max_blocks,
-                 int device, void* stream) {
+                 int chunks, int rows_per_chunk, int window_leaves,
+                 int window_channels, int warps, int max_blocks, int device,
+                 void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  const long long cells = static_cast<long long>(n_leaves) * num_channels;
-  if (cells <= 0) return cudaSuccess;
-  const size_t shared_bytes = sizeof(double) * cells * warps;
+  if (static_cast<long long>(n_leaves) * num_channels <= 0) return cudaSuccess;
+  if (window_leaves <= 0 || window_channels <= 0) return cudaErrorInvalidValue;
+  const size_t shared_bytes = sizeof(double) *
+                              static_cast<size_t>(window_leaves) *
+                              window_channels * warps;
   error = allow_shared(leaf_sums_kernel, shared_bytes);
   if (error != cudaSuccess) return error;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  leaf_sums_kernel<<<chunks, 32 * warps, shared_bytes, s>>>(
-      leaf, channels, partials, rows, n_leaves, num_channels, rows_per_chunk);
-  error = cudaGetLastError();
-  if (error != cudaSuccess) return error;
-  sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, s>>>(
-      partials, out, chunks, cells);
-  return cudaGetLastError();
+  for (int l0 = 0; l0 < n_leaves; l0 += window_leaves) {
+    for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
+      const Window w{l0, std::min(window_leaves, n_leaves - l0), 0, 1,
+                     k0, std::min(window_channels, num_channels - k0)};
+      const long long cells = static_cast<long long>(w.nodes) * w.channels;
+      leaf_sums_kernel<<<chunks, 32 * warps, shared_bytes, s>>>(
+          leaf, channels, partials, rows, num_channels, w, rows_per_chunk);
+      error = cudaGetLastError();
+      if (error != cudaSuccess) return error;
+      sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, s>>>(
+          partials, out, chunks, cells, w, 1, 1, num_channels);
+      error = cudaGetLastError();
+      if (error != cudaSuccess) return error;
+    }
+  }
+  return cudaSuccess;
 }
 
 const char* lo_error_string(int error) {

@@ -15,10 +15,18 @@
 //
 // Design (a simple kernel that is right first):
 //   - One thread walks one row through every tree; a grid-stride loop
-//     lets a capped grid cover any N, so the heaps are staged once per
-//     block, not once per 256 rows.
-//   - The block stages all T heaps in shared memory: at full width
-//     (T = 20, D = 5, C = 2) that is 20*31*8 + 20*32*2*4 bytes ~= 10 KB.
+//     lets a capped grid cover any N.
+//   - Any depth and tree count. The trees are staged in shared memory in
+//     groups that fit a block's share: at full width (T = 20, D = 5,
+//     C = 2) all of them at once (20*31*8 + 20*32*2*4 bytes ~= 10 KB),
+//     once per block. When they do not fit together, the block walks its
+//     rows 256 at a time and stages one group after the other for each
+//     such tile. When a single tree does not fit (a depth-12 tree of 20
+//     classes takes 360 KB), every tree is read from global memory.
+//   - The ensemble's per-class sums live in shared memory ([class][thread])
+//     while 256 threads' worth fits in 48 KB, else in the output row
+//     itself; either way each class sums trees 0..T-1 in order, so the
+//     grouping changes no bit of the result.
 //   - X is read straight from global memory. The reference's
 //     `_indicator_lookup` select-sum worked around serialized TPU
 //     gathers; here the lookup is one indexed load.
@@ -56,12 +64,48 @@ __device__ __forceinline__ int descend(const float* __restrict__ row,
   return node;
 }
 
+constexpr size_t kAccBytes = 48 * 1024;  // the ensemble's shared sums, at most
+
 template <typename T>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
                                       int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
+// Where a block reads trees [first, first + count) from: shared memory,
+// staged here (`group` > 0), or global memory (`group` == 0). With every
+// tree in one group the block stages them once, before its first tile.
+struct TreeGroup {
+  const int* features;
+  const float* thresholds;
+  const float* leaves;
+};
+
+__device__ __forceinline__ TreeGroup tree_group(
+    const int* __restrict__ features_heap,
+    const float* __restrict__ thresholds_heap,
+    const float* __restrict__ leaves, int first, int count, int trees,
+    int group, int nodes, int leaf_values, int* s_features,
+    float* s_thresholds, float* s_leaves) {
+  if (group == 0)
+    return {features_heap + static_cast<size_t>(first) * nodes,
+            thresholds_heap + static_cast<size_t>(first) * nodes,
+            leaves + static_cast<size_t>(first) * leaf_values};
+  if (group < trees) {  // one group of several: stage it now
+    __syncthreads();  // the previous group is consumed
+    stage(s_features, features_heap + static_cast<size_t>(first) * nodes,
+          count * nodes);
+    stage(s_thresholds, thresholds_heap + static_cast<size_t>(first) * nodes,
+          count * nodes);
+    stage(s_leaves, leaves + static_cast<size_t>(first) * leaf_values,
+          count * leaf_values);
+    __syncthreads();
+  }
+  return {s_features, s_thresholds, s_leaves};
+}
+
+// `group`: trees staged at a time (0: read from global memory);
+// `shared_sums`: keep the per-class sums in shared memory, else in `out`.
 __global__ void __launch_bounds__(kThreads)
     tree_ensemble_forward_kernel(const float* __restrict__ X,
                                  const int* __restrict__ features_heap,
@@ -69,35 +113,50 @@ __global__ void __launch_bounds__(kThreads)
                                  const float* __restrict__ leaf_probs,
                                  float* __restrict__ out, int rows,
                                  int num_features, int trees, int depth,
-                                 int classes) {
+                                 int classes, int group, int shared_sums) {
   extern __shared__ float shared[];
   const int nodes = (1 << depth) - 1;
   const int leaves = 1 << depth;
+  const int staged = group < trees ? group : trees;
   int* s_features = reinterpret_cast<int*>(shared);
-  float* s_thresholds = shared + trees * nodes;
-  float* s_leaves = s_thresholds + trees * nodes;
-  // per-thread class accumulators, laid out [class][thread]
-  float* s_acc = s_leaves + trees * leaves * classes;
+  float* s_thresholds = shared + staged * nodes;
+  float* s_leaves = s_thresholds + staged * nodes;
+  float* s_acc = s_leaves + static_cast<size_t>(staged) * leaves * classes;
 
-  stage(s_features, features_heap, trees * nodes);
-  stage(s_thresholds, thresholds_heap, trees * nodes);
-  stage(s_leaves, leaf_probs, trees * leaves * classes);
-  __syncthreads();
-
+  if (group >= trees) {  // every tree at once, for all of the block's rows
+    stage(s_features, features_heap, trees * nodes);
+    stage(s_thresholds, thresholds_heap, trees * nodes);
+    stage(s_leaves, leaf_probs, trees * leaves * classes);
+    __syncthreads();
+  }
+  const int step = group > 0 ? group : trees;
   const float divisor = static_cast<float>(trees);
-  float* acc = s_acc + threadIdx.x;
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < rows;
-       row += gridDim.x * blockDim.x) {
-    const float* x = X + static_cast<size_t>(row) * num_features;
-    for (int c = 0; c < classes; ++c) acc[c * kThreads] = 0.0f;
-    for (int t = 0; t < trees; ++t) {
-      const int leaf = descend(x, num_features, s_features + t * nodes,
-                               s_thresholds + t * nodes, depth);
-      const float* probs = s_leaves + (t * leaves + leaf) * classes;
-      for (int c = 0; c < classes; ++c) acc[c * kThreads] += probs[c];
+  for (int tile = blockIdx.x * blockDim.x; tile < rows;
+       tile += gridDim.x * blockDim.x) {
+    const int row = tile + threadIdx.x;
+    const bool active = row < rows;
+    float* dst = out + static_cast<size_t>(active ? row : 0) * classes;
+    float* acc = shared_sums ? s_acc + threadIdx.x : dst;
+    const int stride = shared_sums ? kThreads : 1;
+    const float* x = X + static_cast<size_t>(active ? row : 0) * num_features;
+    if (active)
+      for (int c = 0; c < classes; ++c) acc[c * stride] = 0.0f;
+    for (int first = 0; first < trees; first += step) {
+      const int count = min(step, trees - first);
+      const TreeGroup g = tree_group(features_heap, thresholds_heap, leaf_probs,
+                                     first, count, trees, group, nodes,
+                                     leaves * classes, s_features,
+                                     s_thresholds, s_leaves);
+      if (!active) continue;
+      for (int t = 0; t < count; ++t) {
+        const int leaf = descend(x, num_features, g.features + t * nodes,
+                                 g.thresholds + t * nodes, depth);
+        const float* probs = g.leaves + (static_cast<size_t>(t) * leaves + leaf) * classes;
+        for (int c = 0; c < classes; ++c) acc[c * stride] += probs[c];
+      }
     }
-    float* dst = out + static_cast<size_t>(row) * classes;
-    for (int c = 0; c < classes; ++c) dst[c] = acc[c * kThreads] / divisor;
+    if (active)
+      for (int c = 0; c < classes; ++c) dst[c] = acc[c * stride] / divisor;
   }
 }
 
@@ -107,28 +166,42 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ thresholds_heap,
                        const float* __restrict__ leaf_values,
                        float* __restrict__ out, int rows, int num_features,
-                       int trees, int depth, float f0, float step) {
+                       int trees, int depth, float f0, float step_size,
+                       int group) {
   extern __shared__ float shared[];
   const int nodes = (1 << depth) - 1;
   const int leaves = 1 << depth;
+  const int staged = group < trees ? group : trees;
   int* s_features = reinterpret_cast<int*>(shared);
-  float* s_thresholds = shared + trees * nodes;
-  float* s_values = s_thresholds + trees * nodes;
+  float* s_thresholds = shared + staged * nodes;
+  float* s_values = s_thresholds + staged * nodes;
 
-  stage(s_features, features_heap, trees * nodes);
-  stage(s_thresholds, thresholds_heap, trees * nodes);
-  stage(s_values, leaf_values, trees * leaves);
-  __syncthreads();
-
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < rows;
-       row += gridDim.x * blockDim.x) {
-    const float* x = X + static_cast<size_t>(row) * num_features;
+  if (group >= trees && trees > 0) {
+    stage(s_features, features_heap, trees * nodes);
+    stage(s_thresholds, thresholds_heap, trees * nodes);
+    stage(s_values, leaf_values, trees * leaves);
+    __syncthreads();
+  }
+  const int step = group > 0 ? group : trees;
+  for (int tile = blockIdx.x * blockDim.x; tile < rows;
+       tile += gridDim.x * blockDim.x) {
+    const int row = tile + threadIdx.x;
+    const bool active = row < rows;
+    const float* x = X + static_cast<size_t>(active ? row : 0) * num_features;
     float margin = f0;
-    for (int t = 0; t < trees; ++t) {
-      const int leaf = descend(x, num_features, s_features + t * nodes,
-                               s_thresholds + t * nodes, depth);
-      margin = __fadd_rn(margin, __fmul_rn(step, s_values[t * leaves + leaf]));
+    for (int first = 0; first < trees; first += step) {
+      const int count = min(step, trees - first);
+      const TreeGroup g = tree_group(features_heap, thresholds_heap, leaf_values,
+                                     first, count, trees, group, nodes, leaves,
+                                     s_features, s_thresholds, s_values);
+      if (!active) continue;
+      for (int t = 0; t < count; ++t) {
+        const int leaf = descend(x, num_features, g.features + t * nodes,
+                                 g.thresholds + t * nodes, depth);
+        margin = __fadd_rn(margin, __fmul_rn(step_size, g.leaves[t * leaves + leaf]));
+      }
     }
+    if (!active) continue;
     const float p = 1.0f / (1.0f + expf(-margin));
     out[2 * static_cast<size_t>(row)] = 1.0f - p;
     out[2 * static_cast<size_t>(row) + 1] = p;
@@ -150,6 +223,21 @@ int grid_for(int rows, int max_blocks) {
   return blocks < max_blocks ? blocks : max_blocks;
 }
 
+// Trees staged at a time in `available` bytes of shared memory, at
+// `per_tree` bytes a tree: all of them, a group, or 0 (global memory).
+int tree_group_size(int trees, size_t per_tree, size_t available) {
+  const size_t fit = available / per_tree;
+  return static_cast<int>(fit < static_cast<size_t>(trees) ? fit : trees);
+}
+
+cudaError_t max_shared_bytes(int device, size_t* bytes) {
+  int value = 0;
+  const cudaError_t error = cudaDeviceGetAttribute(
+      &value, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *bytes = static_cast<size_t>(value);
+  return error;
+}
+
 }  // namespace
 
 extern "C" {
@@ -167,18 +255,25 @@ int lo_tree_ensemble_forward(const float* X, const int* features_heap,
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || trees <= 0) return cudaSuccess;
+  size_t limit = 0;
+  error = max_shared_bytes(device, &limit);
+  if (error != cudaSuccess) return error;
   const size_t nodes = (size_t{1} << depth) - 1;
   const size_t leaves = size_t{1} << depth;
+  const size_t acc_bytes = sizeof(float) * kThreads * static_cast<size_t>(classes);
+  const int shared_sums = acc_bytes <= kAccBytes ? 1 : 0;
+  const size_t available = limit - (shared_sums ? acc_bytes : 0);
+  const size_t per_tree = sizeof(float) * (2 * nodes + leaves * classes);
+  const int group = tree_group_size(trees, per_tree, available);
   const size_t shared_bytes =
-      sizeof(float) * (2 * trees * nodes + trees * leaves * classes +
-                       static_cast<size_t>(kThreads) * classes);
+      per_tree * group + (shared_sums ? acc_bytes : 0);
   error = allow_shared(tree_ensemble_forward_kernel, shared_bytes);
   if (error != cudaSuccess) return error;
   tree_ensemble_forward_kernel<<<grid_for(rows, max_blocks), kThreads,
                                  shared_bytes,
                                  static_cast<cudaStream_t>(stream)>>>(
       X, features_heap, thresholds_heap, leaf_probs, out, rows, num_features,
-      trees, depth, classes);
+      trees, depth, classes, group, shared_sums);
   return cudaGetLastError();
 }
 
@@ -191,15 +286,20 @@ int lo_gbt_forward(const float* X, const int* features_heap,
   if (error != cudaSuccess) return error;
   // no rounds is well defined here: every row's margin is f0
   if (rows <= 0) return cudaSuccess;
+  size_t limit = 0;
+  error = max_shared_bytes(device, &limit);
+  if (error != cudaSuccess) return error;
   const size_t nodes = (size_t{1} << depth) - 1;
   const size_t leaves = size_t{1} << depth;
-  const size_t shared_bytes = sizeof(float) * (2 * trees * nodes + trees * leaves);
+  const size_t per_tree = sizeof(float) * (2 * nodes + leaves);
+  const int group = tree_group_size(trees, per_tree, limit);
+  const size_t shared_bytes = per_tree * group;
   error = allow_shared(gbt_forward_kernel, shared_bytes);
   if (error != cudaSuccess) return error;
   gbt_forward_kernel<<<grid_for(rows, max_blocks), kThreads, shared_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       X, features_heap, thresholds_heap, leaf_values, out, rows, num_features,
-      trees, depth, f0, step);
+      trees, depth, f0, step, group);
   return cudaGetLastError();
 }
 

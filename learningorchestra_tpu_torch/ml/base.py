@@ -149,12 +149,19 @@ class FittedModel:
 
 def make_classifier(name: str, device: DeviceLike = None):
     """The classifier switcher (reference ``ml/base.py:306``), as far as
-    the fits are ported: ``dt`` and ``gb``."""
+    the fits are ported: ``lr``, ``dt``, ``gb`` and ``nb``."""
+    from learningorchestra_tpu_torch.ml.logistic import LogisticRegression
+    from learningorchestra_tpu_torch.ml.naive_bayes import NaiveBayes
     from learningorchestra_tpu_torch.ml.trees import DecisionTreeClassifier, GBTClassifier
 
     if name not in CLASSIFIER_NAMES:
         raise KeyError(name)
-    ported = {"dt": DecisionTreeClassifier, "gb": GBTClassifier}
+    ported = {
+        "lr": LogisticRegression,
+        "dt": DecisionTreeClassifier,
+        "gb": GBTClassifier,
+        "nb": NaiveBayes,
+    }
     if name not in ported:
         raise NotImplementedError(f"the {name!r} fit is not yet ported")
     return ported[name](device=device)

@@ -12,7 +12,8 @@ needs only the float threshold. NaN goes to the last bin.
 - :func:`_apply_bins` is the plain PyTorch version of
   ``searchsorted(side="left")``; :func:`apply_bins` is the wrapper the fits
   call. On a CPU tensor it runs the plain version; on a CUDA tensor it
-  launches K1 (``kernels/csrc/tree_fit.cu``) or raises.
+  launches K1 (``kernels/csrc/tree_fit.cu``) or raises. Both give int8
+  bins while ``max_bins`` <= 127 and int32 bins above, as the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from learningorchestra_tpu_torch import kernels
 
 MAX_BINS = 32
-# int8 bins hold bin indices below this; the kernels take int8 bins only
+# bins are int8 up to this many bins, int32 above (reference ml/binning.py:54)
 INT8_MAX_BINS = 127
 
 
@@ -43,18 +44,22 @@ def _apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     thresholds), and ``max_bins - 1`` for NaN, which is below nothing.
     int8 while the bin count fits, else int32, as the reference."""
     num_thresholds = thresholds.shape[1]
-    dtype = torch.int8 if num_thresholds + 1 <= INT8_MAX_BINS else torch.int32
-    bins = torch.empty(X.shape, dtype=dtype, device=X.device)
+    bins = torch.empty(X.shape, dtype=bin_dtype(num_thresholds + 1), device=X.device)
     for feature in range(X.shape[1]):  # one feature at a time: (rows, B-1) transient
         column = X[:, feature]
         below = (thresholds[feature][None, :] < column[:, None]).sum(dim=1)
-        bins[:, feature] = torch.where(column.isnan(), num_thresholds, below).to(dtype)
+        bins[:, feature] = torch.where(column.isnan(), num_thresholds, below).to(bins.dtype)
     return bins
 
 
+def bin_dtype(max_bins: int) -> torch.dtype:
+    return torch.int8 if max_bins <= INT8_MAX_BINS else torch.int32
+
+
 def apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
-    """``(rows, features)`` int8 bins of ``X`` under ``thresholds
-    (features, max_bins - 1)``, both float32 on one device."""
+    """``(rows, features)`` bins of ``X`` under ``thresholds
+    (features, max_bins - 1)``, both float32 on one device: int8, or
+    int32 past 127 bins."""
     if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() != 2:
         raise TypeError("X must be a 2-D float32 tensor")
     if thresholds.dtype != torch.float32 or thresholds.dim() != 2:
@@ -68,15 +73,10 @@ def apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return _apply_bins(X, thresholds)
     kernels.check_operands(X, thresholds)
-    if thresholds.shape[1] + 1 > INT8_MAX_BINS:
-        raise ValueError(
-            f"max_bins {thresholds.shape[1] + 1} does not fit the kernels' int8 "
-            f"bins (at most {INT8_MAX_BINS})"
-        )
-    bins = torch.empty(X.shape, dtype=torch.int8, device=X.device)
+    bins = torch.empty(X.shape, dtype=bin_dtype(thresholds.shape[1] + 1), device=X.device)
     kernels.launch(
         "apply_bins", "lo_apply_bins",
-        X.data_ptr(), thresholds.data_ptr(), bins.data_ptr(),
+        X.data_ptr(), thresholds.data_ptr(), bins.data_ptr(), bins.element_size(),
         X.shape[0], X.shape[1], thresholds.shape[1],
         kernels.max_blocks(X.device.index), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,

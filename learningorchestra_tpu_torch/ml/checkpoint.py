@@ -21,7 +21,8 @@ kind                arrays                                          scalars
 
 :func:`model_from_arrays` is the weight carrier: it turns a kind, its
 arrays (numpy, in the reference's layout) and scalars into a port model on
-a device. :func:`load_model` goes through it.
+a device. :func:`load_model` goes through it. :func:`lbfgs_state_from_arrays`
+carries a logistic regression fit's mid-fit state the same way.
 """
 
 from __future__ import annotations
@@ -94,6 +95,40 @@ def model_from_arrays(kind: str, arrays: dict, scalars: dict, device: DeviceLike
         tensors["leaf_probs"],
         scalars["max_depth"],
     )
+
+
+# The leaves of the reference's ``(params, opt_state)`` in
+# ``jax.tree.leaves`` order (dict keys sorted), as ``ml/progress.py`` saves
+# a logistic fit's segment: params, then the L-BFGS state
+# (ml/logistic.py:82)
+LBFGS_LEAVES = (
+    "b", "w",
+    "S.b", "S.w", "Y.b", "Y.w", "filled", "grad.b", "grad.w", "head", "rho", "value",
+)
+
+
+def lbfgs_state_from_arrays(leaves, device: DeviceLike = None):
+    """``(W, b, state)`` for the port's L-BFGS from the reference's
+    ``(params, opt_state)`` leaves (numpy arrays, in ``LBFGS_LEAVES``
+    order): a fit can go on in the port from where the reference left it."""
+    if len(leaves) != len(LBFGS_LEAVES):
+        raise ValueError(f"{len(leaves)} leaves, expected {len(LBFGS_LEAVES)}")
+    device = resolve_device(device)
+    named = dict(zip(LBFGS_LEAVES, leaves))
+
+    def tensor(name, dtype=np.float32):
+        return torch.tensor(np.asarray(named[name], dtype=dtype), device=device)
+
+    state = {
+        "S": {"w": tensor("S.w"), "b": tensor("S.b")},
+        "Y": {"w": tensor("Y.w"), "b": tensor("Y.b")},
+        "rho": tensor("rho"),
+        "head": tensor("head", np.int32),
+        "filled": tensor("filled", np.int32),
+        "value": tensor("value"),
+        "grad": {"w": tensor("grad.w"), "b": tensor("grad.b")},
+    }
+    return tensor("w"), tensor("b"), state
 
 
 def gather_model(model) -> tuple[str, dict, dict]:

@@ -1,18 +1,440 @@
-"""Logistic regression prediction.
+"""Multinomial logistic regression: the L-BFGS fit and the prediction.
 
-Counterpart of the predict half of ``learningorchestra_tpu/ml/logistic.py``
-(``_forward`` :431, ``LogisticRegressionModel`` :447-458): standardize,
-one ``(rows, F) x (F, C)`` product, bias, softmax. The product is a plain
-``torch.matmul`` in full float32 (TF32 is off, ``device.py``), as the
-reference left it to XLA. The L-BFGS fit is not ported yet.
+Counterpart of ``learningorchestra_tpu/ml/logistic.py``:
+
+- K7, the loss-and-gradient pass (``_loss_fn`` :35 under
+  ``jax.value_and_grad`` in ``_fit_segment_impl`` :141): the plain twin
+  :func:`_loss_fn` (value and gradient, in torch) and the wrappers
+  :func:`loss_and_grad` and :func:`trial_losses`. On a CPU tensor a
+  wrapper runs the plain version; on a CUDA tensor it launches the
+  hand-written kernel (``kernels/csrc/logistic.cu``) for the mean NLL and
+  its gradient, adds the L2 term with torch ops, or raises.
+- The optimizer (:56-408): ``_lbfgs_state``, ``_two_loop``,
+  ``_fit_segment_impl`` and ``_fit`` with the reference's segmentation,
+  its plateau stop (``_plateaued``) and its constants.
+- ``scaler_stats`` (:437), the estimator ``LogisticRegression`` (:460) and
+  the model ``LogisticRegressionModel`` (:447) with its forward (:431):
+  standardize, one ``(rows, F) x (F, C)`` product, bias, softmax. That
+  product is a plain ``torch.matmul`` in full float32 (TF32 is off,
+  ``device.py``), as the reference left it to XLA.
+
+Parameters are two tensors, ``W (F, C)`` and ``b (C,)``; the optimizer
+state is a dict of tensors shaped as the reference's (``S``, ``Y`` and
+``grad`` hold ``{"w", "b"}``), its ring position ``head`` and count
+``filled`` int32 tensors on the device. A segment runs with no host sync:
+indices into the ring are tensors (``index_select``, ``torch.where``),
+and the line search computes all four trial losses in one pass and picks
+the first accepted step on the device. Its losses come back to the host
+once a segment, for the plateau check.
+
+Sums over rows are float64 and rounded once to float32, in the kernel and
+in the plain twin alike (as the tree fits' K2 and K5 do): the plain twin
+is the kernel's oracle on the card, and both sit closer to the exact sum
+than the reference's float32 reductions.
+
+Left for later slices: the resume sink (``ml/progress.py``, with the
+builder; ``_fit`` keeps the ``iters``, ``max_iter``, ``l2`` and
+``history`` its key needs) and ``fit_sharded`` with ``_masked_stats`` and
+``_standardize`` (:412-428, multi-GPU).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.ml.base import FittedModel
+from learningorchestra_tpu_torch import kernels
+from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml.base import (
+    FittedModel,
+    infer_num_classes,
+    largest_divisor,
+    segment_steps,
+)
 
+# The reference's L-BFGS constants (ml/logistic.py:56-61)
+_LBFGS_MEMORY = 10
+_BACKTRACK_STEPS = 4
+_ARMIJO_C1 = 1e-4
+_LR_STOP_DELTAS = 3
+
+# Per-program budget in row*iterations, convergence-check granularity and
+# MLlib's default tolerance (ml/logistic.py:278-286)
+_LR_ROW_ITERS_BUDGET = 180e6
+_LR_CHECK_ITERS = 25
+_LR_TOL = 1e-6
+
+# K7's launch geometry: a block's threads, the cells of its float64
+# partials at most, and its shared-memory budget while a tile of rows fits
+# (two blocks an SM)
+_THREADS = 512              # kThreads in kernels/csrc/logistic.cu
+_WINDOW_CELLS = 2048
+_LOSS_SHARED_BYTES = 96 * 1024
+
+
+# --------------------------------------------------------------------------
+# K7: the plain twin
+# --------------------------------------------------------------------------
+
+def _row_terms(X, y, W, b):
+    """Per row: the nll and the log-softmax's shifted logits and log-sum,
+    the reference's log_softmax (``shifted - log(sum(exp(shifted)))``)."""
+    logits = torch.matmul(X, W) + b
+    shifted = logits - logits.max(dim=1, keepdim=True).values
+    log_sum = torch.log(torch.exp(shifted).sum(dim=1))
+    nll = log_sum - shifted.gather(1, y.long()[:, None])[:, 0]
+    return nll, shifted, log_sum
+
+
+def _mean(values, rows: int):
+    """Float64 mean over the rows (axis 0), rounded once to float32."""
+    return (values.to(torch.float64).sum(dim=0) / rows).to(torch.float32)
+
+
+def _l2_term(W, l2: float):
+    return 0.5 * l2 * (W * W).sum()
+
+
+def _data_loss(X, y, W, b):
+    """The mean nll, as a float32 0-d tensor."""
+    return _mean(_row_terms(X, y, W, b)[0], X.shape[0])
+
+
+def _loss_fn(W, b, X, y, l2: float):
+    """Value and gradient of the reference's ``_loss_fn``: the mean nll
+    plus ``0.5 * l2 * |W|^2``. Returns ``(value, dW, db)``; the gradient
+    of the mean nll is ``X^T (P - onehot(y)) / rows``."""
+    rows = X.shape[0]
+    nll, shifted, log_sum = _row_terms(X, y, W, b)
+    residual = torch.exp(shifted - log_sum[:, None])
+    residual = residual - torch.nn.functional.one_hot(y.long(), W.shape[1]).to(residual.dtype)
+    dW = (torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / rows).to(torch.float32)
+    return _mean(nll, rows) + _l2_term(W, l2), dW + l2 * W, _mean(residual, rows)
+
+
+def _trial_losses(W4, b4, X, y, l2: float):
+    """The loss at each of the candidate parameter sets ``W4 (k, F, C)``,
+    ``b4 (k, C)``: a ``(k,)`` float32 tensor."""
+    data = torch.stack([_data_loss(X, y, W4[k], b4[k]) for k in range(W4.shape[0])])
+    return data + 0.5 * l2 * (W4 * W4).sum(dim=(1, 2))
+
+
+# --------------------------------------------------------------------------
+# K7: the wrappers, plain version on the CPU, the CUDA kernel on the card
+# --------------------------------------------------------------------------
+
+def _loss_tiling(num_features: int, num_classes: int, trial: bool = False) -> tuple[int, int]:
+    """``(tile rows, cell window)`` of a K7 block. A block stages a tile of
+    rows (features, logits and, for the gradient, the nll: 4 bytes each)
+    beside its float64 partials: the gradient's cells, at most
+    ``_WINDOW_CELLS`` a block (more go to further blocks), or the four
+    trial sums of each thread. The tile holds a row a thread within 96 KB,
+    else as many rows as fit one block's shared memory."""
+    cells = num_features * num_classes + num_classes + 1
+    window = min(cells, _WINDOW_CELLS)
+    # a row's features and logits at odd strides (no shared-memory bank conflicts)
+    row_bytes = 4 * ((num_features | 1) + (num_classes | 1))
+    if trial:
+        fixed = 8 * 4 * _THREADS
+    else:
+        fixed, row_bytes = 8 * max(_THREADS, window), row_bytes + 4
+    tile_rows = min(_THREADS, (_LOSS_SHARED_BYTES - fixed) // row_bytes)
+    if tile_rows < 64:
+        tile_rows = min(_THREADS, (kernels.SHARED_BYTES - fixed) // row_bytes)
+    if tile_rows < 1:
+        raise ValueError(
+            f"{num_features} features x {num_classes} classes: one row does not fit "
+            "a block's shared memory"
+        )
+    return tile_rows, window
+
+
+def _check_operands(X, y, W, b, leading: tuple = ()):
+    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() != 2:
+        raise TypeError("X must be a 2-D float32 tensor")
+    if y.dtype != torch.int32 or y.shape != (X.shape[0],):
+        raise TypeError("y must be an int32 tensor of one label per row")
+    if W.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("W and b must be float32")
+    if W.dim() != len(leading) + 2 or tuple(W.shape[:-1]) != leading + (X.shape[1],):
+        raise ValueError(f"W of shape {tuple(W.shape)} for {X.shape[1]} features")
+    if tuple(b.shape) != leading + (W.shape[-1],):
+        raise ValueError(f"b of shape {tuple(b.shape)} for W of shape {tuple(W.shape)}")
+    for tensor in (y, W, b):
+        if tensor.device != X.device:
+            raise ValueError(f"operands on {tensor.device} and {X.device}")
+
+
+def _stream(tensor):
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def loss_and_grad(W, b, X, y, l2: float):
+    """``(value, dW, db)`` of the loss at ``(W, b)`` (K7)."""
+    _check_operands(X, y, W, b)
+    if X.device.type == "cpu":
+        return _loss_fn(W, b, X, y, l2)
+    kernels.check_operands(X, y, W, b)
+    rows, num_features = X.shape
+    num_classes = W.shape[1]
+    tile_rows, window = _loss_tiling(num_features, num_classes)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    cells = num_features * num_classes + num_classes + 1
+    partials = torch.empty((max(chunks, 1), cells), dtype=torch.float64, device=X.device)
+    out = torch.empty(cells, dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "logistic_loss_grad", "lo_logistic_loss_grad",
+        X.data_ptr(), y.data_ptr(), W.data_ptr(), b.data_ptr(),
+        partials.data_ptr(), out.data_ptr(),
+        rows, num_features, num_classes, chunks, per_chunk, tile_rows, window,
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    dW = out[: num_features * num_classes].view(num_features, num_classes)
+    db = out[num_features * num_classes : -1]
+    return out[-1] + _l2_term(W, l2), dW + l2 * W, db
+
+
+def trial_losses(W4, b4, X, y, l2: float):
+    """``(4,)`` losses at the Armijo trial points ``W4 (4, F, C)``,
+    ``b4 (4, C)`` (K7, one read of X for all four)."""
+    _check_operands(X, y, W4, b4, leading=(_BACKTRACK_STEPS,))
+    if X.device.type == "cpu":
+        return _trial_losses(W4, b4, X, y, l2)
+    kernels.check_operands(X, y, W4, b4)
+    rows, num_features = X.shape
+    num_classes = W4.shape[2]
+    tile_rows, _ = _loss_tiling(num_features, num_classes, trial=True)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    partials = torch.empty((max(chunks, 1), _BACKTRACK_STEPS), dtype=torch.float64, device=X.device)
+    out = torch.empty(_BACKTRACK_STEPS, dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "logistic_trial_losses", "lo_logistic_trial_losses",
+        X.data_ptr(), y.data_ptr(), W4.data_ptr(), b4.data_ptr(),
+        partials.data_ptr(), out.data_ptr(),
+        rows, num_features, num_classes, chunks, per_chunk, tile_rows,
+        X.device.index, _stream(X),
+    )
+    return out + 0.5 * l2 * (W4 * W4).sum(dim=(1, 2))
+
+
+# --------------------------------------------------------------------------
+# L-BFGS
+# --------------------------------------------------------------------------
+
+def _tree_dot(a, b):
+    """The reference's pytree inner product over the leaves ``b`` and
+    ``w``: ``vdot(b) + vdot(w)``, one float32 device scalar."""
+    return torch.dot(a["b"].reshape(-1), b["b"].reshape(-1)) + torch.dot(
+        a["w"].reshape(-1), b["w"].reshape(-1)
+    )
+
+
+def _tree_axpy(alpha, x, y):
+    """``y + alpha * x`` leaf-wise (alpha a scalar)."""
+    return {key: y[key] + alpha * x[key] for key in ("w", "b")}
+
+
+def _lbfgs_state(W, b):
+    """Curvature memory as ``(m, *leaf.shape)`` ring buffers, as the
+    reference's; ``head`` (next slot to write) and ``filled`` (valid
+    pairs) are int32 device scalars."""
+    m = _LBFGS_MEMORY
+
+    def history():
+        return {"w": W.new_zeros((m,) + tuple(W.shape)), "b": b.new_zeros((m,) + tuple(b.shape))}
+
+    return {
+        "S": history(),
+        "Y": history(),
+        "rho": W.new_zeros(m),
+        "head": torch.zeros((), dtype=torch.int32, device=W.device),
+        "filled": torch.zeros((), dtype=torch.int32, device=W.device),
+        "value": W.new_zeros(()),
+        "grad": {"w": torch.zeros_like(W), "b": torch.zeros_like(b)},
+    }
+
+
+def _two_loop(state):
+    """Search direction ``-H g`` by the two-loop recursion over the ring
+    buffers, newest pair first; unfilled slots are masked out. The ring is
+    read in newest-first order with one ``index_select`` a buffer, so the
+    device-side ``head`` never comes to the host."""
+    m = _LBFGS_MEMORY
+    steps = torch.arange(m, device=state["rho"].device)
+    order = torch.remainder(state["head"] - 1 - steps, m)
+    valid = (steps < state["filled"]).to(torch.float32)
+    S = {key: state["S"][key].index_select(0, order) for key in ("w", "b")}
+    Y = {key: state["Y"][key].index_select(0, order) for key in ("w", "b")}
+    rho = state["rho"].index_select(0, order)
+
+    def at(history, k):
+        return {key: history[key][k] for key in ("w", "b")}
+
+    q = state["grad"]
+    alphas = []
+    for k in range(m):
+        alpha = valid[k] * rho[k] * _tree_dot(at(S, k), q)
+        q = _tree_axpy(-alpha, at(Y, k), q)
+        alphas.append(alpha)
+    s_new, y_new = at(S, 0), at(Y, 0)
+    y_dot = _tree_dot(y_new, y_new)
+    gamma = torch.where(
+        (state["filled"] > 0) & (y_dot > 0.0),
+        _tree_dot(s_new, y_new) / torch.clamp(y_dot, min=1e-20),
+        1.0,
+    )
+    r = {key: gamma * value for key, value in q.items()}
+    for k in range(m - 1, -1, -1):
+        beta = valid[k] * rho[k] * _tree_dot(at(Y, k), r)
+        r = _tree_axpy(alphas[k] - beta, at(S, k), r)
+    return {key: -value for key, value in r.items()}
+
+
+def _first_accepted(steps, ok, floor: float):
+    """The first step whose trial passed, else ``floor``: the reference's
+    backtracking while_loop, chosen on the device."""
+    first = ok & (torch.cumsum(ok.to(torch.int32), 0) == 1)
+    return torch.where(ok.any(), (steps * first).sum(), floor)
+
+
+def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float):
+    """``iters`` L-BFGS iterations, optimizer state in and out: the
+    reference's segment (seed pass, descent safeguard, Armijo choice, ring
+    writes gated by ``s.y > 1e-10``). Returns ``(W, b, state, losses)``,
+    the losses the ``(iters,)`` pre-step values, all on the device."""
+    x = {"w": W, "b": b}
+    value, dW, db = loss_and_grad(W, b, X, y, l2)
+    state = {**state, "value": value, "grad": {"w": dW, "b": db}}
+    # the trial steps 1, 1/2, 1/4, 1/8, made on the device (a copy from the
+    # host would wait for the stream)
+    steps = torch.full((_BACKTRACK_STEPS,), 0.5, device=W.device).cumprod(0) * 2.0
+    floor = 1.0 / (1 << _BACKTRACK_STEPS)
+    m = _LBFGS_MEMORY
+    slots = torch.arange(m, device=W.device)
+    losses = []
+    for _ in range(iters):
+        value, grad = state["value"], state["grad"]
+        direction = _two_loop(state)
+        slope = _tree_dot(grad, direction)
+        # a non-descent direction (stale curvature) falls back to steepest descent
+        descent = slope < 0.0
+        direction = {key: torch.where(descent, direction[key], -grad[key]) for key in ("w", "b")}
+        slope = torch.where(descent, slope, -_tree_dot(grad, grad))
+
+        trial = trial_losses(
+            x["w"][None] + steps[:, None, None] * direction["w"][None],
+            x["b"][None] + steps[:, None] * direction["b"][None],
+            X, y, l2,
+        )
+        ok = trial <= value + _ARMIJO_C1 * steps * slope
+        x_new = _tree_axpy(_first_accepted(steps, ok, floor), direction, x)
+        value_new, dW, db = loss_and_grad(x_new["w"], x_new["b"], X, y, l2)
+        grad_new = {"w": dW, "b": db}
+
+        # curvature pair; skipped when s.y is not positive
+        s = {key: x_new[key] - x[key] for key in ("w", "b")}
+        y_vec = {key: grad_new[key] - grad[key] for key in ("w", "b")}
+        sy = _tree_dot(s, y_vec)
+        keep = sy > 1e-10
+        head = state["head"]
+        write = keep & (slots == head)
+
+        def ring_write(history, pair):
+            return {
+                key: torch.where(write.view((m,) + (1,) * pair[key].dim()), pair[key], history[key])
+                for key in ("w", "b")
+            }
+
+        state = {
+            **state,
+            "S": ring_write(state["S"], s),
+            "Y": ring_write(state["Y"], y_vec),
+            "rho": torch.where(write, 1.0 / torch.clamp(sy, min=1e-20), state["rho"]),
+            "head": torch.where(keep, torch.remainder(head + 1, m), head),
+            "filled": torch.where(keep, torch.clamp(state["filled"] + 1, max=m), state["filled"]),
+            "value": value_new,
+            "grad": grad_new,
+        }
+        x = x_new
+        losses.append(value)
+    if not losses:
+        return x["w"], x["b"], state, W.new_zeros(0)
+    return x["w"], x["b"], state, torch.stack(losses)
+
+
+def _plateaued(history: list[float], tol: float, window: int) -> bool:
+    """True when the trailing ``window`` pre-step losses form a genuine
+    plateau: every consecutive delta is under the (relative) tolerance,
+    and so is the total improvement across the window (reference
+    ``ml/logistic.py:289``, exactly)."""
+    if len(history) < window:
+        return False
+    recent = history[-window:]
+    threshold = tol * max(abs(recent[-1]), 1.0)
+    return abs(recent[-1] - recent[0]) <= threshold and all(
+        abs(recent[i + 1] - recent[i]) <= threshold
+        for i in range(len(recent) - 1)
+    )
+
+
+def _segment_iters(max_iter: int, rows: int, features: int, tol: float) -> int:
+    """Iterations a segment: ``segment_steps`` over the row*iterations
+    budget, capped for the convergence check's granularity, never below 5
+    iterations (a prime max_iter would otherwise shatter into
+    per-iteration segments, each with a host copy)."""
+    iters = segment_steps(max_iter, rows, _LR_ROW_ITERS_BUDGET, features)
+    if tol > 0:
+        capped = largest_divisor(max_iter, min(iters, _LR_CHECK_ITERS))
+        if capped >= min(iters, 5):
+            iters = capped
+    return iters
+
+
+def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
+    """L-BFGS in segments of ``iters`` iterations (the reference's
+    ``segment_steps`` over ``_LR_ROW_ITERS_BUDGET``, capped at
+    ``_LR_CHECK_ITERS`` for the convergence check), stopping at the top
+    of a segment once the trailing losses plateau. Returns ``(W, b,
+    losses)``: the losses of every iteration run, on the device. One host
+    copy a segment: its losses, for the plateau check."""
+    if max_iter <= 0:  # MLlib allows maxIter=0: the initial model
+        return W, b, W.new_zeros(0)
+    iters = _segment_iters(max_iter, X.shape[0], X.shape[1], tol)
+    state = _lbfgs_state(W, b)
+    losses = []
+    # trailing pre-step losses across segment boundaries (the resume key's
+    # ``history``); a plateau needs every delta in the window to be small
+    history: list[float] = []
+    window = _LR_STOP_DELTAS + 1
+    for _ in range(max_iter // iters):
+        if tol > 0 and _plateaued(history, tol, window):
+            break
+        W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2)
+        losses.append(segment_losses)
+        if tol > 0:
+            history.extend(float(v) for v in segment_losses.cpu().numpy())
+            del history[:-window]
+    return W, b, torch.cat(losses)
+
+
+def scaler_stats(X: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The host-side standardization scaler: float64 mean, and std with
+    zero-variance features pinned to 1 (reference ``ml/logistic.py:437``,
+    exactly)."""
+    mean = np.asarray(X, np.float64).mean(axis=0)
+    std = np.asarray(X, np.float64).std(axis=0)
+    return mean, np.where(std > 0, std, 1.0)
+
+
+def _standardized(X, mean, scale) -> np.ndarray:
+    """The fit's rows: standardized in float64 on the host, then float32,
+    as the reference sends them to its device."""
+    return ((np.asarray(X) - mean) / scale).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# Prediction and the estimator
+# --------------------------------------------------------------------------
 
 def _forward(X, w, b, mean, scale):
     logits = torch.matmul((X - mean) / scale, w) + b
@@ -29,3 +451,34 @@ class LogisticRegressionModel(FittedModel):
 
     def _forward(self, X):
         return _forward(X, self.w, self.b, self.mean, self.scale)
+
+
+class LogisticRegression:
+    """MLlib's defaults: ``maxIter=100``, ``regParam=0.0``, ``tol=1e-6``,
+    fit-intercept, internal standardization."""
+
+    def __init__(
+        self,
+        max_iter: int = 100,
+        reg_param: float = 0.0,
+        tol: float = _LR_TOL,
+        device: DeviceLike = None,
+    ):
+        self.max_iter = max_iter
+        self.reg_param = reg_param
+        self.tol = tol
+        self.device = resolve_device(device)
+
+    def fit(self, X, y) -> LogisticRegressionModel:
+        num_classes = infer_num_classes(y)
+        mean, scale = scaler_stats(X)
+        X_dev = torch.from_numpy(_standardized(X, mean, scale)).to(self.device)
+        y_dev = torch.from_numpy(np.asarray(y, dtype=np.int32)).to(self.device)
+        W = torch.zeros((X_dev.shape[1], num_classes), dtype=torch.float32, device=self.device)
+        b = torch.zeros(num_classes, dtype=torch.float32, device=self.device)
+        W, b, _ = _fit(W, b, X_dev, y_dev, self.max_iter, float(self.reg_param), self.tol)
+        return LogisticRegressionModel(
+            W, b,
+            torch.from_numpy(mean.astype(np.float32)).to(self.device),
+            torch.from_numpy(scale.astype(np.float32)).to(self.device),
+        )

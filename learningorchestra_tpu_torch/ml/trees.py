@@ -40,6 +40,8 @@ Two versions of each device program live here:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -389,51 +391,83 @@ def _route(bins, node, feature, bin_index):
 # Fit: wrappers, plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
-# K2 and K5 sum a fixed split of the rows into chunks, one block each: at
-# most 264 chunks (two per SM of an H100) of at least 1,024 rows. The split
-# depends on the row count alone, so the order of every float sum, and
-# with it the fit, repeats bit for bit.
-_MAX_CHUNKS = 264
-_MIN_CHUNK_ROWS = 1024
+# K2 and K5 sum a fixed split of the rows into chunks (``kernels.row_chunks``,
+# a function of the row count alone), so a refit repeats bit for bit.
 _TILE_ROWS = 256              # rows a K2 block stages in shared memory at a time
-_BLOCK_SHARED_BYTES = 48 * 1024   # a block's share, so several fit on an SM
-_SHARED_BYTES = 232_448       # shared memory one block may use on an H100
 _LEAF_WARPS = 8
 
 
-def _row_chunks(rows: int) -> tuple[int, int]:
-    """``(chunks, rows per chunk)``, with no empty chunk."""
-    chunks = max(1, min(_MAX_CHUNKS, -(-rows // _MIN_CHUNK_ROWS)))
-    per_chunk = max(1, -(-rows // chunks))
-    return -(-rows // per_chunk), per_chunk
+class HistogramTiling(NamedTuple):
+    """How K2 covers a level: one pass per window of ``nodes`` x ``bins`` x
+    ``channels`` cells (the whole level when it fits), each block summing
+    ``block_features`` features of the window."""
+
+    nodes: int
+    bins: int
+    channels: int
+    block_features: int
 
 
-def _block_features(num_features: int, n_nodes: int, max_bins: int, num_channels: int) -> int:
-    """Features one K2 block takes (a warp each, at most 32): as many as
-    keep its float64 partial histogram and staged rows within a block's
-    share of shared memory, spread evenly over the blocks. One feature may
-    take up to all of it."""
-    staging = _TILE_ROWS * (4 * num_channels + 4)
-    per_feature = n_nodes * max_bins * num_channels * 8 + _TILE_ROWS
-    if staging + per_feature > _SHARED_BYTES:
-        raise ValueError(
-            f"a level histogram of {n_nodes} nodes x {max_bins} bins x "
-            f"{num_channels} channels does not fit one block's shared memory"
-        )
-    most = max(1, min(32, (_BLOCK_SHARED_BYTES - staging) // per_feature))
+class LeafTiling(NamedTuple):
+    """How K5 covers the leaves: one pass per window of ``leaves`` x
+    ``channels`` cells, ``warps`` private copies of them a block."""
+
+    leaves: int
+    channels: int
+    warps: int
+
+
+def _windows(total: int, size: int) -> list[tuple[int, int]]:
+    """``(begin, count)`` of each window of ``size`` over ``range(total)``,
+    in the order the kernels' entry points run them."""
+    return [(begin, min(size, total - begin)) for begin in range(0, total, size)]
+
+
+def _block_features(
+    num_features: int, n_nodes: int, max_bins: int, num_channels: int, bin_bytes: int = 1
+) -> HistogramTiling:
+    """K2's tiling. A block holds one float64 partial histogram of its
+    features' cells and stages ``_TILE_ROWS`` rows at a time. When one
+    feature's whole level fits a block's shared memory, one pass covers
+    it, with as many features a block (a warp each, at most 32) as keep
+    the block within its 48 KB share, spread evenly over the blocks. One
+    feature may take up to all of it. Else the level goes in windows of
+    nodes that fit one feature (of bins, then channels, when even one node
+    does not fit); rows outside a window are skipped."""
+    def staging(channels):
+        return _TILE_ROWS * (4 * channels + 4)
+
+    def per_feature(nodes, bins, channels):
+        return nodes * bins * channels * 8 + _TILE_ROWS * bin_bytes
+
+    def room(channels):   # bytes left for one feature's float64 cells
+        return kernels.SHARED_BYTES - staging(channels) - _TILE_ROWS * bin_bytes
+
+    nodes, bins, channels = n_nodes, max_bins, num_channels
+    if staging(channels) + per_feature(nodes, bins, channels) > kernels.SHARED_BYTES:
+        if staging(channels) > kernels.SHARED_BYTES // 4:
+            # many channels: a window of them keeps the staged rows small
+            channels = max(1, (kernels.SHARED_BYTES // 4 // _TILE_ROWS - 4) // 4)
+        nodes = min(n_nodes, room(channels) // (max_bins * channels * 8))
+        if nodes < 1:
+            nodes, bins = 1, max(1, room(channels) // (channels * 8))
+    most = max(1, min(32, (kernels.BLOCK_SHARED_BYTES - staging(channels))
+                      // per_feature(nodes, bins, channels)))
     blocks = -(-num_features // most)
-    return -(-num_features // blocks)
+    return HistogramTiling(nodes, bins, channels, -(-num_features // blocks))
 
 
-def _leaf_warps(n_leaves: int, num_channels: int) -> int:
-    """Warps of a K5 block, each with its own float64 copy of the sums."""
+def _leaf_warps(n_leaves: int, num_channels: int) -> LeafTiling:
+    """K5's tiling: warps of a block, each with its own float64 copy of
+    the sums, as many as fit its 48 KB share; past one block's shared
+    memory, windows of leaves (or of channels) that fit one warp's copy."""
     per_warp = n_leaves * num_channels * 8
-    if per_warp > _SHARED_BYTES:
-        raise ValueError(
-            f"leaf sums of {n_leaves} leaves x {num_channels} channels do not fit "
-            "one block's shared memory"
-        )
-    return max(1, min(_LEAF_WARPS, _BLOCK_SHARED_BYTES // per_warp))
+    if per_warp <= kernels.SHARED_BYTES:
+        warps = max(1, min(_LEAF_WARPS, kernels.BLOCK_SHARED_BYTES // per_warp))
+        return LeafTiling(n_leaves, num_channels, warps)
+    if num_channels * 8 <= kernels.SHARED_BYTES:
+        return LeafTiling(kernels.SHARED_BYTES // (num_channels * 8), num_channels, 1)
+    return LeafTiling(1, kernels.SHARED_BYTES // 8, 1)
 
 
 def _check_rows(bins, node, channels=None):
@@ -466,8 +500,6 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     if bins.device.type == "cpu":
         return _level_histograms(bins, node, channels, n_nodes, max_bins)
     kernels.check_operands(bins, node, channels)
-    if bins.dtype != torch.int8:
-        raise TypeError("the kernel takes int8 bins")
     rows, num_features = bins.shape
     num_channels = channels.shape[1]
     shape = (n_nodes, num_features, max_bins, num_channels)
@@ -477,15 +509,20 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     out = torch.empty(shape, dtype=torch.float32, device=bins.device)
     if out.numel() == 0:
         return out
-    chunks, per_chunk = _row_chunks(rows)
-    block_features = _block_features(num_features, n_nodes, max_bins, num_channels)
-    partials = torch.empty((chunks,) + tuple(out.shape), dtype=torch.float64, device=bins.device)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    tiling = _block_features(num_features, n_nodes, max_bins, num_channels, bins.element_size())
+    # one window's partials, reused by every pass
+    partials = torch.empty(
+        (chunks, tiling.nodes, num_features, tiling.bins, tiling.channels),
+        dtype=torch.float64, device=bins.device,
+    )
     kernels.launch(
         "level_histograms", "lo_level_histograms",
-        bins.data_ptr(), node.data_ptr(), channels.data_ptr(),
+        bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
         partials.data_ptr(), out.data_ptr(),
         rows, num_features, n_nodes, max_bins, num_channels,
-        chunks, per_chunk, block_features, _TILE_ROWS,
+        chunks, per_chunk, tiling.nodes, tiling.bins, tiling.channels,
+        tiling.block_features, _TILE_ROWS,
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
     return out
@@ -531,14 +568,13 @@ def route(bins, node, feature, bin_index):
     if bins.device.type == "cpu":
         return _route(bins, node, feature, bin_index)
     kernels.check_operands(bins, node, feature, bin_index)
-    if bins.dtype != torch.int8:
-        raise TypeError("the kernel takes int8 bins")
     out = torch.empty_like(node)
     if bins.shape[0] == 0:
         return out
     kernels.launch(
         "route", "lo_route",
-        bins.data_ptr(), node.data_ptr(), feature.data_ptr(), bin_index.data_ptr(),
+        bins.data_ptr(), bins.element_size(), node.data_ptr(), feature.data_ptr(),
+        bin_index.data_ptr(),
         out.data_ptr(), bins.shape[0], bins.shape[1],
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
@@ -565,15 +601,17 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int):
     out = torch.empty((n_leaves, num_channels), dtype=torch.float32, device=channels.device)
     if out.numel() == 0:
         return out
-    warps = _leaf_warps(n_leaves, num_channels)
-    chunks, per_chunk = _row_chunks(rows)
+    tiling = _leaf_warps(n_leaves, num_channels)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    # one window's partials, reused by every pass
     partials = torch.empty(
-        (chunks, n_leaves, num_channels), dtype=torch.float64, device=channels.device
+        (chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=channels.device
     )
     kernels.launch(
         "leaf_sums", "lo_leaf_sums",
         leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        rows, n_leaves, num_channels, chunks, per_chunk, warps,
+        rows, n_leaves, num_channels, chunks, per_chunk,
+        tiling.leaves, tiling.channels, tiling.warps,
         kernels.max_blocks(channels.device.index), channels.device.index, _stream(channels),
     )
     return out

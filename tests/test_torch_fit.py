@@ -47,7 +47,9 @@ from learningorchestra_tpu_torch.ml import (  # noqa: E402
     checkpoint,
     evaluation,
     f1_score,
+    logistic,
     make_classifier,
+    naive_bayes,
     trees,
 )
 
@@ -439,9 +441,10 @@ def test_make_classifier():
     assert CLASSIFIER_NAMES == jax_base.CLASSIFIER_NAMES
     assert isinstance(make_classifier("dt", device="cpu"), trees.DecisionTreeClassifier)
     assert isinstance(make_classifier("gb", device="cpu"), trees.GBTClassifier)
-    for name in ("lr", "rf", "nb"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_classifier(name, device="cpu")
+    assert isinstance(make_classifier("lr", device="cpu"), logistic.LogisticRegression)
+    assert isinstance(make_classifier("nb", device="cpu"), naive_bayes.NaiveBayes)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_classifier("rf", device="cpu")
     with pytest.raises(KeyError):
         make_classifier("svm", device="cpu")
     if torch.cuda.is_available():
@@ -505,5 +508,73 @@ def test_fit_wrappers_refuse_what_the_kernels_do_not_take(data):
         trees.leaf_sums(node[:5], channels, 2)
     with pytest.raises(ValueError):   # a CPU tensor is no kernel operand
         kernels.check_operands(bins)
-    with pytest.raises(ValueError):   # one feature's histogram past shared memory
-        trees._block_features(FEATURES, 2**12, BINS, 2)
+
+
+# --------------------------------------------------------------------------
+# Any bin count and any level width (the kernels' size limits)
+# --------------------------------------------------------------------------
+
+def _covered_once(windows, total):
+    counts = np.zeros(total, np.int64)
+    for begin, count in windows:
+        counts[begin : begin + count] += 1
+    return bool((counts == 1).all())
+
+
+@pytest.mark.parametrize(
+    "n_nodes,max_bins,channels,bin_bytes",
+    [(2048, 32, 10, 1), (2048, 32, 2, 1), (448, 32, 2, 1), (2048, 255, 10, 4),
+     (64, 255, 200, 4), (4, 30000, 2, 4), (16, 32, 2, 1)],
+)
+def test_level_tiling_covers_every_cell_once(n_nodes, max_bins, channels, bin_bytes):
+    """K2's windows cover every node, bin and channel exactly once, and a
+    window's float64 histogram of its block's features and its staged rows
+    fit one block's shared memory; a level whose one feature fits a
+    block's shared memory is one window."""
+    tiling = trees._block_features(16, n_nodes, max_bins, channels, bin_bytes)
+    assert _covered_once(trees._windows(n_nodes, tiling.nodes), n_nodes)
+    assert _covered_once(trees._windows(max_bins, tiling.bins), max_bins)
+    assert _covered_once(trees._windows(channels, tiling.channels), channels)
+    shared = (
+        tiling.nodes * tiling.block_features * tiling.bins * tiling.channels * 8
+        + trees._TILE_ROWS * (4 * tiling.channels + 4 + bin_bytes * tiling.block_features)
+    )
+    assert 1 <= tiling.block_features <= 16 and shared <= kernels.SHARED_BYTES
+    whole = n_nodes * max_bins * channels * 8 + trees._TILE_ROWS * (4 * channels + 4 + bin_bytes)
+    assert (tiling[:3] == (n_nodes, max_bins, channels)) == (whole <= kernels.SHARED_BYTES)
+
+
+@pytest.mark.parametrize("n_leaves,channels", [(4096, 10), (32, 2), (4096, 2), (8, 40000)])
+def test_leaf_tiling_covers_every_leaf_once(n_leaves, channels):
+    tiling = trees._leaf_warps(n_leaves, channels)
+    assert _covered_once(trees._windows(n_leaves, tiling.leaves), n_leaves)
+    assert _covered_once(trees._windows(channels, tiling.channels), channels)
+    assert tiling.leaves * tiling.channels * 8 * tiling.warps <= kernels.SHARED_BYTES
+
+
+def test_dt_fit_at_255_bins_identical(data):
+    """int32 bins past 127: binning, histograms and routes all take them."""
+    X, y = data["X"], data["y3"]
+    expected = jax_trees.DecisionTreeClassifier(max_depth=DEPTH, max_bins=255).fit(X, y)
+    got = trees.DecisionTreeClassifier(max_depth=DEPTH, max_bins=255, device="cpu").fit(X, y)
+    np.testing.assert_array_equal(got.features_heap.numpy(), np.asarray(expected.features_heap))
+    np.testing.assert_array_equal(got.thresholds_heap.numpy(), np.asarray(expected.thresholds_heap))
+    np.testing.assert_allclose(got.leaf_probs.numpy(), np.asarray(expected.leaf_probs), rtol=0, atol=1e-6)
+    thresholds = binning.make_thresholds(X, 255).astype(np.float32)
+    bins = binning.apply_bins(t(X), t(thresholds))
+    assert bins.dtype == torch.int32 and int(bins.max()) > 127
+
+
+def test_dt_fit_at_depth_12_identical(data):
+    """A level of 2,048 nodes (past one block's shared memory at any K)."""
+    expected = jax_trees._dt_fit(
+        jnp.asarray(data["bins"]), jnp.asarray(data["y3"]), jnp.asarray(data["weights"]),
+        num_classes=CLASSES, max_depth=12, max_bins=BINS,
+    )
+    got = trees._dt_fit(
+        t(data["bins"]), t(data["y3"].astype(np.int64)), t(data["weights"]), CLASSES, 12, BINS
+    )
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(expected[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(expected[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(expected[2]), rtol=0, atol=1e-6)
+    assert (got[0].numpy()[2**11 - 1 :] >= 0).any()   # the last level still splits

@@ -92,7 +92,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     report = json.loads(result.stdout.strip().splitlines()[-1])
     assert "learningorchestra_tpu_torch.services.model_builder" in report["imported"]
     assert "learningorchestra_tpu_torch.kernels" in report["imported"]
-    for module in ("binning", "evaluation", "trees", "base"):
+    for module in ("binning", "evaluation", "trees", "base", "logistic", "naive_bayes"):
         assert f"learningorchestra_tpu_torch.ml.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]
     assert [name for name in report["added"] if forbidden(name)] == []

@@ -130,6 +130,42 @@ def test_shallow_heaps_match_reference(depth):
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize(
+    "trees_count,depth,classes",
+    [(20, 10, 2), (1, 12, 20)],   # past one block's shared memory on the card
+)
+def test_deep_and_wide_forests_match_reference(trees_count, depth, classes):
+    """The shapes whose heaps the card's kernel stages in groups (20 trees
+    of depth 10) or reads from global memory (a depth-12 tree of 20
+    classes): the plain forward agrees with the reference."""
+    X = make_rows(7, rows=300)
+    features_heap, thresholds_heap, leaf_probs, leaf_values = make_heaps(
+        8, trees_count=trees_count, classes=classes, depth=depth
+    )
+    expected = np.asarray(
+        jax_trees._ensemble_forward(
+            jnp.asarray(X), jnp.asarray(features_heap), jnp.asarray(thresholds_heap),
+            jnp.asarray(leaf_probs), max_depth=depth,
+        )
+    )
+    got = trees.ensemble_forward(
+        t(X), t(features_heap), t(thresholds_heap), t(leaf_probs), depth
+    ).numpy()
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got.argmax(1), expected.argmax(1))
+    expected = np.asarray(
+        jax_trees._gbt_forward(
+            jnp.asarray(X), jnp.float32(0.2), jnp.asarray(features_heap),
+            jnp.asarray(thresholds_heap), jnp.asarray(leaf_values), jnp.float32(0.1),
+            max_depth=depth,
+        )
+    )
+    got = trees.gbt_forward(
+        t(X), 0.2, t(features_heap), t(thresholds_heap), t(leaf_values), 0.1, depth
+    ).numpy()
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
+
+
 def test_zero_trees_is_uniform():
     X = make_rows(5, rows=10)
     features_heap, thresholds_heap, leaf_probs, _ = make_heaps(6, trees_count=0)
