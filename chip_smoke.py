@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's predict lane and its lr, dt, gb and nb fits on
-one CUDA card.
+"""Drive the PyTorch port's predict lane and its lr, dt, rf, gb and nb fits
+on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -35,16 +35,29 @@ Phases, one JSON line each:
                  and K = 10 and K5 at 4,096 leaves with K = 10 (windows
                  past one block's shared memory), counts identical and sums
                  within 1e-5; K6 at 20 trees of depth 10 and at one tree of
-                 depth 12 with 20 classes, bit-equal. Then K7, both entry
+                 depth 12 with 20 classes, bit-equal. Then the forest's
+                 tree axis: K2, K4 and K5 over 20 trees (one launch a
+                 level) and K3 with each node's subset of 4 features, at
+                 every level of a depth-5 forest grown by the plain
+                 versions from seeded bootstrap counts, identical to the
+                 plain versions and, tree by tree, to one-tree launches;
+                 K3 on tied scores, on a node whose every allowed gain is
+                 -inf and with NaN outside the subset; K2 at 20 trees of
+                 a 2,048-node level, K = 10 (windows); the one-tree calls
+                 of dt and gb bit-equal with a tree axis of 1; times as
+                 above. Then K7, both entry
                  points, against the plain twin on the same rows
                  standardized by scaler_stats, with 2 and 10 classes: loss
                  within 1e-6 relative, gradient within 1e-6, a second launch
                  bit identical; times cold (L2 overwritten) and warm.
-6. fit         — ``make_classifier(...)`` fits dt, gb, lr and nb on the same
-                 1,000,000 rows on the card, then evaluate_predict,
+6. fit         — ``make_classifier(...)`` fits dt, rf, gb, lr and nb on the
+                 same 1,000,000 rows on the card, then evaluate_predict,
                  save_model and one request each over HTTP. Held against
                  plain-version fits on the card (dt: identical heaps and
-                 metrics; gb: margins and accuracy within 1e-3; lr: losses
+                 metrics; rf: the 20 trees in one chunk, one launch of K2,
+                 K3 and K4 a level, heaps identical and leaf probabilities
+                 within 1e-6 on the same draws, refit bit for bit; gb:
+                 margins and accuracy within 1e-3; lr: losses
                  within 1e-5 relative, the same stop segment, probabilities
                  within 1e-4), gb and lr refit bit for bit, no host sync in
                  a level, round or L-BFGS segment; nb's theta and prior
@@ -124,14 +137,22 @@ REPLACES = {
 }
 FIT_REPLACES = {
     "apply_bins": "learningorchestra_tpu/ml/binning.py:37 apply_bins",
-    "level_histograms": "learningorchestra_tpu/ml/trees.py:66 _level_histograms",
+    "level_histograms": (
+        "learningorchestra_tpu/ml/trees.py:66 _level_histograms (also vmapped over trees, :437)"
+    ),
     "select_splits": (
         "learningorchestra_tpu/ml/trees.py:160 _gini_gain, :181 _newton_gain, "
-        ":196 _select_splits"
+        ":196 _select_splits (with feature subsets, :201-206)"
     ),
-    "route": "learningorchestra_tpu/ml/trees.py:235 _route (:217 _indicator_lookup)",
-    "leaf_sums": "learningorchestra_tpu/ml/trees.py:142 _leaf_sums",
+    "route": (
+        "learningorchestra_tpu/ml/trees.py:235 _route (:217 _indicator_lookup; "
+        "also vmapped over trees, :437)"
+    ),
+    "leaf_sums": "learningorchestra_tpu/ml/trees.py:142 _leaf_sums (also vmapped over trees, :437)",
 }
+FOREST_KERNELS = ("level_histograms", "select_splits", "route", "leaf_sums")
+SUBSET_K = int(np.ceil(np.sqrt(FEATURES)))   # rf's feature subsets: 4 of 16
+WIDE_FOREST_ROWS = 100_000   # the windowed forest level: rows enough for every node
 LOGISTIC_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/logistic.cu"
 LOGISTIC_REPLACES = {
     "logistic_loss_grad": (
@@ -637,29 +658,32 @@ def phase_serve(torch, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 def _fit_bound(
-    name: str, rows: int, n_nodes: int, channels: int, bins_read: int = 0
+    name: str, rows: int, n_nodes: int, channels: int, bins_read: int = 0,
+    trees: int = 1, subsets: bool = False,
 ) -> tuple[float, str]:
     """Least milliseconds the card could take for one call at these shapes:
     the bytes the function needs, each read once and each output written
     once, over HBM bandwidth, against the float32 operations it needs over
     the float32 peak. ``route`` needs one bin of each row whose node
-    splits (``bins_read``, from this run's data), not the whole matrix."""
-    F, B, K = FEATURES, MAX_BINS, channels
+    splits (``bins_read``, from this run's data), not the whole matrix. A
+    forest's ``trees`` share the bins and each has its own nodes, channels
+    and output; its split search reads each node's feature scores."""
+    F, B, K, T = FEATURES, MAX_BINS, channels, trees
     if name == "apply_bins":      # X, thresholds -> int8 bins; a 5-step search
         bytes_moved = rows * F * 4 + F * (B - 1) * 4 + rows * F
         ops = rows * F * int(np.ceil(np.log2(B)))
     elif name == "level_histograms":   # bins, node, channels -> histogram
-        bytes_moved = rows * F + rows * 4 + rows * K * 4 + n_nodes * F * B * K * 4
-        ops = rows * F * K
+        bytes_moved = rows * F + T * (rows * 4 + rows * K * 4 + n_nodes * F * B * K * 4)
+        ops = T * rows * F * K
     elif name == "select_splits":  # histogram -> feature, bin; ~5 ops a channel
-        bytes_moved = n_nodes * F * B * K * 4 + n_nodes * 8
-        ops = n_nodes * F * B * (5 * K + 5)
+        bytes_moved = T * n_nodes * (F * B * K * 4 + 8 + (F * 4 if subsets else 0))
+        ops = T * n_nodes * F * B * (5 * K + 5)
     elif name == "route":          # node, a bin per split row, split -> node
-        bytes_moved = rows * 4 * 2 + bins_read + n_nodes * 8
-        ops = rows * 2
+        bytes_moved = T * (rows * 4 * 2 + n_nodes * 8) + bins_read
+        ops = T * rows * 2
     else:                          # leaf_sums: leaf, channels -> sums
-        bytes_moved = rows * 4 + rows * K * 4 + n_nodes * K * 4
-        ops = rows * K
+        bytes_moved = T * (rows * 4 + rows * K * 4 + n_nodes * K * 4)
+        ops = T * rows * K
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     op_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -728,13 +752,132 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
             plain_routed = trees._route(bins, node, plain_feature, plain_bin)
             if not torch.equal(routed, plain_routed):
                 raise AssertionError(f"route ({mode}, level {level}): nodes differ")
+            # the one-tree calls of dt and gb are a forest of one, bit for bit
+            split = trees.select_splits(plain_hist[None], mode)
+            if not (
+                torch.equal(trees.level_histograms(bins, node[None], channels[None], n_nodes, MAX_BINS)[0], hist)
+                and torch.equal(split[0][0], feature) and torch.equal(split[1][0], bin_index)
+                and torch.equal(trees.route(bins, node[None], plain_feature[None], plain_bin[None])[0], routed)
+            ):
+                raise AssertionError(f"{mode}, level {level}: a tree axis of 1 changes the bits")
             cases[(mode, level)] = (node, channels, plain_hist, plain_feature, plain_bin)
             node = plain_routed
         sums = trees.leaf_sums(node, channels, 2**DEPTH)
         plain_sums = trees._leaf_sums(node, channels, 2**DEPTH)
         errors["leaf_sums"] = max(errors["leaf_sums"], _sums_error("leaf_sums", mode, sums, plain_sums))
+        if not torch.equal(trees.leaf_sums(node[None], channels[None], 2**DEPTH)[0], sums):
+            raise AssertionError(f"leaf_sums ({mode}): a tree axis of 1 changes the bits")
         cases[(mode, DEPTH)] = (node, channels, None, None, None)
     return {"errors": errors, "bins": bins, "cases": cases}
+
+
+def _card_draws(torch, rows: int, seed: int, device):
+    """A forest's draws on the card, as the rf estimator makes them."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return trees._forest_draws(TREES, rows, DEPTH, FEATURES, generator, device)
+
+
+def check_forest_kernels(torch, bins, y_dev, seed: int = 6) -> dict:
+    """K2, K4 and K5 over a forest's tree axis and K3 with its feature
+    subsets against their plain versions, at every level of a depth-DEPTH
+    forest of TREES trees grown by the plain versions from seeded draws:
+    counts, splits and routes identical. A tree's histogram in the forest
+    launch equals the launch of that tree alone, bit for bit. Then K3 on
+    tied scores, on a node whose every allowed gain is -inf and with a NaN
+    outside the subset, and K2 at a windowed level of the forest. Returns
+    each kernel's largest difference and the inputs of each level for
+    timing."""
+    errors = {name: 0.0 for name in FOREST_KERNELS}
+    rows = bins.shape[0]
+    draws = _card_draws(torch, rows, seed, bins.device)
+    one_hot = torch.nn.functional.one_hot(y_dev.long(), CLASSES).to(torch.float32)
+    channels = (one_hot[None] * draws.bootstrap[:, :, None]).contiguous()
+    node = torch.zeros((TREES, rows), dtype=torch.int32, device=bins.device)
+    cases = {}
+    for level in range(DEPTH):
+        n_nodes = 2**level
+        hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+        plain_hist = trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+        errors["level_histograms"] = max(
+            errors["level_histograms"], _sums_error("level_histograms (forest)", "gini", hist, plain_hist)
+        )
+        for tree in (0, TREES - 1):
+            alone = trees.level_histograms(bins, node[tree], channels[tree], n_nodes, MAX_BINS)
+            if not torch.equal(alone, hist[tree]):
+                raise AssertionError(f"level_histograms (forest, level {level}): tree {tree} differs alone")
+        scores = draws.subset_scores[:, n_nodes - 1 : 2 * n_nodes - 1]
+        feature, bin_index = trees.select_splits(plain_hist, "gini", scores, SUBSET_K)
+        plain_feature, plain_bin = trees._select_plain(plain_hist, "gini", scores, SUBSET_K)
+        if not (torch.equal(feature, plain_feature) and torch.equal(bin_index, plain_bin)):
+            raise AssertionError(f"select_splits (forest, level {level}): splits differ")
+        routed = trees.route(bins, node, plain_feature, plain_bin)
+        plain_routed = trees._route(bins, node, plain_feature, plain_bin)
+        if not torch.equal(routed, plain_routed):
+            raise AssertionError(f"route (forest, level {level}): nodes differ")
+        cases[level] = (node, channels, plain_hist, scores, plain_feature, plain_bin)
+        node = plain_routed
+    sums = trees.leaf_sums(node, channels, 2**DEPTH)
+    plain_sums = trees._leaf_sums(node, channels, 2**DEPTH)
+    errors["leaf_sums"] = _sums_error("leaf_sums (forest)", "gini", sums, plain_sums)
+    cases[DEPTH] = (node, channels, None, None, None, None)
+    special = _check_subset_edges(torch, cases[DEPTH - 1][2], cases[DEPTH - 1][3])
+    wide = _check_wide_forest_level(torch, bins[:WIDE_FOREST_ROWS])
+    errors["level_histograms"] = max(errors["level_histograms"], wide.pop("max_abs_err"))
+    return {"errors": errors, "cases": cases, "subset_edges": special, "wide_level": wide}
+
+
+def _check_subset_edges(torch, hist, scores) -> dict:
+    """K3 against its plain version on a forest level's histogram where
+    the plain version's sort meets ties (scores in steps of 1/8), where
+    tree 0's node 0 has no rows in its allowed features (every allowed
+    gain -inf: a leaf at bin 0), and under newton with a NaN in a feature
+    outside node 0's subset (-inf there, so no NaN wins)."""
+    tied = (scores * 8).floor() / 8
+    kth = torch.sort(tied, dim=-1).values[..., SUBSET_K - 1 : SUBSET_K]
+    allowed = tied <= kth
+    empty = hist.clone()
+    empty[0, 0][allowed[0, 0]] = 0.0
+    rng = np.random.default_rng(4)
+    newton = torch.from_numpy(rng.random(tuple(hist.shape[:-1]) + (2,), dtype=np.float32)).to(hist.device)
+    newton[..., 0] -= 0.5
+    outside = int(torch.nonzero(~allowed[0, 0])[0, 0])
+    newton[0, 0, outside, 3, 0] = float("nan")
+    outcomes = {}
+    for name, values, mode in (("ties", hist, "gini"), ("empty_node", empty, "gini"), ("nan_outside", newton, "newton")):
+        got = trees.select_splits(values, mode, tied, SUBSET_K)
+        want = trees._select_plain(values, mode, tied, SUBSET_K)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"select_splits (forest, {name}): splits differ")
+        outcomes[name] = {"leaf_nodes": int((got[0] < 0).sum()), "nodes": int(got[0].numel())}
+    empty_split = trees.select_splits(empty, "gini", tied, SUBSET_K)
+    if (int(empty_split[0][0, 0]), int(empty_split[1][0, 0])) != (-1, 0):
+        raise AssertionError("select_splits (forest, empty_node): not a leaf at bin 0")
+    ties = int((tied[..., None, :] == tied[..., :, None]).sum() - tied.numel())
+    return {"tied_score_pairs": ties, **outcomes}
+
+
+def _check_wide_forest_level(torch, bins) -> dict:
+    """K2 over the forest's trees at a 2,048-node level of 10 classes
+    (windows of nodes past one block's shared memory), counts identical
+    to the plain version; one cold call timed."""
+    rows, deep = bins.shape[0], 2 ** (DEEP_DEPTH - 1)
+    rng = np.random.default_rng(12)
+    node = torch.from_numpy(rng.integers(0, deep, (TREES, rows)).astype(np.int32)).to(bins.device)
+    bootstrap = torch.from_numpy(rng.poisson(1.0, (TREES, rows)).astype(np.float32)).to(bins.device)
+    labels = torch.from_numpy(rng.integers(0, DEEP_CLASSES, rows)).to(bins.device)
+    one_hot = torch.nn.functional.one_hot(labels, DEEP_CLASSES).to(torch.float32)
+    channels = (one_hot[None] * bootstrap[:, :, None]).contiguous()
+    hist = trees.level_histograms(bins, node, channels, deep, MAX_BINS)
+    plain = trees._level_histograms(bins, node, channels, deep, MAX_BINS)
+    error = _sums_error("level_histograms (forest, 2,048 nodes)", "gini", hist, plain)
+    del hist, plain
+    tiling = trees._block_features(FEATURES, deep, MAX_BINS, DEEP_CLASSES, 1)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=bins.device)
+    return {
+        "rows": rows, "trees": TREES, "nodes": deep, "channels": DEEP_CLASSES,
+        "windows": len(trees._windows(deep, tiling.nodes)), "max_abs_err": error,
+        "ms": _event_ms(torch, lambda: trees.level_histograms(bins, node, channels, deep, MAX_BINS), 2, flush),
+    }
 
 
 def ten_classes(X: np.ndarray, seed: int = 3) -> np.ndarray:
@@ -954,9 +1097,12 @@ def phase_fit_kernels(torch) -> dict:
     # inputs of K2, K4 and K5 (28, 21 and 12 MB) would otherwise stay in L2
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=X_dev.device)
 
-    def timed(name, key, kernel, plain, library, n_nodes, channels, bins_read=0):
-        bound_ms, bound_by = _fit_bound(name, rows, n_nodes, channels, bins_read)
-        results[name]["by_level"][key] = {
+    def timed(name, key, kernel, plain, library, n_nodes, channels, bins_read=0, trees_=1):
+        bound_ms, bound_by = _fit_bound(
+            name, rows, n_nodes, channels, bins_read, trees_, subsets=trees_ > 1
+        )
+        into = results[name]["forest"] if trees_ > 1 else results[name]
+        into["by_level"][key] = {
             "ms": _event_ms(torch, kernel, 20, flush),
             "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], 20, flush),
             "plain_ms": _event_ms(torch, plain, 3, flush),
@@ -1012,19 +1158,74 @@ def phase_fit_kernels(torch) -> dict:
             lambda: trees._route(bins, node, feature, bin_index),
             None, n_nodes, K, bins_read,
         )
+    forest = check_forest_kernels(torch, bins, y_dev)
+    for name in FOREST_KERNELS:
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], forest["errors"][name])
+        results[name]["forest"] = {
+            "trees": TREES, "subset_k": SUBSET_K, "max_abs_err": forest["errors"][name], "by_level": {},
+        }
+    tree_ids = torch.arange(TREES, device=bins.device)[:, None]
+    for level, (node, channels, hist, scores, feature, bin_index) in forest["cases"].items():
+        key, K = f"rf:{level}", channels.shape[2]
+        if level == DEPTH:
+            n_leaves = 2**DEPTH
+            index = (tree_ids * n_leaves + node.long()).reshape(-1)
+            weights = [channels[:, :, k].reshape(-1) for k in range(K)]
+            timed(
+                "leaf_sums", key,
+                lambda: trees.leaf_sums(node, channels, n_leaves),
+                lambda: trees._leaf_sums(node, channels, n_leaves),
+                lambda: [torch.bincount(index, weights=w, minlength=TREES * n_leaves) for w in weights],
+                n_leaves, K, trees_=TREES,
+            )
+            continue
+        n_nodes = 2**level
+        flat = (
+            ((tree_ids * n_nodes + node.long())[:, :, None] * (FEATURES * MAX_BINS))
+            + feature_offsets + bins.long()[None]
+        ).reshape(-1)
+        weights = [channels[:, :, k : k + 1].expand(TREES, rows, FEATURES).reshape(-1) for k in range(K)]
+        cells = TREES * n_nodes * FEATURES * MAX_BINS
+        timed(
+            "level_histograms", key,
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: [torch.bincount(flat, weights=w, minlength=cells) for w in weights],
+            n_nodes, K, trees_=TREES,
+        )
+        del flat, weights
+        timed(
+            "select_splits", key,
+            lambda: trees.select_splits(hist, "gini", scores, SUBSET_K),
+            lambda: trees._select_plain(hist, "gini", scores, SUBSET_K),
+            None, n_nodes, K, trees_=TREES,
+        )
+        # the (tree, row) pairs whose node splits: each needs one bin
+        bins_read = int((feature.long().gather(1, node.long()) >= 0).sum())
+        timed(
+            "route", key,
+            lambda: trees.route(bins, node, feature, bin_index),
+            lambda: trees._route(bins, node, feature, bin_index),
+            None, n_nodes, K, bins_read, trees_=TREES,
+        )
     for result in results.values():
-        # a fit's mean call: over the levels, dt and gb channels alike
-        levels = list(result["by_level"].values())
-        for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
-            values = [level[field] for level in levels]
-            result[field] = None if None in values else sum(values) / len(values)
-        result["bound_by"] = levels[0]["bound_by"]
+        # a fit's mean call: over the levels, dt and gb channels alike (the
+        # forest's apart)
+        for into in (result, result.get("forest")):
+            if into is None:
+                continue
+            levels = list(into["by_level"].values())
+            for field in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                values = [level[field] for level in levels]
+                into[field] = None if None in values else sum(values) / len(values)
+            into["bound_by"] = levels[0]["bound_by"]
+    forest_checks = {"subset_edges": forest["subset_edges"], "wide_level": forest["wide_level"]}
     X, y = bench_synthetic(FIT_ROWS)
     repairs = check_repairs(torch, X, y)
     results.update(check_logistic_kernels(torch, X, y, flush))
     emit({
         "phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS,
-        **results, "repairs": repairs,
+        **results, "repairs": repairs, "forest_checks": forest_checks,
     })
     return results
 
@@ -1099,12 +1300,14 @@ def phase_fit(torch, card: str) -> dict:
     no_launches = {name: 0 for name in FIT_KERNELS}
     expected = {
         "dt": _tree_launches(DEPTH),
+        # the 20 trees in one chunk: one launch a level for all of them
+        "rf": _tree_launches(DEPTH),
         "gb": _tree_launches(DEPTH, GBT_ROUNDS),
         "lr": None,   # from the direct fit's iterations, below
         "nb": no_launches,
     }
     kernels.reset_launches()
-    for name in ("dt", "gb", "lr", "nb"):
+    for name in ("dt", "rf", "gb", "lr", "nb"):
         before = kernels.launches()
         torch.cuda.synchronize()
         started = time.perf_counter()
@@ -1126,7 +1329,7 @@ def phase_fit(torch, card: str) -> dict:
             "accuracy": accuracy,
             "weighted_f1": weighted_f1,
         }
-        if name in ("dt", "gb"):
+        if name in ("dt", "rf", "gb"):
             record[name].update(host_thresholds_s=thresholds_s, h2d_s=h2d_s)
     serve_rows = bench_rows(np.random.default_rng(13), 8)
     with tempfile.TemporaryDirectory() as models_dir:
@@ -1150,6 +1353,7 @@ def phase_fit(torch, card: str) -> dict:
         raise AssertionError(f"the fit path never launched {missing}")
 
     check_tree_fits(torch, X, y, X_dev, y_dev, thresholds_np, models, record)
+    check_rf_fit(torch, X, y, X_dev, y_dev, thresholds_np, models["rf"], record)
     check_lr_fit(torch, X, y, models["lr"], record)
     check_nb_fit(torch, X, y, models["nb"], record)
     record["dt_deep"] = check_deep_dt(torch, X)
@@ -1234,6 +1438,58 @@ def check_tree_fits(torch, X, y, X_dev, y_dev, thresholds_np, models, record) ->
         rerun_bit_identical=True,
     )
     record["dt"]["heaps_identical_to_plain"] = True
+
+
+def check_rf_fit(torch, X, y, X_dev, y_dev, thresholds_np, model, record) -> None:
+    """The estimator's rf fit against the same fit run directly on its
+    draws (made again from the seed), with host syncs made errors; a
+    second fit through the estimator bit for bit; and a fit by the plain
+    versions on the card from the same draws: heaps identical, leaf
+    probabilities within TREE_TOL."""
+    rows = X.shape[0]
+    thresholds = torch.from_numpy(thresholds_np.astype(np.float32)).cuda()
+    weights = torch.ones(rows, dtype=torch.float32, device=X_dev.device)
+    draws = _card_draws(torch, rows, 0, X_dev.device)
+    bins = binning.apply_bins(X_dev, thresholds)
+
+    def rf_fit(level_bins):
+        return trees._rf_fit(
+            level_bins, y_dev, weights, draws, CLASSES, DEPTH, MAX_BINS, TREES, SUBSET_K
+        )
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        features_heap, bins_heap, leaf_probs = rf_fit(bins)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    thresholds_heap = trees._heap_thresholds(features_heap, bins_heap, thresholds)
+    if not (
+        torch.equal(features_heap, model.features_heap)
+        and torch.equal(thresholds_heap, model.thresholds_heap)
+        and torch.equal(leaf_probs, model.leaf_probs)
+    ):
+        raise AssertionError("rf: the estimator's fit differs from the same fit run directly")
+    again = make_classifier("rf").fit(X, y)
+    if not all(
+        torch.equal(getattr(again, name), getattr(model, name))
+        for name in ("features_heap", "thresholds_heap", "leaf_probs")
+    ):
+        raise AssertionError("rf: a second fit with the same seed is not bit identical")
+    with _plain_level_loop():
+        plain = rf_fit(binning._apply_bins(X_dev, thresholds))
+    if not (torch.equal(plain[0], features_heap) and torch.equal(plain[1], bins_heap)):
+        raise AssertionError("rf: the kernels' heaps differ from the plain-version fit")
+    prob_error = float((plain[2] - leaf_probs).abs().max())
+    if prob_error > TREE_TOL:
+        raise AssertionError(f"rf: leaf probabilities differ from the plain-version fit by {prob_error}")
+    record["rf"].update(
+        trees=TREES,
+        subset_k=SUBSET_K,
+        splits=int((features_heap >= 0).sum()),
+        heaps_identical_to_plain=True,
+        max_leaf_prob_err_to_plain=prob_error,
+        refit_bit_identical=True,
+    )
 
 
 def check_lr_fit(torch, X, y, model, record) -> None:
@@ -1393,7 +1649,10 @@ def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
     for entry in summary:
-        timed = {**entry.get("by_rows", {}), **entry.get("by_level", {}), **entry.get("by_classes", {})}
+        timed = {
+            **entry.get("by_rows", {}), **entry.get("by_level", {}), **entry.get("by_classes", {}),
+            **entry.get("forest", {}).get("by_level", {}),
+        }
         for key, at in timed.items():
             for field in ("ms", "device_ms"):
                 if at[field] is not None and at[field] < at["bound_ms"]:
@@ -1457,6 +1716,7 @@ def main(argv) -> int:
                 )},
                 **({"warm_ms": result["warm_ms"], "by_classes": result["by_classes"]} if k7
                    else {"by_level": result["by_level"]}),
+                **({"forest": result["forest"]} if name in FOREST_KERNELS else {}),
             })
     check_bounds(summary)
     emit({"kernels": summary})

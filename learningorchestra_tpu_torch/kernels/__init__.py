@@ -5,7 +5,8 @@ Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 
 - ``tree_forward.cu``: the tree forward (K6), for the predict lane;
-- ``tree_fit.cu``: the fit's level loop (K1-K5);
+- ``tree_fit.cu``: the fit's level loop (K1-K5), over one tree or a
+  forest's trees;
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
   and its Armijo trial losses (K7).
 
@@ -170,24 +171,26 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_level_histograms.argtypes = [
         ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, channels, partials, out
         c_int, c_int, c_int, c_int, c_int,   # rows, F, nodes, bins, channels
+        c_int, c_longlong,                   # trees, bins' stride along the tree axis
         c_int, c_int,                        # chunks, rows/chunk
         c_int, c_int, c_int,                 # window: nodes, bins, channels
         c_int, c_int,                        # features/block, tile
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_select_splits.argtypes = [
-        ptr, ptr, ptr,                       # hist, feature, bin
+        ptr, ptr, c_int,                     # hist, subset scores (or null), subset k
+        ptr, ptr,                            # feature, bin
         c_int, c_int, c_int, c_int, c_int,   # nodes, F, bins, channels, mode
         c_int, ptr,                          # device, stream
     ]
     lib.lo_route.argtypes = [
         ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, feature, split bin, out
-        c_int, c_int,                        # rows, F
+        c_int, c_int, c_int, c_int,          # rows, F, trees, nodes a tree
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_leaf_sums.argtypes = [
         ptr, ptr, ptr, ptr,                  # leaf, channels, partials, out
-        c_int, c_int, c_int,                 # rows, leaves, channels
+        c_int, c_int, c_int, c_int,          # rows, leaves, channels, trees
         c_int, c_int,                        # chunks, rows/chunk
         c_int, c_int, c_int,                 # window: leaves, channels; warps
         c_int, c_int, ptr,                   # max_blocks, device, stream

@@ -8,6 +8,9 @@
 //   K4 ml/trees.py:235 `_route` (:217 `_indicator_lookup`)
 //                                              -> lo_route
 //   K5 ml/trees.py:142 `_leaf_sums`            -> lo_leaf_sums
+// K2, K4 and K5 also run under the random forest's vmap over trees
+// (ml/trees.py:437 in `_rf_chunk`), and K3 with its per-node feature
+// subsets (:201-206).
 //
 // What bounds them on this card, at the default fit (N = 1,000,000 rows,
 // F = 16 features, B = 32 bins, depth 5, K = 2 channels):
@@ -17,6 +20,8 @@
 //     node (at most 9 MB): ~2.7 us.
 //   - K3 reads a histogram of at most 64 KB: launch latency.
 //   - K5 reads leaf and channels (12 MB): ~3.6 us.
+// The random forest's level (T = 20 trees over the same bins) reads the
+// bins once and each tree's node and channels: 256 MB, ~77 us for K2.
 // These kernels are the simple versions, written to be right first; none
 // is tuned to its bound yet.
 //
@@ -55,6 +60,17 @@
 //     are skipped. K5 does the same over (leaf, channel) windows. A
 //     cell's sum takes its rows in the same order in every window, so
 //     the result does not depend on the windows.
+//   - A tree axis. K2, K4 and K5 take T trees in one launch: each tree
+//     has its own node and channels (its own bootstrap weights), and the
+//     trees read one bins matrix (K2 takes the bins' stride along the
+//     tree axis, 0 for the forest). A tree's sums are those of a launch
+//     of that tree alone, bit for bit: trees never share a cell, and a
+//     cell adds its rows in the same order. K3 takes the forest's
+//     (T, nodes) flattened into its node axis.
+//   - Feature subsets (K3). A feature is a candidate of its node iff
+//     fewer than `subset_k` of the node's scores are below its own, which
+//     is `score <= sort(scores)[subset_k - 1]` of the reference, ties
+//     included; every cell of any other feature is -inf, NaN or not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,12 +154,18 @@ __device__ __forceinline__ double sum_chunks(const double* __restrict__ partials
 
 // Sum `chunks` float64 partial arrays of one window's `cells` values in
 // chunk order, round each sum once to float32, and store it at its place
-// in the (nodes, F, B, K) output (K5: F = B = 1).
+// in the (nodes, F, B, K) output (K5: F = B = 1). Grid dimension y is the
+// tree: partials [tree][chunk][cell], `out_tree_stride` floats of output
+// a tree. (The tree is not found by dividing a flat index: a 64-bit
+// division in the loop costs the registers that keep the sixteen loads of
+// sum_chunks in flight.)
 __global__ void __launch_bounds__(kThreads)
     sum_partials_kernel(const double* __restrict__ partials,
                         float* __restrict__ out, int chunks, long long cells,
-                        Window w, int num_features, int max_bins,
-                        int num_channels) {
+                        long long out_tree_stride, Window w, int num_features,
+                        int max_bins, int num_channels) {
+  partials += static_cast<long long>(blockIdx.y) * chunks * cells;
+  out += static_cast<long long>(blockIdx.y) * out_tree_stride;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -159,23 +181,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Block (chunk, feature block): the partial histogram of the chunk's rows
-// over `block_features` features and the cells of window `w`, laid out
-// like the output (node, feature, bin, channel). All warps stage the rows;
-// warp w < block_features owns feature w of the block and walks the
-// chunk's rows 32 at a time, in order: the lanes
-// whose rows share a (node, bin) cell find each other with
-// __match_any_sync, and the lowest of them adds the group's channels, in
-// row order, into the cell. No two threads ever add into one cell. Rows
-// whose node or bin lies outside the window are skipped.
+// Block (chunk, feature block, tree): the partial histogram of the
+// chunk's rows over `block_features` features and the cells of window
+// `w`, laid out like the output (node, feature, bin, channel), from the
+// tree's nodes and channels and the bins at the tree's offset
+// `bins_tree_stride` (0: the trees share one bins matrix). All warps stage
+// the rows; warp w < block_features owns feature w of the block and walks
+// the chunk's rows 32 at a time, in order: the lanes whose rows share a
+// (node, bin) cell find each other with __match_any_sync, and the lowest
+// of them adds the group's channels, in row order, into the cell. No two
+// threads ever add into one cell. Rows whose node or bin lies outside the
+// window are skipped.
 template <typename Bin>
 __global__ void __launch_bounds__(1024) level_histograms_kernel(
     const Bin* __restrict__ bins, const int* __restrict__ node,
     const float* __restrict__ channels, double* __restrict__ partials,
     int rows, int num_features, int num_channels, Window w,
-    int rows_per_chunk, int block_features, int tile_rows) {
+    int rows_per_chunk, int block_features, int tile_rows,
+    long long bins_tree_stride) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int chunk = blockIdx.x;
+  const long long tree = blockIdx.z;
+  bins += tree * bins_tree_stride;
+  node += tree * rows;
+  channels += tree * rows * num_channels;
   const int f_begin = blockIdx.y * block_features;
   const int fb = min(block_features, num_features - f_begin);
   const int K = w.channels;
@@ -225,7 +254,7 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
     }
   }
   __syncthreads();
-  double* out = partials + static_cast<size_t>(chunk) * w.nodes * num_features *
+  double* out = partials + (tree * gridDim.x + chunk) * w.nodes * num_features *
                                w.bins * K;
   for (int i = threadIdx.x; i < hist_size; i += blockDim.x) {
     const int k = i % K;
@@ -239,11 +268,12 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
   }
 }
 
-// Block = one chunk of rows: the partial per-leaf channel sums of the
-// (leaf, channel) cells of window `w`. Each warp walks its own contiguous
-// part of the chunk, 32 rows at a time, into a private copy of the sums
-// (lanes of one leaf grouped as in K2; rows of a leaf outside the window
-// skipped); the warps' copies are then added in warp order.
+// Block (chunk, tree): the partial per-leaf channel sums of the chunk's
+// rows of the tree, over the (leaf, channel) cells of window `w`. Each
+// warp walks its own contiguous part of the chunk, 32 rows at a time, into
+// a private copy of the sums (lanes of one leaf grouped as in K2; rows of
+// a leaf outside the window skipped); the warps' copies are then added in
+// warp order.
 __global__ void __launch_bounds__(1024)
     leaf_sums_kernel(const int* __restrict__ leaf,
                      const float* __restrict__ channels,
@@ -252,6 +282,9 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ __align__(16) unsigned char shared[];
   const int K = w.channels;
   const int cells = w.nodes * K;
+  const long long tree = blockIdx.y;
+  leaf += tree * rows;
+  channels += tree * rows * num_channels;
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -286,7 +319,7 @@ __global__ void __launch_bounds__(1024)
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     double sum = sums[i];
     for (int w2 = 1; w2 < warps; ++w2) sum = __dadd_rn(sum, sums[w2 * cells + i]);
-    partials[static_cast<size_t>(blockIdx.x) * cells + i] = sum;
+    partials[(tree * gridDim.x + blockIdx.x) * cells + i] = sum;
   }
 }
 
@@ -309,15 +342,29 @@ __device__ __forceinline__ float floor_eps(float n) {
   return isnan(n) || n > kEps ? n : kEps;
 }
 
+// Is feature f among the `subset_k` of lowest score of its node? Fewer
+// than subset_k scores below its own: the reference's `scores <= kth`,
+// kth the subset_k-th smallest, ties included.
+__device__ __forceinline__ bool in_subset(const float* __restrict__ scores,
+                                          int num_features, int subset_k,
+                                          int f) {
+  const float own = scores[f];
+  int below = 0;
+  for (int g = 0; g < num_features; ++g) below += scores[g] < own ? 1 : 0;
+  return below < subset_k;
+}
+
 // Block = one node. A thread walks one feature's bins in order: the
 // cumulative sum, the gain of each split, and its own first maximum; the
 // block then reduces to the node's first maximum over (feature, bin).
+// With `subset_scores` (nodes, F), a feature outside its node's subset
+// offers only -inf gains: its first bin, at -inf, stands for them all.
 __global__ void __launch_bounds__(kThreads)
     select_splits_kernel(const float* __restrict__ hist,
-                                     int* __restrict__ feature_out,
-                                     int* __restrict__ bin_out,
-                                     int num_features, int max_bins,
-                                     int num_channels, int mode) {
+                         const float* __restrict__ subset_scores,
+                         int subset_k, int* __restrict__ feature_out,
+                         int* __restrict__ bin_out, int num_features,
+                         int max_bins, int num_channels, int mode) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int K = num_channels;
   float* best_value = reinterpret_cast<float*>(shared);
@@ -330,7 +377,18 @@ __global__ void __launch_bounds__(kThreads)
 
   float my_value = -INFINITY;
   int my_index = 0x7fffffff;
+  const float* scores =
+      subset_scores == nullptr
+          ? nullptr
+          : subset_scores + static_cast<size_t>(blockIdx.x) * num_features;
   for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
+    if (scores != nullptr && !in_subset(scores, num_features, subset_k, f)) {
+      if (better(my_value, my_index, -INFINITY, f * max_bins)) {
+        my_value = -INFINITY;
+        my_index = f * max_bins;
+      }
+      continue;
+    }
     const float* h = node_hist + static_cast<size_t>(f) * max_bins * K;
     // the cumulative sum's last element: the feature's totals
     for (int k = 0; k < K; ++k) {
@@ -410,12 +468,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ K4
 
+// Each row of tree blockIdx.y one level down, against the tree's split of
+// the row's node; the trees read one bins matrix.
 template <typename Bin>
 __global__ void __launch_bounds__(kThreads)
     route_kernel(const Bin* __restrict__ bins, const int* __restrict__ node,
                  const int* __restrict__ feature,
                  const int* __restrict__ split_bin, int* __restrict__ node_out,
-                 int rows, int num_features) {
+                 int rows, int num_features, int n_nodes) {
+  const long long tree = blockIdx.y;
+  node += tree * rows;
+  node_out += tree * rows;
+  feature += tree * n_nodes;
+  split_bin += tree * n_nodes;
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < rows;
        row += gridDim.x * blockDim.x) {
     const int nd = node[row];
@@ -445,15 +510,21 @@ cudaError_t launch_apply_bins(const float* X, const float* thresholds,
   return cudaGetLastError();
 }
 
-// One pass of K2 per window of cells: the histogram kernel, then the sum
-// of its chunks' partials into the window's cells of `out`.
+// The most blocks a launch may have along grid dimensions y and z: trees
+// past it go in groups of launches.
+constexpr int kMaxGridYZ = 65535;
+
+// One pass of K2 per window of cells: the histogram kernel over every
+// tree, then the sum of each tree's chunk partials into the window's
+// cells of `out`.
 template <typename Bin>
 cudaError_t launch_level_histograms(
     const void* bins, const int* node, const float* channels,
     double* partials, float* out, int rows, int num_features, int n_nodes,
-    int max_bins, int num_channels, int chunks, int rows_per_chunk,
-    int window_nodes, int window_bins, int window_channels,
-    int block_features, int tile_rows, int max_blocks, cudaStream_t stream) {
+    int max_bins, int num_channels, int trees, long long bins_tree_stride,
+    int chunks, int rows_per_chunk, int window_nodes, int window_bins,
+    int window_channels, int block_features, int tile_rows, int max_blocks,
+    cudaStream_t stream) {
   const size_t shared_bytes =
       sizeof(double) * static_cast<size_t>(window_nodes) * block_features *
           window_bins * window_channels +
@@ -462,10 +533,12 @@ cudaError_t launch_level_histograms(
       sizeof(Bin) * static_cast<size_t>(tile_rows) * block_features;
   cudaError_t error = allow_shared(level_histograms_kernel<Bin>, shared_bytes);
   if (error != cudaSuccess) return error;
-  const dim3 grid(chunks, (num_features + block_features - 1) / block_features);
+  const int feature_blocks = (num_features + block_features - 1) / block_features;
   // a warp per feature; at least eight warps, so that the staging of the
   // rows, the zeroing and the write-out are not left to a single warp
   const int threads = std::max(32 * block_features, kThreads);
+  const long long out_tree_stride =
+      static_cast<long long>(n_nodes) * num_features * max_bins * num_channels;
   for (int n0 = 0; n0 < n_nodes; n0 += window_nodes) {
     for (int b0 = 0; b0 < max_bins; b0 += window_bins) {
       for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
@@ -474,17 +547,25 @@ cudaError_t launch_level_histograms(
                        k0, std::min(window_channels, num_channels - k0)};
         const long long cells = static_cast<long long>(w.nodes) * num_features *
                                 w.bins * w.channels;
-        level_histograms_kernel<Bin><<<grid, threads, shared_bytes, stream>>>(
-            static_cast<const Bin*>(bins), node, channels, partials, rows,
-            num_features, num_channels, w, rows_per_chunk, block_features,
-            tile_rows);
-        error = cudaGetLastError();
-        if (error != cudaSuccess) return error;
-        sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, stream>>>(
-            partials, out, chunks, cells, w, num_features, max_bins,
-            num_channels);
-        error = cudaGetLastError();
-        if (error != cudaSuccess) return error;
+        for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+          const int group = std::min(kMaxGridYZ, trees - t0);
+          double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
+          level_histograms_kernel<Bin>
+              <<<dim3(chunks, feature_blocks, group), threads, shared_bytes, stream>>>(
+                  static_cast<const Bin*>(bins) + t0 * bins_tree_stride,
+                  node + static_cast<long long>(t0) * rows,
+                  channels + static_cast<long long>(t0) * rows * num_channels,
+                  group_partials, rows, num_features, num_channels, w,
+                  rows_per_chunk, block_features, tile_rows, bins_tree_stride);
+          error = cudaGetLastError();
+          if (error != cudaSuccess) return error;
+          sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads,
+                                0, stream>>>(
+              group_partials, out + t0 * out_tree_stride, chunks, cells,
+              out_tree_stride, w, num_features, max_bins, num_channels);
+          error = cudaGetLastError();
+          if (error != cudaSuccess) return error;
+        }
       }
     }
   }
@@ -518,20 +599,23 @@ int lo_apply_bins(const float* X, const float* thresholds, void* bins,
   return cudaErrorInvalidValue;
 }
 
-// partials: chunks * window_nodes * F * window_bins * window_channels
-// doubles of scratch, reused by every window; out: (n_nodes, F, B, K).
+// T = `trees` trees, each with its own node (T, rows) and channels (T,
+// rows, K), the bins of tree t at t * bins_tree_stride (0: one shared
+// matrix). partials: T * chunks * window_nodes * F * window_bins *
+// window_channels doubles of scratch, reused by every window; out: (T,
+// n_nodes, F, B, K).
 int lo_level_histograms(const void* bins, int bin_bytes, const int* node,
                         const float* channels, double* partials, float* out,
                         int rows, int num_features, int n_nodes, int max_bins,
-                        int num_channels, int chunks, int rows_per_chunk,
-                        int window_nodes, int window_bins,
-                        int window_channels, int block_features,
-                        int tile_rows, int max_blocks, int device,
-                        void* stream) {
+                        int num_channels, int trees, long long bins_tree_stride,
+                        int chunks, int rows_per_chunk, int window_nodes,
+                        int window_bins, int window_channels,
+                        int block_features, int tile_rows, int max_blocks,
+                        int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (static_cast<long long>(n_nodes) * num_features * max_bins *
-          num_channels <= 0)
+          num_channels * trees <= 0)
     return cudaSuccess;
   if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0)
     return cudaErrorInvalidValue;
@@ -539,24 +623,30 @@ int lo_level_histograms(const void* bins, int bin_bytes, const int* node,
   if (bin_bytes == 1)
     return launch_level_histograms<int8_t>(
         bins, node, channels, partials, out, rows, num_features, n_nodes,
-        max_bins, num_channels, chunks, rows_per_chunk, window_nodes,
-        window_bins, window_channels, block_features, tile_rows, max_blocks, s);
+        max_bins, num_channels, trees, bins_tree_stride, chunks,
+        rows_per_chunk, window_nodes, window_bins, window_channels,
+        block_features, tile_rows, max_blocks, s);
   if (bin_bytes == 4)
     return launch_level_histograms<int32_t>(
         bins, node, channels, partials, out, rows, num_features, n_nodes,
-        max_bins, num_channels, chunks, rows_per_chunk, window_nodes,
-        window_bins, window_channels, block_features, tile_rows, max_blocks, s);
+        max_bins, num_channels, trees, bins_tree_stride, chunks,
+        rows_per_chunk, window_nodes, window_bins, window_channels,
+        block_features, tile_rows, max_blocks, s);
   return cudaErrorInvalidValue;
 }
 
 // mode 0: gini over K class channels; mode 1: newton over (g, h), K = 2.
-int lo_select_splits(const float* hist, int* feature, int* bin, int n_nodes,
+// subset_scores: null, or (n_nodes, F) scores of which each node takes
+// the subset_k lowest (1 <= subset_k).
+int lo_select_splits(const float* hist, const float* subset_scores,
+                     int subset_k, int* feature, int* bin, int n_nodes,
                      int num_features, int max_bins, int num_channels,
                      int mode, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (n_nodes <= 0) return cudaSuccess;
   if (mode == kNewton && num_channels != 2) return cudaErrorInvalidValue;
+  if (subset_scores != nullptr && subset_k < 1) return cudaErrorInvalidValue;
   int threads = round_up_warp(num_features);
   if (threads > kThreads) threads = kThreads;
   const size_t shared_bytes =
@@ -566,41 +656,54 @@ int lo_select_splits(const float* hist, int* feature, int* bin, int n_nodes,
   if (error != cudaSuccess) return error;
   select_splits_kernel<<<n_nodes, threads, shared_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      hist, feature, bin, num_features, max_bins, num_channels, mode);
+      hist, subset_scores, subset_k, feature, bin, num_features, max_bins,
+      num_channels, mode);
   return cudaGetLastError();
 }
 
+// node, node_out: (T, rows); feature, split_bin: (T, n_nodes); one bins
+// matrix (rows, F) for every tree.
 int lo_route(const void* bins, int bin_bytes, const int* node,
              const int* feature, const int* split_bin, int* node_out, int rows,
-             int num_features, int max_blocks, int device, void* stream) {
+             int num_features, int trees, int n_nodes, int max_blocks,
+             int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  if (rows <= 0) return cudaSuccess;
+  if (rows <= 0 || trees <= 0) return cudaSuccess;
+  if (bin_bytes != 1 && bin_bytes != 4) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1) {
-    route_kernel<int8_t><<<grid_for(rows, max_blocks), kThreads, 0, s>>>(
-        static_cast<const int8_t*>(bins), node, feature, split_bin, node_out,
-        rows, num_features);
-  } else if (bin_bytes == 4) {
-    route_kernel<int32_t><<<grid_for(rows, max_blocks), kThreads, 0, s>>>(
-        static_cast<const int32_t*>(bins), node, feature, split_bin, node_out,
-        rows, num_features);
-  } else {
-    return cudaErrorInvalidValue;
+  for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+    const dim3 grid(grid_for(rows, max_blocks), std::min(kMaxGridYZ, trees - t0));
+    const long long row_offset = static_cast<long long>(t0) * rows;
+    const long long split_offset = static_cast<long long>(t0) * n_nodes;
+    if (bin_bytes == 1)
+      route_kernel<int8_t><<<grid, kThreads, 0, s>>>(
+          static_cast<const int8_t*>(bins), node + row_offset,
+          feature + split_offset, split_bin + split_offset,
+          node_out + row_offset, rows, num_features, n_nodes);
+    else
+      route_kernel<int32_t><<<grid, kThreads, 0, s>>>(
+          static_cast<const int32_t*>(bins), node + row_offset,
+          feature + split_offset, split_bin + split_offset,
+          node_out + row_offset, rows, num_features, n_nodes);
+    error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
-// partials: chunks * window_leaves * window_channels doubles of scratch,
-// reused by every window; out: (n_leaves, K).
+// leaf: (T, rows); channels: (T, rows, K). partials: T * chunks *
+// window_leaves * window_channels doubles of scratch, reused by every
+// window; out: (T, n_leaves, K).
 int lo_leaf_sums(const int* leaf, const float* channels, double* partials,
                  float* out, int rows, int n_leaves, int num_channels,
-                 int chunks, int rows_per_chunk, int window_leaves,
+                 int trees, int chunks, int rows_per_chunk, int window_leaves,
                  int window_channels, int warps, int max_blocks, int device,
                  void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  if (static_cast<long long>(n_leaves) * num_channels <= 0) return cudaSuccess;
+  if (static_cast<long long>(n_leaves) * num_channels * trees <= 0)
+    return cudaSuccess;
   if (window_leaves <= 0 || window_channels <= 0) return cudaErrorInvalidValue;
   const size_t shared_bytes = sizeof(double) *
                               static_cast<size_t>(window_leaves) *
@@ -608,19 +711,27 @@ int lo_leaf_sums(const int* leaf, const float* channels, double* partials,
   error = allow_shared(leaf_sums_kernel, shared_bytes);
   if (error != cudaSuccess) return error;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long out_tree_stride = static_cast<long long>(n_leaves) * num_channels;
   for (int l0 = 0; l0 < n_leaves; l0 += window_leaves) {
     for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
       const Window w{l0, std::min(window_leaves, n_leaves - l0), 0, 1,
                      k0, std::min(window_channels, num_channels - k0)};
       const long long cells = static_cast<long long>(w.nodes) * w.channels;
-      leaf_sums_kernel<<<chunks, 32 * warps, shared_bytes, s>>>(
-          leaf, channels, partials, rows, num_channels, w, rows_per_chunk);
-      error = cudaGetLastError();
-      if (error != cudaSuccess) return error;
-      sum_partials_kernel<<<grid_for(cells, max_blocks), kThreads, 0, s>>>(
-          partials, out, chunks, cells, w, 1, 1, num_channels);
-      error = cudaGetLastError();
-      if (error != cudaSuccess) return error;
+      for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+        const int group = std::min(kMaxGridYZ, trees - t0);
+        double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
+        leaf_sums_kernel<<<dim3(chunks, group), 32 * warps, shared_bytes, s>>>(
+            leaf + static_cast<long long>(t0) * rows,
+            channels + static_cast<long long>(t0) * rows * num_channels,
+            group_partials, rows, num_channels, w, rows_per_chunk);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+        sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads, 0, s>>>(
+            group_partials, out + t0 * out_tree_stride, chunks, cells,
+            out_tree_stride, w, 1, 1, num_channels);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+      }
     }
   }
   return cudaSuccess;

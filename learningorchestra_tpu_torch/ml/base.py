@@ -148,20 +148,23 @@ class FittedModel:
 
 
 def make_classifier(name: str, device: DeviceLike = None):
-    """The classifier switcher (reference ``ml/base.py:306``), as far as
-    the fits are ported: ``lr``, ``dt``, ``gb`` and ``nb``."""
+    """The classifier switcher (reference ``ml/base.py:306``): ``lr``,
+    ``dt``, ``rf``, ``gb`` and ``nb`` at their defaults."""
     from learningorchestra_tpu_torch.ml.logistic import LogisticRegression
     from learningorchestra_tpu_torch.ml.naive_bayes import NaiveBayes
-    from learningorchestra_tpu_torch.ml.trees import DecisionTreeClassifier, GBTClassifier
+    from learningorchestra_tpu_torch.ml.trees import (
+        DecisionTreeClassifier,
+        GBTClassifier,
+        RandomForestClassifier,
+    )
 
-    if name not in CLASSIFIER_NAMES:
-        raise KeyError(name)
-    ported = {
+    estimators = {
         "lr": LogisticRegression,
         "dt": DecisionTreeClassifier,
+        "rf": RandomForestClassifier,
         "gb": GBTClassifier,
         "nb": NaiveBayes,
     }
-    if name not in ported:
-        raise NotImplementedError(f"the {name!r} fit is not yet ported")
-    return ported[name](device=device)
+    if name not in CLASSIFIER_NAMES:
+        raise KeyError(name)
+    return estimators[name](device=device)

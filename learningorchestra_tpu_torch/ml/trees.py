@@ -5,15 +5,20 @@ Counterpart of ``learningorchestra_tpu/ml/trees.py``:
 - the fit's level programs (:66-246): ``_level_histograms`` (K2),
   ``_leaf_sums`` (K5), ``_gini_gain`` / ``_newton_gain`` /
   ``_select_splits`` (K3) and ``_route`` (K4);
-- the fits (:253-296, :389-392, :503-644): ``_grow``,
+- the fits (:253-296, :389-500, :503-644): ``_grow``,
   ``_fit_classification_tree``, ``_fit_newton_tree``, ``_dt_fit``,
-  ``_gbt_init``, ``_gbt_rounds_impl``, ``_gbt_fit``, and the estimators
-  ``DecisionTreeClassifier`` and ``GBTClassifier`` (:669-814);
+  ``_rf_chunk``, ``_rf_fit``, ``_gbt_init``, ``_gbt_rounds_impl``,
+  ``_gbt_fit``, and the estimators ``DecisionTreeClassifier``,
+  ``RandomForestClassifier`` and ``GBTClassifier`` (:669-814);
 - prediction (:303-386, :647-666): ``_descend`` (K6),
   ``_ensemble_forward`` (dt and rf), ``_gbt_forward`` (gb),
   ``_TreeEnsembleModel`` and ``GBTModel``.
 
-The random forest's fit is not ported yet.
+The random forest grows its trees together, as the reference's vmap over
+trees does: the level programs take a leading tree axis (one launch a
+level for a chunk of trees), and the split search takes each node's
+feature subset. Its random draws are inputs (``ForestDraws``), made by
+the estimator from a ``torch.Generator``; see ``RandomForestClassifier``.
 
 A fitted tree is a static heap: ``features_heap (T, 2^D - 1)`` int32
 (``-1`` marks a node that stopped splitting), ``thresholds_heap`` float32
@@ -47,7 +52,12 @@ import torch
 
 from learningorchestra_tpu_torch import kernels
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
-from learningorchestra_tpu_torch.ml.base import FittedModel, infer_num_classes, segment_steps
+from learningorchestra_tpu_torch.ml.base import (
+    FittedModel,
+    infer_num_classes,
+    largest_divisor,
+    segment_steps,
+)
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
 
 MAX_DEPTH = 5          # MLlib default maxDepth
@@ -254,31 +264,41 @@ class GBTModel(FittedModel):
 def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     """Per-row channel vectors summed into ``(node, feature, bin, K)``: a
     scatter-add over rows, in float64, rounded once to float32 (see
-    :func:`_leaf_sums`)."""
-    rows, num_features = bins.shape
-    num_channels = channels.shape[1]
+    :func:`_leaf_sums`). ``node (rows,)`` and ``channels (rows, K)`` give
+    one tree's ``(n_nodes, F, max_bins, K)``; a forest's ``node (T, rows)``
+    and ``channels (T, rows, K)`` over the same bins give
+    ``(T, n_nodes, F, max_bins, K)``."""
+    if node.dim() == 1:
+        return _level_histograms(bins, node[None], channels[None], n_nodes, max_bins)[0]
+    trees, rows = node.shape
+    num_features = bins.shape[1]
+    num_channels = channels.shape[2]
+    tree_node = torch.arange(trees, device=bins.device)[:, None] * n_nodes + node.long()
     index = (
-        node.long()[:, None] * (num_features * max_bins)
+        tree_node[:, :, None] * (num_features * max_bins)
         + torch.arange(num_features, device=bins.device) * max_bins
-        + bins.long()
+        + bins.long()[None]
     )
     hist = torch.zeros(
-        (n_nodes * num_features * max_bins, num_channels),
+        (trees * n_nodes * num_features * max_bins, num_channels),
         dtype=torch.float64,
         device=bins.device,
     )
     hist.index_add_(
         0,
         index.reshape(-1),
-        channels.to(torch.float64)[:, None, :]
-        .expand(rows, num_features, num_channels)
+        channels.to(torch.float64)[:, :, None, :]
+        .expand(trees, rows, num_features, num_channels)
         .reshape(-1, num_channels),
     )
-    return hist.to(torch.float32).reshape(n_nodes, num_features, max_bins, num_channels)
+    return hist.to(torch.float32).reshape(
+        trees, n_nodes, num_features, max_bins, num_channels
+    )
 
 
 def _leaf_sums(leaf_of_row, channels, n_leaves: int):
-    """Per-leaf channel sums ``(n_leaves, K)``.
+    """Per-leaf channel sums ``(n_leaves, K)``; a forest's ``leaf_of_row
+    (T, rows)`` and ``channels (T, rows, K)`` give ``(T, n_leaves, K)``.
 
     Sums of float32 channels are taken in float64 and rounded once to
     float32, here and in the kernels: a float32 sum of a node's rows in
@@ -287,11 +307,17 @@ def _leaf_sums(leaf_of_row, channels, n_leaves: int):
     exact sum. In float64 the order of the adds no longer shows in the
     float32 result, so the plain version and the kernels agree, and class
     counts stay exact integers."""
-    sums = torch.zeros(
-        (n_leaves, channels.shape[1]), dtype=torch.float64, device=channels.device
+    if leaf_of_row.dim() == 1:
+        return _leaf_sums(leaf_of_row[None], channels[None], n_leaves)[0]
+    trees, num_channels = leaf_of_row.shape[0], channels.shape[2]
+    index = (
+        torch.arange(trees, device=channels.device)[:, None] * n_leaves + leaf_of_row.long()
     )
-    sums.index_add_(0, leaf_of_row.long(), channels.to(torch.float64))
-    return sums.to(torch.float32)
+    sums = torch.zeros(
+        (trees * n_leaves, num_channels), dtype=torch.float64, device=channels.device
+    )
+    sums.index_add_(0, index.reshape(-1), channels.to(torch.float64).reshape(-1, num_channels))
+    return sums.to(torch.float32).reshape(trees, n_leaves, num_channels)
 
 
 def _cumsum_bins(hist):
@@ -374,15 +400,30 @@ def _select_splits(gain, subset_scores=None, subset_k=None):
 
 
 def _select_plain(hist, mode: str, subset_scores=None, subset_k=None):
+    """:func:`_select_splits` under the ``mode`` gain; a forest's ``hist
+    (T, nodes, F, B, K)`` and ``subset_scores (T, nodes, F)`` go with
+    ``(T, nodes)`` flattened into the node axis."""
+    if hist.dim() == 5:
+        trees, n_nodes = hist.shape[:2]
+        scores = None if subset_scores is None else subset_scores.reshape(trees * n_nodes, -1)
+        feature, bin_index = _select_plain(
+            hist.reshape(trees * n_nodes, *hist.shape[2:]), mode, scores, subset_k
+        )
+        return feature.reshape(trees, n_nodes), bin_index.reshape(trees, n_nodes)
     return _select_splits(_GAINS[mode](hist), subset_scores, subset_k)
 
 
 def _route(bins, node, feature, bin_index):
     """Each row one level down: right iff its bin at the node's feature is
-    above the node's split bin; feature -1 nodes send every row left."""
-    row_feature = feature[node.long()]
-    row_bin = bin_index[node.long()]
-    x_bin = bins.gather(1, row_feature.clamp(min=0).long()[:, None])[:, 0]
+    above the node's split bin; feature -1 nodes send every row left. A
+    forest's ``node (T, rows)`` goes down its trees' splits ``feature``
+    and ``bin_index (T, nodes)``, over the same bins."""
+    if node.dim() == 1:
+        return _route(bins, node[None], feature[None], bin_index[None])[0]
+    row_feature = feature.gather(1, node.long())
+    row_bin = bin_index.gather(1, node.long())
+    rows = torch.arange(bins.shape[0], device=bins.device)
+    x_bin = bins[rows[None, :], row_feature.clamp(min=0).long()]
     go_right = (x_bin.to(torch.int32) > row_bin) & (row_feature >= 0)
     return node * 2 + go_right.to(torch.int32)
 
@@ -471,18 +512,22 @@ def _leaf_warps(n_leaves: int, num_channels: int) -> LeafTiling:
 
 
 def _check_rows(bins, node, channels=None):
+    """Raise on what K2, K4 and K5 do not take. ``node`` is ``(rows,)``,
+    or a forest's ``(T, rows)``; ``channels`` ``node.shape + (K,)``."""
     if not isinstance(bins, torch.Tensor) or bins.dim() != 2 or bins.dtype not in (
         torch.int8, torch.int32
     ):
         raise TypeError("bins must be a 2-D int8 or int32 tensor")
-    if node.dtype != torch.int32 or node.shape != (bins.shape[0],):
-        raise TypeError("node must be an int32 tensor of one entry per row")
+    if node.dtype != torch.int32 or node.dim() not in (1, 2) or node.shape[-1] != bins.shape[0]:
+        raise TypeError("node must be an int32 tensor of one entry per row (of each tree)")
     tensors = [node]
     if channels is not None:
-        if channels.dtype != torch.float32 or channels.dim() != 2:
-            raise TypeError("channels must be a 2-D float32 tensor")
-        if channels.shape[0] != bins.shape[0]:
-            raise ValueError(f"{channels.shape[0]} channel rows for {bins.shape[0]} rows")
+        if channels.dtype != torch.float32 or channels.dim() != node.dim() + 1:
+            raise TypeError("channels must be a float32 tensor of K channels a row (of each tree)")
+        if channels.shape[:-1] != node.shape:
+            raise ValueError(
+                f"channels of shape {tuple(channels.shape)} for nodes of shape {tuple(node.shape)}"
+            )
         tensors.append(channels)
     for tensor in tensors:
         if tensor.device != bins.device:
@@ -495,25 +540,30 @@ def _stream(tensor):
 
 def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     """``(n_nodes, F, max_bins, K)`` float32 sums of the rows' channels by
-    node, feature and bin (K2)."""
+    node, feature and bin (K2). A forest's ``node (T, rows)`` and
+    ``channels (T, rows, K)`` over the same bins give ``(T, n_nodes, F,
+    max_bins, K)`` from one launch."""
     _check_rows(bins, node, channels)
     if bins.device.type == "cpu":
         return _level_histograms(bins, node, channels, n_nodes, max_bins)
     kernels.check_operands(bins, node, channels)
+    forest = node.dim() == 2
+    trees = node.shape[0] if forest else 1
     rows, num_features = bins.shape
-    num_channels = channels.shape[1]
-    shape = (n_nodes, num_features, max_bins, num_channels)
+    num_channels = channels.shape[-1]
+    shape = (trees, n_nodes, num_features, max_bins, num_channels)
     if rows == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=bins.device)
+        out = torch.zeros(shape, dtype=torch.float32, device=bins.device)
+        return out if forest else out[0]
     # the kernel writes every cell
     out = torch.empty(shape, dtype=torch.float32, device=bins.device)
     if out.numel() == 0:
-        return out
+        return out if forest else out[0]
     chunks, per_chunk = kernels.row_chunks(rows)
     tiling = _block_features(num_features, n_nodes, max_bins, num_channels, bins.element_size())
-    # one window's partials, reused by every pass
+    # one window's partials of each tree, reused by every pass
     partials = torch.empty(
-        (chunks, tiling.nodes, num_features, tiling.bins, tiling.channels),
+        (trees, chunks, tiling.nodes, num_features, tiling.bins, tiling.channels),
         dtype=torch.float64, device=bins.device,
     )
     kernels.launch(
@@ -521,35 +571,55 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
         bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
         partials.data_ptr(), out.data_ptr(),
         rows, num_features, n_nodes, max_bins, num_channels,
+        trees, 0,   # the trees share the bins: no stride along the tree axis
         chunks, per_chunk, tiling.nodes, tiling.bins, tiling.channels,
         tiling.block_features, _TILE_ROWS,
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
-    return out
+    return out if forest else out[0]
 
 
 def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
-    """Best ``(feature, bin)`` per node of ``hist (nodes, F, B, K)`` under
-    the ``"gini"`` or ``"newton"`` gain (K3); see :func:`_select_splits`."""
-    if not isinstance(hist, torch.Tensor) or hist.dtype != torch.float32 or hist.dim() != 4:
-        raise TypeError("hist must be a 4-D float32 tensor")
+    """Best ``(feature, bin)`` per node of ``hist (nodes, F, B, K)``, or of
+    a forest's ``(T, nodes, F, B, K)`` with ``(T, nodes)`` flattened into
+    the node axis, under the ``"gini"`` or ``"newton"`` gain (K3); with
+    ``subset_scores`` (``hist``'s leading shape by F, float32 in [0, 1))
+    each node takes its ``subset_k`` features of lowest score. See
+    :func:`_select_splits`."""
+    if not isinstance(hist, torch.Tensor) or hist.dtype != torch.float32 or hist.dim() not in (4, 5):
+        raise TypeError("hist must be a 4-D (or a forest's 5-D) float32 tensor")
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
-    if mode == "newton" and hist.shape[3] != 2:
+    if mode == "newton" and hist.shape[-1] != 2:
         raise ValueError("the newton gain takes (g, h) channels: K must be 2")
+    leading, num_features = hist.shape[:-3], hist.shape[-3]
+    if subset_scores is not None:
+        if subset_scores.dtype != torch.float32 or subset_scores.shape != (*leading, num_features):
+            raise ValueError(
+                f"subset_scores must be float32 of shape {(*leading, num_features)}, "
+                f"got {subset_scores.dtype} {tuple(subset_scores.shape)}"
+            )
+        if subset_k is None or subset_k < 1:
+            raise ValueError(f"subset_k must be at least 1, got {subset_k}")
+        if subset_scores.device != hist.device:
+            raise ValueError(f"subset_scores on {subset_scores.device}, hist on {hist.device}")
     if hist.device.type == "cpu":
         return _select_plain(hist, mode, subset_scores, subset_k)
     kernels.check_operands(hist)
-    if subset_scores is not None:
-        raise NotImplementedError("feature subsets are not yet ported to the kernel")
-    n_nodes, num_features, max_bins, num_channels = hist.shape
-    feature = torch.empty(n_nodes, dtype=torch.int32, device=hist.device)
-    bin_index = torch.empty(n_nodes, dtype=torch.int32, device=hist.device)
+    max_bins, num_channels = hist.shape[-2:]
+    n_nodes = int(np.prod(leading))
+    scores = None
+    if subset_scores is not None and subset_k < num_features:
+        # the forest's slice of a level: a copy when it is not contiguous
+        scores = subset_scores.reshape(n_nodes, num_features).contiguous()
+    feature = torch.empty(leading, dtype=torch.int32, device=hist.device)
+    bin_index = torch.empty(leading, dtype=torch.int32, device=hist.device)
     if n_nodes == 0:
         return feature, bin_index
     kernels.launch(
         "select_splits", "lo_select_splits",
-        hist.data_ptr(), feature.data_ptr(), bin_index.data_ptr(),
+        hist.data_ptr(), None if scores is None else scores.data_ptr(), subset_k or 0,
+        feature.data_ptr(), bin_index.data_ptr(),
         n_nodes, num_features, max_bins, num_channels, _MODES[mode],
         hist.device.index, _stream(hist),
     )
@@ -557,64 +627,77 @@ def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
 
 
 def route(bins, node, feature, bin_index):
-    """Each row's node one level down (K4)."""
+    """Each row's node one level down (K4); a forest's ``node (T, rows)``
+    down its trees' splits ``feature`` and ``bin_index (T, nodes)``."""
     _check_rows(bins, node)
     if feature.dtype != torch.int32 or bin_index.dtype != torch.int32:
         raise TypeError("feature and bin_index must be int32")
-    if feature.dim() != 1 or feature.shape != bin_index.shape:
-        raise ValueError("feature and bin_index must be 1-D, one entry per node")
+    if (
+        feature.dim() != node.dim()
+        or feature.shape != bin_index.shape
+        or feature.shape[:-1] != node.shape[:-1]
+    ):
+        raise ValueError("feature and bin_index must hold one entry per node (of each tree)")
     if feature.device != bins.device or bin_index.device != bins.device:
         raise ValueError("the split and the rows must lie on one device")
     if bins.device.type == "cpu":
         return _route(bins, node, feature, bin_index)
     kernels.check_operands(bins, node, feature, bin_index)
     out = torch.empty_like(node)
-    if bins.shape[0] == 0:
+    if node.numel() == 0:
         return out
     kernels.launch(
         "route", "lo_route",
         bins.data_ptr(), bins.element_size(), node.data_ptr(), feature.data_ptr(),
-        bin_index.data_ptr(),
-        out.data_ptr(), bins.shape[0], bins.shape[1],
+        bin_index.data_ptr(), out.data_ptr(),
+        bins.shape[0], bins.shape[1], node.shape[0] if node.dim() == 2 else 1, feature.shape[-1],
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
     return out
 
 
 def leaf_sums(leaf_of_row, channels, n_leaves: int):
-    """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5)."""
-    if leaf_of_row.dtype != torch.int32 or leaf_of_row.dim() != 1:
-        raise TypeError("leaf_of_row must be a 1-D int32 tensor")
-    if channels.dtype != torch.float32 or channels.dim() != 2:
-        raise TypeError("channels must be a 2-D float32 tensor")
-    if channels.shape[0] != leaf_of_row.shape[0]:
-        raise ValueError(f"{channels.shape[0]} channel rows for {leaf_of_row.shape[0]} rows")
+    """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5); a
+    forest's ``leaf_of_row (T, rows)`` and ``channels (T, rows, K)`` give
+    ``(T, n_leaves, K)`` from one launch."""
+    if leaf_of_row.dtype != torch.int32 or leaf_of_row.dim() not in (1, 2):
+        raise TypeError("leaf_of_row must be an int32 tensor of one entry per row (of each tree)")
+    if channels.dtype != torch.float32 or channels.dim() != leaf_of_row.dim() + 1:
+        raise TypeError("channels must be a float32 tensor of K channels a row (of each tree)")
+    if channels.shape[:-1] != leaf_of_row.shape:
+        raise ValueError(
+            f"channels of shape {tuple(channels.shape)} for leaves of shape {tuple(leaf_of_row.shape)}"
+        )
     if channels.device != leaf_of_row.device:
         raise ValueError(f"operands on {channels.device} and {leaf_of_row.device}")
     if channels.device.type == "cpu":
         return _leaf_sums(leaf_of_row, channels, n_leaves)
     kernels.check_operands(leaf_of_row, channels)
-    rows, num_channels = channels.shape
+    forest = leaf_of_row.dim() == 2
+    trees = leaf_of_row.shape[0] if forest else 1
+    rows, num_channels = leaf_of_row.shape[-1], channels.shape[-1]
+    shape = (trees, n_leaves, num_channels)
     if rows == 0:
-        return torch.zeros((n_leaves, num_channels), dtype=torch.float32, device=channels.device)
+        out = torch.zeros(shape, dtype=torch.float32, device=channels.device)
+        return out if forest else out[0]
     # the kernel writes every cell
-    out = torch.empty((n_leaves, num_channels), dtype=torch.float32, device=channels.device)
+    out = torch.empty(shape, dtype=torch.float32, device=channels.device)
     if out.numel() == 0:
-        return out
+        return out if forest else out[0]
     tiling = _leaf_warps(n_leaves, num_channels)
     chunks, per_chunk = kernels.row_chunks(rows)
-    # one window's partials, reused by every pass
+    # one window's partials of each tree, reused by every pass
     partials = torch.empty(
-        (chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=channels.device
+        (trees, chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=channels.device
     )
     kernels.launch(
         "leaf_sums", "lo_leaf_sums",
         leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        rows, n_leaves, num_channels, chunks, per_chunk,
+        rows, n_leaves, num_channels, trees, chunks, per_chunk,
         tiling.leaves, tiling.channels, tiling.warps,
         kernels.max_blocks(channels.device.index), channels.device.index, _stream(channels),
     )
-    return out
+    return out if forest else out[0]
 
 
 # --------------------------------------------------------------------------
@@ -622,26 +705,39 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int):
 # split feeds the next level's routing on the device.
 # --------------------------------------------------------------------------
 
-def _grow(bins, channels, mode: str, max_depth: int, max_bins: int):
-    """Grow one tree level by level. Returns the heap (features and split
-    bins per internal node) and every row's leaf index."""
-    node = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+def _grow(
+    bins, channels, mode: str, max_depth: int, max_bins: int, subset_scores=None, subset_k=None
+):
+    """Grow one tree, or a forest's trees together, level by level.
+    ``channels (rows, K)`` grow one tree; a forest's ``(T, rows, K)`` grow
+    T trees over the same bins, each level one launch of each kernel for
+    all of them. ``subset_scores ((T,) 2^D - 1, F)``, in heap order (level
+    l's nodes are rows ``2^l - 1 .. 2^(l+1) - 2``), restrict each node to
+    its ``subset_k`` features of lowest score. Returns the heaps (features
+    and split bins per internal node, ``((T,) 2^D - 1)``) and every row's
+    leaf index ``((T,) rows)``."""
+    node = torch.zeros(channels.shape[:-1], dtype=torch.int32, device=bins.device)
     features_heap, bins_heap = [], []
     for level in range(max_depth):
         hist = level_histograms(bins, node, channels, 2**level, max_bins)
-        feature, bin_index = select_splits(hist, mode)
+        scores = None
+        if subset_scores is not None:
+            scores = subset_scores[..., 2**level - 1 : 2 ** (level + 1) - 1, :]
+        feature, bin_index = select_splits(hist, mode, scores, subset_k)
         features_heap.append(feature)
         bins_heap.append(bin_index)
         node = route(bins, node, feature, bin_index)
-    return torch.cat(features_heap), torch.cat(bins_heap), node
+    return torch.cat(features_heap, dim=-1), torch.cat(bins_heap, dim=-1), node
 
 
-def _fit_classification_tree(bins, one_hot, max_depth: int, max_bins: int):
+def _fit_classification_tree(
+    bins, one_hot, max_depth: int, max_bins: int, subset_scores=None, subset_k=None
+):
     features_heap, bins_heap, leaf_of_row = _grow(
-        bins, one_hot, "gini", max_depth, max_bins
+        bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k
     )
     leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth)
-    leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[:, None]
+    leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[..., None]
     return features_heap, bins_heap, leaf_probs
 
 
@@ -660,6 +756,122 @@ def _dt_fit(bins, y, weights, num_classes: int, max_depth: int, max_bins: int):
     return _fit_classification_tree(
         bins, one_hot * weights[:, None], max_depth, max_bins
     )
+
+
+class ForestDraws(NamedTuple):
+    """A forest fit's random draws, made by the caller: each tree's
+    Poisson(1) bootstrap count of every row, and each node's feature
+    scores, in heap order, of which the node takes the ``subset_k``
+    lowest."""
+
+    bootstrap: torch.Tensor       # (T, rows) float32
+    subset_scores: torch.Tensor   # (T, 2^D - 1, F) float32 in [0, 1)
+
+
+def _forest_draws(
+    num_trees: int, rows: int, max_depth: int, num_features: int, generator, device
+) -> ForestDraws:
+    """The draws of a forest fit, on ``device`` from ``generator`` (a
+    ``torch.Generator`` of that device): the bootstrap first, then the
+    scores. The same generator state gives the same draws."""
+    bootstrap = torch.poisson(
+        torch.ones((num_trees, rows), dtype=torch.float32, device=device), generator=generator
+    )
+    subset_scores = torch.rand(
+        (num_trees, 2**max_depth - 1, num_features),
+        generator=generator, dtype=torch.float32, device=device,
+    )
+    return ForestDraws(bootstrap, subset_scores)
+
+
+def _rf_chunk(
+    bins, y, weights, bootstrap, subset_scores, num_classes: int, max_depth: int,
+    max_bins: int, subset_k: int,
+):
+    """A chunk of trees grown together: tree t's channels are the class
+    one-hots weighted by ``weights * bootstrap[t]``, rounded in the
+    reference's order."""
+    base_one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
+    one_hot = base_one_hot[None] * (weights[None] * bootstrap)[:, :, None]
+    return _fit_classification_tree(
+        bins, one_hot, max_depth, max_bins, subset_scores, subset_k
+    )
+
+
+# Per-chunk budget in row*trees (the reference's, so the chunks match)
+_RF_ROW_TREES_BUDGET = 40e6
+
+# Device bytes the trees of one chunk may hold together: 32 GB, 40% of
+# the H100's 80 GB, leaving the rest to X and its bins, the caching
+# allocator's slack and the models the serve registry keeps. At the
+# default forest (1,000,000 rows x 16 features, 2 classes, depth 5, 32
+# bins) a tree holds 24 MB of rows (24 B a row, see _rf_tree_bytes) and
+# 34.6 MB of K2 partials at its widest level (264 chunks x 16 nodes x 16
+# features x 32 bins x 2 channels x 8 B): 545 trees a chunk, so the 20
+# trees run as one. At 10,000,000 rows: 116 trees. (The reference's cap of
+# 20e6 row*trees was sized for a 16 GB TPU chip's one-hot transients,
+# which the port does not make.)
+_RF_CHUNK_BYTES = 32e9
+
+
+def _rf_tree_bytes(bins, num_classes: int, max_depth: int, max_bins: int) -> int:
+    """Device bytes one tree of a chunk holds at its widest level: per
+    row, its node before and after routing (4 + 4), its bootstrap count
+    and that times the row's weight (4 + 4), and its class channels (4 C);
+    per tree, K2's float64 partials (chunks x one window's cells x 8) and
+    the float32 histogram of the deepest level."""
+    rows, num_features = bins.shape
+    n_nodes = 2 ** max(max_depth - 1, 0)
+    chunks, _ = kernels.row_chunks(rows)
+    tiling = _block_features(num_features, n_nodes, max_bins, num_classes, bins.element_size())
+    partials = chunks * tiling.nodes * num_features * tiling.bins * tiling.channels * 8
+    hist = n_nodes * num_features * max_bins * num_classes * 4
+    return rows * (16 + 4 * num_classes) + partials + hist
+
+
+def _rf_fit(
+    bins, y, weights, draws: ForestDraws, num_classes: int, max_depth: int,
+    max_bins: int, num_trees: int, subset_k: int,
+):
+    """Forest fit in chunks of trees: the reference's watchdog budget and
+    a device-memory cap (``_RF_CHUNK_BYTES``). Trees are independent and
+    each takes its own draws, so the chunking changes no bit. Returns the
+    stacked heaps ``(T, 2^D - 1)`` and leaf probabilities
+    ``(T, 2^D, C)``."""
+    nodes = 2**max_depth - 1
+    rows, num_features = bins.shape
+    if tuple(draws.bootstrap.shape) != (num_trees, rows) or tuple(
+        draws.subset_scores.shape
+    ) != (num_trees, nodes, num_features):
+        raise ValueError(
+            f"draws of shapes {tuple(draws.bootstrap.shape)}, "
+            f"{tuple(draws.subset_scores.shape)} for {num_trees} trees of depth "
+            f"{max_depth} over {rows} rows x {num_features} features"
+        )
+    if num_trees <= 0:   # an empty forest: empty heaps
+        device = bins.device
+        return (
+            torch.zeros((0, nodes), dtype=torch.int32, device=device),
+            torch.zeros((0, nodes), dtype=torch.int32, device=device),
+            torch.zeros((0, nodes + 1, num_classes), dtype=torch.float32, device=device),
+        )
+    chunk = segment_steps(num_trees, rows, _RF_ROW_TREES_BUDGET, num_features)
+    memory_chunk = max(
+        1, int(_RF_CHUNK_BYTES // _rf_tree_bytes(bins, num_classes, max_depth, max_bins))
+    )
+    if memory_chunk < chunk:
+        chunk = largest_divisor(num_trees, memory_chunk)
+    parts = [
+        _rf_chunk(
+            bins, y, weights, draws.bootstrap[start : start + chunk],
+            draws.subset_scores[start : start + chunk], num_classes, max_depth,
+            max_bins, subset_k,
+        )
+        for start in range(0, num_trees, chunk)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(arrays) for arrays in zip(*parts))
 
 
 def _heap_thresholds(features_heap, bins_heap, thresholds):
@@ -779,6 +991,55 @@ class DecisionTreeClassifier:
         return _TreeEnsembleModel(
             features_heap[None], thresholds_heap[None], leaf_probs[None], self.max_depth
         )
+
+
+class RandomForestClassifier:
+    """``num_trees`` trees, each grown on a Poisson(1) bootstrap of the
+    rows, each node splitting on the best of ``ceil(sqrt(F))`` features
+    drawn for it (MLlib's featureSubsetStrategy "auto").
+
+    The draws are not the reference's. The reference draws the bootstrap
+    and the feature scores from threefry keys of ``jax.random.key(seed)``;
+    the port draws them on the device from a ``torch.Generator`` seeded
+    with ``seed`` (:func:`_forest_draws`). One seed so grows another forest
+    in each package, from the same distributions; each package refits its
+    own forest bit for bit from the same seed on the same device, and
+    handed the same draws the two grow identical heaps."""
+
+    def __init__(
+        self,
+        num_trees: int = NUM_TREES,
+        max_depth: int = MAX_DEPTH,
+        max_bins: int = MAX_BINS,
+        seed: int = 0,
+        device: DeviceLike = None,
+    ):
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def fit(self, X, y) -> _TreeEnsembleModel:
+        rows, num_features = np.shape(X)
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        draws = _forest_draws(
+            self.num_trees, rows, self.max_depth, num_features, generator, self.device
+        )
+        return self._fit_with_draws(X, y, draws)
+
+    def _fit_with_draws(self, X, y, draws: ForestDraws) -> _TreeEnsembleModel:
+        num_classes = infer_num_classes(y)
+        subset_k = max(1, int(np.ceil(np.sqrt(np.shape(X)[1]))))
+        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        bins = apply_bins(X_dev, thresholds)
+        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
+        features_heap, bins_heap, leaf_probs = _rf_fit(
+            bins, y_dev, weights, draws, num_classes, self.max_depth, self.max_bins,
+            self.num_trees, subset_k,
+        )
+        thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
+        return _TreeEnsembleModel(features_heap, thresholds_heap, leaf_probs, self.max_depth)
 
 
 class GBTClassifier:

@@ -204,6 +204,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
+    # werkzeug's listen backlog (LISTEN_QUEUE), which the reference's
+    # server has; socketserver's default of 5 resets clients that arrive
+    # together (8 concurrent single-row predicts already can)
+    request_queue_size = 128
 
     def __init__(self, address, app: WebApp):
         super().__init__(address, _Handler)

@@ -443,8 +443,7 @@ def test_make_classifier():
     assert isinstance(make_classifier("gb", device="cpu"), trees.GBTClassifier)
     assert isinstance(make_classifier("lr", device="cpu"), logistic.LogisticRegression)
     assert isinstance(make_classifier("nb", device="cpu"), naive_bayes.NaiveBayes)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_classifier("rf", device="cpu")
+    assert isinstance(make_classifier("rf", device="cpu"), trees.RandomForestClassifier)
     with pytest.raises(KeyError):
         make_classifier("svm", device="cpu")
     if torch.cuda.is_available():

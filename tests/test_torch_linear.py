@@ -58,6 +58,7 @@ from learningorchestra_tpu_torch import kernels  # noqa: E402
 from learningorchestra_tpu_torch.ml import (  # noqa: E402
     LogisticRegression,
     NaiveBayes,
+    RandomForestClassifier,
     checkpoint,
     logistic,
     make_classifier,
@@ -429,8 +430,7 @@ def test_make_classifier_fits_lr_and_nb_on_cpu():
         assert isinstance(model, kind)
         accuracy, weighted_f1 = model.evaluate(X, y)
         assert 0.5 < accuracy <= 1.0 and 0 < weighted_f1 <= 1.0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_classifier("rf", device="cpu")
+    assert isinstance(make_classifier("rf", device="cpu"), RandomForestClassifier)
 
 
 @pytest.mark.parametrize("name", ["lr", "nb"])

@@ -295,3 +295,49 @@ def test_port_checkpoint_served_by_the_port_app(models_dir, tmp_path):
         assert answer.get_json()["result"]["predictions"] == [0]
     finally:
         plane.close()
+
+
+def test_server_takes_a_burst_of_concurrent_connections():
+    """64 clients connecting at once are all answered: the server listens
+    with the reference's werkzeug backlog (128), not socketserver's 5,
+    which reset most of them."""
+    import time
+    import urllib.request
+
+    from learningorchestra_tpu_torch.utils.web import ServerThread, WebApp
+
+    app = WebApp("burst")
+
+    @app.route("/slow", methods=("POST",))
+    def slow(request):
+        time.sleep(0.02)
+        return {"ok": True}
+
+    server = ServerThread(app).start()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    clients = 64
+    barrier = threading.Barrier(clients)
+    answers, errors = [], []
+
+    def one():
+        barrier.wait(timeout=30)
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/slow", data=b"{}", method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            with opener.open(request, timeout=60) as response:
+                answers.append(response.status)
+        except OSError as error:
+            errors.append(repr(error))
+
+    workers = [threading.Thread(target=one) for _ in range(clients)]
+    try:
+        for worker in workers:
+            worker.start()
+        for worker in workers:
+            worker.join(timeout=90)
+        assert not any(worker.is_alive() for worker in workers)
+    finally:
+        server.stop()
+    assert errors == [] and answers == [200] * clients
