@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's predict lane and its lr, dt, rf, gb and nb fits
-on one CUDA card.
+"""Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits
+and its PCA and t-SNE image lane on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -64,6 +64,40 @@ Phases, one JSON line each:
                  within 4e-6 of a float64 host computation; a depth-12 dt
                  of 10 classes with heaps identical to its plain-version
                  fit; the fit kernels' launch counts per fit; K9's time.
+7. embed-kernels — t-SNE's kernels against their plain versions on the
+                 main path's own matrices: bench.py's embedding blobs (16
+                 features, 10 centres) as the image requests read them
+                 from the store, label column included (17 columns). K11
+                 (calibrated affinities) at the landmark fit's 5,000 rows,
+                 the exact fit's 20,000 and the quality fit's 2,048 (see
+                 embed), each p within 1e-3 of its row's largest, rows
+                 past it counted; K12 (Z, then the gradient) on each
+                 fit's own P, at its start Y0 with exaggeration and at
+                 its final embedding without, no farther from float64
+                 than the plain version and within 1e-3 of the plain
+                 gradient's largest entry (or twice the plain version's
+                 distance from float64), three optimizer iterations each
+                 way; K13 (interpolation) of the 1,000,000 rows onto the
+                 5,000 landmarks' fitted embedding in one launch, and of
+                 their first 65,536 rows, within 1e-3 of the largest
+                 landmark coordinate; a second launch bit identical,
+                 distances in global memory bit identical to shared;
+                 times cold beside their bounds. Then K10 (PCA, torch
+                 ops) on the 1,000,000 x 17 matrix, cold and warm,
+                 beside its bound.
+8. embed       — the port's tsne and pca services over real HTTP on the
+                 same store: PCA and t-SNE (auto: landmark) at 1,000,000
+                 rows and t-SNE (auto: exact) at 20,000; each PNG read
+                 back; K11-K13's launches per request (K12 two an
+                 iteration). Each request's exact fit (the 20,000 rows;
+                 the 5,000 landmarks) against the plain versions' fit
+                 from the same X and Y0: KL(P || Q) within 2%; the
+                 landmark request's interpolation against the plain
+                 version on its own inputs, within 1e-3; the same at
+                 2,048 rows, where half the iterations and a PCA
+                 projection must fail the KL gate; the k = 10 label
+                 agreement of each embedding against the 2,048-row plain
+                 fit's; both t-SNE refits bit identical.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -76,6 +110,7 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -104,6 +139,7 @@ from learningorchestra_tpu_torch.ml.checkpoint import (
     write_checkpoint,
 )
 from learningorchestra_tpu_torch.ml.trees import GBT_ROUNDS, GBT_STEP, MAX_DEPTH, NUM_TREES
+from learningorchestra_tpu_torch.ops import pca, tsne
 from learningorchestra_tpu_torch.serve import ServePlane
 from learningorchestra_tpu_torch.serve import config as serve_config
 from learningorchestra_tpu_torch.services.model_builder import create_app
@@ -193,7 +229,78 @@ DEVICE_KERNELS = {
     "leaf_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
     "logistic_loss_grad": ("loss_grad_kernel", "finish_kernel"),
     "logistic_trial_losses": ("trial_losses_kernel", "finish_kernel"),
+    "tsne_affinities": ("affinities_kernel",),
+    "tsne_z": ("z_rows_kernel", "z_total_kernel"),
+    "tsne_grad": ("gradient_kernel",),
+    "tsne_interpolate": ("interpolate_kernel",),
 }
+TSNE_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/tsne.cu"
+TSNE_REPLACES = {
+    "tsne_affinities": (
+        "learningorchestra_tpu/ops/tsne.py:122 _affinities with :65 _squared_distances "
+        "and :79 _calibrate_row_block"
+    ),
+    "tsne_z": "learningorchestra_tpu/ops/tsne.py:170 _optimize, its gradient's normalizer (:192-198)",
+    "tsne_grad": "learningorchestra_tpu/ops/tsne.py:170 _optimize, its gradient (:192-205)",
+    "tsne_interpolate": "learningorchestra_tpu/ops/tsne.py:315 _interpolate",
+}
+TSNE_KERNELS = tuple(TSNE_REPLACES)
+EMBED_ROWS = 1_000_000          # bench.py's embedding rows (its EMBED_ROWS)
+EXACT_ROWS = tsne.EXACT_ROWS_LIMIT   # the largest exact t-SNE: 20,000 rows
+QUALITY_ROWS = 2_048            # bench.py's head-to-head t-SNE size
+INTERP_ROWS = 65_536            # K13 also on the first rows alone
+QUALITY_SAMPLE, QUALITY_K = 4_000, 10
+# Kernel against plain version on the same inputs, and why:
+# K11: each p within 1e-3 of its row's largest p. The kernel's distances
+# (a sequential fmaf dot) and the plain version's (cuBLAS) round apart by
+# a few float32 steps of |x|^2 (~1,000 here, ~1e-4 apart), and p =
+# exp(-beta d) moves by beta times that.
+K11_TOL = 1e-3
+# K12: Z within 1e-5 relative (float64 row sums against torch's float32
+# sum); the gradient no farther from a float64 evaluation of the same
+# expressions than the plain version is (1e-6 of the largest entry of
+# slack), and so within 1e-3 of the plain version's largest entry or
+# within twice the plain version's own distance from float64, whichever
+# is larger; three iterations of the optimizer within 1e-4 of the largest
+# coordinate. The reference's |a|^2 + |b|^2 - 2 a.b rounds at |y|^2 ~
+# 3,600 (coordinates up to ~60), and the gradient 4 (s_i y_i - t_i) is a
+# difference of two sums: at a fit's start both float32 versions sit
+# ~2e-7 of the largest entry from float64, but at its final embedding,
+# where attraction and repulsion nearly cancel, 1e-2 (5,000 and 20,000
+# rows on an H100; the kernel the nearer of the two).
+K12_Z_RTOL = 1e-5
+K12_PLAIN_TOL = 1e-3
+K12_FLOAT64_SLACK = 1e-6
+K12_TOL = 1e-4
+# K13: within 1e-3 of the landmarks' largest coordinate (K11's distances,
+# then a float64 sum against a float32 product).
+K13_TOL = 1e-3
+# The 2,048-row exact fit by the kernels against the plain versions' fit
+# from the same Y0: k = 10 label agreement within 0.02 (t-SNE is chaotic,
+# so the two embeddings part; their quality must not); the main path's
+# t-SNE embeddings no worse than the plain fit less the same margin.
+QUALITY_MARGIN = 0.02
+# Each exact fit of the main path (and the 2,048-row fit) against the
+# plain versions' fit from the same P and Y0: KL(P || Q) of the two final
+# embeddings within 2% of the plain fit's. Four 2,048-row fits whose Y0
+# differ by a float32 step or less part by 0.6% in KL; half the
+# iterations leave it 5% higher, a PCA projection 40% (the port's plain
+# versions on a CPU). The 2,048-row fit's controls, half its iterations
+# and the PCA projection, must fall outside the margin.
+KL_MARGIN = 0.02
+# The t-SNE kernels' work is mostly not multiply-adds: it is counted in
+# float32 instructions, a fused multiply-add one of them, at the card's
+# instruction rate, half the 67 TFLOP/s that counts a multiply-add as two.
+PEAK_FP32_INSTRUCTIONS_PER_S = PEAK_FP32_OPS_PER_S / 2
+# The float32 instructions a t-SNE kernel needs for one (row, column)
+# pair, expf and logf one each (a lower bound: each is several on the
+# card): a distance from the norms (a multiply-add a feature, three more);
+# each of 32 bisection steps (one exp a step: multiply, subtract, exp and
+# add for the total; divide, log, multiply, select and add for the
+# entropy); the final total and p (four each).
+TSNE_CALIBRATION_INSTRUCTIONS = 32 * 9 + 8
+TSNE_INVERSE_INSTRUCTIONS = 7    # 1 / (1 + d) of two 2-D rows, from their norms
+TSNE_GRADIENT_INSTRUCTIONS = 7   # q, its floor, the exaggerated P less it, W, three sums
 
 
 def emit(record: dict) -> None:
@@ -1645,6 +1752,553 @@ def time_metrics(torch, y_dev) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# The image lane: t-SNE's kernels K11-K13 and the tsne and pca services
+# --------------------------------------------------------------------------
+
+def embed_blobs(rows: int, seed: int = 7):
+    """bench.py's embedding data (its ``blobs``): 16 float32 features
+    around 10 centres drawn at 8 times the unit noise; and each row's
+    centre."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(10, FEATURES)) * 8.0
+    labels = rng.integers(0, 10, size=rows)
+    X = (centres[labels] + rng.normal(size=(rows, FEATURES))).astype(np.float32)
+    return X, labels
+
+
+def _tsne_bound(name: str, rows: int, columns: int, features: int) -> tuple[float, str]:
+    """Least milliseconds the card could take for one call: bytes (inputs
+    read once, outputs written once) over HBM bandwidth against the
+    float32 instructions of ``rows`` x ``columns`` pairs over the card's
+    instruction rate. K11: X in, P out; K12: Y in (and P for the gradient), Z or
+    the gradient out; K13: rows, landmarks and their embedding in,
+    (rows, 2) out."""
+    pairs = rows * columns
+    distance = features + 3
+    if name == "tsne_affinities":
+        bytes_moved = rows * features * 4 + pairs * 4
+        instructions = pairs * (distance + TSNE_CALIBRATION_INSTRUCTIONS)
+    elif name == "tsne_z":
+        bytes_moved = rows * 8 + 4
+        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 1)
+    elif name == "tsne_grad":
+        bytes_moved = pairs * 4 + rows * 8 * 2 + 4
+        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + TSNE_GRADIENT_INSTRUCTIONS)
+    else:
+        bytes_moved = (rows + columns) * features * 4 + columns * 8 + rows * 8
+        # and p @ Y_L: two multiply-adds a pair
+        instructions = pairs * (distance + TSNE_CALIBRATION_INSTRUCTIONS + 2)
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = instructions / PEAK_FP32_INSTRUCTIONS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+@contextlib.contextmanager
+def _plain_tsne():
+    """Within the block, the t-SNE fits run K11-K13's plain versions in
+    place of the kernels, on any device. Raises if a kernel launched."""
+    with _plain(tsne, {
+        "conditional_affinities": tsne._conditional_affinities,
+        "tsne_z": tsne._tsne_z,
+        "tsne_grad": tsne._tsne_grad,
+        "interpolate": tsne._interpolate,
+    }):
+        yield
+
+
+def _card(torch):
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def embed_store():
+    """bench.py's blobs in the port's store, as the image requests read
+    them: ``blobs_1m`` (1,000,000 rows, class numbers in the label
+    column) and ``blobs_20k`` (20,000 rows, class names, label-encoded in
+    sorted order, c0 < c1 < ...). Returns the store, each collection's
+    labels and the seconds the writes took."""
+    from learningorchestra_tpu_torch.core.store import InMemoryStore
+    from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
+
+    started = time.perf_counter()
+    store = InMemoryStore()
+    labels_by_name = {}
+    for name, rows, seed, string_labels in (
+        ("blobs_1m", EMBED_ROWS, 7, False), ("blobs_20k", EXACT_ROWS, 8, True),
+    ):
+        X, labels = embed_blobs(rows, seed)
+        columns = {f"f{k}": X[:, k].astype(np.float64) for k in range(FEATURES)}
+        columns["label"] = (
+            np.array([f"c{label}" for label in labels], dtype=object)
+            if string_labels else labels.astype(np.float64)
+        )
+        write_table(
+            store, name, ColumnTable(columns),
+            {"filename": name, "finished": True, "fields": list(columns)},
+        )
+        labels_by_name[name] = labels
+    return store, labels_by_name, time.perf_counter() - started
+
+
+def phase_embed_kernels(torch, store) -> dict:
+    """K11, K12 and K13 against their plain versions on the card, on the
+    main path's own matrices (the store's blobs as the image requests read
+    them, label column included), each timed cold beside its bound. Every
+    check runs and is reported; the phase raises at its end if any
+    failed."""
+    from learningorchestra_tpu_torch.core.devcache import dataset_embedding_inputs
+
+    started = time.perf_counter()
+    device = _card(torch)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "by_rows": {}} for name in TSNE_KERNELS}
+    failures: list = []
+
+    def held(name, key, abs_err, rel_err, tolerance, extra=None):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+        results[name]["max_rel_err"] = max(results[name]["max_rel_err"], rel_err)
+        if not rel_err <= tolerance:
+            failures.append(f"{name} at {key}: error {rel_err} against a tolerance of {tolerance}")
+        return {"abs_err": abs_err, "rel_err": rel_err, "tolerance": tolerance, **(extra or {})}
+
+    def plain_call(fn):
+        """One call of a plain version, cold: its result and milliseconds."""
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, start.elapsed_time(end)
+
+    def timed(name, key, kernel, plain_ms, bound, repeats, checked):
+        bound_ms, bound_by = bound
+        results[name]["by_rows"][key] = {
+            "ms": _event_ms(torch, kernel, repeats, flush),
+            "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], repeats, flush),
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            **checked,
+        }
+
+    # the main path's matrices: the 20,000-row exact fit's, and the
+    # landmark fit's 5,000 rows of the 1,000,000 (the requests' seed, 0)
+    _, _, X_exact = dataset_embedding_inputs(store, "blobs_20k", device)
+    _, _, X_all = dataset_embedding_inputs(store, "blobs_1m", device)
+    chosen = torch.from_numpy(tsne._choose_landmarks(len(X_all), tsne.LANDMARKS, 0)).to(device)
+    fit_inputs = {tsne.LANDMARKS: X_all[chosen], EXACT_ROWS: X_exact}
+    features = X_all.shape[1]
+
+    # K11: each row's calibrated p, at the two fits' rows and at the
+    # 2,048-row quality fit's (the 20,000 rows' first)
+    for rows, X in {QUALITY_ROWS: X_exact[:QUALITY_ROWS].contiguous(), **fit_inputs}.items():
+        perplexity = tsne._clamped_perplexity(tsne.PERPLEXITY, rows)
+        got = tsne.conditional_affinities(X, perplexity)
+        want, plain_ms = plain_call(lambda: tsne._conditional_affinities(X, perplexity))
+        again = tsne.conditional_affinities(X, perplexity)
+        torch.cuda.synchronize()
+        difference = (got - want).abs_()
+        row_error = (difference / want.amax(dim=1, keepdim=True)).amax(dim=1)
+        checked = held(
+            "tsne_affinities", rows, float(difference.max()), float(row_error.max()), K11_TOL,
+            {
+                # rows past the tolerance: a bisection step that took the
+                # other branch on a knife edge
+                "rows_past_tolerance": int((row_error > K11_TOL).sum()),
+                "rows_past_1e-5": int((row_error > 1e-5).sum()),
+                "row_sums_err": float((got.double().sum(dim=1) - 1.0).abs().max()),
+            },
+        )
+        del difference, row_error
+        if not torch.equal(got, again):
+            failures.append(f"tsne_affinities at {rows}: a second launch differs")
+        if not (torch.isfinite(got).all() and bool((got.diagonal() == 0).all())):
+            failures.append(f"tsne_affinities at {rows}: non-finite p or self affinity")
+        if rows == tsne.LANDMARKS:
+            # the distances in global memory (past ~57,000 rows) give the
+            # same bits as in shared memory
+            shared_bytes = tsne._SHARED_DISTANCE_BYTES
+            tsne._SHARED_DISTANCE_BYTES = 0
+            try:
+                in_global = tsne.conditional_affinities(X, perplexity)
+            finally:
+                tsne._SHARED_DISTANCE_BYTES = shared_bytes
+            checked["global_distances_identical"] = bool(torch.equal(in_global, got))
+            if not checked["global_distances_identical"]:
+                failures.append("tsne_affinities: distances in global memory change the result")
+            del in_global
+        del got, want, again
+        timed(
+            "tsne_affinities", rows,
+            lambda: tsne.conditional_affinities(X, perplexity), plain_ms,
+            _tsne_bound("tsne_affinities", rows, rows, features), 3, checked,
+        )
+        torch.cuda.empty_cache()
+
+    # K12 on each fit's own P: Z and the gradient at its start Y0
+    # (exaggerated) and at its final embedding (late); then three
+    # iterations of the optimizer from each
+    fitted = {}
+    for rows, X in fit_inputs.items():
+        P = tsne.affinities(X, tsne._clamped_perplexity(tsne.PERPLEXITY, rows))
+        Y0 = tsne._initial_embedding(rows, 0, device)
+        fitted[rows] = tsne._tsne_exact(X, tsne.PERPLEXITY, tsne.ITERATIONS, tsne.LEARNING_RATE, Y0)
+        for phase, Y, exaggeration in (
+            ("early", Y0, tsne.EARLY_EXAGGERATION), ("late", fitted[rows], 1.0),
+        ):
+            key = f"{rows}:{phase}"
+            Z = tsne.tsne_z(Y)
+            Z_plain, z_plain_ms = plain_call(lambda: tsne._tsne_z(Y))
+            grad = tsne.tsne_grad(Y, P, Z, exaggeration)
+            grad_plain, grad_plain_ms = plain_call(lambda: tsne._tsne_grad(Y, P, Z_plain, exaggeration))
+            z_error = float((Z.double() - Z_plain.double()).abs() / Z_plain.double())
+            z_checked = held("tsne_z", key, float((Z - Z_plain).abs()), z_error, K12_Z_RTOL)
+            Y64, P64 = Y.double(), P.double()
+            grad64 = tsne._tsne_grad(Y64, P64, tsne._tsne_z(Y64), exaggeration)
+            del P64
+            scale64 = float(grad64.abs().max())
+            float64_err = float((grad - grad64).abs().max()) / scale64
+            plain_float64_err = float((grad_plain - grad64).abs().max()) / scale64
+            del grad64
+            difference = float((grad - grad_plain).abs().max())
+            grad_checked = held(
+                "tsne_grad", key, difference, difference / float(grad_plain.abs().max()),
+                max(K12_PLAIN_TOL, 2.0 * plain_float64_err + K12_FLOAT64_SLACK),
+                {"float64_err": float64_err, "plain_float64_err": plain_float64_err},
+            )
+            if not float64_err <= plain_float64_err + K12_FLOAT64_SLACK:
+                failures.append(
+                    f"tsne_grad at {key}: {float64_err} from float64, farther "
+                    f"than the plain version's {plain_float64_err}"
+                )
+            torch.cuda.empty_cache()
+            if not (torch.equal(tsne.tsne_z(Y), Z) and torch.equal(tsne.tsne_grad(Y, P, Z, exaggeration), grad)):
+                failures.append(f"K12 at {key}: a second launch differs")
+            early_phase = 3 if phase == "early" else 0
+            stepped = tsne._optimize(P, Y, 3, early_phase, tsne.LEARNING_RATE, tsne.EARLY_EXAGGERATION)
+            with _plain_tsne():
+                stepped_plain = tsne._optimize(
+                    P, Y, 3, early_phase, tsne.LEARNING_RATE, tsne.EARLY_EXAGGERATION
+                )
+            step_error = float((stepped - stepped_plain).abs().max() / stepped_plain.abs().max())
+            grad_checked["three_iterations_err"] = step_error
+            if not step_error <= K12_TOL:
+                failures.append(f"K12 at {key}: three iterations apart by {step_error}")
+            timed(
+                "tsne_z", key, lambda: tsne.tsne_z(Y), z_plain_ms,
+                _tsne_bound("tsne_z", rows, rows, features), 20, z_checked,
+            )
+            timed(
+                "tsne_grad", key, lambda: tsne.tsne_grad(Y, P, Z, exaggeration), grad_plain_ms,
+                _tsne_bound("tsne_grad", rows, rows, features), 20, grad_checked,
+            )
+        del P
+        torch.cuda.empty_cache()
+
+    # K13: the 1,000,000 rows onto the landmarks' fitted embedding, the
+    # main path's one launch; and their first 65,536 rows
+    L, Y_L = fit_inputs[tsne.LANDMARKS], fitted[tsne.LANDMARKS]
+    perplexity = tsne._clamped_perplexity(tsne.PERPLEXITY, tsne.LANDMARKS)
+    for rows in (EMBED_ROWS, INTERP_ROWS):
+        X = X_all[:rows]
+        key = f"{rows}x{tsne.LANDMARKS}"
+        got = tsne.interpolate(X, L, Y_L, perplexity)
+        want, plain_ms = plain_call(lambda: tsne._interpolate(X, L, Y_L, perplexity))
+        difference = float((got - want).abs().max())
+        checked = held("tsne_interpolate", key, difference, difference / float(Y_L.abs().max()), K13_TOL)
+        if not torch.equal(tsne.interpolate(X, L, Y_L, perplexity), got):
+            failures.append(f"tsne_interpolate at {key}: a second launch differs")
+        if rows == EMBED_ROWS:
+            shared_bytes = tsne._SHARED_DISTANCE_BYTES
+            tsne._SHARED_DISTANCE_BYTES = 0
+            try:
+                in_global = tsne.interpolate(X[:QUALITY_ROWS], L, Y_L, perplexity)
+            finally:
+                tsne._SHARED_DISTANCE_BYTES = shared_bytes
+            checked["global_distances_identical"] = bool(torch.equal(in_global, got[:QUALITY_ROWS]))
+            if not checked["global_distances_identical"]:
+                failures.append("tsne_interpolate: distances in global memory change the result")
+        del got, want
+        timed(
+            "tsne_interpolate", key, lambda: tsne.interpolate(X, L, Y_L, perplexity), plain_ms,
+            _tsne_bound("tsne_interpolate", rows, tsne.LANDMARKS, features), 3, checked,
+        )
+    pca_times = time_pca(torch, flush, X_all)
+    emit({
+        "phase": "embed-kernels", "features": features, **results, "pca": pca_times,
+        "failures": failures, "seconds": time.perf_counter() - started,
+    })
+    if failures:
+        raise AssertionError(f"embed-kernels: {failures}")
+    return results
+
+
+def time_pca(torch, flush, X) -> dict:
+    """K10 (``ops/pca.py:_pca``, torch ops and ``torch.linalg.eigh``) on
+    the main path's matrix ``X`` (bench.py's 1,000,000 blobs with their
+    label column), cold and warm, beside its bound: the rows read once and
+    the (rows, 2) embedding written once over HBM bandwidth against its
+    float32 operations (the covariance's 2 n F^2 and the projection's
+    4 n F, the centring's 3 n F)."""
+    mask = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
+    rows, features = X.shape
+
+    def call():
+        return pca._pca(X, mask, 2)
+
+    byte_ms = (rows * features * 4 + rows * 2 * 4) / PEAK_BYTES_PER_S * 1e3
+    op_ms = rows * features * (2 * features + 4 * 2 + 3) / PEAK_FP32_OPS_PER_S * 1e3
+    embedded, _, _ = call()
+    if embedded.shape != (rows, 2) or not bool(torch.isfinite(embedded).all()):
+        raise AssertionError(f"pca: an embedding of shape {tuple(embedded.shape)}, or not finite")
+    return {
+        "rows": rows, "features": features,
+        "ms": _event_ms(torch, call, 10, flush),
+        "warm_ms": _event_ms(torch, call, 10),
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+    }
+
+
+def knn_agreement(embedded: np.ndarray, labels: np.ndarray, sample: int, seed: int = 0) -> float:
+    """The share of the k = 10 nearest neighbours (in the embedding, among
+    ``sample`` rows drawn with ``seed``) that carry the row's label."""
+    rows = len(embedded)
+    chosen = np.random.default_rng(seed).choice(rows, size=min(sample, rows), replace=False)
+    points = np.asarray(embedded, np.float64)[chosen]
+    norms = (points * points).sum(axis=1)
+    distances = norms[:, None] + norms[None, :] - 2.0 * points @ points.T
+    np.fill_diagonal(distances, np.inf)
+    nearest = np.argpartition(distances, QUALITY_K, axis=1)[:, :QUALITY_K]
+    picked = labels[chosen]
+    return float((picked[nearest] == picked[:, None]).mean())
+
+
+def kl_divergence(torch, P, Y, block: int = 2_048) -> float:
+    """t-SNE's objective: KL(P || Q) over the pairs i != j, where
+    Q = (1 + |y_i - y_j|^2)^-1 / Z, in float64 on P's device, a block of
+    rows at a time."""
+    Y = torch.as_tensor(Y).to(P.device, torch.float64)
+    n = Y.shape[0]
+    norms = (Y * Y).sum(dim=1)
+
+    def inverse(start):
+        stop = min(start + block, n)
+        d = norms[start:stop, None] + norms[None, :] - 2.0 * (Y[start:stop] @ Y.T)
+        inv = 1.0 / (1.0 + d.clamp_min_(0.0))
+        inv[torch.arange(stop - start), torch.arange(start, stop)] = 0.0
+        return inv
+
+    Z = sum(inverse(start).sum() for start in range(0, n, block))
+    total = torch.zeros((), dtype=torch.float64, device=P.device)
+    for start in range(0, n, block):
+        stop = min(start + block, n)
+        p = P[start:stop].double()
+        terms = p * (torch.log(p) - torch.log(inverse(start) / Z))
+        terms[torch.arange(stop - start), torch.arange(start, stop)] = 0.0
+        total += terms.sum()
+    return float(total)
+
+
+def _read_png_header(data: bytes) -> tuple[int, int]:
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError("the image is not a PNG")
+    width, height = struct.unpack(">II", data[16:24])
+    return width, height
+
+
+def _kl_held(torch, X, perplexity, fit, plain_fit, what: str) -> dict:
+    """KL(P || Q) of a fit and of the plain versions' fit on the same P
+    (the plain version's); raises if they differ by more than KL_MARGIN
+    of the plain fit's."""
+    P = tsne._affinities(X, tsne._clamped_perplexity(perplexity, X.shape[0]))
+    kl = {"kernels": kl_divergence(torch, P, fit), "plain": kl_divergence(torch, P, plain_fit)}
+    kl["rel_diff"] = abs(kl["kernels"] - kl["plain"]) / kl["plain"]
+    kl["margin"] = KL_MARGIN
+    if not kl["rel_diff"] <= KL_MARGIN:
+        raise AssertionError(f"{what}: KL(P || Q) of the kernels' fit and the plain fit differ: {kl}")
+    return kl
+
+
+def phase_embed(torch, card: str, store, labels_by_name: dict, setup_s: float) -> dict:
+    """The image lane end to end: the port's tsne and pca services over
+    real HTTP on ``store``, PNGs read back, the kernels' launches per
+    request, each request's t-SNE fits and interpolation held against the
+    plain versions on the same inputs, the embeddings' quality, and
+    bit-identical refits."""
+    from learningorchestra_tpu_torch.core.devcache import dataset_embedding_inputs
+    from learningorchestra_tpu_torch.ops import images as image_ops
+    from learningorchestra_tpu_torch.services import images as image_services
+
+    started = time.perf_counter()
+    captured, fits, interpolations = {}, {}, {}
+    real_scatter, real_exact, real_interpolate = image_ops._scatter_png, tsne._tsne_exact, tsne.interpolate
+    current = [None]
+
+    # the requests' own fits and interpolation, with their inputs, for the
+    # checks below (the kernels' launches are read before the checks)
+    def scatter(embedded, hue, image_path):
+        captured[os.path.basename(image_path)] = embedded
+        real_scatter(embedded, hue, image_path)
+
+    def exact(X, perplexity, iterations, learning_rate, Y0):
+        Y = real_exact(X, perplexity, iterations, learning_rate, Y0)
+        fits[current[0]] = (X, perplexity, iterations, learning_rate, Y0, Y)
+        return Y
+
+    def interpolate(X, landmarks, Y_landmarks, perplexity):
+        out = real_interpolate(X, landmarks, Y_landmarks, perplexity)
+        interpolations.setdefault(current[0], []).append((X, landmarks, Y_landmarks, perplexity, out))
+        return out
+
+    requests = (
+        ("pca", "blobs_1m", "pca_1m"),
+        ("tsne", "blobs_1m", "tsne_1m"),    # auto: landmark
+        ("tsne", "blobs_20k", "tsne_20k"),  # auto: exact
+    )
+    expected_launches = {
+        "pca_1m": dict.fromkeys(TSNE_KERNELS, 0),
+        "tsne_1m": {"tsne_affinities": 1, "tsne_z": tsne.ITERATIONS, "tsne_grad": tsne.ITERATIONS,
+                    "tsne_interpolate": 1},
+        "tsne_20k": {"tsne_affinities": 1, "tsne_z": tsne.ITERATIONS, "tsne_grad": tsne.ITERATIONS,
+                     "tsne_interpolate": 0},
+    }
+    answers = {}
+    image_ops._scatter_png, tsne._tsne_exact, tsne.interpolate = scatter, exact, interpolate
+    try:
+        with tempfile.TemporaryDirectory() as images_dir:
+            servers = {
+                method: ServerThread(image_services.create_app(store, images_dir, method)).start()
+                for method in ("pca", "tsne")
+            }
+            try:
+                for method, parent, name in requests:
+                    client = _Client(servers[method].port)
+                    current[0] = name
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    began = time.perf_counter()
+                    status, body = client.call(
+                        "POST", f"/images/{parent}",
+                        {f"{method}_filename": name, "label_name": "label"},
+                    )
+                    wall_s = time.perf_counter() - began
+                    launches = {k: kernels.launches()[k] for k in TSNE_KERNELS}
+                    if (status, body) != (201, {"result": "created_file"}):
+                        raise AssertionError(f"POST {name}: {status} {body}")
+                    if launches != expected_launches[name]:
+                        raise AssertionError(
+                            f"{name}: launches {launches}, expected {expected_launches[name]}"
+                        )
+                    with client.opener.open(f"{client.base}/images/{name}", timeout=120) as response:
+                        png = response.read()
+                        kind = response.headers["Content-Type"]
+                    if kind != "image/png" or _read_png_header(png) != (image_ops.WIDTH, image_ops.HEIGHT):
+                        raise AssertionError(f"GET {name}: {kind}, {_read_png_header(png)}")
+                    answers[name] = {
+                        "method": method, "rows": len(labels_by_name[parent]), "wall_s": wall_s,
+                        "launches": launches, "png_bytes": len(png),
+                    }
+                status, body = _Client(servers["tsne"].port).call("GET", "/images")
+                if status != 200 or sorted(body["result"]) != sorted(f"{n}.png" for _, _, n in requests):
+                    raise AssertionError(f"GET /images: {status} {body}")
+            finally:
+                for server in servers.values():
+                    server.stop()
+    finally:
+        image_ops._scatter_png, tsne._tsne_exact, tsne.interpolate = real_scatter, real_exact, real_interpolate
+
+    # the embeddings: shape, finiteness, k = 10 label agreement
+    for _, parent, name in requests:
+        embedded = captured[f"{name}.png"]
+        if embedded.shape != (len(labels_by_name[parent]), 2) or not np.isfinite(embedded).all():
+            raise AssertionError(f"{name}: an embedding of shape {embedded.shape}, or not finite")
+        answers[name]["knn_agreement"] = knn_agreement(embedded, labels_by_name[parent], QUALITY_SAMPLE)
+
+    # each request's exact fit (the 20,000 rows; the 1,000,000 rows'
+    # 5,000 landmarks) against the plain versions' fit from the same X and
+    # Y0, by KL(P || Q); the landmark request's interpolation against the
+    # plain version on the same rows, landmarks and fitted embedding
+    if sorted(fits) != ["tsne_1m", "tsne_20k"] or sorted(interpolations) != ["tsne_1m"]:
+        raise AssertionError(f"captured fits {sorted(fits)}, interpolations {sorted(interpolations)}")
+    for name, (X, perplexity, iterations, learning_rate, Y0, Y) in fits.items():
+        began = time.perf_counter()
+        with _plain_tsne():
+            plain_fit = real_exact(X, perplexity, iterations, learning_rate, Y0)
+        answers[name]["fit_rows"] = X.shape[0]
+        answers[name]["kl"] = _kl_held(torch, X, perplexity, Y, plain_fit, f"{name}'s fit")
+        answers[name]["kl"]["plain_fit_s"] = time.perf_counter() - began
+        del plain_fit
+        torch.cuda.empty_cache()
+    (X, L, Y_L, perplexity, out), = interpolations["tsne_1m"]
+    if X.shape[0] != EMBED_ROWS or L.shape[0] != tsne.LANDMARKS or Y_L is not fits["tsne_1m"][5]:
+        raise AssertionError("the landmark request interpolated other inputs than its own")
+    difference = float((out - tsne._interpolate(X, L, Y_L, perplexity)).abs().max())
+    answers["tsne_1m"]["interpolation"] = {
+        "abs_err": difference, "rel_err": difference / float(Y_L.abs().max()), "tolerance": K13_TOL,
+    }
+    if not answers["tsne_1m"]["interpolation"]["rel_err"] <= K13_TOL:
+        raise AssertionError(f"tsne_1m's interpolation: {answers['tsne_1m']['interpolation']}")
+    del fits, interpolations, X, L, Y_L, out
+    torch.cuda.empty_cache()
+
+    # the same exact fit at 2,048 rows, by the kernels and by the plain
+    # versions, from the same Y0; and two embeddings the KL gate must
+    # refuse: the kernels' fit stopped at half its iterations, and the PCA
+    # projection scaled to the fit's spread
+    _, _, X_exact = dataset_embedding_inputs(store, "blobs_20k")
+    X_small = X_exact[:QUALITY_ROWS].contiguous()
+    labels_small = labels_by_name["blobs_20k"][:QUALITY_ROWS]
+    Y0 = tsne._initial_embedding(QUALITY_ROWS, 0, X_small.device)
+    kernel_fit = tsne._tsne_exact(X_small, tsne.PERPLEXITY, tsne.ITERATIONS, tsne.LEARNING_RATE, Y0)
+    with _plain_tsne():
+        plain_fit = tsne._tsne_exact(X_small, tsne.PERPLEXITY, tsne.ITERATIONS, tsne.LEARNING_RATE, Y0)
+    quality = {
+        "rows": QUALITY_ROWS,
+        "kernels": knn_agreement(kernel_fit.cpu().numpy(), labels_small, QUALITY_SAMPLE),
+        "plain": knn_agreement(plain_fit.cpu().numpy(), labels_small, QUALITY_SAMPLE),
+        "margin": QUALITY_MARGIN,
+        "kl": _kl_held(torch, X_small, tsne.PERPLEXITY, kernel_fit, plain_fit, "the 2,048-row fit"),
+    }
+    if abs(quality["kernels"] - quality["plain"]) > QUALITY_MARGIN:
+        raise AssertionError(f"the kernels' fit and the plain fit differ in quality: {quality}")
+    for name in ("tsne_1m", "tsne_20k"):
+        if answers[name]["knn_agreement"] < quality["plain"] - QUALITY_MARGIN:
+            raise AssertionError(f"{name}: quality {answers[name]['knn_agreement']} below {quality}")
+    half_fit = tsne._tsne_exact(X_small, tsne.PERPLEXITY, tsne.ITERATIONS // 2, tsne.LEARNING_RATE, Y0)
+    projected = torch.from_numpy(pca.pca_embedding(X_small, device=X_small.device)).to(X_small.device)
+    projected *= (kernel_fit.square().sum(dim=1).mean() / projected.square().sum(dim=1).mean()).sqrt()
+    P_small = tsne._affinities(X_small, tsne.PERPLEXITY)
+    quality["kl_controls"] = {}
+    for control, embedded in (("half_iterations", half_fit), ("pca_scaled", projected)):
+        kl = kl_divergence(torch, P_small, embedded)
+        quality["kl_controls"][control] = kl
+        if abs(kl - quality["kl"]["plain"]) <= KL_MARGIN * quality["kl"]["plain"]:
+            raise AssertionError(f"the KL gate takes {control} ({kl}) for a fit: {quality['kl']}")
+
+    # refits from the same seed, through the same reads
+    refits = {}
+    for parent, name in (("blobs_20k", "tsne_20k"), ("blobs_1m", "tsne_1m")):
+        _, _, X = dataset_embedding_inputs(store, parent)
+        began = time.perf_counter()
+        again = tsne.tsne_embedding(X, device=X.device)
+        refits[name] = {"seconds": time.perf_counter() - began,
+                        "identical": bool(np.array_equal(again, captured[f"{name}.png"]))}
+        if not refits[name]["identical"]:
+            raise AssertionError(f"{name}: a refit from the same seed differs")
+    launches_total = {
+        kernel: sum(answer["launches"][kernel] for answer in answers.values()) for kernel in TSNE_KERNELS
+    }
+    record = {
+        "phase": "embed", "setup_s": setup_s, "requests": answers,
+        "quality": quality, "refits": refits, "launches": launches_total, "nvidia_smi": card,
+        "seconds": time.perf_counter() - started,
+    }
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -1662,7 +2316,7 @@ def check_bounds(summary) -> None:
                     )
 
 
-PHASES = ("kernels", "serve", "fit-kernels", "fit")
+PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed")
 
 
 def main(argv) -> int:
@@ -1717,6 +2371,37 @@ def main(argv) -> int:
                 **({"warm_ms": result["warm_ms"], "by_classes": result["by_classes"]} if k7
                    else {"by_level": result["by_level"]}),
                 **({"forest": result["forest"]} if name in FOREST_KERNELS else {}),
+            })
+    if "embed-kernels" in wanted or "embed" in wanted:
+        store, labels_by_name, setup_s = embed_store()
+    embed_kernels = phase_embed_kernels(torch, store) if "embed-kernels" in wanted else None
+    embed = phase_embed(torch, device["card"], store, labels_by_name, setup_s) if "embed" in wanted else None
+    if embed_kernels:
+        # each at the main path's largest shape: K11 and K12 at the exact
+        # fit's 20,000 rows (K12 late), K13 at 1,000,000 rows x 5,000
+        # landmarks
+        at_main = {
+            "tsne_affinities": EXACT_ROWS,
+            "tsne_z": f"{EXACT_ROWS}:late",
+            "tsne_grad": f"{EXACT_ROWS}:late",
+            "tsne_interpolate": f"{EMBED_ROWS}x{tsne.LANDMARKS}",
+        }
+        for name, result in embed_kernels.items():
+            at = result["by_rows"][at_main[name]]
+            summary.append({
+                "name": name,
+                "route": "cuda",
+                "source": TSNE_SOURCE,
+                "replaces": TSNE_REPLACES[name],
+                "launches": embed["launches"][name] if embed else None,
+                "max_abs_err": result["max_abs_err"],
+                "max_rel_err": result["max_rel_err"],
+                "rows": at_main[name],
+                **{field: at[field] for field in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                # no single PyTorch call computes calibrated affinities, the
+                # t-SNE gradient or the calibrated interpolation
+                "library_ms": None,
+                "by_rows": result["by_rows"],
             })
     check_bounds(summary)
     emit({"kernels": summary})

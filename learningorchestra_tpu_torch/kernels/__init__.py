@@ -8,14 +8,17 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 - ``tree_fit.cu``: the fit's level loop (K1-K5), over one tree or a
   forest's trees;
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
-  and its Armijo trial losses (K7).
+  and its Armijo trial losses (K7);
+- ``tsne.cu``: t-SNE's affinities (K11), gradient (K12) and landmark
+  interpolation (K13), for the image lane.
 
 A library lands in ``_build/`` under a name that carries a hash of its
 source, and is published with ``os.replace``, so two processes never load
 half a file and an edited source is rebuilt.
 
 The wrappers that launch these kernels live beside their plain PyTorch
-versions (``ml/binning.py``, ``ml/trees.py``, ``ml/logistic.py``). Each wrapper adds one to
+versions (``ml/binning.py``, ``ml/trees.py``, ``ml/logistic.py``,
+``ops/tsne.py``). Each wrapper adds one to
 its kernel's launch count where it launches, and nowhere else, so a run
 can show that its main path went through the kernel.
 """
@@ -38,6 +41,7 @@ SOURCES = {
     "tree_forward": os.path.join(_HERE, "csrc", "tree_forward.cu"),
     "tree_fit": os.path.join(_HERE, "csrc", "tree_fit.cu"),
     "logistic": os.path.join(_HERE, "csrc", "logistic.cu"),
+    "tsne": os.path.join(_HERE, "csrc", "tsne.cu"),
 }
 
 NVCC_FLAGS = (
@@ -57,6 +61,10 @@ KERNEL_LIBRARIES = {
     "leaf_sums": "tree_fit",
     "logistic_loss_grad": "logistic",
     "logistic_trial_losses": "logistic",
+    "tsne_affinities": "tsne",
+    "tsne_z": "tsne",
+    "tsne_grad": "tsne",
+    "tsne_interpolate": "tsne",
 }
 KERNEL_NAMES = tuple(KERNEL_LIBRARIES)
 _launches = {name: 0 for name in KERNEL_NAMES}
@@ -219,6 +227,32 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _bind_errors(lib)
 
 
+def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lo_tsne_affinities.argtypes = [
+        ptr, ptr,                            # X, P
+        c_int, c_int, c_float, c_int,        # n, F, target entropy, distances in shared
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_tsne_z.argtypes = [
+        ptr, ptr, ptr, c_int,                # Y, row sums, Z, n
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_tsne_grad.argtypes = [
+        ptr, ptr, ptr, ptr,                  # Y, P, Z, grad
+        c_int, c_float,                      # n, exaggeration
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_tsne_interpolate.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,             # X, landmarks, Y_L, out, distances (or null)
+        c_int, c_int, c_int, c_float,        # rows, m, F, target entropy
+        c_int, c_int, ptr,                   # grid blocks, device, stream
+    ]
+    for entry in ("affinities", "z", "grad", "interpolate"):
+        getattr(lib, f"lo_tsne_{entry}").restype = c_int
+    return _bind_errors(lib)
+
+
 def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_error_string.argtypes = [ctypes.c_int]
     lib.lo_error_string.restype = ctypes.c_char_p
@@ -229,6 +263,7 @@ _BINDERS = {
     "tree_forward": _bind_tree_forward,
     "tree_fit": _bind_tree_fit,
     "logistic": _bind_logistic,
+    "tsne": _bind_tsne,
 }
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``learningorchestra_tpu/utils/web.py`` (which is built on
 werkzeug): route registration with ``<name>`` path parameters, JSON
-request bodies, ``(payload, status)`` handler results, the 429 +
+request bodies, ``(payload, status)`` handler results, files answered
+by :func:`send_file`, the 429 +
 ``Retry-After`` admission answer, a threaded server
 (:class:`ServerThread`, on ``http.server.ThreadingHTTPServer``) and an
 in-process :meth:`WebApp.test_client`. Status codes and JSON bodies match
@@ -89,6 +90,13 @@ class Response:
 
 def json_response(payload: Any, status: int = 200) -> Response:
     return Response(json.dumps(payload), status=status)
+
+
+def send_file(path: str, mimetype: str) -> Response:
+    """The file's bytes as a 200 answer of type ``mimetype``."""
+    with open(path, "rb") as handle:
+        data = handle.read()
+    return Response(data, status=200, content_type=mimetype)
 
 
 def too_many_requests(error) -> Response:
@@ -180,6 +188,9 @@ class TestClient:
             Request("POST", path, {"Content-Type": "application/json"}, body)
         )
 
+    def delete(self, path: str) -> Response:
+        return self.app.handle(Request("DELETE", path))
+
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -196,7 +207,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(response.data)
 
-    do_GET = do_POST = _serve
+    do_GET = do_POST = do_DELETE = _serve
 
     def log_message(self, format, *args) -> None:
         pass
