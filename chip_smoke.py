@@ -1,10 +1,12 @@
-"""Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits
-and its PCA and t-SNE image lane on one CUDA card.
+"""Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits,
+its PCA and t-SNE image lane and its sweeps and job coalescing on one
+CUDA card.
 
 Run from the repository root, with one card visible:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py fit-kernels fit  # device, build and the named phases
+    python3 chip_smoke.py sweep            # the sweeps and the coalescer alone
 
 Phases, one JSON line each:
 
@@ -98,6 +100,27 @@ Phases, one JSON line each:
                  projection must fail the KL gate; the k = 10 label
                  agreement of each embedding against the 2,048-row plain
                  fit's; both t-SNE refits bit identical.
+9. sweep       — the fused programs (K14) through ``ml/sweep.run_group`` on
+                 bench.py's synthetic rows (1,000,000 train, seed 0; a
+                 200,000-row eval draw, seed 1): bench.py's sweep_100 lr
+                 grid (100 λ over linspace(0, 1), 25 iterations: 112
+                 padded slots of 1,048,576 rows) and a dt depth grid {2,
+                 5, 8} (three programs of 8 slots), each one member, each
+                 run with the counts set to 0 just before it: K7
+                 segments + iterations and iterations launches for the
+                 whole group, K1 3, K2-K4 15 each, K5 3, K6 3; points/s.
+                 Both held against the same groups through the plain
+                 versions on the card (lr: the same winner, every point's
+                 probabilities within 1e-4; dt: heaps identical, leaf
+                 probabilities within 1e-6). K7 (weighted), K1, K2 with
+                 each job's bins, K4, K5 and K6 over 8 jobs: each job
+                 bit-equal to a launch of it alone and within the plain
+                 versions' tolerances; each timed cold at the main path's
+                 shapes with the three programs. Five lr members (own
+                 data, 1,000,000 rows) and three dt members fused by a
+                 Coalescer in one dispatch, bit-identical to their solo
+                 runs; bench.py's flood of 64 concurrent lr jobs of 1,024
+                 rows at a 10 ms window (one fused dispatch) and at 0.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -138,6 +161,7 @@ from learningorchestra_tpu_torch.ml.checkpoint import (
     save_model,
     write_checkpoint,
 )
+from learningorchestra_tpu_torch.ml.base import segment_steps
 from learningorchestra_tpu_torch.ml.trees import GBT_ROUNDS, GBT_STEP, MAX_DEPTH, NUM_TREES
 from learningorchestra_tpu_torch.ops import pca, tsne
 from learningorchestra_tpu_torch.serve import ServePlane
@@ -2299,24 +2323,743 @@ def phase_embed(torch, card: str, store, labels_by_name: dict, setup_s: float) -
     return record
 
 
+# --------------------------------------------------------------------------
+# Sweeps and job coalescing: the fused programs (K14) over the job axis of
+# K7, K1, K2, K4, K5 and K6
+# --------------------------------------------------------------------------
+
+SWEEP_SOURCE = "learningorchestra_tpu_torch/ml/sweep.py"
+# job-axis rows of the kernels line: (kernel counter, source, what it replaces)
+JOB_KERNELS = {
+    "logistic_loss_grad:jobs": (
+        "logistic_loss_grad", LOGISTIC_SOURCE,
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn (masked) under value_and_grad, "
+        "vmapped in learningorchestra_tpu/ml/sweep.py:237 _lr_fused_segment",
+    ),
+    "logistic_trial_losses:jobs": (
+        "logistic_trial_losses", LOGISTIC_SOURCE,
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn (masked) in the Armijo loop, "
+        "vmapped in learningorchestra_tpu/ml/sweep.py:237 _lr_fused_segment",
+    ),
+    "apply_bins:jobs": (
+        "apply_bins", FIT_SOURCE,
+        "learningorchestra_tpu/ml/binning.py:37 apply_bins, vmapped in "
+        "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
+    "level_histograms:jobs": (
+        "level_histograms", FIT_SOURCE,
+        "learningorchestra_tpu/ml/trees.py:66 _level_histograms, vmapped in "
+        "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
+    "route:jobs": (
+        "route", FIT_SOURCE,
+        "learningorchestra_tpu/ml/trees.py:235 _route, vmapped in "
+        "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
+    "leaf_sums:jobs": (
+        "leaf_sums", FIT_SOURCE,
+        "learningorchestra_tpu/ml/trees.py:142 _leaf_sums, vmapped in "
+        "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
+    "tree_ensemble_forward:jobs": (
+        "tree_ensemble_forward", KERNEL_SOURCE,
+        "learningorchestra_tpu/ml/trees.py:303 _descend under :364 _ensemble_forward, "
+        "vmapped in learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
+}
+PROGRAM_REPLACES = {
+    "lr_fused_segment": "learningorchestra_tpu/ml/sweep.py:237 _lr_fused_segment",
+    "lr_fused_eval": "learningorchestra_tpu/ml/sweep.py:249 _lr_fused_eval",
+    "dt_fused": "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+}
+SWEEP_ROWS = FIT_ROWS          # bench.py's synthetic rows, seed 0
+SWEEP_EVAL_ROWS = 200_000      # an eval draw of the same data, seed 1
+SWEEP_POINTS = 100             # bench.py's sweep_100 grid: linspace(0, 1, 100)
+SWEEP_MAX_ITER = 25            # bench.py's max_iter
+SWEEP_DEPTHS = (2, 5, 8)
+JOB_CHECK_JOBS = 8             # jobs of the per-job kernel checks
+BIT_ROWS = FIT_ROWS            # rows of each bit-identity member
+FLOOD_JOBS, FLOOD_ROWS = 64, 1024   # bench.py's coalesce flood
+FLOOD_WINDOW_S = 0.010
+
+
+@contextlib.contextmanager
+def _plain_sweep():
+    """Within the block, the fused programs run the plain versions of
+    every job-axis kernel (K7's twins, K1, the level loop, K6), on any
+    device. Raises if a kernel launched."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    with _plain(logistic, {
+        "job_loss_and_grad": logistic._job_loss_fn,
+        "job_trial_losses": logistic._job_trial_losses,
+    }), _plain(sweep, {
+        "job_apply_bins": binning._job_apply_bins,
+    }), _plain(trees, {"job_ensemble_forward": trees._job_ensemble_forward}), _plain_level_loop():
+        yield
+
+
+def _outcome(outcomes):
+    (status, value), = outcomes
+    if status != "ok":
+        raise AssertionError(f"a sweep member failed: {value!r}")
+    return value
+
+
+def _job_bound(name: str, rows: int, jobs: int, *, features: int = FEATURES, classes: int = CLASSES,
+               x_shared: bool = False, weighted: bool = True, n_nodes: int = 1,
+               bins_read: int = 0, depth: int = 0) -> tuple[float, str]:
+    """Least milliseconds for one job-axis call: each input read once
+    (a shared X once, not once a job) and each output written once over
+    HBM bandwidth, against its operations at their type's peak."""
+    F, C, J, B = features, classes, jobs, MAX_BINS
+    x_bytes = rows * F * 4 * (1 if x_shared else J)
+    row_bytes = rows * (4 + (4 if weighted else 0)) * (1 if x_shared else J)
+    fp64_ops = 0
+    if name in ("logistic_loss_grad", "logistic_trial_losses"):
+        trial = name == "logistic_trial_losses"
+        candidates = 4 if trial else 1
+        bytes_moved = x_bytes + row_bytes + J * candidates * (F * C + C) * 4 * 2
+        fp32_ops = J * rows * candidates * (2 * F * C + 4 * C)
+        fp64_ops = 0 if trial else J * rows * (2 * F * C + 2 * C + 2)
+    elif name == "apply_bins":       # X, thresholds -> int8 bins; a 5-step search
+        bytes_moved = x_bytes + J * F * (B - 1) * 4 + J * rows * F
+        fp32_ops = J * rows * F * int(np.ceil(np.log2(B)))
+    elif name == "level_histograms":  # each job's bins, node, channels -> histogram
+        bytes_moved = J * (rows * F + rows * 4 + rows * C * 4 + n_nodes * F * B * C * 4)
+        fp32_ops = J * rows * F * C
+    elif name == "route":            # node, a bin per split row, split -> node
+        bytes_moved = J * (rows * 4 * 2 + n_nodes * 8) + bins_read
+        fp32_ops = J * rows * 2
+    elif name == "leaf_sums":
+        bytes_moved = J * (rows * 4 + rows * C * 4 + n_nodes * C * 4)
+        fp32_ops = J * rows * C
+    elif name == "select_splits":
+        bytes_moved = J * n_nodes * (F * B * C * 4 + 8)
+        fp32_ops = J * n_nodes * F * B * (5 * C + 5)
+    else:                            # tree_ensemble_forward: X, one tree a job -> probs
+        nodes, leaves = 2**depth - 1, 2**depth
+        bytes_moved = x_bytes + J * (nodes * 8 + leaves * C * 4) + J * rows * C * 4
+        fp32_ops = J * rows * (depth + C)
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = (fp32_ops / PEAK_FP32_OPS_PER_S + fp64_ops / PEAK_FP64_OPS_PER_S) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _bit_equal_per_job(name: str, got, alone) -> None:
+    """Raise unless job j of ``got`` equals ``alone(j)``, the same launch
+    over job j alone, bit for bit."""
+    import torch
+
+    for j in range(got[0].shape[0]):
+        for part, single in zip(got, alone(j)):
+            if not torch.equal(part[j], single[0]):
+                raise AssertionError(f"{name}: job {j} differs from a launch of that job alone")
+
+
+def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> dict:
+    """K7, K1, K2 (each job's own bins), K4, K5 and K6 over JOB_CHECK_JOBS
+    jobs, each job its own rows (the main rows rolled a job apart, so
+    every job has its own padded rows), parameters and λ: each job's
+    output bit-equal to a launch over that job alone, and within the
+    existing tolerances of the plain version. Returns each kernel's
+    largest difference from its plain version."""
+    J, rows = JOB_CHECK_JOBS, X_std.shape[0]
+    rng = np.random.default_rng(60)
+    shifts = [j * (rows // J + 12_345) for j in range(J)]
+
+    def rolled(tensor):
+        return torch.stack([torch.roll(tensor, s, dims=0) for s in shifts])
+
+    Xs, ys, ms, Xr = rolled(X_std), rolled(y_dev), rolled(mask), rolled(X_raw)
+    device = X_std.device
+
+    def on_card(array):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+    errors = {}
+    W = on_card((rng.normal(size=(J, FEATURES, CLASSES)) * 0.3).astype(np.float32))
+    b = on_card((rng.normal(size=(J, CLASSES)) * 0.3).astype(np.float32))
+    D = on_card((rng.normal(size=(J, FEATURES, CLASSES)) * 0.3).astype(np.float32))
+    d = on_card((rng.normal(size=(J, CLASSES)) * 0.3).astype(np.float32))
+    l2s = on_card(np.array([0.0, 0.1, 0.01, 0.5, 0.0, 0.2, 0.05, 1.0][:J], np.float32))
+    steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=device)
+    W4 = (W[:, None] + steps[None, :, None, None] * D[:, None]).contiguous()
+    b4 = (b[:, None] + steps[None, :, None] * d[:, None]).contiguous()
+    got = logistic.job_loss_and_grad(W, b, Xs, ys, ms, l2s)
+    _bit_equal_per_job("logistic_loss_grad:jobs", got, lambda j: logistic.job_loss_and_grad(
+        W[j:j + 1], b[j:j + 1], Xs[j:j + 1], ys[j:j + 1], ms[j:j + 1], l2s[j:j + 1]))
+    want = logistic._job_loss_fn(W, b, Xs, ys, ms, l2s)
+    loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+    grad_err = max(float((got[i] - want[i]).abs().max()) for i in (1, 2))
+    if not loss_rel <= K7_LOSS_RTOL or not grad_err <= K7_GRAD_ATOL:
+        raise AssertionError(f"logistic_loss_grad:jobs: loss {loss_rel} relative, gradient {grad_err}")
+    errors["logistic_loss_grad:jobs"] = max(grad_err, float((got[0] - want[0]).abs().max()))
+    trial = logistic.job_trial_losses(W4, b4, Xs, ys, ms, l2s)
+    _bit_equal_per_job("logistic_trial_losses:jobs", (trial,), lambda j: (logistic.job_trial_losses(
+        W4[j:j + 1], b4[j:j + 1], Xs[j:j + 1], ys[j:j + 1], ms[j:j + 1], l2s[j:j + 1]),))
+    plain_trial = logistic._job_trial_losses(W4, b4, Xs, ys, ms, l2s)
+    trial_rel = float(((trial - plain_trial).abs() / plain_trial.abs()).max())
+    if not trial_rel <= K7_LOSS_RTOL:
+        raise AssertionError(f"logistic_trial_losses:jobs: {trial_rel} relative")
+    errors["logistic_trial_losses:jobs"] = float((trial - plain_trial).abs().max())
+
+    # each job its own thresholds: the main ones stretched a little a job
+    ths = torch.stack([thresholds * (1.0 + 1e-3 * j) for j in range(J)]).contiguous()
+    bins = binning.job_apply_bins(Xr, ths)
+    _bit_equal_per_job("apply_bins:jobs", (bins,), lambda j: (binning.job_apply_bins(Xr[j:j + 1], ths[j:j + 1]),))
+    if not torch.equal(bins, binning._job_apply_bins(Xr, ths)):
+        raise AssertionError("apply_bins:jobs: bins differ from the plain version")
+    errors["apply_bins:jobs"] = 0.0
+
+    n_nodes, n_leaves = 16, 2**DEPTH
+    node = on_card(rng.integers(0, n_nodes, (J, rows)).astype(np.int32))
+    channels = (torch.nn.functional.one_hot(ys.long(), CLASSES).to(torch.float32) * ms[..., None]).contiguous()
+    hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+    _bit_equal_per_job("level_histograms:jobs", (hist,), lambda j: (trees.level_histograms(
+        bins[j:j + 1], node[j:j + 1], channels[j:j + 1], n_nodes, MAX_BINS),))
+    if not torch.equal(hist, trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)):
+        raise AssertionError("level_histograms:jobs: class counts differ from the plain version")
+    errors["level_histograms:jobs"] = 0.0
+    feature = on_card(rng.integers(-1, FEATURES, (J, n_nodes)).astype(np.int32))
+    split = on_card(rng.integers(0, MAX_BINS, (J, n_nodes)).astype(np.int32))
+    routed = trees.route(bins, node, feature, split)
+    _bit_equal_per_job("route:jobs", (routed,), lambda j: (trees.route(
+        bins[j:j + 1], node[j:j + 1], feature[j:j + 1], split[j:j + 1]),))
+    if not torch.equal(routed, trees._route(bins, node, feature, split)):
+        raise AssertionError("route:jobs: nodes differ from the plain version")
+    errors["route:jobs"] = 0.0
+    leaf = on_card(rng.integers(0, n_leaves, (J, rows)).astype(np.int32))
+    sums = trees.leaf_sums(leaf, channels, n_leaves)
+    _bit_equal_per_job("leaf_sums:jobs", (sums,), lambda j: (trees.leaf_sums(
+        leaf[j:j + 1], channels[j:j + 1], n_leaves),))
+    if not torch.equal(sums, trees._leaf_sums(leaf, channels, n_leaves)):
+        raise AssertionError("leaf_sums:jobs: class counts differ from the plain version")
+    errors["leaf_sums:jobs"] = 0.0
+
+    thresholds_np = thresholds.cpu().numpy()
+    heaps = [_heaps(rng, thresholds_np, 1, DEPTH) for _ in range(J)]
+    fh = on_card(np.stack([h[0] for h in heaps]))
+    th = on_card(np.stack([h[1] for h in heaps]))
+    lp = on_card(rng.dirichlet(np.ones(CLASSES), size=(J, 1, n_leaves)).astype(np.float32))
+    Xe = torch.stack([torch.roll(X_eval, s, dims=0) for s in shifts])
+    probs = trees.job_ensemble_forward(Xe, fh, th, lp, DEPTH)
+    _bit_equal_per_job("tree_ensemble_forward:jobs", (probs,), lambda j: (trees.job_ensemble_forward(
+        Xe[j:j + 1], fh[j:j + 1], th[j:j + 1], lp[j:j + 1], DEPTH),))
+    plain = trees._job_ensemble_forward(Xe, fh, th, lp, DEPTH)
+    error = float((probs - plain).abs().max())
+    if error > TREE_TOL or not torch.equal(probs.argmax(2), plain.argmax(2)):
+        raise AssertionError(f"tree_ensemble_forward:jobs: {error} from the plain version")
+    errors["tree_ensemble_forward:jobs"] = error
+    return errors
+
+
+def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush) -> dict:
+    """Each job-axis kernel at the main path's shapes, cold (L2
+    overwritten before each call), beside its bound and its plain
+    version: K7 over the λ sweep's 112 slots of 1,048,576 rows, one shared
+    X, weighted; K1, K2, K4, K5 and K6 over the depth sweep's 8 slots,
+    one shared X (K2, K4: each slot's own bins, a 16-node level; K5: 256
+    leaves; K6: depth 8 on the shared eval rows)."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    rows, device = X_std.shape[0], X_std.device
+    jobs_lr = sweep._job_axis(SWEEP_POINTS)
+    rng = np.random.default_rng(61)
+
+    def on_card(array):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+    # CUDA events only: in a process that ran the other phases first, the
+    # profiler's trace read these kernels at a fifth of their event times,
+    # below what the bytes allow (PERF.md section 7)
+    def timed(name, kernel, plain, bound, library=None):
+        bound_ms, bound_by = bound
+        return {
+            "ms": _event_ms(torch, kernel, 5, flush),
+            "plain_ms": _event_ms(torch, plain, 1, flush),
+            "library_ms": None if library is None else _event_ms(torch, library, 3, flush),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+
+    W = on_card((rng.normal(size=(jobs_lr, FEATURES, CLASSES)) * 0.3).astype(np.float32))
+    b = on_card((rng.normal(size=(jobs_lr, CLASSES)) * 0.3).astype(np.float32))
+    W4 = on_card((rng.normal(size=(jobs_lr, 4, FEATURES, CLASSES)) * 0.3).astype(np.float32))
+    b4 = on_card((rng.normal(size=(jobs_lr, 4, CLASSES)) * 0.3).astype(np.float32))
+    l2s = on_card(np.linspace(0.0, 1.0, jobs_lr).astype(np.float32))
+    results = {
+        "logistic_loss_grad:jobs": timed(
+            "logistic_loss_grad:jobs",
+            lambda: logistic.job_loss_and_grad(W, b, X_std, y_dev, mask, l2s),
+            lambda: logistic._job_loss_fn(W, b, X_std, y_dev, mask, l2s),
+            _job_bound("logistic_loss_grad", rows, jobs_lr, x_shared=True),
+        ),
+        "logistic_trial_losses:jobs": timed(
+            "logistic_trial_losses:jobs",
+            lambda: logistic.job_trial_losses(W4, b4, X_std, y_dev, mask, l2s),
+            lambda: logistic._job_trial_losses(W4, b4, X_std, y_dev, mask, l2s),
+            _job_bound("logistic_trial_losses", rows, jobs_lr, x_shared=True),
+        ),
+    }
+    for result in results.values():
+        result.update(jobs=jobs_lr, rows=rows, x_shared=True)
+    J = sweep._job_axis(1)
+    ths = torch.stack([thresholds * (1.0 + 1e-3 * j) for j in range(J)]).contiguous()
+    bins = binning.job_apply_bins(X_raw, ths)
+    n_nodes, n_leaves, depth = 16, 2 ** max(SWEEP_DEPTHS), max(SWEEP_DEPTHS)
+    y_jobs = y_dev[None].expand(J, rows)
+    channels = (torch.nn.functional.one_hot(y_jobs.long(), CLASSES).to(torch.float32) * mask[None, :, None]).contiguous()
+    node = on_card(rng.integers(0, n_nodes, (J, rows)).astype(np.int32))
+    feature = on_card(rng.integers(-1, FEATURES, (J, n_nodes)).astype(np.int32))
+    split = on_card(rng.integers(0, MAX_BINS, (J, n_nodes)).astype(np.int32))
+    leaf = on_card(rng.integers(0, n_leaves, (J, rows)).astype(np.int32))
+    bins_read = int((feature.long().gather(1, node.long()) >= 0).sum())
+    thresholds_np = thresholds.cpu().numpy()
+    heaps = [_heaps(rng, thresholds_np, 1, depth) for _ in range(J)]
+    fh = on_card(np.stack([h[0] for h in heaps]))
+    th = on_card(np.stack([h[1] for h in heaps]))
+    lp = on_card(rng.dirichlet(np.ones(CLASSES), size=(J, 1, n_leaves)).astype(np.float32))
+    rows_e = X_eval.shape[0]
+    # the library yardsticks: one batched searchsorted (K1); bincount, one
+    # a channel, over (job, node, feature, bin) and (job, leaf) cells (K2, K5)
+    X_columns = X_raw.T[None].expand(J, -1, -1).contiguous()
+    job_ids = torch.arange(J, device=device)[:, None]
+    feature_offsets = torch.arange(FEATURES, device=device) * MAX_BINS
+    flat = (
+        ((job_ids * n_nodes + node.long())[:, :, None] * (FEATURES * MAX_BINS)) + feature_offsets + bins.long()
+    ).reshape(-1)
+    cell_weights = [channels[:, :, k : k + 1].expand(J, rows, FEATURES).reshape(-1) for k in range(CLASSES)]
+    leaf_index = (job_ids * n_leaves + leaf.long()).reshape(-1)
+    leaf_weights = [channels[:, :, k].reshape(-1) for k in range(CLASSES)]
+    results.update({
+        "apply_bins:jobs": timed(
+            "apply_bins:jobs",
+            lambda: binning.job_apply_bins(X_raw, ths),
+            lambda: binning._job_apply_bins(X_raw, ths),
+            _job_bound("apply_bins", rows, J, x_shared=True),
+            lambda: torch.searchsorted(ths, X_columns, side="left"),
+        ),
+        "level_histograms:jobs": timed(
+            "level_histograms:jobs",
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            _job_bound("level_histograms", rows, J, n_nodes=n_nodes),
+            lambda: [torch.bincount(flat, weights=w, minlength=J * n_nodes * FEATURES * MAX_BINS)
+                     for w in cell_weights],
+        ),
+        "route:jobs": timed(
+            "route:jobs",
+            lambda: trees.route(bins, node, feature, split),
+            lambda: trees._route(bins, node, feature, split),
+            _job_bound("route", rows, J, n_nodes=n_nodes, bins_read=bins_read),
+        ),
+        "leaf_sums:jobs": timed(
+            "leaf_sums:jobs",
+            lambda: trees.leaf_sums(leaf, channels, n_leaves),
+            lambda: trees._leaf_sums(leaf, channels, n_leaves),
+            _job_bound("leaf_sums", rows, J, n_nodes=n_leaves),
+            lambda: [torch.bincount(leaf_index, weights=w, minlength=J * n_leaves) for w in leaf_weights],
+        ),
+        "tree_ensemble_forward:jobs": timed(
+            "tree_ensemble_forward:jobs",
+            lambda: trees.job_ensemble_forward(X_eval, fh, th, lp, depth),
+            lambda: trees._job_ensemble_forward(X_eval, fh, th, lp, depth),
+            _job_bound("tree_ensemble_forward", rows_e, J, x_shared=True, depth=depth),
+        ),
+    })
+    del flat, cell_weights, leaf_index, leaf_weights, X_columns
+    for name in ("apply_bins:jobs", "level_histograms:jobs", "route:jobs", "leaf_sums:jobs"):
+        results[name].update(jobs=J, rows=rows, x_shared=name == "apply_bins:jobs")
+    results["tree_ensemble_forward:jobs"].update(jobs=J, rows=rows_e, x_shared=True, depth=depth)
+    results["level_histograms:jobs"]["nodes"] = results["route:jobs"]["nodes"] = n_nodes
+    results["leaf_sums:jobs"]["leaves"] = n_leaves
+    return results
+
+
+def time_programs(torch, lr_inputs, dt_inputs, flush) -> dict:
+    """The three fused programs (K14) at the main path's shapes: one L-BFGS
+    segment of the λ sweep (112 slots; its seed pass and one iteration),
+    its evaluation, and the depth sweep's depth-8 program (8 slots),
+    each beside its bound (the sum of its kernels' bounds; for the
+    evaluation its bytes) and the same program through the plain
+    versions."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    W, b, state, Xs, ys, masks, l2s, Xe, means, scales, ye, we = lr_inputs
+    jobs, rows = W.shape[0], Xs.shape[-2]
+    # the runner's segment at this shape
+    iters = segment_steps(SWEEP_MAX_ITER, rows * jobs, logistic._LR_ROW_ITERS_BUDGET, FEATURES)
+
+    def segment():
+        return sweep._lr_fused_segment(W, b, state, Xs, ys, masks, l2s, iters)
+
+    def evaluate():
+        return sweep._lr_fused_eval(W, b, Xe, means, scales, ye, we, CLASSES)
+
+    def plain_segment():
+        with _plain_sweep():
+            return segment()
+
+    loss_ms, _ = _job_bound("logistic_loss_grad", rows, jobs, x_shared=Xs.dim() == 2)
+    trial_ms, _ = _job_bound("logistic_trial_losses", rows, jobs, x_shared=Xs.dim() == 2)
+    rows_e = Xe.shape[1]
+    eval_bytes = jobs * rows_e * (FEATURES * 4 + 8) + jobs * (FEATURES * CLASSES + CLASSES + 2 * FEATURES) * 4
+    results = {
+        "lr_fused_segment": {
+            "ms": _event_ms(torch, segment, 3, flush),
+            "plain_ms": _event_ms(torch, plain_segment, 1, flush),
+            "bound_ms": (1 + iters) * loss_ms + iters * trial_ms,
+            "bound_by": "operations" if Xs.dim() == 2 else "bytes",
+            "jobs": jobs, "rows": rows, "iterations": iters,
+        },
+        "lr_fused_eval": {
+            "ms": _event_ms(torch, evaluate, 5, flush),
+            "bound_ms": eval_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "jobs": jobs, "rows": rows_e,
+        },
+    }
+    # the evaluation is torch ops (a batched torch.matmul, as K8's forward,
+    # and K9's metrics): it is its own plain version
+    results["lr_fused_eval"]["plain_ms"] = results["lr_fused_eval"]["ms"]
+    Xs_t, ys_t, ws_t, ths_t, Xe_t, ye_t, we_t, depth = dt_inputs
+    J, rows_t = ths_t.shape[0], Xs_t.shape[-2]
+
+    def dt_program():
+        return sweep._dt_fused(Xs_t, ys_t, ws_t, ths_t, Xe_t, ye_t, we_t, CLASSES, depth, MAX_BINS)
+
+    def plain_dt():
+        with _plain_sweep():
+            return dt_program()
+
+    bound = _job_bound("apply_bins", rows_t, J, x_shared=Xs_t.dim() == 2)[0]
+    for level in range(depth):
+        for name in ("level_histograms", "select_splits", "route"):
+            bound += _job_bound(name, rows_t, J, n_nodes=2**level)[0]
+    bound += _job_bound("leaf_sums", rows_t, J, n_nodes=2**depth)[0]
+    bound += _job_bound("tree_ensemble_forward", Xe_t.shape[-2], J, x_shared=Xe_t.dim() == 2, depth=depth)[0]
+    results["dt_fused"] = {
+        "ms": _event_ms(torch, dt_program, 3, flush),
+        "plain_ms": _event_ms(torch, plain_dt, 1, flush),
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "jobs": J, "rows": rows_t, "depth": depth,
+    }
+    return results
+
+
+def _coalesced(torch, coalescer, members_data, runner, kind: str, grids, max_iter: int):
+    """Register every member with ``coalescer`` and run each: returns the
+    results and the coalescer's stats."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    device = _card(torch)
+    members = []
+    for i, ((X, y), grid) in enumerate(zip(members_data, grids)):
+        key, payload = sweep.prepare_member(kind, X, y, X, y, grid, device=device, max_iter=max_iter)
+        members.append(coalescer.register(key, payload, runner, name=f"{kind}-{i}"))
+    results = [coalescer.run_member(member) for member in members]
+    return results, coalescer.stats()
+
+
+def check_bit_identity(torch) -> dict:
+    """Five single-point lr members (λ 0, 0.1, 0.01, 0.5, 0; each its own
+    seeded data at BIT_ROWS rows) fused through a Coalescer in one
+    dispatch, against each run alone at the same width (window 0): w, b,
+    accuracy and F1 identical. The same for three dt members at depths
+    {2, 3}."""
+    from learningorchestra_tpu_torch.ml import sweep
+    from learningorchestra_tpu_torch.sched.coalesce import Coalescer
+
+    runner = sweep.group_runner(_card(torch))
+    record = {}
+    for kind, data, grids, max_iter in (
+        ("lr", [bench_synthetic(BIT_ROWS, seed=20 + i) for i in range(5)],
+         [[{"reg_param": l2}] for l2 in (0.0, 0.1, 0.01, 0.5, 0.0)], SWEEP_MAX_ITER),
+        ("dt", [bench_synthetic(BIT_ROWS, seed=30 + i) for i in range(3)],
+         [[{"max_depth": 2}, {"max_depth": 3}]] * 3, SWEEP_MAX_ITER),
+    ):
+        started = time.perf_counter()
+        fused, fused_stats = _coalesced(torch, Coalescer(window_s=0.05, max_jobs=8), data, runner, kind, grids, max_iter)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - started
+        if fused_stats["fused_dispatches"] != 1:
+            raise AssertionError(f"{kind} bit identity: {fused_stats['fused_dispatches']} fused dispatches, not 1")
+        solo, _ = _coalesced(torch, Coalescer(window_s=0.0, max_jobs=8), data, runner, kind, grids, max_iter)
+        fields = ("w", "b") if kind == "lr" else ("features_heap", "thresholds_heap", "leaf_probs")
+        for i, (f_result, s_result) in enumerate(zip(fused, solo)):
+            for f_point, s_point in zip(f_result["points"], s_result["points"]):
+                if (f_point["accuracy"], f_point["weighted_f1"]) != (s_point["accuracy"], s_point["weighted_f1"]):
+                    raise AssertionError(f"{kind} member {i}: fused metrics differ from its solo run")
+            for f_params, s_params in zip(f_result["params"], s_result["params"]):
+                for field in fields:
+                    if not np.array_equal(f_params[field], s_params[field]):
+                        raise AssertionError(f"{kind} member {i}: fused {field} differs from its solo run")
+        record[kind] = {
+            "members": len(data), "rows": BIT_ROWS, "fused_dispatches": 1, "fused_s": fused_s,
+            "accuracies": [p["accuracy"] for result in fused for p in result["points"]],
+            "bit_identical": True,
+        }
+    return record
+
+
+def coalescing_flood(torch) -> dict:
+    """bench.py's flood: FLOOD_JOBS concurrent lr members of FLOOD_ROWS
+    rows, each its own seeded data, max_iter 25, from as many threads
+    through one Coalescer, with the window at 10 ms and at 0. A lock
+    stands in for the scheduler's width-1 device class (the scheduler
+    comes with the builder): one member runs at a time, and a leader's
+    fused dispatch serves the members it collected."""
+    from learningorchestra_tpu_torch.ml import sweep
+    from learningorchestra_tpu_torch.sched.coalesce import Coalescer
+
+    device = _card(torch)
+    runner = sweep.group_runner(device)
+    prepared = []
+    for i in range(FLOOD_JOBS):
+        X, y = bench_synthetic(FLOOD_ROWS, seed=100 + i)
+        prepared.append(sweep.prepare_member(
+            "lr", X, y, X, y, [{"reg_param": 0.0}], device=device, max_iter=SWEEP_MAX_ITER
+        ))
+    # both shapes once before the clock: the 8-slot floor and the 64-slot batch
+    sweep.run_group([prepared[0][1]], device)
+    sweep.run_group([payload for _, payload in prepared], device)
+    torch.cuda.synchronize()
+
+    def flood(window_s: float) -> dict:
+        coalescer = Coalescer(window_s=window_s, max_jobs=FLOOD_JOBS)
+        lane = threading.Lock()
+        barrier = threading.Barrier(FLOOD_JOBS + 1)
+        results, failures = [None] * FLOOD_JOBS, []
+
+        def client(index: int) -> None:
+            key, payload = prepared[index]
+            member = coalescer.register(key, payload, runner, name=f"flood-{index}")
+            barrier.wait()
+            try:
+                with lane:
+                    results[index] = coalescer.run_member(member)
+                    torch.cuda.synchronize()
+            except Exception as error:  # noqa: BLE001 — surfaced below
+                failures.append(error)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(FLOOD_JOBS)]
+        for thread in threads:
+            thread.start()
+        barrier.wait()
+        started = time.perf_counter()
+        for thread in threads:
+            thread.join(timeout=600)
+        elapsed = time.perf_counter() - started
+        if failures or any(result is None for result in results):
+            raise AssertionError(f"flood at window {window_s}: {len(failures)} failed, {failures[:1]!r}")
+        stats = coalescer.stats()
+        return {
+            "jobs_per_s": FLOOD_JOBS / elapsed,
+            "wall_s": elapsed,
+            "fused_dispatches": stats["fused_dispatches"],
+            "mean_batch_size": stats["mean_batch_size"],
+            "finished": sum(result is not None for result in results),
+        }
+
+    coalesced = flood(FLOOD_WINDOW_S)
+    uncoalesced = flood(0.0)
+    if coalesced["fused_dispatches"] != 1:
+        raise AssertionError(f"the 10 ms flood made {coalesced['fused_dispatches']} fused dispatches, not 1")
+    if uncoalesced["fused_dispatches"] != FLOOD_JOBS:
+        raise AssertionError(f"the window-0 flood made {uncoalesced['fused_dispatches']} dispatches")
+    return {
+        "jobs": FLOOD_JOBS, "rows": FLOOD_ROWS,
+        "coalesced": coalesced, "uncoalesced_window0": uncoalesced,
+        "coalesce_speedup": coalesced["jobs_per_s"] / uncoalesced["jobs_per_s"],
+    }
+
+
+def _sweep_launches(kind: str, payload, padded: int) -> tuple[dict, dict]:
+    """The kernel launches and program calls one sweep of ``payload``
+    makes: one launch a level or an iteration for the whole group."""
+    expected = {name: 0 for name in kernels.KERNEL_NAMES}
+    if kind == "lr":
+        iters = segment_steps(
+            SWEEP_MAX_ITER, payload["X"].shape[0] * padded, logistic._LR_ROW_ITERS_BUDGET, FEATURES
+        )
+        segments = max(1, SWEEP_MAX_ITER // iters)
+        expected.update(logistic_loss_grad=segments + segments * iters,
+                        logistic_trial_losses=segments * iters)
+        return expected, {"lr_fused_segment": segments, "lr_fused_eval": 1, "dt_fused": 0}
+    levels = sum(SWEEP_DEPTHS)
+    programs = len(SWEEP_DEPTHS)
+    expected.update(apply_bins=programs, level_histograms=levels, select_splits=levels, route=levels,
+                    leaf_sums=programs, tree_ensemble_forward=programs)
+    return expected, {"lr_fused_segment": 0, "lr_fused_eval": 0, "dt_fused": programs}
+
+
+def phase_sweep(torch, card: str) -> dict:
+    """The fused programs on the card at full width: bench.py's sweep_100
+    λ grid over lr and a depth grid over dt on 1,000,000 rows, each one
+    member through run_group, launches counted, held against the same
+    group through the plain versions; the per-job kernel checks; the
+    bit-identity of fused and solo members; the coalescing flood."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    device = _card(torch)
+    record = {"phase": "sweep", "rows": SWEEP_ROWS, "eval_rows": SWEEP_EVAL_ROWS, "features": FEATURES}
+    started = time.perf_counter()
+    X, y = bench_synthetic(SWEEP_ROWS, seed=0)
+    X_eval, y_eval = bench_synthetic(SWEEP_EVAL_ROWS, seed=1)
+    lambdas = [{"reg_param": float(v)} for v in np.linspace(0.0, 1.0, SWEEP_POINTS)]
+    depths = [{"max_depth": depth} for depth in SWEEP_DEPTHS]
+    _, lr_payload = sweep.prepare_member(
+        "lr", X, y, X_eval, y_eval, lambdas, device=device, max_iter=SWEEP_MAX_ITER
+    )
+    _, dt_payload = sweep.prepare_member("dt", X, y, X_eval, y_eval, depths, device=device)
+    record["prepare_s"] = time.perf_counter() - started
+
+    # the main path: each sweep with the counts set to 0 just before it
+    # and read just after
+    runs = {}
+    for kind, payload, padded in (
+        ("lr", lr_payload, sweep._job_axis(SWEEP_POINTS)), ("dt", dt_payload, sweep._job_axis(1)),
+    ):
+        expected, expected_programs = _sweep_launches(kind, payload, padded)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        sweep.reset_program_calls()
+        started = time.perf_counter()
+        result = _outcome(sweep.run_group([payload], device))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - started
+        launches, programs = kernels.launches(), sweep.program_calls()
+        if launches != expected or programs != expected_programs:
+            raise AssertionError(
+                f"{kind} sweep launched {launches} in {programs}, expected {expected} in {expected_programs}"
+            )
+        accuracies = [point["accuracy"] for point in result["points"]]
+        if not all(0.5 < accuracy <= 1.0 for accuracy in accuracies):
+            raise AssertionError(f"{kind} sweep: accuracies {accuracies}")
+        runs[kind] = result
+        record[kind] = {
+            "points": len(payload["grid"]), "padded_slots": padded, "wall_s": wall_s,
+            "points_per_s": len(payload["grid"]) / wall_s,
+            "launches": {name: count for name, count in launches.items() if count},
+            "programs": programs, "best": result["best"],
+            "best_accuracy": accuracies[result["best"]],
+        }
+
+    # the same groups through the plain versions on the card
+    with _plain_sweep():
+        started = time.perf_counter()
+        plain_lr = _outcome(sweep.run_group([lr_payload], device))
+        torch.cuda.synchronize()
+        record["lr"]["plain_wall_s"] = time.perf_counter() - started
+        started = time.perf_counter()
+        plain_dt = _outcome(sweep.run_group([dt_payload], device))
+        torch.cuda.synchronize()
+        record["dt"]["plain_wall_s"] = time.perf_counter() - started
+    lr, X_eval_dev = runs["lr"], torch.from_numpy(X_eval).to(device)
+    if lr["best"] != plain_lr["best"]:
+        raise AssertionError(f"lr sweep: winner {lr['best']}, the plain versions' {plain_lr['best']}")
+    prob_err = 0.0
+    for params, plain_params in zip(lr["params"], plain_lr["params"]):
+        probs = sweep.model_from_params(params, device)._forward(X_eval_dev)
+        plain_probs = sweep.model_from_params(plain_params, device)._forward(X_eval_dev)
+        prob_err = max(prob_err, float((probs - plain_probs).abs().max()))
+    if prob_err > LR_PROB_TOL:
+        raise AssertionError(f"lr sweep: probabilities {prob_err} from the plain versions' fits")
+    dt = runs["dt"]
+    leaf_err = 0.0
+    for params, plain_params in zip(dt["params"], plain_dt["params"]):
+        for field in ("features_heap", "thresholds_heap"):
+            if not np.array_equal(params[field], plain_params[field]):
+                raise AssertionError(f"dt sweep, depth {params['max_depth']}: {field} differs from the plain versions'")
+        leaf_err = max(leaf_err, float(np.abs(params["leaf_probs"] - plain_params["leaf_probs"]).max()))
+    if leaf_err > TREE_TOL:
+        raise AssertionError(f"dt sweep: leaf probabilities {leaf_err} from the plain versions'")
+    if [p["accuracy"] for p in dt["points"]] != [p["accuracy"] for p in plain_dt["points"]]:
+        raise AssertionError("dt sweep: accuracies differ from the plain versions'")
+    record["lr"]["max_prob_err_to_plain"] = prob_err
+    record["dt"]["max_leaf_err_to_plain"] = leaf_err
+
+    # the kernels on the main path's own inputs
+    X_raw = torch.from_numpy(lr_payload["X"]).to(device)
+    mean = torch.from_numpy(lr_payload["mean"]).to(device)
+    scale = torch.from_numpy(lr_payload["scale"]).to(device)
+    X_std = (X_raw - mean) / scale
+    y_dev = torch.from_numpy(lr_payload["y"]).to(device)
+    mask = torch.from_numpy(lr_payload["mask"]).to(device)
+    thresholds = torch.from_numpy(dt_payload["thresholds"]).to(device)
+    Xe_dev = torch.from_numpy(dt_payload["X_eval"]).to(device)
+    errors = check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, Xe_dev)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    timings = time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, Xe_dev, flush)
+    for name, result in timings.items():
+        result["max_abs_err"] = errors[name]
+        result["launches"] = record["lr" if name.startswith("logistic") else "dt"]["launches"].get(
+            JOB_KERNELS[name][0], 0
+        )
+    padded = sweep._job_axis(SWEEP_POINTS)
+    W0 = torch.zeros((padded, FEATURES, CLASSES), dtype=torch.float32, device=device)
+    b0 = torch.zeros((padded, CLASSES), dtype=torch.float32, device=device)
+    ones = torch.ones(padded, 1, device=device)
+    lr_inputs = (
+        W0, b0, sweep._job_lbfgs_state(W0, b0), X_std, y_dev, mask,
+        torch.linspace(0.0, 1.0, padded, device=device),
+        Xe_dev[None].expand(padded, -1, -1).contiguous(), mean * ones, scale * ones,
+        torch.from_numpy(lr_payload["y_eval"]).to(device)[None].expand(padded, -1).contiguous(),
+        torch.from_numpy(lr_payload["mask_eval"]).to(device)[None].expand(padded, -1).contiguous(),
+    )
+    slots = sweep._job_axis(1)
+    dt_inputs = (
+        X_raw, y_dev[None].expand(slots, -1).contiguous(), mask[None].expand(slots, -1).contiguous(),
+        thresholds[None].expand(slots, -1, -1).contiguous(), Xe_dev,
+        lr_inputs[10][:slots].contiguous(), lr_inputs[11][:slots].contiguous(), max(SWEEP_DEPTHS),
+    )
+    programs = time_programs(torch, lr_inputs, dt_inputs, flush)
+    for name, result in programs.items():
+        result["launches"] = (record["lr"] if name.startswith("lr") else record["dt"])["programs"][name]
+    program_errors = {"lr_fused_segment": prob_err, "lr_fused_eval": 0.0, "dt_fused": leaf_err}
+    for name, result in programs.items():
+        result["max_abs_err"] = program_errors[name]
+    del lr_inputs, dt_inputs, flush
+    record["bit_identity"] = check_bit_identity(torch)
+    record["flood"] = coalescing_flood(torch)
+    record["kernels"] = timings
+    record["programs"] = programs
+    record["nvidia_smi"] = card
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
     for entry in summary:
         timed = {
             **entry.get("by_rows", {}), **entry.get("by_level", {}), **entry.get("by_classes", {}),
-            **entry.get("forest", {}).get("by_level", {}),
+            **entry.get("forest", {}).get("by_level", {}), "at the main path's shape": entry,
         }
         for key, at in timed.items():
             for field in ("ms", "device_ms"):
-                if at[field] is not None and at[field] < at["bound_ms"]:
+                if at.get(field) is not None and at[field] < at["bound_ms"]:
                     raise AssertionError(
                         f"{entry['name']} at {key}: {field} {at[field]} is below "
                         f"its bound {at['bound_ms']}"
                     )
 
 
-PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed")
+PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep")
+
+# why no single PyTorch call stands beside a job-axis kernel or a program
+NO_LIBRARY = {
+    "logistic_loss_grad:jobs": "no PyTorch call gives a masked mean nll with its gradient, per job",
+    "logistic_trial_losses:jobs": "no PyTorch call gives the masked nll at four points, per job",
+    "route:jobs": "no PyTorch call routes rows down a split heap",
+    "tree_ensemble_forward:jobs": "no PyTorch call computes a tree-ensemble forward",
+    "lr_fused_segment": "no PyTorch call runs an L-BFGS segment",
+    "lr_fused_eval": "the program is torch ops itself (torch.matmul and K9's metrics)",
+    "dt_fused": "no PyTorch call fits a decision tree",
+}
 
 
 def main(argv) -> int:
@@ -2402,6 +3145,27 @@ def main(argv) -> int:
                 # t-SNE gradient or the calibrated interpolation
                 "library_ms": None,
                 "by_rows": result["by_rows"],
+            })
+    sweep_record = phase_sweep(torch, device["card"]) if "sweep" in wanted else None
+    if sweep_record:
+        for name, result in sweep_record["kernels"].items():
+            _, source, replaces = JOB_KERNELS[name]
+            summary.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                **{field: result[field] for field in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "jobs", "rows",
+                )},
+                **({"library_note": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
+            })
+        for name, result in sweep_record["programs"].items():
+            summary.append({
+                "name": name, "route": "cuda", "source": SWEEP_SOURCE,
+                "replaces": PROGRAM_REPLACES[name],
+                **{field: result[field] for field in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "jobs", "rows",
+                )},
+                "library_ms": None, "library_note": NO_LIBRARY[name],
             })
     check_bounds(summary)
     emit({"kernels": summary})

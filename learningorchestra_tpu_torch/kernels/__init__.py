@@ -4,11 +4,13 @@ Each source in ``csrc/`` is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 
-- ``tree_forward.cu``: the tree forward (K6), for the predict lane;
-- ``tree_fit.cu``: the fit's level loop (K1-K5), over one tree or a
-  forest's trees;
+- ``tree_forward.cu``: the tree forward (K6), for the predict lane and
+  over a sweep's jobs;
+- ``tree_fit.cu``: the fit's level loop (K1-K5), over one tree, a
+  forest's trees, or a sweep's jobs (each with its own rows);
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
-  and its Armijo trial losses (K7);
+  and its Armijo trial losses (K7), for one fit or a job axis of fits
+  with row weights (the sweep's fused L-BFGS);
 - ``tsne.cu``: t-SNE's affinities (K11), gradient (K12) and landmark
   interpolation (K13), for the image lane.
 
@@ -156,6 +158,7 @@ def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_tree_ensemble_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, leaves, out
         c_int, c_int, c_int, c_int, c_int,   # rows, F, trees, depth, classes
+        c_int, ctypes.c_longlong,            # jobs, X's stride along the job axis
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_tree_ensemble_forward.restype = c_int
@@ -174,6 +177,7 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_apply_bins.argtypes = [
         ptr, ptr, ptr, c_int,                # X, thresholds, bins, bin bytes
         c_longlong, c_int, c_int,            # rows, F, thresholds per feature
+        c_int, c_longlong, c_longlong,       # jobs; X's and thresholds' job strides
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_level_histograms.argtypes = [
@@ -194,6 +198,7 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_route.argtypes = [
         ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, feature, split bin, out
         c_int, c_int, c_int, c_int,          # rows, F, trees, nodes a tree
+        c_longlong,                          # bins' stride along the tree axis
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_leaf_sums.argtypes = [
@@ -209,16 +214,18 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_logistic_loss_grad.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,        # X, y, W, b, partials, out
-        c_int, c_int, c_int,                 # rows, F, C
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W, b, partials, out
+        c_int, c_int, c_int, c_int,          # rows, F, C, jobs
+        c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int, c_int, c_int,          # chunks, rows/chunk, tile, cell window
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_logistic_trial_losses.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,        # X, y, W4, b4, partials, out
-        c_int, c_int, c_int,                 # rows, F, C
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W4, b4, partials, out
+        c_int, c_int, c_int, c_int,          # rows, F, C, jobs
+        c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int, c_int,                 # chunks, rows/chunk, tile
         c_int, ptr,                          # device, stream
     ]

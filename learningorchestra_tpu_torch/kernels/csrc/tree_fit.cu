@@ -10,7 +10,9 @@
 //   K5 ml/trees.py:142 `_leaf_sums`            -> lo_leaf_sums
 // K2, K4 and K5 also run under the random forest's vmap over trees
 // (ml/trees.py:437 in `_rf_chunk`), and K3 with its per-node feature
-// subsets (:201-206).
+// subsets (:201-206). K1-K5 also run under the sweep's vmap over jobs
+// (ml/sweep.py:263 `_dt_fused`, K14c): one tree a job, each job with its
+// own rows, bins and thresholds.
 //
 // What bounds them on this card, at the default fit (N = 1,000,000 rows,
 // F = 16 features, B = 32 bins, depth 5, K = 2 channels):
@@ -22,6 +24,9 @@
 //   - K5 reads leaf and channels (12 MB): ~3.6 us.
 // The random forest's level (T = 20 trees over the same bins) reads the
 // bins once and each tree's node and channels: 256 MB, ~77 us for K2.
+// A dt sweep's level (J jobs, each with its own bins) reads J times what
+// one tree's does: at J = 8 slots of 1,048,576 rows, K1 moves 671 MB
+// (~200 us) and K2 224 MB a level (~67 us).
 // These kernels are the simple versions, written to be right first; none
 // is tuned to its bound yet.
 //
@@ -62,11 +67,15 @@
 //     the result does not depend on the windows.
 //   - A tree axis. K2, K4 and K5 take T trees in one launch: each tree
 //     has its own node and channels (its own bootstrap weights), and the
-//     trees read one bins matrix (K2 takes the bins' stride along the
-//     tree axis, 0 for the forest). A tree's sums are those of a launch
-//     of that tree alone, bit for bit: trees never share a cell, and a
-//     cell adds its rows in the same order. K3 takes the forest's
+//     trees read one bins matrix (K2 and K4 take the bins' stride along
+//     the tree axis: 0 for the forest, rows * F for a sweep's jobs, each
+//     with its own bins). A tree's sums are those of a launch of that
+//     tree alone, bit for bit: trees never share a cell, and a cell adds
+//     its rows in the same order. K3 takes the forest's (or the jobs')
 //     (T, nodes) flattened into its node axis.
+//   - A job axis for K1: J jobs in one launch (grid dimension y), job j's
+//     rows at j * x_job_stride floats and its thresholds at j *
+//     thresholds_job_stride (0: shared), its bins at j * rows * F.
 //   - Feature subsets (K3). A feature is a candidate of its node iff
 //     fewer than `subset_k` of the node's scores are below its own, which
 //     is `score <= sort(scores)[subset_k - 1]` of the reference, ties
@@ -114,7 +123,12 @@ __global__ void __launch_bounds__(kThreads)
     apply_bins_kernel(const float* __restrict__ X,
                       const float* __restrict__ thresholds,
                       Bin* __restrict__ bins, long long total,
-                      int num_features, int num_thresholds) {
+                      int num_features, int num_thresholds,
+                      long long x_job_stride, long long thresholds_job_stride) {
+  const long long job = blockIdx.y;
+  X += job * x_job_stride;
+  thresholds += job * thresholds_job_stride;
+  bins += job * total;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -469,14 +483,17 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------ K4
 
 // Each row of tree blockIdx.y one level down, against the tree's split of
-// the row's node; the trees read one bins matrix.
+// the row's node; the tree's bins at tree * bins_tree_stride (0: the trees
+// read one bins matrix).
 template <typename Bin>
 __global__ void __launch_bounds__(kThreads)
     route_kernel(const Bin* __restrict__ bins, const int* __restrict__ node,
                  const int* __restrict__ feature,
                  const int* __restrict__ split_bin, int* __restrict__ node_out,
-                 int rows, int num_features, int n_nodes) {
+                 int rows, int num_features, int n_nodes,
+                 long long bins_tree_stride) {
   const long long tree = blockIdx.y;
+  bins += tree * bins_tree_stride;
   node += tree * rows;
   node_out += tree * rows;
   feature += tree * n_nodes;
@@ -499,20 +516,28 @@ int grid_for(long long items, int max_blocks) {
   return static_cast<int>(blocks < max_blocks ? blocks : max_blocks);
 }
 
+// The most blocks a launch may have along grid dimensions y and z: trees
+// (or jobs) past it go in groups of launches.
+constexpr int kMaxGridYZ = 65535;
+
 template <typename Bin>
 cudaError_t launch_apply_bins(const float* X, const float* thresholds,
                               void* bins, long long total, int num_features,
-                              int num_thresholds, int max_blocks,
+                              int num_thresholds, int jobs,
+                              long long x_job_stride,
+                              long long thresholds_job_stride, int max_blocks,
                               cudaStream_t stream) {
-  apply_bins_kernel<Bin><<<grid_for(total, max_blocks), kThreads, 0, stream>>>(
-      X, thresholds, static_cast<Bin*>(bins), total, num_features,
-      num_thresholds);
-  return cudaGetLastError();
+  for (int j0 = 0; j0 < jobs; j0 += kMaxGridYZ) {
+    const dim3 grid(grid_for(total, max_blocks), std::min(kMaxGridYZ, jobs - j0));
+    apply_bins_kernel<Bin><<<grid, kThreads, 0, stream>>>(
+        X + j0 * x_job_stride, thresholds + j0 * thresholds_job_stride,
+        static_cast<Bin*>(bins) + j0 * total, total, num_features,
+        num_thresholds, x_job_stride, thresholds_job_stride);
+    const cudaError_t error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
+  }
+  return cudaSuccess;
 }
-
-// The most blocks a launch may have along grid dimensions y and z: trees
-// past it go in groups of launches.
-constexpr int kMaxGridYZ = 65535;
 
 // One pass of K2 per window of cells: the histogram kernel over every
 // tree, then the sum of each tree's chunk partials into the window's
@@ -581,21 +606,27 @@ extern "C" {
 // launches: 0 means they were accepted. Outputs and scratch are allocated
 // by the caller. `bin_bytes` is 1 for int8 bins and 4 for int32 bins.
 
+// J = `jobs` jobs: X of job j at j * x_job_stride floats, its thresholds
+// (F, num_thresholds) at j * thresholds_job_stride (0: shared); bins:
+// (J, rows, F).
 int lo_apply_bins(const float* X, const float* thresholds, void* bins,
                   int bin_bytes, long long rows, int num_features,
-                  int num_thresholds, int max_blocks, int device,
+                  int num_thresholds, int jobs, long long x_job_stride,
+                  long long thresholds_job_stride, int max_blocks, int device,
                   void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   const long long total = rows * num_features;
-  if (total <= 0) return cudaSuccess;
+  if (total <= 0 || jobs <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
     return launch_apply_bins<int8_t>(X, thresholds, bins, total, num_features,
-                                     num_thresholds, max_blocks, s);
+                                     num_thresholds, jobs, x_job_stride,
+                                     thresholds_job_stride, max_blocks, s);
   if (bin_bytes == 4)
     return launch_apply_bins<int32_t>(X, thresholds, bins, total, num_features,
-                                      num_thresholds, max_blocks, s);
+                                      num_thresholds, jobs, x_job_stride,
+                                      thresholds_job_stride, max_blocks, s);
   return cudaErrorInvalidValue;
 }
 
@@ -661,12 +692,13 @@ int lo_select_splits(const float* hist, const float* subset_scores,
   return cudaGetLastError();
 }
 
-// node, node_out: (T, rows); feature, split_bin: (T, n_nodes); one bins
-// matrix (rows, F) for every tree.
+// node, node_out: (T, rows); feature, split_bin: (T, n_nodes); the bins
+// (rows, F) of tree t at t * bins_tree_stride (0: one shared matrix).
 int lo_route(const void* bins, int bin_bytes, const int* node,
              const int* feature, const int* split_bin, int* node_out, int rows,
-             int num_features, int trees, int n_nodes, int max_blocks,
-             int device, void* stream) {
+             int num_features, int trees, int n_nodes,
+             long long bins_tree_stride, int max_blocks, int device,
+             void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || trees <= 0) return cudaSuccess;
@@ -678,14 +710,16 @@ int lo_route(const void* bins, int bin_bytes, const int* node,
     const long long split_offset = static_cast<long long>(t0) * n_nodes;
     if (bin_bytes == 1)
       route_kernel<int8_t><<<grid, kThreads, 0, s>>>(
-          static_cast<const int8_t*>(bins), node + row_offset,
-          feature + split_offset, split_bin + split_offset,
-          node_out + row_offset, rows, num_features, n_nodes);
+          static_cast<const int8_t*>(bins) + t0 * bins_tree_stride,
+          node + row_offset, feature + split_offset, split_bin + split_offset,
+          node_out + row_offset, rows, num_features, n_nodes,
+          bins_tree_stride);
     else
       route_kernel<int32_t><<<grid, kThreads, 0, s>>>(
-          static_cast<const int32_t*>(bins), node + row_offset,
-          feature + split_offset, split_bin + split_offset,
-          node_out + row_offset, rows, num_features, n_nodes);
+          static_cast<const int32_t*>(bins) + t0 * bins_tree_stride,
+          node + row_offset, feature + split_offset, split_bin + split_offset,
+          node_out + row_offset, rows, num_features, n_nodes,
+          bins_tree_stride);
     error = cudaGetLastError();
     if (error != cudaSuccess) return error;
   }

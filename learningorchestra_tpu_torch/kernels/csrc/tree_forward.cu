@@ -3,7 +3,9 @@
 // Replaces learningorchestra_tpu/ml/trees.py:303 `_descend`, as run under
 // `_ensemble_forward` (:364, dt and rf: the mean of the trees' leaf class
 // distributions) and `_gbt_forward` (:648, gb: boosted margins
-// f0 + sum(step * leaf) through a sigmoid, returned as [1 - p, p]).
+// f0 + sum(step * leaf) through a sigmoid, returned as [1 - p, p]); the
+// ensemble forward also under the sweep's vmap over jobs
+// (ml/sweep.py:263 `_dt_fused`, K14c): each job's trees on its own rows.
 //
 // What bounds it on this card: the kernel reads X once (N * F * 4 bytes)
 // and writes N * C * 4 bytes. The heaps are kilobytes and the work is
@@ -12,10 +14,16 @@
 //     256 KB of X) it is bound by launch latency, not by the card.
 //   - At the batch lane's N = 1,048,576 rows it moves ~72 MB, so the
 //     bound is ~72 MB / 3.35 TB/s ~= 21 us.
+//   - Over a job axis, J times that: a dt sweep's 8 slots of 262,144 eval
+//     rows move ~151 MB, ~45 us.
 //
 // Design (a simple kernel that is right first):
 //   - One thread walks one row through every tree; a grid-stride loop
 //     lets a capped grid cover any N.
+//   - A job axis (ensemble forward): grid dimension y is the job, with
+//     its own rows (X at j * x_job_stride floats), trees and output
+//     (J, N, C); a job's trees are averaged over that job alone, so its
+//     probabilities are bit-equal to a launch of that job alone.
 //   - Any depth and tree count. The trees are staged in shared memory in
 //     groups that fit a block's share: at full width (T = 20, D = 5,
 //     C = 2) all of them at once (20*31*8 + 20*32*2*4 bytes ~= 10 KB),
@@ -42,10 +50,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
+// The most blocks a launch may have along grid dimension y: jobs past it
+// go in groups of launches.
+constexpr int kMaxGridYZ = 65535;
 
 // Leaf index in [0, 2^depth) of one row in one tree's heap.
 __device__ __forceinline__ int descend(const float* __restrict__ row,
@@ -113,10 +126,17 @@ __global__ void __launch_bounds__(kThreads)
                                  const float* __restrict__ leaf_probs,
                                  float* __restrict__ out, int rows,
                                  int num_features, int trees, int depth,
-                                 int classes, int group, int shared_sums) {
+                                 int classes, int group, int shared_sums,
+                                 long long x_job_stride) {
   extern __shared__ float shared[];
   const int nodes = (1 << depth) - 1;
   const int leaves = 1 << depth;
+  const long long job = blockIdx.y;
+  X += job * x_job_stride;
+  features_heap += job * trees * nodes;
+  thresholds_heap += job * trees * nodes;
+  leaf_probs += job * trees * leaves * classes;
+  out += job * rows * classes;
   const int staged = group < trees ? group : trees;
   int* s_features = reinterpret_cast<int*>(shared);
   float* s_thresholds = shared + staged * nodes;
@@ -246,15 +266,17 @@ extern "C" {
 // `device`, does not synchronize, and returns cudaGetLastError() after
 // the launch: 0 means the launch was accepted.
 
+// J = `jobs` jobs: X of job j at j * x_job_stride floats, heaps (J, T,
+// nodes), leaf_probs (J, T, leaves, C), out (J, rows, C).
 int lo_tree_ensemble_forward(const float* X, const int* features_heap,
                              const float* thresholds_heap,
                              const float* leaf_probs, float* out, int rows,
                              int num_features, int trees, int depth,
-                             int classes, int max_blocks, int device,
-                             void* stream) {
+                             int classes, int jobs, long long x_job_stride,
+                             int max_blocks, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  if (rows <= 0 || trees <= 0) return cudaSuccess;
+  if (rows <= 0 || trees <= 0 || jobs <= 0) return cudaSuccess;
   size_t limit = 0;
   error = max_shared_bytes(device, &limit);
   if (error != cudaSuccess) return error;
@@ -269,12 +291,21 @@ int lo_tree_ensemble_forward(const float* X, const int* features_heap,
       per_tree * group + (shared_sums ? acc_bytes : 0);
   error = allow_shared(tree_ensemble_forward_kernel, shared_bytes);
   if (error != cudaSuccess) return error;
-  tree_ensemble_forward_kernel<<<grid_for(rows, max_blocks), kThreads,
-                                 shared_bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      X, features_heap, thresholds_heap, leaf_probs, out, rows, num_features,
-      trees, depth, classes, group, shared_sums);
-  return cudaGetLastError();
+  for (int j0 = 0; j0 < jobs; j0 += kMaxGridYZ) {
+    const size_t tree_offset = static_cast<size_t>(j0) * trees;
+    tree_ensemble_forward_kernel<<<dim3(grid_for(rows, max_blocks),
+                                        std::min(kMaxGridYZ, jobs - j0)),
+                                   kThreads, shared_bytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        X + j0 * x_job_stride, features_heap + tree_offset * nodes,
+        thresholds_heap + tree_offset * nodes,
+        leaf_probs + tree_offset * leaves * classes,
+        out + static_cast<size_t>(j0) * rows * classes, rows, num_features,
+        trees, depth, classes, group, shared_sums, x_job_stride);
+    error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
+  }
+  return cudaSuccess;
 }
 
 int lo_gbt_forward(const float* X, const int* features_heap,

@@ -14,6 +14,9 @@ needs only the float threshold. NaN goes to the last bin.
   call. On a CPU tensor it runs the plain version; on a CUDA tensor it
   launches K1 (``kernels/csrc/tree_fit.cu``) or raises. Both give int8
   bins while ``max_bins`` <= 127 and int32 bins above, as the reference.
+- :func:`job_apply_bins` bins a job axis in one launch (the sweep's dt
+  program, ``ml/sweep.py:263``, runs ``apply_bins`` under ``vmap``): each
+  job its own rows and thresholds; its plain twin loops over the jobs.
 """
 
 from __future__ import annotations
@@ -72,14 +75,58 @@ def apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"thresholds on {thresholds.device}, rows on {X.device}")
     if X.device.type == "cpu":
         return _apply_bins(X, thresholds)
+    return _launch_apply_bins(X, thresholds, 1)[0]
+
+
+def _launch_apply_bins(X, thresholds, jobs: int):
+    """K1 over ``jobs`` jobs: X shared ``(rows, F)`` or ``(J, rows, F)``,
+    thresholds shared ``(F, B-1)`` or ``(J, F, B-1)``; ``(J, rows, F)``
+    bins."""
     kernels.check_operands(X, thresholds)
-    bins = torch.empty(X.shape, dtype=bin_dtype(thresholds.shape[1] + 1), device=X.device)
+    rows, num_features = X.shape[-2:]
+    num_thresholds = thresholds.shape[-1]
+    bins = torch.empty(
+        (jobs, rows, num_features), dtype=bin_dtype(num_thresholds + 1), device=X.device
+    )
     kernels.launch(
         "apply_bins", "lo_apply_bins",
         X.data_ptr(), thresholds.data_ptr(), bins.data_ptr(), bins.element_size(),
-        X.shape[0], X.shape[1], thresholds.shape[1],
+        rows, num_features, num_thresholds, jobs,
+        rows * num_features if X.dim() == 3 else 0,
+        num_features * num_thresholds if thresholds.dim() == 3 else 0,
         kernels.max_blocks(X.device.index), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     return bins
 
+
+def _job_apply_bins(X, thresholds):
+    """The plain twin of :func:`job_apply_bins`, a job at a time."""
+    jobs = X.shape[0] if X.dim() == 3 else thresholds.shape[0]
+    return torch.stack([
+        _apply_bins(X if X.dim() == 2 else X[j], thresholds if thresholds.dim() == 2 else thresholds[j])
+        for j in range(jobs)
+    ])
+
+
+def job_apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """``(J, rows, F)`` bins of every job's rows under its own thresholds
+    (K1 over a job axis, one launch): X ``(J, rows, F)`` or one shared
+    ``(rows, F)``, thresholds ``(J, F, B-1)`` or one shared ``(F, B-1)``,
+    at least one of them with the job axis."""
+    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() not in (2, 3):
+        raise TypeError("X must be a float32 tensor (rows, F), shared, or (jobs, rows, F)")
+    if thresholds.dtype != torch.float32 or thresholds.dim() not in (2, 3):
+        raise TypeError("thresholds must be a float32 tensor (F, B-1), shared, or (jobs, F, B-1)")
+    if X.dim() == 2 and thresholds.dim() == 2:
+        raise ValueError("X or thresholds must carry the job axis")
+    jobs = X.shape[0] if X.dim() == 3 else thresholds.shape[0]
+    if X.dim() == 3 and thresholds.dim() == 3 and thresholds.shape[0] != jobs:
+        raise ValueError(f"{thresholds.shape[0]} threshold jobs for {jobs} jobs of rows")
+    if thresholds.shape[-2] != X.shape[-1]:
+        raise ValueError(f"{thresholds.shape[-2]} threshold rows for {X.shape[-1]} features")
+    if thresholds.device != X.device:
+        raise ValueError(f"thresholds on {thresholds.device}, rows on {X.device}")
+    if X.device.type == "cpu":
+        return _job_apply_bins(X, thresholds)
+    return _launch_apply_bins(X, thresholds, jobs)

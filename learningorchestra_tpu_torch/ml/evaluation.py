@@ -11,6 +11,10 @@ the order threads run in. (``torch.bincount`` counts exactly too, but on
 CUDA it copies its input's min and max to the host to size its output;
 this keeps a forward's metrics free of host syncs.) The metrics then run
 in float32, as the reference's do.
+
+:func:`job_masked_metrics` is ``masked_metrics`` over a job axis, as the
+sweep's fused programs run it under ``vmap`` (``ml/sweep.py:249, :263``):
+each job's counts go into its own C x C block, so no count crosses jobs.
 """
 
 from __future__ import annotations
@@ -42,18 +46,38 @@ def masked_metrics(y_true, y_pred, weights, num_classes: int):
     return _metrics_from_cm(_counts(y_true, y_pred, weights, num_classes))
 
 
+def job_masked_metrics(y_true, y_pred, weights, num_classes: int):
+    """``(accuracy, weighted_f1)``, each ``(J,)`` float32, of every job's
+    ``y_pred (J, rows)`` against ``y_true`` and row ``weights`` (each
+    ``(J, rows)``, one shared ``(rows,)``, or weights None)."""
+    jobs, rows = y_pred.shape
+    block = num_classes * num_classes
+    index = (
+        torch.arange(jobs, device=y_pred.device)[:, None] * block
+        + y_true.long() * num_classes
+        + y_pred.long()
+    )
+    if weights is None:
+        weights = torch.ones((rows,), dtype=torch.float64, device=index.device)
+    flat = torch.zeros(jobs * block, dtype=torch.float64, device=index.device)
+    flat.index_add_(0, index.reshape(-1), weights.to(torch.float64).expand(jobs, rows).reshape(-1))
+    return _metrics_from_cm(flat.to(torch.float32).reshape(jobs, num_classes, num_classes))
+
+
 def _metrics_from_cm(cm: torch.Tensor):
-    total = cm.sum()
-    accuracy = torch.trace(cm) / total
-    true_positive = torch.diagonal(cm)
-    support = cm.sum(dim=1)           # actual count per class
-    predicted = cm.sum(dim=0)         # predicted count per class
+    """Metrics of a ``(C, C)`` confusion matrix, or of each of a job
+    axis' ``(J, C, C)``."""
+    total = cm.sum(dim=(-2, -1))
+    true_positive = torch.diagonal(cm, dim1=-2, dim2=-1)
+    accuracy = true_positive.sum(dim=-1) / total
+    support = cm.sum(dim=-1)          # actual count per class
+    predicted = cm.sum(dim=-2)        # predicted count per class
     precision = torch.where(predicted > 0, true_positive / predicted, 0.0)
     recall = torch.where(support > 0, true_positive / support, 0.0)
     f1 = torch.where(
         precision + recall > 0, 2 * precision * recall / (precision + recall), 0.0
     )
-    weighted_f1 = (f1 * support).sum() / total
+    weighted_f1 = (f1 * support).sum(dim=-1) / total
     return accuracy, weighted_f1
 
 

@@ -9,6 +9,13 @@ Counterpart of ``learningorchestra_tpu/ml/logistic.py``:
   wrapper runs the plain version; on a CUDA tensor it launches the
   hand-written kernel (``kernels/csrc/logistic.cu``) for the mean NLL and
   its gradient, adds the L2 term with torch ops, or raises.
+- K7 over a job axis (the sweep's fused L-BFGS, ``ml/sweep.py:237``
+  ``_lr_fused_segment``, a ``vmap`` of ``_loss_fn`` with its validity
+  mask): :func:`job_loss_and_grad` and :func:`job_trial_losses`, one
+  launch for every job, each job with its own rows (or one shared X),
+  labels, row weights, parameters and λ; their plain twins
+  :func:`_job_loss_fn` and :func:`_job_trial_losses` loop over the jobs,
+  so that their float64 transients stay one job's.
 - The optimizer (:56-408): ``_lbfgs_state``, ``_two_loop``,
   ``_fit_segment_impl`` and ``_fit`` with the reference's segmentation,
   its plateau stop (``_plateaued``) and its constants.
@@ -123,21 +130,24 @@ def _trial_losses(W4, b4, X, y, l2: float):
 # K7: the wrappers, plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
-def _loss_tiling(num_features: int, num_classes: int, trial: bool = False) -> tuple[int, int]:
+def _loss_tiling(
+    num_features: int, num_classes: int, trial: bool = False, weighted: bool = False
+) -> tuple[int, int]:
     """``(tile rows, cell window)`` of a K7 block. A block stages a tile of
-    rows (features, logits and, for the gradient, the nll: 4 bytes each)
-    beside its float64 partials: the gradient's cells, at most
-    ``_WINDOW_CELLS`` a block (more go to further blocks), or the four
-    trial sums of each thread. The tile holds a row a thread within 96 KB,
-    else as many rows as fit one block's shared memory."""
-    cells = num_features * num_classes + num_classes + 1
+    rows (features, logits and, for the gradient, the nll; with weights,
+    the weight: 4 bytes each) beside its float64 partials: the gradient's
+    cells, at most ``_WINDOW_CELLS`` a block (more go to further blocks),
+    or the four trial sums (and the weights') of each thread. The tile
+    holds a row a thread within 96 KB, else as many rows as fit one
+    block's shared memory."""
+    cells = num_features * num_classes + num_classes + 1 + int(weighted)
     window = min(cells, _WINDOW_CELLS)
     # a row's features and logits at odd strides (no shared-memory bank conflicts)
     row_bytes = 4 * ((num_features | 1) + (num_classes | 1))
     if trial:
-        fixed = 8 * 4 * _THREADS
+        fixed = 8 * (_BACKTRACK_STEPS + int(weighted)) * _THREADS
     else:
-        fixed, row_bytes = 8 * max(_THREADS, window), row_bytes + 4
+        fixed, row_bytes = 8 * max(_THREADS, window), row_bytes + 4 + 4 * int(weighted)
     tile_rows = min(_THREADS, (_LOSS_SHARED_BYTES - fixed) // row_bytes)
     if tile_rows < 64:
         tile_rows = min(_THREADS, (kernels.SHARED_BYTES - fixed) // row_bytes)
@@ -169,26 +179,68 @@ def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
+def _launch_loss_grad(W, b, X, y, weights, jobs: int):
+    """K7's loss-and-gradient launch over ``jobs`` jobs: ``W (J, F, C)``,
+    ``b (J, C)``; X shared ``(rows, F)`` or ``(J, rows, F)``; y and the
+    weights (or None) shared ``(rows,)`` or ``(J, rows)``. Returns the
+    ``(J, F*C + C + 1)`` float32 outputs, ``[dW | db | data loss]``."""
+    kernels.check_operands(*(t for t in (X, y, weights, W, b) if t is not None))
+    rows, num_features = X.shape[-2:]
+    num_classes = W.shape[-1]
+    weighted = weights is not None
+    tile_rows, window = _loss_tiling(num_features, num_classes, weighted=weighted)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    cells = num_features * num_classes + num_classes + 1
+    partials = torch.empty(
+        (jobs, max(chunks, 1), cells + int(weighted)), dtype=torch.float64, device=X.device
+    )
+    out = torch.empty((jobs, cells), dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "logistic_loss_grad", "lo_logistic_loss_grad",
+        X.data_ptr(), y.data_ptr(), weights.data_ptr() if weighted else None,
+        W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        rows, num_features, num_classes, jobs,
+        rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
+        chunks, per_chunk, tile_rows, window,
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    return out
+
+
+def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
+    """K7's trial-loss launch over ``jobs`` jobs: ``W4 (J, 4, F, C)``,
+    ``b4 (J, 4, C)``, the rest as :func:`_launch_loss_grad`. Returns the
+    ``(J, 4)`` float32 data losses."""
+    kernels.check_operands(*(t for t in (X, y, weights, W4, b4) if t is not None))
+    rows, num_features = X.shape[-2:]
+    num_classes = W4.shape[-1]
+    weighted = weights is not None
+    tile_rows, _ = _loss_tiling(num_features, num_classes, trial=True, weighted=weighted)
+    chunks, per_chunk = kernels.row_chunks(rows)
+    partials = torch.empty(
+        (jobs, max(chunks, 1), _BACKTRACK_STEPS + int(weighted)),
+        dtype=torch.float64, device=X.device,
+    )
+    out = torch.empty((jobs, _BACKTRACK_STEPS), dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "logistic_trial_losses", "lo_logistic_trial_losses",
+        X.data_ptr(), y.data_ptr(), weights.data_ptr() if weighted else None,
+        W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        rows, num_features, num_classes, jobs,
+        rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
+        chunks, per_chunk, tile_rows,
+        X.device.index, _stream(X),
+    )
+    return out
+
+
 def loss_and_grad(W, b, X, y, l2: float):
     """``(value, dW, db)`` of the loss at ``(W, b)`` (K7)."""
     _check_operands(X, y, W, b)
     if X.device.type == "cpu":
         return _loss_fn(W, b, X, y, l2)
-    kernels.check_operands(X, y, W, b)
-    rows, num_features = X.shape
-    num_classes = W.shape[1]
-    tile_rows, window = _loss_tiling(num_features, num_classes)
-    chunks, per_chunk = kernels.row_chunks(rows)
-    cells = num_features * num_classes + num_classes + 1
-    partials = torch.empty((max(chunks, 1), cells), dtype=torch.float64, device=X.device)
-    out = torch.empty(cells, dtype=torch.float32, device=X.device)
-    kernels.launch(
-        "logistic_loss_grad", "lo_logistic_loss_grad",
-        X.data_ptr(), y.data_ptr(), W.data_ptr(), b.data_ptr(),
-        partials.data_ptr(), out.data_ptr(),
-        rows, num_features, num_classes, chunks, per_chunk, tile_rows, window,
-        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
-    )
+    num_features, num_classes = W.shape
+    out = _launch_loss_grad(W, b, X, y, None, 1)[0]
     dW = out[: num_features * num_classes].view(num_features, num_classes)
     db = out[num_features * num_classes : -1]
     return out[-1] + _l2_term(W, l2), dW + l2 * W, db
@@ -200,21 +252,136 @@ def trial_losses(W4, b4, X, y, l2: float):
     _check_operands(X, y, W4, b4, leading=(_BACKTRACK_STEPS,))
     if X.device.type == "cpu":
         return _trial_losses(W4, b4, X, y, l2)
-    kernels.check_operands(X, y, W4, b4)
-    rows, num_features = X.shape
-    num_classes = W4.shape[2]
-    tile_rows, _ = _loss_tiling(num_features, num_classes, trial=True)
-    chunks, per_chunk = kernels.row_chunks(rows)
-    partials = torch.empty((max(chunks, 1), _BACKTRACK_STEPS), dtype=torch.float64, device=X.device)
-    out = torch.empty(_BACKTRACK_STEPS, dtype=torch.float32, device=X.device)
-    kernels.launch(
-        "logistic_trial_losses", "lo_logistic_trial_losses",
-        X.data_ptr(), y.data_ptr(), W4.data_ptr(), b4.data_ptr(),
-        partials.data_ptr(), out.data_ptr(),
-        rows, num_features, num_classes, chunks, per_chunk, tile_rows,
-        X.device.index, _stream(X),
-    )
+    out = _launch_trial_losses(W4, b4, X, y, None, 1)[0]
     return out + 0.5 * l2 * (W4 * W4).sum(dim=(1, 2))
+
+
+# --------------------------------------------------------------------------
+# K7 over a job axis: many fits in one launch (the sweep's fused L-BFGS)
+# --------------------------------------------------------------------------
+
+def _weight_total(X, weights):
+    """A job's float64 denominator: the sum of its weights, or its rows."""
+    if weights is None:
+        return torch.tensor(float(X.shape[0]), dtype=torch.float64, device=X.device)
+    return weights.to(torch.float64).sum()
+
+
+def _weighted_mean(values, total):
+    """Float64 sum over the rows (axis 0) over ``total``, rounded once."""
+    return (values.to(torch.float64).sum(dim=0) / total).to(torch.float32)
+
+
+def _weighted_terms(W, b, X, y, weights):
+    """One job's ``(data loss, dW, db)``: the nll and the residuals
+    ``P - onehot(y)`` weighted row by row (a float32 product), summed in
+    float64 and divided by the float64 sum of the weights, each rounded
+    once to float32 (the reference's ``(nll * mask).sum() / mask.sum()``
+    and its gradient). ``weights=None`` weighs every row 1."""
+    nll, shifted, log_sum = _row_terms(X, y, W, b)
+    residual = torch.exp(shifted - log_sum[:, None])
+    residual = residual - torch.nn.functional.one_hot(y.long(), W.shape[1]).to(residual.dtype)
+    if weights is not None:
+        nll, residual = nll * weights, residual * weights[:, None]
+    total = _weight_total(X, weights)
+    dW = torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / total
+    return _weighted_mean(nll, total), dW.to(torch.float32), _weighted_mean(residual, total)
+
+
+def _weighted_data_loss(W, b, X, y, weights):
+    """One job's data loss alone, as :func:`_weighted_terms` computes it."""
+    nll = _row_terms(X, y, W, b)[0]
+    if weights is not None:
+        nll = nll * weights
+    return _weighted_mean(nll, _weight_total(X, weights))
+
+
+def _job_rows(X, y, weights, job: int):
+    """Job ``job``'s rows, labels and weights, from shared or stacked ones."""
+    return (
+        X if X.dim() == 2 else X[job],
+        y if y.dim() == 1 else y[job],
+        weights if weights is None or weights.dim() == 1 else weights[job],
+    )
+
+
+def _job_l2(value, dW, W, l2s):
+    """Each job's L2 term and its gradient, with the job's own λ."""
+    return value + 0.5 * l2s * (W * W).sum(dim=(1, 2)), dW + l2s[:, None, None] * W
+
+
+def _job_loss_fn(W, b, X, y, weights, l2s):
+    """The plain twin of :func:`job_loss_and_grad`: the jobs one at a
+    time, so that the float64 transients are one job's."""
+    terms = [_weighted_terms(W[j], b[j], *_job_rows(X, y, weights, j)) for j in range(W.shape[0])]
+    value, dW, db = (torch.stack(parts) for parts in zip(*terms))
+    value, dW = _job_l2(value, dW, W, l2s)
+    return value, dW, db
+
+
+def _job_trial_losses(W4, b4, X, y, weights, l2s):
+    """The plain twin of :func:`job_trial_losses`, the jobs one at a time."""
+    data = torch.stack([
+        torch.stack([
+            _weighted_data_loss(W4[j, k], b4[j, k], *_job_rows(X, y, weights, j))
+            for k in range(W4.shape[1])
+        ])
+        for j in range(W4.shape[0])
+    ])
+    return data + 0.5 * l2s[:, None] * (W4 * W4).sum(dim=(2, 3))
+
+
+def _check_job_operands(X, y, weights, W, b, l2s, leading: tuple = ()):
+    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() not in (2, 3):
+        raise TypeError("X must be a float32 tensor (rows, F), shared, or (jobs, rows, F)")
+    jobs = W.shape[0] if W.dim() > 0 else -1
+    rows, num_features = X.shape[-2:]
+    if X.dim() == 3 and X.shape[0] != jobs:
+        raise ValueError(f"X of {X.shape[0]} jobs for parameters of {jobs}")
+    shared = (rows,) if y.dim() == 1 else (jobs, rows)
+    if y.dtype != torch.int32 or tuple(y.shape) != shared:
+        raise TypeError("y must be int32 labels (rows,), shared, or (jobs, rows)")
+    if weights is not None and (weights.dtype != torch.float32 or weights.shape != y.shape):
+        raise TypeError("weights must be float32 of y's shape")
+    if W.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("W and b must be float32")
+    if W.dim() != len(leading) + 3 or tuple(W.shape[1:-1]) != leading + (num_features,):
+        raise ValueError(f"W of shape {tuple(W.shape)} for {num_features} features")
+    if tuple(b.shape) != (jobs,) + leading + (W.shape[-1],):
+        raise ValueError(f"b of shape {tuple(b.shape)} for W of shape {tuple(W.shape)}")
+    if l2s.dtype != torch.float32 or tuple(l2s.shape) != (jobs,):
+        raise TypeError("l2s must be a float32 tensor of one lambda a job")
+    for tensor in (y, weights, W, b, l2s):
+        if tensor is not None and tensor.device != X.device:
+            raise ValueError(f"operands on {tensor.device} and {X.device}")
+
+
+def job_loss_and_grad(W, b, X, y, weights, l2s):
+    """Every job's ``(value, dW, db)`` at its ``(W[j], b[j])`` (K7 over a
+    job axis, one launch): ``W (J, F, C)``, ``b (J, C)``, ``l2s (J,)``
+    float32; X one shared ``(rows, F)`` or ``(J, rows, F)``; y and the
+    row weights (or None) ``(rows,)`` or ``(J, rows)``. A job's data term
+    is ``sum(w * nll) / sum(w)``. Returns ``(J,)``, ``(J, F, C)`` and
+    ``(J, C)`` float32 tensors."""
+    _check_job_operands(X, y, weights, W, b, l2s)
+    if X.device.type == "cpu":
+        return _job_loss_fn(W, b, X, y, weights, l2s)
+    jobs, num_features, num_classes = W.shape
+    out = _launch_loss_grad(W, b, X, y, weights, jobs)
+    dW = out[:, : num_features * num_classes].view(jobs, num_features, num_classes)
+    db = out[:, num_features * num_classes : -1]
+    value, dW = _job_l2(out[:, -1], dW, W, l2s)
+    return value, dW, db
+
+
+def job_trial_losses(W4, b4, X, y, weights, l2s):
+    """``(J, 4)`` losses of every job at its Armijo trial points ``W4 (J,
+    4, F, C)``, ``b4 (J, 4, C)`` (K7 over a job axis, one launch)."""
+    _check_job_operands(X, y, weights, W4, b4, l2s, leading=(_BACKTRACK_STEPS,))
+    if X.device.type == "cpu":
+        return _job_trial_losses(W4, b4, X, y, weights, l2s)
+    out = _launch_trial_losses(W4, b4, X, y, weights, W4.shape[0])
+    return out + 0.5 * l2s[:, None] * (W4 * W4).sum(dim=(2, 3))
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,12 @@ Counterpart of ``learningorchestra_tpu/ml/trees.py``:
 The random forest grows its trees together, as the reference's vmap over
 trees does: the level programs take a leading tree axis (one launch a
 level for a chunk of trees), and the split search takes each node's
-feature subset. Its random draws are inputs (``ForestDraws``), made by
-the estimator from a ``torch.Generator``; see ``RandomForestClassifier``.
+feature subset. A sweep's dt program (``ml/sweep.py``) grows one tree a
+job on the same axis, each job with its own bins ``(J, rows, F)`` (K2 and
+K4 take the bins' stride along the axis), and :func:`job_ensemble_forward`
+runs each job's tree on the job's own rows (K6 over a job axis). The
+forest's random draws are inputs (``ForestDraws``), made by the
+estimator from a ``torch.Generator``; see ``RandomForestClassifier``.
 
 A fitted tree is a static heap: ``features_heap (T, 2^D - 1)`` int32
 (``-1`` marks a node that stopped splitting), ``thresholds_heap`` float32
@@ -178,19 +182,63 @@ def ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
         return _uniform(rows, num_classes, X.device)
     if X.device.type == "cpu":
         return _ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth)
+    return _launch_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth, 1)[0]
+
+
+def _launch_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth, jobs):
+    """K6's ensemble forward over ``jobs`` jobs: X shared ``(rows, F)`` or
+    ``(J, rows, F)``, heaps ``(J, T, nodes)``, leaf_probs ``(J, T,
+    leaves, C)``; ``(J, rows, C)`` probabilities."""
     kernels.check_operands(X, features_heap, thresholds_heap, leaf_probs)
-    out = torch.empty((rows, num_classes), dtype=torch.float32, device=X.device)
+    rows, num_features = X.shape[-2:]
+    num_classes = leaf_probs.shape[-1]
+    out = torch.empty((jobs, rows, num_classes), dtype=torch.float32, device=X.device)
     if rows == 0:
         return out
     kernels.launch(
         "tree_ensemble_forward", "lo_tree_ensemble_forward",
         X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(),
         leaf_probs.data_ptr(), out.data_ptr(),
-        rows, X.shape[1], features_heap.shape[0], max_depth, num_classes,
+        rows, num_features, features_heap.shape[-2], max_depth, num_classes,
+        jobs, rows * num_features if X.dim() == 3 else 0,
         kernels.max_blocks(X.device.index), X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     return out
+
+
+def job_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
+    """Each job's mean leaf class distribution over its own trees, on its
+    own rows (K6 over a job axis, one launch): X ``(J, rows, F)`` or one
+    shared ``(rows, F)``, ``features_heap`` and ``thresholds_heap`` ``(J,
+    T, 2^D - 1)``, ``leaf_probs (J, T, 2^D, C)``; ``(J, rows, C)``. No sum
+    crosses jobs."""
+    if features_heap.dim() != 3 or thresholds_heap.dim() != 3 or leaf_probs.dim() != 4:
+        raise ValueError("job heaps must be (J, T, nodes) and leaf_probs (J, T, leaves, C)")
+    jobs = features_heap.shape[0]
+    if not isinstance(X, torch.Tensor) or X.dim() not in (2, 3) or (X.dim() == 3 and X.shape[0] != jobs):
+        raise TypeError(f"X must be (rows, F), shared, or ({jobs}, rows, F)")
+    if thresholds_heap.shape[0] != jobs or leaf_probs.shape[0] != jobs:
+        raise ValueError("heaps and leaf_probs of different job counts")
+    _check_heaps(
+        X if X.dim() == 2 else X[0], features_heap[0], thresholds_heap[0], leaf_probs[0], 3, max_depth
+    )
+    rows, num_classes = X.shape[-2], leaf_probs.shape[-1]
+    if features_heap.shape[1] == 0:
+        return _uniform(rows, num_classes, X.device).expand(jobs, rows, num_classes).contiguous()
+    if X.device.type == "cpu":
+        return _job_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth)
+    return _launch_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth, jobs)
+
+
+def _job_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
+    """The plain twin of :func:`job_ensemble_forward`, a job at a time."""
+    return torch.stack([
+        _ensemble_forward(
+            X if X.dim() == 2 else X[j], features_heap[j], thresholds_heap[j], leaf_probs[j], max_depth
+        )
+        for j in range(features_heap.shape[0])
+    ])
 
 
 def gbt_forward(X, f0, features_heap, thresholds_heap, leaf_values, step, max_depth):
@@ -267,17 +315,19 @@ def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     :func:`_leaf_sums`). ``node (rows,)`` and ``channels (rows, K)`` give
     one tree's ``(n_nodes, F, max_bins, K)``; a forest's ``node (T, rows)``
     and ``channels (T, rows, K)`` over the same bins give
-    ``(T, n_nodes, F, max_bins, K)``."""
+    ``(T, n_nodes, F, max_bins, K)``, and so do a sweep's jobs over their
+    own bins ``(T, rows, F)``."""
     if node.dim() == 1:
         return _level_histograms(bins, node[None], channels[None], n_nodes, max_bins)[0]
     trees, rows = node.shape
-    num_features = bins.shape[1]
+    num_features = bins.shape[-1]
+    tree_bins = bins.long() if bins.dim() == 3 else bins.long()[None]
     num_channels = channels.shape[2]
     tree_node = torch.arange(trees, device=bins.device)[:, None] * n_nodes + node.long()
     index = (
         tree_node[:, :, None] * (num_features * max_bins)
         + torch.arange(num_features, device=bins.device) * max_bins
-        + bins.long()[None]
+        + tree_bins
     )
     hist = torch.zeros(
         (trees * n_nodes * num_features * max_bins, num_channels),
@@ -417,13 +467,18 @@ def _route(bins, node, feature, bin_index):
     """Each row one level down: right iff its bin at the node's feature is
     above the node's split bin; feature -1 nodes send every row left. A
     forest's ``node (T, rows)`` goes down its trees' splits ``feature``
-    and ``bin_index (T, nodes)``, over the same bins."""
+    and ``bin_index (T, nodes)``, over the same bins (or a sweep's jobs,
+    each over its own bins ``(T, rows, F)``)."""
     if node.dim() == 1:
         return _route(bins, node[None], feature[None], bin_index[None])[0]
     row_feature = feature.gather(1, node.long())
     row_bin = bin_index.gather(1, node.long())
-    rows = torch.arange(bins.shape[0], device=bins.device)
-    x_bin = bins[rows[None, :], row_feature.clamp(min=0).long()]
+    rows = torch.arange(bins.shape[-2], device=bins.device)
+    if bins.dim() == 3:
+        tree = torch.arange(bins.shape[0], device=bins.device)
+        x_bin = bins[tree[:, None], rows[None, :], row_feature.clamp(min=0).long()]
+    else:
+        x_bin = bins[rows[None, :], row_feature.clamp(min=0).long()]
     go_right = (x_bin.to(torch.int32) > row_bin) & (row_feature >= 0)
     return node * 2 + go_right.to(torch.int32)
 
@@ -513,13 +568,16 @@ def _leaf_warps(n_leaves: int, num_channels: int) -> LeafTiling:
 
 def _check_rows(bins, node, channels=None):
     """Raise on what K2, K4 and K5 do not take. ``node`` is ``(rows,)``,
-    or a forest's ``(T, rows)``; ``channels`` ``node.shape + (K,)``."""
-    if not isinstance(bins, torch.Tensor) or bins.dim() != 2 or bins.dtype not in (
+    or a forest's ``(T, rows)``; ``channels`` ``node.shape + (K,)``; bins
+    ``(rows, F)``, or a sweep's jobs' own ``(T, rows, F)``."""
+    if not isinstance(bins, torch.Tensor) or bins.dim() not in (2, 3) or bins.dtype not in (
         torch.int8, torch.int32
     ):
-        raise TypeError("bins must be a 2-D int8 or int32 tensor")
-    if node.dtype != torch.int32 or node.dim() not in (1, 2) or node.shape[-1] != bins.shape[0]:
+        raise TypeError("bins must be a 2-D (or a job axis' 3-D) int8 or int32 tensor")
+    if node.dtype != torch.int32 or node.dim() not in (1, 2) or node.shape[-1] != bins.shape[-2]:
         raise TypeError("node must be an int32 tensor of one entry per row (of each tree)")
+    if bins.dim() == 3 and (node.dim() != 2 or node.shape[0] != bins.shape[0]):
+        raise ValueError(f"{bins.shape[0]} jobs of bins for nodes of shape {tuple(node.shape)}")
     tensors = [node]
     if channels is not None:
         if channels.dtype != torch.float32 or channels.dim() != node.dim() + 1:
@@ -542,14 +600,15 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     """``(n_nodes, F, max_bins, K)`` float32 sums of the rows' channels by
     node, feature and bin (K2). A forest's ``node (T, rows)`` and
     ``channels (T, rows, K)`` over the same bins give ``(T, n_nodes, F,
-    max_bins, K)`` from one launch."""
+    max_bins, K)`` from one launch, and so do a sweep's T jobs over their
+    own bins ``(T, rows, F)``."""
     _check_rows(bins, node, channels)
     if bins.device.type == "cpu":
         return _level_histograms(bins, node, channels, n_nodes, max_bins)
     kernels.check_operands(bins, node, channels)
     forest = node.dim() == 2
     trees = node.shape[0] if forest else 1
-    rows, num_features = bins.shape
+    rows, num_features = bins.shape[-2:]
     num_channels = channels.shape[-1]
     shape = (trees, n_nodes, num_features, max_bins, num_channels)
     if rows == 0:
@@ -571,7 +630,8 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
         bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
         partials.data_ptr(), out.data_ptr(),
         rows, num_features, n_nodes, max_bins, num_channels,
-        trees, 0,   # the trees share the bins: no stride along the tree axis
+        # a forest's trees share the bins; a sweep's jobs each have their own
+        trees, rows * num_features if bins.dim() == 3 else 0,
         chunks, per_chunk, tiling.nodes, tiling.bins, tiling.channels,
         tiling.block_features, _TILE_ROWS,
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
@@ -628,7 +688,8 @@ def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
 
 def route(bins, node, feature, bin_index):
     """Each row's node one level down (K4); a forest's ``node (T, rows)``
-    down its trees' splits ``feature`` and ``bin_index (T, nodes)``."""
+    down its trees' splits ``feature`` and ``bin_index (T, nodes)``, over
+    one bins matrix or a sweep's jobs' own ``(T, rows, F)``."""
     _check_rows(bins, node)
     if feature.dtype != torch.int32 or bin_index.dtype != torch.int32:
         raise TypeError("feature and bin_index must be int32")
@@ -650,7 +711,8 @@ def route(bins, node, feature, bin_index):
         "route", "lo_route",
         bins.data_ptr(), bins.element_size(), node.data_ptr(), feature.data_ptr(),
         bin_index.data_ptr(), out.data_ptr(),
-        bins.shape[0], bins.shape[1], node.shape[0] if node.dim() == 2 else 1, feature.shape[-1],
+        bins.shape[-2], bins.shape[-1], node.shape[0] if node.dim() == 2 else 1, feature.shape[-1],
+        bins.shape[-2] * bins.shape[-1] if bins.dim() == 3 else 0,
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
     return out

@@ -29,10 +29,13 @@ def _pca(X, mask, n_components: int):
     mean = (X * weights[:, None]).sum(dim=0) / n
     centered = (X - mean) * weights[:, None]
     covariance = (centered.T @ centered) / (n - 1)
-    eigenvalues, eigenvectors = torch.linalg.eigh(covariance)
+    # fewer than two rows: the reference's NaN, without eigh of a NaN matrix
+    defined = n >= 2
+    identity = torch.eye(covariance.shape[0], dtype=covariance.dtype, device=covariance.device)
+    eigenvalues, eigenvectors = torch.linalg.eigh(torch.where(defined, covariance, identity))
     # eigh is ascending; take the top components, largest first
-    components = eigenvectors.flip(1)[:, :n_components]
-    explained = eigenvalues.flip(0)[:n_components]
+    components = torch.where(defined, eigenvectors.flip(1)[:, :n_components], torch.nan)
+    explained = torch.where(defined, eigenvalues.flip(0)[:n_components], torch.nan)
     return centered @ components, components, explained
 
 

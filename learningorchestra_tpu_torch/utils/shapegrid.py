@@ -1,8 +1,9 @@
 """The padded-shape grid: quarter-octave size bucketing.
 
-A copy of ``learningorchestra_tpu/utils/shapegrid.py:43-90``. The serve
+A copy of ``learningorchestra_tpu/utils/shapegrid.py:43-102``. The serve
 batcher pads a dispatch to ``grid_size(total, max_batch)`` rows, so the
-port's dispatch shapes are the reference's. On the card this bounds the
+port's dispatch shapes are the reference's; the batched fits pad rows
+(parallel/sharding.py) and job axes (ml/sweep.py) to the same grid. On the card this bounds the
 number of distinct shapes the forward sees; the kernels take any row
 count.
 """
@@ -49,3 +50,18 @@ def pad_axis0(array: np.ndarray, target: int) -> np.ndarray:
         return array
     pad_width = [(0, target - n)] + [(0, 0)] * (array.ndim - 1)
     return np.pad(array, pad_width)
+
+
+def padded_indices(n: int, target: int) -> list[int]:
+    """Source indices for padding a stacked axis to ``target`` entries
+    by REPLICATING entry 0 into the dummy slots: ``[0..n-1, 0, 0, ...]``
+    (reference ``utils/shapegrid.py:91``).
+
+    Replication (not zeros) keeps dummy job slots numerically inert: an
+    all-zero dummy member would divide by a zero mask-sum and drag NaNs
+    through the fused program's dummy slots; a replica computes a
+    discarded copy of real work instead.
+    """
+    if n < 1:
+        raise ValueError("padded_indices needs at least one real entry")
+    return list(range(n)) + [0] * (target - n)

@@ -7,8 +7,11 @@ by :func:`send_file`, the 429 +
 ``Retry-After`` admission answer, a threaded server
 (:class:`ServerThread`, on ``http.server.ThreadingHTTPServer``) and an
 in-process :meth:`WebApp.test_client`. Status codes and JSON bodies match
-the reference's: an unknown route answers 404 ``{"result": "not_found"}``
-and an exception in a handler answers 500 with ``"<Type>: <message>"``.
+the reference's: an unknown route answers 404 ``{"result": "not_found"}``,
+an :class:`HTTPError` in a handler answers its own status (400 for a body
+that does not parse as JSON, 415 for one not declared JSON, as werkzeug's
+``get_json`` raises them) and any other exception answers 500 with
+``"<Type>: <message>"``.
 Only the standard library is used, so the port serves wherever torch runs.
 """
 
@@ -36,6 +39,26 @@ def _compile_rule(rule: str) -> "re.Pattern":
     return re.compile("^" + pattern + re.escape(rule[position:]) + "$")
 
 
+class HTTPError(Exception):
+    """An error that answers with its own status code, as werkzeug's
+    ``HTTPException`` does, instead of the 500 of any other exception."""
+
+    def __init__(self, status: int, description: str):
+        super().__init__(description)
+        self.status = status
+        self.description = description
+
+
+class BadRequest(HTTPError):
+    def __init__(self, description: str):
+        super().__init__(400, description)
+
+
+class UnsupportedMediaType(HTTPError):
+    def __init__(self, description: str):
+        super().__init__(415, description)
+
+
 class Request:
     """One HTTP request as a handler sees it."""
 
@@ -58,18 +81,23 @@ class Request:
         )
 
     def get_json(self, silent: bool = False) -> Any:
-        """The body parsed as JSON. With ``silent``, a body that is not
-        declared JSON or does not parse gives None (werkzeug's contract)."""
+        """The body parsed as JSON (werkzeug's contract): a body not
+        declared JSON raises :class:`UnsupportedMediaType` (415), one that
+        does not parse :class:`BadRequest` (400); with ``silent`` either
+        gives None."""
         if not self.is_json:
             if silent:
                 return None
-            raise ValueError("request body is not declared as application/json")
+            raise UnsupportedMediaType(
+                "Did not attempt to load JSON data because the request "
+                "Content-Type was not 'application/json'."
+            )
         try:
             return json.loads(self.data)
-        except ValueError:
+        except ValueError as error:
             if silent:
                 return None
-            raise
+            raise BadRequest(f"Failed to decode JSON object: {error}") from None
 
 
 class Response:
@@ -145,6 +173,14 @@ class WebApp:
                 continue
             try:
                 result = handler(request, **match.groupdict())
+            except HTTPError as error:
+                # e.g. BadRequest from request.get_json() on a malformed
+                # body: its own status code, not a 500
+                return Response(
+                    f"{type(error).__name__}: {error.description}",
+                    status=error.status,
+                    content_type="text/plain",
+                )
             except Exception as error:  # noqa: BLE001 — the route's 500 body
                 return Response(
                     f"{type(error).__name__}: {error}", status=500, content_type="text/plain"

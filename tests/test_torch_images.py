@@ -289,3 +289,64 @@ def test_images_over_http(tmp_path):
         assert (status, json.loads(body)) == (404, {"result": "file_not_found"})
     finally:
         server.stop()
+
+
+@pytest.mark.parametrize("method", ["pca", "tsne"])
+@pytest.mark.parametrize(
+    "body, content_type, status",
+    [
+        (b"{bad", "application/json", 400),                       # does not parse
+        (b'{"pca_filename": "x"}', "text/plain", 415),            # not declared JSON
+    ],
+)
+def test_a_malformed_body_answers_as_the_reference(method, body, content_type, status, tmp_path):
+    """werkzeug's get_json raises 400 and 415, and the reference keeps
+    that status; the port's web layer answers the same, not a 500."""
+    from learningorchestra_tpu_torch.utils.web import Request
+
+    jax_store, port_store = stores()
+    theirs = jax_images.create_app(jax_store, str(tmp_path / "jax"), method).test_client()
+    ours = images.create_app(port_store, str(tmp_path / "port"), method, device="cpu")
+    want = theirs.post("/images/x", data=body, content_type=content_type)
+    got = ours.handle(Request("POST", "/images/x", {"Content-Type": content_type}, body))
+    assert got.status_code == want.status_code == status
+    assert os.listdir(tmp_path / "port") == []
+
+
+def test_silent_get_json_still_gives_none():
+    from learningorchestra_tpu_torch.utils.web import Request
+
+    assert Request("POST", "/", {"Content-Type": "text/plain"}, b"{}").get_json(silent=True) is None
+    assert Request("POST", "/", {"Content-Type": "application/json"}, b"{bad").get_json(silent=True) is None
+    assert Request("POST", "/", {"Content-Type": "application/vnd.x+json"}, b"[1]").get_json() == [1]
+
+
+def test_pca_of_one_row_answers_201_as_the_reference(tmp_path):
+    """One row: the reference's covariance is 0/0, its embedding NaN, and
+    its PNG has no points; the port answers the same without eigh of a
+    NaN matrix."""
+    columns = {"a": [1.0], "b": [2.0], "c": [3.0], "label": ["yes"]}
+    jax_store, port_store = stores(columns)
+    theirs = jax_images.create_app(jax_store, str(tmp_path / "jax"), "pca").test_client()
+    ours = images.create_app(port_store, str(tmp_path / "port"), "pca", device="cpu").test_client()
+    request = {"pca_filename": "one", "label_name": "label"}
+    want = theirs.post("/images/numbers", json=request)
+    got = ours.post("/images/numbers", json=request)
+    assert answer(got) == (want.status_code, json.loads(want.get_data())) == (201, {"result": "created_file"})
+    _, _, pixels = read_png((tmp_path / "port" / "one.png").read_bytes())
+    colours = {tuple(c) for c in pixels.reshape(-1, 3)}
+    assert colours == {(255, 255, 255), (0, 0, 0)}   # the frame, no points
+    assert (tmp_path / "jax" / "one.png").exists()
+
+
+def test_pca_of_fewer_than_two_rows_is_nan_and_of_two_is_not():
+    from learningorchestra_tpu_torch.ops import pca as port_pca
+
+    X = torch.tensor([[1.0, 2.0, 3.0]])
+    for mask in (torch.ones(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool)):
+        embedded, components, explained = port_pca._pca(X, mask, 2)
+        assert embedded.shape == (1, 2) and components.shape == (3, 2) and explained.shape == (2,)
+        assert torch.isnan(embedded).all() and torch.isnan(components).all()
+        assert torch.isnan(explained).all()
+    embedded = port_pca.pca_embedding(np.array([[0.0, 1.0], [2.0, 5.0]]), device="cpu")
+    assert np.isfinite(embedded).all()

@@ -97,6 +97,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     for module in (
         "core.columns", "core.store", "core.table", "core.devcache",
         "ops.pca", "ops.tsne", "ops.images", "services.images", "services.validators",
+        "ml.sweep", "sched", "sched.coalesce", "sched.config", "sched.cancel",
+        "telemetry", "telemetry.metrics", "telemetry.tracing", "testing", "testing.faults",
+        "parallel", "parallel.sharding",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]
