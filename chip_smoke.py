@@ -79,12 +79,18 @@ Phases, one JSON line each:
                  than the plain version and within 1e-3 of the plain
                  gradient's largest entry (or twice the plain version's
                  distance from float64), three optimizer iterations each
-                 way; K13 (interpolation) of the 1,000,000 rows onto the
-                 5,000 landmarks' fitted embedding in one launch, and of
-                 their first 65,536 rows, within 1e-3 of the largest
-                 landmark coordinate; a second launch bit identical,
-                 distances in global memory bit identical to shared;
-                 times cold beside their bounds. Then K10 (PCA, torch
+                 way; the same checks on a seeded non-symmetric P at 1,
+                 2, 261 and 300 rows (no pair, one pair, ragged tiles
+                 with 4-byte and 16-byte copies of P); K13
+                 (interpolation) of the 1,000,000 rows onto the 5,000
+                 landmarks' fitted embedding in one launch, and of their
+                 first 65,536 rows, within 1e-3 of the largest landmark
+                 coordinate, a row's distances in global scratch bit
+                 identical to shared memory; a second launch bit
+                 identical, K11's distances in global memory bit
+                 identical to shared; times cold beside their bounds
+                 (one exp a bisection step for K11 and K13; Z and the
+                 gradient over the unordered pairs). Then K10 (PCA, torch
                  ops) on the 1,000,000 x 17 matrix, cold and warm,
                  beside its bound.
 8. embed       — the port's tsne and pca services over real HTTP on the
@@ -254,8 +260,8 @@ DEVICE_KERNELS = {
     "logistic_loss_grad": ("loss_grad_kernel", "finish_kernel"),
     "logistic_trial_losses": ("trial_losses_kernel", "finish_kernel"),
     "tsne_affinities": ("affinities_kernel",),
-    "tsne_z": ("z_rows_kernel", "z_total_kernel"),
-    "tsne_grad": ("gradient_kernel",),
+    "tsne_z": ("z_pairs_kernel", "z_total_kernel"),
+    "tsne_grad": ("gradient_pairs_kernel", "gradient_finish_kernel"),
     "tsne_interpolate": ("interpolate_kernel",),
 }
 TSNE_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/tsne.cu"
@@ -316,15 +322,24 @@ KL_MARGIN = 0.02
 # float32 instructions, a fused multiply-add one of them, at the card's
 # instruction rate, half the 67 TFLOP/s that counts a multiply-add as two.
 PEAK_FP32_INSTRUCTIONS_PER_S = PEAK_FP32_OPS_PER_S / 2
-# The float32 instructions a t-SNE kernel needs for one (row, column)
-# pair, expf and logf one each (a lower bound: each is several on the
-# card): a distance from the norms (a multiply-add a feature, three more);
-# each of 32 bisection steps (one exp a step: multiply, subtract, exp and
-# add for the total; divide, log, multiply, select and add for the
-# entropy); the final total and p (four each).
-TSNE_CALIBRATION_INSTRUCTIONS = 32 * 9 + 8
-TSNE_INVERSE_INSTRUCTIONS = 7    # 1 / (1 + d) of two 2-D rows, from their norms
-TSNE_GRADIENT_INSTRUCTIONS = 7   # q, its floor, the exaggerated P less it, W, three sums
+# The float32 instructions a t-SNE kernel needs, an exp and a division
+# one each (a lower bound: each is several on the card), counted from the
+# kernels' arithmetic (tsne.cu). K11 and K13, for one (row, column) pair:
+# a distance from the norms (a multiply-add a feature, three more); each
+# of 32 bisection steps one pass (multiply, subtract, exp, add into the
+# total, multiply-add of e and the logit into the entropy's sum; the log
+# and the division are the row's, not the pair's); the final pass's
+# multiply, subtract, exp and add, then K11's p (multiply, subtract, exp,
+# divide) or K13's two multiply-adds into sum e y.
+TSNE_STEP_INSTRUCTIONS = 5
+TSNE_AFFINITY_INSTRUCTIONS = 32 * TSNE_STEP_INSTRUCTIONS + 4 + 4
+TSNE_INTERPOLATION_INSTRUCTIONS = 32 * TSNE_STEP_INSTRUCTIONS + 4 + 2
+# K12, for one unordered pair {i, j}, done once: 1 / (1 + d) of two 2-D
+# rows from their norms; q and its floor; and for each of W_ij and W_ji
+# the exaggerated P less q, W, and its three float64 sums. Z: the inverse
+# and its sum. Both over the n (n - 1) / 2 unordered pairs.
+TSNE_INVERSE_INSTRUCTIONS = 7
+TSNE_GRADIENT_PAIR_INSTRUCTIONS = TSNE_INVERSE_INSTRUCTIONS + 2 + 2 * 6
 
 
 def emit(record: dict) -> None:
@@ -466,6 +481,41 @@ def phase_device(torch) -> dict:
     return {"card": card}
 
 
+# SASS opcodes counted in each kernel: the pipes that run at a quarter of
+# the float32 rate or less (MUFU, conversions, FCHK), float64 and barriers
+SASS_COUNTED = ("MUFU", "F2F", "FCHK", "DADD", "DFMA", "DMUL", "SHFL", "BAR", "LDGSTS")
+
+
+def sass_summary(library_path: str) -> dict | None:
+    """Per kernel of a built library, from ``cuobjdump -sass``: its SASS
+    instruction count and the counts of ``SASS_COUNTED``. None when the
+    toolkit has no cuobjdump."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._find_nvcc()), "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        return None
+    text = subprocess.run(
+        [cuobjdump, "-sass", library_path], capture_output=True, text=True, timeout=120, check=True
+    ).stdout
+    summary = {}
+    for section in re.split(r"\n\s*Function : ", text)[1:]:
+        name = section.split("\n", 1)[0].strip()
+        counts = dict.fromkeys(SASS_COUNTED, 0)
+        total = 0
+        for instruction in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", section):
+            words = instruction.split()
+            opcode = (words[1] if words[0].startswith("@") else words[0]).split(".")[0]
+            total += opcode != "NOP"
+            if opcode in counts:
+                counts[opcode] += 1
+        # the kernel's own name, and its template argument if it has one
+        short = re.search(r"\d([a-z][a-z_]*?_kernel)(?:I\w{2}(\d+)E)?", name)
+        key = name if short is None else short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+        summary[key] = {"instructions": total, **counts}
+    return summary
+
+
 def phase_build() -> None:
     started = time.perf_counter()
     # one nvcc per source, all started together
@@ -482,8 +532,9 @@ def phase_build() -> None:
             "library": os.path.relpath(info["path"]),
             "ptxas": [
                 line.strip() for line in info["ptxas"].splitlines()
-                if "registers" in line or "Compiling entry" in line
+                if "registers" in line or "Compiling entry" in line or "spill" in line
             ],
+            "sass": sass_summary(info["path"]),
         }
     emit({"phase": "build", "seconds": time.perf_counter() - started, "libraries": libraries})
 
@@ -536,48 +587,101 @@ def _event_ms(torch, fn, repeats: int, flush=None) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def _profile_device_us(torch, fn, kernel_names=None) -> float:
-    """Device microseconds the profiler's trace of the card shows while
-    ``fn`` runs: of the CUDA kernels whose names contain one of
-    ``kernel_names``, or of every CUDA kernel when that is None."""
+# Cycles of the spin kernel that keeps the card busy while the host
+# enqueues the first work of a trace (~6 ms on an H100)
+SPIN_CYCLES = 10_000_000
+
+
+def _trace_device_us(events, kernel_names, wall_ms: float) -> tuple[float, int]:
+    """Device microseconds and launches of the kernels whose names contain
+    one of ``kernel_names`` (every device event when that is None) in a
+    trace's device ``events``, (name, start_us, end_us) on the trace's
+    clock, which CUDA events measured as ``wall_ms`` from the first one's
+    start to the last one's end. The trace's clock can be off by a factor
+    over a whole trace (0.49 to 1.03 of CUDA events' on an H100), so the
+    kernels' time is their share of the span from the first event's
+    start to the last one's end, times ``wall_ms``: a share and a span of
+    one clock."""
+    first, last, named_us, launches = float("inf"), float("-inf"), 0.0, 0
+    for name, start_us, end_us in events:
+        first, last = min(first, start_us), max(last, end_us)
+        if kernel_names is None or any(wanted in name for wanted in kernel_names):
+            named_us += end_us - start_us
+            launches += 1
+    if launches == 0 or last <= first:
+        return 0.0, launches
+    return named_us / (last - first) * wall_ms * 1000.0, launches
+
+
+def _profile_device_us(torch, fn, kernel_names=None) -> tuple[float, int]:
+    """Device microseconds and launches of the CUDA kernels whose names
+    contain one of ``kernel_names``, or of every CUDA kernel when that is
+    None, while ``fn`` runs: from the profiler's trace of the card, put on
+    the clock of CUDA events recorded around ``fn`` (``_trace_device_us``).
+    A spin kernel ahead of the start event (and out of the count) keeps
+    the card busy until ``fn``'s first work is enqueued, so that the events
+    span the same time as ``fn``'s device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for event in prof.key_averages():
-        if getattr(event, "device_type", None) is not None and "CUDA" not in str(event.device_type):
-            continue
-        if kernel_names is None or any(name in event.key for name in kernel_names):
-            total_us += getattr(event, "self_device_time_total", 0.0) or getattr(
-                event, "self_cuda_time_total", 0.0
-            )
-    return total_us
+    events = [
+        (event.name, event.time_range.start, event.time_range.end)
+        for event in prof.events()
+        if "CUDA" in str(getattr(event, "device_type", "")) and "spin_kernel" not in event.name
+    ]
+    return _trace_device_us(events, kernel_names, start.elapsed_time(end))
 
 
 def _busy_ms(torch, fn):
     """Device milliseconds of every CUDA kernel in the trace of ``fn``;
     None when the trace shows no device time (the profiler missed it)."""
-    total_us = _profile_device_us(torch, fn)
+    total_us, _ = _profile_device_us(torch, fn)
     return total_us / 1000.0 if total_us > 0 else None
+
+
+# Traces taken for one device time before it is given up as not measured,
+# and the traces that lost launches (reported before the summary)
+PROFILE_ATTEMPTS = 3
+LOST_TRACES: list = []
 
 
 def _device_ms(torch, fn, kernel_names, repeats: int, flush=None):
     """Mean device milliseconds per call of ``fn`` in the CUDA kernels
-    named ``kernel_names``, from the profiler's trace of the card; None
-    when the trace has no device time for them. Given a ``flush`` buffer,
-    it is overwritten before each call (the fill's own kernel is not
-    counted)."""
+    named ``kernel_names``, from the profiler's trace of the card. Given a
+    ``flush`` buffer, it is overwritten before each call (the fill's own
+    kernel is not counted). The profiler can lose a kernel's records, and
+    a trace that lost some gives a time below the truth: a trace of the
+    ``repeats`` calls counts only when it shows ``repeats`` times the
+    most launches that a trace of one call has shown. None when no trace
+    of ``PROFILE_ATTEMPTS`` does, or when the trace has no device time for
+    the kernels."""
 
-    def run():
-        for _ in range(repeats):
-            if flush is not None:
-                flush.zero_()
-            fn()
+    def calls(count):
+        def run():
+            for _ in range(count):
+                if flush is not None:
+                    flush.zero_()
+                fn()
 
-    total_us = _profile_device_us(torch, run, kernel_names)
-    return total_us / 1000.0 / repeats if total_us > 0 else None
+        return run
+
+    per_call = 0
+    for _ in range(PROFILE_ATTEMPTS):
+        per_call = max(per_call, _profile_device_us(torch, calls(1), kernel_names)[1])
+        total_us, launches = _profile_device_us(torch, calls(repeats), kernel_names)
+        if per_call > 0 and launches == per_call * repeats:
+            return total_us / 1000.0 / repeats if total_us > 0 else None
+        LOST_TRACES.append({
+            "kernels": list(kernel_names), "launches": launches, "expected": per_call * repeats,
+        })
+    return None
 
 
 def _bound(rows: int, count: int, kernel: str) -> tuple[float, str]:
@@ -1794,25 +1898,26 @@ def embed_blobs(rows: int, seed: int = 7):
 def _tsne_bound(name: str, rows: int, columns: int, features: int) -> tuple[float, str]:
     """Least milliseconds the card could take for one call: bytes (inputs
     read once, outputs written once) over HBM bandwidth against the
-    float32 instructions of ``rows`` x ``columns`` pairs over the card's
-    instruction rate. K11: X in, P out; K12: Y in (and P for the gradient), Z or
-    the gradient out; K13: rows, landmarks and their embedding in,
-    (rows, 2) out."""
+    float32 instructions of its pairs over the card's instruction rate:
+    ``rows`` x ``columns`` for K11 and K13, the ``rows (rows - 1) / 2``
+    unordered pairs for K12. K11: X in, P out; K12: Y in (and P for the
+    gradient), Z or the gradient out; K13: rows, landmarks and their
+    embedding in, (rows, 2) out."""
     pairs = rows * columns
+    unordered = rows * (rows - 1) // 2
     distance = features + 3
     if name == "tsne_affinities":
         bytes_moved = rows * features * 4 + pairs * 4
-        instructions = pairs * (distance + TSNE_CALIBRATION_INSTRUCTIONS)
+        instructions = pairs * (distance + TSNE_AFFINITY_INSTRUCTIONS)
     elif name == "tsne_z":
         bytes_moved = rows * 8 + 4
-        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 1)
+        instructions = unordered * (TSNE_INVERSE_INSTRUCTIONS + 1)
     elif name == "tsne_grad":
         bytes_moved = pairs * 4 + rows * 8 * 2 + 4
-        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + TSNE_GRADIENT_INSTRUCTIONS)
+        instructions = unordered * TSNE_GRADIENT_PAIR_INSTRUCTIONS
     else:
         bytes_moved = (rows + columns) * features * 4 + columns * 8 + rows * 8
-        # and p @ Y_L: two multiply-adds a pair
-        instructions = pairs * (distance + TSNE_CALIBRATION_INSTRUCTIONS + 2)
+        instructions = pairs * (distance + TSNE_INTERPOLATION_INSTRUCTIONS)
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     op_ms = instructions / PEAK_FP32_INSTRUCTIONS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -1829,6 +1934,65 @@ def _plain_tsne():
         "interpolate": tsne._interpolate,
     }):
         yield
+
+
+@contextlib.contextmanager
+def _distances_in_global_memory():
+    """Within the block, K11 and K13 keep a row's distances in global
+    memory, as past ~57,000 columns, and not in shared memory."""
+    saved = tsne._SHARED_DISTANCE_BYTES
+    tsne._SHARED_DISTANCE_BYTES = 0
+    try:
+        yield
+    finally:
+        tsne._SHARED_DISTANCE_BYTES = saved
+
+
+# K12 on a seeded non-symmetric P (the kernels assume no symmetry): no
+# pair, one pair, and ragged tiles at n % 4 != 0 (4-byte copies of P) and
+# n % 4 == 0 (16-byte copies)
+K12_EDGE_ROWS = (1, 2, 2 * tsne.PAIR_TILE + 5, 300)
+
+
+def check_k12_edges(torch, device, held, failures) -> dict:
+    """Z and the gradient on a non-symmetric P at ``K12_EDGE_ROWS``,
+    against the plain versions with the main path's tolerances (the
+    gradient no farther from float64 than the plain version), and a
+    second launch bit identical. Where there is no pair (n = 1) both are
+    0: errors are absolute there."""
+    rng = np.random.default_rng(11)
+    edges = {}
+    for n in K12_EDGE_ROWS:
+        key = f"{n}:non-symmetric"
+        Y = torch.from_numpy((rng.normal(size=(n, 2)) * 10.0).astype(np.float32)).to(device)
+        P = torch.from_numpy(rng.random((n, n), dtype=np.float32)).to(device)
+        P /= P.sum()
+        exaggeration = tsne.EARLY_EXAGGERATION
+        Z, Z_plain = tsne.tsne_z(Y), tsne._tsne_z(Y)
+        grad = tsne.tsne_grad(Y, P, Z, exaggeration)
+        grad_plain = tsne._tsne_grad(Y, P, Z_plain, exaggeration)
+        Y64 = Y.double()
+        grad64 = tsne._tsne_grad(Y64, P.double(), tsne._tsne_z(Y64), exaggeration)
+        z_difference = float((Z.double() - Z_plain.double()).abs())
+        z_checked = held("tsne_z", key, z_difference, z_difference / (float(Z_plain) or 1.0), K12_Z_RTOL)
+        scale64 = float(grad64.abs().max()) or 1.0
+        float64_err = float((grad - grad64).abs().max()) / scale64
+        plain_float64_err = float((grad_plain - grad64).abs().max()) / scale64
+        difference = float((grad - grad_plain).abs().max())
+        grad_checked = held(
+            "tsne_grad", key, difference, difference / (float(grad_plain.abs().max()) or 1.0),
+            max(K12_PLAIN_TOL, 2.0 * plain_float64_err + K12_FLOAT64_SLACK),
+            {"float64_err": float64_err, "plain_float64_err": plain_float64_err},
+        )
+        if not float64_err <= plain_float64_err + K12_FLOAT64_SLACK:
+            failures.append(
+                f"tsne_grad at {key}: {float64_err} from float64, farther "
+                f"than the plain version's {plain_float64_err}"
+            )
+        if not (torch.equal(tsne.tsne_z(Y), Z) and torch.equal(tsne.tsne_grad(Y, P, Z, exaggeration), grad)):
+            failures.append(f"K12 at {key}: a second launch differs")
+        edges[key] = {"z": z_checked, "grad": grad_checked}
+    return edges
 
 
 def _card(torch):
@@ -1942,12 +2106,8 @@ def phase_embed_kernels(torch, store) -> dict:
         if rows == tsne.LANDMARKS:
             # the distances in global memory (past ~57,000 rows) give the
             # same bits as in shared memory
-            shared_bytes = tsne._SHARED_DISTANCE_BYTES
-            tsne._SHARED_DISTANCE_BYTES = 0
-            try:
+            with _distances_in_global_memory():
                 in_global = tsne.conditional_affinities(X, perplexity)
-            finally:
-                tsne._SHARED_DISTANCE_BYTES = shared_bytes
             checked["global_distances_identical"] = bool(torch.equal(in_global, got))
             if not checked["global_distances_identical"]:
                 failures.append("tsne_affinities: distances in global memory change the result")
@@ -1989,7 +2149,12 @@ def phase_embed_kernels(torch, store) -> dict:
             grad_checked = held(
                 "tsne_grad", key, difference, difference / float(grad_plain.abs().max()),
                 max(K12_PLAIN_TOL, 2.0 * plain_float64_err + K12_FLOAT64_SLACK),
-                {"float64_err": float64_err, "plain_float64_err": plain_float64_err},
+                {
+                    "float64_err": float64_err, "plain_float64_err": plain_float64_err,
+                    # the (tiles, n, 3) float64 partials beside P's bytes
+                    "partials_bytes": tsne._tile_pairs(rows)[0] * rows * 3 * 8,
+                    "p_bytes": rows * rows * 4,
+                },
             )
             if not float64_err <= plain_float64_err + K12_FLOAT64_SLACK:
                 failures.append(
@@ -2019,6 +2184,7 @@ def phase_embed_kernels(torch, store) -> dict:
             )
         del P
         torch.cuda.empty_cache()
+    results["tsne_grad"]["edges"] = check_k12_edges(torch, device, held, failures)
 
     # K13: the 1,000,000 rows onto the landmarks' fitted embedding, the
     # main path's one launch; and their first 65,536 rows
@@ -2033,16 +2199,15 @@ def phase_embed_kernels(torch, store) -> dict:
         checked = held("tsne_interpolate", key, difference, difference / float(Y_L.abs().max()), K13_TOL)
         if not torch.equal(tsne.interpolate(X, L, Y_L, perplexity), got):
             failures.append(f"tsne_interpolate at {key}: a second launch differs")
-        if rows == EMBED_ROWS:
-            shared_bytes = tsne._SHARED_DISTANCE_BYTES
-            tsne._SHARED_DISTANCE_BYTES = 0
-            try:
-                in_global = tsne.interpolate(X[:QUALITY_ROWS], L, Y_L, perplexity)
-            finally:
-                tsne._SHARED_DISTANCE_BYTES = shared_bytes
-            checked["global_distances_identical"] = bool(torch.equal(in_global, got[:QUALITY_ROWS]))
-            if not checked["global_distances_identical"]:
-                failures.append("tsne_interpolate: distances in global memory change the result")
+        # the main path keeps a row's 5,000 distances in shared memory; in
+        # global scratch (a grid of fewer blocks walking the rows) they
+        # give the same bits
+        with _distances_in_global_memory():
+            checked["global_distances_identical"] = bool(
+                torch.equal(tsne.interpolate(X, L, Y_L, perplexity), got)
+            )
+        if not checked["global_distances_identical"]:
+            failures.append(f"tsne_interpolate at {key}: distances in global memory change the result")
         del got, want
         timed(
             "tsne_interpolate", key, lambda: tsne.interpolate(X, L, Y_L, perplexity), plain_ms,
@@ -3167,6 +3332,7 @@ def main(argv) -> int:
                 )},
                 "library_ms": None, "library_note": NO_LIBRARY[name],
             })
+    emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})
     print(device["card"], flush=True)

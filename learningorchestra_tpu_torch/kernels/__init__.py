@@ -242,16 +242,16 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_tsne_z.argtypes = [
-        ptr, ptr, ptr, c_int,                # Y, row sums, Z, n
-        c_int, c_int, ptr,                   # max_blocks, device, stream
+        ptr, ptr, ptr, c_int, c_int,         # Y, a slot a tile pair, Z, n, tiles
+        c_int, ptr,                          # device, stream
     ]
     lib.lo_tsne_grad.argtypes = [
-        ptr, ptr, ptr, ptr,                  # Y, P, Z, grad
-        c_int, c_float,                      # n, exaggeration
-        c_int, c_int, ptr,                   # max_blocks, device, stream
+        ptr, ptr, ptr, ptr, ptr,             # Y, P, Z, (tiles, n, 3) partials, grad
+        c_int, c_int, c_float,               # n, tiles, exaggeration
+        c_int, ptr,                          # device, stream
     ]
     lib.lo_tsne_interpolate.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # X, landmarks, Y_L, out, distances (or null)
+        ptr, ptr, ptr, ptr, ptr,             # X, landmarks (F, m), Y_L, out, distances (or null)
         c_int, c_int, c_int, c_float,        # rows, m, F, target entropy
         c_int, c_int, ptr,                   # grid blocks, device, stream
     ]

@@ -11,8 +11,14 @@ Counterpart of ``learningorchestra_tpu/ops/tsne.py``, for one CUDA card
   normalizer Z (``tsne_z``) and the gradient itself (``tsne_grad``),
   with no ``(n, n)`` q in memory and no host sync; the update of
   momentum, gains and Y stays torch ops on ``(n, 2)`` (``_optimize``).
+  Both do each unordered pair of rows once, a block per unordered pair
+  of ``PAIR_TILE``-row tiles (``_tile_pairs``), and each runs a second
+  kernel that adds the blocks' float64 partials in a fixed order (a
+  launch counts the wrapper's call).
 - K13 ``interpolate``: out-of-sample placement of the rows onto the
-  landmarks' embedding, one launch a macro block.
+  landmarks' embedding, one launch a macro block. K11 and K13 calibrate
+  with one exp a column and bisection step (the entropy by the identity
+  ``(T/T') log T' + Σ e (−l) / T'``).
 
 Each wrapper takes its plain version only because its tensors lie on the
 CPU; on a CUDA tensor it launches the kernel or raises.
@@ -32,6 +38,8 @@ reference, so both packages choose the same ones.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,6 +52,8 @@ EARLY_EXAGGERATION = 12.0
 EARLY_PHASE = 250
 LEARNING_RATE = 200.0
 CHUNK = 1024
+# Rows of a tile in K12's unordered tile pairs (tsne.cu's kTile)
+PAIR_TILE = 128
 # Exact t-SNE holds n² floats of P; past this the landmark path wins.
 EXACT_ROWS_LIMIT = 20_000
 LANDMARKS = 5_000
@@ -185,6 +195,19 @@ def _interpolate(X, landmarks, Y_landmarks, perplexity: float, chunk: int = INTE
 _SHARED_DISTANCE_BYTES = kernels.SHARED_BYTES - 2048
 
 
+@functools.lru_cache(maxsize=16)
+def _tile_pairs(n: int):
+    """K12's split of the ``n`` rows: ``(tiles, pairs)``, the count of
+    ``PAIR_TILE``-row tiles and the unordered tile pairs ``(I, J)``,
+    ``I <= J``, in the order of the kernels' blocks (row-major over the
+    upper triangle; ``tsne.cu`` ``tile_pair_at``). Z keeps one float64 slot a
+    pair; the gradient a ``(tiles, n, 3)`` float64 buffer of partials,
+    where slot ``K`` of row ``r`` comes from the pair of ``r``'s tile with
+    tile ``K``."""
+    tiles = -(-n // PAIR_TILE)
+    return tiles, tuple((I, J) for I in range(tiles) for J in range(I, tiles))
+
+
 def _check_float32(*tensors) -> None:
     for tensor in tensors:
         if tensor.dtype != torch.float32:
@@ -234,12 +257,13 @@ def tsne_z(Y):
         return _tsne_z(Y)
     kernels.check_operands(Y)
     n = Y.shape[0]
-    row_sums = torch.empty(n, dtype=torch.float64, device=Y.device)
+    tiles, pairs = _tile_pairs(n)
+    slots = torch.empty(len(pairs), dtype=torch.float64, device=Y.device)
     Z = torch.empty(1, dtype=torch.float32, device=Y.device)
     kernels.launch(
         "tsne_z", "lo_tsne_z",
-        Y.data_ptr(), row_sums.data_ptr(), Z.data_ptr(), n,
-        kernels.max_blocks(Y.device.index), Y.device.index, _stream(Y),
+        Y.data_ptr(), slots.data_ptr(), Z.data_ptr(), n, tiles,
+        Y.device.index, _stream(Y),
     )
     return Z
 
@@ -255,11 +279,13 @@ def tsne_grad(Y, P, Z, exaggeration: float):
     if Y.device.type == "cpu":
         return _tsne_grad(Y, P, Z, exaggeration)
     kernels.check_operands(Y, P, Z)
+    tiles, _ = _tile_pairs(n)
+    partials = torch.empty((tiles, n, 3), dtype=torch.float64, device=Y.device)
     grad = torch.empty((n, 2), dtype=torch.float32, device=Y.device)
     kernels.launch(
         "tsne_grad", "lo_tsne_grad",
-        Y.data_ptr(), P.data_ptr(), Z.data_ptr(), grad.data_ptr(), n, exaggeration,
-        kernels.max_blocks(Y.device.index), Y.device.index, _stream(Y),
+        Y.data_ptr(), P.data_ptr(), Z.data_ptr(), partials.data_ptr(), grad.data_ptr(),
+        n, tiles, exaggeration, Y.device.index, _stream(Y),
     )
     return grad
 
@@ -286,9 +312,12 @@ def interpolate(X, landmarks, Y_landmarks, perplexity: float):
     distances = None
     if 4 * m > _SHARED_DISTANCE_BYTES:
         distances = torch.empty((blocks, m), dtype=torch.float32, device=X.device)
+    # the kernel reads the landmarks transposed, (F, m): a warp's loads of a
+    # feature are then contiguous
+    landmarks_t = landmarks.t().contiguous()
     kernels.launch(
         "tsne_interpolate", "lo_tsne_interpolate",
-        X.data_ptr(), landmarks.data_ptr(), Y_landmarks.data_ptr(), out.data_ptr(),
+        X.data_ptr(), landmarks_t.data_ptr(), Y_landmarks.data_ptr(), out.data_ptr(),
         None if distances is None else distances.data_ptr(),
         rows, m, num_features, _target_entropy(perplexity),
         blocks, X.device.index, _stream(X),
