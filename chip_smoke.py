@@ -51,7 +51,10 @@ Phases, one JSON line each:
                  points, against the plain twin on the same rows
                  standardized by scaler_stats, with 2 and 10 classes: loss
                  within 1e-6 relative, gradient within 1e-6, a second launch
-                 bit identical; times cold (L2 overwritten) and warm.
+                 bit identical; times cold (L2 overwritten) and warm. K7
+                 also past the sweep's width: 20,000 features (rows read
+                 from global memory) and 300 classes, 4,096 rows, at the
+                 same tolerances.
 6. fit         — ``make_classifier(...)`` fits dt, rf, gb, lr and nb on the
                  same 1,000,000 rows on the card, then evaluate_predict,
                  save_model and one request each over HTTP. Held against
@@ -121,8 +124,13 @@ Phases, one JSON line each:
                  probabilities within 1e-6). K7 (weighted), K1, K2 with
                  each job's bins, K4, K5 and K6 over 8 jobs: each job
                  bit-equal to a launch of it alone and within the plain
-                 versions' tolerances; each timed cold at the main path's
-                 shapes with the three programs. Five lr members (own
+                 versions' tolerances; K7 also in each geometry its
+                 wrappers choose: jobs sharing X in groups of 1, 7, 112
+                 and 113 and the flood's 64 stacked jobs of 1,024 rows,
+                 weighted and not, 2 and 10 classes, each job bit-equal
+                 to its solo launch and a second launch bit identical;
+                 each timed cold at the main path's shapes with the three
+                 programs. Five lr members (own
                  data, 1,000,000 rows) and three dt members fused by a
                  Coalescer in one dispatch, bit-identical to their solo
                  runs; bench.py's flood of 64 concurrent lr jobs of 1,024
@@ -509,9 +517,10 @@ def sass_summary(library_path: str) -> dict | None:
             total += opcode != "NOP"
             if opcode in counts:
                 counts[opcode] += 1
-        # the kernel's own name, and its template argument if it has one
-        short = re.search(r"\d([a-z][a-z_]*?_kernel)(?:I\w{2}(\d+)E)?", name)
-        key = name if short is None else short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+        # the kernel's own name, and its integer template arguments if it has any
+        short = re.search(r"\d([a-z][a-z_]*?_kernel)(?:I((?:L\w\d+E)+)E)?", name)
+        arguments = re.findall(r"L\w(\d+)E", short.group(2) or "") if short else []
+        key = name if short is None else short.group(1) + (f"<{','.join(arguments)}>" if arguments else "")
         summary[key] = {"instructions": total, **counts}
     return summary
 
@@ -1306,11 +1315,65 @@ def check_logistic_kernels(torch, X: np.ndarray, y: np.ndarray, flush) -> dict:
                 "library_ms": None,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "geometry": logistic._k7_geometry(
+                    FEATURES, classes, 1, False, trial=name == "logistic_trial_losses"),
             }
     for result in results.values():
         # the main path's shape: bench.py's two classes
         result.update(result["by_classes"][CLASSES])
     return results
+
+
+# K7 past the sweep's width, each entry point alone: rows too wide for
+# shared memory (read from global memory, the wide form unstaged, slot
+# windows), classes past the registers (logits recomputed, windows) and
+# classes whose terms pass a block's shared memory (each window keeps its
+# own classes')
+K7_WIDE_SHAPES = ((20_000, 2), (16, 300), (16, 2_000))
+K7_WIDE_ROWS = 4_096
+
+
+def check_k7_wide(torch) -> dict:
+    """K7's two entry points at K7_WIDE_SHAPES on K7_WIDE_ROWS seeded rows
+    (the logits kept small: W scaled by 1/sqrt(F)), against the plain twin
+    at K7_LOSS_RTOL and K7_GRAD_ATOL, a second launch bit identical; with
+    the geometry each ran in."""
+    record = {}
+    for features, classes in K7_WIDE_SHAPES:
+        rng = np.random.default_rng(features + classes)
+
+        def cuda(array):
+            return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32)).cuda()
+
+        X = cuda(rng.normal(size=(K7_WIDE_ROWS, features)))
+        y = torch.from_numpy(rng.integers(0, classes, K7_WIDE_ROWS).astype(np.int32)).cuda()
+        W = cuda(rng.normal(size=(features, classes)) * 0.3 / np.sqrt(features))
+        b = cuda(rng.normal(size=classes) * 0.3)
+        steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X.device)
+        W4 = (W[None] * (1.0 + steps[:, None, None])).contiguous()
+        b4 = (b[None] * (1.0 + steps[:, None])).contiguous()
+        what = f"{features} features x {classes} classes"
+        got = logistic.loss_and_grad(W, b, X, y, 0.0)
+        if not all(torch.equal(a, c) for a, c in zip(got, logistic.loss_and_grad(W, b, X, y, 0.0))):
+            raise AssertionError(f"logistic_loss_grad ({what}): a second launch differs")
+        want = logistic._loss_fn(W, b, X, y, 0.0)
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        grad_err = max(float((got[i] - want[i]).abs().max()) for i in (1, 2))
+        if not loss_rel <= K7_LOSS_RTOL or not grad_err <= K7_GRAD_ATOL:
+            raise AssertionError(f"logistic_loss_grad ({what}): loss {loss_rel} relative, gradient {grad_err}")
+        trial = logistic.trial_losses(W4, b4, X, y, 0.0)
+        if not torch.equal(trial, logistic.trial_losses(W4, b4, X, y, 0.0)):
+            raise AssertionError(f"logistic_trial_losses ({what}): a second launch differs")
+        plain_trial = logistic._trial_losses(W4, b4, X, y, 0.0)
+        trial_rel = float(((trial - plain_trial).abs() / plain_trial.abs()).max())
+        if not trial_rel <= K7_LOSS_RTOL:
+            raise AssertionError(f"logistic_trial_losses ({what}): {trial_rel} relative")
+        record[what] = {
+            "loss_rel": loss_rel, "grad_err": grad_err, "trial_rel": trial_rel,
+            "geometry": logistic._k7_geometry(features, classes, 1, False),
+            "trial_geometry": logistic._k7_geometry(features, classes, 1, False, trial=True),
+        }
+    return record
 
 
 def phase_fit_kernels(torch) -> dict:
@@ -1461,6 +1524,7 @@ def phase_fit_kernels(torch) -> dict:
     emit({
         "phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS,
         **results, "repairs": repairs, "forest_checks": forest_checks,
+        "k7_wide": check_k7_wide(torch),
     })
     return results
 
@@ -2622,6 +2686,87 @@ def _bit_equal_per_job(name: str, got, alone) -> None:
                 raise AssertionError(f"{name}: job {j} differs from a launch of that job alone")
 
 
+K7_GROUP_JOBS = (1, 7, 112, 113)   # shared-X jobs: narrow groups, one wide group, and past it
+
+
+def _job_rows_of(X, y, weights, j: int):
+    """Job j's rows, labels and weights as a one-job launch takes them."""
+    if X.dim() == 2:
+        return X, y, weights
+    return X[j:j + 1], y[j:j + 1], None if weights is None else weights[j:j + 1]
+
+
+def check_k7_groups(torch, X_std, y_dev, mask) -> dict:
+    """K7 over a job axis in each geometry its wrappers choose
+    (``logistic._k7_geometry``), against its plain twins at K7_LOSS_RTOL
+    and K7_GRAD_ATOL: jobs sharing the sweep's X in groups of 1, 7, 112 and
+    113, and the flood's 64 stacked jobs of 1,024 rows (each its own data,
+    its last 100 rows weighing 0), weighted and not, 2 and 10 classes.
+    Each job bit-equal to a launch of it alone, a second launch bit
+    identical. Returns the largest differences from the plain twins."""
+    device = X_std.device
+    rng = np.random.default_rng(62)
+    boundaries = torch.linspace(-1.5, 1.5, DEEP_CLASSES - 1, device=device)
+
+    def ten(X):
+        return torch.bucketize(X[..., 0].contiguous(), boundaries).to(torch.int32)
+
+    flood = [bench_synthetic(FLOOD_ROWS, seed=100 + i) for i in range(FLOOD_JOBS)]
+    flood_X = torch.from_numpy(np.stack([
+        logistic._standardized(X, *logistic.scaler_stats(X)) for X, _ in flood
+    ])).to(device)
+    flood_y = torch.from_numpy(np.stack([y for _, y in flood]).astype(np.int32)).to(device)
+    flood_mask = torch.ones((FLOOD_JOBS, FLOOD_ROWS), dtype=torch.float32, device=device)
+    flood_mask[:, -100:] = 0.0
+    labels = {(CLASSES, 2): y_dev, (DEEP_CLASSES, 2): ten(X_std),
+              (CLASSES, 3): flood_y, (DEEP_CLASSES, 3): ten(flood_X)}
+    steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=device)
+    errors = {"logistic_loss_grad:jobs": 0.0, "logistic_trial_losses:jobs": 0.0}
+    cases = [(jobs, X_std, mask) for jobs in K7_GROUP_JOBS] + [(FLOOD_JOBS, flood_X, flood_mask)]
+    for classes in (CLASSES, DEEP_CLASSES):
+        for jobs, X, all_weights in cases:
+            y = labels[classes, X.dim()]
+            for weights in (all_weights, None):
+                what = (f"{jobs} jobs, {'shared' if X.dim() == 2 else 'stacked'} X, {classes} classes, "
+                        f"{'weighted' if weights is not None else 'unweighted'}")
+
+                def on_card(*shape):
+                    return torch.from_numpy((rng.normal(size=shape) * 0.3).astype(np.float32)).to(device)
+
+                W, b = on_card(jobs, FEATURES, classes), on_card(jobs, classes)
+                D, d = on_card(jobs, FEATURES, classes), on_card(jobs, classes)
+                W4 = (W[:, None] + steps[None, :, None, None] * D[:, None]).contiguous()
+                b4 = (b[:, None] + steps[None, :, None] * d[:, None]).contiguous()
+                l2s = torch.from_numpy(rng.uniform(0.0, 1.0, jobs).astype(np.float32)).to(device)
+                got = logistic.job_loss_and_grad(W, b, X, y, weights, l2s)
+                again = logistic.job_loss_and_grad(W, b, X, y, weights, l2s)
+                if not all(torch.equal(first, second) for first, second in zip(got, again)):
+                    raise AssertionError(f"logistic_loss_grad:jobs ({what}): a second launch differs")
+                _bit_equal_per_job(f"logistic_loss_grad:jobs ({what})", got, lambda j: logistic.job_loss_and_grad(
+                    W[j:j + 1], b[j:j + 1], *_job_rows_of(X, y, weights, j), l2s[j:j + 1]))
+                want = logistic._job_loss_fn(W, b, X, y, weights, l2s)
+                loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+                grad_err = max(float((got[i] - want[i]).abs().max()) for i in (1, 2))
+                if not loss_rel <= K7_LOSS_RTOL or not grad_err <= K7_GRAD_ATOL:
+                    raise AssertionError(
+                        f"logistic_loss_grad:jobs ({what}): loss {loss_rel} relative, gradient {grad_err}")
+                errors["logistic_loss_grad:jobs"] = max(
+                    errors["logistic_loss_grad:jobs"], grad_err, float((got[0] - want[0]).abs().max()))
+                trial = logistic.job_trial_losses(W4, b4, X, y, weights, l2s)
+                if not torch.equal(trial, logistic.job_trial_losses(W4, b4, X, y, weights, l2s)):
+                    raise AssertionError(f"logistic_trial_losses:jobs ({what}): a second launch differs")
+                _bit_equal_per_job(f"logistic_trial_losses:jobs ({what})", (trial,), lambda j: (
+                    logistic.job_trial_losses(W4[j:j + 1], b4[j:j + 1], *_job_rows_of(X, y, weights, j),
+                                              l2s[j:j + 1]),))
+                plain_trial = logistic._job_trial_losses(W4, b4, X, y, weights, l2s)
+                trial_rel = float(((trial - plain_trial).abs() / plain_trial.abs()).max())
+                if not trial_rel <= K7_LOSS_RTOL:
+                    raise AssertionError(f"logistic_trial_losses:jobs ({what}): {trial_rel} relative")
+                errors["logistic_trial_losses:jobs"] = max(
+                    errors["logistic_trial_losses:jobs"], float((trial - plain_trial).abs().max()))
+    return errors
+
+
 def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> dict:
     """K7, K1, K2 (each job's own bins), K4, K5 and K6 over JOB_CHECK_JOBS
     jobs, each job its own rows (the main rows rolled a job apart, so
@@ -2668,6 +2813,8 @@ def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> d
     if not trial_rel <= K7_LOSS_RTOL:
         raise AssertionError(f"logistic_trial_losses:jobs: {trial_rel} relative")
     errors["logistic_trial_losses:jobs"] = float((trial - plain_trial).abs().max())
+    for name, error in check_k7_groups(torch, X_std, y_dev, mask).items():
+        errors[name] = max(errors[name], error)
 
     # each job its own thresholds: the main ones stretched a little a job
     ths = torch.stack([thresholds * (1.0 + 1e-3 * j) for j in range(J)]).contiguous()
@@ -2767,8 +2914,9 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
             _job_bound("logistic_trial_losses", rows, jobs_lr, x_shared=True),
         ),
     }
-    for result in results.values():
-        result.update(jobs=jobs_lr, rows=rows, x_shared=True)
+    for name, result in results.items():
+        result.update(jobs=jobs_lr, rows=rows, x_shared=True, geometry=logistic._k7_geometry(
+            FEATURES, CLASSES, jobs_lr, True, trial=name == "logistic_trial_losses:jobs", weighted=True))
     J = sweep._job_axis(1)
     ths = torch.stack([thresholds * (1.0 + 1e-3 * j) for j in range(J)]).contiguous()
     bins = binning.job_apply_bins(X_raw, ths)

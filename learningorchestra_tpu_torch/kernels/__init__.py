@@ -219,14 +219,16 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W, b, partials, out
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
-        c_int, c_int, c_int, c_int,          # chunks, rows/chunk, tile, cell window
+        c_int, c_int,                        # chunks, rows/chunk
+        ptr,                                 # the block's layout (ml/logistic.py _K7Layout)
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_logistic_trial_losses.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W4, b4, partials, out
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
-        c_int, c_int, c_int,                 # chunks, rows/chunk, tile
+        c_int, c_int,                        # chunks, rows/chunk
+        ptr,                                 # the block's layout (ml/logistic.py _K7Layout)
         c_int, ptr,                          # device, stream
     ]
     lib.lo_logistic_loss_grad.restype = c_int

@@ -47,6 +47,10 @@ builder; ``_fit`` keeps the ``iters``, ``max_iter``, ``l2`` and
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
+
 import numpy as np
 import torch
 
@@ -71,12 +75,19 @@ _LR_ROW_ITERS_BUDGET = 180e6
 _LR_CHECK_ITERS = 25
 _LR_TOL = 1e-6
 
-# K7's launch geometry: a block's threads, the cells of its float64
-# partials at most, and its shared-memory budget while a tile of rows fits
-# (two blocks an SM)
-_THREADS = 512              # kThreads in kernels/csrc/logistic.cu
-_WINDOW_CELLS = 2048
-_LOSS_SHARED_BYTES = 96 * 1024
+# K7's launch geometry (kernels/csrc/logistic.cu): a block's threads, the
+# rows of a group of float64 sums (a tile holds whole groups), the classes
+# and features of a wide slot, the sum forms, the cells a thread owns in the
+# narrow form, and the shared memory a block keeps to while its geometry
+# allows (two blocks an SM; wider rows take up to kernels.SHARED_BYTES)
+_THREADS = 256              # kThreads
+_GROUP_ROWS = 16            # kGroupRows
+_WIDE_CLASSES, _WIDE_FEATURES = 2, 8
+_NARROW, _WIDE, _WIDE_STAGED = 0, 1, 2
+_MAX_OWNED = 5              # kMaxOwned
+_MAX_TILE = 256
+_TRIAL_WARP_ROWS = 64       # the trial losses' rows a warp (kWarpRows)
+_K7_BLOCK_BYTES = 112 * 1024
 
 
 # --------------------------------------------------------------------------
@@ -130,33 +141,157 @@ def _trial_losses(W4, b4, X, y, l2: float):
 # K7: the wrappers, plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
-def _loss_tiling(
-    num_features: int, num_classes: int, trial: bool = False, weighted: bool = False
-) -> tuple[int, int]:
-    """``(tile rows, cell window)`` of a K7 block. A block stages a tile of
-    rows (features, logits and, for the gradient, the nll; with weights,
-    the weight: 4 bytes each) beside its float64 partials: the gradient's
-    cells, at most ``_WINDOW_CELLS`` a block (more go to further blocks),
-    or the four trial sums (and the weights') of each thread. The tile
-    holds a row a thread within 96 KB, else as many rows as fit one
-    block's shared memory."""
-    cells = num_features * num_classes + num_classes + 1 + int(weighted)
-    window = min(cells, _WINDOW_CELLS)
-    # a row's features and logits at odd strides (no shared-memory bank conflicts)
-    row_bytes = 4 * ((num_features | 1) + (num_classes | 1))
+def _grouped_cells(num_features: int, num_classes: int, group: int, weighted: bool, trial: bool) -> int:
+    """The cells a block sums group by group (the narrow form, the trial
+    losses): each job's dW, db and loss (its four losses), and the
+    weights'."""
+    per_job = _BACKTRACK_STEPS if trial else num_features * num_classes + num_classes + 1
+    return group * per_job + int(weighted)
+
+
+class _K7Layout(ctypes.Structure):
+    """A K7 block's geometry and shared memory, as the kernels read it
+    (``Layout`` in kernels/csrc/logistic.cu, field for field): the group,
+    the tile rows, the sum form, whether the parameters sit in shared
+    memory; the strides; the byte offsets of each region and the total."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "group", "tile", "form", "params_shared",
+        "xs", "tp", "js", "fd", "cells", "buffer_floats",
+        "ring", "xd", "terms", "nll", "wd", "scratch", "sums", "sources", "one",
+        "params_w", "params_b", "bytes",
+    )]
+
+
+def _stored_classes(num_features: int, num_classes: int, form: int) -> int:
+    """The classes whose terms a gradient block keeps: all of them, or, in
+    the wide forms, as many as a window of ``_THREADS`` slots (a job's
+    slots, 2 classes by 8 features each, class pair by class pair) can
+    span when one job's slots pass one block."""
+    if form == _NARROW:
+        return num_classes
+    feature_blocks = -(-num_features // _WIDE_FEATURES)
+    pairs = -(-(_THREADS - 1) // feature_blocks) + 1
+    return min(num_classes, _WIDE_CLASSES * pairs)
+
+
+def _k7_layout(
+    num_features: int, num_classes: int, group: int, tile: int, form: int, x_staged: bool,
+    params_shared: bool, weighted: bool, trial: bool,
+) -> dict:
+    """The fields of :class:`_K7Layout` for a K7 block of geometry ``(group, tile, form,
+    x_staged, params_shared)`` (:func:`_k7_geometry`). Its shared memory, in order: a ring of two tiles (x at an
+    odd row stride when it is staged, the labels and the weights); for
+    the gradient the float64 copy of x (the staged wide form), each job's
+    residuals (of its stored classes) and nll of the tile, and the weights
+    in float64; for the trial losses each warp's scratch (the candidates'
+    and the weights' rows at 68 floats, 17 a group of 16 rows); the group
+    sums of two tiles (the narrow form, with each cell's source, an int2,
+    and a 1.0; the trial losses); and the group's parameters when they sit
+    in shared memory. Each region starts on 16 bytes."""
+    F, C = num_features, num_classes
+    narrow = not trial and form == _NARROW
+    grouped = trial or narrow
+    xs = (F | 1) if x_staged else 0
+    tp = tile | 1
+    js = (_stored_classes(F, C, form) * tp) | 1
+    fd = F + (F & 1)
+    cells = _grouped_cells(F, C, group, weighted, trial) if grouped else 0
+    buffer_floats = tile * (xs + 1 + int(weighted))
+    sets = _BACKTRACK_STEPS if trial else 1
+    sizes = {   # region -> bytes, in the order they lie
+        "ring": 4 * 2 * buffer_floats,
+        "xd": 8 * tile * fd if not trial and form == _WIDE_STAGED else 0,
+        "terms": 8 * group * js if not trial else 0,
+        "nll": 8 * group * tp if not trial else 0,
+        "wd": 8 * tile if not trial and weighted else 0,
+        "scratch": 4 * (_THREADS // 32) * (_BACKTRACK_STEPS + 1) * 68 if trial else 0,
+        "sums": 8 * 2 * cells * (tile // _GROUP_ROWS),
+        "sources": 8 * cells if narrow else 0,
+        "one": 4 if narrow else 0,
+        "params_w": 4 * group * sets * F * C if params_shared else 0,
+        "params_b": 4 * group * sets * C if params_shared else 0,
+    }
+    offsets, at = {}, 0
+    for region, size in sizes.items():
+        offsets[region] = at
+        at += -(-size // 16) * 16
+    return dict(
+        group=group, tile=tile, form=form, params_shared=int(params_shared),
+        xs=xs, tp=tp, js=js, fd=fd, cells=cells, buffer_floats=buffer_floats,
+        bytes=at, **offsets,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_geometry(
+    num_features: int, num_classes: int, jobs: int, shared_rows: bool,
+    trial: bool = False, weighted: bool = False,
+) -> tuple[int, int, int, bool, bool]:
+    """``(group, tile rows, sum form, x in shared memory, parameters in
+    shared memory)`` of a K7 launch. Jobs that share their rows
+    (``shared_rows``) go in groups that read each tile once; the group is
+    as large as the threads and the shared memory allow. The sums: cells
+    summed 16 rows at a time by every thread (``_NARROW``, the trial
+    losses) while a group's cells are few, else a (job, 2 classes, 8
+    features) block of cells a thread, x made float64 once a row in shared
+    memory when it fits (``_WIDE_STAGED``). The tile gives every thread a
+    (row, job) in phase 1. Within ``_K7_BLOCK_BYTES`` (two blocks an SM)
+    when that holds a tile of 32 rows, else within ``kernels.SHARED_BYTES``;
+    wide rows fall back to x read from global memory and parameters there.
+    A job's slots past one block go in windows that keep only their
+    classes' terms (:func:`_stored_classes`), so every F and C fits. None
+    of these changes a bit of the outputs. Raises where a block cannot
+    hold one group of rows."""
+    F, C = num_features, num_classes
+    jobs = max(jobs, 1)
+    cells = C * F
+    wide_slots = -(-C // _WIDE_CLASSES) * -(-F // _WIDE_FEATURES)
+    owned = _MAX_OWNED * _THREADS
     if trial:
-        fixed = 8 * (_BACKTRACK_STEPS + int(weighted)) * _THREADS
+        form, group = _NARROW, min(jobs, _THREADS) if shared_rows else 1
+    elif not shared_rows or jobs == 1:
+        form, group = (_NARROW if cells <= _THREADS else _WIDE_STAGED), 1
+    elif jobs * cells <= _THREADS or jobs <= 2 * (_THREADS // cells):
+        form, group = _NARROW, max(1, min(jobs, _THREADS // cells))
     else:
-        fixed, row_bytes = 8 * max(_THREADS, window), row_bytes + 4 + 4 * int(weighted)
-    tile_rows = min(_THREADS, (_LOSS_SHARED_BYTES - fixed) // row_bytes)
-    if tile_rows < 64:
-        tile_rows = min(_THREADS, (kernels.SHARED_BYTES - fixed) // row_bytes)
-    if tile_rows < 1:
-        raise ValueError(
-            f"{num_features} features x {num_classes} classes: one row does not fit "
-            "a block's shared memory"
-        )
-    return tile_rows, window
+        form, group = _WIDE_STAGED, max(1, min(jobs, _THREADS // wide_slots))
+    forms = (form, _WIDE) if form == _WIDE_STAGED else (form,)
+    # a tile of 32 rows or more gives a warp one job's rows in phase 1 (its
+    # parameters' loads the same for the warp), 16 only for rows too wide
+    # for 32 of them; the trial losses give a warp 64 rows of one job
+    unit, most = (_TRIAL_WARP_ROWS, _TRIAL_WARP_ROWS * _THREADS // 32) if trial else (32, _MAX_TILE)
+    least = _TRIAL_WARP_ROWS if trial else _GROUP_ROWS
+    for budget, least_tile in ((_K7_BLOCK_BYTES, unit), (kernels.SHARED_BYTES, least)):
+        for x_staged in (True, False):
+            size = group
+            while size >= 1:
+                tile = min(most, max(unit, most // size // unit * unit))
+                while tile >= least_tile:
+                    for shape, params_shared in itertools.product(forms, (True, False)):
+                        if shape == _NARROW and _grouped_cells(F, C, size, weighted, trial) > owned:
+                            continue
+                        if _k7_layout(
+                            F, C, size, tile, shape, x_staged, params_shared, weighted, trial
+                        )["bytes"] <= budget:
+                            return size, tile, shape, x_staged, params_shared
+                    tile //= 2
+                size //= 2
+    raise ValueError(
+        f"{num_features} features x {num_classes} classes: the rows of one group of sums do "
+        "not fit a block's shared memory"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_launch_layout(
+    num_features: int, num_classes: int, jobs: int, shared_rows: bool, trial: bool,
+    weighted: bool,
+) -> _K7Layout:
+    """The layout a K7 launch hands its kernel (read, never written)."""
+    geometry = _k7_geometry(num_features, num_classes, jobs, shared_rows, trial, weighted)
+    return _K7Layout(**_k7_layout(
+        num_features, num_classes, *geometry, weighted=weighted, trial=trial))
 
 
 def _check_operands(X, y, W, b, leading: tuple = ()):
@@ -188,7 +323,8 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     rows, num_features = X.shape[-2:]
     num_classes = W.shape[-1]
     weighted = weights is not None
-    tile_rows, window = _loss_tiling(num_features, num_classes, weighted=weighted)
+    shared_rows = X.dim() == 2 and y.dim() == 1
+    layout = _k7_launch_layout(num_features, num_classes, jobs, shared_rows, False, weighted)
     chunks, per_chunk = kernels.row_chunks(rows)
     cells = num_features * num_classes + num_classes + 1
     partials = torch.empty(
@@ -201,7 +337,7 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
         W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
-        chunks, per_chunk, tile_rows, window,
+        chunks, per_chunk, ctypes.addressof(layout),
         kernels.max_blocks(X.device.index), X.device.index, _stream(X),
     )
     return out
@@ -215,7 +351,8 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
     rows, num_features = X.shape[-2:]
     num_classes = W4.shape[-1]
     weighted = weights is not None
-    tile_rows, _ = _loss_tiling(num_features, num_classes, trial=True, weighted=weighted)
+    shared_rows = X.dim() == 2 and y.dim() == 1
+    layout = _k7_launch_layout(num_features, num_classes, jobs, shared_rows, True, weighted)
     chunks, per_chunk = kernels.row_chunks(rows)
     partials = torch.empty(
         (jobs, max(chunks, 1), _BACKTRACK_STEPS + int(weighted)),
@@ -228,7 +365,7 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
         W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
-        chunks, per_chunk, tile_rows,
+        chunks, per_chunk, ctypes.addressof(layout),
         X.device.index, _stream(X),
     )
     return out

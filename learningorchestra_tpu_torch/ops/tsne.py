@@ -228,8 +228,13 @@ def _stream(tensor):
 
 
 def conditional_affinities(X, perplexity: float):
-    """Each row's calibrated p (n, n), not yet symmetrised (K11)."""
+    """Each row's calibrated p (n, n), not yet symmetrised (K11). No rows
+    raise the reference's error: its calibration takes each row's maximum
+    over the columns (``:91``), a reduction that has no identity when
+    there are none."""
     _check_float32(X)
+    if X.shape[0] == 0:
+        raise ValueError("zero-size array to reduction operation max which has no identity")
     if X.device.type == "cpu":
         return _conditional_affinities(X, perplexity)
     kernels.check_operands(X)

@@ -350,3 +350,26 @@ def test_pca_of_fewer_than_two_rows_is_nan_and_of_two_is_not():
         assert torch.isnan(explained).all()
     embedded = port_pca.pca_embedding(np.array([[0.0, 1.0], [2.0, 5.0]]), device="cpu")
     assert np.isfinite(embedded).all()
+
+
+@pytest.mark.parametrize("method", ["tsne", "pca"])
+def test_a_dataset_that_dropna_empties_answers_as_the_reference(method, tmp_path):
+    """Every row holds a missing value, so ``dropna`` leaves none: the
+    reference's t-SNE fails in its calibration (a maximum over no columns)
+    and answers 500 with that error, no PNG and its claim released; its
+    PCA answers 201 with an empty plot. The port answers the same."""
+    columns = {
+        "a": [None, 1.0, 2.0], "b": [1.0, None, 3.0], "c": [1.0, 2.0, None],
+        "label": ["yes", "no", "yes"],
+    }
+    jax_store, port_store = stores(columns)
+    theirs = jax_images.create_app(jax_store, str(tmp_path / "jax"), method).test_client()
+    ours = images.create_app(port_store, str(tmp_path / "port"), method, device="cpu").test_client()
+    request = {f"{method}_filename": "empty", "label_name": "label"}
+    want = theirs.post("/images/numbers", json=request)
+    got = ours.post("/images/numbers", json=request)
+    assert got.status_code == want.status_code == (500 if method == "tsne" else 201)
+    assert got.data == want.get_data()
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
+    assert os.listdir(tmp_path / "port") == ([] if method == "tsne" else ["empty.png"])
+

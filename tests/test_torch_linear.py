@@ -193,15 +193,28 @@ def test_wrappers_take_the_plain_path_on_cpu_and_refuse_bad_operands():
 
 
 def test_loss_tiling_fits_a_block():
-    assert logistic._loss_tiling(16, 2) == (512, 35)
-    assert logistic._loss_tiling(16, 10) == (512, 171)
-    assert logistic._loss_tiling(16, 10, trial=True)[0] == 512
-    tile_rows, window = logistic._loss_tiling(200, 100)   # 20,101 cells: windows
-    assert window == logistic._WINDOW_CELLS and 64 <= tile_rows < 512
-    tile_rows, _ = logistic._loss_tiling(40_000, 10)      # one row in 160 KB
-    assert tile_rows == 1
-    with pytest.raises(ValueError):
-        logistic._loss_tiling(60_000, 10)
+    """K7's launch geometry (``_k7_geometry``: group, tile rows, sum form,
+    x in shared memory, parameters in shared memory) keeps a block within
+    the card's shared memory: a solo fit stages 256 rows a tile (its
+    trial losses 512), 20,100 cells take wide slots, rows of 40,000 and
+    60,000 features are read from global memory, and 2,000 classes keep
+    a window's classes' terms a block."""
+    def fits(F, C, trial=False, weighted=False):
+        geometry = logistic._k7_geometry(F, C, 1, False, trial=trial, weighted=weighted)
+        layout = logistic._k7_layout(F, C, *geometry, weighted=weighted, trial=trial)
+        assert layout["bytes"] <= kernels.SHARED_BYTES
+        return geometry[:4]
+
+    assert fits(16, 2) == (1, 256, logistic._NARROW, True)
+    assert fits(16, 10)[:2] == (1, 256)
+    assert fits(16, 10, trial=True)[:2] == (1, 512)   # 64 rows a warp
+    group, tile, form, _ = fits(200, 100)             # 20,100 cells: wide slots
+    assert form in (logistic._WIDE, logistic._WIDE_STAGED) and 16 <= tile < 256
+    assert fits(40_000, 10)[3] is False               # x from global memory
+    assert fits(60_000, 10, trial=True)[3] is False
+    form = fits(16, 2_000)[2]                         # 2,000 classes: windows of slots
+    assert logistic._stored_classes(16, 2_000, form) == 258
+    fits(16, 2_000, trial=True)
 
 
 # --------------------------------------------------------------------------
