@@ -261,13 +261,17 @@ DEVICE_KERNELS = {
     "tree_ensemble_forward": ("tree_ensemble_forward_kernel",),
     "gbt_forward": ("gbt_forward_kernel",),
     "apply_bins": ("apply_bins_kernel",),
-    "level_histograms": ("level_histograms_kernel", "sum_partials_kernel"),
+    # the counts path's memset of its output is part of its work
+    "level_histograms": (
+        "level_histograms_kernel", "sum_partials_kernel", "level_counts_kernel",
+        "counts_to_float_kernel", "Memset",
+    ),
     "select_splits": ("select_splits_kernel",),
     "route": ("route_kernel",),
     "leaf_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
     "logistic_loss_grad": ("loss_grad_kernel", "finish_kernel"),
     "logistic_trial_losses": ("trial_losses_kernel", "finish_kernel"),
-    "tsne_affinities": ("affinities_kernel",),
+    "tsne_affinities": ("distances_kernel", "affinities_kernel"),
     "tsne_z": ("z_pairs_kernel", "z_total_kernel"),
     "tsne_grad": ("gradient_pairs_kernel", "gradient_finish_kernel"),
     "tsne_interpolate": ("interpolate_kernel",),
@@ -622,14 +626,18 @@ def _trace_device_us(events, kernel_names, wall_ms: float) -> tuple[float, int]:
     return named_us / (last - first) * wall_ms * 1000.0, launches
 
 
-def _profile_device_us(torch, fn, kernel_names=None) -> tuple[float, int]:
+def _profile_device_us(torch, fn, kernel_names=None, event_clock: bool = True) -> tuple[float, int]:
     """Device microseconds and launches of the CUDA kernels whose names
     contain one of ``kernel_names``, or of every CUDA kernel when that is
     None, while ``fn`` runs: from the profiler's trace of the card, put on
     the clock of CUDA events recorded around ``fn`` (``_trace_device_us``).
     A spin kernel ahead of the start event (and out of the count) keeps
     the card busy until ``fn``'s first work is enqueued, so that the events
-    span the same time as ``fn``'s device events."""
+    span the same time as ``fn``'s device events. With ``event_clock``
+    False, the trace's own sum of every device event's time: for a
+    ``fn`` whose host work precedes its first device work (a fit's
+    thresholds), the events' span holds that host time too, and the
+    share of the trace's span would count it as busy."""
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -645,13 +653,16 @@ def _profile_device_us(torch, fn, kernel_names=None) -> tuple[float, int]:
         for event in prof.events()
         if "CUDA" in str(getattr(event, "device_type", "")) and "spin_kernel" not in event.name
     ]
+    if not event_clock:
+        return sum(end_us - start_us for _, start_us, end_us in events), len(events)
     return _trace_device_us(events, kernel_names, start.elapsed_time(end))
 
 
 def _busy_ms(torch, fn):
-    """Device milliseconds of every CUDA kernel in the trace of ``fn``;
-    None when the trace shows no device time (the profiler missed it)."""
-    total_us, _ = _profile_device_us(torch, fn)
+    """Device milliseconds of every device event (kernels, copies,
+    memsets) in the trace of ``fn``, on the trace's own clock; None when
+    the trace shows no device time (the profiler missed it)."""
+    total_us, _ = _profile_device_us(torch, fn, event_clock=False)
     return total_us / 1000.0 if total_us > 0 else None
 
 
@@ -981,13 +992,24 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
     cases = {}
     for mode, channels in _fit_channels(torch, y_dev, seed).items():
         node = torch.zeros(X_dev.shape[0], dtype=torch.int32, device=X_dev.device)
+        # dt's one-hots are integer channels (K2's counts path), gb's (g, h)
+        # are not (its sums path)
+        integer = mode == "gini"
         for level in range(DEPTH):
             n_nodes = 2**level
-            hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+            hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=integer)
             plain_hist = trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)
             errors["level_histograms"] = max(
                 errors["level_histograms"], _sums_error("level_histograms", mode, hist, plain_hist)
             )
+            if not torch.equal(
+                trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=integer), hist
+            ):
+                raise AssertionError(f"level_histograms ({mode}, level {level}): a second launch differs")
+            if integer and not torch.equal(
+                trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS), hist
+            ):
+                raise AssertionError(f"level_histograms (level {level}): the sums path's counts differ")
             feature, bin_index = trees.select_splits(plain_hist, mode)
             plain_feature, plain_bin = trees._select_plain(plain_hist, mode)
             if not (torch.equal(feature, plain_feature) and torch.equal(bin_index, plain_bin)):
@@ -999,7 +1021,8 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
             # the one-tree calls of dt and gb are a forest of one, bit for bit
             split = trees.select_splits(plain_hist[None], mode)
             if not (
-                torch.equal(trees.level_histograms(bins, node[None], channels[None], n_nodes, MAX_BINS)[0], hist)
+                torch.equal(trees.level_histograms(
+                    bins, node[None], channels[None], n_nodes, MAX_BINS, integer=integer)[0], hist)
                 and torch.equal(split[0][0], feature) and torch.equal(split[1][0], bin_index)
                 and torch.equal(trees.route(bins, node[None], plain_feature[None], plain_bin[None])[0], routed)
             ):
@@ -1040,13 +1063,13 @@ def check_forest_kernels(torch, bins, y_dev, seed: int = 6) -> dict:
     cases = {}
     for level in range(DEPTH):
         n_nodes = 2**level
-        hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+        hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=True)
         plain_hist = trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)
         errors["level_histograms"] = max(
             errors["level_histograms"], _sums_error("level_histograms (forest)", "gini", hist, plain_hist)
         )
         for tree in (0, TREES - 1):
-            alone = trees.level_histograms(bins, node[tree], channels[tree], n_nodes, MAX_BINS)
+            alone = trees.level_histograms(bins, node[tree], channels[tree], n_nodes, MAX_BINS, integer=True)
             if not torch.equal(alone, hist[tree]):
                 raise AssertionError(f"level_histograms (forest, level {level}): tree {tree} differs alone")
         scores = draws.subset_scores[:, n_nodes - 1 : 2 * n_nodes - 1]
@@ -1111,16 +1134,38 @@ def _check_wide_forest_level(torch, bins) -> dict:
     labels = torch.from_numpy(rng.integers(0, DEEP_CLASSES, rows)).to(bins.device)
     one_hot = torch.nn.functional.one_hot(labels, DEEP_CLASSES).to(torch.float32)
     channels = (one_hot[None] * bootstrap[:, :, None]).contiguous()
-    hist = trees.level_histograms(bins, node, channels, deep, MAX_BINS)
+    hist = trees.level_histograms(bins, node, channels, deep, MAX_BINS, integer=True)
     plain = trees._level_histograms(bins, node, channels, deep, MAX_BINS)
     error = _sums_error("level_histograms (forest, 2,048 nodes)", "gini", hist, plain)
+    for tree in (0, TREES - 1):
+        alone = trees.level_histograms(bins, node[tree], channels[tree], deep, MAX_BINS, integer=True)
+        if not torch.equal(alone, hist[tree]):
+            raise AssertionError(f"level_histograms (forest, 2,048 nodes): tree {tree} differs alone")
     del hist, plain
-    tiling = trees._block_features(FEATURES, deep, MAX_BINS, DEEP_CLASSES, 1)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=bins.device)
     return {
         "rows": rows, "trees": TREES, "nodes": deep, "channels": DEEP_CLASSES,
-        "windows": len(trees._windows(deep, tiling.nodes)), "max_abs_err": error,
-        "ms": _event_ms(torch, lambda: trees.level_histograms(bins, node, channels, deep, MAX_BINS), 2, flush),
+        "path": _histogram_path(rows, deep, DEEP_CLASSES, True), "max_abs_err": error,
+        "ms": _event_ms(
+            torch, lambda: trees.level_histograms(bins, node, channels, deep, MAX_BINS, integer=True), 2, flush
+        ),
+    }
+
+
+def _histogram_path(rows: int, n_nodes: int, channels: int, integer: bool, max_bins: int = MAX_BINS,
+                    bin_bytes: int = 1) -> dict:
+    """How K2 covers a level of this shape: the counts path's chunks and
+    whether it counts in shared memory, or the sums path's chunks and its
+    windows of nodes, feature blocks and passes."""
+    if integer:
+        tiling = trees._count_tiling(rows, FEATURES, n_nodes, max_bins, channels, bin_bytes)
+        return {"path": "counts", "chunks": tiling.chunks, "in_shared": tiling.in_shared,
+                "block_features": tiling.block_features}
+    tiling = trees._block_features(FEATURES, n_nodes, max_bins, channels, bin_bytes)
+    return {
+        "path": "sums", "chunks": trees._sum_chunks(rows, n_nodes, max_bins)[0],
+        "node_windows": -(-n_nodes // tiling.nodes), "feature_blocks": -(-FEATURES // tiling.block_features),
+        "passes": -(-max_bins // tiling.bins) * -(-channels // tiling.channels),
     }
 
 
@@ -1153,7 +1198,7 @@ def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
     for level in range(4):
         plain = {}
         for mode, values in channels.items():
-            hist = trees.level_histograms(bins, node, values, 2**level, 255)
+            hist = trees.level_histograms(bins, node, values, 2**level, 255, integer=mode == "gini")
             plain[mode] = trees._level_histograms(bins, node, values, 2**level, 255)
             errors["level_histograms"] = max(
                 errors["level_histograms"],
@@ -1173,16 +1218,17 @@ def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
     leaf = torch.from_numpy(rng.integers(0, 2 * deep, X.shape[0]).astype(np.int32)).cuda()
     timings = {}
     for mode, values in channels.items():
-        K = values.shape[1]
-        hist = trees.level_histograms(bins, node, values, deep, MAX_BINS)
+        K, integer = values.shape[1], mode == "gini"
+        hist = trees.level_histograms(bins, node, values, deep, MAX_BINS, integer=integer)
         plain = trees._level_histograms(bins, node, values, deep, MAX_BINS)
         errors["level_histograms"] = max(
             errors["level_histograms"], _sums_error("level_histograms (2,048 nodes)", mode, hist, plain)
         )
-        tiling = trees._block_features(FEATURES, deep, MAX_BINS, K, 1)
         timings[f"level_histograms:{deep}x{K}"] = {
-            "ms": _event_ms(torch, lambda: trees.level_histograms(bins, node, values, deep, MAX_BINS), 3),
-            "windows": len(trees._windows(deep, tiling.nodes)),
+            "ms": _event_ms(
+                torch, lambda: trees.level_histograms(bins, node, values, deep, MAX_BINS, integer=integer), 3
+            ),
+            **_histogram_path(X.shape[0], deep, K, integer),
         }
     sums = trees.leaf_sums(leaf, channels["gini"], 2 * deep)
     plain = trees._leaf_sums(leaf, channels["gini"], 2 * deep)
@@ -1324,6 +1370,77 @@ def check_logistic_kernels(torch, X: np.ndarray, y: np.ndarray, flush) -> dict:
     return results
 
 
+def _same_bits(got, want) -> bool:
+    """Tensors equal, NaN where NaN."""
+    return all(
+        bool((a.isnan() == c.isnan()).all()) and bool((a.nan_to_num() == c.nan_to_num()).all())
+        for a, c in zip(got, want)
+    )
+
+
+def check_k7_empty(torch) -> dict:
+    """K7 where the reference's gradient is no quotient of sums. No rows:
+    the loss is NaN and the data term's gradient 0 (``jax.grad`` of the
+    reference's mean contracts over no rows, which is 0 before any
+    division), so dW is the L2 term's l2 W and db 0: solo, and a group of
+    three jobs that share their (no) rows. Rows whose weights are all 0:
+    loss and gradient NaN, as the reference's: job 1 of one launch of three
+    jobs with rows, the others bit-equal to their launches alone and
+    within K7_LOSS_RTOL and K7_GRAD_ATOL of the plain twin. The no-row
+    cases held against the plain twin bit for bit, NaN where NaN."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(11)
+
+    def cuda(array):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+    W = cuda((rng.normal(size=(3, FEATURES, CLASSES)) * 0.3).astype(np.float32))
+    b = cuda((rng.normal(size=(3, CLASSES)) * 0.3).astype(np.float32))
+    l2s = cuda(np.array([0.0, 0.1, 0.5], np.float32))
+    X0 = torch.empty((0, FEATURES), dtype=torch.float32, device=device)
+    y0 = torch.empty((0,), dtype=torch.int32, device=device)
+    record = {}
+    solo = logistic.loss_and_grad(W[1], b[1], X0, y0, 0.1)
+    jobs = logistic.job_loss_and_grad(W, b, X0, y0, None, l2s)
+    torch.cuda.synchronize()
+    if not (
+        _same_bits(solo, logistic._loss_fn(W[1], b[1], X0, y0, 0.1))
+        and _same_bits(jobs, logistic._job_loss_fn(W, b, X0, y0, None, l2s))
+    ):
+        raise AssertionError("logistic_loss_grad (no rows): the kernel differs from the plain twin")
+    if not (
+        bool(solo[0].isnan()) and torch.equal(solo[1], 0.1 * W[1]) and bool((solo[2] == 0).all())
+        and bool(jobs[0].isnan().all()) and torch.equal(jobs[1], l2s[:, None, None] * W)
+        and bool((jobs[2] == 0).all())
+    ):
+        raise AssertionError("logistic_loss_grad (no rows): not a NaN loss and the L2 term's gradient")
+    record["no_rows"] = {"solo": True, "group_of_3": True, "geometry": logistic._k7_geometry(
+        FEATURES, CLASSES, 3, True)}
+    rows = K7_WIDE_ROWS
+    X = cuda(rng.normal(size=(rows, FEATURES)).astype(np.float32))
+    y = cuda(rng.integers(0, CLASSES, size=(3, rows)).astype(np.int32))
+    weights = cuda(np.stack([np.ones(rows, np.float32), np.zeros(rows, np.float32),
+                             (rng.random(rows) < 0.8).astype(np.float32)]))
+    got = logistic.job_loss_and_grad(W, b, X, y, weights, l2s)
+    want = logistic._job_loss_fn(W, b, X, y, weights, l2s)
+    if not (all(bool(part[1].isnan().all()) for part in (*got, *want))
+            and all(bool(part[j].isfinite().all()) for part in (*got, *want) for j in (0, 2))):
+        raise AssertionError("logistic_loss_grad (zero weights): job 1 is not NaN, or another job is")
+    live = torch.tensor([0, 2], device=device)
+    loss_rel = float(((got[0][live] - want[0][live]).abs() / want[0][live].abs()).max())
+    grad_err = max(float((got[i][live] - want[i][live]).abs().max()) for i in (1, 2))
+    if not loss_rel <= K7_LOSS_RTOL or not grad_err <= K7_GRAD_ATOL:
+        raise AssertionError(
+            f"logistic_loss_grad (zero weights): loss {loss_rel} relative, gradient {grad_err}")
+    for j in (0, 2):
+        alone = logistic.job_loss_and_grad(
+            W[j:j + 1], b[j:j + 1], X, y[j:j + 1], weights[j:j + 1], l2s[j:j + 1])
+        if not all(torch.equal(part[j], one[0]) for part, one in zip(got, alone)):
+            raise AssertionError(f"logistic_loss_grad (zero weights): job {j} differs alone")
+    record["zero_weights"] = {"jobs": 3, "nan_job": 1, "others_bit_equal_alone": True}
+    return record
+
+
 # K7 past the sweep's width, each entry point alone: rows too wide for
 # shared memory (read from global memory, the wide form unstaged, slot
 # windows), classes past the registers (logits recomputed, windows) and
@@ -1437,11 +1554,12 @@ def phase_fit_kernels(torch) -> dict:
         weights = [channels[:, k : k + 1].expand(rows, FEATURES).reshape(-1) for k in range(K)]
         timed(
             "level_histograms", key,
-            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=mode == "gini"),
             lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
             lambda: [torch.bincount(flat, weights=w, minlength=n_nodes * FEATURES * MAX_BINS) for w in weights],
             n_nodes, K,
         )
+        results["level_histograms"]["by_level"][key]["k2_path"] = _histogram_path(rows, n_nodes, K, mode == "gini")
         timed(
             "select_splits", key,
             lambda: trees.select_splits(hist, mode),
@@ -1486,7 +1604,7 @@ def phase_fit_kernels(torch) -> dict:
         cells = TREES * n_nodes * FEATURES * MAX_BINS
         timed(
             "level_histograms", key,
-            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=True),
             lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
             lambda: [torch.bincount(flat, weights=w, minlength=cells) for w in weights],
             n_nodes, K, trees_=TREES,
@@ -1525,6 +1643,7 @@ def phase_fit_kernels(torch) -> dict:
         "phase": "fit-kernels", "rows": rows, "features": FEATURES, "max_bins": MAX_BINS,
         **results, "repairs": repairs, "forest_checks": forest_checks,
         "k7_wide": check_k7_wide(torch),
+        "k7_empty": check_k7_empty(torch),
     })
     return results
 
@@ -1539,12 +1658,18 @@ def _plain_level_loop():
     versions in place of its kernels, on any device: the yardstick that a
     fit by the kernels is held to. Raises if a kernel launched."""
     with _plain(trees, {
-        "level_histograms": trees._level_histograms,
+        "level_histograms": _plain_histograms,
         "select_splits": trees._select_plain,
         "route": trees._route,
         "leaf_sums": trees._leaf_sums,
     }):
         yield
+
+
+def _plain_histograms(bins, node, channels, n_nodes, max_bins, integer=False):
+    """K2's plain version in the wrappers' signature (the plain version's
+    float64 sums are the same for integer channels and any others)."""
+    return trees._level_histograms(bins, node, channels, n_nodes, max_bins)
 
 
 @contextlib.contextmanager
@@ -2580,6 +2705,11 @@ JOB_KERNELS = {
         "learningorchestra_tpu/ml/trees.py:66 _level_histograms, vmapped in "
         "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
     ),
+    "select_splits:jobs": (
+        "select_splits", FIT_SOURCE,
+        "learningorchestra_tpu/ml/trees.py:160 _gini_gain and :196 _select_splits, vmapped in "
+        "learningorchestra_tpu/ml/sweep.py:263 _dt_fused",
+    ),
     "route:jobs": (
         "route", FIT_SOURCE,
         "learningorchestra_tpu/ml/trees.py:235 _route, vmapped in "
@@ -2768,7 +2898,7 @@ def check_k7_groups(torch, X_std, y_dev, mask) -> dict:
 
 
 def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> dict:
-    """K7, K1, K2 (each job's own bins), K4, K5 and K6 over JOB_CHECK_JOBS
+    """K7, K1, K2 (each job's own bins), K3, K4, K5 and K6 over JOB_CHECK_JOBS
     jobs, each job its own rows (the main rows rolled a job apart, so
     every job has its own padded rows), parameters and λ: each job's
     output bit-equal to a launch over that job alone, and within the
@@ -2827,12 +2957,18 @@ def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> d
     n_nodes, n_leaves = 16, 2**DEPTH
     node = on_card(rng.integers(0, n_nodes, (J, rows)).astype(np.int32))
     channels = (torch.nn.functional.one_hot(ys.long(), CLASSES).to(torch.float32) * ms[..., None]).contiguous()
-    hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS)
+    hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=True)
     _bit_equal_per_job("level_histograms:jobs", (hist,), lambda j: (trees.level_histograms(
-        bins[j:j + 1], node[j:j + 1], channels[j:j + 1], n_nodes, MAX_BINS),))
+        bins[j:j + 1], node[j:j + 1], channels[j:j + 1], n_nodes, MAX_BINS, integer=True),))
     if not torch.equal(hist, trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS)):
         raise AssertionError("level_histograms:jobs: class counts differ from the plain version")
     errors["level_histograms:jobs"] = 0.0
+    chosen = trees.select_splits(hist, "gini")
+    _bit_equal_per_job("select_splits:jobs", chosen, lambda j: trees.select_splits(hist[j:j + 1], "gini"))
+    plain_chosen = trees._select_plain(hist, "gini")
+    if not all(torch.equal(a, c) for a, c in zip(chosen, plain_chosen)):
+        raise AssertionError("select_splits:jobs: splits differ from the plain version")
+    errors["select_splits:jobs"] = 0.0
     feature = on_card(rng.integers(-1, FEATURES, (J, n_nodes)).astype(np.int32))
     split = on_card(rng.integers(0, MAX_BINS, (J, n_nodes)).astype(np.int32))
     routed = trees.route(bins, node, feature, split)
@@ -2870,8 +3006,9 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
     """Each job-axis kernel at the main path's shapes, cold (L2
     overwritten before each call), beside its bound and its plain
     version: K7 over the λ sweep's 112 slots of 1,048,576 rows, one shared
-    X, weighted; K1, K2, K4, K5 and K6 over the depth sweep's 8 slots,
-    one shared X (K2, K4: each slot's own bins, a 16-node level; K5: 256
+    X, weighted; K1, K2, K3, K4, K5 and K6 over the depth sweep's 8 slots,
+    one shared X (K2, K4: each slot's own bins, a 16-node level; K3 on K2's
+    16-node histograms; K5: 256
     leaves; K6: depth 8 on the shared eval rows)."""
     from learningorchestra_tpu_torch.ml import sweep
 
@@ -2945,6 +3082,7 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
     cell_weights = [channels[:, :, k : k + 1].expand(J, rows, FEATURES).reshape(-1) for k in range(CLASSES)]
     leaf_index = (job_ids * n_leaves + leaf.long()).reshape(-1)
     leaf_weights = [channels[:, :, k].reshape(-1) for k in range(CLASSES)]
+    hist = trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=True)
     results.update({
         "apply_bins:jobs": timed(
             "apply_bins:jobs",
@@ -2955,11 +3093,17 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
         ),
         "level_histograms:jobs": timed(
             "level_histograms:jobs",
-            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS),
+            lambda: trees.level_histograms(bins, node, channels, n_nodes, MAX_BINS, integer=True),
             lambda: trees._level_histograms(bins, node, channels, n_nodes, MAX_BINS),
             _job_bound("level_histograms", rows, J, n_nodes=n_nodes),
             lambda: [torch.bincount(flat, weights=w, minlength=J * n_nodes * FEATURES * MAX_BINS)
                      for w in cell_weights],
+        ),
+        "select_splits:jobs": timed(
+            "select_splits:jobs",
+            lambda: trees.select_splits(hist, "gini"),
+            lambda: trees._select_plain(hist, "gini"),
+            _job_bound("select_splits", rows, J, n_nodes=n_nodes),
         ),
         "route:jobs": timed(
             "route:jobs",
@@ -2982,10 +3126,12 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
         ),
     })
     del flat, cell_weights, leaf_index, leaf_weights, X_columns
-    for name in ("apply_bins:jobs", "level_histograms:jobs", "route:jobs", "leaf_sums:jobs"):
+    for name in ("apply_bins:jobs", "level_histograms:jobs", "select_splits:jobs", "route:jobs",
+                 "leaf_sums:jobs"):
         results[name].update(jobs=J, rows=rows, x_shared=name == "apply_bins:jobs")
     results["tree_ensemble_forward:jobs"].update(jobs=J, rows=rows_e, x_shared=True, depth=depth)
     results["level_histograms:jobs"]["nodes"] = results["route:jobs"]["nodes"] = n_nodes
+    results["select_splits:jobs"]["nodes"] = n_nodes
     results["leaf_sums:jobs"]["leaves"] = n_leaves
     return results
 
@@ -3367,6 +3513,7 @@ PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "s
 NO_LIBRARY = {
     "logistic_loss_grad:jobs": "no PyTorch call gives a masked mean nll with its gradient, per job",
     "logistic_trial_losses:jobs": "no PyTorch call gives the masked nll at four points, per job",
+    "select_splits:jobs": "no PyTorch call picks a node's best gini split over (feature, bin)",
     "route:jobs": "no PyTorch call routes rows down a split heap",
     "tree_ensemble_forward:jobs": "no PyTorch call computes a tree-ensemble forward",
     "lr_fused_segment": "no PyTorch call runs an L-BFGS segment",

@@ -180,13 +180,22 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_longlong, c_longlong,       # jobs; X's and thresholds' job strides
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
+    lib.lo_level_counts.argtypes = [
+        ptr, c_int, ptr, ptr, ptr,           # bins, bin bytes, node, channels, out
+        c_int, c_int, c_int, c_int, c_int,   # rows, F, nodes, bins, channels
+        c_int, c_longlong,                   # trees, bins' stride along the tree axis
+        c_int, c_int,                        # chunks, rows/chunk
+        c_int, c_int,                        # features/block, counts in shared
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
     lib.lo_level_histograms.argtypes = [
-        ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, channels, partials, out
+        ptr, c_int, ptr, ptr, ptr,           # bins, bin bytes, node, channels, partials
+        ptr, ptr, ptr,                       # order and window begins (or null), out
         c_int, c_int, c_int, c_int, c_int,   # rows, F, nodes, bins, channels
         c_int, c_longlong,                   # trees, bins' stride along the tree axis
         c_int, c_int,                        # chunks, rows/chunk
         c_int, c_int, c_int,                 # window: nodes, bins, channels
-        c_int, c_int,                        # features/block, tile
+        c_int,                               # features/block
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_select_splits.argtypes = [
@@ -208,7 +217,9 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, c_int,                 # window: leaves, channels; warps
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
-    for entry in ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums"):
+    for entry in (
+        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_sums"
+    ):
         getattr(lib, f"lo_{entry}").restype = c_int
     return _bind_errors(lib)
 
@@ -240,7 +251,8 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lo_tsne_affinities.argtypes = [
         ptr, ptr,                            # X, P
-        c_int, c_int, c_float, c_int,        # n, F, target entropy, distances in shared
+        c_int, c_int, c_float,               # n, F, target entropy
+        c_int, c_int, c_int,                 # rows a block, threads, distances in shared
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_tsne_z.argtypes = [

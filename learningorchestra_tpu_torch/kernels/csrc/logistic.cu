@@ -922,8 +922,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 // partials[chunk][i]) / denominator, rounded once to float32, for the
 // `cells` outputs of the job. The denominator is `rows`, or, `weighted`,
 // the chunk-ordered sum of the partials' last cell (the weights), which
-// follows the outputs. No chunks (no rows) give 0 / 0 = NaN, as the
-// reference's mean over no rows does.
+// follows the outputs. No chunks (no rows) give a loss of 0 / 0 = NaN, as
+// the reference's mean over no rows does, and a gradient of 0 in its first
+// `gradient_cells` outputs: jax.grad of that mean contracts the cotangent
+// over no rows, which is 0 before any division.
 __device__ __forceinline__ double sum_chunks(const double* __restrict__ partials,
                                              int chunks, int stride, int i) {
   // in chunk order, the loads issued sixteen at a time
@@ -944,7 +946,7 @@ __device__ __forceinline__ double sum_chunks(const double* __restrict__ partials
 
 __global__ void __launch_bounds__(kThreads)
     finish_kernel(const double* __restrict__ partials, float* __restrict__ out,
-                  int chunks, int cells, double rows, int weighted) {
+                  int chunks, int cells, int gradient_cells, double rows, int weighted) {
   const int stride = cells + weighted;
   partials += static_cast<size_t>(blockIdx.y) * chunks * stride;
   out += static_cast<size_t>(blockIdx.y) * cells;
@@ -952,8 +954,10 @@ __global__ void __launch_bounds__(kThreads)
       weighted ? sum_chunks(partials, chunks, stride, cells) : rows;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < cells;
        i += gridDim.x * blockDim.x)
-    out[i] = __double2float_rn(
-        __ddiv_rn(sum_chunks(partials, chunks, stride, i), denominator));
+    out[i] = chunks == 0 && i < gradient_cells
+                 ? 0.0f
+                 : __double2float_rn(
+                       __ddiv_rn(sum_chunks(partials, chunks, stride, i), denominator));
 }
 
 typedef void (*K7Kernel)(const float*, const int*, const float*, const float*, const float*,
@@ -1047,7 +1051,7 @@ int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
       const int finish_jobs = std::min(kMaxGridYZ, launch_jobs - g0);
       finish_kernel<<<dim3(grid_for(cells, max_blocks), finish_jobs), kThreads, 0, s>>>(
           launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * partial_cells,
-          out + static_cast<size_t>(j0 + g0) * cells, chunks, cells,
+          out + static_cast<size_t>(j0 + g0) * cells, chunks, cells, F * C + C,
           static_cast<double>(rows), weighted);
       error = cudaGetLastError();
       if (error != cudaSuccess) return error;
@@ -1099,7 +1103,7 @@ int lo_logistic_trial_losses(const float* X, const int* y,
       const int finish_jobs = std::min(kMaxGridYZ, launch_jobs - g0);
       finish_kernel<<<dim3(1, finish_jobs), kThreads, 0, s>>>(
           launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * sums,
-          out + static_cast<size_t>(j0 + g0) * kCandidates, chunks, kCandidates,
+          out + static_cast<size_t>(j0 + g0) * kCandidates, chunks, kCandidates, 0,
           static_cast<double>(rows), weighted);
       error = cudaGetLastError();
       if (error != cudaSuccess) return error;

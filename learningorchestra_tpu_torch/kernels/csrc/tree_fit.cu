@@ -18,6 +18,10 @@
 // F = 16 features, B = 32 bins, depth 5, K = 2 channels):
 //   - K1 reads X (64 MB) and writes int8 bins (16 MB): ~24 us of bytes.
 //   - K2 reads bins, node and channels once per level (28 MB): ~8.4 us.
+//     Its counts path also zeroes, flushes and rounds the output (a
+//     level's 64 KB) and its sums path writes and reads a chunk's float64
+//     partials (at most its rows' cells): costs the design is charged
+//     with, the bound unchanged.
 //   - K4 reads node, one bin of each row whose node splits, and writes
 //     node (at most 9 MB): ~2.7 us.
 //   - K3 reads a histogram of at most 64 KB: launch latency.
@@ -27,19 +31,24 @@
 // A dt sweep's level (J jobs, each with its own bins) reads J times what
 // one tree's does: at J = 8 slots of 1,048,576 rows, K1 moves 671 MB
 // (~200 us) and K2 224 MB a level (~67 us).
-// These kernels are the simple versions, written to be right first; none
-// is tuned to its bound yet.
+// K2 is designed for the card (its two paths are described at their
+// kernels below); the others are the simple versions, written to be
+// right first.
 //
 // Design and numerics:
 //   - Deterministic. A resumed or coalesced fit must rerun bit for bit,
 //     and K3 takes an argmax over K2's sums, so no float sum depends on
 //     the order in which threads happen to run: there are no float
-//     atomics. K2 and K5 split the rows into fixed chunks (a function of
-//     the row count alone). In a chunk, a warp walks its rows 32 at a time
-//     in order; lanes whose rows fall in one histogram cell are grouped
-//     (__match_any_sync) and one lane adds the group in row order, into
-//     cells no other warp touches. A second kernel adds the chunks'
-//     partial histograms in chunk order.
+//     atomics. K2 takes integer channels (the gini fits') as integer
+//     counts, exact in any order, and any other channels (gb's) as
+//     float64 sums in an order fixed by the rows: fixed chunks (a function
+//     of the level's shape alone), each warp's part of a chunk in row
+//     order, the warps' parts and then the chunks added in order. K5 splits
+//     the rows into fixed chunks (a function of the row count alone); in a
+//     chunk a warp walks its rows 32 at a time in order, lanes whose rows
+//     fall in one cell grouped (__match_any_sync) and one lane adding the
+//     group in row order, into cells no other warp touches; a second
+//     kernel adds the chunks' partials in chunk order.
 //   - Accurate sums. The float32 channels are summed in float64 and each
 //     sum is rounded once to float32, as the plain versions do: a float32
 //     sum in row order drifts by ~1e-5 relative over a few thousand rows,
@@ -58,13 +67,15 @@
 //   - Bins are int8 while max_bins <= 127 and int32 above, as the
 //     reference's (ml/binning.py:54): K1 writes either, K2 and K4 read
 //     either (a template on the bin type; `bin_bytes` picks it).
-//   - Any level width. K2 keeps one feature's float64 histogram of a
-//     window of (node, bin, channel) cells in a block's shared memory;
-//     when a level's whole histogram does not fit, the entry point runs
-//     one pass per window, and rows whose cell lies outside the window
-//     are skipped. K5 does the same over (leaf, channel) windows. A
-//     cell's sum takes its rows in the same order in every window, so
-//     the result does not depend on the windows.
+//   - Any level width. K2's counts path counts a block's features in
+//     shared memory while one feature's cells fit its share, else straight
+//     into the output in global memory. Its sums path keeps a window of
+//     (node, bin, channel) cells of a block's features in shared memory,
+//     the windows of nodes and the feature blocks as blocks of one launch
+//     and windows of bins or channels as passes; rows whose cell lies
+//     outside the window are skipped. K5 runs one pass per window of
+//     (leaf, channel) cells. A cell's sum takes its rows in the same order
+//     in every window, so the result does not depend on the windows.
 //   - A tree axis. K2, K4 and K5 take T trees in one launch: each tree
 //     has its own node and channels (its own bootstrap weights), and the
 //     trees read one bins matrix (K2 and K4 take the bins' stride along
@@ -84,6 +95,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <algorithm>
 
@@ -94,13 +106,21 @@ constexpr int kThreads = 256;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 constexpr int kGini = 0;
 constexpr int kNewton = 1;
+// K2's sums path: warps a block, each with its own copy of the cells
+constexpr int kSumWarps = 8;
+constexpr int kSumThreads = 32 * kSumWarps;
 
+// Past the default 48 KB, a kernel's dynamic shared memory is allowed up
+// to `bytes`, and its SMs are asked for their largest shared-memory
+// carveout, so that several blocks of that size fit one SM.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= kDefaultSharedBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  const cudaError_t error = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (error != cudaSuccess) return error;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 int round_up_warp(int n) { return ((n + 31) / 32) * 32; }
@@ -195,23 +215,294 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Block (chunk, feature block, tree): the partial histogram of the
-// chunk's rows over `block_features` features and the cells of window
-// `w`, laid out like the output (node, feature, bin, channel), from the
-// tree's nodes and channels and the bins at the tree's offset
-// `bins_tree_stride` (0: the trees share one bins matrix). All warps stage
-// the rows; warp w < block_features owns feature w of the block and walks
-// the chunk's rows 32 at a time, in order: the lanes whose rows share a
-// (node, bin) cell find each other with __match_any_sync, and the lowest
-// of them adds the group's channels, in row order, into the cell. No two
-// threads ever add into one cell. Rows whose node or bin lies outside the
-// window are skipped.
+// A row's bins of features [f_begin, f_begin + fb), each given to
+// `visit(f - f_begin, bin)` in feature order: as 16-byte words when
+// `vector` (the row, f_begin and fb fall on 16 bytes), else one by one.
+__device__ __forceinline__ int bin_at(const uint4& word, int i, int8_t) {
+  const unsigned part = i < 4 ? word.x : i < 8 ? word.y : i < 12 ? word.z : word.w;
+  return static_cast<int8_t>(part >> (8 * (i & 3)));
+}
+__device__ __forceinline__ int bin_at(const uint4& word, int i, int32_t) {
+  return static_cast<int32_t>(i == 0 ? word.x : i == 1 ? word.y : i == 2 ? word.z : word.w);
+}
+
+template <typename Bin, typename Visit>
+__device__ __forceinline__ void for_row_bins(const Bin* __restrict__ row, int f_begin,
+                                             int fb, bool vector, Visit visit) {
+  if (vector) {
+    constexpr int kPerWord = 16 / sizeof(Bin);
+    const uint4* words = reinterpret_cast<const uint4*>(row + f_begin);
+    for (int f0 = 0; f0 < fb; f0 += kPerWord) {
+      const uint4 word = __ldg(words + f0 / kPerWord);
+#pragma unroll
+      for (int i = 0; i < kPerWord; ++i) visit(f0 + i, bin_at(word, i, Bin()));
+    }
+  } else {
+    for (int f = 0; f < fb; ++f) visit(f, static_cast<int>(__ldg(row + f_begin + f)));
+  }
+}
+
+// ---------------------------------------------------------------- K2, counts
+//
+// The gini fits' channels are class one-hots times integer weights (dt's
+// ones, the forest's Poisson counts, a sweep's 0/1 masks), and their
+// callers say so. Their sums are integers, exact in any order, so the
+// counts path adds them as integers: the order of the adds cannot show,
+// and any thread may add into any cell.
+//   - Block (chunk, feature block, tree); every thread walks rows (a row a
+//     thread, its bins as 16-byte words), and adds each nonzero channel
+//     of each of the block's features into its cell with a shared-memory
+//     atomic on a 32-bit count.
+//   - The block then adds each cell it touched into the level's counts
+//     with one global atomic (coalesced): no partials a chunk. A chunk
+//     takes at least 4 rows for each cell of a feature, so the flush is
+//     at most a quarter of the adds.
+//   - Where one feature's cells do not fit a block, every thread adds
+//     straight into the level's counts in global memory: no windows, no
+//     row read twice.
+//   - The counts are the output's own bytes (zeroed first); a last kernel
+//     rounds each count to float32 in place, which is the float64 sum
+//     rounded once.
+//   - The claim is checked value by value: a channel that is not an
+//     integer in [0, 65536), or a count that passes 2^32, traps (a
+//     device-side error, raised by PyTorch at the next synchronization).
+
+constexpr int kCountThreads = 512;
+constexpr float kCountLimit = 65536.0f;
+
+__device__ __forceinline__ unsigned count_of(float value) {
+  if (!(value >= 0.0f && value < kCountLimit && value == truncf(value))) {
+    printf("lo_level_counts: channel value %g is not an integer in [0, 65536)\n", value);
+    __trap();
+  }
+  return static_cast<unsigned>(value);
+}
+
+__device__ __forceinline__ void add_count(unsigned* __restrict__ cell, unsigned value) {
+  const unsigned before = atomicAdd(cell, value);
+  if (before + value < before) {
+    printf("lo_level_counts: a count passes 2^32\n");
+    __trap();
+  }
+}
+
+template <typename Bin, bool kShared>
+__global__ void __launch_bounds__(kCountThreads) level_counts_kernel(
+    const Bin* __restrict__ bins, const int* __restrict__ node,
+    const float* __restrict__ channels, unsigned* __restrict__ counts, int rows,
+    int num_features, int n_nodes, int max_bins, int num_channels,
+    int rows_per_chunk, int block_features, int vector, long long bins_tree_stride) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  unsigned* hist = reinterpret_cast<unsigned*>(shared);  // (node, f, bin, k)
+  const long long tree = blockIdx.z;
+  const int F = num_features, B = max_bins, K = num_channels;
+  bins += tree * bins_tree_stride;
+  node += tree * rows;
+  channels += tree * rows * K;
+  counts += tree * n_nodes * F * B * K;
+  const int f_begin = blockIdx.y * block_features;
+  const int fb = min(block_features, F - f_begin);
+  const int run = fb * B * K;  // a node's cells of the block's features
+  if (kShared) {
+    for (int i = threadIdx.x; i < n_nodes * run; i += blockDim.x) hist[i] = 0u;
+    __syncthreads();
+  }
+  const int row_begin = blockIdx.x * rows_per_chunk;
+  const int row_end = min(rows, row_begin + rows_per_chunk);
+  for (int r = row_begin + threadIdx.x; r < row_end; r += blockDim.x) {
+    const int nd = __ldg(node + r);
+    if (nd < 0 || nd >= n_nodes) continue;
+    for (int k = 0; k < K; ++k) {
+      const unsigned value = count_of(__ldg(channels + static_cast<size_t>(r) * K + k));
+      if (value == 0u) continue;
+      for_row_bins(bins + static_cast<size_t>(r) * F, f_begin, fb, vector != 0,
+                   [&](int f, int b) {
+                     if (f >= fb || b < 0 || b >= B) return;
+                     if (kShared)
+                       atomicAdd(hist + (nd * fb + f) * B * K + b * K + k, value);
+                     else
+                       add_count(counts + ((static_cast<long long>(nd) * F + f_begin + f) *
+                                               B + b) * K + k,
+                                 value);
+                   });
+    }
+  }
+  if (!kShared) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_nodes * run; i += blockDim.x) {
+    const unsigned value = hist[i];
+    if (value != 0u)
+      add_count(counts + (static_cast<long long>(i / run) * F + f_begin) * B * K + i % run,
+                value);
+  }
+}
+
+// Each count rounded once to float32, in place.
+__global__ void __launch_bounds__(kThreads)
+    counts_to_float_kernel(float* __restrict__ out, long long cells) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < cells; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[i] = __uint2float_rn(reinterpret_cast<const unsigned*>(out)[i]);
+}
+
+// Copies of 16 and 4 bytes from global into shared memory that do not
+// wait for their data; async_wait_all waits for all of this thread's.
+__device__ __forceinline__ void copy_async16(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async4(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- K2, sums
+//
+// Channels of any float values (gb's Newton (g, h)): float64 sums in an
+// order fixed by the rows. No lane waits on another's adds:
+//   - Block (chunk, node window and feature block, tree) of kSumWarps
+//     warps. The block's rows are the chunk's or, at a level of several
+//     windows, the chunk's rows of its window (partition_rows_kernel lists
+//     them window by window first, so a window's blocks read only its rows).
+//     Warp w walks its own contiguous part of them, in order, into its own
+//     copy of the window's cells; a lane owns (feature, channel) items of a
+//     row (lane, lane + 32, ...), so no two lanes ever add into one cell
+//     and one lane adds a cell's rows in row order. A warp stages its rows
+//     128 at a time in its own shared memory (their nodes first, then their
+//     bins, as 16-byte words where they fall on 16 bytes, and channels by
+//     cp.async, all in flight together) and takes them one by one.
+//   - A cell's partial of a chunk is its warps' row-order sums (each from
+//     0) added in warp order; the chunks' partials are added in chunk
+//     order (sum_partials_kernel). Windows of nodes and feature blocks are
+//     blocks of one launch; windows of bins or channels, for levels whose
+//     one node and feature does not fit a block, are passes. A chunk takes
+//     at least 32 rows a (node, bin) of a feature, so a warp's adds
+//     outnumber the cells of its copy and a deep level's partials do not
+//     outgrow its rows.
+
+// The sums path's partition of a level's rows by node window, for levels
+// of several windows: block (chunk, tree) of kSumWarps warps, warp w
+// counting then placing the w-th contiguous part of the chunk's rows. The
+// chunk's rows go into order[chunk's first row ..] window by window, each
+// window's in row order; window_begin[(tree, chunk)][window] is the first
+// place of each window and [windows] the end. Rows of no window (a node
+// outside the level) are left out. The (window, warp) counts sit in shared
+// memory, window-major, and become their first places by a block scan.
+__device__ int block_exclusive_scan(int* values, int n, int* scratch) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const int per_thread = (n + blockDim.x - 1) / blockDim.x;
+  const int begin = min(n, static_cast<int>(threadIdx.x) * per_thread);
+  const int end = min(n, begin + per_thread);
+  int sum = 0;
+  for (int i = begin; i < end; ++i) sum += values[i];
+  int inclusive = sum;
+  for (int offset = 1; offset < 32; offset <<= 1) {
+    const int other = __shfl_up_sync(0xffffffffu, inclusive, offset);
+    if (lane >= offset) inclusive += other;
+  }
+  if (lane == 31) scratch[warp] = inclusive;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < warps ? scratch[lane] : 0;
+    int running = own;
+    for (int offset = 1; offset < 32; offset <<= 1) {
+      const int other = __shfl_up_sync(0xffffffffu, running, offset);
+      if (lane >= offset) running += other;
+    }
+    if (lane < warps) scratch[lane] = running - own;
+    if (lane == warps - 1) scratch[32] = running;
+  }
+  __syncthreads();
+  int place = scratch[warp] + inclusive - sum;
+  for (int i = begin; i < end; ++i) {
+    const int value = values[i];
+    values[i] = place;
+    place += value;
+  }
+  const int total = scratch[32];
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kSumThreads) partition_rows_kernel(
+    const int* __restrict__ node, int* __restrict__ order, int* __restrict__ window_begin,
+    int rows, int rows_per_chunk, int n_nodes, int window_nodes, int windows) {
+  extern __shared__ int counts[];  // (windows, kSumWarps)
+  __shared__ int scratch[33];
+  const long long tree = blockIdx.y;
+  node += tree * rows;
+  order += tree * rows;
+  window_begin += (tree * gridDim.x + blockIdx.x) * (windows + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < windows * kSumWarps; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+  const int row_begin = blockIdx.x * rows_per_chunk;
+  const int row_end = min(rows, row_begin + rows_per_chunk);
+  const int per_warp = (row_end - row_begin + kSumWarps - 1) / kSumWarps;
+  const int warp_begin = row_begin + warp * per_warp;
+  const int warp_end = min(row_end, warp_begin + per_warp);
+  const auto window_of = [&](int r) {
+    if (r >= warp_end) return -1;
+    const int nd = __ldg(node + r);
+    return nd >= 0 && nd < n_nodes ? nd / window_nodes : -1;
+  };
+  for (int base = warp_begin; base < warp_end; base += 32) {
+    const int window = window_of(base + lane);
+    if (window >= 0) atomicAdd(counts + window * kSumWarps + warp, 1);
+  }
+  __syncthreads();
+  const int total = block_exclusive_scan(counts, windows * kSumWarps, scratch);
+  for (int window = threadIdx.x; window <= windows; window += blockDim.x)
+    window_begin[window] =
+        row_begin + (window < windows ? counts[window * kSumWarps] : total);
+  const unsigned lower_lanes = (1u << lane) - 1u;
+  for (int base = warp_begin; base < warp_end; base += 32) {
+    const int window = window_of(base + lane);
+    const unsigned group = __match_any_sync(0xffffffffu, window);
+    if (window >= 0)
+      order[row_begin + counts[window * kSumWarps + warp] + __popc(group & lower_lanes)] =
+          base + lane;
+    __syncwarp();
+    if (window >= 0 && lane == __ffs(group) - 1)
+      counts[window * kSumWarps + warp] += __popc(group);
+    __syncwarp();
+  }
+}
+
+// A warp stages kSumStageRows rows at a time, those of its window: the
+// bytes of their bins (on 16 bytes), their channels of the window and
+// their nodes. (ml/trees.py _sum_shared_bytes counts the same.)
+constexpr int kSumStageRows = 128;
+
 template <typename Bin>
-__global__ void __launch_bounds__(1024) level_histograms_kernel(
+__host__ __device__ __forceinline__ int sum_staging_bytes(int block_features, int channels) {
+  return (kSumStageRows * block_features * static_cast<int>(sizeof(Bin)) + 15) / 16 * 16 +
+         kSumStageRows * 4 * channels + kSumStageRows * 4;
+}
+
+// Block (chunk, node window + node_windows * feature block, tree), its
+// node window `window_base` + blockIdx.y % node_windows: the
+// partial histogram of the chunk's rows over `block_features` features
+// and the cells of window `w` (w.nodes a window's nodes; its bins and
+// channels), written into the chunk's (n_nodes, F, w.bins, w.channels)
+// partials, from the tree's nodes and channels and the bins at the
+// tree's offset `bins_tree_stride` (0: the trees share one bins matrix).
+// Rows whose node or bin lies outside the window are skipped.
+template <typename Bin>
+__global__ void __launch_bounds__(kSumThreads) level_histograms_kernel(
     const Bin* __restrict__ bins, const int* __restrict__ node,
     const float* __restrict__ channels, double* __restrict__ partials,
-    int rows, int num_features, int num_channels, Window w,
-    int rows_per_chunk, int block_features, int tile_rows,
+    const int* __restrict__ order, const int* __restrict__ window_begin,
+    int rows, int num_features, int num_channels, int n_nodes, Window w, int windows,
+    int window_base, int node_windows, int rows_per_chunk, int block_features, int vector,
     long long bins_tree_stride) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int chunk = blockIdx.x;
@@ -219,66 +510,133 @@ __global__ void __launch_bounds__(1024) level_histograms_kernel(
   bins += tree * bins_tree_stride;
   node += tree * rows;
   channels += tree * rows * num_channels;
-  const int f_begin = blockIdx.y * block_features;
+  const int window = window_base + blockIdx.y % node_windows;
+  const int node_begin = window * w.nodes;
+  const int nodes = min(w.nodes, n_nodes - node_begin);
+  const int f_begin = blockIdx.y / node_windows * block_features;
   const int fb = min(block_features, num_features - f_begin);
   const int K = w.channels;
-  const int hist_size = w.nodes * fb * w.bins * K;
-  double* hist = reinterpret_cast<double*>(shared);
-  float* tile_channels = reinterpret_cast<float*>(hist + hist_size);
-  int* tile_node = reinterpret_cast<int*>(tile_channels + tile_rows * K);
-  Bin* tile_bins = reinterpret_cast<Bin*>(tile_node + tile_rows);
+  const int copy = w.nodes * block_features * w.bins * K;  // a warp's cells
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  double* hist = reinterpret_cast<double*>(shared);
+  double* mine = hist + warp * copy;
+  unsigned char* staging = reinterpret_cast<unsigned char*>(hist + kSumWarps * copy) +
+                           warp * sum_staging_bytes<Bin>(block_features, K);
+  Bin* row_bins = reinterpret_cast<Bin*>(staging);  // (kSumStageRows, block_features)
+  float* row_channels = reinterpret_cast<float*>(
+      staging + (kSumStageRows * block_features * sizeof(Bin) + 15) / 16 * 16);  // (.., K)
+  // a staged row's node, as the offset of its cells in the copy
+  int* row_node = reinterpret_cast<int*>(row_channels + kSumStageRows * K);
 
-  for (int i = threadIdx.x; i < hist_size; i += blockDim.x) hist[i] = 0.0;
+  for (int i = threadIdx.x; i < kSumWarps * copy; i += blockDim.x) hist[i] = 0.0;
+  __syncthreads();
 
-  const int row_begin = chunk * rows_per_chunk;
-  const int row_end = min(rows, row_begin + rows_per_chunk);
-  for (int start = row_begin; start < row_end; start += tile_rows) {
-    const int n = min(tile_rows, row_end - start);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < n; i += blockDim.x) tile_node[i] = node[start + i];
-    for (int i = threadIdx.x; i < n * K; i += blockDim.x)
-      tile_channels[i] = channels[static_cast<size_t>(start + i / K) * num_channels +
-                                  w.channel_begin + i % K];
-    for (int i = threadIdx.x; i < n * fb; i += blockDim.x) {
-      const int r = i / fb;
-      tile_bins[i] =
-          bins[static_cast<size_t>(start + r) * num_features + f_begin + i % fb];
+  // the rows the block walks: the chunk's, or, partitioned, its window's
+  // places in `order`; warp w takes the w-th contiguous part of them
+  int list_begin = chunk * rows_per_chunk;
+  int list_end = min(rows, list_begin + rows_per_chunk);
+  if (order != nullptr) {
+    order += tree * rows;
+    const int* begins = window_begin + (tree * gridDim.x + chunk) * (windows + 1);
+    list_begin = begins[window];
+    list_end = begins[window + 1];
+  }
+  const int per_warp = (list_end - list_begin + kSumWarps - 1) / kSumWarps;
+  const int warp_begin = list_begin + warp * per_warp;
+  const int warp_end = min(list_end, warp_begin + per_warp);
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int items = fb * K;  // a row's (feature, channel) items
+  constexpr int kSlots = kSumStageRows / 32;
+  for (int base = warp_begin; base < warp_end; base += kSumStageRows) {
+    // each lane stages rows base + lane + 32 s of its window: their nodes
+    // first, all in flight together, then their bins and channels copied
+    // into shared memory asynchronously, also all in flight together
+    int row[kSlots], nd[kSlots];
+    unsigned members[kSlots];
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int at = base + lane + 32 * slot;
+      row[slot] = at < warp_end ? (order != nullptr ? __ldg(order + at) : at) : -1;
     }
-    __syncthreads();
-    if (warp >= fb) continue;
-    for (int base = 0; base < n; base += 32) {
-      const int r = base + lane;
-      int key = -1;  // no cell: past the tile, or outside the window
-      if (r < n) {
-        const int nd = tile_node[r] - w.node_begin;
-        const int b = static_cast<int>(tile_bins[r * fb + warp]) - w.bin_begin;
-        if (nd >= 0 && nd < w.nodes && b >= 0 && b < w.bins) key = nd * w.bins + b;
-      }
-      const unsigned group = __match_any_sync(0xffffffffu, key);
-      if (key < 0 || lane != __ffs(group) - 1) continue;
-      double* dst = hist + ((key / w.bins * fb + warp) * w.bins + key % w.bins) * K;
-      for (int k = 0; k < K; ++k) {
-        double sum = 0.0;
-        for (unsigned members = group; members != 0; members &= members - 1)
-          sum = __dadd_rn(sum, tile_channels[(base + __ffs(members) - 1) * K + k]);
-        dst[k] = __dadd_rn(dst[k], sum);
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot)
+      nd[slot] = row[slot] >= 0 ? __ldg(node + row[slot]) - node_begin : -1;
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const bool in_window = nd[slot] >= 0 && nd[slot] < nodes;
+      members[slot] = __ballot_sync(0xffffffffu, in_window);
+      if (!in_window) continue;
+      const int staged_row = lane + 32 * slot;
+      const int r = row[slot];
+      row_node[staged_row] = nd[slot] * block_features * w.bins * K;
+      for (int k = 0; k < K; ++k)
+        copy_async4(row_channels + staged_row * K + k,
+                    channels + static_cast<size_t>(r) * num_channels + w.channel_begin + k);
+      const Bin* source = bins + static_cast<size_t>(r) * num_features + f_begin;
+      if (vector) {
+        for (int f0 = 0; f0 < fb; f0 += kPerWord)
+          copy_async16(row_bins + staged_row * block_features + f0, source + f0);
+      } else {
+        for (int f = 0; f < fb; ++f)
+          row_bins[staged_row * block_features + f] = __ldg(source + f);
       }
     }
+    async_wait_all();
+    __syncwarp();
+    // a lane's items (feature f, channel k) are cells no other lane adds
+    // into, so each walks the staged rows in order on its own: two rows at
+    // a time, their adds into two cells side by side, into one cell one
+    // after the other. No cell (null) when the bin lies outside the window
+    // or the value is 0 (an add of 0 never changes a sum that starts at +0).
+    for (int item = lane; item < items; item += 32) {
+      const int f = item / K, k = item % K;
+      double* cells = mine + f * w.bins * K + k;
+      const Bin* item_bins = row_bins + f;
+      const float* item_channels = row_channels + k;
+#pragma unroll 1
+      for (int slot = 0; slot < kSlots; ++slot) {
+        for (unsigned left = members[slot]; left != 0u;) {
+          const int m1 = __ffs(left) - 1 + 32 * slot;
+          left &= left - 1;
+          const int m2 = left != 0u ? __ffs(left) - 1 + 32 * slot : m1;
+          if (left != 0u) left &= left - 1;
+          const int b1 = static_cast<int>(item_bins[m1 * block_features]) - w.bin_begin;
+          const int b2 = static_cast<int>(item_bins[m2 * block_features]) - w.bin_begin;
+          const float value1 = item_channels[m1 * K];
+          const float value2 = m2 != m1 ? item_channels[m2 * K] : 0.0f;
+          double* cell1 = b1 >= 0 && b1 < w.bins && value1 != 0.0f
+                              ? cells + row_node[m1] + b1 * K : nullptr;
+          double* cell2 = b2 >= 0 && b2 < w.bins && value2 != 0.0f
+                              ? cells + row_node[m2] + b2 * K : nullptr;
+          if (cell1 != nullptr && cell1 == cell2) {
+            *cell1 = __dadd_rn(__dadd_rn(*cell1, value1), value2);
+          } else {
+            const double sum1 = cell1 != nullptr ? *cell1 : 0.0;
+            const double sum2 = cell2 != nullptr ? *cell2 : 0.0;
+            if (cell1 != nullptr) *cell1 = __dadd_rn(sum1, value1);
+            if (cell2 != nullptr) *cell2 = __dadd_rn(sum2, value2);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the staged rows are read before the next ones land
   }
   __syncthreads();
-  double* out = partials + (tree * gridDim.x + chunk) * w.nodes * num_features *
-                               w.bins * K;
-  for (int i = threadIdx.x; i < hist_size; i += blockDim.x) {
+  double* out = partials + (tree * gridDim.x + chunk) * n_nodes * num_features * w.bins * K;
+  const int cells = nodes * fb * w.bins * K;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const int k = i % K;
     int rest = i / K;
     const int b = rest % w.bins;
     rest /= w.bins;
     const int f = rest % fb;
     const int nd = rest / fb;
-    out[((static_cast<size_t>(nd) * num_features + f_begin + f) * w.bins + b) * K +
-        k] = hist[i];
+    const int at = ((nd * block_features + f) * w.bins + b) * K + k;
+    double sum = hist[at];
+    for (int other = 1; other < kSumWarps; ++other) sum = __dadd_rn(sum, hist[other * copy + at]);
+    out[((static_cast<size_t>(node_begin + nd) * num_features + f_begin + f) * w.bins + b) * K +
+        k] = sum;
   }
 }
 
@@ -539,62 +897,134 @@ cudaError_t launch_apply_bins(const float* X, const float* thresholds,
   return cudaSuccess;
 }
 
-// One pass of K2 per window of cells: the histogram kernel over every
-// tree, then the sum of each tree's chunk partials into the window's
-// cells of `out`.
+// K2's sums path, one pass per window of bins and channels: the
+// histogram kernel over every node window, feature block and tree, then
+// the sum of each tree's chunk partials into the window's cells of `out`.
+// `vector`: the bins are staged as 16-byte words.
 template <typename Bin>
 cudaError_t launch_level_histograms(
     const void* bins, const int* node, const float* channels,
-    double* partials, float* out, int rows, int num_features, int n_nodes,
+    double* partials, int* order, int* window_begin, float* out, int rows,
+    int num_features, int n_nodes,
     int max_bins, int num_channels, int trees, long long bins_tree_stride,
     int chunks, int rows_per_chunk, int window_nodes, int window_bins,
-    int window_channels, int block_features, int tile_rows, int max_blocks,
+    int window_channels, int block_features, int max_blocks,
     cudaStream_t stream) {
   const size_t shared_bytes =
-      sizeof(double) * static_cast<size_t>(window_nodes) * block_features *
-          window_bins * window_channels +
-      sizeof(float) * static_cast<size_t>(tile_rows) * window_channels +
-      sizeof(int) * tile_rows +
-      sizeof(Bin) * static_cast<size_t>(tile_rows) * block_features;
+      kSumWarps * (sizeof(double) * static_cast<size_t>(window_nodes) * block_features *
+                       window_bins * window_channels +
+                   sum_staging_bytes<Bin>(block_features, window_channels));
   cudaError_t error = allow_shared(level_histograms_kernel<Bin>, shared_bytes);
   if (error != cudaSuccess) return error;
+  const int node_windows = (n_nodes + window_nodes - 1) / window_nodes;
   const int feature_blocks = (num_features + block_features - 1) / block_features;
-  // a warp per feature; at least eight warps, so that the staging of the
-  // rows, the zeroing and the write-out are not left to a single warp
-  const int threads = std::max(32 * block_features, kThreads);
+  // node windows past grid dimension y go in launches of their own
+  const int windows_a_launch = kMaxGridYZ / feature_blocks;
+  if (windows_a_launch < 1) return cudaErrorInvalidValue;
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int vector = num_features % kPerWord == 0 && block_features % kPerWord == 0 &&
+                     reinterpret_cast<uintptr_t>(bins) % 16 == 0 &&
+                     (bins_tree_stride * sizeof(Bin)) % 16 == 0;
   const long long out_tree_stride =
       static_cast<long long>(n_nodes) * num_features * max_bins * num_channels;
-  for (int n0 = 0; n0 < n_nodes; n0 += window_nodes) {
-    for (int b0 = 0; b0 < max_bins; b0 += window_bins) {
-      for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
-        const Window w{n0, std::min(window_nodes, n_nodes - n0),
-                       b0, std::min(window_bins, max_bins - b0),
-                       k0, std::min(window_channels, num_channels - k0)};
-        const long long cells = static_cast<long long>(w.nodes) * num_features *
-                                w.bins * w.channels;
-        for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
-          const int group = std::min(kMaxGridYZ, trees - t0);
-          double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
+  if (order != nullptr) {
+    const size_t counts_bytes = sizeof(int) * static_cast<size_t>(node_windows) * kSumWarps;
+    error = allow_shared(partition_rows_kernel, counts_bytes);
+    if (error != cudaSuccess) return error;
+    for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+      const int group = std::min(kMaxGridYZ, trees - t0);
+      partition_rows_kernel<<<dim3(chunks, group), kSumThreads, counts_bytes, stream>>>(
+          node + static_cast<long long>(t0) * rows, order + static_cast<long long>(t0) * rows,
+          window_begin + static_cast<long long>(t0) * chunks * (node_windows + 1), rows,
+          rows_per_chunk, n_nodes, window_nodes, node_windows);
+      error = cudaGetLastError();
+      if (error != cudaSuccess) return error;
+    }
+  }
+  for (int b0 = 0; b0 < max_bins; b0 += window_bins) {
+    for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
+      const Window w{0, window_nodes, b0, std::min(window_bins, max_bins - b0),
+                     k0, std::min(window_channels, num_channels - k0)};
+      const long long cells = static_cast<long long>(n_nodes) * num_features *
+                              w.bins * w.channels;
+      for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+        const int group = std::min(kMaxGridYZ, trees - t0);
+        double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
+        for (int nw0 = 0; nw0 < node_windows; nw0 += windows_a_launch) {
+          const int launch_windows = std::min(windows_a_launch, node_windows - nw0);
           level_histograms_kernel<Bin>
-              <<<dim3(chunks, feature_blocks, group), threads, shared_bytes, stream>>>(
+              <<<dim3(chunks, launch_windows * feature_blocks, group), kSumThreads, shared_bytes,
+                 stream>>>(
                   static_cast<const Bin*>(bins) + t0 * bins_tree_stride,
                   node + static_cast<long long>(t0) * rows,
                   channels + static_cast<long long>(t0) * rows * num_channels,
-                  group_partials, rows, num_features, num_channels, w,
-                  rows_per_chunk, block_features, tile_rows, bins_tree_stride);
-          error = cudaGetLastError();
-          if (error != cudaSuccess) return error;
-          sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads,
-                                0, stream>>>(
-              group_partials, out + t0 * out_tree_stride, chunks, cells,
-              out_tree_stride, w, num_features, max_bins, num_channels);
+                  group_partials,
+                  order == nullptr ? nullptr : order + static_cast<long long>(t0) * rows,
+                  order == nullptr ? nullptr
+                                   : window_begin + static_cast<long long>(t0) * chunks *
+                                                        (node_windows + 1),
+                  rows, num_features, num_channels, n_nodes, w, node_windows, nw0,
+                  launch_windows, rows_per_chunk, block_features, vector, bins_tree_stride);
           error = cudaGetLastError();
           if (error != cudaSuccess) return error;
         }
+        const Window whole{0, n_nodes, w.bin_begin, w.bins, w.channel_begin, w.channels};
+        sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads,
+                              0, stream>>>(
+            group_partials, out + t0 * out_tree_stride, chunks, cells,
+            out_tree_stride, whole, num_features, max_bins, num_channels);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
       }
     }
   }
   return cudaSuccess;
+}
+
+// K2's counts path: zero the output's bytes, add the counts (in shared
+// memory a block when `in_shared`, else straight into the output), and
+// round them to float32 in place.
+template <typename Bin>
+cudaError_t launch_level_counts(const void* bins, const int* node,
+                                const float* channels, float* out, int rows,
+                                int num_features, int n_nodes, int max_bins,
+                                int num_channels, int trees,
+                                long long bins_tree_stride, int chunks,
+                                int rows_per_chunk, int block_features,
+                                int in_shared, int max_blocks,
+                                cudaStream_t stream) {
+  const long long cells =
+      static_cast<long long>(trees) * n_nodes * num_features * max_bins * num_channels;
+  cudaError_t error = cudaMemsetAsync(out, 0, sizeof(float) * cells, stream);
+  if (error != cudaSuccess) return error;
+  const auto kernel = in_shared ? level_counts_kernel<Bin, true> : level_counts_kernel<Bin, false>;
+  const size_t shared_bytes =
+      in_shared ? sizeof(unsigned) * static_cast<size_t>(n_nodes) * block_features *
+                      max_bins * num_channels
+                : 0;
+  error = allow_shared(kernel, shared_bytes);
+  if (error != cudaSuccess) return error;
+  const int feature_blocks = (num_features + block_features - 1) / block_features;
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int vector = num_features % kPerWord == 0 && block_features % kPerWord == 0 &&
+                     reinterpret_cast<uintptr_t>(bins) % 16 == 0 &&
+                     (bins_tree_stride * sizeof(Bin)) % 16 == 0;
+  const long long out_tree_stride =
+      static_cast<long long>(n_nodes) * num_features * max_bins * num_channels;
+  for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+    const int group = std::min(kMaxGridYZ, trees - t0);
+    kernel<<<dim3(chunks, feature_blocks, group), kCountThreads, shared_bytes, stream>>>(
+        static_cast<const Bin*>(bins) + t0 * bins_tree_stride,
+        node + static_cast<long long>(t0) * rows,
+        channels + static_cast<long long>(t0) * rows * num_channels,
+        reinterpret_cast<unsigned*>(out + t0 * out_tree_stride), rows, num_features,
+        n_nodes, max_bins, num_channels, rows_per_chunk, block_features, vector,
+        bins_tree_stride);
+    error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
+  }
+  counts_to_float_kernel<<<grid_for(cells, max_blocks), kThreads, 0, stream>>>(out, cells);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -632,37 +1062,74 @@ int lo_apply_bins(const float* X, const float* thresholds, void* bins,
 
 // T = `trees` trees, each with its own node (T, rows) and channels (T,
 // rows, K), the bins of tree t at t * bins_tree_stride (0: one shared
-// matrix). partials: T * chunks * window_nodes * F * window_bins *
-// window_channels doubles of scratch, reused by every window; out: (T,
-// n_nodes, F, B, K).
+// matrix). partials: T * chunks * n_nodes * F * window_bins *
+// window_channels doubles of scratch, reused by every pass; out: (T,
+// n_nodes, F, B, K). Windows of `window_nodes` nodes and blocks of
+// `block_features` features are blocks of one launch a pass. order and
+// window_begin: null, or scratch of T * rows and T * chunks * (windows + 1)
+// ints for the rows partitioned by window (levels of several windows).
 int lo_level_histograms(const void* bins, int bin_bytes, const int* node,
-                        const float* channels, double* partials, float* out,
+                        const float* channels, double* partials, int* order,
+                        int* window_begin, float* out,
                         int rows, int num_features, int n_nodes, int max_bins,
                         int num_channels, int trees, long long bins_tree_stride,
                         int chunks, int rows_per_chunk, int window_nodes,
                         int window_bins, int window_channels,
-                        int block_features, int tile_rows, int max_blocks,
-                        int device, void* stream) {
+                        int block_features, int max_blocks, int device,
+                        void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (static_cast<long long>(n_nodes) * num_features * max_bins *
           num_channels * trees <= 0)
     return cudaSuccess;
-  if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0)
+  if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0 || block_features <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
     return launch_level_histograms<int8_t>(
-        bins, node, channels, partials, out, rows, num_features, n_nodes,
+        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
         max_bins, num_channels, trees, bins_tree_stride, chunks,
         rows_per_chunk, window_nodes, window_bins, window_channels,
-        block_features, tile_rows, max_blocks, s);
+        block_features, max_blocks, s);
   if (bin_bytes == 4)
     return launch_level_histograms<int32_t>(
-        bins, node, channels, partials, out, rows, num_features, n_nodes,
+        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
         max_bins, num_channels, trees, bins_tree_stride, chunks,
         rows_per_chunk, window_nodes, window_bins, window_channels,
-        block_features, tile_rows, max_blocks, s);
+        block_features, max_blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+// The counts path of K2, for channels that are integers in [0, 65536)
+// (the caller's claim, checked by the kernel): bins, node and channels as
+// lo_level_histograms; out: (T, n_nodes, F, B, K), its bytes the counts
+// until the last kernel rounds them. Blocks of `block_features` features
+// count in shared memory when `in_shared`, else (block_features = F) in
+// the output.
+int lo_level_counts(const void* bins, int bin_bytes, const int* node,
+                    const float* channels, float* out, int rows,
+                    int num_features, int n_nodes, int max_bins,
+                    int num_channels, int trees, long long bins_tree_stride,
+                    int chunks, int rows_per_chunk, int block_features,
+                    int in_shared, int max_blocks, int device, void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  if (static_cast<long long>(n_nodes) * num_features * max_bins * num_channels *
+          trees <= 0)
+    return cudaSuccess;
+  if (block_features <= 0 || (!in_shared && block_features != num_features))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1)
+    return launch_level_counts<int8_t>(bins, node, channels, out, rows, num_features,
+                                       n_nodes, max_bins, num_channels, trees,
+                                       bins_tree_stride, chunks, rows_per_chunk,
+                                       block_features, in_shared, max_blocks, s);
+  if (bin_bytes == 4)
+    return launch_level_counts<int32_t>(bins, node, channels, out, rows, num_features,
+                                        n_nodes, max_bins, num_channels, trees,
+                                        bins_tree_stride, chunks, rows_per_chunk,
+                                        block_features, in_shared, max_blocks, s);
   return cudaErrorInvalidValue;
 }
 

@@ -96,8 +96,12 @@ _K7_BLOCK_BYTES = 112 * 1024
 
 def _row_terms(X, y, W, b):
     """Per row: the nll and the log-softmax's shifted logits and log-sum,
-    the reference's log_softmax (``shifted - log(sum(exp(shifted)))``)."""
-    logits = torch.matmul(X, W) + b
+    the reference's log_softmax (``shifted - log(sum(exp(shifted)))``).
+    The product ``X W`` is taken in float64 (each float32 product exact)
+    and rounded once to float32: the float32 product's bits depend on the
+    BLAS path that a CPU picks (threads, alignment, its float32 precision
+    mode), and a twin that is an oracle should not."""
+    logits = torch.matmul(X.to(torch.float64), W.to(torch.float64)).to(torch.float32) + b
     shifted = logits - logits.max(dim=1, keepdim=True).values
     log_sum = torch.log(torch.exp(shifted).sum(dim=1))
     nll = log_sum - shifted.gather(1, y.long()[:, None])[:, 0]
@@ -121,13 +125,19 @@ def _data_loss(X, y, W, b):
 def _loss_fn(W, b, X, y, l2: float):
     """Value and gradient of the reference's ``_loss_fn``: the mean nll
     plus ``0.5 * l2 * |W|^2``. Returns ``(value, dW, db)``; the gradient
-    of the mean nll is ``X^T (P - onehot(y)) / rows``."""
+    of the mean nll is ``X^T (P - onehot(y)) / rows``. No rows give a NaN
+    value and a data gradient of 0, as ``jax.grad`` of the reference's
+    mean over no rows does (its contraction over no rows is 0 before any
+    division)."""
     rows = X.shape[0]
     nll, shifted, log_sum = _row_terms(X, y, W, b)
     residual = torch.exp(shifted - log_sum[:, None])
     residual = residual - torch.nn.functional.one_hot(y.long(), W.shape[1]).to(residual.dtype)
     dW = (torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / rows).to(torch.float32)
-    return _mean(nll, rows) + _l2_term(W, l2), dW + l2 * W, _mean(residual, rows)
+    db = _mean(residual, rows)
+    if rows == 0:
+        dW, db = torch.zeros_like(dW), torch.zeros_like(db)
+    return _mean(nll, rows) + _l2_term(W, l2), dW + l2 * W, db
 
 
 def _trial_losses(W4, b4, X, y, l2: float):
@@ -414,15 +424,22 @@ def _weighted_terms(W, b, X, y, weights):
     ``P - onehot(y)`` weighted row by row (a float32 product), summed in
     float64 and divided by the float64 sum of the weights, each rounded
     once to float32 (the reference's ``(nll * mask).sum() / mask.sum()``
-    and its gradient). ``weights=None`` weighs every row 1."""
+    and its gradient). ``weights=None`` weighs every row 1. No rows give
+    a NaN loss and a gradient of 0, as ``jax.grad`` of the reference does;
+    rows whose weights are all 0 give NaN for all three, as it does too
+    (0 / 0 in the loss, and in the gradient the rows' cotangents of
+    ``mask / mask.sum()``)."""
     nll, shifted, log_sum = _row_terms(X, y, W, b)
     residual = torch.exp(shifted - log_sum[:, None])
     residual = residual - torch.nn.functional.one_hot(y.long(), W.shape[1]).to(residual.dtype)
     if weights is not None:
         nll, residual = nll * weights, residual * weights[:, None]
     total = _weight_total(X, weights)
-    dW = torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / total
-    return _weighted_mean(nll, total), dW.to(torch.float32), _weighted_mean(residual, total)
+    dW = (torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / total).to(torch.float32)
+    db = _weighted_mean(residual, total)
+    if X.shape[0] == 0:
+        dW, db = torch.zeros_like(dW), torch.zeros_like(db)
+    return _weighted_mean(nll, total), dW, db
 
 
 def _weighted_data_loss(W, b, X, y, weights):

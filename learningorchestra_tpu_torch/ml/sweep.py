@@ -446,8 +446,9 @@ def _dt_fused(Xs, ys, ws, thresholds, Xe, ye, we, num_classes: int, max_depth: i
     _count_program("dt_fused")
     bins = job_apply_bins(Xs, thresholds)
     one_hot = torch.nn.functional.one_hot(ys.long(), num_classes).to(torch.float32)
+    # the weights are the slots' 0/1 row masks: integer channels (K2's counts)
     features_heap, bins_heap, leaf_probs = trees._fit_classification_tree(
-        bins, one_hot * ws[..., None], max_depth, max_bins
+        bins, one_hot * ws[..., None], max_depth, max_bins, integer=True
     )
     thresholds_heap = _job_heap_thresholds(features_heap, bins_heap, thresholds)
     probs = trees.job_ensemble_forward(

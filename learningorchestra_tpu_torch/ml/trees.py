@@ -45,10 +45,17 @@ Two versions of each device program live here:
   the models call. On a CPU tensor a wrapper runs the plain function; on a
   CUDA tensor it launches the hand-written kernel (``kernels/csrc/
   tree_fit.cu``, ``tree_forward.cu``) or raises. Nothing falls back.
+
+K2 has two paths on the card: the gini fits state that their channels
+are integers (``integer=True``: dt's, the forest's and a sweep's class
+one-hots times integer weights) and K2 counts them as integers, exact in
+any order; gb's float (g, h) go through float64 sums in an order fixed
+by the rows. Both give each cell's float64 sum rounded once to float32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -487,21 +494,55 @@ def _route(bins, node, feature, bin_index):
 # Fit: wrappers, plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
-# K2 and K5 sum a fixed split of the rows into chunks (``kernels.row_chunks``,
-# a function of the row count alone), so a refit repeats bit for bit.
-_TILE_ROWS = 256              # rows a K2 block stages in shared memory at a time
+# K2's sums path and K5 sum a fixed split of the rows into chunks
+# (``kernels.row_chunks``, and for K2 ``_sum_chunks``: functions of the
+# level's shape alone), so a refit repeats bit for bit. K2's counts path
+# adds integers, whose sums no order changes.
 _LEAF_WARPS = 8
+# K2's sums path: warps a block (tree_fit.cu kSumWarps), each with its own
+# copy of the window's cells, and a block's share of shared memory (two
+# blocks an SM) unless one node and feature needs more
+_SUM_WARPS = 8
+_SUM_STAGE_ROWS = 128      # rows a warp stages at a time (tree_fit.cu kSumStageRows)
+_SUM_SHARE = 100 * 1024
+_SUM_ROWS_PER_CELL = 4
+# Levels of several node windows, up to this many, partition each chunk's
+# rows by window first (their counts sit in shared memory): a window's
+# blocks then read only its rows
+_PARTITION_WINDOWS = 4096
+# K2's counts path: a block's 32-bit counts of its features' cells (two
+# blocks an SM); one feature's cells past it go straight to global memory
+_COUNT_SHARE = 96 * 1024
+# Counts: a channel is an integer below this (a chunk of at most as many
+# rows cannot pass 2^32 in a 32-bit count), and a chunk takes at least
+# this many rows a cell of a feature, so that its flush of the cells it
+# touched costs at most a quarter of its adds
+COUNT_LIMIT = 65536
+_COUNT_ROWS_PER_CELL = 4
 
 
 class HistogramTiling(NamedTuple):
-    """How K2 covers a level: one pass per window of ``nodes`` x ``bins`` x
-    ``channels`` cells (the whole level when it fits), each block summing
-    ``block_features`` features of the window."""
+    """How K2's sums path covers a level: blocks of windows of ``nodes``
+    nodes and of ``block_features`` features (one launch), one pass per
+    window of ``bins`` x ``channels`` (the whole of both when a node and a
+    feature fit a block)."""
 
     nodes: int
     bins: int
     channels: int
     block_features: int
+
+
+class CountTiling(NamedTuple):
+    """How K2's counts path covers a level: ``chunks`` chunks of
+    ``rows_per_chunk`` rows, blocks of ``block_features`` features that
+    count in shared memory when ``in_shared`` (else one block of every
+    feature counts straight into the output)."""
+
+    chunks: int
+    rows_per_chunk: int
+    block_features: int
+    in_shared: bool
 
 
 class LeafTiling(NamedTuple):
@@ -519,38 +560,107 @@ def _windows(total: int, size: int) -> list[tuple[int, int]]:
     return [(begin, min(size, total - begin)) for begin in range(0, total, size)]
 
 
+def _word_features(num_features: int, block_features: int, bin_bytes: int, fits) -> int:
+    """``block_features`` rounded up to whole 16-byte words of bins, when
+    the rows fall on 16 bytes and ``fits(rounded)``: the kernels then load
+    a row's bins as words."""
+    per_word = 16 // bin_bytes
+    rounded = min(num_features, -(-block_features // per_word) * per_word)
+    if num_features % per_word == 0 and rounded % per_word == 0 and fits(rounded):
+        return rounded
+    return block_features
+
+
+def _sum_shared_bytes(tiling: HistogramTiling, bin_bytes: int) -> int:
+    """A sums block's shared memory: each warp's float64 copy of its
+    window's cells and its staged rows (tree_fit.cu ``sum_staging_bytes``:
+    their bins, a multiple of 16 bytes, then their channels and nodes)."""
+    cells = tiling.nodes * tiling.block_features * tiling.bins * tiling.channels
+    staged = _SUM_STAGE_ROWS * (tiling.block_features * bin_bytes + 4 * (tiling.channels + 1))
+    return _SUM_WARPS * (cells * 8 + staged)
+
+
+@functools.lru_cache(maxsize=256)
 def _block_features(
     num_features: int, n_nodes: int, max_bins: int, num_channels: int, bin_bytes: int = 1
 ) -> HistogramTiling:
-    """K2's tiling. A block holds one float64 partial histogram of its
-    features' cells and stages ``_TILE_ROWS`` rows at a time. When one
-    feature's whole level fits a block's shared memory, one pass covers
-    it, with as many features a block (a warp each, at most 32) as keep
-    the block within its 48 KB share, spread evenly over the blocks. One
-    feature may take up to all of it. Else the level goes in windows of
-    nodes that fit one feature (of bins, then channels, when even one node
-    does not fit); rows outside a window are skipped."""
-    def staging(channels):
-        return _TILE_ROWS * (4 * channels + 4)
+    """K2's sums tiling, a function of the level's shape alone. Each of a
+    block's ``_SUM_WARPS`` warps keeps a float64 copy of the block's cells
+    (``_sum_shared_bytes``): every feature of as many nodes as fit
+    ``_SUM_SHARE`` (the whole level when it fits); else one node of as
+    many features as fit, spread evenly over the blocks (rounded up to
+    whole words of bins where a block still fits its shared memory); else,
+    when one node and feature need more, a block of up to all of its
+    shared memory, and past that windows of bins, then of channels, over
+    one feature."""
+    F, B, K, rows = num_features, max_bins, num_channels, _SUM_STAGE_ROWS
 
-    def per_feature(nodes, bins, channels):
-        return nodes * bins * channels * 8 + _TILE_ROWS * bin_bytes
+    def room(share, channels):   # a warp's bytes past its staged rows' channels and nodes
+        return share // _SUM_WARPS - rows * 4 * (channels + 1)
 
-    def room(channels):   # bytes left for one feature's float64 cells
-        return kernels.SHARED_BYTES - staging(channels) - _TILE_ROWS * bin_bytes
+    for share in (_SUM_SHARE, kernels.SHARED_BYTES):
+        nodes = (room(share, K) - rows * F * bin_bytes) // (F * B * K * 8)
+        if nodes >= 1:
+            return HistogramTiling(min(n_nodes, nodes), B, K, F)
+        most = room(share, K) // (B * K * 8 + rows * bin_bytes)
+        if most >= 1:
+            blocks = -(-F // most)
+            features = _word_features(
+                F, -(-F // blocks), bin_bytes,
+                lambda f: _sum_shared_bytes(HistogramTiling(1, B, K, f), bin_bytes) <= kernels.SHARED_BYTES,
+            )
+            return HistogramTiling(1, B, K, features)
+    channels = K
+    while channels > 1 and room(kernels.SHARED_BYTES, channels) - rows * bin_bytes < channels * 8:
+        channels = max(1, channels // 2)
+    bins = (room(kernels.SHARED_BYTES, channels) - rows * bin_bytes) // (channels * 8)
+    return HistogramTiling(1, min(B, bins), channels, 1)
 
-    nodes, bins, channels = n_nodes, max_bins, num_channels
-    if staging(channels) + per_feature(nodes, bins, channels) > kernels.SHARED_BYTES:
-        if staging(channels) > kernels.SHARED_BYTES // 4:
-            # many channels: a window of them keeps the staged rows small
-            channels = max(1, (kernels.SHARED_BYTES // 4 // _TILE_ROWS - 4) // 4)
-        nodes = min(n_nodes, room(channels) // (max_bins * channels * 8))
-        if nodes < 1:
-            nodes, bins = 1, max(1, room(channels) // (channels * 8))
-    most = max(1, min(32, (kernels.BLOCK_SHARED_BYTES - staging(channels))
-                      // per_feature(nodes, bins, channels)))
-    blocks = -(-num_features // most)
-    return HistogramTiling(nodes, bins, channels, -(-num_features // blocks))
+
+@functools.lru_cache(maxsize=256)
+def _sum_chunks(rows: int, n_nodes: int, max_bins: int) -> tuple[int, int]:
+    """``(chunks, rows per chunk)`` of K2's sums path: ``kernels.row_chunks``,
+    with at least ``_SUM_ROWS_PER_CELL`` rows a (node, bin) of a feature for
+    each warp of a block, so that a warp's adds outnumber the cells of its
+    copy that it zeroes and hands on, and a deep level's partials (a
+    chunk's cells) stay within its rows. A function of the level's shape
+    alone."""
+    chunks, per_chunk = kernels.row_chunks(rows)
+    per_chunk = max(per_chunk, _SUM_ROWS_PER_CELL * _SUM_WARPS * n_nodes * max_bins)
+    return -(-rows // per_chunk), per_chunk
+
+
+def _partitioned(windows: int) -> bool:
+    """Whether K2's sums path partitions each chunk's rows by node window
+    first: levels of several windows, up to ``_PARTITION_WINDOWS``. A
+    warp's part of the rows is then a contiguous part of its window's rows
+    (in row order), else of the chunk's; a function of the shape alone."""
+    return 1 < windows <= _PARTITION_WINDOWS
+
+
+@functools.lru_cache(maxsize=256)
+def _count_tiling(
+    rows: int, num_features: int, n_nodes: int, max_bins: int, num_channels: int,
+    bin_bytes: int = 1,
+) -> CountTiling:
+    """K2's counts tiling, a function of the level's shape alone. When one
+    feature's 32-bit counts fit ``_COUNT_SHARE``, blocks of as many
+    features as fit it, spread evenly (rounded up to whole words of bins
+    where a block still fits its shared memory), over chunks of at least
+    ``_COUNT_ROWS_PER_CELL`` rows a cell of a feature and at most
+    ``COUNT_LIMIT``; else one block of every feature counting into the
+    output, over ``kernels.row_chunks``' split."""
+    chunks, per_chunk = kernels.row_chunks(rows)
+    per_feature = n_nodes * max_bins * num_channels * 4
+    if per_feature > _COUNT_SHARE:
+        return CountTiling(chunks, per_chunk, num_features, False)
+    blocks = -(-num_features // (_COUNT_SHARE // per_feature))
+    block_features = _word_features(
+        num_features, -(-num_features // blocks), bin_bytes,
+        lambda f: f * per_feature <= kernels.SHARED_BYTES,
+    )
+    per_chunk = min(COUNT_LIMIT, max(per_chunk, _COUNT_ROWS_PER_CELL * per_feature // 4))
+    return CountTiling(-(-rows // per_chunk), per_chunk, block_features, True)
 
 
 def _leaf_warps(n_leaves: int, num_channels: int) -> LeafTiling:
@@ -596,14 +706,36 @@ def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
+def _check_counts(channels) -> None:
+    """Raise unless every channel is an integer in ``[0, COUNT_LIMIT)``:
+    the claim a caller of the counts path makes."""
+    if channels.numel() and not bool(
+        ((channels >= 0) & (channels < COUNT_LIMIT) & (channels == channels.trunc())).all()
+    ):
+        raise ValueError(
+            f"integer channels must be integers in [0, {COUNT_LIMIT}): the claim is false"
+        )
+
+
+def level_histograms(bins, node, channels, n_nodes: int, max_bins: int, integer: bool = False):
     """``(n_nodes, F, max_bins, K)`` float32 sums of the rows' channels by
     node, feature and bin (K2). A forest's ``node (T, rows)`` and
     ``channels (T, rows, K)`` over the same bins give ``(T, n_nodes, F,
     max_bins, K)`` from one launch, and so do a sweep's T jobs over their
-    own bins ``(T, rows, F)``."""
+    own bins ``(T, rows, F)``.
+
+    ``integer=True`` is the caller's statement that every channel is an
+    integer in ``[0, COUNT_LIMIT)`` (class one-hots times integer
+    weights): the sums are then counted as integers, exact in any order
+    (the counts path). A false claim raises: here a ``ValueError``; on the
+    card the kernel traps on the first value that breaks it, and PyTorch
+    raises the device error at the next synchronization. Nothing falls
+    back to the sums path. Either path gives each cell's float64 sum
+    rounded once to float32."""
     _check_rows(bins, node, channels)
     if bins.device.type == "cpu":
+        if integer:
+            _check_counts(channels)
         return _level_histograms(bins, node, channels, n_nodes, max_bins)
     kernels.check_operands(bins, node, channels)
     forest = node.dim() == 2
@@ -614,26 +746,44 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
     if rows == 0:
         out = torch.zeros(shape, dtype=torch.float32, device=bins.device)
         return out if forest else out[0]
-    # the kernel writes every cell
+    # the kernels write every cell
     out = torch.empty(shape, dtype=torch.float32, device=bins.device)
     if out.numel() == 0:
         return out if forest else out[0]
-    chunks, per_chunk = kernels.row_chunks(rows)
+    # a forest's trees share the bins; a sweep's jobs each have their own
+    bins_tree_stride = rows * num_features if bins.dim() == 3 else 0
+    if integer:
+        counts = _count_tiling(rows, num_features, n_nodes, max_bins, num_channels, bins.element_size())
+        kernels.launch(
+            "level_histograms", "lo_level_counts",
+            bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
+            out.data_ptr(), rows, num_features, n_nodes, max_bins, num_channels,
+            trees, bins_tree_stride, counts.chunks, counts.rows_per_chunk,
+            counts.block_features, int(counts.in_shared),
+            kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
+        )
+        return out if forest else out[0]
+    chunks, per_chunk = _sum_chunks(rows, n_nodes, max_bins)
     tiling = _block_features(num_features, n_nodes, max_bins, num_channels, bins.element_size())
-    # one window's partials of each tree, reused by every pass
+    # a pass's partials of each tree, reused by every pass
     partials = torch.empty(
-        (trees, chunks, tiling.nodes, num_features, tiling.bins, tiling.channels),
+        (trees, chunks, n_nodes, num_features, tiling.bins, tiling.channels),
         dtype=torch.float64, device=bins.device,
     )
+    order = window_begin = None
+    windows = -(-n_nodes // tiling.nodes)
+    if _partitioned(windows):
+        order = torch.empty((trees, rows), dtype=torch.int32, device=bins.device)
+        window_begin = torch.empty((trees, chunks, windows + 1), dtype=torch.int32, device=bins.device)
     kernels.launch(
         "level_histograms", "lo_level_histograms",
         bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
-        partials.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), None if order is None else order.data_ptr(),
+        None if window_begin is None else window_begin.data_ptr(), out.data_ptr(),
         rows, num_features, n_nodes, max_bins, num_channels,
-        # a forest's trees share the bins; a sweep's jobs each have their own
-        trees, rows * num_features if bins.dim() == 3 else 0,
+        trees, bins_tree_stride,
         chunks, per_chunk, tiling.nodes, tiling.bins, tiling.channels,
-        tiling.block_features, _TILE_ROWS,
+        tiling.block_features,
         kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
     )
     return out if forest else out[0]
@@ -768,20 +918,23 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int):
 # --------------------------------------------------------------------------
 
 def _grow(
-    bins, channels, mode: str, max_depth: int, max_bins: int, subset_scores=None, subset_k=None
+    bins, channels, mode: str, max_depth: int, max_bins: int, subset_scores=None, subset_k=None,
+    integer: bool = False,
 ):
     """Grow one tree, or a forest's trees together, level by level.
     ``channels (rows, K)`` grow one tree; a forest's ``(T, rows, K)`` grow
     T trees over the same bins, each level one launch of each kernel for
     all of them. ``subset_scores ((T,) 2^D - 1, F)``, in heap order (level
     l's nodes are rows ``2^l - 1 .. 2^(l+1) - 2``), restrict each node to
-    its ``subset_k`` features of lowest score. Returns the heaps (features
-    and split bins per internal node, ``((T,) 2^D - 1)``) and every row's
-    leaf index ``((T,) rows)``."""
+    its ``subset_k`` features of lowest score. ``integer``: the caller's
+    statement that the channels are integers (K2's counts path, see
+    :func:`level_histograms`). Returns the heaps (features and split bins
+    per internal node, ``((T,) 2^D - 1)``) and every row's leaf index
+    ``((T,) rows)``."""
     node = torch.zeros(channels.shape[:-1], dtype=torch.int32, device=bins.device)
     features_heap, bins_heap = [], []
     for level in range(max_depth):
-        hist = level_histograms(bins, node, channels, 2**level, max_bins)
+        hist = level_histograms(bins, node, channels, 2**level, max_bins, integer=integer)
         scores = None
         if subset_scores is not None:
             scores = subset_scores[..., 2**level - 1 : 2 ** (level + 1) - 1, :]
@@ -793,10 +946,11 @@ def _grow(
 
 
 def _fit_classification_tree(
-    bins, one_hot, max_depth: int, max_bins: int, subset_scores=None, subset_k=None
+    bins, one_hot, max_depth: int, max_bins: int, subset_scores=None, subset_k=None,
+    integer: bool = False,
 ):
     features_heap, bins_heap, leaf_of_row = _grow(
-        bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k
+        bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k, integer
     )
     leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth)
     leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[..., None]
@@ -813,10 +967,15 @@ def _fit_newton_tree(bins, g, h, max_depth: int, max_bins: int):
     return features_heap, bins_heap, leaf_values, leaf_of_row
 
 
-def _dt_fit(bins, y, weights, num_classes: int, max_depth: int, max_bins: int):
+def _dt_fit(
+    bins, y, weights, num_classes: int, max_depth: int, max_bins: int, integer: bool = False
+):
+    """A decision tree on the class one-hots times ``weights``; ``integer``:
+    the caller's statement that the weights are integers (the estimator's
+    are ones)."""
     one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
     return _fit_classification_tree(
-        bins, one_hot * weights[:, None], max_depth, max_bins
+        bins, one_hot * weights[:, None], max_depth, max_bins, integer=integer
     )
 
 
@@ -852,11 +1011,12 @@ def _rf_chunk(
 ):
     """A chunk of trees grown together: tree t's channels are the class
     one-hots weighted by ``weights * bootstrap[t]``, rounded in the
-    reference's order."""
+    reference's order. The forest's weights are ones and its bootstrap
+    Poisson counts, so the channels are integers (K2's counts path)."""
     base_one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
     one_hot = base_one_hot[None] * (weights[None] * bootstrap)[:, :, None]
     return _fit_classification_tree(
-        bins, one_hot, max_depth, max_bins, subset_scores, subset_k
+        bins, one_hot, max_depth, max_bins, subset_scores, subset_k, integer=True
     )
 
 
@@ -868,11 +1028,11 @@ _RF_ROW_TREES_BUDGET = 40e6
 # allocator's slack and the models the serve registry keeps. At the
 # default forest (1,000,000 rows x 16 features, 2 classes, depth 5, 32
 # bins) a tree holds 24 MB of rows (24 B a row, see _rf_tree_bytes) and
-# 34.6 MB of K2 partials at its widest level (264 chunks x 16 nodes x 16
-# features x 32 bins x 2 channels x 8 B): 545 trees a chunk, so the 20
-# trees run as one. At 10,000,000 rows: 116 trees. (The reference's cap of
-# 20e6 row*trees was sized for a 16 GB TPU chip's one-hot transients,
-# which the port does not make.)
+# 64 KB of its deepest level's histogram (K2's counts path keeps no
+# partials): 1,330 trees a chunk, so the 20 trees run as one. At
+# 10,000,000 rows: 133 trees. (The reference's cap of 20e6 row*trees was
+# sized for a 16 GB TPU chip's one-hot transients, which the port does
+# not make.)
 _RF_CHUNK_BYTES = 32e9
 
 
@@ -880,15 +1040,12 @@ def _rf_tree_bytes(bins, num_classes: int, max_depth: int, max_bins: int) -> int
     """Device bytes one tree of a chunk holds at its widest level: per
     row, its node before and after routing (4 + 4), its bootstrap count
     and that times the row's weight (4 + 4), and its class channels (4 C);
-    per tree, K2's float64 partials (chunks x one window's cells x 8) and
-    the float32 histogram of the deepest level."""
+    per tree, the float32 histogram of the deepest level, which K2's
+    counts path fills in place."""
     rows, num_features = bins.shape
     n_nodes = 2 ** max(max_depth - 1, 0)
-    chunks, _ = kernels.row_chunks(rows)
-    tiling = _block_features(num_features, n_nodes, max_bins, num_classes, bins.element_size())
-    partials = chunks * tiling.nodes * num_features * tiling.bins * tiling.channels * 8
     hist = n_nodes * num_features * max_bins * num_classes * 4
-    return rows * (16 + 4 * num_classes) + partials + hist
+    return rows * (16 + 4 * num_classes) + hist
 
 
 def _rf_fit(
@@ -1047,7 +1204,7 @@ class DecisionTreeClassifier:
         bins = apply_bins(X_dev, thresholds)
         weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
         features_heap, bins_heap, leaf_probs = _dt_fit(
-            bins, y_dev, weights, num_classes, self.max_depth, self.max_bins
+            bins, y_dev, weights, num_classes, self.max_depth, self.max_bins, integer=True
         )
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
         return _TreeEnsembleModel(

@@ -5,8 +5,10 @@ Counterpart of ``learningorchestra_tpu/ops/tsne.py``, for one CUDA card
 
 - K11 ``affinities``: each row's conditional affinities, calibrated to
   the target perplexity by a 32-step bisection on beta, then
-  symmetrised. The calibration is a hand CUDA kernel (``tsne.cu``); its
-  plain twin is ``_conditional_affinities``.
+  symmetrised. The calibration is two hand CUDA kernels (``tsne.cu``):
+  the distances into P by tiles of X, then several rows a block
+  calibrated in place (``_k11_geometry``); its plain twin is
+  ``_conditional_affinities``.
 - K12 ``gradient``: one iteration's gradient as two launches, the
   normalizer Z (``tsne_z``) and the gradient itself (``tsne_grad``),
   with no ``(n, n)`` q in memory and no host sync; the update of
@@ -193,6 +195,11 @@ def _interpolate(X, landmarks, Y_landmarks, perplexity: float, chunk: int = INTE
 # A row's distances stay in shared memory when they fit beside the
 # kernels' static shared memory (2 KB)
 _SHARED_DISTANCE_BYTES = kernels.SHARED_BYTES - 2048
+# K11's blocks: 1,024 threads over as many rows (a power of two, at most
+# 32: a warp a row) as keep their distances within 160 KB, when that is 8
+# rows or more; else 512 threads over as many as fit 80 KB, so that two
+# blocks share an SM (the faster of the two at 5,000 and 20,000 rows)
+_K11_GEOMETRIES = ((1024, 160 * 1024, 8), (512, 80 * 1024, 1))
 
 
 @functools.lru_cache(maxsize=16)
@@ -227,6 +234,20 @@ def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=16)
+def _k11_geometry(n: int) -> tuple[int, int]:
+    """K11's block: ``(rows, threads)``, a function of n alone (so the
+    result does not depend on where the distances sit). ``rows`` rows a
+    block of ``threads`` threads, each row a group of ``threads / rows``
+    (thread t's columns are t + group k)."""
+    for threads, budget, least in _K11_GEOMETRIES:
+        fit = max(1, budget // (4 * max(n, 1)))
+        rows = min(threads // 32, 1 << (fit.bit_length() - 1))
+        if rows >= least:
+            return rows, threads
+    raise AssertionError("the last geometry takes any n")
+
+
 def conditional_affinities(X, perplexity: float):
     """Each row's calibrated p (n, n), not yet symmetrised (K11). No rows
     raise the reference's error: its calibration takes each row's maximum
@@ -239,11 +260,12 @@ def conditional_affinities(X, perplexity: float):
         return _conditional_affinities(X, perplexity)
     kernels.check_operands(X)
     n, num_features = X.shape
+    rows, threads = _k11_geometry(n)
     P = torch.empty((n, n), dtype=torch.float32, device=X.device)
     kernels.launch(
         "tsne_affinities", "lo_tsne_affinities",
         X.data_ptr(), P.data_ptr(), n, num_features, _target_entropy(perplexity),
-        int(4 * n <= _SHARED_DISTANCE_BYTES),
+        rows, threads, int(4 * rows * n <= _SHARED_DISTANCE_BYTES),
         kernels.max_blocks(X.device.index), X.device.index, _stream(X),
     )
     return P

@@ -526,21 +526,20 @@ def _covered_once(windows, total):
      (64, 255, 200, 4), (4, 30000, 2, 4), (16, 32, 2, 1)],
 )
 def test_level_tiling_covers_every_cell_once(n_nodes, max_bins, channels, bin_bytes):
-    """K2's windows cover every node, bin and channel exactly once, and a
-    window's float64 histogram of its block's features and its staged rows
-    fit one block's shared memory; a level whose one feature fits a
-    block's shared memory is one window."""
+    """K2's sums path covers every node, bin and channel exactly once with
+    its windows, and a block's shared memory (a float64 copy of its
+    window's cells for each of its warps, beside each warp's staged rows)
+    fits a block; every feature of a node shares a block, in one pass,
+    when their copies fit one."""
     tiling = trees._block_features(16, n_nodes, max_bins, channels, bin_bytes)
     assert _covered_once(trees._windows(n_nodes, tiling.nodes), n_nodes)
     assert _covered_once(trees._windows(max_bins, tiling.bins), max_bins)
     assert _covered_once(trees._windows(channels, tiling.channels), channels)
-    shared = (
-        tiling.nodes * tiling.block_features * tiling.bins * tiling.channels * 8
-        + trees._TILE_ROWS * (4 * tiling.channels + 4 + bin_bytes * tiling.block_features)
-    )
+    shared = trees._sum_shared_bytes(tiling, bin_bytes)
     assert 1 <= tiling.block_features <= 16 and shared <= kernels.SHARED_BYTES
-    whole = n_nodes * max_bins * channels * 8 + trees._TILE_ROWS * (4 * channels + 4 + bin_bytes)
-    assert (tiling[:3] == (n_nodes, max_bins, channels)) == (whole <= kernels.SHARED_BYTES)
+    whole = trees._sum_shared_bytes(trees.HistogramTiling(1, max_bins, channels, 16), bin_bytes)
+    one_pass = tiling.block_features == 16 and tiling[1:3] == (max_bins, channels)
+    assert one_pass == (whole <= kernels.SHARED_BYTES)
 
 
 @pytest.mark.parametrize("n_leaves,channels", [(4096, 10), (32, 2), (4096, 2), (8, 40000)])

@@ -175,12 +175,13 @@ def test_rf_chunked_equals_unchunked(data, cap, monkeypatch):
 
 def test_rf_memory_cap_counts_rows_and_partials():
     """The cap at the default forest: 24 B a row-tree (node, routed node,
-    bootstrap, weighted bootstrap, two class channels) and K2's float64
-    partials of the depth-4 level (264 chunks x 16 x 16 x 32 x 2 cells);
-    the 20 default trees run as one chunk."""
+    bootstrap, weighted bootstrap, two class channels) and the depth-4
+    level's float32 histogram (16 x 16 x 32 x 2 cells), which K2's counts
+    path fills in place: it keeps no partials; the 20 default trees run as
+    one chunk."""
     bins = torch.empty((1_000_000, 16), dtype=torch.int8, device="meta")
     per_tree = trees._rf_tree_bytes(bins, 2, 5, 32)
-    assert per_tree == 1_000_000 * 24 + 264 * 16 * 16 * 32 * 2 * 8 + 16 * 16 * 32 * 2 * 4
+    assert per_tree == 1_000_000 * 24 + 16 * 16 * 32 * 2 * 4
     assert int(trees._RF_CHUNK_BYTES // per_tree) >= trees.NUM_TREES
 
 

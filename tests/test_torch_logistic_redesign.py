@@ -303,19 +303,24 @@ def _model_loss_grad(X, y, w, W, b, group, tile=None, shape=None):
     F, C = W.shape[1:]
     partials = _model_partials(X, y, w, W, b, group, tile, shape)
     return _finish(partials, kernels.row_chunks(X.shape[0])[0], F * C + C + 1, X.shape[0],
-                   w is not None)
+                   w is not None, gradient_outputs=F * C + C)
 
 
-def _finish(partials, chunks, outputs, rows, weighted):
+def _finish(partials, chunks, outputs, rows, weighted, gradient_outputs=0):
     """The chunks' partials added in chunk order, over the rows or the
-    chunk-ordered sum of the weights, rounded once to float32."""
+    chunk-ordered sum of the weights, rounded once to float32. No chunks
+    (no rows): the first ``gradient_outputs`` (the gradient) are 0, the
+    rest 0 / 0."""
     J = partials.shape[0]
     totals = np.zeros((J, partials.shape[2]), f64)
     for chunk in range(chunks):
         totals = totals + partials[:, chunk]
     with np.errstate(invalid="ignore", divide="ignore"):
         denominator = totals[:, -1:] if weighted else f64(rows)
-        return (totals[:, :outputs] / denominator).astype(f32)
+        out = (totals[:, :outputs] / denominator).astype(f32)
+    if chunks == 0:
+        out[:, :gradient_outputs] = 0.0
+    return out
 
 
 def _model_trial_losses(X, y, w, W4, b4, group):
@@ -450,22 +455,54 @@ def test_trial_model_matches_the_reference_and_the_plain_twins(classes, weighted
 
 
 def test_no_rows_give_a_nan_loss_as_the_reference():
-    """No rows: the loss is 0 / 0 = NaN in the reference, the plain twins
-    and the model. The gradient is NaN in the port (0 / 0 again) where
-    ``jax.grad`` gives 0 (ROADMAP.md Queue 3)."""
+    """No rows: the loss is 0 / 0 = NaN and the gradient of the data term
+    is 0 in the reference (``jax.grad`` contracts the cotangent over no
+    rows, which is 0 before any division), in the plain twins and in the
+    model of the kernel's finish; the L2 term's gradient stays. The trial
+    losses are NaN."""
     X, y, w, W, b = _inputs(2, 1, rows=0)
-    out = _model_loss_grad(X, y, w, W, b, group=1)
-    assert np.isnan(out).all()
-    value, grad = jax.value_and_grad(jax_logistic._loss_fn)(
-        {"w": jnp.asarray(W[0]), "b": jnp.asarray(b[0])},
-        jnp.asarray(X), jnp.asarray(y), jnp.asarray(w), jnp.float32(0.0),
-    )
-    assert np.isnan(float(value)) and (np.asarray(grad["w"]) == 0).all()
-    plain = logistic._job_loss_fn(t(W), t(b), t(X), t(y), t(w), t(np.zeros(1, f32)))
-    assert all(torch.isnan(part).all() for part in plain)
+    F, C = W.shape[1:]
+    loss, dW, db = _split(_model_loss_grad(X, y, w, W, b, group=1), F, C)
+    assert np.isnan(loss).all() and (dW == 0).all() and (db == 0).all()
+    for l2 in (0.0, 0.5):
+        value, grad = jax.value_and_grad(jax_logistic._loss_fn)(
+            {"w": jnp.asarray(W[0]), "b": jnp.asarray(b[0])},
+            jnp.asarray(X), jnp.asarray(y), jnp.asarray(w), jnp.float32(l2),
+        )
+        assert np.isnan(float(value)) and (np.asarray(grad["b"]) == 0).all()
+        np.testing.assert_array_equal(np.asarray(grad["w"]), (f32(l2) * W[0]).astype(f32))
+        plain = logistic._job_loss_fn(t(W), t(b), t(X), t(y), t(w), t(np.full(1, l2, f32)))
+        solo = logistic._loss_fn(t(W[0]), t(b[0]), t(X), t(y), l2)
+        for part in (plain, [p[None] for p in solo]):
+            assert torch.isnan(part[0]).all()
+            np.testing.assert_array_equal(part[1][0].numpy(), np.asarray(grad["w"]))
+            np.testing.assert_array_equal(part[2][0].numpy(), np.asarray(grad["b"]))
     W4 = np.repeat(W[:, None], CANDIDATES, axis=1)
     b4 = np.repeat(b[:, None], CANDIDATES, axis=1)
     assert np.isnan(_model_trial_losses(X, y, w, W4, b4, group=1)).all()
+
+
+def test_rows_whose_weights_are_all_zero_give_nan_as_the_reference():
+    """Rows whose weights are all 0: the reference's loss is 0 / 0 and its
+    gradient NaN too (each row's cotangent of ``mask / mask.sum()``); so
+    are the plain twin's and the model's, for that job alone in a group
+    of jobs whose other members have rows that weigh."""
+    X, y, w, W, b = _inputs(2, 3, rows=300, seed=4)
+    weights = np.stack([w, np.zeros_like(w), w])
+    out = np.stack([
+        _model_loss_grad(X, y, weights[j], W[j : j + 1], b[j : j + 1], group=1)[0] for j in range(3)
+    ])
+    plain = logistic._job_loss_fn(t(W), t(b), t(X), t(y), t(weights), t(np.zeros(3, f32)))
+    value, grad = jax.value_and_grad(jax_logistic._loss_fn)(
+        {"w": jnp.asarray(W[1]), "b": jnp.asarray(b[1])},
+        jnp.asarray(X), jnp.asarray(y), jnp.asarray(weights[1]), jnp.float32(0.0),
+    )
+    assert np.isnan(float(value)) and np.isnan(np.asarray(grad["w"])).all()
+    assert np.isnan(np.asarray(grad["b"])).all()
+    assert np.isnan(out[1]).all() and all(torch.isnan(part[1]).all() for part in plain)
+    for j in (0, 2):   # the members that weigh are untouched
+        assert np.isfinite(out[j]).all() and all(torch.isfinite(part[j]).all() for part in plain)
+        np.testing.assert_allclose(out[j][-1], plain[0][j].numpy(), rtol=LOSS_RTOL)
 
 
 def test_a_label_outside_the_classes_gives_a_nan_loss():

@@ -23,6 +23,12 @@ versions on seeded inputs:
   of float64 sums differs).
 - The tile pairs: every unordered pair of rows once, the diagonal tiles'
   pairs i < j, in the order the kernels' blocks decode (``tile_pair_at``).
+- K11's thread map: the distances by tiles (the bits
+  of a sequential fmaf dot, symmetric), a row's group of 32, 128 or 512
+  threads, its float32 thread sums added by xor shuffles in each warp and
+  the group's warps in order: within K11_TOL of each row's largest p of
+  the port's plain version and, symmetrised, of the reference's
+  ``_affinities``; ``_k11_geometry`` at the main path's rows.
 """
 
 import math
@@ -43,7 +49,7 @@ GROUP = 128  # K13's threads a row (tsne.cu kGroupThreads)
 TILE = tsne.PAIR_TILE
 RAGGED_ROWS = (1, 2, 3, TILE - 1, TILE, TILE + 1, 2 * TILE + 5)
 PERPLEXITY = 30.0
-f32 = np.float32
+f32, f64 = np.float32, np.float64
 
 
 # --------------------------------------------------------------------------
@@ -199,6 +205,149 @@ def test_entropy_identity_equals_the_direct_entropy():
         p = e / clamped[:, None]
         direct = -np.where(p > 0, p * np.log(np.where(p > 0, p, 1.0)), 0.0).sum(axis=1)
         np.testing.assert_allclose(identity, direct, rtol=1e-10, atol=1e-300)
+
+
+# --------------------------------------------------------------------------
+# K11's thread map: a row a group of warps, its sums by xor shuffles and
+# the group's warps in order
+# --------------------------------------------------------------------------
+
+def model_k11_distances(X):
+    """K11's distances (tsne.cu distances_kernel, row_distance's bits):
+    |a|^2 and |b|^2 as float32 squares added in feature order, the dot a
+    float32 fmaf chain in feature order, then |a|^2 + |b|^2 - 2 a.b
+    clamped at 0."""
+    X = np.asarray(X, f32)
+    norms = np.zeros(X.shape[0], f32)
+    for f in range(X.shape[1]):
+        norms = (norms + (X[:, f] * X[:, f]).astype(f32)).astype(f32)
+    dot = np.zeros((X.shape[0], X.shape[0]), f32)
+    for f in range(X.shape[1]):
+        dot = _fma32(X[:, f : f + 1], np.broadcast_to(X[:, f], dot.shape), dot)
+    d = ((norms[:, None] + norms[None, :]).astype(f32) - (f32(2) * dot).astype(f32)).astype(f32)
+    return np.maximum(d, f32(0))
+
+
+def _row_reduce(partials):
+    """A row's threads' float64 partials (rows, group), added as
+    tsne.cu ``row_sum`` adds them: each warp's 32 lanes by xor shuffles
+    (offsets 16 to 1; every lane ends with the same bits), then the
+    group's warps in warp order."""
+    rows, group = partials.shape
+    warps = partials.reshape(rows, group // 32, 32)
+    lanes = np.arange(32)
+    for offset in (16, 8, 4, 2, 1):
+        warps = warps + warps[:, :, lanes ^ offset]
+    total = warps[:, 0, 0]
+    for w in range(1, group // 32):
+        total = total + warps[:, w, 0]
+    return total
+
+
+def model_k11(d, target, group):
+    """K11's calibration of each row of ``d`` (n, n), self excluded, with
+    a row's ``group`` threads: thread t's columns t + group k added in
+    float32 in order of k (the own column adding 0), the threads' sums by
+    ``_row_reduce``; the bisection and p as ``model_calibrate``'s."""
+    d = np.asarray(d, f32)
+    n = d.shape[0]
+    keep = ~np.eye(n, dtype=bool)
+    k_count = -(-n // group)
+    pad = k_count * group - n
+
+    def per_thread(term):
+        return np.pad(term, ((0, 0), (0, pad))).reshape(n, k_count, group)
+
+    d_min = d.min(axis=1)
+
+    def logits_and_e(beta):
+        shift = (-d_min * beta).astype(f32)
+        logit = ((-d) * beta[:, None]).astype(f32) - shift[:, None]
+        return np.where(keep, logit, f32(0)), (np.exp(logit) * keep).astype(f32)
+
+    def sums(beta):
+        logit, e = logits_and_e(beta)
+        e3, logit3 = per_thread(e), per_thread(logit)
+        total = np.zeros((n, group), f32)
+        weighted = np.zeros((n, group), f32)
+        for k in range(k_count):
+            total = (total + e3[:, k]).astype(f32)
+            weighted = _fma32(e3[:, k], -logit3[:, k], weighted)
+        return _row_reduce(total.astype(f64)), _row_reduce(weighted.astype(f64))
+
+    target = f32(target)
+    low, high, beta = np.zeros(n, f32), np.full(n, np.inf, f32), np.ones(n, f32)
+    for _ in range(tsne.BISECTION_STEPS):
+        total, weighted = sums(beta)
+        clamped = np.maximum(total.astype(f32), f32(1e-12))
+        inverse = 1.0 / clamped.astype(f64)
+        entropy = (total * inverse * np.log(clamped).astype(f64) + weighted * inverse).astype(f32)
+        too_high = entropy > target
+        low = np.where(too_high, beta, low)
+        high = np.where(too_high, high, beta)
+        beta = np.where(np.isinf(high), beta * f32(2), (low + high) / f32(2)).astype(f32)
+    _, e = logits_and_e(beta)
+    e3 = per_thread(e)
+    total = np.zeros((n, group), f32)
+    for k in range(k_count):
+        total = (total + e3[:, k]).astype(f32)
+    clamped = np.maximum(_row_reduce(total.astype(f64)).astype(f32), f32(1e-12))
+    return (e / clamped[:, None]).astype(f32)
+
+
+def k11_rows(seed=8, rows=300):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(6, 17)) * 4.0
+    return (centres[rng.integers(0, 6, size=rows)] + rng.normal(size=(rows, 17))).astype(f32)
+
+
+def test_k11_geometry_at_the_main_paths_rows():
+    """The exact request's 20,000 rows: a row a block of 512 threads (two
+    blocks an SM); the landmark fit's 5,000: eight rows a block of 1,024,
+    128 threads a row; a block's distances within shared memory; a
+    function of n alone."""
+    assert tsne._k11_geometry(20_000) == (1, 512)
+    assert tsne._k11_geometry(tsne.LANDMARKS) == (8, 1024)
+    assert tsne._k11_geometry(2_048) == (16, 1024) and tsne._k11_geometry(300) == (32, 1024)
+    for n in (1, 300, 2_048, 5_000, 5_121, 20_000, 57_000, 100_000):
+        rows, threads = tsne._k11_geometry(n)
+        assert threads % (32 * rows) == 0 and rows & (rows - 1) == 0
+        assert 4 * rows * n <= tsne._SHARED_DISTANCE_BYTES or rows == 1
+
+
+@pytest.mark.parametrize("group", [32, 128, 512])
+def test_k11_thread_map_matches_the_plain_version_and_the_reference(group):
+    """The model of K11's sums at a row's group of 32 (a warp a row), 128
+    (5,000 rows) and 512 threads (20,000 rows) on 300 seeded rows: within
+    K11_TOL of each row's largest p of the port's plain version, and,
+    symmetrised, of the JAX package's ``_affinities``."""
+    X = k11_rows()
+    perplexity = tsne._clamped_perplexity(PERPLEXITY, X.shape[0])
+    p = model_k11(model_k11_distances(X), tsne._target_entropy(perplexity), group)
+    assert (np.diag(p) == 0).all() and np.isfinite(p).all()
+    want = tsne._conditional_affinities(torch.from_numpy(X), perplexity).numpy()
+    assert (np.abs(p - want) / want.max(axis=1, keepdims=True)).max() <= chip_smoke.K11_TOL
+    from learningorchestra_tpu.parallel.mesh import default_mesh
+
+    mesh = default_mesh()
+    X_pad, valid, chunk = jax_tsne._pad_for_mesh(X, mesh, jax_tsne.CHUNK)
+    reference = np.asarray(jax_tsne._affinities(
+        mesh, jnp.asarray(X_pad), jnp.asarray(valid), jnp.float32(perplexity), chunk))[:300, :300]
+    symmetric = tsne._symmetrize(torch.from_numpy(p)).numpy()
+    assert (np.abs(symmetric - reference) / reference.max(axis=1, keepdims=True)).max() <= chip_smoke.K11_TOL
+
+
+def test_k11_distances_keep_row_distances_bits():
+    """The distance kernel's model: symmetric bit for bit (d_ij = d_ji, the
+    norms added commutatively and the fmaf products the same), 0 on the
+    diagonal of distinct rows' clamp, and within a few float32 steps of
+    |x|^2 of the plain version's product."""
+    X = k11_rows(seed=2, rows=120)
+    d = model_k11_distances(X)
+    np.testing.assert_array_equal(d, d.T)
+    plain = tsne._squared_distances(torch.from_numpy(X), torch.from_numpy(X)).numpy()
+    scale = (X.astype(f64) ** 2).sum(axis=1).max()
+    assert np.abs(d - plain).max() <= 8 * np.finfo(f32).eps * scale
 
 
 # --------------------------------------------------------------------------
