@@ -914,7 +914,7 @@ def phase_serve(torch, card: str) -> dict:
 
 def _fit_bound(
     name: str, rows: int, n_nodes: int, channels: int, bins_read: int = 0,
-    trees: int = 1, subsets: bool = False,
+    trees: int = 1, subsets: bool = False, max_bins: int = MAX_BINS,
 ) -> tuple[float, str]:
     """Least milliseconds the card could take for one call at these shapes:
     the bytes the function needs, each read once and each output written
@@ -923,7 +923,7 @@ def _fit_bound(
     splits (``bins_read``, from this run's data), not the whole matrix. A
     forest's ``trees`` share the bins and each has its own nodes, channels
     and output; its split search reads each node's feature scores."""
-    F, B, K, T = FEATURES, MAX_BINS, channels, trees
+    F, B, K, T = FEATURES, max_bins, channels, trees
     if name == "apply_bins":      # X, thresholds -> int8 bins; a 5-step search
         bytes_moved = rows * F * 4 + F * (B - 1) * 4 + rows * F
         ops = rows * F * int(np.ceil(np.log2(B)))
@@ -1036,6 +1036,141 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
             raise AssertionError(f"leaf_sums ({mode}): a tree axis of 1 changes the bits")
         cases[(mode, DEPTH)] = (node, channels, None, None, None)
     return {"errors": errors, "bins": bins, "cases": cases}
+
+
+K1_EDGE_ROWS = 1001     # not a multiple of a tile, a word or a warp
+
+
+def check_k1_edges(torch, X: np.ndarray, thresholds: np.ndarray) -> dict:
+    """K1's bins torch.equal to the plain version's at its edges: NaN,
+    +-inf, ties with a threshold and duplicate thresholds, an all-inf
+    feature (an all-NaN column), 255 bins (int32), K1_EDGE_ROWS rows at 5
+    and 17 features (no 16-byte words), a shared X against each job's
+    thresholds at the main path's rows (8 jobs, one group) and at 113
+    jobs (three groups), and the thresholds in windows of features and in
+    a padded table in global memory (shares forced down)."""
+    rng = np.random.default_rng(13)
+    rows = K1_EDGE_ROWS
+    edge = X[:rows].copy()
+    edge[:, 2] = np.nan                                   # an all-NaN feature
+    edge[rng.random(edge.shape) < 0.02] = np.nan
+    edge[:6, 0] = [np.inf, -np.inf, -0.0, np.nan, thresholds[0, 0], thresholds[0, -1]]
+    edge_thresholds = thresholds.copy()
+    edge_thresholds[2] = np.inf                           # the all-NaN feature's
+    edge_thresholds[5, 10:14] = edge_thresholds[5, 10]    # duplicates
+    edge[6:9, 5] = edge_thresholds[5, 10]                 # ties with the duplicates
+    X_full = torch.from_numpy(X).cuda()
+
+    def held(name, X_dev, thresholds_dev):
+        if thresholds_dev.dim() == 3:
+            got, want = binning.job_apply_bins(X_dev, thresholds_dev), binning._job_apply_bins(X_dev, thresholds_dev)
+        else:
+            got, want = binning.apply_bins(X_dev, thresholds_dev), binning._apply_bins(X_dev, thresholds_dev)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"apply_bins ({name}): bins differ from the plain version")
+        return got
+
+    cases = {}
+    X_edge, th_edge = torch.from_numpy(edge).cuda(), torch.from_numpy(edge_thresholds).cuda()
+    held("edges", X_edge, th_edge)
+    th255 = torch.from_numpy(binning.make_thresholds(X[:200_000], 255).astype(np.float32)).cuda()
+    cases["int32_255_bins"] = str(held("255 bins", X_full, th255).dtype)
+    for features in (5, 17):
+        wide = np.ascontiguousarray(np.concatenate([edge, edge[:, ::-1]], axis=1)[:, :features])
+        th = np.concatenate([edge_thresholds, edge_thresholds[::-1]])[:features]
+        held(f"{features} features", torch.from_numpy(wide).cuda(), torch.from_numpy(np.ascontiguousarray(th)).cuda())
+    jobs = {}
+    for count in (JOB_CHECK_JOBS, 113):
+        stacked = torch.stack([th_edge * (1.0 + 1e-3 * j) for j in range(count)]).contiguous()
+        X_jobs = X_full if count == JOB_CHECK_JOBS else X_full[:100_000]
+        got = held(f"shared X, {count} jobs", X_jobs, stacked)
+        for j in (0, count - 1):
+            if not torch.equal(got[j], binning.job_apply_bins(X_jobs, stacked[j:j + 1])[0]):
+                raise AssertionError(f"apply_bins (shared X, {count} jobs): job {j} differs alone")
+        jobs[count] = binning._k1_geometry(FEATURES, MAX_BINS - 1, count, True, 1)._asdict()
+    cases["shared_x_jobs"] = jobs
+    forced = {}
+    saved = binning._BIN_SHARE
+    try:
+        for share in (1024, 64):   # windows of 8 features; a padded table in global memory
+            binning._BIN_SHARE = share
+            held(f"share {share}", X_edge, th_edge)
+            held(f"share {share}, 255 bins", X_full[:rows], th255)
+            held(f"share {share}, jobs", X_edge, torch.stack([th_edge, th_edge * 1.001]).contiguous())
+            forced[share] = binning._k1_geometry(FEATURES, MAX_BINS - 1, 1, True, 1, share)._asdict()
+    finally:
+        binning._BIN_SHARE = saved
+    cases["forced"] = forced
+    return cases
+
+
+def _k3_hist(torch, nodes: int, max_bins: int, channels: int, rows: int, seed: int):
+    """A level's class counts on the card: ``rows`` rows spread at random
+    over ``nodes`` nodes, each feature's bins and ``channels`` classes."""
+    rng = np.random.default_rng(seed)
+    lam = rows / (nodes * max_bins * channels)
+    return torch.from_numpy(rng.poisson(lam, (nodes, FEATURES, max_bins, channels)).astype(np.float32)).cuda()
+
+
+def check_k3_edges(torch) -> dict:
+    """K3's splits equal to the plain version's at its edges: a NaN gain
+    (newton: the first NaN wins and its node is a leaf), exact ties
+    between features, an empty node (a leaf at bin 0), newton at 255
+    bins, 2,048 nodes of 10 classes, and 16 features x 255 bins x 10
+    classes in one window of shared memory, in windows of features and in
+    global scratch (shares forced down)."""
+    rng = np.random.default_rng(14)
+    gini = _k3_hist(torch, 16, MAX_BINS, CLASSES, FIT_ROWS // 16, 1)
+    gini[3] = 0.0                                       # no rows
+    gini[5, 9] = gini[5, 2]                             # feature 9 ties feature 2
+    newton = torch.from_numpy(rng.random((16, FEATURES, MAX_BINS, 2), dtype=np.float32)).cuda()
+    newton[..., 0] -= 0.5
+    newton[3] = 0.0
+    newton[7, 4, 6, 0] = float("nan")
+    newton[7, 9, 2, 0] = float("nan")
+    newton255 = torch.from_numpy(rng.random((16, FEATURES, 255, 2), dtype=np.float32)).cuda()
+    newton255[..., 0] -= 0.5
+    cases = {
+        "nan_ties_empty": (gini, "gini"), "nan_gain": (newton, "newton"), "newton_255_bins": (newton255, "newton"),
+        "2048_nodes_10_classes": (_k3_hist(torch, 2048, MAX_BINS, DEEP_CLASSES, FIT_ROWS, 2), "gini"),
+        "255_bins_10_classes": (_k3_hist(torch, 16, 255, DEEP_CLASSES, FIT_ROWS, 3), "gini"),
+    }
+    outcomes = {}
+
+    def held(name, hist, mode):
+        got, want = trees.select_splits(hist, mode), trees._select_plain(hist, mode)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"select_splits ({name}): splits differ from the plain version")
+        return got
+
+    for name, (hist, mode) in cases.items():
+        feature, bin_index = held(name, hist, mode)
+        outcomes[name] = {"nodes": int(feature.numel()), "leaf_nodes": int((feature < 0).sum()),
+                          "geometry": trees._k3_geometry(*hist.shape[-3:])._asdict()}
+    feature, bin_index = held("empty", gini, "gini")
+    if (int(feature[3]), int(bin_index[3])) != (-1, 0) or int(feature[5]) == 9:
+        raise AssertionError("select_splits: the empty node is not a leaf at bin 0, or a tie went to the later feature")
+    if int(held("nan", newton, "newton")[0][7]) != -1:
+        raise AssertionError("select_splits: a NaN gain did not make its node a leaf")
+    saved = trees._SPLIT_SHARE
+    try:
+        for share in (65_536, 4_096):   # windows of 6 features; the stage in global scratch
+            trees._SPLIT_SHARE = share
+            for name in ("255_bins_10_classes", "newton_255_bins"):
+                held(f"{name}, share {share}", *cases[name])
+            outcomes[f"255_bins_10_classes:share_{share}"] = trees._k3_geometry(16, 255, DEEP_CLASSES, share)._asdict()
+    finally:
+        trees._SPLIT_SHARE = saved
+    return {"outcomes": outcomes, "cases": cases}
+
+
+def _launch_floor_ms(torch, flush) -> float:
+    """Milliseconds of one launch of an empty kernel (tree_fit.cu
+    ``lo_empty``) through ctypes, cold, on the same clock as the kernels:
+    the card's launch floor."""
+    lib = kernels.library("tree_fit")
+    index = torch.cuda.current_device()
+    return _event_ms(torch, lambda: lib.lo_empty(index, torch.cuda.current_stream().cuda_stream), 20, flush)
 
 
 def _card_draws(torch, rows: int, seed: int, device):
@@ -1506,6 +1641,8 @@ def phase_fit_kernels(torch) -> dict:
     thresholds = torch.from_numpy(thresholds_np).cuda()
     checked = check_fit_kernels(torch, X_dev, y_dev, thresholds)
     bins, cases = checked["bins"], checked["cases"]
+    k1_edges = check_k1_edges(torch, X, thresholds_np)
+    k3_edges = check_k3_edges(torch)
     rows = X.shape[0]
     results = {name: {"max_abs_err": checked["errors"][name], "by_level": {}} for name in FIT_REPLACES}
     # every call timed with a cold L2: the bounds count HBM bytes, and the
@@ -1635,6 +1772,21 @@ def phase_fit_kernels(torch) -> dict:
                 values = [level[field] for level in levels]
                 into[field] = None if None in values else sum(values) / len(values)
             into["bound_by"] = levels[0]["bound_by"]
+    # K3 also at the deep dt's last level (2,048 nodes x 10 classes) and at
+    # 255 bins x 10 classes (16 nodes), beside the card's launch floor
+    by_shape = results["select_splits"]["by_shape"] = {}
+    for name in ("2048_nodes_10_classes", "255_bins_10_classes"):
+        hist, mode = k3_edges["cases"][name]
+        n_nodes, B, K = hist.shape[0], hist.shape[2], hist.shape[3]
+        bound_ms, bound_by = _fit_bound("select_splits", rows, n_nodes, K, max_bins=B)
+        by_shape[name] = {
+            "ms": _event_ms(torch, lambda: trees.select_splits(hist, mode), 20, flush),
+            "device_ms": _device_ms(torch, lambda: trees.select_splits(hist, mode),
+                                    DEVICE_KERNELS["select_splits"], 20, flush),
+            "plain_ms": _event_ms(torch, lambda: trees._select_plain(hist, mode), 3, flush),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    results["select_splits"]["launch_floor_ms"] = _launch_floor_ms(torch, flush)
     forest_checks = {"subset_edges": forest["subset_edges"], "wide_level": forest["wide_level"]}
     X, y = bench_synthetic(FIT_ROWS)
     repairs = check_repairs(torch, X, y)
@@ -1644,6 +1796,7 @@ def phase_fit_kernels(torch) -> dict:
         **results, "repairs": repairs, "forest_checks": forest_checks,
         "k7_wide": check_k7_wide(torch),
         "k7_empty": check_k7_empty(torch),
+        "k1_edges": k1_edges, "k3_edges": k3_edges["outcomes"],
     })
     return results
 
@@ -3496,6 +3649,7 @@ def check_bounds(summary) -> None:
     for entry in summary:
         timed = {
             **entry.get("by_rows", {}), **entry.get("by_level", {}), **entry.get("by_classes", {}),
+            **entry.get("by_shape", {}),
             **entry.get("forest", {}).get("by_level", {}), "at the main path's shape": entry,
         }
         for key, at in timed.items():
@@ -3573,6 +3727,7 @@ def main(argv) -> int:
                 )},
                 **({"warm_ms": result["warm_ms"], "by_classes": result["by_classes"]} if k7
                    else {"by_level": result["by_level"]}),
+                **{field: result[field] for field in ("by_shape", "launch_floor_ms") if field in result},
                 **({"forest": result["forest"]} if name in FOREST_KERNELS else {}),
             })
     if "embed-kernels" in wanted or "embed" in wanted:

@@ -175,10 +175,11 @@ def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_apply_bins.argtypes = [
-        ptr, ptr, ptr, c_int,                # X, thresholds, bins, bin bytes
-        c_longlong, c_int, c_int,            # rows, F, thresholds per feature
-        c_int, c_longlong, c_longlong,       # jobs; X's and thresholds' job strides
-        c_int, c_int, ptr,                   # max_blocks, device, stream
+        ptr, ptr, ptr, c_int,                # X, thresholds (or their padded table), bins, bin bytes
+        c_int, c_int, c_int, c_int,          # rows, F, thresholds per feature, search steps
+        c_int, c_int, c_int, c_int,          # jobs, jobs a group, features a window, staged
+        c_longlong, c_longlong,              # X's and thresholds' job strides
+        c_int, ptr,                          # device, stream
     ]
     lib.lo_level_counts.argtypes = [
         ptr, c_int, ptr, ptr, ptr,           # bins, bin bytes, node, channels, out
@@ -200,10 +201,12 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.lo_select_splits.argtypes = [
         ptr, ptr, c_int,                     # hist, subset scores (or null), subset k
-        ptr, ptr,                            # feature, bin
+        ptr, ptr, ptr,                       # feature, bin, global stage (or null)
         c_int, c_int, c_int, c_int, c_int,   # nodes, F, bins, channels, mode
+        c_int, c_int, c_int,                 # threads a node, nodes a block, features a window
         c_int, ptr,                          # device, stream
     ]
+    lib.lo_empty.argtypes = [c_int, ptr]     # device, stream
     lib.lo_route.argtypes = [
         ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, feature, split bin, out
         c_int, c_int, c_int, c_int,          # rows, F, trees, nodes a tree
@@ -218,7 +221,8 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     for entry in (
-        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_sums"
+        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_sums",
+        "empty",
     ):
         getattr(lib, f"lo_{entry}").restype = c_int
     return _bind_errors(lib)

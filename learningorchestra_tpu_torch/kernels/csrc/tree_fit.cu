@@ -16,7 +16,8 @@
 //
 // What bounds them on this card, at the default fit (N = 1,000,000 rows,
 // F = 16 features, B = 32 bins, depth 5, K = 2 channels):
-//   - K1 reads X (64 MB) and writes int8 bins (16 MB): ~24 us of bytes.
+//   - K1 reads X (64 MB) and writes int8 bins (16 MB): ~24 us of bytes;
+//     its searches (5 a value at 32 bins) come second.
 //   - K2 reads bins, node and channels once per level (28 MB): ~8.4 us.
 //     Its counts path also zeroes, flushes and rounds the output (a
 //     level's 64 KB) and its sums path writes and reads a chunk's float64
@@ -24,16 +25,17 @@
 //     with, the bound unchanged.
 //   - K4 reads node, one bin of each row whose node splits, and writes
 //     node (at most 9 MB): ~2.7 us.
-//   - K3 reads a histogram of at most 64 KB: launch latency.
+//   - K3 reads a histogram of a few KB a node: launch latency, then the
+//     chain of each node's phases.
 //   - K5 reads leaf and channels (12 MB): ~3.6 us.
 // The random forest's level (T = 20 trees over the same bins) reads the
 // bins once and each tree's node and channels: 256 MB, ~77 us for K2.
 // A dt sweep's level (J jobs, each with its own bins) reads J times what
-// one tree's does: at J = 8 slots of 1,048,576 rows, K1 moves 671 MB
-// (~200 us) and K2 224 MB a level (~67 us).
-// K2 is designed for the card (its two paths are described at their
-// kernels below); the others are the simple versions, written to be
-// right first.
+// one tree's does: at J = 8 slots of 1,048,576 rows, K2 moves 224 MB a
+// level (~67 us). K1 reads the slots' one X once (64 MB) and writes each
+// slot's bins (128 MB): ~60 us of bytes, beside 8 times the searches.
+// K1, K2 and K3 are designed for the card (described at their kernels
+// below); K4 and K5 are the simple versions, written to be right first.
 //
 // Design and numerics:
 //   - Deterministic. A resumed or coalesced fit must rerun bit for bit,
@@ -60,8 +62,9 @@
 //     over bins is sequential. Build without -use_fast_math.
 //   - argmax semantics of the reference: the first maximum wins, and a
 //     NaN gain counts as the maximum (the first NaN wins).
-//   - K1 is a binary search, searchsorted(side=left) on the sorted
-//     thresholds; NaN goes past every threshold (last bin).
+//   - K1 is searchsorted(side=left) on the sorted thresholds, each
+//     feature's padded with +inf to a power of two and bisected in
+//     branch-free steps; NaN goes past every threshold (last bin).
 //   - K4 is one indexed load per row; the reference's select-sum lookup
 //     worked around serialized gathers on the TPU.
 //   - Bins are int8 while max_bins <= 127 and int32 above, as the
@@ -84,9 +87,10 @@
 //     tree alone, bit for bit: trees never share a cell, and a cell adds
 //     its rows in the same order. K3 takes the forest's (or the jobs')
 //     (T, nodes) flattened into its node axis.
-//   - A job axis for K1: J jobs in one launch (grid dimension y), job j's
-//     rows at j * x_job_stride floats and its thresholds at j *
-//     thresholds_job_stride (0: shared), its bins at j * rows * F.
+//   - A job axis for K1: J jobs in one launch, job j's rows at j *
+//     x_job_stride floats (0: one X that a group of jobs reads once) and
+//     its thresholds at j * thresholds_job_stride (0: shared), its bins
+//     at j * rows * F.
 //   - Feature subsets (K3). A feature is a candidate of its node iff
 //     fewer than `subset_k` of the node's scores are below its own, which
 //     is `score <= sort(scores)[subset_k - 1]` of the reference, ties
@@ -123,8 +127,6 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-int round_up_warp(int n) { return ((n + 31) / 32) * 32; }
-
 // A window of histogram cells: nodes (or leaves) [node_begin, +nodes),
 // bins [bin_begin, +bins) and channels [channel_begin, +channels).
 struct Window {
@@ -134,37 +136,154 @@ struct Window {
 };
 
 // ------------------------------------------------------------------ K1
+//
+// Bound by bytes: X read once (64 MB at the default fit), the bins written
+// once (16 MB), the thresholds (2 KB a job) nothing. A block takes a
+// group of jobs and walks tiles of kBinThreads rows, a row a thread:
+//   - The group's thresholds sit in shared memory, each feature's row
+//     padded with +inf to a power of two P (32 floats at 32 bins, 256 at
+//     255), so the search is log2(P) branch-free steps. The lanes of a
+//     warp search one feature at a time: at 32 bins its 32 entries lie in
+//     32 distinct banks.
+//   - A thread reads its row as float4 words (when F is a multiple of 4),
+//     with no per-element modulo, and writes each job's bins of a word of
+//     features (16 int8 or 4 int32 bins) as one 16-byte store where the
+//     rows fall on 16 bytes, else bin by bin.
+//   - X shared by the jobs (x_job_stride 0, the sweep's slots): a row is
+//     read once for the whole group, each job searched against its own
+//     thresholds. Blocks of one tile and different groups are neighbours
+//     in the grid, so a tile that several groups read comes from L2.
+//   - Thresholds past a block's shared memory go in windows of features
+//     (ml/binning.py _k1_geometry); past one feature's row, the wrapper
+//     pads them into a table in global memory, searched in place.
+//   - As many blocks as the card holds at once, each thread at most 64
+//     registers (four blocks an SM), so no partial second wave trails the
+//     grid. (A double-buffered cp.async ring of X tiles was slower at one
+//     job: its barriers cost more than the latency it hid.)
+constexpr int kBinThreads = 256;
 
-// Bin of each value: a binary search for the first threshold that is not
-// below it, which is searchsorted(side=left) on the feature's sorted
-// thresholds; NaN, below nothing, goes past every threshold.
-template <typename Bin>
-__global__ void __launch_bounds__(kThreads)
-    apply_bins_kernel(const float* __restrict__ X,
-                      const float* __restrict__ thresholds,
-                      Bin* __restrict__ bins, long long total,
-                      int num_features, int num_thresholds,
-                      long long x_job_stride, long long thresholds_job_stride) {
-  const long long job = blockIdx.y;
-  X += job * x_job_stride;
-  thresholds += job * thresholds_job_stride;
-  bins += job * total;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float x = X[i];
-    const float* t =
-        thresholds + static_cast<size_t>(i % num_features) * num_thresholds;
-    int low = isnan(x) ? num_thresholds : 0;
-    int high = num_thresholds;
-    while (low < high) {
-      const int mid = (low + high) / 2;
-      if (__ldg(t + mid) < x) low = mid + 1;
-      else high = mid;
+// The count of a padded row's entries below x, which is
+// searchsorted(side=left) on the feature's sorted thresholds: a bisection
+// of `steps` (kSteps when it is not 0) branch-free steps over the
+// 2^steps-entry row, whose entries past its n thresholds are +inf and so
+// below nothing. NaN, below nothing, goes past every threshold: bin n.
+template <int kSteps>
+__device__ __forceinline__ int padded_search(const float* t, int steps, float x, int n) {
+  int pos = 0;
+  if (kSteps > 0) {
+#pragma unroll
+    for (int s = kSteps - 1; s >= 0; --s) pos += t[pos + (1 << s) - 1] < x ? 1 << s : 0;
+  } else {
+    for (int s = steps - 1; s >= 0; --s) pos += t[pos + (1 << s) - 1] < x ? 1 << s : 0;
+  }
+  return isnan(x) ? n : pos;
+}
+
+// Word i of a row's bins: 16 int8 bins in four 32-bit words, or 4 int32.
+__device__ __forceinline__ void set_bin(uint4& word, int i, int bin, int8_t) {
+  unsigned& part = i < 4 ? word.x : i < 8 ? word.y : i < 12 ? word.z : word.w;
+  part |= (static_cast<unsigned>(bin) & 0xffu) << (8 * (i & 3));
+}
+__device__ __forceinline__ void set_bin(uint4& word, int i, int bin, int32_t) {
+  (i == 0 ? word.x : i == 1 ? word.y : i == 2 ? word.z : word.w) = static_cast<unsigned>(bin);
+}
+
+// Block b: job group b % groups (`group` jobs from group * (b % groups))
+// over row tiles b / groups, b / groups + tile_blocks, ... Thresholds of
+// job j at j * thresholds_job_stride, (F, num_thresholds) when staged,
+// else the padded (F, 2^steps) table; X of job j at j * x_job_stride (0:
+// shared; a group of one job when not); bins (J, rows, F). At most 64
+// registers a thread: four blocks an SM.
+template <typename Bin, bool kStaged, int kSteps>
+__global__ void __launch_bounds__(kBinThreads, 4)
+    apply_bins_kernel(const float* __restrict__ X, const float* __restrict__ thresholds,
+                      Bin* __restrict__ bins, int rows, int num_features,
+                      int num_thresholds, int steps, int jobs, int group,
+                      int window_features, long long x_job_stride,
+                      long long thresholds_job_stride, int vector_x, int vector_bins) {
+  extern __shared__ __align__(16) float staged_thresholds[];
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int F = num_features;
+  // a row's entries: a constant where the search is unrolled, so that each
+  // feature's row is an immediate offset from the table
+  const int P = kSteps > 0 ? 1 << kSteps : 1 << steps;
+  const int groups = (jobs + group - 1) / group;
+  const int job_begin = blockIdx.x % groups * group;
+  const int group_jobs = min(group, jobs - job_begin);
+  const int tile_blocks = gridDim.x / groups;
+  const int tiles = (rows + kBinThreads - 1) / kBinThreads;
+  const size_t out_job_stride = static_cast<size_t>(rows) * F;
+  X += job_begin * x_job_stride;
+  bins += job_begin * out_job_stride;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int f0 = 0; f0 < F; f0 += window_features) {
+    const int wf = min(window_features, F - f0);
+    const float* table;
+    long long table_job_stride;
+    if (kStaged) {
+      if (f0 > 0) __syncthreads();  // the previous window's searches are done
+      // a warp a (job, feature) row: its thresholds, then +inf to P
+      for (int row = warp; row < group_jobs * wf; row += kBinThreads / 32) {
+        const int jj = row / wf, f = row - jj * wf;
+        const float* source = thresholds + (job_begin + jj) * thresholds_job_stride +
+                              static_cast<size_t>(f0 + f) * num_thresholds;
+        for (int p = lane; p < P; p += 32)
+          staged_thresholds[row * P + p] = p < num_thresholds ? __ldg(source + p) : INFINITY;
+      }
+      __syncthreads();
+      table = staged_thresholds;
+      table_job_stride = static_cast<long long>(wf) * P;
+    } else {
+      table = thresholds + job_begin * thresholds_job_stride + static_cast<size_t>(f0) * P;
+      table_job_stride = thresholds_job_stride;
     }
-    bins[i] = static_cast<Bin>(low);
+    for (int tile = blockIdx.x / groups; tile < tiles; tile += tile_blocks) {
+      const int r = tile * kBinThreads + threadIdx.x;
+      if (r >= rows) continue;
+      const float* row_x = X + static_cast<size_t>(r) * F + f0;
+      Bin* row_bins = bins + static_cast<size_t>(r) * F + f0;
+      for (int c0 = 0; c0 < wf; c0 += kPerWord) {
+        const int width = min(kPerWord, wf - c0);
+        float value[kPerWord];
+        if (vector_x) {  // F, window_features, f0 and c0 multiples of 4: so is width
+#pragma unroll
+          for (int q = 0; q < kPerWord / 4; ++q) {
+            if (4 * q >= width) break;
+            const float4 word = __ldg(reinterpret_cast<const float4*>(row_x + c0) + q);
+            value[4 * q] = word.x;
+            value[4 * q + 1] = word.y;
+            value[4 * q + 2] = word.z;
+            value[4 * q + 3] = word.w;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPerWord; ++i) value[i] = i < width ? __ldg(row_x + c0 + i) : 0.0f;
+        }
+        for (int jj = 0; jj < group_jobs; ++jj) {
+          const float* t = table + jj * table_job_stride + static_cast<size_t>(c0) * P;
+          Bin* out = row_bins + jj * out_job_stride + c0;
+          if (vector_bins && width == kPerWord) {
+            uint4 word = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+            for (int i = 0; i < kPerWord; ++i)
+              set_bin(word, i, padded_search<kSteps>(t + i * P, steps, value[i], num_thresholds),
+                      Bin());
+            *reinterpret_cast<uint4*>(out) = word;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kPerWord; ++i)
+              if (i < width)
+                out[i] = static_cast<Bin>(
+                    padded_search<kSteps>(t + i * P, steps, value[i], num_thresholds));
+          }
+        }
+      }
+    }
   }
 }
+
+// An empty kernel: the card's launch floor, timed beside the small kernels.
+__global__ void empty_kernel() {}
 
 // ------------------------------------------------------------- K2, K5
 
@@ -726,115 +845,209 @@ __device__ __forceinline__ bool in_subset(const float* __restrict__ scores,
   return below < subset_k;
 }
 
-// Block = one node. A thread walks one feature's bins in order: the
-// cumulative sum, the gain of each split, and its own first maximum; the
-// block then reduces to the node's first maximum over (feature, bin).
-// With `subset_scores` (nodes, F), a feature outside its node's subset
-// offers only -inf gains: its first bin, at -inf, stands for them all.
-__global__ void __launch_bounds__(kThreads)
-    select_splits_kernel(const float* __restrict__ hist,
-                         const float* __restrict__ subset_scores,
-                         int subset_k, int* __restrict__ feature_out,
-                         int* __restrict__ bin_out, int num_features,
-                         int max_bins, int num_channels, int mode) {
-  extern __shared__ __align__(16) unsigned char shared[];
-  const int K = num_channels;
-  float* best_value = reinterpret_cast<float*>(shared);
-  int* best_index = reinterpret_cast<int*>(best_value + blockDim.x);
-  float* left = reinterpret_cast<float*>(best_index + blockDim.x) +
-                threadIdx.x * 2 * K;  // this thread's running sums
-  float* total = left + K;
-  const float* node_hist =
-      hist + static_cast<size_t>(blockIdx.x) * num_features * max_bins * K;
+// Bound by latency: a node's histogram is a few KB (F x B x K floats) and
+// its work a few hundred operations a cell. Block: `block_nodes` nodes of
+// `node_threads` threads each (a multiple of 32: no warp spans two
+// nodes), one node's phases, a barrier apart:
+//   1. Stage. The node's histogram of a window of features, read from
+//      global memory as float4 words where its rows fall on 16 bytes,
+//      goes into shared memory bin-major: bin b of (feature f, channel k)
+//      at b * row + f * K + k, `row` = wf * K made odd, so that lanes of
+//      consecutive features or consecutive bins hit distinct banks. (A
+//      forest's node scores are staged once, before the first window.)
+//   2. Cumulative sums. A thread a (feature, channel) walks the bins in
+//      order and overwrites each with its running sum: _cumsum_bins'
+//      sequence of float32 adds. The last bin holds the feature's totals.
+//   3. Parents. A thread a feature: the parent term from its totals, and
+//      the feature-subset test against the staged scores.
+//   4. Gains. A thread a (feature, bin) cell, in bin-major order: the
+//      cell's gain in the reference's order (__fmul_rn, __fadd_rn,
+//      __fsub_rn, __fdiv_rn, channels from 0 to K - 1), the divisions of
+//      the cells side by side; each thread keeps its first maximum.
+//   5. Argmax. Warp shuffles, then the node's warps in order, under
+//      `better`: a total order (NaN first, then the larger value, then
+//      the lower index), so the order of the reduction cannot show.
+// A node whose histogram passes shared memory is taken in windows of
+// features (ml/trees.py _k3_geometry), each thread's best carried from one
+// window to the next; past one feature's bins, the stage lies in global
+// scratch (`global_stage`), laid out the same.
+constexpr int kSplitThreads = 512;
 
-  float my_value = -INFINITY;
-  int my_index = 0x7fffffff;
+template <bool kShared>
+__global__ void __launch_bounds__(kSplitThreads)
+    select_splits_kernel(const float* __restrict__ hist,
+                         const float* __restrict__ subset_scores, int subset_k,
+                         int* __restrict__ feature_out, int* __restrict__ bin_out,
+                         float* __restrict__ global_stage, int n_nodes, int num_features,
+                         int max_bins, int num_channels, int mode, int node_threads,
+                         int block_nodes, int window_features) {
+  extern __shared__ __align__(16) float split_shared[];
+  const int F = num_features, B = max_bins, K = num_channels;
+  const int slot = threadIdx.x / node_threads;
+  const int tid = threadIdx.x - slot * node_threads;
+  const long long node = static_cast<long long>(blockIdx.x) * block_nodes + slot;
+  const bool active = node < n_nodes;
+  const int row = window_features * K | 1;  // odd: see the stage above
+  const int stage_floats = B * row;
+  // shared memory: [stages], parents, candidates, scores, each warp's best
+  float* arrays = split_shared + (kShared ? block_nodes * stage_floats : 0);
+  float* stage = kShared ? split_shared + slot * stage_floats
+                         : global_stage + (active ? node : 0) * stage_floats;
+  float* parent = arrays + slot * window_features;
+  int* candidate = reinterpret_cast<int*>(arrays + block_nodes * window_features) +
+                   slot * window_features;
+  float* node_scores = arrays + 2 * block_nodes * window_features + slot * F;
+  float* warp_value = arrays + block_nodes * (2 * window_features + F);
+  int* warp_index = reinterpret_cast<int*>(warp_value + blockDim.x / 32);
+  const float* node_hist = hist + (active ? node : 0) * F * B * K;
   const float* scores =
-      subset_scores == nullptr
-          ? nullptr
-          : subset_scores + static_cast<size_t>(blockIdx.x) * num_features;
-  for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
-    if (scores != nullptr && !in_subset(scores, num_features, subset_k, f)) {
-      if (better(my_value, my_index, -INFINITY, f * max_bins)) {
-        my_value = -INFINITY;
-        my_index = f * max_bins;
-      }
-      continue;
-    }
-    const float* h = node_hist + static_cast<size_t>(f) * max_bins * K;
-    // the cumulative sum's last element: the feature's totals
-    for (int k = 0; k < K; ++k) {
-      float sum = h[k];
-      for (int b = 1; b < max_bins; ++b) sum = __fadd_rn(sum, h[b * K + k]);
-      total[k] = sum;
-    }
-    float parent;
-    if (mode == kGini) {
-      float n = 0.0f, squares = 0.0f;
-      for (int k = 0; k < K; ++k) {
-        n = __fadd_rn(n, total[k]);
-        squares = __fadd_rn(squares, __fmul_rn(total[k], total[k]));
-      }
-      parent = __fdiv_rn(squares, floor_eps(n));
-    } else {
-      parent = __fdiv_rn(__fmul_rn(total[0], total[0]), __fadd_rn(total[1], 1.0f));
-    }
-    for (int b = 0; b < max_bins; ++b) {
-      for (int k = 0; k < K; ++k)
-        left[k] = b == 0 ? h[k] : __fadd_rn(left[k], h[b * K + k]);
-      float gain;
-      bool valid;
-      if (mode == kGini) {
-        float n_left = 0.0f, n_right = 0.0f, sq_left = 0.0f, sq_right = 0.0f;
-        for (int k = 0; k < K; ++k) {
-          const float right = __fsub_rn(total[k], left[k]);
-          n_left = __fadd_rn(n_left, left[k]);
-          n_right = __fadd_rn(n_right, right);
-          sq_left = __fadd_rn(sq_left, __fmul_rn(left[k], left[k]));
-          sq_right = __fadd_rn(sq_right, __fmul_rn(right, right));
+      subset_scores == nullptr ? nullptr : subset_scores + (active ? node : 0) * F;
+  const bool vector = (B * K) % 4 == 0 && reinterpret_cast<uintptr_t>(hist) % 16 == 0;
+
+  if (active && scores != nullptr)  // read after the first window's barrier
+    for (int f = tid; f < F; f += node_threads) node_scores[f] = __ldg(scores + f);
+  float best_value = -INFINITY;
+  int best_index = 0x7fffffff;
+  for (int f0 = 0; f0 < F; f0 += window_features) {
+    const int wf = min(window_features, F - f0);
+    if (f0 > 0) __syncthreads();  // the previous window's gains are done
+    if (active) {
+      const float* source = node_hist + static_cast<size_t>(f0) * B * K;
+      const int count = wf * B * K;
+      if (vector) {
+        for (int q = tid; q < count / 4; q += node_threads) {
+          const float4 word = __ldg(reinterpret_cast<const float4*>(source) + q);
+          const float values[4] = {word.x, word.y, word.z, word.w};
+          int k = 4 * q % K, rest = 4 * q / K;
+          int b = rest % B, f = rest / B;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            stage[b * row + f * K + k] = values[e];
+            if (++k == K) {
+              k = 0;
+              if (++b == B) {
+                b = 0;
+                ++f;
+              }
+            }
+          }
         }
-        valid = n_left > 0.0f && n_right > 0.0f;
-        gain = __fsub_rn(__fadd_rn(__fdiv_rn(sq_left, floor_eps(n_left)),
-                                   __fdiv_rn(sq_right, floor_eps(n_right))),
-                         parent);
       } else {
-        const float g_left = left[0], h_left = left[1];
-        const float g_right = __fsub_rn(total[0], g_left);
-        const float h_right = __fsub_rn(total[1], h_left);
-        valid = h_left > kEps && h_right > kEps;
-        const float score = __fadd_rn(
-            __fdiv_rn(__fmul_rn(g_left, g_left), __fadd_rn(h_left, 1.0f)),
-            __fdiv_rn(__fmul_rn(g_right, g_right), __fadd_rn(h_right, 1.0f)));
-        gain = __fsub_rn(score, parent);
-      }
-      if (!valid) gain = -INFINITY;
-      const int index = f * max_bins + b;
-      if (better(my_value, my_index, gain, index)) {
-        my_value = gain;
-        my_index = index;
-      }
-    }
-  }
-  best_value[threadIdx.x] = my_value;
-  best_index[threadIdx.x] = my_index;
-  __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride /= 2) {
-    if (threadIdx.x < stride) {
-      const int other = threadIdx.x + stride;
-      if (better(best_value[threadIdx.x], best_index[threadIdx.x],
-                 best_value[other], best_index[other])) {
-        best_value[threadIdx.x] = best_value[other];
-        best_index[threadIdx.x] = best_index[other];
+        for (int i = tid; i < count; i += node_threads) {
+          const int k = i % K, rest = i / K;
+          stage[rest % B * row + rest / B * K + k] = __ldg(source + i);
+        }
       }
     }
     __syncthreads();
+    if (active) {
+      // a (feature, channel) column: bin b at column[b * row]
+      for (int item = tid; item < wf * K; item += node_threads) {
+        float* column = stage + item;
+        float sum = column[0];
+        int b = 1;
+        for (; b + 8 <= B; b += 8) {
+          float value[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) value[i] = column[(b + i) * row];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            sum = __fadd_rn(sum, value[i]);
+            column[(b + i) * row] = sum;
+          }
+        }
+        for (; b < B; ++b) {
+          sum = __fadd_rn(sum, column[b * row]);
+          column[b * row] = sum;
+        }
+      }
+    }
+    __syncthreads();
+    if (active) {
+      for (int f = tid; f < wf; f += node_threads) {
+        candidate[f] = scores == nullptr || in_subset(node_scores, F, subset_k, f0 + f);
+        const float* total = stage + (B - 1) * row + f * K;
+        if (mode == kGini) {
+          float n = 0.0f, squares = 0.0f;
+          for (int k = 0; k < K; ++k) {
+            n = __fadd_rn(n, total[k]);
+            squares = __fadd_rn(squares, __fmul_rn(total[k], total[k]));
+          }
+          parent[f] = __fdiv_rn(squares, floor_eps(n));
+        } else {
+          parent[f] = __fdiv_rn(__fmul_rn(total[0], total[0]), __fadd_rn(total[1], 1.0f));
+        }
+      }
+    }
+    __syncthreads();
+    if (active) {
+      for (int cell = tid; cell < wf * B; cell += node_threads) {
+        const int b = cell / wf, f = cell - b * wf;
+        const int index = (f0 + f) * B + b;
+        float gain = -INFINITY;
+        if (candidate[f]) {
+          const float* left = stage + b * row + f * K;
+          const float* total = stage + (B - 1) * row + f * K;
+          bool valid;
+          if (mode == kGini) {
+            float n_left = 0.0f, n_right = 0.0f, sq_left = 0.0f, sq_right = 0.0f;
+            for (int k = 0; k < K; ++k) {
+              const float l = left[k];
+              const float r = __fsub_rn(total[k], l);
+              n_left = __fadd_rn(n_left, l);
+              n_right = __fadd_rn(n_right, r);
+              sq_left = __fadd_rn(sq_left, __fmul_rn(l, l));
+              sq_right = __fadd_rn(sq_right, __fmul_rn(r, r));
+            }
+            valid = n_left > 0.0f && n_right > 0.0f;
+            gain = __fsub_rn(__fadd_rn(__fdiv_rn(sq_left, floor_eps(n_left)),
+                                       __fdiv_rn(sq_right, floor_eps(n_right))),
+                             parent[f]);
+          } else {
+            const float g_left = left[0], h_left = left[1];
+            const float g_right = __fsub_rn(total[0], g_left);
+            const float h_right = __fsub_rn(total[1], h_left);
+            valid = h_left > kEps && h_right > kEps;
+            const float score = __fadd_rn(
+                __fdiv_rn(__fmul_rn(g_left, g_left), __fadd_rn(h_left, 1.0f)),
+                __fdiv_rn(__fmul_rn(g_right, g_right), __fadd_rn(h_right, 1.0f)));
+            gain = __fsub_rn(score, parent[f]);
+          }
+          if (!valid) gain = -INFINITY;
+        }
+        if (better(best_value, best_index, gain, index)) {
+          best_value = gain;
+          best_index = index;
+        }
+      }
+    }
   }
-  if (threadIdx.x == 0) {
-    const float gain = best_value[0];
-    const int index = best_index[0];
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float value = __shfl_down_sync(0xffffffffu, best_value, offset);
+    const int index = __shfl_down_sync(0xffffffffu, best_index, offset);
+    if (better(best_value, best_index, value, index)) {
+      best_value = value;
+      best_index = index;
+    }
+  }
+  if (threadIdx.x % 32 == 0) {
+    warp_value[threadIdx.x / 32] = best_value;
+    warp_index[threadIdx.x / 32] = best_index;
+  }
+  __syncthreads();
+  if (active && tid == 0) {
+    const int first = threadIdx.x / 32, warps = node_threads / 32;
+    float gain = warp_value[first];
+    int index = warp_index[first];
+    for (int w = first + 1; w < first + warps; ++w) {
+      if (better(gain, index, warp_value[w], warp_index[w])) {
+        gain = warp_value[w];
+        index = warp_index[w];
+      }
+    }
     const bool is_leaf = !(gain > 0.0f) || isinf(gain);
-    feature_out[blockIdx.x] = is_leaf ? -1 : index / max_bins;
-    bin_out[blockIdx.x] = index % max_bins;
+    feature_out[node] = is_leaf ? -1 : index / max_bins;
+    bin_out[node] = index % max_bins;
   }
 }
 
@@ -878,23 +1091,51 @@ int grid_for(long long items, int max_blocks) {
 // (or jobs) past it go in groups of launches.
 constexpr int kMaxGridYZ = 65535;
 
-template <typename Bin>
-cudaError_t launch_apply_bins(const float* X, const float* thresholds,
-                              void* bins, long long total, int num_features,
-                              int num_thresholds, int jobs,
-                              long long x_job_stride,
-                              long long thresholds_job_stride, int max_blocks,
-                              cudaStream_t stream) {
-  for (int j0 = 0; j0 < jobs; j0 += kMaxGridYZ) {
-    const dim3 grid(grid_for(total, max_blocks), std::min(kMaxGridYZ, jobs - j0));
-    apply_bins_kernel<Bin><<<grid, kThreads, 0, stream>>>(
-        X + j0 * x_job_stride, thresholds + j0 * thresholds_job_stride,
-        static_cast<Bin*>(bins) + j0 * total, total, num_features,
-        num_thresholds, x_job_stride, thresholds_job_stride);
-    const cudaError_t error = cudaGetLastError();
-    if (error != cudaSuccess) return error;
-  }
-  return cudaSuccess;
+template <typename Bin, bool kStaged, int kSteps>
+cudaError_t launch_apply_bins_as(const float* X, const float* thresholds, void* bins, int rows,
+                                 int num_features, int num_thresholds, int steps, int jobs,
+                                 int group, int window_features, long long x_job_stride,
+                                 long long thresholds_job_stride, cudaStream_t stream) {
+  const auto kernel = apply_bins_kernel<Bin, kStaged, kSteps>;
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int vector_x = num_features % 4 == 0 && window_features % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                       x_job_stride % 4 == 0;
+  const int vector_bins = (num_features * sizeof(Bin)) % 16 == 0 &&
+                          window_features % kPerWord == 0 &&
+                          reinterpret_cast<uintptr_t>(bins) % 16 == 0;
+  const size_t shared_bytes =
+      kStaged ? sizeof(float) * static_cast<size_t>(group) * window_features * (1 << steps) : 0;
+  cudaError_t error = allow_shared(kernel, shared_bytes);
+  if (error != cudaSuccess) return error;
+  // as many blocks as are resident at once: no second, partial wave
+  int device = 0, sms = 0, per_sm = 0;
+  if ((error = cudaGetDevice(&device)) != cudaSuccess) return error;
+  if ((error = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return error;
+  error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBinThreads, shared_bytes);
+  if (error != cudaSuccess) return error;
+  const int groups = (jobs + group - 1) / group;
+  const int tiles = (rows + kBinThreads - 1) / kBinThreads;
+  const int tile_blocks = std::max(1, std::min(tiles, std::max(1, per_sm) * sms / groups));
+  if (static_cast<long long>(groups) * tile_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<groups * tile_blocks, kBinThreads, shared_bytes, stream>>>(
+      X, thresholds, static_cast<Bin*>(bins), rows, num_features, num_thresholds, steps, jobs,
+      group, window_features, x_job_stride, thresholds_job_stride, vector_x, vector_bins);
+  return cudaGetLastError();
+}
+
+// The search unrolled at 32 and 256 entries a row (32 and 255 bins).
+template <typename Bin, bool kStaged>
+cudaError_t launch_apply_bins(const float* X, const float* thresholds, void* bins, int rows,
+                              int num_features, int num_thresholds, int steps, int jobs,
+                              int group, int window_features, long long x_job_stride,
+                              long long thresholds_job_stride, cudaStream_t stream) {
+  const auto launch = steps == 5   ? launch_apply_bins_as<Bin, kStaged, 5>
+                      : steps == 8 ? launch_apply_bins_as<Bin, kStaged, 8>
+                                   : launch_apply_bins_as<Bin, kStaged, 0>;
+  return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
+                window_features, x_job_stride, thresholds_job_stride, stream);
 }
 
 // K2's sums path, one pass per window of bins and channels: the
@@ -1036,27 +1277,35 @@ extern "C" {
 // launches: 0 means they were accepted. Outputs and scratch are allocated
 // by the caller. `bin_bytes` is 1 for int8 bins and 4 for int32 bins.
 
-// J = `jobs` jobs: X of job j at j * x_job_stride floats, its thresholds
-// (F, num_thresholds) at j * thresholds_job_stride (0: shared); bins:
-// (J, rows, F).
-int lo_apply_bins(const float* X, const float* thresholds, void* bins,
-                  int bin_bytes, long long rows, int num_features,
-                  int num_thresholds, int jobs, long long x_job_stride,
-                  long long thresholds_job_stride, int max_blocks, int device,
-                  void* stream) {
+// J = `jobs` jobs in groups of `group` (1 unless x_job_stride is 0): X
+// of job j at j * x_job_stride floats; its thresholds (F, num_thresholds)
+// at j * thresholds_job_stride (0: shared), staged in shared memory in
+// windows of `window_features` features when `staged`, else a padded (F,
+// 2^steps) table in global memory, +inf past the thresholds; 2^steps >
+// num_thresholds. bins: (J, rows, F). A group's blocks walk the rows'
+// tiles, as many blocks in all as the card holds at once.
+int lo_apply_bins(const float* X, const float* thresholds, void* bins, int bin_bytes, int rows,
+                  int num_features, int num_thresholds, int steps, int jobs, int group,
+                  int window_features, int staged, long long x_job_stride,
+                  long long thresholds_job_stride, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  const long long total = rows * num_features;
-  if (total <= 0 || jobs <= 0) return cudaSuccess;
+  if (rows <= 0 || num_features <= 0 || jobs <= 0) return cudaSuccess;
+  if (group <= 0 || window_features <= 0 || steps < 0 || steps > 30 ||
+      (1 << steps) <= num_thresholds || (x_job_stride != 0 && group != 1))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1)
-    return launch_apply_bins<int8_t>(X, thresholds, bins, total, num_features,
-                                     num_thresholds, jobs, x_job_stride,
-                                     thresholds_job_stride, max_blocks, s);
-  if (bin_bytes == 4)
-    return launch_apply_bins<int32_t>(X, thresholds, bins, total, num_features,
-                                      num_thresholds, jobs, x_job_stride,
-                                      thresholds_job_stride, max_blocks, s);
+  if (bin_bytes == 1) {
+    const auto launch = staged ? launch_apply_bins<int8_t, true> : launch_apply_bins<int8_t, false>;
+    return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
+                  window_features, x_job_stride, thresholds_job_stride, s);
+  }
+  if (bin_bytes == 4) {
+    const auto launch =
+        staged ? launch_apply_bins<int32_t, true> : launch_apply_bins<int32_t, false>;
+    return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
+                  window_features, x_job_stride, thresholds_job_stride, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1135,27 +1384,43 @@ int lo_level_counts(const void* bins, int bin_bytes, const int* node,
 
 // mode 0: gini over K class channels; mode 1: newton over (g, h), K = 2.
 // subset_scores: null, or (n_nodes, F) scores of which each node takes
-// the subset_k lowest (1 <= subset_k).
-int lo_select_splits(const float* hist, const float* subset_scores,
-                     int subset_k, int* feature, int* bin, int n_nodes,
-                     int num_features, int max_bins, int num_channels,
-                     int mode, int device, void* stream) {
+// the subset_k lowest (1 <= subset_k). Blocks of `block_nodes` nodes of
+// `node_threads` threads; windows of `window_features` features, staged in
+// shared memory, or, given `stage`, in n_nodes * B * (window_features * K
+// made odd) floats of global scratch.
+int lo_select_splits(const float* hist, const float* subset_scores, int subset_k, int* feature,
+                     int* bin, float* stage, int n_nodes, int num_features, int max_bins,
+                     int num_channels, int mode, int node_threads, int block_nodes,
+                     int window_features, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (n_nodes <= 0) return cudaSuccess;
   if (mode == kNewton && num_channels != 2) return cudaErrorInvalidValue;
   if (subset_scores != nullptr && subset_k < 1) return cudaErrorInvalidValue;
-  int threads = round_up_warp(num_features);
-  if (threads > kThreads) threads = kThreads;
+  if (node_threads <= 0 || node_threads % 32 != 0 || block_nodes <= 0 ||
+      node_threads * block_nodes > kSplitThreads || window_features <= 0)
+    return cudaErrorInvalidValue;
+  const size_t stage_bytes = sizeof(float) * static_cast<size_t>(max_bins) *
+                             (window_features * num_channels | 1);
   const size_t shared_bytes =
-      static_cast<size_t>(threads) * (sizeof(float) + sizeof(int)) +
-      static_cast<size_t>(threads) * 2 * num_channels * sizeof(float);
-  error = allow_shared(select_splits_kernel, shared_bytes);
+      (stage == nullptr ? stage_bytes * block_nodes : 0) +
+      sizeof(float) * static_cast<size_t>(block_nodes) * (2 * window_features + num_features) +
+      sizeof(float) * 2 * (node_threads * block_nodes / 32);
+  const auto kernel = stage == nullptr ? select_splits_kernel<true> : select_splits_kernel<false>;
+  error = allow_shared(kernel, shared_bytes);
   if (error != cudaSuccess) return error;
-  select_splits_kernel<<<n_nodes, threads, shared_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      hist, subset_scores, subset_k, feature, bin, num_features, max_bins,
-      num_channels, mode);
+  const int blocks = (n_nodes + block_nodes - 1) / block_nodes;
+  kernel<<<blocks, node_threads * block_nodes, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      hist, subset_scores, subset_k, feature, bin, stage, n_nodes, num_features, max_bins,
+      num_channels, mode, node_threads, block_nodes, window_features);
+  return cudaGetLastError();
+}
+
+// One launch of an empty kernel: the card's launch floor.
+int lo_empty(int device, void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }
 

@@ -17,9 +17,17 @@ needs only the float threshold. NaN goes to the last bin.
 - :func:`job_apply_bins` bins a job axis in one launch (the sweep's dt
   program, ``ml/sweep.py:263``, runs ``apply_bins`` under ``vmap``): each
   job its own rows and thresholds; its plain twin loops over the jobs.
+- :func:`_k1_geometry` is how K1 covers a launch, a function of the
+  shapes alone: each feature's thresholds padded with +inf to a power of
+  two (a branch-free search), the jobs that share X in groups whose
+  thresholds fit a block's shared memory (each row of X read once a
+  group), windows of features past it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -78,23 +86,87 @@ def apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     return _launch_apply_bins(X, thresholds, 1)[0]
 
 
+# K1's block (tree_fit.cu kBinThreads: a row a thread) and the share of
+# shared memory a block keeps to for its staged thresholds (two blocks an
+# SM); past one feature's row, the thresholds stay in global memory
+_BIN_THREADS = 256
+_BIN_SHARE = 96 * 1024
+# rows K1 indexes with 32-bit integers, a tile of _BIN_THREADS at a time
+_INT32_ROWS = 2**31 - 1 - _BIN_THREADS
+
+
+class BinGeometry(NamedTuple):
+    """How K1 covers a launch: each feature's thresholds padded with +inf
+    to ``2**steps`` floats; ``group`` jobs a block (jobs that share X;
+    else 1); windows of ``window_features`` features, staged in shared
+    memory (``shared_bytes`` a block) when ``staged``, else searched in a
+    padded table in global memory."""
+
+    steps: int
+    group: int
+    window_features: int
+    staged: bool
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_geometry(
+    num_features: int, num_thresholds: int, jobs: int, x_shared: bool, bin_bytes: int,
+    share: int = _BIN_SHARE,
+) -> BinGeometry:
+    """K1's geometry, a function of the shapes alone. When a job's padded
+    thresholds fit ``share`` bytes: groups of as many jobs as fit (jobs
+    that share X; else one a group), spread evenly. Else one job a block
+    and windows of as many features as fit (whole 16-byte words of bins
+    where that is more than one word); past one feature's row, the padded
+    table in global memory, one window and the groups of the shared X."""
+    steps = int(num_thresholds).bit_length()   # the least power of two > num_thresholds
+    per_feature = 4 << steps
+    per_job = num_features * per_feature
+    if per_job <= share:
+        groups = -(-jobs // (min(jobs, share // per_job) if x_shared else 1))
+        group = -(-jobs // groups)
+        return BinGeometry(steps, group, num_features, True, group * per_job)
+    features = share // per_feature
+    if features == 0:
+        return BinGeometry(steps, jobs if x_shared else 1, num_features, False, 0)
+    per_word = 16 // bin_bytes
+    if features > per_word:
+        features -= features % per_word
+    return BinGeometry(steps, 1, features, True, features * per_feature)
+
+
 def _launch_apply_bins(X, thresholds, jobs: int):
     """K1 over ``jobs`` jobs: X shared ``(rows, F)`` or ``(J, rows, F)``,
     thresholds shared ``(F, B-1)`` or ``(J, F, B-1)``; ``(J, rows, F)``
     bins."""
     kernels.check_operands(X, thresholds)
     rows, num_features = X.shape[-2:]
+    if rows > _INT32_ROWS:
+        raise ValueError(f"{rows} rows is too many for the kernel (at most {_INT32_ROWS})")
     num_thresholds = thresholds.shape[-1]
     bins = torch.empty(
         (jobs, rows, num_features), dtype=bin_dtype(num_thresholds + 1), device=X.device
     )
+    if bins.numel() == 0:
+        return bins
+    geometry = _k1_geometry(
+        num_features, num_thresholds, jobs, X.dim() == 2, bins.element_size(), _BIN_SHARE
+    )
+    table = thresholds
+    if not geometry.staged:   # a padded table, +inf past each feature's thresholds
+        table = torch.full(
+            (*thresholds.shape[:-1], 1 << geometry.steps), float("inf"), device=X.device
+        )
+        table[..., :num_thresholds] = thresholds
     kernels.launch(
         "apply_bins", "lo_apply_bins",
-        X.data_ptr(), thresholds.data_ptr(), bins.data_ptr(), bins.element_size(),
-        rows, num_features, num_thresholds, jobs,
+        X.data_ptr(), table.data_ptr(), bins.data_ptr(), bins.element_size(),
+        rows, num_features, num_thresholds, geometry.steps, jobs, geometry.group,
+        geometry.window_features, int(geometry.staged),
         rows * num_features if X.dim() == 3 else 0,
-        num_features * num_thresholds if thresholds.dim() == 3 else 0,
-        kernels.max_blocks(X.device.index), X.device.index,
+        table.shape[-2] * table.shape[-1] if table.dim() == 3 else 0,
+        X.device.index,
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     return bins

@@ -554,6 +554,85 @@ class LeafTiling(NamedTuple):
     warps: int
 
 
+class SplitGeometry(NamedTuple):
+    """How K3 covers a level: blocks of ``block_nodes`` nodes of
+    ``node_threads`` threads each; each node's features in windows of
+    ``window_features``, staged in shared memory when ``in_shared`` (else
+    in global scratch); ``shared_bytes`` a block."""
+
+    node_threads: int
+    block_nodes: int
+    window_features: int
+    in_shared: bool
+    shared_bytes: int
+
+
+# K3: threads a node (tree_fit.cu kSplitThreads at most: a thread a
+# (feature, bin) cell up to it), and a block's threads when nodes of few
+# cells share a block
+_SPLIT_THREADS = 512
+_SPLIT_BLOCK_THREADS = 256
+_SPLIT_FEW_CELLS = 128
+# A K3 block's shared memory: all of it; a smaller share takes a node in
+# windows of features sooner
+_SPLIT_SHARE = kernels.SHARED_BYTES
+
+
+def _split_stage_floats(window_features: int, max_bins: int, num_channels: int) -> int:
+    """A node's staged window (tree_fit.cu select_splits_kernel): bin-major,
+    each bin's ``window_features * K`` floats padded to an odd count."""
+    return max_bins * (window_features * num_channels | 1)
+
+
+def _split_shared_bytes(
+    node_threads, block_nodes, window_features, num_features, max_bins, num_channels, in_shared
+):
+    """A K3 block's shared memory: its nodes' stages (when in shared
+    memory), parents, candidate flags and subset scores, and each warp's
+    best."""
+    stage = _split_stage_floats(window_features, max_bins, num_channels) if in_shared else 0
+    per_node = stage + 2 * window_features + num_features
+    return 4 * block_nodes * per_node + 8 * (node_threads * block_nodes // 32)
+
+
+@functools.lru_cache(maxsize=256)
+def _k3_geometry(
+    num_features: int, max_bins: int, num_channels: int, share: int = kernels.SHARED_BYTES
+) -> SplitGeometry:
+    """K3's geometry, a function of the shape alone: a thread a (feature,
+    bin) cell up to ``_SPLIT_THREADS`` a node; nodes of at most
+    ``_SPLIT_FEW_CELLS`` cells several a block. A node's histogram in
+    shared memory (``share`` bytes a block, all of it by default) when it
+    fits; else windows of as many features as fit, spread evenly; past
+    one feature's bins, the stage in global scratch, windows of as many
+    features as their parents and flags let fit."""
+    F, B, K = num_features, max_bins, num_channels
+    cells = F * B
+    node_threads = min(_SPLIT_THREADS, -(-cells // 32) * 32)
+    block_nodes = max(1, _SPLIT_BLOCK_THREADS // node_threads) if cells <= _SPLIT_FEW_CELLS else 1
+
+    def fits(nodes, features, in_shared):
+        return _split_shared_bytes(node_threads, nodes, features, F, B, K, in_shared) <= share
+
+    while block_nodes > 1 and not fits(block_nodes, F, True):
+        block_nodes //= 2
+    if fits(block_nodes, F, True):
+        return SplitGeometry(node_threads, block_nodes, F, True,
+                             _split_shared_bytes(node_threads, block_nodes, F, F, B, K, True))
+    features = F
+    while features > 0 and not fits(1, features, True):
+        features -= 1
+    in_shared = features > 0
+    if not in_shared:
+        features = F
+        while features > 1 and not fits(1, features, False):
+            features //= 2
+    windows = -(-F // features)
+    features = -(-F // windows)
+    return SplitGeometry(node_threads, 1, features, in_shared,
+                         _split_shared_bytes(node_threads, 1, features, F, B, K, in_shared))
+
+
 def _windows(total: int, size: int) -> list[tuple[int, int]]:
     """``(begin, count)`` of each window of ``size`` over ``range(total)``,
     in the order the kernels' entry points run them."""
@@ -822,15 +901,22 @@ def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
     if subset_scores is not None and subset_k < num_features:
         # the forest's slice of a level: a copy when it is not contiguous
         scores = subset_scores.reshape(n_nodes, num_features).contiguous()
-    feature = torch.empty(leading, dtype=torch.int32, device=hist.device)
-    bin_index = torch.empty(leading, dtype=torch.int32, device=hist.device)
+    feature, bin_index = torch.empty((2, *leading), dtype=torch.int32, device=hist.device)
     if n_nodes == 0:
         return feature, bin_index
+    geometry = _k3_geometry(num_features, max_bins, num_channels, _SPLIT_SHARE)
+    stage = None
+    if not geometry.in_shared:
+        stage = torch.empty(
+            n_nodes * _split_stage_floats(geometry.window_features, max_bins, num_channels),
+            dtype=torch.float32, device=hist.device,
+        )
     kernels.launch(
         "select_splits", "lo_select_splits",
         hist.data_ptr(), None if scores is None else scores.data_ptr(), subset_k or 0,
-        feature.data_ptr(), bin_index.data_ptr(),
+        feature.data_ptr(), bin_index.data_ptr(), None if stage is None else stage.data_ptr(),
         n_nodes, num_features, max_bins, num_channels, _MODES[mode],
+        geometry.node_threads, geometry.block_nodes, geometry.window_features,
         hist.device.index, _stream(hist),
     )
     return feature, bin_index
