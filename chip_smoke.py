@@ -47,7 +47,16 @@ Phases, one JSON line each:
                  -inf and with NaN outside the subset; K2 at 20 trees of
                  a 2,048-node level, K = 10 (windows); the one-tree calls
                  of dt and gb bit-equal with a tree axis of 1; times as
-                 above. Then K7, both entry
+                 above. K5's counts path (integer=True: dt's, the forest's
+                 and the sweep's calls) identical to the plain version and
+                 to its sums path, tree by tree and job by job; K4 over
+                 20 trees of int32 bins (a row's words read once a group)
+                 and at 20 trees x 2,048 nodes (the group's splits past
+                 its shared table: windows of trees, and with the share
+                 cut, splits from global memory), each tree bit-equal to
+                 its launch alone; the CUDA kernels a K4 and a K5 call
+                 run, and their device time with L2 evicted by reads
+                 (no dirty lines left to write back). Then K7, both entry
                  points, against the plain twin on the same rows
                  standardized by scaler_stats, with 2 and 10 classes: loss
                  within 1e-6 relative, gradient within 1e-6, a second launch
@@ -268,7 +277,9 @@ DEVICE_KERNELS = {
     ),
     "select_splits": ("select_splits_kernel",),
     "route": ("route_kernel",),
-    "leaf_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
+    # the counts path is one kernel; the sums path one, or two past one
+    # block's partials
+    "leaf_sums": ("leaf_counts_kernel", "leaf_sums_kernel", "sum_partials_kernel"),
     "logistic_loss_grad": ("loss_grad_kernel", "finish_kernel"),
     "logistic_trial_losses": ("trial_losses_kernel", "finish_kernel"),
     "tsne_affinities": ("distances_kernel", "affinities_kernel"),
@@ -1034,6 +1045,15 @@ def check_fit_kernels(torch, X_dev, y_dev, thresholds, seed: int = 5) -> dict:
         errors["leaf_sums"] = max(errors["leaf_sums"], _sums_error("leaf_sums", mode, sums, plain_sums))
         if not torch.equal(trees.leaf_sums(node[None], channels[None], 2**DEPTH)[0], sums):
             raise AssertionError(f"leaf_sums ({mode}): a tree axis of 1 changes the bits")
+        if not torch.equal(trees.leaf_sums(node, channels, 2**DEPTH), sums):
+            raise AssertionError(f"leaf_sums ({mode}): a second launch differs")
+        if integer:
+            # dt's call: the counts path, as exact as the sums path
+            counted = trees.leaf_sums(node, channels, 2**DEPTH, integer=True)
+            if not torch.equal(counted, plain_sums):
+                raise AssertionError("leaf_sums (counts): class counts differ")
+            if not torch.equal(trees.leaf_sums(node[None], channels[None], 2**DEPTH, integer=True)[0], counted):
+                raise AssertionError("leaf_sums (counts): a tree axis of 1 changes the bits")
         cases[(mode, DEPTH)] = (node, channels, None, None, None)
     return {"errors": errors, "bins": bins, "cases": cases}
 
@@ -1164,6 +1184,19 @@ def check_k3_edges(torch) -> dict:
     return {"outcomes": outcomes, "cases": cases}
 
 
+class _ReadFlush:
+    """A flush that evicts L2 by reading a buffer past its size, in place
+    of overwriting one (``zero_`` is the name the timing helpers call):
+    the next call finds none of its inputs in L2, and no dirty lines for
+    its own reads to write back first."""
+
+    def __init__(self, torch, device):
+        self.buffer = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+
+    def zero_(self):
+        self.buffer.sum()
+
+
 def _launch_floor_ms(torch, flush) -> float:
     """Milliseconds of one launch of an empty kernel (tree_fit.cu
     ``lo_empty``) through ctypes, cold, on the same clock as the kernels:
@@ -1216,11 +1249,24 @@ def check_forest_kernels(torch, bins, y_dev, seed: int = 6) -> dict:
         plain_routed = trees._route(bins, node, plain_feature, plain_bin)
         if not torch.equal(routed, plain_routed):
             raise AssertionError(f"route (forest, level {level}): nodes differ")
+        for tree in (0, TREES - 1):
+            if not torch.equal(trees.route(bins, node[tree], plain_feature[tree], plain_bin[tree]), routed[tree]):
+                raise AssertionError(f"route (forest, level {level}): tree {tree} differs alone")
         cases[level] = (node, channels, plain_hist, scores, plain_feature, plain_bin)
         node = plain_routed
     sums = trees.leaf_sums(node, channels, 2**DEPTH)
     plain_sums = trees._leaf_sums(node, channels, 2**DEPTH)
     errors["leaf_sums"] = _sums_error("leaf_sums (forest)", "gini", sums, plain_sums)
+    # the forest's call: the counts path
+    counted = trees.leaf_sums(node, channels, 2**DEPTH, integer=True)
+    if not torch.equal(counted, plain_sums):
+        raise AssertionError("leaf_sums (forest, counts): class counts differ")
+    for tree in (0, TREES - 1):
+        if not (
+            torch.equal(trees.leaf_sums(node[tree], channels[tree], 2**DEPTH, integer=True), counted[tree])
+            and torch.equal(trees.leaf_sums(node[tree], channels[tree], 2**DEPTH), sums[tree])
+        ):
+            raise AssertionError(f"leaf_sums (forest): tree {tree} differs alone")
     cases[DEPTH] = (node, channels, None, None, None, None)
     special = _check_subset_edges(torch, cases[DEPTH - 1][2], cases[DEPTH - 1][3])
     wide = _check_wide_forest_level(torch, bins[:WIDE_FOREST_ROWS])
@@ -1344,7 +1390,23 @@ def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
         if not torch.equal(routed, trees._route(bins, node, feature, bin_index)):
             raise AssertionError(f"route at 255 bins, level {level}: nodes differ")
         node = routed
-    record["bins_255"] = {"int32": True, "levels": 4, "max_abs_err": errors["level_histograms"]}
+    # int32 bins through the tree-group route: 20 trees over one matrix
+    # (a row's 16 int32 bins as four 16-byte words, read once a group)
+    rng = np.random.default_rng(10)
+    forest_node = torch.from_numpy(rng.integers(0, 16, (TREES, X.shape[0])).astype(np.int32)).cuda()
+    forest_feature = torch.from_numpy(rng.integers(-1, FEATURES, (TREES, 16)).astype(np.int32)).cuda()
+    forest_bin = torch.from_numpy(rng.integers(0, 255, (TREES, 16)).astype(np.int32)).cuda()
+    routed = trees.route(bins, forest_node, forest_feature, forest_bin)
+    if not torch.equal(routed, trees._route(bins, forest_node, forest_feature, forest_bin)):
+        raise AssertionError("route at 255 bins, 20 trees: nodes differ")
+    for tree in (0, TREES - 1):
+        if not torch.equal(trees.route(bins, forest_node[tree], forest_feature[tree], forest_bin[tree]), routed[tree]):
+            raise AssertionError(f"route at 255 bins: tree {tree} differs alone")
+    del forest_node, routed
+    record["bins_255"] = {
+        "int32": True, "levels": 4, "max_abs_err": errors["level_histograms"],
+        "forest_route": trees._route_geometry(TREES, 16, True)._asdict(),
+    }
     # R2: a depth-12 level and 4,096 leaves
     bins = binning.apply_bins(X_dev, torch.from_numpy(binning.make_thresholds(X).astype(np.float32)).cuda())
     rng = np.random.default_rng(9)
@@ -1372,6 +1434,39 @@ def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
         "ms": _event_ms(torch, lambda: trees.leaf_sums(leaf, channels["gini"], 2 * deep), 3),
         "windows": len(trees._windows(2 * deep, trees._leaf_warps(2 * deep, DEEP_CLASSES).leaves)),
     }
+    # the deep dt's call: the counts path (in global memory: 160 KB of
+    # counts a block would leave 16 chunks)
+    counted = trees.leaf_sums(leaf, channels["gini"], 2 * deep, integer=True)
+    if not torch.equal(counted, plain):
+        raise AssertionError("leaf_sums (4,096 leaves, counts): class counts differ")
+    timings[f"leaf_sums:{2 * deep}x{DEEP_CLASSES}:counts"] = {
+        "ms": _event_ms(torch, lambda: trees.leaf_sums(leaf, channels["gini"], 2 * deep, integer=True), 3),
+        **trees._leaf_count_tiling(X.shape[0], 2 * deep, DEEP_CLASSES)._asdict(),
+    }
+    del counted
+    # K4 at a 2,048-node level of 20 trees: the group's splits pass a
+    # block's share (windows of trees), and, with the share cut to 64
+    # bytes, every tree's splits read from global memory
+    deep_node = torch.from_numpy(rng.integers(0, deep, (TREES, X.shape[0])).astype(np.int32)).cuda()
+    deep_feature = torch.from_numpy(rng.integers(-1, FEATURES, (TREES, deep)).astype(np.int32)).cuda()
+    deep_bin = torch.from_numpy(rng.integers(0, MAX_BINS, (TREES, deep)).astype(np.int32)).cuda()
+    saved = trees._ROUTE_SHARE
+    try:
+        for share in (saved, 64):
+            trees._ROUTE_SHARE = share
+            routed = trees.route(bins, deep_node, deep_feature, deep_bin)
+            if not torch.equal(routed, trees._route(bins, deep_node, deep_feature, deep_bin)):
+                raise AssertionError(f"route (20 trees x {deep} nodes, share {share}): nodes differ")
+            for tree in (0, TREES - 1):
+                if not torch.equal(trees.route(bins, deep_node[tree], deep_feature[tree], deep_bin[tree]), routed[tree]):
+                    raise AssertionError(f"route (20 trees x {deep} nodes, share {share}): tree {tree} differs alone")
+            timings[f"route:{TREES}x{deep}:share_{share}"] = {
+                "ms": _event_ms(torch, lambda: trees.route(bins, deep_node, deep_feature, deep_bin), 3),
+                **trees._route_geometry(TREES, deep, True)._asdict(),
+            }
+    finally:
+        trees._ROUTE_SHARE = saved
+    del deep_node, routed
     record["wide_levels"] = {"max_abs_err": errors, "timings": timings}
     # R3: forests past a block's shared memory, bit-equal to the plain forward
     forests = {}
@@ -1648,6 +1743,7 @@ def phase_fit_kernels(torch) -> dict:
     # every call timed with a cold L2: the bounds count HBM bytes, and the
     # inputs of K2, K4 and K5 (28, 21 and 12 MB) would otherwise stay in L2
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=X_dev.device)
+    read_flush = _ReadFlush(torch, X_dev.device)
 
     def timed(name, key, kernel, plain, library, n_nodes, channels, bins_read=0, trees_=1):
         bound_ms, bound_by = _fit_bound(
@@ -1662,6 +1758,14 @@ def phase_fit_kernels(torch) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+        if name in ("route", "leaf_sums"):
+            # the CUDA kernels one wrapper call ran (the profiler's count),
+            # and the device time with L2 evicted by reads: the write flush
+            # leaves dirty lines that the call's reads then write back
+            into["by_level"][key]["kernels_a_call"] = _profile_device_us(torch, kernel, DEVICE_KERNELS[name])[1]
+            into["by_level"][key]["device_ms_clean_l2"] = _device_ms(
+                torch, kernel, DEVICE_KERNELS[name], 20, read_flush
+            )
 
     X_columns = X_dev.T.contiguous()
     timed(
@@ -1678,9 +1782,10 @@ def phase_fit_kernels(torch) -> dict:
         if level == DEPTH:
             n_leaves = 2**DEPTH
             leaf = node.long()
+            # dt's call counts (integer channels), gb's sums
             timed(
                 "leaf_sums", key,
-                lambda: trees.leaf_sums(node, channels, n_leaves),
+                lambda: trees.leaf_sums(node, channels, n_leaves, integer=mode == "gini"),
                 lambda: trees._leaf_sums(node, channels, n_leaves),
                 lambda: [torch.bincount(leaf, weights=channels[:, k], minlength=n_leaves) for k in range(K)],
                 n_leaves, K,
@@ -1726,7 +1831,7 @@ def phase_fit_kernels(torch) -> dict:
             weights = [channels[:, :, k].reshape(-1) for k in range(K)]
             timed(
                 "leaf_sums", key,
-                lambda: trees.leaf_sums(node, channels, n_leaves),
+                lambda: trees.leaf_sums(node, channels, n_leaves, integer=True),
                 lambda: trees._leaf_sums(node, channels, n_leaves),
                 lambda: [torch.bincount(index, weights=w, minlength=TREES * n_leaves) for w in weights],
                 n_leaves, K, trees_=TREES,
@@ -1814,7 +1919,7 @@ def _plain_level_loop():
         "level_histograms": _plain_histograms,
         "select_splits": trees._select_plain,
         "route": trees._route,
-        "leaf_sums": trees._leaf_sums,
+        "leaf_sums": _plain_leaf_sums,
     }):
         yield
 
@@ -1823,6 +1928,11 @@ def _plain_histograms(bins, node, channels, n_nodes, max_bins, integer=False):
     """K2's plain version in the wrappers' signature (the plain version's
     float64 sums are the same for integer channels and any others)."""
     return trees._level_histograms(bins, node, channels, n_nodes, max_bins)
+
+
+def _plain_leaf_sums(leaf_of_row, channels, n_leaves, integer=False):
+    """K5's plain version in the wrappers' signature (as K2's)."""
+    return trees._leaf_sums(leaf_of_row, channels, n_leaves)
 
 
 @contextlib.contextmanager
@@ -3136,6 +3246,12 @@ def check_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval) -> d
         leaf[j:j + 1], channels[j:j + 1], n_leaves),))
     if not torch.equal(sums, trees._leaf_sums(leaf, channels, n_leaves)):
         raise AssertionError("leaf_sums:jobs: class counts differ from the plain version")
+    # the sweep's call: the counts path (0/1 masks times one-hots)
+    counted = trees.leaf_sums(leaf, channels, n_leaves, integer=True)
+    _bit_equal_per_job("leaf_sums:jobs (counts)", (counted,), lambda j: (trees.leaf_sums(
+        leaf[j:j + 1], channels[j:j + 1], n_leaves, integer=True),))
+    if not torch.equal(counted, sums):
+        raise AssertionError("leaf_sums:jobs: the counts path's counts differ")
     errors["leaf_sums:jobs"] = 0.0
 
     thresholds_np = thresholds.cpu().numpy()
@@ -3266,7 +3382,7 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
         ),
         "leaf_sums:jobs": timed(
             "leaf_sums:jobs",
-            lambda: trees.leaf_sums(leaf, channels, n_leaves),
+            lambda: trees.leaf_sums(leaf, channels, n_leaves, integer=True),
             lambda: trees._leaf_sums(leaf, channels, n_leaves),
             _job_bound("leaf_sums", rows, J, n_nodes=n_leaves),
             lambda: [torch.bincount(leaf_index, weights=w, minlength=J * n_leaves) for w in leaf_weights],
@@ -3653,7 +3769,7 @@ def check_bounds(summary) -> None:
             **entry.get("forest", {}).get("by_level", {}), "at the main path's shape": entry,
         }
         for key, at in timed.items():
-            for field in ("ms", "device_ms"):
+            for field in ("ms", "device_ms", "device_ms_clean_l2"):
                 if at.get(field) is not None and at[field] < at["bound_ms"]:
                     raise AssertionError(
                         f"{entry['name']} at {key}: {field} {at[field]} is below "

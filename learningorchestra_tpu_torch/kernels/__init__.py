@@ -211,18 +211,25 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, c_int, ptr, ptr, ptr, ptr,      # bins, bin bytes, node, feature, split bin, out
         c_int, c_int, c_int, c_int,          # rows, F, trees, nodes a tree
         c_longlong,                          # bins' stride along the tree axis
-        c_int, c_int, ptr,                   # max_blocks, device, stream
+        c_int, c_int,                        # trees a group, splits staged in shared memory
+        c_int, ptr,                          # device, stream
+    ]
+    lib.lo_leaf_counts.argtypes = [
+        ptr, ptr, ptr, ptr,                  # leaf, channels, zeroed scratch, out
+        c_int, c_int, c_int, c_int,          # rows, leaves, channels, trees
+        c_int, c_int, c_int,                 # chunks, rows/chunk, counts in shared
+        c_int, ptr,                          # device, stream
     ]
     lib.lo_leaf_sums.argtypes = [
-        ptr, ptr, ptr, ptr,                  # leaf, channels, partials, out
+        ptr, ptr, ptr, ptr, ptr,             # leaf, channels, partials, tickets (or null), out
         c_int, c_int, c_int, c_int,          # rows, leaves, channels, trees
         c_int, c_int,                        # chunks, rows/chunk
-        c_int, c_int, c_int,                 # window: leaves, channels; warps
+        c_int, c_int, c_int, c_int,          # window: leaves, channels; warps; fused
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     for entry in (
-        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_sums",
-        "empty",
+        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_counts",
+        "leaf_sums", "empty",
     ):
         getattr(lib, f"lo_{entry}").restype = c_int
     return _bind_errors(lib)

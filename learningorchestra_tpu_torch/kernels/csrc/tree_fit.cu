@@ -7,7 +7,7 @@
 //      :196 `_select_splits`                   -> lo_select_splits
 //   K4 ml/trees.py:235 `_route` (:217 `_indicator_lookup`)
 //                                              -> lo_route
-//   K5 ml/trees.py:142 `_leaf_sums`            -> lo_leaf_sums
+//   K5 ml/trees.py:142 `_leaf_sums`            -> lo_leaf_counts, lo_leaf_sums
 // K2, K4 and K5 also run under the random forest's vmap over trees
 // (ml/trees.py:437 in `_rf_chunk`), and K3 with its per-node feature
 // subsets (:201-206). K1-K5 also run under the sweep's vmap over jobs
@@ -24,7 +24,9 @@
 //     partials (at most its rows' cells): costs the design is charged
 //     with, the bound unchanged.
 //   - K4 reads node, one bin of each row whose node splits, and writes
-//     node (at most 9 MB): ~2.7 us.
+//     node (at most 9 MB): ~2.7 us. A bin is read as its 32-byte sector,
+//     so where every row splits the level moves the whole bins matrix:
+//     24 MB, ~7.2 us (the sector floor).
 //   - K3 reads a histogram of a few KB a node: launch latency, then the
 //     chain of each node's phases.
 //   - K5 reads leaf and channels (12 MB): ~3.6 us.
@@ -34,8 +36,7 @@
 // one tree's does: at J = 8 slots of 1,048,576 rows, K2 moves 224 MB a
 // level (~67 us). K1 reads the slots' one X once (64 MB) and writes each
 // slot's bins (128 MB): ~60 us of bytes, beside 8 times the searches.
-// K1, K2 and K3 are designed for the card (described at their kernels
-// below); K4 and K5 are the simple versions, written to be right first.
+// All five are designed for the card (described at their kernels below).
 //
 // Design and numerics:
 //   - Deterministic. A resumed or coalesced fit must rerun bit for bit,
@@ -45,12 +46,12 @@
 //     counts, exact in any order, and any other channels (gb's) as
 //     float64 sums in an order fixed by the rows: fixed chunks (a function
 //     of the level's shape alone), each warp's part of a chunk in row
-//     order, the warps' parts and then the chunks added in order. K5 splits
-//     the rows into fixed chunks (a function of the row count alone); in a
-//     chunk a warp walks its rows 32 at a time in order, lanes whose rows
-//     fall in one cell grouped (__match_any_sync) and one lane adding the
-//     group in row order, into cells no other warp touches; a second
-//     kernel adds the chunks' partials in chunk order.
+//     order, the warps' parts and then the chunks added in order. K5 takes
+//     the same two paths: integer channels as 32-bit counts; float ones
+//     in fixed chunks (a function of the row count alone), in a chunk a
+//     warp its rows 32 at a time in order, the lanes of one leaf
+//     (__match_any_sync) added in lane order into the warp's own copy,
+//     the copies in warp order, the chunks in a fixed order.
 //   - Accurate sums. The float32 channels are summed in float64 and each
 //     sum is rounded once to float32, as the plain versions do: a float32
 //     sum in row order drifts by ~1e-5 relative over a few thousand rows,
@@ -65,8 +66,9 @@
 //   - K1 is searchsorted(side=left) on the sorted thresholds, each
 //     feature's padded with +inf to a power of two and bisected in
 //     branch-free steps; NaN goes past every threshold (last bin).
-//   - K4 is one indexed load per row; the reference's select-sum lookup
-//     worked around serialized gathers on the TPU.
+//   - K4 picks a row's bin in registers from its 16-byte words (or gathers
+//     it); the reference's select-sum lookup worked around serialized
+//     gathers on the TPU.
 //   - Bins are int8 while max_bins <= 127 and int32 above, as the
 //     reference's (ml/binning.py:54): K1 writes either, K2 and K4 read
 //     either (a template on the bin type; `bin_bytes` picks it).
@@ -76,14 +78,17 @@
 //     (node, bin, channel) cells of a block's features in shared memory,
 //     the windows of nodes and the feature blocks as blocks of one launch
 //     and windows of bins or channels as passes; rows whose cell lies
-//     outside the window are skipped. K5 runs one pass per window of
-//     (leaf, channel) cells. A cell's sum takes its rows in the same order
-//     in every window, so the result does not depend on the windows.
+//     outside the window are skipped. K5's counts take any width in one
+//     pass (in shared memory while the cells fit it, else in global
+//     memory); its sums run one pass per window of (leaf, channel) cells
+//     past one block. A cell's sum takes its rows in the same order in
+//     every window, so the result does not depend on the windows.
 //   - A tree axis. K2, K4 and K5 take T trees in one launch: each tree
 //     has its own node and channels (its own bootstrap weights), and the
 //     trees read one bins matrix (K2 and K4 take the bins' stride along
 //     the tree axis: 0 for the forest, rows * F for a sweep's jobs, each
-//     with its own bins). A tree's sums are those of a launch of that
+//     with its own bins; K4 reads a shared matrix once for a group of
+//     trees). A tree's sums are those of a launch of that
 //     tree alone, bit for bit: trees never share a cell, and a cell adds
 //     its rows in the same order. K3 takes the forest's (or the jobs')
 //     (T, nodes) flattened into its node axis.
@@ -119,9 +124,14 @@ constexpr int kSumThreads = 32 * kSumWarps;
 // carveout, so that several blocks of that size fit one SM.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
-  const cudaError_t error = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  // the default 48 KB bounds a block's static and dynamic shared memory
+  // together, so a kernel's static bytes count against it
+  cudaFuncAttributes attributes;
+  cudaError_t error = cudaFuncGetAttributes(&attributes, kernel);
+  if (error != cudaSuccess) return error;
+  if (bytes + attributes.sharedSizeBytes <= kDefaultSharedBytes) return cudaSuccess;
+  error = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
   if (error != cudaSuccess) return error;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
@@ -389,18 +399,19 @@ __device__ __forceinline__ void for_row_bins(const Bin* __restrict__ row, int f_
 constexpr int kCountThreads = 512;
 constexpr float kCountLimit = 65536.0f;
 
-__device__ __forceinline__ unsigned count_of(float value) {
+__device__ __forceinline__ unsigned count_of(float value, const char* entry) {
   if (!(value >= 0.0f && value < kCountLimit && value == truncf(value))) {
-    printf("lo_level_counts: channel value %g is not an integer in [0, 65536)\n", value);
+    printf("%s: channel value %g is not an integer in [0, 65536)\n", entry, value);
     __trap();
   }
   return static_cast<unsigned>(value);
 }
 
-__device__ __forceinline__ void add_count(unsigned* __restrict__ cell, unsigned value) {
+__device__ __forceinline__ void add_count(unsigned* __restrict__ cell, unsigned value,
+                                          const char* entry) {
   const unsigned before = atomicAdd(cell, value);
   if (before + value < before) {
-    printf("lo_level_counts: a count passes 2^32\n");
+    printf("%s: a count passes 2^32\n", entry);
     __trap();
   }
 }
@@ -432,7 +443,8 @@ __global__ void __launch_bounds__(kCountThreads) level_counts_kernel(
     const int nd = __ldg(node + r);
     if (nd < 0 || nd >= n_nodes) continue;
     for (int k = 0; k < K; ++k) {
-      const unsigned value = count_of(__ldg(channels + static_cast<size_t>(r) * K + k));
+      const unsigned value = count_of(__ldg(channels + static_cast<size_t>(r) * K + k),
+                                      "lo_level_counts");
       if (value == 0u) continue;
       for_row_bins(bins + static_cast<size_t>(r) * F, f_begin, fb, vector != 0,
                    [&](int f, int b) {
@@ -442,7 +454,7 @@ __global__ void __launch_bounds__(kCountThreads) level_counts_kernel(
                      else
                        add_count(counts + ((static_cast<long long>(nd) * F + f_begin + f) *
                                                B + b) * K + k,
-                                 value);
+                                 value, "lo_level_counts");
                    });
     }
   }
@@ -452,7 +464,7 @@ __global__ void __launch_bounds__(kCountThreads) level_counts_kernel(
     const unsigned value = hist[i];
     if (value != 0u)
       add_count(counts + (static_cast<long long>(i / run) * F + f_begin) * B * K + i % run,
-                value);
+                value, "lo_level_counts");
   }
 }
 
@@ -759,17 +771,148 @@ __global__ void __launch_bounds__(kSumThreads) level_histograms_kernel(
   }
 }
 
-// Block (chunk, tree): the partial per-leaf channel sums of the chunk's
-// rows of the tree, over the (leaf, channel) cells of window `w`. Each
-// warp walks its own contiguous part of the chunk, 32 rows at a time, into
-// a private copy of the sums (lanes of one leaf grouped as in K2; rows of
-// a leaf outside the window skipped); the warps' copies are then added in
-// warp order.
-__global__ void __launch_bounds__(1024)
-    leaf_sums_kernel(const int* __restrict__ leaf,
-                     const float* __restrict__ channels,
-                     double* __restrict__ partials, int rows,
-                     int num_channels, Window w, int rows_per_chunk) {
+// ------------------------------------------------------------------ K5
+//
+// Per-leaf channel sums (ml/trees.py:142 `_leaf_sums`): a tree's rows
+// read once (leaf and channels: 12 MB at the default fit), its L x K sums
+// written once. Two paths behind one wrapper, as K2's:
+//   - Counts (dt's, the forest's and a sweep's integer channels, the
+//     caller's claim, checked as K2 checks it): block (chunk, tree), a
+//     warp 32 consecutive rows at a time, four such steps in flight (a
+//     row's leaf and channels coalesced), each nonzero channel added into
+//     the block's 32-bit counts in shared memory with an integer atomic.
+//     (Grouping a warp's lanes by cell first, __match_any_sync then
+//     __reduce_add_sync, was slower on an H100: the match costs more than
+//     the shared atomics' conflicts it saves.) The block then adds each
+//     cell it touched into the call's counts in global memory with one
+//     integer atomic: exact in any order. Where a chunk's counts would
+//     leave the card few chunks (4,096 leaves x 10 classes: 160 KB a
+//     block, 16 chunks), every block counts straight into global memory
+//     (ml/trees.py _leaf_count_tiling).
+//   - Sums (gb's float (g, h)): block (chunk, tree) of 32 warps, each with
+//     its own float64 copy of the cells; a warp reads 32 consecutive rows
+//     (leaf and channels coalesced), and the lanes of one leaf (a
+//     __match_any_sync group) add their rows in lane order by shuffles,
+//     so every lane of a group holds the group's sum and one adds it into
+//     the warp's copy. The warps' copies are added in warp order into the
+//     chunk's float64 partials.
+//   - One launch a call. The last block of a tree to finish (a ticket
+//     taken after __threadfence) writes the tree's float32 results: the
+//     counts rounded once, or the chunks' partials added in a fixed order
+//     (consecutive chunks in chunk order by one thread, then those
+//     segments in segment order; a function of the shape alone). The
+//     counts and the tickets live in a scratch the wrapper keeps zeroed
+//     (ml/trees.py `_zeroed_scratch`): the last block reads its tree's
+//     counts and zeroes them, and resets its ticket, so no memset runs.
+//     Sums past one block's partials (chunks x cells over
+//     trees._LEAF_FUSE_VALUES) or past its shared memory (windows of
+//     leaves or channels) take a second kernel, sum_partials_kernel, in
+//     chunk order.
+constexpr int kLeafCountThreads = 512;
+constexpr int kLeafCountSteps = 4;     // rows a thread has in flight
+constexpr int kLeafWarps = 32;         // the sums path's warps a block (ml/trees.py _LEAF_WARPS)
+
+// Is this block the last of `blocks` to finish? Its writes are made
+// visible first (__threadfence), the ticket taken by one thread; the last
+// block then reads the others' with __ldcg (L2, not a stale L1).
+__device__ __forceinline__ bool last_block(unsigned* __restrict__ ticket, unsigned blocks) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == blocks - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// Block (chunk, tree) of the counts path: counts (T, L, K) and tickets
+// (T) in the zeroed scratch, out (T, L, K). `kShared`: the block counts in
+// shared memory (L x K fit it), else straight into the scratch.
+template <bool kShared>
+__global__ void __launch_bounds__(kLeafCountThreads) leaf_counts_kernel(
+    const int* __restrict__ leaf, const float* __restrict__ channels,
+    unsigned* __restrict__ counts, unsigned* __restrict__ tickets, float* __restrict__ out,
+    int rows, int n_leaves, int num_channels, int rows_per_chunk) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  unsigned* hist = reinterpret_cast<unsigned*>(shared);  // (leaf, channel)
+  const long long tree = blockIdx.y;
+  const int K = num_channels;
+  const int cells = n_leaves * K;
+  leaf += tree * rows;
+  channels += tree * rows * K;
+  counts += tree * cells;
+  out += tree * cells;
+  if (kShared) {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0u;
+    __syncthreads();
+  }
+  const int row_begin = blockIdx.x * rows_per_chunk;
+  const int row_end = min(rows, row_begin + rows_per_chunk);
+  for (int base = row_begin; base < row_end; base += kLeafCountSteps * kLeafCountThreads) {
+    int l[kLeafCountSteps];
+#pragma unroll
+    for (int s = 0; s < kLeafCountSteps; ++s) {
+      const int r = base + s * kLeafCountThreads + threadIdx.x;
+      l[s] = r < row_end ? __ldg(leaf + r) : -1;
+      if (l[s] >= n_leaves) l[s] = -1;
+    }
+    for (int k = 0; k < K; ++k) {
+      float v[kLeafCountSteps];
+#pragma unroll
+      for (int s = 0; s < kLeafCountSteps; ++s) {
+        const int r = base + s * kLeafCountThreads + threadIdx.x;
+        v[s] = r < row_end ? __ldg(channels + static_cast<size_t>(r) * K + k) : 0.0f;
+      }
+#pragma unroll
+      for (int s = 0; s < kLeafCountSteps; ++s) {
+        const unsigned value = count_of(v[s], "lo_leaf_counts");
+        if (l[s] < 0 || value == 0u) continue;
+        if (kShared)
+          atomicAdd(hist + l[s] * K + k, value);
+        else
+          add_count(counts + l[s] * K + k, value, "lo_leaf_counts");
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const unsigned value = hist[i];
+      if (value != 0u) add_count(counts + i, value, "lo_leaf_counts");
+    }
+  }
+  if (!last_block(tickets + tree, gridDim.x)) return;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    out[i] = __uint2float_rn(__ldcg(counts + i));
+    counts[i] = 0u;
+  }
+  if (threadIdx.x == 0) tickets[tree] = 0u;
+}
+
+// The float64 sum, in lane order, of `value` over the lanes of `group`
+// (this lane's __match_any_sync group): every lane of the group gets the
+// same bits. `members`: the largest group of the warp (the loop is warp
+// uniform, as the shuffles need).
+__device__ __forceinline__ double group_sum(float value, unsigned group, int members) {
+  double sum = 0.0;
+  unsigned rest = group;
+  for (int j = 0; j < members; ++j) {
+    const float member = __shfl_sync(0xffffffffu, value, rest != 0u ? __ffs(rest) - 1 : 0);
+    if (rest != 0u) sum = __dadd_rn(sum, static_cast<double>(member));
+    rest &= rest - 1u;
+  }
+  return sum;
+}
+
+// Block (chunk, tree) of the sums path over the (leaf, channel) cells of
+// window `w`: the chunk's float64 partials at partials[tree][chunk] (the
+// window's cells); with `kFused`, the tree's last block also writes its
+// float32 sums into out (T, n_leaves, num_channels) and resets its ticket.
+template <bool kFused>
+__global__ void __launch_bounds__(32 * kLeafWarps) leaf_sums_kernel(
+    const int* __restrict__ leaf, const float* __restrict__ channels,
+    double* __restrict__ partials, unsigned* __restrict__ tickets, float* __restrict__ out,
+    int rows, int num_channels, Window w, int rows_per_chunk) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int K = w.channels;
   const int cells = w.nodes * K;
@@ -793,25 +936,54 @@ __global__ void __launch_bounds__(1024)
     const int r = base + lane;
     int key = -1;
     if (r < warp_end) {
-      const int l = leaf[r] - w.node_begin;
+      const int l = __ldg(leaf + r) - w.node_begin;
       if (l >= 0 && l < w.nodes) key = l;
     }
     const unsigned group = __match_any_sync(0xffffffffu, key);
-    if (key < 0 || lane != __ffs(group) - 1) continue;
+    const int members = __reduce_max_sync(0xffffffffu, key >= 0 ? __popc(group) : 0);
+    const bool leader = key >= 0 && lane == __ffs(group) - 1;
     for (int k = 0; k < K; ++k) {
-      double sum = 0.0;
-      for (unsigned members = group; members != 0; members &= members - 1)
-        sum = __dadd_rn(sum, channels[static_cast<size_t>(base + __ffs(members) - 1) *
-                                          num_channels + w.channel_begin + k]);
-      mine[key * K + k] = __dadd_rn(mine[key * K + k], sum);
+      // loaded with the leaf, not after it
+      const float value =
+          r < warp_end ? __ldg(channels + static_cast<size_t>(r) * num_channels + w.channel_begin + k)
+                       : 0.0f;
+      const double sum = group_sum(value, group, members);
+      if (leader) mine[key * K + k] = __dadd_rn(mine[key * K + k], sum);
     }
   }
   __syncthreads();
+  const int chunks = gridDim.x;
+  double* chunk_partials = partials + (tree * chunks + blockIdx.x) * cells;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     double sum = sums[i];
-    for (int w2 = 1; w2 < warps; ++w2) sum = __dadd_rn(sum, sums[w2 * cells + i]);
-    partials[(tree * gridDim.x + blockIdx.x) * cells + i] = sum;
+    for (int other = 1; other < warps; ++other) sum = __dadd_rn(sum, sums[other * cells + i]);
+    chunk_partials[i] = sum;
   }
+  if (!kFused || !last_block(tickets + tree, chunks)) return;
+  // segments of consecutive chunks, each added in chunk order by one
+  // thread, then the segments in order: as many segments as the block's
+  // threads give each cell, at most one a warp (their sums fit `sums`)
+  const double* tree_partials = partials + tree * chunks * cells;
+  const int wanted = max(1, min(warps, min(chunks, static_cast<int>(blockDim.x) / cells)));
+  const int per_segment = (chunks + wanted - 1) / wanted;
+  const int segments = (chunks + per_segment - 1) / per_segment;
+  __syncthreads();  // `sums` is reused for the segments' sums
+  for (int i = threadIdx.x; i < segments * cells; i += blockDim.x) {
+    const int s = i / cells, cell = i - s * cells;
+    const int first = s * per_segment, last = min(chunks, first + per_segment);
+    double sum = 0.0;
+    for (int c = first; c < last; ++c)
+      sum = __dadd_rn(sum, __ldcg(tree_partials + static_cast<size_t>(c) * cells + cell));
+    sums[i] = sum;
+  }
+  __syncthreads();
+  out += tree * static_cast<long long>(w.nodes) * num_channels;
+  for (int cell = threadIdx.x; cell < cells; cell += blockDim.x) {
+    double sum = sums[cell];
+    for (int s = 1; s < segments; ++s) sum = __dadd_rn(sum, sums[s * cells + cell]);
+    out[cell] = __double2float_rn(sum);
+  }
+  if (threadIdx.x == 0) tickets[tree] = 0u;
 }
 
 // ------------------------------------------------------------------ K3
@@ -1052,33 +1224,125 @@ __global__ void __launch_bounds__(kSplitThreads)
 }
 
 // ------------------------------------------------------------------ K4
+//
+// Each row one level down its tree (ml/trees.py:235 `_route`): node' =
+// 2 node + (the row's bin of the node's feature > the node's split bin),
+// left where the node does not split (feature -1). Bound by bytes: each
+// tree's node read and written once (8 MB at 1,000,000 rows), one bin of
+// each split row. A bin gathered from an int8 row of 16 still moves its
+// 32-byte sector, so a level whose rows all split moves the whole bins
+// matrix (16 MB): the sector floor, ~0.0072 ms for one tree.
+//   - Block (row tiles, tree group): the group's splits staged once in
+//     shared memory, one int2 (feature, split bin) a node, in place of two
+//     global loads a row; a group whose splits pass its share reads them
+//     from global memory (ml/trees.py _route_geometry).
+//   - A thread takes a row: its bins as one to four 16-byte words where a
+//     row is at most 64 bytes and falls on 16 bytes (the bin is picked in
+//     registers, as K2's for_row_bins does), else the one bin a tree
+//     needs, gathered.
+//   - Trees that share one bins matrix (bins_tree_stride 0: the forest;
+//     any stride-0 caller) go in groups: a thread routes its row down
+//     every tree of its group from one read of the row's bins, each tree's
+//     node read and node_out written coalesced along rows, four trees'
+//     nodes in flight together. Trees with their own bins (a sweep's jobs)
+//     form groups of one, through the same loop.
+//   - A row's words load with its nodes, neither waiting on the other,
+//     also where no tree of the group splits the row: such a row mostly
+//     shares its 32-byte sector with rows that need theirs, and loading
+//     the words only once a node splits (a second round trip) was slower
+//     at every level measured, three in four leaf nodes included
+//     (tree_fit_variants.py, PERF.md section 6). A gathered bin is read
+//     only for a split.
+//   - As many blocks as the card holds at once (the occupancy API).
+constexpr int kRouteThreads = 256;
+constexpr int kRouteTreeBatch = 4;  // trees' nodes a thread has in flight
 
-// Each row of tree blockIdx.y one level down, against the tree's split of
-// the row's node; the tree's bins at tree * bins_tree_stride (0: the trees
-// read one bins matrix).
-template <typename Bin>
-__global__ void __launch_bounds__(kThreads)
-    route_kernel(const Bin* __restrict__ bins, const int* __restrict__ node,
-                 const int* __restrict__ feature,
-                 const int* __restrict__ split_bin, int* __restrict__ node_out,
-                 int rows, int num_features, int n_nodes,
-                 long long bins_tree_stride) {
-  const long long tree = blockIdx.y;
-  bins += tree * bins_tree_stride;
-  node += tree * rows;
-  node_out += tree * rows;
-  feature += tree * n_nodes;
-  split_bin += tree * n_nodes;
+// Bin `f` of a row held as `kWords` 16-byte words.
+template <typename Bin, int kWords>
+__device__ __forceinline__ int word_bin(const uint4 (&words)[kWords > 0 ? kWords : 1], int f) {
+  constexpr int kPerWord = 16 / sizeof(Bin);
+  const int q = f / kPerWord;
+  uint4 word = words[0];
+#pragma unroll
+  for (int i = 1; i < kWords; ++i)
+    if (q == i) word = words[i];
+  return bin_at(word, f - q * kPerWord, Bin());
+}
+
+template <int kWords>
+__device__ __forceinline__ void load_words(uint4 (&words)[kWords > 0 ? kWords : 1], const void* row) {
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) words[i] = __ldg(reinterpret_cast<const uint4*>(row) + i);
+}
+
+// Tree t's (feature, split bin) of node nd: (-1, 0) for a node outside
+// the level.
+template <bool kStaged>
+__device__ __forceinline__ int2 split_of(const int2* __restrict__ splits,
+                                         const int* __restrict__ feature,
+                                         const int* __restrict__ split_bin, int t, int n_nodes,
+                                         int nd) {
+  if (nd < 0 || nd >= n_nodes) return make_int2(-1, 0);
+  if (kStaged) return splits[t * n_nodes + nd];
+  const long long at = static_cast<long long>(t) * n_nodes + nd;
+  return make_int2(__ldg(feature + at), __ldg(split_bin + at));
+}
+
+// node' = 2 node + (x_bin > split bin), left where the node does not split
+__device__ __forceinline__ int routed(int nd, int2 split, int x_bin) {
+  return 2 * nd + (x_bin > split.y && split.x >= 0 ? 1 : 0);
+}
+
+// Block (row tiles, tree group): trees [group * blockIdx.y, + group) of
+// `trees`; node, node_out (T, rows); feature, split_bin (T, n_nodes);
+// the bins (rows, F) of tree t at t * bins_tree_stride (0: shared; a
+// group of one tree when not). kWords: a row's 16-byte words (0: gather
+// one bin a tree); kStaged: the group's splits in shared memory.
+template <typename Bin, int kWords, bool kStaged>
+__global__ void __launch_bounds__(kRouteThreads) route_kernel(
+    const Bin* __restrict__ bins, const int* __restrict__ node, const int* __restrict__ feature,
+    const int* __restrict__ split_bin, int* __restrict__ node_out, int rows, int num_features,
+    int n_nodes, int trees, int group, long long bins_tree_stride) {
+  extern __shared__ __align__(16) int2 splits[];  // [tree of the group][node]
+  constexpr int W = kWords > 0 ? kWords : 1;
+  const int t0 = blockIdx.y * group;
+  const int group_trees = min(group, trees - t0);
+  const int F = num_features;
+  bins += t0 * bins_tree_stride;
+  node += static_cast<long long>(t0) * rows;
+  node_out += static_cast<long long>(t0) * rows;
+  feature += static_cast<long long>(t0) * n_nodes;
+  split_bin += static_cast<long long>(t0) * n_nodes;
+  if (kStaged) {
+    for (int i = threadIdx.x; i < group_trees * n_nodes; i += blockDim.x)
+      splits[i] = make_int2(__ldg(feature + i), __ldg(split_bin + i));
+    __syncthreads();
+  }
+  // a row's bins read once for every tree of the group, with its nodes;
+  // kRouteTreeBatch trees' nodes in flight
   for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < rows;
        row += gridDim.x * blockDim.x) {
-    const int nd = node[row];
-    const int f = __ldg(feature + nd);
-    const int x_bin =
-        f >= 0 && f < num_features
-            ? static_cast<int>(bins[static_cast<size_t>(row) * num_features + f])
-            : 0;
-    const bool go_right = x_bin > __ldg(split_bin + nd) && f >= 0;
-    node_out[row] = 2 * nd + (go_right ? 1 : 0);
+    const Bin* row_bins = bins + static_cast<size_t>(row) * F;
+    uint4 words[W];
+    if (kWords > 0) load_words<kWords>(words, row_bins);
+    for (int b = 0; b < group_trees; b += kRouteTreeBatch) {
+      int nd[kRouteTreeBatch];
+#pragma unroll
+      for (int j = 0; j < kRouteTreeBatch; ++j)
+        nd[j] = b + j < group_trees ? __ldg(node + static_cast<long long>(b + j) * rows + row) : -1;
+#pragma unroll
+      for (int j = 0; j < kRouteTreeBatch; ++j) {
+        const int t = b + j;
+        if (t >= group_trees) break;
+        const int2 split = split_of<kStaged>(splits, feature, split_bin, t, n_nodes, nd[j]);
+        const int f = split.x;
+        int x_bin = 0;
+        if (f >= 0 && f < F)
+          x_bin = kWords > 0 ? word_bin<Bin, kWords>(words, f)
+                             : static_cast<int>(__ldg(row_bins + f));
+        node_out[static_cast<long long>(t) * rows + row] = routed(nd[j], split, x_bin);
+      }
+    }
   }
 }
 
@@ -1268,6 +1532,63 @@ cudaError_t launch_level_counts(const void* bins, const int* node,
   return cudaGetLastError();
 }
 
+// K4 over tree groups of `group` trees (1 when each tree has its own
+// bins), as many blocks as the card holds at once; groups past grid
+// dimension y go in launches of their own.
+template <typename Bin, int kWords, bool kStaged>
+cudaError_t launch_route_as(const void* bins, const int* node, const int* feature,
+                            const int* split_bin, int* node_out, int rows, int num_features,
+                            int trees, int n_nodes, int group, long long bins_tree_stride,
+                            cudaStream_t stream) {
+  const auto kernel = route_kernel<Bin, kWords, kStaged>;
+  const size_t shared_bytes = kStaged ? sizeof(int2) * static_cast<size_t>(group) * n_nodes : 0;
+  cudaError_t error = allow_shared(kernel, shared_bytes);
+  if (error != cudaSuccess) return error;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((error = cudaGetDevice(&device)) != cudaSuccess) return error;
+  if ((error = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return error;
+  error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRouteThreads, shared_bytes);
+  if (error != cudaSuccess) return error;
+  const int groups = (trees + group - 1) / group;
+  const long long tiles = (rows + kRouteThreads - 1) / kRouteThreads;
+  for (int g0 = 0; g0 < groups; g0 += kMaxGridYZ) {
+    const int launch_groups = std::min(kMaxGridYZ, groups - g0);
+    const long long t0 = static_cast<long long>(g0) * group;
+    const int blocks = static_cast<int>(
+        std::max(1LL, std::min(tiles, static_cast<long long>(std::max(1, per_sm)) * sms / launch_groups)));
+    kernel<<<dim3(blocks, launch_groups), kRouteThreads, shared_bytes, stream>>>(
+        static_cast<const Bin*>(bins) + t0 * bins_tree_stride, node + t0 * rows,
+        feature + t0 * n_nodes, split_bin + t0 * n_nodes, node_out + t0 * rows, rows,
+        num_features, n_nodes, static_cast<int>(trees - t0), group, bins_tree_stride);
+    error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
+  }
+  return cudaSuccess;
+}
+
+// A row's 16-byte words where a row is at most 64 bytes and every tree's
+// rows fall on 16 bytes, else 0 (a bin gathered a tree).
+template <typename Bin, bool kStaged>
+cudaError_t launch_route(const void* bins, const int* node, const int* feature,
+                         const int* split_bin, int* node_out, int rows, int num_features,
+                         int trees, int n_nodes, int group, long long bins_tree_stride,
+                         cudaStream_t stream) {
+  const long long row_bytes = static_cast<long long>(num_features) * sizeof(Bin);
+  const int words = row_bytes % 16 == 0 && row_bytes <= 64 &&
+                            reinterpret_cast<uintptr_t>(bins) % 16 == 0 &&
+                            (bins_tree_stride * static_cast<long long>(sizeof(Bin))) % 16 == 0
+                        ? static_cast<int>(row_bytes / 16)
+                        : 0;
+  const auto launch = words == 1   ? launch_route_as<Bin, 1, kStaged>
+                      : words == 2 ? launch_route_as<Bin, 2, kStaged>
+                      : words == 3 ? launch_route_as<Bin, 3, kStaged>
+                      : words == 4 ? launch_route_as<Bin, 4, kStaged>
+                                   : launch_route_as<Bin, 0, kStaged>;
+  return launch(bins, node, feature, split_bin, node_out, rows, num_features, trees, n_nodes,
+                group, bins_tree_stride, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1426,55 +1747,77 @@ int lo_empty(int device, void* stream) {
 
 // node, node_out: (T, rows); feature, split_bin: (T, n_nodes); the bins
 // (rows, F) of tree t at t * bins_tree_stride (0: one shared matrix).
-int lo_route(const void* bins, int bin_bytes, const int* node,
-             const int* feature, const int* split_bin, int* node_out, int rows,
-             int num_features, int trees, int n_nodes,
-             long long bins_tree_stride, int max_blocks, int device,
+// Trees go in groups of `group` (1 unless the stride is 0), their splits
+// staged in shared memory when `staged` (group * n_nodes int2 pairs).
+int lo_route(const void* bins, int bin_bytes, const int* node, const int* feature,
+             const int* split_bin, int* node_out, int rows, int num_features, int trees,
+             int n_nodes, long long bins_tree_stride, int group, int staged, int device,
              void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || trees <= 0) return cudaSuccess;
-  if (bin_bytes != 1 && bin_bytes != 4) return cudaErrorInvalidValue;
+  if ((bin_bytes != 1 && bin_bytes != 4) || group <= 0 || (bins_tree_stride != 0 && group != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = bin_bytes == 1 ? (staged ? launch_route<int8_t, true> : launch_route<int8_t, false>)
+                                     : (staged ? launch_route<int32_t, true> : launch_route<int32_t, false>);
+  return launch(bins, node, feature, split_bin, node_out, rows, num_features, trees, n_nodes,
+                group, bins_tree_stride, s);
+}
+
+// The counts path of K5, for channels that are integers in [0, 65536)
+// (the caller's claim, checked by the kernel). leaf: (T, rows); channels:
+// (T, rows, K); scratch: T tickets, then T * n_leaves * K counts, all zero
+// on entry and left zero; out: (T, n_leaves, K). One launch a group of
+// trees (65,535 at most along grid y).
+int lo_leaf_counts(const int* leaf, const float* channels, unsigned* scratch, float* out,
+                   int rows, int n_leaves, int num_channels, int trees, int chunks,
+                   int rows_per_chunk, int in_shared, int device, void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  const long long cells = static_cast<long long>(n_leaves) * num_channels;
+  if (cells * trees <= 0 || rows <= 0) return cudaSuccess;
+  if (chunks <= 0 || rows_per_chunk <= 0) return cudaErrorInvalidValue;
+  const auto kernel = in_shared ? leaf_counts_kernel<true> : leaf_counts_kernel<false>;
+  const size_t shared_bytes = in_shared ? sizeof(unsigned) * static_cast<size_t>(cells) : 0;
+  error = allow_shared(kernel, shared_bytes);
+  if (error != cudaSuccess) return error;
+  unsigned* tickets = scratch;
+  unsigned* counts = scratch + trees;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
-    const dim3 grid(grid_for(rows, max_blocks), std::min(kMaxGridYZ, trees - t0));
-    const long long row_offset = static_cast<long long>(t0) * rows;
-    const long long split_offset = static_cast<long long>(t0) * n_nodes;
-    if (bin_bytes == 1)
-      route_kernel<int8_t><<<grid, kThreads, 0, s>>>(
-          static_cast<const int8_t*>(bins) + t0 * bins_tree_stride,
-          node + row_offset, feature + split_offset, split_bin + split_offset,
-          node_out + row_offset, rows, num_features, n_nodes,
-          bins_tree_stride);
-    else
-      route_kernel<int32_t><<<grid, kThreads, 0, s>>>(
-          static_cast<const int32_t*>(bins) + t0 * bins_tree_stride,
-          node + row_offset, feature + split_offset, split_bin + split_offset,
-          node_out + row_offset, rows, num_features, n_nodes,
-          bins_tree_stride);
+    const int group = std::min(kMaxGridYZ, trees - t0);
+    kernel<<<dim3(chunks, group), kLeafCountThreads, shared_bytes, s>>>(
+        leaf + static_cast<long long>(t0) * rows,
+        channels + static_cast<long long>(t0) * rows * num_channels, counts + t0 * cells,
+        tickets + t0, out + t0 * cells, rows, n_leaves, num_channels, rows_per_chunk);
     error = cudaGetLastError();
     if (error != cudaSuccess) return error;
   }
   return cudaSuccess;
 }
 
-// leaf: (T, rows); channels: (T, rows, K). partials: T * chunks *
-// window_leaves * window_channels doubles of scratch, reused by every
-// window; out: (T, n_leaves, K).
-int lo_leaf_sums(const int* leaf, const float* channels, double* partials,
-                 float* out, int rows, int n_leaves, int num_channels,
-                 int trees, int chunks, int rows_per_chunk, int window_leaves,
-                 int window_channels, int warps, int max_blocks, int device,
-                 void* stream) {
+// The sums path of K5. leaf: (T, rows); channels: (T, rows, K).
+// partials: T * chunks * window_leaves * window_channels doubles of
+// scratch, reused by every window; out: (T, n_leaves, K). `fused` (one
+// window of every cell): one launch a group of trees, the last block of a
+// tree writing its sums, `tickets` (T zeroed counters, left zero);
+// otherwise a second kernel a window adds the partials in chunk order.
+int lo_leaf_sums(const int* leaf, const float* channels, double* partials, unsigned* tickets,
+                 float* out, int rows, int n_leaves, int num_channels, int trees, int chunks,
+                 int rows_per_chunk, int window_leaves, int window_channels, int warps,
+                 int fused, int max_blocks, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  if (static_cast<long long>(n_leaves) * num_channels * trees <= 0)
+  if (static_cast<long long>(n_leaves) * num_channels * trees <= 0 || rows <= 0)
     return cudaSuccess;
-  if (window_leaves <= 0 || window_channels <= 0) return cudaErrorInvalidValue;
-  const size_t shared_bytes = sizeof(double) *
-                              static_cast<size_t>(window_leaves) *
+  if (window_leaves <= 0 || window_channels <= 0 || warps <= 0 || warps > kLeafWarps ||
+      (fused && (window_leaves != n_leaves || window_channels != num_channels || tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t shared_bytes = sizeof(double) * static_cast<size_t>(window_leaves) *
                               window_channels * warps;
-  error = allow_shared(leaf_sums_kernel, shared_bytes);
+  const auto kernel = fused ? leaf_sums_kernel<true> : leaf_sums_kernel<false>;
+  error = allow_shared(kernel, shared_bytes);
   if (error != cudaSuccess) return error;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long out_tree_stride = static_cast<long long>(n_leaves) * num_channels;
@@ -1486,12 +1829,14 @@ int lo_leaf_sums(const int* leaf, const float* channels, double* partials,
       for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
         const int group = std::min(kMaxGridYZ, trees - t0);
         double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
-        leaf_sums_kernel<<<dim3(chunks, group), 32 * warps, shared_bytes, s>>>(
+        kernel<<<dim3(chunks, group), 32 * warps, shared_bytes, s>>>(
             leaf + static_cast<long long>(t0) * rows,
-            channels + static_cast<long long>(t0) * rows * num_channels,
-            group_partials, rows, num_channels, w, rows_per_chunk);
+            channels + static_cast<long long>(t0) * rows * num_channels, group_partials,
+            fused ? tickets + t0 : nullptr, out + t0 * out_tree_stride, rows, num_channels, w,
+            rows_per_chunk);
         error = cudaGetLastError();
         if (error != cudaSuccess) return error;
+        if (fused) continue;
         sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads, 0, s>>>(
             group_partials, out + t0 * out_tree_stride, chunks, cells,
             out_tree_stride, w, 1, 1, num_channels);

@@ -46,16 +46,19 @@ Two versions of each device program live here:
   CUDA tensor it launches the hand-written kernel (``kernels/csrc/
   tree_fit.cu``, ``tree_forward.cu``) or raises. Nothing falls back.
 
-K2 has two paths on the card: the gini fits state that their channels
-are integers (``integer=True``: dt's, the forest's and a sweep's class
-one-hots times integer weights) and K2 counts them as integers, exact in
-any order; gb's float (g, h) go through float64 sums in an order fixed
-by the rows. Both give each cell's float64 sum rounded once to float32.
+K2 and K5 have two paths each on the card: the gini fits state that
+their channels are integers (``integer=True``: dt's, the forest's and a
+sweep's class one-hots times integer weights) and the kernels count them
+as integers, exact in any order; gb's float (g, h) go through float64
+sums in an order fixed by the rows. Both give each cell's float64 sum
+rounded once to float32. K4 reads a bins matrix that trees share once
+for a group of trees.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -494,11 +497,30 @@ def _route(bins, node, feature, bin_index):
 # Fit: wrappers, plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
-# K2's sums path and K5 sum a fixed split of the rows into chunks
+# K2's sums path and K5's sum a fixed split of the rows into chunks
 # (``kernels.row_chunks``, and for K2 ``_sum_chunks``: functions of the
-# level's shape alone), so a refit repeats bit for bit. K2's counts path
-# adds integers, whose sums no order changes.
-_LEAF_WARPS = 8
+# level's shape alone), so a refit repeats bit for bit. The counts paths
+# add integers, whose sums no order changes.
+# K5's sums path: warps a block (tree_fit.cu kLeafWarps), each with its own
+# float64 copy of the cells, within a quarter of an SM's shared memory;
+# its last block adds the chunks' partials when they are at most
+# _LEAF_FUSE_VALUES a tree (else a second kernel does)
+_LEAF_WARPS = 32
+_LEAF_SUM_SHARE = kernels.SHARED_BYTES // 4
+_LEAF_FUSE_VALUES = 32_768
+# K5's most shared memory a block: all of it but room for its kernels'
+# few static words (the last block's flag)
+_LEAF_SHARE = kernels.SHARED_BYTES - 1024
+# K5's counts: a chunk counting in shared memory takes at least this many
+# rows a cell (its flush of the cells it touched then costs at most a
+# sixteenth of its adds); a call whose chunks would then be fewer than
+# _LEAF_COUNT_MIN_CHUNKS counts straight into global memory, every block
+# busy (4,096 leaves x 10 classes at 1,000,000 rows)
+_LEAF_COUNT_ROWS_PER_CELL = 16
+_LEAF_COUNT_MIN_CHUNKS = 32
+# K4: a block's share for its tree group's splits (8 bytes a node); a
+# group whose one tree passes it reads its splits from global memory
+_ROUTE_SHARE = kernels.BLOCK_SHARED_BYTES
 # K2's sums path: warps a block (tree_fit.cu kSumWarps), each with its own
 # copy of the window's cells, and a block's share of shared memory (two
 # blocks an SM) unless one node and feature needs more
@@ -546,12 +568,34 @@ class CountTiling(NamedTuple):
 
 
 class LeafTiling(NamedTuple):
-    """How K5 covers the leaves: one pass per window of ``leaves`` x
-    ``channels`` cells, ``warps`` private copies of them a block."""
+    """How K5's sums path covers the leaves: one pass per window of
+    ``leaves`` x ``channels`` cells, ``warps`` private copies of them a
+    block."""
 
     leaves: int
     channels: int
     warps: int
+
+
+class LeafCountTiling(NamedTuple):
+    """How K5's counts path covers the rows: ``chunks`` chunks of
+    ``rows_per_chunk`` rows, a block each, counting in shared memory when
+    ``in_shared`` (else in global memory)."""
+
+    chunks: int
+    rows_per_chunk: int
+    in_shared: bool
+
+
+class RouteGeometry(NamedTuple):
+    """How K4 covers a level: trees in groups of ``group`` (each row's
+    bins read once a group: 1 when each tree has its own bins), the
+    group's splits staged in ``shared_bytes`` of shared memory when
+    ``staged``."""
+
+    group: int
+    staged: bool
+    shared_bytes: int
 
 
 class SplitGeometry(NamedTuple):
@@ -743,16 +787,64 @@ def _count_tiling(
 
 
 def _leaf_warps(n_leaves: int, num_channels: int) -> LeafTiling:
-    """K5's tiling: warps of a block, each with its own float64 copy of
-    the sums, as many as fit its 48 KB share; past one block's shared
-    memory, windows of leaves (or of channels) that fit one warp's copy."""
+    """K5's sums tiling: warps of a block, each with its own float64 copy
+    of the sums, as many as fit ``_LEAF_SUM_SHARE`` (up to
+    ``_LEAF_WARPS``); past one block's shared memory, windows of leaves (or
+    of channels) that fit one warp's copy."""
     per_warp = n_leaves * num_channels * 8
-    if per_warp <= kernels.SHARED_BYTES:
-        warps = max(1, min(_LEAF_WARPS, kernels.BLOCK_SHARED_BYTES // per_warp))
+    if per_warp <= _LEAF_SHARE:
+        warps = max(1, min(_LEAF_WARPS, _LEAF_SUM_SHARE // per_warp))
         return LeafTiling(n_leaves, num_channels, warps)
-    if num_channels * 8 <= kernels.SHARED_BYTES:
-        return LeafTiling(kernels.SHARED_BYTES // (num_channels * 8), num_channels, 1)
-    return LeafTiling(1, kernels.SHARED_BYTES // 8, 1)
+    if num_channels * 8 <= _LEAF_SHARE:
+        return LeafTiling(_LEAF_SHARE // (num_channels * 8), num_channels, 1)
+    return LeafTiling(1, _LEAF_SHARE // 8, 1)
+
+
+def _leaf_fused(chunks: int, tiling: LeafTiling, n_leaves: int, num_channels: int) -> bool:
+    """Whether K5's sums path is one launch: one window of every cell, and
+    a tree's partials (chunks x cells) few enough for its last block to
+    add them. A function of one tree's shape, so that a tree alone and
+    within a tree axis take the same path."""
+    return (tiling.leaves, tiling.channels) == (n_leaves, num_channels) and (
+        chunks * n_leaves * num_channels <= _LEAF_FUSE_VALUES
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _leaf_count_tiling(rows: int, n_leaves: int, num_channels: int) -> LeafCountTiling:
+    """K5's counts tiling, a function of the shape alone: a block counts
+    its chunk's rows in shared memory while the tree's cells fit it, in
+    chunks of at least ``_LEAF_COUNT_ROWS_PER_CELL`` rows a cell and at
+    most ``COUNT_LIMIT``, unless that leaves fewer than
+    ``_LEAF_COUNT_MIN_CHUNKS`` chunks (and fewer than ``kernels.row_chunks``
+    gives): then every block of that split counts straight into global
+    memory."""
+    chunks, per_chunk = kernels.row_chunks(rows)
+    cells = n_leaves * num_channels
+    shared_chunk = min(COUNT_LIMIT, max(per_chunk, _LEAF_COUNT_ROWS_PER_CELL * cells))
+    shared_chunks = -(-rows // shared_chunk)
+    if cells * 4 <= _LEAF_SHARE and shared_chunks >= min(chunks, _LEAF_COUNT_MIN_CHUNKS):
+        return LeafCountTiling(shared_chunks, shared_chunk, True)
+    return LeafCountTiling(chunks, per_chunk, False)
+
+
+def _route_geometry(
+    trees: int, n_nodes: int, bins_shared: bool, share: int | None = None
+) -> RouteGeometry:
+    """K4's tree groups. Trees over one bins matrix (``bins_shared``) go in
+    groups of as many as ``share`` holds the splits of (each row's bins
+    read once a group); trees with their own bins in groups of one. A
+    group whose one tree's splits pass the share reads them from global
+    memory (every shared-bins tree then in one group)."""
+    share = _ROUTE_SHARE if share is None else share
+    per_tree = n_nodes * 8
+    fits = share // per_tree if per_tree else trees
+    if not bins_shared:
+        return RouteGeometry(1, fits >= 1, per_tree if fits >= 1 else 0)
+    if fits < 1:
+        return RouteGeometry(max(1, trees), False, 0)
+    group = max(1, min(trees, fits))
+    return RouteGeometry(group, True, group * per_tree)
 
 
 def _check_rows(bins, node, channels=None):
@@ -925,7 +1017,8 @@ def select_splits(hist, mode: str, subset_scores=None, subset_k=None):
 def route(bins, node, feature, bin_index):
     """Each row's node one level down (K4); a forest's ``node (T, rows)``
     down its trees' splits ``feature`` and ``bin_index (T, nodes)``, over
-    one bins matrix or a sweep's jobs' own ``(T, rows, F)``."""
+    one bins matrix (read once for a group of trees) or a sweep's jobs'
+    own ``(T, rows, F)``."""
     _check_rows(bins, node)
     if feature.dtype != torch.int32 or bin_index.dtype != torch.int32:
         raise TypeError("feature and bin_index must be int32")
@@ -943,21 +1036,46 @@ def route(bins, node, feature, bin_index):
     out = torch.empty_like(node)
     if node.numel() == 0:
         return out
+    trees, n_nodes = (node.shape[0] if node.dim() == 2 else 1), feature.shape[-1]
+    geometry = _route_geometry(trees, n_nodes, bins.dim() == 2)
     kernels.launch(
         "route", "lo_route",
         bins.data_ptr(), bins.element_size(), node.data_ptr(), feature.data_ptr(),
         bin_index.data_ptr(), out.data_ptr(),
-        bins.shape[-2], bins.shape[-1], node.shape[0] if node.dim() == 2 else 1, feature.shape[-1],
+        bins.shape[-2], bins.shape[-1], trees, n_nodes,
         bins.shape[-2] * bins.shape[-1] if bins.dim() == 3 else 0,
-        kernels.max_blocks(bins.device.index), bins.device.index, _stream(bins),
+        geometry.group, int(geometry.staged), bins.device.index, _stream(bins),
     )
     return out
 
 
-def leaf_sums(leaf_of_row, channels, n_leaves: int):
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def _zeroed_scratch(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 zeros on ``device``, kept for the current
+    stream: K5's tickets and counts, which its last block zeroes again
+    (a launch on one stream never overlaps another's use). Made once, and
+    again only when a call needs more."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _scratch_lock:
+        scratch = _scratch.get(key)
+        if scratch is None or scratch.numel() < count:
+            scratch = _scratch[key] = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        return scratch
+
+
+def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
     """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5); a
     forest's ``leaf_of_row (T, rows)`` and ``channels (T, rows, K)`` give
-    ``(T, n_leaves, K)`` from one launch."""
+    ``(T, n_leaves, K)`` from one launch, and so do a sweep's jobs.
+
+    ``integer=True`` is the caller's statement that every channel is an
+    integer in ``[0, COUNT_LIMIT)``, as for :func:`level_histograms`: the
+    sums are counted as 32-bit integers (a ``ValueError`` here on a false
+    claim, a trap on the card; nothing falls back). Either path gives each
+    cell's float64 sum rounded once to float32."""
     if leaf_of_row.dtype != torch.int32 or leaf_of_row.dim() not in (1, 2):
         raise TypeError("leaf_of_row must be an int32 tensor of one entry per row (of each tree)")
     if channels.dtype != torch.float32 or channels.dim() != leaf_of_row.dim() + 1:
@@ -969,6 +1087,8 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int):
     if channels.device != leaf_of_row.device:
         raise ValueError(f"operands on {channels.device} and {leaf_of_row.device}")
     if channels.device.type == "cpu":
+        if integer:
+            _check_counts(channels)
         return _leaf_sums(leaf_of_row, channels, n_leaves)
     kernels.check_operands(leaf_of_row, channels)
     forest = leaf_of_row.dim() == 2
@@ -978,22 +1098,36 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int):
     if rows == 0:
         out = torch.zeros(shape, dtype=torch.float32, device=channels.device)
         return out if forest else out[0]
-    # the kernel writes every cell
+    # the kernels write every cell
     out = torch.empty(shape, dtype=torch.float32, device=channels.device)
     if out.numel() == 0:
         return out if forest else out[0]
+    device = channels.device
+    if integer:
+        tiling = _leaf_count_tiling(rows, n_leaves, num_channels)
+        scratch = _zeroed_scratch(device, trees * (1 + n_leaves * num_channels))
+        kernels.launch(
+            "leaf_sums", "lo_leaf_counts",
+            leaf_of_row.data_ptr(), channels.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            rows, n_leaves, num_channels, trees, tiling.chunks, tiling.rows_per_chunk,
+            int(tiling.in_shared), device.index, _stream(channels),
+        )
+        return out if forest else out[0]
     tiling = _leaf_warps(n_leaves, num_channels)
     chunks, per_chunk = kernels.row_chunks(rows)
+    fused = _leaf_fused(chunks, tiling, n_leaves, num_channels)
+    tickets = _zeroed_scratch(device, trees) if fused else None
     # one window's partials of each tree, reused by every pass
     partials = torch.empty(
-        (trees, chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=channels.device
+        (trees, chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=device
     )
     kernels.launch(
         "leaf_sums", "lo_leaf_sums",
-        leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
         rows, n_leaves, num_channels, trees, chunks, per_chunk,
-        tiling.leaves, tiling.channels, tiling.warps,
-        kernels.max_blocks(channels.device.index), channels.device.index, _stream(channels),
+        tiling.leaves, tiling.channels, tiling.warps, int(fused),
+        kernels.max_blocks(device.index), device.index, _stream(channels),
     )
     return out if forest else out[0]
 
@@ -1013,10 +1147,10 @@ def _grow(
     all of them. ``subset_scores ((T,) 2^D - 1, F)``, in heap order (level
     l's nodes are rows ``2^l - 1 .. 2^(l+1) - 2``), restrict each node to
     its ``subset_k`` features of lowest score. ``integer``: the caller's
-    statement that the channels are integers (K2's counts path, see
-    :func:`level_histograms`). Returns the heaps (features and split bins
-    per internal node, ``((T,) 2^D - 1)``) and every row's leaf index
-    ``((T,) rows)``."""
+    statement that the channels are integers (the counts paths of K2 and
+    K5, see :func:`level_histograms`). Returns the heaps (features and
+    split bins per internal node, ``((T,) 2^D - 1)``) and every row's leaf
+    index ``((T,) rows)``."""
     node = torch.zeros(channels.shape[:-1], dtype=torch.int32, device=bins.device)
     features_heap, bins_heap = [], []
     for level in range(max_depth):
@@ -1038,7 +1172,7 @@ def _fit_classification_tree(
     features_heap, bins_heap, leaf_of_row = _grow(
         bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k, integer
     )
-    leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth)
+    leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth, integer=integer)
     leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[..., None]
     return features_heap, bins_heap, leaf_probs
 
@@ -1098,7 +1232,7 @@ def _rf_chunk(
     """A chunk of trees grown together: tree t's channels are the class
     one-hots weighted by ``weights * bootstrap[t]``, rounded in the
     reference's order. The forest's weights are ones and its bootstrap
-    Poisson counts, so the channels are integers (K2's counts path)."""
+    Poisson counts, so the channels are integers (the counts paths)."""
     base_one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
     one_hot = base_one_hot[None] * (weights[None] * bootstrap)[:, :, None]
     return _fit_classification_tree(

@@ -6,20 +6,25 @@ request bodies, ``(payload, status)`` handler results, files answered
 by :func:`send_file`, the 429 +
 ``Retry-After`` admission answer, a threaded server
 (:class:`ServerThread`, on ``http.server.ThreadingHTTPServer``) and an
-in-process :meth:`WebApp.test_client`. Status codes and JSON bodies match
-the reference's: an unknown route answers 404 ``{"result": "not_found"}``,
-an :class:`HTTPError` in a handler answers its own status (400 for a body
-that does not parse as JSON, 415 for one not declared JSON, as werkzeug's
-``get_json`` raises them) and any other exception answers 500 with
+in-process :meth:`WebApp.test_client`. Answers match the reference's
+werkzeug stack byte for byte: an unknown route answers 404
+``{"result": "not_found"}``; a GET rule also answers HEAD (the GET's
+status and headers, no body); a method that a path's rules lack answers
+405 with ``Allow``; an :class:`HTTPError` in a handler answers its own
+status (400 for a body that does not parse as JSON, 415 for one not
+declared JSON, as werkzeug's ``get_json`` raises them). 405, 400 and 415
+come as werkzeug's HTML error page. Any other exception answers 500 with
 ``"<Type>: <message>"``.
 Only the standard library is used, so the port serves wherever torch runs.
 """
 
 from __future__ import annotations
 
+import html
 import json
 import re
 import threading
+from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
 from urllib.parse import unquote, urlsplit
@@ -37,6 +42,36 @@ def _compile_rule(rule: str) -> "re.Pattern":
         pattern += f"(?P<{match.group(1)}>[^/]+)"
         position = match.end()
     return re.compile("^" + pattern + re.escape(rule[position:]) + "$")
+
+
+def _rule_order(rule: str) -> tuple:
+    """The order in which werkzeug's matcher visits the rules of one path:
+    segment by segment, a static segment before a parameter (rules of
+    equal key keep the order they were added in)."""
+    return tuple(bool(_PARAM_RE.search(part)) for part in rule.split("/"))
+
+
+def _rule_methods(methods) -> set:
+    """A rule's methods as werkzeug's ``Rule`` holds them: a set, HEAD
+    added to GET."""
+    methods = {method.upper() for method in methods}
+    if "GET" in methods:
+        methods.add("HEAD")
+    return methods
+
+
+def _error_page(status: int, description: str) -> "Response":
+    """werkzeug's HTML page for an HTTP error: its title and heading the
+    status's name, the description escaped as markupsafe does (quotes as
+    ``&#34;`` and ``&#39;``, newlines as ``<br>``)."""
+    name = HTTPStatus(status).phrase
+    text = html.escape(description, quote=False).replace('"', "&#34;").replace("'", "&#39;")
+    text = text.replace("\n", "<br>")
+    body = (
+        "<!doctype html>\n<html lang=en>\n"
+        f"<title>{status} {name}</title>\n<h1>{name}</h1>\n<p>{text}</p>\n"
+    )
+    return Response(body, status=status, content_type="text/html; charset=utf-8")
 
 
 class HTTPError(Exception):
@@ -150,57 +185,73 @@ class WebApp:
 
     def __init__(self, name: str):
         self.name = name
-        # (compiled rule, methods, handler)
+        # (werkzeug's visiting key, compiled rule, methods, handler)
         self._routes: list = []
 
     def route(self, rule: str, methods: tuple = ("GET",)):
         pattern = _compile_rule(rule)
 
         def decorator(handler: Callable) -> Callable:
-            self._routes.append((pattern, tuple(m.upper() for m in methods), handler))
+            self._routes.append((_rule_order(rule), pattern, _rule_methods(methods), handler))
+            self._routes.sort(key=lambda route: route[0])  # stable: ties keep their order
             return handler
 
         return decorator
 
     def handle(self, request: Request) -> Response:
-        allowed: list = []
-        for pattern, methods, handler in self._routes:
+        """The answer to ``request``; a HEAD's keeps the GET's headers and
+        ``Content-Length`` but no body."""
+        response = self._dispatch(request)
+        if request.method == "HEAD":
+            response.headers["Content-Length"] = str(len(response.data))
+            response.data = b""
+        return response
+
+    def _dispatch(self, request: Request) -> Response:
+        matched = []
+        for _, pattern, methods, handler in self._routes:
             match = pattern.match(request.path)
             if match is None:
                 continue
-            if request.method not in methods:
-                allowed.extend(methods)
-                continue
-            try:
-                result = handler(request, **match.groupdict())
-            except HTTPError as error:
-                # e.g. BadRequest from request.get_json() on a malformed
-                # body: its own status code, not a 500
-                return Response(
-                    f"{type(error).__name__}: {error.description}",
-                    status=error.status,
-                    content_type="text/plain",
-                )
-            except Exception as error:  # noqa: BLE001 — the route's 500 body
-                return Response(
-                    f"{type(error).__name__}: {error}", status=500, content_type="text/plain"
-                )
-            if isinstance(result, Response):
-                return result
-            if isinstance(result, tuple):
-                payload, status = result
-                if isinstance(payload, Response):
-                    payload.status_code = status
-                    return payload
-                return json_response(payload, status)
-            return json_response(result)
-        if allowed:
+            if request.method in methods:
+                break
+            matched.append(methods)
+        else:
+            if not matched:
+                return json_response({"result": "not_found"}, 404)
+            # werkzeug's Allow: the methods of the path's rules, gathered
+            # into a set in its matcher's order, twice (its second pass
+            # with slashes merged); the header lists the set as it iterates.
+            # The second pass adds no method, but set.update sizes the
+            # table for the incoming set first and may rebuild it, which
+            # reorders it; string hashes differ from process to process,
+            # so only the same steps give werkzeug's order
+            allowed: set = set()
+            for _ in range(2):
+                for methods in matched:
+                    allowed.update(methods)
+            response = _error_page(405, "The method is not allowed for the requested URL.")
+            response.headers["Allow"] = ", ".join(allowed)
+            return response
+        try:
+            result = handler(request, **match.groupdict())
+        except HTTPError as error:
+            # e.g. BadRequest from request.get_json() on a malformed
+            # body: its own status code, not a 500
+            return _error_page(error.status, error.description)
+        except Exception as error:  # noqa: BLE001 — the route's 500 body
             return Response(
-                json.dumps({"result": "method_not_allowed"}),
-                status=405,
-                headers={"Allow": ", ".join(sorted(set(allowed)))},
+                f"{type(error).__name__}: {error}", status=500, content_type="text/plain"
             )
-        return json_response({"result": "not_found"}, 404)
+        if isinstance(result, Response):
+            return result
+        if isinstance(result, tuple):
+            payload, status = result
+            if isinstance(payload, Response):
+                payload.status_code = status
+                return payload
+            return json_response(payload, status)
+        return json_response(result)
 
     def test_client(self) -> "TestClient":
         return TestClient(self)
@@ -227,6 +278,10 @@ class TestClient:
     def delete(self, path: str) -> Response:
         return self.app.handle(Request("DELETE", path))
 
+    def open(self, path: str, method: str, headers=None, data: bytes = b"") -> Response:
+        """Any method, as werkzeug's ``Client.open``."""
+        return self.app.handle(Request(method, path, headers, data))
+
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
@@ -237,13 +292,18 @@ class _Handler(BaseHTTPRequestHandler):
         request = Request(self.command, self.path, dict(self.headers.items()), body)
         response = self.server.app.handle(request)
         self.send_response(response.status_code)
-        for key, value in response.headers.items():
+        headers = {"Content-Length": str(len(response.data)), **response.headers}
+        for key, value in headers.items():
             self.send_header(key, value)
-        self.send_header("Content-Length", str(len(response.data)))
         self.end_headers()
         self.wfile.write(response.data)
 
-    do_GET = do_POST = do_DELETE = _serve
+    def __getattr__(self, name: str):
+        """``do_<METHOD>`` for every method: the app answers each (405
+        where a path's rules lack it), not ``http.server``'s 501."""
+        if name.startswith("do_"):
+            return self._serve
+        raise AttributeError(name)
 
     def log_message(self, format, *args) -> None:
         pass

@@ -5,7 +5,9 @@ services (``POST /images/<parent>``, ``GET /images``, ``GET`` and
 
 Both packages get equal stores (the same table written by each package's
 own ``write_table``). The services must answer the same status codes,
-messages and listings; the PNG is the port's own (a stdlib writer, since
+messages and listings, and, in process and over sockets, byte for byte
+the same answers to HEAD, PUT, PATCH and OPTIONS and to a malformed or
+undeclared body; the PNG is the port's own (a stdlib writer, since
 the card's machine has no matplotlib), checked for its signature, its
 IHDR and its pixels. The embeddings behind the images are held against
 the reference in tests/test_torch_tsne.py.
@@ -310,6 +312,79 @@ def test_a_malformed_body_answers_as_the_reference(method, body, content_type, s
     want = theirs.post("/images/x", data=body, content_type=content_type)
     got = ours.handle(Request("POST", "/images/x", {"Content-Type": content_type}, body))
     assert got.status_code == want.status_code == status
+    # werkzeug's HTML page, its description escaped as werkzeug escapes it
+    assert got.headers["Content-Type"] == want.headers["Content-Type"] == "text/html; charset=utf-8"
+    assert got.data == want.data
+    assert os.listdir(tmp_path / "port") == []
+
+
+def _socket_answer(port: int, method: str, path: str, body=None, content_type=None):
+    """(status, Content-Type, Allow, Content-Length, body) of one request
+    over a socket."""
+    import http.client
+
+    connection = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        connection.request(
+            method, path, body=body, headers={} if content_type is None else {"Content-Type": content_type}
+        )
+        response = connection.getresponse()
+        return (
+            response.status, *(response.getheader(key) for key in ("Content-Type", "Allow", "Content-Length")),
+            response.read(),
+        )
+    finally:
+        connection.close()
+
+
+METHOD_CASES = [
+    (method, path)
+    for method in ("HEAD", "PUT", "PATCH", "OPTIONS")
+    for path in ("/images", "/images/nothing", "/images/numbers", "/nothing")
+]
+ERROR_BODIES = [(b"{bad", "application/json"), (b'{"pca_filename": "x"}', "text/plain")]
+
+
+@pytest.mark.parametrize("method, path", METHOD_CASES)
+def test_methods_answer_as_the_reference_in_process(method, path, tmp_path):
+    """HEAD on a GET rule answers the GET's status and headers with no
+    body; a method the path's rules lack answers werkzeug's 405 page with
+    its Allow header (in werkzeug's order); an unknown path 404 JSON."""
+    from learningorchestra_tpu_torch.utils.web import Request
+
+    jax_store, port_store = stores()
+    theirs = jax_images.create_app(jax_store, str(tmp_path / "jax"), "pca").test_client()
+    ours = images.create_app(port_store, str(tmp_path / "port"), "pca", device="cpu")
+    want = theirs.open(path, method=method)
+    got = ours.handle(Request(method, path))
+    assert (got.status_code, got.headers.get("Content-Type"), got.headers.get("Allow"), got.data) == (
+        want.status_code, want.headers.get("Content-Type"), want.headers.get("Allow"), want.data
+    )
+    assert got.status_code in (200, 404, 405)
+
+
+def test_methods_and_error_pages_answer_as_the_reference_over_a_socket(tmp_path):
+    """The same over real HTTP, both apps served at once: HEAD, PUT,
+    PATCH and OPTIONS, then a malformed and an undeclared body, exact on
+    status, Content-Type, Allow, Content-Length and body bytes."""
+    from learningorchestra_tpu.utils.web import ServerThread as JaxServerThread
+
+    jax_store, port_store = stores()
+    theirs = JaxServerThread(
+        jax_images.create_app(jax_store, str(tmp_path / "jax"), "pca"), "127.0.0.1", 0
+    ).start()
+    ours = ServerThread(images.create_app(port_store, str(tmp_path / "port"), "pca", device="cpu")).start()
+    try:
+        for method, path in METHOD_CASES:
+            want = _socket_answer(theirs.port, method, path)
+            assert _socket_answer(ours.port, method, path) == want, (method, path)
+        for body, content_type in ERROR_BODIES:
+            want = _socket_answer(theirs.port, "POST", "/images/x", body, content_type)
+            assert want[0] in (400, 415)
+            assert _socket_answer(ours.port, "POST", "/images/x", body, content_type) == want
+    finally:
+        theirs.stop()
+        ours.stop()
     assert os.listdir(tmp_path / "port") == []
 
 

@@ -6,7 +6,9 @@ artifact), the micro-batcher (a burst joined into fewer dispatches, an
 error delivered to every request of its group) and the predict route: the
 JAX app and the port app answer the same checkpoints with the same status,
 labels and probabilities (trees within 1e-6, lr and nb within 1e-5), and
-refuse the same requests with identical bodies.
+refuse the same requests with identical bodies; other methods and
+malformed bodies get byte-identical answers, in process and over
+sockets.
 """
 
 import os
@@ -267,6 +269,73 @@ def test_listing_and_description_match_the_jax_app(clients):
         assert (got["kind"], got["size_bytes"]) == (expected["kind"], expected["size_bytes"])
     expected, got = (client.get("/models/missing") for client in clients)
     assert (got.status_code, got.get_json()) == (expected.status_code, expected.get_json())
+
+
+# paths whose rules are the same in both apps (the port has no POST /models
+# yet, so /models itself would list another Allow)
+SERVE_METHOD_CASES = [
+    (method, path)
+    for method in ("HEAD", "PUT", "PATCH", "OPTIONS")
+    for path in ("/models/dt", "/models/missing", "/models/dt/predict")
+]
+
+
+@pytest.mark.parametrize("method, path", SERVE_METHOD_CASES)
+def test_methods_answer_as_the_jax_app(clients, method, path):
+    """HEAD on a GET rule: the GET's status and Content-Type, no body; a
+    method a path's rules lack: werkzeug's 405 page and its Allow."""
+    expected, got = (client.open(path, method=method) for client in clients)
+    assert (got.status_code, got.headers.get("Content-Type"), got.headers.get("Allow"), got.data) == (
+        expected.status_code, expected.headers.get("Content-Type"), expected.headers.get("Allow"),
+        expected.data,
+    )
+    assert got.status_code in (200, 404, 405)
+
+
+def test_methods_and_error_pages_answer_as_the_jax_app_over_a_socket(models_dir):
+    """Both apps over real HTTP: HEAD, PUT, PATCH and OPTIONS, a malformed
+    and an undeclared predict body (the route reads its body silently:
+    406 JSON in both), exact on status, Content-Type, Allow,
+    Content-Length and body bytes."""
+    import http.client
+
+    from learningorchestra_tpu.utils.web import ServerThread as JaxServerThread
+    from learningorchestra_tpu_torch.utils.web import ServerThread
+
+    def answer(port, method, path, body=None, content_type=None):
+        connection = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            headers = {} if content_type is None else {"Content-Type": content_type}
+            connection.request(method, path, body=body, headers=headers)
+            response = connection.getresponse()
+            return (
+                response.status,
+                *(response.getheader(key) for key in ("Content-Type", "Allow", "Content-Length")),
+                response.read(),
+            )
+        finally:
+            connection.close()
+
+    jax_plane = JaxServePlane(capacity=10**9, window_s=0.0, max_batch=8, inbox_cap=64)
+    port_plane = cpu_plane()
+    theirs = JaxServerThread(
+        jax_model_builder.create_app(InMemoryStore(), models_dir=models_dir, serve=jax_plane),
+        "127.0.0.1", 0,
+    ).start()
+    ours = ServerThread(model_builder.create_app(models_dir=models_dir, serve=port_plane, device="cpu")).start()
+    try:
+        for method, path in SERVE_METHOD_CASES:
+            want = answer(theirs.port, method, path)
+            assert answer(ours.port, method, path) == want, (method, path)
+        for body, content_type in ((b"{bad", "application/json"), (b'{"rows": [[0]]}', "text/plain")):
+            want = answer(theirs.port, "POST", "/models/dt/predict", body, content_type)
+            assert want[0] == 406
+            assert answer(ours.port, "POST", "/models/dt/predict", body, content_type) == want
+    finally:
+        theirs.stop()
+        ours.stop()
+        jax_plane.close()
+        port_plane.close()
 
 
 def test_create_app_without_a_device_needs_cuda(models_dir):
