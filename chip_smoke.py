@@ -16,9 +16,15 @@ Phases, one JSON line each:
                  source, all started together.
 3. kernels     — each forward kernel (K6) against its plain PyTorch version
                  on the same seeded inputs, at N in {1, 64, 4096, 1,048,576}
-                 rows, 1 and 20 trees of depth 5: identical labels and
-                 probabilities within 1e-6; times at 4096 and 1,048,576 rows.
-                 Also the times of the lr and nb forwards (K8, cuBLAS).
+                 rows, 1 and 20 trees of depth 5: identical labels, the
+                 ensemble's probabilities bit-equal and gb's within 1e-6;
+                 times at 64 (the serve lane's dispatch shape), 4096 and
+                 1,048,576 rows: events and device time warm, device time
+                 cold (256 MB written before each call) and with L2
+                 evicted by reads. A thread a row on 32-feature rows
+                 at 1,048,576 rows, also with tiles cut below a block's
+                 threads: ten calls each bit-equal. Also the times of
+                 the lr and nb forwards (K8, cuBLAS).
 4. serve       — ``dt``, ``rf``, ``gb``, ``lr`` and ``nb`` checkpoints at full
                  width (16 features, 2 classes, depth 5, 20 trees or rounds)
                  with seeded parameters, written by the port and served by its
@@ -65,8 +71,10 @@ Phases, one JSON line each:
                  from global memory) and 300 classes, 4,096 rows, at the
                  same tolerances.
 6. fit         — ``make_classifier(...)`` fits dt, rf, gb, lr and nb on the
-                 same 1,000,000 rows on the card, then evaluate_predict,
-                 save_model and one request each over HTTP. Held against
+                 same 1,000,000 rows on the card, then evaluate_predict
+                 (its launches counted alone: K6's are the summary's
+                 ``evaluate_launches``), save_model and one request each
+                 over HTTP. Held against
                  plain-version fits on the card (dt: identical heaps and
                  metrics; rf: the 20 trees in one chunk, one launch of K2,
                  K3 and K4 a level, heaps identical and leaf probabilities
@@ -126,7 +134,12 @@ Phases, one JSON line each:
                  5, 8} (three programs of 8 slots), each one member, each
                  run with the counts set to 0 just before it: K7
                  segments + iterations and iterations launches for the
-                 whole group, K1 3, K2-K4 15 each, K5 3, K6 3; points/s.
+                 whole group, K1 3 (a program's shared rows binned once
+                 under its member's unstacked thresholds), K2-K4 15
+                 each, K5 3, K6 3; points/s. Each depth's program over
+                 the shared thresholds bit-equal (heaps, leaf
+                 probabilities, metrics) to the same program over them
+                 stacked slot by slot.
                  Both held against the same groups through the plain
                  versions on the card (lr: the same winner, every point's
                  probabilities within 1e-4; dt: heaps identical, leaf
@@ -199,8 +212,11 @@ TREES = NUM_TREES      # rf trees; gb rounds are the same 20
 STEP = GBT_STEP
 MAX_BINS = 32
 KERNEL_ROWS = (1, 64, 4096, 1_048_576)
-TIMED_ROWS = (4096, 1_048_576)
+TIMED_ROWS = (64, 4096, 1_048_576)
 TREE_TOL = 1e-6
+# K6 a thread a row on rows wider than the items a thread fetches ahead
+# (4 words), and a share that cuts its tile below a block's 256 threads
+WIDE_FEATURES, WIDE_SHARE, WIDE_CALLS = 32, 30_000, 10
 LINEAR_TOL = 1e-5      # lr/nb: the GEMM sums in another order on the card
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s off the
 # tensor cores
@@ -563,14 +579,14 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - started, "libraries": libraries})
 
 
-def _kernel_inputs(torch, rows: int, count: int, seed: int):
+def _kernel_inputs(torch, rows: int, count: int, seed: int, features: int = FEATURES):
     """Rows and heaps for the kernel checks: early leaves anywhere
     (feature -1), inf thresholds, NaN in selected and unselected columns."""
     rng = np.random.default_rng(seed)
     nodes, leaves = 2**DEPTH - 1, 2**DEPTH
-    X = bench_rows(rng, rows)
+    X = bench_rows(rng, rows, features)
     X[rng.random(X.shape) < 0.05] = np.nan
-    features_heap = rng.integers(-1, FEATURES, size=(count, nodes)).astype(np.int32)
+    features_heap = rng.integers(-1, features, size=(count, nodes)).astype(np.int32)
     thresholds_heap = (rng.random((count, nodes)) * 20).astype(np.float32)
     thresholds_heap[rng.random((count, nodes)) < 0.1] = np.inf
     leaf_probs = rng.dirichlet(np.ones(CLASSES), size=(count, leaves)).astype(np.float32)
@@ -731,7 +747,9 @@ def _bound(rows: int, count: int, kernel: str) -> tuple[float, str]:
 
 
 def phase_kernels(torch) -> dict:
-    results = {name: {"max_abs_err": 0.0, "by_rows": {}} for name in REPLACES}
+    results = {name: {"max_abs_err": 0.0, "bit_equal": True, "by_rows": {}} for name in REPLACES}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    read_flush = _ReadFlush(torch, flush.device)
     for rows in KERNEL_ROWS:
         for tree_count in (1, TREES):
             X, fh, th, lp, lv = _kernel_inputs(torch, rows, tree_count, seed=rows + tree_count)
@@ -755,6 +773,11 @@ def phase_kernels(torch) -> dict:
                     raise AssertionError(f"{name} at {rows} rows, {tree_count} trees: err {error}")
                 if not torch.equal(got.argmax(1), want.argmax(1)):
                     raise AssertionError(f"{name} at {rows} rows: labels differ")
+                # the ensemble's sums and division are the plain version's
+                # float32 operations in its order: the same bits
+                if name == "tree_ensemble_forward" and not torch.equal(got, want):
+                    raise AssertionError(f"{name} at {rows} rows, {tree_count} trees: not bit-equal")
+                results[name]["bit_equal"] &= bool(torch.equal(got, want))
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], error)
                 if rows in TIMED_ROWS and tree_count == TREES:
                     repeats = 200 if rows <= 4096 else 50
@@ -762,16 +785,68 @@ def phase_kernels(torch) -> dict:
                     results[name]["by_rows"][rows] = {
                         "ms": _event_ms(torch, kernel, repeats),
                         "device_ms": _device_ms(torch, kernel, DEVICE_KERNELS[name], repeats),
+                        "ms_cold": _event_ms(torch, kernel, 20, flush),
+                        "device_ms_cold": _device_ms(torch, kernel, DEVICE_KERNELS[name], 20, flush),
+                        "device_ms_clean_l2": _device_ms(torch, kernel, DEVICE_KERNELS[name], 20, read_flush),
                         "plain_ms": _event_ms(torch, plain, max(5, repeats // 10)),
                         "bound_ms": bound_ms,
                         "bound_by": bound_by,
+                        "geometry": trees._forward_geometry(
+                            rows, FEATURES, tree_count, DEPTH,
+                            CLASSES if name == "tree_ensemble_forward" else 1,
+                        )._asdict(),
                     }
     linear = _linear_forward_times(torch)
     emit({
         "phase": "kernels", "rows": KERNEL_ROWS, "trees": (1, TREES), **results,
-        "linear_forwards": linear,
+        "wide_rows": check_wide_rows(torch), "linear_forwards": linear,
     })
     return results
+
+
+def check_wide_rows(torch) -> dict:
+    """K6 a thread a row on rows wider than a thread's items fetched ahead:
+    1,048,576 rows of WIDE_FEATURES features through 20 trees of depth 5,
+    the ensemble's and gb's, at the geometry's tile (a row a thread) and
+    with the share cut to WIDE_SHARE, so that a tile holds fewer rows than
+    a block has threads and the threads past them stage the next tile
+    while the others still walk this one. Every call of WIDE_CALLS is
+    bit-equal to the plain version; the times beside."""
+    rows = KERNEL_ROWS[-1]
+    X, fh, th, lp, lv = _kernel_inputs(torch, rows, TREES, seed=WIDE_FEATURES, features=WIDE_FEATURES)
+    calls = {
+        "tree_ensemble_forward": (
+            CLASSES,
+            lambda: trees.ensemble_forward(X, fh, th, lp, DEPTH),
+            lambda: trees._ensemble_forward(X, fh, th, lp, DEPTH),
+        ),
+        "gbt_forward": (
+            1,
+            lambda: trees.gbt_forward(X, -0.2, fh, th, lv, STEP, DEPTH),
+            lambda: trees._gbt_forward(X, -0.2, fh, th, lv, STEP, DEPTH),
+        ),
+    }
+    record = {}
+    saved = trees._FORWARD_SHARE
+    try:
+        for share in (saved, WIDE_SHARE):
+            trees._FORWARD_SHARE = share
+            for name, (classes, kernel, plain) in calls.items():
+                geometry = trees._forward_geometry(rows, WIDE_FEATURES, TREES, DEPTH, classes)
+                if not geometry.row_threads:
+                    raise AssertionError(f"{name} at {WIDE_FEATURES} features: not a thread a row ({geometry})")
+                want = plain()
+                for call in range(WIDE_CALLS):
+                    if not torch.equal(kernel(), want):
+                        raise AssertionError(
+                            f"{name} at {WIDE_FEATURES} features, share {share}, call {call}: not bit-equal"
+                        )
+                record[f"{name}:share_{share}"] = {
+                    "ms": _event_ms(torch, kernel, 20), "geometry": geometry._asdict(),
+                }
+    finally:
+        trees._FORWARD_SHARE = saved
+    return {"bit_equal": True, "rows": rows, "features": WIDE_FEATURES, "calls": WIDE_CALLS, **record}
 
 
 def _linear_forward_times(torch) -> dict:
@@ -1485,7 +1560,12 @@ def check_repairs(torch, X: np.ndarray, y: np.ndarray) -> dict:
         for name, (kernel, plain) in calls.items():
             if not torch.equal(kernel(), plain()):
                 raise AssertionError(f"{name} at {count} trees of depth {depth}: not bit-equal")
-            forests[f"{name}:{count}x{depth}x{classes}"] = {"ms": _event_ms(torch, kernel, 3)}
+            forests[f"{name}:{count}x{depth}x{classes}"] = {
+                "ms": _event_ms(torch, kernel, 3),
+                "geometry": trees._forward_geometry(
+                    X.shape[0], FEATURES, count, depth, classes if name == "tree_ensemble_forward" else 1
+                )._asdict(),
+            }
     record["forests"] = {"bit_equal": True, "timings": forests}
     return record
 
@@ -2004,7 +2084,12 @@ def phase_fit(torch, card: str) -> dict:
         launches = _fit_launches(before, kernels.launches())
         if expected[name] is not None and launches != expected[name]:
             raise AssertionError(f"{name} fit launched {launches}, expected {expected[name]}")
+        before = kernels.launches()
         accuracy, weighted_f1, labels, probs = model.evaluate_predict(X, y, X)
+        evaluate_launches = {
+            kernel: count - before.get(kernel, 0)
+            for kernel, count in kernels.launches().items() if count != before.get(kernel, 0)
+        }
         if probs.shape != (rows, CLASSES) or not np.isfinite(probs).all():
             raise AssertionError(f"{name}: probabilities of shape {probs.shape}")
         if not 0.5 < accuracy <= 1.0:
@@ -2013,6 +2098,7 @@ def phase_fit(torch, card: str) -> dict:
         record[name] = {
             "wall_s": wall_s,
             "launches": launches,
+            "evaluate_launches": evaluate_launches,
             "accuracy": accuracy,
             "weighted_f1": weighted_f1,
         }
@@ -3016,6 +3102,7 @@ def _plain_sweep():
         "job_loss_and_grad": logistic._job_loss_fn,
         "job_trial_losses": logistic._job_trial_losses,
     }), _plain(sweep, {
+        "apply_bins": binning._apply_bins,
         "job_apply_bins": binning._job_apply_bins,
     }), _plain(trees, {"job_ensemble_forward": trees._job_ensemble_forward}), _plain_level_loop():
         yield
@@ -3030,10 +3117,11 @@ def _outcome(outcomes):
 
 def _job_bound(name: str, rows: int, jobs: int, *, features: int = FEATURES, classes: int = CLASSES,
                x_shared: bool = False, weighted: bool = True, n_nodes: int = 1,
-               bins_read: int = 0, depth: int = 0) -> tuple[float, str]:
+               bins_read: int = 0, depth: int = 0, bins_shared: bool = False) -> tuple[float, str]:
     """Least milliseconds for one job-axis call: each input read once
-    (a shared X once, not once a job) and each output written once over
-    HBM bandwidth, against its operations at their type's peak."""
+    (a shared X once, not once a job; K2's bins once when the jobs share
+    them) and each output written once over HBM bandwidth, against its
+    operations at their type's peak."""
     F, C, J, B = features, classes, jobs, MAX_BINS
     x_bytes = rows * F * 4 * (1 if x_shared else J)
     row_bytes = rows * (4 + (4 if weighted else 0)) * (1 if x_shared else J)
@@ -3047,8 +3135,8 @@ def _job_bound(name: str, rows: int, jobs: int, *, features: int = FEATURES, cla
     elif name == "apply_bins":       # X, thresholds -> int8 bins; a 5-step search
         bytes_moved = x_bytes + J * F * (B - 1) * 4 + J * rows * F
         fp32_ops = J * rows * F * int(np.ceil(np.log2(B)))
-    elif name == "level_histograms":  # each job's bins, node, channels -> histogram
-        bytes_moved = J * (rows * F + rows * 4 + rows * C * 4 + n_nodes * F * B * C * 4)
+    elif name == "level_histograms":  # each job's bins (or shared ones), node, channels -> histogram
+        bytes_moved = rows * F * (1 if bins_shared else J) + J * (rows * 4 + rows * C * 4 + n_nodes * F * B * C * 4)
         fp32_ops = J * rows * F * C
     elif name == "route":            # node, a bin per split row, split -> node
         bytes_moved = J * (rows * 4 * 2 + n_nodes * 8) + bins_read
@@ -3405,6 +3493,31 @@ def time_job_kernels(torch, X_std, y_dev, mask, X_raw, thresholds, X_eval, flush
     return results
 
 
+def check_dt_binned_once(torch, dt_inputs) -> dict:
+    """The depth program over shared thresholds (K1 once, the jobs growing
+    over one bins matrix) against the same program over the thresholds
+    stacked slot by slot (K1 over the job axis, each job its own bins), at
+    every depth of the sweep: heaps, leaf probabilities and metrics
+    bit-equal, and the K1 and K2-K4 launches each makes."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    Xs, ys, ws, thresholds, Xe, ye, we, _ = dt_inputs
+    stacked_thresholds = thresholds[None].expand(ys.shape[0], -1, -1).contiguous()
+    launches = {}
+    for depth in SWEEP_DEPTHS:
+        outputs = {}
+        for form, table in (("shared", thresholds), ("stacked", stacked_thresholds)):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            outputs[form] = sweep._dt_fused(Xs, ys, ws, table, Xe, ye, we, CLASSES, depth, MAX_BINS)
+            torch.cuda.synchronize()
+            launches[f"{form}:{depth}"] = {k: v for k, v in kernels.launches().items() if v}
+        for got, want in zip(outputs["shared"], outputs["stacked"]):
+            if not torch.equal(got, want):
+                raise AssertionError(f"dt sweep, depth {depth}: the shared bins' program differs from the stacked one")
+    return {"bit_equal": True, "launches": launches}
+
+
 def time_programs(torch, lr_inputs, dt_inputs, flush) -> dict:
     """The three fused programs (K14) at the main path's shapes: one L-BFGS
     segment of the λ sweep (112 slots; its seed pass and one iteration),
@@ -3452,7 +3565,7 @@ def time_programs(torch, lr_inputs, dt_inputs, flush) -> dict:
     # and K9's metrics): it is its own plain version
     results["lr_fused_eval"]["plain_ms"] = results["lr_fused_eval"]["ms"]
     Xs_t, ys_t, ws_t, ths_t, Xe_t, ye_t, we_t, depth = dt_inputs
-    J, rows_t = ths_t.shape[0], Xs_t.shape[-2]
+    J, rows_t = ys_t.shape[0], Xs_t.shape[-2]
 
     def dt_program():
         return sweep._dt_fused(Xs_t, ys_t, ws_t, ths_t, Xe_t, ye_t, we_t, CLASSES, depth, MAX_BINS)
@@ -3461,10 +3574,12 @@ def time_programs(torch, lr_inputs, dt_inputs, flush) -> dict:
         with _plain_sweep():
             return dt_program()
 
-    bound = _job_bound("apply_bins", rows_t, J, x_shared=Xs_t.dim() == 2)[0]
+    # one shared table: the rows are binned once, and the jobs share the bins
+    shared = ths_t.dim() == 2
+    bound = _job_bound("apply_bins", rows_t, 1 if shared else J, x_shared=Xs_t.dim() == 2)[0]
     for level in range(depth):
         for name in ("level_histograms", "select_splits", "route"):
-            bound += _job_bound(name, rows_t, J, n_nodes=2**level)[0]
+            bound += _job_bound(name, rows_t, J, n_nodes=2**level, bins_shared=shared)[0]
     bound += _job_bound("leaf_sums", rows_t, J, n_nodes=2**depth)[0]
     bound += _job_bound("tree_ensemble_forward", Xe_t.shape[-2], J, x_shared=Xe_t.dim() == 2, depth=depth)[0]
     results["dt_fused"] = {
@@ -3738,11 +3853,13 @@ def phase_sweep(torch, card: str) -> dict:
         torch.from_numpy(lr_payload["mask_eval"]).to(device)[None].expand(padded, -1).contiguous(),
     )
     slots = sweep._job_axis(1)
+    # the runner's call: one member's slots share X and its thresholds
     dt_inputs = (
         X_raw, y_dev[None].expand(slots, -1).contiguous(), mask[None].expand(slots, -1).contiguous(),
-        thresholds[None].expand(slots, -1, -1).contiguous(), Xe_dev,
+        thresholds, Xe_dev,
         lr_inputs[10][:slots].contiguous(), lr_inputs[11][:slots].contiguous(), max(SWEEP_DEPTHS),
     )
+    record["dt"]["binned_once"] = check_dt_binned_once(torch, dt_inputs)
     programs = time_programs(torch, lr_inputs, dt_inputs, flush)
     for name, result in programs.items():
         result["launches"] = (record["lr"] if name.startswith("lr") else record["dt"])["programs"][name]
@@ -3769,7 +3886,7 @@ def check_bounds(summary) -> None:
             **entry.get("forest", {}).get("by_level", {}), "at the main path's shape": entry,
         }
         for key, at in timed.items():
-            for field in ("ms", "device_ms", "device_ms_clean_l2"):
+            for field in ("ms", "device_ms", "ms_cold", "device_ms_cold", "device_ms_clean_l2"):
                 if at.get(field) is not None and at[field] < at["bound_ms"]:
                     raise AssertionError(
                         f"{entry['name']} at {key}: {field} {at[field]} is below "
@@ -3827,6 +3944,10 @@ def main(argv) -> int:
         phase_serve(torch, device["card"])
     fit_kernels = phase_fit_kernels(torch) if "fit-kernels" in wanted else None
     fit = phase_fit(torch, device["card"]) if "fit" in wanted else None
+    for entry in summary:   # K6: the fits' evaluates (evaluate_predict on the fit's rows) launch it too
+        entry["evaluate_launches"] = sum(
+            fit[name]["evaluate_launches"].get(entry["name"], 0) for name in ("dt", "rf", "gb")
+        ) if fit else None
     if fit_kernels:
         for name, result in fit_kernels.items():
             k7 = name in LOGISTIC_REPLACES

@@ -155,20 +155,22 @@ def library(name: str) -> ctypes.CDLL:
 
 def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lo_tree_ensemble_forward.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, leaves, out
-        c_int, c_int, c_int, c_int, c_int,   # rows, F, trees, depth, classes
+    lib.lo_tree_forward_prepare.argtypes = [
+        c_int, c_int, c_int, c_int,          # gbt, staged, x staged, a thread a row
+        c_int, c_int,                        # shared bytes, device
+        ctypes.POINTER(c_int), ctypes.POINTER(c_int),   # out: blocks an SM, SMs
+    ]
+    lib.lo_tree_forward.argtypes = [
+        c_int, c_int, c_int, c_int,          # gbt, staged, x staged, a thread a row
+        ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, leaf values, out
+        c_int, c_int, c_int, c_int, c_int,   # rows, F, trees, depth, values a leaf
         c_int, ctypes.c_longlong,            # jobs, X's stride along the job axis
-        c_int, c_int, ptr,                   # max_blocks, device, stream
+        c_int, c_int, c_int, c_int,          # jobs a group, log2 of rows a tile, trees a pass, sums shared
+        c_int, c_float, c_float,             # 16-byte rows, f0, step
+        c_int, c_int, c_int, ptr,            # blocks, shared bytes, device, stream
     ]
-    lib.lo_tree_ensemble_forward.restype = c_int
-    lib.lo_gbt_forward.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, values, out
-        c_int, c_int, c_int, c_int,          # rows, F, trees, depth
-        c_float, c_float,                    # f0, step
-        c_int, c_int, ptr,                   # max_blocks, device, stream
-    ]
-    lib.lo_gbt_forward.restype = c_int
+    lib.lo_tree_forward_prepare.restype = c_int
+    lib.lo_tree_forward.restype = c_int
     return _bind_errors(lib)
 
 

@@ -16,7 +16,8 @@ Where the reference ``vmap``s its solo programs over the job axis, the
 port writes the axis out (``torch.func.vmap`` cannot pass through the
 ctypes launches): the hand-written kernels take it as a grid dimension —
 K7 (``ml/logistic.py job_loss_and_grad``, ``job_trial_losses``, with the
-rows' validity mask as a weight), K1 (``ml/binning.py job_apply_bins``),
+rows' validity mask as a weight), K1 (``ml/binning.py job_apply_bins``,
+or ``apply_bins`` once where a program's slots share one member's X),
 K2-K5 (``ml/trees.py``: the tree axis with each job's own bins) and K6
 (``ml/trees.py job_ensemble_forward``) — one launch for the whole group a
 level or an iteration, and the L-BFGS bookkeeping around K7 is torch ops
@@ -56,7 +57,7 @@ import torch
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 from learningorchestra_tpu_torch.ml import logistic, trees
 from learningorchestra_tpu_torch.ml.base import infer_num_classes, segment_steps
-from learningorchestra_tpu_torch.ml.binning import MAX_BINS, job_apply_bins, make_thresholds
+from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, job_apply_bins, make_thresholds
 from learningorchestra_tpu_torch.ml.evaluation import job_masked_metrics
 from learningorchestra_tpu_torch.ml.logistic import (
     _ARMIJO_C1,
@@ -425,7 +426,10 @@ def _lr_fused_eval(W, b, Xe, means, scales, ye, masks_e, num_classes: int):
 
 def _job_heap_thresholds(features_heap, bins_heap, thresholds):
     """Float threshold per internal node of each job's tree:
-    ``thresholds[j, f, b]`` (``trees._heap_thresholds`` with a job axis)."""
+    ``thresholds[j, f, b]`` (``trees._heap_thresholds`` with a job axis),
+    or ``thresholds[f, b]`` of one table ``(F, B-1)`` the jobs share."""
+    if thresholds.dim() == 2:
+        return trees._heap_thresholds(features_heap, bins_heap, thresholds)
     job = torch.arange(features_heap.shape[0], device=features_heap.device)[:, None]
     safe_feature = features_heap.clamp(min=0).long()
     safe_bin = bins_heap.clamp(max=thresholds.shape[-1] - 1).long()
@@ -439,12 +443,18 @@ def _dt_fused(Xs, ys, ws, thresholds, Xe, ye, we, num_classes: int, max_depth: i
     and K4 over each job's own bins, K3 on the jobs' nodes flattened, K5),
     the heaps' float thresholds per job, K6 over the job axis on each
     job's eval rows, the first-maximum label and the metrics. Xs and Xe
-    shared or stacked; ys, ws ``(J, rows)``; thresholds ``(J, F, B-1)``.
-    Depth is a shape of the program, so a depth grid runs one per depth.
-    Returns the heaps ``(J, 2^D - 1)``, leaf probabilities ``(J, 2^D,
-    C)`` and the ``(J,)`` metrics."""
+    shared or stacked; ys, ws ``(J, rows)``; thresholds ``(J, F, B-1)``,
+    or one shared ``(F, B-1)`` with a shared Xs: then K1 bins the rows once
+    and the jobs grow over those bins, as a forest's trees do (K2 and K4
+    read them once for a group of jobs), with the bits of the stacked
+    path. Depth is a shape of the program, so a depth grid runs one per
+    depth. Returns the heaps ``(J, 2^D - 1)``, leaf probabilities ``(J,
+    2^D, C)`` and the ``(J,)`` metrics."""
     _count_program("dt_fused")
-    bins = job_apply_bins(Xs, thresholds)
+    if thresholds.dim() == 2 and Xs.dim() == 2:
+        bins = apply_bins(Xs, thresholds)
+    else:
+        bins = job_apply_bins(Xs, thresholds)
     one_hot = torch.nn.functional.one_hot(ys.long(), num_classes).to(torch.float32)
     # the weights are the slots' 0/1 row masks: integer channels (K2's counts)
     features_heap, bins_heap, leaf_probs = trees._fit_classification_tree(
@@ -471,8 +481,8 @@ def _stack(arrays: dict, members: list[int]) -> torch.Tensor:
 
 
 def _slot_rows(arrays: dict, members: list[int]) -> torch.Tensor:
-    """The slots' rows: the one member's, shared (a job stride of 0),
-    when every slot is that member's, else stacked."""
+    """The slots' rows (or thresholds): the one member's, shared (a job
+    stride of 0), when every slot is that member's, else stacked."""
     if len(set(members)) == 1:
         return arrays[members[0]]
     return _stack(arrays, members)
@@ -670,7 +680,7 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
             Xs = _slot_rows(_uploaded(payloads, members, "X", device), members)
             ys = _stack(_uploaded(payloads, members, "y", device), members)
             ws = _stack(_uploaded(payloads, members, "mask", device), members)
-            ths = _stack(_uploaded(payloads, members, "thresholds", device), members)
+            ths = _slot_rows(_uploaded(payloads, members, "thresholds", device), members)
             Xe = _slot_rows(_uploaded(payloads, members, "X_eval", device), members)
             ye = _stack(_uploaded(payloads, members, "y_eval", device), members)
             we = _stack(_uploaded(payloads, members, "mask_eval", device), members)

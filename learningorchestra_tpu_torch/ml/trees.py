@@ -57,6 +57,7 @@ for a group of trees.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 from typing import NamedTuple
@@ -200,19 +201,10 @@ def _launch_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_
     ``(J, rows, F)``, heaps ``(J, T, nodes)``, leaf_probs ``(J, T,
     leaves, C)``; ``(J, rows, C)`` probabilities."""
     kernels.check_operands(X, features_heap, thresholds_heap, leaf_probs)
-    rows, num_features = X.shape[-2:]
-    num_classes = leaf_probs.shape[-1]
-    out = torch.empty((jobs, rows, num_classes), dtype=torch.float32, device=X.device)
-    if rows == 0:
-        return out
-    kernels.launch(
-        "tree_ensemble_forward", "lo_tree_ensemble_forward",
-        X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(),
-        leaf_probs.data_ptr(), out.data_ptr(),
-        rows, num_features, features_heap.shape[-2], max_depth, num_classes,
-        jobs, rows * num_features if X.dim() == 3 else 0,
-        kernels.max_blocks(X.device.index), X.device.index,
-        torch.cuda.current_stream(X.device).cuda_stream,
+    rows = X.shape[-2]
+    out = torch.empty((jobs, rows, leaf_probs.shape[-1]), dtype=torch.float32, device=X.device)
+    _launch_forward(
+        "tree_ensemble_forward", X, features_heap, thresholds_heap, leaf_probs, out, max_depth, jobs
     )
     return out
 
@@ -259,20 +251,211 @@ def gbt_forward(X, f0, features_heap, thresholds_heap, leaf_values, step, max_de
             X, f0, features_heap, thresholds_heap, leaf_values, step, max_depth
         )
     kernels.check_operands(X, features_heap, thresholds_heap, leaf_values)
-    rows = X.shape[0]
-    out = torch.empty((rows, 2), dtype=torch.float32, device=X.device)
-    if rows == 0:
-        return out
-    kernels.launch(
-        "gbt_forward", "lo_gbt_forward",
-        X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(),
-        leaf_values.data_ptr(), out.data_ptr(),
-        rows, X.shape[1], features_heap.shape[0], max_depth,
+    out = torch.empty((X.shape[0], 2), dtype=torch.float32, device=X.device)
+    _launch_forward(
+        "gbt_forward", X, features_heap, thresholds_heap, leaf_values, out, max_depth, 1,
         float(f0), float(step),
-        kernels.max_blocks(X.device.index), X.device.index,
-        torch.cuda.current_stream(X.device).cuda_stream,
     )
     return out
+
+
+# K6's launch geometry (kernels/csrc/tree_forward.cu): a block's threads,
+# the staging items of X a thread holds ahead and the walks a tile holds
+# at most (4 items and 16 walks a thread), the shared memory a block may
+# take (set it low to force the passes and global trees, as the tests
+# do), the sums carried between passes in shared memory at most, the
+# blocks that small row counts are spread over (two an SM of an H100),
+# the least tile, and where a thread walks its own row: at most
+# kRegClasses classes, at least 16 trees a row and rows enough for tiles
+# of a row a thread on every block
+_FORWARD_THREADS = 256        # kThreads
+_FORWARD_AHEAD = 4            # kAhead
+_FORWARD_TILE_WALKS = _FORWARD_THREADS * 16
+_FORWARD_SHARE = kernels.SHARED_BYTES
+_FORWARD_ACC_SHARE = 48 * 1024
+_FORWARD_BLOCKS = 264
+_FORWARD_MIN_TILE = 32        # a warp's rows: a warp walks 32 rows of one tree
+_FORWARD_REG_CLASSES = 4      # kRegClasses
+_FORWARD_ROW_TREES = 16
+_FORWARD_ROW_ROWS = _FORWARD_THREADS * _FORWARD_BLOCKS // 2
+
+
+class ForwardGeometry(NamedTuple):
+    """K6's launch: ``group_jobs`` jobs a block (jobs that share X, else
+    one), tiles of ``tile_rows`` rows (a power of two, at least a warp's),
+    trees staged (``staged``) or read from global memory ``pass_trees`` at
+    a time (a group's every tree when one pass), the tile's rows staged in
+    shared memory (``x_staged``), a thread walking its own row through
+    every tree and summing in registers (``row_threads``) or a tile's
+    (tree, row) walks spread over the threads before the sums, the sums
+    carried between passes in shared memory (``acc_shared``, else in the
+    output), ``shared_bytes`` a block."""
+
+    group_jobs: int
+    tile_rows: int
+    pass_trees: int
+    staged: bool
+    x_staged: bool
+    row_threads: bool
+    acc_shared: bool
+    shared_bytes: int
+
+
+def _forward_shared_bytes(
+    tile_rows, pass_trees, staged, x_staged, row_threads, acc, num_features, tree_bytes, classes
+):
+    """A block's shared memory, in the kernel's order: the staged trees,
+    the tile's rows by feature column with a zero column, the walks' leaf
+    offsets (none when a thread walks its row), the carried sums."""
+    per_row = (
+        ((num_features + 1) * 4 if x_staged else 0)
+        + (0 if row_threads else pass_trees * 4)
+        + (classes * 4 if acc else 0)
+    )
+    return (pass_trees * tree_bytes if staged else 0) + tile_rows * per_row
+
+
+def _forward_geometry(
+    rows: int, num_features: int, trees: int, depth: int, classes: int, jobs: int = 1,
+    x_shared: bool = False, share: int | None = None,
+) -> ForwardGeometry:
+    """K6's geometry, a function of the shapes alone (``classes``: values a
+    leaf, 1 for gb). Tiers, in order: (1) every tree of a group staged
+    once, as many jobs a group as fit when they share X; (2) one job a
+    block, passes of the trees that fit half the share, over tiles that
+    fill the rest; (3) trees past half the share read from global memory,
+    in passes only where a tile's leaf offsets of every tree pass the
+    share. A thread walks its own row (tiles of a row a thread) at the
+    batch lane's row counts, at most ``_FORWARD_REG_CLASSES`` classes and
+    at least ``_FORWARD_ROW_TREES`` trees a row; else a tile holds up to
+    16 walks a thread and 4 staging items of X a thread, fewer rows where
+    that leaves the card short of blocks. Rows are staged while 32 of them
+    take at most half the share."""
+    share = _FORWARD_SHARE if share is None else share
+    return _forward_geometry_at(rows, num_features, trees, depth, classes, jobs, x_shared, share)
+
+
+def _power_of_two_at_most(value: int) -> int:
+    return 1 << (max(1, value).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _forward_geometry_at(rows, num_features, trees, depth, classes, jobs, x_shared, share):
+    tree_bytes = (2**depth - 1) * 8 + 2**depth * classes * 4
+    least = _FORWARD_MIN_TILE
+    x_staged = least * (num_features + 1) * 4 <= share // 2
+    # a tile's leaf offsets index its pass's leaf values as int32
+    offsets = (2**31 - 1) // (2**depth * classes)
+    row_threads = classes <= _FORWARD_REG_CLASSES and rows >= _FORWARD_ROW_ROWS
+
+    def size(tile, pass_trees, staged, rows_form, acc=False):
+        return _forward_shared_bytes(
+            tile, pass_trees, staged, x_staged, rows_form, acc, num_features, tree_bytes, classes
+        )
+
+    def tile_rows(walks, staged, rows_form):
+        if rows_form:   # a row a thread, the items past those fetched ahead loaded in place
+            most = _FORWARD_THREADS
+        else:
+            words = _FORWARD_THREADS * _FORWARD_AHEAD * 4 // num_features
+            most = min(_FORWARD_TILE_WALKS // max(walks, 1), words)
+        fill = 1 << (-(-rows // _FORWARD_BLOCKS) - 1).bit_length()
+        tile = max(least, min(_power_of_two_at_most(most), fill))
+        while tile > least and size(tile, walks, staged, rows_form) > share:
+            tile //= 2
+        return tile
+
+    # (1) a group's trees staged together, one pass
+    group = jobs if x_shared else 1
+    if trees:
+        group = min(group, (share - size(least, 0, False, True)) // (trees * (tree_bytes + 4 * least)))
+    if group >= 1:
+        group = -(-jobs // -(-jobs // group))   # the groups evenly filled
+        walks = group * trees
+        rows_form = row_threads and walks >= _FORWARD_ROW_TREES
+        tile = tile_rows(walks, True, rows_form)
+        shared = size(tile, walks, True, rows_form)
+        return ForwardGeometry(group, tile, walks, True, x_staged, rows_form, False, shared)
+    rows_form = row_threads and trees >= _FORWARD_ROW_TREES
+    # (2) passes of the trees that fit half the share
+    pass_trees = min(trees, share // 2 // tree_bytes)
+    if pass_trees >= 1:
+        rest = share - pass_trees * tree_bytes
+        cap = max(least, 1 << (rows - 1).bit_length())
+        per_row = size(1, pass_trees, False, rows_form, acc=True)
+        tile = min(_power_of_two_at_most(rest // per_row), cap)
+        acc = tile * classes * 4 <= _FORWARD_ACC_SHARE
+        if not acc:
+            per_row = max(1, size(1, pass_trees, False, rows_form))
+            tile = min(_power_of_two_at_most(rest // per_row), cap)
+        shared = size(tile, pass_trees, True, rows_form, acc)
+        if tile >= least and shared <= share:
+            return ForwardGeometry(1, tile, pass_trees, True, x_staged, rows_form, acc, shared)
+    # (3) trees from global memory
+    if size(least, trees, False, False) > share or trees > offsets:
+        acc = least * classes * 4 <= _FORWARD_ACC_SHARE and size(least, 1, False, False, True) <= share
+        pass_trees = max(1, min(offsets, (share - size(least, 0, False, False, acc)) // (4 * least)))
+        shared = size(least, pass_trees, False, False, acc)
+        return ForwardGeometry(1, least, pass_trees, False, x_staged, False, acc, shared)
+    tile = tile_rows(trees, False, rows_form)
+    shared = size(tile, trees, False, rows_form)
+    return ForwardGeometry(1, tile, trees, False, x_staged, rows_form, False, shared)
+
+
+_forward_prepared: dict = {}
+_forward_lock = threading.Lock()
+
+
+def _forward_occupancy(device_index: int, gbt: bool, geometry: ForwardGeometry) -> int:
+    """Blocks of K6's form at ``geometry`` that the card holds at once, its
+    shared-memory cap raised where needed: asked of the card once per
+    device and form, then kept."""
+    key = (
+        device_index, gbt, geometry.staged, geometry.x_staged, geometry.row_threads,
+        geometry.shared_bytes,
+    )
+    with _forward_lock:
+        if key not in _forward_prepared:
+            lib = kernels.library("tree_forward")
+            per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+            kernels.check(lib, "tree_forward", lib.lo_tree_forward_prepare(
+                int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
+                geometry.shared_bytes, device_index, ctypes.byref(per_sm), ctypes.byref(sms),
+            ))
+            if per_sm.value < 1:
+                raise RuntimeError(f"K6 at {geometry} does not fit an SM")
+            _forward_prepared[key] = per_sm.value * sms.value
+        return _forward_prepared[key]
+
+
+def _launch_forward(
+    name, X, features_heap, thresholds_heap, values, out, max_depth, jobs, f0=0.0, step=0.0
+):
+    """One launch of K6 (``name``: the ensemble's or gb's) into ``out``:
+    X ``(rows, F)`` shared by the jobs or ``(J, rows, F)``, heaps ``((J,)
+    T, nodes)``, values ``((J,) T, leaves(, C))``."""
+    rows, num_features = X.shape[-2:]
+    if rows == 0:
+        return
+    gbt = name == "gbt_forward"
+    trees = features_heap.shape[-2]
+    classes = 1 if gbt else values.shape[-1]
+    job_stride = rows * num_features if X.dim() == 3 else 0
+    geometry = _forward_geometry(rows, num_features, trees, max_depth, classes, jobs, X.dim() == 2)
+    device = X.device.index
+    resident = _forward_occupancy(device, gbt, geometry)
+    groups = min(-(-jobs // geometry.group_jobs), 65535)
+    blocks = max(1, min(-(-rows // geometry.tile_rows), resident // groups))
+    vector = num_features % 4 == 0 and X.data_ptr() % 16 == 0
+    kernels.launch(
+        name, "lo_tree_forward",
+        int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
+        X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(), values.data_ptr(),
+        out.data_ptr(), rows, num_features, trees, max_depth, classes, jobs, job_stride,
+        geometry.group_jobs, geometry.tile_rows.bit_length() - 1, geometry.pass_trees,
+        int(geometry.acc_shared), int(vector), f0, step, blocks, geometry.shared_bytes, device,
+        torch.cuda.current_stream(X.device).cuda_stream,
+    )
 
 
 # --------------------------------------------------------------------------

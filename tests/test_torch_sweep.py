@@ -376,6 +376,42 @@ def test_dt_group_matches_the_reference(classes, members, mesh):
             np.testing.assert_allclose(params["leaf_probs"], jax_params["leaf_probs"], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("depth", [2, 5])
+def test_a_dt_program_of_one_member_bins_its_rows_once_with_the_stacked_bits(depth, monkeypatch):
+    """Every slot one member's: the runner passes the member's thresholds
+    unstacked, K1 bins the shared rows once (``apply_bins``, no job axis)
+    and the jobs grow over those bins; heaps, leaf probabilities and
+    metrics are those of the stacked path, bit for bit."""
+    X, y, Xe, ye = member_data(3, 23)
+    _, payload = sweep.prepare_member("dt", X, y, Xe, ye, [{"max_depth": depth}], device="cpu")
+    slots = sweep._job_axis(1)
+
+    def slot_axis(name):
+        return torch.from_numpy(payload[name])[None].expand(slots, *payload[name].shape).contiguous()
+
+    Xs, Xe_t = torch.from_numpy(payload["X"]), torch.from_numpy(payload["X_eval"])
+    thresholds = torch.from_numpy(payload["thresholds"])
+    rest = (slot_axis("y"), slot_axis("mask"))
+    evals = (slot_axis("y_eval"), slot_axis("mask_eval"))
+    stacked = sweep._dt_fused(Xs, *rest, slot_axis("thresholds"), Xe_t, *evals, 3, depth, binning.MAX_BINS)
+    calls = []
+    monkeypatch.setattr(sweep, "apply_bins", lambda *a: calls.append("once") or binning.apply_bins(*a))
+    monkeypatch.setattr(sweep, "job_apply_bins", lambda *a: calls.append("per job") or binning.job_apply_bins(*a))
+    shared = sweep._dt_fused(Xs, *rest, thresholds, Xe_t, *evals, 3, depth, binning.MAX_BINS)
+    assert calls == ["once"]
+    for got, want in zip(shared, stacked):
+        assert torch.equal(got, want)
+    seen = []
+    fused = sweep._dt_fused
+    monkeypatch.setattr(sweep, "_dt_fused", lambda Xs, ys, ws, ths, *a: seen.append(ths.dim()) or fused(Xs, ys, ws, ths, *a))
+    (status, result), = sweep.run_group([payload], "cpu")
+    assert status == "ok" and seen == [2] and calls == ["once", "once"]
+    params = result["params"][0]
+    np.testing.assert_array_equal(params["features_heap"], stacked[0][0].numpy())
+    np.testing.assert_array_equal(params["leaf_probs"], stacked[2][0].numpy())
+    assert result["points"][0]["accuracy"] == float(stacked[3][0])
+
+
 def test_a_poisoned_member_fails_alone_as_in_the_reference(mesh):
     X, y, Xe, ye = member_data(2, 5)
     bad = X.copy()
