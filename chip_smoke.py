@@ -1,12 +1,13 @@
 """Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits,
-its PCA and t-SNE image lane and its sweeps and job coalescing on one
-CUDA card.
+its PCA and t-SNE image lane, its sweeps and job coalescing and its
+model builder (``POST /models``) on one CUDA card.
 
 Run from the repository root, with one card visible:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py fit-kernels fit  # device, build and the named phases
     python3 chip_smoke.py sweep            # the sweeps and the coalescer alone
+    python3 chip_smoke.py models           # the builds alone
 
 Phases, one JSON line each:
 
@@ -158,6 +159,32 @@ Phases, one JSON line each:
                  runs; bench.py's flood of 64 concurrent lr jobs of 1,024
                  rows at a 10 ms window (one fused dispatch) and at 0.
 
+10. models     — two builds of lr, dt, rf, gb and nb through the port's
+                 model_builder app over HTTP, ``device=None`` (the card):
+                 tests/data's Titanic CSVs (891 and 418 rows, projected to
+                 the golden flow's fields, then ``ingest_csv`` and
+                 ``convert_field_types``) with the documented
+                 preprocessor, synchronously; and bench.py's product path
+                 (100,000 rows x 16 features + label, its VectorAssembler
+                 preprocessor), synchronously and ``async`` (waited on
+                 through ``/jobs/<name>/wait``). Each build runs with the
+                 counts set to 0 just before it; its launches of K1-K7 and
+                 K6 and its K9 calls must be non-zero. Each prediction
+                 collection must hold the test rows, its labels those its
+                 ``.model`` gives through ``load_model`` on the card, its
+                 accuracy and F1 numpy's on that model's eval labels
+                 (within 1e-6), and ``POST /models/<name>/predict`` must
+                 answer the same labels for 8 rows. Each data set's
+                 request is then built once more, synchronously, with
+                 every kernel of a build (K1-K7, K6's two forwards)
+                 swapped for its plain version, and no kernel launched:
+                 every build's labels must equal that build's, and its
+                 probabilities and metrics agree within the fit phase's
+                 tolerance of each classifier (PLAIN_BUILD_TOL). Prints
+                 each classifier's phases (fit, checkpoint, evaluate,
+                 write), the build's load_data and preprocess spans, its
+                 wall and the plain-version build's.
+
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that last line. Imports nothing of JAX.
@@ -198,6 +225,7 @@ from learningorchestra_tpu_torch.ml.checkpoint import (
     write_checkpoint,
 )
 from learningorchestra_tpu_torch.ml.base import segment_steps
+from learningorchestra_tpu_torch.core.store import InMemoryStore
 from learningorchestra_tpu_torch.ml.trees import GBT_ROUNDS, GBT_STEP, MAX_DEPTH, NUM_TREES
 from learningorchestra_tpu_torch.ops import pca, tsne
 from learningorchestra_tpu_torch.serve import ServePlane
@@ -921,7 +949,7 @@ def phase_serve(torch, card: str) -> dict:
             write_checkpoint(gathered, checkpoint_path(models_dir, name))
             tolerances[name] = TREE_TOL if gathered[0] in ("tree_ensemble", "gbt") else LINEAR_TOL
         plane = ServePlane()
-        server = ServerThread(create_app(models_dir=models_dir, serve=plane)).start()
+        server = ServerThread(create_app(InMemoryStore(), models_dir=models_dir, serve=plane)).start()
         try:
             client = _Client(server.port)
             kernels.reset_launches()
@@ -2109,7 +2137,7 @@ def phase_fit(torch, card: str) -> dict:
         for name, model in models.items():
             save_model(model, checkpoint_path(models_dir, f"{name}_fit"))
         plane = ServePlane()
-        server = ServerThread(create_app(models_dir=models_dir, serve=plane)).start()
+        server = ServerThread(create_app(InMemoryStore(), models_dir=models_dir, serve=plane)).start()
         try:
             client = _Client(server.port)
             for name, model in models.items():
@@ -2543,7 +2571,6 @@ def embed_store():
     column) and ``blobs_20k`` (20,000 rows, class names, label-encoded in
     sorted order, c0 < c1 < ...). Returns the store, each collection's
     labels and the seconds the writes took."""
-    from learningorchestra_tpu_torch.core.store import InMemoryStore
     from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
 
     started = time.perf_counter()
@@ -3876,6 +3903,338 @@ def phase_sweep(torch, card: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# The model builder: POST /models end to end
+# --------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MODEL_NAMES = ("lr", "dt", "rf", "gb", "nb")
+# tests/test_titanic_golden.py's documented projection and casts
+TITANIC_FIELDS = ("PassengerId", "Survived", "Pclass", "Name", "Sex", "Age", "SibSp", "Parch", "Embarked")
+TITANIC_NUMBERS = ("Age", "Parch", "PassengerId", "Pclass", "SibSp")
+PRODUCT_ROWS = 100_000   # bench.py's product path (its PRODUCT_ROWS), the first rows of its data
+PRODUCT_PREPROCESSOR = (  # bench.py's bench_product preprocessor
+    "from pyspark.ml.feature import VectorAssembler\n"
+    "feature_cols = [c for c in training_df.schema.names if c != 'label']\n"
+    "assembler = VectorAssembler(inputCols=feature_cols, outputCol='features')\n"
+    "features_training = assembler.transform(training_df)\n"
+    "features_testing = assembler.transform(testing_df)\n"
+    "features_evaluation = assembler.transform(testing_df)\n"
+)
+BUILD_KERNELS = (
+    "apply_bins", "level_histograms", "select_splits", "route", "leaf_sums",
+    "logistic_loss_grad", "logistic_trial_losses", "tree_ensemble_forward", "gbt_forward",
+)
+METRIC_TOL = 1e-6
+PREDICT_ROWS = 8
+# a build against the same build by the plain versions: the fit phase's
+# tolerance of each classifier, on probabilities and metrics; labels equal
+PLAIN_BUILD_TOL = {"dt": 0.0, "rf": TREE_TOL, "gb": FIT_MARGIN_TOL, "lr": LR_PROB_TOL, "nb": NB_TOL}
+
+
+def documented_preprocessor() -> str:
+    """The documented preprocessor, read from ``tests/test_frame.py``'s
+    source without importing it (that module imports the JAX package)."""
+    import ast
+
+    with open(os.path.join(ROOT, "tests", "test_frame.py")) as handle:
+        tree = ast.parse(handle.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+            getattr(target, "id", None) == "DOCUMENTED_PREPROCESSOR" for target in node.targets
+        ):
+            return ast.literal_eval(node.value)
+    raise AssertionError("tests/test_frame.py defines no DOCUMENTED_PREPROCESSOR")
+
+
+def titanic_store(folder: str):
+    """``tests/data``'s Titanic CSVs (891 and 418 rows) in the port's
+    store as the golden flow reads them: projected to its field set (on
+    the CSV: the projection service is not ported yet), through
+    ``ingest_csv``, then ``convert_field_types``."""
+    import csv
+
+    from learningorchestra_tpu_torch.core.ingest import ingest_csv, write_ingest_metadata
+    from learningorchestra_tpu_torch.ops.dtype import convert_field_types
+
+    store = InMemoryStore()
+    for name, labelled in (("titanic_train", True), ("titanic_test", False)):
+        fields = [field for field in TITANIC_FIELDS if labelled or field != "Survived"]
+        path = os.path.join(folder, f"{name}.csv")
+        with open(os.path.join(ROOT, "tests", "data", f"{name}.csv"), newline="") as source, \
+                open(path, "w", newline="") as projected:
+            writer = csv.writer(projected)
+            writer.writerow(fields)
+            writer.writerows([row[field] for field in fields] for row in csv.DictReader(source))
+        write_ingest_metadata(store, name, path)
+        ingest_csv(store, name, path)
+        numbers = TITANIC_NUMBERS + (("Survived",) if labelled else ())
+        convert_field_types(store, name, {field: "number" for field in numbers})
+    return store
+
+
+def product_store():
+    """bench.py's product-path collections: its synthetic rows' first
+    100,000 (16 features + label) written to ``bench_train`` and
+    ``bench_test`` as its ``bench_product`` writes them."""
+    X, y = bench_synthetic(FIT_ROWS)
+    X, y = X[:PRODUCT_ROWS], y[:PRODUCT_ROWS]
+    store = InMemoryStore()
+    for name in ("bench_train", "bench_test"):
+        store.create_collection(name)
+        store.insert_one(name, {
+            "_id": 0, "filename": name, "finished": True,
+            "fields": [f"f{i}" for i in range(FEATURES)] + ["label"],
+        })
+        columns = {f"f{i}": X[:, i].tolist() for i in range(FEATURES)}
+        columns["label"] = y.tolist()
+        store.insert_columns(name, columns)
+    return store
+
+
+def numpy_metrics(y_true: np.ndarray, y_pred: np.ndarray) -> tuple[float, float]:
+    """Accuracy and Spark's weighted F1 in float64 numpy."""
+    classes = int(max(y_true.max(), y_pred.max())) + 1
+    cm = np.zeros((classes, classes))
+    np.add.at(cm, (y_true.astype(np.int64), y_pred.astype(np.int64)), 1.0)
+    true_positive, support, predicted = np.diag(cm), cm.sum(axis=1), cm.sum(axis=0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        precision = np.where(predicted > 0, true_positive / predicted, 0.0)
+        recall = np.where(support > 0, true_positive / support, 0.0)
+        f1 = np.where(precision + recall > 0, 2 * precision * recall / (precision + recall), 0.0)
+    return float(true_positive.sum() / cm.sum()), float((f1 * support).sum() / cm.sum())
+
+
+@contextlib.contextmanager
+def _counting_metrics():
+    """Count the calls of K9 (``evaluation.masked_metrics``, torch ops, no
+    kernel of its own)."""
+    calls = [0]
+    original = evaluation.masked_metrics
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    evaluation.masked_metrics = counted
+    try:
+        yield calls
+    finally:
+        evaluation.masked_metrics = original
+
+
+def _span_seconds(trace: dict, names) -> dict:
+    found = {}
+    pending = list(trace["spans"])
+    while pending:
+        span = pending.pop()
+        if span["name"] in names:
+            found[span["name"]] = span["duration_s"]
+        pending += span["children"]
+    return found
+
+
+def _build_body(training: str, test: str, code: str, run_async: bool) -> dict:
+    body = {
+        "training_filename": training, "test_filename": test,
+        "preprocessor_code": code, "classificators_list": list(MODEL_NAMES),
+    }
+    if run_async:
+        body["async"] = True
+    return body
+
+
+def _stored_outputs(store, test: str) -> dict:
+    """Each classifier's stored labels and probabilities, and its
+    metadata's accuracy and F1, as a build left them in ``store``."""
+    outputs = {}
+    for name in MODEL_NAMES:
+        collection = f"{test}_prediction_{name}"
+        metadata = store.find_one(collection, {"_id": 0})
+        columns = store.read_column_arrays(collection, ["prediction", "probability"])
+        outputs[name] = {
+            "labels": columns["prediction"].to_float64(),
+            "probability": np.array(columns["probability"].tolist(), dtype=np.float64),
+            "metrics": np.array([float(metadata["accuracy"]), float(metadata["F1"])]),
+        }
+    return outputs
+
+
+@contextlib.contextmanager
+def _plain_build():
+    """Within the block, a build runs the plain version of every kernel
+    it launches (K1, the level loop, K6's two forwards, K7's twins), on
+    any device. Raises if a kernel launched."""
+    with _plain(trees, {
+        "apply_bins": binning._apply_bins,
+        "ensemble_forward": trees._ensemble_forward,
+        "gbt_forward": trees._gbt_forward,
+    }), _plain_level_loop(), _plain_k7():
+        yield
+
+
+def plain_build(torch, client, store, what: str, training: str, test: str, code: str) -> tuple:
+    """The same request as the kernels' builds, synchronous, with the plain
+    versions swapped in: their yardstick at the shapes a build gives its
+    kernels. Returns its stored outputs and its wall."""
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    with _plain_build():
+        status, answer = client.call("POST", "/models", _build_body(training, test, code, False))
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - started
+    if (status, answer) != (201, {"result": "created_file"}):
+        raise AssertionError(f"{what}: the plain-version build answered {status} {answer}")
+    return _stored_outputs(store, test), wall_s
+
+
+def held_to_plain(what: str, outputs: dict, plain: dict) -> dict:
+    """A kernels' build against the plain-version build of the same
+    request: equal labels, probabilities and metrics within the fit
+    phase's tolerance of each classifier (PLAIN_BUILD_TOL)."""
+    errors = {}
+    for name in MODEL_NAMES:
+        got, want = outputs[name], plain[name]
+        if not np.array_equal(got["labels"], want["labels"]):
+            differing = int((got["labels"] != want["labels"]).sum())
+            raise AssertionError(f"{what} {name}: {differing} labels differ from the plain-version build")
+        prob_err = float(np.abs(got["probability"] - want["probability"]).max())
+        metric_err = float(np.abs(got["metrics"] - want["metrics"]).max())
+        if prob_err > PLAIN_BUILD_TOL[name] or metric_err > PLAIN_BUILD_TOL[name]:
+            raise AssertionError(
+                f"{what} {name}: probabilities {prob_err}, metrics {metric_err} from the "
+                f"plain-version build (tolerance {PLAIN_BUILD_TOL[name]})"
+            )
+        errors[name] = {"max_prob_err": prob_err, "max_metric_err": metric_err}
+    return errors
+
+
+def run_build(torch, client, store, what: str, training: str, test: str, code: str,
+              run_async: bool) -> tuple:
+    """One ``POST /models`` of all five classifiers with the launch counts
+    set to 0 just before it and read just after, then its checks: every
+    prediction collection has the test rows, its labels are those its
+    ``.model`` gives through ``load_model`` on the card, its accuracy and
+    F1 numpy's on that model's eval labels (within 1e-6), and a
+    ``POST /models/<name>/predict`` answers the same labels. Returns its
+    record and its stored outputs."""
+    from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+    from learningorchestra_tpu_torch.ml.builder import _alias_if_equal, load_dataframe
+
+    job = f"build:{test}:{'+'.join(MODEL_NAMES)}"
+    body = _build_body(training, test, code, run_async)
+    with _counting_metrics() as k9_calls:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        started = time.perf_counter()
+        status, answer = client.call("POST", "/models", body)
+        expected = {"result": "created_file", **({"job": job} if run_async else {})}
+        if (status, answer) != (201, expected):
+            raise AssertionError(f"{what}: POST /models answered {status} {answer}")
+        waits = 0
+        while run_async:
+            status, waited = client.call("GET", f"/jobs/{job}/wait?timeout=60")
+            waits += 1
+            if status != 200:
+                raise AssertionError(f"{what}: /wait answered {status} {waited}")
+            if waited["result"] != "timeout":
+                if waited["result"]["state"] != "finished":
+                    raise AssertionError(f"{what}: the job ended {waited['result']}")
+                break
+        wall_s = time.perf_counter() - started
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        k9 = k9_calls[0]
+    missing = [name for name in BUILD_KERNELS if launches[name] == 0]
+    if missing or k9 == 0:
+        raise AssertionError(f"{what}: the build never launched {missing} (K9 calls {k9})")
+    status, traced = client.call("GET", f"/jobs/{job}/trace")
+    spans = _span_seconds(traced["result"]["trace"], ("load_data", "preprocess"))
+    frames = run_preprocessor(code, load_dataframe(store, training), load_dataframe(store, test))
+    testing = frames["features_testing"]
+    evaluation_frame = _alias_if_equal(frames["features_evaluation"], testing)
+    X_test = testing.feature_matrix("features")
+    X_eval, y_eval = evaluation_frame.feature_matrix("features"), evaluation_frame.label_vector("label")
+    classifiers = {}
+    outputs = _stored_outputs(store, test)
+    for name in MODEL_NAMES:
+        collection = f"{test}_prediction_{name}"
+        metadata = store.find_one(collection, {"_id": 0})
+        stored = outputs[name]["labels"]
+        if len(stored) != len(X_test):
+            raise AssertionError(f"{what} {name}: {len(stored)} predictions for {len(X_test)} test rows")
+        model = load_model(metadata["model_checkpoint"])
+        if not np.array_equal(model.predict(X_test), stored):
+            raise AssertionError(f"{what} {name}: the stored labels are not its checkpoint's")
+        accuracy, weighted_f1 = numpy_metrics(y_eval, model.predict(X_eval))
+        got = (float(metadata["accuracy"]), float(metadata["F1"]))
+        if max(abs(got[0] - accuracy), abs(got[1] - weighted_f1)) > METRIC_TOL:
+            raise AssertionError(f"{what} {name}: metrics {got} against numpy's {(accuracy, weighted_f1)}")
+        status, answered = client.call(
+            "POST", f"/models/{collection}/predict", {"rows": X_test[:PREDICT_ROWS].tolist()}
+        )
+        if status != 200 or answered["result"]["predictions"] != stored[:PREDICT_ROWS].tolist():
+            raise AssertionError(f"{what} {name}: the predict lane answered {status} {answered}")
+        classifiers[name] = {
+            "timings": metadata["timings"], "accuracy": metadata["accuracy"], "F1": metadata["F1"],
+        }
+    return {
+        "build": what,
+        "async": run_async,
+        "wall_s": wall_s,
+        "waits": waits,
+        "rows": {"train": frames["features_training"].count(), "eval": len(X_eval), "test": len(X_test)},
+        "spans_s": spans,
+        "classifiers": classifiers,
+        "launches": {name: launches[name] for name in BUILD_KERNELS},
+        "k9_calls": k9,
+    }, outputs
+
+
+def phase_models(torch, card: str) -> dict:
+    """Two builds through the port's model_builder app over HTTP, on the
+    card (``device=None``): the Titanic flow synchronously, then
+    bench.py's product path synchronously and ``async``. Each data set's
+    request is then built once more by the plain versions, and every
+    kernels' build is held to that build."""
+    builds = []
+    with tempfile.TemporaryDirectory() as folder:
+        stores = {"titanic": titanic_store(folder)}
+        started = time.perf_counter()
+        stores["product"] = product_store()
+        product_setup_s = time.perf_counter() - started
+        code = documented_preprocessor()
+        for what, store, training, test, preprocessor, modes in (
+            ("titanic", stores["titanic"], "titanic_train", "titanic_test", code, (False,)),
+            ("product", stores["product"], "bench_train", "bench_test", PRODUCT_PREPROCESSOR, (False, True)),
+        ):
+            plane = ServePlane()
+            models_dir = os.path.join(folder, f"models_{what}")
+            server = ServerThread(create_app(store, models_dir=models_dir, serve=plane)).start()
+            try:
+                client = _Client(server.port)
+                built = [
+                    run_build(torch, client, store, what, training, test, preprocessor, run_async)
+                    for run_async in modes
+                ]
+                plain, plain_wall_s = plain_build(torch, client, store, what, training, test, preprocessor)
+                for record, outputs in built:
+                    record["plain_build_wall_s"] = plain_wall_s
+                    record["held_to_plain"] = held_to_plain(what, outputs, plain)
+                    builds.append(record)
+            finally:
+                server.stop()
+                plane.close()
+    record = {
+        "phase": "models",
+        "builds": builds,
+        "product_setup_s": product_setup_s,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -3894,7 +4253,7 @@ def check_bounds(summary) -> None:
                     )
 
 
-PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep")
+PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models")
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
 NO_LIBRARY = {
@@ -4019,6 +4378,8 @@ def main(argv) -> int:
                 )},
                 "library_ms": None, "library_note": NO_LIBRARY[name],
             })
+    if "models" in wanted:
+        phase_models(torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})

@@ -2,8 +2,9 @@
 
 Counterpart of ``learningorchestra_tpu/ml/base.py``: ``CLASSIFIER_NAMES``,
 ``largest_divisor`` and ``segment_steps`` (:36-93), ``infer_num_classes``,
-``FittedModel`` with ``evaluate`` and ``evaluate_predict`` (:250-297) and
-``make_classifier`` (:306). A model holds its parameters as tensors on one
+``DeviceLabels``, ``shard_matrix`` and ``shard_labels`` (:125-142, one
+copy to the device here), ``FittedModel`` with ``evaluate`` and
+``evaluate_predict`` (:250-297) and ``make_classifier`` (:306). A model holds its parameters as tensors on one
 device; its forward is a plain function on tensors.
 
 The reference pads rows to a multiple of the mesh's data axis and carries
@@ -20,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.device import DeviceLike, policy_dtype
+from learningorchestra_tpu_torch.device import DeviceLike, policy_dtype, resolve_device
 
 # The model-builder request contract.
 CLASSIFIER_NAMES = ("lr", "dt", "rf", "gb", "nb")
@@ -71,6 +72,31 @@ def infer_num_classes(y: np.ndarray) -> int:
     return int(np.max(y)) + 1 if len(y) else 1
 
 
+class DeviceLabels:
+    """A label vector on the device (int64) with its class count taken on
+    the host, so the device metrics need no sync to size their scatter.
+    Shared across classifier threads like a frame's device matrix."""
+
+    __slots__ = ("data", "num_classes")
+
+    def __init__(self, data: torch.Tensor, num_classes: int):
+        self.data = data
+        self.num_classes = num_classes
+
+
+def shard_matrix(X: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
+    """``X`` as a float32 tensor on ``device``: one host-to-device copy
+    (the reference's ``shard_matrix`` pads and row-shards on a mesh)."""
+    host = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
+    return host.to(resolve_device(device), policy_dtype())
+
+
+def shard_labels(y: np.ndarray, device: DeviceLike = None) -> DeviceLabels:
+    y = np.asarray(y)
+    data = torch.from_numpy(y.astype(np.int64)).to(resolve_device(device))
+    return DeviceLabels(data, infer_num_classes(y))
+
+
 def labels_from_probs(probs: np.ndarray) -> np.ndarray:
     """Every model's labels are ``argmax(probs)`` (softmax, posterior and
     ensemble mean are all argmax-monotonic), so labels are rebuilt on the
@@ -88,11 +114,9 @@ class FittedModel:
         raise NotImplementedError
 
     def _to_device(self, X) -> torch.Tensor:
-        dtype = policy_dtype()
         if isinstance(X, torch.Tensor):
-            return X.to(self.device, dtype).contiguous()
-        host = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
-        return host.to(self.device, dtype)
+            return X.to(self.device, policy_dtype()).contiguous()
+        return shard_matrix(X, self.device)
 
     def _eval(self, X) -> tuple[np.ndarray, np.ndarray]:
         # the one device-to-host copy of a forward: the probabilities
@@ -115,8 +139,12 @@ class FittedModel:
         from learningorchestra_tpu_torch.ml.evaluation import masked_metrics
 
         probs = self._forward(self._to_device(X))
-        num_classes = max(int(probs.shape[-1]), infer_num_classes(y_true))
-        y_dev = torch.from_numpy(np.asarray(y_true, np.int64)).to(self.device)
+        if isinstance(y_true, DeviceLabels):  # copied once by the builder
+            y_dev = y_true.data.to(self.device)
+            num_classes = max(int(probs.shape[-1]), y_true.num_classes)
+        else:
+            num_classes = max(int(probs.shape[-1]), infer_num_classes(y_true))
+            y_dev = torch.from_numpy(np.asarray(y_true, np.int64)).to(self.device)
         accuracy, weighted_f1 = masked_metrics(y_dev, probs.argmax(dim=1), None, num_classes)
         return accuracy, weighted_f1, probs
 

@@ -1,11 +1,19 @@
-"""Job scheduling: cancellation tokens, knobs and the job coalescer.
+"""Job scheduling: admission, priorities, retries, cancellation and the
+job coalescer.
 
 Counterpart of ``learningorchestra_tpu/sched/``. Ported so far, as
 copies of the reference's modules with their imports pointed at the
 port:
 
-- :mod:`~learningorchestra_tpu_torch.sched.config` — the env knobs
-  (``LO_COALESCE_WINDOW_MS``, ``LO_COALESCE_MAX_JOBS`` among them);
+- :class:`~learningorchestra_tpu_torch.sched.scheduler.Scheduler` — a
+  priority queue per concurrency class: device-bound jobs (model builds,
+  PCA and t-SNE images) run at ``LO_SCHED_DEVICE_WIDTH`` (default 1),
+  host-bound jobs at ``LO_JOB_WORKERS``; a full queue
+  (``LO_SCHED_QUEUE_CAP``) raises :class:`QueueFullError`, which the REST
+  layer answers as 429 + ``Retry-After``;
+- :mod:`~learningorchestra_tpu_torch.sched.policy` — transient-failure
+  classification and exponential backoff with seeded jitter;
+- :mod:`~learningorchestra_tpu_torch.sched.config` — the env knobs;
 - :mod:`~learningorchestra_tpu_torch.sched.cancel` — cooperative
   cancellation tokens with per-job deadlines;
 - :class:`~learningorchestra_tpu_torch.sched.coalesce.Coalescer` — the
@@ -13,8 +21,9 @@ port:
   window fuse into one dispatch over a job axis (ml/sweep.py), each
   member keeping its own result, error or cancellation.
 
-The scheduler, its journal, retry policy and crash recovery come with
-the builder (``core/jobs.py``).
+``core/jobs.py`` executes what the scheduler admits. The journal and
+crash recovery (``sched/journal.py``, ``sched/recovery.py``) are not
+ported yet: the scheduler's ``journal`` stays None.
 """
 
 from learningorchestra_tpu_torch.sched.cancel import (
@@ -25,13 +34,33 @@ from learningorchestra_tpu_torch.sched.cancel import (
     current_token,
 )
 from learningorchestra_tpu_torch.sched.coalesce import Coalescer, global_coalescer
+from learningorchestra_tpu_torch.sched.policy import (
+    TransientJobError,
+    backoff_delay,
+    is_transient,
+)
+from learningorchestra_tpu_torch.sched.scheduler import (
+    DEVICE_CLASS,
+    HOST_CLASS,
+    QueueFullError,
+    Scheduler,
+    Task,
+)
 
 __all__ = [
     "CancelToken",
     "Coalescer",
+    "DEVICE_CLASS",
+    "HOST_CLASS",
     "JobCancelledError",
     "JobTimeoutError",
+    "QueueFullError",
+    "Scheduler",
+    "Task",
+    "TransientJobError",
+    "backoff_delay",
     "check_cancelled",
     "current_token",
     "global_coalescer",
+    "is_transient",
 ]

@@ -22,26 +22,12 @@ from typing import Optional
 
 import numpy as np
 
+from learningorchestra_tpu_torch.sched.scheduler import QueueFullError
 from learningorchestra_tpu_torch.utils.shapegrid import grid_size, pad_axis0
 
 SERVE_CLASS = "serve"
 
 _CLOSE = object()  # inbox sentinel
-
-
-class QueueFullError(RuntimeError):
-    """Admission refused: the inbox is at its cap. ``retry_after_s`` is
-    the hint the REST layer sends as ``Retry-After`` (a copy of
-    ``learningorchestra_tpu/sched/scheduler.py:46``)."""
-
-    def __init__(self, job_class: str, depth: int, retry_after_s: int):
-        super().__init__(
-            f"{job_class} queue full ({depth} queued); "
-            f"retry in ~{retry_after_s}s"
-        )
-        self.job_class = job_class
-        self.depth = depth
-        self.retry_after_s = retry_after_s
 
 
 class PredictRequest:

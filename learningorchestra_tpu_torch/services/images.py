@@ -6,12 +6,11 @@ codes and messages. Image existence is checked on the filesystem, like
 the reference: duplicates → 409, missing on GET/DELETE → 404 with
 ``file_not_found``.
 
-The reference runs a create through its scheduler's device class
-(``jobs.run_sync``), which also answers 429 on a full queue; the port
-runs it in the request's handler thread, so the client sees the same
-thing: the 201 comes after the PNG exists. The scheduler, the ``/jobs``
-routes and the observability routes are ported with the model build
-service (``POST /models``).
+A create runs through the scheduler's DEVICE class (``jobs.run_sync``),
+as the reference's does: it queues behind model builds instead of
+contending with them for the card, answers 429 + ``Retry-After`` when
+the device queue is full, and the 201 still comes after the PNG exists.
+The app also serves the job routes, ``/health`` and ``/metrics``.
 """
 
 from __future__ import annotations
@@ -19,11 +18,16 @@ from __future__ import annotations
 import contextlib
 import os
 
+from typing import Optional
+
+from learningorchestra_tpu_torch.core.jobs import JobManager
 from learningorchestra_tpu_torch.core.store import DocumentStore
 from learningorchestra_tpu_torch.device import DeviceLike
 from learningorchestra_tpu_torch.ops.images import IMAGE_FORMAT, create_embedding_image
+from learningorchestra_tpu_torch.sched import DEVICE_CLASS, QueueFullError
 from learningorchestra_tpu_torch.services import validators
-from learningorchestra_tpu_torch.utils.web import WebApp, send_file
+from learningorchestra_tpu_torch.telemetry import register_store, span
+from learningorchestra_tpu_torch.utils.web import WebApp, send_file, too_many_requests
 
 MESSAGE_RESULT = "result"
 MESSAGE_CREATED_FILE = "created_file"
@@ -42,13 +46,20 @@ def create_app(
     method: str,
     create=None,
     device: DeviceLike = None,
+    jobs: Optional[JobManager] = None,
 ) -> WebApp:
     """``method`` is "tsne" or "pca"; the request filename key follows it.
 
     ``create(parent_filename, label_name, output_filename)`` overrides how
     a validated request becomes an image; by default it is
-    :func:`create_embedding_image` on ``device`` (None: the CUDA card)."""
+    :func:`create_embedding_image` on ``device`` (None: the CUDA card).
+    ``jobs`` injects a ``JobManager`` (tests pin its scheduler; a process
+    serving several apps shares one so the device class is one queue),
+    else the app owns one."""
     app = WebApp(method)
+    jobs = jobs or JobManager()
+    register_store(store)
+    app.register_job_routes(jobs)
 
     if create is None:
 
@@ -121,8 +132,16 @@ def create_app(
             # claim: never overwrite a finished image
             release_claim(output_filename, keep_png=True)
             return {MESSAGE_RESULT: validators.MESSAGE_DUPLICATE_FILE}, 409
+
+        def work() -> None:
+            with span(f"{method}:embed", parent=parent_filename):
+                create(parent_filename, label_name, output_filename)
+
         try:
-            create(parent_filename, label_name, output_filename)
+            jobs.run_sync(f"{method}:{output_filename}", work, job_class=DEVICE_CLASS)
+        except QueueFullError as error:
+            release_claim(output_filename, keep_png=False)
+            return too_many_requests(error)
         except BaseException:
             release_claim(output_filename, keep_png=False)
             raise

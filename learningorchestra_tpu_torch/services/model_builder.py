@@ -1,25 +1,37 @@
-"""model_builder service: the online predict lane.
+"""model_builder service (port 5002): builds and the online predict lane.
 
-Counterpart of ``learningorchestra_tpu/services/model_builder.py``
-(:54-58, :361-457), with only the routes of the serving path:
+Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
 
+- ``POST /models`` builds the requested classifiers (lr, dt, rf, gb,
+  nb) from a training and a test collection and the user's
+  ``preprocessor_code`` (reference ``:201-295``). Synchronous by default,
+  as the reference's server.py:112-115: 201 after every fit. With
+  ``"async": true`` it answers 201 with the job's name at once and the
+  build runs as a tracked job (``GET /jobs/<name>``, ``/wait``). Either
+  way the build runs in the scheduler's DEVICE class, one at a time on
+  the card: a full queue answers 429 + ``Retry-After``, an active
+  duplicate async build 409, an unknown collection or classifier 406;
 - ``GET /models`` lists the ``.model`` artifacts in ``models_dir`` (the
   names under ``"result"``, the serve plane's stats under ``"serving"``);
 - ``GET /models/<name>`` describes one artifact;
 - ``POST /models/<name>/predict`` takes ``{"rows": [[...], ...]}`` and
   answers labels and probabilities in one synchronous response. Requests
   go through the serve plane: the model's parameters stay pinned on the
-  device and concurrent requests are joined into one forward.
+  device and concurrent requests are joined into one forward;
+- the job routes (``/jobs``, ``/jobs/<name>``, ``/wait``, ``/trace``,
+  ``DELETE``), ``/health`` and ``/metrics`` (``utils/web.py``).
 
 Messages and status codes are the reference's: 404 unknown model, 406
 missing or malformed rows, 413 more than ``LO_SERVE_MAX_ROWS`` rows, 429
-inbox full, 503 timed out, 500 ``prediction_failed: ...``. The build
-(``POST /models``), sweeps, the batch lane (``/predictions``) and the job
-and observability routes are not ported yet.
+inbox or queue full, 503 timed out, 500 ``prediction_failed: ...``.
+Sweeps (``/models/sweep``), the batch lane (``/predictions``) and the
+observability routes (``/metrics/history``, ``/debug/*``) are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import zipfile
@@ -27,35 +39,47 @@ from typing import Optional
 
 import numpy as np
 
+from learningorchestra_tpu_torch.core.jobs import DuplicateJobError, JobManager
+from learningorchestra_tpu_torch.core.store import DocumentStore
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES
+from learningorchestra_tpu_torch.ml.builder import build_model
 from learningorchestra_tpu_torch.ml.checkpoint import (
     CHECKPOINT_SUFFIX,
     checkpoint_path as _checkpoint_path,
 )
+from learningorchestra_tpu_torch.sched import DEVICE_CLASS, QueueFullError
 from learningorchestra_tpu_torch.serve import (
     ModelNotFoundError,
-    QueueFullError,
     ServePlane,
     global_serve_plane,
 )
 from learningorchestra_tpu_torch.serve import config as serve_config
 from learningorchestra_tpu_torch.services import validators
+from learningorchestra_tpu_torch.telemetry import register_store
 from learningorchestra_tpu_torch.utils.web import WebApp, too_many_requests
 
 MESSAGE_RESULT = "result"
+MESSAGE_CREATED_FILE = "created_file"
 MESSAGE_INVALID_ROWS = "invalid_rows"
 MESSAGE_SERVE_TIMEOUT = "predict_timeout"
 MESSAGE_TOO_MANY_ROWS = "too_many_rows"
 
 
 def create_app(
+    store: DocumentStore,
+    build=None,
     models_dir: Optional[str] = None,
+    jobs: Optional[JobManager] = None,
     serve: Optional[ServePlane] = None,
     device: DeviceLike = None,
 ) -> WebApp:
-    """The predict lane over the checkpoints in ``models_dir`` (default
-    ``LO_MODELS_DIR``). ``device=None`` means CUDA and raises without a
-    card; ``serve`` injects a plane (tests pin its knobs), else the
+    """The builder and the predict lane over ``store`` and the checkpoints
+    in ``models_dir`` (default ``LO_MODELS_DIR``). ``device=None`` means
+    CUDA and raises without a card. ``build(body)`` overrides how a
+    validated request body becomes a :func:`build_model` call; ``jobs``
+    injects a ``JobManager`` (tests pin its scheduler), else the app
+    owns one; ``serve`` injects a plane (tests pin its knobs), else the
     process-wide plane of ``device`` serves."""
     device = resolve_device(device)
     if serve is None:
@@ -63,12 +87,32 @@ def create_app(
     elif serve.device != device:
         raise ValueError(f"serve plane runs on {serve.device}, the app on {device}")
     models_dir = models_dir or os.environ.get("LO_MODELS_DIR")
+    jobs = jobs or JobManager()
     # resolve every serving knob now: a malformed value breaks app
     # construction instead of answering 500 on a live route
     serve_knobs = serve_config.validate_all()
     serve_timeout_s = serve_knobs["request_timeout_s"]
     serve_max_rows = serve_knobs["max_rows"]
     app = WebApp("model_builder")
+    register_store(store)
+    app.register_job_routes(jobs)
+    # the reference lets a concurrent same-name sync build run too (racy
+    # allow-both, server.py:112-115); the duplicate still goes through
+    # the device queue, under a uniquified job name
+    duplicate_seq = itertools.count(1)
+
+    if build is None:
+
+        def build(body: dict) -> None:
+            build_model(
+                store,
+                body["training_filename"],
+                body["test_filename"],
+                body["preprocessor_code"],
+                body["classificators_list"],
+                device=device,
+                models_dir=models_dir,
+            )
 
     def checkpoint_path(name: str) -> str:
         return _checkpoint_path(models_dir, name)
@@ -79,6 +123,64 @@ def create_app(
             and validators.safe_filename(name)
             and os.path.isfile(checkpoint_path(name))
         )
+
+    @app.route("/models", methods=("POST",))
+    def create_model(request):
+        body = request.get_json()
+        try:
+            validators.filename_exists(
+                store,
+                body["training_filename"],
+                validators.MESSAGE_INVALID_TRAINING_FILENAME,
+            )
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 406
+        try:
+            validators.filename_exists(
+                store,
+                body["test_filename"],
+                validators.MESSAGE_INVALID_TEST_FILENAME,
+            )
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 406
+        for name in body["classificators_list"]:
+            if name not in CLASSIFIER_NAMES:
+                return {
+                    MESSAGE_RESULT: validators.MESSAGE_INVALID_CLASSIFICATOR
+                }, 406
+        job_name = (
+            f"build:{body['test_filename']}:"
+            f"{'+'.join(body['classificators_list'])}"
+        )
+        if body.get("async"):
+            try:
+                jobs.submit(job_name, build, body, job_class=DEVICE_CLASS)
+            except QueueFullError as error:  # device queue at its cap
+                return too_many_requests(error)
+            except ValueError as error:  # same job already active
+                return {MESSAGE_RESULT: str(error)}, 409
+            return {MESSAGE_RESULT: MESSAGE_CREATED_FILE, "job": job_name}, 201
+        # synchronous: the reference's contract (201 after every fit), run
+        # as a tracked job in the DEVICE class so concurrent builds queue
+        # for the card; the request thread waits, a scheduler worker runs
+        try:
+            jobs.run_sync(job_name, build, body, job_class=DEVICE_CLASS)
+        except QueueFullError as error:
+            return too_many_requests(error)
+        except DuplicateJobError:
+            # already active: the reference runs it again. Not a bare
+            # ValueError — run_sync re-raises the build's own exceptions,
+            # and a build that failed with ValueError must not run twice
+            try:
+                jobs.run_sync(
+                    f"{job_name}#dup{next(duplicate_seq)}",
+                    build,
+                    body,
+                    job_class=DEVICE_CLASS,
+                )
+            except QueueFullError as error:
+                return too_many_requests(error)
+        return {MESSAGE_RESULT: MESSAGE_CREATED_FILE}, 201
 
     @app.route("/models", methods=("GET",))
     def list_models(request):

@@ -1,4 +1,4 @@
-"""The request-validation strings and checks the predict lane and the
+"""The request-validation strings and checks the model builder and the
 image lane answer with: the subset of
 ``learningorchestra_tpu/services/validators.py`` they need, with
 identical text."""
@@ -13,11 +13,17 @@ MESSAGE_DUPLICATE_FILE = "duplicate_file"
 MESSAGE_MISSING_FIELDS = "missing_fields"
 MESSAGE_INVALID_LABEL = "invalid_field"
 MESSAGE_NOT_FOUND = "file_not_found"
+MESSAGE_INVALID_TRAINING_FILENAME = "invalid_training_filename"
+MESSAGE_INVALID_TEST_FILENAME = "invalid_test_filename"
+MESSAGE_INVALID_CLASSIFICATOR = "invalid_classificator_name"
 
 __all__ = [
     "MESSAGE_DUPLICATE_FILE",
+    "MESSAGE_INVALID_CLASSIFICATOR",
     "MESSAGE_INVALID_FILENAME",
     "MESSAGE_INVALID_LABEL",
+    "MESSAGE_INVALID_TEST_FILENAME",
+    "MESSAGE_INVALID_TRAINING_FILENAME",
     "MESSAGE_MISSING_FIELDS",
     "MESSAGE_NOT_FOUND",
     "ValidationError",

@@ -15,6 +15,16 @@ status (400 for a body that does not parse as JSON, 415 for one not
 declared JSON, as werkzeug's ``get_json`` raises them). 405, 400 and 415
 come as werkzeug's HTML error page. Any other exception answers 500 with
 ``"<Type>: <message>"``.
+
+Every app serves ``GET /metrics`` (the process registry, with the
+request counters this layer keeps) and runs each request under a trace
+whose correlation ID (``X-Correlation-Id``, the caller's or a new one)
+echoes on the answer and rides into the jobs the request submits.
+:meth:`WebApp.register_job_routes` adds the job surface (``/jobs``,
+``/jobs/<name>``, its long-poll ``/wait`` and ``/trace``, ``DELETE``)
+and ``/health``. A ``/wait`` blocks its handler thread until the job
+ends or the timeout passes (the reference's threaded-server behaviour;
+its event loop and SSE framing are not ported).
 Only the standard library is used, so the port serves wherever torch runs.
 """
 
@@ -22,15 +32,32 @@ from __future__ import annotations
 
 import html
 import json
+import os
 import re
 import threading
+import time
 from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
-from urllib.parse import unquote, urlsplit
+from urllib.parse import parse_qsl, unquote, urlsplit
+
+from learningorchestra_tpu_torch.telemetry import metrics as _metrics
+from learningorchestra_tpu_torch.telemetry import tracing as _tracing
 
 _PARAM_RE = re.compile(r"<([A-Za-z_][A-Za-z0-9_]*)>")
 _dumps = json.dumps  # TestClient.post takes a parameter named json
+
+
+def wait_cap_s() -> float:
+    """``LO_WEB_WAIT_CAP_S`` (default 60): the longest a ``/wait`` parks."""
+    raw = os.environ.get("LO_WEB_WAIT_CAP_S", "").strip()
+    try:
+        cap = float(raw) if raw else 60.0
+    except ValueError:
+        raise ValueError(f"LO_WEB_WAIT_CAP_S must be a number, got {raw!r}") from None
+    if not cap > 0:
+        raise ValueError(f"LO_WEB_WAIT_CAP_S must be > 0, got {cap}")
+    return cap
 
 
 def _compile_rule(rule: str) -> "re.Pattern":
@@ -99,8 +126,14 @@ class Request:
 
     def __init__(self, method: str, target: str, headers=None, body: bytes = b""):
         self.method = method.upper()
+        parts = urlsplit(target)
         # matched decoded, as werkzeug does: %2F is a separator, not a name
-        self.path = unquote(urlsplit(target).path)
+        self.path = unquote(parts.path)
+        # the query string; a repeated key keeps its first value, as
+        # werkzeug's MultiDict.get does
+        self.args: dict = {}
+        for key, value in parse_qsl(parts.query, keep_blank_values=True):
+            self.args.setdefault(key, value)
         self.headers = {key.lower(): value for key, value in (headers or {}).items()}
         self.data = body
 
@@ -150,6 +183,9 @@ class Response:
     def get_json(self) -> Any:
         return json.loads(self.data)
 
+    def get_data(self) -> bytes:
+        return self.data
+
 
 def json_response(payload: Any, status: int = 200) -> Response:
     return Response(json.dumps(payload), status=status)
@@ -183,33 +219,160 @@ class WebApp:
     rule's path parameters, and returns a :class:`Response` or a
     ``(payload, status)`` tuple whose payload is JSON-serialised."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, registry=None):
         self.name = name
-        # (werkzeug's visiting key, compiled rule, methods, handler)
+        # (werkzeug's visiting key, compiled rule, methods, handler, rule)
         self._routes: list = []
+        # every app reports into the process registry (families labelled
+        # by service) and serves it at GET /metrics, as the reference's
+        self.registry = registry or _metrics.global_registry()
+        self._requests_total = self.registry.counter(
+            "lo_http_requests_total",
+            "HTTP requests handled",
+            labels=("service", "route", "method", "status"),
+        )
+        self._request_seconds = self.registry.histogram(
+            "lo_http_request_duration_seconds",
+            "Wall-clock per request",
+            labels=("service", "route", "method"),
+        )
+        self._in_flight = self.registry.gauge(
+            "lo_http_requests_in_flight",
+            "Requests currently being handled",
+            labels=("service",),
+        )
+
+        @self.route("/metrics")
+        def serve_metrics(request):
+            return Response(self.registry.render(), content_type=_metrics.CONTENT_TYPE)
 
     def route(self, rule: str, methods: tuple = ("GET",)):
         pattern = _compile_rule(rule)
 
         def decorator(handler: Callable) -> Callable:
-            self._routes.append((_rule_order(rule), pattern, _rule_methods(methods), handler))
+            self._routes.append(
+                (_rule_order(rule), pattern, _rule_methods(methods), handler, rule)
+            )
             self._routes.sort(key=lambda route: route[0])  # stable: ties keep their order
             return handler
 
         return decorator
 
+    def register_job_routes(self, jobs) -> None:
+        """The job surface of a service holding a ``JobManager``
+        (reference ``utils/web.py:291-422``):
+
+        - ``GET /jobs`` — every tracked job's record;
+        - ``GET /jobs/<name>`` — one record (404 unknown);
+        - ``GET /jobs/<name>/trace`` — its record and span tree;
+        - ``GET /jobs/<name>/wait?timeout=S`` — long-poll until the job
+          ends (released by its done callback) or ``S`` seconds pass
+          (default 25, capped at ``LO_WEB_WAIT_CAP_S``): the terminal
+          record, or ``{"result": "timeout", ...}``, a re-poll hint; a
+          bare dataset name resolves to the newest job materialising it;
+        - ``DELETE /jobs/<name>`` — cooperative cancellation: 202 while
+          it propagates, 409 once the job is terminal, 404 unknown;
+        - ``GET /health`` — liveness and the ``job_wait`` feature probe
+          (``degraded`` is False: the SLO plane is not ported)."""
+        from learningorchestra_tpu_torch.core.jobs import TERMINAL_STATES
+
+        @self.route("/jobs/<job_name>/trace")
+        def read_job_trace(request, job_name):
+            record = jobs.get(job_name)
+            if record is None:
+                return {"result": "not_found"}, 404
+            return {"result": record.trace_dict()}, 200
+
+        @self.route("/jobs")
+        def read_jobs(request):
+            return {"result": jobs.all_jobs()}, 200
+
+        @self.route("/jobs/<job_name>", methods=("DELETE",))
+        def cancel_job(request, job_name):
+            outcome = jobs.cancel(job_name)
+            if outcome == "unknown":
+                return {"result": "not_found"}, 404
+            if outcome == "terminal":
+                return {"result": "already_terminal"}, 409
+            return {"result": "cancelling"}, 202
+
+        @self.route("/jobs/<job_name>", methods=("GET",))
+        def read_job(request, job_name):
+            record = jobs.get(job_name)
+            if record is None:
+                return {"result": "not_found"}, 404
+            return {"result": record.as_dict()}, 200
+
+        @self.route("/jobs/<job_name>/wait", methods=("GET",))
+        def wait_job(request, job_name):
+            try:
+                timeout_s = float(request.args.get("timeout", "25"))
+            except ValueError:
+                return {"result": "bad_timeout"}, 400
+            if timeout_s != timeout_s or timeout_s < 0:  # NaN included
+                return {"result": "bad_timeout"}, 400
+            timeout_s = min(timeout_s, wait_cap_s())
+            record = jobs.resolve_wait(job_name)
+            if record is None:
+                return {"result": "not_found"}, 404
+            done = threading.Event()
+            jobs.add_done_callback(record.name, done.set)
+            deadline = time.monotonic() + timeout_s
+            while record.state not in TERMINAL_STATES:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return {"result": "timeout", "job": record.name, "state": record.state}, 200
+                done.wait(remaining)
+                done.clear()  # a notify for a same-name successor: re-check
+            return {"result": record.as_dict()}, 200
+
+        if not any(route[4] == "/health" for route in self._routes):
+
+            @self.route("/health")
+            def health(request):
+                return {
+                    "result": "ok",
+                    "service": self.name,
+                    "job_wait": True,
+                    "degraded": False,
+                }, 200
+
     def handle(self, request: Request) -> Response:
-        """The answer to ``request``; a HEAD's keeps the GET's headers and
+        """The answer to ``request``, under a trace whose correlation ID
+        echoes on it; a HEAD's keeps the GET's headers and
         ``Content-Length`` but no body."""
-        response = self._dispatch(request)
+        correlation_id = (
+            request.headers.get(_tracing.CORRELATION_HEADER.lower())
+            or _tracing.mint_correlation_id()
+        )
+        trace = _tracing.Trace(correlation_id, name=f"{request.method} {request.path}")
+        self._in_flight.labels(self.name).inc()
+        started = time.perf_counter()
+        try:
+            with _tracing.activate(trace), _tracing.span(
+                f"http:{request.method} {request.path}"
+            ):
+                response, rule = self._dispatch(request)
+        finally:
+            self._in_flight.labels(self.name).dec()
+        _tracing.export_trace(trace, service=self.name)
+        self._requests_total.labels(
+            self.name, rule, request.method, response.status_code
+        ).inc()
+        self._request_seconds.labels(self.name, rule, request.method).observe(
+            time.perf_counter() - started
+        )
+        response.headers[_tracing.CORRELATION_HEADER] = correlation_id
         if request.method == "HEAD":
             response.headers["Content-Length"] = str(len(response.data))
             response.data = b""
         return response
 
-    def _dispatch(self, request: Request) -> Response:
+    def _dispatch(self, request: Request) -> tuple[Response, str]:
+        """The answer and the matched rule (``<unmatched>`` if none): the
+        rule, not the path, labels the request counters."""
         matched = []
-        for _, pattern, methods, handler in self._routes:
+        for _, pattern, methods, handler, rule in self._routes:
             match = pattern.match(request.path)
             if match is None:
                 continue
@@ -218,7 +381,7 @@ class WebApp:
             matched.append(methods)
         else:
             if not matched:
-                return json_response({"result": "not_found"}, 404)
+                return json_response({"result": "not_found"}, 404), "<unmatched>"
             # werkzeug's Allow: the methods of the path's rules, gathered
             # into a set in its matcher's order, twice (its second pass
             # with slashes merged); the header lists the set as it iterates.
@@ -232,7 +395,11 @@ class WebApp:
                     allowed.update(methods)
             response = _error_page(405, "The method is not allowed for the requested URL.")
             response.headers["Allow"] = ", ".join(allowed)
-            return response
+            return response, "<unmatched>"
+        return self._answer(handler, request, match), rule
+
+    @staticmethod
+    def _answer(handler, request: Request, match) -> Response:
         try:
             result = handler(request, **match.groupdict())
         except HTTPError as error:

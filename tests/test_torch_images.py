@@ -89,7 +89,15 @@ def test_store_and_table_round_trip_as_the_reference():
     assert ours_vocab == theirs_vocab == {"label": ["no", "yes"]}  # sorted vocabulary
     np.testing.assert_array_equal(ours_encoded.matrix(), theirs_encoded.matrix())
     assert ours_encoded.matrix().dtype == np.float64
-    assert not hasattr(ColumnTable, "from_csv")
+    # a CSV read straight into a table: the same columns, types and nulls
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    for name in ("titanic_train.csv", "titanic_test.csv"):
+        ours = ColumnTable.from_csv(os.path.join(data, name))
+        theirs = JaxTable.from_csv(os.path.join(data, name))
+        assert ours.field_names == theirs.field_names
+        for field in ours.field_names:
+            assert ours.dtype_of(field) == theirs.dtype_of(field), field
+            np.testing.assert_array_equal(ours.columns[field], theirs.columns[field])
 
 
 def test_embedding_inputs_match_the_reference():

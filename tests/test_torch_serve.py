@@ -30,6 +30,7 @@ from learningorchestra_tpu.ml.trees import (  # noqa: E402
 )
 from learningorchestra_tpu.serve import ServePlane as JaxServePlane  # noqa: E402
 from learningorchestra_tpu.services import model_builder as jax_model_builder  # noqa: E402
+from learningorchestra_tpu_torch.core.store import InMemoryStore as PortStore  # noqa: E402
 from learningorchestra_tpu_torch.ml.checkpoint import (  # noqa: E402
     checkpoint_path,
     load_model,
@@ -204,7 +205,7 @@ def clients(models_dir):
         )
         port_plane = cpu_plane()
         port_app = model_builder.create_app(
-            models_dir=models_dir, serve=port_plane, device="cpu"
+            PortStore(), models_dir=models_dir, serve=port_plane, device="cpu"
         )
     yield jax_app.test_client(), port_app.test_client()
     jax_plane.close()
@@ -322,7 +323,7 @@ def test_methods_and_error_pages_answer_as_the_jax_app_over_a_socket(models_dir)
         jax_model_builder.create_app(InMemoryStore(), models_dir=models_dir, serve=jax_plane),
         "127.0.0.1", 0,
     ).start()
-    ours = ServerThread(model_builder.create_app(models_dir=models_dir, serve=port_plane, device="cpu")).start()
+    ours = ServerThread(model_builder.create_app(PortStore(), models_dir=models_dir, serve=port_plane, device="cpu")).start()
     try:
         for method, path in SERVE_METHOD_CASES:
             want = answer(theirs.port, method, path)
@@ -342,7 +343,7 @@ def test_create_app_without_a_device_needs_cuda(models_dir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        model_builder.create_app(models_dir=models_dir)
+        model_builder.create_app(PortStore(), models_dir=models_dir)
 
 
 def test_port_checkpoint_served_by_the_port_app(models_dir, tmp_path):
@@ -357,7 +358,7 @@ def test_port_checkpoint_served_by_the_port_app(models_dir, tmp_path):
     plane = cpu_plane()
     try:
         client = model_builder.create_app(
-            models_dir=str(tmp_path), serve=plane, device="cpu"
+            PortStore(), models_dir=str(tmp_path), serve=plane, device="cpu"
         ).test_client()
         answer = client.post("/models/eye/predict", json={"rows": [[2.0, 1.0, 0, 0, 0, 0]]})
         assert answer.status_code == 200

@@ -5,10 +5,9 @@ The copy differs from ``learningorchestra_tpu/core/store.py`` only in its
 imports, so the reference's own tests hold it: the Mongo-contract
 queries, the columnar blocks, the WAL and its replay, compaction,
 replication (``wal_feed``, resync) and spill to disk. Their source is
-read and run here with the store's module path pointed at the port's.
-Left out are the three tests that go through modules the port has not
-copied yet (``core/jobs.py``, ``core/ingest.py``): they come with the
-builder and ingest slices.
+read and run here with the store's module path pointed at the port's,
+and so are the job manager's and the ingest's (``core/jobs.py``,
+``core/ingest.py``), which three of the tests go through.
 """
 
 import pathlib
@@ -18,18 +17,12 @@ import pytest
 from learningorchestra_tpu_torch.core import store as port_store
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_core_store.py")
-NOT_PORTED = (
-    "test_job_manager_rejects_active_duplicate_name",   # core/jobs.py
-    "test_ingest_claim_shares_create_collection_gate",  # core/ingest.py
-    "test_ingest_csv_with_id_header_column",            # core/ingest.py
-)
-
-_source = REFERENCE_TESTS.read_text().replace(
-    "learningorchestra_tpu.core.store", "learningorchestra_tpu_torch.core.store"
-)
+_source = REFERENCE_TESTS.read_text()
+for _module in ("store", "jobs", "ingest"):
+    _source = _source.replace(
+        f"learningorchestra_tpu.core.{_module}", f"learningorchestra_tpu_torch.core.{_module}"
+    )
 exec(compile(_source, str(REFERENCE_TESTS), "exec"), globals())  # noqa: S102
-for _name in NOT_PORTED:
-    del globals()[_name]
 
 
 @pytest.fixture()
