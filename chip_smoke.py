@@ -1,6 +1,8 @@
 """Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits,
-its PCA and t-SNE image lane, its sweeps and job coalescing and its
-model builder (``POST /models``) on one CUDA card.
+its PCA and t-SNE image lane, its sweeps and job coalescing, its model
+builder (``POST /models``) and its whole service stack (crash resume, the
+data services, ``POST /models/sweep``, the runner's kill -9 drill) on one
+CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -8,6 +10,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py fit-kernels fit  # device, build and the named phases
     python3 chip_smoke.py sweep            # the sweeps and the coalescer alone
     python3 chip_smoke.py models           # the builds alone
+    python3 chip_smoke.py stack            # resume, the services, sweeps, the kill -9 drill
 
 Phases, one JSON line each:
 
@@ -184,6 +187,36 @@ Phases, one JSON line each:
                  each classifier's phases (fit, checkpoint, evaluate,
                  write), the build's load_data and preprocess spans, its
                  wall and the plain-version build's.
+11. stack      — the whole stack in one process, ``device=None``: (a) gb
+                 and lr fits at 1,000,000 x 16 with a progress sink bound,
+                 cut into 5 chunks of 4 rounds and 10 segments of 10
+                 iterations (``LO_PROGRAM_ROW_STEPS`` 0.1, lr at tol 0),
+                 stopped by the ``fit.segment`` fault after their first
+                 saved segment and resumed from the artifact: each resumed
+                 model bit-equal to an uninterrupted fit's, the segments
+                 skipped counted, K1-K5 or K7 launched in the resumed
+                 part. (b) The runner's ``start_all(ephemeral=True)`` over
+                 a WAL store in a temporary directory, over HTTP: the
+                 Titanic walkthrough (``POST /files`` of tests/data's
+                 CSVs, projections, field types, a histogram, an async
+                 five-classifier build with the documented preprocessor),
+                 its metrics equal to ``build_model``'s on the same
+                 collections; ``POST /models/sweep`` with the 100-point λ
+                 grid and the dt depth grid {2, 5, 8} on bench.py's
+                 product collections, the points bit-equal to a direct
+                 ``run_sweep``, the winner's checkpoint answering
+                 ``/models/<sweep_name>/predict`` with ``load_model``'s
+                 labels, launches of K7, K1-K6 and K9 counted. (c) The
+                 kill -9 drill: ``python -m
+                 learningorchestra_tpu_torch.services.runner`` as a child
+                 on the card, a 20,000-row CSV ingested and an async
+                 five-classifier build with every builder phase delayed,
+                 SIGKILL once a fit's segment is journaled, a restart on
+                 the same data directory: the build finishes under its
+                 name with every classifier's metrics equal to an
+                 uninterrupted build's, ``/metrics`` shows segments
+                 skipped and a resumed job, and every ingested row is
+                 there. Prints each wall.
 
 Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -3950,8 +3983,9 @@ def documented_preprocessor() -> str:
 def titanic_store(folder: str):
     """``tests/data``'s Titanic CSVs (891 and 418 rows) in the port's
     store as the golden flow reads them: projected to its field set (on
-    the CSV: the projection service is not ported yet), through
-    ``ingest_csv``, then ``convert_field_types``."""
+    the CSV, so that this phase stays the builder's alone: the ``stack``
+    phase runs the projection service), through ``ingest_csv``, then
+    ``convert_field_types``."""
     import csv
 
     from learningorchestra_tpu_torch.core.ingest import ingest_csv, write_ingest_metadata
@@ -3973,13 +4007,14 @@ def titanic_store(folder: str):
     return store
 
 
-def product_store():
+def product_store(store=None):
     """bench.py's product-path collections: its synthetic rows' first
     100,000 (16 features + label) written to ``bench_train`` and
-    ``bench_test`` as its ``bench_product`` writes them."""
+    ``bench_test`` as its ``bench_product`` writes them (into ``store``,
+    else a new one)."""
     X, y = bench_synthetic(FIT_ROWS)
     X, y = X[:PRODUCT_ROWS], y[:PRODUCT_ROWS]
-    store = InMemoryStore()
+    store = InMemoryStore() if store is None else store
     for name in ("bench_train", "bench_test"):
         store.create_collection(name)
         store.insert_one(name, {
@@ -4235,6 +4270,473 @@ def phase_models(torch, card: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# The whole stack: crash resume, the services, sweeps over REST, kill -9
+# --------------------------------------------------------------------------
+
+# LO_PROGRAM_ROW_STEPS for the in-process resume: at 1,000,000 x 16, gb's
+# 20 rounds in 5 chunks of 4 and lr's 100 iterations (tol 0, no plateau
+# stop) in 10 segments of 10, so that a stop after the first saved
+# segment leaves most of each fit to the resumed run
+STACK_SEGMENT_SCALE = 0.1
+RESUME_KERNELS = {
+    "gbt": ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums"),
+    "logistic": ("logistic_loss_grad", "logistic_trial_losses"),
+}
+SWEEP_KERNELS = {
+    "lr": ("logistic_loss_grad", "logistic_trial_losses"),
+    "dt": ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums", "tree_ensemble_forward"),
+}
+TITANIC_TYPES = {field: "number" for field in TITANIC_NUMBERS}
+DRILL_ROWS = 20_000           # the kill -9 drill's CSV: bench.py's rows, its first 20,000
+DRILL_ROW_STEPS = "0.002"     # LO_PROGRAM_ROW_STEPS of the drill: gb 5 chunks, lr 10 segments
+DRILL_DELAY = "delay:0.5@100"  # every builder phase delayed, as tests/test_chaos.py delays it
+RUNNER_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.services.runner"]
+STACK_DEVICE = None           # every entry point's default: the CUDA card
+
+
+def _counter_value(name: str) -> float:
+    from learningorchestra_tpu_torch.telemetry.metrics import global_registry
+
+    return global_registry().counter(name, "probe").value()
+
+
+def _resume_fit(torch, kind: str, X: np.ndarray, y: np.ndarray, folder: str) -> dict:
+    """One fit stopped after its first saved segment and resumed: the
+    resumed model bit-equal to an uninterrupted fit, the segments skipped
+    counted, the fit's kernels launched in the resumed part."""
+    from learningorchestra_tpu_torch.device import resolve_device
+    from learningorchestra_tpu_torch.ml import builder, progress
+    from learningorchestra_tpu_torch.testing import faults
+
+    def fit():
+        if kind == "gbt":
+            model = trees.GBTClassifier(device=STACK_DEVICE).fit(X, y)
+            tensors = [model.features_heap, model.thresholds_heap, model.leaf_values]
+        else:
+            model = logistic.LogisticRegression(tol=0.0, device=STACK_DEVICE).fit(X, y)
+            tensors = [model.w, model.b]
+        torch.cuda.synchronize()
+        return model, tensors
+
+    started = time.perf_counter()
+    control, control_tensors = fit()
+    fit_s = time.perf_counter() - started
+    sink = progress.ProgressSink(
+        os.path.join(folder, f"{kind}.progress"), {"mesh": builder._device_key(resolve_device(STACK_DEVICE))}
+    )
+    faults.install("fit.segment", "error@1", where={"kind": kind})
+    try:
+        with progress.bind_sink(sink):
+            fit()
+    except faults.FaultInjected:
+        pass
+    else:
+        raise AssertionError(f"{kind}: the fit.segment fault never stopped the fit")
+    finally:
+        faults.reset()
+    saved_segment = sink.load(kind)[0]
+    skipped = _counter_value("lo_build_segments_skipped_total")
+    saved = _counter_value("lo_build_segments_saved_total")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    started = time.perf_counter()
+    with progress.bind_sink(sink):
+        resumed, resumed_tensors = fit()
+    resumed_s = time.perf_counter() - started
+    launches = kernels.launches()
+    skipped = _counter_value("lo_build_segments_skipped_total") - skipped
+    segments = saved_segment + _counter_value("lo_build_segments_saved_total") - saved
+    if saved_segment != 1 or skipped != 1 or segments < 3:
+        raise AssertionError(f"{kind}: saved {saved_segment}, skipped {skipped} of {segments} segments")
+    if not all(torch.equal(got, want) for got, want in zip(resumed_tensors, control_tensors)):
+        raise AssertionError(f"{kind}: the resumed fit is not bit-equal to the uninterrupted one")
+    if kind == "gbt" and resumed.f0 != control.f0:
+        raise AssertionError("gbt: the resumed fit's f0 differs")
+    idle = [name for name in RESUME_KERNELS[kind] if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"{kind}: the resumed part never launched {idle}")
+    return {
+        "segments": int(segments), "skipped": int(skipped), "fit_s": fit_s, "resumed_s": resumed_s,
+        "bit_equal": True,
+        "launches": {name: launches[name] for name in RESUME_KERNELS[kind]},
+    }
+
+
+def _service_clients(servers) -> dict:
+    from learningorchestra_tpu_torch.services.runner import SERVICES
+
+    names = {port: name for name, port in SERVICES.items()}
+    return {names[server.canonical_port]: _Client(server.port) for server in servers}
+
+
+def _timed(walls: dict, key: str, client, method: str, path: str, payload=None, expect=(200, 201)):
+    started = time.perf_counter()
+    status, answer = client.call(method, path, payload)
+    walls[key] = time.perf_counter() - started
+    if status not in expect:
+        raise AssertionError(f"{method} {path} answered {status} {answer}")
+    return answer
+
+
+def _ingest_over_rest(client, walls: dict, name: str, path: str) -> None:
+    started = time.perf_counter()
+    answer = _timed(walls, f"POST /files {name}", client, "POST", "/files",
+                    {"filename": name, "url": "file://" + path}, expect=(201,))
+    if answer != {"result": "file_created"}:
+        raise AssertionError(f"POST /files {name}: {answer}")
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        status, page = client.call("GET", f"/files/{name}?skip=0&limit=1&query={{}}")
+        if status == 200 and page["result"] and page["result"][0].get("finished"):
+            walls[f"ingest {name}"] = time.perf_counter() - started
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"the ingest of {name} never finished")
+
+
+def _stack_titanic(torch, clients: dict, store, folder: str, walls: dict) -> dict:
+    """The documented walkthrough over REST, then the same build through
+    ``build_model`` directly: equal metrics."""
+    from learningorchestra_tpu_torch.ml.builder import build_model
+
+    files = clients["database_api"]
+    for name in ("titanic_train", "titanic_test"):
+        _ingest_over_rest(files, walls, name, os.path.join(ROOT, "tests", "data", f"{name}.csv"))
+        fields = [field for field in TITANIC_FIELDS if name == "titanic_train" or field != "Survived"]
+        _timed(walls, f"POST /projections {name}", clients["projection"], "POST", f"/projections/{name}",
+               {"projection_filename": f"{name}_projection", "fields": fields}, expect=(201,))
+        types = {**TITANIC_TYPES, **({"Survived": "number"} if name == "titanic_train" else {})}
+        _timed(walls, f"PATCH /fieldtypes {name}", clients["data_type_handler"], "PATCH",
+               f"/fieldtypes/{name}_projection", types, expect=(200,))
+    _timed(walls, "POST /histograms", clients["histogram"], "POST", "/histograms/titanic_train_projection",
+           {"histogram_filename": "titanic_histogram", "fields": ["Sex", "Pclass"]}, expect=(201,))
+    histogram = store.find_one("titanic_histogram", {"_id": 1})
+    if sum(entry["count"] for entry in histogram["Sex"]) != 891:
+        raise AssertionError(f"the Sex histogram counts {histogram['Sex']}")
+    code = documented_preprocessor()
+    training, test = "titanic_train_projection", "titanic_test_projection"
+    job = f"build:{test}:{'+'.join(MODEL_NAMES)}"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    started = time.perf_counter()
+    answer = _timed(walls, "POST /models titanic (async)", clients["model_builder"], "POST", "/models",
+                    _build_body(training, test, code, True), expect=(201,))
+    while True:
+        status, waited = clients["model_builder"].call("GET", f"/jobs/{job}/wait?timeout=60")
+        if status != 200:
+            raise AssertionError(f"/wait answered {status} {waited}")
+        if waited["result"] != "timeout":
+            break
+    walls["build titanic (async, to finished)"] = time.perf_counter() - started
+    launches = kernels.launches()
+    if waited["result"]["state"] != "finished" or answer.get("job") != job:
+        raise AssertionError(f"the titanic build ended {waited['result']}")
+    missing = [name for name in BUILD_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the titanic build never launched {missing}")
+    over_rest = {
+        name: store.find_one(f"{test}_prediction_{name}", {"_id": 0}) for name in MODEL_NAMES
+    }
+    started = time.perf_counter()
+    direct = build_model(store, training, test, code, list(MODEL_NAMES), device=STACK_DEVICE,
+                         models_dir=os.path.join(folder, "direct_models"))
+    walls["build titanic (build_model)"] = time.perf_counter() - started
+    metrics = {}
+    for metadata in direct:
+        name = metadata["classificator"]
+        got = (over_rest[name]["accuracy"], over_rest[name]["F1"])
+        if got != (metadata["accuracy"], metadata["F1"]):
+            raise AssertionError(f"titanic {name}: REST {got}, build_model {(metadata['accuracy'], metadata['F1'])}")
+        metrics[name] = {"accuracy": got[0], "F1": got[1]}
+    return {"metrics": metrics, "launches": {name: launches[name] for name in BUILD_KERNELS}}
+
+
+@contextlib.contextmanager
+def _counting_job_metrics():
+    """Count the calls of K9 over a job axis (``evaluation.job_masked_metrics``
+    as the sweep module holds it)."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    calls = [0]
+    original = sweep.job_masked_metrics
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    sweep.job_masked_metrics = counted
+    try:
+        yield calls
+    finally:
+        sweep.job_masked_metrics = original
+
+
+def _stack_sweeps(torch, client, store, folder: str, walls: dict) -> dict:
+    """``POST /models/sweep`` over bench.py's product collections: the
+    points bit-equal to a direct ``run_sweep``, the winner served."""
+    from learningorchestra_tpu_torch.core.jobs import JobManager
+    from learningorchestra_tpu_torch.ml import sweep
+    from learningorchestra_tpu_torch.sched import Coalescer
+
+    X_rows = bench_synthetic(FIT_ROWS)[0][:PREDICT_ROWS]
+    grids = {
+        "lr": [{"reg_param": float(v)} for v in np.linspace(0.0, 1.0, SWEEP_POINTS)],
+        "dt": [{"max_depth": depth} for depth in SWEEP_DEPTHS],
+    }
+    results = {}
+    for kind, grid in grids.items():
+        body = {
+            "training_filename": "bench_train", "test_filename": "bench_test",
+            "preprocessor_code": PRODUCT_PREPROCESSOR, "classificator": kind, "grid": grid,
+            "sweep_name": f"product_{kind}_sweep",
+            **({"max_iter": SWEEP_MAX_ITER} if kind == "lr" else {}),
+        }
+        with _counting_job_metrics() as k9_calls:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            answer = _timed(walls, f"POST /models/sweep {kind}", client, "POST", "/models/sweep", body,
+                            expect=(201,))["result"]
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+        idle = [name for name in SWEEP_KERNELS[kind] if launches[name] == 0]
+        if idle or k9_calls[0] == 0:
+            raise AssertionError(f"{kind} sweep route never launched {idle} (K9 calls {k9_calls[0]})")
+        started = time.perf_counter()
+        direct = sweep.run_sweep(
+            store, {**body, "sweep_name": f"product_{kind}_direct"}, jobs=JobManager(),
+            coalescer=Coalescer(window_s=0.0), models_dir=os.path.join(folder, "direct_sweeps"),
+            device=STACK_DEVICE,
+        )
+        walls[f"run_sweep {kind} (direct)"] = time.perf_counter() - started
+        if answer["points"] != direct["points"] or answer["best"] != direct["best"]:
+            raise AssertionError(f"{kind} sweep: the route's points differ from run_sweep's")
+        expected = load_model(answer["model_checkpoint"], device=STACK_DEVICE).predict(X_rows).tolist()
+        status, predicted = client.call(
+            "POST", f"/models/{answer['model']}/predict", {"rows": X_rows.tolist()}
+        )
+        if status != 200 or predicted["result"]["predictions"] != expected:
+            raise AssertionError(f"{kind} sweep winner answered {status} {predicted}")
+        results[kind] = {
+            "points": len(answer["points"]), "best": answer["best"],
+            "best_accuracy": answer["points"][answer["best"]]["accuracy"],
+            "bit_equal_to_run_sweep": True,
+            "launches": {name: launches[name] for name in SWEEP_KERNELS[kind]}, "k9_calls": k9_calls[0],
+        }
+    return results
+
+
+class _RunnerChild:
+    """``python -m learningorchestra_tpu_torch.services.runner`` as a child
+    on the card, its output in a log file."""
+
+    def __init__(self, folder: str, log_name: str, extra_env: dict):
+        env = dict(os.environ)
+        env.update({
+            "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", ""),
+            "PYTHONUNBUFFERED": "1", "LO_EPHEMERAL": "1",
+            "LO_DATA_DIR": os.path.join(folder, "lo_data"),
+            "LO_MODELS_DIR": os.path.join(folder, "models"),
+            "LO_BUILD_WORKERS": "1", "LO_PROGRAM_ROW_STEPS": DRILL_ROW_STEPS,
+        })
+        env.pop("LO_FAULT_BUILDER_PHASE", None)
+        env.update(extra_env)
+        self.log_path = os.path.join(folder, log_name)
+        self.log = open(self.log_path, "w")
+        self.process = subprocess.Popen(
+            RUNNER_COMMAND,
+            env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT,
+        )
+        self.clients: dict = {}
+
+    def lines(self) -> list:
+        with open(self.log_path) as handle:
+            return handle.read().splitlines()
+
+    def wait_serving(self, timeout_s: float = 300) -> None:
+        import re
+
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            lines = self.lines()
+            if any("serving all services" in line for line in lines):
+                for line in lines:
+                    match = re.search(r"service (\w+) on [\d.]+:(\d+)", line)
+                    if match:
+                        self.clients[match.group(1)] = _Client(int(match.group(2)))
+                return
+            if self.process.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError("the runner never served:\n" + "\n".join(self.lines()[-40:]))
+
+    def stop(self) -> None:
+        if self.process.poll() is None:
+            self.process.terminate()
+            try:
+                self.process.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.process.kill()
+                self.process.wait(timeout=15)
+        self.log.close()
+
+
+def _metric_total(text: str, name: str) -> float:
+    total, seen = 0.0, False
+    for line in text.splitlines():
+        if line.startswith(name) and (line[len(name)] in " {"):
+            total += float(line.rsplit(" ", 1)[1])
+            seen = True
+    if not seen:
+        raise AssertionError(f"{name} missing from /metrics")
+    return total
+
+
+def _segment_journaled(client) -> bool:
+    skip = 0
+    while True:
+        status, page = client.call("GET", f"/files/__lo_jobs__?skip={skip}&limit=20&query={{}}")
+        if status != 200 or not page["result"]:
+            return False
+        if any(doc.get("event") == "progress" and doc.get("kind") == "segment" for doc in page["result"]):
+            return True
+        skip += len(page["result"])
+
+
+def _drill_metrics(client, name: str) -> "dict | None":
+    metrics = {}
+    for classifier in MODEL_NAMES:
+        status, page = client.call("GET", f"/files/{name}_prediction_{classifier}?skip=0&limit=1&query={{}}")
+        if status != 200 or not page["result"] or "accuracy" not in page["result"][0]:
+            return None
+        metrics[classifier] = (page["result"][0]["accuracy"], page["result"][0]["F1"])
+    return metrics
+
+
+def _drill_ingest(runner: "_RunnerChild", walls: dict, name: str, path: str) -> None:
+    _ingest_over_rest(runner.clients["database_api"], walls, name, path)
+    types = {f"f{i}": "number" for i in range(FEATURES)}
+    types["label"] = "number"
+    _timed(walls, f"PATCH /fieldtypes {name}", runner.clients["data_type_handler"], "PATCH",
+           f"/fieldtypes/{name}", types, expect=(200,))
+
+
+def _stack_drill(torch, folder: str, walls: dict) -> dict:
+    """kill -9 mid-build, restart on the same data directory, and the
+    build finishes with the metrics of an uninterrupted one."""
+    X, y = bench_synthetic(FIT_ROWS)
+    csv_path = os.path.join(folder, "drill.csv")
+    with open(csv_path, "w") as handle:
+        handle.write(",".join([f"f{i}" for i in range(FEATURES)] + ["label"]) + "\n")
+        for row, label in zip(X[:DRILL_ROWS], y[:DRILL_ROWS]):
+            handle.write(",".join(repr(float(v)) for v in row) + f",{int(label)}\n")
+    body = _build_body("drill", "drill", PRODUCT_PREPROCESSOR, True)
+    job = f"build:drill:{'+'.join(MODEL_NAMES)}"
+    first = _RunnerChild(folder, "first.log", {"LO_FAULT_BUILDER_PHASE": DRILL_DELAY})
+    second = None
+    try:
+        started = time.perf_counter()
+        first.wait_serving()
+        walls["drill boot"] = time.perf_counter() - started
+        _drill_ingest(first, walls, "drill", csv_path)
+        answer = _timed(walls, "POST /models drill (async)", first.clients["model_builder"], "POST",
+                        "/models", body, expect=(201,))
+        if answer.get("job") != job:
+            raise AssertionError(f"the drill build answered {answer}")
+        deadline = time.time() + 300
+        while not _segment_journaled(first.clients["database_api"]):
+            if time.time() > deadline:
+                raise AssertionError("no segment progress was ever journaled")
+            time.sleep(0.05)
+        first.process.kill()   # SIGKILL
+        first.process.wait(timeout=30)
+        if first.process.returncode != -9:
+            raise AssertionError(f"the runner ended {first.process.returncode}, not by SIGKILL")
+        restarted = time.perf_counter()
+        second = _RunnerChild(folder, "second.log", {})
+        second.wait_serving()
+        walls["drill restart to serving"] = time.perf_counter() - restarted
+        if not any("job recovery: 1 re-enqueued" in line for line in second.lines()):
+            raise AssertionError("the restarted runner re-enqueued nothing:\n" + "\n".join(second.lines()))
+        files = second.clients["database_api"]
+        deadline = time.time() + 600
+        while True:
+            status, record = second.clients["model_builder"].call("GET", f"/jobs/{job}")
+            if status == 200 and record["result"]["state"] in ("finished", "failed", "cancelled"):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"the resumed build never ended: {status} {record}")
+            time.sleep(0.1)
+        walls["drill restart to finished"] = time.perf_counter() - restarted
+        if record["result"]["state"] != "finished":
+            raise AssertionError(f"the resumed build ended {record['result']}")
+        resumed = _drill_metrics(files, "drill")
+        status, page = files.call("GET", f"/files/drill?skip={DRILL_ROWS}&limit=20&query={{}}")
+        if status != 200 or [doc["_id"] for doc in page["result"]] != [DRILL_ROWS]:
+            raise AssertionError(f"the drill collection lost rows: {status} {page}")
+        metrics_text = files.opener.open(files.base + "/metrics", timeout=60).read().decode()
+        skipped = _metric_total(metrics_text, "lo_build_segments_skipped_total")
+        resumed_jobs = _metric_total(metrics_text, "lo_sched_resumed_total")
+        if skipped < 1 or resumed_jobs < 1:
+            raise AssertionError(f"segments skipped {skipped}, jobs resumed {resumed_jobs}")
+        _drill_ingest(second, walls, "drill_ctl", csv_path)
+        started = time.perf_counter()
+        _timed(walls, "POST /models drill_ctl (sync)", second.clients["model_builder"], "POST", "/models",
+               _build_body("drill_ctl", "drill_ctl", PRODUCT_PREPROCESSOR, False), expect=(201,))
+        control = _drill_metrics(files, "drill_ctl")
+        if resumed != control:
+            raise AssertionError(f"resumed metrics {resumed}, uninterrupted {control}")
+        return {
+            "rows": DRILL_ROWS, "segments_skipped": skipped, "jobs_resumed": resumed_jobs,
+            "metrics": {name: {"accuracy": a, "F1": f} for name, (a, f) in resumed.items()},
+            "equal_to_uninterrupted": True, "rows_kept": DRILL_ROWS,
+        }
+    finally:
+        first.stop()
+        if second is not None:
+            second.stop()
+
+
+def phase_stack(torch, card: str) -> dict:
+    """Crash resume in process on the kernels, the runner's stack over
+    HTTP (the Titanic walkthrough, the sweep routes), and the kill -9
+    drill on a child runner; ``device=None`` throughout."""
+    from learningorchestra_tpu_torch.ml import base
+    from learningorchestra_tpu_torch.services.runner import start_all
+
+    record = {"phase": "stack", "nvidia_smi": card}
+    walls: dict = {}
+    with tempfile.TemporaryDirectory() as folder:
+        X, y = bench_synthetic(FIT_ROWS)
+        scale, base._PROGRAM_BUDGET_SCALE = base._PROGRAM_BUDGET_SCALE, STACK_SEGMENT_SCALE
+        try:
+            record["resume"] = {kind: _resume_fit(torch, kind, X, y, folder) for kind in ("gbt", "logistic")}
+        finally:
+            base._PROGRAM_BUDGET_SCALE = scale
+        del X, y
+        store = InMemoryStore(data_dir=os.path.join(folder, "lo_data"))
+        started = time.perf_counter()
+        _, servers = start_all(
+            store, os.path.join(folder, "images"), ephemeral=True, models_dir=os.path.join(folder, "models"),
+            device=STACK_DEVICE,
+        )
+        walls["start_all"] = time.perf_counter() - started
+        try:
+            clients = _service_clients(servers)
+            record["titanic"] = _stack_titanic(torch, clients, store, folder, walls)
+            started = time.perf_counter()
+            product_store(store)
+            walls["product collections"] = time.perf_counter() - started
+            record["sweeps"] = _stack_sweeps(torch, clients["model_builder"], store, folder, walls)
+        finally:
+            for server in servers:
+                server.stop()
+        record["drill"] = _stack_drill(torch, folder, walls)
+    record["walls_s"] = walls
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -4253,7 +4755,7 @@ def check_bounds(summary) -> None:
                     )
 
 
-PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models")
+PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack")
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
 NO_LIBRARY = {
@@ -4380,6 +4882,8 @@ def main(argv) -> int:
             })
     if "models" in wanted:
         phase_models(torch, device["card"])
+    if "stack" in wanted:
+        phase_stack(torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})

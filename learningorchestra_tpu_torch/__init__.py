@@ -5,10 +5,13 @@ JAX package is the reference: each module here keeps its counterpart's
 name and public names, and tier-1 tests hold the two against each other
 on the CPU.
 
-Ported so far: the online predict lane — ``.model`` checkpoints of all
-four kinds, the serving registry and micro-batcher, and
-``POST /models/<name>/predict`` over a stdlib HTTP server. The tree
-forward runs as a hand-written CUDA kernel (``kernels/csrc``).
+Ported so far: the whole service stack in one process
+(``services.runner``: the data services, the model builder with its
+sweeps and the predict lane, the PCA and t-SNE image lane), its job
+scheduler with a journal and crash recovery, the five classifiers' fits
+with segment-granular resume, and ``.model`` checkpoints either package
+reads. The device programs on those paths run as hand-written CUDA
+kernels (``kernels/csrc``) beside their plain PyTorch versions.
 
 Rules that hold for every module:
 

@@ -1,9 +1,9 @@
-"""Core: the document store and columnar tables.
+"""Core: the document store, columnar tables, ingest and jobs.
 
-``columns.py`` and ``store.py`` are copies of the JAX package's modules of
-the same names with only their imports rewritten; ``table.py`` is its
-``table.py`` less the CSV loader; ``devcache.py`` holds the two dataset
-readers the image lane needs, uncached.
+``columns.py``, ``store.py`` and ``jobs.py`` are copies of the JAX
+package's modules of the same names with only their imports rewritten;
+``table.py`` and ``ingest.py`` parse CSVs with the reference's Python
+path; ``devcache.py`` holds uncached dataset readers.
 """
 
 from learningorchestra_tpu_torch.core.store import (  # noqa: F401

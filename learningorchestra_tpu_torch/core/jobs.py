@@ -17,13 +17,12 @@ The manager owns no thread pool: :meth:`JobManager.submit` admits work
 into the scheduler's class-aware priority queue (device-bound jobs run
 one at a time on the card; host-bound jobs at ``LO_JOB_WORKERS``) and
 this module executes what the scheduler admits, with transient-failure
-retries under seeded backoff, per-job deadlines and cooperative
-cancellation (``DELETE /jobs/<name>``).
+retries under seeded backoff, per-job deadlines, cooperative
+cancellation (``DELETE /jobs/<name>``) and a durable journal
+(``sched/journal.py``) the next process replays after a crash
+(``sched/recovery.py``).
 
-The port's copy of ``learningorchestra_tpu/core/jobs.py`` less the job
-journal (its ``replay`` lineage, the ``journaled`` flag and
-``JobHandle.progress``): the port has no ``sched/journal.py`` yet, so
-no job survives a restart.
+The port's copy of ``learningorchestra_tpu/core/jobs.py``.
 """
 
 from __future__ import annotations
@@ -91,6 +90,11 @@ class JobRecord:
     # the terminal exception object, re-raised by run_sync so the
     # synchronous REST surface keeps reference-parity 500 bodies
     exception: Optional[BaseException] = field(default=None, repr=False)
+    # journal this job's lifecycle? Ephemeral synchronous work (no
+    # replay op, no tracked collection, a waiter who sees the failure
+    # directly) skips the journal: 3+ store writes per request with
+    # zero recovery value would grow __lo_jobs__ for nothing.
+    journaled: bool = field(default=True, repr=False)
     # the dataset this job materialises (the filename clients know).
     # GET /jobs/<name>/wait resolves a bare filename through this, so
     # a client that only knows "titanic" finds "ingest:titanic".
@@ -129,12 +133,12 @@ class JobRecord:
 
 
 class JobHandle:
-    """The running job's back-channel to its own record.
+    """The running job's back-channel to its own record and journal.
 
     Bound by the worker around ``fn`` (:func:`current_job_handle`), so
     deep work — the model builder, several layers below the JobManager —
-    can attach structured detail without threading the manager through
-    every signature. NOTE: contextvars do
+    can attach structured detail and journal ``progress`` events without
+    threading the manager through every signature. NOTE: contextvars do
     not cross thread-pool boundaries; work that fans out (the builder's
     per-classifier pool) must capture the handle once at entry and pass
     it explicitly.
@@ -155,6 +159,12 @@ class JobHandle:
         merged = dict(self._record.detail or {})
         merged.update(detail)
         self._record.detail = merged
+
+    def progress(self, **fields) -> None:
+        """Append a durable ``progress`` event to the job journal —
+        best-effort, like every journal write; recovery folds these
+        into the resume payload for an orphaned RUNNING job."""
+        self._manager._journal_event(self._record, "progress", **fields)
 
 
 _JOB_HANDLE: contextvars.ContextVar[Optional[JobHandle]] = (
@@ -217,6 +227,10 @@ class JobManager:
     def scheduler(self) -> Scheduler:
         return self._scheduler
 
+    @property
+    def journal(self):
+        return self._scheduler.journal
+
     def submit(
         self,
         name: str,
@@ -227,13 +241,16 @@ class JobManager:
         job_class: str = HOST_CLASS,
         priority: int = 0,
         timeout: Optional[float] = None,
+        replay: Optional[tuple[str, dict]] = None,
         token: Optional[CancelToken] = None,
         **kwargs,
     ) -> JobRecord:
         """Admit ``fn`` into ``job_class``'s queue. If ``store``/
         ``collection`` are given, a terminal failure marks that
         dataset's metadata ``finished: true`` with an ``error`` field so
-        pollers terminate instead of hanging. ``token``
+        pollers terminate instead of hanging. ``replay=(op, payload)``
+        journals enough lineage for a restarted process to re-enqueue
+        the job if it never started (sched/recovery.py). ``token``
         injects a caller-held :class:`CancelToken` — the coalescing
         stage needs the token visible on the member BEFORE the task
         exists, so a leader can mask a cancelled member out of its
@@ -252,6 +269,7 @@ class JobManager:
             job_class,
             priority,
             timeout,
+            replay,
             token=token,
         )
         return record
@@ -267,11 +285,14 @@ class JobManager:
         job_class: str,
         priority: int,
         timeout: Optional[float],
+        replay: Optional[tuple[str, dict]],
         keep_exception: bool = False,
+        journaled: bool = True,
         token: Optional[CancelToken] = None,
     ) -> tuple[JobRecord, threading.Event]:
-        # cheap rejection first (enqueue below still closes the admit
-        # race authoritatively)
+        # Cheap rejection first: a flood past the cap must not pay the
+        # journal's store writes per rejected request (enqueue below
+        # still closes the admit race authoritatively).
         self._scheduler.check_admission(job_class)
         if timeout is None:
             timeout = self._default_timeout_s
@@ -281,10 +302,12 @@ class JobManager:
             )
         elif token.deadline is None and timeout:
             token.deadline = time.monotonic() + timeout
+        op, payload = replay if replay is not None else (None, None)
         record = JobRecord(
             name=name,
             job_class=job_class,
             priority=priority,
+            journaled=journaled,
             collection=collection,
             trace=_tracing.Trace(
                 # a job submitted from a REST handler inherits the
@@ -322,14 +345,26 @@ class JobManager:
             self._jobs[name] = record
             self._events[name] = done
             self._tasks[name] = task
+        self._journal_event(
+            record,
+            "submitted",
+            job_class=job_class,
+            priority=priority,
+            op=op,
+            payload=payload,
+            collection=collection,
+            cid=record.correlation_id,
+        )
         try:
             self._scheduler.enqueue(task)
         except QueueFullError:
+            self._journal_event(record, "rejected")
             # Deliberate two-phase publish (register → enqueue →
             # rollback on rejection): the identity check makes the
             # rollback surgical, and the worst interleaving is a
-            # cancel() 202-ing a job that was never admitted.
-            with self._lock:
+            # cancel() 202-ing a job that was never admitted — the
+            # journal's "rejected" event is the durable truth.
+            with self._lock:  # lo: allow[LO205]
                 if self._jobs.get(name) is record:
                     del self._jobs[name]
                     self._events.pop(name, None)
@@ -349,6 +384,7 @@ class JobManager:
         job_class: str = HOST_CLASS,
         priority: int = 0,
         timeout: Optional[float] = None,
+        replay: Optional[tuple[str, dict]] = None,
         token: Optional[CancelToken] = None,
         **kwargs,
     ) -> JobRecord:
@@ -368,8 +404,13 @@ class JobManager:
             job_class,
             priority,
             timeout,
+            replay,
             keep_exception=True,
             token=token,
+            # the caller waits and sees the failure directly; without a
+            # replay op or a polled collection the journal could only
+            # ever mark this 'orphaned' at restart — skip the writes
+            journaled=replay is not None or collection is not None,
         )
         # the event captured at registration, NOT re-read by name: a
         # terminal job's name is reusable, and a lookup could pair this
@@ -416,6 +457,11 @@ class JobManager:
             self._events.pop(name, None)
             self._tasks.pop(name, None)
             self._done_callbacks.pop(name, None)
+
+    def _journal_event(self, record: JobRecord, event: str, **fields) -> None:
+        journal = self._scheduler.journal
+        if journal is not None and record.journaled:
+            journal.append(record.name, event, **fields)
 
     def _execute(
         self,
@@ -466,8 +512,8 @@ class JobManager:
                 self._cancelled_total.inc()
 
         try:
-            # expired or cancelled while QUEUED: terminal without
-            # counting an attempt
+            # expired or cancelled while QUEUED: terminal without ever
+            # journaling "started" or counting an attempt
             task.token.check()
         except JobCancelledError as interruption:  # incl. JobTimeoutError
             finalize_interrupted(interruption)
@@ -476,6 +522,7 @@ class JobManager:
         record.started_at = record.started_at or time.time()
         record.attempts = task.attempt
         self._jobs_running.inc()
+        self._journal_event(record, "started", attempt=task.attempt)
         error: Optional[BaseException] = None
         handle_token = _JOB_HANDLE.set(JobHandle(self, record))
         try:
@@ -513,6 +560,13 @@ class JobManager:
                 f"{type(error).__name__}: {error} "
                 f"(attempt {task.attempt}/{self._retry_budget}, "
                 f"retrying in {delay:.2f}s)"
+            )
+            self._journal_event(
+                record,
+                "retry",
+                attempt=task.attempt,
+                delay_s=round(delay, 3),
+                error=record.error,
             )
             return delay
         traceback.print_exception(type(error), error, error.__traceback__)
@@ -566,6 +620,7 @@ class JobManager:
                     )
                 except Exception:  # noqa: BLE001
                     traceback.print_exc()
+            self._journal_event(record, state, error=error)
             if record.trace is not None:
                 # cross-process stitching: the job's span tree (cid
                 # inherited from the submitting request) joins the

@@ -13,9 +13,14 @@ stream, so the fits' kernels queue one after another there while the
 threads overlap their host work (thresholds, scaler, preprocessing
 copies). ``device=None`` means CUDA and raises without a card.
 
-Not ported yet: crash resume (the progress sink, ``resume`` and
-``on_durable``), the multi-process fan-out, the publish-time serve
-warmup and the CPU rendezvous guard (JAX's own).
+Crash resume: ``build_model(resume=...)`` takes the journaled
+``progress`` events recovery hands a re-enqueued build
+(sched/recovery.py): finished members are skipped, failed ones stay
+failed, the rest refit, each fit picking up its own progress artifact
+(ml/progress.py) beside the checkpoints.
+
+Not ported yet: the multi-process fan-out, the publish-time serve warmup
+and the CPU rendezvous guard (JAX's own).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import os
 import threading
 import traceback
 from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,8 +41,10 @@ from learningorchestra_tpu_torch.core.table import insert_columns_batched
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 from learningorchestra_tpu_torch.frame.dataframe import DataFrame
 from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES, make_classifier
 from learningorchestra_tpu_torch.sched import cancel as _cancel
+from learningorchestra_tpu_torch.sched import config as _sched_config
 from learningorchestra_tpu_torch.sched.cancel import JobCancelledError, check_cancelled
 from learningorchestra_tpu_torch.telemetry import tracing as _tracing
 from learningorchestra_tpu_torch.testing import faults as _faults
@@ -156,6 +163,8 @@ def train_one(
     device: DeviceLike = None,
     models_dir: Optional[str] = None,
     writer: Optional[PredictionWriter] = None,
+    sink: Optional[_progress.ProgressSink] = None,
+    on_durable: Optional[Callable[[dict], None]] = None,
 ) -> dict:
     """Fit + evaluate + persist one classifier (the reference's
     ``classificator_handler``, model_builder.py:178-230). Returns the
@@ -165,7 +174,14 @@ def train_one(
 
     ``models_dir`` (or ``LO_MODELS_DIR``) persists the fitted model as a
     ``.model`` checkpoint named after the prediction collection, recorded
-    in the metadata as ``model_checkpoint``."""
+    in the metadata as ``model_checkpoint``.
+
+    ``sink`` makes the fit crash-resumable: it is bound as the ambient
+    progress sink around the fit, so the segment loops persist progress
+    artifacts (ml/progress.py). ``on_durable(metadata)`` fires once this
+    classifier's outputs have durably landed (after the metadata insert,
+    on the writer thread when writes overlap); build_model journals the
+    member's completion there."""
     device = resolve_device(device)
     output_name = f"{prediction_filename}_prediction_{classificator_name}"
     metadata = {
@@ -186,7 +202,8 @@ def train_one(
         "builder.phase", phase="fit", classificator=classificator_name
     )
     with timer.phase("fit", rows=len(X_train), dtype=dtype_policy()):
-        model = classifier.fit(X_train, y_train)
+        with _progress.bind_sink(sink):
+            model = classifier.fit(X_train, y_train)
         # the fit's kernels run asynchronously: wait for them inside the
         # phase, or "evaluate" would report the fit's tail
         if device.type == "cuda":
@@ -247,6 +264,7 @@ def train_one(
         device,
         prediction=prediction,
         writer=writer,
+        on_durable=on_durable,
     )
 
 
@@ -260,6 +278,7 @@ def _predict_and_write(
     device: torch.device,
     prediction: Optional[tuple] = None,
     writer: Optional[PredictionWriter] = None,
+    on_durable: Optional[Callable[[dict], None]] = None,
 ) -> dict:
     """Predict over the test frame and persist the prediction collection
     and its metadata document (no ``finished`` flag, as in the reference,
@@ -298,6 +317,10 @@ def _predict_and_write(
             insert_columns_batched(store, output_name, columns)
         metadata["timings"] = timer.as_metadata()
         store.insert_one(output_name, metadata)
+        # the metadata document is the durability proof (it lands after
+        # the rows): only now is this member's completion journal-worthy
+        if on_durable is not None:
+            on_durable(metadata)
 
     if writer is None:
         flush()
@@ -331,6 +354,38 @@ def _alias_if_equal(
     return features_evaluation
 
 
+class _ResumedMemberFailure(RuntimeError):
+    """A classifier the pre-crash run already journaled as permanently
+    failed: the resumed build records the original error without
+    re-running the member."""
+
+
+def _fold_resume(resume: Optional[list]) -> dict[str, dict]:
+    """Journaled ``progress`` events → per-classifier terminal status.
+    Later events win (a ``failed`` member re-journaled ``finished`` by
+    a later resume attempt is finished). Segment events carry no
+    ``status`` and fold to nothing — the fits read their own progress
+    artifacts, which hold strictly more than the journal line."""
+    done: dict[str, dict] = {}
+    for event in resume or []:
+        name = event.get("classificator")
+        status = event.get("status")
+        if name and status in ("finished", "failed"):
+            done[name] = {"status": status, "error": event.get("error")}
+    return done
+
+
+def _device_key(device: torch.device) -> str:
+    """The progress artifact's layout component (the reference's mesh
+    signature, ``_mesh_key``): the device type, and the card's name on
+    CUDA. A fit saved on the CPU's plain versions and resumed on the
+    card's kernels (or the other way round) would be bit-identical to
+    neither run, so such an artifact is refused and the fit restarts."""
+    if device.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(device)}"
+    return device.type
+
+
 def build_model(
     store: DocumentStore,
     training_filename: str,
@@ -339,11 +394,19 @@ def build_model(
     classificators_list: list[str],
     device: DeviceLike = None,
     models_dir: Optional[str] = None,
+    resume: Optional[list] = None,
 ) -> list[dict]:
     """The reference's ``build_model`` (model_builder.py:133-176):
     preprocess once, then one thread per classifier, at most
     ``LO_BUILD_WORKERS`` at a time. Returns the metadata documents of the
-    classifiers that succeeded (see :func:`_collect_outcomes`)."""
+    classifiers that succeeded (see :func:`_collect_outcomes`).
+
+    ``resume`` is the journaled ``progress`` event list recovery hands
+    a re-enqueued build (sched/recovery.py): classifiers it records as
+    durably finished are skipped (their stored metadata is returned),
+    ones it records as permanently failed stay failed without a re-run,
+    and everything else refits — each fit picking up its own progress
+    artifact, so only the remaining segments run."""
     unknown = [n for n in classificators_list if n not in CLASSIFIER_NAMES]
     if unknown:
         raise KeyError(f"invalid classificator names {unknown}")
@@ -391,6 +454,39 @@ def build_model(
         except OSError:  # unwritable/full trace volume: run untraced
             _TRACE_LOCK.release()
             tracing = False
+    # Crash resume needs a durable home for progress artifacts: beside
+    # the model checkpoints. Resolve the env fallback here so the sink
+    # and train_one agree on one directory.
+    if models_dir is None:
+        models_dir = os.environ.get("LO_MODELS_DIR")
+    make_sink: Optional[Callable] = None
+    if models_dir and _sched_config.resume_enabled():
+        # the validation key: an artifact resumes only against the same
+        # input content, dtype policy and device that produced it.
+        # Content fingerprints, not collection revs: revs reseed per
+        # boot, and the restarted process needs the artifact to validate
+        sink_meta = {
+            "training_fp": _progress.collection_fingerprint(store, training_filename),
+            "test_fp": _progress.collection_fingerprint(store, test_filename),
+            "dtype_policy": dtype_policy(),
+            "mesh": _device_key(device),
+        }
+        every = _sched_config.resume_every_segments()
+        os.makedirs(models_dir, exist_ok=True)
+
+        def make_sink(name: str) -> _progress.ProgressSink:
+            output_name = f"{test_filename}_prediction_{name}"
+            on_segment = None
+            if handle is not None:
+                def on_segment(seg: int, _name=name) -> None:
+                    handle.progress(classificator=_name, kind="segment", segment=seg)
+            return _progress.ProgressSink(
+                _progress.progress_path(models_dir, output_name),
+                dict(sink_meta),
+                every=every,
+                on_segment=on_segment,
+            )
+
     try:
         return _build_model_traced(
             store,
@@ -402,6 +498,8 @@ def build_model(
             max_workers,
             trace_dir,
             handle,
+            resume_done=_fold_resume(resume),
+            make_sink=make_sink,
         )
     finally:
         if tracing:
@@ -418,6 +516,8 @@ def _build_model_traced(
     max_workers,
     trace_dir,
     handle=None,
+    resume_done=None,
+    make_sink=None,
 ) -> list[dict]:
     # contextvars don't cross pool threads: hand each worker the ambient
     # (trace, span) so its train span nests under the request's trace,
@@ -427,12 +527,41 @@ def _build_model_traced(
     # LO_WRITE_OVERLAP=0 restores synchronous writes
     overlap = os.environ.get("LO_WRITE_OVERLAP", "1") != "0"
     writer = PredictionWriter() if overlap else None
+    resume_done = resume_done or {}
 
     def run_train(name: str) -> dict:
         with _tracing.attach(context), _cancel.bind(cancel_token):
             # a cancelled build stops launching classifiers: fits in
             # flight run to their own next check, queued ones never start
             check_cancelled()
+            sink = make_sink(name) if make_sink is not None else None
+            prior = resume_done.get(name)
+            if prior is not None and prior.get("status") == "failed":
+                # journaled as permanently failed before the crash:
+                # resume skips the member, keeping the original error
+                if sink is not None:
+                    sink.discard()
+                raise _ResumedMemberFailure(
+                    prior.get("error") or "failed before service restart"
+                )
+            if prior is not None and prior.get("status") == "finished":
+                stored = store.find_one(f"{test_filename}_prediction_{name}", {ROW_ID: 0})
+                if stored is not None:
+                    # durably completed before the crash (the journal
+                    # line lands only after the metadata insert): skip
+                    # the refit, return the stored outcome
+                    if sink is not None:
+                        sink.discard()
+                    return stored
+                # journaled finished but the outputs are gone (dropped
+                # collection): fall through and rebuild
+
+            def durable(metadata, _name=name, _sink=sink) -> None:
+                if handle is not None:
+                    handle.progress(classificator=_name, status="finished")
+                if _sink is not None:
+                    _sink.discard()
+
             with _tracing.span(f"train:{name}", classificator=name):
                 return train_one(
                     store,
@@ -444,6 +573,8 @@ def _build_model_traced(
                     device,
                     models_dir,
                     writer=writer,
+                    sink=sink,
+                    on_durable=durable,
                 )
 
     try:
@@ -477,7 +608,10 @@ def _collect_outcomes(
       failures raise one aggregate;
     - mixed → the successes return, the job FINISHES, and the record
       carries ``detail.result = "finished_partial"`` with a per-name
-      status map (GET /jobs/<name> and the /wait body show it)."""
+      status map (GET /jobs/<name> and the /wait body show it).
+
+    Failed members are journaled (``status="failed"``) so a resumed run
+    skips them instead of re-running a permanent failure."""
     succeeded: list[dict] = []
     errors: dict[str, BaseException] = {}
     cancelled: Optional[BaseException] = None
@@ -499,8 +633,12 @@ def _collect_outcomes(
         succeeded.append(result)
     if cancelled is not None:
         raise cancelled
-    for error in errors.values():
+    for name, error in errors.items():
+        if isinstance(error, _ResumedMemberFailure):
+            continue  # already journaled by the pre-crash run
         traceback.print_exception(type(error), error, error.__traceback__)
+        if handle is not None:
+            handle.progress(classificator=name, status="failed", error=_member_error(error))
     if not errors:
         return succeeded
     if not succeeded:
@@ -527,4 +665,6 @@ def _collect_outcomes(
 
 
 def _member_error(error: BaseException) -> str:
+    if isinstance(error, _ResumedMemberFailure):
+        return str(error)  # already formatted by the pre-crash run
     return f"{type(error).__name__}: {error}"

@@ -39,10 +39,10 @@ in the plain twin alike (as the tree fits' K2 and K5 do): the plain twin
 is the kernel's oracle on the card, and both sit closer to the exact sum
 than the reference's float32 reductions.
 
-Left for later slices: the resume sink (``ml/progress.py``, with the
-builder; ``_fit`` keeps the ``iters``, ``max_iter``, ``l2`` and
-``history`` its key needs) and ``fit_sharded`` with ``_masked_stats`` and
-``_standardize`` (:412-428, multi-GPU).
+``_fit`` saves and resumes its segments through the ambient progress
+sink (``ml/progress.py``), as the reference's does. Left for a later
+slice: ``fit_sharded`` with ``_masked_stats`` and ``_standardize``
+(:412-428, multi-GPU).
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ import torch
 
 from learningorchestra_tpu_torch import kernels
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
     infer_num_classes,
@@ -717,7 +718,17 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
     ``_LR_CHECK_ITERS`` for the convergence check), stopping at the top
     of a segment once the trailing losses plateau. Returns ``(W, b,
     losses)``: the losses of every iteration run, on the device. One host
-    copy a segment: its losses, for the plateau check."""
+    copy a segment: its losses, for the plateau check.
+
+    Crash resume (reference :341-405): a progress sink bound by
+    ``ml/builder.py`` (``ml/progress.py``) saves ``(params, opt_state)``
+    in the reference's leaf order (``checkpoint.LBFGS_LEAVES``), the
+    losses so far and the plateau window after each segment, and a fit
+    that finds a valid artifact re-enters the loop at its segment. The
+    artifact must match this call's segmentation (``iters``,
+    ``max_iter``, ``l2``) and every leaf's shape and dtype; anything else
+    restarts the fit clean. Each segment re-seeds ``value`` and ``grad``
+    at entry, so a resumed fit is bit-identical to an uninterrupted one."""
     if max_iter <= 0:  # MLlib allows maxIter=0: the initial model
         return W, b, W.new_zeros(0)
     iters = _segment_iters(max_iter, X.shape[0], X.shape[1], tol)
@@ -727,7 +738,33 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
     # ``history``); a plateau needs every delta in the window to be small
     history: list[float] = []
     window = _LR_STOP_DELTAS + 1
-    for _ in range(max_iter // iters):
+    total_segments = max_iter // iters
+    key = {"iters": iters, "max_iter": max_iter, "l2": float(l2)}
+    sink = _progress.current_sink()
+    start = 0
+    if sink is not None:
+        restored = sink.load("logistic")
+        if restored is not None:
+            done, arrays, scalars = restored
+            params = None
+            if (
+                all(scalars.get(name) == value for name, value in key.items())
+                and 0 < done <= total_segments
+                and len(arrays) >= 1
+            ):
+                params = _progress.device_restore(({"w": W, "b": b}, state), arrays[:-1])
+            if params is None:
+                sink.discard()
+            else:
+                (x, state), start = params, done
+                W, b = x["w"], x["b"]
+                losses.append(torch.tensor(np.asarray(arrays[-1], np.float32), device=W.device))
+                history.extend(float(v) for v in scalars.get("history") or [])
+                del history[:-window]
+                _progress.segments_skipped(done)
+    for index in range(start, total_segments):
+        # the plateau check at the top, so that a resumed fit that had
+        # already converged stops where the uninterrupted one did
         if tol > 0 and _plateaued(history, tol, window):
             break
         W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2)
@@ -735,6 +772,14 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
         if tol > 0:
             history.extend(float(v) for v in segment_losses.cpu().numpy())
             del history[:-window]
+        if sink is not None:
+            sink.save(
+                "logistic",
+                index + 1,
+                [leaf.cpu().numpy() for leaf in _progress.tree_leaves(({"w": W, "b": b}, state))]
+                + [torch.cat(losses).cpu().numpy()],
+                {**key, "history": list(history)},
+            )
     return W, b, torch.cat(losses)
 
 

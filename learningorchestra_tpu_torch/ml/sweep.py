@@ -1,8 +1,7 @@
 """Batched-fit entry points: many fits as ONE dispatch over a job axis.
 
-Counterpart of ``learningorchestra_tpu/ml/sweep.py``, less ``run_sweep``
-(the ``POST /models/sweep`` flow, which comes with the builder). Two
-workloads share this machinery:
+Counterpart of ``learningorchestra_tpu/ml/sweep.py``; :func:`run_sweep` is
+the ``POST /models/sweep`` flow. Two workloads share this machinery:
 
 - **Hyperparameter sweeps**: a λ grid over logistic regression or a
   depth grid over a decision tree, fitted as one program over the grid
@@ -49,7 +48,9 @@ one shape whatever the chunk holds.
 
 from __future__ import annotations
 
+import os
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
@@ -706,7 +707,7 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
 
 
 # --------------------------------------------------------------------------
-# Model reconstruction
+# Model reconstruction + the service-level sweep orchestration
 # --------------------------------------------------------------------------
 
 def model_from_params(params: dict, device: DeviceLike = None):
@@ -730,3 +731,102 @@ def model_from_params(params: dict, device: DeviceLike = None):
         on_device(params["leaf_probs"])[None],
         params["max_depth"],
     )
+
+
+def run_sweep(
+    store,
+    body: dict,
+    *,
+    jobs,
+    coalescer,
+    models_dir: Optional[str] = None,
+    device: DeviceLike = None,
+) -> dict:
+    """The ``POST /models/sweep`` flow (reference ``ml/sweep.py:551``):
+    prep on the request thread, ONE coalescible device job for the whole
+    grid (concurrent sweeps with compatible shapes fuse), the argmax
+    checkpoint published atomically, per-point metrics persisted as
+    collection ``sweep_name``.
+
+    Raises whatever the member job raises (the route maps
+    ``QueueFullError`` to 429 and ``DuplicateJobError`` to 409). The
+    reference's publish-time serve warmup is not ported."""
+    from learningorchestra_tpu_torch.core.store import ROW_ID
+    from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+    from learningorchestra_tpu_torch.ml.builder import FEATURES_COL, LABEL_COL, load_dataframe
+    from learningorchestra_tpu_torch.ml.checkpoint import checkpoint_path, save_model
+    from learningorchestra_tpu_torch.sched.cancel import CancelToken
+    from learningorchestra_tpu_torch.sched.scheduler import DEVICE_CLASS
+
+    device = resolve_device(device)
+    name = body["sweep_name"]
+    training_df = load_dataframe(store, body["training_filename"])
+    testing_df = load_dataframe(store, body["test_filename"])
+    out = run_preprocessor(body["preprocessor_code"], training_df, testing_df)
+    eval_df = (
+        out["features_evaluation"]
+        if out["features_evaluation"] is not None
+        else out["features_testing"]
+    )
+    key, payload = prepare_member(
+        body["classificator"],
+        out["features_training"].feature_matrix(FEATURES_COL),
+        out["features_training"].label_vector(LABEL_COL),
+        eval_df.feature_matrix(FEATURES_COL),
+        eval_df.label_vector(LABEL_COL),
+        body["grid"],
+        device=device,
+        max_iter=int(body.get("max_iter", _DEFAULT_MAX_ITER)),
+    )
+    token = CancelToken()
+    member = coalescer.register(key, payload, group_runner(device), token=token, name=f"sweep:{name}")
+    try:
+        # collection=name opts the member into the journal; store= is
+        # not passed: the failure-marking write it enables targets a
+        # collection that only exists after success
+        jobs.run_sync(
+            f"sweep:{name}",
+            coalescer.run_member,
+            member,
+            job_class=DEVICE_CLASS,
+            token=token,
+            collection=name,
+        )
+    except BaseException:
+        # a submission that never ran (429 queue cap, 409 duplicate) must
+        # not leave a payload for some later leader to stack; a no-op
+        # when the member already ran and failed
+        coalescer.abandon(member)
+        raise
+    result = member.result
+    best = result["best"]
+    checkpoint = None
+    if models_dir:
+        os.makedirs(models_dir, exist_ok=True)
+        checkpoint = checkpoint_path(models_dir, name)
+        # atomic publication (temp + os.replace): the serving registry's
+        # stamp sees the winner, never a partial file
+        save_model(model_from_params(result["params"][best], device), checkpoint)
+    points = [
+        {**p["grid"], "accuracy": p["accuracy"], "weighted_f1": p["weighted_f1"]}
+        for p in result["points"]
+    ]
+    store.insert_one(
+        name,
+        {
+            ROW_ID: 0,
+            "filename": name,
+            "classificator": result["kind"],
+            "points": points,
+            "best": best,
+            "model_checkpoint": checkpoint,
+            "finished": True,
+        },
+    )
+    return {
+        "model": name,
+        "classificator": result["kind"],
+        "points": points,
+        "best": best,
+        "model_checkpoint": checkpoint,
+    }

@@ -67,6 +67,7 @@ import torch
 
 from learningorchestra_tpu_torch import kernels
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
     infer_num_classes,
@@ -1558,10 +1559,12 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
         )
         return f0, features_heap, bins_heap, leaf_values, margins
     chunk = segment_steps(rounds, bins.shape[0], _GB_ROW_ROUNDS_BUDGET, bins.shape[1])
-    # The key of the gbt resume artifact (reference ml/trees.py:594-600):
-    # a saved segment resumes only under the same chunking and
-    # hyperparameters. The progress sink that checks it comes with the
-    # builder.
+    total_chunks = rounds // chunk
+    # Crash resume (reference ml/trees.py:594-637, ml/progress.py): the
+    # margins and the heaps so far are enough to replay the remaining
+    # chunks bit for bit (f0 is recomputed from y and the weights above).
+    # The artifact must match this call's chunking and hyperparameters
+    # on top of the sink's own key, else the fit restarts clean.
     scalars = {
         "chunk": chunk,
         "rounds": rounds,
@@ -1570,11 +1573,46 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
         "step": float(np.asarray(step)),
     }
     heaps = []
-    for _ in range(rounds // chunk):
+    start = 0
+    sink = _progress.current_sink()
+    if sink is not None:
+        restored = sink.load("gbt")
+        if restored is not None:
+            done, arrays, saved = restored
+            state = None
+            nodes = 2**max_depth - 1
+            if (
+                all(saved.get(key) == scalars[key] for key in scalars)
+                and 0 < done <= total_chunks
+                and len(arrays) == 4
+            ):
+                templates = (
+                    margins,
+                    torch.zeros((done * chunk, nodes), dtype=torch.int32, device=margins.device),
+                    torch.zeros((done * chunk, nodes), dtype=torch.int32, device=margins.device),
+                    torch.zeros((done * chunk, nodes + 1), dtype=torch.float32, device=margins.device),
+                )
+                state = _progress.device_restore(templates, arrays)
+            if state is None:
+                sink.discard()
+            else:
+                margins = state[0]
+                heaps.append(tuple(state[1:]))
+                start = done
+                _progress.segments_skipped(done)
+    for index in range(start, total_chunks):
         margins, features_heap, bins_heap, leaf_values = _gbt_rounds_impl(
             bins, y, weights, margins, max_depth, max_bins, chunk, step
         )
         heaps.append((features_heap, bins_heap, leaf_values))
+        if sink is not None:
+            sink.save(
+                "gbt",
+                index + 1,
+                [margins.cpu().numpy()]
+                + [torch.cat([h[i] for h in heaps]).cpu().numpy() for i in range(3)],
+                scalars,
+            )
     features_heap, bins_heap, leaf_values = (torch.cat(parts) for parts in zip(*heaps))
     return f0, features_heap, bins_heap, leaf_values, margins
 

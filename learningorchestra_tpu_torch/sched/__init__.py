@@ -21,9 +21,15 @@ port:
   window fuse into one dispatch over a job axis (ml/sweep.py), each
   member keeping its own result, error or cancellation.
 
-``core/jobs.py`` executes what the scheduler admits. The journal and
-crash recovery (``sched/journal.py``, ``sched/recovery.py``) are not
-ported yet: the scheduler's ``journal`` stays None.
+- :class:`~learningorchestra_tpu_torch.sched.journal.JobJournal` — one
+  document a submit in the store's ``__lo_jobs__`` collection, state
+  transitions and ``progress`` events appended, so a restarted process
+  replays it (:func:`~learningorchestra_tpu_torch.sched.recovery.recover_jobs`):
+  never-started jobs re-enqueue, orphaned running builds resume from
+  their progress artifacts, the rest end FAILED with ``finished: true``
+  so pollers stop.
+
+``core/jobs.py`` executes what the scheduler admits.
 """
 
 from learningorchestra_tpu_torch.sched.cancel import (
@@ -34,11 +40,17 @@ from learningorchestra_tpu_torch.sched.cancel import (
     current_token,
 )
 from learningorchestra_tpu_torch.sched.coalesce import Coalescer, global_coalescer
+from learningorchestra_tpu_torch.sched.journal import (
+    JOURNAL_COLLECTION,
+    JobJournal,
+    shard_scope,
+)
 from learningorchestra_tpu_torch.sched.policy import (
     TransientJobError,
     backoff_delay,
     is_transient,
 )
+from learningorchestra_tpu_torch.sched.recovery import recover_jobs
 from learningorchestra_tpu_torch.sched.scheduler import (
     DEVICE_CLASS,
     HOST_CLASS,
@@ -52,7 +64,9 @@ __all__ = [
     "Coalescer",
     "DEVICE_CLASS",
     "HOST_CLASS",
+    "JOURNAL_COLLECTION",
     "JobCancelledError",
+    "JobJournal",
     "JobTimeoutError",
     "QueueFullError",
     "Scheduler",
@@ -63,4 +77,6 @@ __all__ = [
     "current_token",
     "global_coalescer",
     "is_transient",
+    "recover_jobs",
+    "shard_scope",
 ]

@@ -26,8 +26,7 @@ builds, so this module stays importable without jax, the store, or the
 job manager.
 
 The port's copy of ``learningorchestra_tpu/sched/scheduler.py``,
-unchanged: the ``journal`` hook stays, and stays None until the port
-has a journal.
+unchanged; the runner hands it a ``JobJournal`` (services/runner.py).
 """
 
 from __future__ import annotations

@@ -10,7 +10,16 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
   build runs as a tracked job (``GET /jobs/<name>``, ``/wait``). Either
   way the build runs in the scheduler's DEVICE class, one at a time on
   the card: a full queue answers 429 + ``Retry-After``, an active
-  duplicate async build 409, an unknown collection or classifier 406;
+  duplicate async build 409, an unknown collection or classifier 406.
+  The job journals its ``build_model`` replay payload, so a restarted
+  runner re-runs or resumes it (sched/recovery.py);
+- ``POST /models/sweep`` fits a λ grid over ``lr`` or a depth grid over
+  ``dt`` as one coalescible DEVICE job (``ml/sweep.run_sweep``, reference
+  ``:297-360``): per-point metrics in the answer and persisted as
+  collection ``sweep_name``, the winner's checkpoint published so
+  ``POST /models/<sweep_name>/predict`` serves it; 406 on a malformed
+  request, 409 on a taken name or a running sweep of that name, 429 on a
+  full queue;
 - ``GET /models`` lists the ``.model`` artifacts in ``models_dir`` (the
   names under ``"result"``, the serve plane's stats under ``"serving"``);
 - ``GET /models/<name>`` describes one artifact;
@@ -24,9 +33,8 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
 Messages and status codes are the reference's: 404 unknown model, 406
 missing or malformed rows, 413 more than ``LO_SERVE_MAX_ROWS`` rows, 429
 inbox or queue full, 503 timed out, 500 ``prediction_failed: ...``.
-Sweeps (``/models/sweep``), the batch lane (``/predictions``) and the
-observability routes (``/metrics/history``, ``/debug/*``) are not
-ported yet.
+The batch lane (``/predictions``) and the observability routes
+(``/metrics/history``, ``/debug/*``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,13 +50,14 @@ import numpy as np
 from learningorchestra_tpu_torch.core.jobs import DuplicateJobError, JobManager
 from learningorchestra_tpu_torch.core.store import DocumentStore
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml import sweep as lo_sweep
 from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES
 from learningorchestra_tpu_torch.ml.builder import build_model
 from learningorchestra_tpu_torch.ml.checkpoint import (
     CHECKPOINT_SUFFIX,
     checkpoint_path as _checkpoint_path,
 )
-from learningorchestra_tpu_torch.sched import DEVICE_CLASS, QueueFullError
+from learningorchestra_tpu_torch.sched import DEVICE_CLASS, QueueFullError, global_coalescer
 from learningorchestra_tpu_torch.serve import (
     ModelNotFoundError,
     ServePlane,
@@ -73,6 +82,7 @@ def create_app(
     jobs: Optional[JobManager] = None,
     serve: Optional[ServePlane] = None,
     device: DeviceLike = None,
+    coalescer=None,
 ) -> WebApp:
     """The builder and the predict lane over ``store`` and the checkpoints
     in ``models_dir`` (default ``LO_MODELS_DIR``). ``device=None`` means
@@ -80,7 +90,9 @@ def create_app(
     validated request body becomes a :func:`build_model` call; ``jobs``
     injects a ``JobManager`` (tests pin its scheduler), else the app
     owns one; ``serve`` injects a plane (tests pin its knobs), else the
-    process-wide plane of ``device`` serves."""
+    process-wide plane of ``device`` serves; ``coalescer`` injects the
+    sweeps' coalescing stage, else the process-wide one (so sweeps
+    submitted through different apps in one process still fuse)."""
     device = resolve_device(device)
     if serve is None:
         serve = global_serve_plane(device)
@@ -88,6 +100,7 @@ def create_app(
         raise ValueError(f"serve plane runs on {serve.device}, the app on {device}")
     models_dir = models_dir or os.environ.get("LO_MODELS_DIR")
     jobs = jobs or JobManager()
+    coalescer = coalescer or global_coalescer()
     # resolve every serving knob now: a malformed value breaks app
     # construction instead of answering 500 on a live route
     serve_knobs = serve_config.validate_all()
@@ -152,9 +165,24 @@ def create_app(
             f"build:{body['test_filename']}:"
             f"{'+'.join(body['classificators_list'])}"
         )
+        # the journaled replay payload: everything recovery needs to re-run
+        # (or resume) this build after a crash, without the closure.
+        # models_dir rides along (a restarted process resolves no
+        # request-scoped state); the device does not (the restarted
+        # runner brings its own)
+        replay = (
+            "build_model",
+            {
+                "training_filename": body["training_filename"],
+                "test_filename": body["test_filename"],
+                "preprocessor_code": body["preprocessor_code"],
+                "classificators_list": list(body["classificators_list"]),
+                "models_dir": models_dir,
+            },
+        )
         if body.get("async"):
             try:
-                jobs.submit(job_name, build, body, job_class=DEVICE_CLASS)
+                jobs.submit(job_name, build, body, job_class=DEVICE_CLASS, replay=replay)
             except QueueFullError as error:  # device queue at its cap
                 return too_many_requests(error)
             except ValueError as error:  # same job already active
@@ -164,7 +192,7 @@ def create_app(
         # as a tracked job in the DEVICE class so concurrent builds queue
         # for the card; the request thread waits, a scheduler worker runs
         try:
-            jobs.run_sync(job_name, build, body, job_class=DEVICE_CLASS)
+            jobs.run_sync(job_name, build, body, job_class=DEVICE_CLASS, replay=replay)
         except QueueFullError as error:
             return too_many_requests(error)
         except DuplicateJobError:
@@ -177,10 +205,74 @@ def create_app(
                     build,
                     body,
                     job_class=DEVICE_CLASS,
+                    replay=replay,
                 )
             except QueueFullError as error:
                 return too_many_requests(error)
         return {MESSAGE_RESULT: MESSAGE_CREATED_FILE}, 201
+
+    @app.route("/models/sweep", methods=("POST",))
+    def sweep_models(request):
+        """A hyperparameter sweep as one device job: a λ grid over ``lr``
+        or a depth grid over ``dt`` fitted over one job axis
+        (ml/sweep.py), per-point metrics in the answer and persisted as
+        collection ``sweep_name``, the argmax checkpoint published so
+        ``POST /models/<sweep_name>/predict`` serves the winner.
+        Concurrent sweeps with compatible shapes coalesce into one
+        dispatch."""
+        body = request.get_json(silent=True)
+        required = (
+            "training_filename",
+            "test_filename",
+            "preprocessor_code",
+            "classificator",
+            "grid",
+            "sweep_name",
+        )
+        if not isinstance(body, dict) or any(k not in body for k in required):
+            return {MESSAGE_RESULT: validators.MESSAGE_MISSING_FIELDS}, 406
+        try:
+            validators.filename_exists(
+                store,
+                body["training_filename"],
+                validators.MESSAGE_INVALID_TRAINING_FILENAME,
+            )
+            validators.filename_exists(
+                store,
+                body["test_filename"],
+                validators.MESSAGE_INVALID_TEST_FILENAME,
+            )
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 406
+        if not validators.safe_filename(body["sweep_name"]):
+            return {MESSAGE_RESULT: validators.MESSAGE_INVALID_FILENAME}, 406
+        max_iter = body.get("max_iter", 100)
+        if isinstance(max_iter, bool) or not isinstance(max_iter, int) or (
+            max_iter < 1
+        ):
+            return {MESSAGE_RESULT: "invalid_max_iter"}, 406
+        try:
+            lo_sweep.validate_grid(body["classificator"], body["grid"])
+        except ValueError as error:
+            return {MESSAGE_RESULT: f"invalid_grid: {error}"}, 406
+        try:
+            validators.filename_free(store, body["sweep_name"])
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 409
+        try:
+            result = lo_sweep.run_sweep(
+                store,
+                body,
+                jobs=jobs,
+                coalescer=coalescer,
+                models_dir=models_dir,
+                device=device,
+            )
+        except QueueFullError as error:  # device queue at its cap
+            return too_many_requests(error)
+        except DuplicateJobError as error:  # same sweep already running
+            return {MESSAGE_RESULT: str(error)}, 409
+        return {MESSAGE_RESULT: result}, 201
 
     @app.route("/models", methods=("GET",))
     def list_models(request):

@@ -1,0 +1,228 @@
+"""Serve the service stack: all seven services in one process.
+
+Counterpart of ``learningorchestra_tpu/services/runner.py``, its
+single-process topology: seven servers over one in-process WAL-backed
+store, one scheduler with a job journal for all of them, and recovery of
+the journal before the first request —
+``python -m learningorchestra_tpu_torch.services.runner`` (on the CUDA
+card; it raises without one). Tests start the stack with
+``start_all(..., device="cpu")`` or ``main(device="cpu")``.
+
+Environment:
+- ``LO_DATA_DIR`` — store WAL directory (default ``./lo_data``)
+- ``LO_IMAGES_DIR`` — PNG volume root (default ``<data>/images``)
+- ``LO_MODELS_DIR`` — model checkpoint and progress-artifact volume
+  (default ``<data>/models``; empty string disables checkpointing, and
+  with it crash resume)
+- ``LO_HOST`` — bind host (default ``127.0.0.1``: the model builder runs
+  request-supplied preprocessor code, so exposing the stack must be an
+  explicit opt-in)
+- ``LO_EPHEMERAL=1`` — bind OS-assigned ports instead of 5000-5006; each
+  ``service <name> on <host>:<port>`` boot line names the bind
+- the scheduler, coalescing, resume and serving knobs of
+  ``sched/config.py`` and ``serve/config.py`` (``LO_JOB_WORKERS``,
+  ``LO_SCHED_DEVICE_WIDTH``, ``LO_SCHED_QUEUE_CAP``, ``LO_RESUME``,
+  ``LO_RESUME_EVERY_SEGMENTS``, ``LO_COALESCE_WINDOW_MS``,
+  ``LO_SERVE_*``, ...), ``LO_BUILD_WORKERS`` (ml/builder.py) and
+  ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
+
+Not ported: one process per service (``LO_SERVICE``, ``LO_PORT``,
+``LO_STORE_URL``), the fleet router and its replica agent, the AOT
+compile plane, the telemetry collector and the multi-host SPMD
+dispatcher.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from learningorchestra_tpu_torch.core.jobs import JobManager
+from learningorchestra_tpu_torch.core.store import DocumentStore, InMemoryStore
+from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.sched import (
+    JobJournal,
+    Scheduler,
+    recover_jobs,
+    shard_scope,
+)
+from learningorchestra_tpu_torch.services import (
+    DATA_TYPE_HANDLER_PORT,
+    DATABASE_API_PORT,
+    HISTOGRAM_PORT,
+    MODEL_BUILDER_PORT,
+    PCA_PORT,
+    PROJECTION_PORT,
+    TSNE_PORT,
+)
+from learningorchestra_tpu_torch.services import (
+    data_type_handler,
+    database_api,
+    histogram,
+    images,
+    model_builder,
+    projection,
+)
+from learningorchestra_tpu_torch.utils.web import ServerThread
+
+SERVICES: dict[str, int] = {
+    "database_api": DATABASE_API_PORT,
+    "projection": PROJECTION_PORT,
+    "model_builder": MODEL_BUILDER_PORT,
+    "data_type_handler": DATA_TYPE_HANDLER_PORT,
+    "histogram": HISTOGRAM_PORT,
+    "tsne": TSNE_PORT,
+    "pca": PCA_PORT,
+}
+
+
+def make_job_manager(store: DocumentStore, scope: str = "all") -> JobManager:
+    """One JobManager for the whole process: every service submits
+    through a single scheduler, so the DEVICE class serializes builds,
+    sweeps and embeddings against each other on the card, and every
+    submit is journaled in the store for crash recovery."""
+    return JobManager(
+        scheduler=Scheduler(journal=JobJournal(store, scope=shard_scope(scope, store)))
+    )
+
+
+def build_app(
+    name: str,
+    store: DocumentStore,
+    images_dir: str,
+    models_dir: str = "",
+    jobs: Optional[JobManager] = None,
+    device: DeviceLike = None,
+):
+    if name == "database_api":
+        return database_api.create_app(store, jobs or JobManager())
+    if name == "projection":
+        return projection.create_app(store, jobs)
+    if name == "model_builder":
+        # opt-in (LO_MODELS_DIR / models_dir): library and test callers of
+        # start_all don't silently grow a checkpoint directory
+        models_dir = models_dir or os.environ.get("LO_MODELS_DIR", "")
+        return model_builder.create_app(store, models_dir=models_dir, jobs=jobs, device=device)
+    if name == "data_type_handler":
+        return data_type_handler.create_app(store, jobs)
+    if name == "histogram":
+        return histogram.create_app(store, jobs)
+    if name in ("tsne", "pca"):
+        return images.create_app(
+            store, os.path.join(images_dir, name), name, device=device, jobs=jobs
+        )
+    raise KeyError(f"unknown service {name!r}")
+
+
+def build_apps(
+    store: DocumentStore,
+    images_dir: str,
+    models_dir: str = "",
+    jobs: Optional[JobManager] = None,
+    device: DeviceLike = None,
+) -> dict[int, object]:
+    # one shared JobManager unless the caller brings its own: the seven
+    # services must share a scheduler, or the device class cannot
+    # serialize builds against embeddings
+    jobs = jobs or make_job_manager(store)
+    device = resolve_device(device)
+    return {
+        port: build_app(name, store, images_dir, models_dir, jobs, device)
+        for name, port in SERVICES.items()
+    }
+
+
+def start_all(
+    store: Optional[DocumentStore] = None,
+    images_dir: Optional[str] = None,
+    host: str = "127.0.0.1",
+    ephemeral: bool = False,
+    models_dir: str = "",
+    jobs: Optional[JobManager] = None,
+    device: DeviceLike = None,
+) -> tuple[DocumentStore, list[ServerThread]]:
+    """Start all seven services on their reference ports; returns the
+    shared store and the server threads (callers stop() them).
+    ``device=None`` is the CUDA card (raises without one).
+
+    ``ephemeral=True`` binds OS-assigned ports instead (tests can't
+    assume 5000-5006 are free); each server's ``canonical_port`` records
+    which reference port it stands in for, its ``port`` the actual bind.
+    """
+    store = store if store is not None else InMemoryStore()
+    images_dir = images_dir or os.path.join(os.getcwd(), "lo_images")
+    servers = []
+    apps = build_apps(store, images_dir, models_dir, jobs, device)
+    for port, app in apps.items():
+        server = ServerThread(app, host, 0 if ephemeral else port)
+        server.canonical_port = port
+        servers.append(server.start())
+    return store, servers
+
+
+def main(device: DeviceLike = None) -> None:
+    """Boot the stack: open the store on its WAL, replay the job journal
+    (never-started jobs re-enqueue, orphaned builds resume from their
+    progress artifacts), then serve. ``device=None`` is the CUDA card."""
+    from learningorchestra_tpu_torch.sched import config as sched_config
+    from learningorchestra_tpu_torch.sched import recovery
+    from learningorchestra_tpu_torch.serve import config as serve_config
+
+    device = resolve_device(device)
+    print(f"runner starting: device={device}", flush=True)
+    # fail fast on malformed knobs, and state them at boot
+    print(f"serving config: {serve_config.validate_all()}", flush=True)
+    print(
+        "coalescing config: "
+        f"window_s={sched_config.coalesce_window_s()} "
+        f"max_jobs={sched_config.coalesce_max_jobs()}",
+        flush=True,
+    )
+    print(
+        "resume config: "
+        f"enabled={sched_config.resume_enabled()} "
+        f"every_segments={sched_config.resume_every_segments()}",
+        flush=True,
+    )
+    data_dir = os.environ.get("LO_DATA_DIR", os.path.join(os.getcwd(), "lo_data"))
+    images_dir = os.environ.get("LO_IMAGES_DIR", os.path.join(data_dir, "images"))
+    models_dir = os.environ.get("LO_MODELS_DIR", os.path.join(data_dir, "models"))
+    host = os.environ.get("LO_HOST", "127.0.0.1")
+    ephemeral = os.environ.get("LO_EPHEMERAL", "").strip() == "1"
+    store = InMemoryStore(data_dir=data_dir)
+
+    # Recovery runs BEFORE the REST surface accepts traffic, with the
+    # build handlers bound to this process's device (the journal names
+    # none): never-started jobs re-enqueue, orphaned RUNNING builds
+    # resume, everything else goes FAILED with finished:true so pollers
+    # terminate.
+    recovery.register_build_model(device)
+    jobs = make_job_manager(store)
+    recovered = recover_jobs(store, jobs)
+    if recovered["requeued"] or recovered["orphaned"]:
+        print(
+            "job recovery: "
+            f"{len(recovered['requeued'])} re-enqueued, "
+            f"{len(recovered['orphaned'])} orphaned jobs marked failed",
+            flush=True,
+        )
+    _, servers = start_all(
+        store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device
+    )
+    port_names = {port: name for name, port in SERVICES.items()}
+    for server in servers:
+        print(f"service {port_names[server.canonical_port]} on {host}:{server.port}", flush=True)
+    print(
+        f"learningorchestra_tpu_torch serving all services (host {host}); data in {data_dir}",
+        flush=True,
+    )
+    try:
+        for server in servers:
+            server._thread.join()
+    except KeyboardInterrupt:
+        for server in servers:
+            server.stop()
+
+
+if __name__ == "__main__":
+    main()

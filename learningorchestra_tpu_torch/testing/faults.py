@@ -33,7 +33,8 @@ Spec grammar — ``ACTION[:ARG][@N]``:
   the first *n* hits (default 1); :func:`fire` never raises for it —
   the instrumented site asks :func:`torn` and mangles its own bytes.
 
-The port's copy of ``learningorchestra_tpu/testing/faults.py``, unchanged.
+The port's copy of ``learningorchestra_tpu/testing/faults.py``, with one
+point of its own, ``fit.segment`` (ml/progress.py).
 """
 
 from __future__ import annotations
@@ -75,6 +76,11 @@ FAULT_POINTS = {
         "train (ctx: phase=load_data|preprocess|fit|checkpoint|"
         "evaluate|write, classificator when per-classifier — a kill "
         "here orphans the build mid-flight; an error fails one member)"
+    ),
+    "fit.segment": (
+        "progress sink, after a fit's segment artifact was durably "
+        "saved (ctx: kind=logistic|gbt, segment — an error here stops "
+        "the fit with its artifact in place, the in-process resume drill)"
     ),
     "sched.journal.append": (
         "job journal, before a lifecycle/progress document is inserted "

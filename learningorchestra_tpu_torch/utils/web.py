@@ -437,9 +437,16 @@ class TestClient:
 
     def post(self, path: str, json: Any = None) -> Response:
         """POST ``json`` as an ``application/json`` body."""
+        return self._send("POST", path, json)
+
+    def patch(self, path: str, json: Any = None) -> Response:
+        """PATCH ``json`` as an ``application/json`` body."""
+        return self._send("PATCH", path, json)
+
+    def _send(self, method: str, path: str, json: Any) -> Response:
         body = b"" if json is None else _dumps(json).encode()
         return self.app.handle(
-            Request("POST", path, {"Content-Type": "application/json"}, body)
+            Request(method, path, {"Content-Type": "application/json"}, body)
         )
 
     def delete(self, path: str) -> Response:

@@ -1,9 +1,15 @@
 """The job coalescer and the fused-fit bit-identity bar, on the port.
 
-``TestCoalescerStage`` is the JAX package's own (``tests/test_coalesce.py``),
-read and run here with its imports pointed at the port's copy of the
-stage (``learningorchestra_tpu_torch/sched/coalesce.py``): a fake runner,
-no device work. ``TestBatchedFitBitIdentity`` is the reference's class of
+``TestCoalescerStage``, ``TestCoalescedJobsThroughScheduler`` and
+``TestSweepRoute`` are the JAX package's own (``tests/test_coalesce.py``),
+read and run here with their imports pointed at the port: the stage
+(``learningorchestra_tpu_torch/sched/coalesce.py``) with a fake runner;
+member jobs through the port's job manager and scheduler, each with its
+own record, cancellation and failure; and ``POST /models/sweep`` on the
+port's model_builder app (on the CPU), the lr and dt sweeps, the
+validation answers, the 409 on a taken name, the winner served by
+``/models/<sweep_name>/predict``, and the JAX package's client driving
+the route over HTTP. ``TestBatchedFitBitIdentity`` is the reference's class of
 the same name with the port's API (``device="cpu"`` where the reference
 passes a mesh) and the same assertions: a member fused into a batch is
 bit-identical to the same member run alone at the same padded width, for
@@ -11,10 +17,6 @@ lr and dt, also beside a cancelled and a NaN-poisoned neighbour; the lr
 sweep tracks the solo estimator with ``tol=0`` within rtol 1e-4 / atol
 1e-5 (the sweep standardizes in float32 on the device and masks padded
 rows, the solo fit standardizes in float64 on the host and pads nothing).
-
-Left for the builder slice, which ports ``core/jobs.py``, the scheduler
-and ``POST /models/sweep``: the reference's
-``TestCoalescedJobsThroughScheduler`` and ``TestSweepRoute``.
 
 On the card, chip_smoke.py's ``sweep`` phase holds the same bar with the
 CUDA kernels (python3 chip_smoke.py sweep).
@@ -31,17 +33,29 @@ from learningorchestra_tpu_torch.sched import coalesce as port_coalesce  # noqa:
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_coalesce.py")
 NOT_PORTED = (
-    "TestCoalescedJobsThroughScheduler",   # core/jobs.py, sched/scheduler.py
-    "TestSweepRoute",                      # POST /models/sweep (the builder)
     "TestBatchedFitBitIdentity",           # ported below, with device= for mesh=
 )
 
-_source = REFERENCE_TESTS.read_text().replace(
-    "learningorchestra_tpu.sched.", "learningorchestra_tpu_torch.sched."
+_source = (
+    REFERENCE_TESTS.read_text()
+    .replace("learningorchestra_tpu.", "learningorchestra_tpu_torch.")
+    # the client stays the JAX package's: the port serves its routes
+    .replace("learningorchestra_tpu_torch.client", "learningorchestra_tpu.client")
 )
+_old, _new = "store, models_dir=str(tmp_path), **kwargs", 'store, models_dir=str(tmp_path), device="cpu", **kwargs'
+assert _source.count(_old) == 1, _old
+_source = _source.replace(_old, _new)
 exec(compile(_source, str(REFERENCE_TESTS), "exec"), globals())  # noqa: S102
 for _name in NOT_PORTED:
     del globals()[_name]
+
+
+@pytest.fixture()
+def store():
+    """The port's store under the reference's route tests."""
+    from learningorchestra_tpu_torch.core.store import InMemoryStore
+
+    return InMemoryStore()
 
 
 def _module_names(code):
@@ -238,6 +252,14 @@ def test_entry_points_need_cuda_by_default():
         lo_sweep.run_group([payload])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lo_sweep.model_from_params({"kind": "lr", "w": np.zeros((6, 2), np.float32)})
+    from learningorchestra_tpu_torch.core.jobs import JobManager
+    from learningorchestra_tpu_torch.core.store import InMemoryStore
+    from learningorchestra_tpu_torch.services import runner
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lo_sweep.run_sweep(InMemoryStore(), {"sweep_name": "s"}, jobs=JobManager(), coalescer=Coalescer())  # noqa: F821
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.start_all(InMemoryStore(), ephemeral=True)
 
 
 def test_knobs_are_the_reference_knobs(monkeypatch):

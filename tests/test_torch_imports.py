@@ -100,7 +100,45 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "ml.sweep", "sched", "sched.coalesce", "sched.config", "sched.cancel",
         "telemetry", "telemetry.metrics", "telemetry.tracing", "testing", "testing.faults",
         "parallel", "parallel.sharding",
+        "ml.progress", "sched.journal", "sched.recovery", "core.jobs",
+        "services.database_api", "services.projection", "services.data_type_handler",
+        "services.histogram", "services.runner", "ops.projection", "ops.histogram",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]
     assert [name for name in report["added"] if forbidden(name)] == []
+
+
+_MAIN_PROBE = """
+import json, runpy, sys
+before = set(sys.modules)
+try:
+    runpy.run_module("learningorchestra_tpu_torch.services.runner", run_name="__main__")
+except RuntimeError as error:
+    outcome = str(error)
+else:
+    outcome = "served"
+print(json.dumps({"outcome": outcome, "added": sorted(set(sys.modules) - before)}))
+"""
+
+
+def test_the_runner_as_main_needs_cuda_and_loads_no_jax(tmp_path):
+    """``python -m learningorchestra_tpu_torch.services.runner`` defaults to
+    the CUDA card: here, with none, it raises before it opens a store or
+    a port, and what it imported on the way holds neither JAX nor the
+    JAX package."""
+    env = dict(os.environ, LO_DATA_DIR=str(tmp_path / "lo_data"), CUDA_VISIBLE_DEVICES="")
+    result = subprocess.run(
+        [sys.executable, "-c", _MAIN_PROBE],
+        capture_output=True,
+        text=True,
+        cwd=_REPO_ROOT,
+        env=env,
+        timeout=120,
+    )
+    assert result.returncode == 0, result.stderr
+    report = json.loads(result.stdout.strip().splitlines()[-1])
+    assert "no CUDA device is available" in report["outcome"]
+    assert "learningorchestra_tpu_torch.services.model_builder" in report["added"]  # the runner's imports
+    assert [name for name in report["added"] if forbidden(name)] == []
+    assert not (tmp_path / "lo_data").exists()

@@ -30,6 +30,8 @@ block within the card's shared memory, and the kernels' thread-to-work
 maps cover every element once.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -412,22 +414,75 @@ def test_model_matches_the_reference_loss_and_gradient(classes, weighted):
         np.testing.assert_allclose(db[j], np.asarray(grad["b"]), rtol=0, atol=GRAD_ATOL)
 
 
+def _checksum(array) -> str:
+    array = np.ascontiguousarray(array)
+    return f"{hashlib.sha256(array.tobytes()).hexdigest()[:16]} {array.dtype}{array.shape}"
+
+
+def _files_run_before(request) -> list:
+    """The test files this process ran before the current test: pytest
+    drops an item's ``funcargs`` (sets it to None) once the item's
+    teardown is done, so the items that ran are the ones without them."""
+    files = []
+    for item in request.session.items:
+        if item is request.node:
+            break
+        if getattr(item, "funcargs", {}) is None and item.location[0] not in files:
+            files.append(item.location[0])
+    return files
+
+
+def _twin_diagnostics(request, inputs, seeded, loss, value, recompute) -> str:
+    """What a failing comparison of the model with the plain twins needs
+    to tell whether the inputs moved or the twin's arithmetic did."""
+    lines = ["the model against the plain twins disagreed:"]
+    for name, used, fresh in zip(("X", "y", "w", "W", "b"), inputs, seeded):
+        if used is None:
+            continue
+        lines.append(
+            f"  {name}: used {_checksum(used)}, seeded {_checksum(fresh)}"
+            + ("" if np.array_equal(used, fresh) else "  <- MOVED")
+        )
+    again = recompute()
+    lines.append(f"  model loss     {np.asarray(loss).tolist()}")
+    lines.append(f"  twin loss      {np.asarray(value).tolist()}")
+    lines.append(
+        f"  twin again on fresh copies {np.asarray(again).tolist()}"
+        + (" (equal)" if np.array_equal(again, value) else "  <- DIFFERS from the first")
+    )
+    lines.append(f"  torch.get_num_threads() = {torch.get_num_threads()}")
+    lines.append(f"  files this process ran before: {_files_run_before(request)}")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("classes", [2, 10])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_model_matches_the_plain_twins(classes, weighted):
+def test_model_matches_the_plain_twins(classes, weighted, request):
     X, y, w, W, b = _inputs(classes, 3, weighted=weighted, seed=1)
     l2s = np.zeros(3, f32)
     loss, dW, db = _split(_model_loss_grad(X, y, w, W, b, group=3), FEATURES, classes)
     value, plain_dW, plain_db = logistic._job_loss_fn(
         t(W), t(b), t(X), t(y), None if w is None else t(w), t(l2s))
-    np.testing.assert_allclose(loss, value.numpy(), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(dW, plain_dW.numpy(), rtol=0, atol=GRAD_ATOL)
-    np.testing.assert_allclose(db, plain_db.numpy(), rtol=0, atol=GRAD_ATOL)
-    if not weighted:   # the solo twin: unweighted rows
-        solo = logistic._loss_fn(t(W[0]), t(b[0]), t(X), t(y), 0.0)
-        np.testing.assert_allclose(loss[0], float(solo[0]), rtol=LOSS_RTOL)
-        np.testing.assert_allclose(dW[0], solo[1].numpy(), rtol=0, atol=GRAD_ATOL)
-        np.testing.assert_allclose(db[0], solo[2].numpy(), rtol=0, atol=GRAD_ATOL)
+
+    def recompute():
+        X2, y2, w2, W2, b2 = (None if a is None else np.array(a, copy=True) for a in (X, y, w, W, b))
+        return logistic._job_loss_fn(
+            t(W2), t(b2), t(X2), t(y2), None if w2 is None else t(w2), t(np.zeros(3, f32)))[0].numpy()
+
+    try:
+        np.testing.assert_allclose(loss, value.numpy(), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(dW, plain_dW.numpy(), rtol=0, atol=GRAD_ATOL)
+        np.testing.assert_allclose(db, plain_db.numpy(), rtol=0, atol=GRAD_ATOL)
+        if not weighted:   # the solo twin: unweighted rows
+            solo = logistic._loss_fn(t(W[0]), t(b[0]), t(X), t(y), 0.0)
+            np.testing.assert_allclose(loss[0], float(solo[0]), rtol=LOSS_RTOL)
+            np.testing.assert_allclose(dW[0], solo[1].numpy(), rtol=0, atol=GRAD_ATOL)
+            np.testing.assert_allclose(db[0], solo[2].numpy(), rtol=0, atol=GRAD_ATOL)
+    except AssertionError as error:
+        seeded = _inputs(classes, 3, weighted=weighted, seed=1)
+        raise AssertionError(
+            f"{error}\n" + _twin_diagnostics(request, (X, y, w, W, b), seeded, loss, value.numpy(), recompute)
+        ) from None
 
 
 @pytest.mark.parametrize("classes", [2, 10])
