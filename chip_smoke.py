@@ -1,8 +1,9 @@
 """Drive the PyTorch port's predict lane, its lr, dt, rf, gb and nb fits,
 its PCA and t-SNE image lane, its sweeps and job coalescing, its model
-builder (``POST /models``) and its whole service stack (crash resume, the
-data services, ``POST /models/sweep``, the runner's kill -9 drill) on one
-CUDA card.
+builder (``POST /models``), its whole service stack (crash resume, the
+data services, ``POST /models/sweep``, the runner's kill -9 drill), its
+batch predictions lane with the device cache, and the ``bf16`` feature
+policy on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -11,6 +12,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py sweep            # the sweeps and the coalescer alone
     python3 chip_smoke.py models           # the builds alone
     python3 chip_smoke.py stack            # resume, the services, sweeps, the kill -9 drill
+    python3 chip_smoke.py batch bf16       # the batch lane; LO_DTYPE_POLICY=bf16 in a child
 
 Phases, one JSON line each:
 
@@ -218,7 +220,34 @@ Phases, one JSON line each:
                  skipped and a resumed job, and every ingested row is
                  there. Prints each wall.
 
-Then the ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+10. batch      — the five classifiers built over HTTP on the product
+                 store (100,000 rows), a 1,000,000-row test collection of
+                 its schema written columnar, and ``POST
+                 /models/<name>/predictions`` for each ``.model``: K6
+                 (ensemble and gb) launched on its rows, every written
+                 label ``load_model``'s own on the preprocessed test
+                 frame; a second request served by the device cache
+                 (hits, no misses, no bytes copied to the card); an
+                 ``insert_one`` moves the collection's rev and the next
+                 request reads it again; evicting the cached device
+                 matrices frees their bytes (``memory_allocated``). Each
+                 request's wall and ``timings``.
+11. bf16       — in a child process under ``LO_DTYPE_POLICY=bf16``: K1,
+                 K6 (tree lanes, a thread a row, rows from global memory)
+                 and K7 (both entry points, 2 and 10 classes) on bfloat16
+                 X bit-equal to their float32 launches on the widened X
+                 and held to their plain versions, at 1,000,000 × 16 and
+                 at 5, 16, 17 and 32 features, timed cold and warm beside
+                 the float32 form; the five-classifier product build and
+                 a ``/predict`` (every build kernel launched, the cached
+                 matrices bfloat16 at half the float32 bytes, every label
+                 its ``.model``'s); a t-SNE request (201) and a PCA
+                 request (the reference's 500: its ``eigh`` refuses
+                 bfloat16); a λ sweep whose payload stays float32. Its
+                 metrics beside the batch phase's float32 build's.
+
+Then the ``kernels`` summary line (the bf16 forms as ``<kernel>:bf16``
+rows), the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero without that last line. Imports nothing of JAX.
 """
@@ -792,15 +821,16 @@ def _device_ms(torch, fn, kernel_names, repeats: int, flush=None):
     return None
 
 
-def _bound(rows: int, count: int, kernel: str) -> tuple[float, str]:
-    """Least milliseconds the card could take: bytes (X read once, the
-    output written once, the heaps read once) over HBM bandwidth against
-    float32 operations (D compares per row and tree, plus C adds for the
-    mean or a multiply and an add for the margin) over the float32 peak."""
+def _bound(rows: int, count: int, kernel: str, x_bytes: int = 4) -> tuple[float, str]:
+    """Least milliseconds the card could take: bytes (X read once, at
+    ``x_bytes`` a value, the output written once, the heaps read once) over
+    HBM bandwidth against float32 operations (D compares per row and tree,
+    plus C adds for the mean or a multiply and an add for the margin) over
+    the float32 peak."""
     nodes, leaves = 2**DEPTH - 1, 2**DEPTH
     per_leaf = CLASSES if kernel == "tree_ensemble_forward" else 1
     heap_bytes = count * (nodes * 8 + leaves * per_leaf * 4)
-    bytes_moved = rows * FEATURES * 4 + rows * CLASSES * 4 + heap_bytes
+    bytes_moved = rows * FEATURES * x_bytes + rows * CLASSES * 4 + heap_bytes
     ops = rows * count * (DEPTH + (CLASSES if kernel == "tree_ensemble_forward" else 2))
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     op_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
@@ -1061,7 +1091,7 @@ def phase_serve(torch, card: str) -> dict:
 
 def _fit_bound(
     name: str, rows: int, n_nodes: int, channels: int, bins_read: int = 0,
-    trees: int = 1, subsets: bool = False, max_bins: int = MAX_BINS,
+    trees: int = 1, subsets: bool = False, max_bins: int = MAX_BINS, x_bytes: int = 4,
 ) -> tuple[float, str]:
     """Least milliseconds the card could take for one call at these shapes:
     the bytes the function needs, each read once and each output written
@@ -1071,8 +1101,8 @@ def _fit_bound(
     forest's ``trees`` share the bins and each has its own nodes, channels
     and output; its split search reads each node's feature scores."""
     F, B, K, T = FEATURES, max_bins, channels, trees
-    if name == "apply_bins":      # X, thresholds -> int8 bins; a 5-step search
-        bytes_moved = rows * F * 4 + F * (B - 1) * 4 + rows * F
+    if name == "apply_bins":      # X (x_bytes a value), thresholds -> int8 bins; a 5-step search
+        bytes_moved = rows * F * x_bytes + F * (B - 1) * 4 + rows * F
         ops = rows * F * int(np.ceil(np.log2(B)))
     elif name == "level_histograms":   # bins, node, channels -> histogram
         bytes_moved = rows * F + T * (rows * 4 + rows * K * 4 + n_nodes * F * B * K * 4)
@@ -1646,16 +1676,16 @@ def _forest(torch, X, count, depth, classes, seed):
     )
 
 
-def _k7_bound(rows: int, features: int, classes: int, trial: bool) -> tuple[float, str]:
-    """Least milliseconds for one K7 call: X and y read once (the
-    parameters and outputs are bytes beside them) over HBM bandwidth,
+def _k7_bound(rows: int, features: int, classes: int, trial: bool, x_bytes: int = 4) -> tuple[float, str]:
+    """Least milliseconds for one K7 call: X (``x_bytes`` a value) and y
+    read once (the parameters and outputs are bytes beside them) over HBM bandwidth,
     against its operations at their type's peak: per row and candidate
     2FC float32 for the logits and ~4C for the softmax, and for the
     gradient 2FC + 2C float64."""
     F, C = features, classes
     candidates = 4 if trial else 1
     params = candidates * (F * C + C) * 4
-    bytes_moved = rows * F * 4 + rows * 4 + params + (candidates if trial else F * C + C + 1) * 4
+    bytes_moved = rows * F * x_bytes + rows * 4 + params + (candidates if trial else F * C + C + 1) * 4
     fp32_ops = rows * candidates * (2 * F * C + 4 * C)
     fp64_ops = 0 if trial else rows * (2 * F * C + 2 * C + 1)
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -4737,6 +4767,575 @@ def phase_stack(torch, card: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# The batch predictions lane and the device cache
+# --------------------------------------------------------------------------
+
+BATCH_ROWS = 1_000_000        # the batch lane's test collection
+BATCH_TEST = "batch_1m"
+
+
+def batch_test_collection(store, seed: int = 2) -> float:
+    """A test collection of the product path's schema (16 features and
+    the label, bench.py's synthetic rows from another seed), written
+    columnar as ``embed_store`` writes ``blobs_1m``; returns the seconds
+    the write took."""
+    from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
+
+    started = time.perf_counter()
+    X, y = bench_synthetic(BATCH_ROWS, seed)
+    columns = {f"f{i}": X[:, i].astype(np.float64) for i in range(FEATURES)}
+    columns["label"] = y.astype(np.float64)
+    write_table(
+        store, BATCH_TEST, ColumnTable(columns),
+        {"filename": BATCH_TEST, "finished": True, "fields": list(columns)},
+    )
+    return time.perf_counter() - started
+
+
+def _batch_body(out: str) -> dict:
+    return {
+        "training_filename": "bench_train", "test_filename": BATCH_TEST,
+        "preprocessor_code": PRODUCT_PREPROCESSOR, "prediction_filename": out,
+    }
+
+
+def _batch_request(torch, client, store, name: str, out: str) -> dict:
+    """One ``POST /models/<name>/predictions`` over HTTP: its wall and the
+    stored metadata's ``timings``."""
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    status, answer = client.call(
+        "POST", f"/models/bench_test_prediction_{name}/predictions", _batch_body(out)
+    )
+    wall_s = time.perf_counter() - started
+    if (status, answer) != (201, {"result": "created_file"}):
+        raise AssertionError(f"batch {name}: POST /predictions answered {status} {answer}")
+    metadata = store.find_one(out, {"_id": 0})
+    return {"wall_s": wall_s, "timings": metadata["timings"], "rows": store.count(out) - 1}
+
+
+def _f32_metrics(store) -> dict:
+    return {
+        name: {
+            key: float(store.find_one(f"bench_test_prediction_{name}", {"_id": 0})[key])
+            for key in ("accuracy", "F1")
+        }
+        for name in MODEL_NAMES
+    }
+
+
+def phase_batch(torch, card: str) -> dict:
+    """The batch predictions lane over HTTP on the card. The five
+    classifiers are built on the product store (100,000 rows), a
+    1,000,000-row test collection is added, and ``POST
+    /models/<name>/predictions`` predicts it from each ``.model`` (the
+    launch counts set to 0 just before the five requests and read just
+    after: K6's ensemble and gb forwards must have launched). Every
+    written prediction equals ``load_model``'s prediction of the
+    preprocessed test frame. A second request over the same collections
+    reads and copies nothing again (devcache hits, no new misses, no
+    host-to-device bytes); a row inserted into the test collection moves
+    its rev and the next request reads it again. Evicting the cached
+    device matrices frees their bytes on the card."""
+    import gc
+
+    from learningorchestra_tpu_torch.core import devcache
+    from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+    from learningorchestra_tpu_torch.ml import base
+    from learningorchestra_tpu_torch.ml.builder import load_dataframe
+
+    cache = devcache.global_devcache()
+    with tempfile.TemporaryDirectory() as folder:
+        store = product_store()
+        write_s = batch_test_collection(store)
+        plane = ServePlane()
+        server = ServerThread(create_app(store, models_dir=os.path.join(folder, "models"), serve=plane)).start()
+        try:
+            client = _Client(server.port)
+            started = time.perf_counter()
+            status, answer = client.call("POST", "/models", _build_body("bench_train", "bench_test", PRODUCT_PREPROCESSOR, False))
+            build_s = time.perf_counter() - started
+            if (status, answer) != (201, {"result": "created_file"}):
+                raise AssertionError(f"batch: the build answered {status} {answer}")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            requests = {name: _batch_request(torch, client, store, name, f"batch_{name}") for name in MODEL_NAMES}
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+            for name in ("tree_ensemble_forward", "gbt_forward"):
+                if launches[name] == 0:
+                    raise AssertionError(f"batch: {name} never launched")
+            frames = run_preprocessor(
+                PRODUCT_PREPROCESSOR, load_dataframe(store, "bench_train"), load_dataframe(store, BATCH_TEST)
+            )
+            X_test = frames["features_testing"].feature_matrix("features")
+            for name in MODEL_NAMES:
+                stored = store.read_column_arrays(f"batch_{name}", ["prediction"])["prediction"].to_float64()
+                model = load_model(store.find_one(f"batch_{name}", {"_id": 0})["model_checkpoint"])
+                if len(stored) != BATCH_ROWS or not np.array_equal(model.predict(X_test), stored):
+                    raise AssertionError(f"batch {name}: the written predictions are not its checkpoint's")
+            # the same collections again: every read and copy is a cache hit
+            before, copied = cache.stats(), base.h2d_bytes()
+            again = _batch_request(torch, client, store, "gb", "batch_gb_again")
+            after = cache.stats()
+            if after["misses"] != before["misses"] or after["hits"] < before["hits"] + 3 or (
+                base.h2d_bytes() != copied
+            ):
+                raise AssertionError(
+                    f"batch: the second request missed the cache ({before} -> {after}, "
+                    f"{base.h2d_bytes() - copied} bytes copied)"
+                )
+            # a write moves the test collection's rev: the next request reads it again
+            row = {f"f{i}": 1.0 for i in range(FEATURES)}
+            store.insert_one(BATCH_TEST, {**row, "label": 0.0})
+            moved = _batch_request(torch, client, store, "gb", "batch_gb_moved")
+            reloaded = cache.stats()
+            if moved["rows"] != BATCH_ROWS + 1 or reloaded["invalidations"] <= after["invalidations"] or (
+                base.h2d_bytes() <= copied
+            ):
+                raise AssertionError(f"batch: the insert did not reload the collection ({reloaded})")
+            f32_metrics = _f32_metrics(store)
+        finally:
+            server.stop()
+            plane.close()
+        # evicting the cached device matrices frees them on the card
+        del frames, X_test
+        gc.collect()
+        torch.cuda.synchronize()
+        held = sum(
+            entry.nbytes for key, entry in cache._entries.items()
+            if key[0] == devcache.CONTENT and key[2][0] in ("devmat", "devlab")
+        )
+        allocated = torch.cuda.memory_allocated()
+        dropped = cache.invalidate(devcache.CONTENT)
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = allocated - torch.cuda.memory_allocated()
+        if freed < held:
+            raise AssertionError(f"batch: evicting {held} cached bytes freed {freed} on the card")
+    record = {
+        "phase": "batch",
+        "test_rows": BATCH_ROWS,
+        "test_write_s": write_s,
+        "build_s": build_s,
+        "requests": requests,
+        "launches": {name: launches[name] for name in ("tree_ensemble_forward", "gbt_forward")},
+        "cached_request": again,
+        "devcache": {"first": before, "second": after, "after_insert": reloaded},
+        "moved_request": moved,
+        "evicted": {"entries": dropped, "bytes": held, "freed_bytes": freed},
+        "f32_metrics": f32_metrics,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
+# --------------------------------------------------------------------------
+# LO_DTYPE_POLICY=bf16, in a child process
+# --------------------------------------------------------------------------
+
+BF16_WIDTHS = (5, 16, 17, 32)   # K1's word and value paths, K6's staging, K7's tile
+BF16_EDGE_ROWS = 4_096
+BF16_GLOBAL_FEATURES = 1_000    # K6 rows read from global memory
+BF16_EMBED_ROWS = QUALITY_ROWS
+BF16_SWEEP_ROWS = 20_000
+BF16_CHILD_TIMEOUT_S = 600
+BF16_FORMS = {   # the bf16 form's name: (the float32 kernel, its source, the TPU program)
+    "apply_bins:bf16": ("apply_bins", FIT_SOURCE, FIT_REPLACES["apply_bins"]),
+    "tree_ensemble_forward:bf16": ("tree_ensemble_forward", KERNEL_SOURCE, REPLACES["tree_ensemble_forward"]),
+    "gbt_forward:bf16": ("gbt_forward", KERNEL_SOURCE, REPLACES["gbt_forward"]),
+    "logistic_loss_grad:bf16": ("logistic_loss_grad", LOGISTIC_SOURCE, LOGISTIC_REPLACES["logistic_loss_grad"]),
+    "logistic_trial_losses:bf16": (
+        "logistic_trial_losses", LOGISTIC_SOURCE, LOGISTIC_REPLACES["logistic_trial_losses"]
+    ),
+}
+
+
+def _widened_equal(what: str, got, want) -> None:
+    """A bfloat16 launch against the float32 launch on the widened X: the
+    same bits (NaN where NaN)."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape or not _same_bits([a], [b]):
+            raise AssertionError(f"{what}: the bfloat16 launch differs from the float32 one on the widened X")
+
+
+def _bf16_forward_calls(torch, rows: int, features: int, seed: int):
+    """bfloat16 rows and K6's two forwards of seeded heaps over any X,
+    each with its plain version and its values a leaf."""
+    X, fh, th, lp, lv = _kernel_inputs(torch, rows, TREES, seed=seed, features=features)
+    return X.to(torch.bfloat16), {
+        "tree_ensemble_forward:bf16": (
+            lambda X: trees.ensemble_forward(X, fh, th, lp, DEPTH),
+            lambda X: trees._ensemble_forward(X, fh, th, lp, DEPTH), CLASSES,
+        ),
+        "gbt_forward:bf16": (
+            lambda X: trees.gbt_forward(X, -0.2, fh, th, lv, STEP, DEPTH),
+            lambda X: trees._gbt_forward(X, -0.2, fh, th, lv, STEP, DEPTH), 1,
+        ),
+    }
+
+
+def _k1_edge(torch, features: int, rows: int = BF16_EDGE_ROWS):
+    """bfloat16 rows of ``features`` features, NaN among them, and their
+    thresholds."""
+    rng = np.random.default_rng(features)
+    X = bench_rows(rng, rows, features)
+    X[rng.random(X.shape) < 0.02] = np.nan
+    thresholds = binning.make_thresholds(X).astype(np.float32)
+    return torch.from_numpy(X).cuda().to(torch.bfloat16), torch.from_numpy(thresholds).cuda()
+
+
+def check_bf16_kernels(torch, flush) -> dict:
+    """K1, K6 (tree lanes and a thread a row, rows staged and from global
+    memory) and K7 (both entry points, 2 and 10 classes) on bfloat16 X,
+    each bit-equal to its float32 launch on the widened X and held to its
+    plain version, at the main path's 1,000,000 (K6: 1,048,576) x 16 and
+    at the edge widths; times cold and warm beside the float32 form's."""
+    results = {}
+    # K1
+    X_np, y_np = bench_synthetic(FIT_ROWS)
+    X_k1 = X_np.copy()
+    X_k1[:4, 0] = [np.nan, np.inf, -np.inf, -0.0]
+    Xb = torch.from_numpy(X_k1).cuda().to(torch.bfloat16)
+    X32 = Xb.float()
+    thresholds = torch.from_numpy(binning.make_thresholds(X_np).astype(np.float32)).cuda()
+    cases = {"1000000x16": (Xb, thresholds)}
+    cases.update({f"{BF16_EDGE_ROWS}x{features}": _k1_edge(torch, features) for features in BF16_WIDTHS})
+    cases["200000x16:255_bins"] = (
+        Xb[:200_000], torch.from_numpy(binning.make_thresholds(X_np[:200_000], 255).astype(np.float32)).cuda()
+    )
+    shapes = {}
+    for label, (X_b, th) in cases.items():
+        got = binning.apply_bins(X_b, th)
+        _widened_equal(f"apply_bins {label}", got, binning.apply_bins(X_b.float(), th))
+        _widened_equal(f"apply_bins {label} (plain)", got, binning._apply_bins(X_b, th))
+        shapes[label] = {"bins": str(got.dtype)}
+    bound_ms, bound_by = _fit_bound("apply_bins", FIT_ROWS, 1, 1, x_bytes=2)
+    f32_bound_ms, _ = _fit_bound("apply_bins", FIT_ROWS, 1, 1)
+    results["apply_bins:bf16"] = {
+        "rows": FIT_ROWS, "max_abs_err": 0.0, "by_shape": shapes,
+        "ms": _event_ms(torch, lambda: binning.apply_bins(Xb, thresholds), 20, flush),
+        "warm_ms": _event_ms(torch, lambda: binning.apply_bins(Xb, thresholds), 50),
+        "f32_ms": _event_ms(torch, lambda: binning.apply_bins(X32, thresholds), 20, flush),
+        "f32_warm_ms": _event_ms(torch, lambda: binning.apply_bins(X32, thresholds), 50),
+        "plain_ms": _event_ms(torch, lambda: binning._apply_bins(Xb, thresholds), 3, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "f32_bound_ms": f32_bound_ms,
+        # torch.searchsorted takes one dtype for both operands
+        "library_ms": None,
+    }
+    # K6: tree lanes (the serve shapes) and a thread a row (the batch lane)
+    forward = {"tree_ensemble_forward:bf16": {"max_abs_err": 0.0, "by_shape": {}},
+               "gbt_forward:bf16": {"max_abs_err": 0.0, "by_shape": {}}}
+    cases = [(KERNEL_ROWS[-1], FEATURES), (BF16_EDGE_ROWS, FEATURES), (KERNEL_ROWS[-1], WIDE_FEATURES)]
+    cases += [(BF16_EDGE_ROWS, features) for features in BF16_WIDTHS if features != FEATURES]
+    cases += [(256, BF16_GLOBAL_FEATURES)]
+    timed = {}
+    for rows, features in cases:
+        X_b, calls = _bf16_forward_calls(torch, rows, features, seed=rows + features)
+        for name, (kernel, plain, classes) in calls.items():
+            got = kernel(X_b)
+            _widened_equal(f"{name} {rows}x{features}", got, kernel(X_b.float()))
+            want = plain(X_b)
+            error = float((got - want).abs().max())
+            if error > TREE_TOL or (name.startswith("tree") and not torch.equal(got, want)):
+                raise AssertionError(f"{name} {rows}x{features}: {error} from the plain version")
+            geometry = trees._forward_geometry(rows, features, TREES, DEPTH, classes)
+            forward[name]["max_abs_err"] = max(forward[name]["max_abs_err"], error)
+            forward[name]["by_shape"][f"{rows}x{features}"] = {
+                "row_threads": geometry.row_threads, "x_staged": geometry.x_staged,
+            }
+            if features == FEATURES:
+                timed[name, rows] = (X_b, kernel, plain)
+    for name in forward:
+        forms = {shape["row_threads"] for shape in forward[name]["by_shape"].values()}
+        staged = {shape["x_staged"] for shape in forward[name]["by_shape"].values()}
+        if forms != {True, False} or staged != {True, False}:
+            raise AssertionError(f"{name}: the checks missed a geometry ({forward[name]['by_shape']})")
+        for rows in (BF16_EDGE_ROWS, KERNEL_ROWS[-1]):
+            X_b, kernel, plain = timed[name, rows]
+            X32 = X_b.float()
+            base_name = BF16_FORMS[name][0]
+            bound_ms, bound_by = _bound(rows, TREES, base_name, x_bytes=2)
+            forward[name][rows] = {
+                "ms": _event_ms(torch, lambda: kernel(X_b), 20, flush),
+                "warm_ms": _event_ms(torch, lambda: kernel(X_b), 50),
+                "f32_ms": _event_ms(torch, lambda: kernel(X32), 20, flush),
+                "f32_warm_ms": _event_ms(torch, lambda: kernel(X32), 50),
+                "plain_ms": _event_ms(torch, lambda: plain(X_b), 3, flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "f32_bound_ms": _bound(rows, TREES, base_name)[0],
+            }
+        # the batch lane's shape
+        forward[name].update(rows=KERNEL_ROWS[-1], library_ms=None, **forward[name].pop(KERNEL_ROWS[-1]))
+        forward[name]["by_rows"] = {BF16_EDGE_ROWS: forward[name].pop(BF16_EDGE_ROWS)}
+    results.update(forward)
+    # K7
+    k7 = {"logistic_loss_grad:bf16": {"max_abs_err": 0.0, "by_classes": {}},
+          "logistic_trial_losses:bf16": {"max_abs_err": 0.0, "by_classes": {}}}
+    mean, scale = logistic.scaler_stats(X_np)
+    X_std = logistic._standardized(X_np, mean, scale)
+    shapes = [(X_std, y_np, CLASSES), (X_std, ten_classes(X_np), DEEP_CLASSES)]
+    for features in BF16_WIDTHS:
+        rows_np = bench_rows(np.random.default_rng(100 + features), BF16_EDGE_ROWS, features)
+        shapes.append((rows_np / 10.0 - 1.0, (rows_np[:, 0] > 10).astype(np.int32), CLASSES))
+    for X_host, labels, classes in shapes:
+        rows, features = X_host.shape
+        rng = np.random.default_rng(classes + features)
+        X_b = torch.from_numpy(np.ascontiguousarray(X_host, dtype=np.float32)).cuda().to(torch.bfloat16)
+        y_dev = torch.from_numpy(labels.astype(np.int32)).cuda()
+
+        def cuda(*shape):
+            return torch.from_numpy((rng.normal(size=shape) * 0.3).astype(np.float32)).cuda()
+
+        W, b, D, d = cuda(features, classes), cuda(classes), cuda(features, classes), cuda(classes)
+        steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X_b.device)
+        W4 = (W[None] + steps[:, None, None] * D[None]).contiguous()
+        b4 = (b[None] + steps[:, None] * d[None]).contiguous()
+        calls = {
+            "logistic_loss_grad:bf16": (
+                lambda X: logistic.loss_and_grad(W, b, X, y_dev, 0.0),
+                lambda X: logistic._loss_fn(W, b, X, y_dev, 0.0),
+            ),
+            "logistic_trial_losses:bf16": (
+                lambda X: logistic.trial_losses(W4, b4, X, y_dev, 0.0),
+                lambda X: logistic._trial_losses(W4, b4, X, y_dev, 0.0),
+            ),
+        }
+        for name, (kernel, plain) in calls.items():
+            got = kernel(X_b)
+            _widened_equal(f"{name} {rows}x{features}, {classes} classes", got, kernel(X_b.float()))
+            want = plain(X_b)
+            got_all = torch.cat([g.reshape(-1) for g in (got if isinstance(got, tuple) else (got,))])
+            want_all = torch.cat([w.reshape(-1) for w in (want if isinstance(want, tuple) else (want,))])
+            error = float((got_all - want_all).abs().max())
+            if error > K7_GRAD_ATOL + K7_LOSS_RTOL * float(want_all.abs().max()):
+                raise AssertionError(f"{name} {rows}x{features}: {error} from the plain twin")
+            k7[name]["max_abs_err"] = max(k7[name]["max_abs_err"], error)
+            if features == FEATURES and rows == FIT_ROWS:
+                X32 = X_b.float()
+                trial = name.startswith("logistic_trial")
+                bound_ms, bound_by = _k7_bound(rows, features, classes, trial, x_bytes=2)
+                k7[name]["by_classes"][classes] = {
+                    "ms": _event_ms(torch, lambda: kernel(X_b), 20, flush),
+                    "warm_ms": _event_ms(torch, lambda: kernel(X_b), 50),
+                    "f32_ms": _event_ms(torch, lambda: kernel(X32), 20, flush),
+                    "f32_warm_ms": _event_ms(torch, lambda: kernel(X32), 50),
+                    "plain_ms": _event_ms(torch, lambda: plain(X_b), 3, flush),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "f32_bound_ms": _k7_bound(rows, features, classes, trial)[0],
+                }
+    for name in k7:
+        k7[name].update(rows=FIT_ROWS, library_ms=None, **k7[name]["by_classes"][CLASSES])
+    results.update(k7)
+    return results
+
+
+def _raw_call(port: int, method: str, path: str, payload: dict) -> tuple:
+    """``(status, Content-Type, body bytes)`` of one request."""
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(), method=method,
+        headers={"Content-Type": "application/json"},
+    )
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(request, timeout=300) as response:
+            return response.status, response.headers.get("Content-Type"), response.read()
+    except urllib.error.HTTPError as error:
+        return error.code, error.headers.get("Content-Type"), error.read()
+
+
+def bf16_images(torch) -> dict:
+    """A t-SNE and a PCA image request over HTTP under ``bf16``: t-SNE
+    answers 201; PCA the reference's 500, whose body is its ``eigh``'s
+    refusal of bfloat16."""
+    from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
+    from learningorchestra_tpu_torch.services import images
+
+    X, labels = embed_blobs(BF16_EMBED_ROWS, 9)
+    store = InMemoryStore()
+    columns = {f"f{k}": X[:, k].astype(np.float64) for k in range(FEATURES)}
+    columns["label"] = labels.astype(np.float64)
+    write_table(store, "blobs", ColumnTable(columns), {"filename": "blobs", "finished": True, "fields": list(columns)})
+    answers = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for method in ("tsne", "pca"):
+            server = ServerThread(images.create_app(store, folder, method)).start()
+            try:
+                started = time.perf_counter()
+                status, content_type, body = _raw_call(
+                    server.port, "POST", "/images/blobs", {f"{method}_filename": method, "label_name": "label"}
+                )
+                answers[method] = {"status": status, "content_type": content_type,
+                                   "body": body.decode(), "wall_s": time.perf_counter() - started}
+            finally:
+                server.stop()
+    if answers["tsne"]["status"] != 201:
+        raise AssertionError(f"bf16: the t-SNE request answered {answers['tsne']}")
+    refusal = f"NotImplementedError: {pca.EIGH_BF16_REFUSAL}"
+    if (answers["pca"]["status"], answers["pca"]["body"]) != (500, refusal):
+        raise AssertionError(f"bf16: the PCA request answered {answers['pca']}, not the reference's refusal")
+    return answers
+
+
+def bf16_sweep(torch) -> dict:
+    """A λ sweep under ``bf16``: its payload and its job kernels stay
+    float32 (the job wrappers refuse bfloat16)."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    X, y = bench_synthetic(BF16_SWEEP_ROWS, 4)
+    grid = [{"reg_param": value} for value in (0.0, 0.1, 0.5, 1.0)]
+    _, payload = sweep.prepare_member("lr", X, y, X[:5000], y[:5000], grid, device=_card(torch), max_iter=5)
+    if payload["X"].dtype != np.float32:
+        raise AssertionError(f"bf16: the sweep's payload is {payload['X'].dtype}")
+    (status, result), = sweep.run_group([payload], _card(torch))
+    if status != "ok":
+        raise AssertionError(f"bf16: the sweep failed {result}")
+    return {"payload_dtype": str(payload["X"].dtype), "points": len(result["points"])}
+
+
+def bf16_build(torch) -> dict:
+    """The five-classifier product build and one ``/predict`` request
+    under ``bf16``, the launch counts set to 0 just before and read just
+    after: every kernel of the build launched, the cached device matrices
+    are bfloat16 (half the float32 bytes), every stored label is its
+    ``.model``'s own prediction."""
+    from learningorchestra_tpu_torch.core import devcache
+    from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+    from learningorchestra_tpu_torch.ml.builder import load_dataframe
+
+    with tempfile.TemporaryDirectory() as folder:
+        store = product_store()
+        plane = ServePlane()
+        server = ServerThread(create_app(store, models_dir=os.path.join(folder, "models"), serve=plane)).start()
+        try:
+            client = _Client(server.port)
+            frames = run_preprocessor(
+                PRODUCT_PREPROCESSOR, load_dataframe(store, "bench_train"), load_dataframe(store, "bench_test")
+            )
+            X_test = frames["features_testing"].feature_matrix("features")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            started = time.perf_counter()
+            status, answer = client.call("POST", "/models", _build_body("bench_train", "bench_test", PRODUCT_PREPROCESSOR, False))
+            if (status, answer) != (201, {"result": "created_file"}):
+                raise AssertionError(f"bf16: the build answered {status} {answer}")
+            status, answered = client.call(
+                "POST", "/models/bench_test_prediction_gb/predict", {"rows": X_test[:PREDICT_ROWS].tolist()}
+            )
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - started
+            launches = kernels.launches()
+            missing = [name for name in BUILD_KERNELS if launches[name] == 0]
+            if missing or status != 200:
+                raise AssertionError(f"bf16: the build never launched {missing} (predict {status})")
+            matrices = [
+                entry for key, entry in devcache.global_devcache()._entries.items() if key[2][0] == "devmat"
+            ]
+            if not matrices or any(
+                entry.value.dtype != torch.bfloat16 or entry.nbytes * 2 != entry.value.numel() * 4
+                for entry in matrices
+            ):
+                raise AssertionError("bf16: the cached device matrices are not bfloat16")
+            metrics = {}
+            for name in MODEL_NAMES:
+                collection = f"bench_test_prediction_{name}"
+                metadata = store.find_one(collection, {"_id": 0})
+                stored = store.read_column_arrays(collection, ["prediction"])["prediction"].to_float64()
+                if not np.array_equal(load_model(metadata["model_checkpoint"]).predict(X_test), stored):
+                    raise AssertionError(f"bf16 {name}: the stored labels are not its checkpoint's")
+                metrics[name] = {key: float(metadata[key]) for key in ("accuracy", "F1")}
+            if answered["result"]["predictions"] != load_model(
+                store.find_one("bench_test_prediction_gb", {"_id": 0})["model_checkpoint"]
+            ).predict(X_test[:PREDICT_ROWS]).tolist():
+                raise AssertionError("bf16: /predict answered other labels than the checkpoint's")
+        finally:
+            server.stop()
+            plane.close()
+    return {
+        "wall_s": wall_s,
+        "launches": {name: launches[name] for name in BUILD_KERNELS},
+        "device_matrices": [
+            {"shape": list(entry.value.shape), "dtype": str(entry.value.dtype), "bytes": entry.nbytes,
+             "f32_bytes": entry.value.numel() * 4}
+            for entry in matrices
+        ],
+        "metrics": metrics,
+    }
+
+
+def bf16_child() -> int:
+    """The ``bf16`` phase's body, run in a child process started with
+    ``LO_DTYPE_POLICY=bf16``: the kernels on bfloat16 X, the main path
+    (the product build and a predict request), the image requests and a
+    sweep. Its last line is the phase's record."""
+    import torch
+
+    from learningorchestra_tpu_torch.utils.dtypepolicy import dtype_policy
+
+    if dtype_policy() != "bf16":
+        raise SystemExit("chip_smoke bf16: the child runs under LO_DTYPE_POLICY=bf16")
+    phase_device(torch)
+    for name in kernels.SOURCES:   # built by the parent: the same sources' libraries
+        kernels.library(name)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    checked = check_bf16_kernels(torch, flush)
+    build = bf16_build(torch)
+    summary = []
+    for name, (base_name, source, replaces) in BF16_FORMS.items():
+        result = checked[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": build["launches"][base_name],
+            **{field: result[field] for field in (
+                "max_abs_err", "rows", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "f32_ms", "f32_warm_ms", "f32_bound_ms",
+            )},
+            **{field: result[field] for field in ("by_shape", "by_rows", "by_classes") if field in result},
+        })
+    emit({
+        "phase": "bf16",
+        "kernels": summary,
+        "build": build,
+        "images": bf16_images(torch),
+        "sweep": bf16_sweep(torch),
+        "nvidia_smi": nvidia_smi_line(),
+    })
+    return 0
+
+
+def phase_bf16(torch, card: str, f32_metrics: "dict | None") -> dict:
+    """Runs :func:`bf16_child` in a child process with
+    ``LO_DTYPE_POLICY=bf16`` (the policy is read once a process), echoes
+    its lines, and fails when it fails. Prints the bfloat16 build's
+    metrics beside the float32 build's (a reading, with no bound)."""
+    env = {**os.environ, "LO_DTYPE_POLICY": "bf16"}
+    started = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "bf16-child"],
+        env=env, capture_output=True, text=True, timeout=BF16_CHILD_TIMEOUT_S,
+    )
+    wall_s = time.perf_counter() - started
+    lines = [line for line in child.stdout.splitlines() if line.strip()]
+    for line in lines:
+        print(line, flush=True)
+    if child.returncode != 0:
+        raise AssertionError(f"bf16: the child exited {child.returncode}:\n{child.stderr[-4000:]}")
+    record = json.loads(lines[-1])
+    if record.get("phase") != "bf16":
+        raise AssertionError(f"bf16: the child's last line is not its record: {lines[-1][:200]}")
+    emit({
+        "phase": "bf16-metrics",
+        "bf16": record["build"]["metrics"],
+        "f32": f32_metrics,
+        "child_wall_s": wall_s,
+        "nvidia_smi": card,
+    })
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -4755,7 +5354,10 @@ def check_bounds(summary) -> None:
                     )
 
 
-PHASES = ("kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack")
+PHASES = (
+    "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
+    "batch", "bf16",
+)
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
 NO_LIBRARY = {
@@ -4884,6 +5486,10 @@ def main(argv) -> int:
         phase_models(torch, device["card"])
     if "stack" in wanted:
         phase_stack(torch, device["card"])
+    batch = phase_batch(torch, device["card"]) if "batch" in wanted else None
+    if "bf16" in wanted:
+        bf16 = phase_bf16(torch, device["card"], batch["f32_metrics"] if batch else None)
+        summary.extend(bf16["kernels"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})
@@ -4900,4 +5506,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["bf16-child"]:
+        sys.exit(bf16_child())
     sys.exit(main(sys.argv[1:]))

@@ -10,18 +10,21 @@ resolves a single ``torch.device``.
 - Float32 products stay full float32: the reference pins
   ``Precision.HIGHEST`` (``ml/trees.py:110-119``), so TF32 is off for
   both cuBLAS and cuDNN.
-- ``LO_DTYPE_POLICY``: only ``f32`` is ported. ``bf16`` raises instead of
-  silently staying float32.
+- ``LO_DTYPE_POLICY`` (``utils/dtypepolicy.py``, read once a process):
+  feature matrices travel and stay on the card as float32 under ``f32``,
+  as bfloat16 under ``bf16``.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Union
 
 import torch
 
-DTYPE_POLICIES = ("f32", "bf16")
+from learningorchestra_tpu_torch.utils.dtypepolicy import dtype_policy
+
+# The float types a feature matrix can have: policy_dtype's two answers.
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -50,18 +53,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def policy_dtype() -> torch.dtype:
-    """The float type feature matrices travel in, from ``LO_DTYPE_POLICY``
-    (same values and validation as the JAX package's
-    ``utils/dtypepolicy.py``)."""
-    raw = os.environ.get("LO_DTYPE_POLICY", "f32")
-    policy = raw.strip() or "f32"
-    if policy not in DTYPE_POLICIES:
-        raise ValueError(
-            f"LO_DTYPE_POLICY must be one of {'|'.join(DTYPE_POLICIES)}, "
-            f"got {raw!r}"
-        )
-    if policy == "bf16":
-        raise NotImplementedError(
-            "LO_DTYPE_POLICY=bf16 is not yet ported; unset it or use f32"
-        )
-    return torch.float32
+    """The float type feature matrices travel in: ``bfloat16`` under
+    ``LO_DTYPE_POLICY=bf16``, else ``float32``. A view of
+    ``utils.dtypepolicy.dtype_policy``, read once a process. Integer,
+    boolean and mask tensors never take it (reference
+    ``parallel/sharding.py:78-89``)."""
+    return torch.bfloat16 if dtype_policy() == "bf16" else torch.float32

@@ -6,8 +6,9 @@ every verb returns a new frame sharing unchanged column arrays.
 
 The port's copy of ``learningorchestra_tpu/frame/dataframe.py``. Only
 :meth:`DataFrame.device_matrix` and :meth:`DataFrame.device_labels`
-differ: they copy to one ``torch.device``, not a mesh, and cache on the
-frame only (no process-wide content cache yet).
+differ: they copy to one ``torch.device``, not a mesh. Both cache twice,
+as the reference's: on the frame, and in the process-wide
+content-addressed device cache (``core/devcache.py``).
 """
 
 from __future__ import annotations
@@ -263,29 +264,30 @@ class DataFrame:
         return cached
 
     def device_matrix(self, features_col: str, device=None):
-        """The assembled feature matrix as a float32 tensor on ``device``
-        (None: the CUDA card), made by one host-to-device copy and cached
-        on the frame: when N classifiers evaluate and predict over the
-        same frame, the copy happens once, and a frame aliased as both
-        the eval and the test frame hands the model the same tensor (the
-        reference re-reads its dataframes per evaluator instead,
-        model_builder.py:205-224)."""
-        from learningorchestra_tpu_torch.ml.base import shard_matrix
+        """The assembled feature matrix as a tensor on ``device`` (None: the
+        CUDA card) in the policy's float type, cached twice: on the frame
+        (N classifiers predicting over one test or eval frame share one
+        copy; the reference re-reads its dataframes per evaluator instead,
+        model_builder.py:205-224) and in the process-wide device cache by
+        content (``core/devcache.content_device_matrix``), so the same
+        bytes across requests (a frame rebuilt from an unchanged
+        collection and preprocessor) reuse one device copy."""
+        from learningorchestra_tpu_torch.core.devcache import content_device_matrix
 
         device = resolve_device(device)
         return self._device_cached(
             (features_col, device),
-            lambda: shard_matrix(self.feature_matrix(features_col), device),
+            lambda: content_device_matrix(self.feature_matrix(features_col), device),
         )
 
     def device_labels(self, label_col: str, device=None):
         """The label vector as :class:`~learningorchestra_tpu_torch.ml.base.
         DeviceLabels` (an int64 tensor on ``device`` and its class count),
-        cached on the frame like :meth:`device_matrix`."""
-        from learningorchestra_tpu_torch.ml.base import shard_labels
+        cached on the frame and by content like :meth:`device_matrix`."""
+        from learningorchestra_tpu_torch.core.devcache import content_device_labels
 
         device = resolve_device(device)
         return self._device_cached(
             ("labels:" + label_col, device),
-            lambda: shard_labels(self.label_vector(label_col), device),
+            lambda: content_device_labels(self.label_vector(label_col), device),
         )

@@ -156,11 +156,13 @@ def library(name: str) -> ctypes.CDLL:
 def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lo_tree_forward_prepare.argtypes = [
+        c_int,                               # X is bfloat16 (else float32)
         c_int, c_int, c_int, c_int,          # gbt, staged, x staged, a thread a row
         c_int, c_int,                        # shared bytes, device
         ctypes.POINTER(c_int), ctypes.POINTER(c_int),   # out: blocks an SM, SMs
     ]
     lib.lo_tree_forward.argtypes = [
+        c_int,                               # X is bfloat16 (else float32)
         c_int, c_int, c_int, c_int,          # gbt, staged, x staged, a thread a row
         ptr, ptr, ptr, ptr, ptr,             # X, features, thresholds, leaf values, out
         c_int, c_int, c_int, c_int, c_int,   # rows, F, trees, depth, values a leaf
@@ -177,7 +179,8 @@ def _bind_tree_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_apply_bins.argtypes = [
-        ptr, ptr, ptr, c_int,                # X, thresholds (or their padded table), bins, bin bytes
+        ptr, c_int,                          # X, X is bfloat16 (else float32)
+        ptr, ptr, c_int,                     # thresholds (or their padded table), bins, bin bytes
         c_int, c_int, c_int, c_int,          # rows, F, thresholds per feature, search steps
         c_int, c_int, c_int, c_int,          # jobs, jobs a group, features a window, staged
         c_longlong, c_longlong,              # X's and thresholds' job strides
@@ -240,7 +243,8 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_logistic_loss_grad.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W, b, partials, out
+        ptr, c_int,                          # X, X is bfloat16 (else float32)
+        ptr, ptr, ptr, ptr, ptr, ptr,        # y, weights (or null), W, b, partials, out
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int,                        # chunks, rows/chunk
@@ -248,7 +252,8 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_logistic_trial_losses.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,   # X, y, weights (or null), W4, b4, partials, out
+        ptr, c_int,                          # X, X is bfloat16 (else float32)
+        ptr, ptr, ptr, ptr, ptr, ptr,        # y, weights (or null), W4, b4, partials, out
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int,                        # chunks, rows/chunk

@@ -91,6 +91,14 @@
 //     `_k7_layout`): the tile's rows at an odd stride, so that a warp's
 //     threads, a row each, read 32 different banks; the float64 terms and
 //     the scratch at strides that keep a warp's reads on different banks.
+//   - X may be bfloat16 (LO_DTYPE_POLICY=bf16: the solo fit's
+//     standardized rows; a sweep's job axis stays float32): a tile's
+//     values are widened exactly to float32 as they are staged (plain
+//     loads and stores, not cp.async, which copies bytes as they are), and
+//     everything after is unchanged, so the outputs are those of the
+//     float32 kernel on the widened X (the reference's jnp promotes the
+//     bfloat16 X to float32 in X @ W). bfloat16 rows are always staged:
+//     the wrapper refuses a geometry that reads x from global memory.
 //   - Build without -use_fast_math: expf and logf are the accurate ones.
 
 #include <cuda_runtime.h>
@@ -98,6 +106,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 // A block's geometry and shared memory, laid out by the wrapper
 // (ml/logistic.py `_k7_layout`, field for field its `_K7Layout`): the
@@ -186,19 +195,38 @@ struct Tile {
         w(buffer + static_cast<size_t>(tile) * (xs + 1)) {}
 };
 
+// A bfloat16 value's bits; widened to float32 by a shift, exactly
+// (__bfloat162float's bits).
+typedef unsigned short bf16_bits;
+
+// x's element at `at` into the tile: a 4-byte cp.async for float32, a
+// load widened exactly and a store for bfloat16.
+__device__ __forceinline__ void stage_x(float* to, const float* from) { copy_async4(to, from); }
+__device__ __forceinline__ void stage_x(float* to, const bf16_bits* from) {
+  *to = __uint_as_float(static_cast<unsigned>(__ldg(from)) << 16);
+}
+
+// Rows of X in global memory as float32, for the geometries that do not
+// stage x (float32 X only: the wrapper stages every bfloat16 tile).
+__device__ __forceinline__ const float* global_rows(const float* X, size_t offset) {
+  return X + offset;
+}
+__device__ __forceinline__ const float* global_rows(const bf16_bits*, size_t) { return nullptr; }
+
 // Issue the copies of rows [start, start + n) of the block's rows into
 // `tile` (4-byte cp.async: x's row stride in shared memory is odd).
 // Element i = r * F + f of the rows goes to thread i % kThreads.
-__device__ __forceinline__ void stage_tile(const Tile& tile, const float* __restrict__ X,
+template <typename In>
+__device__ __forceinline__ void stage_tile(const Tile& tile, const In* __restrict__ X,
                                            const int* __restrict__ y,
                                            const float* __restrict__ weights, int start,
                                            int n, int F, int xs) {
   if (xs > 0) {
     const int step_r = kThreads / F, step_f = kThreads % F;
     int r = threadIdx.x / F, f = threadIdx.x % F;
-    const float* rows = X + static_cast<size_t>(start) * F;
+    const In* rows = X + static_cast<size_t>(start) * F;
     while (r < n) {
-      copy_async4(tile.x + r * xs + f, rows + static_cast<size_t>(r) * F + f);
+      stage_x(tile.x + r * xs + f, rows + static_cast<size_t>(r) * F + f);
       r += step_r;
       f += step_f;
       if (f >= F) {
@@ -590,9 +618,9 @@ __device__ __forceinline__ void wide_rows(Sums<kCB, kW>& acc, const float* x, in
 // db, F*C + C of the loss and, with weights, F*C + C + 1 of the weights.
 // Jobs of a group share their rows (the wrapper makes groups of more than
 // one job only then); a group of one may have its own.
-template <int kC, int kForm>
+template <typename In, int kC, int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
-    loss_grad_kernel(const float* __restrict__ X, const int* __restrict__ y,
+    loss_grad_kernel(const void* __restrict__ X_rows, const int* __restrict__ y,
                      const float* __restrict__ weights, const float* __restrict__ W,
                      const float* __restrict__ b, double* __restrict__ partials, int rows,
                      int F, int C, int jobs, long long x_job_stride,
@@ -607,7 +635,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int cells_out = F * C + C + 1 + (weighted ? 1 : 0);
   const int job0 = blockIdx.y * group;
   const int G = min(group, jobs - job0);
-  X += job0 * x_job_stride;
+  const In* X = static_cast<const In*>(X_rows) + job0 * x_job_stride;
   y += job0 * row_job_stride;
   if (weighted) weights += job0 * row_job_stride;
   W += static_cast<size_t>(job0) * F * C;
@@ -669,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int start = row_begin + t * tile;
     const int n = min(tile, row_end - start);
     const Tile here(ring + (t & 1) * layout.buffer_floats, tile, xs);
-    const float* x = xs > 0 ? here.x : X + static_cast<size_t>(start) * F;
+    const float* x = xs > 0 ? here.x : global_rows(X, static_cast<size_t>(start) * F);
     const int x_stride = xs > 0 ? xs : F;
     async_wait_all();
     __syncthreads();  // the tile has landed; the previous tile's sums are done
@@ -790,9 +818,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 // more the weights'; the groups' sums go to shared memory, where their
 // owners add them in group order (as the gradient's narrow form does)
 // while the next tile is computed. One barrier a tile.
-template <int kC>
+template <typename In, int kC>
 __global__ void __launch_bounds__(kThreads, 2)
-    trial_losses_kernel(const float* __restrict__ X, const int* __restrict__ y,
+    trial_losses_kernel(const void* __restrict__ X_rows, const int* __restrict__ y,
                         const float* __restrict__ weights, const float* __restrict__ W4,
                         const float* __restrict__ b4, double* __restrict__ partials,
                         int rows, int F, int C, int jobs, long long x_job_stride,
@@ -805,7 +833,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int G = min(group, jobs - job0);
   const int set = kCandidates * F * C;  // a job's W4 floats
   const int cells = G * kCandidates + (weighted ? 1 : 0);
-  X += job0 * x_job_stride;
+  const In* X = static_cast<const In*>(X_rows) + job0 * x_job_stride;
   y += job0 * row_job_stride;
   if (weighted) weights += job0 * row_job_stride;
   W4 += static_cast<size_t>(job0) * set;
@@ -837,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int start = row_begin + t * tile;
     const int n = min(tile, row_end - start);
     const Tile here(ring + (t & 1) * layout.buffer_floats, tile, xs);
-    const float* x = xs > 0 ? here.x : X + static_cast<size_t>(start) * F;
+    const float* x = xs > 0 ? here.x : global_rows(X, static_cast<size_t>(start) * F);
     const int x_stride = xs > 0 ? xs : F;
     double* tile_sums = group_sums_at + (t & 1) * cells * tile_groups;
     async_wait_all();
@@ -960,7 +988,7 @@ __global__ void __launch_bounds__(kThreads)
                        __ddiv_rn(sum_chunks(partials, chunks, stride, i), denominator));
 }
 
-typedef void (*K7Kernel)(const float*, const int*, const float*, const float*, const float*,
+typedef void (*K7Kernel)(const void*, const int*, const float*, const float*, const float*,
                          double*, int, int, int, int, long long, long long, int, const Layout);
 
 // C = 2 in registers when the parameters allow 8-byte loads.
@@ -969,19 +997,32 @@ bool two_classes(int C, const void* W, const void* b) {
          reinterpret_cast<uintptr_t>(b) % 8 == 0;
 }
 
-K7Kernel loss_grad_for(bool two, int form) {
-  static const K7Kernel table[2][3] = {
-      {loss_grad_kernel<0, kNarrow>, loss_grad_kernel<0, kWide>,
-       loss_grad_kernel<0, kWideStaged>},
-      {loss_grad_kernel<2, kNarrow>, loss_grad_kernel<2, kWide>,
-       loss_grad_kernel<2, kWideStaged>},
+K7Kernel loss_grad_for(bool bf16, bool two, int form) {
+  static const K7Kernel table[2][2][3] = {
+      {{loss_grad_kernel<float, 0, kNarrow>, loss_grad_kernel<float, 0, kWide>,
+        loss_grad_kernel<float, 0, kWideStaged>},
+       {loss_grad_kernel<float, 2, kNarrow>, loss_grad_kernel<float, 2, kWide>,
+        loss_grad_kernel<float, 2, kWideStaged>}},
+      {{loss_grad_kernel<bf16_bits, 0, kNarrow>, loss_grad_kernel<bf16_bits, 0, kWide>,
+        loss_grad_kernel<bf16_bits, 0, kWideStaged>},
+       {loss_grad_kernel<bf16_bits, 2, kNarrow>, loss_grad_kernel<bf16_bits, 2, kWide>,
+        loss_grad_kernel<bf16_bits, 2, kWideStaged>}},
   };
-  return table[two ? 1 : 0][form];
+  return table[bf16 ? 1 : 0][two ? 1 : 0][form];
+}
+
+K7Kernel trial_losses_for(bool bf16, bool two) {
+  static const K7Kernel table[2][2] = {
+      {trial_losses_kernel<float, 0>, trial_losses_kernel<float, 2>},
+      {trial_losses_kernel<bf16_bits, 0>, trial_losses_kernel<bf16_bits, 2>},
+  };
+  return table[bf16 ? 1 : 0][two ? 1 : 0];
 }
 
 bool valid_geometry(int F, int C, int jobs, const Layout& layout, long long x_job_stride,
-                    long long row_job_stride, int tile_multiple) {
+                    long long row_job_stride, int tile_multiple, int x_bf16) {
   if (F <= 0 || C <= 0 || jobs < 0 || layout.group <= 0) return false;
+  if (x_bf16 && layout.xs <= 0) return false;  // bfloat16 rows are staged, widened
   if (layout.tile < tile_multiple || layout.tile % tile_multiple != 0) return false;
   if (layout.cells > kMaxOwned * kThreads) return false;
   // the jobs of a group share their rows
@@ -998,12 +1039,12 @@ extern "C" {
 // by the caller. `layout` is the wrapper's geometry and shared-memory
 // layout (ml/logistic.py `_k7_layout`).
 
-// J = `jobs` jobs: X of job j at j * x_job_stride floats (0: one shared
-// X), y and weights (null: unweighted) at j * row_job_stride entries, W
+// J = `jobs` jobs: X (float32, or bfloat16 when x_bf16) of job j at
+// j * x_job_stride values (0: one shared X), y and weights (null: unweighted) at j * row_job_stride entries, W
 // (J, F, C), b (J, C). partials: J * chunks * (F*C + C + 1 + weighted)
 // doubles of scratch; out: (J, F*C + C + 1) floats, [dW (F, C) | db (C) |
 // loss] a job.
-int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
+int lo_logistic_loss_grad(const void* X, int x_bf16, const int* y, const float* weights,
                           const float* W, const float* b, double* partials,
                           float* out, int rows, int F, int C, int jobs,
                           long long x_job_stride, long long row_job_stride,
@@ -1012,7 +1053,7 @@ int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   const int form = layout->form, group = layout->group;
-  if (!valid_geometry(F, C, jobs, *layout, x_job_stride, row_job_stride, kGroupRows) ||
+  if (!valid_geometry(F, C, jobs, *layout, x_job_stride, row_job_stride, kGroupRows, x_bf16) ||
       form < kNarrow || form > kWideStaged)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1026,7 +1067,9 @@ int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
     windows = (group * per_job + kThreads - 1) / kThreads;
     if ((group > 1 && windows > 1) || windows > kMaxGridYZ) return cudaErrorInvalidValue;
   }
-  const K7Kernel kernel = loss_grad_for(two_classes(C, W, b), form);
+  const K7Kernel kernel = loss_grad_for(x_bf16 != 0, two_classes(C, W, b), form);
+  const char* X_bytes = static_cast<const char*>(X);
+  const long long x_value_bytes = x_bf16 ? 2 : 4;
   if (chunks > 0) {
     error = allow_shared(kernel, layout->bytes);
     if (error != cudaSuccess) return error;
@@ -1039,7 +1082,7 @@ int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
     if (chunks > 0) {
       const dim3 grid(chunks, (launch_jobs + group - 1) / group, static_cast<int>(windows));
       kernel<<<grid, kThreads, layout->bytes, s>>>(
-          X + j0 * x_job_stride, y + j0 * row_job_stride,
+          X_bytes + j0 * x_job_stride * x_value_bytes, y + j0 * row_job_stride,
           weighted ? weights + j0 * row_job_stride : nullptr,
           W + static_cast<size_t>(j0) * F * C, b + static_cast<size_t>(j0) * C,
           launch_partials, rows, F, C, launch_jobs, x_job_stride, row_job_stride,
@@ -1063,7 +1106,7 @@ int lo_logistic_loss_grad(const float* X, const int* y, const float* weights,
 // Jobs as above, W4 (J, 4, F, C), b4 (J, 4, C); partials: J * chunks *
 // (4 + weighted) doubles of scratch; out: (J, 4) floats, the (weighted)
 // mean nll at each candidate.
-int lo_logistic_trial_losses(const float* X, const int* y,
+int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
                              const float* weights, const float* W4,
                              const float* b4, double* partials, float* out,
                              int rows, int F, int C, int jobs,
@@ -1074,13 +1117,14 @@ int lo_logistic_trial_losses(const float* X, const int* y,
   if (error != cudaSuccess) return error;
   const int group = layout->group;
   // a tile holds whole 64-row warp items
-  if (!valid_geometry(F, C, jobs, *layout, x_job_stride, row_job_stride, kWarpRows))
+  if (!valid_geometry(F, C, jobs, *layout, x_job_stride, row_job_stride, kWarpRows, x_bf16))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int weighted = weights != nullptr ? 1 : 0;
   const int sums = kCandidates + weighted;
-  const K7Kernel kernel =
-      two_classes(C, W4, b4) ? trial_losses_kernel<2> : trial_losses_kernel<0>;
+  const K7Kernel kernel = trial_losses_for(x_bf16 != 0, two_classes(C, W4, b4));
+  const char* X_bytes = static_cast<const char*>(X);
+  const long long x_value_bytes = x_bf16 ? 2 : 4;
   if (chunks > 0) {
     error = allow_shared(kernel, layout->bytes);
     if (error != cudaSuccess) return error;
@@ -1091,7 +1135,7 @@ int lo_logistic_trial_losses(const float* X, const int* y,
     double* launch_partials = partials + static_cast<size_t>(j0) * std::max(chunks, 1) * sums;
     if (chunks > 0) {
       kernel<<<dim3(chunks, (launch_jobs + group - 1) / group), kThreads, layout->bytes, s>>>(
-          X + j0 * x_job_stride, y + j0 * row_job_stride,
+          X_bytes + j0 * x_job_stride * x_value_bytes, y + j0 * row_job_stride,
           weighted ? weights + j0 * row_job_stride : nullptr,
           W4 + static_cast<size_t>(j0) * kCandidates * F * C,
           b4 + static_cast<size_t>(j0) * kCandidates * C, launch_partials, rows, F, C,

@@ -16,8 +16,9 @@
 //
 // What bounds them on this card, at the default fit (N = 1,000,000 rows,
 // F = 16 features, B = 32 bins, depth 5, K = 2 channels):
-//   - K1 reads X (64 MB) and writes int8 bins (16 MB): ~24 us of bytes;
-//     its searches (5 a value at 32 bins) come second.
+//   - K1 reads X (64 MB; 32 MB of bfloat16 under LO_DTYPE_POLICY=bf16) and
+//     writes int8 bins (16 MB): ~24 us of bytes (~14 us at bfloat16); its
+//     searches (5 a value at 32 bins) come second.
 //   - K2 reads bins, node and channels once per level (28 MB): ~8.4 us.
 //     Its counts path also zeroes, flushes and rounds the output (a
 //     level's 64 KB) and its sums path writes and reads a chunk's float64
@@ -107,6 +108,7 @@
 #include <stdio.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -170,7 +172,74 @@ struct Window {
 //     registers (four blocks an SM), so no partial second wave trails the
 //     grid. (A double-buffered cp.async ring of X tiles was slower at one
 //     job: its barriers cost more than the latency it hid.)
+//   - X may be bfloat16 (LO_DTYPE_POLICY=bf16, the one-tree fits; the job
+//     form stays float32): each value is widened exactly to float32 as it
+//     is loaded, and the search is unchanged, so the bins are those of the
+//     float32 kernel on the widened X (the reference's jnp promotes the
+//     bfloat16 X to float32 against its float32 thresholds). A row is read
+//     as 16-byte words of 8 values where F and the window are multiples of
+//     8 (8-byte words of 4 for int32 bins), else value by value.
 constexpr int kBinThreads = 256;
+
+// A bfloat16 value's bits; widened to float32 by a shift, exactly
+// (__bfloat162float's bits).
+typedef unsigned short bf16_bits;
+__device__ __forceinline__ float widen(bf16_bits bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+// The two bfloat16 values of a 32-bit word, the lower address first.
+__device__ __forceinline__ void widen_pair(unsigned word, float* value) {
+  value[0] = __uint_as_float(word << 16);
+  value[1] = __uint_as_float(word & 0xffff0000u);
+}
+
+// kPerWord values of a row from x: as 16-byte words (`vector`: x on 16
+// bytes and width a multiple of 4 floats), else value by value, 0 past
+// `width`.
+template <int kPerWord>
+__device__ __forceinline__ void load_values(const float* x, int width, bool vector, float* value) {
+  if (vector) {
+#pragma unroll
+    for (int q = 0; q < kPerWord / 4; ++q) {
+      if (4 * q >= width) break;
+      const float4 word = __ldg(reinterpret_cast<const float4*>(x) + q);
+      value[4 * q] = word.x;
+      value[4 * q + 1] = word.y;
+      value[4 * q + 2] = word.z;
+      value[4 * q + 3] = word.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerWord; ++i) value[i] = i < width ? __ldg(x + i) : 0.0f;
+  }
+}
+// bfloat16: 16-byte words of 8 values (8-byte words of 4 when kPerWord
+// is 4) where `vector` (x on 16 bytes, width a multiple of 8 values, or 4
+// at kPerWord 4), each widened exactly.
+template <int kPerWord>
+__device__ __forceinline__ void load_values(const bf16_bits* x, int width, bool vector,
+                                            float* value) {
+  if (vector) {
+    if constexpr (kPerWord >= 8) {
+#pragma unroll
+      for (int q = 0; q < kPerWord / 8; ++q) {
+        if (8 * q >= width) break;
+        const uint4 word = __ldg(reinterpret_cast<const uint4*>(x) + q);
+        widen_pair(word.x, value + 8 * q);
+        widen_pair(word.y, value + 8 * q + 2);
+        widen_pair(word.z, value + 8 * q + 4);
+        widen_pair(word.w, value + 8 * q + 6);
+      }
+    } else {
+      const uint2 word = __ldg(reinterpret_cast<const uint2*>(x));
+      widen_pair(word.x, value);
+      widen_pair(word.y, value + 2);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerWord; ++i) value[i] = i < width ? widen(__ldg(x + i)) : 0.0f;
+  }
+}
 
 // The count of a padded row's entries below x, which is
 // searchsorted(side=left) on the feature's sorted thresholds: a bisection
@@ -204,9 +273,9 @@ __device__ __forceinline__ void set_bin(uint4& word, int i, int bin, int32_t) {
 // else the padded (F, 2^steps) table; X of job j at j * x_job_stride (0:
 // shared; a group of one job when not); bins (J, rows, F). At most 64
 // registers a thread: four blocks an SM.
-template <typename Bin, bool kStaged, int kSteps>
+template <typename In, typename Bin, bool kStaged, int kSteps>
 __global__ void __launch_bounds__(kBinThreads, 4)
-    apply_bins_kernel(const float* __restrict__ X, const float* __restrict__ thresholds,
+    apply_bins_kernel(const In* __restrict__ X, const float* __restrict__ thresholds,
                       Bin* __restrict__ bins, int rows, int num_features,
                       int num_thresholds, int steps, int jobs, int group,
                       int window_features, long long x_job_stride,
@@ -250,25 +319,13 @@ __global__ void __launch_bounds__(kBinThreads, 4)
     for (int tile = blockIdx.x / groups; tile < tiles; tile += tile_blocks) {
       const int r = tile * kBinThreads + threadIdx.x;
       if (r >= rows) continue;
-      const float* row_x = X + static_cast<size_t>(r) * F + f0;
+      const In* row_x = X + static_cast<size_t>(r) * F + f0;
       Bin* row_bins = bins + static_cast<size_t>(r) * F + f0;
       for (int c0 = 0; c0 < wf; c0 += kPerWord) {
         const int width = min(kPerWord, wf - c0);
         float value[kPerWord];
-        if (vector_x) {  // F, window_features, f0 and c0 multiples of 4: so is width
-#pragma unroll
-          for (int q = 0; q < kPerWord / 4; ++q) {
-            if (4 * q >= width) break;
-            const float4 word = __ldg(reinterpret_cast<const float4*>(row_x + c0) + q);
-            value[4 * q] = word.x;
-            value[4 * q + 1] = word.y;
-            value[4 * q + 2] = word.z;
-            value[4 * q + 3] = word.w;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < kPerWord; ++i) value[i] = i < width ? __ldg(row_x + c0 + i) : 0.0f;
-        }
+        // vector_x: F, window_features, f0 and c0 multiples of a word's values
+        load_values<kPerWord>(row_x + c0, width, vector_x != 0, value);
         for (int jj = 0; jj < group_jobs; ++jj) {
           const float* t = table + jj * table_job_stride + static_cast<size_t>(c0) * P;
           Bin* out = row_bins + jj * out_job_stride + c0;
@@ -1355,16 +1412,18 @@ int grid_for(long long items, int max_blocks) {
 // (or jobs) past it go in groups of launches.
 constexpr int kMaxGridYZ = 65535;
 
-template <typename Bin, bool kStaged, int kSteps>
-cudaError_t launch_apply_bins_as(const float* X, const float* thresholds, void* bins, int rows,
+template <typename In, typename Bin, bool kStaged, int kSteps>
+cudaError_t launch_apply_bins_as(const In* X, const float* thresholds, void* bins, int rows,
                                  int num_features, int num_thresholds, int steps, int jobs,
                                  int group, int window_features, long long x_job_stride,
                                  long long thresholds_job_stride, cudaStream_t stream) {
-  const auto kernel = apply_bins_kernel<Bin, kStaged, kSteps>;
+  const auto kernel = apply_bins_kernel<In, Bin, kStaged, kSteps>;
   constexpr int kPerWord = 16 / sizeof(Bin);
-  const int vector_x = num_features % 4 == 0 && window_features % 4 == 0 &&
+  // a word of X: 4 floats, or 8 bfloat16 values
+  constexpr int kXWord = 16 / sizeof(In);
+  const int vector_x = num_features % kXWord == 0 && window_features % kXWord == 0 &&
                        reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                       x_job_stride % 4 == 0;
+                       x_job_stride % kXWord == 0;
   const int vector_bins = (num_features * sizeof(Bin)) % 16 == 0 &&
                           window_features % kPerWord == 0 &&
                           reinterpret_cast<uintptr_t>(bins) % 16 == 0;
@@ -1390,14 +1449,14 @@ cudaError_t launch_apply_bins_as(const float* X, const float* thresholds, void* 
 }
 
 // The search unrolled at 32 and 256 entries a row (32 and 255 bins).
-template <typename Bin, bool kStaged>
-cudaError_t launch_apply_bins(const float* X, const float* thresholds, void* bins, int rows,
+template <typename In, typename Bin, bool kStaged>
+cudaError_t launch_apply_bins(const In* X, const float* thresholds, void* bins, int rows,
                               int num_features, int num_thresholds, int steps, int jobs,
                               int group, int window_features, long long x_job_stride,
                               long long thresholds_job_stride, cudaStream_t stream) {
-  const auto launch = steps == 5   ? launch_apply_bins_as<Bin, kStaged, 5>
-                      : steps == 8 ? launch_apply_bins_as<Bin, kStaged, 8>
-                                   : launch_apply_bins_as<Bin, kStaged, 0>;
+  const auto launch = steps == 5   ? launch_apply_bins_as<In, Bin, kStaged, 5>
+                      : steps == 8 ? launch_apply_bins_as<In, Bin, kStaged, 8>
+                                   : launch_apply_bins_as<In, Bin, kStaged, 0>;
   return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
                 window_features, x_job_stride, thresholds_job_stride, stream);
 }
@@ -1599,35 +1658,35 @@ extern "C" {
 // by the caller. `bin_bytes` is 1 for int8 bins and 4 for int32 bins.
 
 // J = `jobs` jobs in groups of `group` (1 unless x_job_stride is 0): X
-// of job j at j * x_job_stride floats; its thresholds (F, num_thresholds)
+// (float32, or bfloat16 when x_bf16) of job j at j * x_job_stride values; its thresholds (F, num_thresholds)
 // at j * thresholds_job_stride (0: shared), staged in shared memory in
 // windows of `window_features` features when `staged`, else a padded (F,
 // 2^steps) table in global memory, +inf past the thresholds; 2^steps >
 // num_thresholds. bins: (J, rows, F). A group's blocks walk the rows'
 // tiles, as many blocks in all as the card holds at once.
-int lo_apply_bins(const float* X, const float* thresholds, void* bins, int bin_bytes, int rows,
-                  int num_features, int num_thresholds, int steps, int jobs, int group,
+int lo_apply_bins(const void* X, int x_bf16, const float* thresholds, void* bins, int bin_bytes,
+                  int rows, int num_features, int num_thresholds, int steps, int jobs, int group,
                   int window_features, int staged, long long x_job_stride,
                   long long thresholds_job_stride, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || num_features <= 0 || jobs <= 0) return cudaSuccess;
   if (group <= 0 || window_features <= 0 || steps < 0 || steps > 30 ||
-      (1 << steps) <= num_thresholds || (x_job_stride != 0 && group != 1))
+      (1 << steps) <= num_thresholds || (x_job_stride != 0 && group != 1) ||
+      (bin_bytes != 1 && bin_bytes != 4))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1) {
-    const auto launch = staged ? launch_apply_bins<int8_t, true> : launch_apply_bins<int8_t, false>;
-    return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
-                  window_features, x_job_stride, thresholds_job_stride, s);
-  }
-  if (bin_bytes == 4) {
-    const auto launch =
-        staged ? launch_apply_bins<int32_t, true> : launch_apply_bins<int32_t, false>;
-    return launch(X, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
-                  window_features, x_job_stride, thresholds_job_stride, s);
-  }
-  return cudaErrorInvalidValue;
+  const auto pick = [&](auto x) {
+    using In = std::remove_const_t<std::remove_pointer_t<decltype(x)>>;
+    if (bin_bytes == 1)
+      return (staged ? launch_apply_bins<In, int8_t, true> : launch_apply_bins<In, int8_t, false>)(
+          x, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
+          window_features, x_job_stride, thresholds_job_stride, s);
+    return (staged ? launch_apply_bins<In, int32_t, true> : launch_apply_bins<In, int32_t, false>)(
+        x, thresholds, bins, rows, num_features, num_thresholds, steps, jobs, group,
+        window_features, x_job_stride, thresholds_job_stride, s);
+  };
+  return x_bf16 ? pick(static_cast<const bf16_bits*>(X)) : pick(static_cast<const float*>(X));
 }
 
 // T = `trees` trees, each with its own node (T, rows) and channels (T,

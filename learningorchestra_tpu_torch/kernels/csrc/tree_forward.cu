@@ -15,7 +15,8 @@
 //     the bytes take nanoseconds: what is left is latency, the launch and
 //     the chain of dependent loads of a walk.
 //   - At the batch lane's N = 1,048,576 rows it moves ~72 MB, so the
-//     bound is ~72 MB / 3.35 TB/s ~= 21 us.
+//     bound is ~72 MB / 3.35 TB/s ~= 21 us; with bfloat16 X
+//     (LO_DTYPE_POLICY=bf16) ~40 MB, ~12 us.
 //   - Over a job axis whose jobs share X, the rows count once: a dt
 //     sweep's 8 slots of 200,000 eval rows move ~26 MB, ~8.8 us.
 //
@@ -68,6 +69,13 @@
 //     card holds at once (the occupancy API, asked once per device and
 //     form by the wrapper), registers capped for kMinBlocks blocks an SM;
 //     two barriers a tile (and one a pass in passes).
+//   - X may be bfloat16 (LO_DTYPE_POLICY=bf16; the job form stays
+//     float32): each value is widened exactly to float32 where it is
+//     loaded (as the tile is staged, a 16-byte word of 8 values where F is
+//     a multiple of 8; in place where rows are read from global memory),
+//     and the walk and the sums are unchanged, so the outputs are those of
+//     the float32 kernel on the widened X (the reference's jnp promotes
+//     the bfloat16 value to float32 against its float32 threshold).
 // Build without -use_fast_math.
 
 #include <cuda_runtime.h>
@@ -75,6 +83,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -91,12 +100,12 @@ constexpr int kMinBlocks = 4;
 
 // One launch's operands and geometry (ml/trees.py `_forward_geometry`).
 struct Forward {
-  const float* X;            // the first job's rows (rows, F)
+  const void* X;             // the first job's rows (rows, F), float32 or bfloat16
   const int* features;       // (J, T, nodes)
   const float* thresholds;   // (J, T, nodes)
   const float* values;       // the leaves' values: (J, T, leaves, C), gb's (T, leaves)
   float* out;                // (J, rows, C), gb's (rows, 2)
-  long long x_job_stride;    // floats from one job's rows to the next's (0: shared)
+  long long x_job_stride;    // values from one job's rows to the next's (0: shared)
   int rows, num_features, trees, depth;
   int classes;               // values a leaf: C, or 1 for gb
   int jobs;                  // jobs of this launch
@@ -127,35 +136,77 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// Staging item i of a tile: the 16-byte word q (or the float q, where rows
+// A bfloat16 value's bits; widened to float32 by a shift, exactly
+// (__bfloat162float's bits).
+typedef unsigned short bf16_bits;
+__device__ __forceinline__ float widen(bf16_bits bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+__device__ __forceinline__ float load_x(const float* x) { return __ldg(x); }
+__device__ __forceinline__ float load_x(const bf16_bits* x) { return widen(__ldg(x)); }
+
+// Values of X in a 16-byte word: 4 floats, or 8 bfloat16 values.
+template <typename In>
+constexpr int kWordValues = 16 / sizeof(In);
+
+// Staging item i of a tile: the 16-byte word q (or the value q, where rows
 // do not fall on 16 bytes) of row r, q = i >> log_r, r = i % R, so that a
-// warp loads one word of 32 rows and stores each of its floats into one
-// feature column: 32 consecutive entries, distinct banks. Rows past the
-// tile's n read 0.
-__device__ __forceinline__ float4 load_item(const float* tile_x, int item, int n,
-                                            int num_features, int log_r, bool vector) {
+// warp loads one word of 32 rows and stores each of its values into one
+// feature column: 32 consecutive entries, distinct banks. The word's raw
+// bits; rows past the tile's n read 0.
+template <typename In>
+__device__ __forceinline__ uint4 load_item(const In* tile_x, int item, int n, int num_features,
+                                           int log_r, bool vector) {
   const int r = item & ((1 << log_r) - 1);
   const int q = item >> log_r;
-  if (r >= n) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float* row = tile_x + static_cast<long long>(r) * num_features;
-  if (vector) return __ldg(reinterpret_cast<const float4*>(row) + q);
-  return make_float4(__ldg(row + q), 0.0f, 0.0f, 0.0f);
+  if (r >= n) return make_uint4(0u, 0u, 0u, 0u);
+  const In* row = tile_x + static_cast<long long>(r) * num_features;
+  if (vector) return __ldg(reinterpret_cast<const uint4*>(row) + q);
+  if constexpr (std::is_same<In, float>::value)
+    return make_uint4(__float_as_uint(__ldg(row + q)), 0u, 0u, 0u);
+  else
+    return make_uint4(static_cast<unsigned>(__ldg(row + q)), 0u, 0u, 0u);
 }
 
-__device__ __forceinline__ void store_item(float* s_x, float4 v, int item, int log_r,
+// The item's values into their feature columns as float32 (bfloat16
+// widened exactly).
+template <typename In>
+__device__ __forceinline__ void store_item(float* s_x, uint4 v, int item, int log_r,
                                            bool vector) {
   const int R = 1 << log_r;
   const int r = item & (R - 1);
   const int q = item >> log_r;
-  if (vector) {
-    float* column = s_x + 4 * q * R + r;
-    column[0] = v.x;
-    column[R] = v.y;
-    column[2 * R] = v.z;
-    column[3 * R] = v.w;
+  if constexpr (std::is_same<In, float>::value) {
+    if (vector) {
+      float* column = s_x + 4 * q * R + r;
+      column[0] = __uint_as_float(v.x);
+      column[R] = __uint_as_float(v.y);
+      column[2 * R] = __uint_as_float(v.z);
+      column[3 * R] = __uint_as_float(v.w);
+    } else {
+      s_x[q * R + r] = __uint_as_float(v.x);
+    }
   } else {
-    s_x[q * R + r] = v.x;
+    if (vector) {
+      float* column = s_x + 8 * q * R + r;
+      const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        column[2 * k * R] = __uint_as_float(words[k] << 16);
+        column[(2 * k + 1) * R] = __uint_as_float(words[k] & 0xffff0000u);
+      }
+    } else {
+      s_x[q * R + r] = widen(static_cast<bf16_bits>(v.x));
+    }
   }
+}
+
+// What a walk reads x from: the staged tile (float32 columns), or the
+// tile's rows in global memory (float32 or bfloat16).
+template <bool kXStaged, typename In>
+__device__ __forceinline__ auto walk_source(const float* s_x, const In* tile_x) {
+  if constexpr (kXStaged) return s_x;
+  else return tile_x;
 }
 
 // Walks [0, R * np) of a tile: walk i is (tree i / R of the pass, row
@@ -166,9 +217,9 @@ __device__ __forceinline__ void store_item(float* s_x, float4 v, int item, int l
 // a feature -1 node, whose threshold is +inf so that every row goes left).
 // The walk's leaf goes to s_leaf[i] as the offset of its values in the
 // pass, (tree * leaves + leaf) * C.
-template <bool kStaged, bool kXStaged>
+template <bool kStaged, bool kXStaged, typename XT>
 __device__ __forceinline__ void walk(const Forward& p, const int2* s_nodes, const int* features,
-                                     const float* thresholds, const float* tile_x, int n, int np,
+                                     const float* thresholds, const XT* tile_x, int n, int np,
                                      int nodes, int leaves, int log_r, int* s_leaf) {
   const int R = 1 << log_r;
   const int items = np << log_r;
@@ -192,10 +243,10 @@ __device__ __forceinline__ void walk(const Forward& p, const int2* s_nodes, cons
         if (kStaged) {
           const int2 nd = s_nodes[tree[k] * nodes + pos[k]];
           float x;
-          if (kXStaged) {
+          if constexpr (kXStaged) {
             x = tile_x[nd.x + row[k]];
           } else {
-            x = nd.x < F ? __ldg(tile_x + static_cast<long long>(row[k]) * F + nd.x) : 0.0f;
+            x = nd.x < F ? load_x(tile_x + static_cast<long long>(row[k]) * F + nd.x) : 0.0f;
           }
           right = !(x <= __int_as_float(nd.y));
         } else {
@@ -203,10 +254,10 @@ __device__ __forceinline__ void walk(const Forward& p, const int2* s_nodes, cons
           const int feature = __ldg(features + at);
           const int column = min(max(feature, 0), F);
           float x;
-          if (kXStaged)
+          if constexpr (kXStaged)
             x = tile_x[column * R + row[k]];
           else
-            x = column < F ? __ldg(tile_x + static_cast<long long>(row[k]) * F + column) : 0.0f;
+            x = column < F ? load_x(tile_x + static_cast<long long>(row[k]) * F + column) : 0.0f;
           right = !(x <= __ldg(thresholds + at)) && feature >= 0;
         }
         pos[k] = 2 * pos[k] + (right ? 2 : 1);
@@ -284,10 +335,10 @@ __device__ __forceinline__ void gbt_margins(const Forward& p, const float* value
 // before the sums. Item (row, job) of one pass sums the job's trees; between
 // passes the sums wait in shared memory (class c of row r at c * R + r) or
 // in the output.
-template <bool kGbt, bool kStaged, bool kXStaged>
+template <bool kGbt, bool kStaged, bool kXStaged, typename XT>
 __device__ __forceinline__ void walk_rows(const Forward& p, const int2* s_nodes,
                                           const int* features, const float* thresholds,
-                                          const float* tile_x, const float* values, float* s_acc,
+                                          const XT* tile_x, const float* values, float* s_acc,
                                           float* out, int jobs_here, int row0, int n, int np,
                                           int pass, bool last, int nodes, int leaves, int log_r) {
   const int R = 1 << log_r;
@@ -323,16 +374,16 @@ __device__ __forceinline__ void walk_rows(const Forward& p, const int2* s_nodes,
             if (kStaged) {
               const int2 nd = s_nodes[tree * nodes + pos[k]];
               float x;
-              if (kXStaged) x = tile_x[nd.x + r];
-              else x = nd.x < F ? __ldg(tile_x + static_cast<long long>(r) * F + nd.x) : 0.0f;
+              if constexpr (kXStaged) x = tile_x[nd.x + r];
+              else x = nd.x < F ? load_x(tile_x + static_cast<long long>(r) * F + nd.x) : 0.0f;
               right = !(x <= __int_as_float(nd.y));
             } else {
               const long long at = static_cast<long long>(tree) * nodes + pos[k];
               const int feature = __ldg(features + at);
               const int column = min(max(feature, 0), F);
               float x;
-              if (kXStaged) x = tile_x[column * R + r];
-              else x = column < F ? __ldg(tile_x + static_cast<long long>(r) * F + column) : 0.0f;
+              if constexpr (kXStaged) x = tile_x[column * R + r];
+              else x = column < F ? load_x(tile_x + static_cast<long long>(r) * F + column) : 0.0f;
               right = !(x <= __ldg(thresholds + at)) && feature >= 0;
             }
             pos[k] = 2 * pos[k] + (right ? 2 : 1);
@@ -401,7 +452,7 @@ __device__ __forceinline__ void stage_trees(int2* s_nodes, float* s_values, cons
 // by feature column with the zero column last (kXStaged: (F + 1) * R
 // floats), the walks' leaf offsets (R * pass_trees; none when a thread
 // walks its row), and between passes the sums (R * classes).
-template <bool kGbt, bool kStaged, bool kXStaged, bool kRowThreads>
+template <typename In, bool kGbt, bool kStaged, bool kXStaged, bool kRowThreads>
 __device__ __forceinline__ void forward(const Forward& p) {
   extern __shared__ __align__(16) float shared[];
   const int nodes = (1 << p.depth) - 1;
@@ -415,7 +466,7 @@ __device__ __forceinline__ void forward(const Forward& p) {
   const int jobs_here = min(p.group_jobs, p.jobs - job0);
   const int W = jobs_here * p.trees;  // the trees this block walks
   const int passes = W > P ? (W + P - 1) / P : 1;
-  const float* X = p.X + job0 * p.x_job_stride;
+  const In* X = static_cast<const In*>(p.X) + job0 * p.x_job_stride;
   const long long first_tree = static_cast<long long>(job0) * p.trees;
   const int* features = p.features + first_tree * nodes;
   const float* thresholds = p.thresholds + first_tree * nodes;
@@ -434,12 +485,12 @@ __device__ __forceinline__ void forward(const Forward& p) {
   if (kXStaged)
     for (int r = threadIdx.x; r < R; r += kThreads) s_x[F * R + r] = 0.0f;
   const bool vector = p.vector != 0;
-  const int stage_items = (vector ? F / 4 : F) << log_r;
+  const int stage_items = (vector ? F / kWordValues<In> : F) << log_r;
   const int tiles = (p.rows + R - 1) / R;
-  float4 ahead[kAhead];
+  uint4 ahead[kAhead];
   auto fetch = [&](int tile) {  // the first items of a tile, into registers
     const int n = min(R, p.rows - tile * R);
-    const float* base = X + static_cast<long long>(tile) * R * F;
+    const In* base = X + static_cast<long long>(tile) * R * F;
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) {
       const int item = threadIdx.x + k * kThreads;
@@ -450,7 +501,7 @@ __device__ __forceinline__ void forward(const Forward& p) {
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * R;
     const int n = min(R, p.rows - row0);
-    const float* tile_x = X + static_cast<long long>(row0) * F;
+    const In* tile_x = X + static_cast<long long>(row0) * F;
     for (int pass = 0; pass < passes; ++pass) {
       const int t0 = pass * P;
       const int np = min(P, W - t0);
@@ -459,10 +510,10 @@ __device__ __forceinline__ void forward(const Forward& p) {
 #pragma unroll
         for (int k = 0; k < kAhead; ++k) {
           const int item = threadIdx.x + k * kThreads;
-          if (item < stage_items) store_item(s_x, ahead[k], item, log_r, vector);
+          if (item < stage_items) store_item<In>(s_x, ahead[k], item, log_r, vector);
         }
         for (int item = threadIdx.x + kAhead * kThreads; item < stage_items; item += kThreads)
-          store_item(s_x, load_item(tile_x, item, n, F, log_r, vector), item, log_r, vector);
+          store_item<In>(s_x, load_item(tile_x, item, n, F, log_r, vector), item, log_r, vector);
       }
       if (kStaged && passes > 1)
         stage_trees<kXStaged>(s_nodes, s_values, features, thresholds, values, t0, np, nodes,
@@ -475,12 +526,14 @@ __device__ __forceinline__ void forward(const Forward& p) {
       if (kRowThreads) {
         walk_rows<kGbt, kStaged, kXStaged>(
             p, s_nodes, features + static_cast<long long>(t0) * nodes,
-            thresholds + static_cast<long long>(t0) * nodes, kXStaged ? s_x : tile_x, pass_values,
+            thresholds + static_cast<long long>(t0) * nodes,
+            walk_source<kXStaged>(s_x, tile_x), pass_values,
             s_acc, out, jobs_here, row0, n, np, pass, last, nodes, leaves, log_r);
       } else {
         walk<kStaged, kXStaged>(p, s_nodes, features + static_cast<long long>(t0) * nodes,
                                 thresholds + static_cast<long long>(t0) * nodes,
-                                kXStaged ? s_x : tile_x, n, np, nodes, leaves, log_r, s_leaf);
+                                walk_source<kXStaged>(s_x, tile_x), n, np, nodes, leaves, log_r,
+                                s_leaf);
         __syncthreads();
         if (kGbt)
           gbt_margins(p, pass_values, s_leaf, s_acc, row0, n, np, pass, last, R);
@@ -498,21 +551,42 @@ __device__ __forceinline__ void forward(const Forward& p) {
 
 template <bool kStaged, bool kXStaged, bool kRowThreads>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) tree_ensemble_forward_kernel(Forward p) {
-  forward<false, kStaged, kXStaged, kRowThreads>(p);
+  forward<float, false, kStaged, kXStaged, kRowThreads>(p);
 }
 
 template <bool kStaged, bool kXStaged, bool kRowThreads>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) gbt_forward_kernel(Forward p) {
-  forward<true, kStaged, kXStaged, kRowThreads>(p);
+  forward<float, true, kStaged, kXStaged, kRowThreads>(p);
+}
+
+// The same over bfloat16 X.
+template <bool kStaged, bool kXStaged, bool kRowThreads>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) tree_ensemble_forward_bf16_kernel(Forward p) {
+  forward<bf16_bits, false, kStaged, kXStaged, kRowThreads>(p);
+}
+
+template <bool kStaged, bool kXStaged, bool kRowThreads>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gbt_forward_bf16_kernel(Forward p) {
+  forward<bf16_bits, true, kStaged, kXStaged, kRowThreads>(p);
 }
 
 using Kernel = void (*)(Forward);
 
-template <bool kGbt, bool kRowThreads>
+template <bool kBf16, bool kGbt, bool kRowThreads>
 Kernel kernel_as(int staged, int x_staged) {
   const auto pick = [&](auto staged_x, auto staged_only, auto x_only, auto neither) {
     return staged ? (x_staged ? staged_x : staged_only) : (x_staged ? x_only : neither);
   };
+  if (kBf16 && kGbt)
+    return pick(gbt_forward_bf16_kernel<true, true, kRowThreads>,
+                gbt_forward_bf16_kernel<true, false, kRowThreads>,
+                gbt_forward_bf16_kernel<false, true, kRowThreads>,
+                gbt_forward_bf16_kernel<false, false, kRowThreads>);
+  if (kBf16)
+    return pick(tree_ensemble_forward_bf16_kernel<true, true, kRowThreads>,
+                tree_ensemble_forward_bf16_kernel<true, false, kRowThreads>,
+                tree_ensemble_forward_bf16_kernel<false, true, kRowThreads>,
+                tree_ensemble_forward_bf16_kernel<false, false, kRowThreads>);
   if (kGbt)
     return pick(gbt_forward_kernel<true, true, kRowThreads>,
                 gbt_forward_kernel<true, false, kRowThreads>,
@@ -524,10 +598,18 @@ Kernel kernel_as(int staged, int x_staged) {
               tree_ensemble_forward_kernel<false, false, kRowThreads>);
 }
 
-Kernel kernel_of(int gbt, int staged, int x_staged, int row_threads) {
+template <bool kBf16>
+Kernel kernel_in(int gbt, int staged, int x_staged, int row_threads) {
   if (row_threads)
-    return gbt ? kernel_as<true, true>(staged, x_staged) : kernel_as<false, true>(staged, x_staged);
-  return gbt ? kernel_as<true, false>(staged, x_staged) : kernel_as<false, false>(staged, x_staged);
+    return gbt ? kernel_as<kBf16, true, true>(staged, x_staged)
+               : kernel_as<kBf16, false, true>(staged, x_staged);
+  return gbt ? kernel_as<kBf16, true, false>(staged, x_staged)
+             : kernel_as<kBf16, false, false>(staged, x_staged);
+}
+
+Kernel kernel_of(int x_bf16, int gbt, int staged, int x_staged, int row_threads) {
+  return x_bf16 ? kernel_in<true>(gbt, staged, x_staged, row_threads)
+                : kernel_in<false>(gbt, staged, x_staged, row_threads);
 }
 
 }  // namespace
@@ -538,11 +620,11 @@ extern "C" {
 // launchable on `device`: its shared-memory cap raised where it needs
 // more, and the blocks of it one SM holds at once and the SM count
 // returned. The wrapper asks once per device and shape.
-int lo_tree_forward_prepare(int gbt, int staged, int x_staged, int row_threads, int shared_bytes,
-                            int device, int* blocks_per_sm, int* sms) {
+int lo_tree_forward_prepare(int x_bf16, int gbt, int staged, int x_staged, int row_threads,
+                            int shared_bytes, int device, int* blocks_per_sm, int* sms) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  const Kernel kernel = kernel_of(gbt, staged, x_staged, row_threads);
+  const Kernel kernel = kernel_of(x_bf16, gbt, staged, x_staged, row_threads);
   if ((error = allow_shared(kernel, static_cast<size_t>(shared_bytes))) != cudaSuccess)
     return error;
   if ((error = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
@@ -551,13 +633,14 @@ int lo_tree_forward_prepare(int gbt, int staged, int x_staged, int row_threads, 
                                                        static_cast<size_t>(shared_bytes));
 }
 
-// The ensemble forward (gbt 0: X of job j at j * x_job_stride floats, heaps
+// X float32, or bfloat16 when x_bf16. The ensemble forward (gbt 0: X of
+// job j at j * x_job_stride values, heaps
 // (J, T, nodes), values (J, T, leaves, C), out (J, rows, C)) or gb's (gbt
 // 1: one job, values (T, leaves), out (rows, 2)), on `blocks` blocks along
 // x (grid-stride over the tiles) and a block a job group along y. Launches
 // on `stream` of `device`, does not synchronize, and returns
 // cudaGetLastError() after the launch: 0 means it was accepted.
-int lo_tree_forward(int gbt, int staged, int x_staged, int row_threads, const float* X,
+int lo_tree_forward(int x_bf16, int gbt, int staged, int x_staged, int row_threads, const void* X,
                     const int* features,
                     const float* thresholds, const float* values, float* out, int rows,
                     int num_features, int trees, int depth, int classes, int jobs,
@@ -567,7 +650,7 @@ int lo_tree_forward(int gbt, int staged, int x_staged, int row_threads, const fl
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || jobs <= 0) return cudaSuccess;
-  const Kernel kernel = kernel_of(gbt, staged, x_staged, row_threads);
+  const Kernel kernel = kernel_of(x_bf16, gbt, staged, x_staged, row_threads);
   const long long nodes = (1LL << depth) - 1;
   const long long leaf_floats = (1LL << depth) * classes;
   const int groups = (jobs + group_jobs - 1) / group_jobs;
@@ -575,7 +658,7 @@ int lo_tree_forward(int gbt, int staged, int x_staged, int row_threads, const fl
     const long long j0 = static_cast<long long>(g0) * group_jobs;
     const long long tree0 = j0 * trees;
     Forward p;
-    p.X = X + j0 * x_job_stride;
+    p.X = static_cast<const char*>(X) + j0 * x_job_stride * (x_bf16 ? 2 : 4);
     p.features = features + tree0 * nodes;
     p.thresholds = thresholds + tree0 * nodes;
     p.values = values + tree0 * leaf_floats;

@@ -3,7 +3,8 @@
 Counterpart of ``learningorchestra_tpu/ml/base.py``: ``CLASSIFIER_NAMES``,
 ``largest_divisor`` and ``segment_steps`` (:36-93), ``infer_num_classes``,
 ``DeviceLabels``, ``shard_matrix`` and ``shard_labels`` (:125-142, one
-copy to the device here), ``FittedModel`` with ``evaluate`` and
+copy to the device here, in the dtype policy's type: the reference's
+``prepare_xy`` funnel, ``parallel/sharding.py:78-107``), ``FittedModel`` with ``evaluate`` and
 ``evaluate_predict`` (:250-297) and ``make_classifier`` (:306). A model holds its parameters as tensors on one
 device; its forward is a plain function on tensors.
 
@@ -17,6 +18,7 @@ shape grid, as the reference's does.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -84,16 +86,39 @@ class DeviceLabels:
         self.num_classes = num_classes
 
 
+# Bytes copied host-to-device by shard_matrix and shard_labels, the one
+# funnel every feature matrix and label vector of the product path goes
+# through (the reference's lo_h2d_bytes_total): a cached input adds none.
+_h2d = {"bytes": 0}
+_h2d_lock = threading.Lock()
+
+
+def h2d_bytes() -> int:
+    """Bytes this process has copied to a device through :func:`shard_matrix`
+    and :func:`shard_labels`."""
+    with _h2d_lock:
+        return _h2d["bytes"]
+
+
+def _account_h2d(tensor: torch.Tensor) -> torch.Tensor:
+    if tensor.device.type != "cpu":
+        with _h2d_lock:
+            _h2d["bytes"] += tensor.numel() * tensor.element_size()
+    return tensor
+
+
 def shard_matrix(X: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
-    """``X`` as a float32 tensor on ``device``: one host-to-device copy
-    (the reference's ``shard_matrix`` pads and row-shards on a mesh)."""
-    host = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
-    return host.to(resolve_device(device), policy_dtype())
+    """``X`` as a tensor on ``device`` in the policy's float type (float32,
+    or bfloat16 under ``LO_DTYPE_POLICY=bf16``): one host-to-device copy
+    of that type (the reference's ``shard_matrix`` pads and row-shards on a
+    mesh). The cast rounds float64 through float32, as the reference's."""
+    host = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(policy_dtype())
+    return _account_h2d(host.to(resolve_device(device)))
 
 
 def shard_labels(y: np.ndarray, device: DeviceLike = None) -> DeviceLabels:
     y = np.asarray(y)
-    data = torch.from_numpy(y.astype(np.int64)).to(resolve_device(device))
+    data = _account_h2d(torch.from_numpy(y.astype(np.int64)).to(resolve_device(device)))
     return DeviceLabels(data, infer_num_classes(y))
 
 
@@ -106,7 +131,8 @@ def labels_from_probs(probs: np.ndarray) -> np.ndarray:
 
 class FittedModel:
     """Base for fitted models. Subclasses set ``device`` and implement
-    ``_forward(X) -> probs`` on a float32 ``(rows, F)`` tensor there."""
+    ``_forward(X) -> probs`` on a ``(rows, F)`` tensor there in the
+    policy's float type."""
 
     device: torch.device
 

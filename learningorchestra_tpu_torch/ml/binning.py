@@ -14,6 +14,10 @@ needs only the float threshold. NaN goes to the last bin.
   call. On a CPU tensor it runs the plain version; on a CUDA tensor it
   launches K1 (``kernels/csrc/tree_fit.cu``) or raises. Both give int8
   bins while ``max_bins`` <= 127 and int32 bins above, as the reference.
+  X is float32, or bfloat16 under ``LO_DTYPE_POLICY=bf16``: each value
+  widened exactly to float32 before the search (the reference's jnp
+  promotes the bfloat16 X to float32 against its float32 thresholds), so
+  the bins are those of the widened X.
 - :func:`job_apply_bins` bins a job axis in one launch (the sweep's dt
   program, ``ml/sweep.py:263``, runs ``apply_bins`` under ``vmap``): each
   job its own rows and thresholds; its plain twin loops over the jobs.
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES
 
 MAX_BINS = 32
 # bins are int8 up to this many bins, int32 above (reference ml/binning.py:54)
@@ -55,6 +60,7 @@ def _apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     thresholds), and ``max_bins - 1`` for NaN, which is below nothing.
     int8 while the bin count fits, else int32, as the reference."""
     num_thresholds = thresholds.shape[1]
+    X = X.to(torch.float32)   # bfloat16 widens exactly
     bins = torch.empty(X.shape, dtype=bin_dtype(num_thresholds + 1), device=X.device)
     for feature in range(X.shape[1]):  # one feature at a time: (rows, B-1) transient
         column = X[:, feature]
@@ -68,11 +74,11 @@ def bin_dtype(max_bins: int) -> torch.dtype:
 
 
 def apply_bins(X: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
-    """``(rows, features)`` bins of ``X`` under ``thresholds
-    (features, max_bins - 1)``, both float32 on one device: int8, or
-    int32 past 127 bins."""
-    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() != 2:
-        raise TypeError("X must be a 2-D float32 tensor")
+    """``(rows, features)`` bins of ``X`` (float32 or bfloat16) under
+    ``thresholds (features, max_bins - 1)`` (float32), on one device:
+    int8, or int32 past 127 bins."""
+    if not isinstance(X, torch.Tensor) or X.dtype not in FEATURE_DTYPES or X.dim() != 2:
+        raise TypeError("X must be a 2-D float32 or bfloat16 tensor")
     if thresholds.dtype != torch.float32 or thresholds.dim() != 2:
         raise TypeError("thresholds must be a 2-D float32 tensor")
     if thresholds.shape[0] != X.shape[1]:
@@ -161,7 +167,7 @@ def _launch_apply_bins(X, thresholds, jobs: int):
         table[..., :num_thresholds] = thresholds
     kernels.launch(
         "apply_bins", "lo_apply_bins",
-        X.data_ptr(), table.data_ptr(), bins.data_ptr(), bins.element_size(),
+        X.data_ptr(), int(X.dtype == torch.bfloat16), table.data_ptr(), bins.data_ptr(), bins.element_size(),
         rows, num_features, num_thresholds, geometry.steps, jobs, geometry.group,
         geometry.window_features, int(geometry.staged),
         rows * num_features if X.dim() == 3 else 0,

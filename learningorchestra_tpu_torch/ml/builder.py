@@ -13,6 +13,10 @@ stream, so the fits' kernels queue one after another there while the
 threads overlap their host work (thresholds, scaler, preprocessing
 copies). ``device=None`` means CUDA and raises without a card.
 
+The batch predictions lane: :func:`predict_with_model` loads a saved
+``.model``, re-runs the preprocessor over (training, test) and writes the
+prediction collection, with no refit.
+
 Crash resume: ``build_model(resume=...)`` takes the journaled
 ``progress`` events recovery hands a re-enqueued build
 (sched/recovery.py): finished members are skipped, failed ones stay
@@ -81,8 +85,10 @@ def _next_trace_dir(trace_root: str, test_filename: str) -> str:
 def load_dataframe(store: DocumentStore, filename: str) -> DataFrame:
     """Dataset → DataFrame, metadata row/fields excluded (the reference
     drops the metadata document and its fields, model_builder.py:96-116).
-    One bulk columnar read; the reference's rev-keyed host cache is not
-    ported yet."""
+
+    Reads through the device cache's host tier (core/devcache.py): the
+    second build or batch predict over the same collection revision skips
+    the store read and the decode."""
     from learningorchestra_tpu_torch.core.devcache import dataset_table
 
     return DataFrame.from_table(dataset_table(store, filename))
@@ -327,6 +333,50 @@ def _predict_and_write(
     else:
         writer.submit(flush, metadata.get("classificator"))
     return metadata
+
+
+def predict_with_model(
+    store: DocumentStore,
+    checkpoint_path: str,
+    training_filename: str,
+    test_filename: str,
+    preprocessor_code: str,
+    prediction_filename: str,
+    device: DeviceLike = None,
+) -> dict:
+    """Predictions from a saved checkpoint, with no refit (reference
+    ``ml/builder.py:861-902``).
+
+    Loads the ``.model`` that :func:`train_one` persisted, re-runs the same
+    preprocessor over the same (training, test) frames (the training frame
+    is required: preprocessor state such as StringIndexer's category order
+    or the assembler's columns derives from it), predicts over the test
+    frame and writes the prediction collection ``prediction_filename`` in
+    the shape build_model writes, its metadata naming the
+    ``model_checkpoint``. The metadata's ``timings`` take the lane apart:
+    ``load_data``, ``preprocess``, ``h2d`` (the test matrix to the card, 0
+    bytes on a device-cache hit), ``predict`` and ``write``."""
+    from learningorchestra_tpu_torch.ml.checkpoint import load_model
+
+    device = resolve_device(device)
+    timer = PhaseTimer()
+    model = load_model(checkpoint_path, device=device)
+    with timer.phase("load_data"):
+        training_df = load_dataframe(store, training_filename)
+        testing_df = load_dataframe(store, test_filename)
+    with timer.phase("preprocess"):
+        out = run_preprocessor(preprocessor_code, training_df, testing_df)
+    features_testing = out["features_testing"]
+    with timer.phase("h2d", rows=features_testing.count(), dtype=dtype_policy()):
+        features_testing.device_matrix(FEATURES_COL, device)   # cached on the frame
+    metadata = {
+        "filename": prediction_filename,
+        "model_checkpoint": checkpoint_path,
+        ROW_ID: 0,
+    }
+    return _predict_and_write(
+        store, model, features_testing, prediction_filename, metadata, timer, device
+    )
 
 
 def _alias_if_equal(

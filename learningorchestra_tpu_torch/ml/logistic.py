@@ -55,13 +55,14 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike, resolve_device
 from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
     infer_num_classes,
     largest_divisor,
     segment_steps,
+    shard_matrix,
 )
 
 # The reference's L-BFGS constants (ml/logistic.py:56-61)
@@ -306,8 +307,11 @@ def _k7_launch_layout(
 
 
 def _check_operands(X, y, W, b, leading: tuple = ()):
-    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() != 2:
-        raise TypeError("X must be a 2-D float32 tensor")
+    """X float32, or bfloat16 (``LO_DTYPE_POLICY=bf16``): the kernel and the
+    plain twin widen each value exactly to float32 (the twin's float64
+    product is then the same as on the widened X)."""
+    if not isinstance(X, torch.Tensor) or X.dtype not in FEATURE_DTYPES or X.dim() != 2:
+        raise TypeError("X must be a 2-D float32 or bfloat16 tensor")
     if y.dtype != torch.int32 or y.shape != (X.shape[0],):
         raise TypeError("y must be an int32 tensor of one label per row")
     if W.dtype != torch.float32 or b.dtype != torch.float32:
@@ -323,6 +327,18 @@ def _check_operands(X, y, W, b, leading: tuple = ()):
 
 def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def _x_bf16(X, layout: _K7Layout) -> int:
+    """1 for bfloat16 X, whose tiles the kernel widens as it stages them:
+    rows too wide to stage are refused, not cast."""
+    if X.dtype != torch.bfloat16:
+        return 0
+    if layout.xs == 0:
+        raise ValueError(
+            f"bfloat16 rows of {X.shape[-1]} features are too wide for K7's staged tile"
+        )
+    return 1
 
 
 def _launch_loss_grad(W, b, X, y, weights, jobs: int):
@@ -344,7 +360,7 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     out = torch.empty((jobs, cells), dtype=torch.float32, device=X.device)
     kernels.launch(
         "logistic_loss_grad", "lo_logistic_loss_grad",
-        X.data_ptr(), y.data_ptr(), weights.data_ptr() if weighted else None,
+        X.data_ptr(), _x_bf16(X, layout), y.data_ptr(), weights.data_ptr() if weighted else None,
         W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
@@ -372,7 +388,7 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
     out = torch.empty((jobs, _BACKTRACK_STEPS), dtype=torch.float32, device=X.device)
     kernels.launch(
         "logistic_trial_losses", "lo_logistic_trial_losses",
-        X.data_ptr(), y.data_ptr(), weights.data_ptr() if weighted else None,
+        X.data_ptr(), _x_bf16(X, layout), y.data_ptr(), weights.data_ptr() if weighted else None,
         W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
@@ -803,7 +819,9 @@ def _standardized(X, mean, scale) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 def _forward(X, w, b, mean, scale):
-    logits = torch.matmul((X - mean) / scale, w) + b
+    # bfloat16 X widens exactly first, as jnp promotes it against the
+    # float32 mean (torch's mixed matmul would raise instead)
+    logits = torch.matmul((X.to(torch.float32) - mean) / scale, w) + b
     return torch.softmax(logits, dim=1)
 
 
@@ -838,7 +856,8 @@ class LogisticRegression:
     def fit(self, X, y) -> LogisticRegressionModel:
         num_classes = infer_num_classes(y)
         mean, scale = scaler_stats(X)
-        X_dev = torch.from_numpy(_standardized(X, mean, scale)).to(self.device)
+        # the standardized rows in the policy's type (reference :476-478)
+        X_dev = shard_matrix(_standardized(X, mean, scale), self.device)
         y_dev = torch.from_numpy(np.asarray(y, dtype=np.int32)).to(self.device)
         W = torch.zeros((X_dev.shape[1], num_classes), dtype=torch.float32, device=self.device)
         b = torch.zeros(num_classes, dtype=torch.float32, device=self.device)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
-from learningorchestra_tpu_torch.ml.base import FittedModel, infer_num_classes
+from learningorchestra_tpu_torch.ml.base import FittedModel, infer_num_classes, shard_matrix
 
 
 def _fit(X, y, num_classes: int, smoothing: float):
@@ -45,7 +45,8 @@ def _forward(X, theta, prior):
     # rounding shows in the probabilities; centred, it carries only the
     # class differences.
     centred = theta - theta.mean(dim=0, keepdim=True)
-    joint = torch.matmul(X, centred.T) + prior   # (N, C)
+    # bfloat16 X widens exactly, as jnp promotes X @ theta.T to float32
+    joint = torch.matmul(X.to(torch.float32), centred.T) + prior   # (N, C)
     return torch.softmax(joint, dim=1)
 
 
@@ -71,7 +72,7 @@ class NaiveBayes:
                 "NaiveBayes requires non-negative features (MLlib contract)"
             )
         num_classes = infer_num_classes(y)
-        X_dev = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(self.device)
+        X_dev = shard_matrix(X, self.device)   # the policy's type; the sums widen it
         y_dev = torch.from_numpy(np.asarray(y, dtype=np.int64)).to(self.device)
         theta, prior = _fit(X_dev, y_dev, num_classes, float(self.smoothing))
         return NaiveBayesModel(theta, prior)

@@ -66,13 +66,14 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike, resolve_device
 from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
     infer_num_classes,
     largest_divisor,
     segment_steps,
+    shard_matrix,
 )
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
 
@@ -118,6 +119,7 @@ def _ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_depth):
     """Mean class distribution over trees: summed over trees in order
     0..T-1, then divided by T (the reference's scan order). No trees give
     the uniform ``1/C``."""
+    X = X.to(torch.float32)   # bfloat16 widens exactly
     rows = X.shape[0]
     trees, _, num_classes = leaf_probs.shape
     if trees == 0:
@@ -135,6 +137,7 @@ def _gbt_forward(X, f0, features_heap, thresholds_heap, leaf_values, step, max_d
     """Boosted margins ``f0 + sum(step * leaf)`` over rounds in order,
     each product rounded to float32 before its add, through a sigmoid;
     returns ``[1 - p, p]``."""
+    X = X.to(torch.float32)   # bfloat16 widens exactly
     step = torch.tensor(step, dtype=torch.float32, device=X.device)
     margins = torch.full(
         (X.shape[0],), float(f0), dtype=torch.float32, device=X.device
@@ -157,9 +160,11 @@ def _uniform(rows: int, num_classes: int, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _check_heaps(X, features_heap, thresholds_heap, leaves, leaf_ndim, max_depth):
-    """Raise on what the forward does not take: types, shapes, devices."""
-    if not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() != 2:
-        raise TypeError("X must be a 2-D float32 tensor")
+    """Raise on what the forward does not take: types, shapes, devices.
+    X is float32, or bfloat16 (``LO_DTYPE_POLICY=bf16``): the forward
+    widens each value exactly to float32 before its compare."""
+    if not isinstance(X, torch.Tensor) or X.dtype not in FEATURE_DTYPES or X.dim() != 2:
+        raise TypeError("X must be a 2-D float32 or bfloat16 tensor")
     if not 0 <= max_depth <= MAX_SUPPORTED_DEPTH:
         raise ValueError(f"max_depth must be in [0, {MAX_SUPPORTED_DEPTH}], got {max_depth}")
     nodes, num_leaves = 2**max_depth - 1, 2**max_depth
@@ -219,8 +224,12 @@ def job_ensemble_forward(X, features_heap, thresholds_heap, leaf_probs, max_dept
     if features_heap.dim() != 3 or thresholds_heap.dim() != 3 or leaf_probs.dim() != 4:
         raise ValueError("job heaps must be (J, T, nodes) and leaf_probs (J, T, leaves, C)")
     jobs = features_heap.shape[0]
-    if not isinstance(X, torch.Tensor) or X.dim() not in (2, 3) or (X.dim() == 3 and X.shape[0] != jobs):
-        raise TypeError(f"X must be (rows, F), shared, or ({jobs}, rows, F)")
+    if (
+        not isinstance(X, torch.Tensor) or X.dtype != torch.float32 or X.dim() not in (2, 3)
+        or (X.dim() == 3 and X.shape[0] != jobs)
+    ):
+        # a sweep's payload is float32 whatever the policy
+        raise TypeError(f"X must be float32 (rows, F), shared, or ({jobs}, rows, F)")
     if thresholds_heap.shape[0] != jobs or leaf_probs.shape[0] != jobs:
         raise ValueError("heaps and leaf_probs of different job counts")
     _check_heaps(
@@ -407,12 +416,12 @@ _forward_prepared: dict = {}
 _forward_lock = threading.Lock()
 
 
-def _forward_occupancy(device_index: int, gbt: bool, geometry: ForwardGeometry) -> int:
-    """Blocks of K6's form at ``geometry`` that the card holds at once, its
-    shared-memory cap raised where needed: asked of the card once per
-    device and form, then kept."""
+def _forward_occupancy(device_index: int, gbt: bool, geometry: ForwardGeometry, x_bf16: bool) -> int:
+    """Blocks of K6's form at ``geometry`` (over float32 or bfloat16 X) that
+    the card holds at once, its shared-memory cap raised where needed:
+    asked of the card once per device and form, then kept."""
     key = (
-        device_index, gbt, geometry.staged, geometry.x_staged, geometry.row_threads,
+        device_index, x_bf16, gbt, geometry.staged, geometry.x_staged, geometry.row_threads,
         geometry.shared_bytes,
     )
     with _forward_lock:
@@ -420,7 +429,7 @@ def _forward_occupancy(device_index: int, gbt: bool, geometry: ForwardGeometry) 
             lib = kernels.library("tree_forward")
             per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
             kernels.check(lib, "tree_forward", lib.lo_tree_forward_prepare(
-                int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
+                int(x_bf16), int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
                 geometry.shared_bytes, device_index, ctypes.byref(per_sm), ctypes.byref(sms),
             ))
             if per_sm.value < 1:
@@ -444,13 +453,15 @@ def _launch_forward(
     job_stride = rows * num_features if X.dim() == 3 else 0
     geometry = _forward_geometry(rows, num_features, trees, max_depth, classes, jobs, X.dim() == 2)
     device = X.device.index
-    resident = _forward_occupancy(device, gbt, geometry)
+    x_bf16 = X.dtype == torch.bfloat16
+    resident = _forward_occupancy(device, gbt, geometry, x_bf16)
     groups = min(-(-jobs // geometry.group_jobs), 65535)
     blocks = max(1, min(-(-rows // geometry.tile_rows), resident // groups))
-    vector = num_features % 4 == 0 and X.data_ptr() % 16 == 0
+    # rows as 16-byte words: 4 float32 values, or 8 bfloat16
+    vector = num_features % (8 if x_bf16 else 4) == 0 and X.data_ptr() % 16 == 0
     kernels.launch(
         name, "lo_tree_forward",
-        int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
+        int(x_bf16), int(gbt), int(geometry.staged), int(geometry.x_staged), int(geometry.row_threads),
         X.data_ptr(), features_heap.data_ptr(), thresholds_heap.data_ptr(), values.data_ptr(),
         out.data_ptr(), rows, num_features, trees, max_depth, classes, jobs, job_stride,
         geometry.group_jobs, geometry.tile_rows.bit_length() - 1, geometry.pass_trees,
@@ -1622,10 +1633,11 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
 # --------------------------------------------------------------------------
 
 def _fit_inputs(X, y, max_bins: int, device):
-    """Host thresholds (float64 quantiles, then float32 as the bins use
-    them) and the rows, labels and thresholds on ``device``."""
+    """Host thresholds (float64 quantiles of the host rows, then float32 as
+    the bins use them) and the rows (in the policy's type), labels and
+    thresholds on ``device``."""
     thresholds = make_thresholds(X, max_bins)
-    X_dev = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device)
+    X_dev = shard_matrix(X, device)
     y_dev = torch.from_numpy(np.asarray(y, dtype=np.int64)).to(device)
     thresholds_dev = torch.from_numpy(thresholds.astype(np.float32)).to(device)
     return X_dev, y_dev, thresholds_dev

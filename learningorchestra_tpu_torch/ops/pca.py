@@ -11,6 +11,13 @@ reference on the CPU), cuSOLVER (the port on the card) and the TPU's
 ``eigh`` each choose their own. The reference fixes no sign convention,
 so neither does the port: each component of the embedding agrees with
 the reference's up to its sign.
+
+Under ``LO_DTYPE_POLICY=bf16`` the reference keeps the matrix's bfloat16
+to the end (its weights are ``mask.astype(X.dtype)``, so its mean,
+centring and covariance are bfloat16) and its ``eigh`` refuses bfloat16:
+the image request fails with a 500 whose body is that refusal. The port
+does the same, word for word (:data:`EIGH_BF16_REFUSAL`): a PCA image
+under ``bf16`` is the reference's failure, not a float32 PCA.
 """
 
 from __future__ import annotations
@@ -18,7 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike, resolve_device
+
+# The reference's eigh on a bfloat16 matrix (jaxlib's LAPACK binding on the
+# CPU) raises NotImplementedError with these words.
+EIGH_BF16_REFUSAL = "(KeyError(<class 'ml_dtypes.bfloat16'>), 'Unsupported dtype bfloat16.')"
 
 
 def _pca(X, mask, n_components: int):
@@ -30,6 +41,8 @@ def _pca(X, mask, n_components: int):
     centered = (X - mean) * weights[:, None]
     covariance = (centered.T @ centered) / (n - 1)
     # fewer than two rows: the reference's NaN, without eigh of a NaN matrix
+    if covariance.dtype == torch.bfloat16:
+        raise NotImplementedError(EIGH_BF16_REFUSAL)
     defined = n >= 2
     identity = torch.eye(covariance.shape[0], dtype=covariance.dtype, device=covariance.device)
     eigenvalues, eigenvectors = torch.linalg.eigh(torch.where(defined, covariance, identity))
@@ -41,11 +54,16 @@ def _pca(X, mask, n_components: int):
 
 def pca_embedding(X, n_components: int = 2, device: DeviceLike = None) -> np.ndarray:
     """Project the rows of ``X`` (an array or a tensor) onto their top
-    principal components; a host ``(rows, n_components)`` float32 array."""
+    principal components; a host ``(rows, n_components)`` float32 array.
+    A host array goes to the device in the policy's type; a float32 or
+    bfloat16 tensor keeps its type (the device cache's matrices are
+    already in the policy's), another float32."""
+    from learningorchestra_tpu_torch.ml.base import shard_matrix
+
     device = resolve_device(device)
     if not torch.is_tensor(X):
-        X = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
-    X = X.to(device, torch.float32)
+        X = shard_matrix(X, device)
+    X = X.to(device, X.dtype if X.dtype in FEATURE_DTYPES else torch.float32)
     mask = torch.ones(X.shape[0], dtype=torch.bool, device=device)
     embedded, _, _ = _pca(X, mask, n_components)
     return embedded.cpu().numpy()

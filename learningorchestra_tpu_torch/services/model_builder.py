@@ -23,6 +23,15 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
 - ``GET /models`` lists the ``.model`` artifacts in ``models_dir`` (the
   names under ``"result"``, the serve plane's stats under ``"serving"``);
 - ``GET /models/<name>`` describes one artifact;
+- ``POST /models/<name>/predictions`` (the batch lane, reference
+  ``:459-523``) re-runs the preprocessor over a training and a test
+  collection and predicts the whole test collection from the saved
+  ``.model``, with no refit (``ml/builder.predict_with_model``), into
+  collection ``prediction_filename``: 201 when written, 406 on missing
+  fields, an unknown training or test collection or an unsafe name, 404
+  on an unknown model, 409 on a taken prediction name, 429 on a full
+  device queue; a concurrent duplicate runs again under a ``#dup`` job
+  name, as the reference's;
 - ``POST /models/<name>/predict`` takes ``{"rows": [[...], ...]}`` and
   answers labels and probabilities in one synchronous response. Requests
   go through the serve plane: the model's parameters stay pinned on the
@@ -33,8 +42,8 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
 Messages and status codes are the reference's: 404 unknown model, 406
 missing or malformed rows, 413 more than ``LO_SERVE_MAX_ROWS`` rows, 429
 inbox or queue full, 503 timed out, 500 ``prediction_failed: ...``.
-The batch lane (``/predictions``) and the observability routes
-(``/metrics/history``, ``/debug/*``) are not ported yet.
+The observability routes (``/metrics/history``, ``/debug/*``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from learningorchestra_tpu_torch.core.store import DocumentStore
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 from learningorchestra_tpu_torch.ml import sweep as lo_sweep
 from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES
-from learningorchestra_tpu_torch.ml.builder import build_model
+from learningorchestra_tpu_torch.ml.builder import build_model, predict_with_model
 from learningorchestra_tpu_torch.ml.checkpoint import (
     CHECKPOINT_SUFFIX,
     checkpoint_path as _checkpoint_path,
@@ -83,11 +92,14 @@ def create_app(
     serve: Optional[ServePlane] = None,
     device: DeviceLike = None,
     coalescer=None,
+    predict=None,
 ) -> WebApp:
     """The builder and the predict lane over ``store`` and the checkpoints
     in ``models_dir`` (default ``LO_MODELS_DIR``). ``device=None`` means
     CUDA and raises without a card. ``build(body)`` overrides how a
-    validated request body becomes a :func:`build_model` call; ``jobs``
+    validated request body becomes a :func:`build_model` call, and
+    ``predict(model_name, body)`` how one becomes a
+    :func:`predict_with_model` call; ``jobs``
     injects a ``JobManager`` (tests pin its scheduler), else the app
     owns one; ``serve`` injects a plane (tests pin its knobs), else the
     process-wide plane of ``device`` serves; ``coalescer`` injects the
@@ -129,6 +141,19 @@ def create_app(
 
     def checkpoint_path(name: str) -> str:
         return _checkpoint_path(models_dir, name)
+
+    if predict is None:
+
+        def predict(model_name: str, body: dict) -> None:
+            predict_with_model(
+                store,
+                checkpoint_path(model_name),
+                body["training_filename"],
+                body["test_filename"],
+                body["preprocessor_code"],
+                body["prediction_filename"],
+                device=device,
+            )
 
     def artifact_exists(name: str) -> bool:
         return bool(
@@ -347,5 +372,60 @@ def create_app(
                 "probabilities": pending.probs.tolist(),
             }
         }, 200
+
+    @app.route("/models/<model_name>/predictions", methods=("POST",))
+    def predict_model(request, model_name):
+        """A whole test collection predicted from a saved checkpoint."""
+        body = request.get_json(silent=True)
+        required = (
+            "training_filename",
+            "test_filename",
+            "preprocessor_code",
+            "prediction_filename",
+        )
+        if not isinstance(body, dict) or any(k not in body for k in required):
+            return {MESSAGE_RESULT: validators.MESSAGE_MISSING_FIELDS}, 406
+        if not artifact_exists(model_name):
+            return {MESSAGE_RESULT: validators.MESSAGE_NOT_FOUND}, 404
+        try:
+            validators.filename_exists(
+                store,
+                body["training_filename"],
+                validators.MESSAGE_INVALID_TRAINING_FILENAME,
+            )
+            validators.filename_exists(
+                store,
+                body["test_filename"],
+                validators.MESSAGE_INVALID_TEST_FILENAME,
+            )
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 406
+        if not validators.safe_filename(body["prediction_filename"]):
+            return {MESSAGE_RESULT: validators.MESSAGE_INVALID_FILENAME}, 406
+        try:
+            validators.filename_free(store, body["prediction_filename"])
+        except validators.ValidationError as error:
+            return {MESSAGE_RESULT: error.args[0]}, 409
+        # a forward on the card: the device queue, as builds, so that it
+        # never overlaps a fit's launches
+        job_name = f"predict:{body['prediction_filename']}"
+        try:
+            jobs.run_sync(job_name, predict, model_name, body, job_class=DEVICE_CLASS)
+        except QueueFullError as error:
+            return too_many_requests(error)
+        except DuplicateJobError:
+            # the reference's rule for builds: the concurrent duplicate
+            # runs too, through the device queue
+            try:
+                jobs.run_sync(
+                    f"{job_name}#dup{next(duplicate_seq)}",
+                    predict,
+                    model_name,
+                    body,
+                    job_class=DEVICE_CLASS,
+                )
+            except QueueFullError as error:
+                return too_many_requests(error)
+        return {MESSAGE_RESULT: MESSAGE_CREATED_FILE}, 201
 
     return app

@@ -171,6 +171,10 @@ def main(device: DeviceLike = None) -> None:
     device = resolve_device(device)
     print(f"runner starting: device={device}", flush=True)
     # fail fast on malformed knobs, and state them at boot
+    from learningorchestra_tpu_torch.core.devcache import capacity_bytes
+    from learningorchestra_tpu_torch.utils.dtypepolicy import dtype_policy
+
+    print(f"devcache capacity: {capacity_bytes()} bytes", flush=True)
     print(f"serving config: {serve_config.validate_all()}", flush=True)
     print(
         "coalescing config: "
@@ -184,6 +188,9 @@ def main(device: DeviceLike = None) -> None:
         f"every_segments={sched_config.resume_every_segments()}",
         flush=True,
     )
+    # the reference's "wire config" line; its shm_bytes and v2 fields
+    # belong to the networked store, which the port does not have
+    print(f"wire config: dtype_policy={dtype_policy()}", flush=True)
     data_dir = os.environ.get("LO_DATA_DIR", os.path.join(os.getcwd(), "lo_data"))
     images_dir = os.environ.get("LO_IMAGES_DIR", os.path.join(data_dir, "images"))
     models_dir = os.environ.get("LO_MODELS_DIR", os.path.join(data_dir, "models"))

@@ -3,12 +3,21 @@
 The port's copy of ``learningorchestra_tpu/utils/dtypepolicy.py``: the
 same values, validation and read-once cache. ``f32`` (the default) ships
 feature matrices to the card and keeps them there as float32. ``bf16``
-is a valid value but not yet ported: :func:`dtype_policy` refuses it, as
-``device.policy_dtype`` does, instead of silently staying float32.
+halves both: every feature matrix is cast to bfloat16 where its rows go
+to the device (``ml/base.shard_matrix``), so the host-to-device copy and
+the matrix kept on the card are half the bytes. Parameters, reductions
+and metrics stay float32: the kernels that read X (K1, K6, K7) widen each
+bfloat16 value exactly to float32 and compute as before, and the torch
+ops widen X where the reference's jnp promotes ``bf16`` with ``f32`` to
+``f32``.
+
+The policy is part of every device-cache key (core/devcache.py): an
+entry made under one policy never serves another.
 
 Read once per process: the policy names the dtype every cached device
-matrix was made in, so it must not change under a running service.
-Stdlib only.
+matrix was made in, and the resume artifacts' key, so it must not
+change under a running service. ``device.policy_dtype`` is a view of
+this one reader. Stdlib only.
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ import os
 
 POLICIES = ("f32", "bf16")
 
-_POLICY: list = []  # one-element cache: read once per process
+_POLICY: list = []  # one-element cache: read once per process (tests empty it)
 
 
 def validate_policy(raw: str) -> str:
@@ -31,13 +40,9 @@ def validate_policy(raw: str) -> str:
 
 
 def dtype_policy() -> str:
-    """The process's feature dtype policy string. ``bf16`` raises
-    ``NotImplementedError``: the port moves float32 features only."""
+    """The process's feature dtype policy string, also the token that
+    rides device-cache keys."""
     if not _POLICY:
-        policy = validate_policy(os.environ.get("LO_DTYPE_POLICY", "f32"))
-        if policy == "bf16":
-            raise NotImplementedError(
-                "LO_DTYPE_POLICY=bf16 is not yet ported; unset it or use f32"
-            )
-        _POLICY.append(policy)
+        _POLICY.append(validate_policy(os.environ.get("LO_DTYPE_POLICY", "f32")))
     return _POLICY[0]
+

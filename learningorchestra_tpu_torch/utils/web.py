@@ -407,8 +407,10 @@ class WebApp:
             # body: its own status code, not a 500
             return _error_page(error.status, error.description)
         except Exception as error:  # noqa: BLE001 — the route's 500 body
+            # werkzeug's mimetype "text/plain" gains the charset
             return Response(
-                f"{type(error).__name__}: {error}", status=500, content_type="text/plain"
+                f"{type(error).__name__}: {error}", status=500,
+                content_type="text/plain; charset=utf-8",
             )
         if isinstance(result, Response):
             return result

@@ -354,8 +354,10 @@ extern "C" {
 // launchable on `device`: its shared-memory cap raised where it needs
 // more, and the blocks of it one SM holds at once and the SM count
 // returned. The wrapper asks once per device and shape.
-int lo_tree_forward_prepare(int gbt, int staged, int x_staged, int row_threads, int shared_bytes,
-                            int device, int* blocks_per_sm, int* sms) {
+// float32 X only: x_bf16 (the kept kernel's bfloat16 X) is refused.
+int lo_tree_forward_prepare(int x_bf16, int gbt, int staged, int x_staged, int row_threads,
+                            int shared_bytes, int device, int* blocks_per_sm, int* sms) {
+  if (x_bf16) return cudaErrorInvalidValue;
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   const Kernel kernel = kernel_of(gbt, staged, x_staged);
@@ -373,13 +375,14 @@ int lo_tree_forward_prepare(int gbt, int staged, int x_staged, int row_threads, 
 // x (grid-stride over the tiles) and a block a job group along y. Launches
 // on `stream` of `device`, does not synchronize, and returns
 // cudaGetLastError() after the launch: 0 means it was accepted.
-int lo_tree_forward(int gbt, int staged, int x_staged, int row_threads, const float* X,
+int lo_tree_forward(int x_bf16, int gbt, int staged, int x_staged, int row_threads, const float* X,
                     const int* features,
                     const float* thresholds, const float* values, float* out, int rows,
                     int num_features, int trees, int depth, int classes, int jobs,
                     long long x_job_stride, int group_jobs, int log_tile_rows, int pass_trees,
                     int acc_shared, int vector, float f0, float step, int blocks,
                     int shared_bytes, int device, void* stream) {
+  if (x_bf16) return cudaErrorInvalidValue;
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (rows <= 0 || jobs <= 0) return cudaSuccess;
