@@ -2,8 +2,9 @@
 its PCA and t-SNE image lane, its sweeps and job coalescing, its model
 builder (``POST /models``), its whole service stack (crash resume, the
 data services, ``POST /models/sweep``, the runner's kill -9 drill), its
-batch predictions lane with the device cache, and the ``bf16`` feature
-policy on one CUDA card.
+batch predictions lane with the device cache, the stack over the
+networked store (a replicated pair of store servers, failover), and the
+``bf16`` feature policy on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -13,6 +14,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py models           # the builds alone
     python3 chip_smoke.py stack            # resume, the services, sweeps, the kill -9 drill
     python3 chip_smoke.py batch bf16       # the batch lane; LO_DTYPE_POLICY=bf16 in a child
+    python3 chip_smoke.py store            # the stack over a primary and a follower store server
 
 Phases, one JSON line each:
 
@@ -232,13 +234,34 @@ Phases, one JSON line each:
                  request reads it again; evicting the cached device
                  matrices frees their bytes (``memory_allocated``). Each
                  request's wall and ``timings``.
-11. bf16       — in a child process under ``LO_DTYPE_POLICY=bf16``: K1,
+11. store      — a primary store server (sync replication) and its
+                 follower (automatic promotion) as child processes, the
+                 seven services in this process over
+                 ``connect("primary,follower")`` with a shared-memory
+                 ring: the product collections and the 1,000,000-row
+                 test collection ingested through the binary verbs; a
+                 sync build whose metrics equal an in-process store's
+                 build's; a gb batch request whose labels equal the same
+                 request's in process, ``load_data`` over the ring and,
+                 from a ringless client, over the HTTP body (bytes and
+                 frames by road; the test collection's read alone by
+                 each road in turns); a repeat served by the device
+                 cache after rev probes over the wire (0 bytes copied);
+                 a ``set_column_bin`` from another client that moves the
+                 rev, and the reread; then ``kill -9`` of the primary:
+                 the follower's promotion time and loss window (0), an
+                 async build and a batch request with the values from
+                 before. K1-K7 and K6 must launch during the phase.
+12. bf16       — in a child process under ``LO_DTYPE_POLICY=bf16``: K1,
                  K6 (tree lanes, a thread a row, rows from global memory)
                  and K7 (both entry points, 2 and 10 classes) on bfloat16
                  X bit-equal to their float32 launches on the widened X
                  and held to their plain versions, at 1,000,000 × 16 and
                  at 5, 16, 17 and 32 features, timed cold and warm beside
-                 the float32 form; the five-classifier product build and
+                 the float32 form; K7 also on rows of 202, 444 and 20,000
+                 features (4,096 rows: staged raw, and from global
+                 memory), and an lr build on rows of 256 features (it
+                 fits); the five-classifier product build and
                  a ``/predict`` (every build kernel launched, the cached
                  matrices bfloat16 at half the float32 bytes, every label
                  its ``.model``'s); a t-SNE request (201) and a PCA
@@ -4556,49 +4579,32 @@ def _stack_sweeps(torch, client, store, folder: str, walls: dict) -> dict:
     return results
 
 
-class _RunnerChild:
-    """``python -m learningorchestra_tpu_torch.services.runner`` as a child
-    on the card, its output in a log file."""
+class _LoggedChild:
+    """A child process of this repository's code (the repository on its
+    ``PYTHONPATH``), its output in a log file."""
 
-    def __init__(self, folder: str, log_name: str, extra_env: dict):
-        env = dict(os.environ)
-        env.update({
-            "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", ""),
-            "PYTHONUNBUFFERED": "1", "LO_EPHEMERAL": "1",
-            "LO_DATA_DIR": os.path.join(folder, "lo_data"),
-            "LO_MODELS_DIR": os.path.join(folder, "models"),
-            "LO_BUILD_WORKERS": "1", "LO_PROGRAM_ROW_STEPS": DRILL_ROW_STEPS,
-        })
-        env.pop("LO_FAULT_BUILDER_PHASE", None)
-        env.update(extra_env)
-        self.log_path = os.path.join(folder, log_name)
-        self.log = open(self.log_path, "w")
-        self.process = subprocess.Popen(
-            RUNNER_COMMAND,
-            env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT,
-        )
-        self.clients: dict = {}
+    def __init__(self, command: list, env: dict, log_path: str):
+        env = {**env, "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", ""), "PYTHONUNBUFFERED": "1"}
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        self.process = subprocess.Popen(command, env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
 
     def lines(self) -> list:
         with open(self.log_path) as handle:
             return handle.read().splitlines()
 
-    def wait_serving(self, timeout_s: float = 300) -> None:
-        import re
-
+    def wait_for(self, marker: str, timeout_s: float, what: str) -> list:
+        """The log's lines once one holds ``marker``; raises when the
+        child dies or the time passes first."""
         deadline = time.time() + timeout_s
         while time.time() < deadline:
             lines = self.lines()
-            if any("serving all services" in line for line in lines):
-                for line in lines:
-                    match = re.search(r"service (\w+) on [\d.]+:(\d+)", line)
-                    if match:
-                        self.clients[match.group(1)] = _Client(int(match.group(2)))
-                return
+            if any(marker in line for line in lines):
+                return lines
             if self.process.poll() is not None:
                 break
             time.sleep(0.05)
-        raise AssertionError("the runner never served:\n" + "\n".join(self.lines()[-40:]))
+        raise AssertionError(f"{what} never served:\n" + "\n".join(self.lines()[-40:]))
 
     def stop(self) -> None:
         if self.process.poll() is None:
@@ -4609,6 +4615,30 @@ class _RunnerChild:
                 self.process.kill()
                 self.process.wait(timeout=15)
         self.log.close()
+
+
+class _RunnerChild(_LoggedChild):
+    """``python -m learningorchestra_tpu_torch.services.runner`` as a child
+    on the card."""
+
+    def __init__(self, folder: str, log_name: str, extra_env: dict):
+        env = {
+            **os.environ, "LO_EPHEMERAL": "1",
+            "LO_DATA_DIR": os.path.join(folder, "lo_data"),
+            "LO_MODELS_DIR": os.path.join(folder, "models"),
+            "LO_BUILD_WORKERS": "1", "LO_PROGRAM_ROW_STEPS": DRILL_ROW_STEPS,
+        }
+        env.pop("LO_FAULT_BUILDER_PHASE", None)
+        super().__init__(RUNNER_COMMAND, {**env, **extra_env}, os.path.join(folder, log_name))
+        self.clients: dict = {}
+
+    def wait_serving(self, timeout_s: float = 300) -> None:
+        import re
+
+        for line in self.wait_for("serving all services", timeout_s, "the runner"):
+            match = re.search(r"service (\w+) on [\d.]+:(\d+)", line)
+            if match:
+                self.clients[match.group(1)] = _Client(int(match.group(2)))
 
 
 def _metric_total(text: str, name: str) -> float:
@@ -4933,6 +4963,351 @@ def phase_batch(torch, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The networked store: a primary and a follower store server in child
+# processes, the stack in this process over a RemoteStore
+# --------------------------------------------------------------------------
+
+STORE_SERVER_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.core.store_service"]
+# the ring a client creates: a 1,000,000-row frame of the test collection
+# (17 float64 columns and the ids, ~136 MB in one LO_WIRE_ROWS_BIN chunk)
+# fits, with room for the read-ahead's frame
+STORE_SHM_BYTES = 512 * 2**20
+STORE_AUTO_PROMOTE_S = "2"       # the follower's LO_AUTO_PROMOTE_S
+STORE_ACK_TIMEOUT_S = "60"       # sync replication waits this long for the follower
+STORE_BOOT_TIMEOUT_S = 120
+STORE_PROMOTE_TIMEOUT_S = 60
+STORE_DEVICE = None              # the stack's device: the CUDA card
+STORE_FAILOVER_TEST = "bench_test_failover"   # the test rows of the build after the kill
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+class _StoreServer(_LoggedChild):
+    """``python -m learningorchestra_tpu_torch.core.store_service`` as a
+    child process."""
+
+    def __init__(self, folder: str, name: str, port: int, extra_env: dict):
+        env = {
+            **os.environ, "LO_STORE_PORT": str(port), "LO_DATA_DIR": os.path.join(folder, name),
+            "LO_NODE_ID": name, "LO_SHM_BYTES": str(STORE_SHM_BYTES), **extra_env,
+        }
+        super().__init__(STORE_SERVER_COMMAND, env, os.path.join(folder, f"{name}.log"))
+        self.url = f"http://127.0.0.1:{port}"
+
+    def wait_serving(self) -> None:
+        self.wait_for("store server on", STORE_BOOT_TIMEOUT_S, f"store server {self.url}")
+
+
+class _WireRoads:
+    """What a RemoteStore's paged binary reads decoded, road by road:
+    frames and bytes copied out of the shared-memory ring (numpy buffers)
+    and read from the HTTP body (bytes); and its rev probes over the wire
+    (``GET /c/<name>/rev``)."""
+
+    def __init__(self, store):
+        self.frames = {"ring": 0, "body": 0}
+        self.bytes = {"ring": 0, "body": 0}
+        self.rev_probes = 0
+        decode, rev = store._decode_chunk, store.collection_rev
+
+        def counted_decode(collection, fields, chunk_start, chunk_limit, raw):
+            road = "ring" if isinstance(raw, np.ndarray) else "body"
+            self.frames[road] += 1
+            self.bytes[road] += len(raw)
+            return decode(collection, fields, chunk_start, chunk_limit, raw)
+
+        def counted_rev(collection):
+            self.rev_probes += 1
+            return rev(collection)
+
+        store._decode_chunk = counted_decode
+        store.collection_rev = counted_rev
+
+    def snapshot(self) -> dict:
+        return {"frames": dict(self.frames), "bytes": dict(self.bytes), "rev_probes": self.rev_probes}
+
+
+def _remote_store(urls: str, shm_bytes: int):
+    """``connect(urls)``, its ring of ``shm_bytes`` (what ``LO_SHM_BYTES``
+    sets; 0: none), and the counter of its roads."""
+    from learningorchestra_tpu_torch.core.store_service import connect
+
+    store = connect(urls)
+    store.shm_bytes = shm_bytes
+    return store, _WireRoads(store)
+
+
+def _copy_product_test(source, target, name: str) -> None:
+    """``bench_test``'s rows under another name, written as product_store
+    writes them."""
+    fields = [f"f{i}" for i in range(FEATURES)] + ["label"]
+    target.create_collection(name)
+    target.insert_one(name, {"_id": 0, "filename": name, "finished": True, "fields": fields})
+    target.insert_column_arrays(name, source.read_column_arrays("bench_test", fields))
+
+
+def _store_build(client, store, test: str, run_async: bool) -> dict:
+    """One five-classifier ``POST /models`` (async: waited on through
+    ``/wait``); its wall and each classifier's stored metrics."""
+    job = f"build:{test}:{'+'.join(MODEL_NAMES)}"
+    started = time.perf_counter()
+    status, answer = client.call("POST", "/models", _build_body("bench_train", test, PRODUCT_PREPROCESSOR, run_async))
+    if (status, answer) != (201, {"result": "created_file", **({"job": job} if run_async else {})}):
+        raise AssertionError(f"store: the build of {test} answered {status} {answer}")
+    while run_async:
+        status, waited = client.call("GET", f"/jobs/{job}/wait?timeout=60")
+        if status != 200:
+            raise AssertionError(f"store: /wait answered {status} {waited}")
+        if waited["result"] != "timeout":
+            if waited["result"]["state"] != "finished":
+                raise AssertionError(f"store: the async build ended {waited['result']}")
+            break
+    wall_s = time.perf_counter() - started
+    metrics = {
+        name: {key: float(store.find_one(f"{test}_prediction_{name}", {"_id": 0})[key]) for key in ("accuracy", "F1")}
+        for name in MODEL_NAMES
+    }
+    return {"wall_s": wall_s, "metrics": metrics}
+
+
+def _labels(store, collection: str) -> np.ndarray:
+    return store.read_column_arrays(collection, ["prediction"])["prediction"].to_float64()
+
+
+def _same_labels(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if len(got) != BATCH_ROWS or not np.array_equal(got, want):
+        raise AssertionError(f"store: {what}'s labels differ from the in-process store's")
+
+
+def phase_store(torch, card: str) -> dict:
+    """The stack over the networked store. A primary (``LO_REPLICATE=1``,
+    ``LO_STORE_SYNC_REPL=1``) and a follower (``LO_PRIMARY_URL``,
+    ``LO_AUTO_PROMOTE_S``; both ``LO_PEERS``) run as store server child
+    processes; the seven services run in this process (``start_all``)
+    on the card over ``connect("primary,follower")``, whose client owns a
+    shared-memory ring. The product collections (100,000 rows) and a
+    1,000,000-row test collection go in through the binary verbs. With
+    the launch counts set to 0 first: a sync product build, whose metrics
+    equal an in-process ``InMemoryStore`` build's on the same data; a
+    batch request (gb, 1,000,000 rows) whose labels equal the same
+    request's over the ``InMemoryStore``, with ``load_data`` read over
+    the ring, and again from a client with ``LO_SHM_BYTES=0``, over the
+    HTTP body (then the test collection's read alone by each road, in
+    turns ring, body, body, ring); a repeat that probes the revs over the wire, hits the
+    device cache and copies nothing; a ``set_column_bin`` from another
+    client that rewrites one feature with its own values, which moves
+    the rev, and the reread that follows. Then ``kill -9`` of the
+    primary: the follower promotes itself (its time from the kill and
+    its loss window, 0 under sync replication), and an async build to
+    ``finished`` and a batch request give the values from before the
+    kill. Every kernel of the build (K1 to K7, K6 both forwards)
+    launched in the phase."""
+    import signal
+
+    from learningorchestra_tpu_torch.core import devcache
+    from learningorchestra_tpu_torch.core.store_service import probe_health
+    from learningorchestra_tpu_torch.ml import base
+    from learningorchestra_tpu_torch.services import runner
+
+    started = time.perf_counter()
+    cache = devcache.global_devcache()
+    with tempfile.TemporaryDirectory() as folder:
+        # the in-process reference: the same data, the same requests
+        local = product_store()
+        batch_test_collection(local)
+        server = ServerThread(create_app(local, models_dir=os.path.join(folder, "local_models"))).start()
+        try:
+            client = _Client(server.port)
+            local_build = _store_build(client, local, "bench_test", False)
+            _batch_request(torch, client, local, "gb", "batch_gb")
+        finally:
+            server.stop()
+        want_labels = _labels(local, "batch_gb")
+
+        p_port, f_port = _free_port(), _free_port()
+        p_url, f_url = f"http://127.0.0.1:{p_port}", f"http://127.0.0.1:{f_port}"
+        primary = _StoreServer(folder, "primary", p_port, {
+            "LO_REPLICATE": "1", "LO_STORE_SYNC_REPL": "1", "LO_STORE_ACK_TIMEOUT_S": STORE_ACK_TIMEOUT_S,
+            "LO_PEERS": f_url,
+        })
+        follower = None
+        servers = []
+        rings = []
+        try:
+            primary.wait_serving()
+            follower = _StoreServer(folder, "follower", f_port, {
+                "LO_PRIMARY_URL": p_url, "LO_PEERS": p_url, "LO_AUTO_PROMOTE_S": STORE_AUTO_PROMOTE_S,
+            })
+            follower.wait_serving()
+            boot_s = time.perf_counter() - started
+            urls = f"{p_url},{f_url}"
+            remote, roads = _remote_store(urls, STORE_SHM_BYTES)
+            rings.append(remote)
+            ingest_started = time.perf_counter()
+            product_store(remote)
+            batch_test_collection(remote)
+            _copy_product_test(local, remote, STORE_FAILOVER_TEST)
+            ingest_s = time.perf_counter() - ingest_started
+
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            _, servers = runner.start_all(
+                remote, os.path.join(folder, "images"), ephemeral=True,
+                models_dir=os.path.join(folder, "models"), device=STORE_DEVICE,
+            )
+            builder = next(s for s in servers if s.canonical_port == runner.SERVICES["model_builder"])
+            client = _Client(builder.port)
+            build = _store_build(client, remote, "bench_test", False)
+            if build["metrics"] != local_build["metrics"]:
+                raise AssertionError(
+                    f"store: the build's metrics {build['metrics']} are not the in-process store's "
+                    f"{local_build['metrics']}"
+                )
+            # a batch request: its tables read over the ring (the build's
+            # cached training table dropped, so that it reads what the
+            # ringless client's request reads below)
+            cache.invalidate(scope=devcache.store_token(remote))
+            ring_before = remote.shm_stats() or {"frames": 0, "bytes": 0}
+            roads_before = roads.snapshot()
+            over_ring = _batch_request(torch, client, remote, "gb", "batch_gb")
+            over_ring["shm"] = _delta(remote.shm_stats(), ring_before)
+            over_ring["roads"] = _roads_delta(roads.snapshot(), roads_before)
+            _same_labels("the batch request over the ring", _labels(remote, "batch_gb"), want_labels)
+            if over_ring["shm"]["frames"] == 0 or over_ring["roads"]["frames"]["ring"] == 0:
+                raise AssertionError(f"store: the batch request read nothing over the ring {over_ring}")
+            # the same request from a client without a ring: over the body
+            plain, plain_roads = _remote_store(urls, 0)
+            body_server = ServerThread(
+                create_app(plain, models_dir=os.path.join(folder, "models"))
+            ).start()
+            try:
+                over_body = _batch_request(torch, _Client(body_server.port), plain, "gb", "batch_gb_body")
+            finally:
+                body_server.stop()
+            over_body["shm"] = plain.shm_stats()
+            over_body["roads"] = plain_roads.snapshot()
+            _same_labels("the batch request over the body", _labels(plain, "batch_gb_body"), want_labels)
+            if over_body["roads"]["frames"]["ring"] or not over_body["roads"]["bytes"]["body"]:
+                raise AssertionError(f"store: the ringless client's bytes took the ring {over_body}")
+            # the test collection's paged read alone, by each road in turns
+            reads = {"ring": [], "body": []}
+            for road, reader in (("ring", remote), ("body", plain), ("body", plain), ("ring", remote)):
+                read_started = time.perf_counter()
+                reader.read_column_arrays(BATCH_TEST)
+                reads[road].append(time.perf_counter() - read_started)
+            # a repeat: revs probed over the wire, cache hits, nothing copied
+            before, copied, probes = cache.stats(), base.h2d_bytes(), roads.rev_probes
+            again = _batch_request(torch, client, remote, "gb", "batch_gb_again")
+            after = cache.stats()
+            again["rev_probes"] = roads.rev_probes - probes
+            again["devcache"] = {"before": before, "after": after, "copied_bytes": base.h2d_bytes() - copied}
+            if (after["misses"] != before["misses"] or after["hits"] <= before["hits"]
+                    or again["devcache"]["copied_bytes"] or not again["rev_probes"]):
+                raise AssertionError(f"store: the repeat missed the cache or probed no rev {again}")
+            # another client rewrites a feature with its own values: the rev moves
+            writer, _ = _remote_store(urls, 0)
+            rev_before = remote.collection_rev(BATCH_TEST)
+            values = writer.read_column_arrays(BATCH_TEST, ["f0"])["f0"].to_float64()
+            writer.set_column(BATCH_TEST, "f0", values)
+            rev_after = remote.collection_rev(BATCH_TEST)
+            if rev_after == rev_before:
+                raise AssertionError("store: set_column_bin did not move the collection's rev")
+            moved = _batch_request(torch, client, remote, "gb", "batch_gb_moved")
+            reread = cache.stats()
+            moved["devcache"] = reread
+            _same_labels("the request after the rewrite", _labels(remote, "batch_gb_moved"), want_labels)
+            if reread["misses"] <= after["misses"] or reread["invalidations"] <= after["invalidations"]:
+                raise AssertionError(f"store: the rewrite did not make the next request reread ({reread})")
+            # failover: kill -9 the primary, the follower takes over
+            health_before = probe_health(f_url)
+            primary.process.send_signal(signal.SIGKILL)
+            killed = time.perf_counter()
+            primary.process.wait(timeout=15)
+            promoted = None
+            while time.perf_counter() - killed < STORE_PROMOTE_TIMEOUT_S:
+                health = probe_health(f_url, timeout=1.0)
+                if health and health.get("writable"):
+                    promoted = time.perf_counter() - killed
+                    break
+                time.sleep(0.02)
+            if promoted is None:
+                raise AssertionError("store: the follower never promoted:\n" + "\n".join(follower.lines()[-20:]))
+            loss = health.get("loss_window") or {}
+            if loss.get("records") != 0 or health.get("term", 0) < 2:
+                raise AssertionError(f"store: the promotion lost acknowledged records: {health}")
+            failover_started = time.perf_counter()
+            after_kill = _store_build(client, remote, STORE_FAILOVER_TEST, True)
+            if after_kill["metrics"] != local_build["metrics"]:
+                raise AssertionError(f"store: the async build after the kill gave {after_kill['metrics']}")
+            after_kill_batch = _batch_request(torch, client, remote, "gb", "batch_gb_failover")
+            _same_labels("the batch request after the kill", _labels(remote, "batch_gb_failover"), want_labels)
+            failover_s = time.perf_counter() - failover_started
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+            missing = [name for name in BUILD_KERNELS if launches[name] == 0]
+            if missing:
+                raise AssertionError(f"store: the phase never launched {missing}")
+            client_url = remote.base_url
+        finally:
+            for server in servers:
+                server.stop()
+            for store in rings:
+                store.close()
+            primary.stop()
+            if follower is not None:
+                follower.stop()
+    record = {
+        "phase": "store",
+        "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS, "batch_test": BATCH_ROWS},
+        "shm_bytes": STORE_SHM_BYTES,
+        "boot_s": boot_s,
+        "ingest_s": ingest_s,
+        "build": build,
+        "local_build": local_build,
+        "batch_over_ring": over_ring,
+        "batch_over_body": over_body,
+        "test_reads_s": reads,
+        "batch_again": again,
+        "rev": {"before": rev_before, "after": rev_after},
+        "batch_after_rewrite": moved,
+        "failover": {
+            "health_before": health_before,
+            "promote_s": promoted,
+            "term": health["term"],
+            "loss_window": loss,
+            "client_now_at": client_url == f_url,
+            "async_build": after_kill,
+            "batch": after_kill_batch,
+            "after_kill_s": failover_s,
+        },
+        "launches": {name: launches[name] for name in BUILD_KERNELS},
+        "phase_s": time.perf_counter() - started,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
+def _delta(now: "dict | None", before: dict) -> dict:
+    now = now or {"frames": 0, "bytes": 0}
+    return {key: now[key] - before.get(key, 0) for key in now}
+
+
+def _roads_delta(now: dict, before: dict) -> dict:
+    return {
+        "frames": {road: now["frames"][road] - before["frames"][road] for road in now["frames"]},
+        "bytes": {road: now["bytes"][road] - before["bytes"][road] for road in now["bytes"]},
+        "rev_probes": now["rev_probes"] - before["rev_probes"],
+    }
+
+
+# --------------------------------------------------------------------------
 # LO_DTYPE_POLICY=bf16, in a child process
 # --------------------------------------------------------------------------
 
@@ -4942,6 +5317,13 @@ BF16_GLOBAL_FEATURES = 1_000    # K6 rows read from global memory
 BF16_EMBED_ROWS = QUALITY_ROWS
 BF16_SWEEP_ROWS = 20_000
 BF16_CHILD_TIMEOUT_S = 600
+# K7 on bfloat16 rows past its staged tile: 202 features (the trial losses
+# from global memory, the gradient's tile staged raw), 444 and 20,000 (both
+# from global memory; 20,000 x 4,096 is 164 MB of bfloat16)
+BF16_K7_WIDE_FEATURES = (202, 444, 20_000)
+BF16_K7_WIDE_ROWS = 4_096
+BF16_LR_FEATURES = 256          # the bf16 lr build past the staged tile
+BF16_LR_ROWS = 20_000
 BF16_FORMS = {   # the bf16 form's name: (the float32 kernel, its source, the TPU program)
     "apply_bins:bf16": ("apply_bins", FIT_SOURCE, FIT_REPLACES["apply_bins"]),
     "tree_ensemble_forward:bf16": ("tree_ensemble_forward", KERNEL_SOURCE, REPLACES["tree_ensemble_forward"]),
@@ -4993,7 +5375,9 @@ def check_bf16_kernels(torch, flush) -> dict:
     memory) and K7 (both entry points, 2 and 10 classes) on bfloat16 X,
     each bit-equal to its float32 launch on the widened X and held to its
     plain version, at the main path's 1,000,000 (K6: 1,048,576) x 16 and
-    at the edge widths; times cold and warm beside the float32 form's."""
+    at the edge widths (K7 also past its staged tile:
+    :func:`check_k7_bf16_wide`); times cold and warm beside the float32
+    form's."""
     results = {}
     # K1
     X_np, y_np = bench_synthetic(FIT_ROWS)
@@ -5129,8 +5513,108 @@ def check_bf16_kernels(torch, flush) -> dict:
                 }
     for name in k7:
         k7[name].update(rows=FIT_ROWS, library_ms=None, **k7[name]["by_classes"][CLASSES])
+        k7[name]["wide"] = check_k7_bf16_wide(torch, name)
     results.update(k7)
     return results
+
+
+def check_k7_bf16_wide(torch, name: str) -> dict:
+    """One K7 entry point on bfloat16 rows of BF16_K7_WIDE_FEATURES
+    features, 2 and 10 classes, BF16_K7_WIDE_ROWS seeded rows: bit-equal
+    to the float32 launch on the widened X and within K7_LOSS_RTOL and
+    K7_GRAD_ATOL of the plain twin; with the geometry each ran in."""
+    trial = name.startswith("logistic_trial")
+    record = {}
+    for features in BF16_K7_WIDE_FEATURES:
+        for classes in (CLASSES, DEEP_CLASSES):
+            rng = np.random.default_rng(features * 31 + classes)
+
+            def cuda(array):
+                return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32)).cuda()
+
+            X_b = cuda(rng.normal(size=(BF16_K7_WIDE_ROWS, features))).to(torch.bfloat16)
+            y = torch.from_numpy(rng.integers(0, classes, BF16_K7_WIDE_ROWS).astype(np.int32)).cuda()
+            W = cuda(rng.normal(size=(features, classes)) * 0.3 / np.sqrt(features))
+            b = cuda(rng.normal(size=classes) * 0.3)
+            steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X_b.device)
+            W4 = (W[None] * (1.0 + steps[:, None, None])).contiguous()
+            b4 = (b[None] * (1.0 + steps[:, None])).contiguous()
+            if trial:
+                kernel = lambda X: logistic.trial_losses(W4, b4, X, y, 0.0)  # noqa: E731
+                plain = lambda X: logistic._trial_losses(W4, b4, X, y, 0.0)  # noqa: E731
+            else:
+                kernel = lambda X: logistic.loss_and_grad(W, b, X, y, 0.0)  # noqa: E731
+                plain = lambda X: logistic._loss_fn(W, b, X, y, 0.0)  # noqa: E731
+            what = f"{name} {BF16_K7_WIDE_ROWS}x{features}, {classes} classes"
+            got = kernel(X_b)
+            X32 = X_b.float()
+            _widened_equal(what, got, kernel(X32))
+            del X32
+            got_all = torch.cat([g.reshape(-1) for g in (got if isinstance(got, tuple) else (got,))])
+            want = plain(X_b)
+            want_all = torch.cat([w.reshape(-1) for w in (want if isinstance(want, tuple) else (want,))])
+            error = float((got_all - want_all).abs().max())
+            if error > K7_GRAD_ATOL + K7_LOSS_RTOL * float(want_all.abs().max()):
+                raise AssertionError(f"{what}: {error} from the plain twin")
+            geometry = logistic._k7_geometry(features, classes, 1, False, trial=trial, x_bf16=True)
+            record[f"{features}x{classes}"] = {
+                "max_abs_err": error, "bit_equal_to_f32": True,
+                "x_staged": geometry[3], "tile": geometry[1],
+            }
+    if not trial and {entry["x_staged"] for entry in record.values()} != {True, False}:
+        raise AssertionError(f"{name}: the wide checks missed a geometry ({record})")
+    return record
+
+
+def bf16_lr_build(torch) -> dict:
+    """One lr build (``POST /models`` over HTTP) under ``bf16`` on rows of
+    BF16_LR_FEATURES features, past K7's staged tile: it fits, K7 launched,
+    and its stored labels are its ``.model``'s own predictions."""
+    from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
+    from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
+    from learningorchestra_tpu_torch.ml.builder import load_dataframe
+
+    rng = np.random.default_rng(BF16_LR_FEATURES)
+    store = InMemoryStore()
+    for name, rows in (("wide_train", BF16_LR_ROWS), ("wide_test", BF16_LR_ROWS // 4)):
+        X = rng.normal(size=(rows, BF16_LR_FEATURES))
+        y = (X[:, :8].sum(axis=1) > 0).astype(np.float64)
+        columns = {f"f{i}": X[:, i] for i in range(BF16_LR_FEATURES)}
+        columns["label"] = y
+        write_table(store, name, ColumnTable(columns), {"filename": name, "finished": True, "fields": list(columns)})
+    with tempfile.TemporaryDirectory() as folder:
+        server = ServerThread(create_app(store, models_dir=os.path.join(folder, "models"))).start()
+        try:
+            client = _Client(server.port)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            started = time.perf_counter()
+            body = {**_build_body("wide_train", "wide_test", PRODUCT_PREPROCESSOR, False), "classificators_list": ["lr"]}
+            status, answer = client.call("POST", "/models", body)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - started
+            launches = kernels.launches()
+            if (status, answer) != (201, {"result": "created_file"}):
+                raise AssertionError(f"bf16 lr at {BF16_LR_FEATURES} features: the build answered {status} {answer}")
+            if launches["logistic_loss_grad"] == 0 or launches["logistic_trial_losses"] == 0:
+                raise AssertionError(f"bf16 lr at {BF16_LR_FEATURES} features: K7 never launched ({launches})")
+            frames = run_preprocessor(
+                PRODUCT_PREPROCESSOR, load_dataframe(store, "wide_train"), load_dataframe(store, "wide_test")
+            )
+            X_test = frames["features_testing"].feature_matrix("features")
+            metadata = store.find_one("wide_test_prediction_lr", {"_id": 0})
+            stored = store.read_column_arrays("wide_test_prediction_lr", ["prediction"])["prediction"].to_float64()
+            if not np.array_equal(load_model(metadata["model_checkpoint"]).predict(X_test), stored):
+                raise AssertionError("bf16 lr: the stored labels are not its checkpoint's")
+        finally:
+            server.stop()
+    return {
+        "features": BF16_LR_FEATURES, "rows": BF16_LR_ROWS, "wall_s": wall_s,
+        "launches": {name: launches[name] for name in ("logistic_loss_grad", "logistic_trial_losses")},
+        "accuracy": float(metadata["accuracy"]), "F1": float(metadata["F1"]),
+        "geometry": logistic._k7_geometry(BF16_LR_FEATURES, CLASSES, 1, False, x_bf16=True),
+        "trial_geometry": logistic._k7_geometry(BF16_LR_FEATURES, CLASSES, 1, False, trial=True, x_bf16=True),
+    }
 
 
 def _raw_call(port: int, method: str, path: str, payload: dict) -> tuple:
@@ -5282,6 +5766,7 @@ def bf16_child() -> int:
         kernels.library(name)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     checked = check_bf16_kernels(torch, flush)
+    wide_build = bf16_lr_build(torch)
     build = bf16_build(torch)
     summary = []
     for name, (base_name, source, replaces) in BF16_FORMS.items():
@@ -5293,12 +5778,13 @@ def bf16_child() -> int:
                 "max_abs_err", "rows", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "f32_ms", "f32_warm_ms", "f32_bound_ms",
             )},
-            **{field: result[field] for field in ("by_shape", "by_rows", "by_classes") if field in result},
+            **{field: result[field] for field in ("by_shape", "by_rows", "by_classes", "wide") if field in result},
         })
     emit({
         "phase": "bf16",
         "kernels": summary,
         "build": build,
+        "wide_lr_build": wide_build,
         "images": bf16_images(torch),
         "sweep": bf16_sweep(torch),
         "nvidia_smi": nvidia_smi_line(),
@@ -5356,7 +5842,7 @@ def check_bounds(summary) -> None:
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "bf16",
+    "batch", "store", "bf16",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -5487,6 +5973,8 @@ def main(argv) -> int:
     if "stack" in wanted:
         phase_stack(torch, device["card"])
     batch = phase_batch(torch, device["card"]) if "batch" in wanted else None
+    if "store" in wanted:
+        phase_store(torch, device["card"])
     if "bf16" in wanted:
         bf16 = phase_bf16(torch, device["card"], batch["f32_metrics"] if batch else None)
         summary.extend(bf16["kernels"])

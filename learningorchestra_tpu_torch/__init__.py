@@ -7,7 +7,10 @@ on the CPU.
 
 Ported so far: the whole service stack in one process
 (``services.runner``: the data services, the model builder with its
-sweeps and the predict lane, the PCA and t-SNE image lane), its job
+sweeps and the predict lane, the PCA and t-SNE image lane), over an
+in-process store or the networked one (``core.store_service``: a store
+server with WAL replication and quorum failover, its client over the
+binary wire and a shared-memory ring), its job
 scheduler with a journal and crash recovery, the five classifiers' fits
 with segment-granular resume, and ``.model`` checkpoints either package
 reads. The device programs on those paths run as hand-written CUDA

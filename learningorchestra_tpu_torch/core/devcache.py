@@ -12,8 +12,12 @@ crosses each boundary once per revision:
 - Dataset entries are keyed by ``(store scope, collection, subkey)`` and
   stamped with the collection's mutation rev (``store.collection_rev``).
   A lookup probes the live rev first; a mismatch evicts the stale entry
-  and reloads. A store that reports no rev never caches (every read is
-  uncached): the networked store is not ported.
+  and reloads. That holds for a ``RemoteStore`` too (``GET
+  /c/<name>/rev``): every mutating verb bumps the collection's rev on the
+  server, so a write through any client evicts every cached reader at
+  its next lookup, and a paged read that fails mid-stream purges the
+  collection's entries (``invalidate_collection``). A store that reports
+  no rev never caches (every read is uncached).
 - Preprocessed frames, whose bytes come from arbitrary
   ``preprocessor_code``, are cached by content instead
   (:func:`content_device_matrix`): the key is a BLAKE2 digest of the host

@@ -92,13 +92,15 @@
 //     threads, a row each, read 32 different banks; the float64 terms and
 //     the scratch at strides that keep a warp's reads on different banks.
 //   - X may be bfloat16 (LO_DTYPE_POLICY=bf16: the solo fit's
-//     standardized rows; a sweep's job axis stays float32): a tile's
-//     values are widened exactly to float32 as they are staged (plain
-//     loads and stores, not cp.async, which copies bytes as they are), and
-//     everything after is unchanged, so the outputs are those of the
-//     float32 kernel on the widened X (the reference's jnp promotes the
-//     bfloat16 X to float32 in X @ W). bfloat16 rows are always staged:
-//     the wrapper refuses a geometry that reads x from global memory.
+//     standardized rows; a sweep's job axis stays float32), of any width.
+//     A staged tile's raw bfloat16 bytes come by 16-byte cp.async into a
+//     region of their own (`raw`), and after the wait each value is
+//     widened exactly to float32 into the ring's tile (one more barrier a
+//     tile); rows too wide to stage are read from global memory, each
+//     value widened where it is loaded (`Bf16Rows`). Everything after the
+//     widening is unchanged, so the outputs are those of the float32
+//     kernel on the widened X (the reference's jnp promotes the bfloat16
+//     X to float32 in X @ W).
 //   - Build without -use_fast_math: expf and logf are the accurate ones.
 
 #include <cuda_runtime.h>
@@ -118,12 +120,14 @@
 // run of doubles, so that a cell names its terms by one offset. `cells`:
 // the cells a block sums group by group (the narrow form and the trial
 // losses): each job's F*C + C + 1 (the trial losses' 4), and the weights'.
+// `raw`: a staged tile's bfloat16 values as they arrive, before they are
+// widened into the ring (x_bf16 layouts only).
 // Outside the unnamed namespace: the entry points take it, and keep their
 // external linkage only for a type that has it.
 struct Layout {
-  int group, tile, form, params_shared;
+  int group, tile, form, params_shared, x_bf16;
   int xs, tp, js, fd, cells, buffer_floats;
-  int ring, xd, terms, nll, wd, scratch, sums, sources, one, params_w, params_b, bytes;
+  int ring, raw, xd, terms, nll, wd, scratch, sums, sources, one, params_w, params_b, bytes;
 };
 
 namespace {
@@ -176,6 +180,12 @@ __device__ __forceinline__ void copy_async4(void* shared, const void* global) {
                : "memory");
 }
 
+__device__ __forceinline__ void copy_async16(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+
 __device__ __forceinline__ void async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -199,40 +209,95 @@ struct Tile {
 // (__bfloat162float's bits).
 typedef unsigned short bf16_bits;
 
-// x's element at `at` into the tile: a 4-byte cp.async for float32, a
-// load widened exactly and a store for bfloat16.
-__device__ __forceinline__ void stage_x(float* to, const float* from) { copy_async4(to, from); }
-__device__ __forceinline__ void stage_x(float* to, const bf16_bits* from) {
-  *to = __uint_as_float(static_cast<unsigned>(__ldg(from)) << 16);
+__device__ __forceinline__ float widen(bf16_bits bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
 }
 
-// Rows of X in global memory as float32, for the geometries that do not
-// stage x (float32 X only: the wrapper stages every bfloat16 tile).
+// Rows of bfloat16 X in global memory, read as float32: each value is
+// widened where it is loaded. It reads as a `const float*` does (x[i],
+// x + i), so that the row terms and the sums take either.
+struct Bf16Rows {
+  const bf16_bits* p;
+  __device__ __forceinline__ float operator[](long long i) const { return widen(__ldg(p + i)); }
+  __device__ __forceinline__ Bf16Rows operator+(long long i) const { return {p + i}; }
+};
+
+// Rows of X in global memory, from value `offset`, for the geometries that
+// do not stage x (rows too wide for shared memory).
 __device__ __forceinline__ const float* global_rows(const float* X, size_t offset) {
   return X + offset;
 }
-__device__ __forceinline__ const float* global_rows(const bf16_bits*, size_t) { return nullptr; }
+__device__ __forceinline__ Bf16Rows global_rows(const bf16_bits* X, size_t offset) {
+  return {X + offset};
+}
+
+// A raw tile of bfloat16 X: value i of the values from `from` at
+// raw[raw_shift(from) + i], the shift (0 to 7) putting `from`'s 16-byte
+// words on raw's; raw_head(from) values precede the first whole word.
+__device__ __forceinline__ int raw_head(const bf16_bits* from) {
+  return static_cast<int>((16 - (reinterpret_cast<uintptr_t>(from) & 15)) & 15) / 2;
+}
+__device__ __forceinline__ int raw_shift(const bf16_bits* from) { return (8 - raw_head(from)) & 7; }
+
+// Issue the copies of `count` bfloat16 values from `from` into the raw
+// tile: their whole 16-byte words by 16-byte cp.async, the values before
+// the first and after the last whole word by loads.
+__device__ __forceinline__ void stage_raw(bf16_bits* raw, const bf16_bits* __restrict__ from,
+                                          int count) {
+  bf16_bits* to = raw + raw_shift(from);
+  const int head = min(count, raw_head(from));
+  const int words = (count - head) / 8;
+  for (int i = threadIdx.x; i < words; i += kThreads)
+    copy_async16(to + head + 8 * i, from + head + 8 * i);
+  const int tail = head + 8 * words, edges = head + count - tail;
+  for (int i = threadIdx.x; i < edges; i += kThreads) {
+    const int at = i < head ? i : tail + i - head;
+    to[at] = __ldg(from + at);
+  }
+}
+
+// The raw tile's n rows widened exactly into the tile's x (row stride xs).
+__device__ __forceinline__ void widen_tile(float* x, const bf16_bits* raw, int n, int F, int xs) {
+  const int step_r = kThreads / F, step_f = kThreads % F;
+  int r = threadIdx.x / F, f = threadIdx.x % F;
+  while (r < n) {
+    x[r * xs + f] = widen(raw[r * F + f]);
+    r += step_r;
+    f += step_f;
+    if (f >= F) {
+      f -= F;
+      ++r;
+    }
+  }
+}
 
 // Issue the copies of rows [start, start + n) of the block's rows into
-// `tile` (4-byte cp.async: x's row stride in shared memory is odd).
-// Element i = r * F + f of the rows goes to thread i % kThreads.
+// `tile`: float32 x by 4-byte cp.async (x's row stride in shared memory is
+// odd; element i = r * F + f of the rows goes to thread i % kThreads),
+// bfloat16 x raw into `raw` (widen_tile after the wait); the labels and
+// the weights by 4-byte cp.async.
 template <typename In>
-__device__ __forceinline__ void stage_tile(const Tile& tile, const In* __restrict__ X,
+__device__ __forceinline__ void stage_tile(const Tile& tile, bf16_bits* raw,
+                                           const In* __restrict__ X,
                                            const int* __restrict__ y,
                                            const float* __restrict__ weights, int start,
                                            int n, int F, int xs) {
   if (xs > 0) {
-    const int step_r = kThreads / F, step_f = kThreads % F;
-    int r = threadIdx.x / F, f = threadIdx.x % F;
     const In* rows = X + static_cast<size_t>(start) * F;
-    while (r < n) {
-      stage_x(tile.x + r * xs + f, rows + static_cast<size_t>(r) * F + f);
-      r += step_r;
-      f += step_f;
-      if (f >= F) {
-        f -= F;
-        ++r;
+    if constexpr (std::is_same<In, float>::value) {
+      const int step_r = kThreads / F, step_f = kThreads % F;
+      int r = threadIdx.x / F, f = threadIdx.x % F;
+      while (r < n) {
+        copy_async4(tile.x + r * xs + f, rows + static_cast<size_t>(r) * F + f);
+        r += step_r;
+        f += step_f;
+        if (f >= F) {
+          f -= F;
+          ++r;
+        }
       }
+    } else {
+      stage_raw(raw, rows, n * F);
     }
   }
   for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -246,8 +311,11 @@ __device__ __forceinline__ void stage_tile(const Tile& tile, const In* __restric
 // reference's roundings
 // ---------------------------------------------------------------------------
 
-// The logit of class c without b: fmaf over the features in order.
-__device__ __forceinline__ float dot(const float* x, int F, const float* W, int C, int c) {
+// The logit of class c without b: fmaf over the features in order. A row
+// x is a `const float*` (a staged tile, float32 rows in global memory) or
+// Bf16Rows, here and in the functions below.
+template <typename XP>
+__device__ __forceinline__ float dot(XP x, int F, const float* W, int C, int c) {
   float sum = 0.0f;
 #pragma unroll 4
   for (int f = 0; f < F; ++f) sum = fmaf(x[f], W[f * C + c], sum);
@@ -260,7 +328,8 @@ struct Softmax {
 
 // Any C: the shifted logits' maximum, log-sum and the nll, each logit
 // computed again in each pass (the same fmaf chain, so the same bits).
-__device__ __forceinline__ Softmax softmax_any(const float* x, int F, const float* W,
+template <typename XP>
+__device__ __forceinline__ Softmax softmax_any(XP x, int F, const float* W,
                                                const float* b, int C, int label) {
   Softmax s;
   s.top = -INFINITY;
@@ -302,8 +371,8 @@ __device__ __forceinline__ float residual(float shifted, float log_sum, bool is_
 
 // The row's residuals w (p_c - onehot_c) as float64 at out[c * stride];
 // returns its (weighted) nll. kC = 2: C is 2 and W, b are 8-byte aligned.
-template <int kC>
-__device__ __forceinline__ float row_residuals(const float* x, int F, const float* W,
+template <int kC, typename XP>
+__device__ __forceinline__ float row_residuals(XP x, int F, const float* W,
                                                const float* b, int C, int label, float w,
                                                bool weighted, double* out, int stride) {
   float nll;
@@ -358,7 +427,8 @@ __device__ __forceinline__ float row_residuals(const float* x, int F, const floa
 // wide to keep all of a tile's terms) at out[(c - c0) * stride]; returns
 // its (weighted) nll. Each logit is computed again (softmax_any's fmaf
 // chains), so the terms are row_residuals' bits.
-__device__ __forceinline__ float window_residuals(const float* x, int F, const float* W,
+template <typename XP>
+__device__ __forceinline__ float window_residuals(XP x, int F, const float* W,
                                                   const float* b, int C, int label, float w,
                                                   bool weighted, int c0, int c1, double* out,
                                                   int stride) {
@@ -374,8 +444,8 @@ __device__ __forceinline__ float window_residuals(const float* x, int F, const f
 
 // Two rows' (weighted) nll at the four candidates W4 (4, F, C), b4 (4, C),
 // in out[row][k]. kC = 2: each parameter is read once for both rows.
-template <int kC>
-__device__ __forceinline__ void rows_trial_nll(const float* x0, const float* x1, int F,
+template <int kC, typename XP>
+__device__ __forceinline__ void rows_trial_nll(XP x0, XP x1, int F,
                                                const float* W4, const float* b4, int C,
                                                const int (&label)[2], const float (&w)[2],
                                                bool weighted, float (&out)[2][kCandidates]) {
@@ -444,7 +514,7 @@ __device__ __forceinline__ void rows_trial_nll(const float* x0, const float* x1,
       }
     }
   } else {
-    const float* x[2] = {x0, x1};
+    const XP x[2] = {x0, x1};
     for (int q = 0; q < 2; ++q)
       for (int k = 0; k < kCandidates; ++k) {
         float nll = softmax_any(x[q], F, W4 + static_cast<size_t>(k) * F * C, b4 + k * C, C,
@@ -492,25 +562,27 @@ __device__ __forceinline__ void describe_cells(const GroupedCells& g, const Layo
 // Each (group, cell) of the tile's n rows: the cell's sum over the group's
 // rows, from 0, in row order, into sums[group * cells + cell]. Work items
 // go to every thread, cells fastest.
+template <typename XP>
 __device__ __forceinline__ void group_sums(const GroupedCells& g, double* __restrict__ sums,
-                                           const float* x, int x_stride, const float* one,
-                                           int n) {
+                                           XP x, int x_stride, const float* one, int n) {
   const int groups = (n + kGroupRows - 1) / kGroupRows;
   const int step_g = kThreads / g.cells, step_c = kThreads % g.cells;
   int group = threadIdx.x / g.cells, cell = threadIdx.x % g.cells;
   while (group < groups) {
     const int2 source = g.sources[cell];
     const double* b = g.terms + source.x;
-    const float* a = source.y >= 0 ? x + source.y : one;
-    const int a_stride = source.y >= 0 ? x_stride : 0;
+    // a_r: x[r][feature], or the 1.0 of db, the loss and the weights
+    const bool unit = source.y < 0;
+    const XP a = x + (unit ? 0 : source.y);
     const int r0 = group * kGroupRows;
     double s = 0.0;
     if (r0 + kGroupRows <= n) {
 #pragma unroll
       for (int r = r0; r < r0 + kGroupRows; ++r)
-        s = __fma_rn(static_cast<double>(a[r * a_stride]), b[r], s);
+        s = __fma_rn(static_cast<double>(unit ? *one : a[r * x_stride]), b[r], s);
     } else {
-      for (int r = r0; r < n; ++r) s = __fma_rn(static_cast<double>(a[r * a_stride]), b[r], s);
+      for (int r = r0; r < n; ++r)
+        s = __fma_rn(static_cast<double>(unit ? *one : a[r * x_stride]), b[r], s);
     }
     sums[group * g.cells + cell] = s;
     group += step_g;
@@ -546,8 +618,8 @@ struct Sums {
 };
 
 // One row of the tile into a wide slot's group sums.
-template <int kCB, int kW, bool kFull, bool kStaged>
-__device__ __forceinline__ void wide_row(Sums<kCB, kW>& s, const float* x, int x_stride,
+template <int kCB, int kW, bool kFull, bool kStaged, typename XP>
+__device__ __forceinline__ void wide_row(Sums<kCB, kW>& s, XP x, int x_stride,
                                          const double* __restrict__ xd,
                                          const double* __restrict__ terms,
                                          const double* __restrict__ nll,
@@ -586,8 +658,8 @@ __device__ __forceinline__ void wide_row(Sums<kCB, kW>& s, const float* x, int x
 
 // The tile's n rows into a wide slot's sums: each group's sums from 0 in
 // row order, then added to the slot's.
-template <int kCB, int kW, bool kFull, bool kStaged>
-__device__ __forceinline__ void wide_rows(Sums<kCB, kW>& acc, const float* x, int x_stride,
+template <int kCB, int kW, bool kFull, bool kStaged, typename XP>
+__device__ __forceinline__ void wide_rows(Sums<kCB, kW>& acc, XP x, int x_stride,
                                           const double* xd, const double* terms,
                                           const double* nll, const double* wd, int n, int F,
                                           int C, int fd, int tp, int c0, int f0, bool owns_db,
@@ -628,6 +700,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int kCB = kForm == kNarrow ? 1 : kWideClasses;
   constexpr int kW = kForm == kNarrow ? 1 : kWideFeatures;
   constexpr bool kStaged = kForm == kWideStaged;
+  constexpr bool kRaw = std::is_same<In, bf16_bits>::value;  // staged tiles come raw
   extern __shared__ __align__(16) unsigned char shared[];
   const bool weighted = weights != nullptr;
   const int group = layout.group, tile = layout.tile;
@@ -641,6 +714,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   W += static_cast<size_t>(job0) * F * C;
   b += static_cast<size_t>(job0) * C;
   float* ring = reinterpret_cast<float*>(shared + layout.ring);
+  bf16_bits* raw = reinterpret_cast<bf16_bits*>(shared + layout.raw);
   double* xd = reinterpret_cast<double*>(shared + layout.xd);
   double* terms = reinterpret_cast<double*>(shared + layout.terms);
   double* nll_terms = reinterpret_cast<double*>(shared + layout.nll);
@@ -690,83 +764,94 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int row_begin = blockIdx.x * rows_per_chunk;
   const int row_end = min(rows, row_begin + rows_per_chunk);
   const int tiles = (row_end - row_begin + tile - 1) / tile;
-  stage_tile(Tile(ring, tile, xs), X, y, weights, row_begin, min(tile, row_end - row_begin), F,
-             xs);
+  stage_tile(Tile(ring, tile, xs), raw, X, y, weights, row_begin, min(tile, row_end - row_begin),
+             F, xs);
   async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int start = row_begin + t * tile;
     const int n = min(tile, row_end - start);
     const Tile here(ring + (t & 1) * layout.buffer_floats, tile, xs);
-    const float* x = xs > 0 ? here.x : global_rows(X, static_cast<size_t>(start) * F);
-    const int x_stride = xs > 0 ? xs : F;
     async_wait_all();
     __syncthreads();  // the tile has landed; the previous tile's sums are done
+    if constexpr (kRaw) {
+      if (xs > 0) {
+        widen_tile(here.x, raw + raw_shift(X + static_cast<size_t>(start) * F), n, F, xs);
+        __syncthreads();  // the tile is widened: raw is free for the next
+      }
+    }
     if (t + 1 < tiles) {
       const int next = start + tile;
-      stage_tile(Tile(ring + ((t + 1) & 1) * layout.buffer_floats, tile, xs), X, y, weights,
-                 next, min(tile, row_end - next), F, xs);
+      stage_tile(Tile(ring + ((t + 1) & 1) * layout.buffer_floats, tile, xs), raw, X, y,
+                 weights, next, min(tile, row_end - next), F, xs);
       async_commit();
     }
-    // phase 1: the row terms of each (row, job), rows fastest
-    if constexpr (kStaged) {
-      const int step_r = kThreads / F, step_f = kThreads % F;
-      int r = threadIdx.x / F, f = threadIdx.x % F;
-      while (r < n) {
-        xd[r * fd + f] = static_cast<double>(x[r * x_stride + f]);
-        r += step_r;
-        f += step_f;
-        if (f >= F) {
-          f -= F;
-          ++r;
+    // the tile's terms and sums, x staged or from global memory
+    auto tile_pass = [&](auto x, int x_stride) {
+      // phase 1: the row terms of each (row, job), rows fastest
+      if constexpr (kStaged) {
+        const int step_r = kThreads / F, step_f = kThreads % F;
+        int r = threadIdx.x / F, f = threadIdx.x % F;
+        while (r < n) {
+          xd[r * fd + f] = static_cast<double>(x[r * x_stride + f]);
+          r += step_r;
+          f += step_f;
+          if (f >= F) {
+            f -= F;
+            ++r;
+          }
         }
       }
-    }
-    if (weighted)
-      for (int r = threadIdx.x; r < n; r += kThreads) wd[r] = static_cast<double>(here.w[r]);
-    {
-      const int step_j = kThreads / n, step_r = kThreads % n;
-      int j = threadIdx.x / n, r = threadIdx.x % n;
-      while (j < G) {
-        const float w = weighted ? here.w[r] : 1.0f;
-        const float* Wj = Wg + static_cast<size_t>(j) * F * C;
-        double* out = terms + static_cast<size_t>(j) * js + r;
-        float nll;
-        if (kC == 2 || cw1 - cw0 == C)
-          nll = row_residuals<kC>(x + r * x_stride, F, Wj, bg + j * C, C, here.y[r], w,
-                                  weighted, out, tp);
+      if (weighted)
+        for (int r = threadIdx.x; r < n; r += kThreads) wd[r] = static_cast<double>(here.w[r]);
+      {
+        const int step_j = kThreads / n, step_r = kThreads % n;
+        int j = threadIdx.x / n, r = threadIdx.x % n;
+        while (j < G) {
+          const float w = weighted ? here.w[r] : 1.0f;
+          const float* Wj = Wg + static_cast<size_t>(j) * F * C;
+          double* out = terms + static_cast<size_t>(j) * js + r;
+          float nll;
+          if (kC == 2 || cw1 - cw0 == C)
+            nll = row_residuals<kC>(x + r * x_stride, F, Wj, bg + j * C, C, here.y[r], w,
+                                    weighted, out, tp);
+          else
+            nll = window_residuals(x + r * x_stride, F, Wj, bg + j * C, C, here.y[r], w,
+                                   weighted, cw0, cw1, out, tp);
+          nll_terms[j * tp + r] = static_cast<double>(nll);
+          j += step_j;
+          r += step_r;
+          if (r >= n) {
+            r -= n;
+            ++j;
+          }
+        }
+      }
+      __syncthreads();  // the terms are in
+      // phase 2: the sums, group by group
+      if constexpr (kForm == kNarrow) {
+        // the previous tile's group sums into their owners' (that tile was whole)
+        if (t > 0)
+          add_groups(owned, group_sums_at + ((t - 1) & 1) * grouped.cells * tile_groups,
+                     grouped.cells, tile_groups);
+        group_sums(grouped, group_sums_at + (t & 1) * grouped.cells * tile_groups, x, x_stride,
+                   one, n);
+      } else if (active) {
+        const double* slot_terms = terms + static_cast<size_t>(jl) * js + (c0 - cw0) * tp;
+        const double* slot_nll = nll_terms + jl * tp;
+        if (full)
+          wide_rows<kCB, kW, true, kStaged>(sums, x, x_stride, xd, slot_terms, slot_nll, wd, n,
+                                            F, C, fd, tp, c0, f0, owns_db, owns_loss,
+                                            owns_weight);
         else
-          nll = window_residuals(x + r * x_stride, F, Wj, bg + j * C, C, here.y[r], w,
-                                 weighted, cw0, cw1, out, tp);
-        nll_terms[j * tp + r] = static_cast<double>(nll);
-        j += step_j;
-        r += step_r;
-        if (r >= n) {
-          r -= n;
-          ++j;
-        }
+          wide_rows<kCB, kW, false, kStaged>(sums, x, x_stride, xd, slot_terms, slot_nll, wd, n,
+                                             F, C, fd, tp, c0, f0, owns_db, owns_loss,
+                                             owns_weight);
       }
-    }
-    __syncthreads();  // the terms are in
-    // phase 2: the sums, group by group
-    if constexpr (kForm == kNarrow) {
-      // the previous tile's group sums into their owners' (that tile was whole)
-      if (t > 0)
-        add_groups(owned, group_sums_at + ((t - 1) & 1) * grouped.cells * tile_groups,
-                   grouped.cells, tile_groups);
-      group_sums(grouped, group_sums_at + (t & 1) * grouped.cells * tile_groups, x, x_stride,
-                 one, n);
-    } else if (active) {
-      const double* slot_terms = terms + static_cast<size_t>(jl) * js + (c0 - cw0) * tp;
-      const double* slot_nll = nll_terms + jl * tp;
-      if (full)
-        wide_rows<kCB, kW, true, kStaged>(sums, x, x_stride, xd, slot_terms, slot_nll, wd, n,
-                                          F, C, fd, tp, c0, f0, owns_db, owns_loss,
-                                          owns_weight);
-      else
-        wide_rows<kCB, kW, false, kStaged>(sums, x, x_stride, xd, slot_terms, slot_nll, wd, n,
-                                           F, C, fd, tp, c0, f0, owns_db, owns_loss,
-                                           owns_weight);
-    }
+    };
+    if (xs > 0)
+      tile_pass(static_cast<const float*>(here.x), xs);
+    else
+      tile_pass(global_rows(X, static_cast<size_t>(start) * F), F);
   }
   const size_t chunks = gridDim.x;
   if constexpr (kForm == kNarrow) {
@@ -829,6 +914,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool weighted = weights != nullptr;
   const int group = layout.group, tile = layout.tile, xs = layout.xs;
   const int sums_out = kCandidates + (weighted ? 1 : 0);
+  constexpr bool kRaw = std::is_same<In, bf16_bits>::value;  // staged tiles come raw
   const int job0 = blockIdx.y * group;
   const int G = min(group, jobs - job0);
   const int set = kCandidates * F * C;  // a job's W4 floats
@@ -839,6 +925,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   W4 += static_cast<size_t>(job0) * set;
   b4 += static_cast<size_t>(job0) * kCandidates * C;
   float* ring = reinterpret_cast<float*>(shared + layout.ring);
+  bf16_bits* raw = reinterpret_cast<bf16_bits*>(shared + layout.raw);
   double* group_sums_at = reinterpret_cast<double*>(shared + layout.sums);
   const float* Wg = W4;
   const float* bg = b4;
@@ -858,71 +945,82 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int row_begin = blockIdx.x * rows_per_chunk;
   const int row_end = min(rows, row_begin + rows_per_chunk);
   const int tiles = (row_end - row_begin + tile - 1) / tile;
-  stage_tile(Tile(ring, tile, xs), X, y, weights, row_begin, min(tile, row_end - row_begin), F,
-             xs);
+  stage_tile(Tile(ring, tile, xs), raw, X, y, weights, row_begin, min(tile, row_end - row_begin),
+             F, xs);
   async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int start = row_begin + t * tile;
     const int n = min(tile, row_end - start);
     const Tile here(ring + (t & 1) * layout.buffer_floats, tile, xs);
-    const float* x = xs > 0 ? here.x : global_rows(X, static_cast<size_t>(start) * F);
-    const int x_stride = xs > 0 ? xs : F;
     double* tile_sums = group_sums_at + (t & 1) * cells * tile_groups;
     async_wait_all();
     __syncthreads();  // the tile has landed; the previous tile's group sums are in
+    if constexpr (kRaw) {
+      if (xs > 0) {
+        widen_tile(here.x, raw + raw_shift(X + static_cast<size_t>(start) * F), n, F, xs);
+        __syncthreads();  // the tile is widened: raw is free for the next
+      }
+    }
     if (t + 1 < tiles) {
       const int next = start + tile;
-      stage_tile(Tile(ring + ((t + 1) & 1) * layout.buffer_floats, tile, xs), X, y, weights,
-                 next, min(tile, row_end - next), F, xs);
+      stage_tile(Tile(ring + ((t + 1) & 1) * layout.buffer_floats, tile, xs), raw, X, y,
+                 weights, next, min(tile, row_end - next), F, xs);
       async_commit();
     }
     if (t > 0)
       add_groups(owned, group_sums_at + ((t - 1) & 1) * cells * tile_groups, cells,
                  tile_groups);
-    // a warp an item: (job, 64 rows); rows past n compute row 0 again, unused
-    const int blocks = (n + kWarpRows - 1) / kWarpRows;
-    for (int item = warp; item < G * blocks; item += kThreads / 32) {
-      const int j = item / blocks, base = (item - j * blocks) * kWarpRows;
-      int r[2], label[2];
-      float w[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int row = base + q * 32 + lane;
-        r[q] = row < n ? row : 0;
-        label[q] = here.y[r[q]];
-        w[q] = weighted ? here.w[r[q]] : 1.0f;
+    // the tile's items, x staged or from global memory
+    auto tile_pass = [&](auto x, int x_stride) {
+      // a warp an item: (job, 64 rows); rows past n compute row 0 again, unused
+      const int blocks = (n + kWarpRows - 1) / kWarpRows;
+      for (int item = warp; item < G * blocks; item += kThreads / 32) {
+        const int j = item / blocks, base = (item - j * blocks) * kWarpRows;
+        int r[2], label[2];
+        float w[2];
+  #pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int row = base + q * 32 + lane;
+          r[q] = row < n ? row : 0;
+          label[q] = here.y[r[q]];
+          w[q] = weighted ? here.w[r[q]] : 1.0f;
+        }
+        float nll[2][kCandidates];
+        rows_trial_nll<kC>(x + r[0] * x_stride, x + r[1] * x_stride, F,
+                           Wg + static_cast<size_t>(j) * set, bg + j * kCandidates * C, C, label,
+                           w, weighted, nll);
+  #pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          // row q * 32 + lane of the item: group 2 q + lane / 16, row lane % 16
+          const int at = (2 * q + lane / 16) * kScratchGroup + lane % 16;
+  #pragma unroll
+          for (int k = 0; k < kCandidates; ++k) warp_scratch[k * kScratchSet + at] = nll[q][k];
+          if (weighted) warp_scratch[kCandidates * kScratchSet + at] = w[q];
+        }
+        __syncwarp();
+        // lanes 0-15: (group lane / 4, candidate lane % 4); 16-19: the weights
+        // of group lane - 16, from the first job's items
+        const bool adds = lane < 16 || (weighted && j == 0 && lane < 20);
+        if (adds) {
+          const int k = lane < 16 ? lane % kCandidates : kCandidates;
+          const int g = lane < 16 ? lane / kCandidates : lane - 16;
+          const int rows_in = max(0, min(kGroupRows, n - (base + g * kGroupRows)));
+          const float* terms = warp_scratch + k * kScratchSet + g * kScratchGroup;
+          double sum = 0.0;
+  #pragma unroll
+          for (int i = 0; i < kGroupRows; ++i)
+            if (i < rows_in) sum = __dadd_rn(sum, static_cast<double>(terms[i]));
+          if (rows_in > 0)
+            tile_sums[(base / kGroupRows + g) * cells +
+                      (k < kCandidates ? j * kCandidates + k : cells - 1)] = sum;
+        }
+        __syncwarp();  // the scratch is free for the next item
       }
-      float nll[2][kCandidates];
-      rows_trial_nll<kC>(x + r[0] * x_stride, x + r[1] * x_stride, F,
-                         Wg + static_cast<size_t>(j) * set, bg + j * kCandidates * C, C, label,
-                         w, weighted, nll);
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        // row q * 32 + lane of the item: group 2 q + lane / 16, row lane % 16
-        const int at = (2 * q + lane / 16) * kScratchGroup + lane % 16;
-#pragma unroll
-        for (int k = 0; k < kCandidates; ++k) warp_scratch[k * kScratchSet + at] = nll[q][k];
-        if (weighted) warp_scratch[kCandidates * kScratchSet + at] = w[q];
-      }
-      __syncwarp();
-      // lanes 0-15: (group lane / 4, candidate lane % 4); 16-19: the weights
-      // of group lane - 16, from the first job's items
-      const bool adds = lane < 16 || (weighted && j == 0 && lane < 20);
-      if (adds) {
-        const int k = lane < 16 ? lane % kCandidates : kCandidates;
-        const int g = lane < 16 ? lane / kCandidates : lane - 16;
-        const int rows_in = max(0, min(kGroupRows, n - (base + g * kGroupRows)));
-        const float* terms = warp_scratch + k * kScratchSet + g * kScratchGroup;
-        double sum = 0.0;
-#pragma unroll
-        for (int i = 0; i < kGroupRows; ++i)
-          if (i < rows_in) sum = __dadd_rn(sum, static_cast<double>(terms[i]));
-        if (rows_in > 0)
-          tile_sums[(base / kGroupRows + g) * cells +
-                    (k < kCandidates ? j * kCandidates + k : cells - 1)] = sum;
-      }
-      __syncwarp();  // the scratch is free for the next item
-    }
+    };
+    if (xs > 0)
+      tile_pass(static_cast<const float*>(here.x), xs);
+    else
+      tile_pass(global_rows(X, static_cast<size_t>(start) * F), F);
   }
   __syncthreads();  // the last tile's group sums are in
   const int last = tiles - 1;
@@ -1022,7 +1120,7 @@ K7Kernel trial_losses_for(bool bf16, bool two) {
 bool valid_geometry(int F, int C, int jobs, const Layout& layout, long long x_job_stride,
                     long long row_job_stride, int tile_multiple, int x_bf16) {
   if (F <= 0 || C <= 0 || jobs < 0 || layout.group <= 0) return false;
-  if (x_bf16 && layout.xs <= 0) return false;  // bfloat16 rows are staged, widened
+  if ((layout.x_bf16 != 0) != (x_bf16 != 0)) return false;  // the raw tile is X's type's
   if (layout.tile < tile_multiple || layout.tile % tile_multiple != 0) return false;
   if (layout.cells > kMaxOwned * kThreads) return false;
   // the jobs of a group share their rows

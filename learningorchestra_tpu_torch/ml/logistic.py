@@ -165,12 +165,13 @@ class _K7Layout(ctypes.Structure):
     """A K7 block's geometry and shared memory, as the kernels read it
     (``Layout`` in kernels/csrc/logistic.cu, field for field): the group,
     the tile rows, the sum form, whether the parameters sit in shared
-    memory; the strides; the byte offsets of each region and the total."""
+    memory and whether X is bfloat16; the strides; the byte offsets of
+    each region and the total."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "group", "tile", "form", "params_shared",
+        "group", "tile", "form", "params_shared", "x_bf16",
         "xs", "tp", "js", "fd", "cells", "buffer_floats",
-        "ring", "xd", "terms", "nll", "wd", "scratch", "sums", "sources", "one",
+        "ring", "raw", "xd", "terms", "nll", "wd", "scratch", "sums", "sources", "one",
         "params_w", "params_b", "bytes",
     )]
 
@@ -189,11 +190,14 @@ def _stored_classes(num_features: int, num_classes: int, form: int) -> int:
 
 def _k7_layout(
     num_features: int, num_classes: int, group: int, tile: int, form: int, x_staged: bool,
-    params_shared: bool, weighted: bool, trial: bool,
+    params_shared: bool, weighted: bool, trial: bool, x_bf16: bool = False,
 ) -> dict:
     """The fields of :class:`_K7Layout` for a K7 block of geometry ``(group, tile, form,
     x_staged, params_shared)`` (:func:`_k7_geometry`). Its shared memory, in order: a ring of two tiles (x at an
     odd row stride when it is staged, the labels and the weights); for
+    staged bfloat16 X a raw tile (its values as they arrive, before they
+    are widened into the ring; 8 values of slack so that 16-byte copies
+    land on 16-byte words); for
     the gradient the float64 copy of x (the staged wide form), each job's
     residuals (of its stored classes) and nll of the tile, and the weights
     in float64; for the trial losses each warp's scratch (the candidates'
@@ -213,6 +217,7 @@ def _k7_layout(
     sets = _BACKTRACK_STEPS if trial else 1
     sizes = {   # region -> bytes, in the order they lie
         "ring": 4 * 2 * buffer_floats,
+        "raw": 2 * (tile * F + 8) if x_bf16 and x_staged else 0,
         "xd": 8 * tile * fd if not trial and form == _WIDE_STAGED else 0,
         "terms": 8 * group * js if not trial else 0,
         "nll": 8 * group * tp if not trial else 0,
@@ -230,7 +235,7 @@ def _k7_layout(
         at += -(-size // 16) * 16
     return dict(
         group=group, tile=tile, form=form, params_shared=int(params_shared),
-        xs=xs, tp=tp, js=js, fd=fd, cells=cells, buffer_floats=buffer_floats,
+        x_bf16=int(x_bf16), xs=xs, tp=tp, js=js, fd=fd, cells=cells, buffer_floats=buffer_floats,
         bytes=at, **offsets,
     )
 
@@ -238,7 +243,7 @@ def _k7_layout(
 @functools.lru_cache(maxsize=None)
 def _k7_geometry(
     num_features: int, num_classes: int, jobs: int, shared_rows: bool,
-    trial: bool = False, weighted: bool = False,
+    trial: bool = False, weighted: bool = False, x_bf16: bool = False,
 ) -> tuple[int, int, int, bool, bool]:
     """``(group, tile rows, sum form, x in shared memory, parameters in
     shared memory)`` of a K7 launch. Jobs that share their rows
@@ -252,8 +257,9 @@ def _k7_geometry(
     when that holds a tile of 32 rows, else within ``kernels.SHARED_BYTES``;
     wide rows fall back to x read from global memory and parameters there.
     A job's slots past one block go in windows that keep only their
-    classes' terms (:func:`_stored_classes`), so every F and C fits. None
-    of these changes a bit of the outputs. Raises where a block cannot
+    classes' terms (:func:`_stored_classes`), so every F and C fits.
+    bfloat16 X (``x_bf16``) stages its tiles through a raw tile as well.
+    None of these changes a bit of the outputs. Raises where a block cannot
     hold one group of rows."""
     F, C = num_features, num_classes
     jobs = max(jobs, 1)
@@ -284,7 +290,8 @@ def _k7_geometry(
                         if shape == _NARROW and _grouped_cells(F, C, size, weighted, trial) > owned:
                             continue
                         if _k7_layout(
-                            F, C, size, tile, shape, x_staged, params_shared, weighted, trial
+                            F, C, size, tile, shape, x_staged, params_shared, weighted, trial,
+                            x_bf16,
                         )["bytes"] <= budget:
                             return size, tile, shape, x_staged, params_shared
                     tile //= 2
@@ -298,12 +305,12 @@ def _k7_geometry(
 @functools.lru_cache(maxsize=None)
 def _k7_launch_layout(
     num_features: int, num_classes: int, jobs: int, shared_rows: bool, trial: bool,
-    weighted: bool,
+    weighted: bool, x_bf16: bool,
 ) -> _K7Layout:
     """The layout a K7 launch hands its kernel (read, never written)."""
-    geometry = _k7_geometry(num_features, num_classes, jobs, shared_rows, trial, weighted)
+    geometry = _k7_geometry(num_features, num_classes, jobs, shared_rows, trial, weighted, x_bf16)
     return _K7Layout(**_k7_layout(
-        num_features, num_classes, *geometry, weighted=weighted, trial=trial))
+        num_features, num_classes, *geometry, weighted=weighted, trial=trial, x_bf16=x_bf16))
 
 
 def _check_operands(X, y, W, b, leading: tuple = ()):
@@ -329,18 +336,6 @@ def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def _x_bf16(X, layout: _K7Layout) -> int:
-    """1 for bfloat16 X, whose tiles the kernel widens as it stages them:
-    rows too wide to stage are refused, not cast."""
-    if X.dtype != torch.bfloat16:
-        return 0
-    if layout.xs == 0:
-        raise ValueError(
-            f"bfloat16 rows of {X.shape[-1]} features are too wide for K7's staged tile"
-        )
-    return 1
-
-
 def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     """K7's loss-and-gradient launch over ``jobs`` jobs: ``W (J, F, C)``,
     ``b (J, C)``; X shared ``(rows, F)`` or ``(J, rows, F)``; y and the
@@ -351,7 +346,9 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     num_classes = W.shape[-1]
     weighted = weights is not None
     shared_rows = X.dim() == 2 and y.dim() == 1
-    layout = _k7_launch_layout(num_features, num_classes, jobs, shared_rows, False, weighted)
+    x_bf16 = X.dtype == torch.bfloat16   # widened exactly in the kernel
+    layout = _k7_launch_layout(
+        num_features, num_classes, jobs, shared_rows, False, weighted, x_bf16)
     chunks, per_chunk = kernels.row_chunks(rows)
     cells = num_features * num_classes + num_classes + 1
     partials = torch.empty(
@@ -360,7 +357,7 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     out = torch.empty((jobs, cells), dtype=torch.float32, device=X.device)
     kernels.launch(
         "logistic_loss_grad", "lo_logistic_loss_grad",
-        X.data_ptr(), _x_bf16(X, layout), y.data_ptr(), weights.data_ptr() if weighted else None,
+        X.data_ptr(), int(x_bf16), y.data_ptr(), weights.data_ptr() if weighted else None,
         W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
@@ -379,7 +376,8 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
     num_classes = W4.shape[-1]
     weighted = weights is not None
     shared_rows = X.dim() == 2 and y.dim() == 1
-    layout = _k7_launch_layout(num_features, num_classes, jobs, shared_rows, True, weighted)
+    x_bf16 = X.dtype == torch.bfloat16   # widened exactly in the kernel
+    layout = _k7_launch_layout(num_features, num_classes, jobs, shared_rows, True, weighted, x_bf16)
     chunks, per_chunk = kernels.row_chunks(rows)
     partials = torch.empty(
         (jobs, max(chunks, 1), _BACKTRACK_STEPS + int(weighted)),
@@ -388,7 +386,7 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
     out = torch.empty((jobs, _BACKTRACK_STEPS), dtype=torch.float32, device=X.device)
     kernels.launch(
         "logistic_trial_losses", "lo_logistic_trial_losses",
-        X.data_ptr(), _x_bf16(X, layout), y.data_ptr(), weights.data_ptr() if weighted else None,
+        X.data_ptr(), int(x_bf16), y.data_ptr(), weights.data_ptr() if weighted else None,
         W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,

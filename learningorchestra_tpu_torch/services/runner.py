@@ -1,14 +1,18 @@
 """Serve the service stack: all seven services in one process.
 
 Counterpart of ``learningorchestra_tpu/services/runner.py``, its
-single-process topology: seven servers over one in-process WAL-backed
-store, one scheduler with a job journal for all of them, and recovery of
+single-process topology: seven servers over one store (the in-process
+WAL-backed one, or a store server's through ``LO_STORE_URL``), one scheduler with a job journal for all of them, and recovery of
 the journal before the first request —
 ``python -m learningorchestra_tpu_torch.services.runner`` (on the CUDA
 card; it raises without one). Tests start the stack with
 ``start_all(..., device="cpu")`` or ``main(device="cpu")``.
 
 Environment:
+- ``LO_STORE_URL`` — a store server (``python -m
+  learningorchestra_tpu_torch.core.store_service``); a comma-separated
+  list names a replica set the client fails over within. Unset: the
+  in-process store on its WAL
 - ``LO_DATA_DIR`` — store WAL directory (default ``./lo_data``)
 - ``LO_IMAGES_DIR`` — PNG volume root (default ``<data>/images``)
 - ``LO_MODELS_DIR`` — model checkpoint and progress-artifact volume
@@ -26,8 +30,8 @@ Environment:
   ``LO_SERVE_*``, ...), ``LO_BUILD_WORKERS`` (ml/builder.py) and
   ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
 
-Not ported: one process per service (``LO_SERVICE``, ``LO_PORT``,
-``LO_STORE_URL``), the fleet router and its replica agent, the AOT
+Not ported: one process per service (``LO_SERVICE``, ``LO_PORT``: ROADMAP
+Queue 1 item 4b), the fleet router and its replica agent, the AOT
 compile plane, the telemetry collector and the multi-host SPMD
 dispatcher.
 """
@@ -188,15 +192,24 @@ def main(device: DeviceLike = None) -> None:
         f"every_segments={sched_config.resume_every_segments()}",
         flush=True,
     )
-    # the reference's "wire config" line; its shm_bytes and v2 fields
-    # belong to the networked store, which the port does not have
-    print(f"wire config: dtype_policy={dtype_policy()}", flush=True)
+    from learningorchestra_tpu_torch.core import shmring
+    from learningorchestra_tpu_torch.core.store_service import _flag_env, connect
+
+    print(
+        f"wire config: shm_bytes={shmring.shm_bytes()} "
+        f"dtype_policy={dtype_policy()} "
+        f"v2={_flag_env('LO_WIRE_V2', default=True)}",
+        flush=True,
+    )
     data_dir = os.environ.get("LO_DATA_DIR", os.path.join(os.getcwd(), "lo_data"))
     images_dir = os.environ.get("LO_IMAGES_DIR", os.path.join(data_dir, "images"))
     models_dir = os.environ.get("LO_MODELS_DIR", os.path.join(data_dir, "models"))
     host = os.environ.get("LO_HOST", "127.0.0.1")
     ephemeral = os.environ.get("LO_EPHEMERAL", "").strip() == "1"
-    store = InMemoryStore(data_dir=data_dir)
+    # a store server's URL (LO_STORE_URL: a comma-separated replica list
+    # fails over between its servers), else the WAL-backed local store
+    store_url = os.environ.get("LO_STORE_URL", "").strip()
+    store = connect(store_url) if store_url else InMemoryStore(data_dir=data_dir)
 
     # Recovery runs BEFORE the REST surface accepts traffic, with the
     # build handlers bound to this process's device (the journal names
@@ -220,7 +233,8 @@ def main(device: DeviceLike = None) -> None:
     for server in servers:
         print(f"service {port_names[server.canonical_port]} on {host}:{server.port}", flush=True)
     print(
-        f"learningorchestra_tpu_torch serving all services (host {host}); data in {data_dir}",
+        f"learningorchestra_tpu_torch serving all services (host {host}); "
+        f"data in {store_url or data_dir}",
         flush=True,
     )
     try:

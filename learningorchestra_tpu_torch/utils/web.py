@@ -24,7 +24,11 @@ echoes on the answer and rides into the jobs the request submits.
 ``/jobs/<name>``, its long-poll ``/wait`` and ``/trace``, ``DELETE``)
 and ``/health``. A ``/wait`` blocks its handler thread until the job
 ends or the timeout passes (the reference's threaded-server behaviour;
-its event loop and SSE framing are not ported).
+its event loop and SSE framing are not ported). A handler may also
+return a :class:`Waiter`, a parked answer (the store's ``/wal``
+long-poll): the handler thread blocks on it until it is ready or times
+out. :meth:`ServerThread.stop` closes the connections it holds open,
+so a stopped server answers nothing more, kept-alive clients included.
 Only the standard library is used, so the port serves wherever torch runs.
 """
 
@@ -34,6 +38,8 @@ import html
 import json
 import os
 import re
+import socket
+import sys
 import threading
 import time
 from http import HTTPStatus
@@ -121,6 +127,20 @@ class UnsupportedMediaType(HTTPError):
         super().__init__(415, description)
 
 
+class Headers(dict):
+    """Request headers, looked up without regard to case (their names
+    are kept in lower case)."""
+
+    def __init__(self, items=()):
+        super().__init__((key.lower(), value) for key, value in dict(items).items())
+
+    def __getitem__(self, key):
+        return super().__getitem__(key.lower())
+
+    def get(self, key, default=None):
+        return super().get(key.lower(), default)
+
+
 class Request:
     """One HTTP request as a handler sees it."""
 
@@ -134,8 +154,11 @@ class Request:
         self.args: dict = {}
         for key, value in parse_qsl(parts.query, keep_blank_values=True):
             self.args.setdefault(key, value)
-        self.headers = {key.lower(): value for key, value in (headers or {}).items()}
+        self.headers = Headers(headers or {})
         self.data = body
+
+    def get_data(self) -> bytes:
+        return self.data
 
     @property
     def mimetype(self) -> str:
@@ -185,6 +208,39 @@ class Response:
 
     def get_data(self) -> bytes:
         return self.data
+
+
+class Waiter:
+    """A parked answer: a handler returns one instead of its result when
+    the answer is not ready yet (the reference's ``utils/webloop.Waiter``
+    as its threaded server resolves it, for a source with no push hook,
+    such as the WAL). ``poll()`` gives the handler's ``(payload, status)``
+    once ready, else None, and is asked again every ``interval_s``; after
+    ``timeout_s`` without a result ``on_timeout()`` gives the answer."""
+
+    def __init__(
+        self,
+        poll: Callable[[], Optional[tuple]],
+        timeout_s: float,
+        on_timeout: Callable[[], tuple],
+        interval_s: float,
+    ):
+        self.poll = poll
+        self.timeout_s = max(float(timeout_s), 0.0)
+        self.on_timeout = on_timeout
+        self.interval_s = interval_s
+
+    def resolve(self) -> tuple:
+        """Block this thread until the answer is ready or the wait ends."""
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            result = self.poll()
+            if result is not None:
+                return result
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return self.on_timeout()
+            time.sleep(min(remaining, self.interval_s))
 
 
 def json_response(payload: Any, status: int = 200) -> Response:
@@ -412,6 +468,8 @@ class WebApp:
                 f"{type(error).__name__}: {error}", status=500,
                 content_type="text/plain; charset=utf-8",
             )
+        if isinstance(result, Waiter):
+            result = result.resolve()
         if isinstance(result, Response):
             return result
         if isinstance(result, tuple):
@@ -437,19 +495,20 @@ class TestClient:
     def get(self, path: str) -> Response:
         return self.app.handle(Request("GET", path))
 
-    def post(self, path: str, json: Any = None) -> Response:
-        """POST ``json`` as an ``application/json`` body."""
-        return self._send("POST", path, json)
+    def post(self, path: str, json: Any = None, data: bytes = None, headers=None) -> Response:
+        """POST ``json`` as an ``application/json`` body, or the bytes
+        ``data`` as they are; ``headers`` are added to the request's."""
+        return self._send("POST", path, json, data, headers)
 
     def patch(self, path: str, json: Any = None) -> Response:
         """PATCH ``json`` as an ``application/json`` body."""
         return self._send("PATCH", path, json)
 
-    def _send(self, method: str, path: str, json: Any) -> Response:
-        body = b"" if json is None else _dumps(json).encode()
-        return self.app.handle(
-            Request(method, path, {"Content-Type": "application/json"}, body)
-        )
+    def _send(self, method: str, path: str, json: Any, data: bytes = None, headers=None) -> Response:
+        if data is None:
+            data = b"" if json is None else _dumps(json).encode()
+            headers = {"Content-Type": "application/json", **(headers or {})}
+        return self.app.handle(Request(method, path, headers, data))
 
     def delete(self, path: str) -> Response:
         return self.app.handle(Request("DELETE", path))
@@ -495,6 +554,38 @@ class _Server(ThreadingHTTPServer):
     def __init__(self, address, app: WebApp):
         super().__init__(address, _Handler)
         self.app = app
+        self._open: set = set()   # the connections being served
+        self._open_lock = threading.Lock()
+
+    def process_request(self, request, client_address) -> None:
+        with self._open_lock:
+            self._open.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request) -> None:
+        with self._open_lock:
+            self._open.discard(request)
+        super().shutdown_request(request)
+
+    def handle_error(self, request, client_address) -> None:
+        """A client gone mid-answer (a connection this server closed
+        itself on stop, or one its client dropped) is no error of the
+        server's."""
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            return
+        super().handle_error(request, client_address)
+
+    def close_connections(self) -> None:
+        """End every connection still open: a kept-alive client's next
+        request then finds the connection closed, as it would find a
+        server that is gone."""
+        with self._open_lock:
+            open_now = list(self._open)
+        for connection in open_now:
+            try:
+                connection.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
 
 class ServerThread:
@@ -514,7 +605,9 @@ class ServerThread:
         return self
 
     def stop(self) -> None:
-        self._server.shutdown()
+        if self._thread.is_alive():
+            self._server.shutdown()
         self._server.server_close()
+        self._server.close_connections()
         self._thread.join(timeout=5)
 

@@ -18,6 +18,9 @@ through ``POST /models``, sync and async (waited on through ``/wait``).
 """
 
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -41,6 +44,7 @@ from tests.conftest import TITANIC_LIKE_CSV  # noqa: E402
 from tests.test_frame import DOCUMENTED_PREPROCESSOR  # noqa: E402
 
 VOLATILE = ("submitted_at", "started_at", "ended_at", "correlation_id")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def with_collections(store, names=("train", "test")):
@@ -181,17 +185,37 @@ def test_job_surface_answers_as_the_reference():
     ]
 
 
+# Both apps' /metrics from a fresh process: each package's registry is
+# process-wide and registers some families lazily (the device cache's at
+# its first use, a fit's segment counters at its first save), so in the
+# test process they would depend on what ran before in the same worker.
+_METRICS_PROBE = """
+import json
+from tests.test_torch_builder_routes import app_of
+ours, _, _ = app_of("port")
+theirs, _, _ = app_of("jax")
+ours.get("/health")
+print(json.dumps({
+    side: {"status": r.status_code, "type": r.headers["Content-Type"], "body": r.get_data().decode()}
+    for side, r in (("ours", ours.get("/metrics")), ("theirs", theirs.get("/metrics")))
+}))
+"""
+
+
 def test_metrics_are_served_as_the_reference():
-    ours, _, _ = app_of("port")
-    theirs, _, _ = app_of("jax")
-    ours.get("/health")
-    got, want = ours.get("/metrics"), theirs.get("/metrics")
-    assert got.status_code == want.status_code == 200
-    assert got.headers["Content-Type"] == want.headers["Content-Type"]
+    result = subprocess.run(
+        [sys.executable, "-c", _METRICS_PROBE], capture_output=True, text=True,
+        cwd=REPO_ROOT, timeout=240, env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    assert result.returncode == 0, result.stderr
+    answers = json.loads(result.stdout.strip().splitlines()[-1])
+    got, want = answers["ours"], answers["theirs"]
+    assert got["status"] == want["status"] == 200
+    assert got["type"] == want["type"]
 
     def families(response):
         return {
-            line.split()[2] for line in response.get_data().decode().splitlines()
+            line.split()[2] for line in response["body"].splitlines()
             if line.startswith("# TYPE ")
         }
 
@@ -203,7 +227,7 @@ def test_metrics_are_served_as_the_reference():
     ):
         assert family in ours_families
     assert 'lo_http_requests_total{service="model_builder",route="/health",method="GET",status="200"}' in (
-        got.get_data().decode()
+        got["body"]
     )
 
 

@@ -8,15 +8,16 @@ capacity bound, recency and pass-through, concurrent readers, the
 content-addressed device matrices and labels of frames, the image
 pipeline's atomic inputs and its cache hit on a second embed, the
 builder's overlapped write-back (and a failing write failing the build),
-the capacity knob's validation and a second build's cached reads. The
-port's entry points default to the card, so the calls that would take
-it are given ``device="cpu"``.
+the capacity knob's validation and a second build's cached reads, and
+the cases over a ``RemoteStore`` (rev probes over the wire, the
+mid-stream fault's purge and its in-place retry, paged reads with the
+read-ahead, wire compression). The port's entry points default to the
+card, so the calls that would take it are given ``device="cpu"``; where
+the reference's tests make ``requests`` raise its connection error, they
+raise the port's transport's (``utils/httpclient.py``).
 
-Left out (``NOT_PORTED``), each waiting for the networked store (ROADMAP
-Queue 1 item 4), which the port does not have: the cases over a
-``RemoteStore`` (rev probes over the wire, the mid-stream fault's purge,
-paged reads, wire compression) and the cluster manifest's dataplane
-section (it reads the deploy scripts and their wire knobs).
+Left out (``NOT_PORTED``): the cluster manifest's dataplane section (it
+reads the deploy scripts, which launch only the JAX package).
 """
 
 import pathlib
@@ -28,21 +29,17 @@ torch = pytest.importorskip("torch")
 
 from learningorchestra_tpu.core import devcache as jax_devcache  # noqa: E402
 from learningorchestra_tpu.core.store import InMemoryStore as JaxStore  # noqa: E402
+from learningorchestra_tpu_torch.utils import httpclient  # noqa: E402,F401 (the edits name it)
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_devcache.py")
 NOT_PORTED = {
-    "TestRevInvalidation": "test_remote_mutation_bumps_rev_and_evicts",   # RemoteStore
-    "TestMidStreamFault": None,      # RemoteStore's chunked reads and their purge
-    "TestStreamingReads": None,      # RemoteStore's paged reads and rev endpoint
-    "TestWireCompression": None,     # the store service's zlib frames
     "TestKnobPlumbing": "test_cluster_manifest_dataplane_section",   # deploy/cluster.py
 }
 # (text in the reference's tests, its count, the port's text)
 EDITS = (
-    ("from learningorchestra_tpu.core.store_service import (\n    RemoteStore,\n"
-     "    create_store_app,\n)\n", 1, ""),
-    ("from learningorchestra_tpu.core.wire import (\n    ACCEPT_HEADER,\n    CONTENT_TYPE,\n"
-     "    ENCODING_HEADER,\n    decode_frame,\n    encode_frame,\n)\n", 1, ""),
+    ('raise requests.ConnectionError("injected', 2, 'raise httpclient.ConnectionError("injected'),
+    ("with pytest.raises(requests.ConnectionError):", 1,
+     "with pytest.raises(httpclient.ConnectionError):"),
     ('.device_matrix("features")', 3, '.device_matrix("features", "cpu")'),
     ('device_labels("label")', 1, 'device_labels("label", "cpu")'),
     ('device_labels(\n            "label"\n        )', 1, 'device_labels("label", "cpu")'),

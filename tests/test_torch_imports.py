@@ -4,7 +4,9 @@ The port (learningorchestra_tpu_torch/) and chip_smoke.py import torch,
 numpy and the standard library, never ``jax`` and never any module of the
 JAX package ``learningorchestra_tpu`` (matched by its exact name or the
 prefix ``learningorchestra_tpu.``; the port's own name shares the prefix
-without the dot).
+without the dot). Nor ``requests`` or ``werkzeug``, which the machine
+with the card does not have: the port's web layer and its store client
+are on ``http.server`` and ``http.client``.
 """
 
 import ast
@@ -28,6 +30,7 @@ def forbidden(module: str) -> bool:
         or module.startswith("jaxlib")
         or module == "learningorchestra_tpu"
         or module.startswith("learningorchestra_tpu.")
+        or module.split(".")[0] in ("requests", "werkzeug")
     )
 
 
@@ -41,8 +44,11 @@ def port_sources() -> list:
 def test_forbidden_names():
     assert forbidden("jax") and forbidden("jax.numpy") and forbidden("jaxlib.xla_client")
     assert forbidden("learningorchestra_tpu") and forbidden("learningorchestra_tpu.serve")
+    assert forbidden("requests") and forbidden("requests.adapters")
+    assert forbidden("werkzeug") and forbidden("werkzeug.serving")
     assert not forbidden("learningorchestra_tpu_torch")
     assert not forbidden("learningorchestra_tpu_torch.serve")
+    assert not forbidden("requests_like") and not forbidden("http.client")
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
@@ -103,6 +109,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "ml.progress", "sched.journal", "sched.recovery", "core.jobs",
         "services.database_api", "services.projection", "services.data_type_handler",
         "services.histogram", "services.runner", "ops.projection", "ops.histogram",
+        "core.wire", "core.shmring", "core.arbiter", "core.store_service", "utils.httpclient",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]

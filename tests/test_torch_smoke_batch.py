@@ -9,7 +9,9 @@ that moves the rev and reloads, and the eviction that frees the cached
 matrices. ``bf16``: the child's body under ``LO_DTYPE_POLICY=bf16`` (both
 packages' read-once caches emptied and restored): K1, K6 and K7 on
 bfloat16 X against their float32 form on the widened X and their plain
-versions, at every width and geometry the card checks; the bfloat16
+versions, at every width and geometry the card checks (K7 also on rows
+of 202, 444 and 20,000 features, past its staged tile); the lr build on
+rows of 256 features; the bfloat16
 product build, its cached matrices and its labels; the image requests
 (t-SNE 201, PCA the reference's refusal); a sweep that stays float32.
 
@@ -74,6 +76,7 @@ def on_the_cpu(monkeypatch):
     for name, value in (
         ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("BATCH_ROWS", 3_000), ("BF16_EDGE_ROWS", 1_001),
         ("KERNEL_ROWS", (1, 64, 4096, 40_000)), ("BF16_EMBED_ROWS", 300), ("BF16_SWEEP_ROWS", 2_000),
+        ("BF16_K7_WIDE_ROWS", 64), ("BF16_LR_ROWS", 2_000),
     ):
         monkeypatch.setattr(chip_smoke, name, value)
     devcache.reset_global_devcache()
@@ -122,6 +125,11 @@ def test_bf16_child_runs_on_the_cpu(on_the_cpu, monkeypatch, capsys):
         assert result["bound_ms"] < result["f32_bound_ms"], name
     shapes = checked["tree_ensemble_forward:bf16"]["by_shape"]
     assert {shape["row_threads"] for shape in shapes.values()} == {True, False}
+    wide = checked["logistic_loss_grad:bf16"]["wide"]
+    assert sorted(wide) == sorted(f"{f}x{c}" for f in chip_smoke.BF16_K7_WIDE_FEATURES for c in (2, 10))
+    assert {entry["x_staged"] for entry in wide.values()} == {True, False}
+    lr = chip_smoke.bf16_lr_build(torch)
+    assert lr["features"] == 256 and lr["geometry"][3] is True and lr["trial_geometry"][3] is False
     build = chip_smoke.bf16_build(torch)
     assert all(matrix["dtype"] == "torch.bfloat16" for matrix in build["device_matrices"])
     assert all(matrix["bytes"] * 2 == matrix["f32_bytes"] for matrix in build["device_matrices"])
