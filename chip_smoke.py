@@ -3,8 +3,9 @@ its PCA and t-SNE image lane, its sweeps and job coalescing, its model
 builder (``POST /models``), its whole service stack (crash resume, the
 data services, ``POST /models/sweep``, the runner's kill -9 drill), its
 batch predictions lane with the device cache, the stack over the
-networked store (a replicated pair of store servers, failover), and the
-``bf16`` feature policy on one CUDA card.
+networked store (a replicated pair of store servers, failover), the
+``bf16`` feature policy, and the lr fit over ranks (``fit_sharded``: rows
+sharded over ``torch.distributed`` processes) on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -15,6 +16,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py stack            # resume, the services, sweeps, the kill -9 drill
     python3 chip_smoke.py batch bf16       # the batch lane; LO_DTYPE_POLICY=bf16 in a child
     python3 chip_smoke.py store            # the stack over a primary and a follower store server
+    python3 chip_smoke.py multigpu         # K8′, K7's sums form, fit_sharded over ranks
 
 Phases, one JSON line each:
 
@@ -268,6 +270,33 @@ Phases, one JSON line each:
                  request (the reference's 500: its ``eigh`` refuses
                  bfloat16); a λ sweep whose payload stays float32. Its
                  metrics beside the batch phase's float32 build's.
+
+13. multigpu   — K8′ on the card against its plain twins: masked_col_sums
+                 (pass 1 and the centred pass 2) and masked_standardize on
+                 one rank's block of bench.py's 1,000,000 rows (padded to
+                 1,048,576, the padding masked) and on 4,096 rows of 1, 5,
+                 16, 17 and 256 features, one column constant: the sums
+                 within 1e-12 of the largest, the stats within 1e-6 (the
+                 constant column's scale 1), the standardization bit-equal;
+                 K7's sums form at the block's shape, 2 and 10 classes:
+                 within K7's tolerances of the twin, divided by sum w
+                 bit-equal to the weighted launch. Each timed cold, warm,
+                 on the profiler, beside its twin, its bound and (the sums)
+                 torch.var_mean. Then ``fit_sharded`` at 1,000,000 x 16
+                 through per-host feeding in child processes
+                 (``chip_smoke.py multigpu-child``), each run's ranks
+                 started together: (a) NCCL, one rank a card, with two
+                 cards or more; (b) one NCCL rank on card 0; (c) four gloo
+                 ranks sharing card 0 (CUDA tensors through gloo, or
+                 through the host where this gloo refuses them), which also
+                 run the SPMD ``fit`` of the full rows. The ranks of a run
+                 hold the same bits (checked over the group); each run's
+                 predictions agree with run (b)'s on 99.9% of rows and its
+                 losses within 1e-5; run (c)'s ``fit`` agrees with the
+                 one-process ``fit`` the same way; every kernel of the path
+                 launched by every rank. One record line a run (backend,
+                 ranks, cards, ranks a card, walls, host seconds in
+                 collectives, launches a rank).
 
 Then the ``kernels`` summary line (the bf16 forms as ``<kernel>:bf16``
 rows), the card's ``nvidia-smi`` name and power
@@ -1699,8 +1728,11 @@ def _forest(torch, X, count, depth, classes, seed):
     )
 
 
-def _k7_bound(rows: int, features: int, classes: int, trial: bool, x_bytes: int = 4) -> tuple[float, str]:
-    """Least milliseconds for one K7 call: X (``x_bytes`` a value) and y
+def _k7_bound(
+    rows: int, features: int, classes: int, trial: bool, x_bytes: int = 4, weighted: bool = False,
+) -> tuple[float, str]:
+    """Least milliseconds for one K7 call: X (``x_bytes`` a value), y and,
+    ``weighted``, the row weights
     read once (the parameters and outputs are bytes beside them) over HBM bandwidth,
     against its operations at their type's peak: per row and candidate
     2FC float32 for the logits and ~4C for the softmax, and for the
@@ -1709,6 +1741,7 @@ def _k7_bound(rows: int, features: int, classes: int, trial: bool, x_bytes: int 
     candidates = 4 if trial else 1
     params = candidates * (F * C + C) * 4
     bytes_moved = rows * F * x_bytes + rows * 4 + params + (candidates if trial else F * C + C + 1) * 4
+    bytes_moved += rows * 4 if weighted else 0
     fp32_ops = rows * candidates * (2 * F * C + 4 * C)
     fp64_ops = 0 if trial else rows * (2 * F * C + 2 * C + 1)
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -5822,6 +5855,490 @@ def phase_bf16(torch, card: str, f32_metrics: "dict | None") -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# multigpu: K8′ and K7's sums form, fit_sharded over ranks
+# --------------------------------------------------------------------------
+
+SCALER_SOURCE = "learningorchestra_tpu_torch/kernels/csrc/scaler.cu"
+MULTIGPU_REPLACES = {
+    "masked_col_sums": (
+        "learningorchestra_tpu/ml/logistic.py:412 _masked_stats (the masked sums and count)"
+    ),
+    "masked_col_sums_centred": (
+        "learningorchestra_tpu/ml/logistic.py:412 _masked_stats (the masked variance about the mean)"
+    ),
+    "masked_standardize": "learningorchestra_tpu/ml/logistic.py:426 _standardize",
+    "logistic_loss_grad_sums": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn under value_and_grad in :308 _fit "
+        "on a row-sharded mesh (XLA's psums across the data axis)"
+    ),
+    "logistic_trial_losses_sums": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn in the Armijo loop :176-200 "
+        "on a row-sharded mesh (XLA's psums across the data axis)"
+    ),
+}
+MULTIGPU_KERNELS = {
+    "masked_col_sums": ("col_sums_kernel", "sum_chunks_kernel"),
+    "masked_col_sums_centred": ("col_sums_kernel", "sum_chunks_kernel"),
+    "masked_standardize": ("standardize",),
+    "logistic_loss_grad_sums": ("loss_grad_kernel", "sums_kernel"),
+    "logistic_trial_losses_sums": ("trial_losses_kernel", "sums_kernel"),
+}
+# the K8′ checks' shapes: the main path's block (bench.py's 1,000,000 rows
+# padded to one rank's 1,048,576) and 4,096 rows of several widths, 96 of
+# them padding
+SCALER_SHAPES = ((1_048_576, FEATURES, FIT_ROWS), (4096, 1, 4000), (4096, 5, 4000),
+                 (4096, 16, 4000), (4096, 17, 4000), (4096, 256, 4000))
+SCALER_CONSTANT = 2.5    # one constant column: its scale pins to 1
+SCALER_SUM_RTOL = 1e-12  # float64 sums in the kernel's order and torch's
+SCALER_STAT_RTOL = 1e-6  # mean and scale (rounded once to float32) against the twins'
+MULTIGPU_MIN_AGREEMENT = 0.999   # predictions of a run against run (b)
+MULTIGPU_LOSS_RTOL = 1e-5        # loss histories of a run against run (b)
+MULTIGPU_GLOO_RANKS = 4          # run (c): ranks sharing card 0 over gloo
+MULTIGPU_GROUP_TIMEOUT_S = 120
+MULTIGPU_CHILD_TIMEOUT_S = 300
+MULTIGPU_CHILD_COMMAND = [sys.executable, os.path.abspath(__file__), "multigpu-child"]
+MULTIGPU_LIBRARY = {
+    "masked_standardize": "no single PyTorch call gives ((x - mean) / scale) * w",
+    "logistic_loss_grad_sums": "no PyTorch call gives the masked nll sums with their gradient",
+    "logistic_trial_losses_sums": "no PyTorch call gives the masked nll sums at four points",
+}
+
+
+def _scaler_inputs(torch, rows: int, features: int, valid: int, seed: int):
+    """A rank's block: bench.py's rows (its synthetic data on the main
+    path's shape), one column constant, the rows past ``valid`` padding
+    (zeros, weight 0)."""
+    if features == FEATURES and valid == FIT_ROWS:
+        X = np.zeros((rows, features), np.float32)
+        X[:valid] = bench_synthetic(FIT_ROWS)[0]
+    else:
+        X = bench_rows(np.random.default_rng(seed), rows, features)
+    X[:, features // 2] = SCALER_CONSTANT
+    X[valid:] = 0.0
+    w = (np.arange(rows) < valid).astype(np.float32)
+    return torch.from_numpy(X).cuda(), torch.from_numpy(w).cuda()
+
+
+def _scaler_bound(name: str, rows: int, features: int) -> tuple[float, str]:
+    """Least milliseconds: X and w read once, the output written once (the
+    sums: F + 1 float64; the standardization: X again), against the
+    operations at their type's peak (float64 for the sums: a product and an
+    add a value, or a difference, two products and an add; float32 for the
+    standardization: three a value)."""
+    values = rows * features
+    if name == "masked_standardize":
+        bytes_moved = 2 * values * 4 + rows * 4 + 2 * features * 4
+        op_ms = 3 * values / PEAK_FP32_OPS_PER_S * 1e3
+    else:
+        centred = name == "masked_col_sums_centred"
+        bytes_moved = values * 4 + rows * 4 + (features + 1) * 8 + (features * 8 if centred else 0)
+        op_ms = ((4 if centred else 2) * values + rows) / PEAK_FP64_OPS_PER_S * 1e3
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _relative_error(got, want) -> float:
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
+
+
+def check_scaler_kernels(torch, flush) -> dict:
+    """K8′'s kernels against their plain twins on the same block: both
+    passes of masked_col_sums within SCALER_SUM_RTOL of the largest sum, a
+    second launch bit identical; masked_stats' mean and scale within
+    SCALER_STAT_RTOL of the twins' (the constant column's scale 1);
+    masked_standardize bit-equal to its twin. Timed at every shape: event
+    ms cold (L2 overwritten) and warm, device ms cold, the twin's ms cold,
+    and beside the sums torch.var_mean over the valid rows (never used by
+    the port)."""
+    names = ("masked_col_sums", "masked_col_sums_centred", "masked_standardize")
+    results = {name: {"max_abs_err": 0.0, "by_shape": {}} for name in names}
+    for rows, features, valid in SCALER_SHAPES:
+        X, w = _scaler_inputs(torch, rows, features, valid, seed=rows + features)
+        key = f"{rows}x{features}"
+        first = logistic.masked_col_sums(X, w)
+        want_first = logistic._masked_col_sums(X, w)
+        mean64 = first[:-1] / first[-1]
+        second = logistic.masked_col_sums(X, w, mean64)
+        want_second = logistic._masked_col_sums(X, w, mean64)
+        for name, got, want, again in (
+            ("masked_col_sums", first, want_first, logistic.masked_col_sums(X, w)),
+            ("masked_col_sums_centred", second, want_second, logistic.masked_col_sums(X, w, mean64)),
+        ):
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} at {key}: a second launch differs")
+            if float(got[-1]) != valid:
+                raise AssertionError(f"{name} at {key}: the weights sum to {float(got[-1])}, not {valid}")
+            error = _relative_error(got, want)
+            if not error <= SCALER_SUM_RTOL:
+                raise AssertionError(f"{name} at {key}: {error} relative to the largest sum")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float((got - want).abs().max()))
+        mean, scale = logistic.masked_stats(X, w)
+        twin_std = torch.sqrt(want_second[:-1] / want_first[-1]).to(torch.float32)
+        twin_mean = (want_first[:-1] / want_first[-1]).to(torch.float32)
+        twin_scale = torch.where(twin_std > 0, twin_std, torch.ones_like(twin_std))
+        stat_error = max(_relative_error(mean, twin_mean), _relative_error(scale, twin_scale))
+        if not stat_error <= SCALER_STAT_RTOL or float(scale[features // 2]) != 1.0:
+            raise AssertionError(
+                f"masked_stats at {key}: {stat_error} relative; the constant column's scale "
+                f"{float(scale[features // 2])}"
+            )
+        standardized = logistic.standardize(X, mean, scale, w)
+        if not torch.equal(standardized, logistic._standardize(X, mean, scale, w)):
+            raise AssertionError(f"masked_standardize at {key}: not bit-equal to its twin")
+        if bool(standardized[valid:].any()):
+            raise AssertionError(f"masked_standardize at {key}: a padded row is not zero")
+        calls = {
+            "masked_col_sums": (lambda: logistic.masked_col_sums(X, w),
+                                lambda: logistic._masked_col_sums(X, w),
+                                lambda: torch.var_mean(X[:valid], dim=0, correction=0)),
+            "masked_col_sums_centred": (lambda: logistic.masked_col_sums(X, w, mean64),
+                                        lambda: logistic._masked_col_sums(X, w, mean64),
+                                        lambda: torch.var_mean(X[:valid], dim=0, correction=0)),
+            "masked_standardize": (lambda: logistic.standardize(X, mean, scale, w),
+                                   lambda: logistic._standardize(X, mean, scale, w), None),
+        }
+        for name, (kernel, plain, library) in calls.items():
+            bound_ms, bound_by = _scaler_bound(name, rows, features)
+            results[name]["by_shape"][key] = {
+                "rows": rows, "valid_rows": valid, "features": features,
+                "ms": _event_ms(torch, kernel, 20, flush),
+                "warm_ms": _event_ms(torch, kernel, 50),
+                "device_ms": _device_ms(torch, kernel, MULTIGPU_KERNELS[name], 20, flush),
+                "plain_ms": _event_ms(torch, plain, 5, flush),
+                "library_ms": _event_ms(torch, library, 20, flush) if library else None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+    main_key = f"{SCALER_SHAPES[0][0]}x{SCALER_SHAPES[0][1]}"
+    for result in results.values():
+        result.update(result["by_shape"][main_key])
+    return results
+
+
+def check_k7_sums(torch, flush) -> dict:
+    """K7's sums form on one rank's block at the main path's shape (bench.py's
+    1,000,000 rows standardized, padded to 1,048,576, the mask as weights),
+    2 and 10 classes: the sums within K7's tolerances of the twin's
+    (divided by sum w), the sum of the weights exact, and, divided by it,
+    bit-equal to the weighted launch's own division (``job_loss_and_grad``
+    and ``job_trial_losses`` at l2 0, the same chunk sums); a second launch
+    bit identical. Times as K7's."""
+    X_np, y_np = bench_synthetic(FIT_ROWS)
+    mean, scale = logistic.scaler_stats(X_np)
+    rows = SCALER_SHAPES[0][0]
+    X_block = np.zeros((rows, FEATURES), np.float32)
+    X_block[:FIT_ROWS] = logistic._standardized(X_np, mean, scale)
+    X = torch.from_numpy(X_block).cuda()
+    w = torch.from_numpy((np.arange(rows) < FIT_ROWS).astype(np.float32)).cuda()
+    names = ("logistic_loss_grad_sums", "logistic_trial_losses_sums")
+    results = {name: {"max_abs_err": 0.0, "by_classes": {}} for name in names}
+    for classes, labels in ((CLASSES, y_np), (DEEP_CLASSES, ten_classes(X_np))):
+        y_block = np.zeros(rows, np.int32)
+        y_block[:FIT_ROWS] = labels
+        y = torch.from_numpy(y_block).cuda()
+        rng = np.random.default_rng(classes + 100)
+
+        def cuda(*shape):
+            return torch.from_numpy((rng.normal(size=shape) * 0.3).astype(np.float32)).cuda()
+
+        W, b, D, d = cuda(FEATURES, classes), cuda(classes), cuda(FEATURES, classes), cuda(classes)
+        steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X.device)
+        W4 = (W[None] + steps[:, None, None] * D[None]).contiguous()
+        b4 = (b[None] + steps[:, None] * d[None]).contiguous()
+        zero = torch.zeros(1, device=X.device)
+        sums = logistic._launch_loss_grad(W[None], b[None], X, y, w, 1, sums=True)[0]
+        trial = logistic._launch_trial_losses(W4[None], b4[None], X, y, w, 1, sums=True)[0]
+        if not torch.equal(sums, logistic._launch_loss_grad(W[None], b[None], X, y, w, 1, sums=True)[0]) \
+                or not torch.equal(trial, logistic._launch_trial_losses(W4[None], b4[None], X, y, w, 1, sums=True)[0]):
+            raise AssertionError(f"K7's sums form ({classes} classes): a second launch differs")
+        if float(sums[-1]) != FIT_ROWS or float(trial[-1]) != FIT_ROWS:
+            raise AssertionError(f"K7's sums form ({classes} classes): sum w is not {FIT_ROWS}")
+        means = (sums[:-1] / sums[-1]).to(torch.float32)
+        trial_means = (trial[:-1] / trial[-1]).to(torch.float32)
+        value, dW, db = logistic.job_loss_and_grad(W[None], b[None], X, y, w, zero)
+        weighted = torch.cat([dW[0].reshape(-1), db[0], value])
+        if not torch.equal(means, weighted) or not torch.equal(
+                trial_means, logistic.job_trial_losses(W4[None], b4[None], X, y, w, zero)[0]):
+            raise AssertionError(f"K7's sums form ({classes} classes): not the weighted launch's bits")
+        twin = logistic._weighted_sums(W, b, X, y, w)
+        twin_means = (twin[:-1] / twin[-1]).to(torch.float32)
+        twin_trial = logistic._weighted_trial_sums(W4, b4, X, y, w)
+        twin_trial_means = (twin_trial[:-1] / twin_trial[-1]).to(torch.float32)
+        grad_err = float((means[:-1] - twin_means[:-1]).abs().max())
+        loss_rel = abs(float(means[-1]) - float(twin_means[-1])) / abs(float(twin_means[-1]))
+        trial_rel = float(((trial_means - twin_trial_means).abs() / twin_trial_means.abs()).max())
+        if not grad_err <= K7_GRAD_ATOL or not loss_rel <= K7_LOSS_RTOL or not trial_rel <= K7_LOSS_RTOL:
+            raise AssertionError(
+                f"K7's sums form ({classes} classes): gradient {grad_err}, loss {loss_rel}, "
+                f"trial {trial_rel} relative"
+            )
+        results["logistic_loss_grad_sums"]["max_abs_err"] = max(
+            results["logistic_loss_grad_sums"]["max_abs_err"], float((sums - twin).abs().max()))
+        results["logistic_trial_losses_sums"]["max_abs_err"] = max(
+            results["logistic_trial_losses_sums"]["max_abs_err"], float((trial - twin_trial).abs().max()))
+        calls = {
+            "logistic_loss_grad_sums": (
+                lambda: logistic._launch_loss_grad(W[None], b[None], X, y, w, 1, sums=True),
+                lambda: logistic._weighted_sums(W, b, X, y, w),
+            ),
+            "logistic_trial_losses_sums": (
+                lambda: logistic._launch_trial_losses(W4[None], b4[None], X, y, w, 1, sums=True),
+                lambda: logistic._weighted_trial_sums(W4, b4, X, y, w),
+            ),
+        }
+        for name, (kernel, plain) in calls.items():
+            bound_ms, bound_by = _k7_bound(
+                rows, FEATURES, classes, name == "logistic_trial_losses_sums", weighted=True)
+            results[name]["by_classes"][classes] = {
+                "ms": _event_ms(torch, kernel, 20, flush),
+                "warm_ms": _event_ms(torch, kernel, 50),
+                "device_ms": _device_ms(torch, kernel, MULTIGPU_KERNELS[name], 20, flush),
+                "plain_ms": _event_ms(torch, plain, 3, flush),
+                "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+    for result in results.values():
+        result.update(result["by_classes"][CLASSES])
+    return results
+
+
+def multigpu_child(argv) -> int:
+    """One rank of a ``multigpu`` run: ``chip_smoke.py multigpu-child
+    <rank> <world> <backend> <address> <device> <folder> <spmd>``. Joins the
+    group, feeds its block of bench.py's 1,000,000 rows
+    (``host_row_range``, ``shard_rows_local``), runs ``fit_sharded`` with
+    the counts set to 0 just before it, then (``spmd`` 1) the SPMD ``fit``
+    of the full rows; checks over the group that every rank holds the same
+    bits; writes its record to ``<folder>/rank<rank>.json`` (rank 0 also
+    the predictions and losses as .npy)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from learningorchestra_tpu_torch.parallel import host_row_range, make_mesh, shard_rows_local
+    from learningorchestra_tpu_torch.parallel import multihost
+
+    rank, world, backend, address, device, folder, spmd = argv
+    rank, world, device, spmd = int(rank), int(world), torch.device(device), spmd == "1"
+    os.environ.update(LO_COORDINATOR=address, LO_NUM_PROCESSES=str(world), LO_PROCESS_ID=str(rank))
+    for name in ("logistic", "scaler"):   # built by the parent
+        kernels.library(name)
+    started = time.perf_counter()
+    multihost.initialize_from_env(backend=backend, device=device, timeout_s=MULTIGPU_GROUP_TIMEOUT_S)
+    staging_reason = None
+    if backend == "gloo" and world > 1:
+        probe = [torch.empty(2, device=device) for _ in range(world)]
+        try:
+            dist.all_gather(probe, torch.full((2,), float(rank), device=device))
+        except RuntimeError as error:   # this gloo takes no CUDA tensor: copy through the host
+            staging_reason = str(error).splitlines()[0][:200]
+            multihost.stage_through_host(True)
+    mesh = make_mesh(device=device)
+    join_s = time.perf_counter() - started
+    X, y = bench_synthetic(FIT_ROWS)
+    start, stop = host_row_range(FIT_ROWS, mesh)
+    X_block, mask = shard_rows_local(X[start:stop], mesh, FIT_ROWS, dtype=np.float32)
+    y_block, _ = shard_rows_local(y[start:stop], mesh, FIT_ROWS, dtype=np.int32)
+    torch.cuda.synchronize()
+    record = {"rank": rank, "world": world, "backend": backend, "device": str(device),
+              "host_rows": [start, stop], "block_rows": int(X_block.shape[0]),
+              "join_s": join_s, "host_staging": staging_reason is not None,
+              "staging_reason": staging_reason}
+
+    def fitted(fit):
+        estimator = logistic.LogisticRegression(mesh=mesh)
+        kernels.reset_launches()
+        multihost.reset_collective_stats()
+        began = time.perf_counter()
+        model = fit(estimator)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - began
+        launches = {name: count for name, count in kernels.launches().items() if count}
+        collectives = multihost.collective_stats()
+        labels, probs = model.predict_both(X)
+        losses = estimator.loss_history_.cpu().numpy()
+        params = b"".join(getattr(model, name).cpu().numpy().tobytes()
+                          for name in ("w", "b", "mean", "scale"))
+        return model, labels, losses, {
+            "wall_s": wall_s, "launches": launches,
+            "collective_s": collectives["collective_s"], "collectives": collectives["collectives"],
+            "iterations": int(losses.shape[0]), "final_loss": float(losses[-1]),
+            "accuracy": float((labels == y).mean()),
+            "digest": hashlib.sha256(params + losses.tobytes() + labels.astype(np.int8).tobytes()
+                                     + probs.tobytes()).hexdigest(),
+        }
+
+    model, labels, losses, record["fit_sharded"] = fitted(
+        lambda estimator: estimator.fit_sharded(X_block, y_block, mask, num_classes=CLASSES))
+    digests = [record["fit_sharded"]["digest"]]
+    if rank == 0:
+        np.save(os.path.join(folder, "fit_sharded_labels.npy"), labels.astype(np.int8))
+        np.save(os.path.join(folder, "fit_sharded_losses.npy"), losses)
+    if spmd:
+        _, spmd_labels, spmd_losses, record["fit"] = fitted(lambda estimator: estimator.fit(X, y))
+        digests.append(record["fit"]["digest"])
+        if rank == 0:
+            np.save(os.path.join(folder, "fit_labels.npy"), spmd_labels.astype(np.int8))
+            np.save(os.path.join(folder, "fit_losses.npy"), spmd_losses)
+    # every rank's digests over the group (NCCL also for one rank): the same bits
+    mine = torch.tensor(np.frombuffer(bytes.fromhex("".join(digests)), np.uint8).copy())
+    mine = mine.to(device) if backend == "nccl" else mine   # gloo: the host's copy
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    record["ranks_bit_equal"] = all(torch.equal(other, mine) for other in every)
+    with open(os.path.join(folder, f"rank{rank}.json"), "w") as handle:
+        json.dump(record, handle)
+    dist.destroy_process_group()
+    return 0 if record["ranks_bit_equal"] else 1
+
+
+def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: bool, folder: str) -> dict:
+    """One run of ``world`` child ranks over ``cards`` cards (rank r on card
+    r mod cards), all started together; fails when a child fails."""
+    folder = os.path.join(folder, run)
+    os.makedirs(folder)
+    address = f"127.0.0.1:{_free_port()}"
+    children = [
+        _LoggedChild(
+            MULTIGPU_CHILD_COMMAND + [
+                str(rank), str(world), backend, address, f"cuda:{rank % cards}", folder,
+                "1" if spmd else "0",
+            ],
+            dict(os.environ), os.path.join(folder, f"rank{rank}.log"),
+        )
+        for rank in range(world)
+    ]
+    started = time.perf_counter()
+    try:
+        for rank, child in enumerate(children):
+            remaining = max(1.0, MULTIGPU_CHILD_TIMEOUT_S - (time.perf_counter() - started))
+            try:
+                code = child.process.wait(timeout=remaining)
+            except subprocess.TimeoutExpired:
+                code = None
+            if code != 0:
+                raise AssertionError(
+                    f"multigpu run {run}: rank {rank} exited {code}:\n" + "\n".join(child.lines()[-40:]))
+    finally:
+        for child in children:
+            child.stop()
+    wall_s = time.perf_counter() - started
+    records = []
+    for rank in range(world):
+        with open(os.path.join(folder, f"rank{rank}.json")) as handle:
+            records.append(json.load(handle))
+    if not all(record["ranks_bit_equal"] for record in records) or len(
+            {record["fit_sharded"]["digest"] for record in records}) != 1:
+        raise AssertionError(f"multigpu run {run}: the ranks' W, b, scaler, losses or labels differ")
+    arrays = {name[:-4]: np.load(os.path.join(folder, name)) for name in os.listdir(folder)
+              if name.endswith(".npy")}
+    summary = {
+        "phase": "multigpu-run", "run": run, "backend": backend, "ranks": world, "cards": cards,
+        "ranks_per_card": world // cards,
+        "transport": ("NCCL, one rank a card" if backend == "nccl" and world > 1 else
+                      "NCCL, one rank" if backend == "nccl" else
+                      f"gloo, {world // cards} ranks sharing a card, collectives through the host"),
+        "host_staging": any(record["host_staging"] for record in records),
+        "staging_reason": records[0]["staging_reason"],
+        "children_wall_s": wall_s,
+        "join_s": [record["join_s"] for record in records],
+        "block_rows": [record["block_rows"] for record in records],
+    }
+    for fit in ("fit_sharded", "fit"):
+        if fit in records[0]:
+            summary[fit] = {
+                field: [record[fit][field] for record in records]
+                for field in ("wall_s", "collective_s", "collectives", "launches")
+            }
+            summary[fit].update({field: records[0][fit][field]
+                                 for field in ("iterations", "final_loss", "accuracy")})
+    return {"summary": summary, "arrays": arrays}
+
+
+def _agreement(what: str, labels, losses, want_labels, want_losses) -> dict:
+    """Predictions and loss histories against another fit's."""
+    agreement = float((labels == want_labels).mean())
+    if not agreement >= MULTIGPU_MIN_AGREEMENT:
+        raise AssertionError(f"{what}: predictions agree on {agreement}")
+    if losses.shape != want_losses.shape:
+        raise AssertionError(f"{what}: {losses.shape[0]} iterations against {want_losses.shape[0]}")
+    loss_rel = float(np.max(np.abs(losses - want_losses) / np.abs(want_losses)))
+    if not loss_rel <= MULTIGPU_LOSS_RTOL:
+        raise AssertionError(f"{what}: losses {loss_rel} relative")
+    return {"agreement": agreement, "loss_max_rel": loss_rel}
+
+
+def phase_multigpu(torch, card: str) -> list:
+    """K8′ (masked_col_sums in both passes, masked_standardize) and K7's sums
+    form on the card against their twins; then ``fit_sharded`` at 1,000,000
+    × 16 through per-host feeding over (a) NCCL, one rank a card, with two
+    cards or more, (b) one NCCL rank on card 0 and (c) four gloo ranks
+    sharing card 0. The ranks of a run hold the same bits; each run's
+    predictions agree with run (b)'s and its losses match; run (c)'s SPMD
+    ``fit`` agrees with the one-process ``fit``. Returns the kernels'
+    summary entries (launches: rank 0 of run (b), each run's beside)."""
+    started = time.perf_counter()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    results = {**check_scaler_kernels(torch, flush), **check_k7_sums(torch, flush)}
+    del flush
+    X, y = bench_synthetic(FIT_ROWS)
+    estimator = logistic.LogisticRegression()
+    began = time.perf_counter()
+    solo_labels = estimator.fit(X, y).predict(X)
+    solo_wall_s = time.perf_counter() - began
+    solo_losses = estimator.loss_history_.cpu().numpy()
+    count = torch.cuda.device_count()
+    plan = [("b", "nccl", 1, 1, False), ("c", "gloo", MULTIGPU_GLOO_RANKS, 1, True)]
+    if count >= 2:
+        plan.insert(0, ("a", "nccl", count, count, False))
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="lo_multigpu_") as folder:
+        for run, backend, world, cards, spmd in plan:
+            runs[run] = _multigpu_run(torch, run, backend, world, cards, spmd, folder)
+    base = runs["b"]["arrays"]
+    for run, result in runs.items():
+        arrays, summary = result["arrays"], result["summary"]
+        summary["against_b"] = _agreement(
+            f"multigpu run {run} against run b", arrays["fit_sharded_labels"],
+            arrays["fit_sharded_losses"], base["fit_sharded_labels"], base["fit_sharded_losses"])
+        if "fit_labels" in arrays:
+            summary["fit_against_one_process"] = {
+                **_agreement(f"multigpu run {run}: the SPMD fit against the one-process fit",
+                             arrays["fit_labels"], arrays["fit_losses"], solo_labels, solo_losses),
+                "one_process_wall_s": solo_wall_s,
+            }
+        for fit in ("fit_sharded", "fit"):
+            for rank, launches in enumerate(summary.get(fit, {}).get("launches", [])):
+                path = MULTIGPU_REPLACES if fit == "fit_sharded" else ("logistic_loss_grad_sums",
+                                                                       "logistic_trial_losses_sums")
+                missing = [name for name in path if not launches.get(name)]
+                if missing:
+                    raise AssertionError(f"multigpu run {run} ({fit}), rank {rank}: {missing} never launched")
+        summary["nvidia_smi"] = card
+        emit(summary)
+    emit({"phase": "multigpu", "wall_s": time.perf_counter() - started,
+          "kernels": {name: {key: value for key, value in result.items()}
+                      for name, result in results.items()}})
+    entries = []
+    for name, result in results.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": SCALER_SOURCE if name.startswith("masked") else LOGISTIC_SOURCE,
+            "replaces": MULTIGPU_REPLACES[name],
+            "launches": runs["b"]["summary"]["fit_sharded"]["launches"][0].get(name, 0),
+            "launches_by_run": {run: runs[run]["summary"]["fit_sharded"]["launches"] for run in runs},
+            "rows": result["rows"] if "rows" in result else SCALER_SHAPES[0][0],
+            **{field: result[field] for field in (
+                "max_abs_err", "ms", "warm_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            **({"library_note": MULTIGPU_LIBRARY[name]} if name in MULTIGPU_LIBRARY else {}),
+            **{field: result[field] for field in ("by_shape", "by_classes") if field in result},
+        })
+    return entries
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -5842,7 +6359,7 @@ def check_bounds(summary) -> None:
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "store", "bf16",
+    "batch", "store", "bf16", "multigpu",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -5978,6 +6495,8 @@ def main(argv) -> int:
     if "bf16" in wanted:
         bf16 = phase_bf16(torch, device["card"], batch["f32_metrics"] if batch else None)
         summary.extend(bf16["kernels"])
+    if "multigpu" in wanted:
+        summary.extend(phase_multigpu(torch, device["card"]))
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})
@@ -5996,4 +6515,6 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["bf16-child"]:
         sys.exit(bf16_child())
+    if sys.argv[1:2] == ["multigpu-child"]:
+        sys.exit(multigpu_child(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

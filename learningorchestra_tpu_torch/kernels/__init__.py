@@ -10,7 +10,10 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
   forest's trees, or a sweep's jobs (each with its own rows);
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
   and its Armijo trial losses (K7), for one fit or a job axis of fits
-  with row weights (the sweep's fused L-BFGS);
+  with row weights (the sweep's fused L-BFGS), and their sums form for a
+  rank's block of rows sharded over ranks;
+- ``scaler.cu``: the masked scaler's column sums (both passes) and the
+  masked standardization of a rank's block (K8′, ``fit_sharded``);
 - ``tsne.cu``: t-SNE's affinities (K11), gradient (K12) and landmark
   interpolation (K13), for the image lane.
 
@@ -44,6 +47,7 @@ SOURCES = {
     "tree_fit": os.path.join(_HERE, "csrc", "tree_fit.cu"),
     "logistic": os.path.join(_HERE, "csrc", "logistic.cu"),
     "tsne": os.path.join(_HERE, "csrc", "tsne.cu"),
+    "scaler": os.path.join(_HERE, "csrc", "scaler.cu"),
 }
 
 NVCC_FLAGS = (
@@ -63,6 +67,11 @@ KERNEL_LIBRARIES = {
     "leaf_sums": "tree_fit",
     "logistic_loss_grad": "logistic",
     "logistic_trial_losses": "logistic",
+    "logistic_loss_grad_sums": "logistic",
+    "logistic_trial_losses_sums": "logistic",
+    "masked_col_sums": "scaler",
+    "masked_col_sums_centred": "scaler",
+    "masked_standardize": "scaler",
     "tsne_affinities": "tsne",
     "tsne_z": "tsne",
     "tsne_grad": "tsne",
@@ -245,6 +254,7 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_logistic_loss_grad.argtypes = [
         ptr, c_int,                          # X, X is bfloat16 (else float32)
         ptr, ptr, ptr, ptr, ptr, ptr,        # y, weights (or null), W, b, partials, out
+        ptr,                                 # the sums form's float64 sums (or null)
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int,                        # chunks, rows/chunk
@@ -254,6 +264,7 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_logistic_trial_losses.argtypes = [
         ptr, c_int,                          # X, X is bfloat16 (else float32)
         ptr, ptr, ptr, ptr, ptr, ptr,        # y, weights (or null), W4, b4, partials, out
+        ptr,                                 # the sums form's float64 sums (or null)
         c_int, c_int, c_int, c_int,          # rows, F, C, jobs
         c_longlong, c_longlong,              # X's and the rows' strides along the job axis
         c_int, c_int,                        # chunks, rows/chunk
@@ -292,6 +303,23 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _bind_errors(lib)
 
 
+def _bind_scaler(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lo_masked_col_sums.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,             # X, w, mean (or null: pass 1), partials, out
+        c_int, c_int, c_int, c_int,          # rows, F, chunks, rows/chunk
+        c_int, ptr,                          # device, stream
+    ]
+    lib.lo_masked_standardize.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,             # X, mean, scale, w, out
+        c_longlong, c_int,                   # rows, F
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_masked_col_sums.restype = c_int
+    lib.lo_masked_standardize.restype = c_int
+    return _bind_errors(lib)
+
+
 def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lo_error_string.argtypes = [ctypes.c_int]
     lib.lo_error_string.restype = ctypes.c_char_p
@@ -303,6 +331,7 @@ _BINDERS = {
     "tree_fit": _bind_tree_fit,
     "logistic": _bind_logistic,
     "tsne": _bind_tsne,
+    "scaler": _bind_scaler,
 }
 
 

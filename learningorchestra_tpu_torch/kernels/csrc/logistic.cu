@@ -6,7 +6,11 @@
 //      :141 `_fit_segment_impl`             -> lo_logistic_loss_grad
 //      the Armijo trial losses of :176-200  -> lo_logistic_trial_losses
 //   and both under ml/sweep.py:237 `_lr_fused_segment`'s vmap over jobs
-//   (K14a), with the sweep's validity mask as a row weight.
+//   (K14a), with the sweep's validity mask as a row weight;
+//   and both on a rank's block of rows sharded over ranks (the reference's
+//   `_loss_fn` with XLA's psums across the data axis, :35 in :308 `_fit`):
+//   the sums form, which writes the block's un-divided float64 sums for the
+//   caller to add across ranks (`sums_kernel`).
 //
 // lo_logistic_loss_grad: from one read of the standardized rows X (N, F)
 // float32, their labels y (N,) int32 and, for a weighted pass, their
@@ -1086,6 +1090,22 @@ __global__ void __launch_bounds__(kThreads)
                        __ddiv_rn(sum_chunks(partials, chunks, stride, i), denominator));
 }
 
+// The sums form (a rank's block of rows sharded over ranks): job
+// blockIdx.y's un-divided float64 sums, out[i] = the partials' cell i added
+// in chunk order (sum_chunks, the same adds as finish_kernel's) for every
+// cell of the partials, the weights' last: [sum w dW | sum w db | sum w nll
+// | sum w] (loss and gradient) or [sum w nll at each candidate | sum w]
+// (trial losses). The caller adds every rank's sums in rank order, divides
+// by the global sum of the weights and rounds once to float32.
+__global__ void __launch_bounds__(kThreads)
+    sums_kernel(const double* __restrict__ partials, double* __restrict__ out, int chunks,
+                int stride) {
+  partials += static_cast<size_t>(blockIdx.y) * chunks * stride;
+  out += static_cast<size_t>(blockIdx.y) * stride;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < stride; i += gridDim.x * blockDim.x)
+    out[i] = sum_chunks(partials, chunks, stride, i);
+}
+
 typedef void (*K7Kernel)(const void*, const int*, const float*, const float*, const float*,
                          double*, int, int, int, int, long long, long long, int, const Layout);
 
@@ -1141,10 +1161,12 @@ extern "C" {
 // j * x_job_stride values (0: one shared X), y and weights (null: unweighted) at j * row_job_stride entries, W
 // (J, F, C), b (J, C). partials: J * chunks * (F*C + C + 1 + weighted)
 // doubles of scratch; out: (J, F*C + C + 1) floats, [dW (F, C) | db (C) |
-// loss] a job.
+// loss] a job. The sums form (`sums` not null, weighted only): no `out`;
+// sums (J, F*C + C + 2) doubles, the un-divided [sum w dW | sum w db |
+// sum w nll | sum w] a job.
 int lo_logistic_loss_grad(const void* X, int x_bf16, const int* y, const float* weights,
                           const float* W, const float* b, double* partials,
-                          float* out, int rows, int F, int C, int jobs,
+                          float* out, double* sums, int rows, int F, int C, int jobs,
                           long long x_job_stride, long long row_job_stride,
                           int chunks, int rows_per_chunk, const Layout* layout,
                           int max_blocks, int device, void* stream) {
@@ -1156,6 +1178,7 @@ int lo_logistic_loss_grad(const void* X, int x_bf16, const int* y, const float* 
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int weighted = weights != nullptr ? 1 : 0;
+  if (sums != nullptr && !weighted) return cudaErrorInvalidValue;
   const int cells = F * C + C + 1;
   const int partial_cells = cells + weighted;
   long long windows = 1;
@@ -1190,10 +1213,16 @@ int lo_logistic_loss_grad(const void* X, int x_bf16, const int* y, const float* 
     }
     for (int g0 = 0; g0 < launch_jobs; g0 += kMaxGridYZ) {
       const int finish_jobs = std::min(kMaxGridYZ, launch_jobs - g0);
-      finish_kernel<<<dim3(grid_for(cells, max_blocks), finish_jobs), kThreads, 0, s>>>(
-          launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * partial_cells,
-          out + static_cast<size_t>(j0 + g0) * cells, chunks, cells, F * C + C,
-          static_cast<double>(rows), weighted);
+      const double* finish_partials =
+          launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * partial_cells;
+      if (sums != nullptr)
+        sums_kernel<<<dim3(grid_for(partial_cells, max_blocks), finish_jobs), kThreads, 0, s>>>(
+            finish_partials, sums + static_cast<size_t>(j0 + g0) * partial_cells, chunks,
+            partial_cells);
+      else
+        finish_kernel<<<dim3(grid_for(cells, max_blocks), finish_jobs), kThreads, 0, s>>>(
+            finish_partials, out + static_cast<size_t>(j0 + g0) * cells, chunks, cells,
+            F * C + C, static_cast<double>(rows), weighted);
       error = cudaGetLastError();
       if (error != cudaSuccess) return error;
     }
@@ -1203,10 +1232,12 @@ int lo_logistic_loss_grad(const void* X, int x_bf16, const int* y, const float* 
 
 // Jobs as above, W4 (J, 4, F, C), b4 (J, 4, C); partials: J * chunks *
 // (4 + weighted) doubles of scratch; out: (J, 4) floats, the (weighted)
-// mean nll at each candidate.
+// mean nll at each candidate. The sums form (`sums` not null, weighted
+// only): no `out`; sums (J, 5) doubles, [sum w nll at each candidate |
+// sum w] a job.
 int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
                              const float* weights, const float* W4,
-                             const float* b4, double* partials, float* out,
+                             const float* b4, double* partials, float* out, double* sums,
                              int rows, int F, int C, int jobs,
                              long long x_job_stride, long long row_job_stride,
                              int chunks, int rows_per_chunk, const Layout* layout, int device,
@@ -1219,7 +1250,8 @@ int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int weighted = weights != nullptr ? 1 : 0;
-  const int sums = kCandidates + weighted;
+  if (sums != nullptr && !weighted) return cudaErrorInvalidValue;
+  const int partial_cells = kCandidates + weighted;
   const K7Kernel kernel = trial_losses_for(x_bf16 != 0, two_classes(C, W4, b4));
   const char* X_bytes = static_cast<const char*>(X);
   const long long x_value_bytes = x_bf16 ? 2 : 4;
@@ -1230,7 +1262,8 @@ int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
   const long long jobs_per_launch = static_cast<long long>(kMaxGridYZ) * group;
   for (long long j0 = 0; j0 < jobs; j0 += jobs_per_launch) {
     const int launch_jobs = static_cast<int>(std::min<long long>(jobs_per_launch, jobs - j0));
-    double* launch_partials = partials + static_cast<size_t>(j0) * std::max(chunks, 1) * sums;
+    double* launch_partials =
+        partials + static_cast<size_t>(j0) * std::max(chunks, 1) * partial_cells;
     if (chunks > 0) {
       kernel<<<dim3(chunks, (launch_jobs + group - 1) / group), kThreads, layout->bytes, s>>>(
           X_bytes + j0 * x_job_stride * x_value_bytes, y + j0 * row_job_stride,
@@ -1243,10 +1276,16 @@ int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
     }
     for (int g0 = 0; g0 < launch_jobs; g0 += kMaxGridYZ) {
       const int finish_jobs = std::min(kMaxGridYZ, launch_jobs - g0);
-      finish_kernel<<<dim3(1, finish_jobs), kThreads, 0, s>>>(
-          launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * sums,
-          out + static_cast<size_t>(j0 + g0) * kCandidates, chunks, kCandidates, 0,
-          static_cast<double>(rows), weighted);
+      const double* finish_partials =
+          launch_partials + static_cast<size_t>(g0) * std::max(chunks, 1) * partial_cells;
+      if (sums != nullptr)
+        sums_kernel<<<dim3(1, finish_jobs), kThreads, 0, s>>>(
+            finish_partials, sums + static_cast<size_t>(j0 + g0) * partial_cells, chunks,
+            partial_cells);
+      else
+        finish_kernel<<<dim3(1, finish_jobs), kThreads, 0, s>>>(
+            finish_partials, out + static_cast<size_t>(j0 + g0) * kCandidates, chunks,
+            kCandidates, 0, static_cast<double>(rows), weighted);
       error = cudaGetLastError();
       if (error != cudaSuccess) return error;
     }

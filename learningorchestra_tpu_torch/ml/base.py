@@ -132,12 +132,30 @@ def labels_from_probs(probs: np.ndarray) -> np.ndarray:
 class FittedModel:
     """Base for fitted models. Subclasses set ``device`` and implement
     ``_forward(X) -> probs`` on a ``(rows, F)`` tensor there in the
-    policy's float type."""
+    policy's float type.
+
+    A model fitted over a data axis of several ranks sets ``mesh``
+    (``parallel/mesh.py``): every rank passes the full rows, each runs the
+    forward on its block of them (``parallel.shard_rows``), the
+    probabilities are gathered (``parallel.fetch``), and the metrics add
+    every rank's weighted confusion counts before they are computed (K9
+    over ranks, reference ``ml/evaluation.py:31 masked_metrics``)."""
 
     device: torch.device
+    mesh = None
 
     def _forward(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.shape["data"] > 1
+
+    def _block(self, X):
+        """This rank's block of the rows ``X`` and its validity mask."""
+        from learningorchestra_tpu_torch.parallel.sharding import shard_rows
+
+        rows = X.cpu().numpy() if isinstance(X, torch.Tensor) else np.asarray(X)
+        return shard_rows(rows, self.mesh, dtype=np.float32)
 
     def _to_device(self, X) -> torch.Tensor:
         if isinstance(X, torch.Tensor):
@@ -145,6 +163,12 @@ class FittedModel:
         return shard_matrix(X, self.device)
 
     def _eval(self, X) -> tuple[np.ndarray, np.ndarray]:
+        if self._sharded():
+            from learningorchestra_tpu_torch.parallel.multihost import fetch
+
+            block, mask = self._block(X)
+            probs = fetch(self._forward(block), self.mesh, mask)
+            return labels_from_probs(probs), probs
         # the one device-to-host copy of a forward: the probabilities
         probs = self._forward(self._to_device(X)).cpu().numpy()
         return labels_from_probs(probs), probs
@@ -164,6 +188,17 @@ class FittedModel:
         ``(accuracy, weighted_f1)`` scalars and the probabilities."""
         from learningorchestra_tpu_torch.ml.evaluation import masked_metrics
 
+        if self._sharded():
+            from learningorchestra_tpu_torch.parallel.sharding import shard_rows
+
+            block, mask = self._block(X)
+            probs = self._forward(block)
+            y = y_true.data.cpu().numpy() if isinstance(y_true, DeviceLabels) else np.asarray(y_true)
+            num_classes = max(int(probs.shape[-1]), infer_num_classes(y))
+            y_block, _ = shard_rows(y.astype(np.int64), self.mesh)
+            accuracy, weighted_f1 = masked_metrics(
+                y_block, probs.argmax(dim=1), mask, num_classes, self.mesh)
+            return accuracy, weighted_f1, probs
         probs = self._forward(self._to_device(X))
         if isinstance(y_true, DeviceLabels):  # copied once by the builder
             y_dev = y_true.data.to(self.device)
@@ -186,7 +221,11 @@ class FittedModel:
     ) -> tuple[float, float, np.ndarray, np.ndarray]:
         """Metrics on the eval rows and ``(labels, probabilities)`` on the
         test rows in one device-to-host copy; when ``X_test is X_eval`` the
-        forward runs once."""
+        forward runs once. Over several data ranks: the metrics, then the
+        test rows' forward gathered."""
+        if self._sharded():
+            accuracy, weighted_f1 = self.evaluate(X_eval, y_eval)
+            return (accuracy, weighted_f1, *self._eval(X_test))
         accuracy, weighted_f1, probs = self._device_metrics(X_eval, y_eval)
         if X_test is not X_eval:
             probs = self._forward(self._to_device(X_test))

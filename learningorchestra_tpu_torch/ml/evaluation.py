@@ -1,6 +1,8 @@
 """Multiclass evaluation metrics: accuracy and weighted F1.
 
-Counterpart of ``learningorchestra_tpu/ml/evaluation.py:19-95`` (K9).
+Counterpart of ``learningorchestra_tpu/ml/evaluation.py:19-95`` (K9),
+and of its sharded form over a data axis of ranks (``masked_metrics``
+with a ``mesh``).
 Spark's "f1" is the weighted F1: per-class F1 averaged with true-class
 support weights. Both metrics come from one confusion matrix, built on
 the device.
@@ -25,12 +27,16 @@ import torch
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 
 
-def _counts(y_true, y_pred, weights, num_classes: int) -> torch.Tensor:
+def _counts(y_true, y_pred, weights, num_classes: int, mesh=None) -> torch.Tensor:
     index = y_true.long() * num_classes + y_pred.long()
     if weights is None:
         weights = torch.ones(index.shape, dtype=torch.float64, device=index.device)
     flat = torch.zeros(num_classes * num_classes, dtype=torch.float64, device=index.device)
     flat.index_add_(0, index, weights.to(torch.float64))
+    if mesh is not None:
+        from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+        flat = all_sum(flat, mesh)
     return flat.to(torch.float32).reshape(num_classes, num_classes)
 
 
@@ -39,11 +45,13 @@ def confusion_matrix(y_true, y_pred, num_classes: int) -> torch.Tensor:
     return _counts(y_true, y_pred, None, num_classes)
 
 
-def masked_metrics(y_true, y_pred, weights, num_classes: int):
+def masked_metrics(y_true, y_pred, weights, num_classes: int, mesh=None):
     """``(accuracy, weighted_f1)`` as float32 device scalars, each row
     counted with its weight (the reference's validity mask, 0 or 1);
-    ``weights=None`` counts every row once."""
-    return _metrics_from_cm(_counts(y_true, y_pred, weights, num_classes))
+    ``weights=None`` counts every row once. On a ``mesh`` the rows are this
+    rank's block, and every data rank's counts are added (in rank order:
+    exact integers) before the metrics, the same on every rank."""
+    return _metrics_from_cm(_counts(y_true, y_pred, weights, num_classes, mesh))
 
 
 def job_masked_metrics(y_true, y_pred, weights, num_classes: int):

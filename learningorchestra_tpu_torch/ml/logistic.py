@@ -40,9 +40,31 @@ is the kernel's oracle on the card, and both sit closer to the exact sum
 than the reference's float32 reductions.
 
 ``_fit`` saves and resumes its segments through the ambient progress
-sink (``ml/progress.py``), as the reference's does. Left for a later
-slice: ``fit_sharded`` with ``_masked_stats`` and ``_standardize``
-(:412-428, multi-GPU).
+sink (``ml/progress.py``), as the reference's does.
+
+Rows sharded over the ranks of a mesh (``parallel/``, the reference's
+data axis):
+
+- K7's sums form: on a mesh, :func:`loss_and_grad` and
+  :func:`trial_losses` take a rank's block of rows with its row weights
+  (the validity mask) and launch the kernel's sums form, which writes the
+  block's un-divided float64 sums ``[sum w dW | sum w db | sum w nll | sum
+  w]``; every rank's sums are gathered and added in rank order in float64,
+  divided by the global ``sum w`` and rounded once (the reference's
+  ``_loss_fn`` :35 with XLA's psums in its sharded ``_fit`` :308). Every
+  rank then holds the same bits, takes the same steps and stops at the
+  same segment. The plain twins are :func:`_weighted_sums` and
+  :func:`_weighted_trial_sums`.
+- K8′, the masked scaler (``_masked_stats`` :412) and the standardization
+  (``_standardize`` :426): :func:`masked_stats` (two passes of the kernel
+  :func:`masked_col_sums`, gathered like K7's sums) and
+  :func:`standardize` (the kernel ``masked_standardize``), both in
+  ``kernels/csrc/scaler.cu``, with their plain twins
+  :func:`_masked_col_sums` and :func:`_standardize`.
+- ``LogisticRegression(mesh=...)``: ``fit`` (every rank passes the full
+  rows; the host scaler, then each rank's block) and ``fit_sharded`` (the
+  per-host feeding entry, :489: K8′ on the device from the blocks). The
+  model predicts on each rank's block and gathers (``ml/base.py``).
 """
 
 from __future__ import annotations
@@ -55,7 +77,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike, resolve_device
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike
 from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
@@ -336,11 +358,13 @@ def _stream(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def _launch_loss_grad(W, b, X, y, weights, jobs: int):
+def _launch_loss_grad(W, b, X, y, weights, jobs: int, sums: bool = False):
     """K7's loss-and-gradient launch over ``jobs`` jobs: ``W (J, F, C)``,
     ``b (J, C)``; X shared ``(rows, F)`` or ``(J, rows, F)``; y and the
     weights (or None) shared ``(rows,)`` or ``(J, rows)``. Returns the
-    ``(J, F*C + C + 1)`` float32 outputs, ``[dW | db | data loss]``."""
+    ``(J, F*C + C + 1)`` float32 outputs, ``[dW | db | data loss]``; the
+    sums form (``sums``, weighted) the ``(J, F*C + C + 2)`` float64
+    un-divided sums, ``[sum w dW | sum w db | sum w nll | sum w]``."""
     kernels.check_operands(*(t for t in (X, y, weights, W, b) if t is not None))
     rows, num_features = X.shape[-2:]
     num_classes = W.shape[-1]
@@ -354,11 +378,16 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     partials = torch.empty(
         (jobs, max(chunks, 1), cells + int(weighted)), dtype=torch.float64, device=X.device
     )
-    out = torch.empty((jobs, cells), dtype=torch.float32, device=X.device)
+    if sums:
+        out = torch.empty((jobs, cells + 1), dtype=torch.float64, device=X.device)
+        pointers = (None, out.data_ptr())
+    else:
+        out = torch.empty((jobs, cells), dtype=torch.float32, device=X.device)
+        pointers = (out.data_ptr(), None)
     kernels.launch(
-        "logistic_loss_grad", "lo_logistic_loss_grad",
+        "logistic_loss_grad_sums" if sums else "logistic_loss_grad", "lo_logistic_loss_grad",
         X.data_ptr(), int(x_bf16), y.data_ptr(), weights.data_ptr() if weighted else None,
-        W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        W.data_ptr(), b.data_ptr(), partials.data_ptr(), *pointers,
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
         chunks, per_chunk, ctypes.addressof(layout),
@@ -367,10 +396,11 @@ def _launch_loss_grad(W, b, X, y, weights, jobs: int):
     return out
 
 
-def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
+def _launch_trial_losses(W4, b4, X, y, weights, jobs: int, sums: bool = False):
     """K7's trial-loss launch over ``jobs`` jobs: ``W4 (J, 4, F, C)``,
     ``b4 (J, 4, C)``, the rest as :func:`_launch_loss_grad`. Returns the
-    ``(J, 4)`` float32 data losses."""
+    ``(J, 4)`` float32 data losses; the sums form (``sums``, weighted) the
+    ``(J, 5)`` float64 sums ``[sum w nll at each point | sum w]``."""
     kernels.check_operands(*(t for t in (X, y, weights, W4, b4) if t is not None))
     rows, num_features = X.shape[-2:]
     num_classes = W4.shape[-1]
@@ -383,11 +413,17 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
         (jobs, max(chunks, 1), _BACKTRACK_STEPS + int(weighted)),
         dtype=torch.float64, device=X.device,
     )
-    out = torch.empty((jobs, _BACKTRACK_STEPS), dtype=torch.float32, device=X.device)
+    if sums:
+        out = torch.empty((jobs, _BACKTRACK_STEPS + 1), dtype=torch.float64, device=X.device)
+        pointers = (None, out.data_ptr())
+    else:
+        out = torch.empty((jobs, _BACKTRACK_STEPS), dtype=torch.float32, device=X.device)
+        pointers = (out.data_ptr(), None)
     kernels.launch(
-        "logistic_trial_losses", "lo_logistic_trial_losses",
+        "logistic_trial_losses_sums" if sums else "logistic_trial_losses",
+        "lo_logistic_trial_losses",
         X.data_ptr(), int(x_bf16), y.data_ptr(), weights.data_ptr() if weighted else None,
-        W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        W4.data_ptr(), b4.data_ptr(), partials.data_ptr(), *pointers,
         rows, num_features, num_classes, jobs,
         rows * num_features if X.dim() == 3 else 0, rows if y.dim() == 2 else 0,
         chunks, per_chunk, ctypes.addressof(layout),
@@ -396,25 +432,67 @@ def _launch_trial_losses(W4, b4, X, y, weights, jobs: int):
     return out
 
 
-def loss_and_grad(W, b, X, y, l2: float):
-    """``(value, dW, db)`` of the loss at ``(W, b)`` (K7)."""
+def _check_block_weights(X, weights, mesh):
+    if mesh is None:
+        if weights is not None:
+            raise ValueError("row weights go with a mesh: the solo fit weighs every row 1")
+        return
+    if (
+        not isinstance(weights, torch.Tensor) or weights.dtype != torch.float32
+        or tuple(weights.shape) != (X.shape[0],) or weights.device != X.device
+    ):
+        raise TypeError("weights must be float32, one a row of X, on X's device")
+
+
+def _global_means(sums, mesh):
+    """Every data rank's float64 sums (the weights' last) added in rank
+    order, over the global sum of the weights, rounded once to float32."""
+    from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+    total = all_sum(sums, mesh)
+    return (total[:-1] / total[-1]).to(torch.float32)
+
+
+def loss_and_grad(W, b, X, y, l2: float, weights=None, mesh=None):
+    """``(value, dW, db)`` of the loss at ``(W, b)`` (K7). On a ``mesh``,
+    X, y and the row ``weights`` are this rank's block of rows sharded over
+    its data axis, and the data term is the reference's ``sum w nll / sum
+    w`` over every rank's rows: K7's sums form, gathered and added in rank
+    order, so that every rank holds the same bits."""
     _check_operands(X, y, W, b)
-    if X.device.type == "cpu":
-        return _loss_fn(W, b, X, y, l2)
+    _check_block_weights(X, weights, mesh)
     num_features, num_classes = W.shape
-    out = _launch_loss_grad(W, b, X, y, None, 1)[0]
+    if mesh is not None:
+        if X.device.type == "cpu":
+            sums = _weighted_sums(W, b, X, y, weights)
+        else:
+            sums = _launch_loss_grad(W, b, X, y, weights, 1, sums=True)[0]
+        out = _global_means(sums, mesh)
+    elif X.device.type == "cpu":
+        return _loss_fn(W, b, X, y, l2)
+    else:
+        out = _launch_loss_grad(W, b, X, y, None, 1)[0]
     dW = out[: num_features * num_classes].view(num_features, num_classes)
     db = out[num_features * num_classes : -1]
     return out[-1] + _l2_term(W, l2), dW + l2 * W, db
 
 
-def trial_losses(W4, b4, X, y, l2: float):
+def trial_losses(W4, b4, X, y, l2: float, weights=None, mesh=None):
     """``(4,)`` losses at the Armijo trial points ``W4 (4, F, C)``,
-    ``b4 (4, C)`` (K7, one read of X for all four)."""
+    ``b4 (4, C)`` (K7, one read of X for all four); on a ``mesh`` over
+    every rank's rows, as :func:`loss_and_grad`."""
     _check_operands(X, y, W4, b4, leading=(_BACKTRACK_STEPS,))
-    if X.device.type == "cpu":
+    _check_block_weights(X, weights, mesh)
+    if mesh is not None:
+        if X.device.type == "cpu":
+            sums = _weighted_trial_sums(W4, b4, X, y, weights)
+        else:
+            sums = _launch_trial_losses(W4, b4, X, y, weights, 1, sums=True)[0]
+        out = _global_means(sums, mesh)
+    elif X.device.type == "cpu":
         return _trial_losses(W4, b4, X, y, l2)
-    out = _launch_trial_losses(W4, b4, X, y, None, 1)[0]
+    else:
+        out = _launch_trial_losses(W4, b4, X, y, None, 1)[0]
     return out + 0.5 * l2 * (W4 * W4).sum(dim=(1, 2))
 
 
@@ -434,27 +512,45 @@ def _weighted_mean(values, total):
     return (values.to(torch.float64).sum(dim=0) / total).to(torch.float32)
 
 
-def _weighted_terms(W, b, X, y, weights):
-    """One job's ``(data loss, dW, db)``: the nll and the residuals
-    ``P - onehot(y)`` weighted row by row (a float32 product), summed in
-    float64 and divided by the float64 sum of the weights, each rounded
-    once to float32 (the reference's ``(nll * mask).sum() / mask.sum()``
-    and its gradient). ``weights=None`` weighs every row 1. No rows give
-    a NaN loss and a gradient of 0, as ``jax.grad`` of the reference does;
-    rows whose weights are all 0 give NaN for all three, as it does too
-    (0 / 0 in the loss, and in the gradient the rows' cotangents of
-    ``mask / mask.sum()``)."""
+def _weighted_parts(W, b, X, y, weights):
+    """One job's float64 sums over its rows: ``(sum w nll, X^T (w (P -
+    onehot(y))), sum w (P - onehot(y)), sum w)``, the nll and the residuals
+    weighted row by row (a float32 product). ``weights=None`` weighs every
+    row 1 (and the last is the row count)."""
     nll, shifted, log_sum = _row_terms(X, y, W, b)
     residual = torch.exp(shifted - log_sum[:, None])
     residual = residual - torch.nn.functional.one_hot(y.long(), W.shape[1]).to(residual.dtype)
     if weights is not None:
         nll, residual = nll * weights, residual * weights[:, None]
-    total = _weight_total(X, weights)
-    dW = (torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)) / total).to(torch.float32)
-    db = _weighted_mean(residual, total)
+    return (
+        nll.to(torch.float64).sum(dim=0),
+        torch.matmul(X.to(torch.float64).T, residual.to(torch.float64)),
+        residual.to(torch.float64).sum(dim=0),
+        _weight_total(X, weights),
+    )
+
+
+def _weighted_terms(W, b, X, y, weights):
+    """One job's ``(data loss, dW, db)``: :func:`_weighted_parts` divided
+    by the float64 sum of the weights, each rounded once to float32 (the
+    reference's ``(nll * mask).sum() / mask.sum()`` and its gradient). No
+    rows give a NaN loss and a gradient of 0, as ``jax.grad`` of the
+    reference does; rows whose weights are all 0 give NaN for all three,
+    as it does too (0 / 0 in the loss, and in the gradient the rows'
+    cotangents of ``mask / mask.sum()``)."""
+    loss, dW, db, total = _weighted_parts(W, b, X, y, weights)
+    dW, db = (dW / total).to(torch.float32), (db / total).to(torch.float32)
     if X.shape[0] == 0:
         dW, db = torch.zeros_like(dW), torch.zeros_like(db)
-    return _weighted_mean(nll, total), dW, db
+    return (loss / total).to(torch.float32), dW, db
+
+
+def _weighted_sums(W, b, X, y, weights):
+    """The plain twin of K7's sums form: a rank's block's un-divided
+    float64 sums ``[sum w dW | sum w db | sum w nll | sum w]``, the parts
+    of :func:`_weighted_terms`."""
+    loss, dW, db, total = _weighted_parts(W, b, X, y, weights)
+    return torch.cat([dW.reshape(-1), db, loss[None], total[None]])
 
 
 def _weighted_data_loss(W, b, X, y, weights):
@@ -463,6 +559,14 @@ def _weighted_data_loss(W, b, X, y, weights):
     if weights is not None:
         nll = nll * weights
     return _weighted_mean(nll, _weight_total(X, weights))
+
+
+def _weighted_trial_sums(W4, b4, X, y, weights):
+    """The plain twin of the trial losses' sums form: ``[sum w nll at each
+    point | sum w]``, float64."""
+    sums = [(_row_terms(X, y, W4[k], b4[k])[0] * weights).to(torch.float64).sum(dim=0)
+            for k in range(W4.shape[0])]
+    return torch.stack(sums + [_weight_total(X, weights)])
 
 
 def _job_rows(X, y, weights, job: int):
@@ -633,13 +737,18 @@ def _first_accepted(steps, ok, floor: float):
     return torch.where(ok.any(), (steps * first).sum(), floor)
 
 
-def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float):
+def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float, weights=None, mesh=None):
     """``iters`` L-BFGS iterations, optimizer state in and out: the
     reference's segment (seed pass, descent safeguard, Armijo choice, ring
     writes gated by ``s.y > 1e-10``). Returns ``(W, b, state, losses)``,
-    the losses the ``(iters,)`` pre-step values, all on the device."""
+    the losses the ``(iters,)`` pre-step values, all on the device. On a
+    ``mesh`` the passes run over every rank's rows (:func:`loss_and_grad`),
+    so that every rank takes the same steps."""
     x = {"w": W, "b": b}
-    value, dW, db = loss_and_grad(W, b, X, y, l2)
+    # the solo call keeps the wrappers' five arguments (a plain-version
+    # context swaps in the twins, which take those alone)
+    over_ranks = () if mesh is None else (weights, mesh)
+    value, dW, db = loss_and_grad(W, b, X, y, l2, *over_ranks)
     state = {**state, "value": value, "grad": {"w": dW, "b": db}}
     # the trial steps 1, 1/2, 1/4, 1/8, made on the device (a copy from the
     # host would wait for the stream)
@@ -660,11 +769,11 @@ def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float):
         trial = trial_losses(
             x["w"][None] + steps[:, None, None] * direction["w"][None],
             x["b"][None] + steps[:, None] * direction["b"][None],
-            X, y, l2,
+            X, y, l2, *over_ranks,
         )
         ok = trial <= value + _ARMIJO_C1 * steps * slope
         x_new = _tree_axpy(_first_accepted(steps, ok, floor), direction, x)
-        value_new, dW, db = loss_and_grad(x_new["w"], x_new["b"], X, y, l2)
+        value_new, dW, db = loss_and_grad(x_new["w"], x_new["b"], X, y, l2, *over_ranks)
         grad_new = {"w": dW, "b": db}
 
         # curvature pair; skipped when s.y is not positive
@@ -726,7 +835,7 @@ def _segment_iters(max_iter: int, rows: int, features: int, tol: float) -> int:
     return iters
 
 
-def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
+def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=None, mesh=None):
     """L-BFGS in segments of ``iters`` iterations (the reference's
     ``segment_steps`` over ``_LR_ROW_ITERS_BUDGET``, capped at
     ``_LR_CHECK_ITERS`` for the convergence check), stopping at the top
@@ -742,10 +851,18 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
     artifact must match this call's segmentation (``iters``,
     ``max_iter``, ``l2``) and every leaf's shape and dtype; anything else
     restarts the fit clean. Each segment re-seeds ``value`` and ``grad``
-    at entry, so a resumed fit is bit-identical to an uninterrupted one."""
+    at entry, so a resumed fit is bit-identical to an uninterrupted one.
+
+    On a ``mesh`` (X, y and the row ``weights`` this rank's block, the
+    reference's sharded ``_fit`` with the mask as weights): the segments
+    are cut from the global padded rows, as the reference's, and every
+    rank holds the same values, steps and losses, so the plateau check
+    stops every rank at the same segment (a stop decided from one rank's
+    own values would leave the others in their next collective)."""
     if max_iter <= 0:  # MLlib allows maxIter=0: the initial model
         return W, b, W.new_zeros(0)
-    iters = _segment_iters(max_iter, X.shape[0], X.shape[1], tol)
+    rows = X.shape[0] * (mesh.shape["data"] if mesh is not None else 1)
+    iters = _segment_iters(max_iter, rows, X.shape[1], tol)
     state = _lbfgs_state(W, b)
     losses = []
     # trailing pre-step losses across segment boundaries (the resume key's
@@ -781,7 +898,7 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL):
         # already converged stops where the uninterrupted one did
         if tol > 0 and _plateaued(history, tol, window):
             break
-        W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2)
+        W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2, weights, mesh)
         losses.append(segment_losses)
         if tol > 0:
             history.extend(float(v) for v in segment_losses.cpu().numpy())
@@ -813,6 +930,113 @@ def _standardized(X, mean, scale) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# K8′: the masked scaler and the standardization of a rank's block of rows
+# --------------------------------------------------------------------------
+
+def _check_block(X, w, *params):
+    if not isinstance(X, torch.Tensor) or X.dim() != 2:
+        raise TypeError("X must be a 2-D tensor of a block's rows")
+    if X.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the masked scaler takes float32 rows; bfloat16 rows under LO_DTYPE_POLICY=bf16 "
+            "are ROADMAP Queue 1 item 6e (K8′ under bf16)"
+        )
+    if X.dtype != torch.float32:
+        raise TypeError("X must be float32")
+    if w.dtype != torch.float32 or tuple(w.shape) != (X.shape[0],):
+        raise TypeError("w must be float32, one weight a row of X")
+    for tensor in (w, *params):
+        if tensor.device != X.device:
+            raise ValueError(f"operands on {tensor.device} and {X.device}")
+
+
+def _masked_col_sums(X, w, mean=None):
+    """The plain twin of :func:`masked_col_sums`: ``[sum w x_f ... | sum
+    w]``, or about ``mean`` ``[sum w (x_f - mean_f)^2 ... | sum w]``, in
+    float64 (the same products; the adds in torch's order)."""
+    wd = w.to(torch.float64)
+    if mean is None:
+        terms = X.to(torch.float64) * wd[:, None]
+    else:
+        centred = X.to(torch.float64) - mean
+        terms = centred * centred * wd[:, None]
+    return torch.cat([terms.sum(dim=0), wd.sum()[None]])
+
+
+def masked_col_sums(X, w, mean=None):
+    """A block's float64 column sums weighted by its rows' ``w``, and the
+    sum of ``w``: ``(F + 1,)``. Pass 1 (``mean=None``) sums ``w x``; the
+    centred pass sums ``w (x - mean)^2`` about the float64 ``mean``. On a
+    CUDA tensor the kernel (``kernels/csrc/scaler.cu``) adds in a fixed
+    order: its chunks' sums in chunk order (``kernels.row_chunks``)."""
+    _check_block(X, w, *(() if mean is None else (mean,)))
+    if mean is not None and (mean.dtype != torch.float64 or tuple(mean.shape) != (X.shape[1],)):
+        raise TypeError("mean must be float64, one a feature")
+    if X.device.type == "cpu":
+        return _masked_col_sums(X, w, mean)
+    kernels.check_operands(X, w, *(() if mean is None else (mean,)))
+    rows, num_features = X.shape
+    chunks, per_chunk = kernels.row_chunks(rows)
+    partials = torch.empty((max(chunks, 1), num_features + 1), dtype=torch.float64, device=X.device)
+    out = torch.empty(num_features + 1, dtype=torch.float64, device=X.device)
+    kernels.launch(
+        "masked_col_sums" if mean is None else "masked_col_sums_centred", "lo_masked_col_sums",
+        X.data_ptr(), w.data_ptr(), None if mean is None else mean.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), rows, num_features, chunks, per_chunk,
+        X.device.index, _stream(X),
+    )
+    return out
+
+
+def masked_stats(X, w, mesh=None):
+    """The mean and scale of each feature over the rows of every data rank
+    (reference ``_masked_stats``, :412): two passes of
+    :func:`masked_col_sums`, each rank's sums gathered and added in rank
+    order in float64; the float64 mean, the variance about it, ``std =
+    sqrt(var)``, each rounded once to float32, a std of 0 pinned to 1.
+    Returns ``(mean, scale)``, float32, the same bits on every rank. Two
+    passes, as the reference: ``E[x^2] - mean^2`` cancels on features with
+    large means. ``mesh=None``: this block's rows alone."""
+    from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+    def across(sums):
+        return sums if mesh is None else all_sum(sums, mesh)
+
+    first = across(masked_col_sums(X, w))
+    total = first[-1]
+    mean = first[:-1] / total
+    second = across(masked_col_sums(X, w, mean))
+    std = torch.sqrt(second[:-1] / total).to(torch.float32)
+    return mean.to(torch.float32), torch.where(std > 0, std, torch.ones_like(std))
+
+
+def _standardize(X, mean, scale, w):
+    """The plain twin of :func:`standardize` (reference :426, exactly)."""
+    return ((X - mean) / scale) * w[:, None]
+
+
+def standardize(X, mean, scale, w):
+    """``((X - mean) / scale) * w`` in float32, row by row: a block's rows
+    standardized, its padded rows (w = 0) zeroed. On a CUDA tensor the
+    kernel (``kernels/csrc/scaler.cu``) rounds each operation on its own,
+    so its output is bit-equal to the plain twin's."""
+    _check_block(X, w, mean, scale)
+    for name, value in (("mean", mean), ("scale", scale)):
+        if value.dtype != torch.float32 or tuple(value.shape) != (X.shape[1],):
+            raise TypeError(f"{name} must be float32, one a feature")
+    if X.device.type == "cpu":
+        return _standardize(X, mean, scale, w)
+    kernels.check_operands(X, mean, scale, w)
+    out = torch.empty_like(X)
+    kernels.launch(
+        "masked_standardize", "lo_masked_standardize",
+        X.data_ptr(), mean.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(),
+        X.shape[0], X.shape[1], kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
 # Prediction and the estimator
 # --------------------------------------------------------------------------
 
@@ -824,12 +1048,17 @@ def _forward(X, w, b, mean, scale):
 
 
 class LogisticRegressionModel(FittedModel):
-    def __init__(self, w, b, mean, scale):
+    """``mesh``: the mesh it was fitted on; over a data axis of several
+    ranks, its predictions and metrics run on each rank's block of rows
+    (``ml/base.FittedModel``). The parameters are the same on every rank."""
+
+    def __init__(self, w, b, mean, scale, mesh=None):
         self.w = w            # (F, C)
         self.b = b            # (C,)
         self.mean = mean      # (F,)
         self.scale = scale    # (F,)
         self.device = w.device
+        self.mesh = mesh
 
     def _forward(self, X):
         return _forward(X, self.w, self.b, self.mean, self.scale)
@@ -837,7 +1066,12 @@ class LogisticRegressionModel(FittedModel):
 
 class LogisticRegression:
     """MLlib's defaults: ``maxIter=100``, ``regParam=0.0``, ``tol=1e-6``,
-    fit-intercept, internal standardization."""
+    fit-intercept, internal standardization.
+
+    ``mesh``: the ranks to fit over (``parallel/mesh.py``), by default
+    every rank of the process group, as the reference's ``resolve_mesh``:
+    in one process a 1×1 mesh on ``device``, and the single-device fit.
+    ``loss_history_``: the last fit's losses, on the device."""
 
     def __init__(
         self,
@@ -845,23 +1079,60 @@ class LogisticRegression:
         reg_param: float = 0.0,
         tol: float = _LR_TOL,
         device: DeviceLike = None,
+        mesh=None,
     ):
+        from learningorchestra_tpu_torch.parallel.mesh import default_mesh
+
         self.max_iter = max_iter
         self.reg_param = reg_param
         self.tol = tol
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else default_mesh(device)
+        self.device = self.mesh.device
+        self.loss_history_ = None
 
     def fit(self, X, y) -> LogisticRegressionModel:
+        """Every rank passes the full rows (the reference's SPMD call); over
+        several data ranks each fits on its block of the padded rows, the
+        mask as row weights."""
+        from learningorchestra_tpu_torch.parallel.sharding import shard_rows
+
         num_classes = infer_num_classes(y)
         mean, scale = scaler_stats(X)
+        mean32 = torch.from_numpy(mean.astype(np.float32)).to(self.device)
+        scale32 = torch.from_numpy(scale.astype(np.float32)).to(self.device)
+        if self.mesh.shape["data"] > 1:
+            # the standardized rows in the policy's type (reference :476-479)
+            X_dev, mask = shard_rows(_standardized(X, mean, scale), self.mesh, dtype=np.float32)
+            y_dev, _ = shard_rows(np.asarray(y), self.mesh, dtype=np.int32)
+            return self._fit_prepared(X_dev, y_dev, mask, num_classes, mean32, scale32)
         # the standardized rows in the policy's type (reference :476-478)
         X_dev = shard_matrix(_standardized(X, mean, scale), self.device)
         y_dev = torch.from_numpy(np.asarray(y, dtype=np.int32)).to(self.device)
         W = torch.zeros((X_dev.shape[1], num_classes), dtype=torch.float32, device=self.device)
         b = torch.zeros(num_classes, dtype=torch.float32, device=self.device)
-        W, b, _ = _fit(W, b, X_dev, y_dev, self.max_iter, float(self.reg_param), self.tol)
-        return LogisticRegressionModel(
-            W, b,
-            torch.from_numpy(mean.astype(np.float32)).to(self.device),
-            torch.from_numpy(scale.astype(np.float32)).to(self.device),
+        W, b, self.loss_history_ = _fit(
+            W, b, X_dev, y_dev, self.max_iter, float(self.reg_param), self.tol)
+        return LogisticRegressionModel(W, b, mean32, scale32)
+
+    def fit_sharded(self, X_dev, y_dev, mask, num_classes: int) -> LogisticRegressionModel:
+        """Fit from this rank's block of rows (reference :489): pair with
+        ``parallel.shard_rows_local``, so that each rank loads only its
+        ``host_row_range`` rows and no process holds the full matrix. The
+        standardization runs on the device from the blocks (K8′:
+        :func:`masked_stats`, :func:`standardize`); ``num_classes`` must be
+        given, since no rank sees every label."""
+        weights = mask.to(torch.float32)
+        mean, scale = masked_stats(X_dev, weights, self.mesh)
+        X_std = standardize(X_dev, mean, scale, weights)
+        return self._fit_prepared(X_std, y_dev.to(torch.int32), mask, num_classes, mean, scale)
+
+    def _fit_prepared(self, X_dev, y_dev, mask, num_classes, mean, scale) -> LogisticRegressionModel:
+        """The data-parallel fit of a block: the mask as row weights (the
+        reference's sharded ``_fit``, :551)."""
+        W = torch.zeros((X_dev.shape[1], num_classes), dtype=torch.float32, device=self.device)
+        b = torch.zeros(num_classes, dtype=torch.float32, device=self.device)
+        W, b, self.loss_history_ = _fit(
+            W, b, X_dev, y_dev, self.max_iter, float(self.reg_param), self.tol,
+            weights=mask.to(torch.float32), mesh=self.mesh,
         )
+        return LogisticRegressionModel(W, b, mean, scale, mesh=self.mesh)

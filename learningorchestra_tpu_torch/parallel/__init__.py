@@ -1,5 +1,36 @@
-"""Row padding shared by the batched fits (and, later, the multi-GPU fits).
+"""Parallelism: the ``(data, model)`` mesh of ranks, row blocks, several processes.
 
-Counterpart of ``learningorchestra_tpu/parallel/``: so far only
-``sharding.padded_row_count`` and ``sharding.pad_rows``.
+Counterpart of ``learningorchestra_tpu/parallel/``: rows of a dataset go
+in blocks over the ``data`` axis of ``torch.distributed`` ranks (one
+process a rank), the way the reference shards them over a JAX mesh, and
+the sums that cross blocks are gathered and added in rank order. The
+reference's ``NamedSharding`` helpers (``row_sharded``, ``replicated``)
+have no counterpart: a rank holds its block (:func:`shard_rows`) or a
+replicated tensor (:func:`put_replicated`). ``spmd.py`` (the multi-host
+dispatcher) and the model axis are ROADMAP Queue 1 items 6d and 6c.
 """
+
+from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    data_size,
+    default_mesh,
+    make_mesh,
+    model_size,
+)
+from learningorchestra_tpu_torch.parallel.sharding import (  # noqa: F401
+    bucket_rows,
+    pad_rows,
+    padded_row_count,
+    policy_dtype,
+    put_replicated,
+    shard_rows,
+)
+from learningorchestra_tpu_torch.parallel.multihost import (  # noqa: F401
+    all_sum,
+    fetch,
+    host_row_range,
+    initialize_from_env,
+    shard_rows_local,
+)
