@@ -4,8 +4,9 @@ builder (``POST /models``), its whole service stack (crash resume, the
 data services, ``POST /models/sweep``, the runner's kill -9 drill), its
 batch predictions lane with the device cache, the stack over the
 networked store (a replicated pair of store servers, failover), the
-``bf16`` feature policy, and the lr fit over ranks (``fit_sharded``: rows
-sharded over ``torch.distributed`` processes) on one CUDA card.
+``bf16`` feature policy, the lr fit over ranks (``fit_sharded``: rows
+sharded over ``torch.distributed`` processes), and one process a service
+with the observability plane, on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -17,6 +18,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py batch bf16       # the batch lane; LO_DTYPE_POLICY=bf16 in a child
     python3 chip_smoke.py store            # the stack over a primary and a follower store server
     python3 chip_smoke.py multigpu         # K8′, K7's sums form, fit_sharded over ranks
+    python3 chip_smoke.py services         # a store server and seven LO_SERVICE runners
 
 Phases, one JSON line each:
 
@@ -297,6 +299,25 @@ Phases, one JSON line each:
                  launched by every rank. One record line a run (backend,
                  ranks, cards, ranks a card, walls, host seconds in
                  collectives, launches a rank).
+
+14. services   — a store server and seven runner processes, one a service
+                 (``LO_SERVICE``, ``LO_PORT``), each on the card, every
+                 collector ticking each second, ``LO_PLANE_MEMBERS`` naming
+                 all seven. Under one ``X-Correlation-Id``: the Titanic
+                 walkthrough, the product collections, an async
+                 five-classifier build and a PCA image, held bit for
+                 bit to an in-process twin over the same store (labels,
+                 probabilities, metrics, the PNG); K1-K7 and K6 launched
+                 in model_builder's process (its
+                 ``lo_kernel_launches_total`` over the build) and in the
+                 twin's; model_builder's ``/metrics`` (a compile event
+                 a kernel library, the h2d bytes the twin's
+                 ``h2d_bytes()`` counts, its d2h bytes, wire reads); the
+                 build's Chrome trace and summary; the stitched trace's
+                 process rows; a 2 s sampled profile during a build;
+                 ``/metrics/history``; every SLO rule ok. One record line:
+                 each child's boot s, the walls, the build with and
+                 without a profile window over it (two each).
 
 Then the ``kernels`` summary line (the bf16 forms as ``<kernel>:bf16``
 rows), the card's ``nvidia-smi`` name and power
@@ -1018,17 +1039,19 @@ def _linear_forward_times(torch) -> dict:
 
 
 class _Client:
-    """JSON over HTTP to the local server, never through a proxy."""
+    """JSON over HTTP to the local server, never through a proxy; every
+    request carries ``headers`` (a correlation ID, say)."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, headers: "dict | None" = None):
         self.base = f"http://127.0.0.1:{port}"
         self.opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        self.headers = dict(headers or {})
 
     def call(self, method: str, path: str, payload=None) -> tuple[int, dict]:
         data = None if payload is None else json.dumps(payload).encode()
         request = urllib.request.Request(
             self.base + path, data=data, method=method,
-            headers={"Content-Type": "application/json"},
+            headers={"Content-Type": "application/json", **self.headers},
         )
         try:
             with self.opener.open(request, timeout=120) as response:
@@ -6339,6 +6362,342 @@ def phase_multigpu(torch, card: str) -> list:
     return entries
 
 
+# --------------------------------------------------------------------------
+# One process per service: the seven runners over a store server, and the
+# observability plane
+# --------------------------------------------------------------------------
+
+SERVICE_NAMES = ("database_api", "projection", "model_builder", "data_type_handler", "histogram", "tsne", "pca")
+SERVICE_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.services.runner"]
+SERVICES_CHILD_DEVICE = "cuda:0"   # what every child's boot line must name
+SERVICES_DEVICE = None             # the in-process twin's device: the card
+SERVICES_BOOT_TIMEOUT_S = 300
+SERVICES_CID = "chip-smoke-services"
+SERVICES_METRICS_INTERVAL_S = "1"
+SERVICES_PROFILE_S = 2             # the window sampled during a build
+ML_MODULES = ("builder", "base", "trees", "binning", "logistic", "naive_bayes", "evaluation", "progress")
+
+
+def _build_libraries() -> list:
+    """The kernel libraries the build's kernels live in: a process that
+    builds loads each once (one ``lo_compile_events_total`` event each)."""
+    return sorted({kernels.KERNEL_LIBRARIES[name] for name in BUILD_KERNELS if name in kernels.KERNEL_LIBRARIES})
+
+
+class _ServiceChild(_LoggedChild):
+    """One runner serving one service (``LO_SERVICE``) over the store
+    server, on the port picked for it."""
+
+    def __init__(self, folder: str, name: str, port: int, env: dict):
+        self.name, self.port = name, port
+        self.spawned = time.perf_counter()
+        super().__init__(SERVICE_COMMAND, {**env, "LO_SERVICE": name, "LO_PORT": str(port)},
+                         os.path.join(folder, f"{name}.log"))
+
+    def serving(self) -> bool:
+        """Whether the ``service <name> on`` line is out; raises when the
+        child died first or its boot lines name another device."""
+        lines = self.lines()
+        if not any(f"service {self.name} on 127.0.0.1:{self.port}" in line for line in lines):
+            if self.process.poll() is not None:
+                raise AssertionError(f"service {self.name} never served:\n" + "\n".join(lines[-40:]))
+            return False
+        if not any(f"device={SERVICES_CHILD_DEVICE}" in line for line in lines):
+            raise AssertionError(f"{self.name} did not boot on {SERVICES_CHILD_DEVICE}:\n" + "\n".join(lines))
+        return True
+
+
+def _boot_seconds(children: list) -> dict:
+    """Each child's seconds from its spawn to its ``service <name> on``
+    line, all of them watched together."""
+    boot_s: dict = {}
+    deadline = time.time() + SERVICES_BOOT_TIMEOUT_S
+    while len(boot_s) < len(children):
+        for child in children:
+            if child.name not in boot_s and child.serving():
+                boot_s[child.name] = time.perf_counter() - child.spawned
+        if time.time() > deadline:
+            raise AssertionError(f"services: only {sorted(boot_s)} served within {SERVICES_BOOT_TIMEOUT_S} s")
+        time.sleep(0.02)
+    return boot_s
+
+
+def _metrics_text(client) -> str:
+    with client.opener.open(client.base + "/metrics", timeout=60) as response:
+        return response.read().decode()
+
+
+def _labelled_total(text: str, name: str, label: str) -> float:
+    """The sum of ``name``'s samples whose labels hold ``label``."""
+    return sum(
+        float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+        if line.startswith(name + "{") and label in line
+    )
+
+
+def _flows(text: str) -> dict:
+    return {
+        "h2d": _metric_total(text, "lo_h2d_bytes_total"),
+        "d2h": _metric_total(text, "lo_d2h_bytes_total"),
+        "wire_read": _labelled_total(text, "lo_wire_bytes_total", 'direction="read"'),
+        # a labelled family shows no sample before its first event
+        "compile_events": _labelled_total(text, "lo_compile_events_total", 'source="'),
+        "compile_hits": _labelled_total(text, "lo_compile_events_total", 'result="hit"'),
+    }
+
+
+def _served_launches(before: str, after: str) -> dict:
+    """Each build kernel's ``lo_kernel_launches_total`` samples added
+    between two ``/metrics`` texts of one process: the launches its own
+    requests made (a family that is not there yet counts 0)."""
+    def samples(text):
+        return {
+            name: _labelled_total(text, "lo_kernel_launches_total", f'kernel="{name}"') for name in BUILD_KERNELS
+        }
+
+    earlier, later = samples(before), samples(after)
+    return {name: int(later[name] - earlier[name]) for name in BUILD_KERNELS}
+
+
+def _held_bitwise(what: str, outputs: dict, twin: dict) -> dict:
+    """Two builds that ran the same kernels on the same inputs: every
+    label, probability and metric equal bit for bit."""
+    for name in MODEL_NAMES:
+        for field in ("labels", "probability", "metrics"):
+            got, want = outputs[name][field], twin[name][field]
+            if got.shape != want.shape or got.tobytes() != want.tobytes():
+                differing = int((got != want).sum()) if got.shape == want.shape else got.shape
+                raise AssertionError(f"{what} {name}: {field} differs from the twin's ({differing})")
+    return {name: "bit-equal" for name in MODEL_NAMES}
+
+
+def _profiled(client, seconds: float, work):
+    """``work()`` under a ``GET /debug/profile?seconds=<seconds>&format=json``
+    started just before it on another thread; ``(work's result, the
+    profile's status and body)``."""
+    answer = {}
+
+    def sample():
+        answer["status"], answer["body"] = client.call("GET", f"/debug/profile?seconds={seconds}&format=json")
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    time.sleep(0.05)   # the window opens before the work starts
+    try:
+        result = work()
+    finally:
+        sampler.join()
+    return result, answer["status"], answer["body"]
+
+
+def _services_titanic(clients: dict, walls: dict) -> None:
+    """The documented walkthrough over HTTP, each step on its service's
+    process: ingest, projection, field types, a histogram."""
+    files = clients["database_api"]
+    for name in ("titanic_train", "titanic_test"):
+        _ingest_over_rest(files, walls, name, os.path.join(ROOT, "tests", "data", f"{name}.csv"))
+        fields = [field for field in TITANIC_FIELDS if name == "titanic_train" or field != "Survived"]
+        _timed(walls, f"POST /projections {name}", clients["projection"], "POST", f"/projections/{name}",
+               {"projection_filename": f"{name}_projection", "fields": fields}, expect=(201,))
+        types = {**TITANIC_TYPES, **({"Survived": "number"} if name == "titanic_train" else {})}
+        _timed(walls, f"PATCH /fieldtypes {name}", clients["data_type_handler"], "PATCH",
+               f"/fieldtypes/{name}_projection", types, expect=(200,))
+    _timed(walls, "POST /histograms", clients["histogram"], "POST", "/histograms/titanic_train_projection",
+           {"histogram_filename": "titanic_histogram", "fields": ["Sex", "Pclass"]}, expect=(201,))
+    status, page = files.call("GET", "/files/titanic_histogram?skip=0&limit=2&query={}")
+    counts = [doc for doc in page.get("result", []) if "Sex" in doc]
+    if status != 200 or not counts or sum(entry["count"] for entry in counts[0]["Sex"]) != 891:
+        raise AssertionError(f"services: the Sex histogram answered {status} {page}")
+
+
+def _pca_png(client, output: str) -> bytes:
+    _timed({}, "pca", client, "POST", "/images/bench_train",
+           {"pca_filename": output, "label_name": "label"}, expect=(201,))
+    with client.opener.open(client.base + f"/images/{output}", timeout=60) as response:
+        return response.read()
+
+
+def phase_services(torch, card: str) -> dict:
+    """The reference's deployment on the card: a store server and seven
+    runners, one a service (``LO_SERVICE``, ``LO_PORT``), each on the
+    card (its boot line names ``cuda:0``), their collectors ticking every
+    second and ``LO_PLANE_MEMBERS`` naming all seven. Over HTTP, under
+    one ``X-Correlation-Id``: the Titanic walkthrough, the product
+    collections (written by this script), an async five-classifier build
+    on model_builder's process and a PCA image on pca's. Held: the
+    build's labels, probabilities and metrics and the PCA image bit for
+    bit against an in-process twin on the card over the same store;
+    K1-K7 and K6 launched by model_builder's process over the build (its
+    ``lo_kernel_launches_total`` delta, the phase's ``launches``) and by
+    the twin (``twin_launches``); model_builder's ``/metrics`` (a
+    compile event a kernel library, the host-to-device bytes the twin's ``h2d_bytes()`` counts,
+    the device-to-host bytes the twin's flight recorder counts, wire
+    reads); the build's Chrome trace (its h2d total, a ``phase:fit`` a
+    classifier) and summary; one stitched trace with a process row for
+    every service called; a sampled profile during a build whose stacks
+    pass through the port's ``ml/``; ``/metrics/history`` with a series
+    a service; every SLO rule ok and ``/health`` not degraded. Printed:
+    each child's boot seconds, the build's wall beside the twin's, and
+    the build's wall with and without a profile window over it."""
+    from learningorchestra_tpu_torch.core import devcache
+    from learningorchestra_tpu_torch.core.store_service import connect
+    from learningorchestra_tpu_torch.ml import base
+    from learningorchestra_tpu_torch.services import images
+    from learningorchestra_tpu_torch.telemetry import profile
+
+    started = time.perf_counter()
+    walls: dict = {}
+    headers = {"X-Correlation-Id": SERVICES_CID}
+    with tempfile.TemporaryDirectory() as folder:
+        store_port = _free_port()
+        store_server = _StoreServer(folder, "services_store", store_port, {})
+        children: list = []
+        try:
+            store_server.wait_serving()
+            walls["store server boot"] = time.perf_counter() - started
+            ports = {name: _free_port() for name in SERVICE_NAMES}
+            members = ",".join(f"http://127.0.0.1:{port}" for port in ports.values())
+            env = {
+                **os.environ, "LO_STORE_URL": store_server.url, "LO_PLANE_MEMBERS": members,
+                "LO_METRICS_INTERVAL_S": SERVICES_METRICS_INTERVAL_S,
+                "LO_MODELS_DIR": os.path.join(folder, "models"), "LO_IMAGES_DIR": os.path.join(folder, "images"),
+                "LO_DATA_DIR": os.path.join(folder, "lo_data"),
+            }
+            for name in ("LO_SERVICE", "LO_PORT", "LO_FAULT_BUILDER_PHASE", "LO_DTYPE_POLICY", "LO_TSDB_COLLECT"):
+                env.pop(name, None)
+            children = [_ServiceChild(folder, name, ports[name], env) for name in SERVICE_NAMES]
+            boot_s = _boot_seconds(children)
+            clients = {name: _Client(port, headers) for name, port in ports.items()}
+            remote = connect(store_server.url)
+
+            _services_titanic(clients, walls)
+            product_started = time.perf_counter()
+            product_store(remote)
+            walls["product collections"] = time.perf_counter() - product_started
+            builder = clients["model_builder"]
+            before_text = _metrics_text(builder)
+            build_wall_s = _store_build(builder, remote, "bench_test", True)["wall_s"]
+            after_text = _metrics_text(builder)
+            before, after = _flows(before_text), _flows(after_text)
+            launches = _served_launches(before_text, after_text)
+            served = _stored_outputs(remote, "bench_test")
+            png = _pca_png(clients["pca"], "pca_bench")
+
+            # the twin: the same build and PCA in this process, on the card
+            devcache.reset_global_devcache()
+            twin_server = ServerThread(create_app(
+                remote, models_dir=os.path.join(folder, "twin_models"), device=SERVICES_DEVICE)).start()
+            twin_images = ServerThread(images.create_app(
+                remote, os.path.join(folder, "twin_images"), "pca", device=SERVICES_DEVICE)).start()
+            try:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                copied, flows = base.h2d_bytes(), profile.flow_totals()
+                twin_wall_s = _store_build(_Client(twin_server.port), remote, "bench_test", True)["wall_s"]
+                torch.cuda.synchronize()
+                twin_h2d = base.h2d_bytes() - copied
+                twin_d2h = profile.flow_totals()["d2h_bytes"] - flows["d2h_bytes"]
+                twin_launches = kernels.launches()
+                twin_png = _pca_png(_Client(twin_images.port), "pca_bench")
+            finally:
+                twin_server.stop()
+                twin_images.stop()
+            for whose, counts in (("model_builder's", launches), ("the twin's", twin_launches)):
+                missing = [name for name in BUILD_KERNELS if counts[name] == 0]
+                if missing:
+                    raise AssertionError(f"services: {whose} build never launched {missing}")
+            held = _held_bitwise("services", served, _stored_outputs(remote, "bench_test"))
+            if png != twin_png:
+                raise AssertionError("services: pca's image differs from the in-process PCA's")
+            delta = {key: after[key] - before[key] for key in after}
+            libraries = _build_libraries()
+            if after["compile_events"] < len(libraries):
+                raise AssertionError(f"services: {after['compile_events']} compile events for {libraries}")
+            if delta["h2d"] != twin_h2d or delta["d2h"] != twin_d2h or not delta["wire_read"]:
+                raise AssertionError(
+                    f"services: model_builder's flows {delta}, the twin's h2d {twin_h2d} and d2h {twin_d2h}")
+
+            job = f"build:bench_test:{'+'.join(MODEL_NAMES)}"
+            with builder.opener.open(builder.base + f"/jobs/{job}/profile", timeout=60) as response:
+                chrome = json.loads(response.read())
+            events = [event for event in chrome["traceEvents"] if event["ph"] == "X"]
+            fits = [event for event in events if event["name"] == "phase:fit"]
+            if chrome["otherData"]["bytes_total"]["h2d_bytes"] != delta["h2d"] or len(fits) != len(MODEL_NAMES):
+                raise AssertionError(
+                    f"services: the build's trace moved {chrome['otherData']['bytes_total']} with {len(fits)} fits")
+            status, summary = builder.call("GET", f"/jobs/{job}/profile?format=summary")
+            if status != 200 or set(summary["result"]["phases"]) != {event["name"] for event in events}:
+                raise AssertionError(f"services: the build's summary answered {status} {summary}")
+
+            status, stitched = clients["database_api"].call("GET", f"/traces/{SERVICES_CID}")
+            called = {"database_api", "projection", "data_type_handler", "histogram", "model_builder", "pca"}
+            rows = {proc.split("@", 1)[0] for proc in stitched.get("otherData", {}).get("processes", {}).values()}
+            if status != 200 or not called <= rows:
+                raise AssertionError(f"services: the stitched trace has rows {sorted(rows)} ({status})")
+
+            _copy_product_test(remote, remote, "bench_test_profiled")
+            _, status, sampled = _profiled(
+                builder, SERVICES_PROFILE_S, lambda: _store_build(builder, remote, "bench_test_profiled", True))
+            stacks = sampled.get("result", {}).get("stacks", {}) if status == 200 else {}
+            through_ml = [
+                stack for stack in stacks
+                if any(frame.split(".", 1)[0] in ML_MODULES for frame in stack.split(";")[1:])
+            ]
+            if status != 200 or not sampled["result"]["samples"] or not through_ml:
+                raise AssertionError(f"services: /debug/profile answered {status}, no stack through ml/")
+
+            # the build's wall with a profile window over it (three times
+            # the first wall: the window covers the build) and without,
+            # in the order without, with, with, without
+            overhead = {"without": [], "with": []}
+            window_s = None
+            for profiled in (False, True, True, False):
+                if profiled:
+                    window_s = window_s or round(max(1.0, 3 * overhead["without"][0]), 3)
+                    build, status, _ = _profiled(
+                        builder, window_s, lambda: _store_build(builder, remote, "bench_test", False))
+                    if status != 200:
+                        raise AssertionError(f"services: the overhead window answered {status}")
+                else:
+                    build = _store_build(builder, remote, "bench_test", False)
+                overhead["with" if profiled else "without"].append(build["wall_s"])
+
+            time.sleep(2 * float(SERVICES_METRICS_INTERVAL_S))   # a tick of every collector after the builds
+            status, history = clients["database_api"].call("GET", "/metrics/history?family=lo_http_requests_total")
+            series = history.get("result", {}).get("series", {}) if status == 200 else {}
+            if not set(SERVICE_NAMES) <= {name for name, points in series.items() if points}:
+                raise AssertionError(f"services: /metrics/history has series {sorted(series)} ({status})")
+            status, slo_state = clients["database_api"].call("GET", "/debug/slo")
+            status_health, health = clients["model_builder"].call("GET", "/health")
+            if status != 200 or slo_state["result"]["burning"] or status_health != 200 or health["degraded"]:
+                raise AssertionError(f"services: SLO {slo_state}, health {health}")
+            remote.close()
+        finally:
+            for child in children:
+                child.stop()
+            store_server.stop()
+    record = {
+        "phase": "services",
+        "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS},
+        "boot_s": boot_s,
+        "walls_s": walls,
+        "build_wall_s": {"seven_processes": build_wall_s, "in_process_twin": twin_wall_s},
+        "profiler_overhead_build_wall_s": {**overhead, "window_s": window_s},
+        "flows": {"model_builder": delta, "twin": {"h2d": twin_h2d, "d2h": twin_d2h}},
+        "compile_events": {"all": after["compile_events"], "hits": after["compile_hits"]},
+        "libraries": libraries,
+        "held_to_twin": held,
+        "stitched_rows": sorted(rows),
+        "profile_samples": sampled["result"]["samples"],
+        "launches": launches,
+        "twin_launches": {name: twin_launches[name] for name in BUILD_KERNELS},
+        "phase_s": time.perf_counter() - started,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -6359,7 +6718,7 @@ def check_bounds(summary) -> None:
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "store", "bf16", "multigpu",
+    "batch", "store", "bf16", "multigpu", "services",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -6497,6 +6856,8 @@ def main(argv) -> int:
         summary.extend(bf16["kernels"])
     if "multigpu" in wanted:
         summary.extend(phase_multigpu(torch, device["card"]))
+    if "services" in wanted:
+        phase_services(torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
     check_bounds(summary)
     emit({"kernels": summary})

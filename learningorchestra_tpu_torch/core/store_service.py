@@ -102,12 +102,13 @@ long-poll blocks its handler thread on a ``Waiter``), and its client
 rides ``utils/httpclient.py`` (``http.client``, one persistent
 connection a host and thread) where the reference rides ``requests``.
 Its frames are the reference's byte for byte (``core/wire.py``), so
-each package's client reads the other's server. Left for ROADMAP
-Queue 1 item 4b: the flight recorder's wire, shm and decode accounting
-(``telemetry/profile.py``) and the observability routes
+each package's client reads the other's server. The client feeds the
+flight recorder (``telemetry/profile.py``): payload bytes written and
+read over the wire, frames read through the shared-memory ring and the
+seconds decoding them; the server answers the observability routes
 (``register_observability``), whose SLO verdict ``/health``'s
-``degraded`` reads (always False here). Left for item 4c: shard groups
-(a ``;``-separated ``LO_STORE_URL``), which :func:`connect` refuses.
+``degraded`` reads. Left for ROADMAP Queue 1 item 4c: shard groups (a
+``;``-separated ``LO_STORE_URL``), which :func:`connect` refuses.
 
 Run a server: ``python -m learningorchestra_tpu_torch.core.store_service``
 (``LO_HOST``, ``LO_STORE_PORT``, ``LO_DATA_DIR``, ``LO_REPLICATE``,
@@ -133,6 +134,7 @@ from learningorchestra_tpu_torch.core.store import (
     InMemoryStore,
     UnsupportedQueryError,
 )
+from learningorchestra_tpu_torch.telemetry import profile as _profile
 from learningorchestra_tpu_torch.telemetry import tracing as _tracing
 from learningorchestra_tpu_torch.testing import faults
 from learningorchestra_tpu_torch.core import shmring
@@ -370,9 +372,8 @@ def create_store_app(
             # loss-window semantics); also exported as
             # lo_store_loss_window on /metrics
             payload["loss_window"] = role["loss_window"]
-        # the SLO verdict over the in-store TSDB (telemetry/slo.py in the
-        # reference) waits for ROADMAP Queue 1 item 4b
-        payload["degraded"] = False
+        # the SLO verdict over the in-store TSDB (telemetry/slo.py)
+        payload["degraded"] = app.slo_degraded()
         return payload, 200
 
     @app.route("/vote", methods=("POST",))
@@ -695,8 +696,9 @@ def create_store_app(
         )
         return {"removed": removed}, 200
 
-    # the fleet observability plane (/metrics/history, /metrics/ingest,
-    # /debug/slo) waits for ROADMAP Queue 1 item 4b
+    # the observability plane: /metrics/history, /metrics/ingest,
+    # /debug/slo (a central collector posts scraped samples here)
+    app.register_observability(store)
     return app
 
 
@@ -1160,8 +1162,10 @@ class RemoteStore(DocumentStore):
         verify=None,
     ) -> dict:
         headers = {"Content-Type": BIN_CONTENT_TYPE}
-        # the flight recorder's wire accounting (telemetry/profile.py)
-        # waits for ROADMAP Queue 1 item 4b
+        if collection is not None:
+            # the payload's bytes before compression (what a reader will
+            # decode) into lo_wire_bytes_total and the active span
+            _profile.account_wire("write", collection, len(frame))
         if self.compress and len(frame) >= COMPRESS_MIN_BYTES:
             frame = compress_frame(frame)
             headers[ENCODING_HEADER] = WIRE_COMPRESSION
@@ -1719,12 +1723,17 @@ class RemoteStore(DocumentStore):
                         next_start,
                         next_limit,
                     )
-                # the ring counts the frames it carries (shm_stats); the
-                # flight recorder's wire, shm and decode accounting
-                # waits for ROADMAP Queue 1 item 4b
+                if isinstance(raw, np.ndarray):
+                    # the frame rode the shared-memory ring, not the
+                    # HTTP body: shm traffic, not wire traffic
+                    _profile.account_shm(collection, len(raw))
+                else:
+                    _profile.account_wire("read", collection, len(raw))
+                decode_started = time.perf_counter()
                 columns, extra = self._decode_chunk(
                     collection, fields, chunk_start, chunk_limit, raw
                 )
+                _profile.account_decode(collection, time.perf_counter() - decode_started)
                 chunk_rev = extra.get("rev", -1)
                 if rev is None:
                     rev = chunk_rev

@@ -25,7 +25,9 @@ The wrappers that launch these kernels live beside their plain PyTorch
 versions (``ml/binning.py``, ``ml/trees.py``, ``ml/logistic.py``,
 ``ops/tsne.py``). Each wrapper adds one to
 its kernel's launch count where it launches, and nowhere else, so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel; the counts also
+feed ``lo_kernel_launches_total{kernel}``, so a service process's
+``/metrics`` shows it too.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ KERNEL_LIBRARIES = {
 KERNEL_NAMES = tuple(KERNEL_LIBRARIES)
 _launches = {name: 0 for name in KERNEL_NAMES}
 _launch_lock = threading.Lock()
+_launch_samples: dict = {}   # kernel -> its lo_kernel_launches_total sample
 
 _libraries: dict = {}
 _library_lock = threading.Lock()
@@ -89,8 +92,20 @@ build_info: dict = {}
 
 
 def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: its count here and its
+    ``lo_kernel_launches_total{kernel}`` sample on this process's
+    ``/metrics``, the family declared at the process's first launch (so a
+    service process shows which kernels its requests ran)."""
     with _launch_lock:
         _launches[name] += 1
+        sample = _launch_samples.get(name)
+        if sample is None:
+            from learningorchestra_tpu_torch.telemetry.metrics import global_registry
+
+            sample = _launch_samples[name] = global_registry().counter(
+                "lo_kernel_launches_total", "Hand-written CUDA kernel launches", labels=("kernel",)
+            ).labels(name)
+    sample.inc()
 
 
 def launches() -> dict:
@@ -155,10 +170,21 @@ def build(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built at first use."""
+    """The loaded library ``name``, built at first use. The first load in
+    a process counts into the flight recorder's
+    ``lo_compile_events_total``: ``miss`` with nvcc's seconds
+    (``lo_compile_seconds_total``) when it ran nvcc, ``hit`` when the
+    library was already built."""
     with _library_lock:
         if name not in _libraries:
+            from learningorchestra_tpu_torch.telemetry import profile
+
             _libraries[name] = _BINDERS[name](ctypes.CDLL(build(name)))
+            info = build_info[name]
+            if info["built"]:
+                profile.account_compile("miss", info["seconds"])
+            else:
+                profile.account_compile("hit")
         return _libraries[name]
 
 

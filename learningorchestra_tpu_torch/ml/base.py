@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, policy_dtype, resolve_device
+from learningorchestra_tpu_torch.telemetry import profile as _profile
+from learningorchestra_tpu_torch.telemetry import span as _span
 
 # The model-builder request contract.
 CLASSIFIER_NAMES = ("lr", "dt", "rf", "gb", "nb")
@@ -88,7 +90,8 @@ class DeviceLabels:
 
 # Bytes copied host-to-device by shard_matrix and shard_labels, the one
 # funnel every feature matrix and label vector of the product path goes
-# through (the reference's lo_h2d_bytes_total): a cached input adds none.
+# through; each copy also counts into the flight recorder's
+# lo_h2d_bytes_total and the active span. A cached input adds none.
 _h2d = {"bytes": 0}
 _h2d_lock = threading.Lock()
 
@@ -100,11 +103,36 @@ def h2d_bytes() -> int:
         return _h2d["bytes"]
 
 
+def _record_h2d(nbytes: int) -> None:
+    with _h2d_lock:
+        _h2d["bytes"] += nbytes
+    _profile.account_h2d(nbytes)
+
+
+def _on_card(tensor: torch.Tensor) -> bool:
+    """Whether a copy to or from ``tensor`` crosses to a card (and counts);
+    a CPU tensor is copied nowhere."""
+    return tensor.device.type != "cpu"
+
+
 def _account_h2d(tensor: torch.Tensor) -> torch.Tensor:
-    if tensor.device.type != "cpu":
-        with _h2d_lock:
-            _h2d["bytes"] += tensor.numel() * tensor.element_size()
+    """Count ``tensor``'s bytes where it lies on a card (the copy that
+    made it)."""
+    if _on_card(tensor):
+        _record_h2d(tensor.numel() * tensor.element_size())
     return tensor
+
+
+def to_host(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor`` as a numpy array: one device-to-host copy, counted into
+    ``lo_d2h_bytes_total`` and the active span where it leaves a card.
+    Every copy of the port's ``ml/``, ``ops/`` and ``parallel/`` from a card
+    goes through here: predictions, metrics, fitted parameters, progress
+    snapshots, embeddings, gb's ``f0``."""
+    host = tensor.cpu().numpy()
+    if _on_card(tensor):
+        _profile.account_d2h(int(host.nbytes))
+    return host
 
 
 def shard_matrix(X: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
@@ -154,7 +182,7 @@ class FittedModel:
         """This rank's block of the rows ``X`` and its validity mask."""
         from learningorchestra_tpu_torch.parallel.sharding import shard_rows
 
-        rows = X.cpu().numpy() if isinstance(X, torch.Tensor) else np.asarray(X)
+        rows = to_host(X) if isinstance(X, torch.Tensor) else np.asarray(X)
         return shard_rows(rows, self.mesh, dtype=np.float32)
 
     def _to_device(self, X) -> torch.Tensor:
@@ -170,7 +198,9 @@ class FittedModel:
             probs = fetch(self._forward(block), self.mesh, mask)
             return labels_from_probs(probs), probs
         # the one device-to-host copy of a forward: the probabilities
-        probs = self._forward(self._to_device(X)).cpu().numpy()
+        probs = self._forward(self._to_device(X))
+        with _span("d2h:predictions", rows=len(X)):
+            probs = to_host(probs)
         return labels_from_probs(probs), probs
 
     def predict(self, X) -> np.ndarray:
@@ -193,7 +223,7 @@ class FittedModel:
 
             block, mask = self._block(X)
             probs = self._forward(block)
-            y = y_true.data.cpu().numpy() if isinstance(y_true, DeviceLabels) else np.asarray(y_true)
+            y = to_host(y_true.data) if isinstance(y_true, DeviceLabels) else np.asarray(y_true)
             num_classes = max(int(probs.shape[-1]), infer_num_classes(y))
             y_block, _ = shard_rows(y.astype(np.int64), self.mesh)
             accuracy, weighted_f1 = masked_metrics(
@@ -213,16 +243,18 @@ class FittedModel:
         """``(accuracy, weighted_f1)``: the confusion matrix is built on the
         device, and only the two scalars travel back."""
         accuracy, weighted_f1, _ = self._device_metrics(X, y_true)
-        accuracy, weighted_f1 = torch.stack([accuracy, weighted_f1]).cpu().tolist()
+        with _span("d2h:predictions", rows=len(X)):
+            accuracy, weighted_f1 = to_host(torch.stack([accuracy, weighted_f1])).tolist()
         return accuracy, weighted_f1
 
     def evaluate_predict(
         self, X_eval, y_eval, X_test
     ) -> tuple[float, float, np.ndarray, np.ndarray]:
         """Metrics on the eval rows and ``(labels, probabilities)`` on the
-        test rows in one device-to-host copy; when ``X_test is X_eval`` the
-        forward runs once. Over several data ranks: the metrics, then the
-        test rows' forward gathered."""
+        test rows in one device-to-host copy (its ``d2h:predictions``
+        span); when ``X_test is X_eval`` the forward runs once. Over
+        several data ranks: the metrics, then the test rows' forward
+        gathered."""
         if self._sharded():
             accuracy, weighted_f1 = self.evaluate(X_eval, y_eval)
             return (accuracy, weighted_f1, *self._eval(X_test))
@@ -230,7 +262,8 @@ class FittedModel:
         if X_test is not X_eval:
             probs = self._forward(self._to_device(X_test))
         flat = torch.cat([probs.reshape(-1), torch.stack([accuracy, weighted_f1])])
-        host = flat.cpu().numpy()
+        with _span("d2h:predictions", rows=len(X_test)):
+            host = to_host(flat)
         probs_np = host[:-2].reshape(probs.shape)
         return float(host[-2]), float(host[-1]), labels_from_probs(probs_np), probs_np
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml.base import to_host
 from learningorchestra_tpu_torch.ml.logistic import LogisticRegressionModel
 from learningorchestra_tpu_torch.ml.naive_bayes import NaiveBayesModel
 from learningorchestra_tpu_torch.ml.trees import GBTModel, _TreeEnsembleModel
@@ -145,7 +146,7 @@ def gather_model(model) -> tuple[str, dict, dict]:
     else:
         raise TypeError(f"unknown model type {type(model).__name__}")
     arrays = {
-        name: getattr(model, name).cpu().numpy() for name in ARRAY_DTYPES[kind]
+        name: to_host(getattr(model, name)) for name in ARRAY_DTYPES[kind]
     }
     return kind, arrays, scalars
 

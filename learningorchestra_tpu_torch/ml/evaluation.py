@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.ml.base import to_host
 
 
 def _counts(y_true, y_pred, weights, num_classes: int, mesh=None) -> torch.Tensor:
@@ -100,7 +101,7 @@ def evaluate_both(y_true, y_pred, device: DeviceLike = None) -> tuple[float, flo
         None,
         num_classes,
     )
-    accuracy, weighted_f1 = torch.stack([accuracy, weighted_f1]).cpu().tolist()
+    accuracy, weighted_f1 = to_host(torch.stack([accuracy, weighted_f1])).tolist()
     return accuracy, weighted_f1
 
 

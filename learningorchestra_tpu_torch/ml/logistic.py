@@ -85,6 +85,7 @@ from learningorchestra_tpu_torch.ml.base import (
     largest_divisor,
     segment_steps,
     shard_matrix,
+    to_host,
 )
 
 # The reference's L-BFGS constants (ml/logistic.py:56-61)
@@ -901,14 +902,14 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=Non
         W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2, weights, mesh)
         losses.append(segment_losses)
         if tol > 0:
-            history.extend(float(v) for v in segment_losses.cpu().numpy())
+            history.extend(float(v) for v in to_host(segment_losses))
             del history[:-window]
         if sink is not None:
             sink.save(
                 "logistic",
                 index + 1,
-                [leaf.cpu().numpy() for leaf in _progress.tree_leaves(({"w": W, "b": b}, state))]
-                + [torch.cat(losses).cpu().numpy()],
+                [to_host(leaf) for leaf in _progress.tree_leaves(({"w": W, "b": b}, state))]
+                + [to_host(torch.cat(losses))],
                 {**key, "history": list(history)},
             )
     return W, b, torch.cat(losses)

@@ -57,7 +57,7 @@ import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 from learningorchestra_tpu_torch.ml import logistic, trees
-from learningorchestra_tpu_torch.ml.base import infer_num_classes, segment_steps
+from learningorchestra_tpu_torch.ml.base import infer_num_classes, segment_steps, to_host
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, job_apply_bins, make_thresholds
 from learningorchestra_tpu_torch.ml.evaluation import job_masked_metrics
 from learningorchestra_tpu_torch.ml.logistic import (
@@ -639,7 +639,7 @@ def _run_lr_chunk(payloads, chunk, per_point, device) -> None:
             W, b, Xe, _stack(means, members), _stack(scales, members), ye, we, num_classes
         )
         # ONE host transfer for the whole chunk's params + metrics
-        flat = torch.cat([W.reshape(-1), b.reshape(-1), accuracy, weighted_f1]).cpu().numpy()
+        flat = to_host(torch.cat([W.reshape(-1), b.reshape(-1), accuracy, weighted_f1]))
     w_size, b_size = W.numel(), b.numel()
     w_host = flat[:w_size].reshape(W.shape)
     b_host = flat[w_size : w_size + b_size].reshape(b.shape)
@@ -688,9 +688,8 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
             features_heap, thresholds_heap, leaf_probs, accuracy, f1 = _dt_fused(
                 Xs, ys, ws, ths, Xe, ye, we, num_classes, depth, MAX_BINS,
             )
-            fh = features_heap.cpu().numpy()
-            th, lp, acc_host, f1_host = (
-                t.cpu().numpy() for t in (thresholds_heap, leaf_probs, accuracy, f1)
+            fh, th, lp, acc_host, f1_host = (
+                to_host(t) for t in (features_heap, thresholds_heap, leaf_probs, accuracy, f1)
             )
         for i, (member, point) in enumerate(group):
             per_point[(member, point)] = {

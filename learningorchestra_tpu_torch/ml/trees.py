@@ -74,6 +74,7 @@ from learningorchestra_tpu_torch.ml.base import (
     largest_divisor,
     segment_steps,
     shard_matrix,
+    to_host,
 )
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
 
@@ -1620,8 +1621,8 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
             sink.save(
                 "gbt",
                 index + 1,
-                [margins.cpu().numpy()]
-                + [torch.cat([h[i] for h in heaps]).cpu().numpy() for i in range(3)],
+                [to_host(margins)]
+                + [to_host(torch.cat([h[i] for h in heaps])) for i in range(3)],
                 scalars,
             )
     features_heap, bins_heap, leaf_values = (torch.cat(parts) for parts in zip(*heaps))
@@ -1743,5 +1744,5 @@ class GBTClassifier:
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
         # the fit's one device-to-host copy: f0, which the model keeps on the host
         return GBTModel(
-            float(f0), features_heap, thresholds_heap, leaf_values, self.step, self.max_depth
+            float(to_host(f0)), features_heap, thresholds_heap, leaf_values, self.step, self.max_depth
         )

@@ -57,13 +57,20 @@ def pca_embedding(X, n_components: int = 2, device: DeviceLike = None) -> np.nda
     principal components; a host ``(rows, n_components)`` float32 array.
     A host array goes to the device in the policy's type; a float32 or
     bfloat16 tensor keeps its type (the device cache's matrices are
-    already in the policy's), another float32."""
-    from learningorchestra_tpu_torch.ml.base import shard_matrix
+    already in the policy's), another float32.
+
+    Spans, as the reference's: ``pca:prepare`` (the copy of a host array
+    and the launches) and ``d2h:pca``, the embedding's copy back, in
+    which the device's time lands (the launches are asynchronous)."""
+    from learningorchestra_tpu_torch.ml.base import shard_matrix, to_host
+    from learningorchestra_tpu_torch.telemetry import span
 
     device = resolve_device(device)
-    if not torch.is_tensor(X):
-        X = shard_matrix(X, device)
-    X = X.to(device, X.dtype if X.dtype in FEATURE_DTYPES else torch.float32)
-    mask = torch.ones(X.shape[0], dtype=torch.bool, device=device)
-    embedded, _, _ = _pca(X, mask, n_components)
-    return embedded.cpu().numpy()
+    with span("pca:prepare", rows=len(X)):
+        if not torch.is_tensor(X):
+            X = shard_matrix(X, device)
+        X = X.to(device, X.dtype if X.dtype in FEATURE_DTYPES else torch.float32)
+        mask = torch.ones(X.shape[0], dtype=torch.bool, device=device)
+        embedded, _, _ = _pca(X, mask, n_components)
+    with span("d2h:pca", rows=len(X), components=n_components):
+        return to_host(embedded)

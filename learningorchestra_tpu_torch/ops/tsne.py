@@ -402,12 +402,18 @@ def _tsne_landmark(
 ):
     """Exact t-SNE on ``landmarks`` rows chosen by numpy's
     ``default_rng(seed)`` (from the start ``Y0``, one row a landmark),
-    then every row placed by K13, a macro block of rows a launch."""
+    then every row placed by K13, a macro block of rows a launch. Its
+    phases are the reference's spans, ``tsne:landmark_fit`` and
+    ``tsne:interpolate`` (their launches are asynchronous: the device's
+    time lands where the host first waits on it)."""
+    from learningorchestra_tpu_torch.telemetry import span
+
     n = X.shape[0]
     m = min(landmarks, n)
     chosen = torch.from_numpy(_choose_landmarks(n, landmarks, seed)).to(X.device)
     L = X[chosen]
-    Y_L = _tsne_exact(L, perplexity, iterations, learning_rate, Y0)
+    with span("tsne:landmark_fit", rows=m):
+        Y_L = _tsne_exact(L, perplexity, iterations, learning_rate, Y0)
     if m == n:
         # every row is a landmark: undo the sampling permutation instead of
         # blurring the exact embedding through interpolation
@@ -416,11 +422,12 @@ def _tsne_landmark(
         return out
     interp_perplexity = _clamped_perplexity(perplexity, m)
     macro = min(n, _INTERP_ROWS_PER_PROGRAM)
-    outs = [
-        interpolate(X[start : start + macro], L, Y_L, interp_perplexity)
-        for start in range(0, n, macro)
-    ]
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+    with span("tsne:interpolate", rows=n, landmarks=m, macro_rows=macro):
+        outs = [
+            interpolate(X[start : start + macro], L, Y_L, interp_perplexity)
+            for start in range(0, n, macro)
+        ]
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def _initial_embedding(rows: int, seed: int, device) -> torch.Tensor:
@@ -447,10 +454,15 @@ def tsne_embedding(
 
     ``method``: ``"exact"``, ``"landmark"`` (exact on a subsample, then
     calibrated kernel regression for the rest: linear in n) or ``"auto"``
-    (exact up to ``exact_rows_limit`` rows)."""
+    (exact up to ``exact_rows_limit`` rows). A host array's copy to the
+    device counts into ``ml/base.h2d_bytes``; the embedding's copy back
+    is the ``d2h:tsne`` span."""
+    from learningorchestra_tpu_torch.ml.base import _account_h2d, to_host
+    from learningorchestra_tpu_torch.telemetry import span
+
     device = resolve_device(device)
     if not torch.is_tensor(X):
-        X = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
+        X = _account_h2d(torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device))
     X = X.to(device, torch.float32).contiguous()
     n = X.shape[0]
     if method == "auto":
@@ -464,4 +476,5 @@ def tsne_embedding(
         Y = _tsne_landmark(X, perplexity, iterations, learning_rate, seed, landmarks, Y0)
     else:
         raise ValueError(f"unknown t-SNE method {method!r}")
-    return Y.cpu().numpy()
+    with span("d2h:tsne", rows=n):
+        return to_host(Y)

@@ -38,6 +38,7 @@ import torch
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
 from learningorchestra_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from learningorchestra_tpu_torch.parallel.sharding import padded_row_count, to_device
+from learningorchestra_tpu_torch.telemetry import profile as _profile
 
 _ENV_COORDINATOR = "LO_COORDINATOR"
 _ENV_NUM_PROCESSES = "LO_NUM_PROCESSES"
@@ -116,7 +117,10 @@ def all_gather(tensor: torch.Tensor, mesh: Mesh) -> list:
     if mesh.group is None:
         return [tensor]
     staged = _state["host_staging"] and tensor.device.type == "cuda"
-    local = tensor.cpu() if staged else tensor.contiguous()
+    local = tensor.contiguous()
+    if staged:
+        local = local.cpu()
+        _profile.account_d2h(local.numel() * local.element_size())
     parts = [torch.empty_like(local) for _ in range(mesh.shape[DATA_AXIS])]
     started = time.perf_counter()
     dist.all_gather(parts, local, group=mesh.group)
@@ -185,8 +189,10 @@ def fetch(tensor: torch.Tensor, mesh: Mesh, mask: Optional[torch.Tensor] = None)
     rank: every rank's block gathered in rank order, then, given this
     rank's validity ``mask``, only the real rows. On a data axis of 1 it is
     a plain ``.cpu().numpy()`` (of the real rows, given a mask)."""
+    from learningorchestra_tpu_torch.ml.base import to_host
+
     parts = all_gather(tensor, mesh)
     if mask is not None:
         masks = all_gather(mask, mesh)
         parts = [part[keep] for part, keep in zip(parts, masks)]
-    return torch.cat(parts).cpu().numpy() if len(parts) > 1 else parts[0].cpu().numpy()
+    return to_host(torch.cat(parts) if len(parts) > 1 else parts[0])

@@ -9,10 +9,18 @@ and the results are sliced back to the waiting request threads.
 Admission: the inbox is bounded (``LO_SERVE_QUEUE_CAP``); past the cap
 :meth:`MicroBatcher.submit` raises :class:`QueueFullError` with a
 drain-rate Retry-After estimate, which the REST layer answers as 429.
+
+Flight recorder: one dispatch in ``trace_every`` (default
+:data:`TRACE_EVERY`) runs under a trace of its own, remembered in the
+trace ring and the stitcher's export buffer, whose ``serve:forward``
+span carries the batch's rows, bytes and dtype (reference
+``serve/batcher.py:262-315``). The ``serve.forward`` fault point fires
+before each group's forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import queue
 import threading
@@ -23,9 +31,19 @@ from typing import Optional
 import numpy as np
 
 from learningorchestra_tpu_torch.sched.scheduler import QueueFullError
+from learningorchestra_tpu_torch.telemetry import tracing as _tracing
+from learningorchestra_tpu_torch.testing import faults as _faults
 from learningorchestra_tpu_torch.utils.shapegrid import grid_size, pad_axis0
 
 SERVE_CLASS = "serve"
+TRACE_EVERY = 16  # one dispatch in this many runs under a trace of its own
+
+# serving latencies live in the millisecond range: the buckets of
+# lo_serve_request_seconds, which the serve_p99 SLO reads
+LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0,
+)
 
 _CLOSE = object()  # inbox sentinel
 
@@ -72,10 +90,15 @@ class MicroBatcher:
         window_s: Optional[float] = None,
         max_batch: Optional[int] = None,
         inbox_cap: Optional[int] = None,
+        trace_every: int = TRACE_EVERY,
     ):
         from learningorchestra_tpu_torch.serve import config
 
         self.registry = registry
+        # 0: no dispatch is traced; 1: every one
+        self.trace_every = trace_every
+        # the worker thread's own dispatch count (no lock: only it reads it)
+        self._dispatches = 0
         self.window_s = config.batch_window_s() if window_s is None else window_s
         self.max_batch = config.max_batch() if max_batch is None else max_batch
         cap = config.queue_cap() if inbox_cap is None else inbox_cap
@@ -181,14 +204,36 @@ class MicroBatcher:
             self.avg_batch_s = 0.8 * self.avg_batch_s + 0.2 * (time.monotonic() - started)
 
     def _forward(self, group: list) -> None:
+        # the worker runs outside any request's trace: one dispatch in
+        # trace_every gets a trace of its own
+        trace = None
+        if self.trace_every and self._dispatches % self.trace_every == 0:
+            trace = _tracing.Trace(name=f"serve:{group[0].path}")
+        self._dispatches += 1
+        context = _tracing.activate(trace) if trace is not None else contextlib.nullcontext()
         try:
-            model = self.registry.get(group[0].path)
-            rows = np.concatenate([request.rows for request in group])
-            # the reference's dispatch shape: small batches pad to
-            # max_batch rows, larger totals to the quarter-octave grid;
-            # padding rows are sliced off below
-            rows = pad_axis0(rows, grid_size(len(rows), self.max_batch))
-            labels, probs = model.predict_both(rows)
+            with context:
+                self._forward_traced(group)
+        finally:
+            if trace is not None:
+                _tracing.remember_trace(trace)
+                _tracing.export_trace(trace, service="serve")
+
+    def _forward_traced(self, group: list) -> None:
+        try:
+            # an error injected here becomes every request's error
+            _faults.fire("serve.forward", path=group[0].path, requests=len(group))
+            # the span covers the registry lookup, so a load lands in it
+            with _tracing.span("serve:forward", requests=len(group)):
+                model = self.registry.get(group[0].path)
+                rows = np.concatenate([request.rows for request in group])
+                total = len(rows)
+                # the reference's dispatch shape: small batches pad to
+                # max_batch rows, larger totals to the quarter-octave
+                # grid; padding rows are sliced off below
+                rows = pad_axis0(rows, grid_size(total, self.max_batch))
+                _tracing.annotate(rows=total, bytes=int(rows.nbytes), dtype=str(rows.dtype))
+                labels, probs = model.predict_both(rows)
         except BaseException as error:  # noqa: BLE001 — delivered to every
             # waiting request of the group; the route maps it to an HTTP error
             for request in group:

@@ -91,16 +91,20 @@ class ModelRegistry:
             with self._lock:
                 self._drop_locked(path, invalidation=True)
             raise ModelNotFoundError(path)
+        from learningorchestra_tpu_torch.telemetry import tracing
+
         with self._lock:
             entry = self._entries.get(path)
             if entry is not None and entry.rev == rev:
                 self._entries.move_to_end(path)
                 self.hits += 1
+                tracing.annotate(registry="hit")   # the active span's verdict
                 return entry.model
             if entry is not None:
                 # a rebuild moved the artifact: never serve stale parameters
                 self._drop_locked(path, invalidation=True)
             self.misses += 1
+            tracing.annotate(registry="miss")
         try:
             model = self._load(path)
         except FileNotFoundError:

@@ -4,8 +4,7 @@ Reference: microservices/data_type_handler_image/server.py:46-76. The
 request body IS the field→type dict; success message is ``file_changed``
 with status 200.
 
-The port's copy of ``learningorchestra_tpu/services/data_type_handler.py``,
-less the store-backed observability routes.
+The port's copy of ``learningorchestra_tpu/services/data_type_handler.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ def create_app(store: DocumentStore, jobs: JobManager | None = None) -> WebApp:
     jobs = jobs or JobManager()
     register_store(store)
     app.register_job_routes(jobs)
+    app.register_observability(store)
     # fieldtypes passes are legitimately repeatable on one dataset (the
     # reference allows back-to-back casts), so job names take a sequence
     # suffix instead of colliding as duplicates

@@ -7,9 +7,7 @@ asynchronous (201 immediately, rows land on a background job, the
 runs through the batched columnar ingest and a real job manager whose
 failures also terminate pollers (core/jobs.py).
 
-The port's copy of ``learningorchestra_tpu/services/database_api.py``,
-less the store-backed observability routes (``/metrics/history``,
-``/debug/slo``; the telemetry collector is not ported).
+The port's copy of ``learningorchestra_tpu/services/database_api.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +47,7 @@ def create_app(store: DocumentStore, jobs: JobManager | None = None) -> WebApp:
     # error — inspectable and cancellable over REST instead of only via
     # each collection's metadata row.
     app.register_job_routes(jobs)
+    app.register_observability(store)
 
     @app.route("/files", methods=("POST",))
     def create_file(request):

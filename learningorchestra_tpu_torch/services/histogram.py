@@ -5,8 +5,7 @@ output name → 409 with ``duplicated_filename`` (this service's string
 differs from projection's ``duplicate_file`` — reference
 histogram.py:25).
 
-The port's copy of ``learningorchestra_tpu/services/histogram.py``, less
-the store-backed observability routes.
+The port's copy of ``learningorchestra_tpu/services/histogram.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ def create_app(store: DocumentStore, jobs: JobManager | None = None) -> WebApp:
     jobs = jobs or JobManager()
     register_store(store)
     app.register_job_routes(jobs)
+    app.register_observability(store)
 
     @app.route("/histograms/<parent_filename>", methods=("POST",))
     def create_histogram_route(request, parent_filename):

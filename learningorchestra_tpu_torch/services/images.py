@@ -60,6 +60,7 @@ def create_app(
     jobs = jobs or JobManager()
     register_store(store)
     app.register_job_routes(jobs)
+    app.register_observability(store)
 
     if create is None:
 

@@ -37,13 +37,13 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
   go through the serve plane: the model's parameters stay pinned on the
   device and concurrent requests are joined into one forward;
 - the job routes (``/jobs``, ``/jobs/<name>``, ``/wait``, ``/trace``,
-  ``DELETE``), ``/health`` and ``/metrics`` (``utils/web.py``).
+  ``/profile``, ``DELETE``), ``/health``, ``/metrics`` and the
+  observability routes (``/debug/*``, ``/traces/<cid>``,
+  ``/metrics/history``, ``/metrics/ingest``; ``utils/web.py``).
 
 Messages and status codes are the reference's: 404 unknown model, 406
 missing or malformed rows, 413 more than ``LO_SERVE_MAX_ROWS`` rows, 429
 inbox or queue full, 503 timed out, 500 ``prediction_failed: ...``.
-The observability routes (``/metrics/history``, ``/debug/*``) are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import time
 import zipfile
 from typing import Optional
 
@@ -73,6 +74,7 @@ from learningorchestra_tpu_torch.serve import (
     global_serve_plane,
 )
 from learningorchestra_tpu_torch.serve import config as serve_config
+from learningorchestra_tpu_torch.serve.batcher import LATENCY_BUCKETS
 from learningorchestra_tpu_torch.services import validators
 from learningorchestra_tpu_torch.telemetry import register_store
 from learningorchestra_tpu_torch.utils.web import WebApp, too_many_requests
@@ -121,6 +123,13 @@ def create_app(
     app = WebApp("model_builder")
     register_store(store)
     app.register_job_routes(jobs)
+    app.register_observability(store)
+    # the serve_p99 SLO reads it (telemetry/slo.py)
+    serve_seconds = app.registry.histogram(
+        "lo_serve_request_seconds",
+        "End-to-end predict latency (admission to response build)",
+        buckets=LATENCY_BUCKETS,
+    )
     # the reference lets a concurrent same-name sync build run too (racy
     # allow-both, server.py:112-115); the duplicate still goes through
     # the device queue, under a uniquified job name
@@ -331,6 +340,7 @@ def create_app(
     def predict_rows(request, model_name):
         """Rows in, labels + probabilities out. Every failure maps to a
         JSON error body, never a traceback."""
+        started = time.perf_counter()
         if not artifact_exists(model_name):
             return {MESSAGE_RESULT: validators.MESSAGE_NOT_FOUND}, 404
         body = request.get_json(silent=True)
@@ -351,7 +361,11 @@ def create_app(
             pending = serve.submit(checkpoint_path(model_name), rows)
         except QueueFullError as error:
             return too_many_requests(error)
-        if not pending.wait(serve_timeout_s):
+        done = pending.wait(serve_timeout_s)
+        # every exit after the dispatch is observed, timeouts and failures
+        # too: a p99 without them would read healthy under overload
+        serve_seconds.observe(time.perf_counter() - started)
+        if not done:
             # the batcher drops the forward of a client that stopped waiting
             pending.abandon()
             return {MESSAGE_RESULT: MESSAGE_SERVE_TIMEOUT}, 503

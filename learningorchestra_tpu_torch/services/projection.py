@@ -5,8 +5,7 @@ order matters (duplicate output name → 409 first, then parent existence
 → 406, then fields → 406), and the reference appends ``_id`` to the
 requested fields before submitting (server.py:104-106).
 
-The port's copy of ``learningorchestra_tpu/services/projection.py``, less
-the store-backed observability routes.
+The port's copy of ``learningorchestra_tpu/services/projection.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ def create_app(store: DocumentStore, jobs: JobManager | None = None) -> WebApp:
     jobs = jobs or JobManager()
     register_store(store)
     app.register_job_routes(jobs)
+    app.register_observability(store)
 
     @app.route("/projections/<parent_filename>", methods=("POST",))
     def create_projection(request, parent_filename):

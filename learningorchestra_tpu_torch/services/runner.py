@@ -1,28 +1,53 @@
-"""Serve the service stack: all seven services in one process.
+"""Serve the service stack: all seven in one process, or one per process.
 
-Counterpart of ``learningorchestra_tpu/services/runner.py``, its
-single-process topology: seven servers over one store (the in-process
-WAL-backed one, or a store server's through ``LO_STORE_URL``), one scheduler with a job journal for all of them, and recovery of
-the journal before the first request —
-``python -m learningorchestra_tpu_torch.services.runner`` (on the CUDA
-card; it raises without one). Tests start the stack with
-``start_all(..., device="cpu")`` or ``main(device="cpu")``.
+Counterpart of ``learningorchestra_tpu/services/runner.py``. Both of its
+topologies run on the CUDA card (the runner raises without one):
+
+- **single process** (default): seven servers over one store (the
+  in-process WAL-backed one, or a store server's through
+  ``LO_STORE_URL``), one scheduler with a job journal for all of them,
+  and recovery of the journal before the first request —
+  ``python -m learningorchestra_tpu_torch.services.runner``;
+- **one service per process** (the reference's seven containers): start
+  a store server (``python -m
+  learningorchestra_tpu_torch.core.store_service``), then one runner a
+  service with ``LO_SERVICE=<name>`` and ``LO_STORE_URL`` set; each
+  process journals its own jobs (the journal's scope is the service)
+  and recovers only those. Each device service (model_builder, tsne,
+  pca) holds its own CUDA context, device cache (``LO_DEVCACHE_BYTES``)
+  and serve registry (``LO_SERVE_BYTES``).
+
+Tests start the stack with ``start_all(..., device="cpu")`` or
+``main(device="cpu")``.
 
 Environment:
-- ``LO_STORE_URL`` — a store server (``python -m
-  learningorchestra_tpu_torch.core.store_service``); a comma-separated
-  list names a replica set the client fails over within. Unset: the
-  in-process store on its WAL
+- ``LO_SERVICE`` — serve only this service (``database_api``,
+  ``projection``, ``model_builder``, ``data_type_handler``,
+  ``histogram``, ``tsne``, ``pca``); unset: all seven. ``router`` (the
+  fleet router) is not ported (ROADMAP Queue 1 item 5) and exits
+- ``LO_PORT`` — the bind port of the one service (default: its
+  reference port; ``0``: OS-assigned); the ``service <name> on
+  <host>:<port>`` boot line names the bind
+- ``LO_STORE_URL`` — a store server; a comma-separated list names a
+  replica set the client fails over within; a ``;`` (shard groups,
+  ROADMAP Queue 1 item 4c) is refused. Unset: the in-process store on
+  its WAL
 - ``LO_DATA_DIR`` — store WAL directory (default ``./lo_data``)
 - ``LO_IMAGES_DIR`` — PNG volume root (default ``<data>/images``)
 - ``LO_MODELS_DIR`` — model checkpoint and progress-artifact volume
   (default ``<data>/models``; empty string disables checkpointing, and
-  with it crash resume)
+  with it crash resume); shared by every process of the topology
 - ``LO_HOST`` — bind host (default ``127.0.0.1``: the model builder runs
   request-supplied preprocessor code, so exposing the stack must be an
   explicit opt-in)
-- ``LO_EPHEMERAL=1`` — bind OS-assigned ports instead of 5000-5006; each
-  ``service <name> on <host>:<port>`` boot line names the bind
+- ``LO_EPHEMERAL=1`` — all seven in one process on OS-assigned ports
+  instead of 5000-5006
+- the observability plane's knobs: ``LO_TSDB_COLLECT`` (0 turns off this
+  process's collector into the store's ``__lo_metrics__`` ring),
+  ``LO_METRICS_INTERVAL_S``, ``LO_TSDB_POINTS``, ``LO_TRACE_RING``,
+  ``LO_SLO_*`` (telemetry/slo.py), ``LO_PROF_HZ``, ``LO_PROF_WINDOW_S``
+  (the sampling profiler) and ``LO_PLANE_MEMBERS`` (the service URLs
+  ``GET /traces/<cid>`` stitches across)
 - the scheduler, coalescing, resume and serving knobs of
   ``sched/config.py`` and ``serve/config.py`` (``LO_JOB_WORKERS``,
   ``LO_SCHED_DEVICE_WIDTH``, ``LO_SCHED_QUEUE_CAP``, ``LO_RESUME``,
@@ -30,15 +55,14 @@ Environment:
   ``LO_SERVE_*``, ...), ``LO_BUILD_WORKERS`` (ml/builder.py) and
   ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
 
-Not ported: one process per service (``LO_SERVICE``, ``LO_PORT``: ROADMAP
-Queue 1 item 4b), the fleet router and its replica agent, the AOT
-compile plane, the telemetry collector and the multi-host SPMD
-dispatcher.
+Not ported: the fleet router and its replica agent (ROADMAP Queue 1
+item 5), the AOT compile plane and the multi-host SPMD dispatcher.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 from learningorchestra_tpu_torch.core.jobs import JobManager
@@ -84,7 +108,8 @@ def make_job_manager(store: DocumentStore, scope: str = "all") -> JobManager:
     """One JobManager for the whole process: every service submits
     through a single scheduler, so the DEVICE class serializes builds,
     sweeps and embeddings against each other on the card, and every
-    submit is journaled in the store for crash recovery."""
+    submit is journaled in the store for crash recovery, under ``scope``
+    (the service's name in the one-process-per-service topology)."""
     return JobManager(
         scheduler=Scheduler(journal=JobJournal(store, scope=shard_scope(scope, store)))
     )
@@ -136,6 +161,32 @@ def build_apps(
     }
 
 
+# One collector a (process, store): main() starts it before start_all, and
+# start_all starts it for embedded callers; whoever comes first wins.
+_COLLECTORS: dict[int, object] = {}
+_COLLECTORS_LOCK = threading.Lock()
+
+
+def maybe_start_collector(store: DocumentStore, instance: str = "runner", service: str = "runner"):
+    """Start the TSDB collector for ``store`` (telemetry/tsdb.py: this
+    process's registry into the ``__lo_metrics__`` ring each
+    ``LO_METRICS_INTERVAL_S``) unless one runs already, collection is off
+    (``LO_TSDB_COLLECT=0``) or the interval is zero. Returns it, or None."""
+    from learningorchestra_tpu_torch.telemetry import metrics as _metrics
+    from learningorchestra_tpu_torch.telemetry import tsdb as _tsdb
+
+    if not (_tsdb.collect_enabled() and _tsdb.metrics_interval_s() > 0):
+        return None
+    with _COLLECTORS_LOCK:
+        collector = _COLLECTORS.get(id(store))
+        if collector is None:
+            collector = _tsdb.Collector(
+                store, _metrics.global_registry(), instance=instance, service=service
+            ).start()
+            _COLLECTORS[id(store)] = collector
+    return collector
+
+
 def start_all(
     store: Optional[DocumentStore] = None,
     images_dir: Optional[str] = None,
@@ -155,6 +206,7 @@ def start_all(
     """
     store = store if store is not None else InMemoryStore()
     images_dir = images_dir or os.path.join(os.getcwd(), "lo_images")
+    maybe_start_collector(store)
     servers = []
     apps = build_apps(store, images_dir, models_dir, jobs, device)
     for port, app in apps.items():
@@ -165,15 +217,29 @@ def start_all(
 
 
 def main(device: DeviceLike = None) -> None:
-    """Boot the stack: open the store on its WAL, replay the job journal
-    (never-started jobs re-enqueue, orphaned builds resume from their
-    progress artifacts), then serve. ``device=None`` is the CUDA card."""
+    """Boot the stack, or the one service ``LO_SERVICE`` names: open the
+    store, replay the job journal (this service's, or every service's:
+    never-started jobs re-enqueue, orphaned builds resume from their
+    progress artifacts), start the TSDB collector, then serve.
+    ``device=None`` is the CUDA card."""
     from learningorchestra_tpu_torch.sched import config as sched_config
     from learningorchestra_tpu_torch.sched import recovery
     from learningorchestra_tpu_torch.serve import config as serve_config
 
+    service = os.environ.get("LO_SERVICE", "").strip() or None
+    if service == "router":
+        raise SystemExit(
+            "LO_SERVICE=router: the fleet router is not ported yet (ROADMAP Queue 1 item 5)"
+        )
+    if service is not None and service not in SERVICES:
+        raise SystemExit(f"LO_SERVICE must be one of {sorted(SERVICES)}, got {service!r}")
+    port_env = os.environ.get("LO_PORT", "").strip()
+    try:
+        port = int(port_env) if port_env else None
+    except ValueError:
+        raise SystemExit(f"LO_PORT must be an integer, got {port_env!r}") from None
     device = resolve_device(device)
-    print(f"runner starting: device={device}", flush=True)
+    print(f"runner starting: LO_SERVICE={service!r} device={device}", flush=True)
     # fail fast on malformed knobs, and state them at boot
     from learningorchestra_tpu_torch.core.devcache import capacity_bytes
     from learningorchestra_tpu_torch.utils.dtypepolicy import dtype_policy
@@ -201,6 +267,21 @@ def main(device: DeviceLike = None) -> None:
         f"v2={_flag_env('LO_WIRE_V2', default=True)}",
         flush=True,
     )
+    from learningorchestra_tpu_torch.telemetry import profile as _profile
+    from learningorchestra_tpu_torch.telemetry import slo as _slo
+    from learningorchestra_tpu_torch.telemetry import tracing as _tracing
+    from learningorchestra_tpu_torch.telemetry import tsdb as _tsdb
+
+    _profile.validate_env()
+    print(
+        "observability config: "
+        f"collect={_tsdb.collect_enabled()} "
+        f"interval_s={_tsdb.metrics_interval_s()} "
+        f"points={_tsdb.tsdb_points()} "
+        f"trace_ring={_tracing.trace_ring()} "
+        f"slo={_slo.validate_env()}",
+        flush=True,
+    )
     data_dir = os.environ.get("LO_DATA_DIR", os.path.join(os.getcwd(), "lo_data"))
     images_dir = os.environ.get("LO_IMAGES_DIR", os.path.join(data_dir, "images"))
     models_dir = os.environ.get("LO_MODELS_DIR", os.path.join(data_dir, "models"))
@@ -210,14 +291,15 @@ def main(device: DeviceLike = None) -> None:
     # fails over between its servers), else the WAL-backed local store
     store_url = os.environ.get("LO_STORE_URL", "").strip()
     store = connect(store_url) if store_url else InMemoryStore(data_dir=data_dir)
+    maybe_start_collector(store, instance=service or "runner", service=service or "runner")
 
     # Recovery runs BEFORE the REST surface accepts traffic, with the
     # build handlers bound to this process's device (the journal names
     # none): never-started jobs re-enqueue, orphaned RUNNING builds
     # resume, everything else goes FAILED with finished:true so pollers
-    # terminate.
+    # terminate. One process a service journals and recovers its own.
     recovery.register_build_model(device)
-    jobs = make_job_manager(store)
+    jobs = make_job_manager(store, scope=service or "all")
     recovered = recover_jobs(store, jobs)
     if recovered["requeued"] or recovered["orphaned"]:
         print(
@@ -226,17 +308,23 @@ def main(device: DeviceLike = None) -> None:
             f"{len(recovered['orphaned'])} orphaned jobs marked failed",
             flush=True,
         )
-    _, servers = start_all(
-        store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device
-    )
-    port_names = {port: name for name, port in SERVICES.items()}
-    for server in servers:
-        print(f"service {port_names[server.canonical_port]} on {host}:{server.port}", flush=True)
-    print(
-        f"learningorchestra_tpu_torch serving all services (host {host}); "
-        f"data in {store_url or data_dir}",
-        flush=True,
-    )
+    if service is not None:
+        app = build_app(service, store, images_dir, models_dir, jobs, device)
+        server = ServerThread(app, host, SERVICES[service] if port is None else port).start()
+        print(f"service {service} on {host}:{server.port}", flush=True)
+        servers = [server]
+    else:
+        _, servers = start_all(
+            store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device
+        )
+        port_names = {port: name for name, port in SERVICES.items()}
+        for server in servers:
+            print(f"service {port_names[server.canonical_port]} on {host}:{server.port}", flush=True)
+        print(
+            f"learningorchestra_tpu_torch serving all services (host {host}); "
+            f"data in {store_url or data_dir}",
+            flush=True,
+        )
     try:
         for server in servers:
             server._thread.join()

@@ -1,10 +1,13 @@
 """Process-wide telemetry: a metrics registry and span-based tracing.
 
-Counterpart of ``learningorchestra_tpu/telemetry/`` (its ``metrics`` and
-``tracing`` modules, copied). Spans are no-ops outside an active trace,
-so instrumented library code costs nothing outside a request; the REST
-middleware that mints correlation IDs, the flight recorder and the
-cross-process stitcher come with later slices.
+Counterpart of ``learningorchestra_tpu/telemetry/``, its exports less the
+XLA compile-cache collector: ``metrics`` and ``tracing`` (spans are
+no-ops outside an active trace, so instrumented library code costs
+nothing outside a request), ``profile`` (the flight recorder: byte
+flows of the card's copies and the store wire, Chrome traces, the
+sampling profiler), ``stitch`` (one trace across the services'
+processes), ``tsdb`` (the ``__lo_metrics__`` ring and its rollups) and
+``slo`` (rules over the ring, ``/health``'s ``degraded``).
 """
 
 from learningorchestra_tpu_torch.telemetry.metrics import (

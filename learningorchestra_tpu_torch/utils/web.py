@@ -17,12 +17,18 @@ come as werkzeug's HTML error page. Any other exception answers 500 with
 ``"<Type>: <message>"``.
 
 Every app serves ``GET /metrics`` (the process registry, with the
-request counters this layer keeps) and runs each request under a trace
+request counters this layer keeps and the flight recorder's byte-flow
+families, declared from boot), ``GET /debug/profile`` (the sampling
+profiler), ``GET /debug/spans`` (this process's span export buffer) and
+``GET /traces/<cid>`` (one Chrome trace stitched across the plane
+members of ``LO_PLANE_MEMBERS``), and runs each request under a trace
 whose correlation ID (``X-Correlation-Id``, the caller's or a new one)
 echoes on the answer and rides into the jobs the request submits.
-:meth:`WebApp.register_job_routes` adds the job surface (``/jobs``,
-``/jobs/<name>``, its long-poll ``/wait`` and ``/trace``, ``DELETE``)
-and ``/health``. A ``/wait`` blocks its handler thread until the job
+:meth:`WebApp.register_observability` adds the store-backed routes
+(``/metrics/history``, ``/metrics/ingest``, ``/debug/slo``) and arms
+``/health``'s ``degraded``. :meth:`WebApp.register_job_routes` adds the
+job surface (``/jobs``, ``/jobs/<name>``, its long-poll ``/wait``,
+``/trace`` and ``/profile``, ``DELETE``) and ``/health``. A ``/wait`` blocks its handler thread until the job
 ends or the timeout passes (the reference's threaded-server behaviour;
 its event loop and SSE framing are not ported). A handler may also
 return a :class:`Waiter`, a parked answer (the store's ``/wal``
@@ -206,8 +212,8 @@ class Response:
     def get_json(self) -> Any:
         return json.loads(self.data)
 
-    def get_data(self) -> bytes:
-        return self.data
+    def get_data(self, as_text: bool = False) -> "bytes | str":
+        return self.data.decode() if as_text else self.data
 
 
 class Waiter:
@@ -298,9 +304,71 @@ class WebApp:
             labels=("service",),
         )
 
+        # set by register_observability(): the store whose __lo_metrics__
+        # ring backs /metrics/history, /debug/slo and /health's degraded
+        self._obs_store = None
+        # the flight recorder's byte-flow families are declared eagerly,
+        # so every service's /metrics shows them from boot
+        from learningorchestra_tpu_torch.telemetry import profile as _profile
+
+        _profile._flow_metrics()
+
         @self.route("/metrics")
         def serve_metrics(request):
             return Response(self.registry.render(), content_type=_metrics.CONTENT_TYPE)
+
+        @self.route("/debug/profile")
+        def debug_profile(request):
+            """Sample every thread's stack for ``?seconds=N`` (default 5,
+            clamped to ``LO_PROF_WINDOW_S``) and answer folded flamegraph
+            stacks as text, or with ``?format=json`` the stacks with their
+            sample count and rate. 403 when ``LO_PROF_HZ=0``; a malformed
+            ``LO_PROF_*`` answers a JSON 500."""
+            try:
+                seconds = float(request.args.get("seconds", "5"))
+            except ValueError:
+                return {"result": "bad_seconds"}, 400
+            if not seconds > 0 or seconds != seconds:  # NaN included
+                return {"result": "bad_seconds"}, 400
+            try:
+                stacks, samples = _profile.sample_stacks(seconds)
+            except RuntimeError:
+                return {"result": "profiler_disabled"}, 403
+            except ValueError as error:
+                return {"result": "invalid_prof_config", "error": str(error)}, 500
+            if request.args.get("format") == "json":
+                return {
+                    "result": {"stacks": stacks, "samples": samples, "hz": _profile.prof_hz()}
+                }, 200
+            return Response(
+                _profile.folded_text(stacks), content_type="text/plain; charset=utf-8"
+            )
+
+        @self.route("/debug/spans")
+        def debug_spans(request):
+            """This process's span export buffer, the stitcher's feed:
+            ``?cid=`` filters to one correlation ID, ``?since=`` to
+            entries updated after an epoch timestamp."""
+            cid = request.args.get("cid")
+            since = request.args.get("since")
+            if since is not None:
+                try:
+                    since = float(since)
+                except ValueError:
+                    return {"result": "bad_since"}, 400
+            return {"result": _tracing.exported_spans(cid, since)}, 200
+
+        @self.route("/traces/<cid>")
+        def read_stitched_trace(request, cid):
+            """One Chrome trace for one correlation ID, stitched across
+            every member of ``LO_PLANE_MEMBERS`` (a process row per
+            ``service@pid``); 404 when no member holds spans for it."""
+            from learningorchestra_tpu_torch.telemetry import stitch as _stitch
+
+            trace = _stitch.stitched_trace(cid)
+            if not trace["otherData"]["processes"]:
+                return {"result": "not_found"}, 404
+            return trace, 200
 
     def route(self, rule: str, methods: tuple = ("GET",)):
         pattern = _compile_rule(rule)
@@ -314,23 +382,93 @@ class WebApp:
 
         return decorator
 
-    def register_job_routes(self, jobs) -> None:
-        """The job surface of a service holding a ``JobManager``
-        (reference ``utils/web.py:291-422``):
+    def register_observability(self, store) -> None:
+        """The store-backed half of the observability plane (reference
+        ``utils/web.py:188-279``):
 
-        - ``GET /jobs`` — every tracked job's record;
-        - ``GET /jobs/<name>`` — one record (404 unknown);
-        - ``GET /jobs/<name>/trace`` — its record and span tree;
-        - ``GET /jobs/<name>/wait?timeout=S`` — long-poll until the job
-          ends (released by its done callback) or ``S`` seconds pass
-          (default 25, capped at ``LO_WEB_WAIT_CAP_S``): the terminal
-          record, or ``{"result": "timeout", ...}``, a re-poll hint; a
-          bare dataset name resolves to the newest job materialising it;
-        - ``DELETE /jobs/<name>`` — cooperative cancellation: 202 while
-          it propagates, 409 once the job is terminal, 404 unknown;
-        - ``GET /health`` — liveness and the ``job_wait`` feature probe
-          (``degraded`` is False: the SLO plane is not ported)."""
-        from learningorchestra_tpu_torch.core.jobs import TERMINAL_STATES
+        - ``GET /metrics/history?family=…`` — the ``__lo_metrics__``
+          ring's fold-forward series and windowed rollups per instance
+          (telemetry/tsdb.py);
+        - ``POST /metrics/ingest`` — Prometheus exposition text in, one
+          retention tick out;
+        - ``GET /debug/slo`` — ok/burning per SLO rule with the offending
+          instance (telemetry/slo.py); it also arms ``/health``'s
+          ``degraded``."""
+        from learningorchestra_tpu_torch.telemetry import slo as _slo
+        from learningorchestra_tpu_torch.telemetry import tsdb as _tsdb
+
+        self._obs_store = store
+        ingest_tsdb = _tsdb.TSDB(store)
+
+        @self.route("/metrics/history")
+        def metrics_history(request):
+            family = request.args.get("family")
+            if not family:
+                return {"result": "bad_family"}, 400
+            try:
+                since = float(request.args["since"]) if "since" in request.args else None
+                window_s = float(request.args.get("window", _slo.slo_window_s()))
+            except ValueError:
+                return {"result": "bad_window"}, 400
+            instance = request.args.get("instance")
+            series = _tsdb.history(store, family, instance=instance)
+            return {
+                "result": {
+                    "family": family,
+                    "series": {
+                        inst: [[ts, value] for ts, value in points if since is None or ts >= since]
+                        for inst, points in series.items()
+                    },
+                    "rollup": _tsdb.window_rollups(store, family, window_s=window_s, instance=instance),
+                    "services": _tsdb.services_of(store),
+                }
+            }, 200
+
+        @self.route("/metrics/ingest", methods=("POST",))
+        def metrics_ingest(request):
+            body = request.get_json()
+            instance = body.get("instance")
+            text = body.get("text")
+            if not instance or not isinstance(text, str):
+                return {"result": "bad_ingest"}, 400
+            try:
+                vals = _tsdb.parse_samples(text)
+            except ValueError as error:
+                # a member scraped mid-restart: its tick is dropped
+                return {"result": "unparseable", "error": str(error)}, 400
+            ingest_tsdb.append(instance, body.get("service") or "unknown", vals, ts=body.get("ts"))
+            return {"result": "ok", "families": len(vals)}, 200
+
+        @self.route("/debug/slo")
+        def debug_slo(request):
+            try:
+                return {"result": _slo.status(store)}, 200
+            except Exception as error:  # noqa: BLE001 — a store mid-failover
+                # answers a diagnosable payload, not a traceback
+                return {
+                    "result": "slo_unavailable",
+                    "error": f"{type(error).__name__}: {error}",
+                }, 503
+
+    def slo_degraded(self) -> bool:
+        """``/health``'s SLO verdict: True when any rule burns; False
+        without a registered store or on any evaluation error, so that
+        health answers while the plane itself is sick."""
+        if self._obs_store is None:
+            return False
+        try:
+            from learningorchestra_tpu_torch.telemetry import slo as _slo
+
+            return bool(_slo.status(self._obs_store)["degraded"])
+        except Exception:  # noqa: BLE001
+            return False
+
+    def register_job_traces(self, jobs) -> None:
+        """``GET /jobs/<name>/trace`` (the record and its span tree) and
+        ``GET /jobs/<name>/profile``: the job's timeline as Chrome
+        trace-event JSON (a row per thread, byte counter tracks), or with
+        ``?format=summary`` the per-phase seconds, bytes and rows per
+        second with the job's record."""
 
         @self.route("/jobs/<job_name>/trace")
         def read_job_trace(request, job_name):
@@ -338,6 +476,42 @@ class WebApp:
             if record is None:
                 return {"result": "not_found"}, 404
             return {"result": record.trace_dict()}, 200
+
+        @self.route("/jobs/<job_name>/profile")
+        def read_job_profile(request, job_name):
+            from learningorchestra_tpu_torch.telemetry import profile as _profile
+
+            record = jobs.get(job_name)
+            if record is None:
+                return {"result": "not_found"}, 404
+            if record.trace is None:
+                return {"result": "no_trace"}, 404
+            if request.args.get("format") == "summary":
+                summary = _profile.trace_summary(record.trace)
+                summary["job"] = record.as_dict()
+                return {"result": summary}, 200
+            return _profile.chrome_trace(record.trace), 200
+
+    def register_job_routes(self, jobs) -> None:
+        """The job surface of a service holding a ``JobManager``
+        (reference ``utils/web.py:291-422``):
+
+        - ``GET /jobs`` — every tracked job's record;
+        - ``GET /jobs/<name>`` — one record (404 unknown);
+        - ``GET /jobs/<name>/trace`` and ``/profile`` — its span tree,
+          and its timeline as a Chrome trace (:meth:`register_job_traces`);
+        - ``GET /jobs/<name>/wait?timeout=S`` — long-poll until the job
+          ends (released by its done callback) or ``S`` seconds pass
+          (default 25, capped at ``LO_WEB_WAIT_CAP_S``): the terminal
+          record, or ``{"result": "timeout", ...}``, a re-poll hint; a
+          bare dataset name resolves to the newest job materialising it;
+        - ``DELETE /jobs/<name>`` — cooperative cancellation: 202 while
+          it propagates, 409 once the job is terminal, 404 unknown;
+        - ``GET /health`` — liveness, the ``job_wait`` feature probe and
+          ``degraded``, the SLO verdict (:meth:`slo_degraded`)."""
+        from learningorchestra_tpu_torch.core.jobs import TERMINAL_STATES
+
+        self.register_job_traces(jobs)
 
         @self.route("/jobs")
         def read_jobs(request):
@@ -390,7 +564,7 @@ class WebApp:
                     "result": "ok",
                     "service": self.name,
                     "job_wait": True,
-                    "degraded": False,
+                    "degraded": self.slo_degraded(),
                 }, 200
 
     def handle(self, request: Request) -> Response:
@@ -492,8 +666,8 @@ class TestClient:
     def __init__(self, app: WebApp):
         self.app = app
 
-    def get(self, path: str) -> Response:
-        return self.app.handle(Request("GET", path))
+    def get(self, path: str, headers=None) -> Response:
+        return self.app.handle(Request("GET", path, headers))
 
     def post(self, path: str, json: Any = None, data: bytes = None, headers=None) -> Response:
         """POST ``json`` as an ``application/json`` body, or the bytes

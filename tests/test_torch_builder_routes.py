@@ -194,7 +194,9 @@ import json
 from tests.test_torch_builder_routes import app_of
 ours, _, _ = app_of("port")
 theirs, _, _ = app_of("jax")
+# /health reads the SLO verdict, which publishes the lo_slo_burning gauges
 ours.get("/health")
+theirs.get("/health")
 print(json.dumps({
     side: {"status": r.status_code, "type": r.headers["Content-Type"], "body": r.get_data().decode()}
     for side, r in (("ours", ours.get("/metrics")), ("theirs", theirs.get("/metrics")))

@@ -110,6 +110,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "services.database_api", "services.projection", "services.data_type_handler",
         "services.histogram", "services.runner", "ops.projection", "ops.histogram",
         "core.wire", "core.shmring", "core.arbiter", "core.store_service", "utils.httpclient",
+        "telemetry.profile", "telemetry.stitch", "telemetry.tsdb", "telemetry.slo",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]
@@ -148,4 +149,36 @@ def test_the_runner_as_main_needs_cuda_and_loads_no_jax(tmp_path):
     assert "no CUDA device is available" in report["outcome"]
     assert "learningorchestra_tpu_torch.services.model_builder" in report["added"]  # the runner's imports
     assert [name for name in report["added"] if forbidden(name)] == []
+    assert not (tmp_path / "lo_data").exists()
+
+
+@pytest.mark.parametrize("service", ["model_builder", "database_api"])
+def test_one_service_as_main_needs_cuda_and_loads_no_jax(tmp_path, service):
+    """With ``LO_SERVICE`` and ``LO_PORT`` the runner serves one service,
+    on the card all the same: here it raises before it opens a store or
+    a port, and imports neither JAX nor the JAX package."""
+    env = dict(
+        os.environ, LO_DATA_DIR=str(tmp_path / "lo_data"), CUDA_VISIBLE_DEVICES="",
+        LO_SERVICE=service, LO_PORT="0",
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", _MAIN_PROBE], capture_output=True, text=True, cwd=_REPO_ROOT, env=env, timeout=120,
+    )
+    assert result.returncode == 0, result.stderr
+    report = json.loads(result.stdout.strip().splitlines()[-1])
+    assert "no CUDA device is available" in report["outcome"]
+    assert [name for name in report["added"] if forbidden(name)] == []
+    assert not (tmp_path / "lo_data").exists()
+
+
+@pytest.mark.parametrize("service,words", [("router", "Queue 1 item 5"), ("planner", "must be one of")])
+def test_the_runner_refuses_a_service_it_does_not_serve(tmp_path, service, words):
+    """``LO_SERVICE=router`` names the roadmap item the fleet router waits
+    for; an unknown name lists the seven."""
+    env = dict(os.environ, LO_DATA_DIR=str(tmp_path / "lo_data"), LO_SERVICE=service)
+    result = subprocess.run(
+        [sys.executable, "-m", "learningorchestra_tpu_torch.services.runner"],
+        capture_output=True, text=True, cwd=_REPO_ROOT, env=env, timeout=120,
+    )
+    assert result.returncode != 0 and words in result.stderr
     assert not (tmp_path / "lo_data").exists()

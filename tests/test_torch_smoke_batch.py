@@ -17,7 +17,7 @@ product build, its cached matrices and its labels; the image requests
 
 Here the apps, the serve plane and ``load_model`` run on the CPU, the
 sizes are cut, the timers return 0, the card's byte counters are
-stubbed (``base._account_h2d`` counts the CPU's copies too, and
+stubbed (``tests/torch_card_copies.py`` counts the CPU's copies, and
 ``torch.cuda.memory_allocated`` reads the cache's device entries), and
 the kernel launch counts (which only the card's kernels raise) are
 stubbed: on the card the phases fail unless every kernel launched.
@@ -31,12 +31,12 @@ import chip_smoke  # noqa: E402
 from learningorchestra_tpu.utils import dtypepolicy as jax_dtypepolicy  # noqa: E402
 from learningorchestra_tpu_torch import kernels  # noqa: E402
 from learningorchestra_tpu_torch.core import devcache  # noqa: E402
-from learningorchestra_tpu_torch.ml import base  # noqa: E402
 from learningorchestra_tpu_torch.ml.checkpoint import load_model  # noqa: E402
 from learningorchestra_tpu_torch.serve import ServePlane  # noqa: E402
 from learningorchestra_tpu_torch.services import images  # noqa: E402
 from learningorchestra_tpu_torch.services.model_builder import create_app  # noqa: E402
 from learningorchestra_tpu_torch.utils import dtypepolicy  # noqa: E402
+from tests.torch_card_copies import count_cpu_copies  # noqa: E402
 
 
 class Launches:
@@ -53,12 +53,6 @@ def _cached_device_bytes(*args):
     return sum(entry.nbytes for key, entry in devcache.global_devcache()._entries.items() if key[0] == devcache.CONTENT)
 
 
-def _counted_h2d(tensor):
-    with base._h2d_lock:
-        base._h2d["bytes"] += tensor.numel() * tensor.element_size()
-    return tensor
-
-
 @pytest.fixture()
 def on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "create_app", lambda store, **kw: create_app(store, device="cpu", **kw))
@@ -70,7 +64,7 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
     monkeypatch.setattr(torch.cuda, "memory_allocated", _cached_device_bytes)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *args, **kwargs: self)
-    monkeypatch.setattr(base, "_account_h2d", _counted_h2d)
+    count_cpu_copies(monkeypatch.setattr)
     monkeypatch.setattr(images, "create_app", lambda *args, create_app=images.create_app, **kw: create_app(
         *args, device="cpu", **kw))
     for name, value in (

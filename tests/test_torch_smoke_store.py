@@ -27,9 +27,9 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from learningorchestra_tpu_torch.core import devcache  # noqa: E402
-from learningorchestra_tpu_torch.ml import base  # noqa: E402
 from learningorchestra_tpu_torch.services.model_builder import create_app  # noqa: E402
-from tests.test_torch_smoke_batch import Launches, _counted_h2d  # noqa: E402
+from tests.test_torch_smoke_batch import Launches  # noqa: E402
+from tests.torch_card_copies import count_cpu_copies  # noqa: E402
 
 
 @pytest.fixture()
@@ -38,7 +38,7 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "STORE_DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "kernels", Launches())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
-    monkeypatch.setattr(base, "_account_h2d", _counted_h2d)
+    count_cpu_copies(monkeypatch.setattr)
     for name, value in (
         ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("BATCH_ROWS", 3_000), ("STORE_SHM_BYTES", 8 * 2**20),
     ):

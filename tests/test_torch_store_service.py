@@ -13,9 +13,10 @@ connection or HTTP errors, they raise the port's transport's
 (``utils/httpclient.py``), which ``RemoteStore`` catches; their own
 calls to the servers keep ``requests``.
 
-Left out (``NOT_PORTED``): the seven-process topology, which starts each
-service in a process of its own (``LO_SERVICE``), ROADMAP Queue 1 item
-4b.
+The seven-process topology (``test_multiprocess_stack_titanic``) runs
+too: a store server and seven runners, one a service (``LO_SERVICE``,
+``LO_PORT=0``), each started as ``main(device='cpu')``, driven by the
+JAX package's client (the port serves its routes).
 
 Below them: the cross-package parity of the frames (byte-identical
 ``encode_frame`` in v1, v2 and compressed form) and of the wire (each
@@ -24,6 +25,7 @@ refusal.
 """
 
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -39,9 +41,7 @@ from learningorchestra_tpu_torch.core.columns import Column as PortColumn
 from learningorchestra_tpu_torch.utils import httpclient
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_store_service.py")
-NOT_PORTED = {
-    "test_multiprocess_stack_titanic": None,   # one process a service: Queue 1 item 4b
-}
+NOT_PORTED: dict = {}
 # (text in the reference's tests, its count, the port's text)
 EDITS = (
     ('raise requests.ConnectionError("primary died mid-write")', 1,
@@ -50,6 +50,9 @@ EDITS = (
      'raise httpclient.HTTPError("500", response=self)'),
     ('raise rq.ConnectionError("died after the server applied")', 1,
      'raise httpclient.ConnectionError("died after the server applied")'),
+    ('                "-m",\n                "learningorchestra_tpu.services.runner",\n', 1,
+     '                "-c",\n'
+     '                "from learningorchestra_tpu.services.runner import main; main(device=\'cpu\')",\n'),
 )
 
 _source = REFERENCE_TESTS.read_text()
@@ -57,6 +60,8 @@ for _old, _count, _new in EDITS:
     assert _source.count(_old) == _count, _old
     _source = _source.replace(_old, _new)
 _source = _source.replace("learningorchestra_tpu.", "learningorchestra_tpu_torch.")
+# the client SDK stays the JAX package's: the port serves its routes
+_source = _source.replace("learningorchestra_tpu_torch.client", "learningorchestra_tpu.client")
 exec(compile(_source, str(REFERENCE_TESTS), "exec"), globals())  # noqa: S102
 for _name in NOT_PORTED:
     del globals()[_name]
@@ -66,7 +71,8 @@ def test_the_reference_tests_run_on_the_port():
     """The tests above use the port's store service and server."""
     assert RemoteStore is port_store_service.RemoteStore  # noqa: F821
     assert create_store_app is port_store_service.create_store_app  # noqa: F821
-    assert "learningorchestra_tpu." not in _source
+    assert set(re.findall(r"learningorchestra_tpu\.\w+", _source)) == {"learningorchestra_tpu.client"}
+    assert "from learningorchestra_tpu_torch.services.runner import main; main(device='cpu')" in _source
 
 
 # --- the two packages on one wire ----------------------------------------------

@@ -13,9 +13,9 @@ pointed at the port, on the CPU:
 - ``tests/test_integration.py``: all seven services of the port's runner
   (``start_all(ephemeral=True, device="cpu")``) driven by the JAX
   package's client, unchanged: ingest, projection, cast, histogram, a
-  build, a PCA plot, the client's error semantics. Left out:
-  ``test_client_pipeline_yields_one_stitched_trace`` (``GET
-  /traces/<cid>``: the cross-service trace stitcher is not ported).
+  build, a PCA plot, the client's error semantics, and one stitched
+  Chrome trace (``GET /traces/<cid>``) of a client-driven ingest,
+  projection and histogram, with a process row per service.
 
 Added here: the same walkthrough through the reference's apps and the
 port's, each over its own store: the projected and cast collections hold
@@ -86,7 +86,7 @@ _integration_source, _integration = _run(
     ],
 )
 
-NOT_PORTED = ("test_client_pipeline_yields_one_stitched_trace",)  # the trace stitcher
+NOT_PORTED = ()
 
 test_documented_walkthrough_runs_verbatim = _golden["test_documented_walkthrough_runs_verbatim"]
 test_clean_pipeline_matches_canonical_titanic_quality = _golden[
@@ -95,6 +95,7 @@ test_clean_pipeline_matches_canonical_titanic_quality = _golden[
 stack = _integration["stack"]
 test_titanic_walkthrough = _integration["test_titanic_walkthrough"]
 test_pretty_response_returns_json_string = _integration["test_pretty_response_returns_json_string"]
+test_client_pipeline_yields_one_stitched_trace = _integration["test_client_pipeline_yields_one_stitched_trace"]
 
 
 @pytest.fixture()
@@ -113,7 +114,8 @@ def test_the_reference_tests_run_on_the_port():
     assert set(re.findall(r"learningorchestra_tpu\.\w+", _integration_source)) == {"learningorchestra_tpu.client"}
     tests = [name for name in _integration if name.startswith("test_")]
     assert sorted(tests) == sorted(
-        ["test_titanic_walkthrough", "test_pretty_response_returns_json_string", *NOT_PORTED]
+        ["test_titanic_walkthrough", "test_pretty_response_returns_json_string",
+         "test_client_pipeline_yields_one_stitched_trace", *NOT_PORTED]
     )
 
 
