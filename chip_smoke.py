@@ -283,8 +283,11 @@ Phases, one JSON line each:
                  K7's sums form at the block's shape, 2 and 10 classes:
                  within K7's tolerances of the twin, divided by sum w
                  bit-equal to the weighted launch. Each timed cold, warm,
-                 on the profiler, beside its twin, its bound and (the sums)
-                 torch.var_mean. Then ``fit_sharded`` at 1,000,000 x 16
+                 on the profiler (L2 overwritten, and for K8′ evicted by
+                 reads), beside its twin and its bound; a call of
+                 masked_col_sums runs one kernel; the whole masked_stats
+                 (both passes) beside torch.var_mean, the one PyTorch call
+                 that gives both moments. Then ``fit_sharded`` at 1,000,000 x 16
                  through per-host feeding in child processes
                  (``chip_smoke.py multigpu-child``), each run's ranks
                  started together: (a) NCCL, one rank a card, with two
@@ -5901,8 +5904,8 @@ MULTIGPU_REPLACES = {
     ),
 }
 MULTIGPU_KERNELS = {
-    "masked_col_sums": ("col_sums_kernel", "sum_chunks_kernel"),
-    "masked_col_sums_centred": ("col_sums_kernel", "sum_chunks_kernel"),
+    "masked_col_sums": ("masked_sums_kernel",),
+    "masked_col_sums_centred": ("masked_sums_kernel",),
     "masked_standardize": ("standardize",),
     "logistic_loss_grad_sums": ("loss_grad_kernel", "sums_kernel"),
     "logistic_trial_losses_sums": ("trial_losses_kernel", "sums_kernel"),
@@ -5921,7 +5924,13 @@ MULTIGPU_GLOO_RANKS = 4          # run (c): ranks sharing card 0 over gloo
 MULTIGPU_GROUP_TIMEOUT_S = 120
 MULTIGPU_CHILD_TIMEOUT_S = 300
 MULTIGPU_CHILD_COMMAND = [sys.executable, os.path.abspath(__file__), "multigpu-child"]
+_VAR_MEAN_NOTE = (
+    "none for a pass alone: torch.var_mean gives both moments at once, and stands beside "
+    "the two passes together (masked_stats, the multigpu summary's masked_stats entry)"
+)
 MULTIGPU_LIBRARY = {
+    "masked_col_sums": _VAR_MEAN_NOTE,
+    "masked_col_sums_centred": _VAR_MEAN_NOTE,
     "masked_standardize": "no single PyTorch call gives ((x - mean) / scale) * w",
     "logistic_loss_grad_sums": "no PyTorch call gives the masked nll sums with their gradient",
     "logistic_trial_losses_sums": "no PyTorch call gives the masked nll sums at four points",
@@ -5966,17 +5975,42 @@ def _relative_error(got, want) -> float:
     return float((got - want).abs().max()) / scale
 
 
-def check_scaler_kernels(torch, flush) -> dict:
+def _kernels_a_call(torch, fn) -> list:
+    """The names of the CUDA kernels that one call of ``fn`` runs, from
+    the profiler's trace (the first of PROFILE_ATTEMPTS traces that shows
+    any: a trace can lose records, and after other phases in the process
+    every trace may show none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [event.name for event in prof.events()
+                 if "CUDA" in str(getattr(event, "device_type", ""))]
+        if names:
+            break
+    return names
+
+
+def check_scaler_kernels(torch, flush) -> tuple[dict, dict]:
     """K8′'s kernels against their plain twins on the same block: both
     passes of masked_col_sums within SCALER_SUM_RTOL of the largest sum, a
-    second launch bit identical; masked_stats' mean and scale within
-    SCALER_STAT_RTOL of the twins' (the constant column's scale 1);
-    masked_standardize bit-equal to its twin. Timed at every shape: event
-    ms cold (L2 overwritten) and warm, device ms cold, the twin's ms cold,
-    and beside the sums torch.var_mean over the valid rows (never used by
-    the port)."""
+    second launch bit identical, one kernel a call; masked_stats' mean and
+    scale within SCALER_STAT_RTOL of the twins' (the constant column's scale
+    1); masked_standardize bit-equal to its twin. Timed at every shape:
+    event ms cold (L2 overwritten) and warm, device ms cold and with L2
+    evicted by reads, the twin's ms cold. Returns the kernels' results and,
+    at the main path's shape, the event ms of one whole masked_stats (both
+    passes and the host's division between them) beside torch.var_mean over
+    the valid rows, the one PyTorch call that gives both moments (never
+    used by the port)."""
     names = ("masked_col_sums", "masked_col_sums_centred", "masked_standardize")
     results = {name: {"max_abs_err": 0.0, "by_shape": {}} for name in names}
+    read_flush = _ReadFlush(torch, flush.device)
+    stats_timing = None
     for rows, features, valid in SCALER_SHAPES:
         X, w = _scaler_inputs(torch, rows, features, valid, seed=rows + features)
         key = f"{rows}x{features}"
@@ -6014,29 +6048,53 @@ def check_scaler_kernels(torch, flush) -> dict:
             raise AssertionError(f"masked_standardize at {key}: a padded row is not zero")
         calls = {
             "masked_col_sums": (lambda: logistic.masked_col_sums(X, w),
-                                lambda: logistic._masked_col_sums(X, w),
-                                lambda: torch.var_mean(X[:valid], dim=0, correction=0)),
+                                lambda: logistic._masked_col_sums(X, w)),
             "masked_col_sums_centred": (lambda: logistic.masked_col_sums(X, w, mean64),
-                                        lambda: logistic._masked_col_sums(X, w, mean64),
-                                        lambda: torch.var_mean(X[:valid], dim=0, correction=0)),
+                                        lambda: logistic._masked_col_sums(X, w, mean64)),
             "masked_standardize": (lambda: logistic.standardize(X, mean, scale, w),
-                                   lambda: logistic._standardize(X, mean, scale, w), None),
+                                   lambda: logistic._standardize(X, mean, scale, w)),
         }
-        for name, (kernel, plain, library) in calls.items():
+        for name, (kernel, plain) in calls.items():
+            launched = None     # not measured: every trace lost its records
+            if name != "masked_standardize":
+                launched = _kernels_a_call(torch, kernel)
+                if not launched:
+                    LOST_TRACES.append({"kernels": list(MULTIGPU_KERNELS[name]), "launches": 0,
+                                        "expected": 1, "check": "one kernel a call"})
+                elif len(launched) != 1 or not all(
+                        wanted in launched[0] for wanted in MULTIGPU_KERNELS[name]):
+                    raise AssertionError(f"{name} at {key}: a call ran {launched}, not one kernel")
             bound_ms, bound_by = _scaler_bound(name, rows, features)
             results[name]["by_shape"][key] = {
                 "rows": rows, "valid_rows": valid, "features": features,
+                "kernels_a_call": len(launched) if launched else None,
                 "ms": _event_ms(torch, kernel, 20, flush),
                 "warm_ms": _event_ms(torch, kernel, 50),
                 "device_ms": _device_ms(torch, kernel, MULTIGPU_KERNELS[name], 20, flush),
+                "device_ms_clean_l2": _device_ms(torch, kernel, MULTIGPU_KERNELS[name], 20, read_flush),
                 "plain_ms": _event_ms(torch, plain, 5, flush),
-                "library_ms": _event_ms(torch, library, 20, flush) if library else None,
+                "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+        if stats_timing is None:   # the main path's shape, first
+            whole = lambda: logistic.masked_stats(X, w)   # noqa: E731
+            library = lambda: torch.var_mean(X[:valid], dim=0, correction=0)   # noqa: E731
+            stats_timing = {
+                "rows": rows, "valid_rows": valid, "features": features,
+                "masked_stats_ms": _event_ms(torch, whole, 20, flush),
+                "masked_stats_clean_l2_ms": _event_ms(torch, whole, 20, read_flush),
+                "masked_stats_warm_ms": _event_ms(torch, whole, 50),
+                "var_mean_ms": _event_ms(torch, library, 20, flush),
+                "var_mean_clean_l2_ms": _event_ms(torch, library, 20, read_flush),
+                "var_mean_warm_ms": _event_ms(torch, library, 50),
+                "bound_ms": sum(_scaler_bound(name, rows, features)[0]
+                                for name in ("masked_col_sums", "masked_col_sums_centred")),
+            }
+    del read_flush
     main_key = f"{SCALER_SHAPES[0][0]}x{SCALER_SHAPES[0][1]}"
     for result in results.values():
         result.update(result["by_shape"][main_key])
-    return results
+    return results, stats_timing
 
 
 def check_k7_sums(torch, flush) -> dict:
@@ -6304,7 +6362,8 @@ def phase_multigpu(torch, card: str) -> list:
     summary entries (launches: rank 0 of run (b), each run's beside)."""
     started = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    results = {**check_scaler_kernels(torch, flush), **check_k7_sums(torch, flush)}
+    scaler_results, stats_timing = check_scaler_kernels(torch, flush)
+    results = {**scaler_results, **check_k7_sums(torch, flush)}
     del flush
     X, y = bench_synthetic(FIT_ROWS)
     estimator = logistic.LogisticRegression()
@@ -6342,6 +6401,7 @@ def phase_multigpu(torch, card: str) -> list:
         summary["nvidia_smi"] = card
         emit(summary)
     emit({"phase": "multigpu", "wall_s": time.perf_counter() - started,
+          "masked_stats": stats_timing,
           "kernels": {name: {key: value for key, value in result.items()}
                       for name, result in results.items()}})
     entries = []
@@ -6356,6 +6416,7 @@ def phase_multigpu(torch, card: str) -> list:
             **{field: result[field] for field in (
                 "max_abs_err", "ms", "warm_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
+            **({"device_ms_clean_l2": result["device_ms_clean_l2"]} if "device_ms_clean_l2" in result else {}),
             **({"library_note": MULTIGPU_LIBRARY[name]} if name in MULTIGPU_LIBRARY else {}),
             **{field: result[field] for field in ("by_shape", "by_classes") if field in result},
         })

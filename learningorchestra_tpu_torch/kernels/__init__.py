@@ -332,7 +332,7 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_scaler(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_masked_col_sums.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # X, w, mean (or null: pass 1), partials, out
+        ptr, ptr, ptr, ptr, ptr, ptr,        # X, w, mean (or null: pass 1), partials, ticket, out
         c_int, c_int, c_int, c_int,          # rows, F, chunks, rows/chunk
         c_int, ptr,                          # device, stream
     ]
@@ -394,6 +394,26 @@ def row_chunks(rows: int) -> tuple[int, int]:
     chunks = max(1, min(MAX_CHUNKS, -(-rows // MIN_CHUNK_ROWS)))
     per_chunk = max(1, -(-rows // chunks))
     return -(-rows // per_chunk), per_chunk
+
+
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def zeroed_scratch(device, count: int):
+    """At least ``count`` int32 zeros on ``device``, kept for the current
+    stream: the tickets and counts of the kernels whose last block zeroes
+    them again (K5, K8′'s column sums; a launch on one stream never
+    overlaps another's use). Made once, and again only when a call needs
+    more."""
+    import torch
+
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _scratch_lock:
+        scratch = _scratch.get(key)
+        if scratch is None or scratch.numel() < count:
+            scratch = _scratch[key] = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        return scratch
 
 
 @functools.lru_cache(maxsize=None)

@@ -859,7 +859,7 @@ __global__ void __launch_bounds__(kSumThreads) level_histograms_kernel(
 //     (consecutive chunks in chunk order by one thread, then those
 //     segments in segment order; a function of the shape alone). The
 //     counts and the tickets live in a scratch the wrapper keeps zeroed
-//     (ml/trees.py `_zeroed_scratch`): the last block reads its tree's
+//     (kernels.zeroed_scratch): the last block reads its tree's
 //     counts and zeroes them, and resets its ticket, so no memset runs.
 //     Sums past one block's partials (chunks x cells over
 //     trees._LEAF_FUSE_VALUES) or past its shared memory (windows of

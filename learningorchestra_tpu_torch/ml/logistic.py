@@ -964,12 +964,38 @@ def _masked_col_sums(X, w, mean=None):
     return torch.cat([terms.sum(dim=0), wd.sum()[None]])
 
 
+# K8′'s column sums split a block's rows in chunks of their own (not
+# kernels.row_chunks): as many as make _SUMS_BLOCKS blocks with the feature
+# windows, two resident blocks of 512 threads on each of an H100's 132 SMs
+# (scaler.cu's launch bounds: one wave), and no more than leave each at
+# least _SUMS_MIN_CHUNK_ROWS rows (one chunk below that). Rows of up to 64
+# features are one window, wider rows windows of 32 (scaler.cu
+# `window_features`). A function of (rows, F) alone, so that the order of
+# every float64 add, and with it a fit, repeats bit for bit.
+_SUMS_BLOCKS = 2 * 132
+_SUMS_MIN_CHUNK_ROWS = 1024
+
+
+def _sums_windows(num_features: int) -> int:
+    return 1 if num_features <= 64 else -(-num_features // 32)
+
+
+def _sums_chunks(rows: int, num_features: int) -> tuple[int, int]:
+    """``(chunks, rows per chunk)`` of K8′'s column sums, with no empty
+    chunk (none at 0 rows: the kernel then runs one block of no rows)."""
+    by_blocks = -(-_SUMS_BLOCKS // _sums_windows(num_features))
+    chunks = max(1, min(by_blocks, rows // _SUMS_MIN_CHUNK_ROWS))
+    per_chunk = max(1, -(-rows // chunks))
+    return -(-rows // per_chunk), per_chunk
+
+
 def masked_col_sums(X, w, mean=None):
     """A block's float64 column sums weighted by its rows' ``w``, and the
     sum of ``w``: ``(F + 1,)``. Pass 1 (``mean=None``) sums ``w x``; the
     centred pass sums ``w (x - mean)^2`` about the float64 ``mean``. On a
-    CUDA tensor the kernel (``kernels/csrc/scaler.cu``) adds in a fixed
-    order: its chunks' sums in chunk order (``kernels.row_chunks``)."""
+    CUDA tensor one launch of the kernel (``kernels/csrc/scaler.cu``) adds
+    in an order fixed by the shape: the chunks of :func:`_sums_chunks`, its
+    last block adding their sums."""
     _check_block(X, w, *(() if mean is None else (mean,)))
     if mean is not None and (mean.dtype != torch.float64 or tuple(mean.shape) != (X.shape[1],)):
         raise TypeError("mean must be float64, one a feature")
@@ -977,14 +1003,16 @@ def masked_col_sums(X, w, mean=None):
         return _masked_col_sums(X, w, mean)
     kernels.check_operands(X, w, *(() if mean is None else (mean,)))
     rows, num_features = X.shape
-    chunks, per_chunk = kernels.row_chunks(rows)
-    partials = torch.empty((max(chunks, 1), num_features + 1), dtype=torch.float64, device=X.device)
+    chunks, per_chunk = _sums_chunks(rows, num_features)
+    chunks = max(chunks, 1)
+    partials = torch.empty((chunks, num_features + 1), dtype=torch.float64, device=X.device)
+    ticket = kernels.zeroed_scratch(X.device, 1)
     out = torch.empty(num_features + 1, dtype=torch.float64, device=X.device)
     kernels.launch(
         "masked_col_sums" if mean is None else "masked_col_sums_centred", "lo_masked_col_sums",
         X.data_ptr(), w.data_ptr(), None if mean is None else mean.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), rows, num_features, chunks, per_chunk,
-        X.device.index, _stream(X),
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), rows, num_features, chunks,
+        per_chunk, X.device.index, _stream(X),
     )
     return out
 

@@ -1245,23 +1245,6 @@ def route(bins, node, feature, bin_index):
     return out
 
 
-_scratch: dict = {}
-_scratch_lock = threading.Lock()
-
-
-def _zeroed_scratch(device: torch.device, count: int) -> torch.Tensor:
-    """At least ``count`` int32 zeros on ``device``, kept for the current
-    stream: K5's tickets and counts, which its last block zeroes again
-    (a launch on one stream never overlaps another's use). Made once, and
-    again only when a call needs more."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    with _scratch_lock:
-        scratch = _scratch.get(key)
-        if scratch is None or scratch.numel() < count:
-            scratch = _scratch[key] = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
-        return scratch
-
-
 def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
     """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5); a
     forest's ``leaf_of_row (T, rows)`` and ``channels (T, rows, K)`` give
@@ -1301,7 +1284,7 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
     device = channels.device
     if integer:
         tiling = _leaf_count_tiling(rows, n_leaves, num_channels)
-        scratch = _zeroed_scratch(device, trees * (1 + n_leaves * num_channels))
+        scratch = kernels.zeroed_scratch(device, trees * (1 + n_leaves * num_channels))
         kernels.launch(
             "leaf_sums", "lo_leaf_counts",
             leaf_of_row.data_ptr(), channels.data_ptr(), scratch.data_ptr(), out.data_ptr(),
@@ -1312,7 +1295,7 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
     tiling = _leaf_warps(n_leaves, num_channels)
     chunks, per_chunk = kernels.row_chunks(rows)
     fused = _leaf_fused(chunks, tiling, n_leaves, num_channels)
-    tickets = _zeroed_scratch(device, trees) if fused else None
+    tickets = kernels.zeroed_scratch(device, trees) if fused else None
     # one window's partials of each tree, reused by every pass
     partials = torch.empty(
         (trees, chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=device
