@@ -5,8 +5,9 @@ data services, ``POST /models/sweep``, the runner's kill -9 drill), its
 batch predictions lane with the device cache, the stack over the
 networked store (a replicated pair of store servers, failover), the
 ``bf16`` feature policy, the lr fit over ranks (``fit_sharded``: rows
-sharded over ``torch.distributed`` processes), and one process a service
-with the observability plane, on one CUDA card.
+sharded over ``torch.distributed`` processes), one process a service
+with the observability plane, and the stack over two shard groups with
+CSVs ingested natively in slabs, on one CUDA card.
 
 Run from the repository root, with one card visible:
 
@@ -19,6 +20,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py store            # the stack over a primary and a follower store server
     python3 chip_smoke.py multigpu         # K8′, K7's sums form, fit_sharded over ranks
     python3 chip_smoke.py services         # a store server and seven LO_SERVICE runners
+    python3 chip_smoke.py shards           # two replicated shard groups, slabbed native CSV ingest
 
 Phases, one JSON line each:
 
@@ -256,7 +258,29 @@ Phases, one JSON line each:
                  the follower's promotion time and loss window (0), an
                  async build and a batch request with the values from
                  before. K1-K7 and K6 must launch during the phase.
-12. bf16       — in a child process under ``LO_DTYPE_POLICY=bf16``: K1,
+12. shards     — two shard groups, each a primary store server (sync
+                 replication) and its follower (automatic promotion), as
+                 child processes; the seven services in this process over
+                 ``connect("p0,f0;p1,f1")`` (a ``ShardedStore``, 8,192-row
+                 stripes). bench.py's product rows and a 1,000,000-row
+                 test file as CSVs through ``POST /files`` (the large one
+                 natively in 5 slabs of ``LO_INGEST_SLAB_BYTES``) and
+                 ``PATCH /fieldtypes``: every collection byte for byte
+                 the Python parse's in an in-process store, before and
+                 after the cast; each group's block rows as
+                 ``ShardLayout(2, 8192)`` places them; one native parse
+                 a slab, no fallback; the shard map. A sync build and a
+                 gb batch request held to the in-process store's; ``kill
+                 -9`` of group 1's primary (promotion s, loss window 0)
+                 and a batch request with the labels from before;
+                 model_builder's ``lo_store_shard_*`` gauges for both
+                 groups. K1-K7 and K6 must launch during the phase. The
+                 1,000,000-row CSV's ingest wall three ways (native slabs
+                 over the shards, native whole and Python whole in
+                 process), the build's and the batch request's walls
+                 and ``load_data`` beside the store phase's one group.
+
+13. bf16       — in a child process under ``LO_DTYPE_POLICY=bf16``: K1,
                  K6 (tree lanes, a thread a row, rows from global memory)
                  and K7 (both entry points, 2 and 10 classes) on bfloat16
                  X bit-equal to their float32 launches on the widened X
@@ -273,7 +297,7 @@ Phases, one JSON line each:
                  bfloat16); a λ sweep whose payload stays float32. Its
                  metrics beside the batch phase's float32 build's.
 
-13. multigpu   — K8′ on the card against its plain twins: masked_col_sums
+14. multigpu   — K8′ on the card against its plain twins: masked_col_sums
                  (pass 1 and the centred pass 2) and masked_standardize on
                  one rank's block of bench.py's 1,000,000 rows (padded to
                  1,048,576, the padding masked) and on 4,096 rows of 1, 5,
@@ -303,7 +327,7 @@ Phases, one JSON line each:
                  ranks, cards, ranks a card, walls, host seconds in
                  collectives, launches a rank).
 
-14. services   — a store server and seven runner processes, one a service
+15. services   — a store server and seven runner processes, one a service
                  (``LO_SERVICE``, ``LO_PORT``), each on the card, every
                  collector ticking each second, ``LO_PLANE_MEMBERS`` naming
                  all seven. Under one ``X-Correlation-Id``: the Titanic
@@ -5367,6 +5391,371 @@ def _roads_delta(now: dict, before: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The sharded store: two replicated shard groups, CSVs ingested natively
+# in slabs through the database service
+# --------------------------------------------------------------------------
+
+SHARDS_GROUPS = 2
+SHARDS_STRIPE_ROWS = 8192      # the reference's default stripe (core/shardmap.DEFAULT_STRIPE_ROWS)
+SHARDS_SLABS = 5               # LO_INGEST_SLAB_BYTES is set so that the 1,000,000-row CSV parses in 5
+SHARDS_DEVICE = None           # the stack's device: the CUDA card
+SHARDS_FIELDS = tuple(f"f{i}" for i in range(FEATURES)) + ("label",)
+SHARDS_INGEST_TIMEOUT_S = 600
+
+
+def _write_product_csv(path: str, X: np.ndarray, y: np.ndarray) -> None:
+    """bench.py's rows as a CSV: each value the shortest text that reads
+    back as the same float64, the label an integer."""
+    columns = [list(map(repr, X[:, i].astype(np.float64).tolist())) for i in range(X.shape[1])]
+    columns.append(list(map(str, y.tolist())))
+    with open(path, "w", newline="") as handle:
+        handle.write(",".join(SHARDS_FIELDS) + "\n")
+        handle.writelines(",".join(row) + "\n" for row in zip(*columns))
+
+
+def _expected_slabs(path: str, slab_bytes: int) -> int:
+    """The slabs ``core/ingest._ingest_slabbed`` cuts ``path`` into: a
+    slab ends at the first record past ``slab_bytes`` (the file holds no
+    quotes, so every line ends a record)."""
+    slabs, filled = 0, 0
+    with open(path, encoding="utf-8", newline="") as handle:
+        handle.readline()
+        for line in handle:
+            filled += len(line)
+            if filled >= slab_bytes:
+                slabs, filled = slabs + 1, 0
+    return slabs + (filled > 0)
+
+
+def _python_ingest(store, name: str, path: str) -> float:
+    """``ingest_csv`` as it runs on a host without the native loader: the
+    Python parse of the whole file, the same hand-off, the metadata of
+    ``POST /files`` with ``file://<path>``; returns its wall."""
+    from learningorchestra_tpu_torch.core import ingest
+
+    started = time.perf_counter()
+    ingest.write_ingest_metadata(store, name, "file://" + path)
+    header, raw_columns = ingest._python_raw_columns(path)
+    ingest._insert_parsed(store, name, header, raw_columns, 1, None)
+    store.update_one(name, {"_id": 0}, {"finished": True, "fields": header})
+    return time.perf_counter() - started
+
+
+def _column_bytes(column) -> tuple:
+    meta, buffers = column.wire_parts()
+    return meta, [np.ascontiguousarray(buffer).view(np.uint8) for buffer in buffers]
+
+
+def _same_collection(what: str, got, want, name: str) -> None:
+    """``name`` in ``got`` equals ``name`` in ``want``: the metadata
+    document (less its creation time) and every column, byte for byte."""
+    metadata = [
+        {key: value for key, value in store.find_one(name, {"_id": 0}).items() if key != "time_created"}
+        for store in (got, want)
+    ]
+    if metadata[0] != metadata[1]:
+        raise AssertionError(f"shards: {what}: {name}'s metadata {metadata[0]} is not {metadata[1]}")
+    fields = ["_id", *SHARDS_FIELDS]
+    ours, theirs = got.read_column_arrays(name, fields), want.read_column_arrays(name, fields)
+    for field in fields:
+        (our_meta, our_buffers), (their_meta, their_buffers) = _column_bytes(ours[field]), _column_bytes(theirs[field])
+        if our_meta != their_meta or len(our_buffers) != len(their_buffers) or not all(
+            np.array_equal(a, b) for a, b in zip(our_buffers, their_buffers)
+        ):
+            raise AssertionError(f"shards: {what}: {name}.{field} differs ({our_meta} against {their_meta})")
+
+
+def _placement(rows: int, groups: int, stripe_rows: int) -> list:
+    """Block rows a group holds of ids 1..``rows``, by the port's
+    ``ShardLayout`` (the reference's placement, tests/test_torch_shardstore.py)."""
+    from learningorchestra_tpu_torch.core.shardmap import ShardLayout
+
+    layout = ShardLayout(groups, stripe_rows)
+    held = [0] * groups
+    for stripe in range(-(-rows // stripe_rows)):
+        held[layout.shard_of_stripe(stripe)] += min(stripe_rows, rows - stripe * stripe_rows)
+    return held
+
+
+def _held_as_placed(sharded, name: str, rows: int) -> list:
+    held = [group.collection_block_rows(name) for group in sharded.groups]
+    placed = _placement(rows, len(sharded.groups), SHARDS_STRIPE_ROWS)
+    if held != placed or sum(held) != rows:
+        raise AssertionError(f"shards: {name}'s groups hold {held} block rows, placed {placed}")
+    return held
+
+
+def _shard_gauges(text: str) -> dict:
+    """``lo_store_shard_*`` samples of a ``/metrics`` text, by shard."""
+    gauges: dict = {}
+    for line in text.splitlines():
+        if line.startswith("lo_store_shard_") and '{shard="' in line:
+            name, rest = line.split("{", 1)
+            shard = rest.split('"')[1]
+            gauges.setdefault(shard, {})[name] = float(line.rsplit(" ", 1)[1])
+    return gauges
+
+
+def _wait_ingested(store, name: str) -> None:
+    deadline = time.time() + SHARDS_INGEST_TIMEOUT_S
+    while time.time() < deadline:
+        metadata = store.find_one(name, {"_id": 0})
+        if metadata and metadata.get("finished"):
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"shards: the ingest of {name} never finished")
+
+
+@contextlib.contextmanager
+def _slabs_and_stripes(slab_bytes: int):
+    """The knobs of the phase: ``core/ingest._SLAB_BYTES`` (what
+    ``LO_INGEST_SLAB_BYTES`` sets when the module loads) and
+    ``LO_SHARD_STRIPE_ROWS``, each restored after."""
+    from learningorchestra_tpu_torch.core import ingest
+
+    slab_before, stripe_before = ingest._SLAB_BYTES, os.environ.get("LO_SHARD_STRIPE_ROWS")
+    ingest._SLAB_BYTES = slab_bytes
+    os.environ["LO_SHARD_STRIPE_ROWS"] = str(SHARDS_STRIPE_ROWS)
+    try:
+        yield
+    finally:
+        ingest._SLAB_BYTES = slab_before
+        if stripe_before is None:
+            os.environ.pop("LO_SHARD_STRIPE_ROWS", None)
+        else:
+            os.environ["LO_SHARD_STRIPE_ROWS"] = stripe_before
+
+
+def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
+    """The stack over two shard groups. Each group is a primary (sync
+    replication) and its follower (automatic promotion) as store server
+    child processes; the seven services run in this process on the card
+    over ``connect("p0,f0;p1,f1")``, a ``ShardedStore`` striping 8,192-row
+    stripes over both. bench.py's product rows (100,000 × 16 and the
+    label) and a 1,000,000-row test file of the same columns go in as
+    CSVs through ``POST /files``, the large one natively in at least 4
+    slabs (``LO_INGEST_SLAB_BYTES``), then through ``PATCH /fieldtypes``.
+    Held, before and after the cast: each collection equals the same CSV
+    ingested whole by the Python parser into an in-process
+    ``InMemoryStore``, byte for byte; each group's block rows are what
+    ``ShardLayout(2, 8192)`` places there; the native parser ran once a
+    slab and never fell back; the shard map says 2 groups of 8,192-row
+    stripes. With the launch counts set to 0: a sync product build whose
+    metrics equal the in-process store's build's, a gb batch request
+    over the 1,000,000 rows whose labels equal the in-process request's.
+    Then ``kill -9`` of group 1's primary: its follower's promotion
+    (seconds, a loss window of 0), a batch request with the labels from
+    before, the groups' block rows as placed, model_builder's
+    ``/metrics`` with the shard gauges of both groups. K1-K7 and K6
+    (both forwards) must launch in the phase. The 1,000,000-row CSV's
+    ingest wall three ways: native in slabs over the shards, native
+    whole and Python whole into an in-process store."""
+    import signal
+
+    from learningorchestra_tpu_torch.core import ingest
+    from learningorchestra_tpu_torch.core.shardmap import SHARDMAP_COLLECTION, SHARDMAP_DOC_ID
+    from learningorchestra_tpu_torch.core.shardstore import ShardedStore
+    from learningorchestra_tpu_torch.core.store_service import connect, probe_health
+    from learningorchestra_tpu_torch.native import loader
+    from learningorchestra_tpu_torch.ops.dtype import convert_field_types
+    from learningorchestra_tpu_torch.services import runner
+
+    started = time.perf_counter()
+    numbers = {field: "number" for field in SHARDS_FIELDS}
+    with tempfile.TemporaryDirectory() as folder:
+        X, y = bench_synthetic(FIT_ROWS)
+        product_csv, test_csv = os.path.join(folder, "product.csv"), os.path.join(folder, "test_1m.csv")
+        _write_product_csv(product_csv, X[:PRODUCT_ROWS], y[:PRODUCT_ROWS])
+        X, y = bench_synthetic(BATCH_ROWS, 2)
+        _write_product_csv(test_csv, X, y)
+        del X, y
+        files = {"bench_train": product_csv, "bench_test": product_csv, BATCH_TEST: test_csv}
+        rows = {"bench_train": PRODUCT_ROWS, "bench_test": PRODUCT_ROWS, BATCH_TEST: BATCH_ROWS}
+        test_bytes = os.path.getsize(test_csv)
+        slab_bytes = -(-test_bytes // SHARDS_SLABS)
+        slabs = _expected_slabs(test_csv, slab_bytes)
+        if slabs < 4 or os.path.getsize(product_csv) >= slab_bytes:
+            raise AssertionError(f"shards: the test CSV cuts into {slabs} slabs of {slab_bytes} bytes")
+        csv_s = time.perf_counter() - started
+
+        # the in-process references: the Python parse whole (what every
+        # collection is held to), and the native parse whole
+        local, native_local = InMemoryStore(), InMemoryStore()
+        python_s = {name: _python_ingest(local, name, path) for name, path in files.items()}
+        loader.reset_native_stats()
+        with _slabs_and_stripes(0):
+            native_started = time.perf_counter()
+            ingest.write_ingest_metadata(native_local, BATCH_TEST, "file://" + test_csv)
+            ingest.ingest_csv(native_local, BATCH_TEST, "file://" + test_csv)
+            native_s = time.perf_counter() - native_started
+        _same_collection("the native parse in process", native_local, local, BATCH_TEST)
+        del native_local
+
+        ports = [(_free_port(), _free_port()) for _ in range(SHARDS_GROUPS)]
+        urls = [(f"http://127.0.0.1:{p}", f"http://127.0.0.1:{f}") for p, f in ports]
+        primaries, followers, servers, sharded = [], [], [], None
+        try:
+            boot_started = time.perf_counter()
+            for group, ((p_port, _), (_, f_url)) in enumerate(zip(ports, urls)):
+                primaries.append(_StoreServer(folder, f"primary{group}", p_port, {
+                    "LO_REPLICATE": "1", "LO_STORE_SYNC_REPL": "1",
+                    "LO_STORE_ACK_TIMEOUT_S": STORE_ACK_TIMEOUT_S, "LO_PEERS": f_url,
+                }))
+            for primary in primaries:
+                primary.wait_serving()
+            for group, ((_, f_port), (p_url, _)) in enumerate(zip(ports, urls)):
+                followers.append(_StoreServer(folder, f"follower{group}", f_port, {
+                    "LO_PRIMARY_URL": p_url, "LO_PEERS": p_url, "LO_AUTO_PROMOTE_S": STORE_AUTO_PROMOTE_S,
+                }))
+            for follower in followers:
+                follower.wait_serving()
+            boot_s = time.perf_counter() - boot_started
+
+            with _slabs_and_stripes(slab_bytes):
+                sharded = connect(";".join(f"{p_url},{f_url}" for p_url, f_url in urls))
+                if not isinstance(sharded, ShardedStore) or len(sharded.groups) != SHARDS_GROUPS:
+                    raise AssertionError(f"shards: connect() gave {sharded!r}")
+                for group in sharded.groups:
+                    group.shm_bytes = STORE_SHM_BYTES
+                _, servers = runner.start_all(
+                    sharded, os.path.join(folder, "images"), ephemeral=True,
+                    models_dir=os.path.join(folder, "models"), device=SHARDS_DEVICE,
+                )
+                clients = _service_clients(servers)
+                walls: dict = {}
+                for name, path in files.items():
+                    ingest_started = time.perf_counter()
+                    _timed(walls, f"POST /files {name}", clients["database_api"], "POST", "/files",
+                           {"filename": name, "url": "file://" + path}, expect=(201,))
+                    _wait_ingested(sharded, name)
+                    walls[f"ingest {name}"] = time.perf_counter() - ingest_started
+            parses = loader.native_stats()
+            if parses["fallbacks"] or parses["native_parses"] != 1 + 2 + slabs:
+                raise AssertionError(
+                    f"shards: the native parser ran {parses} times, not once a slab ({slabs}) and once "
+                    "a whole file (3)"
+                )
+            held = {}
+            for name in files:
+                _same_collection("the ingest over the shards", sharded, local, name)
+                held[name] = _held_as_placed(sharded, name, rows[name])
+            shardmap = sharded.groups[0].find_one(SHARDMAP_COLLECTION, {"_id": SHARDMAP_DOC_ID})
+            if (shardmap or {}).get("shards") != SHARDS_GROUPS or shardmap.get("stripe_rows") != SHARDS_STRIPE_ROWS:
+                raise AssertionError(f"shards: the shard map is {shardmap}")
+            for name in files:
+                _timed(walls, f"PATCH /fieldtypes {name}", clients["data_type_handler"], "PATCH",
+                       f"/fieldtypes/{name}", numbers, expect=(200,))
+                convert_field_types(local, name, numbers)
+                _same_collection("the cast over the shards", sharded, local, name)
+
+            # the in-process store's build and batch request: what the
+            # shards' are held to
+            server = ServerThread(create_app(local, models_dir=os.path.join(folder, "local_models"))).start()
+            try:
+                client = _Client(server.port)
+                local_build = _store_build(client, local, "bench_test", False)
+                local_batch = _batch_request(torch, client, local, "gb", "batch_gb")
+            finally:
+                server.stop()
+            want_labels = _labels(local, "batch_gb")
+
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            builder = next(s for s in servers if s.canonical_port == runner.SERVICES["model_builder"])
+            client = _Client(builder.port)
+            build = _store_build(client, sharded, "bench_test", False)
+            if build["metrics"] != local_build["metrics"]:
+                raise AssertionError(
+                    f"shards: the build's metrics {build['metrics']} are not the in-process store's "
+                    f"{local_build['metrics']}"
+                )
+            batch = _batch_request(torch, client, sharded, "gb", "batch_gb")
+            _same_labels("the batch request over the shards", _labels(sharded, "batch_gb"), want_labels)
+
+            # failover: kill -9 group 1's primary, its follower takes over
+            f_url = urls[1][1]
+            primaries[1].process.send_signal(signal.SIGKILL)
+            killed = time.perf_counter()
+            primaries[1].process.wait(timeout=15)
+            promoted, health = None, None
+            while time.perf_counter() - killed < STORE_PROMOTE_TIMEOUT_S:
+                health = probe_health(f_url, timeout=1.0)
+                if health and health.get("writable"):
+                    promoted = time.perf_counter() - killed
+                    break
+                time.sleep(0.02)
+            if promoted is None:
+                raise AssertionError(
+                    "shards: group 1's follower never promoted:\n" + "\n".join(followers[1].lines()[-20:])
+                )
+            loss = health.get("loss_window") or {}
+            if loss.get("records") != 0 or health.get("term", 0) < 2:
+                raise AssertionError(f"shards: the promotion lost acknowledged records: {health}")
+            after_kill = _batch_request(torch, client, sharded, "gb", "batch_gb_failover")
+            _same_labels("the batch request after the kill", _labels(sharded, "batch_gb_failover"), want_labels)
+            held_after = {name: _held_as_placed(sharded, name, rows[name]) for name in files}
+            gauges = _shard_gauges(_metrics_text(client))
+            families = {"lo_store_shard_collections", "lo_store_shard_wal_bytes", "lo_store_shard_spill_bytes"}
+            if sorted(gauges) != [str(group) for group in range(SHARDS_GROUPS)] or any(
+                set(found) != families for found in gauges.values()
+            ):
+                raise AssertionError(f"shards: model_builder's /metrics shows the shard gauges {gauges}")
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+            missing = [name for name in BUILD_KERNELS if launches[name] == 0]
+            if missing:
+                raise AssertionError(f"shards: the phase never launched {missing}")
+            client_now_at = sharded.groups[1].base_url
+        finally:
+            for server in servers:
+                server.stop()
+            if sharded is not None:
+                sharded.close()
+            for child in primaries + followers:
+                child.stop()
+    one_group = (store_record or {}).get("batch_over_ring")
+    record = {
+        "phase": "shards",
+        "groups": SHARDS_GROUPS,
+        "stripe_rows": SHARDS_STRIPE_ROWS,
+        "rows": rows,
+        "test_csv_bytes": test_bytes,
+        "slab_bytes": slab_bytes,
+        "slabs": slabs,
+        "native": parses,
+        "csv_write_s": csv_s,
+        "boot_s": boot_s,
+        "ingest_1m_s": {
+            "native_slabbed_over_shards": walls[f"ingest {BATCH_TEST}"],
+            "native_whole_in_process": native_s,
+            "python_whole_in_process": python_s[BATCH_TEST],
+        },
+        "walls_s": walls,
+        "block_rows": held,
+        "block_rows_after_kill": held_after,
+        "shardmap": shardmap,
+        "build": build,
+        "local_build": local_build,
+        "batch": batch,
+        "local_batch": local_batch,
+        "one_group_batch": one_group,
+        "failover": {
+            "promote_s": promoted,
+            "term": health["term"],
+            "loss_window": loss,
+            "client_now_at": client_now_at == f_url,
+            "batch": after_kill,
+        },
+        "shard_gauges": gauges,
+        "launches": {name: launches[name] for name in BUILD_KERNELS},
+        "phase_s": time.perf_counter() - started,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
+# --------------------------------------------------------------------------
 # LO_DTYPE_POLICY=bf16, in a child process
 # --------------------------------------------------------------------------
 
@@ -6779,7 +7168,7 @@ def check_bounds(summary) -> None:
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "store", "bf16", "multigpu", "services",
+    "batch", "store", "shards", "bf16", "multigpu", "services",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -6910,8 +7299,9 @@ def main(argv) -> int:
     if "stack" in wanted:
         phase_stack(torch, device["card"])
     batch = phase_batch(torch, device["card"]) if "batch" in wanted else None
-    if "store" in wanted:
-        phase_store(torch, device["card"])
+    store_record = phase_store(torch, device["card"]) if "store" in wanted else None
+    if "shards" in wanted:
+        phase_shards(torch, device["card"], store_record)
     if "bf16" in wanted:
         bf16 = phase_bf16(torch, device["card"], batch["f32_metrics"] if batch else None)
         summary.extend(bf16["kernels"])

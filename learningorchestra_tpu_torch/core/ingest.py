@@ -12,13 +12,9 @@ This implementation keeps the observable contract (metadata shape,
 into *batched* ``insert_many`` calls instead of one RPC per row, and
 supports ``file://``/local paths so tests need no network.
 
-The port's copy of ``learningorchestra_tpu/core/ingest.py``, with three
-differences: http(s) bodies are read with ``urllib`` (the reference uses
-``requests``, which the card's machine lacks); every CSV parses with
-the reference's Python path (``_python_raw_columns``), which gives the
-native C++ loader's results; and a CSV parses whole, since the native
-loader and the reference's slabbed ingest of large files (its
-``LO_INGEST_SLAB_BYTES``) are not ported yet.
+The port's copy of ``learningorchestra_tpu/core/ingest.py``, with one
+difference: http(s) bodies are read with ``urllib`` (the reference uses
+``requests``, which the card's machine lacks).
 """
 
 from __future__ import annotations
@@ -26,6 +22,7 @@ from __future__ import annotations
 import csv
 import http.client
 import io
+import os
 import shutil
 import tempfile
 import urllib.request
@@ -40,6 +37,11 @@ DUPLICATE_FILE = "duplicate_file"
 FINISHED = "finished"
 BATCH_SIZE = 4096
 
+# Files beyond this parse as a sequence of slabs so ingest's transient
+# working set stays bounded (the whole-file native parse holds file
+# bytes + cell index in anonymous RAM — ~2x file size — which a 12 GB
+# CSV cannot afford on an out-of-core store). 0 disables slabbing.
+_SLAB_BYTES = int(float(os.environ.get("LO_INGEST_SLAB_BYTES", "536870912") or 0))
 
 
 class IngestError(Exception):
@@ -113,8 +115,8 @@ def write_ingest_metadata(store: DocumentStore, filename: str, url: str) -> None
 
 def _local_csv_path(url: str, stack: ExitStack) -> str:
     """A local filesystem path for ``url``, downloading http(s) bodies to
-    a temp file (deleted when ``stack`` closes): the parser works from a
-    file."""
+    a temp file (deleted when ``stack`` closes). The columnar parsers —
+    native C++ and Python alike — work from a file."""
     if not url.startswith(("http://", "https://")):
         return url[len("file://") :] if url.startswith("file://") else url
     response = stack.enter_context(urllib.request.urlopen(url))
@@ -127,10 +129,9 @@ def _local_csv_path(url: str, stack: ExitStack) -> str:
 
 
 def _python_raw_columns(path: str) -> tuple[list[str], list[list[str]]]:
-    """The reference's Python parse (its fallback for the native
-    loader's ``read_csv_raw_columns``): raw strings, tolerant of ragged
-    rows (short rows pad with ``""``, oversized rows truncate to the
-    header width)."""
+    """Python fallback for :func:`native.loader.read_csv_raw_columns`:
+    same raw-string contract, tolerant of ragged rows (short rows pad
+    with ``""``, oversized rows truncate to the header width)."""
     with open(path, encoding="utf-8", newline="") as handle:
         reader = _csv_rows(handle)
         header = next(reader)
@@ -159,19 +160,34 @@ def ingest_csv(
     ``finished: true`` with the field list at the end — reference:
     microservices/database_api_image/database.py:144-216) — but the body
     lands as the store's columnar block via batched ``insert_columns``:
-    the parser's column lists go straight in, and no per-row Python
-    dict is ever built. Returns the row count.
+    the native C++ parser (native/csv_loader.cpp) feeds column lists
+    straight in, and no per-row Python dict is ever built. Returns the
+    row count.
 
     Memory model: the dataset body is resident in the store regardless
     (that is what an in-memory store is); ingest transiently holds a
     second copy (the parse result) before the batched hand-off, so peak
     is ~2× the body — same order as the reference's Mongo working set.
     """
+    from learningorchestra_tpu_torch.native.loader import read_csv_string_columns
+
     with ExitStack() as stack:
-        file_header, raw_columns = _python_raw_columns(_local_csv_path(url, stack))
-        num_rows = _insert_parsed(
-            store, filename, file_header, raw_columns, 1, batch_size
-        )
+        path = _local_csv_path(url, stack)
+        if _SLAB_BYTES and os.path.getsize(path) > _SLAB_BYTES:
+            num_rows, file_header = _ingest_slabbed(
+                store, filename, path, batch_size
+            )
+        else:
+            # Native path: NUL-joined column buffers → Arrow string
+            # columns, no Python string objects between the parser and
+            # the store.
+            parsed = read_csv_string_columns(path)
+            if parsed is None:
+                parsed = _python_raw_columns(path)
+            file_header, raw_columns = parsed
+            num_rows = _insert_parsed(
+                store, filename, file_header, raw_columns, 1, batch_size
+            )
 
     store.update_one(
         filename,
@@ -200,3 +216,87 @@ def _insert_parsed(
     )
     return num_rows
 
+
+def _ingest_slabbed(
+    store, filename, path, batch_size
+) -> tuple[int, list[str]]:
+    """Parse + insert a big CSV one ~slab at a time so the transient
+    working set is slab-sized, not file-sized — with the store spilling
+    past its RAM budget, total ingest memory stays bounded at any file
+    size (the Mongo-owns-disk ingestion story). Slab boundaries land
+    only on lines with balanced quotes, so quoted embedded newlines
+    never split across parses."""
+    from learningorchestra_tpu_torch.native.loader import read_csv_string_columns
+
+    total_rows = 0
+    file_header: list[str] = []
+    with open(path, encoding="utf-8", newline="") as source:
+        header_line = source.readline()
+        file_header = next(_csv_rows(io.StringIO(header_line)))
+        while True:
+            # stream lines STRAIGHT into the slab temp file — holding
+            # them in a list first would cost per-str object overhead
+            # several times the nominal slab size for short rows
+            slab_bytes = 0
+            slab_lines = 0
+            open_quotes = False
+            # slab next to the source file, NOT the default tempdir: on
+            # hosts where /tmp is tmpfs a 0.5-2 GB slab would be
+            # RAM-backed — the exact cost slabbing exists to avoid
+            try:
+                slab_handle = tempfile.NamedTemporaryFile(
+                    "w",
+                    suffix=".csv",
+                    delete=False,
+                    encoding="utf-8",
+                    newline="",
+                    dir=os.path.dirname(os.path.abspath(path)) or None,
+                )
+            except OSError:  # source dir unwritable: default tempdir
+                slab_handle = tempfile.NamedTemporaryFile(
+                    "w",
+                    suffix=".csv",
+                    delete=False,
+                    encoding="utf-8",
+                    newline="",
+                )
+            with slab_handle as slab:
+                slab.write(header_line)
+                slab_path = slab.name
+                for line in source:
+                    slab.write(line)
+                    slab_lines += 1
+                    if line.count('"') % 2:
+                        open_quotes = not open_quotes
+                    slab_bytes += len(line)
+                    if slab_bytes >= _SLAB_BYTES and (
+                        not open_quotes
+                        # hard cap: a stray quote in an unquoted field
+                        # (legal for csv.reader, e.g. inch marks) would
+                        # otherwise pin open_quotes and buffer the rest
+                        # of the file into one slab. Files quoted to
+                        # RFC-4180 never hit this; a mis-quoted file
+                        # splits where a line-based reader would.
+                        or slab_bytes >= 4 * _SLAB_BYTES
+                    ):
+                        break
+            if not slab_lines:
+                os.unlink(slab_path)
+                break
+            try:
+                parsed = read_csv_string_columns(slab_path)
+                if parsed is None:
+                    parsed = _python_raw_columns(slab_path)
+            finally:
+                os.unlink(slab_path)
+            slab_header, raw_columns = parsed
+            total_rows += _insert_parsed(
+                store,
+                filename,
+                slab_header,
+                raw_columns,
+                total_rows + 1,
+                batch_size,
+            )
+            del parsed, raw_columns
+    return total_rows, file_header

@@ -107,8 +107,8 @@ flight recorder (``telemetry/profile.py``): payload bytes written and
 read over the wire, frames read through the shared-memory ring and the
 seconds decoding them; the server answers the observability routes
 (``register_observability``), whose SLO verdict ``/health``'s
-``degraded`` reads. Left for ROADMAP Queue 1 item 4c: shard groups (a
-``;``-separated ``LO_STORE_URL``), which :func:`connect` refuses.
+``degraded`` reads. Shard groups (a ``;``-separated ``LO_STORE_URL``)
+make :func:`connect` build a ``ShardedStore`` (``core/shardstore.py``).
 
 Run a server: ``python -m learningorchestra_tpu_torch.core.store_service``
 (``LO_HOST``, ``LO_STORE_PORT``, ``LO_DATA_DIR``, ``LO_REPLICATE``,
@@ -1809,19 +1809,20 @@ def connect(url: Optional[str] = None) -> DocumentStore:
     enables client-side failover), else a process-local WAL-backed
     store.
 
-    ``;`` separates SHARD GROUPS (``primary,follower;primary,follower``)
-    in the reference, whose two or more groups build a scatter-gather
-    ``ShardedStore``. The sharded store waits for ROADMAP Queue 1 item
-    4c, so two or more groups raise here: they never quietly talk to
-    the first group alone. One group stays a plain ``RemoteStore``."""
+    ``;`` separates SHARD GROUPS (``primary,follower;primary,follower``
+    — each group keeps its own comma replica list and failover): two or
+    more groups build a scatter-gather
+    :class:`~learningorchestra_tpu_torch.core.shardstore.ShardedStore` whose
+    first group is the meta group. One group — the default — stays a
+    plain ``RemoteStore``, so the unsharded wire path is untouched by
+    construction, not by configuration."""
     url = url if url is not None else _str_env("LO_STORE_URL")
     if url:
         group_urls = [part.strip() for part in url.split(";") if part.strip()]
         if len(group_urls) > 1:
-            raise ValueError(
-                f"LO_STORE_URL names {len(group_urls)} shard groups (';'-separated); "
-                "the sharded store is not ported yet (ROADMAP Queue 1 item 4c)"
-            )
+            from learningorchestra_tpu_torch.core.shardstore import ShardedStore
+
+            return ShardedStore([RemoteStore(part) for part in group_urls])
         return RemoteStore(group_urls[0] if group_urls else url)
     data_dir = _str_env("LO_DATA_DIR")
     return InMemoryStore(data_dir=data_dir)

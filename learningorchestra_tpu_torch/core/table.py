@@ -11,9 +11,8 @@ compute on numbers.
 
 The port's copy of ``learningorchestra_tpu/core/table.py``: the same
 code with its imports rewritten. ``ColumnTable.from_csv`` parses with the
-reference's Python path (``native/loader.py _python_read``, copied here
-as :func:`read_csv_columns`), which gives its native C++ loader's
-columns; the native loader is not ported.
+port's native C++ loader when it is built (``native/loader.py``), with
+its Python fallback otherwise.
 """
 
 from __future__ import annotations
@@ -60,41 +59,6 @@ def as_column(values: Sequence) -> np.ndarray:
     return np.array(values, dtype=object)
 
 
-MAX_NUMERIC_CELL = 511  # longer cells are strings, as strtod sees them
-
-
-def _strings_column(cells: list[str]) -> np.ndarray:
-    """Object column with the ColumnTable missing-value convention:
-    empty cells become None, not ''."""
-    out = np.empty(len(cells), dtype=object)
-    for i, cell in enumerate(cells):
-        out[i] = None if cell == "" else cell
-    return out
-
-
-def read_csv_columns(path: str) -> dict[str, np.ndarray]:
-    """CSV → columns: float64 (NaN for empty) where every cell parses as
-    a number, object strings otherwise (the reference's
-    ``native/loader.py _python_read``). The cells are ingest's parse
-    (``core/ingest._python_raw_columns``, tolerant of ragged rows), so
-    the port keeps one CSV grammar."""
-    from learningorchestra_tpu_torch.core.ingest import _python_raw_columns
-
-    header, raw_columns = _python_raw_columns(path)
-    return {name: _typed_column(raw) for name, raw in zip(header, raw_columns)}
-
-
-def _typed_column(raw: list[str]) -> np.ndarray:
-    # reject what strtod rejects, so the native loader agrees: oversized
-    # cells, underscore separators ("1_000"), non-ASCII digits
-    if any(len(cell) > MAX_NUMERIC_CELL or "_" in cell or not cell.isascii() for cell in raw):
-        return _strings_column(raw)
-    try:
-        return np.array([np.nan if cell == "" else float(cell) for cell in raw], dtype=np.float64)
-    except ValueError:
-        return _strings_column(raw)
-
-
 class ColumnTable:
     """An ordered dict of equal-length columns.
 
@@ -117,8 +81,11 @@ class ColumnTable:
     @classmethod
     def from_csv(cls, path: str) -> "ColumnTable":
         """Direct CSV → columnar table (bypassing the document store):
-        float64 columns where every cell parses as a number, strings
-        (None for empty) otherwise."""
+        the host-side loader feeding device transfer (SURVEY.md §2's
+        connector replacement). Uses the native C++ parser when built
+        (native/loader.py), Python otherwise."""
+        from learningorchestra_tpu_torch.native.loader import read_csv_columns
+
         return cls(read_csv_columns(path))
 
     @classmethod

@@ -29,9 +29,12 @@ Environment:
   reference port; ``0``: OS-assigned); the ``service <name> on
   <host>:<port>`` boot line names the bind
 - ``LO_STORE_URL`` — a store server; a comma-separated list names a
-  replica set the client fails over within; a ``;`` (shard groups,
-  ROADMAP Queue 1 item 4c) is refused. Unset: the in-process store on
-  its WAL
+  replica set the client fails over within; ``;`` separates shard
+  groups, which a ``ShardedStore`` stripes rows over. Unset: the
+  in-process store on its WAL
+- ``LO_SHARD_STRIPE_ROWS``, ``LO_SHARDMAP_TTL_S`` — the sharded store's
+  stripe width and shard-map cache; the ``shard config:`` boot line
+  states them, and a bad value refuses bring-up
 - ``LO_DATA_DIR`` — store WAL directory (default ``./lo_data``)
 - ``LO_IMAGES_DIR`` — PNG volume root (default ``<data>/images``)
 - ``LO_MODELS_DIR`` — model checkpoint and progress-artifact volume
@@ -265,6 +268,20 @@ def main(device: DeviceLike = None) -> None:
         f"wire config: shm_bytes={shmring.shm_bytes()} "
         f"dtype_policy={dtype_policy()} "
         f"v2={_flag_env('LO_WIRE_V2', default=True)}",
+        flush=True,
+    )
+    # the sharding knobs: how many shard groups this process routes
+    # across (the ';' groups of LO_STORE_URL; 1 is the unsharded wire
+    # path) and which stripe geometry a first write would seed; a typo'd
+    # LO_SHARD_STRIPE_ROWS refuses bring-up, never seeding an unintended
+    # placement into the fleet's shard map
+    from learningorchestra_tpu_torch.core import shardmap
+
+    shard_groups = len([g for g in os.environ.get("LO_STORE_URL", "").split(";") if g.strip()]) or 1
+    print(
+        f"shard config: groups={shard_groups} "
+        f"stripe_rows={shardmap.stripe_rows()} "
+        f"map_ttl_s={shardmap.map_ttl_s()}",
         flush=True,
     )
     from learningorchestra_tpu_torch.telemetry import profile as _profile

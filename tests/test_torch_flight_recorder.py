@@ -17,6 +17,10 @@ the other on the same seeded inputs, on the CPU.
 """
 
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +53,7 @@ NUMERIC_FIELDS = ("PassengerId", "Survived", "Pclass", "Age", "SibSp", "Parch", 
 # jax.process_count() (the XLA backend's start), which the port has no
 # counterpart of
 JAX_ONLY_SPANS = {"devices"}
+REPO_ROOT = str(Path(__file__).resolve().parent.parent)
 
 
 def seeded_trace(seed: int = 3) -> dict:
@@ -213,19 +218,18 @@ def _span_names(span_list) -> set:
     return names
 
 
-def test_a_build_opens_the_reference_spans(tmp_path, monkeypatch):
-    """The five-classifier build's job trace names the same spans in both
-    packages, and its profile's Chrome trace has a ``phase:fit`` event a
-    classifier. Both device caches start empty: a cached matrix opens no
-    ``h2d:*`` span."""
+def build_span_names(tmp_path) -> dict:
+    """Each package's five-classifier Titanic build through its
+    model_builder app: the span names of the job's trace, and the
+    ``phase:fit`` events of its profile's Chrome trace. Both device
+    caches start empty."""
     from learningorchestra_tpu.core import devcache as jax_devcache
     from tests.test_frame import DOCUMENTED_PREPROCESSOR
 
-    monkeypatch.setenv("LO_BUILD_WORKERS", "1")
     devcache.reset_global_devcache()
     jax_devcache.reset_global_devcache()
     _, apps = _titanic_apps(tmp_path)
-    names = {}
+    names, fits = {}, {}
     for side, app in apps.items():
         client = app.test_client()
         response = client.post("/models", json={
@@ -235,10 +239,41 @@ def test_a_build_opens_the_reference_spans(tmp_path, monkeypatch):
         assert response.status_code == 201, response.get_data()
         job = f"build:titanic_test:{'+'.join(FIVE)}"
         trace = client.get(f"/jobs/{job}/trace").get_json()["result"]["trace"]
-        names[side] = _span_names(trace["spans"])
+        names[side] = sorted(_span_names(trace["spans"]))
         chrome = json.loads(client.get(f"/jobs/{job}/profile").get_data())
-        fits = [e for e in chrome["traceEvents"] if e["ph"] == "X" and e["name"] == "phase:fit"]
-        assert len(fits) == len(FIVE), side
+        fits[side] = sum(1 for e in chrome["traceEvents"] if e["ph"] == "X" and e["name"] == "phase:fit")
+    return {"names": names, "fits": fits}
+
+
+# Both builds run in a fresh process. Once the reference's
+# jax.monitoring listeners are on (utils/jitcache._register_listeners:
+# tests/test_compile.py's cache_dir fixture turns them on), it books a
+# ``compile:backend`` span for every XLA compile a build makes. The
+# listeners are process-wide and never removed, so in the test process
+# the reference's span set would depend on what ran before on the worker.
+_BUILD_SPANS_PROBE = """
+import json, os, pathlib, sys
+from tests.test_torch_flight_recorder import build_span_names
+print(json.dumps(build_span_names(pathlib.Path(sys.argv[1]))), flush=True)
+# the builds' pool threads can abort the interpreter's shutdown
+os._exit(0)
+"""
+
+
+def test_a_build_opens_the_reference_spans(tmp_path):
+    """The five-classifier build's job trace names the same spans in both
+    packages, and its profile's Chrome trace has a ``phase:fit`` event a
+    classifier. Both device caches start empty: a cached matrix opens no
+    ``h2d:*`` span."""
+    result = subprocess.run(
+        [sys.executable, "-c", _BUILD_SPANS_PROBE, str(tmp_path)], capture_output=True, text=True,
+        cwd=REPO_ROOT, timeout=300, env=dict(os.environ, JAX_PLATFORMS="cpu", LO_BUILD_WORKERS="1"),
+    )
+    assert result.returncode == 0, result.stderr
+    probe = json.loads(result.stdout.strip().splitlines()[-1])
+    names = {side: set(found) for side, found in probe["names"].items()}
+    for side, fits in probe["fits"].items():
+        assert fits == len(FIVE), side
     assert names["jax"] & JAX_ONLY_SPANS == JAX_ONLY_SPANS
     assert names["port"] == names["jax"] - JAX_ONLY_SPANS
     assert {"load_data", "preprocess", "d2h:predictions", "h2d:matrix", "phase:fit"} <= names["port"]

@@ -111,6 +111,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "services.histogram", "services.runner", "ops.projection", "ops.histogram",
         "core.wire", "core.shmring", "core.arbiter", "core.store_service", "utils.httpclient",
         "telemetry.profile", "telemetry.stitch", "telemetry.tsdb", "telemetry.slo",
+        "core.shardmap", "core.shardstore", "core.ingest", "native", "native.loader",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]

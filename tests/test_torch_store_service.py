@@ -20,8 +20,8 @@ JAX package's client (the port serves its routes).
 
 Below them: the cross-package parity of the frames (byte-identical
 ``encode_frame`` in v1, v2 and compressed form) and of the wire (each
-package's ``RemoteStore`` reads the other's server), and the ``;`` URL
-refusal.
+package's ``RemoteStore`` reads the other's server), and the ``;`` URL's
+shard groups.
 """
 
 import pathlib
@@ -154,12 +154,19 @@ def test_each_packages_client_reads_the_others_server(server_package, client_pac
         server.stop()
 
 
-def test_shard_groups_are_refused():
-    """A ``;``-separated URL names shard groups, which wait for the
-    sharded store: it raises, and never quietly uses the first group."""
-    with pytest.raises(ValueError, match="4c"):
-        port_store_service.connect("http://a:1,http://b:2;http://c:3")
+def test_shard_groups_build_a_sharded_store():
+    """A ``;``-separated URL names shard groups: two or more build a
+    ``ShardedStore`` over one ``RemoteStore`` a group, each with its own
+    replica list, the first the meta group; one group stays a plain
+    ``RemoteStore``."""
+    from learningorchestra_tpu_torch.core.shardstore import ShardedStore
+
+    store = port_store_service.connect("http://a:1,http://b:2;http://c:3,http://d:4")
+    assert type(store) is ShardedStore
+    assert [type(group) for group in store.groups] == [port_store_service.RemoteStore] * 2
+    assert [group.urls for group in store.groups] == [["http://a:1", "http://b:2"], ["http://c:3", "http://d:4"]]
     store = port_store_service.connect("http://a:1,http://b:2")
+    assert type(store) is port_store_service.RemoteStore
     assert store.urls == ["http://a:1", "http://b:2"]
 
 
