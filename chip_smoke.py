@@ -6,8 +6,11 @@ batch predictions lane with the device cache, the stack over the
 networked store (a replicated pair of store servers, failover), the
 ``bf16`` feature policy, the lr fit over ranks (``fit_sharded``: rows
 sharded over ``torch.distributed`` processes), one process a service
-with the observability plane, and the stack over two shard groups with
-CSVs ingested natively in slabs, on one CUDA card.
+with the observability plane, the stack over two shard groups with
+CSVs ingested natively in slabs, and the serving fleet (two replicas
+behind the router, the publish-time warmup, a kill -9 drill), on one
+CUDA card. Every server runs on the event loop (``LO_WEB_ASYNC``'s
+default); the serve phase also runs on the threaded server.
 
 Run from the repository root, with one card visible:
 
@@ -21,6 +24,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py multigpu         # K8′, K7's sums form, fit_sharded over ranks
     python3 chip_smoke.py services         # a store server and seven LO_SERVICE runners
     python3 chip_smoke.py shards           # two replicated shard groups, slabbed native CSV ingest
+    python3 chip_smoke.py fleet serve      # two replicas behind the router; serve on both servers
 
 Phases, one JSON line each:
 
@@ -45,7 +49,10 @@ Phases, one JSON line each:
                  HTTP app over real sockets: single rows, 8 concurrent single
                  rows and one 4096-row request to each model, checked against
                  the plain forward on the CPU; 404, 406 and 413; the kernels'
-                 launch counts must rise during this phase.
+                 launch counts must rise during this phase. All on the
+                 event loop; then the singles and the 8 concurrent requests
+                 again on the threaded server (``LO_WEB_ASYNC=0``) and on
+                 the loop, p50 and p99 of each.
 5. fit-kernels — each fit kernel (K1-K5) against its plain version on
                  bench.py's synthetic rows at full width (1,000,000 x 16,
                  32 bins), at every level of a depth-5 tree, with dt (class
@@ -327,7 +334,32 @@ Phases, one JSON line each:
                  ranks, cards, ranks a card, walls, host seconds in
                  collectives, launches a rank).
 
-15. services   — a store server and seven runner processes, one a service
+15. fleet      — a store server, two model_builder replicas
+                 (``LO_FLEET_REPLICA`` 0 and 1, ``LO_FLEET_REPLICAS=2``,
+                 ``LO_FLEET_RF=2``, ``LO_FLEET_DOWN_S=2``) and the router
+                 (``LO_SERVICE=router``), each a process on the card, the
+                 serve phase's five checkpoints in their shared models
+                 directory. Both heartbeats list the five; the Titanic
+                 build (sync, on replica 0) is followed by a
+                 ``warmup:<file>`` job a checkpoint, K6 launches by the
+                 tree warmups, and first predicts of each built model
+                 (routed, then straight at replica 0) that add no
+                 ``source="jit"`` compile event and no registry miss on
+                 replica 0; an async build's ``/wait`` read as an event
+                 stream ends in a ``done`` frame. Closed loops of 16
+                 clients x 50 requests at 1 and 64 rows for each model,
+                 through the router and straight at replica 0, every
+                 answer held to the plain CPU forward, K6 launched on both
+                 replicas. The drill: kill -9 of dt's primary while its
+                 loop runs through the router: every answer a 200 for dt,
+                 ``lo_router_retries_total`` up, then after the down
+                 window the router's picture shows the dead replica
+                 unhealthy and the survivor healthy, and a further loop
+                 adds no retry. One record line: boot s, walls, the
+                 warmup's jobs and launches, p50, p99 and requests/s of
+                 each loop, the drill.
+
+16. services   — a store server and seven runner processes, one a service
                  (``LO_SERVICE``, ``LO_PORT``), each on the card, every
                  collector ticking each second, ``LO_PLANE_MEMBERS`` naming
                  all seven. Under one ``X-Correlation-Id``: the Titanic
@@ -344,7 +376,11 @@ Phases, one JSON line each:
                  process rows; a 2 s sampled profile during a build;
                  ``/metrics/history``; every SLO rule ok. One record line:
                  each child's boot s, the walls, the build with and
-                 without a profile window over it (two each).
+                 without a profile window over it (two each). The
+                 builds' publish-time warmups are waited for before the
+                 counters are read: launches and bytes include them on
+                 both sides, and the build's and its warmups' traces
+                 together hold the h2d bytes counted.
 
 Then the ``kernels`` summary line (the bf16 forms as ``<kernel>:bf16``
 rows), the card's ``nvidia-smi`` name and power
@@ -1102,53 +1138,79 @@ def _check_answer(name, status, body, rows, reference, tolerance) -> None:
         raise AssertionError(f"{name}: probabilities differ from the CPU forward by {error}")
 
 
+def _serve_rounds(client, models: dict, single, full=None) -> tuple:
+    """Each model's single rows one at a time, then 8 of them at once
+    (and, given ``full``, one request of that many rows), every answer
+    held to the plain CPU forward. Returns the single rows' and the
+    concurrent requests' latencies (ms) and the answers checked."""
+    single_ms, concurrent_ms, checks = [], [], 0
+    for name, (cpu_model, tolerance) in models.items():
+        path = f"/models/{name}/predict"
+        for row in single:
+            started = time.perf_counter()
+            status, body = client.call("POST", path, {"rows": [row.tolist()]})
+            single_ms.append((time.perf_counter() - started) * 1e3)
+            _check_answer(name, status, body, row[None], cpu_model.predict_proba(row[None]), tolerance)
+            checks += 1
+        answers: list = [None] * 8
+        barrier = threading.Barrier(8)
+
+        def one(index, _path=path):
+            barrier.wait(timeout=60)
+            started = time.perf_counter()
+            answers[index] = client.call("POST", _path, {"rows": [single[index].tolist()]})
+            concurrent_ms.append((time.perf_counter() - started) * 1e3)
+
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for worker in workers:
+            worker.start()
+        for worker in workers:
+            worker.join(timeout=120)
+            if worker.is_alive():
+                raise AssertionError(f"{name}: a concurrent request did not finish")
+        for index, (status, body) in enumerate(answers):
+            row = single[index][None]
+            _check_answer(name, status, body, row, cpu_model.predict_proba(row), tolerance)
+            checks += 1
+        if full is not None:
+            status, body = client.call("POST", path, {"rows": full.tolist()})
+            _check_answer(name, status, body, full, cpu_model.predict_proba(full), tolerance)
+            checks += 1
+    return single_ms, concurrent_ms, checks
+
+
+def _latency_ms(single_ms: list, concurrent_ms: list) -> dict:
+    return {
+        "p50_single_row_ms": statistics.median(single_ms),
+        "p99_single_row_ms": float(np.percentile(single_ms, 99)),
+        "p50_concurrent_ms": statistics.median(concurrent_ms),
+        "p99_concurrent_ms": float(np.percentile(concurrent_ms, 99)),
+    }
+
+
 def phase_serve(torch, card: str) -> dict:
     max_rows = serve_config.max_rows()
     rng = np.random.default_rng(7)
     single = bench_rows(rng, 16)
     full = bench_rows(rng, max_rows)
-    latencies_ms, checks = [], 0
     with tempfile.TemporaryDirectory() as models_dir:
         tolerances = {}
         for name, gathered in synthetic_checkpoints(seed=0).items():
             write_checkpoint(gathered, checkpoint_path(models_dir, name))
             tolerances[name] = TREE_TOL if gathered[0] in ("tree_ensemble", "gbt") else LINEAR_TOL
+        models = {
+            name: (load_model(checkpoint_path(models_dir, name), device="cpu"), tolerance)
+            for name, tolerance in tolerances.items()
+        }
         plane = ServePlane()
+        # the event loop (LO_WEB_ASYNC's default) serves the main path
         server = ServerThread(create_app(InMemoryStore(), models_dir=models_dir, serve=plane)).start()
         try:
+            if server._loop is None:
+                raise AssertionError("serve: ServerThread did not serve on the event loop")
             client = _Client(server.port)
             kernels.reset_launches()
-            for name, tolerance in tolerances.items():
-                cpu_model = load_model(checkpoint_path(models_dir, name), device="cpu")
-                path = f"/models/{name}/predict"
-                for row in single:
-                    started = time.perf_counter()
-                    status, body = client.call("POST", path, {"rows": [row.tolist()]})
-                    latencies_ms.append((time.perf_counter() - started) * 1e3)
-                    expected = cpu_model.predict_proba(row[None])
-                    _check_answer(name, status, body, row[None], expected, tolerance)
-                    checks += 1
-                answers: list = [None] * 8
-                barrier = threading.Barrier(8)
-
-                def one(index, _path=path):
-                    barrier.wait(timeout=60)
-                    answers[index] = client.call("POST", _path, {"rows": [single[index].tolist()]})
-
-                workers = [threading.Thread(target=one, args=(i,)) for i in range(8)]
-                for worker in workers:
-                    worker.start()
-                for worker in workers:
-                    worker.join(timeout=120)
-                    if worker.is_alive():
-                        raise AssertionError(f"{name}: a concurrent request did not finish")
-                for index, (status, body) in enumerate(answers):
-                    row = single[index][None]
-                    _check_answer(name, status, body, row, cpu_model.predict_proba(row), tolerance)
-                    checks += 1
-                status, body = client.call("POST", path, {"rows": full.tolist()})
-                _check_answer(name, status, body, full, cpu_model.predict_proba(full), tolerance)
-                checks += 1
+            single_ms, concurrent_ms, checks = _serve_rounds(client, models, single, full)
             torch.cuda.synchronize()
             launches = kernels.launches()
             nan_rows = single[:2].tolist()
@@ -1167,6 +1229,27 @@ def phase_serve(torch, card: str) -> dict:
             stats = plane.stats()
         finally:
             server.stop()
+        # the same singles and concurrent requests on the threaded server
+        # (LO_WEB_ASYNC=0), then on the loop again: loop, threaded, loop
+        servers = {"loop": [_latency_ms(single_ms, concurrent_ms)], "threaded": []}
+        previous = os.environ.get("LO_WEB_ASYNC")
+        try:
+            for flag in ("0", "1"):
+                os.environ["LO_WEB_ASYNC"] = flag
+                again = ServerThread(create_app(InMemoryStore(), models_dir=models_dir, serve=plane)).start()
+                try:
+                    if (again._loop is None) != (flag == "0"):
+                        raise AssertionError(f"serve: LO_WEB_ASYNC={flag} chose the other server")
+                    times = _serve_rounds(_Client(again.port), models, single)
+                finally:
+                    again.stop()
+                checks += times[2]
+                servers["threaded" if flag == "0" else "loop"].append(_latency_ms(times[0], times[1]))
+        finally:
+            if previous is None:
+                os.environ.pop("LO_WEB_ASYNC", None)
+            else:
+                os.environ["LO_WEB_ASYNC"] = previous
             plane.close()
     missing = [name for name in REPLACES if launches[name] == 0]
     if missing:
@@ -1176,8 +1259,9 @@ def phase_serve(torch, card: str) -> dict:
         "models": sorted(tolerances),
         "answers_checked": checks,
         "launches": launches,
-        "p50_single_row_ms": statistics.median(latencies_ms),
-        "p99_single_row_ms": float(np.percentile(latencies_ms, 99)),
+        "p50_single_row_ms": servers["loop"][0]["p50_single_row_ms"],
+        "p99_single_row_ms": servers["loop"][0]["p99_single_row_ms"],
+        "servers": servers,
         "mean_batch_size": stats["mean_batch_size"],
         "batches": stats["batches"],
         "registry": stats["registry"],
@@ -4116,18 +4200,18 @@ def documented_preprocessor() -> str:
     raise AssertionError("tests/test_frame.py defines no DOCUMENTED_PREPROCESSOR")
 
 
-def titanic_store(folder: str):
+def titanic_store(folder: str, store=None):
     """``tests/data``'s Titanic CSVs (891 and 418 rows) in the port's
-    store as the golden flow reads them: projected to its field set (on
-    the CSV, so that this phase stays the builder's alone: the ``stack``
-    phase runs the projection service), through ``ingest_csv``, then
-    ``convert_field_types``."""
+    store (``store``, else a new in-process one) as the golden flow reads
+    them: projected to its field set (on the CSV, so that this phase
+    stays the builder's alone: the ``stack`` phase runs the projection
+    service), through ``ingest_csv``, then ``convert_field_types``."""
     import csv
 
     from learningorchestra_tpu_torch.core.ingest import ingest_csv, write_ingest_metadata
     from learningorchestra_tpu_torch.ops.dtype import convert_field_types
 
-    store = InMemoryStore()
+    store = InMemoryStore() if store is None else store
     for name, labelled in (("titanic_train", True), ("titanic_test", False)):
         fields = [field for field in TITANIC_FIELDS if labelled or field != "Survived"]
         path = os.path.join(folder, f"{name}.csv")
@@ -4971,6 +5055,7 @@ def phase_batch(torch, card: str) -> dict:
             build_s = time.perf_counter() - started
             if (status, answer) != (201, {"result": "created_file"}):
                 raise AssertionError(f"batch: the build answered {status} {answer}")
+            _settled_jobs(client, BENCH_WARMUPS)   # they copy rows too: done before the cache checks
             torch.cuda.synchronize()
             kernels.reset_launches()
             requests = {name: _batch_request(torch, client, store, name, f"batch_{name}") for name in MODEL_NAMES}
@@ -5071,6 +5156,19 @@ def _free_port() -> int:
         return probe.getsockname()[1]
 
 
+def _stop_collectors(stores) -> None:
+    """Stop the TSDB collectors ``start_all`` started in this process for
+    ``stores`` (``services/runner._COLLECTORS``), before their servers
+    stop: a collector left running posts to a store that is gone."""
+    from learningorchestra_tpu_torch.services import runner
+
+    with runner._COLLECTORS_LOCK:
+        collectors = [runner._COLLECTORS.pop(id(store), None) for store in stores]
+    for collector in collectors:
+        if collector is not None:
+            collector.stop()
+
+
 class _StoreServer(_LoggedChild):
     """``python -m learningorchestra_tpu_torch.core.store_service`` as a
     child process."""
@@ -5133,6 +5231,12 @@ def _copy_product_test(source, target, name: str) -> None:
     target.create_collection(name)
     target.insert_one(name, {"_id": 0, "filename": name, "finished": True, "fields": fields})
     target.insert_column_arrays(name, source.read_column_arrays("bench_test", fields))
+
+
+# the publish-time warmups of a build of bench_test: each copies its rows
+# to the card and runs a forward, so a check of bytes or launches after
+# that build waits for them (_settled_jobs)
+BENCH_WARMUPS = [f"warmup:bench_test_prediction_{name}.model" for name in MODEL_NAMES]
 
 
 def _store_build(client, store, test: str, run_async: bool) -> dict:
@@ -5247,6 +5351,7 @@ def phase_store(torch, card: str) -> dict:
             builder = next(s for s in servers if s.canonical_port == runner.SERVICES["model_builder"])
             client = _Client(builder.port)
             build = _store_build(client, remote, "bench_test", False)
+            _settled_jobs(client, BENCH_WARMUPS)   # they copy rows too: done before the cache checks
             if build["metrics"] != local_build["metrics"]:
                 raise AssertionError(
                     f"store: the build's metrics {build['metrics']} are not the in-process store's "
@@ -5340,6 +5445,7 @@ def phase_store(torch, card: str) -> dict:
         finally:
             for server in servers:
                 server.stop()
+            _stop_collectors(rings)
             for store in rings:
                 store.close()
             primary.stop()
@@ -5710,6 +5816,7 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
             for server in servers:
                 server.stop()
             if sharded is not None:
+                _stop_collectors([sharded])
                 sharded.close()
             for child in primaries + followers:
                 child.stop()
@@ -7027,6 +7134,8 @@ def phase_services(torch, card: str) -> dict:
             builder = clients["model_builder"]
             before_text = _metrics_text(builder)
             build_wall_s = _store_build(builder, remote, "bench_test", True)["wall_s"]
+            warmups = BENCH_WARMUPS
+            _settled_jobs(builder, warmups)   # the build's publish-time warmups end first
             after_text = _metrics_text(builder)
             before, after = _flows(before_text), _flows(after_text)
             launches = _served_launches(before_text, after_text)
@@ -7044,6 +7153,7 @@ def phase_services(torch, card: str) -> dict:
                 kernels.reset_launches()
                 copied, flows = base.h2d_bytes(), profile.flow_totals()
                 twin_wall_s = _store_build(_Client(twin_server.port), remote, "bench_test", True)["wall_s"]
+                _settled_jobs(_Client(twin_server.port), warmups)
                 torch.cuda.synchronize()
                 twin_h2d = base.h2d_bytes() - copied
                 twin_d2h = profile.flow_totals()["d2h_bytes"] - flows["d2h_bytes"]
@@ -7072,9 +7182,14 @@ def phase_services(torch, card: str) -> dict:
                 chrome = json.loads(response.read())
             events = [event for event in chrome["traceEvents"] if event["ph"] == "X"]
             fits = [event for event in events if event["name"] == "phase:fit"]
-            if chrome["otherData"]["bytes_total"]["h2d_bytes"] != delta["h2d"] or len(fits) != len(MODEL_NAMES):
+            traced_h2d = chrome["otherData"]["bytes_total"]["h2d_bytes"]
+            for warmup in warmups:   # the warmups' forwards copy their rows too
+                with builder.opener.open(builder.base + f"/jobs/{warmup}/profile", timeout=60) as response:
+                    traced_h2d += json.loads(response.read())["otherData"]["bytes_total"]["h2d_bytes"]
+            if traced_h2d != delta["h2d"] or len(fits) != len(MODEL_NAMES):
                 raise AssertionError(
-                    f"services: the build's trace moved {chrome['otherData']['bytes_total']} with {len(fits)} fits")
+                    f"services: the build's and its warmups' traces moved {traced_h2d} h2d bytes "
+                    f"(counted {delta['h2d']}) with {len(fits)} fits")
             status, summary = builder.call("GET", f"/jobs/{job}/profile?format=summary")
             if status != 200 or set(summary["result"]["phases"]) != {event["name"] for event in events}:
                 raise AssertionError(f"services: the build's summary answered {status} {summary}")
@@ -7148,6 +7263,418 @@ def phase_services(torch, card: str) -> dict:
     return record
 
 
+FLEET_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.services.runner"]
+FLEET_CHILD_DEVICE = "cuda:0"    # what every replica's boot line must name
+FLEET_BOOT_TIMEOUT_S = 300
+FLEET_DOWN_S = 2.0                # LO_FLEET_DOWN_S: the drill's down window
+FLEET_VIEW_TTL_S = 0.5            # serve/fleet.DEFAULT_VIEW_TTL_S: the router's view
+FLEET_CLIENTS = 16
+FLEET_REQUESTS = 50               # a client's requests in each closed loop
+FLEET_ROWS = (1, 64)
+FLEET_DRILL_MODEL = "dt"          # its primary is the replica the drill kills
+FLEET_DRILL_REQUESTS = 60
+FLEET_KILL_AFTER = 100            # answers before the kill -9
+FORWARD_KERNELS = ("tree_ensemble_forward", "gbt_forward")
+
+
+class _FleetChild(_LoggedChild):
+    """One runner of the fleet (a replica's model_builder, or the router)
+    on the card, its port picked for it."""
+
+    def __init__(self, folder: str, label: str, service: str, port: int, env: dict):
+        self.label, self.service, self.port = label, service, port
+        self.spawned = time.perf_counter()
+        super().__init__(FLEET_COMMAND, {**env, "LO_SERVICE": service, "LO_PORT": str(port)},
+                         os.path.join(folder, f"{label}.log"))
+
+    def serving(self) -> bool:
+        """Whether the child serves (a replica: its agent started too);
+        raises when it died first or booted on another device."""
+        lines = self.lines()
+        marks = [f"service {self.service} on 127.0.0.1:{self.port}"]
+        if self.service == "model_builder":
+            marks.append(f"fleet replica {self.label[-1]}: agent started")
+        if not all(any(mark in line for line in lines) for mark in marks):
+            if self.process.poll() is not None:
+                raise AssertionError(f"fleet: {self.label} never served:\n" + "\n".join(lines[-40:]))
+            return False
+        if not any(f"device={FLEET_CHILD_DEVICE}" in line for line in lines):
+            raise AssertionError(f"fleet: {self.label} did not boot on {FLEET_CHILD_DEVICE}:\n" + "\n".join(lines))
+        if not any(line.startswith("fleet config: ") for line in lines):
+            raise AssertionError(f"fleet: {self.label} stated no fleet config:\n" + "\n".join(lines))
+        return True
+
+    def kill9(self) -> None:
+        import signal
+
+        os.kill(self.process.pid, signal.SIGKILL)
+        self.process.wait(timeout=30)
+
+
+def _fleet_boot_seconds(children: list) -> dict:
+    """Each child's seconds from its spawn to serving, watched together."""
+    boot_s: dict = {}
+    deadline = time.time() + FLEET_BOOT_TIMEOUT_S
+    while len(boot_s) < len(children):
+        for child in children:
+            if child.label not in boot_s and child.serving():
+                boot_s[child.label] = time.perf_counter() - child.spawned
+        if time.time() > deadline:
+            raise AssertionError(f"fleet: only {sorted(boot_s)} served within {FLEET_BOOT_TIMEOUT_S} s")
+        time.sleep(0.02)
+    return boot_s
+
+
+def _fleet_picture(router, model: str) -> dict:
+    status, answer = router.call("GET", f"/models/{model}")
+    if status != 200:
+        raise AssertionError(f"fleet: GET /models/{model} on the router answered {status} {answer}")
+    return answer["result"]["fleet"]
+
+
+def _fleet_held(router, names, timeout_s: float) -> float:
+    """Seconds until both replicas' heartbeats list every model of
+    ``names``."""
+    started = time.perf_counter()
+    while True:
+        replicas = _fleet_picture(router, names[0])["replicas"]
+        if len(replicas) == 2 and all(set(names) <= set(row["models"]) for row in replicas.values()):
+            return time.perf_counter() - started
+        if time.perf_counter() - started > timeout_s:
+            raise AssertionError(f"fleet: the replicas never held {names}: {replicas}")
+        time.sleep(0.1)
+
+
+def _forward_launches(text: str) -> dict:
+    return {
+        name: int(_labelled_total(text, "lo_kernel_launches_total", f'kernel="{name}"')) for name in FORWARD_KERNELS
+    }
+
+
+def _jit_compiles(text: str) -> float:
+    return _labelled_total(text, "lo_compile_events_total", 'source="jit"')
+
+
+def _registry_misses(client) -> int:
+    status, answer = client.call("GET", "/models")
+    if status != 200:
+        raise AssertionError(f"fleet: GET /models answered {status} {answer}")
+    return int(answer["serving"]["registry"]["misses"])
+
+
+def _settled_jobs(client, names, timeout_s: float = 120) -> dict:
+    """Each job's record once it is terminal."""
+    deadline = time.time() + timeout_s
+    records: dict = {}
+    while len(records) < len(names):
+        for name in names:
+            if name in records:
+                continue
+            status, answer = client.call("GET", f"/jobs/{name}")
+            if status == 200 and answer["result"]["state"] in ("finished", "failed", "cancelled"):
+                records[name] = answer["result"]
+        if time.time() > deadline:
+            raise AssertionError(f"fleet: jobs {sorted(set(names) - set(records))} never ended")
+        time.sleep(0.05)
+    return records
+
+
+def _sse_wait(port: int, job: str) -> bytes:
+    """``GET /jobs/<job>/wait`` as an event stream: the bytes after the
+    head once the server closes the stream."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    sock.settimeout(120)
+    try:
+        sock.sendall(
+            f"GET /jobs/{job}/wait?timeout=60 HTTP/1.1\r\nHost: fleet\r\nAccept: text/event-stream\r\n\r\n".encode()
+        )
+        chunks = []
+        while True:
+            data = sock.recv(65536)
+            if not data:
+                break
+            chunks.append(data)
+    finally:
+        sock.close()
+    head, _, stream = b"".join(chunks).partition(b"\r\n\r\n")
+    if b" 200 " not in head.split(b"\r\n", 1)[0] or b"text/event-stream" not in head:
+        raise AssertionError(f"fleet: the event stream's head was {head!r}")
+    return stream
+
+
+def _fleet_load(target: str, name: str, rows: np.ndarray, expected: np.ndarray, tolerance: float,
+                clients: int, requests: int) -> dict:
+    """A closed loop of ``clients`` x ``requests`` predicts of ``name`` at
+    ``target``, every answer checked against the plain CPU forward."""
+    from learningorchestra_tpu_torch.serve.loadgen import http_predict_sender, run_closed_loop
+
+    answers: list = []
+    send, factory = http_predict_sender(
+        [target], name, rows.tolist(), timeout_s=60,
+        on_response=lambda status, body: answers.append((status, body)),
+    )
+    stats = run_closed_loop(send, clients, requests, len(rows), session_factory=factory)
+    for status, body in answers:
+        _check_answer(name, status, body, rows, expected, tolerance)
+        if body["result"]["model"] != name:
+            raise AssertionError(f"fleet: a predict of {name} answered for {body['result']['model']}")
+    stats["answers_checked"] = len(answers)
+    return stats
+
+
+def _router_retries(router, model: str) -> float:
+    return _labelled_total(_metrics_text(router), "lo_router_retries_total", f'model="{model}"')
+
+
+def phase_fleet(torch, card: str) -> dict:
+    """Serving at scale on the card: a store server, two model_builder
+    replicas (``LO_FLEET_REPLICA`` 0 and 1 of ``LO_FLEET_REPLICAS=2``,
+    ``LO_FLEET_RF=2``, ``LO_FLEET_DOWN_S=2``, one shared models
+    directory) and the router (``LO_SERVICE=router``), each its own
+    process, all on the event loop. The serve phase's five checkpoints at
+    full width sit in the models directory; both replicas' heartbeats
+    must list them. The Titanic build, sync on replica 0, must be
+    followed by a ``warmup:<file>`` job a checkpoint on replica 0 that
+    ends finished, K6 launches by the tree warmups that started after the
+    build answered, and first predicts of each built model (routed, then
+    straight at replica 0) that add no ``source="jit"`` compile event and
+    no registry miss on replica 0; an async build's ``/wait`` read as an
+    event stream must end in a ``done`` frame. Then closed loops of
+    ``FLEET_CLIENTS`` x ``FLEET_REQUESTS`` predicts at 1 and 64 rows for
+    each model, through the router and straight at replica 0, every
+    answer held to the plain CPU forward; both replicas' K6 launches must
+    rise. The drill: kill -9 the primary owner of ``FLEET_DRILL_MODEL``
+    while a loop of its predicts runs through the router; every answer
+    must be a 200 for that model, ``lo_router_retries_total`` must rise,
+    and once the down window and a view TTL have passed the router's
+    picture must show the dead replica unhealthy and the survivor
+    healthy, and a further loop must add no retry."""
+    from learningorchestra_tpu_torch.core.store_service import connect
+    from learningorchestra_tpu_torch.utils.webloop import SSE_PREAMBLE
+
+    started = time.perf_counter()
+    walls: dict = {}
+    rng = np.random.default_rng(21)
+    with tempfile.TemporaryDirectory() as folder:
+        models_dir = os.path.join(folder, "models")
+        os.makedirs(models_dir)
+        tolerances, cpu_models = {}, {}
+        for name, gathered in synthetic_checkpoints(seed=0).items():
+            write_checkpoint(gathered, checkpoint_path(models_dir, name))
+            tolerances[name] = TREE_TOL if gathered[0] in ("tree_ensemble", "gbt") else LINEAR_TOL
+            cpu_models[name] = load_model(checkpoint_path(models_dir, name), device="cpu")
+        names = sorted(tolerances)
+        store_server = _StoreServer(folder, "fleet_store", _free_port(), {})
+        children: list = []
+        remote = None
+        try:
+            store_server.wait_serving()
+            boot_s = {"store": time.perf_counter() - started}
+            env = {
+                **os.environ, "LO_STORE_URL": store_server.url, "LO_MODELS_DIR": models_dir,
+                "LO_DATA_DIR": os.path.join(folder, "lo_data"), "LO_IMAGES_DIR": os.path.join(folder, "images"),
+                "LO_FLEET_REPLICAS": "2", "LO_FLEET_RF": "2", "LO_FLEET_DOWN_S": str(FLEET_DOWN_S),
+            }
+            for knob in ("LO_SERVICE", "LO_PORT", "LO_FLEET_REPLICA", "LO_FLEET_MODEL_QPS", "LO_WEB_ASYNC",
+                         "LO_FAULT_BUILDER_PHASE", "LO_DTYPE_POLICY"):
+                env.pop(knob, None)
+            ports = {label: _free_port() for label in ("replica0", "replica1", "router")}
+            children = [
+                _FleetChild(folder, "replica0", "model_builder", ports["replica0"], {**env, "LO_FLEET_REPLICA": "0"}),
+                _FleetChild(folder, "replica1", "model_builder", ports["replica1"], {**env, "LO_FLEET_REPLICA": "1"}),
+                _FleetChild(folder, "router", "router", ports["router"], env),
+            ]
+            boot_s.update(_fleet_boot_seconds(children))
+            replica0, replica1, router = (_Client(ports[label]) for label in ("replica0", "replica1", "router"))
+            walls["heartbeats list the five"] = _fleet_held(router, names, 120)
+
+            # warmup: the Titanic build on replica 0 publishes five checkpoints
+            remote = connect(store_server.url)
+            titanic_store(folder, remote)
+            built = [f"titanic_test_prediction_{name}" for name in MODEL_NAMES]
+            before_build = _metrics_text(replica0)
+            walls_started = time.perf_counter()
+            status, answer = replica0.call(
+                "POST", "/models", _build_body("titanic_train", "titanic_test", documented_preprocessor(), False))
+            if (status, answer) != (201, {"result": "created_file"}):
+                raise AssertionError(f"fleet: the Titanic build answered {status} {answer}")
+            at_answer = _metrics_text(replica0)
+            read_at = time.time()
+            walls["titanic build (sync)"] = time.perf_counter() - walls_started
+            warm_jobs = _settled_jobs(replica0, [f"warmup:{name}.model" for name in built])
+            settled = _metrics_text(replica0)
+            failed = {name: record["state"] for name, record in warm_jobs.items() if record["state"] != "finished"}
+            if failed:
+                raise AssertionError(f"fleet: warmups ended {failed}")
+            tree_warmups_after = sum(
+                1 for name, record in warm_jobs.items()
+                if name.rsplit("_", 1)[-1].split(".")[0] in ("dt", "rf", "gb") and record["started_at"] > read_at
+            )
+            k6 = {"before_build": _forward_launches(before_build), "at_answer": _forward_launches(at_answer),
+                  "after_warmups": _forward_launches(settled)}
+            by_warmups = sum(k6["after_warmups"].values()) - sum(k6["at_answer"].values())
+            if by_warmups < tree_warmups_after or sum(k6["after_warmups"].values()) <= sum(
+                    k6["before_build"].values()):
+                raise AssertionError(f"fleet: K6 launches {k6} with {tree_warmups_after} tree warmups after the answer")
+            titanic_lr = load_model(checkpoint_path(models_dir, "titanic_test_prediction_lr"), device="cpu")
+            titanic_width = int(titanic_lr.w.shape[0])
+            first_predicts = {}
+            for name in built:
+                cpu_model = load_model(checkpoint_path(models_dir, name), device="cpu")
+                row = np.abs(rng.normal(size=(1, titanic_width))).astype(np.float32)
+                tolerance = LINEAR_TOL if name.endswith(("_lr", "_nb")) else TREE_TOL
+                jit, misses = _jit_compiles(_metrics_text(replica0)), _registry_misses(replica0)
+                for client in (router, replica0):
+                    status, body = client.call("POST", f"/models/{name}/predict", {"rows": row.tolist()})
+                    _check_answer(name, status, body, row, cpu_model.predict_proba(row), tolerance)
+                added = {"jit_compiles": _jit_compiles(_metrics_text(replica0)) - jit,
+                         "registry_misses": _registry_misses(replica0) - misses}
+                if any(added.values()):
+                    raise AssertionError(f"fleet: the first predicts of {name} added {added} on replica 0")
+                first_predicts[name] = added
+
+            # the async build's /wait as an event stream
+            job = f"build:titanic_test:{'+'.join(MODEL_NAMES)}"
+            status, answer = replica0.call(
+                "POST", "/models", _build_body("titanic_train", "titanic_test", documented_preprocessor(), True))
+            if (status, answer) != (201, {"result": "created_file", "job": job}):
+                raise AssertionError(f"fleet: the async build answered {status} {answer}")
+            while True:
+                stream = _sse_wait(ports["replica0"], job)
+                if not stream.startswith(SSE_PREAMBLE):
+                    raise AssertionError(f"fleet: the event stream began {stream[:40]!r}")
+                if b"event: timeout\n" not in stream:
+                    break
+            frame = json.loads(stream.split(b"data: ", 1)[1].split(b"\n", 1)[0])
+            if b"event: done\n" not in stream or frame["result"]["state"] != "finished":
+                raise AssertionError(f"fleet: the event stream ended {stream!r}")
+
+            # load through the router and straight at replica 0
+            rows = {count: bench_rows(rng, count) for count in FLEET_ROWS}
+            expected = {(name, count): cpu_models[name].predict_proba(rows[count])
+                        for name in names for count in FLEET_ROWS}
+            launches_before = {label: _forward_launches(_metrics_text(client))
+                               for label, client in (("replica0", replica0), ("replica1", replica1))}
+            load: dict = {}
+            for label, port in (("router", ports["router"]), ("replica0", ports["replica0"])):
+                for count in FLEET_ROWS:
+                    for name in names:
+                        load[f"{label}:{name}:{count}"] = _fleet_load(
+                            f"127.0.0.1:{port}", name, rows[count], expected[(name, count)], tolerances[name],
+                            FLEET_CLIENTS, FLEET_REQUESTS)
+            launches = {}
+            for label, client in (("replica0", replica0), ("replica1", replica1)):
+                after = _forward_launches(_metrics_text(client))
+                launches[label] = {kernel: after[kernel] - launches_before[label][kernel] for kernel in FORWARD_KERNELS}
+                if not sum(launches[label].values()):   # K6: either entry point
+                    raise AssertionError(f"fleet: {label}'s K6 launches under load were {launches[label]}")
+            summary = {}
+            for label in ("router", "replica0"):
+                for count in FLEET_ROWS:
+                    loops = [load[f"{label}:{name}:{count}"] for name in names]
+                    summary[f"{label}:{count}"] = {
+                        "p50_ms": statistics.median(loop["p50_ms"] for loop in loops),
+                        "p99_ms": max(loop["p99_ms"] for loop in loops),
+                        "requests_per_s": statistics.median(loop["requests_per_s"] for loop in loops),
+                    }
+
+            # the drill: kill -9 the drill model's primary while its load runs
+            owners = _fleet_picture(router, FLEET_DRILL_MODEL)["owners"]
+            dead, alive = owners[0], owners[1]
+            victim = children[dead]
+            drill_rows = rows[1]
+            retries = {"before": _router_retries(router, FLEET_DRILL_MODEL)}
+            answers: list = []
+            outcome: dict = {}
+
+            def drive():
+                from learningorchestra_tpu_torch.serve.loadgen import http_predict_sender, run_closed_loop
+
+                send, factory = http_predict_sender(
+                    [f"127.0.0.1:{ports['router']}"], FLEET_DRILL_MODEL, drill_rows.tolist(), timeout_s=60,
+                    on_response=lambda status, body: answers.append((status, body)))
+                latencies = outcome["latencies_s"] = []
+
+                def timed(index, session):
+                    started = time.perf_counter()
+                    send(index, session)
+                    latencies.append(time.perf_counter() - started)
+
+                try:
+                    outcome["stats"] = run_closed_loop(
+                        timed, FLEET_CLIENTS, FLEET_DRILL_REQUESTS, 1, session_factory=factory)
+                except BaseException as error:  # noqa: BLE001 — raised below
+                    outcome["error"] = error
+
+            load_thread = threading.Thread(target=drive)
+            load_thread.start()
+            deadline = time.time() + 120
+            while len(answers) < FLEET_KILL_AFTER and load_thread.is_alive() and time.time() < deadline:
+                time.sleep(0.005)
+            killed_after = len(answers)
+            killed_at = time.perf_counter()
+            victim.kill9()
+            walls["kill -9 to reaped"] = time.perf_counter() - killed_at
+            load_thread.join(timeout=300)
+            if load_thread.is_alive() or "error" in outcome:
+                raise AssertionError(f"fleet: the drill's load failed: {outcome.get('error')}")
+            expected_drill = cpu_models[FLEET_DRILL_MODEL].predict_proba(drill_rows)
+            for status, body in answers:
+                _check_answer(FLEET_DRILL_MODEL, status, body, drill_rows, expected_drill,
+                              tolerances[FLEET_DRILL_MODEL])
+                if body["result"]["model"] != FLEET_DRILL_MODEL:
+                    raise AssertionError(f"fleet: the drill answered for {body['result']['model']}")
+            if len(answers) != FLEET_CLIENTS * FLEET_DRILL_REQUESTS or killed_after >= len(answers):
+                raise AssertionError(f"fleet: {len(answers)} answers, the kill after {killed_after}")
+            retries["after_kill"] = _router_retries(router, FLEET_DRILL_MODEL)
+            if retries["after_kill"] <= retries["before"]:
+                raise AssertionError(f"fleet: no retry after the kill ({retries})")
+            time.sleep(max(0.0, FLEET_DOWN_S + FLEET_VIEW_TTL_S + 0.5 - (time.perf_counter() - killed_at)))
+            picture = _fleet_picture(router, FLEET_DRILL_MODEL)
+            health = {index: row["healthy"] for index, row in picture["replicas"].items()}
+            if health != {str(dead): False, str(alive): True}:
+                raise AssertionError(f"fleet: after the down window the router's picture is {picture}")
+            recovered = _fleet_load(f"127.0.0.1:{ports['router']}", FLEET_DRILL_MODEL, drill_rows, expected_drill,
+                                    tolerances[FLEET_DRILL_MODEL], FLEET_CLIENTS, FLEET_REQUESTS // 5)
+            retries["after_recovery"] = _router_retries(router, FLEET_DRILL_MODEL)
+            if retries["after_recovery"] != retries["after_kill"]:
+                raise AssertionError(f"fleet: retries went on after the down window ({retries})")
+        finally:
+            if remote is not None:
+                remote.close()
+            for child in children:
+                child.stop()
+            store_server.stop()
+    record = {
+        "phase": "fleet",
+        "boot_s": boot_s,
+        "walls_s": walls,
+        "models": names,
+        "warmup": {
+            "jobs": {name: record["state"] for name, record in warm_jobs.items()},
+            "k6_launches": k6,
+            "tree_warmups_after_answer": tree_warmups_after,
+            "first_predicts": first_predicts,
+        },
+        "sse_done_frame": True,
+        "load": summary,
+        "loops": load,
+        "launches": launches,
+        "drill": {
+            "model": FLEET_DRILL_MODEL, "killed_replica": dead, "answers": len(answers),
+            "killed_after_answers": killed_after, "retries": retries, "health": health,
+            "stats": outcome["stats"], "recovered": recovered,
+            "answers_over_1_s": sum(1 for latency in outcome["latencies_s"] if latency > 1.0),
+        },
+        "phase_s": time.perf_counter() - started,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -7168,7 +7695,7 @@ def check_bounds(summary) -> None:
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "store", "shards", "bf16", "multigpu", "services",
+    "batch", "store", "shards", "bf16", "multigpu", "fleet", "services",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -7307,6 +7834,11 @@ def main(argv) -> int:
         summary.extend(bf16["kernels"])
     if "multigpu" in wanted:
         summary.extend(phase_multigpu(torch, device["card"]))
+    if "fleet" in wanted:
+        fleet = phase_fleet(torch, device["card"])
+        for entry in summary:   # K6 on the replicas under the fleet's load
+            if entry["name"] in FORWARD_KERNELS:
+                entry["fleet_launches"] = {label: counts[entry["name"]] for label, counts in fleet["launches"].items()}
     if "services" in wanted:
         phase_services(torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})

@@ -98,9 +98,13 @@ reference gets from its Mongo arbiter, docker-compose.yml:49-91):
 
 The port's copy of ``learningorchestra_tpu/core/store_service.py``. Its
 server is the port's stdlib web layer (``utils/web.py``: ``/wal``'s
-long-poll blocks its handler thread on a ``Waiter``), and its client
-rides ``utils/httpclient.py`` (``http.client``, one persistent
-connection a host and thread) where the reference rides ``requests``.
+long-poll parks its connection on the event loop as a ``Waiter``,
+re-polled every 50 ms), and its client rides ``utils/httpclient.py``
+(``http.client``, one persistent connection a host and thread) where
+the reference rides ``requests``. The client cuts a binary upload into
+frames of at most ``_UPLOAD_FRAME_BYTES`` of columns (the reference's
+strides are rows alone), so that no request passes the event loop's
+64 MB cap.
 Its frames are the reference's byte for byte (``core/wire.py``), so
 each package's client reads the other's server. The client feeds the
 flight recorder (``telemetry/profile.py``): payload bytes written and
@@ -160,6 +164,10 @@ from learningorchestra_tpu_torch.utils.web import (
 )
 
 DEFAULT_STORE_PORT = 27027
+# the most bytes of columns one binary upload frame carries: a quarter of
+# the event loop's request cap (utils/webloop._MAX_BUFFERED_BYTES, 64 MB),
+# past which the server drops the request (a row's bytes are estimated)
+_UPLOAD_FRAME_BYTES = 16 << 20
 
 
 # Deployment-knob readers (sched/config.py pattern): every LO_* env
@@ -428,8 +436,8 @@ def create_store_app(
             # parks here until a record lands or the wait expires — this
             # is what keeps sync-repl ack latency at ~tens of
             # milliseconds rather than one poll period per acknowledged
-            # mutation. The port's threaded server blocks the request
-            # thread while it parks. The ack ledger updates before parking:
+            # mutation. The event loop parks the connection (the threaded
+            # server, its request thread). The ack ledger updates before parking:
             # it reflects the request's applied position, not the
             # response. Old followers that send no `wait` keep the
             # plain immediate-answer behavior.
@@ -1396,7 +1404,7 @@ class RemoteStore(DocumentStore):
         num_rows: int,
         start_id: Optional[int],
     ) -> None:
-        stride = self.wire_rows_bin
+        stride = self._upload_stride(columns.values(), num_rows)
         for offset in range(0, max(num_rows, 1), stride):
             stop = min(offset + stride, num_rows)
             chunk = {
@@ -1431,6 +1439,15 @@ class RemoteStore(DocumentStore):
             )
             if stop >= num_rows:
                 break
+
+    def _upload_stride(self, columns, num_rows: int) -> int:
+        """Rows one upload frame carries: ``wire_rows_bin``, fewer where
+        the columns' bytes a row would take the frame past
+        ``_UPLOAD_FRAME_BYTES``."""
+        if num_rows <= 0:
+            return self.wire_rows_bin
+        row_bytes = max(sum(column.nbytes() for column in columns) / num_rows, 1.0)
+        return max(1, min(self.wire_rows_bin, int(_UPLOAD_FRAME_BYTES // row_bytes)))
 
     @staticmethod
     def _chunk_row(chunk: dict[str, Column], index: int, doc_id) -> dict:
@@ -1472,7 +1489,7 @@ class RemoteStore(DocumentStore):
         column = as_column(values)
         # Page large replaces in strides; each stride is itself a
         # contiguous set_column at the shifted start_id.
-        stride = self.wire_rows_bin
+        stride = self._upload_stride([column], len(column))
         for offset in range(0, max(len(column), 1), stride):
             stop = min(offset + stride, len(column))
             self._post_frame(

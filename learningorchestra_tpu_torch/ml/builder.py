@@ -23,8 +23,13 @@ Crash resume: ``build_model(resume=...)`` takes the journaled
 failed, the rest refit, each fit picking up its own progress artifact
 (ml/progress.py) beside the checkpoints.
 
-Not ported yet: the multi-process fan-out, the publish-time serve warmup
-and the CPU rendezvous guard (JAX's own).
+Publication: after a checkpoint's atomic write, ``compile.
+checkpoint_published(path, features)`` hands the serve path the chance
+to warm it at its dispatch shape before the first ``POST /predict``
+(``compile/warmup.py``); a no-op unless a service registered a handler.
+
+Not ported yet: the multi-process fan-out and the CPU rendezvous guard
+(JAX's own).
 """
 
 from __future__ import annotations
@@ -236,6 +241,11 @@ def train_one(
             os.makedirs(models_dir, exist_ok=True)
             write_checkpoint(gather_model(model), artifact)
         metadata["model_checkpoint"] = artifact
+        # publish-time serve warmup: the feature width rides along, as
+        # tree checkpoints do not record it; never raises into the build
+        from learningorchestra_tpu_torch import compile as lo_compile
+
+        lo_compile.checkpoint_published(artifact, features=int(X_train.shape[1]))
 
     prediction = None
     if features_evaluation is not None:

@@ -749,7 +749,9 @@ def run_sweep(
 
     Raises whatever the member job raises (the route maps
     ``QueueFullError`` to 429 and ``DuplicateJobError`` to 409). The
-    reference's publish-time serve warmup is not ported."""
+    winner's publication calls ``compile.checkpoint_published``: the
+    serve warmup derives the width from lr's parameters, and only pins
+    a dt winner."""
     from learningorchestra_tpu_torch.core.store import ROW_ID
     from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
     from learningorchestra_tpu_torch.ml.builder import FEATURES_COL, LABEL_COL, load_dataframe
@@ -806,6 +808,9 @@ def run_sweep(
         # atomic publication (temp + os.replace): the serving registry's
         # stamp sees the winner, never a partial file
         save_model(model_from_params(result["params"][best], device), checkpoint)
+        from learningorchestra_tpu_torch import compile as lo_compile
+
+        lo_compile.checkpoint_published(checkpoint)
     points = [
         {**p["grid"], "accuracy": p["accuracy"], "weighted_f1": p["weighted_f1"]}
         for p in result["points"]

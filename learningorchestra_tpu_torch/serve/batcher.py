@@ -271,6 +271,11 @@ class MicroBatcher:
                 item.error = RuntimeError("serving batcher closed")
                 item.finish()
 
+    def depth(self) -> int:
+        """Requests waiting in the inbox (the fleet heartbeat's
+        ``inflight``)."""
+        return self._inbox.qsize()
+
     def stats(self) -> dict:
         with self._lock:
             return {

@@ -130,6 +130,14 @@ class ModelRegistry:
             if invalidation:
                 self.invalidations += 1
 
+    def release(self, path: str) -> None:
+        """Unpin ``path`` (a no-op when it is not resident): the fleet's
+        replica agent returns the byte budget when a model's placement
+        moves to another replica. Not an invalidation: the artifact is
+        fine, this replica just no longer owns it."""
+        with self._lock:
+            self._drop_locked(os.path.abspath(path))
+
     def status(self, path: str) -> dict:
         """Residency info for ``GET /models/<name>``; never loads."""
         path = os.path.abspath(path)

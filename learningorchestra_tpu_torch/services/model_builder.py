@@ -41,6 +41,12 @@ Counterpart of ``learningorchestra_tpu/services/model_builder.py``:
   observability routes (``/debug/*``, ``/traces/<cid>``,
   ``/metrics/history``, ``/metrics/ingest``; ``utils/web.py``).
 
+A checkpoint that a build or a sweep publishes into ``models_dir`` is
+warmed (``compile/warmup.py``): the app registers the process-wide
+publish handler, which submits a ``warmup:<file>`` DEVICE job at
+priority -5 that pins the model in the serve registry and runs one
+forward at the serving dispatch shape.
+
 Messages and status codes are the reference's: 404 unknown model, 406
 missing or malformed rows, 413 more than ``LO_SERVE_MAX_ROWS`` rows, 429
 inbox or queue full, 503 timed out, 500 ``prediction_failed: ...``.
@@ -130,6 +136,32 @@ def create_app(
         "End-to-end predict latency (admission to response build)",
         buckets=LATENCY_BUCKETS,
     )
+    # Publish-time serve warmup (compile/warmup.py): when a build or a
+    # sweep publishes a checkpoint into this app's models_dir, a
+    # low-priority DEVICE job (the scheduler's heap prefers larger
+    # values) loads it through the serve registry and runs the fixed
+    # dispatch shape, so the first POST /models/<name>/predict finds the
+    # model pinned and its kernels loaded. Process-wide handler, latest
+    # app wins; a checkpoint published elsewhere is left alone.
+    from learningorchestra_tpu_torch import compile as lo_compile
+
+    def on_checkpoint_published(path: str, features) -> None:
+        if not models_dir or os.path.dirname(os.path.abspath(path)) != os.path.abspath(models_dir):
+            return
+
+        def warm() -> None:
+            from learningorchestra_tpu_torch.compile.warmup import warm_artifact
+
+            warm_artifact(path, features=features, serve=serve)
+
+        try:
+            jobs.submit(f"warmup:{os.path.basename(path)}", warm, job_class=DEVICE_CLASS, priority=-5)
+        except (DuplicateJobError, QueueFullError):
+            # a republish racing its own warmup, or a full device queue:
+            # the publication stands, the first predict pays the load
+            pass
+
+    lo_compile.set_publish_handler(on_checkpoint_published)
     # the reference lets a concurrent same-name sync build run too (racy
     # allow-both, server.py:112-115); the duplicate still goes through
     # the device queue, under a uniquified job name

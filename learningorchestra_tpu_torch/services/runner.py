@@ -23,11 +23,22 @@ Tests start the stack with ``start_all(..., device="cpu")`` or
 Environment:
 - ``LO_SERVICE`` — serve only this service (``database_api``,
   ``projection``, ``model_builder``, ``data_type_handler``,
-  ``histogram``, ``tsne``, ``pca``); unset: all seven. ``router`` (the
-  fleet router) is not ported (ROADMAP Queue 1 item 5) and exits
+  ``histogram``, ``tsne``, ``pca``, or ``router``: the fleet router,
+  serve/router.py, never one of the all-in-one seven); unset: all seven
 - ``LO_PORT`` — the bind port of the one service (default: its
-  reference port; ``0``: OS-assigned); the ``service <name> on
-  <host>:<port>`` boot line names the bind
+  reference port, 5007 for the router; ``0``: OS-assigned); the
+  ``service <name> on <host>:<port>`` boot line names the bind
+- ``LO_FLEET_REPLICAS`` / ``LO_FLEET_RF`` / ``LO_FLEET_MODEL_QPS`` /
+  ``LO_FLEET_DOWN_S`` — the replicated serving fleet (serve/fleet.py):
+  the placement geometry, the router's per-model quota and the
+  heartbeat age past which the router routes around a replica. A
+  ``model_builder`` process with ``LO_FLEET_REPLICA=<index>`` runs a
+  ``ReplicaAgent`` on its serve plane, which pins the checkpoints the
+  placement assigns it and heartbeats its URL; the ``fleet config:``
+  boot line states them, and a malformed value refuses bring-up
+- ``LO_WEB_ASYNC`` (1: the event loop, utils/webloop.py; 0: the threaded
+  ``http.server``), ``LO_WEB_HANDLERS``, ``LO_WEB_MAX_CONNS``,
+  ``LO_WEB_WAIT_CAP_S`` — the ``web config:`` boot line states them
 - ``LO_STORE_URL`` — a store server; a comma-separated list names a
   replica set the client fails over within; ``;`` separates shard
   groups, which a ``ShardedStore`` stripes rows over. Unset: the
@@ -58,8 +69,8 @@ Environment:
   ``LO_SERVE_*``, ...), ``LO_BUILD_WORKERS`` (ml/builder.py) and
   ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
 
-Not ported: the fleet router and its replica agent (ROADMAP Queue 1
-item 5), the AOT compile plane and the multi-host SPMD dispatcher.
+Not ported: the XLA precompile plane (the port's kernels are nvcc
+libraries) and the multi-host SPMD dispatcher.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ from learningorchestra_tpu_torch.services import (
     MODEL_BUILDER_PORT,
     PCA_PORT,
     PROJECTION_PORT,
+    ROUTER_PORT,
     TSNE_PORT,
 )
 from learningorchestra_tpu_torch.services import (
@@ -143,6 +155,12 @@ def build_app(
         return images.create_app(
             store, os.path.join(images_dir, name), name, device=device, jobs=jobs
         )
+    if name == "router":
+        # the fleet router, its own LO_SERVICE only: a router in front
+        # of zero replicas routes nothing
+        from learningorchestra_tpu_torch.serve import router as _router
+
+        return _router.create_app(store)
     raise KeyError(f"unknown service {name!r}")
 
 
@@ -230,12 +248,10 @@ def main(device: DeviceLike = None) -> None:
     from learningorchestra_tpu_torch.serve import config as serve_config
 
     service = os.environ.get("LO_SERVICE", "").strip() or None
-    if service == "router":
+    if service is not None and service not in SERVICES and service != "router":
         raise SystemExit(
-            "LO_SERVICE=router: the fleet router is not ported yet (ROADMAP Queue 1 item 5)"
+            f"LO_SERVICE must be one of {sorted([*SERVICES, 'router'])}, got {service!r}"
         )
-    if service is not None and service not in SERVICES:
-        raise SystemExit(f"LO_SERVICE must be one of {sorted(SERVICES)}, got {service!r}")
     port_env = os.environ.get("LO_PORT", "").strip()
     try:
         port = int(port_env) if port_env else None
@@ -249,6 +265,11 @@ def main(device: DeviceLike = None) -> None:
 
     print(f"devcache capacity: {capacity_bytes()} bytes", flush=True)
     print(f"serving config: {serve_config.validate_all()}", flush=True)
+    # whether this process is a fleet replica (and which index) or a
+    # plain serving plane; a typo'd LO_FLEET_RF refuses bring-up
+    from learningorchestra_tpu_torch.serve import fleet as serve_fleet
+
+    print(f"fleet config: {serve_fleet.validate_env()}", flush=True)
     print(
         "coalescing config: "
         f"window_s={sched_config.coalesce_window_s()} "
@@ -284,6 +305,11 @@ def main(device: DeviceLike = None) -> None:
         f"map_ttl_s={shardmap.map_ttl_s()}",
         flush=True,
     )
+    # which serving core is live (LO_WEB_ASYNC=0: the threaded server);
+    # a typo'd LO_WEB_HANDLERS refuses bring-up
+    from learningorchestra_tpu_torch.utils import webloop
+
+    print(f"web config: {webloop.validate_env()}", flush=True)
     from learningorchestra_tpu_torch.telemetry import profile as _profile
     from learningorchestra_tpu_torch.telemetry import slo as _slo
     from learningorchestra_tpu_torch.telemetry import tracing as _tracing
@@ -327,9 +353,23 @@ def main(device: DeviceLike = None) -> None:
         )
     if service is not None:
         app = build_app(service, store, images_dir, models_dir, jobs, device)
-        server = ServerThread(app, host, SERVICES[service] if port is None else port).start()
+        default_port = ROUTER_PORT if service == "router" else SERVICES[service]
+        server = ServerThread(app, host, default_port if port is None else port).start()
         print(f"service {service} on {host}:{server.port}", flush=True)
         servers = [server]
+        if service == "model_builder" and serve_fleet.replica_index() is not None:
+            # a fleet replica: the agent pins this replica's assigned
+            # checkpoints on the process-wide plane the app serves from,
+            # and heartbeats residency into the store the router reads
+            from learningorchestra_tpu_torch.serve import global_serve_plane
+
+            agent = serve_fleet.ReplicaAgent(
+                store,
+                models_dir or "",
+                global_serve_plane(device),
+                url=f"http://{host}:{server.port}",
+            ).start()
+            print(f"fleet replica {agent.index}: agent started (interval {agent.interval_s}s)", flush=True)
     else:
         _, servers = start_all(
             store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device

@@ -39,6 +39,7 @@ Import cost: stdlib only; the metrics registry is imported lazily.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -199,17 +200,46 @@ def flow_totals() -> dict:
     return out
 
 
+# the lane that loads kernel libraries on this thread (compile_source)
+_COMPILE_SOURCE = threading.local()
+
+
+@contextlib.contextmanager
+def compile_source(source: str, key: Optional[str] = None):
+    """Book the kernel-library loads on this thread under ``source``
+    (``lo_compile_events_total``'s label) while the block runs, then
+    restore the previous lane: the publish-time warmup runs its forward
+    under ``"aot"`` (reference ``utils/jitcache.compile_source``).
+    ``key`` names the work, as the reference's manifest key does."""
+    previous = getattr(_COMPILE_SOURCE, "value", None)
+    _COMPILE_SOURCE.value = (source, key)
+    try:
+        yield
+    finally:
+        _COMPILE_SOURCE.value = previous
+
+
+def current_compile_source() -> str:
+    """This thread's lane: ``jit`` (the request path) outside any
+    :func:`compile_source` block."""
+    scoped = getattr(_COMPILE_SOURCE, "value", None)
+    return "jit" if scoped is None else scoped[0]
+
+
 def account_compile(
     result: Optional[str] = None,
     seconds: Optional[float] = None,
-    source: str = "jit",
+    source: Optional[str] = None,
 ) -> None:
     """A kernel library's load (``result`` = hit|miss) and/or its build
     seconds: ``kernels.library(name)`` feeds this the first time a
     process loads a library (``miss`` with nvcc's seconds when it ran
     nvcc, ``hit`` when the library was already built). ``source`` says
     which lane triggered the load, as the reference labels its compiles:
-    ``jit`` is the request path's first use."""
+    by default this thread's (:func:`current_compile_source`), ``jit``
+    for the request path's first use, ``aot`` inside a warmup."""
+    if source is None:
+        source = current_compile_source()
     metrics = _flow_metrics()
     if result is not None:
         metrics["compile_events"].labels(result, source).inc()

@@ -4,10 +4,9 @@ Counterpart of ``learningorchestra_tpu/utils/web.py`` (which is built on
 werkzeug): route registration with ``<name>`` path parameters, JSON
 request bodies, ``(payload, status)`` handler results, files answered
 by :func:`send_file`, the 429 +
-``Retry-After`` admission answer, a threaded server
-(:class:`ServerThread`, on ``http.server.ThreadingHTTPServer``) and an
-in-process :meth:`WebApp.test_client`. Answers match the reference's
-werkzeug stack byte for byte: an unknown route answers 404
+``Retry-After`` admission answer, a server on a background thread
+(:class:`ServerThread`) and an in-process :meth:`WebApp.test_client`.
+Answers match the reference's werkzeug stack byte for byte: an unknown route answers 404
 ``{"result": "not_found"}``; a GET rule also answers HEAD (the GET's
 status and headers, no body); a method that a path's rules lack answers
 405 with ``Allow``; an :class:`HTTPError` in a handler answers its own
@@ -28,21 +27,27 @@ echoes on the answer and rides into the jobs the request submits.
 (``/metrics/history``, ``/metrics/ingest``, ``/debug/slo``) and arms
 ``/health``'s ``degraded``. :meth:`WebApp.register_job_routes` adds the
 job surface (``/jobs``, ``/jobs/<name>``, its long-poll ``/wait``,
-``/trace`` and ``/profile``, ``DELETE``) and ``/health``. A ``/wait`` blocks its handler thread until the job
-ends or the timeout passes (the reference's threaded-server behaviour;
-its event loop and SSE framing are not ported). A handler may also
-return a :class:`Waiter`, a parked answer (the store's ``/wal``
-long-poll): the handler thread blocks on it until it is ready or times
-out. :meth:`ServerThread.stop` closes the connections it holds open,
-so a stopped server answers nothing more, kept-alive clients included.
-Only the standard library is used, so the port serves wherever torch runs.
+``/trace`` and ``/profile``, ``DELETE``) and ``/health``.
+
+A handler may return a :class:`Waiter` (an answer that is not ready:
+``/jobs/<name>/wait``, framed as SSE under ``Accept:
+text/event-stream``, and the store's ``/wal`` long-poll) or an
+:class:`Upstream` (an answer that lives on another server: the fleet
+router's predict). :class:`ServerThread` serves on the event loop of
+``utils/webloop.py`` unless ``LO_WEB_ASYNC=0``: the loop parks the
+connection, not a thread, and proxies an ``Upstream`` without one; on
+the threaded ``http.server`` (``LO_WEB_ASYNC=0``) and in
+:class:`TestClient` the handler's thread resolves them blocking, with
+the same bytes. :meth:`ServerThread.stop` closes the connections it
+holds open, so a stopped server answers nothing more, kept-alive
+clients included. Only the standard library is used, so the port
+serves wherever torch runs.
 """
 
 from __future__ import annotations
 
 import html
 import json
-import os
 import re
 import socket
 import sys
@@ -55,21 +60,14 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 
 from learningorchestra_tpu_torch.telemetry import metrics as _metrics
 from learningorchestra_tpu_torch.telemetry import tracing as _tracing
+from learningorchestra_tpu_torch.utils import webloop as _webloop
+from learningorchestra_tpu_torch.utils.webloop import (  # noqa: F401 — re-export
+    Upstream,
+    Waiter,
+)
 
 _PARAM_RE = re.compile(r"<([A-Za-z_][A-Za-z0-9_]*)>")
 _dumps = json.dumps  # TestClient.post takes a parameter named json
-
-
-def wait_cap_s() -> float:
-    """``LO_WEB_WAIT_CAP_S`` (default 60): the longest a ``/wait`` parks."""
-    raw = os.environ.get("LO_WEB_WAIT_CAP_S", "").strip()
-    try:
-        cap = float(raw) if raw else 60.0
-    except ValueError:
-        raise ValueError(f"LO_WEB_WAIT_CAP_S must be a number, got {raw!r}") from None
-    if not cap > 0:
-        raise ValueError(f"LO_WEB_WAIT_CAP_S must be > 0, got {cap}")
-    return cap
 
 
 def _compile_rule(rule: str) -> "re.Pattern":
@@ -162,6 +160,9 @@ class Request:
             self.args.setdefault(key, value)
         self.headers = Headers(headers or {})
         self.data = body
+        # set by the event loop (utils/webloop.py): a Waiter or Upstream
+        # the handler returns goes back to the loop unresolved
+        self.on_loop = False
 
     def get_data(self) -> bytes:
         return self.data
@@ -209,44 +210,15 @@ class Response:
         self.status_code = status
         self.headers = {"Content-Type": content_type, **(headers or {})}
 
+    @property
+    def content_type(self) -> str:
+        return self.headers.get("Content-Type", "")
+
     def get_json(self) -> Any:
         return json.loads(self.data)
 
     def get_data(self, as_text: bool = False) -> "bytes | str":
         return self.data.decode() if as_text else self.data
-
-
-class Waiter:
-    """A parked answer: a handler returns one instead of its result when
-    the answer is not ready yet (the reference's ``utils/webloop.Waiter``
-    as its threaded server resolves it, for a source with no push hook,
-    such as the WAL). ``poll()`` gives the handler's ``(payload, status)``
-    once ready, else None, and is asked again every ``interval_s``; after
-    ``timeout_s`` without a result ``on_timeout()`` gives the answer."""
-
-    def __init__(
-        self,
-        poll: Callable[[], Optional[tuple]],
-        timeout_s: float,
-        on_timeout: Callable[[], tuple],
-        interval_s: float,
-    ):
-        self.poll = poll
-        self.timeout_s = max(float(timeout_s), 0.0)
-        self.on_timeout = on_timeout
-        self.interval_s = interval_s
-
-    def resolve(self) -> tuple:
-        """Block this thread until the answer is ready or the wait ends."""
-        deadline = time.monotonic() + self.timeout_s
-        while True:
-            result = self.poll()
-            if result is not None:
-                return result
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                return self.on_timeout()
-            time.sleep(min(remaining, self.interval_s))
 
 
 def json_response(payload: Any, status: int = 200) -> Response:
@@ -500,11 +472,13 @@ class WebApp:
         - ``GET /jobs/<name>`` — one record (404 unknown);
         - ``GET /jobs/<name>/trace`` and ``/profile`` — its span tree,
           and its timeline as a Chrome trace (:meth:`register_job_traces`);
-        - ``GET /jobs/<name>/wait?timeout=S`` — long-poll until the job
-          ends (released by its done callback) or ``S`` seconds pass
-          (default 25, capped at ``LO_WEB_WAIT_CAP_S``): the terminal
-          record, or ``{"result": "timeout", ...}``, a re-poll hint; a
-          bare dataset name resolves to the newest job materialising it;
+        - ``GET /jobs/<name>/wait?timeout=S`` — long-poll (or SSE with
+          ``Accept: text/event-stream``) until the job ends (a
+          :class:`Waiter` notified by its done callback) or ``S``
+          seconds pass (default 25, capped at ``LO_WEB_WAIT_CAP_S``):
+          the terminal record, or ``{"result": "timeout", ...}``, a
+          re-poll hint; a bare dataset name resolves to the newest job
+          materialising it;
         - ``DELETE /jobs/<name>`` — cooperative cancellation: 202 while
           it propagates, 409 once the job is terminal, 404 unknown;
         - ``GET /health`` — liveness, the ``job_wait`` feature probe and
@@ -541,20 +515,25 @@ class WebApp:
                 return {"result": "bad_timeout"}, 400
             if timeout_s != timeout_s or timeout_s < 0:  # NaN included
                 return {"result": "bad_timeout"}, 400
-            timeout_s = min(timeout_s, wait_cap_s())
+            timeout_s = min(timeout_s, _webloop.wait_cap_s())
             record = jobs.resolve_wait(job_name)
             if record is None:
                 return {"result": "not_found"}, 404
-            done = threading.Event()
-            jobs.add_done_callback(record.name, done.set)
-            deadline = time.monotonic() + timeout_s
-            while record.state not in TERMINAL_STATES:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    return {"result": "timeout", "job": record.name, "state": record.state}, 200
-                done.wait(remaining)
-                done.clear()  # a notify for a same-name successor: re-check
-            return {"result": record.as_dict()}, 200
+            sse = "text/event-stream" in (request.headers.get("Accept") or "")
+
+            def poll(_record=record):
+                # a notify for a same-name successor finds this record
+                # still running: spurious, the waiter stays parked
+                if _record.state in TERMINAL_STATES:
+                    return {"result": _record.as_dict()}, 200
+                return None
+
+            def on_timeout(_record=record):
+                return {"result": "timeout", "job": _record.name, "state": _record.state}, 200
+
+            waiter = Waiter(poll, timeout_s, on_timeout, sse=sse)
+            jobs.add_done_callback(record.name, waiter.notify)
+            return waiter
 
         if not any(route[4] == "/health" for route in self._routes):
 
@@ -567,10 +546,16 @@ class WebApp:
                     "degraded": self.slo_degraded(),
                 }, 200
 
-    def handle(self, request: Request) -> Response:
+    def handle(self, request: Request) -> "Response | Waiter | Upstream":
         """The answer to ``request``, under a trace whose correlation ID
         echoes on it; a HEAD's keeps the GET's headers and
-        ``Content-Length`` but no body."""
+        ``Content-Length`` but no body.
+
+        A handler's :class:`Waiter` or :class:`Upstream` goes back as it
+        is when the event loop serves the request (``request.on_loop``):
+        the loop parks or proxies it, and its ``on_complete`` books the
+        request counters at resolution. Otherwise this thread resolves
+        it blocking into a :class:`Response`."""
         correlation_id = (
             request.headers.get(_tracing.CORRELATION_HEADER.lower())
             or _tracing.mint_correlation_id()
@@ -586,19 +571,50 @@ class WebApp:
         finally:
             self._in_flight.labels(self.name).dec()
         _tracing.export_trace(trace, service=self.name)
-        self._requests_total.labels(
-            self.name, rule, request.method, response.status_code
-        ).inc()
-        self._request_seconds.labels(self.name, rule, request.method).observe(
-            time.perf_counter() - started
-        )
+        method = request.method
+
+        def book(status: int) -> None:
+            self._requests_total.labels(self.name, rule, method, status).inc()
+            self._request_seconds.labels(self.name, rule, method).observe(
+                time.perf_counter() - started
+            )
+
+        if isinstance(response, Upstream):
+            response.correlation_id = correlation_id
+            if request.on_loop:
+                # the loop proxies on its own thread; a route-set
+                # on_complete (the router's families) runs first
+                route_complete = response.on_complete
+
+                def complete(status, _route_complete=route_complete):
+                    if _route_complete is not None:
+                        _route_complete(status)
+                    book(status)
+
+                response.on_complete = complete
+                return response
+            status, headers, body = response.resolve_blocking()
+            response = Response(body, status=status, headers=dict(headers))
+        if isinstance(response, Waiter):
+            response.correlation_id = correlation_id
+            if request.on_loop:
+                # the loop parks the connection: a long-poll's latency
+                # is its parked time
+                response.on_complete = book
+                return response
+            result, kind = response.resolve_blocking()
+            body, status, content_type = _webloop.waiter_body(response, result, kind)
+            if content_type.startswith("text/"):
+                content_type += "; charset=utf-8"  # werkzeug's mimetype rule
+            response = Response(body, status=status, content_type=content_type)
+        book(response.status_code)
         response.headers[_tracing.CORRELATION_HEADER] = correlation_id
         if request.method == "HEAD":
             response.headers["Content-Length"] = str(len(response.data))
             response.data = b""
         return response
 
-    def _dispatch(self, request: Request) -> tuple[Response, str]:
+    def _dispatch(self, request: Request) -> tuple["Response | Waiter | Upstream", str]:
         """The answer and the matched rule (``<unmatched>`` if none): the
         rule, not the path, labels the request counters."""
         matched = []
@@ -629,7 +645,7 @@ class WebApp:
         return self._answer(handler, request, match), rule
 
     @staticmethod
-    def _answer(handler, request: Request, match) -> Response:
+    def _answer(handler, request: Request, match) -> "Response | Waiter | Upstream":
         try:
             result = handler(request, **match.groupdict())
         except HTTPError as error:
@@ -642,9 +658,7 @@ class WebApp:
                 f"{type(error).__name__}: {error}", status=500,
                 content_type="text/plain; charset=utf-8",
             )
-        if isinstance(result, Waiter):
-            result = result.resolve()
-        if isinstance(result, Response):
+        if isinstance(result, (Waiter, Upstream, Response)):
             return result
         if isinstance(result, tuple):
             payload, status = result
@@ -764,24 +778,53 @@ class _Server(ThreadingHTTPServer):
 
 class ServerThread:
     """Serve an app on a background thread; ``port=0`` takes a free port,
-    which ``.port`` then holds."""
+    which ``.port`` then holds.
+
+    ``LO_WEB_ASYNC=1`` (the default) serves on the event loop
+    (``utils/webloop.LoopServer``, exposed as ``._loop``): one selectors
+    loop owns every socket and a bounded handler pool runs the routes.
+    ``LO_WEB_ASYNC=0`` serves on the threaded ``http.server`` (a thread
+    a connection; ``._loop`` is None): the same routes and bytes, a
+    ``/wait`` blocking its thread."""
 
     def __init__(self, app: WebApp, host: str = "127.0.0.1", port: int = 0):
         self.host = host
-        self._server = _Server((host, port), app)
-        self.port = self._server.server_address[1]
-        self._thread = threading.Thread(
-            target=self._server.serve_forever, daemon=True, name=f"{app.name}-server"
-        )
+        if _webloop.web_async_enabled():
+            self._server = None
+            self._loop = _webloop.LoopServer(app, host, port)
+            self.port = self._loop.port
+            self._thread = self._loop._thread
+        else:
+            self._loop = None
+            self._server = _Server((host, port), app)
+            self.port = self._server.server_address[1]
+            self._thread = threading.Thread(
+                target=self._server.serve_forever, daemon=True, name=f"{app.name}-server"
+            )
 
     def start(self) -> "ServerThread":
-        self._thread.start()
+        if self._loop is not None:
+            self._loop.start()
+        else:
+            self._thread.start()
         return self
 
     def stop(self) -> None:
-        if self._thread.is_alive():
-            self._server.shutdown()
-        self._server.server_close()
-        self._server.close_connections()
-        self._thread.join(timeout=5)
+        """Stop serving and close every connection still open."""
+        if self._loop is not None:
+            self._loop.stop()
+        else:
+            if self._thread.is_alive():
+                self._server.shutdown()
+            self._server.server_close()
+            self._server.close_connections()
+        if self._thread.ident is not None:
+            self._thread.join(timeout=5)
 
+
+def run_app(app: WebApp, host: str, port: int) -> None:
+    """Serve ``app`` in the foreground until the process ends."""
+    if _webloop.web_async_enabled():
+        _webloop.LoopServer(app, host, port).serve_forever()
+        return
+    _Server((host, port), app).serve_forever()

@@ -20,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -177,6 +178,19 @@ def test_stitched_trace_equals_the_reference(monkeypatch):
     theirs = jax_stitch.stitched_trace("cid_nobody_exported", members=members)
     assert ours == theirs
     assert len(ours["otherData"]["processes"]) == 3
+
+
+def _warmups_settled(client, count: int, timeout_s: float = 60) -> None:
+    """Wait until ``count`` publish-time warmup jobs (``warmup:<file>``)
+    of an app have ended."""
+    deadline = time.monotonic() + timeout_s
+    jobs: list = []
+    while time.monotonic() < deadline:
+        jobs = [job for job in client.get("/jobs").get_json()["result"] if job["name"].startswith("warmup:")]
+        if len(jobs) >= count and all(job["state"] in ("finished", "failed", "cancelled") for job in jobs):
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"the warmups never ended: {jobs}")
 
 
 def _titanic_apps(tmp_path):
@@ -378,6 +392,7 @@ def test_h2d_counter_is_the_funnels_count(tmp_path, monkeypatch):
         "preprocessor_code": DOCUMENTED_PREPROCESSOR, "classificators_list": FIVE,
     })
     assert response.status_code == 201
+    _warmups_settled(client, len(FIVE))   # the publish-time warmups copy their rows too
     after = totals()
     assert after[0] - before[0] == after[1] - before[1] > 0
     checkpoint = str(tmp_path / "port" / "titanic_test_prediction_dt.model")

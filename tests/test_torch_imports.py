@@ -112,6 +112,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "core.wire", "core.shmring", "core.arbiter", "core.store_service", "utils.httpclient",
         "telemetry.profile", "telemetry.stitch", "telemetry.tsdb", "telemetry.slo",
         "core.shardmap", "core.shardstore", "core.ingest", "native", "native.loader",
+        "utils.webloop", "compile", "compile.warmup", "serve.fleet", "serve.router", "serve.loadgen",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]
@@ -172,10 +173,10 @@ def test_one_service_as_main_needs_cuda_and_loads_no_jax(tmp_path, service):
     assert not (tmp_path / "lo_data").exists()
 
 
-@pytest.mark.parametrize("service,words", [("router", "Queue 1 item 5"), ("planner", "must be one of")])
+@pytest.mark.parametrize("service,words", [("routers", "'router'"), ("planner", "must be one of")])
 def test_the_runner_refuses_a_service_it_does_not_serve(tmp_path, service, words):
-    """``LO_SERVICE=router`` names the roadmap item the fleet router waits
-    for; an unknown name lists the seven."""
+    """An unknown ``LO_SERVICE`` lists the seven and the fleet router
+    (``router``, which the runner serves)."""
     env = dict(os.environ, LO_DATA_DIR=str(tmp_path / "lo_data"), LO_SERVICE=service)
     result = subprocess.run(
         [sys.executable, "-m", "learningorchestra_tpu_torch.services.runner"],
