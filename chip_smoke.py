@@ -4,7 +4,7 @@ builder (``POST /models``), its whole service stack (crash resume, the
 data services, ``POST /models/sweep``, the runner's kill -9 drill), its
 batch predictions lane with the device cache, the stack over the
 networked store (a replicated pair of store servers, failover), the
-``bf16`` feature policy, the lr fit over ranks (``fit_sharded``: rows
+``bf16`` feature policy, every fit, PCA and t-SNE over ranks (rows
 sharded over ``torch.distributed`` processes), one process a service
 with the observability plane, the stack over two shard groups with
 CSVs ingested natively in slabs, and the serving fleet (two replicas
@@ -21,7 +21,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py stack            # resume, the services, sweeps, the kill -9 drill
     python3 chip_smoke.py batch bf16       # the batch lane; LO_DTYPE_POLICY=bf16 in a child
     python3 chip_smoke.py store            # the stack over a primary and a follower store server
-    python3 chip_smoke.py multigpu         # K8′, K7's sums form, fit_sharded over ranks
+    python3 chip_smoke.py multigpu         # K8′, the sums forms and slabs; every fit, PCA, t-SNE over ranks
     python3 chip_smoke.py services         # a store server and seven LO_SERVICE runners
     python3 chip_smoke.py shards           # two replicated shard groups, slabbed native CSV ingest
     python3 chip_smoke.py fleet serve      # two replicas behind the router; serve on both servers
@@ -330,9 +330,25 @@ Phases, one JSON line each:
                  predictions agree with run (b)'s on 99.9% of rows and its
                  losses within 1e-5; run (c)'s ``fit`` agrees with the
                  one-process ``fit`` the same way; every kernel of the path
-                 launched by every rank. One record line a run (backend,
-                 ranks, cards, ranks a card, walls, host seconds in
-                 collectives, launches a rank).
+                 launched by every rank. K2's and K5's sums forms at a
+                 depth-5 gb fit's levels and leaves on one rank's block
+                 (262,144 and 1,048,576 rows): within 1e-12 of the twin,
+                 rounded bit-equal to the float32 launch; K11's row slab
+                 at the 5,000 landmarks cut four ways, bit-equal to the
+                 whole launch's rows; K12's slab at the landmark fit's Y0
+                 and final embedding, within embed-kernels' K12
+                 tolerances; each timed. In every child, after the lr
+                 fits, the SPMD fits of dt, rf, gb and nb (their
+                 ``evaluate_predict`` over the ranks), PCA and a landmark
+                 t-SNE request at 1,000,000 rows; runs (b) and (c) held
+                 against the one-process fits: dt and rf heaps identical,
+                 gb's margins within 1e-5 (whether its heaps are
+                 identical reported), nb within 1e-6, PCA within 1e-3 of
+                 its largest coordinate, t-SNE's KL and kNN agreement
+                 within the embed phase's bounds; every rank launched
+                 the sums forms and the slabs. One record line a run
+                 (backend, ranks, cards, ranks a card, walls, host
+                 seconds in collectives, launches a rank, each fit's).
 
 15. fleet      — a store server, two model_builder replicas
                  (``LO_FLEET_REPLICA`` 0 and 1, ``LO_FLEET_REPLICAS=2``,
@@ -3149,8 +3165,8 @@ def phase_embed(torch, card: str, store, labels_by_name: dict, setup_s: float) -
         captured[os.path.basename(image_path)] = embedded
         real_scatter(embedded, hue, image_path)
 
-    def exact(X, perplexity, iterations, learning_rate, Y0):
-        Y = real_exact(X, perplexity, iterations, learning_rate, Y0)
+    def exact(X, perplexity, iterations, learning_rate, Y0, mesh=None):
+        Y = real_exact(X, perplexity, iterations, learning_rate, Y0, mesh)
         fits[current[0]] = (X, perplexity, iterations, learning_rate, Y0, Y)
         return Y
 
@@ -6680,6 +6696,399 @@ def check_k7_sums(torch, flush) -> dict:
     return results
 
 
+# The other fits, PCA and t-SNE over ranks: the four new kernel forms
+FORMS_REPLACES = {
+    "level_histograms_sums": (
+        "learningorchestra_tpu/ml/trees.py:66 _level_histograms on a row-sharded mesh "
+        "(gb's (g, h); XLA's psum across the data axis)"
+    ),
+    "leaf_sums_sums": (
+        "learningorchestra_tpu/ml/trees.py:142 _leaf_sums on a row-sharded mesh "
+        "(gb's (g, h); XLA's psum across the data axis)"
+    ),
+    "tsne_affinities_slab": (
+        "learningorchestra_tpu/ops/tsne.py:122 _affinities, its local_slab under shard_map (:138-160)"
+    ),
+    "tsne_z_slab": (
+        "learningorchestra_tpu/ops/tsne.py:170 _optimize, a slab's part of the Q normalizer "
+        "before its psum (:192-197)"
+    ),
+    "tsne_grad_slab": (
+        "learningorchestra_tpu/ops/tsne.py:170 _optimize, a slab's gradient rows before "
+        "their all_gather (:197-205)"
+    ),
+}
+FORMS_SOURCE = {
+    "level_histograms_sums": FIT_SOURCE, "leaf_sums_sums": FIT_SOURCE,
+    "tsne_affinities_slab": TSNE_SOURCE, "tsne_z_slab": TSNE_SOURCE, "tsne_grad_slab": TSNE_SOURCE,
+}
+FORM_KERNELS = {   # the CUDA kernels a call runs, as the profiler names them
+    "level_histograms_sums": ("level_histograms_kernel", "sum_partials_kernel", "partition_rows_kernel"),
+    "leaf_sums_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
+    "tsne_affinities_slab": ("distances_kernel", "affinities_kernel"),
+    "tsne_z_slab": ("z_slab_kernel", "slab_total_kernel"),
+    "tsne_grad_slab": ("grad_slab_kernel",),
+}
+FORMS_LIBRARY = {
+    "level_histograms_sums": "none: no PyTorch call gives float64 (node, feature, bin) sums of (g, h)",
+    "leaf_sums_sums": "none: no PyTorch call gives float64 (leaf, channel) sums in a fixed order",
+    "tsne_affinities_slab": "none: no PyTorch call calibrates affinities to a perplexity",
+    "tsne_z_slab": "none: no PyTorch call gives t-SNE's normaliser",
+    "tsne_grad_slab": "none: no PyTorch call gives the t-SNE gradient",
+}
+FORM_SUM_RTOL = 1e-12           # the sums forms against their twins, of the largest sum
+MULTIGPU_BLOCK_ROWS = SCALER_SHAPES[0][0] // MULTIGPU_GLOO_RANKS   # run (c)'s block: 262,144
+MULTIGPU_SLABS = MULTIGPU_GLOO_RANKS   # the landmark fit's rows cut four ways
+MULTIGPU_PCA_RTOL = 1e-3        # PCA over ranks against one process, of the largest coordinate
+MULTIGPU_GB_MARGIN_TOL = 1e-5   # gb's margins over ranks against one process
+MULTIGPU_NB_TOL = 1e-6          # nb's probabilities over ranks against one process
+
+
+def _row_slabs(n: int, ranks: int) -> list:
+    """Each rank's rows of an ``n``-row array under the block rule
+    (``parallel.host_row_range``): the padded rows' blocks, clamped to n."""
+    from learningorchestra_tpu_torch.parallel.sharding import padded_row_count
+
+    block = padded_row_count(n, ranks) // ranks
+    return [(min(r * block, n), min((r + 1) * block, n)) for r in range(ranks)]
+
+
+def _sums_bound(name: str, rows: int, cells: int, channels: int = 2) -> tuple[float, str]:
+    """K2's and K5's sums forms: the rows' bins (int8, K2 only), nodes and
+    channels read once, the float64 cells written once, against a float64
+    add a (row, feature, channel) (K2) or a (row, channel) (K5)."""
+    if name == "level_histograms_sums":
+        bytes_moved = rows * FEATURES + rows * 4 + rows * channels * 4 + cells * 8
+        ops = rows * FEATURES * channels
+    else:
+        bytes_moved = rows * 4 + rows * channels * 4 + cells * 8
+        ops = rows * channels
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_FP64_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _slab_bound(name: str, slab: int, n: int, features: int = FEATURES) -> tuple[float, str]:
+    """The row slabs: K11 reads X and writes the slab's (slab, n) P, its
+    pairs' float32 instructions as K11's; K12 reads Y (and for the gradient
+    the slab of P) and writes its float64 part of Z or the slab's gradient,
+    its slab x (n - 1) ordered pairs' instructions (a pair's inverse and its
+    sum for Z; the inverse, q, W and its three sums for the gradient)."""
+    pairs = slab * max(n - 1, 0)
+    if name == "tsne_affinities_slab":
+        bytes_moved = n * features * 4 + slab * n * 4
+        instructions = slab * n * (features + 3 + TSNE_AFFINITY_INSTRUCTIONS)
+    elif name == "tsne_z_slab":
+        bytes_moved = n * 8 + 8
+        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 1)
+    else:
+        bytes_moved = slab * n * 4 + n * 8 + slab * 8 + 4
+        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 2 + 6)
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = instructions / PEAK_FP32_INSTRUCTIONS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _form_times(torch, name: str, kernel, plain, bound, flush, read_flush) -> dict:
+    """A new form's times: event ms cold (L2 overwritten) and warm, device
+    ms cold and with L2 evicted by reads, the twin's ms cold, the bound."""
+    bound_ms, bound_by = bound
+    return {
+        "ms": _event_ms(torch, kernel, 10, flush),
+        "warm_ms": _event_ms(torch, kernel, 20),
+        "device_ms": _device_ms(torch, kernel, FORM_KERNELS[name], 10, flush),
+        "device_ms_clean_l2": _device_ms(torch, kernel, FORM_KERNELS[name], 10, read_flush),
+        "plain_ms": _event_ms(torch, plain, 3, flush),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_sum_forms(torch, flush) -> dict:
+    """K2's and K5's sums forms at a depth-5 gb fit's levels and leaves on
+    one rank's block: bench.py's 1,000,000 rows padded to 1,048,576 (the
+    padding weighted 0), the block of rank 0 of four (262,144 rows) and of
+    one (1,048,576), the (g, h) of the first boosting round. Each level's
+    and the leaves' float64 sums within FORM_SUM_RTOL of the largest of
+    the twin's, a second launch bit identical, and rounded once bit-equal
+    to today's float32 launch on the same rows. Times at the deepest level
+    and at the leaves of each block."""
+    X_np, y_np = bench_synthetic(FIT_ROWS)
+    rows = SCALER_SHAPES[0][0]
+    X_block = np.zeros((rows, FEATURES), np.float32)
+    X_block[:FIT_ROWS] = X_np
+    y_block = np.zeros(rows, np.int64)
+    y_block[:FIT_ROWS] = y_np
+    thresholds = torch.from_numpy(binning.make_thresholds(X_np, MAX_BINS).astype(np.float32)).cuda()
+    bins = binning.apply_bins(torch.from_numpy(X_block).cuda(), thresholds)
+    weights = torch.from_numpy((np.arange(rows) < FIT_ROWS).astype(np.float32)).cuda()
+    y = torch.from_numpy(y_block).cuda()
+    f0, margins = trees._gbt_init(y, weights)
+    p = torch.sigmoid(margins)
+    channels = torch.stack([(p - y.to(torch.float32)) * weights,
+                            (p * (1 - p)).clamp(min=1e-6) * weights], dim=1)
+    read_flush = _ReadFlush(torch, flush.device)
+    names = ("level_histograms_sums", "leaf_sums_sums")
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "by_shape": {}} for name in names}
+
+    def held(name, key, got, twin, rounded, again):
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} at {key}: a second launch differs")
+        if not torch.equal(got.to(torch.float32), rounded):
+            raise AssertionError(f"{name} at {key}: rounded once, not the float32 launch's bits")
+        error = _relative_error(got, twin)
+        if not error <= FORM_SUM_RTOL:
+            raise AssertionError(f"{name} at {key}: {error} of the largest sum from the twin")
+        results[name]["max_rel_err"] = max(results[name]["max_rel_err"], error)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float((got - twin).abs().max()))
+
+    for block_rows in (MULTIGPU_BLOCK_ROWS, rows):
+        b, ch = bins[:block_rows], channels[:block_rows].contiguous()
+        node = torch.zeros(block_rows, dtype=torch.int32, device=bins.device)
+        for level in range(DEPTH):
+            n_nodes, key = 2**level, f"{block_rows}:level{level}"
+
+            def form(node=node, n_nodes=n_nodes):
+                return trees.level_histograms(b, node, ch, n_nodes, MAX_BINS, sums=True)
+
+            def twin(node=node, n_nodes=n_nodes):
+                return trees._level_histograms(b, node, ch, n_nodes, MAX_BINS, sums=True)
+
+            got = form()
+            held("level_histograms_sums", key, got, twin(),
+                 trees.level_histograms(b, node, ch, n_nodes, MAX_BINS), form())
+            if level == DEPTH - 1:
+                results["level_histograms_sums"]["by_shape"][key] = {
+                    "rows": block_rows, "nodes": n_nodes,
+                    **_form_times(torch, "level_histograms_sums", form, twin,
+                                  _sums_bound("level_histograms_sums", block_rows, got.numel() // 2),
+                                  flush, read_flush),
+                }
+            feature, bin_index = trees.select_splits(got.to(torch.float32), "newton")
+            node = trees.route(b, node, feature, bin_index)
+        key = f"{block_rows}:leaves"
+
+        def leaves(node=node):
+            return trees.leaf_sums(node, ch, 2**DEPTH, sums=True)
+
+        def leaves_twin(node=node):
+            return trees._leaf_sums(node, ch, 2**DEPTH, sums=True)
+
+        got = leaves()
+        held("leaf_sums_sums", key, got, leaves_twin(), trees.leaf_sums(node, ch, 2**DEPTH), leaves())
+        results["leaf_sums_sums"]["by_shape"][key] = {
+            "rows": block_rows, "leaves": 2**DEPTH,
+            **_form_times(torch, "leaf_sums_sums", leaves, leaves_twin,
+                          _sums_bound("leaf_sums_sums", block_rows, got.numel() // 2), flush, read_flush),
+        }
+    del read_flush
+    for name, result in results.items():   # at run (c)'s block, the deepest level or the leaves
+        main = f"{MULTIGPU_BLOCK_ROWS}:{'level' + str(DEPTH - 1) if name == 'level_histograms_sums' else 'leaves'}"
+        result.update(result["by_shape"][main])
+    return results
+
+
+def check_slab_forms(torch, flush) -> dict:
+    """K11's and K12's row slabs at the landmark fit's shape: the 5,000
+    landmarks of bench.py's 1,000,000 embedding rows (seed 0), cut four
+    ways by the block rule. K11: each slab's rows bit-equal to the same
+    rows of the whole launch (a row's arithmetic is the whole launch's),
+    and within K11_TOL of each row's largest p from the twin. K12 at the
+    fit's start Y0 (exaggeration 12) and at its final embedding (a
+    one-process exact fit of 1,000 iterations): the slabs' float64 parts of
+    Z added in rank order within K12_Z_RTOL of the twins', the gradient
+    rows no farther from a float64 evaluation than the twin's (within the
+    embed-kernels tolerance of the twin), a second launch bit identical.
+    Times at slab 0 (the final embedding for K12)."""
+    X_np, _ = embed_blobs(EMBED_ROWS)
+    chosen = tsne._choose_landmarks(EMBED_ROWS, tsne.LANDMARKS, 0)
+    L = torch.from_numpy(X_np[chosen]).cuda()
+    n = L.shape[0]
+    perplexity = tsne._clamped_perplexity(tsne.PERPLEXITY, n)
+    slabs = _row_slabs(n, MULTIGPU_SLABS)
+    names = ("tsne_affinities_slab", "tsne_z_slab", "tsne_grad_slab")
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "by_rows": {}} for name in names}
+    whole = tsne.conditional_affinities(L, perplexity)
+    bit_equal = True
+    for first, stop in slabs:
+        slab = tsne.conditional_affinities_slab(L, perplexity, first, stop - first)
+        if not torch.equal(slab, tsne.conditional_affinities_slab(L, perplexity, first, stop - first)):
+            raise AssertionError(f"tsne_affinities_slab [{first}, {stop}): a second launch differs")
+        twin = tsne._conditional_affinities_slab(L, perplexity, first, stop - first)
+        row_max = twin.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+        error = float(((slab - twin).abs() / row_max).max())
+        if not error <= K11_TOL:
+            raise AssertionError(f"tsne_affinities_slab [{first}, {stop}): {error} of a row's largest p")
+        results["tsne_affinities_slab"]["max_rel_err"] = max(results["tsne_affinities_slab"]["max_rel_err"], error)
+        results["tsne_affinities_slab"]["max_abs_err"] = max(
+            results["tsne_affinities_slab"]["max_abs_err"], float((slab - twin).abs().max()))
+        if not torch.equal(slab, whole[first:stop]):
+            bit_equal = False
+            whole_error = float(((slab - whole[first:stop]).abs() / row_max).max())
+            if not whole_error <= K11_TOL:
+                raise AssertionError(
+                    f"tsne_affinities_slab [{first}, {stop}): {whole_error} from the whole launch's rows")
+    results["tsne_affinities_slab"]["bit_equal_to_the_whole_launch"] = bit_equal
+    P = tsne._symmetrize(whole)
+    del whole
+    Y0 = tsne._initial_embedding(n, 0, L.device)
+    Y_final = tsne._tsne_exact(L, tsne.PERPLEXITY, tsne.ITERATIONS, tsne.LEARNING_RATE, Y0)
+    read_flush = _ReadFlush(torch, flush.device)
+    for label, Y, exaggeration in (("start", Y0, tsne.EARLY_EXAGGERATION), ("final", Y_final, 1.0)):
+        key = f"{n}:{label}"
+        parts = [tsne.tsne_z_slab(Y, first, stop - first) for first, stop in slabs]
+        again = [tsne.tsne_z_slab(Y, first, stop - first) for first, stop in slabs]
+        if not all(torch.equal(a, b) for a, b in zip(parts, again)):
+            raise AssertionError(f"tsne_z_slab at {key}: a second launch differs")
+        Z64 = parts[0]
+        twin64 = tsne._tsne_z_slab(Y, *_as_slab(slabs[0]))
+        for part, (first, stop) in zip(parts[1:], slabs[1:]):
+            Z64 = Z64 + part
+            twin64 = twin64 + tsne._tsne_z_slab(Y, first, stop - first)
+        z_rel = abs(float(Z64) - float(twin64)) / float(twin64)
+        if not z_rel <= K12_Z_RTOL:
+            raise AssertionError(f"tsne_z_slab at {key}: {z_rel} relative to the twins' Z")
+        results["tsne_z_slab"]["max_rel_err"] = max(results["tsne_z_slab"]["max_rel_err"], z_rel)
+        results["tsne_z_slab"]["max_abs_err"] = max(
+            results["tsne_z_slab"]["max_abs_err"], abs(float(Z64) - float(twin64)))
+        Z = Z64.to(torch.float32)
+        grads, twins, grads64 = [], [], []
+        for first, stop in slabs:
+            P_slab = P[first:stop].contiguous()
+            grad = tsne.tsne_grad_slab(Y, P_slab, Z, first, exaggeration)
+            if not torch.equal(grad, tsne.tsne_grad_slab(Y, P_slab, Z, first, exaggeration)):
+                raise AssertionError(f"tsne_grad_slab at {key}: a second launch differs")
+            grads.append(grad)
+            twins.append(tsne._tsne_grad_slab(Y, P_slab, Z, first, exaggeration))
+            grads64.append(tsne._tsne_grad_slab(Y.double(), P_slab.double(), Z.double(), first, exaggeration))
+        grad, twin, grad64 = torch.cat(grads), torch.cat(twins), torch.cat(grads64)
+        scale64 = float(grad64.abs().max()) or 1.0
+        float64_err = float((grad - grad64).abs().max()) / scale64
+        twin_float64_err = float((twin - grad64).abs().max()) / scale64
+        difference = float((grad - twin).abs().max())
+        rel = difference / (float(twin.abs().max()) or 1.0)
+        tolerance = max(K12_PLAIN_TOL, 2.0 * twin_float64_err + K12_FLOAT64_SLACK)
+        if not rel <= tolerance or not float64_err <= twin_float64_err + K12_FLOAT64_SLACK:
+            raise AssertionError(
+                f"tsne_grad_slab at {key}: {rel} of the twin's largest (tolerance {tolerance}); "
+                f"{float64_err} from float64 against the twin's {twin_float64_err}")
+        results["tsne_grad_slab"]["max_rel_err"] = max(results["tsne_grad_slab"]["max_rel_err"], rel)
+        results["tsne_grad_slab"]["max_abs_err"] = max(results["tsne_grad_slab"]["max_abs_err"], difference)
+        results["tsne_grad_slab"]["by_rows"][key] = {"float64_err": float64_err,
+                                                    "twin_float64_err": twin_float64_err}
+        if label == "final":
+            first, stop = slabs[0]
+            P_slab = P[first:stop].contiguous()
+            slab_rows = stop - first
+            results["tsne_z_slab"]["by_rows"][key] = {"rows": slab_rows, "columns": n, **_form_times(
+                torch, "tsne_z_slab", lambda: tsne.tsne_z_slab(Y, first, slab_rows),
+                lambda: tsne._tsne_z_slab(Y, first, slab_rows),
+                _slab_bound("tsne_z_slab", slab_rows, n), flush, read_flush)}
+            results["tsne_grad_slab"]["by_rows"][key].update({"rows": slab_rows, "columns": n, **_form_times(
+                torch, "tsne_grad_slab", lambda: tsne.tsne_grad_slab(Y, P_slab, Z, first, 1.0),
+                lambda: tsne._tsne_grad_slab(Y, P_slab, Z, first, 1.0),
+                _slab_bound("tsne_grad_slab", slab_rows, n), flush, read_flush)})
+    first, stop = slabs[0]
+    results["tsne_affinities_slab"]["by_rows"][f"{n}:slab0"] = {"rows": stop - first, "columns": n, **_form_times(
+        torch, "tsne_affinities_slab",
+        lambda: tsne.conditional_affinities_slab(L, perplexity, first, stop - first),
+        lambda: tsne._conditional_affinities_slab(L, perplexity, first, stop - first),
+        _slab_bound("tsne_affinities_slab", stop - first, n), flush, read_flush)}
+    del read_flush
+    for name, result in results.items():
+        result.update(result["by_rows"][f"{n}:slab0" if name == "tsne_affinities_slab" else f"{n}:final"])
+    return results
+
+
+def _as_slab(bounds) -> tuple:
+    first, stop = bounds
+    return first, stop - first
+
+
+def _gb_margins(torch, model, X_dev):
+    """gb's margins ``f0 + sum(step * leaf)`` over the rounds in order, as
+    the forward adds them (``trees._gbt_forward`` before its sigmoid)."""
+    step = torch.tensor(model.step, dtype=torch.float32, device=X_dev.device)
+    margins = torch.full((X_dev.shape[0],), model.f0, dtype=torch.float32, device=X_dev.device)
+    for tree in range(model.features_heap.shape[0]):
+        leaf = trees._descend(X_dev, model.features_heap[tree], model.thresholds_heap[tree], model.max_depth)
+        margins = margins + step * model.leaf_values[tree][leaf]
+    return margins
+
+
+def _fit_arrays(torch, name: str, model, X_dev) -> dict:
+    """The parameters of a fit that the parent holds against the one-process
+    fit's, on the host."""
+    if name == "nb":
+        return {"theta": model.theta.cpu().numpy(), "prior": model.prior.cpu().numpy()}
+    arrays = {field: getattr(model, field).cpu().numpy()
+              for field in ("features_heap", "thresholds_heap", "leaf_probs", "leaf_values")
+              if hasattr(model, field)}
+    if name == "gb":
+        arrays["margins"] = _gb_margins(torch, model, X_dev).cpu().numpy()
+        arrays["f0"] = np.float32(model.f0)
+    return arrays
+
+
+OTHER_FITS = ("dt", "rf", "gb", "nb")
+
+
+def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
+    """The SPMD ``fit(X, y)`` of dt, rf, gb and nb on bench.py's rows (every
+    rank passes them all) with ``evaluate_predict`` over the ranks, PCA of
+    the 1,000,000 embed blobs and a landmark t-SNE request on them, each
+    with the counts set to 0 just before it. Rank 0 saves what the parent
+    holds against the one-process fits. Returns the records and a digest
+    of every result's bits."""
+    import hashlib
+
+    from learningorchestra_tpu_torch.parallel import multihost
+
+    digest = hashlib.sha256()
+    records = {}
+    X_dev = torch.from_numpy(X).to(mesh.device)
+
+    def run(fn):
+        kernels.reset_launches()
+        multihost.reset_collective_stats()
+        began = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - began
+        collectives = multihost.collective_stats()
+        return result, {"wall_s": wall_s, "launches": {k: v for k, v in kernels.launches().items() if v},
+                        "collective_s": collectives["collective_s"],
+                        "collectives": collectives["collectives"]}
+
+    estimators = {
+        "dt": lambda: trees.DecisionTreeClassifier(mesh=mesh),
+        "rf": lambda: trees.RandomForestClassifier(mesh=mesh),
+        "gb": lambda: trees.GBTClassifier(mesh=mesh),
+        "nb": lambda: naive_bayes.NaiveBayes(mesh=mesh),
+    }
+    for name in OTHER_FITS:
+        model, record = run(lambda: estimators[name]().fit(X, y))
+        (accuracy, weighted_f1, labels, probs), evaluated = run(lambda: model.evaluate_predict(X, y, X))
+        arrays = _fit_arrays(torch, name, model, X_dev)
+        arrays["probs"] = probs
+        for key in sorted(arrays):
+            digest.update(np.ascontiguousarray(arrays[key]).tobytes())
+        record.update(accuracy=accuracy, weighted_f1=weighted_f1, evaluate=evaluated,
+                      mesh_data=model.mesh.shape["data"])
+        records[name] = record
+        if rank == 0:
+            np.savez(os.path.join(folder, f"{name}.npz"), **arrays)
+    X_embed, _ = embed_blobs(EMBED_ROWS)
+    embedded, records["pca"] = run(lambda: pca.pca_embedding(X_embed, mesh=mesh))
+    digest.update(embedded.tobytes())
+    placed, records["tsne"] = run(lambda: tsne.tsne_embedding(X_embed, method="landmark", mesh=mesh))
+    digest.update(placed.tobytes())
+    if rank == 0:
+        np.save(os.path.join(folder, "pca.npy"), embedded)
+        np.save(os.path.join(folder, "tsne.npy"), placed)
+    return records, digest.hexdigest()
+
+
 def multigpu_child(argv) -> int:
     """One rank of a ``multigpu`` run: ``chip_smoke.py multigpu-child
     <rank> <world> <backend> <address> <device> <folder> <spmd>``. Joins the
@@ -6700,7 +7109,7 @@ def multigpu_child(argv) -> int:
     rank, world, backend, address, device, folder, spmd = argv
     rank, world, device, spmd = int(rank), int(world), torch.device(device), spmd == "1"
     os.environ.update(LO_COORDINATOR=address, LO_NUM_PROCESSES=str(world), LO_PROCESS_ID=str(rank))
-    for name in ("logistic", "scaler"):   # built by the parent
+    for name in kernels.SOURCES:   # built by the parent
         kernels.library(name)
     started = time.perf_counter()
     multihost.initialize_from_env(backend=backend, device=device, timeout_s=MULTIGPU_GROUP_TIMEOUT_S)
@@ -6759,6 +7168,8 @@ def multigpu_child(argv) -> int:
         if rank == 0:
             np.save(os.path.join(folder, "fit_labels.npy"), spmd_labels.astype(np.int8))
             np.save(os.path.join(folder, "fit_losses.npy"), spmd_losses)
+    record["others"], others_digest = _other_fits_over_ranks(torch, mesh, X, y, rank, folder)
+    digests.append(others_digest)
     # every rank's digests over the group (NCCL also for one rank): the same bits
     mine = torch.tensor(np.frombuffer(bytes.fromhex("".join(digests)), np.uint8).copy())
     mine = mine.to(device) if backend == "nccl" else mine   # gloo: the host's copy
@@ -6810,7 +7221,7 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
             {record["fit_sharded"]["digest"] for record in records}) != 1:
         raise AssertionError(f"multigpu run {run}: the ranks' W, b, scaler, losses or labels differ")
     arrays = {name[:-4]: np.load(os.path.join(folder, name)) for name in os.listdir(folder)
-              if name.endswith(".npy")}
+              if name.endswith(".npy")}   # the other fits' .npz below
     summary = {
         "phase": "multigpu-run", "run": run, "backend": backend, "ranks": world, "cards": cards,
         "ranks_per_card": world // cards,
@@ -6831,6 +7242,18 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
             }
             summary[fit].update({field: records[0][fit][field]
                                  for field in ("iterations", "final_loss", "accuracy")})
+    summary["others"] = {
+        name: {
+            **{field: [record["others"][name][field] for record in records]
+               for field in ("wall_s", "collective_s", "collectives", "launches")},
+            **{field: records[0]["others"][name][field] for field in ("accuracy", "weighted_f1", "evaluate")
+               if field in records[0]["others"][name]},
+        }
+        for name in records[0]["others"]
+    }
+    for name in OTHER_FITS:
+        with np.load(os.path.join(folder, f"{name}.npz")) as saved:
+            arrays[name] = dict(saved)
     return {"summary": summary, "arrays": arrays}
 
 
@@ -6847,20 +7270,168 @@ def _agreement(what: str, labels, losses, want_labels, want_losses) -> dict:
     return {"agreement": agreement, "loss_max_rel": loss_rel}
 
 
+def _host_descend(X: np.ndarray, features: np.ndarray, thresholds: np.ndarray, levels: int) -> np.ndarray:
+    """Each row's node after ``levels`` levels of one tree's heap (as
+    ``trees._descend``: ``x <= t`` left, NaN right, feature -1 left)."""
+    node = np.zeros(X.shape[0], np.int64)
+    rows = np.arange(X.shape[0])
+    for level in range(levels):
+        position = 2**level - 1 + node
+        feature = features[position]
+        x = X[rows, np.maximum(feature, 0)]
+        node = node * 2 + (~(x <= thresholds[position]) & (feature >= 0))
+    return node
+
+
+def _gb_split_difference(want: dict, got: dict, X: np.ndarray, y: np.ndarray) -> "dict | None":
+    """The first node (round, heap index) where two gb fits' splits differ,
+    and each split's Newton gain on the one-process fit's rows at that node
+    (float64, from its margins before that round): None when the heaps are
+    identical."""
+    differ = np.argwhere((want["features_heap"] != got["features_heap"])
+                         | (want["thresholds_heap"] != got["thresholds_heap"]))
+    if not len(differ):
+        return None
+    tree, node = (int(v) for v in differ[0])
+    margins = np.full(X.shape[0], want["f0"], np.float32)
+    for earlier in range(tree):
+        leaf = _host_descend(X, want["features_heap"][earlier], want["thresholds_heap"][earlier], DEPTH)
+        margins = margins + np.float32(STEP) * want["leaf_values"][earlier][leaf]
+    p = 1.0 / (1.0 + np.exp(-margins.astype(np.float64)))
+    g, h = p - y, np.maximum(p * (1 - p), 1e-6)
+    level = int(np.log2(node + 1))
+    at = _host_descend(X, want["features_heap"][tree], want["thresholds_heap"][tree], level) == node - (2**level - 1)
+
+    def split(fit):
+        feature, threshold = int(fit["features_heap"][tree, node]), float(fit["thresholds_heap"][tree, node])
+        gain = None
+        if feature >= 0:
+            left = X[at, feature] <= threshold
+            G, H = g[at], h[at]
+            gain = float(G[left].sum() ** 2 / (H[left].sum() + 1) + G[~left].sum() ** 2 / (H[~left].sum() + 1)
+                         - G.sum() ** 2 / (H.sum() + 1))
+        return {"feature": feature, "threshold": threshold, "gain": gain}
+
+    return {"round": tree, "node": node, "rows": int(at.sum()),
+            "one_process": split(want), "over_ranks": split(got)}
+
+
+def _one_process_others(torch) -> dict:
+    """The one-process fits of dt, rf, gb and nb on bench.py's rows (their
+    ``evaluate_predict``), PCA and the landmark t-SNE of the embed blobs, on
+    the card: what the runs over ranks are held against."""
+    X, y = bench_synthetic(FIT_ROWS)
+    X_dev = torch.from_numpy(X).cuda()
+    estimators = {"dt": trees.DecisionTreeClassifier, "rf": trees.RandomForestClassifier,
+                  "gb": trees.GBTClassifier, "nb": naive_bayes.NaiveBayes}
+    out = {}
+    for name in OTHER_FITS:
+        began = time.perf_counter()
+        model = estimators[name]().fit(X, y)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - began
+        accuracy, weighted_f1, _, probs = model.evaluate_predict(X, y, X)
+        arrays = _fit_arrays(torch, name, model, X_dev)
+        arrays["probs"] = probs
+        out[name] = {"arrays": arrays, "accuracy": accuracy, "weighted_f1": weighted_f1, "wall_s": wall_s}
+    X_embed, labels = embed_blobs(EMBED_ROWS)
+    for name, embed in (("pca", lambda: pca.pca_embedding(X_embed)),
+                        ("tsne", lambda: tsne.tsne_embedding(X_embed, method="landmark"))):
+        began = time.perf_counter()
+        out[name] = {"embedding": embed(), "wall_s": time.perf_counter() - began}
+    out.update(X=X, y=y, X_embed=X_embed, labels=labels)
+    return out
+
+
+def _others_against_one_process(torch, run: str, arrays: dict, solo: dict) -> dict:
+    """A run's other fits against the one-process ones: dt and rf heaps
+    identical; gb's margins within MULTIGPU_GB_MARGIN_TOL and accuracy
+    within FIT_MARGIN_TOL, whether its heaps are identical reported (the
+    first split that differs, and both gains); nb's probabilities within
+    MULTIGPU_NB_TOL; PCA within MULTIGPU_PCA_RTOL of the largest coordinate
+    (each component's sign matched); t-SNE's KL(P || Q) on the landmarks
+    within KL_MARGIN and its kNN agreement no worse than QUALITY_MARGIN
+    below the one-process fit's."""
+    out = {}
+    for name in ("dt", "rf"):
+        for field in ("features_heap", "thresholds_heap", "leaf_probs"):
+            if not np.array_equal(arrays[name][field], solo[name]["arrays"][field]):
+                raise AssertionError(f"multigpu run {run}: {name}'s {field} differs from the one-process fit's")
+        out[name] = {"heaps_identical": True}
+    got, want = arrays["gb"], solo["gb"]["arrays"]
+    margin_err = float(np.abs(got["margins"] - want["margins"]).max())
+    accuracy_diff = abs(float((np.argmax(got["probs"], axis=1) == solo["y"]).mean())
+                        - float((np.argmax(want["probs"], axis=1) == solo["y"]).mean()))
+    if not margin_err <= MULTIGPU_GB_MARGIN_TOL or not accuracy_diff <= FIT_MARGIN_TOL:
+        raise AssertionError(f"multigpu run {run}: gb margins {margin_err}, accuracy {accuracy_diff} apart")
+    difference = _gb_split_difference(want, got, solo["X"], solo["y"])
+    out["gb"] = {"margin_max_abs_err": margin_err, "accuracy_diff": accuracy_diff,
+                 "gb_heaps_identical": difference is None, "first_difference": difference,
+                 "leaf_values_max_abs_err": float(np.abs(got["leaf_values"] - want["leaf_values"]).max())}
+    nb_err = float(np.abs(arrays["nb"]["probs"] - solo["nb"]["arrays"]["probs"]).max())
+    if not nb_err <= MULTIGPU_NB_TOL:
+        raise AssertionError(f"multigpu run {run}: nb probabilities {nb_err} apart")
+    out["nb"] = {"probs_max_abs_err": nb_err}
+    got_pca, want_pca = arrays["pca"], solo["pca"]["embedding"]
+    signs = np.sign((got_pca * want_pca).sum(axis=0))
+    pca_err = float(np.abs(got_pca * signs - want_pca).max() / np.abs(want_pca).max())
+    if not pca_err <= MULTIGPU_PCA_RTOL:
+        raise AssertionError(f"multigpu run {run}: PCA {pca_err} of the largest coordinate apart")
+    out["pca"] = {"max_rel_err": pca_err, "one_process_wall_s": solo["pca"]["wall_s"]}
+    chosen = tsne._choose_landmarks(EMBED_ROWS, tsne.LANDMARKS, 0)
+    L = torch.from_numpy(solo["X_embed"][chosen]).cuda()
+    kl = _kl_held(torch, L, tsne.PERPLEXITY, arrays["tsne"][chosen], solo["tsne"]["embedding"][chosen],
+                  f"multigpu run {run}: t-SNE's landmark fit")
+    knn = {"over_ranks": knn_agreement(arrays["tsne"], solo["labels"], QUALITY_SAMPLE),
+           "one_process": knn_agreement(solo["tsne"]["embedding"], solo["labels"], QUALITY_SAMPLE)}
+    if not knn["over_ranks"] >= knn["one_process"] - QUALITY_MARGIN:
+        raise AssertionError(f"multigpu run {run}: t-SNE's kNN agreement {knn}")
+    out["tsne"] = {"kl": kl, "knn_agreement": knn, "one_process_wall_s": solo["tsne"]["wall_s"]}
+    return out
+
+
+def _required_launches(name: str, world: int) -> tuple:
+    """The kernels a rank of a ``world``-rank run must launch in fit or
+    request ``name`` (its ``evaluate_predict`` apart): the sums forms and
+    the slabs over several ranks, today's launches on one."""
+    over = world > 1
+    if name in ("dt", "rf"):
+        return ("apply_bins", "level_histograms", "select_splits", "route", "leaf_sums")
+    if name == "gb":
+        return ("apply_bins", "select_splits", "route") + (
+            ("level_histograms_sums", "leaf_sums_sums") if over else ("level_histograms", "leaf_sums"))
+    if name == "tsne":
+        return (("tsne_affinities_slab", "tsne_z_slab", "tsne_grad_slab") if over
+                else ("tsne_affinities", "tsne_z", "tsne_grad")) + ("tsne_interpolate",)
+    return ()
+
+
+EVALUATE_LAUNCHES = {"dt": "tree_ensemble_forward", "rf": "tree_ensemble_forward", "gb": "gbt_forward"}
+
+
 def phase_multigpu(torch, card: str) -> list:
     """K8′ (masked_col_sums in both passes, masked_standardize) and K7's sums
-    form on the card against their twins; then ``fit_sharded`` at 1,000,000
-    × 16 through per-host feeding over (a) NCCL, one rank a card, with two
-    cards or more, (b) one NCCL rank on card 0 and (c) four gloo ranks
-    sharing card 0. The ranks of a run hold the same bits; each run's
-    predictions agree with run (b)'s and its losses match; run (c)'s SPMD
-    ``fit`` agrees with the one-process ``fit``. Returns the kernels'
-    summary entries (launches: rank 0 of run (b), each run's beside)."""
+    form on the card against their twins, and the four new forms (K2's and
+    K5's sums forms, K11's and K12's row slabs); then ``fit_sharded`` at
+    1,000,000 × 16 through per-host feeding over (a) NCCL, one rank a card,
+    with two cards or more, (b) one NCCL rank on card 0 and (c) four gloo
+    ranks sharing card 0, and in each the SPMD fits of dt, rf, gb and nb
+    with ``evaluate_predict`` over the ranks, PCA and a landmark t-SNE
+    request at 1,000,000 rows. The ranks of a run hold the same bits; each
+    run's lr predictions agree with run (b)'s and its losses match; run
+    (c)'s SPMD ``fit`` agrees with the one-process ``fit``; runs (b) and (c)
+    hold the other fits, PCA and t-SNE against the one-process ones. Returns
+    the kernels' summary entries (launches: rank 0 of run (b) for the lr
+    path, of run (c) for the new forms; each run's beside)."""
     started = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     scaler_results, stats_timing = check_scaler_kernels(torch, flush)
     results = {**scaler_results, **check_k7_sums(torch, flush)}
+    forms_started = time.perf_counter()
+    forms = {**check_sum_forms(torch, flush), **check_slab_forms(torch, flush)}
+    forms_s = time.perf_counter() - forms_started
     del flush
+    solo = _one_process_others(torch)
     X, y = bench_synthetic(FIT_ROWS)
     estimator = logistic.LogisticRegression()
     began = time.perf_counter()
@@ -6894,12 +7465,24 @@ def phase_multigpu(torch, card: str) -> list:
                 missing = [name for name in path if not launches.get(name)]
                 if missing:
                     raise AssertionError(f"multigpu run {run} ({fit}), rank {rank}: {missing} never launched")
+        for name, other in summary["others"].items():
+            for rank, launches in enumerate(other["launches"]):
+                missing = [kernel for kernel in _required_launches(name, summary["ranks"])
+                           if not launches.get(kernel)]
+                if missing:
+                    raise AssertionError(f"multigpu run {run} ({name}), rank {rank}: {missing} never launched")
+            if name in EVALUATE_LAUNCHES and not other["evaluate"]["launches"].get(EVALUATE_LAUNCHES[name]):
+                raise AssertionError(f"multigpu run {run} ({name}): its evaluate launched no forward")
+        if run in ("b", "c"):
+            summary["others_against_one_process"] = _others_against_one_process(torch, run, arrays, solo)
         summary["nvidia_smi"] = card
         emit(summary)
-    emit({"phase": "multigpu", "wall_s": time.perf_counter() - started,
+    emit({"phase": "multigpu", "wall_s": time.perf_counter() - started, "forms_s": forms_s,
           "masked_stats": stats_timing,
+          "one_process": {name: {field: solo[name][field] for field in ("wall_s", "accuracy", "weighted_f1")
+                                 if field in solo[name]} for name in (*OTHER_FITS, "pca", "tsne")},
           "kernels": {name: {key: value for key, value in result.items()}
-                      for name, result in results.items()}})
+                      for name, result in {**results, **forms}.items()}})
     entries = []
     for name, result in results.items():
         entries.append({
@@ -6915,6 +7498,21 @@ def phase_multigpu(torch, card: str) -> list:
             **({"device_ms_clean_l2": result["device_ms_clean_l2"]} if "device_ms_clean_l2" in result else {}),
             **({"library_note": MULTIGPU_LIBRARY[name]} if name in MULTIGPU_LIBRARY else {}),
             **{field: result[field] for field in ("by_shape", "by_classes") if field in result},
+        })
+    over_ranks = "c"   # the four gloo ranks: the main path of the new forms
+    for name, result in forms.items():
+        fit = "tsne" if name.startswith("tsne") else "gb"
+        entries.append({
+            "name": name, "route": "cuda", "source": FORMS_SOURCE[name], "replaces": FORMS_REPLACES[name],
+            "launches": runs[over_ranks]["summary"]["others"][fit]["launches"][0].get(name, 0),
+            "launches_by_run": {run: [launches.get(name, 0) for launches in runs[run]["summary"]["others"][fit]["launches"]]
+                                for run in runs},
+            **{field: result[field] for field in (
+                "max_abs_err", "max_rel_err", "rows", "ms", "warm_ms", "device_ms", "device_ms_clean_l2",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library_note": FORMS_LIBRARY[name],
+            **{field: result[field] for field in ("by_shape", "by_rows", "bit_equal_to_the_whole_launch")
+               if field in result},
         })
     return entries
 

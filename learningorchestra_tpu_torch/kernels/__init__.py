@@ -7,7 +7,9 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 - ``tree_forward.cu``: the tree forward (K6), for the predict lane and
   over a sweep's jobs;
 - ``tree_fit.cu``: the fit's level loop (K1-K5), over one tree, a
-  forest's trees, or a sweep's jobs (each with its own rows);
+  forest's trees, or a sweep's jobs (each with its own rows), and K2's
+  and K5's sums form (a rank's unrounded float64 sums) for fits over
+  ranks;
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
   and its Armijo trial losses (K7), for one fit or a job axis of fits
   with row weights (the sweep's fused L-BFGS), and their sums form for a
@@ -15,7 +17,8 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 - ``scaler.cu``: the masked scaler's column sums (both passes) and the
   masked standardization of a rank's block (K8′, ``fit_sharded``);
 - ``tsne.cu``: t-SNE's affinities (K11), gradient (K12) and landmark
-  interpolation (K13), for the image lane.
+  interpolation (K13), for the image lane, and K11's and K12's row-slab
+  forms for the rows a rank owns.
 
 A library lands in ``_build/`` under a name that carries a hash of its
 source, and is published with ``os.replace``, so two processes never load
@@ -64,9 +67,11 @@ KERNEL_LIBRARIES = {
     "gbt_forward": "tree_forward",
     "apply_bins": "tree_fit",
     "level_histograms": "tree_fit",
+    "level_histograms_sums": "tree_fit",
     "select_splits": "tree_fit",
     "route": "tree_fit",
     "leaf_sums": "tree_fit",
+    "leaf_sums_sums": "tree_fit",
     "logistic_loss_grad": "logistic",
     "logistic_trial_losses": "logistic",
     "logistic_loss_grad_sums": "logistic",
@@ -78,6 +83,9 @@ KERNEL_LIBRARIES = {
     "tsne_z": "tsne",
     "tsne_grad": "tsne",
     "tsne_interpolate": "tsne",
+    "tsne_affinities_slab": "tsne",
+    "tsne_z_slab": "tsne",
+    "tsne_grad_slab": "tsne",
 }
 KERNEL_NAMES = tuple(KERNEL_LIBRARIES)
 _launches = {name: 0 for name in KERNEL_NAMES}
@@ -239,6 +247,8 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int,                               # features/block
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
+    # the sums form: the same arguments, out float64
+    lib.lo_level_histogram_sums.argtypes = list(lib.lo_level_histograms.argtypes)
     lib.lo_select_splits.argtypes = [
         ptr, ptr, c_int,                     # hist, subset scores (or null), subset k
         ptr, ptr, ptr,                       # feature, bin, global stage (or null)
@@ -267,9 +277,10 @@ def _bind_tree_fit(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, c_int, c_int,          # window: leaves, channels; warps; fused
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
+    lib.lo_leaf_sum_sums.argtypes = list(lib.lo_leaf_sums.argtypes)   # out float64
     for entry in (
-        "apply_bins", "level_histograms", "level_counts", "select_splits", "route", "leaf_counts",
-        "leaf_sums", "empty",
+        "apply_bins", "level_histograms", "level_histogram_sums", "level_counts",
+        "select_splits", "route", "leaf_counts", "leaf_sums", "leaf_sum_sums", "empty",
     ):
         getattr(lib, f"lo_{entry}").restype = c_int
     return _bind_errors(lib)
@@ -324,7 +335,24 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, c_int, c_float,        # rows, m, F, target entropy
         c_int, c_int, ptr,                   # grid blocks, device, stream
     ]
-    for entry in ("affinities", "z", "grad", "interpolate"):
+    lib.lo_tsne_affinities_slab.argtypes = [
+        ptr, ptr,                            # X, the slab of P
+        c_int, c_int, c_int, c_int, c_float,  # n, F, first row, slab rows, target entropy
+        c_int, c_int, c_int,                 # rows a block, threads, distances in shared
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_tsne_z_slab.argtypes = [
+        ptr, ptr, ptr,                       # Y, a row's sum a slab row, the slab's total
+        c_int, c_int, c_int,                 # n, first row, slab rows
+        c_int, ptr,                          # device, stream
+    ]
+    lib.lo_tsne_grad_slab.argtypes = [
+        ptr, ptr, ptr, ptr,                  # Y, the slab of P, Z, the slab's gradient
+        c_int, c_int, c_int, c_float,        # n, first row, slab rows, exaggeration
+        c_int, ptr,                          # device, stream
+    ]
+    for entry in ("affinities", "z", "grad", "interpolate", "affinities_slab", "z_slab",
+                  "grad_slab"):
         getattr(lib, f"lo_tsne_{entry}").restype = c_int
     return _bind_errors(lib)
 

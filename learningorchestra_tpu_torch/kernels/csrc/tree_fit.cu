@@ -8,6 +8,11 @@
 //   K4 ml/trees.py:235 `_route` (:217 `_indicator_lookup`)
 //                                              -> lo_route
 //   K5 ml/trees.py:142 `_leaf_sums`            -> lo_leaf_counts, lo_leaf_sums
+// K2's and K5's sums form (a rank's block of rows sharded over the data
+// axis, reference ml/trees.py:66 and :142 under XLA's psums): the sums
+// paths' float64 cell sums, not rounded (lo_level_histogram_sums,
+// lo_leaf_sum_sums). The caller adds every rank's in rank order and
+// rounds once; on one rank, rounded, they are the float32 path's bits.
 // K2, K4 and K5 also run under the random forest's vmap over trees
 // (ml/trees.py:437 in `_rf_chunk`), and K3 with its per-node feature
 // subsets (:201-206). K1-K5 also run under the sweep's vmap over jobs
@@ -372,16 +377,22 @@ __device__ __forceinline__ double sum_chunks(const double* __restrict__ partials
   return sum;
 }
 
+// A cell's float64 sum stored: rounded once to float32, or (the sums
+// form) as it is.
+__device__ __forceinline__ void store_sum(float* out, double sum) { *out = __double2float_rn(sum); }
+__device__ __forceinline__ void store_sum(double* out, double sum) { *out = sum; }
+
 // Sum `chunks` float64 partial arrays of one window's `cells` values in
-// chunk order, round each sum once to float32, and store it at its place
-// in the (nodes, F, B, K) output (K5: F = B = 1). Grid dimension y is the
+// chunk order, store each sum (store_sum: float32 rounded once, or float64)
+// at its place in the (nodes, F, B, K) output (K5: F = B = 1). Grid dimension y is the
 // tree: partials [tree][chunk][cell], `out_tree_stride` floats of output
 // a tree. (The tree is not found by dividing a flat index: a 64-bit
 // division in the loop costs the registers that keep the sixteen loads of
 // sum_chunks in flight.)
+template <typename Out>
 __global__ void __launch_bounds__(kThreads)
     sum_partials_kernel(const double* __restrict__ partials,
-                        float* __restrict__ out, int chunks, long long cells,
+                        Out* __restrict__ out, int chunks, long long cells,
                         long long out_tree_stride, Window w, int num_features,
                         int max_bins, int num_channels) {
   partials += static_cast<long long>(blockIdx.y) * chunks * cells;
@@ -396,8 +407,9 @@ __global__ void __launch_bounds__(kThreads)
     rest /= w.bins;
     const int f = static_cast<int>(rest % num_features);
     const long long nd = rest / num_features + w.node_begin;
-    out[((nd * num_features + f) * max_bins + w.bin_begin + b) * num_channels +
-        w.channel_begin + k] = __double2float_rn(sum);
+    store_sum(out + ((nd * num_features + f) * max_bins + w.bin_begin + b) * num_channels +
+                  w.channel_begin + k,
+              sum);
   }
 }
 
@@ -964,11 +976,12 @@ __device__ __forceinline__ double group_sum(float value, unsigned group, int mem
 // Block (chunk, tree) of the sums path over the (leaf, channel) cells of
 // window `w`: the chunk's float64 partials at partials[tree][chunk] (the
 // window's cells); with `kFused`, the tree's last block also writes its
-// float32 sums into out (T, n_leaves, num_channels) and resets its ticket.
-template <bool kFused>
+// sums (store_sum) into out (T, n_leaves, num_channels) and resets its
+// ticket.
+template <bool kFused, typename Out>
 __global__ void __launch_bounds__(32 * kLeafWarps) leaf_sums_kernel(
     const int* __restrict__ leaf, const float* __restrict__ channels,
-    double* __restrict__ partials, unsigned* __restrict__ tickets, float* __restrict__ out,
+    double* __restrict__ partials, unsigned* __restrict__ tickets, Out* __restrict__ out,
     int rows, int num_channels, Window w, int rows_per_chunk) {
   extern __shared__ __align__(16) unsigned char shared[];
   const int K = w.channels;
@@ -1038,7 +1051,7 @@ __global__ void __launch_bounds__(32 * kLeafWarps) leaf_sums_kernel(
   for (int cell = threadIdx.x; cell < cells; cell += blockDim.x) {
     double sum = sums[cell];
     for (int s = 1; s < segments; ++s) sum = __dadd_rn(sum, sums[s * cells + cell]);
-    out[cell] = __double2float_rn(sum);
+    store_sum(out + cell, sum);
   }
   if (threadIdx.x == 0) tickets[tree] = 0u;
 }
@@ -1464,11 +1477,12 @@ cudaError_t launch_apply_bins(const In* X, const float* thresholds, void* bins, 
 // K2's sums path, one pass per window of bins and channels: the
 // histogram kernel over every node window, feature block and tree, then
 // the sum of each tree's chunk partials into the window's cells of `out`.
-// `vector`: the bins are staged as 16-byte words.
-template <typename Bin>
+// `vector`: the bins are staged as 16-byte words. `Out`: float (each sum
+// rounded once) or double (the sums form).
+template <typename Bin, typename Out>
 cudaError_t launch_level_histograms(
     const void* bins, const int* node, const float* channels,
-    double* partials, int* order, int* window_begin, float* out, int rows,
+    double* partials, int* order, int* window_begin, Out* out, int rows,
     int num_features, int n_nodes,
     int max_bins, int num_channels, int trees, long long bins_tree_stride,
     int chunks, int rows_per_chunk, int window_nodes, int window_bins,
@@ -1533,8 +1547,8 @@ cudaError_t launch_level_histograms(
           if (error != cudaSuccess) return error;
         }
         const Window whole{0, n_nodes, w.bin_begin, w.bins, w.channel_begin, w.channels};
-        sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads,
-                              0, stream>>>(
+        sum_partials_kernel<Out><<<dim3(grid_for(cells, max_blocks), group), kThreads,
+                                   0, stream>>>(
             group_partials, out + t0 * out_tree_stride, chunks, cells,
             out_tree_stride, whole, num_features, max_bins, num_channels);
         error = cudaGetLastError();
@@ -1648,6 +1662,88 @@ cudaError_t launch_route(const void* bins, const int* node, const int* feature,
                 group, bins_tree_stride, stream);
 }
 
+// The entry points' bodies, for either output type (float: each sum
+// rounded once; double: the sums form).
+template <typename Out>
+int level_histograms_entry(const void* bins, int bin_bytes, const int* node,
+                           const float* channels, double* partials, int* order,
+                           int* window_begin, Out* out,
+                           int rows, int num_features, int n_nodes, int max_bins,
+                           int num_channels, int trees, long long bins_tree_stride,
+                           int chunks, int rows_per_chunk, int window_nodes,
+                           int window_bins, int window_channels,
+                           int block_features, int max_blocks, int device,
+                           void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  if (static_cast<long long>(n_nodes) * num_features * max_bins *
+          num_channels * trees <= 0)
+    return cudaSuccess;
+  if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0 || block_features <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1)
+    return launch_level_histograms<int8_t, Out>(
+        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
+        max_bins, num_channels, trees, bins_tree_stride, chunks,
+        rows_per_chunk, window_nodes, window_bins, window_channels,
+        block_features, max_blocks, s);
+  if (bin_bytes == 4)
+    return launch_level_histograms<int32_t, Out>(
+        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
+        max_bins, num_channels, trees, bins_tree_stride, chunks,
+        rows_per_chunk, window_nodes, window_bins, window_channels,
+        block_features, max_blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename Out>
+int leaf_sums_entry(const int* leaf, const float* channels, double* partials,
+                    unsigned* tickets, Out* out, int rows, int n_leaves, int num_channels,
+                    int trees, int chunks, int rows_per_chunk, int window_leaves,
+                    int window_channels, int warps, int fused, int max_blocks, int device,
+                    void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  if (static_cast<long long>(n_leaves) * num_channels * trees <= 0 || rows <= 0)
+    return cudaSuccess;
+  if (window_leaves <= 0 || window_channels <= 0 || warps <= 0 || warps > kLeafWarps ||
+      (fused && (window_leaves != n_leaves || window_channels != num_channels || tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t shared_bytes = sizeof(double) * static_cast<size_t>(window_leaves) *
+                              window_channels * warps;
+  const auto kernel = fused ? leaf_sums_kernel<true, Out> : leaf_sums_kernel<false, Out>;
+  error = allow_shared(kernel, shared_bytes);
+  if (error != cudaSuccess) return error;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long out_tree_stride = static_cast<long long>(n_leaves) * num_channels;
+  for (int l0 = 0; l0 < n_leaves; l0 += window_leaves) {
+    for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
+      const Window w{l0, std::min(window_leaves, n_leaves - l0), 0, 1,
+                     k0, std::min(window_channels, num_channels - k0)};
+      const long long cells = static_cast<long long>(w.nodes) * w.channels;
+      for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
+        const int group = std::min(kMaxGridYZ, trees - t0);
+        double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
+        kernel<<<dim3(chunks, group), 32 * warps, shared_bytes, s>>>(
+            leaf + static_cast<long long>(t0) * rows,
+            channels + static_cast<long long>(t0) * rows * num_channels, group_partials,
+            fused ? tickets + t0 : nullptr, out + t0 * out_tree_stride, rows, num_channels, w,
+            rows_per_chunk);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+        if (fused) continue;
+        sum_partials_kernel<Out><<<dim3(grid_for(cells, max_blocks), group), kThreads, 0, s>>>(
+            group_partials, out + t0 * out_tree_stride, chunks, cells,
+            out_tree_stride, w, 1, 1, num_channels);
+        error = cudaGetLastError();
+        if (error != cudaSuccess) return error;
+      }
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1706,27 +1802,29 @@ int lo_level_histograms(const void* bins, int bin_bytes, const int* node,
                         int window_bins, int window_channels,
                         int block_features, int max_blocks, int device,
                         void* stream) {
-  cudaError_t error = cudaSetDevice(device);
-  if (error != cudaSuccess) return error;
-  if (static_cast<long long>(n_nodes) * num_features * max_bins *
-          num_channels * trees <= 0)
-    return cudaSuccess;
-  if (window_nodes <= 0 || window_bins <= 0 || window_channels <= 0 || block_features <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1)
-    return launch_level_histograms<int8_t>(
-        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
-        max_bins, num_channels, trees, bins_tree_stride, chunks,
-        rows_per_chunk, window_nodes, window_bins, window_channels,
-        block_features, max_blocks, s);
-  if (bin_bytes == 4)
-    return launch_level_histograms<int32_t>(
-        bins, node, channels, partials, order, window_begin, out, rows, num_features, n_nodes,
-        max_bins, num_channels, trees, bins_tree_stride, chunks,
-        rows_per_chunk, window_nodes, window_bins, window_channels,
-        block_features, max_blocks, s);
-  return cudaErrorInvalidValue;
+  return level_histograms_entry(bins, bin_bytes, node, channels, partials, order,
+                                window_begin, out, rows, num_features, n_nodes, max_bins,
+                                num_channels, trees, bins_tree_stride, chunks, rows_per_chunk,
+                                window_nodes, window_bins, window_channels, block_features,
+                                max_blocks, device, stream);
+}
+
+// K2's sums form: lo_level_histograms with out (T, n_nodes, F, B, K)
+// float64, each cell's sum as it is, not rounded.
+int lo_level_histogram_sums(const void* bins, int bin_bytes, const int* node,
+                            const float* channels, double* partials, int* order,
+                            int* window_begin, double* out,
+                            int rows, int num_features, int n_nodes, int max_bins,
+                            int num_channels, int trees, long long bins_tree_stride,
+                            int chunks, int rows_per_chunk, int window_nodes,
+                            int window_bins, int window_channels,
+                            int block_features, int max_blocks, int device,
+                            void* stream) {
+  return level_histograms_entry(bins, bin_bytes, node, channels, partials, order,
+                                window_begin, out, rows, num_features, n_nodes, max_bins,
+                                num_channels, trees, bins_tree_stride, chunks, rows_per_chunk,
+                                window_nodes, window_bins, window_channels, block_features,
+                                max_blocks, device, stream);
 }
 
 // The counts path of K2, for channels that are integers in [0, 65536)
@@ -1866,45 +1964,20 @@ int lo_leaf_sums(const int* leaf, const float* channels, double* partials, unsig
                  float* out, int rows, int n_leaves, int num_channels, int trees, int chunks,
                  int rows_per_chunk, int window_leaves, int window_channels, int warps,
                  int fused, int max_blocks, int device, void* stream) {
-  cudaError_t error = cudaSetDevice(device);
-  if (error != cudaSuccess) return error;
-  if (static_cast<long long>(n_leaves) * num_channels * trees <= 0 || rows <= 0)
-    return cudaSuccess;
-  if (window_leaves <= 0 || window_channels <= 0 || warps <= 0 || warps > kLeafWarps ||
-      (fused && (window_leaves != n_leaves || window_channels != num_channels || tickets == nullptr)))
-    return cudaErrorInvalidValue;
-  const size_t shared_bytes = sizeof(double) * static_cast<size_t>(window_leaves) *
-                              window_channels * warps;
-  const auto kernel = fused ? leaf_sums_kernel<true> : leaf_sums_kernel<false>;
-  error = allow_shared(kernel, shared_bytes);
-  if (error != cudaSuccess) return error;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long out_tree_stride = static_cast<long long>(n_leaves) * num_channels;
-  for (int l0 = 0; l0 < n_leaves; l0 += window_leaves) {
-    for (int k0 = 0; k0 < num_channels; k0 += window_channels) {
-      const Window w{l0, std::min(window_leaves, n_leaves - l0), 0, 1,
-                     k0, std::min(window_channels, num_channels - k0)};
-      const long long cells = static_cast<long long>(w.nodes) * w.channels;
-      for (int t0 = 0; t0 < trees; t0 += kMaxGridYZ) {
-        const int group = std::min(kMaxGridYZ, trees - t0);
-        double* group_partials = partials + static_cast<long long>(t0) * chunks * cells;
-        kernel<<<dim3(chunks, group), 32 * warps, shared_bytes, s>>>(
-            leaf + static_cast<long long>(t0) * rows,
-            channels + static_cast<long long>(t0) * rows * num_channels, group_partials,
-            fused ? tickets + t0 : nullptr, out + t0 * out_tree_stride, rows, num_channels, w,
-            rows_per_chunk);
-        error = cudaGetLastError();
-        if (error != cudaSuccess) return error;
-        if (fused) continue;
-        sum_partials_kernel<<<dim3(grid_for(cells, max_blocks), group), kThreads, 0, s>>>(
-            group_partials, out + t0 * out_tree_stride, chunks, cells,
-            out_tree_stride, w, 1, 1, num_channels);
-        error = cudaGetLastError();
-        if (error != cudaSuccess) return error;
-      }
-    }
-  }
-  return cudaSuccess;
+  return leaf_sums_entry(leaf, channels, partials, tickets, out, rows, n_leaves, num_channels,
+                         trees, chunks, rows_per_chunk, window_leaves, window_channels, warps,
+                         fused, max_blocks, device, stream);
+}
+
+// K5's sums form: lo_leaf_sums with out (T, n_leaves, K) float64, each
+// leaf's sum as it is, not rounded.
+int lo_leaf_sum_sums(const int* leaf, const float* channels, double* partials, unsigned* tickets,
+                     double* out, int rows, int n_leaves, int num_channels, int trees,
+                     int chunks, int rows_per_chunk, int window_leaves, int window_channels,
+                     int warps, int fused, int max_blocks, int device, void* stream) {
+  return leaf_sums_entry(leaf, channels, partials, tickets, out, rows, n_leaves, num_channels,
+                         trees, chunks, rows_per_chunk, window_leaves, window_channels, warps,
+                         fused, max_blocks, device, stream);
 }
 
 const char* lo_error_string(int error) {

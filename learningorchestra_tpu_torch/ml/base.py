@@ -5,14 +5,18 @@ Counterpart of ``learningorchestra_tpu/ml/base.py``: ``CLASSIFIER_NAMES``,
 ``DeviceLabels``, ``shard_matrix`` and ``shard_labels`` (:125-142, one
 copy to the device here, in the dtype policy's type: the reference's
 ``prepare_xy`` funnel, ``parallel/sharding.py:78-107``), ``FittedModel`` with ``evaluate`` and
-``evaluate_predict`` (:250-297) and ``make_classifier`` (:306). A model holds its parameters as tensors on one
+``evaluate_predict`` (:250-297), ``prepare_xy`` (:145-163) and
+``make_classifier`` (:306). A model holds its parameters as tensors on one
 device; its forward is a plain function on tensors.
 
-The reference pads rows to a multiple of the mesh's data axis and carries
-a validity mask (``prepare_xy``, ``ml/base.py:145-163``). One card has no
-mesh to divide the rows over, so the port sends the rows as they are and
-needs no mask. The serve batcher still pads a dispatch to the shared
-shape grid, as the reference's does.
+Over a data axis of several ``torch.distributed`` ranks (a ``mesh``,
+``parallel/mesh.py``), every rank passes the full rows and each takes its
+block of them, padded and masked as the reference's ``prepare_xy`` pads
+them (:func:`prepare_xy`); the fits add every rank's sums in rank order,
+and a fitted model's forward and metrics run over the ranks too
+(``FittedModel``). In one process the mesh is 1×1: the rows go to the
+card as they are, with no padding and no mask. The serve batcher still
+pads a dispatch to the shared shape grid, as the reference's does.
 """
 
 from __future__ import annotations
@@ -150,6 +154,19 @@ def shard_labels(y: np.ndarray, device: DeviceLike = None) -> DeviceLabels:
     return DeviceLabels(data, infer_num_classes(y))
 
 
+def prepare_xy(X, y, mesh):
+    """This rank's block of the rows ``X`` (in the policy's float type), of
+    the labels ``y`` (int64; None gives None) and the block's validity
+    mask, by the reference's block rule (``parallel.shard_rows``: the rows
+    padded to the bucketed grid, aligned to the data axis; rank ``r``'s
+    block is the reference's shard ``r``)."""
+    from learningorchestra_tpu_torch.parallel.sharding import shard_rows
+
+    X_block, mask = shard_rows(np.asarray(X), mesh, dtype=np.float32)
+    y_block = None if y is None else shard_rows(np.asarray(y).astype(np.int64), mesh)[0]
+    return X_block, y_block, mask
+
+
 def labels_from_probs(probs: np.ndarray) -> np.ndarray:
     """Every model's labels are ``argmax(probs)`` (softmax, posterior and
     ensemble mean are all argmax-monotonic), so labels are rebuilt on the
@@ -176,14 +193,15 @@ class FittedModel:
         raise NotImplementedError
 
     def _sharded(self) -> bool:
-        return self.mesh is not None and self.mesh.shape["data"] > 1
+        from learningorchestra_tpu_torch.parallel.mesh import over_ranks
+
+        return over_ranks(self.mesh)
 
     def _block(self, X):
         """This rank's block of the rows ``X`` and its validity mask."""
-        from learningorchestra_tpu_torch.parallel.sharding import shard_rows
-
         rows = to_host(X) if isinstance(X, torch.Tensor) else np.asarray(X)
-        return shard_rows(rows, self.mesh, dtype=np.float32)
+        block, _, mask = prepare_xy(rows, None, self.mesh)
+        return block, mask
 
     def _to_device(self, X) -> torch.Tensor:
         if isinstance(X, torch.Tensor):
@@ -273,9 +291,11 @@ class FittedModel:
         return [value for value in vars(self).values() if isinstance(value, torch.Tensor)]
 
 
-def make_classifier(name: str, device: DeviceLike = None):
+def make_classifier(name: str, device: DeviceLike = None, mesh=None):
     """The classifier switcher (reference ``ml/base.py:306``): ``lr``,
-    ``dt``, ``rf``, ``gb`` and ``nb`` at their defaults."""
+    ``dt``, ``rf``, ``gb`` and ``nb`` at their defaults, on ``mesh`` (by
+    default every rank of the process group; in one process a 1×1 mesh on
+    ``device``)."""
     from learningorchestra_tpu_torch.ml.logistic import LogisticRegression
     from learningorchestra_tpu_torch.ml.naive_bayes import NaiveBayes
     from learningorchestra_tpu_torch.ml.trees import (
@@ -293,4 +313,4 @@ def make_classifier(name: str, device: DeviceLike = None):
     }
     if name not in CLASSIFIER_NAMES:
         raise KeyError(name)
-    return estimators[name](device=device)
+    return estimators[name](device=device, mesh=mesh)

@@ -28,8 +28,13 @@ checkpoint_published(path, features)`` hands the serve path the chance
 to warm it at its dispatch shape before the first ``POST /predict``
 (``compile/warmup.py``); a no-op unless a service registered a handler.
 
-Not ported yet: the multi-process fan-out and the CPU rendezvous guard
-(JAX's own).
+Over a data axis of several ranks (``mesh``, parallel/mesh.py): every
+rank runs the same build, the fits, evaluations and predictions over the
+ranks (their collectives in one order: the classifiers one at a time),
+and only a rank with ``write_outputs`` writes to the store, as the
+reference's SPMD workers (``ml/builder.py:196-255``). Not ported yet: the
+SPMD dispatcher and the runner's multi-host mode (ROADMAP Queue 1 item
+6d), and the CPU rendezvous guard (JAX's own).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from learningorchestra_tpu_torch.frame.dataframe import DataFrame
 from learningorchestra_tpu_torch.frame.pyspark_compat import run_preprocessor
 from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import CLASSIFIER_NAMES, make_classifier
+from learningorchestra_tpu_torch.parallel.mesh import over_ranks
 from learningorchestra_tpu_torch.sched import cancel as _cancel
 from learningorchestra_tpu_torch.sched import config as _sched_config
 from learningorchestra_tpu_torch.sched.cancel import JobCancelledError, check_cancelled
@@ -176,12 +182,20 @@ def train_one(
     writer: Optional[PredictionWriter] = None,
     sink: Optional[_progress.ProgressSink] = None,
     on_durable: Optional[Callable[[dict], None]] = None,
+    mesh=None,
+    write_outputs: bool = True,
 ) -> dict:
     """Fit + evaluate + persist one classifier (the reference's
     ``classificator_handler``, model_builder.py:178-230). Returns the
     prediction collection's metadata document — complete only after the
     build's write barrier when a ``writer`` is given (None: write
     synchronously).
+
+    ``mesh``: the ranks to fit, evaluate and predict over (its device
+    replaces ``device``); every rank of it calls this with the same
+    arguments. ``write_outputs=False`` runs all of it and writes nothing:
+    no checkpoint, no prediction collection (the reference's SPMD workers,
+    ``ml/builder.py:218-223``).
 
     ``models_dir`` (or ``LO_MODELS_DIR``) persists the fitted model as a
     ``.model`` checkpoint named after the prediction collection, recorded
@@ -193,7 +207,8 @@ def train_one(
     classifier's outputs have durably landed (after the metadata insert,
     on the writer thread when writes overlap); build_model journals the
     member's completion there."""
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    sharded = over_ranks(mesh)
     output_name = f"{prediction_filename}_prediction_{classificator_name}"
     metadata = {
         "filename": output_name,
@@ -208,7 +223,7 @@ def train_one(
     X_train = features_training.feature_matrix(FEATURES_COL)
     y_train = features_training.label_vector(LABEL_COL)
 
-    classifier = make_classifier(classificator_name, device=device)
+    classifier = make_classifier(classificator_name, device=device, mesh=mesh)
     _faults.fire(
         "builder.phase", phase="fit", classificator=classificator_name
     )
@@ -224,7 +239,7 @@ def train_one(
 
     if models_dir is None:
         models_dir = os.environ.get("LO_MODELS_DIR")
-    if models_dir:
+    if models_dir and write_outputs:
         from learningorchestra_tpu_torch.ml.checkpoint import (
             checkpoint_path,
             gather_model,
@@ -251,10 +266,10 @@ def train_one(
     if features_evaluation is not None:
         # copied once a frame, shared by every classifier thread; build_model
         # aliases the eval frame to the test frame when their content is
-        # equal, so X_eval IS X_test and one forward serves both
-        X_eval = features_evaluation.device_matrix(FEATURES_COL, device)
-        y_eval = features_evaluation.device_labels(LABEL_COL, device)
-        X_test = features_testing.device_matrix(FEATURES_COL, device)
+        # equal, so X_eval IS X_test and one forward serves both. Over
+        # ranks each takes its block of the host rows
+        X_eval, y_eval, X_test = _evaluation_inputs(
+            features_evaluation, features_testing, device, sharded)
         _faults.fire(
             "builder.phase",
             phase="evaluate",
@@ -281,6 +296,23 @@ def train_one(
         prediction=prediction,
         writer=writer,
         on_durable=on_durable,
+        write_outputs=write_outputs,
+    )
+
+
+def _evaluation_inputs(features_evaluation, features_testing, device, sharded: bool):
+    """``(X_eval, y_eval, X_test)``: the frames' device copies (cached on
+    the frame, shared by the classifier threads), or over several ranks
+    their host rows, of which each rank takes its block."""
+    if sharded:
+        X_eval = features_evaluation.feature_matrix(FEATURES_COL)
+        X_test = X_eval if features_testing is features_evaluation else (
+            features_testing.feature_matrix(FEATURES_COL))
+        return X_eval, features_evaluation.label_vector(LABEL_COL), X_test
+    return (
+        features_evaluation.device_matrix(FEATURES_COL, device),
+        features_evaluation.device_labels(LABEL_COL, device),
+        features_testing.device_matrix(FEATURES_COL, device),
     )
 
 
@@ -295,15 +327,20 @@ def _predict_and_write(
     prediction: Optional[tuple] = None,
     writer: Optional[PredictionWriter] = None,
     on_durable: Optional[Callable[[dict], None]] = None,
+    write_outputs: bool = True,
 ) -> dict:
     """Predict over the test frame and persist the prediction collection
     and its metadata document (no ``finished`` flag, as in the reference,
     docs/database_api.md:76-83). The bulk write is its own ``write``
     phase; with a ``writer`` it runs on the build's writer thread,
     overlapped with the next classifier's fit, and the metadata document
-    (timings included) still lands after the rows."""
+    (timings included) still lands after the rows. ``write_outputs=False``
+    predicts and writes nothing (its metadata gets its timings)."""
     if prediction is None:  # no eval split: predict is its own pass
-        X_test = features_testing.device_matrix(FEATURES_COL, device)
+        if model._sharded():
+            X_test = features_testing.feature_matrix(FEATURES_COL)
+        else:
+            X_test = features_testing.device_matrix(FEATURES_COL, device)
         _faults.fire(
             "builder.phase",
             phase="predict",
@@ -312,6 +349,9 @@ def _predict_and_write(
         with timer.phase("predict", rows=features_testing.count()):
             prediction = model.predict_both(X_test)
     labels, probability = prediction
+    if not write_outputs:
+        metadata["timings"] = timer.as_metadata()
+        return metadata
     predicted_df = features_testing.withColumn(
         "prediction", labels.astype(np.float64)
     ).withColumn("probability", probability)
@@ -436,14 +476,23 @@ def _fold_resume(resume: Optional[list]) -> dict[str, dict]:
 
 
 def _device_key(device: torch.device) -> str:
-    """The progress artifact's layout component (the reference's mesh
-    signature, ``_mesh_key``): the device type, and the card's name on
-    CUDA. A fit saved on the CPU's plain versions and resumed on the
-    card's kernels (or the other way round) would be bit-identical to
-    neither run, so such an artifact is refused and the fit restarts."""
+    """The progress artifact's device component: the device type, and the
+    card's name on CUDA. A fit saved on the CPU's plain versions and
+    resumed on the card's kernels (or the other way round) would be
+    bit-identical to neither run, so such an artifact is refused and the
+    fit restarts."""
     if device.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(device)}"
     return device.type
+
+
+def _mesh_key(device: torch.device, mesh=None) -> str:
+    """The progress artifact's layout component (the reference's
+    ``_mesh_key``, ``ml/builder.py:500-506``): the device's key, and over a
+    data axis of several ranks its size, so that a resume on another
+    layout restarts clean."""
+    data = mesh.shape["data"] if mesh is not None else 1
+    return _device_key(device) if data == 1 else f"{_device_key(device)} data={data}"
 
 
 def build_model(
@@ -455,6 +504,8 @@ def build_model(
     device: DeviceLike = None,
     models_dir: Optional[str] = None,
     resume: Optional[list] = None,
+    mesh=None,
+    write_outputs: bool = True,
 ) -> list[dict]:
     """The reference's ``build_model`` (model_builder.py:133-176):
     preprocess once, then one thread per classifier, at most
@@ -466,11 +517,18 @@ def build_model(
     durably finished are skipped (their stored metadata is returned),
     ones it records as permanently failed stay failed without a re-run,
     and everything else refits — each fit picking up its own progress
-    artifact, so only the remaining segments run."""
+    artifact, so only the remaining segments run.
+
+    ``mesh``: the ranks to build over (every rank of it calls this with
+    the same arguments); its classifiers then run one at a time, so that
+    every rank enters their collectives in the same order, and no
+    progress is persisted (a resumed process cannot rejoin the others'
+    collectives). ``write_outputs``: see :func:`train_one`."""
     unknown = [n for n in classificators_list if n not in CLASSIFIER_NAMES]
     if unknown:
         raise KeyError(f"invalid classificator names {unknown}")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    sharded = over_ranks(mesh)
 
     # captured once on the job's thread (contextvars do not cross the
     # classifier pool): the partial-results detail goes on its record
@@ -493,9 +551,9 @@ def build_model(
 
     # LO_BUILD_WORKERS caps the fan-out: N concurrent fits hold N models'
     # device working sets at once
-    max_workers = len(classificators_list) or 1
+    max_workers = 1 if sharded else (len(classificators_list) or 1)
     cap = os.environ.get("LO_BUILD_WORKERS", "").strip()
-    if cap:
+    if cap and not sharded:
         try:
             max_workers = max(1, min(max_workers, int(cap)))
         except ValueError:
@@ -507,7 +565,7 @@ def build_model(
     # tracing is observability, never a reason to fail a request
     trace_root = os.environ.get("LO_TRACE_DIR")
     trace_dir = None
-    tracing = trace_root and _TRACE_LOCK.acquire(blocking=False)
+    tracing = trace_root and write_outputs and _TRACE_LOCK.acquire(blocking=False)
     if tracing:
         try:
             trace_dir = _next_trace_dir(trace_root, test_filename)
@@ -520,7 +578,7 @@ def build_model(
     if models_dir is None:
         models_dir = os.environ.get("LO_MODELS_DIR")
     make_sink: Optional[Callable] = None
-    if models_dir and _sched_config.resume_enabled():
+    if models_dir and write_outputs and not sharded and _sched_config.resume_enabled():
         # the validation key: an artifact resumes only against the same
         # input content, dtype policy and device that produced it.
         # Content fingerprints, not collection revs: revs reseed per
@@ -529,7 +587,7 @@ def build_model(
             "training_fp": _progress.collection_fingerprint(store, training_filename),
             "test_fp": _progress.collection_fingerprint(store, test_filename),
             "dtype_policy": dtype_policy(),
-            "mesh": _device_key(device),
+            "mesh": _mesh_key(device, mesh),
         }
         every = _sched_config.resume_every_segments()
         os.makedirs(models_dir, exist_ok=True)
@@ -560,6 +618,8 @@ def build_model(
             handle,
             resume_done=_fold_resume(resume),
             make_sink=make_sink,
+            mesh=mesh,
+            write_outputs=write_outputs,
         )
     finally:
         if tracing:
@@ -578,6 +638,8 @@ def _build_model_traced(
     handle=None,
     resume_done=None,
     make_sink=None,
+    mesh=None,
+    write_outputs=True,
 ) -> list[dict]:
     # contextvars don't cross pool threads: hand each worker the ambient
     # (trace, span) so its train span nests under the request's trace,
@@ -635,6 +697,8 @@ def _build_model_traced(
                     writer=writer,
                     sink=sink,
                     on_durable=durable,
+                    mesh=mesh,
+                    write_outputs=write_outputs,
                 )
 
     try:

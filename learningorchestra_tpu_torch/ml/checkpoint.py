@@ -68,11 +68,22 @@ def checkpoint_path(models_dir: str, name: str) -> str:
     return os.path.join(models_dir, name + CHECKPOINT_SUFFIX)
 
 
-def model_from_arrays(kind: str, arrays: dict, scalars: dict, device: DeviceLike = None):
-    """A predict-ready port model from the reference's parameters."""
+def model_from_arrays(
+    kind: str, arrays: dict, scalars: dict, device: DeviceLike = None, mesh=None,
+):
+    """A predict-ready port model from the reference's parameters. Given a
+    ``mesh`` of several data ranks (every rank loads the same file), the
+    model lies on the mesh's device and predicts and evaluates over its
+    ranks."""
     if kind not in ARRAY_DTYPES:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    model = _model(kind, arrays, scalars, device)
+    model.mesh = mesh
+    return model
+
+
+def _model(kind: str, arrays: dict, scalars: dict, device: torch.device):
     tensors = {
         name: torch.tensor(np.asarray(arrays[name], dtype=dtype), device=device)
         for name, dtype in ARRAY_DTYPES[kind].items()
@@ -188,6 +199,7 @@ def read_checkpoint(path: str) -> tuple[str, dict, dict]:
     return kind, arrays, header["scalars"]
 
 
-def load_model(path: str, device: DeviceLike = None):
-    """Load a ``.model`` written by either package; predict-ready."""
-    return model_from_arrays(*read_checkpoint(path), device=device)
+def load_model(path: str, device: DeviceLike = None, mesh=None):
+    """Load a ``.model`` written by either package; predict-ready (over the
+    ranks of ``mesh``, given one)."""
+    return model_from_arrays(*read_checkpoint(path), device=device, mesh=mesh)

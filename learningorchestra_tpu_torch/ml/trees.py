@@ -66,17 +66,19 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike, resolve_device
+from learningorchestra_tpu_torch.device import FEATURE_DTYPES, DeviceLike
 from learningorchestra_tpu_torch.ml import progress as _progress
 from learningorchestra_tpu_torch.ml.base import (
     FittedModel,
     infer_num_classes,
     largest_divisor,
+    prepare_xy,
     segment_steps,
     shard_matrix,
     to_host,
 )
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
+from learningorchestra_tpu_torch.parallel.mesh import default_mesh, over_ranks
 
 MAX_DEPTH = 5          # MLlib default maxDepth
 NUM_TREES = 20         # MLlib default numTrees (RF)
@@ -477,14 +479,15 @@ def _launch_forward(
 
 class _TreeEnsembleModel(FittedModel):
     """dt (one tree) and rf (T trees): stacked heaps plus leaf class
-    distributions, on one device."""
+    distributions, on one device; ``mesh``: the ranks it was fitted over."""
 
-    def __init__(self, features_heap, thresholds_heap, leaf_probs, max_depth):
+    def __init__(self, features_heap, thresholds_heap, leaf_probs, max_depth, mesh=None):
         self.features_heap = features_heap        # (T, 2^D - 1) int32
         self.thresholds_heap = thresholds_heap    # (T, 2^D - 1) float32
         self.leaf_probs = leaf_probs              # (T, 2^D, C) float32
         self.max_depth = int(max_depth)
         self.device = features_heap.device
+        self.mesh = mesh
 
     def _forward(self, X):
         return ensemble_forward(
@@ -495,7 +498,7 @@ class _TreeEnsembleModel(FittedModel):
 class GBTModel(FittedModel):
     """gb: binary boosted trees with margin ``f0 + sum(step * leaf)``."""
 
-    def __init__(self, f0, features_heap, thresholds_heap, leaf_values, step, max_depth):
+    def __init__(self, f0, features_heap, thresholds_heap, leaf_values, step, max_depth, mesh=None):
         self.f0 = float(f0)
         self.features_heap = features_heap        # (T, 2^D - 1) int32
         self.thresholds_heap = thresholds_heap    # (T, 2^D - 1) float32
@@ -503,6 +506,7 @@ class GBTModel(FittedModel):
         self.step = float(step)
         self.max_depth = int(max_depth)
         self.device = features_heap.device
+        self.mesh = mesh
 
     def _forward(self, X):
         return gbt_forward(
@@ -515,16 +519,17 @@ class GBTModel(FittedModel):
 # Fit: the level programs, plain versions
 # --------------------------------------------------------------------------
 
-def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
+def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int, sums: bool = False):
     """Per-row channel vectors summed into ``(node, feature, bin, K)``: a
     scatter-add over rows, in float64, rounded once to float32 (see
-    :func:`_leaf_sums`). ``node (rows,)`` and ``channels (rows, K)`` give
+    :func:`_leaf_sums`); ``sums=True`` (the sums form's twin) leaves them
+    float64. ``node (rows,)`` and ``channels (rows, K)`` give
     one tree's ``(n_nodes, F, max_bins, K)``; a forest's ``node (T, rows)``
     and ``channels (T, rows, K)`` over the same bins give
     ``(T, n_nodes, F, max_bins, K)``, and so do a sweep's jobs over their
     own bins ``(T, rows, F)``."""
     if node.dim() == 1:
-        return _level_histograms(bins, node[None], channels[None], n_nodes, max_bins)[0]
+        return _level_histograms(bins, node[None], channels[None], n_nodes, max_bins, sums)[0]
     trees, rows = node.shape
     num_features = bins.shape[-1]
     tree_bins = bins.long() if bins.dim() == 3 else bins.long()[None]
@@ -547,12 +552,11 @@ def _level_histograms(bins, node, channels, n_nodes: int, max_bins: int):
         .expand(trees, rows, num_features, num_channels)
         .reshape(-1, num_channels),
     )
-    return hist.to(torch.float32).reshape(
-        trees, n_nodes, num_features, max_bins, num_channels
-    )
+    hist = hist.reshape(trees, n_nodes, num_features, max_bins, num_channels)
+    return hist if sums else hist.to(torch.float32)
 
 
-def _leaf_sums(leaf_of_row, channels, n_leaves: int):
+def _leaf_sums(leaf_of_row, channels, n_leaves: int, sums: bool = False):
     """Per-leaf channel sums ``(n_leaves, K)``; a forest's ``leaf_of_row
     (T, rows)`` and ``channels (T, rows, K)`` give ``(T, n_leaves, K)``.
 
@@ -562,18 +566,20 @@ def _leaf_sums(leaf_of_row, channels, n_leaves: int):
     reference's float32 matmul sums in blocks and lands within ~1e-7 of the
     exact sum. In float64 the order of the adds no longer shows in the
     float32 result, so the plain version and the kernels agree, and class
-    counts stay exact integers."""
+    counts stay exact integers. ``sums=True`` (the sums form's twin) leaves
+    the sums float64."""
     if leaf_of_row.dim() == 1:
-        return _leaf_sums(leaf_of_row[None], channels[None], n_leaves)[0]
+        return _leaf_sums(leaf_of_row[None], channels[None], n_leaves, sums)[0]
     trees, num_channels = leaf_of_row.shape[0], channels.shape[2]
     index = (
         torch.arange(trees, device=channels.device)[:, None] * n_leaves + leaf_of_row.long()
     )
-    sums = torch.zeros(
+    total = torch.zeros(
         (trees * n_leaves, num_channels), dtype=torch.float64, device=channels.device
     )
-    sums.index_add_(0, index.reshape(-1), channels.to(torch.float64).reshape(-1, num_channels))
-    return sums.to(torch.float32).reshape(trees, n_leaves, num_channels)
+    total.index_add_(0, index.reshape(-1), channels.to(torch.float64).reshape(-1, num_channels))
+    total = total.reshape(trees, n_leaves, num_channels)
+    return total if sums else total.to(torch.float32)
 
 
 def _cumsum_bins(hist):
@@ -1084,7 +1090,9 @@ def _check_counts(channels) -> None:
         )
 
 
-def level_histograms(bins, node, channels, n_nodes: int, max_bins: int, integer: bool = False):
+def level_histograms(
+    bins, node, channels, n_nodes: int, max_bins: int, integer: bool = False, sums: bool = False,
+):
     """``(n_nodes, F, max_bins, K)`` float32 sums of the rows' channels by
     node, feature and bin (K2). A forest's ``node (T, rows)`` and
     ``channels (T, rows, K)`` over the same bins give ``(T, n_nodes, F,
@@ -1098,23 +1106,32 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int, integer:
     card the kernel traps on the first value that breaks it, and PyTorch
     raises the device error at the next synchronization. Nothing falls
     back to the sums path. Either path gives each cell's float64 sum
-    rounded once to float32."""
+    rounded once to float32.
+
+    ``sums=True`` is K2's sums form (a rank's block of rows over a data
+    axis): the sums path's float64 cell sums, not rounded, for the caller
+    to add over ranks and round once (``lo_level_histogram_sums``;
+    rounded, they are this call's float32 bits). Integer channels need no
+    such form: their counts are exact."""
     _check_rows(bins, node, channels)
+    if sums and integer:
+        raise ValueError("the sums form is the float path's: integer counts are exact as they are")
     if bins.device.type == "cpu":
         if integer:
             _check_counts(channels)
-        return _level_histograms(bins, node, channels, n_nodes, max_bins)
+        return _level_histograms(bins, node, channels, n_nodes, max_bins, sums)
     kernels.check_operands(bins, node, channels)
     forest = node.dim() == 2
     trees = node.shape[0] if forest else 1
     rows, num_features = bins.shape[-2:]
     num_channels = channels.shape[-1]
     shape = (trees, n_nodes, num_features, max_bins, num_channels)
+    out_dtype = torch.float64 if sums else torch.float32
     if rows == 0:
-        out = torch.zeros(shape, dtype=torch.float32, device=bins.device)
+        out = torch.zeros(shape, dtype=out_dtype, device=bins.device)
         return out if forest else out[0]
     # the kernels write every cell
-    out = torch.empty(shape, dtype=torch.float32, device=bins.device)
+    out = torch.empty(shape, dtype=out_dtype, device=bins.device)
     if out.numel() == 0:
         return out if forest else out[0]
     # a forest's trees share the bins; a sweep's jobs each have their own
@@ -1143,7 +1160,8 @@ def level_histograms(bins, node, channels, n_nodes: int, max_bins: int, integer:
         order = torch.empty((trees, rows), dtype=torch.int32, device=bins.device)
         window_begin = torch.empty((trees, chunks, windows + 1), dtype=torch.int32, device=bins.device)
     kernels.launch(
-        "level_histograms", "lo_level_histograms",
+        "level_histograms_sums" if sums else "level_histograms",
+        "lo_level_histogram_sums" if sums else "lo_level_histograms",
         bins.data_ptr(), bins.element_size(), node.data_ptr(), channels.data_ptr(),
         partials.data_ptr(), None if order is None else order.data_ptr(),
         None if window_begin is None else window_begin.data_ptr(), out.data_ptr(),
@@ -1245,7 +1263,7 @@ def route(bins, node, feature, bin_index):
     return out
 
 
-def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
+def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False, sums: bool = False):
     """``(n_leaves, K)`` float32 sums of the rows' channels by leaf (K5); a
     forest's ``leaf_of_row (T, rows)`` and ``channels (T, rows, K)`` give
     ``(T, n_leaves, K)`` from one launch, and so do a sweep's jobs.
@@ -1254,7 +1272,9 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
     integer in ``[0, COUNT_LIMIT)``, as for :func:`level_histograms`: the
     sums are counted as 32-bit integers (a ``ValueError`` here on a false
     claim, a trap on the card; nothing falls back). Either path gives each
-    cell's float64 sum rounded once to float32."""
+    cell's float64 sum rounded once to float32. ``sums=True`` is K5's sums
+    form, as :func:`level_histograms`': the float path's float64 sums, not
+    rounded (``lo_leaf_sum_sums``)."""
     if leaf_of_row.dtype != torch.int32 or leaf_of_row.dim() not in (1, 2):
         raise TypeError("leaf_of_row must be an int32 tensor of one entry per row (of each tree)")
     if channels.dtype != torch.float32 or channels.dim() != leaf_of_row.dim() + 1:
@@ -1265,20 +1285,23 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
         )
     if channels.device != leaf_of_row.device:
         raise ValueError(f"operands on {channels.device} and {leaf_of_row.device}")
+    if sums and integer:
+        raise ValueError("the sums form is the float path's: integer counts are exact as they are")
     if channels.device.type == "cpu":
         if integer:
             _check_counts(channels)
-        return _leaf_sums(leaf_of_row, channels, n_leaves)
+        return _leaf_sums(leaf_of_row, channels, n_leaves, sums)
     kernels.check_operands(leaf_of_row, channels)
     forest = leaf_of_row.dim() == 2
     trees = leaf_of_row.shape[0] if forest else 1
     rows, num_channels = leaf_of_row.shape[-1], channels.shape[-1]
     shape = (trees, n_leaves, num_channels)
+    out_dtype = torch.float64 if sums else torch.float32
     if rows == 0:
-        out = torch.zeros(shape, dtype=torch.float32, device=channels.device)
+        out = torch.zeros(shape, dtype=out_dtype, device=channels.device)
         return out if forest else out[0]
     # the kernels write every cell
-    out = torch.empty(shape, dtype=torch.float32, device=channels.device)
+    out = torch.empty(shape, dtype=out_dtype, device=channels.device)
     if out.numel() == 0:
         return out if forest else out[0]
     device = channels.device
@@ -1301,7 +1324,7 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
         (trees, chunks, tiling.leaves, tiling.channels), dtype=torch.float64, device=device
     )
     kernels.launch(
-        "leaf_sums", "lo_leaf_sums",
+        "leaf_sums_sums" if sums else "leaf_sums", "lo_leaf_sum_sums" if sums else "lo_leaf_sums",
         leaf_of_row.data_ptr(), channels.data_ptr(), partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
         rows, n_leaves, num_channels, trees, chunks, per_chunk,
@@ -1314,11 +1337,48 @@ def leaf_sums(leaf_of_row, channels, n_leaves: int, integer: bool = False):
 # --------------------------------------------------------------------------
 # Fits. No host sync anywhere in a level or boosting loop: each level's
 # split feeds the next level's routing on the device.
+#
+# Over a data axis of several ranks (``mesh``, parallel/mesh.py) each rank
+# holds its block of the padded rows (the padding weighted 0, through the
+# mask, as in the reference) and the fit runs on every rank: K1, K2, K4 and
+# K5 on the block, every rank's histogram and leaf sums added in rank order
+# in float64 and rounded once (the reference's psums over the data axis),
+# so that K3 sees the same bits on every rank and picks the same splits.
+# Integer counts (dt, rf) are exact, widened to float64 before they are
+# added; gb's float sums come from K2's and K5's sums form.
 # --------------------------------------------------------------------------
+
+def _level_totals(bins, node, channels, n_nodes: int, max_bins: int, integer: bool, mesh):
+    """K2 on this rank's rows; over several ranks, every rank's cells
+    added in rank order in float64, rounded once to float32."""
+    if not over_ranks(mesh):
+        return level_histograms(bins, node, channels, n_nodes, max_bins, integer=integer)
+    from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+    if integer:
+        hist = level_histograms(bins, node, channels, n_nodes, max_bins, integer=True)
+        hist = hist.to(torch.float64)
+    else:
+        hist = level_histograms(bins, node, channels, n_nodes, max_bins, sums=True)
+    return all_sum(hist, mesh).to(torch.float32)
+
+
+def _leaf_totals(leaf_of_row, channels, n_leaves: int, integer: bool, mesh):
+    """K5 on this rank's rows; over several ranks, as :func:`_level_totals`."""
+    if not over_ranks(mesh):
+        return leaf_sums(leaf_of_row, channels, n_leaves, integer=integer)
+    from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+    if integer:
+        sums = leaf_sums(leaf_of_row, channels, n_leaves, integer=True).to(torch.float64)
+    else:
+        sums = leaf_sums(leaf_of_row, channels, n_leaves, sums=True)
+    return all_sum(sums, mesh).to(torch.float32)
+
 
 def _grow(
     bins, channels, mode: str, max_depth: int, max_bins: int, subset_scores=None, subset_k=None,
-    integer: bool = False,
+    integer: bool = False, mesh=None,
 ):
     """Grow one tree, or a forest's trees together, level by level.
     ``channels (rows, K)`` grow one tree; a forest's ``(T, rows, K)`` grow
@@ -1327,13 +1387,14 @@ def _grow(
     l's nodes are rows ``2^l - 1 .. 2^(l+1) - 2``), restrict each node to
     its ``subset_k`` features of lowest score. ``integer``: the caller's
     statement that the channels are integers (the counts paths of K2 and
-    K5, see :func:`level_histograms`). Returns the heaps (features and
-    split bins per internal node, ``((T,) 2^D - 1)``) and every row's leaf
-    index ``((T,) rows)``."""
+    K5, see :func:`level_histograms`). ``mesh``: the rows are this rank's
+    block, and each level's histogram every rank's. Returns the heaps
+    (features and split bins per internal node, ``((T,) 2^D - 1)``) and
+    every row's leaf index ``((T,) rows)``."""
     node = torch.zeros(channels.shape[:-1], dtype=torch.int32, device=bins.device)
     features_heap, bins_heap = [], []
     for level in range(max_depth):
-        hist = level_histograms(bins, node, channels, 2**level, max_bins, integer=integer)
+        hist = _level_totals(bins, node, channels, 2**level, max_bins, integer, mesh)
         scores = None
         if subset_scores is not None:
             scores = subset_scores[..., 2**level - 1 : 2 ** (level + 1) - 1, :]
@@ -1346,35 +1407,36 @@ def _grow(
 
 def _fit_classification_tree(
     bins, one_hot, max_depth: int, max_bins: int, subset_scores=None, subset_k=None,
-    integer: bool = False,
+    integer: bool = False, mesh=None,
 ):
     features_heap, bins_heap, leaf_of_row = _grow(
-        bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k, integer
+        bins, one_hot, "gini", max_depth, max_bins, subset_scores, subset_k, integer, mesh
     )
-    leaf_counts = leaf_sums(leaf_of_row, one_hot, 2**max_depth, integer=integer)
+    leaf_counts = _leaf_totals(leaf_of_row, one_hot, 2**max_depth, integer, mesh)
     leaf_probs = leaf_counts / _channel_sum(leaf_counts).clamp(min=EPS)[..., None]
     return features_heap, bins_heap, leaf_probs
 
 
-def _fit_newton_tree(bins, g, h, max_depth: int, max_bins: int):
+def _fit_newton_tree(bins, g, h, max_depth: int, max_bins: int, mesh=None):
     channels = torch.stack([g, h], dim=1)
     features_heap, bins_heap, leaf_of_row = _grow(
-        bins, channels, "newton", max_depth, max_bins
+        bins, channels, "newton", max_depth, max_bins, mesh=mesh
     )
-    sums = leaf_sums(leaf_of_row, channels, 2**max_depth)
+    sums = _leaf_totals(leaf_of_row, channels, 2**max_depth, False, mesh)
     leaf_values = -sums[:, 0] / (sums[:, 1] + 1.0)
     return features_heap, bins_heap, leaf_values, leaf_of_row
 
 
 def _dt_fit(
-    bins, y, weights, num_classes: int, max_depth: int, max_bins: int, integer: bool = False
+    bins, y, weights, num_classes: int, max_depth: int, max_bins: int, integer: bool = False,
+    mesh=None,
 ):
     """A decision tree on the class one-hots times ``weights``; ``integer``:
     the caller's statement that the weights are integers (the estimator's
-    are ones)."""
+    are ones, or over ranks the validity mask)."""
     one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
     return _fit_classification_tree(
-        bins, one_hot * weights[:, None], max_depth, max_bins, integer=integer
+        bins, one_hot * weights[:, None], max_depth, max_bins, integer=integer, mesh=mesh
     )
 
 
@@ -1406,7 +1468,7 @@ def _forest_draws(
 
 def _rf_chunk(
     bins, y, weights, bootstrap, subset_scores, num_classes: int, max_depth: int,
-    max_bins: int, subset_k: int,
+    max_bins: int, subset_k: int, mesh=None,
 ):
     """A chunk of trees grown together: tree t's channels are the class
     one-hots weighted by ``weights * bootstrap[t]``, rounded in the
@@ -1415,7 +1477,7 @@ def _rf_chunk(
     base_one_hot = torch.nn.functional.one_hot(y.long(), num_classes).to(torch.float32)
     one_hot = base_one_hot[None] * (weights[None] * bootstrap)[:, :, None]
     return _fit_classification_tree(
-        bins, one_hot, max_depth, max_bins, subset_scores, subset_k, integer=True
+        bins, one_hot, max_depth, max_bins, subset_scores, subset_k, integer=True, mesh=mesh
     )
 
 
@@ -1449,13 +1511,15 @@ def _rf_tree_bytes(bins, num_classes: int, max_depth: int, max_bins: int) -> int
 
 def _rf_fit(
     bins, y, weights, draws: ForestDraws, num_classes: int, max_depth: int,
-    max_bins: int, num_trees: int, subset_k: int,
+    max_bins: int, num_trees: int, subset_k: int, mesh=None,
 ):
     """Forest fit in chunks of trees: the reference's watchdog budget and
     a device-memory cap (``_RF_CHUNK_BYTES``). Trees are independent and
     each takes its own draws, so the chunking changes no bit. Returns the
     stacked heaps ``(T, 2^D - 1)`` and leaf probabilities
-    ``(T, 2^D, C)``."""
+    ``(T, 2^D, C)``. ``mesh``: the rows, their weights and the bootstrap
+    are this rank's block; the budget counts every rank's rows, as the
+    reference's does."""
     nodes = 2**max_depth - 1
     rows, num_features = bins.shape
     if tuple(draws.bootstrap.shape) != (num_trees, rows) or tuple(
@@ -1473,7 +1537,8 @@ def _rf_fit(
             torch.zeros((0, nodes), dtype=torch.int32, device=device),
             torch.zeros((0, nodes + 1, num_classes), dtype=torch.float32, device=device),
         )
-    chunk = segment_steps(num_trees, rows, _RF_ROW_TREES_BUDGET, num_features)
+    global_rows = rows * (mesh.shape["data"] if over_ranks(mesh) else 1)
+    chunk = segment_steps(num_trees, global_rows, _RF_ROW_TREES_BUDGET, num_features)
     memory_chunk = max(
         1, int(_RF_CHUNK_BYTES // _rf_tree_bytes(bins, num_classes, max_depth, max_bins))
     )
@@ -1483,7 +1548,7 @@ def _rf_fit(
         _rf_chunk(
             bins, y, weights, draws.bootstrap[start : start + chunk],
             draws.subset_scores[start : start + chunk], num_classes, max_depth,
-            max_bins, subset_k,
+            max_bins, subset_k, mesh,
         )
         for start in range(0, num_trees, chunk)
     ]
@@ -1500,17 +1565,31 @@ def _heap_thresholds(features_heap, bins_heap, thresholds):
     return thresholds[safe_feature, safe_bin]
 
 
-def _gbt_init(y, weights):
+def _gbt_init(y, weights, mesh=None):
     """``f0``, the log-odds of the weighted base rate, as a float32 device
-    scalar, and every row's starting margin."""
+    scalar, and every row's starting margin. Over several ranks the
+    weighted label sum and the weight sum are every rank's, added in
+    float64 in rank order (exact for 0/1 labels and weights) and rounded
+    once: the one-process sums' bits."""
     y_f = y.to(torch.float32)
+    if over_ranks(mesh):
+        from learningorchestra_tpu_torch.parallel.multihost import all_sum
+
+        local = torch.stack([(y_f.double() * weights.double()).sum(), weights.double().sum()])
+        labelled, total = all_sum(local, mesh).to(torch.float32)
+        n_real = total.clamp(min=1.0)
+        base_rate = (labelled / n_real).clamp(1e-6, 1 - 1e-6)
+        f0 = torch.log(base_rate / (1 - base_rate))
+        return f0, f0.expand(y.shape[0]).clone()
     n_real = weights.sum().clamp(min=1.0)
     base_rate = ((y_f * weights).sum() / n_real).clamp(1e-6, 1 - 1e-6)
     f0 = torch.log(base_rate / (1 - base_rate))
     return f0, f0.expand(y.shape[0]).clone()
 
 
-def _gbt_rounds_impl(bins, y, weights, margins, max_depth: int, max_bins: int, rounds: int, step):
+def _gbt_rounds_impl(
+    bins, y, weights, margins, max_depth: int, max_bins: int, rounds: int, step, mesh=None,
+):
     """``rounds`` boosting rounds, margins in and out; the heaps of the
     rounds stacked. Each margin update rounds the product before the add."""
     y_f = y.to(torch.float32)
@@ -1522,7 +1601,7 @@ def _gbt_rounds_impl(bins, y, weights, margins, max_depth: int, max_bins: int, r
         g = (p - y_f) * weights
         h = (p * (1 - p)).clamp(min=1e-6) * weights
         features_heap, bins_heap, leaf_values, leaf_of_row = _fit_newton_tree(
-            bins, g, h, max_depth, max_bins
+            bins, g, h, max_depth, max_bins, mesh
         )
         margins = margins + step * leaf_values[leaf_of_row.long()]
         features.append(features_heap)
@@ -1543,17 +1622,26 @@ def _gbt_rounds_impl(bins, y, weights, margins, max_depth: int, max_bins: int, r
 _GB_ROW_ROUNDS_BUDGET = 40e6
 
 
-def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step):
+def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step, mesh=None):
     """Sequential boosting in segments of ``segment_steps`` rounds; the
     margins carry from one segment to the next. Returns ``f0``, the
-    stacked heaps and leaf values, and the final margins."""
-    f0, margins = _gbt_init(y, weights)
+    stacked heaps and leaf values, and the final margins (over several
+    ranks, this rank's block of them).
+
+    Over several ranks (``mesh``) the segments are sized by every rank's
+    padded rows, as the reference's by its global row count, so the
+    segments and the resume artifacts are the same on any layout; an
+    artifact holds every rank's margins (gathered, padded rows included),
+    written by rank 0, and each rank restores its block of them."""
+    sharded = over_ranks(mesh)
+    f0, margins = _gbt_init(y, weights, mesh)
     if rounds <= 0:
         margins, features_heap, bins_heap, leaf_values = _gbt_rounds_impl(
             bins, y, weights, margins, max_depth, max_bins, 0, step
         )
         return f0, features_heap, bins_heap, leaf_values, margins
-    chunk = segment_steps(rounds, bins.shape[0], _GB_ROW_ROUNDS_BUDGET, bins.shape[1])
+    global_rows = bins.shape[0] * (mesh.shape["data"] if sharded else 1)
+    chunk = segment_steps(rounds, global_rows, _GB_ROW_ROUNDS_BUDGET, bins.shape[1])
     total_chunks = rounds // chunk
     # Crash resume (reference ml/trees.py:594-637, ml/progress.py): the
     # margins and the heaps so far are enough to replay the remaining
@@ -1582,7 +1670,7 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
                 and len(arrays) == 4
             ):
                 templates = (
-                    margins,
+                    margins.new_zeros(global_rows),
                     torch.zeros((done * chunk, nodes), dtype=torch.int32, device=margins.device),
                     torch.zeros((done * chunk, nodes), dtype=torch.int32, device=margins.device),
                     torch.zeros((done * chunk, nodes + 1), dtype=torch.float32, device=margins.device),
@@ -1591,23 +1679,31 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
             if state is None:
                 sink.discard()
             else:
-                margins = state[0]
+                first = mesh.data_index * bins.shape[0] if sharded else 0
+                margins = state[0][first : first + bins.shape[0]].clone()
                 heaps.append(tuple(state[1:]))
                 start = done
                 _progress.segments_skipped(done)
     for index in range(start, total_chunks):
         margins, features_heap, bins_heap, leaf_values = _gbt_rounds_impl(
-            bins, y, weights, margins, max_depth, max_bins, chunk, step
+            bins, y, weights, margins, max_depth, max_bins, chunk, step, mesh
         )
         heaps.append((features_heap, bins_heap, leaf_values))
         if sink is not None:
-            sink.save(
-                "gbt",
-                index + 1,
-                [to_host(margins)]
-                + [to_host(torch.cat([h[i] for h in heaps])) for i in range(3)],
-                scalars,
-            )
+            if sharded:   # a collective: every rank gathers
+                from learningorchestra_tpu_torch.parallel.multihost import fetch
+
+                saved_margins = fetch(margins, mesh)
+            else:
+                saved_margins = to_host(margins)
+            if not sharded or mesh.data_index == 0:
+                sink.save(
+                    "gbt",
+                    index + 1,
+                    [saved_margins]
+                    + [to_host(torch.cat([h[i] for h in heaps])) for i in range(3)],
+                    scalars,
+                )
     features_heap, bins_heap, leaf_values = (torch.cat(parts) for parts in zip(*heaps))
     return f0, features_heap, bins_heap, leaf_values, margins
 
@@ -1616,36 +1712,56 @@ def _gbt_fit(bins, y, weights, max_depth: int, max_bins: int, rounds: int, step)
 # Estimators
 # --------------------------------------------------------------------------
 
-def _fit_inputs(X, y, max_bins: int, device):
-    """Host thresholds (float64 quantiles of the host rows, then float32 as
-    the bins use them) and the rows (in the policy's type), labels and
-    thresholds on ``device``."""
+def _fit_inputs(X, y, max_bins: int, mesh):
+    """Host thresholds (float64 quantiles of the full host rows, then
+    float32 as the bins use them: the same bits on every rank), and on the
+    mesh's device the rows (in the policy's type), labels, thresholds and
+    row weights. In one process all the rows, each of weight 1; over
+    several ranks this rank's block of the padded rows, the validity mask
+    as the weights (:func:`~learningorchestra_tpu_torch.ml.base.prepare_xy`)."""
+    device = mesh.device
     thresholds = make_thresholds(X, max_bins)
+    thresholds_dev = torch.from_numpy(thresholds.astype(np.float32)).to(device)
+    if over_ranks(mesh):
+        X_dev, y_dev, mask = prepare_xy(X, y, mesh)
+        return X_dev, y_dev, thresholds_dev, mask.to(torch.float32)
     X_dev = shard_matrix(X, device)
     y_dev = torch.from_numpy(np.asarray(y, dtype=np.int64)).to(device)
-    thresholds_dev = torch.from_numpy(thresholds.astype(np.float32)).to(device)
-    return X_dev, y_dev, thresholds_dev
+    weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=device)
+    return X_dev, y_dev, thresholds_dev, weights
+
+
+def _resolve_mesh(mesh, device):
+    """``mesh``, or by default every rank of the process group (in one
+    process a 1×1 mesh on ``device``), as the reference's ``resolve_mesh``."""
+    return mesh if mesh is not None else default_mesh(device)
 
 
 class DecisionTreeClassifier:
+    """``mesh``: the ranks to fit over (``parallel/mesh.py``); every rank
+    passes the full rows. Its counts are exact, so a fit over any number
+    of ranks grows the one-process fit's tree."""
+
     def __init__(
-        self, max_depth: int = MAX_DEPTH, max_bins: int = MAX_BINS, device: DeviceLike = None
+        self, max_depth: int = MAX_DEPTH, max_bins: int = MAX_BINS, device: DeviceLike = None,
+        mesh=None,
     ):
         self.max_depth = max_depth
         self.max_bins = max_bins
-        self.device = resolve_device(device)
+        self.mesh = _resolve_mesh(mesh, device)
+        self.device = self.mesh.device
 
     def fit(self, X, y) -> _TreeEnsembleModel:
         num_classes = infer_num_classes(y)
-        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        X_dev, y_dev, thresholds, weights = _fit_inputs(X, y, self.max_bins, self.mesh)
         bins = apply_bins(X_dev, thresholds)
-        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
         features_heap, bins_heap, leaf_probs = _dt_fit(
-            bins, y_dev, weights, num_classes, self.max_depth, self.max_bins, integer=True
+            bins, y_dev, weights, num_classes, self.max_depth, self.max_bins, integer=True,
+            mesh=self.mesh,
         )
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
         return _TreeEnsembleModel(
-            features_heap[None], thresholds_heap[None], leaf_probs[None], self.max_depth
+            features_heap[None], thresholds_heap[None], leaf_probs[None], self.max_depth, self.mesh
         )
 
 
@@ -1660,7 +1776,12 @@ class RandomForestClassifier:
     with ``seed`` (:func:`_forest_draws`). One seed so grows another forest
     in each package, from the same distributions; each package refits its
     own forest bit for bit from the same seed on the same device, and
-    handed the same draws the two grow identical heaps."""
+    handed the same draws the two grow identical heaps.
+
+    Over several ranks (``mesh``) every rank draws the global rows' draws
+    from the same seeded generator and takes its block of the bootstrap
+    (the padded rows weighted 0): handed the same draws, a fit over any
+    number of ranks grows the one-process fit's heaps."""
 
     def __init__(
         self,
@@ -1669,12 +1790,14 @@ class RandomForestClassifier:
         max_bins: int = MAX_BINS,
         seed: int = 0,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.num_trees = num_trees
         self.max_depth = max_depth
         self.max_bins = max_bins
         self.seed = seed
-        self.device = resolve_device(device)
+        self.mesh = _resolve_mesh(mesh, device)
+        self.device = self.mesh.device
 
     def fit(self, X, y) -> _TreeEnsembleModel:
         rows, num_features = np.shape(X)
@@ -1685,21 +1808,37 @@ class RandomForestClassifier:
         return self._fit_with_draws(X, y, draws)
 
     def _fit_with_draws(self, X, y, draws: ForestDraws) -> _TreeEnsembleModel:
+        """The fit from the global rows' ``draws`` (``(T, rows)`` bootstrap)."""
         num_classes = infer_num_classes(y)
         subset_k = max(1, int(np.ceil(np.sqrt(np.shape(X)[1]))))
-        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        X_dev, y_dev, thresholds, weights = _fit_inputs(X, y, self.max_bins, self.mesh)
+        if over_ranks(self.mesh):
+            draws = _block_draws(draws, self.mesh, X_dev.shape[0])
         bins = apply_bins(X_dev, thresholds)
-        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
         features_heap, bins_heap, leaf_probs = _rf_fit(
             bins, y_dev, weights, draws, num_classes, self.max_depth, self.max_bins,
-            self.num_trees, subset_k,
+            self.num_trees, subset_k, self.mesh,
         )
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
-        return _TreeEnsembleModel(features_heap, thresholds_heap, leaf_probs, self.max_depth)
+        return _TreeEnsembleModel(
+            features_heap, thresholds_heap, leaf_probs, self.max_depth, self.mesh
+        )
+
+
+def _block_draws(draws: ForestDraws, mesh, block_rows: int) -> ForestDraws:
+    """The global rows' draws cut to this rank's block of the padded rows:
+    the bootstrap padded with zeros (a padded row is in no tree), then the
+    block's columns; the node scores are every rank's."""
+    bootstrap = draws.bootstrap
+    padded = block_rows * mesh.shape["data"]
+    bootstrap = torch.nn.functional.pad(bootstrap, (0, padded - bootstrap.shape[1]))
+    first = mesh.data_index * block_rows
+    return ForestDraws(bootstrap[:, first : first + block_rows].contiguous(), draws.subset_scores)
 
 
 class GBTClassifier:
-    """Binary gradient-boosted trees (MLlib GBTClassifier is binary-only)."""
+    """Binary gradient-boosted trees (MLlib GBTClassifier is binary-only).
+    ``mesh``: the ranks to fit over; every rank passes the full rows."""
 
     def __init__(
         self,
@@ -1708,24 +1847,26 @@ class GBTClassifier:
         max_depth: int = MAX_DEPTH,
         max_bins: int = MAX_BINS,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.rounds = rounds
         self.step = step
         self.max_depth = max_depth
         self.max_bins = max_bins
-        self.device = resolve_device(device)
+        self.mesh = _resolve_mesh(mesh, device)
+        self.device = self.mesh.device
 
     def fit(self, X, y) -> GBTModel:
         if infer_num_classes(y) > 2:
             raise ValueError("GBTClassifier supports binary labels only (MLlib contract)")
-        X_dev, y_dev, thresholds = _fit_inputs(X, y, self.max_bins, self.device)
+        X_dev, y_dev, thresholds, weights = _fit_inputs(X, y, self.max_bins, self.mesh)
         bins = apply_bins(X_dev, thresholds)
-        weights = torch.ones(X_dev.shape[0], dtype=torch.float32, device=self.device)
         f0, features_heap, bins_heap, leaf_values, _ = _gbt_fit(
-            bins, y_dev, weights, self.max_depth, self.max_bins, self.rounds, self.step
+            bins, y_dev, weights, self.max_depth, self.max_bins, self.rounds, self.step, self.mesh
         )
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
         # the fit's one device-to-host copy: f0, which the model keeps on the host
         return GBTModel(
-            float(to_host(f0)), features_heap, thresholds_heap, leaf_values, self.step, self.max_depth
+            float(to_host(f0)), features_heap, thresholds_heap, leaf_values, self.step,
+            self.max_depth, self.mesh,
         )

@@ -121,8 +121,11 @@ def create_embedding_image(
 ) -> str:
     """Embed ``parent_filename`` with ``method`` ("pca" or "tsne") on the
     card and write ``<images_path>/<output_filename>.png``. Returns the
-    image path. (The reference's ``render`` flag is for the worker
-    processes of a multi-host mesh, which the port does not have yet.)"""
+    image path. The embedding runs in this process on ``device``: PCA and
+    t-SNE take a ``mesh`` of data ranks (``ops/pca.py``, ``ops/tsne.py``),
+    but the service has no worker processes to run them with; the
+    reference's ``render`` flag, which its SPMD workers pass, comes with
+    the port's dispatcher (ROADMAP Queue 1 item 6d)."""
     if not safe_filename(output_filename):
         raise ValueError(f"unsafe image filename {output_filename!r}")
     embed = EMBEDDINGS[method]

@@ -1,7 +1,9 @@
-"""t-SNE on one card: exact, with a landmark path past the O(n²) wall.
+"""t-SNE on the card: exact, with a landmark path past the O(n²) wall.
 
-Counterpart of ``learningorchestra_tpu/ops/tsne.py``, for one CUDA card
-(no mesh: the reference's row sharding is a later slice of the port).
+Counterpart of ``learningorchestra_tpu/ops/tsne.py``: on one CUDA card,
+or over a data axis of several ranks (a ``mesh``), where each rank owns a
+slab of P's rows (the reference's ``shard_map`` over its data axis; see
+"Over ranks" below).
 
 - K11 ``affinities``: each row's conditional affinities, calibrated to
   the target perplexity by a 32-step bisection on beta, then
@@ -27,7 +29,20 @@ CPU; on a CUDA tensor it launches the kernel or raises.
 
 No padding: the reference pads rows to its mesh's bucketed shapes
 (``_pad_for_mesh``), and padded rows carry zero affinity and zero
-repulsion weight, so on one card the port runs at ``n`` rows.
+repulsion weight, so the port runs at ``n`` rows.
+
+Over ranks (``mesh`` with a data axis of several ranks): X is replicated
+and unpadded, and rank r owns P's rows ``host_row_range(n, mesh)`` (the
+block rule of the rows, clamped to n). K11's row-slab form calibrates the
+slab; the slabs are gathered (padded to the block only for the
+collective) and each rank takes its rows of ``(P + Pᵀ) / 2n``, where the
+reference lets XLA transpose across devices. Each iteration K12's
+row-slab form gives the slab's float64 part of Z, every rank's added in
+rank order and rounded once before any rank divides, then the slab's
+gradient rows, gathered so that Y, the velocity and the gains stay
+replicated (the reference's ``_optimize``). ``Y0`` comes from the same
+seeded generator on every rank. The landmark path runs that exact fit on
+the landmarks, then K13 on each rank's block of rows, gathered.
 
 The random start: the reference draws ``Y0`` from JAX's threefry over its
 padded row count. The port's ``_tsne_exact`` and ``_tsne_landmark`` take
@@ -47,6 +62,8 @@ import torch
 
 from learningorchestra_tpu_torch import kernels
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
+from learningorchestra_tpu_torch.parallel.mesh import over_ranks
+from learningorchestra_tpu_torch.parallel.multihost import all_sum, gather_rows, host_row_range
 
 PERPLEXITY = 30.0
 ITERATIONS = 1000
@@ -188,6 +205,48 @@ def _interpolate(X, landmarks, Y_landmarks, perplexity: float, chunk: int = INTE
     return out
 
 
+def _conditional_affinities_slab(X, perplexity: float, first: int, slab: int, chunk: int = CHUNK):
+    """K11's row-slab twin: rows ``first .. first + slab - 1`` of
+    :func:`_conditional_affinities`, ``(slab, n)``, each row's own column
+    excluded."""
+    n = X.shape[0]
+    target = _target_entropy(perplexity)
+    P = torch.empty((slab, n), dtype=torch.float32, device=X.device)
+    columns = torch.arange(n, device=X.device)
+    for start in range(0, slab, chunk):
+        stop = min(start + chunk, slab)
+        rows = columns[first + start : first + stop]
+        distances = _squared_distances(X[first + start : first + stop], X)
+        excluded = rows[:, None] == columns[None, :]
+        P[start:stop] = _calibrate_row_block(distances, excluded, target)
+    return P
+
+
+def _slab_inverse(Y, first: int, slab: int):
+    """``1 / (1 + d_ij)`` of the slab's rows against every row, 0 on each
+    row's own column: the rows of :func:`_tsne_z`'s and :func:`_tsne_grad`'s
+    inverse distances."""
+    inv = 1.0 / (1.0 + _squared_distances(Y[first : first + slab], Y))
+    inv[torch.arange(slab, device=Y.device), torch.arange(first, first + slab, device=Y.device)] = 0.0
+    return inv
+
+
+def _tsne_z_slab(Y, first: int, slab: int):
+    """K12's row-slab twin, pass 1: the slab's float64 part of Z, ``(1,)``:
+    its float32 inverse distances added in float64."""
+    return _slab_inverse(Y, first, slab).to(torch.float64).sum().reshape(1)
+
+
+def _tsne_grad_slab(Y, P_slab, Z, first: int, exaggeration: float):
+    """K12's row-slab twin, pass 2: the gradient ``(slab, 2)`` of the slab's
+    rows given the global ``Z``, with ``P_slab`` the slab's rows of P."""
+    slab = P_slab.shape[0]
+    inv = _slab_inverse(Y, first, slab)
+    Q = inv / torch.clamp_min(Z, 1e-12)
+    W = (P_slab * exaggeration - torch.clamp_min(Q, 1e-12)) * inv
+    return 4.0 * (W.sum(dim=1)[:, None] * Y[first : first + slab] - W @ Y)
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers (K11, K12, K13)
 # --------------------------------------------------------------------------
@@ -322,6 +381,79 @@ def gradient(Y, P, exaggeration: float):
     return tsne_grad(Y, P, tsne_z(Y), exaggeration)
 
 
+def _check_slab(n: int, first: int, slab: int) -> None:
+    if first < 0 or slab < 0 or first + slab > n:
+        raise ValueError(f"rows [{first}, {first + slab}) are not a slab of {n} rows")
+
+
+def conditional_affinities_slab(X, perplexity: float, first: int, slab: int):
+    """Rows ``first .. first + slab - 1`` of :func:`conditional_affinities`,
+    ``(slab, n)`` against all n columns (K11's row-slab form). Each row's
+    arithmetic is the whole launch's (the geometry is n's), so the rows
+    have its bits."""
+    _check_float32(X)
+    if X.shape[0] == 0:
+        raise ValueError("zero-size array to reduction operation max which has no identity")
+    n, num_features = X.shape
+    _check_slab(n, first, slab)
+    if X.device.type == "cpu":
+        return _conditional_affinities_slab(X, perplexity, first, slab)
+    kernels.check_operands(X)
+    rows, threads = _k11_geometry(n)
+    P = torch.empty((slab, n), dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "tsne_affinities_slab", "lo_tsne_affinities_slab",
+        X.data_ptr(), P.data_ptr(), n, num_features, first, slab, _target_entropy(perplexity),
+        rows, threads, int(4 * rows * n <= _SHARED_DISTANCE_BYTES),
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    return P
+
+
+def tsne_z_slab(Y, first: int, slab: int):
+    """The slab's part of Z, a ``(1,)`` float64 tensor on the device: the
+    sum over its rows i and every j != i of ``1 / (1 + d_ij)``, not
+    rounded (K12's row-slab form, pass 1)."""
+    _check_float32(Y)
+    _check_embedding(Y)
+    _check_slab(Y.shape[0], first, slab)
+    if Y.device.type == "cpu":
+        return _tsne_z_slab(Y, first, slab)
+    kernels.check_operands(Y)
+    row_sums = torch.empty(max(slab, 1), dtype=torch.float64, device=Y.device)
+    total = torch.empty(1, dtype=torch.float64, device=Y.device)
+    kernels.launch(
+        "tsne_z_slab", "lo_tsne_z_slab",
+        Y.data_ptr(), row_sums.data_ptr(), total.data_ptr(), Y.shape[0], first, slab,
+        Y.device.index, _stream(Y),
+    )
+    return total
+
+
+def tsne_grad_slab(Y, P_slab, Z, first: int, exaggeration: float):
+    """The gradient ``(slab, 2)`` of the slab's rows given the global ``Z``
+    (K12's row-slab form, pass 2); ``P_slab`` holds the slab's rows of P,
+    read at its stride of n."""
+    _check_float32(Y, P_slab, Z)
+    _check_embedding(Y)
+    n, slab = Y.shape[0], P_slab.shape[0]
+    if P_slab.dim() != 2 or P_slab.shape[1] != n or Z.shape != (1,):
+        raise ValueError(
+            f"P_slab must be (slab, {n}) and Z (1,), got {tuple(P_slab.shape)}, {tuple(Z.shape)}"
+        )
+    _check_slab(n, first, slab)
+    if Y.device.type == "cpu":
+        return _tsne_grad_slab(Y, P_slab, Z, first, exaggeration)
+    kernels.check_operands(Y, P_slab, Z)
+    grad = torch.empty((slab, 2), dtype=torch.float32, device=Y.device)
+    kernels.launch(
+        "tsne_grad_slab", "lo_tsne_grad_slab",
+        Y.data_ptr(), P_slab.data_ptr(), Z.data_ptr(), grad.data_ptr(), n, first, slab,
+        exaggeration, Y.device.index, _stream(Y),
+    )
+    return grad
+
+
 def interpolate(X, landmarks, Y_landmarks, perplexity: float):
     """Each row of ``X`` placed onto the landmarks' embedding (K13, one
     launch)."""
@@ -356,18 +488,46 @@ def interpolate(X, landmarks, Y_landmarks, perplexity: float):
 # The fits
 # --------------------------------------------------------------------------
 
+def _affinities_over_ranks(X, perplexity: float, mesh):
+    """This rank's rows ``[first, first + slab)`` of the symmetrised P,
+    ``(slab, n)``, and ``first``: K11's row slab, the slabs gathered, then
+    the rank's rows of ``(P + Pᵀ) / 2n`` (the bits of :func:`affinities`'
+    rows)."""
+    n = X.shape[0]
+    first, stop = host_row_range(n, mesh)
+    conditional = gather_rows(conditional_affinities_slab(X, perplexity, first, stop - first), n, mesh)
+    rows = conditional[first:stop] + conditional[:, first:stop].T
+    rows /= torch.tensor(2.0 * n, dtype=torch.float32, device=X.device)
+    return rows.clamp_min_(1e-12), first
+
+
+def _gradient_over_ranks(Y, P_slab, first: int, exaggeration: float, mesh):
+    """One iteration's gradient ``(n, 2)`` over ranks: the slab's part of Z
+    (K12's row slab), every rank's added in float64 in rank order and
+    rounded once; the slab's gradient rows given that Z, gathered."""
+    Z = all_sum(tsne_z_slab(Y, first, P_slab.shape[0]), mesh).to(torch.float32)
+    return gather_rows(tsne_grad_slab(Y, P_slab, Z, first, exaggeration), Y.shape[0], mesh)
+
+
 def _optimize(
-    P, Y0, iterations: int, early_phase: int, learning_rate: float, exaggeration: float
+    P, Y0, iterations: int, early_phase: int, learning_rate: float, exaggeration: float,
+    mesh=None, first: int = 0,
 ):
     """Gradient descent with momentum and adaptive gains (reference
     ``:170-233``): the gradient by K12, the ``(n, 2)`` update in torch
-    ops. Python control flow only: nothing waits for the device."""
+    ops. Python control flow only: nothing waits for the device. Over
+    ranks (``mesh``), ``P`` is this rank's rows from ``first`` and the
+    gradient every rank's (:func:`_gradient_over_ranks`); Y stays
+    replicated."""
     Y = Y0.clone()
     velocity = torch.zeros_like(Y)
     gains = torch.ones_like(Y)
     for i in range(iterations):
         early = i < early_phase
-        grad = gradient(Y, P, exaggeration if early else 1.0)
+        if over_ranks(mesh):
+            grad = _gradient_over_ranks(Y, P, first, exaggeration if early else 1.0, mesh)
+        else:
+            grad = gradient(Y, P, exaggeration if early else 1.0)
         momentum = 0.5 if early else 0.8
         same_sign = torch.sign(grad) == torch.sign(velocity)
         gains = torch.clamp_min(torch.where(same_sign, gains * 0.8, gains + 0.2), 0.01)
@@ -376,16 +536,22 @@ def _optimize(
     return Y
 
 
-def _tsne_exact(X, perplexity: float, iterations: int, learning_rate: float, Y0):
+def _tsne_exact(X, perplexity: float, iterations: int, learning_rate: float, Y0, mesh=None):
     """Exact t-SNE of the float32 rows ``X`` from the start ``Y0``
     ``(n, 2)``: the reference's ``_tsne_exact`` and
     ``_tsne_exact_on_device`` in one, since ``X`` is already a tensor on
-    its device. Returns ``(n, 2)`` on that device."""
+    its device. Returns ``(n, 2)`` on that device (on every rank, over
+    the ranks of ``mesh``)."""
     n = X.shape[0]
-    P = affinities(X, _clamped_perplexity(perplexity, n))
+    perplexity = _clamped_perplexity(perplexity, n)
+    first = 0
+    if over_ranks(mesh):
+        P, first = _affinities_over_ranks(X, perplexity, mesh)
+    else:
+        P = affinities(X, perplexity)
     return _optimize(
         P, Y0, iterations, min(EARLY_PHASE, iterations // 2),
-        learning_rate, EARLY_EXAGGERATION,
+        learning_rate, EARLY_EXAGGERATION, mesh, first,
     )
 
 
@@ -398,14 +564,15 @@ def _choose_landmarks(n: int, landmarks: int, seed: int) -> np.ndarray:
 
 def _tsne_landmark(
     X, perplexity: float, iterations: int, learning_rate: float, seed: int,
-    landmarks: int, Y0,
+    landmarks: int, Y0, mesh=None,
 ):
     """Exact t-SNE on ``landmarks`` rows chosen by numpy's
     ``default_rng(seed)`` (from the start ``Y0``, one row a landmark),
     then every row placed by K13, a macro block of rows a launch. Its
     phases are the reference's spans, ``tsne:landmark_fit`` and
     ``tsne:interpolate`` (their launches are asynchronous: the device's
-    time lands where the host first waits on it)."""
+    time lands where the host first waits on it). Over ranks the exact
+    fit runs over them, and each rank places its block of the rows."""
     from learningorchestra_tpu_torch.telemetry import span
 
     n = X.shape[0]
@@ -413,7 +580,7 @@ def _tsne_landmark(
     chosen = torch.from_numpy(_choose_landmarks(n, landmarks, seed)).to(X.device)
     L = X[chosen]
     with span("tsne:landmark_fit", rows=m):
-        Y_L = _tsne_exact(L, perplexity, iterations, learning_rate, Y0)
+        Y_L = _tsne_exact(L, perplexity, iterations, learning_rate, Y0, mesh)
     if m == n:
         # every row is a landmark: undo the sampling permutation instead of
         # blurring the exact embedding through interpolation
@@ -421,13 +588,18 @@ def _tsne_landmark(
         out[chosen] = Y_L
         return out
     interp_perplexity = _clamped_perplexity(perplexity, m)
-    macro = min(n, _INTERP_ROWS_PER_PROGRAM)
+    first, stop = 0, n
+    if over_ranks(mesh):
+        first, stop = host_row_range(n, mesh)
+    macro = max(1, min(stop - first, _INTERP_ROWS_PER_PROGRAM))
     with span("tsne:interpolate", rows=n, landmarks=m, macro_rows=macro):
         outs = [
-            interpolate(X[start : start + macro], L, Y_L, interp_perplexity)
-            for start in range(0, n, macro)
+            interpolate(X[start : min(start + macro, stop)], L, Y_L, interp_perplexity)
+            for start in range(first, stop, macro)
         ]
-        return torch.cat(outs) if len(outs) > 1 else outs[0]
+        placed = outs[0] if len(outs) == 1 else (
+            torch.cat(outs) if outs else X.new_zeros((0, 2)))
+        return gather_rows(placed, n, mesh) if over_ranks(mesh) else placed
 
 
 def _initial_embedding(rows: int, seed: int, device) -> torch.Tensor:
@@ -448,9 +620,11 @@ def tsne_embedding(
     exact_rows_limit: int = EXACT_ROWS_LIMIT,
     landmarks: int = LANDMARKS,
     device: DeviceLike = None,
+    mesh=None,
 ) -> np.ndarray:
     """2-D t-SNE embedding of ``X`` (an array or a tensor), as a host
-    ``(rows, 2)`` float32 array.
+    ``(rows, 2)`` float32 array. Over the data ranks of ``mesh`` (on its
+    device) every rank passes the same rows and gets the same embedding.
 
     ``method``: ``"exact"``, ``"landmark"`` (exact on a subsample, then
     calibrated kernel regression for the rest: linear in n) or ``"auto"``
@@ -460,7 +634,7 @@ def tsne_embedding(
     from learningorchestra_tpu_torch.ml.base import _account_h2d, to_host
     from learningorchestra_tpu_torch.telemetry import span
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if not torch.is_tensor(X):
         X = _account_h2d(torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(device))
     X = X.to(device, torch.float32).contiguous()
@@ -469,11 +643,11 @@ def tsne_embedding(
         method = "exact" if n <= exact_rows_limit else "landmark"
     if method == "exact":
         Y = _tsne_exact(
-            X, perplexity, iterations, learning_rate, _initial_embedding(n, seed, device)
+            X, perplexity, iterations, learning_rate, _initial_embedding(n, seed, device), mesh
         )
     elif method == "landmark":
         Y0 = _initial_embedding(min(landmarks, n), seed, device)
-        Y = _tsne_landmark(X, perplexity, iterations, learning_rate, seed, landmarks, Y0)
+        Y = _tsne_landmark(X, perplexity, iterations, learning_rate, seed, landmarks, Y0, mesh)
     else:
         raise ValueError(f"unknown t-SNE method {method!r}")
     with span("d2h:tsne", rows=n):

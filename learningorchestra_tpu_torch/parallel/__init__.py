@@ -6,8 +6,11 @@ process a rank), the way the reference shards them over a JAX mesh, and
 the sums that cross blocks are gathered and added in rank order. The
 reference's ``NamedSharding`` helpers (``row_sharded``, ``replicated``)
 have no counterpart: a rank holds its block (:func:`shard_rows`) or a
-replicated tensor (:func:`put_replicated`). ``spmd.py`` (the multi-host
-dispatcher) and the model axis are ROADMAP Queue 1 items 6d and 6c.
+replicated tensor (:func:`put_replicated`). Every fit takes a mesh (lr,
+nb, dt, rf, gb), a fitted model's forward and metrics run over its ranks,
+and so do the builder's ``train_one`` and ``build_model``, PCA and t-SNE.
+``spmd.py`` (the multi-host dispatcher) and the model axis are ROADMAP
+Queue 1 items 6d and 6c.
 """
 
 from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -18,6 +21,7 @@ from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
     default_mesh,
     make_mesh,
     model_size,
+    over_ranks,
 )
 from learningorchestra_tpu_torch.parallel.sharding import (  # noqa: F401
     bucket_rows,
@@ -30,6 +34,7 @@ from learningorchestra_tpu_torch.parallel.sharding import (  # noqa: F401
 from learningorchestra_tpu_torch.parallel.multihost import (  # noqa: F401
     all_sum,
     fetch,
+    gather_rows,
     host_row_range,
     initialize_from_env,
     shard_rows_local,

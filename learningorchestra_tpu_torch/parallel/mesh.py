@@ -112,5 +112,11 @@ def data_size(mesh: Mesh) -> int:
     return mesh.shape[DATA_AXIS]
 
 
+def over_ranks(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` spreads rows over a data axis of several ranks
+    (else a caller takes its single-device path)."""
+    return mesh is not None and mesh.shape[DATA_AXIS] > 1
+
+
 def model_size(mesh: Mesh) -> int:
     return mesh.shape[MODEL_AXIS]

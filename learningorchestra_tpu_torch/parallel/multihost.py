@@ -13,7 +13,9 @@ axis's collectives; the port runs one process a rank over
   each rank loads ONLY its block's rows of the dataset, and no process ever
   holds the full matrix.
 - :func:`fetch` — every rank's block gathered, so that each rank holds the
-  same global numpy array (the ``collect()`` analogue).
+  same global numpy array (the ``collect()`` analogue); :func:`gather_rows`
+  the same for a tensor of each rank's ``host_row_range`` rows, left on
+  the device.
 - :func:`all_sum` — the sums that cross the data axis (a fit's float64
   partial sums, the confusion counts): gathered from every rank and added
   in rank order in float64, so that every rank holds the same bits and a
@@ -182,6 +184,17 @@ def shard_rows_local(
         pad_width = [(0, pad)] + [(0, 0)] * (local_rows.ndim - 1)
         local_rows = np.pad(local_rows, pad_width)
     return to_device(local_rows, mesh.device), to_device(local_mask, mesh.device)
+
+
+def gather_rows(rows: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``host_row_range(n_rows, mesh)`` rows of an
+    ``(n_rows, ...)`` tensor, gathered in rank order: the whole tensor on
+    every rank's device. Each rank's rows are padded to the block for the
+    collective only."""
+    block = _block(n_rows, mesh)
+    padded = rows.new_zeros((block, *rows.shape[1:]))
+    padded[: rows.shape[0]] = rows
+    return torch.cat(all_gather(padded, mesh))[:n_rows]
 
 
 def fetch(tensor: torch.Tensor, mesh: Mesh, mask: Optional[torch.Tensor] = None) -> np.ndarray:

@@ -1,0 +1,168 @@
+"""chip_smoke.py's ``multigpu`` phase, its part over ranks, rehearsed on the
+CPU at a small size.
+
+On the card each run's children are ``chip_smoke.py multigpu-child``
+processes, one a rank; after the lr fits each runs the SPMD fits of dt,
+rf, gb and nb with ``evaluate_predict`` over the ranks, PCA and a landmark
+t-SNE request over the ranks, and the parent holds runs (b) and (c)
+against its one-process fits (``_others_against_one_process``).
+
+Here two gloo ranks run as child processes on the CPU: each child is a
+small wrapper that cuts the sizes (3,000 fit rows, 3,000 embed rows, 1,000
+landmarks: fewer part the two fits' KL by more than the phase's margin, as
+any two t-SNE fits whose sums round apart), stubs ``torch.cuda.synchronize`` and the
+kernel libraries, and turns its ``cuda:<n>`` into ``cpu``. The launch
+counts (which only the card's kernels raise) are stubbed to one for every
+kernel; on the card the phase fails unless every rank launched the
+kernels of each fit. The same checks then run in this process against
+the port's one-process fits on the CPU at the same sizes.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from learningorchestra_tpu_torch.ops import tsne  # noqa: E402
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZES = {"FIT_ROWS": 3_000, "EMBED_ROWS": 3_000}
+LANDMARKS = 1_000
+ITERATIONS = 1_000
+RANKS = 2
+
+CHILD = """
+import inspect, sys
+sys.path.insert(0, {root!r})
+import torch
+torch.cuda.synchronize = lambda *args, **kwargs: None
+import chip_smoke
+from learningorchestra_tpu_torch import kernels
+from learningorchestra_tpu_torch.ops import tsne
+for name, value in {sizes!r}.items():
+    setattr(chip_smoke, name, value)
+tsne.LANDMARKS = {landmarks}
+names = list(inspect.signature(tsne.tsne_embedding).parameters)[1:]
+defaults = dict(zip(names, tsne.tsne_embedding.__defaults__))
+defaults.update(iterations={iterations}, landmarks={landmarks})
+tsne.tsne_embedding.__defaults__ = tuple(defaults.values())
+kernels.library = lambda name: None
+kernels.launches = lambda: {{name: 1 for name in kernels.KERNEL_NAMES}}
+args = sys.argv[1:]
+args[4] = "cpu"
+sys.exit(chip_smoke.multigpu_child(args))
+"""
+
+
+def _cut_tsne(monkeypatch):
+    import inspect
+
+    names = list(inspect.signature(tsne.tsne_embedding).parameters)[1:]
+    defaults = dict(zip(names, tsne.tsne_embedding.__defaults__))
+    defaults.update(iterations=ITERATIONS, landmarks=LANDMARKS)
+    monkeypatch.setattr(tsne.tsne_embedding, "__defaults__", tuple(defaults.values()))
+    monkeypatch.setattr(tsne, "LANDMARKS", LANDMARKS)
+
+
+@pytest.fixture()
+def on_the_cpu(monkeypatch, tmp_path):
+    from learningorchestra_tpu_torch.ops import pca
+    from learningorchestra_tpu_torch.parallel import mesh
+
+    wrapper = tmp_path / "multigpu_child.py"
+    wrapper.write_text(CHILD.format(root=_ROOT, sizes=SIZES, landmarks=LANDMARKS, iterations=ITERATIONS))
+    monkeypatch.setattr(chip_smoke, "MULTIGPU_CHILD_COMMAND", [sys.executable, str(wrapper)])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for name, value in SIZES.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    _cut_tsne(monkeypatch)
+
+    def cpu(device=None):
+        return torch.device("cpu") if device is None else torch.device(device)
+
+    for module in (mesh, pca, tsne):
+        monkeypatch.setattr(module, "resolve_device", cpu)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *args, **kwargs: self)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args, **kwargs: None)
+
+
+@pytest.fixture()
+def rehearsed(on_the_cpu, tmp_path):
+    run = chip_smoke._multigpu_run(torch, "c", "gloo", RANKS, 1, True, str(tmp_path / "runs"))
+    return run, chip_smoke._one_process_others(torch)
+
+
+def test_the_other_fits_over_two_gloo_ranks(rehearsed):
+    (run, solo) = rehearsed
+    summary, arrays = run["summary"], run["arrays"]
+    assert set(summary["others"]) == {*chip_smoke.OTHER_FITS, "pca", "tsne"}
+    for name, other in summary["others"].items():
+        assert len(other["wall_s"]) == RANKS and all(wall > 0 for wall in other["wall_s"])
+        assert all(count > 0 for count in other["collectives"]), name
+        assert all(launches for launches in other["launches"])
+    for name in chip_smoke.OTHER_FITS:
+        assert 0.5 < summary["others"][name]["accuracy"] <= 1.0
+        assert summary["others"][name]["evaluate"]["collectives"] > 0
+    held = chip_smoke._others_against_one_process(torch, "c", arrays, solo)
+    assert held["dt"]["heaps_identical"] and held["rf"]["heaps_identical"]
+    assert held["gb"]["margin_max_abs_err"] <= chip_smoke.MULTIGPU_GB_MARGIN_TOL
+    assert held["gb"]["gb_heaps_identical"] == (held["gb"]["first_difference"] is None)
+    assert held["nb"]["probs_max_abs_err"] <= chip_smoke.MULTIGPU_NB_TOL
+    assert held["pca"]["max_rel_err"] <= chip_smoke.MULTIGPU_PCA_RTOL
+    assert held["tsne"]["kl"]["rel_diff"] <= chip_smoke.KL_MARGIN
+    assert arrays["tsne"].shape == (SIZES["EMBED_ROWS"], 2)
+    json.dumps(held)   # the record is emitted as JSON
+
+
+def test_a_run_fails_when_a_rank_launched_no_sums_form():
+    """The launch check a run's ranks are held to: the sums forms and the
+    slabs over several ranks, today's launches on one."""
+    assert "level_histograms_sums" in chip_smoke._required_launches("gb", 4)
+    assert "level_histograms" in chip_smoke._required_launches("gb", 1)
+    assert "tsne_grad_slab" in chip_smoke._required_launches("tsne", 2)
+    assert "tsne_grad" in chip_smoke._required_launches("tsne", 1)
+    assert chip_smoke._required_launches("dt", 4) == chip_smoke._required_launches("dt", 1)
+    assert chip_smoke._required_launches("nb", 4) == ()
+
+
+@pytest.mark.parametrize("name", ("level_histograms_sums", "leaf_sums_sums"))
+def test_sums_form_bounds_are_bytes(name):
+    bound_ms, bound_by = chip_smoke._sums_bound(name, chip_smoke.MULTIGPU_BLOCK_ROWS, 16 * 16 * 32)
+    assert bound_by == "bytes" and 0 < bound_ms < 0.01
+
+
+@pytest.mark.parametrize("name", ("tsne_affinities_slab", "tsne_z_slab", "tsne_grad_slab"))
+def test_slab_bounds_grow_with_the_slab(name):
+    small, _ = chip_smoke._slab_bound(name, 1_250, 5_000)
+    large, _ = chip_smoke._slab_bound(name, 5_000, 5_000)
+    assert 0 < small < large
+
+
+def test_the_landmark_slabs_cover_the_rows():
+    slabs = chip_smoke._row_slabs(5_000, chip_smoke.MULTIGPU_SLABS)
+    assert slabs[0][0] == 0 and slabs[-1][1] == 5_000
+    assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+
+
+def test_a_gb_split_difference_names_the_node_and_both_gains():
+    rng = np.random.default_rng(0)
+    X = rng.random((500, 4), dtype=np.float32)
+    y = (X[:, 0] > 0.5).astype(np.float64)
+    depth, nodes = chip_smoke.DEPTH, 2**chip_smoke.DEPTH - 1
+    features = np.full((2, nodes), -1, np.int32)
+    thresholds = np.zeros((2, nodes), np.float32)
+    features[:, 0], thresholds[:, 0] = 0, 0.5
+    want = {"features_heap": features, "thresholds_heap": thresholds, "f0": np.float32(0.0),
+            "leaf_values": np.zeros((2, nodes + 1), np.float32)}
+    assert chip_smoke._gb_split_difference(want, want, X, y) is None
+    got = dict(want, features_heap=features.copy(), thresholds_heap=thresholds.copy())
+    got["features_heap"][1, 0], got["thresholds_heap"][1, 0] = 1, 0.5
+    difference = chip_smoke._gb_split_difference(want, got, X, y)
+    assert (difference["round"], difference["node"], difference["rows"]) == (1, 0, 500)
+    assert difference["one_process"]["gain"] > difference["over_ranks"]["gain"]
+    assert depth == 5
