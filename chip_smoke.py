@@ -6464,19 +6464,19 @@ def _scaler_inputs(torch, rows: int, features: int, valid: int, seed: int):
     return torch.from_numpy(X).cuda(), torch.from_numpy(w).cuda()
 
 
-def _scaler_bound(name: str, rows: int, features: int) -> tuple[float, str]:
-    """Least milliseconds: X and w read once, the output written once (the
-    sums: F + 1 float64; the standardization: X again), against the
-    operations at their type's peak (float64 for the sums: a product and an
-    add a value, or a difference, two products and an add; float32 for the
-    standardization: three a value)."""
+def _scaler_bound(name: str, rows: int, features: int, x_bytes: int = 4) -> tuple[float, str]:
+    """Least milliseconds: X (``x_bytes`` a value) and w read once, the
+    output written once (the sums: F + 1 float64; the standardization: X
+    again), against the operations at their type's peak (float64 for the
+    sums: a product and an add a value, or a difference, two products and
+    an add; float32 for the standardization: three a value)."""
     values = rows * features
     if name == "masked_standardize":
-        bytes_moved = 2 * values * 4 + rows * 4 + 2 * features * 4
+        bytes_moved = 2 * values * x_bytes + rows * 4 + 2 * features * 4
         op_ms = 3 * values / PEAK_FP32_OPS_PER_S * 1e3
     else:
         centred = name == "masked_col_sums_centred"
-        bytes_moved = values * 4 + rows * 4 + (features + 1) * 8 + (features * 8 if centred else 0)
+        bytes_moved = values * x_bytes + rows * 4 + (features + 1) * 8 + (features * 8 if centred else 0)
         op_ms = ((4 if centred else 2) * values + rows) / PEAK_FP64_OPS_PER_S * 1e3
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -6694,6 +6694,313 @@ def check_k7_sums(torch, flush) -> dict:
     for result in results.values():
         result.update(result["by_classes"][CLASSES])
     return results
+
+
+# The model axis (K7's class-shard form) and K8′ on bfloat16 rows
+SHARD_REPLACES = {
+    "logistic_shard_stats": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn with W, b sharded by class over the "
+        "model axis (:516-560 _fit_prepared): log_softmax's normaliser over a rank's classes, "
+        "at one point or the Armijo trial points of :176-200"
+    ),
+    "logistic_shard_grad": (
+        "learningorchestra_tpu/ml/logistic.py:35 _loss_fn under value_and_grad with W, b sharded "
+        "by class over the model axis (:516-560 _fit_prepared): a class shard's gradient and nll"
+    ),
+}
+SHARD_KERNELS = {   # the CUDA kernels a call runs, as the profiler names them
+    "logistic_shard_stats": ("shard_stats_kernel",),
+    "logistic_shard_grad": ("shard_grad_kernel", "sums_kernel"),
+}
+SHARD_LIBRARY = {
+    "logistic_shard_stats": (
+        "none: no PyTorch call gives a row's softmax statistics over a subset of the classes"),
+    "logistic_shard_grad": (
+        "none: no PyTorch call gives a class shard's masked nll and gradient sums given each "
+        "row's log-sum-exp"),
+}
+BF16_REPLACES = {
+    "masked_col_sums_bf16": (
+        "learningorchestra_tpu/ml/logistic.py:412 _masked_stats on bfloat16 rows (the masked sums "
+        "and count in X's dtype, :418)"
+    ),
+    "masked_col_sums_centred_bf16": (
+        "learningorchestra_tpu/ml/logistic.py:412 _masked_stats on bfloat16 rows (the masked "
+        "variance about the bfloat16 mean)"
+    ),
+    "masked_standardize_bf16": "learningorchestra_tpu/ml/logistic.py:426 _standardize on bfloat16 rows",
+}
+BF16_WRAPPER = {   # each bfloat16 form's wrapper, and so its launch count
+    "masked_col_sums_bf16": "masked_col_sums",
+    "masked_col_sums_centred_bf16": "masked_col_sums_centred",
+    "masked_standardize_bf16": "masked_standardize",
+}
+BF16_LIBRARY_NOTE = {
+    "masked_col_sums_bf16": (
+        "torch.var_mean on the valid bfloat16 rows: both moments at once (the stats both passes serve)"),
+    "masked_col_sums_centred_bf16": (
+        "torch.var_mean on the valid bfloat16 rows: both moments at once (the stats both passes serve)"),
+    "masked_standardize_bf16": "none: no single PyTorch call gives ((x - mean) / scale) * w",
+}
+GRID_DATA, GRID_MODEL = 2, 2       # run d's mesh: four gloo ranks as data 2 x model 2
+GRID_FITS = ("rf", "nb")           # run d's fits besides lr: the tree axis and one data-axis fit
+BF16_STAT_ULPS = 1                 # bfloat16 mean and scale against the twin's
+
+
+def _grid_block_rows() -> int:
+    """Run d's block: bench.py's 1,000,000 rows padded over a data axis of 2."""
+    from learningorchestra_tpu_torch.parallel.sharding import padded_row_count
+
+    return padded_row_count(FIT_ROWS, GRID_DATA) // GRID_DATA
+
+
+def _shard_bound(name: str, rows: int, features: int, classes: int, points: int = 1,
+                 x_bytes: int = 4) -> tuple[float, str]:
+    """K7's class-shard form: X (``x_bytes`` a value) and y read once, and
+    for the gradient the row weights and each row's float64 log-sum-exp;
+    the stats' 12 bytes a row and point, or the shard's float64 sums,
+    written once; against per row and point 2FC + 4C float32 operations
+    (the logits, the softmax's shift, exp and add), and for the gradient
+    2FC float32 and 2FC + 3C + 2 float64 (the residuals and their sums)."""
+    F, C = features, classes
+    params = points * (F * C + C) * 4
+    if name == "logistic_shard_stats":
+        bytes_moved = rows * F * x_bytes + rows * 4 + params + points * rows * 12
+        fp32, fp64 = rows * points * (2 * F * C + 4 * C), 0
+    else:
+        bytes_moved = rows * F * x_bytes + rows * 4 + rows * 4 + rows * 8 + params + (F * C + C + 2) * 8
+        fp32, fp64 = rows * 2 * F * C, rows * (2 * F * C + 3 * C + 2)
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = (fp32 / PEAK_FP32_OPS_PER_S + fp64 / PEAK_FP64_OPS_PER_S) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def check_k7_shards(torch, flush) -> tuple[dict, dict]:
+    """K7's class-shard form on the card at run d's block (bench.py's rows
+    0 .. 524,287, standardized), C = 2 and 10 over M = 2 shards (one class
+    a rank, five), float32 and bfloat16 rows: each kernel against its twin
+    (the stats' largest logit and label logit within K7_LOSS_RTOL of their
+    scale, the sums of exps within K7_LOSS_RTOL; the shard sums, given the
+    same log-sum-exp, within K7_GRAD_ATOL and K7_LOSS_RTOL once divided by
+    sum w); the shards combined (their log-sums in shard order, their
+    gradient columns in class order, their nll cells added) against K7's
+    whole-class sums form on the same rows, gradient within K7_GRAD_ATOL
+    and loss and trial losses within K7_LOSS_RTOL; a second launch bit
+    identical. Also K7's sums form on the bfloat16 rows against its twin.
+    Timed at every shape (events; device time on float32 rows)."""
+    X_np, y_np = bench_synthetic(FIT_ROWS)
+    mean, scale = logistic.scaler_stats(X_np)
+    rows = _grid_block_rows()
+    X32 = torch.from_numpy(logistic._standardized(X_np[:rows], mean, scale)).cuda()
+    w = torch.ones(rows, dtype=torch.float32, device=X32.device)
+    results = {name: {"max_abs_err": 0.0, "by_shape": {}} for name in SHARD_REPLACES}
+    k7_bf16 = {}
+    for classes, labels in ((CLASSES, y_np), (DEEP_CLASSES, ten_classes(X_np))):
+        y = torch.from_numpy(labels[:rows].astype(np.int32)).cuda()
+        rng = np.random.default_rng(classes + 200)
+
+        def cuda(*shape):
+            return torch.from_numpy((rng.normal(size=shape) * 0.3).astype(np.float32)).cuda()
+
+        W, b, D, d = cuda(FEATURES, classes), cuda(classes), cuda(FEATURES, classes), cuda(classes)
+        steps = torch.tensor([1.0, 0.5, 0.25, 0.125], device=X32.device)
+        W4 = (W[None] + steps[:, None, None] * D[None]).contiguous()
+        b4 = (b[None] + steps[:, None] * d[None]).contiguous()
+        width = classes // GRID_MODEL
+        shards = [(first, W[:, first:first + width].contiguous(), b[first:first + width].contiguous(),
+                   W4[:, :, first:first + width].contiguous(), b4[:, first:first + width].contiguous())
+                  for first in range(0, classes, width)]
+        for dtype in (torch.float32, torch.bfloat16):
+            X = X32.to(dtype)
+            key = f"{rows}x{FEATURES}:C{classes}/M{GRID_MODEL}:{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            what = f"K7's class-shard form at {key}"
+            stats, stats4, twin_stats4 = [], [], []
+            for first, Ws, bs, W4s, b4s in shards:
+                for points, (Wp, bp) in ((1, (Ws[None], bs[None])), (4, (W4s, b4s))):
+                    got = logistic.shard_stats(Wp, bp, X, y, first)
+                    if not torch.equal(got, logistic.shard_stats(Wp, bp, X, y, first)):
+                        raise AssertionError(f"{what}: a second stats launch differs")
+                    want = logistic._shard_stats(Wp, bp, X, y, first)
+                    logits_scale = float(want[..., 0].abs().max())
+                    logit_err = float((got[..., (0, 2)] - want[..., (0, 2)]).abs().max())
+                    sum_rel = float(((got[..., 1] - want[..., 1]).abs() / want[..., 1]).max())
+                    if not logit_err <= K7_LOSS_RTOL * logits_scale or not sum_rel <= K7_LOSS_RTOL:
+                        raise AssertionError(f"{what}: stats {logit_err} of {logits_scale}, sums {sum_rel}")
+                    results["logistic_shard_stats"]["max_abs_err"] = max(
+                        results["logistic_shard_stats"]["max_abs_err"], float((got - want).abs().max()))
+                    (stats if points == 1 else stats4).append(got)
+                    if points == 4:
+                        twin_stats4.append(want)
+            lse = logistic._combine_log_sums([logistic._shard_log_sums(s[0]) for s in stats])
+            grads = []
+            for (first, Ws, bs, _, _) in shards:
+                got = logistic.shard_grad(Ws, bs, X, y, w, lse, first)
+                if not torch.equal(got, logistic.shard_grad(Ws, bs, X, y, w, lse, first)):
+                    raise AssertionError(f"{what}: a second grad launch differs")
+                want = logistic._shard_grad(Ws, bs, X, y, w, lse, first)
+                if float(got[-1]) != rows:
+                    raise AssertionError(f"{what}: sum w is {float(got[-1])}, not {rows}")
+                grad_err = float(((got[:-2] - want[:-2]) / rows).abs().max())
+                nll_rel = abs(float(got[-2]) - float(want[-2])) / abs(float(want[-2]))
+                if not grad_err <= K7_GRAD_ATOL or not nll_rel <= K7_LOSS_RTOL:
+                    raise AssertionError(f"{what}: grad against its twin {grad_err}, nll {nll_rel}")
+                results["logistic_shard_grad"]["max_abs_err"] = max(
+                    results["logistic_shard_grad"]["max_abs_err"], float((got - want).abs().max()))
+                grads.append(got)
+            # the shards combined against K7's whole-class sums form on the same rows
+            whole = logistic._launch_loss_grad(W[None], b[None], X, y, w, 1, sums=True)[0]
+            cells = FEATURES * width
+            dW = torch.cat([g[:cells].view(FEATURES, width) for g in grads], dim=1).reshape(-1)
+            db = torch.cat([g[cells:cells + width] for g in grads])
+            combined = torch.cat([dW, db, sum(g[-2:-1] for g in grads)]) / rows
+            grad_err = float((combined[:-1] - whole[:-2] / whole[-1]).abs().max())
+            loss_rel = abs(float(combined[-1]) - float(whole[-2] / whole[-1])) / float(whole[-2] / whole[-1])
+            trial_whole = logistic._launch_trial_losses(W4[None], b4[None], X, y, w, 1, sums=True)[0]
+            lse4 = logistic._combine_log_sums([logistic._shard_log_sums(s) for s in stats4])
+            labels4 = sum((s[..., 2].to(torch.float64) * w.to(torch.float64)).sum(dim=1) for s in stats4)
+            trial = ((lse4 * w.to(torch.float64)).sum(dim=1) - labels4) / rows
+            trial_rel = float(((trial - trial_whole[:-1] / trial_whole[-1]).abs()
+                               / (trial_whole[:-1] / trial_whole[-1]).abs()).max())
+            if not grad_err <= K7_GRAD_ATOL or not loss_rel <= K7_LOSS_RTOL or not trial_rel <= K7_LOSS_RTOL:
+                raise AssertionError(
+                    f"{what}: combined against K7's whole classes: gradient {grad_err}, loss "
+                    f"{loss_rel}, trial {trial_rel} relative")
+            entry = {"combined_grad_err": grad_err, "combined_loss_rel": loss_rel,
+                     "combined_trial_rel": trial_rel}
+            if dtype == torch.bfloat16:   # K7's sums form on the bfloat16 rows, against its twin
+                twin = logistic._weighted_sums(W, b, X, y, w)
+                k7_bf16[classes] = {
+                    "grad_err": float(((whole[:-2] - twin[:-2]) / rows).abs().max()),
+                    "loss_rel": abs(float(whole[-2]) - float(twin[-2])) / abs(float(twin[-2])),
+                }
+                if not k7_bf16[classes]["grad_err"] <= K7_GRAD_ATOL or not (
+                        k7_bf16[classes]["loss_rel"] <= K7_LOSS_RTOL):
+                    raise AssertionError(f"K7's sums form on bfloat16 rows: {k7_bf16[classes]}")
+            first, Ws, bs, W4s, b4s = shards[0]
+            x_bytes = X.element_size()
+            calls = {
+                "logistic_shard_stats": (
+                    lambda: logistic.shard_stats(W4s, b4s, X, y, first),
+                    lambda: logistic._shard_stats(W4s, b4s, X, y, first),
+                    _shard_bound("logistic_shard_stats", rows, FEATURES, width, 4, x_bytes)),
+                "logistic_shard_grad": (
+                    lambda: logistic.shard_grad(Ws, bs, X, y, w, lse, first),
+                    lambda: logistic._shard_grad(Ws, bs, X, y, w, lse, first),
+                    _shard_bound("logistic_shard_grad", rows, FEATURES, width, 1, x_bytes)),
+            }
+            for name, (kernel, plain, (bound_ms, bound_by)) in calls.items():
+                results[name]["by_shape"][key] = {
+                    "rows": rows, "features": FEATURES, "classes_a_shard": width,
+                    "points": 4 if name == "logistic_shard_stats" else 1, **entry,
+                    "ms": _event_ms(torch, kernel, 20, flush),
+                    "warm_ms": _event_ms(torch, kernel, 50),
+                    "device_ms": (_device_ms(torch, kernel, SHARD_KERNELS[name], 20, flush)
+                                  if dtype == torch.float32 else None),
+                    "plain_ms": _event_ms(torch, plain, 3, flush),
+                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+    main = f"{rows}x{FEATURES}:C{DEEP_CLASSES}/M{GRID_MODEL}:f32"   # five classes a rank
+    for result in results.values():
+        result.update(result["by_shape"][main])
+    return results, k7_bf16
+
+
+def _bf16_ulps(torch, got, want) -> int:
+    """The largest distance in bfloat16 steps between two bfloat16 tensors."""
+    def steps(values):
+        return (values.to(torch.float32).view(torch.int32) >> 16).to(torch.int64)
+
+    return int((steps(got) - steps(want)).abs().max())
+
+
+def check_scaler_bf16(torch, flush) -> tuple[dict, dict]:
+    """K8′ on bfloat16 rows against its twins at SCALER_SHAPES (the main
+    path's block of 1,048,576 rows, 1,000,000 of them valid, and 4,096 rows
+    of several widths): both passes' float64 sums within SCALER_SUM_RTOL
+    of the largest sum, the count exact and its bfloat16 rounding the
+    twin's (999,424 for 1,000,000 rows), a second launch bit identical;
+    masked_stats' bfloat16 mean and scale within BF16_STAT_ULPS of the
+    twins'; masked_standardize bit-equal to its twin, padded rows zero.
+    Timed at every shape: events cold and warm, device time at the main
+    shape, the twins; torch.var_mean on the valid bfloat16 rows at the
+    main shape beside masked_stats."""
+    results = {name: {"max_abs_err": 0.0, "by_shape": {}} for name in BF16_REPLACES}
+    stats_timing = None
+    for rows, features, valid in SCALER_SHAPES:
+        X32, w = _scaler_inputs(torch, rows, features, valid, seed=rows + features)
+        X = X32.to(torch.bfloat16)
+        key = f"{rows}x{features}"
+        first = logistic.masked_col_sums(X, w)
+        want_first = logistic._masked_col_sums(X, w)
+        count = logistic._bf16(first[-1])
+        mean, scale = logistic.masked_stats(X, w)
+        mean64 = mean.to(torch.float64)
+        second = logistic.masked_col_sums(X, w, mean64)
+        want_second = logistic._masked_col_sums(X, w, mean64)
+        for name, got, want, again in (
+            ("masked_col_sums_bf16", first, want_first, logistic.masked_col_sums(X, w)),
+            ("masked_col_sums_centred_bf16", second, want_second, logistic.masked_col_sums(X, w, mean64)),
+        ):
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} at {key}: a second launch differs")
+            if float(got[-1]) != valid or not torch.equal(count, logistic._bf16(want[-1])):
+                raise AssertionError(f"{name} at {key}: the weights sum to {float(got[-1])}, not {valid}")
+            error = _relative_error(got, want)
+            if not error <= SCALER_SUM_RTOL:
+                raise AssertionError(f"{name} at {key}: {error} relative to the largest sum")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float((got - want).abs().max()))
+        twin_count = logistic._bf16(want_first[-1]).to(torch.float32)
+        twin_mean = logistic._bf16(logistic._bf16(want_first[:-1]).to(torch.float32) / twin_count)
+        twin_var = logistic._bf16(logistic._bf16(want_second[:-1]).to(torch.float32) / twin_count)
+        twin_std = logistic._bf16(torch.sqrt(twin_var.to(torch.float32)))
+        twin_scale = torch.where(twin_std > 0, twin_std, torch.ones_like(twin_std))
+        ulps = max(_bf16_ulps(torch, mean, twin_mean), _bf16_ulps(torch, scale, twin_scale))
+        if not ulps <= BF16_STAT_ULPS:
+            raise AssertionError(f"masked_stats on bfloat16 rows at {key}: {ulps} ulps from the twins'")
+        standardized = logistic.standardize(X, mean, scale, w)
+        if not torch.equal(standardized, logistic._standardize(X, mean, scale, w)):
+            raise AssertionError(f"masked_standardize_bf16 at {key}: not bit-equal to its twin")
+        if bool(standardized[valid:].any()):
+            raise AssertionError(f"masked_standardize_bf16 at {key}: a padded row is not zero")
+        calls = {
+            "masked_col_sums_bf16": (lambda: logistic.masked_col_sums(X, w),
+                                     lambda: logistic._masked_col_sums(X, w), "masked_col_sums"),
+            "masked_col_sums_centred_bf16": (lambda: logistic.masked_col_sums(X, w, mean64),
+                                             lambda: logistic._masked_col_sums(X, w, mean64),
+                                             "masked_col_sums_centred"),
+            "masked_standardize_bf16": (lambda: logistic.standardize(X, mean, scale, w),
+                                        lambda: logistic._standardize(X, mean, scale, w),
+                                        "masked_standardize"),
+        }
+        main = rows == SCALER_SHAPES[0][0]
+        library_ms = _event_ms(torch, lambda: torch.var_mean(X[:valid], dim=0, correction=0), 20, flush) \
+            if main else None
+        for name, (kernel, plain, bound_name) in calls.items():
+            bound_ms, bound_by = _scaler_bound(bound_name, rows, features, x_bytes=2)
+            results[name]["by_shape"][key] = {
+                "rows": rows, "valid_rows": valid, "features": features, "stat_ulps": ulps,
+                "count": float(count),
+                "ms": _event_ms(torch, kernel, 20, flush),
+                "warm_ms": _event_ms(torch, kernel, 50),
+                "device_ms": _device_ms(torch, kernel, MULTIGPU_KERNELS[bound_name], 20, flush) if main else None,
+                "plain_ms": _event_ms(torch, plain, 5, flush),
+                "library_ms": library_ms if name != "masked_standardize_bf16" else None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+        if main:
+            whole = lambda: logistic.masked_stats(X, w)   # noqa: E731
+            stats_timing = {
+                "rows": rows, "valid_rows": valid, "features": features,
+                "masked_stats_ms": _event_ms(torch, whole, 20, flush),
+                "masked_stats_warm_ms": _event_ms(torch, whole, 50),
+                "var_mean_ms": library_ms,
+                "bound_ms": sum(_scaler_bound(name, rows, features, x_bytes=2)[0]
+                                for name in ("masked_col_sums", "masked_col_sums_centred")),
+            }
+    main_key = f"{SCALER_SHAPES[0][0]}x{SCALER_SHAPES[0][1]}"
+    for result in results.values():
+        result.update(result["by_shape"][main_key])
+    return results, stats_timing
 
 
 # The other fits, PCA and t-SNE over ranks: the four new kernel forms
@@ -7031,15 +7338,20 @@ def _fit_arrays(torch, name: str, model, X_dev) -> dict:
 
 
 OTHER_FITS = ("dt", "rf", "gb", "nb")
+COLLECTIVE_FIELDS = ("collective_s", "collectives", "model_collective_s", "model_collectives")
+# a child's lr fits: bench.py's two classes always; ten classes and the
+# bfloat16 policy where the run asks for them
+LR_FITS = {"fit_sharded": CLASSES, "fit_sharded_ten": DEEP_CLASSES, "fit_sharded_bf16": CLASSES}
 
 
-def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
-    """The SPMD ``fit(X, y)`` of dt, rf, gb and nb on bench.py's rows (every
-    rank passes them all) with ``evaluate_predict`` over the ranks, PCA of
-    the 1,000,000 embed blobs and a landmark t-SNE request on them, each
-    with the counts set to 0 just before it. Rank 0 saves what the parent
-    holds against the one-process fits. Returns the records and a digest
-    of every result's bits."""
+def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str, names=OTHER_FITS,
+                           embeds: bool = True) -> tuple:
+    """The SPMD ``fit(X, y)`` of ``names`` (dt, rf, gb and nb) on bench.py's
+    rows (every rank passes them all) with ``evaluate_predict`` over the
+    ranks, and (``embeds``) PCA of the 1,000,000 embed blobs and a landmark
+    t-SNE request on them, each with the counts set to 0 just before it.
+    Rank 0 saves what the parent holds against the one-process fits.
+    Returns the records and a digest of every result's bits."""
     import hashlib
 
     from learningorchestra_tpu_torch.parallel import multihost
@@ -7057,8 +7369,7 @@ def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
         wall_s = time.perf_counter() - began
         collectives = multihost.collective_stats()
         return result, {"wall_s": wall_s, "launches": {k: v for k, v in kernels.launches().items() if v},
-                        "collective_s": collectives["collective_s"],
-                        "collectives": collectives["collectives"]}
+                        **{field: collectives[field] for field in COLLECTIVE_FIELDS}}
 
     estimators = {
         "dt": lambda: trees.DecisionTreeClassifier(mesh=mesh),
@@ -7066,7 +7377,7 @@ def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
         "gb": lambda: trees.GBTClassifier(mesh=mesh),
         "nb": lambda: naive_bayes.NaiveBayes(mesh=mesh),
     }
-    for name in OTHER_FITS:
+    for name in names:
         model, record = run(lambda: estimators[name]().fit(X, y))
         (accuracy, weighted_f1, labels, probs), evaluated = run(lambda: model.evaluate_predict(X, y, X))
         arrays = _fit_arrays(torch, name, model, X_dev)
@@ -7078,6 +7389,8 @@ def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
         records[name] = record
         if rank == 0:
             np.savez(os.path.join(folder, f"{name}.npz"), **arrays)
+    if not embeds:
+        return records, digest.hexdigest()
     X_embed, _ = embed_blobs(EMBED_ROWS)
     embedded, records["pca"] = run(lambda: pca.pca_embedding(X_embed, mesh=mesh))
     digest.update(embedded.tobytes())
@@ -7089,15 +7402,41 @@ def _other_fits_over_ranks(torch, mesh, X, y, rank: int, folder: str) -> tuple:
     return records, digest.hexdigest()
 
 
+@contextlib.contextmanager
+def _dtype_policy(policy):
+    """``LO_DTYPE_POLICY`` set to ``policy`` (None: left as it is) for the
+    block, the policy's read-once cache emptied on the way in and out."""
+    from learningorchestra_tpu_torch.utils import dtypepolicy
+
+    if policy is None:
+        yield
+        return
+    before = os.environ.get("LO_DTYPE_POLICY")
+    os.environ["LO_DTYPE_POLICY"] = policy
+    dtypepolicy._POLICY.clear()
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("LO_DTYPE_POLICY", None)
+        else:
+            os.environ["LO_DTYPE_POLICY"] = before
+        dtypepolicy._POLICY.clear()
+
+
 def multigpu_child(argv) -> int:
     """One rank of a ``multigpu`` run: ``chip_smoke.py multigpu-child
-    <rank> <world> <backend> <address> <device> <folder> <spmd>``. Joins the
-    group, feeds its block of bench.py's 1,000,000 rows
-    (``host_row_range``, ``shard_rows_local``), runs ``fit_sharded`` with
-    the counts set to 0 just before it, then (``spmd`` 1) the SPMD ``fit``
-    of the full rows; checks over the group that every rank holds the same
-    bits; writes its record to ``<folder>/rank<rank>.json`` (rank 0 also
-    the predictions and losses as .npy)."""
+    <rank> <world> <backend> <address> <device> <folder> <spmd> [<model>
+    <fits>]``. Joins the group, builds a mesh of ``world / model`` data
+    ranks by ``model`` model ranks, feeds its block of bench.py's 1,000,000
+    rows (``host_row_range``, ``shard_rows_local``), runs ``fit_sharded``
+    with the counts set to 0 just before it, and the fits named in
+    ``<fits>`` (``ten``: on ``ten_classes``; ``bf16``: under
+    ``LO_DTYPE_POLICY=bf16``, the block in bfloat16); then (``spmd`` 1)
+    the SPMD ``fit`` of the full rows; then the other fits (over a model
+    axis: rf and nb alone); checks over the group that every rank holds the
+    same bits; writes its record to ``<folder>/rank<rank>.json`` (rank 0
+    also the predictions and losses as .npy)."""
     import hashlib
 
     import torch
@@ -7106,8 +7445,11 @@ def multigpu_child(argv) -> int:
     from learningorchestra_tpu_torch.parallel import host_row_range, make_mesh, shard_rows_local
     from learningorchestra_tpu_torch.parallel import multihost
 
-    rank, world, backend, address, device, folder, spmd = argv
+    rank, world, backend, address, device, folder, spmd = argv[:7]
     rank, world, device, spmd = int(rank), int(world), torch.device(device), spmd == "1"
+    model_axis = int(argv[7]) if len(argv) > 7 else 1
+    extra = argv[8].split(",") if len(argv) > 8 and argv[8] else []
+    fits = ["fit_sharded"] + [f"fit_sharded_{name}" for name in extra]
     os.environ.update(LO_COORDINATOR=address, LO_NUM_PROCESSES=str(world), LO_PROCESS_ID=str(rank))
     for name in kernels.SOURCES:   # built by the parent
         kernels.library(name)
@@ -7121,7 +7463,7 @@ def multigpu_child(argv) -> int:
         except RuntimeError as error:   # this gloo takes no CUDA tensor: copy through the host
             staging_reason = str(error).splitlines()[0][:200]
             multihost.stage_through_host(True)
-    mesh = make_mesh(device=device)
+    mesh = make_mesh(data=world // model_axis, model=model_axis, device=device)
     join_s = time.perf_counter() - started
     X, y = bench_synthetic(FIT_ROWS)
     start, stop = host_row_range(FIT_ROWS, mesh)
@@ -7129,6 +7471,8 @@ def multigpu_child(argv) -> int:
     y_block, _ = shard_rows_local(y[start:stop], mesh, FIT_ROWS, dtype=np.int32)
     torch.cuda.synchronize()
     record = {"rank": rank, "world": world, "backend": backend, "device": str(device),
+              "mesh": [mesh.shape["data"], mesh.shape["model"]],
+              "coordinates": [mesh.data_index, mesh.model_index],
               "host_rows": [start, stop], "block_rows": int(X_block.shape[0]),
               "join_s": join_s, "host_staging": staging_reason is not None,
               "staging_reason": staging_reason}
@@ -7149,26 +7493,36 @@ def multigpu_child(argv) -> int:
                           for name in ("w", "b", "mean", "scale"))
         return model, labels, losses, {
             "wall_s": wall_s, "launches": launches,
-            "collective_s": collectives["collective_s"], "collectives": collectives["collectives"],
+            **{field: collectives[field] for field in COLLECTIVE_FIELDS},
             "iterations": int(losses.shape[0]), "final_loss": float(losses[-1]),
-            "accuracy": float((labels == y).mean()),
+            "accuracy": float((labels == fit_labels).mean()),
             "digest": hashlib.sha256(params + losses.tobytes() + labels.astype(np.int8).tobytes()
                                      + probs.tobytes()).hexdigest(),
         }
 
-    model, labels, losses, record["fit_sharded"] = fitted(
-        lambda estimator: estimator.fit_sharded(X_block, y_block, mask, num_classes=CLASSES))
-    digests = [record["fit_sharded"]["digest"]]
-    if rank == 0:
-        np.save(os.path.join(folder, "fit_sharded_labels.npy"), labels.astype(np.int8))
-        np.save(os.path.join(folder, "fit_sharded_losses.npy"), losses)
+    digests = []
+    for fit in fits:
+        fit_labels = ten_classes(X) if fit == "fit_sharded_ten" else y
+        labels_block = y_block if fit != "fit_sharded_ten" else shard_rows_local(
+            fit_labels[start:stop], mesh, FIT_ROWS, dtype=np.int32)[0]
+        rows_block = X_block.to(torch.bfloat16) if fit == "fit_sharded_bf16" else X_block
+        with _dtype_policy("bf16" if fit == "fit_sharded_bf16" else None):
+            _, labels, losses, record[fit] = fitted(
+                lambda estimator: estimator.fit_sharded(rows_block, labels_block, mask,
+                                                        num_classes=LR_FITS[fit]))
+        digests.append(record[fit]["digest"])
+        if rank == 0:
+            np.save(os.path.join(folder, f"{fit}_labels.npy"), labels.astype(np.int8))
+            np.save(os.path.join(folder, f"{fit}_losses.npy"), losses)
+    fit_labels = y
     if spmd:
         _, spmd_labels, spmd_losses, record["fit"] = fitted(lambda estimator: estimator.fit(X, y))
         digests.append(record["fit"]["digest"])
         if rank == 0:
             np.save(os.path.join(folder, "fit_labels.npy"), spmd_labels.astype(np.int8))
             np.save(os.path.join(folder, "fit_losses.npy"), spmd_losses)
-    record["others"], others_digest = _other_fits_over_ranks(torch, mesh, X, y, rank, folder)
+    record["others"], others_digest = _other_fits_over_ranks(
+        torch, mesh, X, y, rank, folder, *((GRID_FITS, False) if model_axis > 1 else ()))
     digests.append(others_digest)
     # every rank's digests over the group (NCCL also for one rank): the same bits
     mine = torch.tensor(np.frombuffer(bytes.fromhex("".join(digests)), np.uint8).copy())
@@ -7182,9 +7536,12 @@ def multigpu_child(argv) -> int:
     return 0 if record["ranks_bit_equal"] else 1
 
 
-def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: bool, folder: str) -> dict:
+def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: bool, folder: str,
+                  model: int = 1, fits: str = "") -> dict:
     """One run of ``world`` child ranks over ``cards`` cards (rank r on card
-    r mod cards), all started together; fails when a child fails."""
+    r mod cards), all started together, as a mesh of ``world / model`` data
+    ranks by ``model`` model ranks, with the extra lr ``fits``; fails when
+    a child fails."""
     folder = os.path.join(folder, run)
     os.makedirs(folder)
     address = f"127.0.0.1:{_free_port()}"
@@ -7192,7 +7549,7 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
         _LoggedChild(
             MULTIGPU_CHILD_COMMAND + [
                 str(rank), str(world), backend, address, f"cuda:{rank % cards}", folder,
-                "1" if spmd else "0",
+                "1" if spmd else "0", str(model), fits,
             ],
             dict(os.environ), os.path.join(folder, f"rank{rank}.log"),
         )
@@ -7224,7 +7581,8 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
               if name.endswith(".npy")}   # the other fits' .npz below
     summary = {
         "phase": "multigpu-run", "run": run, "backend": backend, "ranks": world, "cards": cards,
-        "ranks_per_card": world // cards,
+        "ranks_per_card": world // cards, "mesh": records[0]["mesh"],
+        "coordinates": [record["coordinates"] for record in records],
         "transport": ("NCCL, one rank a card" if backend == "nccl" and world > 1 else
                       "NCCL, one rank" if backend == "nccl" else
                       f"gloo, {world // cards} ranks sharing a card, collectives through the host"),
@@ -7234,26 +7592,29 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
         "join_s": [record["join_s"] for record in records],
         "block_rows": [record["block_rows"] for record in records],
     }
-    for fit in ("fit_sharded", "fit"):
+    for fit in (*LR_FITS, "fit"):
         if fit in records[0]:
+            if len({record[fit]["digest"] for record in records}) != 1:
+                raise AssertionError(f"multigpu run {run} ({fit}): the ranks' bits differ")
             summary[fit] = {
                 field: [record[fit][field] for record in records]
-                for field in ("wall_s", "collective_s", "collectives", "launches")
+                for field in ("wall_s", "launches") + COLLECTIVE_FIELDS
             }
             summary[fit].update({field: records[0][fit][field]
                                  for field in ("iterations", "final_loss", "accuracy")})
     summary["others"] = {
         name: {
             **{field: [record["others"][name][field] for record in records]
-               for field in ("wall_s", "collective_s", "collectives", "launches")},
+               for field in ("wall_s", "launches") + COLLECTIVE_FIELDS},
             **{field: records[0]["others"][name][field] for field in ("accuracy", "weighted_f1", "evaluate")
                if field in records[0]["others"][name]},
         }
         for name in records[0]["others"]
     }
-    for name in OTHER_FITS:
-        with np.load(os.path.join(folder, f"{name}.npz")) as saved:
-            arrays[name] = dict(saved)
+    for name in records[0]["others"]:
+        if name in OTHER_FITS:
+            with np.load(os.path.join(folder, f"{name}.npz")) as saved:
+                arrays[name] = dict(saved)
     return {"summary": summary, "arrays": arrays}
 
 
@@ -7390,6 +7751,32 @@ def _others_against_one_process(torch, run: str, arrays: dict, solo: dict) -> di
     return out
 
 
+def _grid_against_one_process(run: str, arrays: dict, solo: dict) -> dict:
+    """Run d's rf and nb against the one-process fits: rf's heaps (grown
+    ten trees a model rank, gathered in model-rank order) identical, nb's
+    probabilities within MULTIGPU_NB_TOL."""
+    for field in ("features_heap", "thresholds_heap", "leaf_probs"):
+        if not np.array_equal(arrays["rf"][field], solo["rf"]["arrays"][field]):
+            raise AssertionError(f"multigpu run {run}: rf's {field} differs from the one-process fit's")
+    nb_err = float(np.abs(arrays["nb"]["probs"] - solo["nb"]["arrays"]["probs"]).max())
+    if not nb_err <= MULTIGPU_NB_TOL:
+        raise AssertionError(f"multigpu run {run}: nb probabilities {nb_err} apart")
+    return {"rf": {"heaps_identical": True}, "nb": {"probs_max_abs_err": nb_err}}
+
+
+def _lr_path(fit: str, mesh: list) -> tuple:
+    """The kernels an lr fit must launch on every rank: K8′ and K7's sums
+    form over the data axis, K8′ and K7's class-shard form where the model
+    axis shards its classes; the SPMD ``fit`` K7's sums form alone."""
+    if fit == "fit":
+        return ("logistic_loss_grad_sums", "logistic_trial_losses_sums")
+    scaler = ("masked_col_sums", "masked_col_sums_centred", "masked_standardize")
+    model = mesh[1]
+    if model > 1 and LR_FITS[fit] % model == 0:
+        return scaler + tuple(SHARD_REPLACES)
+    return tuple(MULTIGPU_REPLACES)
+
+
 def _required_launches(name: str, world: int) -> tuple:
     """The kernels a rank of a ``world``-rank run must launch in fit or
     request ``name`` (its ``evaluate_predict`` apart): the sums forms and
@@ -7417,12 +7804,17 @@ def phase_multigpu(torch, card: str) -> list:
     with two cards or more, (b) one NCCL rank on card 0 and (c) four gloo
     ranks sharing card 0, and in each the SPMD fits of dt, rf, gb and nb
     with ``evaluate_predict`` over the ranks, PCA and a landmark t-SNE
-    request at 1,000,000 rows. The ranks of a run hold the same bits; each
-    run's lr predictions agree with run (b)'s and its losses match; run
-    (c)'s SPMD ``fit`` agrees with the one-process ``fit``; runs (b) and (c)
-    hold the other fits, PCA and t-SNE against the one-process ones. Returns
-    the kernels' summary entries (launches: rank 0 of run (b) for the lr
-    path, of run (c) for the new forms; each run's beside)."""
+    request at 1,000,000 rows; and (d) four gloo ranks on card 0 as data 2
+    × model 2 (the model axis: lr's classes over a model group at 2 and 10
+    classes and under ``LO_DTYPE_POLICY=bf16``, rf's trees, nb), after K7's
+    class-shard form and K8′ on bfloat16 rows against their twins; run (b)
+    also fits the ten classes and bf16. The ranks of a run hold the same
+    bits; each run's lr predictions agree with run (b)'s and its losses
+    match; run (c)'s SPMD ``fit`` agrees with the one-process ``fit``; runs
+    (b) and (c) hold the other fits, PCA and t-SNE against the one-process
+    ones, run (d) rf and nb. Returns the kernels' summary entries
+    (launches: rank 0 of run (b) for the lr path, of run (c) for the new
+    forms, of run (d) for the model axis's kernels; each run's beside)."""
     started = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     scaler_results, stats_timing = check_scaler_kernels(torch, flush)
@@ -7430,6 +7822,10 @@ def phase_multigpu(torch, card: str) -> list:
     forms_started = time.perf_counter()
     forms = {**check_sum_forms(torch, flush), **check_slab_forms(torch, flush)}
     forms_s = time.perf_counter() - forms_started
+    model_axis_started = time.perf_counter()
+    shard_results, k7_sums_bf16 = check_k7_shards(torch, flush)
+    bf16_results, bf16_stats_timing = check_scaler_bf16(torch, flush)
+    model_axis_checks_s = time.perf_counter() - model_axis_started
     del flush
     solo = _one_process_others(torch)
     X, y = bench_synthetic(FIT_ROWS)
@@ -7439,30 +7835,35 @@ def phase_multigpu(torch, card: str) -> list:
     solo_wall_s = time.perf_counter() - began
     solo_losses = estimator.loss_history_.cpu().numpy()
     count = torch.cuda.device_count()
-    plan = [("b", "nccl", 1, 1, False), ("c", "gloo", MULTIGPU_GLOO_RANKS, 1, True)]
+    # (run, backend, ranks, cards, SPMD fit, model axis, extra lr fits)
+    plan = [("b", "nccl", 1, 1, False, 1, "ten,bf16"),
+            ("c", "gloo", MULTIGPU_GLOO_RANKS, 1, True, 1, ""),
+            ("d", "gloo", GRID_DATA * GRID_MODEL, 1, False, GRID_MODEL, "ten,bf16")]
     if count >= 2:
-        plan.insert(0, ("a", "nccl", count, count, False))
-    runs = {}
+        plan.insert(0, ("a", "nccl", count, count, False, 1, ""))
+    runs, run_s = {}, {}
     with tempfile.TemporaryDirectory(prefix="lo_multigpu_") as folder:
-        for run, backend, world, cards, spmd in plan:
-            runs[run] = _multigpu_run(torch, run, backend, world, cards, spmd, folder)
+        for run, backend, world, cards, spmd, model, fits in plan:
+            began = time.perf_counter()
+            runs[run] = _multigpu_run(torch, run, backend, world, cards, spmd, folder, model, fits)
+            run_s[run] = time.perf_counter() - began
     base = runs["b"]["arrays"]
     for run, result in runs.items():
         arrays, summary = result["arrays"], result["summary"]
-        summary["against_b"] = _agreement(
-            f"multigpu run {run} against run b", arrays["fit_sharded_labels"],
-            arrays["fit_sharded_losses"], base["fit_sharded_labels"], base["fit_sharded_losses"])
+        summary["against_b"] = {
+            fit: _agreement(f"multigpu run {run} ({fit}) against run b", arrays[f"{fit}_labels"],
+                            arrays[f"{fit}_losses"], base[f"{fit}_labels"], base[f"{fit}_losses"])
+            for fit in LR_FITS if f"{fit}_labels" in arrays
+        }
         if "fit_labels" in arrays:
             summary["fit_against_one_process"] = {
                 **_agreement(f"multigpu run {run}: the SPMD fit against the one-process fit",
                              arrays["fit_labels"], arrays["fit_losses"], solo_labels, solo_losses),
                 "one_process_wall_s": solo_wall_s,
             }
-        for fit in ("fit_sharded", "fit"):
+        for fit in (*LR_FITS, "fit"):
             for rank, launches in enumerate(summary.get(fit, {}).get("launches", [])):
-                path = MULTIGPU_REPLACES if fit == "fit_sharded" else ("logistic_loss_grad_sums",
-                                                                       "logistic_trial_losses_sums")
-                missing = [name for name in path if not launches.get(name)]
+                missing = [name for name in _lr_path(fit, summary["mesh"]) if not launches.get(name)]
                 if missing:
                     raise AssertionError(f"multigpu run {run} ({fit}), rank {rank}: {missing} never launched")
         for name, other in summary["others"].items():
@@ -7475,14 +7876,19 @@ def phase_multigpu(torch, card: str) -> list:
                 raise AssertionError(f"multigpu run {run} ({name}): its evaluate launched no forward")
         if run in ("b", "c"):
             summary["others_against_one_process"] = _others_against_one_process(torch, run, arrays, solo)
+        if run == "d":
+            summary["others_against_one_process"] = _grid_against_one_process(run, arrays, solo)
         summary["nvidia_smi"] = card
+        summary["run_s"] = run_s[run]
         emit(summary)
     emit({"phase": "multigpu", "wall_s": time.perf_counter() - started, "forms_s": forms_s,
-          "masked_stats": stats_timing,
+          "model_axis_checks_s": model_axis_checks_s, "run_s": run_s,
+          "masked_stats": stats_timing, "masked_stats_bf16": bf16_stats_timing,
+          "k7_sums_bf16": k7_sums_bf16,
           "one_process": {name: {field: solo[name][field] for field in ("wall_s", "accuracy", "weighted_f1")
                                  if field in solo[name]} for name in (*OTHER_FITS, "pca", "tsne")},
           "kernels": {name: {key: value for key, value in result.items()}
-                      for name, result in {**results, **forms}.items()}})
+                      for name, result in {**results, **forms, **shard_results, **bf16_results}.items()}})
     entries = []
     for name, result in results.items():
         entries.append({
@@ -7506,7 +7912,7 @@ def phase_multigpu(torch, card: str) -> list:
             "name": name, "route": "cuda", "source": FORMS_SOURCE[name], "replaces": FORMS_REPLACES[name],
             "launches": runs[over_ranks]["summary"]["others"][fit]["launches"][0].get(name, 0),
             "launches_by_run": {run: [launches.get(name, 0) for launches in runs[run]["summary"]["others"][fit]["launches"]]
-                                for run in runs},
+                                for run in runs if fit in runs[run]["summary"]["others"]},
             **{field: result[field] for field in (
                 "max_abs_err", "max_rel_err", "rows", "ms", "warm_ms", "device_ms", "device_ms_clean_l2",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -7514,6 +7920,31 @@ def phase_multigpu(torch, card: str) -> list:
             **{field: result[field] for field in ("by_shape", "by_rows", "bit_equal_to_the_whole_launch")
                if field in result},
         })
+    grid = "d"   # the model axis's main path: data 2 x model 2
+    fields = ("max_abs_err", "ms", "warm_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, result in shard_results.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": LOGISTIC_SOURCE, "replaces": SHARD_REPLACES[name],
+            "launches": runs[grid]["summary"]["fit_sharded"]["launches"][0].get(name, 0),
+            "launches_by_fit": {fit: runs[grid]["summary"][fit]["launches"][0].get(name, 0)
+                                for fit in LR_FITS},
+            "rows": result["rows"], "classes_a_shard": result["classes_a_shard"],
+            **{field: result[field] for field in fields},
+            "library_note": SHARD_LIBRARY[name], "by_shape": result["by_shape"],
+        })
+    for name, result in bf16_results.items():
+        wrapper = BF16_WRAPPER[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": SCALER_SOURCE, "replaces": BF16_REPLACES[name],
+            "launches": runs[grid]["summary"]["fit_sharded_bf16"]["launches"][0].get(wrapper, 0),
+            "launches_by_run": {run: runs[run]["summary"]["fit_sharded_bf16"]["launches"][0].get(wrapper, 0)
+                                for run in runs if "fit_sharded_bf16" in runs[run]["summary"]},
+            "rows": result["rows"], **{field: result[field] for field in fields},
+            "library_note": BF16_LIBRARY_NOTE[name], "by_shape": result["by_shape"],
+        })
+    for entry in entries[-len(shard_results) - len(bf16_results):]:
+        if not entry["launches"]:
+            raise AssertionError(f"multigpu run {grid}: {entry['name']} was never launched on its main path")
     return entries
 
 

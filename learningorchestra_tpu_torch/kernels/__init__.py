@@ -12,10 +12,13 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
   ranks;
 - ``logistic.cu``: the logistic regression fit's loss-and-gradient pass
   and its Armijo trial losses (K7), for one fit or a job axis of fits
-  with row weights (the sweep's fused L-BFGS), and their sums form for a
-  rank's block of rows sharded over ranks;
+  with row weights (the sweep's fused L-BFGS), their sums form for a
+  rank's block of rows sharded over ranks, and the class-shard form (a
+  row's stats over a rank's classes, then its shard's sums given every
+  row's log-sum-exp) for classes sharded over a model group;
 - ``scaler.cu``: the masked scaler's column sums (both passes) and the
-  masked standardization of a rank's block (K8′, ``fit_sharded``);
+  masked standardization of a rank's block (K8′, ``fit_sharded``), on
+  float32 or bfloat16 rows;
 - ``tsne.cu``: t-SNE's affinities (K11), gradient (K12) and landmark
   interpolation (K13), for the image lane, and K11's and K12's row-slab
   forms for the rows a rank owns.
@@ -76,6 +79,8 @@ KERNEL_LIBRARIES = {
     "logistic_trial_losses": "logistic",
     "logistic_loss_grad_sums": "logistic",
     "logistic_trial_losses_sums": "logistic",
+    "logistic_shard_stats": "logistic",
+    "logistic_shard_grad": "logistic",
     "masked_col_sums": "scaler",
     "masked_col_sums_centred": "scaler",
     "masked_standardize": "scaler",
@@ -308,8 +313,21 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr,                                 # the block's layout (ml/logistic.py _K7Layout)
         c_int, ptr,                          # device, stream
     ]
-    lib.lo_logistic_loss_grad.restype = c_int
-    lib.lo_logistic_trial_losses.restype = c_int
+    lib.lo_logistic_shard_stats.argtypes = [
+        ptr, c_int, ptr,                     # X, X is bfloat16 (else float32), y
+        ptr, ptr, ptr,                       # W (points, F, Cs), b (points, Cs), out (points, rows, 3)
+        c_int, c_int, c_int, c_int, c_int,   # rows, F, Cs, points, the shard's first class
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    lib.lo_logistic_shard_grad.argtypes = [
+        ptr, c_int, ptr, ptr, ptr,           # X, X is bfloat16 (else float32), y, weights, lse
+        ptr, ptr, ptr, ptr,                  # W (F, Cs), b (Cs,), partials, out
+        c_int, c_int, c_int, c_int,          # rows, F, Cs, the shard's first class
+        c_int, c_int,                        # chunks, rows/chunk
+        c_int, c_int, ptr,                   # max_blocks, device, stream
+    ]
+    for entry in ("loss_grad", "trial_losses", "shard_stats", "shard_grad"):
+        getattr(lib, f"lo_logistic_{entry}").restype = c_int
     return _bind_errors(lib)
 
 
@@ -360,12 +378,14 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_scaler(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int, c_longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lo_masked_col_sums.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,        # X, w, mean (or null: pass 1), partials, ticket, out
+        ptr, c_int,                          # X, X is bfloat16 (else float32)
+        ptr, ptr, ptr, ptr, ptr,             # w, mean (or null: pass 1), partials, ticket, out
         c_int, c_int, c_int, c_int,          # rows, F, chunks, rows/chunk
         c_int, ptr,                          # device, stream
     ]
     lib.lo_masked_standardize.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,             # X, mean, scale, w, out
+        ptr, c_int,                          # X, X (and out) bfloat16 (else float32)
+        ptr, ptr, ptr, ptr,                  # mean, scale, w, out
         c_longlong, c_int,                   # rows, F
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]

@@ -10,7 +10,11 @@
 //   and both on a rank's block of rows sharded over ranks (the reference's
 //   `_loss_fn` with XLA's psums across the data axis, :35 in :308 `_fit`):
 //   the sums form, which writes the block's un-divided float64 sums for the
-//   caller to add across ranks (`sums_kernel`).
+//   caller to add across ranks (`sums_kernel`);
+//   and `_loss_fn` with W and b sharded by class over the mesh's model axis
+//   (:516-560 `_fit_prepared`; log_softmax's normaliser the model axis's
+//   one collective): the class-shard form, two kernels over a rank's C/M
+//   classes (below, "K7's class-shard form").
 //
 // lo_logistic_loss_grad: from one read of the standardized rows X (N, F)
 // float32, their labels y (N,) int32 and, for a weighted pass, their
@@ -1137,6 +1141,237 @@ K7Kernel trial_losses_for(bool bf16, bool two) {
   return table[bf16 ? 1 : 0][two ? 1 : 0];
 }
 
+// ---------------------------------------------------------------------------
+// K7's class-shard form: a rank holds classes [first, first + Cs) of W and b
+// (the reference's W, b sharded over the model axis, ml/logistic.py
+// :516-560). Over the model group a row's log-softmax needs every shard's
+// classes, so the pass is split in two kernels around the caller's
+// collective (ml/logistic.py `_shard_loss_and_grad`, `_shard_trial_losses`):
+//
+// lo_logistic_shard_stats: for each row of the block and each of `points`
+// parameter sets (1: the loss and gradient's point; 4: the Armijo trial
+// points, from one read of X), over the shard's classes:
+//   out[p][i] = {top_i = max_c z_ic, sum_c exp(z_ic - top_i),
+//                z_iy where the label y_i lies in the shard, else 0}
+// float32, with K7's roundings: z_c = b_c + the fmaf chain over the
+// features in order (the logits of K7's whole-class kernels, bit for bit),
+// the shifted logits and their exps added in class order. The caller
+// makes each shard's float64 log-sum (top + log sum), gathers them over
+// the model group and combines them in model-rank order into each row's
+// log-sum-exp; the trial losses come from those and the label logits.
+//
+// lo_logistic_shard_grad: given each row's log-sum-exp over every class
+// (float64, lse), the shard's un-divided float64 sums in K7's sums layout,
+//   [sum_i w_i x_if r_ic (F x Cs) | sum_i w_i r_ic (Cs) |
+//    sum_{i: y_i in the shard} w_i (lse_i - z_iy) | sum_i w_i],
+//   r_ic = exp(z_ic - lse_i) - 1[y_i = first + c]   (float64),
+// so that the model group's nll cells add to every row's weighted nll and
+// the data group adds the blocks (ml/logistic.py).
+//
+// What bounds them on this card, at a rank's block of 1,000,000 rows over
+// a data axis of 2 (524,288 rows x 16 features, Cs = 1 or 5): stats reads
+// X and y once (36 MB) and writes 12 bytes a row and point (6 MB, 25 MB
+// for four points: 18 us at 3.35 TB/s); grad reads X, y, w and lse once
+// (42 MB, 12.5 us). The float64 work of grad (F + 1 fma a row and class)
+// is under 2 us at 33.5 TFLOP/s: bytes bound both.
+//
+// Design (a simple first form; no redesign yet):
+//   - stats: a thread a row, a block kThreads rows at a time (grid-stride),
+//     each tile of rows staged once in shared memory at an odd stride
+//     (bfloat16 widened where it is loaded), or read from global memory
+//     where a tile does not fit 48 KB; every point's logits from the staged
+//     row. Each logit is computed again in each pass over the classes (the
+//     same fmaf chain, the same bits), so no class count runs out of
+//     registers.
+//   - grad: a block is a chunk of rows (the wrapper's kernels.row_chunks),
+//     taken a tile at a time: phase 1 a thread a row (its residuals, nll
+//     term and weight as float64 in shared memory), phase 2 a thread a cell
+//     (x_f r_c, r_c, the nll or the weight), each cell's float64 sum in
+//     shared memory added over the tile's rows in row order, tile after
+//     tile; the chunk's sums go to `partials`, and `sums_kernel` adds the
+//     chunks in chunk order. No float atomics; the tile and the staging do
+//     not change a bit (every cell adds the same terms in the same order).
+//   - Any Cs >= 1: K7's two-class specialisation (`two_classes`) does not
+//     serve a shard, whose label may lie outside it.
+// ---------------------------------------------------------------------------
+
+// Rows of X staged in shared memory as float32: value i of rows [start,
+// start + n) at x[(i / F) * xs + i % F].
+template <typename In>
+__device__ __forceinline__ void stage_rows(float* x, const In* __restrict__ X, long long start,
+                                           int n, int F, int xs) {
+  const In* from = X + start * F;
+  for (int i = threadIdx.x; i < n * F; i += blockDim.x) {
+    const int row = i / F;
+    const float v = [&] {
+      if constexpr (std::is_same<In, float>::value) return __ldg(from + i);
+      else return widen(__ldg(from + i));
+    }();
+    x[row * xs + (i - row * F)] = v;
+  }
+}
+
+// The shard's logit z_c: b_c + K7's fmaf chain (softmax_any's bits).
+template <typename XP>
+__device__ __forceinline__ float shard_logit(XP x, int F, const float* W, const float* b, int Cs,
+                                             int c) {
+  return __fadd_rn(dot(x, F, W, Cs, c), b[c]);
+}
+
+// Whether a tile of kThreads rows of F features fits shared memory.
+__host__ __device__ __forceinline__ bool stats_staged(int F) {
+  return static_cast<size_t>(kThreads) * (F | 1) * sizeof(float) <= kDefaultSharedBytes;
+}
+
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+    shard_stats_kernel(const In* __restrict__ X, const int* __restrict__ y,
+                       const float* __restrict__ W, const float* __restrict__ b,
+                       float* __restrict__ out, int rows, int F, int Cs, int points, int first) {
+  extern __shared__ float staged_x[];
+  const bool staged = stats_staged(F);
+  const int xs = F | 1;
+  for (long long start = static_cast<long long>(blockIdx.x) * kThreads; start < rows;
+       start += static_cast<long long>(gridDim.x) * kThreads) {
+    const int n = static_cast<int>(min(static_cast<long long>(kThreads), rows - start));
+    if (staged) {
+      __syncthreads();  // the last tile's rows are read
+      stage_rows(staged_x, X, start, n, F, xs);
+      __syncthreads();
+    }
+    if (threadIdx.x >= n) continue;
+    const long long row = start + threadIdx.x;
+    const int local = y[row] - first;
+    auto row_stats = [&](auto x) {
+      for (int p = 0; p < points; ++p) {
+        const float* Wp = W + static_cast<size_t>(p) * F * Cs;
+        const float* bp = b + static_cast<size_t>(p) * Cs;
+        float top = -INFINITY;
+        for (int c = 0; c < Cs; ++c) top = fmaxf(top, shard_logit(x, F, Wp, bp, Cs, c));
+        float sum = 0.0f, at_label = 0.0f;
+        for (int c = 0; c < Cs; ++c) {
+          const float z = shard_logit(x, F, Wp, bp, Cs, c);
+          sum = __fadd_rn(sum, expf(__fsub_rn(z, top)));
+          if (c == local) at_label = z;
+        }
+        float* o = out + (static_cast<size_t>(p) * rows + row) * 3;
+        o[0] = top;
+        o[1] = sum;
+        o[2] = at_label;
+      }
+    };
+    if (staged) row_stats(static_cast<const float*>(staged_x + threadIdx.x * xs));
+    else row_stats(global_rows(X, static_cast<size_t>(row) * F));
+  }
+}
+
+// grad's shared memory for a tile of `tile` rows: x (staged: tile * xs
+// floats, rounded up to 8 bytes), the residuals (Cs * tile doubles), the
+// nll terms and the weights (tile doubles each), the cells' sums.
+struct ShardGradLayout {
+  int tile, xs, cells;
+  size_t residuals, nll, weights, sums, bytes;
+};
+
+__host__ __device__ __forceinline__ ShardGradLayout shard_grad_layout(int F, int Cs, int tile,
+                                                                       bool staged) {
+  ShardGradLayout l;
+  l.tile = tile;
+  l.xs = staged ? (F | 1) : 0;
+  l.cells = F * Cs + Cs + 2;
+  l.residuals = (static_cast<size_t>(tile) * l.xs * sizeof(float) + 7) / 8 * 8;
+  l.nll = l.residuals + static_cast<size_t>(Cs) * tile * sizeof(double);
+  l.weights = l.nll + static_cast<size_t>(tile) * sizeof(double);
+  l.sums = l.weights + static_cast<size_t>(tile) * sizeof(double);
+  l.bytes = l.sums + static_cast<size_t>(l.cells) * sizeof(double);
+  return l;
+}
+
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+    shard_grad_kernel(const In* __restrict__ X, const int* __restrict__ y,
+                      const float* __restrict__ w, const double* __restrict__ lse,
+                      const float* __restrict__ W, const float* __restrict__ b,
+                      double* __restrict__ partials, int rows, int F, int Cs, int first,
+                      int rows_per_chunk, const ShardGradLayout layout) {
+  extern __shared__ __align__(16) unsigned char shard_shared[];
+  float* x_tile = reinterpret_cast<float*>(shard_shared);
+  double* residuals = reinterpret_cast<double*>(shard_shared + layout.residuals);
+  double* nll = reinterpret_cast<double*>(shard_shared + layout.nll);
+  double* weights = reinterpret_cast<double*>(shard_shared + layout.weights);
+  double* sums = reinterpret_cast<double*>(shard_shared + layout.sums);
+  const int tile = layout.tile, xs = layout.xs, cells = layout.cells, FC = F * Cs;
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads) sums[cell] = 0.0;
+  const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
+  const long long row1 = min(static_cast<long long>(rows), row0 + rows_per_chunk);
+  for (long long start = row0; start < row1; start += tile) {
+    const int n = static_cast<int>(min(static_cast<long long>(tile), row1 - start));
+    __syncthreads();  // the last tile's terms are added
+    if (xs > 0) {
+      stage_rows(x_tile, X, start, n, F, xs);
+      __syncthreads();
+    }
+    // phase 1: a thread a row of the tile
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const long long row = start + i;
+      const int local = y[row] - first;
+      const double row_lse = lse[row];
+      const double weight = static_cast<double>(w[row]);
+      auto terms = [&](auto x) {
+        double at_label = 0.0;
+        for (int c = 0; c < Cs; ++c) {
+          const double z = static_cast<double>(shard_logit(x, F, W, b, Cs, c));
+          const double r = __dsub_rn(exp(__dsub_rn(z, row_lse)), c == local ? 1.0 : 0.0);
+          residuals[static_cast<size_t>(c) * tile + i] = __dmul_rn(r, weight);
+          if (c == local) at_label = z;
+        }
+        nll[i] = local >= 0 && local < Cs ? __dmul_rn(__dsub_rn(row_lse, at_label), weight) : 0.0;
+        weights[i] = weight;
+      };
+      if (xs > 0) terms(static_cast<const float*>(x_tile + i * xs));
+      else terms(global_rows(X, static_cast<size_t>(row) * F));
+    }
+    __syncthreads();
+    // phase 2: a thread a cell, the tile's rows in row order
+    for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
+      double sum = sums[cell];
+      if (cell < FC) {
+        const int f = cell / Cs, c = cell - f * Cs;
+        const double* r = residuals + static_cast<size_t>(c) * tile;
+        if (xs > 0) {
+          for (int i = 0; i < n; ++i)
+            sum = fma(r[i], static_cast<double>(x_tile[i * xs + f]), sum);
+        } else {
+          const auto x = global_rows(X, static_cast<size_t>(start) * F);
+          for (int i = 0; i < n; ++i)
+            sum = fma(r[i], static_cast<double>(x[static_cast<long long>(i) * F + f]), sum);
+        }
+      } else {
+        const double* terms = cell < FC + Cs ? residuals + static_cast<size_t>(cell - FC) * tile
+                              : cell == FC + Cs ? nll : weights;
+        for (int i = 0; i < n; ++i) sum = __dadd_rn(sum, terms[i]);
+      }
+      sums[cell] = sum;
+    }
+  }
+  __syncthreads();
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads)
+    partials[static_cast<size_t>(blockIdx.x) * cells + cell] = sums[cell];
+}
+
+// The largest tile of rows (256 down to 16) whose layout fits 48 KB,
+// staged first; a zero tile when none does.
+ShardGradLayout pick_shard_grad_layout(int F, int Cs) {
+  for (int tile = kThreads; tile >= kGroupRows; tile /= 2)
+    for (int staged = 1; staged >= 0; --staged) {
+      const ShardGradLayout l = shard_grad_layout(F, Cs, tile, staged != 0);
+      if (l.bytes <= kDefaultSharedBytes) return l;
+    }
+  ShardGradLayout none = shard_grad_layout(F, Cs, 0, false);
+  none.tile = 0;
+  return none;
+}
+
 bool valid_geometry(int F, int C, int jobs, const Layout& layout, long long x_job_stride,
                     long long row_job_stride, int tile_multiple, int x_bf16) {
   if (F <= 0 || C <= 0 || jobs < 0 || layout.group <= 0) return false;
@@ -1291,6 +1526,63 @@ int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
     }
   }
   return cudaSuccess;
+}
+
+// K7's class-shard form (ml/logistic.py `shard_stats`, `shard_grad`): X
+// (rows, F) float32, or bfloat16 when x_bf16; y (rows,) int32 (global
+// labels); the shard's classes [first, first + Cs). stats: W (points, F,
+// Cs), b (points, Cs); out (points, rows, 3) floats.
+int lo_logistic_shard_stats(const void* X, int x_bf16, const int* y, const float* W,
+                            const float* b, float* out, int rows, int F, int Cs, int points,
+                            int first, int max_blocks, int device, void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  if (F <= 0 || Cs <= 0 || rows < 0 || points <= 0 || max_blocks <= 0)
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = stats_staged(F) ? static_cast<size_t>(kThreads) * (F | 1) * sizeof(float) : 0;
+  const int grid = grid_for(rows, max_blocks);
+  if (x_bf16)
+    shard_stats_kernel<bf16_bits><<<grid, kThreads, bytes, s>>>(
+        static_cast<const bf16_bits*>(X), y, W, b, out, rows, F, Cs, points, first);
+  else
+    shard_stats_kernel<float><<<grid, kThreads, bytes, s>>>(
+        static_cast<const float*>(X), y, W, b, out, rows, F, Cs, points, first);
+  return cudaGetLastError();
+}
+
+// grad: W (F, Cs), b (Cs,), weights (rows,) float32, lse (rows,) float64;
+// partials: chunks * (F*Cs + Cs + 2) doubles of scratch; out: F*Cs + Cs + 2
+// doubles, the shard's sums. chunks * rows_per_chunk >= rows (no chunks: no
+// rows, sums of 0).
+int lo_logistic_shard_grad(const void* X, int x_bf16, const int* y, const float* weights,
+                           const double* lse, const float* W, const float* b, double* partials,
+                           double* out, int rows, int F, int Cs, int first, int chunks,
+                           int rows_per_chunk, int max_blocks, int device, void* stream) {
+  cudaError_t error = cudaSetDevice(device);
+  if (error != cudaSuccess) return error;
+  if (F <= 0 || Cs <= 0 || rows < 0 || chunks < 0 || rows_per_chunk <= 0 || max_blocks <= 0 ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows)
+    return cudaErrorInvalidValue;
+  const ShardGradLayout layout = pick_shard_grad_layout(F, Cs);
+  if (layout.tile == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunks > 0) {
+    if (x_bf16)
+      shard_grad_kernel<bf16_bits><<<chunks, kThreads, layout.bytes, s>>>(
+          static_cast<const bf16_bits*>(X), y, weights, lse, W, b, partials, rows, F, Cs, first,
+          rows_per_chunk, layout);
+    else
+      shard_grad_kernel<float><<<chunks, kThreads, layout.bytes, s>>>(
+          static_cast<const float*>(X), y, weights, lse, W, b, partials, rows, F, Cs, first,
+          rows_per_chunk, layout);
+    error = cudaGetLastError();
+    if (error != cudaSuccess) return error;
+  }
+  sums_kernel<<<dim3(grid_for(layout.cells, max_blocks), 1), kThreads, 0, s>>>(
+      partials, out, chunks, layout.cells);
+  return cudaGetLastError();
 }
 
 const char* lo_error_string(int error) {

@@ -22,6 +22,21 @@
 // contraction into an fma), so that the output is bit-equal to the plain
 // version's, and to the reference's on the same mean and scale.
 //
+// Both take X as float32 or bfloat16 (x_bf16: LO_DTYPE_POLICY=bf16, where
+// the reference's `_masked_stats` and `_standardize` run in X's type). On
+// bfloat16 rows they compute what the reference computes, rounding to
+// bfloat16 where it rounds (each value widened exactly at its load):
+//   pass 1:  the term bf16(x w);
+//   pass 2:  d = bf16(x - mean), the term bf16(bf16(d d) w), about the
+//            bfloat16 mean (passed widened to float64, exactly);
+//   the standardization: bf16(bf16(bf16(x - mean) / scale) w), written as
+//            bfloat16.
+// The sums stay float64 in the same order as on float32 rows; the caller
+// rounds the totals as the reference's bfloat16 sums round (float32, then
+// bfloat16) and divides in bfloat16 (ml/logistic.py `masked_stats`).
+// `round_bf16` is round-to-nearest-even on the bits, as PyTorch's and
+// XLA's conversions from float32.
+//
 // What bounds it on this card, at the fit's shape (a rank's block of
 // 1,048,576 rows x 16 features): a stats pass reads X and w once, 71.3 MB
 // (68 MiB), 21.3 us at 3.35 TB/s. Its float64 work (a product and an add a
@@ -41,9 +56,10 @@
 //     windows of 32 features along grid y, so that a few chunks of wide rows
 //     still spread over many blocks.
 //   - A thread owns a unit of a window's row: a 16-byte word of 4 features
-//     where F is a multiple of 4 and X is 16-byte aligned (at F = 16 four
-//     threads a row, a warp 8 whole rows: 512 contiguous bytes a load), else
-//     one feature. With `units` threads a row, a block takes lanes =
+//     (8 on bfloat16 rows) where F is a multiple of 4 (8) and X is 16-byte
+//     aligned (at F = 16 four threads a row, two on bfloat16 rows; a warp
+//     reads 512 contiguous bytes a load), else one feature. A unit keeps
+//     its word as loaded and widens each value where it is added. With `units` threads a row, a block takes lanes =
 //     512 / units rows at a time; lane l adds the rows l, l + lanes, ... of
 //     its chunk.
 //   - Bytes in flight: a lane's rows come in batches of kBatch (2), and the
@@ -86,15 +102,17 @@
 //   - Products in float64: w x is exact (two float32 values); the centred
 //     term rounds x - mean, its square and the product by w, each once
 //     (__dsub_rn, __dmul_rn, __dadd_rn: no contraction into an fma).
-// lo_masked_standardize: a grid-stride loop over the N * F values, four of
-//   one row at a time (one 16-byte load and store) when F is a multiple of
-//   4 and the pointers allow it, else one at a time.
+// lo_masked_standardize: a grid-stride loop over the N * F values, a
+//   16-byte word of one row at a time (4 float32 or 8 bfloat16 values, one
+//   load and one store) when F allows it and the pointers are 16-byte
+//   aligned, else one at a time.
 // Build without -use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -111,18 +129,87 @@ constexpr int kRunLoads = 16;
 // 64, else a window of 32 (ml/logistic.py `_sums_windows`).
 __host__ __device__ __forceinline__ int window_features(int F) { return F <= 64 ? F : 32; }
 
-// The V values of a row that a thread owns: one 16-byte word (V = 4), or
-// one value.
-template <int V>
-__device__ __forceinline__ void load_unit(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+// A bfloat16 value's bits, widened to float32 exactly by a shift.
+typedef unsigned short bf16_bits;
+
+__device__ __forceinline__ float widen(bf16_bits bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// float32 -> bfloat16 bits, round to nearest even (NaN kept a quiet NaN).
+__device__ __forceinline__ bf16_bits to_bf16(float v) {
+  const unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return static_cast<bf16_bits>((u >> 16) | 0x0040u);
+  return static_cast<bf16_bits>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+__device__ __forceinline__ float round_bf16(float v) { return widen(to_bf16(v)); }
+
+// The V values of a row that a thread owns, as loaded: one 16-byte word
+// (V = 4 float32 or 8 bfloat16 values), or one value; at(j) widens value j.
+template <typename T, int V>
+struct Unit;
+
+template <>
+struct Unit<float, 4> {
+  float4 q;
+  __device__ __forceinline__ void load(const float* __restrict__ p) {
+    q = __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ void zero() { q = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ __forceinline__ float at(int j) const {
+    return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  }
+};
+
+template <>
+struct Unit<float, 1> {
+  float v;
+  __device__ __forceinline__ void load(const float* __restrict__ p) { v = __ldg(p); }
+  __device__ __forceinline__ void zero() { v = 0.0f; }
+  __device__ __forceinline__ float at(int) const { return v; }
+};
+
+template <>
+struct Unit<bf16_bits, 8> {
+  uint4 q;
+  __device__ __forceinline__ void load(const bf16_bits* __restrict__ p) {
+    q = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { q = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ float at(int j) const {
+    const unsigned word = (j >> 1) == 0 ? q.x : (j >> 1) == 1 ? q.y : (j >> 1) == 2 ? q.z : q.w;
+    return __uint_as_float((j & 1) ? word & 0xffff0000u : word << 16);
+  }
+};
+
+template <>
+struct Unit<bf16_bits, 1> {
+  bf16_bits v;
+  __device__ __forceinline__ void load(const bf16_bits* __restrict__ p) { v = __ldg(p); }
+  __device__ __forceinline__ void zero() { v = 0; }
+  __device__ __forceinline__ float at(int) const { return widen(v); }
+};
+
+// A row's term of one pass: float32 rows as before; bfloat16 rows rounded
+// where the reference's bfloat16 arithmetic rounds.
+template <typename T, bool kCentred>
+__device__ __forceinline__ double pass_term(float x, float centre_f, double centre_d,
+                                            float weight) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (kCentred) {
+      const double d = __dsub_rn(static_cast<double>(x), centre_d);
+      return __dmul_rn(__dmul_rn(d, d), static_cast<double>(weight));
+    } else {
+      return __dmul_rn(static_cast<double>(weight), static_cast<double>(x));
+    }
   } else {
-    v[0] = __ldg(p);
+    if constexpr (kCentred) {
+      const float d = round_bf16(__fsub_rn(x, centre_f));
+      return static_cast<double>(round_bf16(__fmul_rn(round_bf16(__fmul_rn(d, d)), weight)));
+    } else {
+      return static_cast<double>(round_bf16(__fmul_rn(x, weight)));
+    }
   }
 }
 
@@ -188,12 +275,13 @@ __device__ __forceinline__ void sum_along(int n, int cells, Load load, Emit emit
 // Block (chunk blockIdx.x, feature window blockIdx.y) of one pass: its
 // chunk's float64 sums of its window's features into partials[chunk][f],
 // and in window 0 the sum of the weights into partials[chunk][F]; the last
-// block adds the chunks into out (F + 1) and resets the ticket. V: the
-// features a thread owns (4: a 16-byte word, X 16-byte aligned and F a
-// multiple of 4). kCentred: pass 2, about mean.
-template <int V, bool kCentred>
+// block adds the chunks into out (F + 1) and resets the ticket. T: X's
+// type (float, or bfloat16 bits). V: the features a thread owns (a 16-byte
+// word: 4 float32 or 8 bfloat16 values, X 16-byte aligned and F a multiple
+// of V; else 1). kCentred: pass 2, about mean.
+template <typename T, int V, bool kCentred>
 __global__ void __launch_bounds__(kSumsThreads, kSumsBlocksPerSM)
-    masked_sums_kernel(const float* __restrict__ X, const float* __restrict__ w,
+    masked_sums_kernel(const T* __restrict__ X, const float* __restrict__ w,
                        const double* __restrict__ mean, double* __restrict__ partials,
                        unsigned* __restrict__ ticket, double* __restrict__ out, int rows, int F,
                        int rows_per_chunk) {
@@ -209,55 +297,56 @@ __global__ void __launch_bounds__(kSumsThreads, kSumsBlocksPerSM)
   const bool weights = blockIdx.y == 0 && unit == 0;
   const int row0 = blockIdx.x * rows_per_chunk;
   const int row1 = min(rows, row0 + rows_per_chunk);
-  double centre[V], sum[V];
+  // the centre as float64 (float32 rows) or as the bfloat16 mean's exact
+  // float32 value (bfloat16 rows)
+  constexpr bool kBf16 = std::is_same<T, bf16_bits>::value;
+  double centre_d[kBf16 ? 1 : V], sum[V];
+  float centre_f[kBf16 ? V : 1];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    centre[j] = kCentred && active ? mean[f + j] : 0.0;
+    const double c = kCentred && active ? mean[f + j] : 0.0;
+    if constexpr (kBf16) centre_f[j] = static_cast<float>(c);
+    else centre_d[j] = c;
     sum[j] = 0.0;
   }
   double weight_sum = 0.0;
   if (active) {
     // the batch of rows first, first + lanes, ...: loaded, or zeros past the chunk
-    auto load = [&](int first, float (&xs)[kBatch][V], float (&ws)[kBatch]) {
+    auto load = [&](int first, Unit<T, V> (&xs)[kBatch], float (&ws)[kBatch]) {
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int row = first + u * lanes;
         if (row < row1) {
-          load_unit<V>(X + static_cast<size_t>(row) * F + f, xs[u]);
+          xs[u].load(X + static_cast<size_t>(row) * F + f);
           ws[u] = __ldg(w + row);
         } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) xs[u][j] = 0.0f;
+          xs[u].zero();
           ws[u] = 0.0f;
         }
       }
     };
-    float x[kBatch][V], wr[kBatch];
+    Unit<T, V> x[kBatch];
+    float wr[kBatch];
     load(row0 + lane, x, wr);
     for (int r = row0 + lane; r < row1; r += lanes * kBatch) {
-      float next_x[kBatch][V], next_w[kBatch];
+      Unit<T, V> next_x[kBatch];
+      float next_w[kBatch];
       load(r + lanes * kBatch, next_x, next_w);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const bool in = r + u * lanes < row1;
-        const double weight = static_cast<double>(wr[u]);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          double term;
-          if (kCentred) {
-            const double d = __dsub_rn(static_cast<double>(x[u][j]), centre[j]);
-            term = __dmul_rn(__dmul_rn(d, d), weight);
-          } else {
-            term = __dmul_rn(weight, static_cast<double>(x[u][j]));
-          }
+          const double term = pass_term<T, kCentred>(x[u].at(j), centre_f[kBf16 ? j : 0],
+                                                     centre_d[kBf16 ? 0 : j], wr[u]);
           sum[j] = in ? __dadd_rn(sum[j], term) : sum[j];
         }
-        if (weights) weight_sum = in ? __dadd_rn(weight_sum, weight) : weight_sum;
+        if (weights)
+          weight_sum = in ? __dadd_rn(weight_sum, static_cast<double>(wr[u])) : weight_sum;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-#pragma unroll
-        for (int j = 0; j < V; ++j) x[u][j] = next_x[u][j];
+        x[u] = next_x[u];
         wr[u] = next_w[u];
       }
     }
@@ -292,6 +381,14 @@ __global__ void __launch_bounds__(kSumsThreads, kSumsBlocksPerSM)
 
 __device__ __forceinline__ float standardized(float x, float mean, float scale, float weight) {
   return __fmul_rn(__fdiv_rn(__fsub_rn(x, mean), scale), weight);
+}
+
+// bfloat16 rows: each operation rounded to bfloat16, as the reference's
+// bfloat16 arithmetic rounds it.
+__device__ __forceinline__ bf16_bits standardized_bf16(float x, float mean, float scale,
+                                                       float weight) {
+  const float centred = round_bf16(__fsub_rn(x, mean));
+  return to_bf16(__fmul_rn(round_bf16(__fdiv_rn(centred, scale)), weight));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -331,9 +428,65 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// bfloat16 rows, one value a thread.
+__global__ void __launch_bounds__(kThreads)
+    standardize_bf16_kernel(const bf16_bits* __restrict__ X, const float* __restrict__ mean,
+                            const float* __restrict__ scale, const float* __restrict__ w,
+                            bf16_bits* __restrict__ out, long long rows, int F) {
+  const long long values = rows * F;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < values;
+       i += step) {
+    const long long row = i / F;
+    const int f = static_cast<int>(i - row * F);
+    out[i] = standardized_bf16(widen(X[i]), mean[f], scale[f], w[row]);
+  }
+}
+
+// bfloat16 rows, eight values of one row a thread (F a multiple of 8,
+// 16-byte aligned X and out).
+__global__ void __launch_bounds__(kThreads)
+    standardize8_bf16_kernel(const uint4* __restrict__ X, const float* __restrict__ mean,
+                             const float* __restrict__ scale, const float* __restrict__ w,
+                             uint4* __restrict__ out, long long rows, int F) {
+  const int words = F / 8;
+  const long long total = rows * words;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < total;
+       q += step) {
+    const long long row = q / words;
+    const int f = static_cast<int>(q - row * words) * 8;
+    const float weight = w[row];
+    const uint4 x = X[q];
+    const unsigned in[4] = {x.x, x.y, x.z, x.w};
+    unsigned packed[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bf16_bits lo = standardized_bf16(__uint_as_float(in[k] << 16), mean[f + 2 * k],
+                                             scale[f + 2 * k], weight);
+      const bf16_bits hi = standardized_bf16(__uint_as_float(in[k] & 0xffff0000u),
+                                             mean[f + 2 * k + 1], scale[f + 2 * k + 1], weight);
+      packed[k] = static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+    }
+    out[q] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
 int grid_for(long long items, int max_blocks) {
   return static_cast<int>(std::max<long long>(
       1, std::min<long long>((items + kThreads - 1) / kThreads, max_blocks)));
+}
+
+template <typename T, int V>
+void launch_sums(const dim3& grid, cudaStream_t s, const T* X, const float* w, const double* mean,
+                 double* partials, unsigned* ticket, double* out, int rows, int F,
+                 int rows_per_chunk) {
+  if (mean != nullptr)
+    masked_sums_kernel<T, V, true><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket,
+                                                                 out, rows, F, rows_per_chunk);
+  else
+    masked_sums_kernel<T, V, false><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket,
+                                                                  out, rows, F, rows_per_chunk);
 }
 
 }  // namespace
@@ -345,13 +498,14 @@ extern "C" {
 // launches: 0 means they were accepted. Outputs and scratch are allocated
 // by the caller.
 
-// X (rows, F) float32, w (rows,) float32, mean (F,) float64 or null (pass
-// 1); partials: chunks * (F + 1) doubles of scratch; ticket: one unsigned,
-// 0, left 0; out: F + 1 doubles. chunks >= 1 (one block with no rows when
-// rows is 0), chunks * rows_per_chunk >= rows.
-int lo_masked_col_sums(const float* X, const float* w, const double* mean, double* partials,
-                       unsigned* ticket, double* out, int rows, int F, int chunks,
-                       int rows_per_chunk, int device, void* stream) {
+// X (rows, F) float32, or bfloat16 when x_bf16; w (rows,) float32, mean
+// (F,) float64 or null (pass 1; on bfloat16 rows the bfloat16 mean,
+// widened); partials: chunks * (F + 1) doubles of scratch; ticket: one
+// unsigned, 0, left 0; out: F + 1 doubles. chunks >= 1 (one block with no
+// rows when rows is 0), chunks * rows_per_chunk >= rows.
+int lo_masked_col_sums(const void* X, int x_bf16, const float* w, const double* mean,
+                       double* partials, unsigned* ticket, double* out, int rows, int F,
+                       int chunks, int rows_per_chunk, int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (F <= 0 || rows < 0 || chunks <= 0 || rows_per_chunk <= 0 || ticket == nullptr ||
@@ -361,26 +515,31 @@ int lo_masked_col_sums(const float* X, const float* w, const double* mean, doubl
   if (windows > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(chunks, windows);
-  const bool words = F % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  if (words && mean != nullptr)
-    masked_sums_kernel<4, true><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket, out,
-                                                          rows, F, rows_per_chunk);
-  else if (words)
-    masked_sums_kernel<4, false><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket, out,
-                                                           rows, F, rows_per_chunk);
-  else if (mean != nullptr)
-    masked_sums_kernel<1, true><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket, out,
-                                                          rows, F, rows_per_chunk);
-  else
-    masked_sums_kernel<1, false><<<grid, kSumsThreads, 0, s>>>(X, w, mean, partials, ticket, out,
-                                                           rows, F, rows_per_chunk);
+  const bool aligned = reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  if (x_bf16) {
+    const bf16_bits* Xb = static_cast<const bf16_bits*>(X);
+    if (F % 8 == 0 && aligned)
+      launch_sums<bf16_bits, 8>(grid, s, Xb, w, mean, partials, ticket, out, rows, F,
+                                rows_per_chunk);
+    else
+      launch_sums<bf16_bits, 1>(grid, s, Xb, w, mean, partials, ticket, out, rows, F,
+                                rows_per_chunk);
+  } else {
+    const float* Xf = static_cast<const float*>(X);
+    if (F % 4 == 0 && aligned)
+      launch_sums<float, 4>(grid, s, Xf, w, mean, partials, ticket, out, rows, F, rows_per_chunk);
+    else
+      launch_sums<float, 1>(grid, s, Xf, w, mean, partials, ticket, out, rows, F, rows_per_chunk);
+  }
   return cudaGetLastError();
 }
 
-// X (rows, F), mean (F,), scale (F,), w (rows,), out (rows, F), all float32.
-int lo_masked_standardize(const float* X, const float* mean, const float* scale, const float* w,
-                          float* out, long long rows, int F, int max_blocks, int device,
-                          void* stream) {
+// X (rows, F) and out (rows, F) float32, or both bfloat16 when x_bf16;
+// mean (F,), scale (F,) float32 (on bfloat16 rows the bfloat16 values,
+// widened); w (rows,) float32.
+int lo_masked_standardize(const void* X, int x_bf16, const float* mean, const float* scale,
+                          const float* w, void* out, long long rows, int F, int max_blocks,
+                          int device, void* stream) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
   if (F <= 0 || rows < 0 || max_blocks <= 0) return cudaErrorInvalidValue;
@@ -388,13 +547,18 @@ int lo_masked_standardize(const float* X, const float* mean, const float* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (F % 4 == 0 && aligned) {
+  if (x_bf16 && F % 8 == 0 && aligned) {
+    standardize8_bf16_kernel<<<grid_for(rows * (F / 8), max_blocks), kThreads, 0, s>>>(
+        static_cast<const uint4*>(X), mean, scale, w, static_cast<uint4*>(out), rows, F);
+  } else if (x_bf16) {
+    standardize_bf16_kernel<<<grid_for(rows * F, max_blocks), kThreads, 0, s>>>(
+        static_cast<const bf16_bits*>(X), mean, scale, w, static_cast<bf16_bits*>(out), rows, F);
+  } else if (F % 4 == 0 && aligned) {
     standardize4_kernel<<<grid_for(rows * (F / 4), max_blocks), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(X), mean, scale, w, reinterpret_cast<float4*>(out), rows,
-        F);
+        static_cast<const float4*>(X), mean, scale, w, static_cast<float4*>(out), rows, F);
   } else {
-    standardize_kernel<<<grid_for(rows * F, max_blocks), kThreads, 0, s>>>(X, mean, scale, w,
-                                                                          out, rows, F);
+    standardize_kernel<<<grid_for(rows * F, max_blocks), kThreads, 0, s>>>(
+        static_cast<const float*>(X), mean, scale, w, static_cast<float*>(out), rows, F);
   }
   return cudaGetLastError();
 }

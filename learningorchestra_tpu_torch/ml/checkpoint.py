@@ -178,11 +178,12 @@ def write_checkpoint(gathered: tuple[str, dict, dict], path: str) -> None:
 
 
 def save_model(model, path: str) -> None:
-    """Write ``model`` to ``path``. A model fitted over several data ranks
-    holds the same parameters on every rank: rank 0 writes, the others
-    write nothing."""
+    """Write ``model`` to ``path``. A model fitted over several ranks holds
+    the same whole parameters on every rank (lr's class shards and rf's
+    tree shards are gathered at the end of their fits): the rank at (0, 0)
+    of the mesh writes, the others write nothing."""
     mesh = getattr(model, "mesh", None)
-    if mesh is not None and mesh.data_index != 0:
+    if mesh is not None and (mesh.data_index != 0 or mesh.model_index != 0):
         return
     write_checkpoint(gather_model(model), path)
 

@@ -65,6 +65,37 @@ data axis):
   rows; the host scaler, then each rank's block) and ``fit_sharded`` (the
   per-host feeding entry, :489: K8′ on the device from the blocks). The
   model predicts on each rank's block and gathers (``ml/base.py``).
+- K8′ on bfloat16 rows (``LO_DTYPE_POLICY=bf16``): the reference's
+  ``_masked_stats`` and ``_standardize`` run in X's type, so the port's
+  do too: each term rounded to bfloat16 where the reference rounds it, the
+  float64 sums rounded as its bfloat16 sums round (float32, then
+  bfloat16: 1,000,000 ones count 999,424), the divisions in bfloat16.
+
+Classes sharded over the mesh's model axis (the reference's
+``_fit_prepared`` :516-560, W and b under ``P(None, MODEL_AXIS)``): when
+C divides the model axis M, model rank m holds classes ``[m C/M, (m+1)
+C/M)`` of W and b, and the ranks of its model group (which hold the same
+block of rows) fit them together:
+
+- K7's class-shard form: :func:`shard_stats` (each row's largest logit,
+  sum of exps and label logit over the shard's classes, at one point or
+  the four Armijo points) and :func:`shard_grad` (the shard's sums in K7's
+  sums layout, given each row's log-sum-exp), with their plain twins
+  :func:`_shard_stats` and :func:`_shard_grad`. Each row's shard log-sums
+  are gathered over the model group and combined in model-rank order in
+  float64 (:func:`_combine_log_sums`: log_softmax's normaliser, the model
+  axis's collective); the sums then cross the data group as K7's sums form.
+- L-BFGS's inner products (``_tree_dot`` :64) and the L2 term add each
+  shard's float64 part over the model group in model-rank order (the
+  two-loop recursion's all at once, as one Gram matrix:
+  :func:`_shard_direction`), so that every rank takes the same steps and
+  stops at the same segment.
+- The fitted model holds the whole W and b on every rank (gathered over
+  the model group in class order at the end of the fit), as a
+  ``NamedSharding`` array is logically whole.
+- C not dividing M: the reference's warning, word for word, and W and b
+  replicated (each rank of a model group then fits them all on its block,
+  as over the data axis alone).
 """
 
 from __future__ import annotations
@@ -454,15 +485,19 @@ def _global_means(sums, mesh):
     return (total[:-1] / total[-1]).to(torch.float32)
 
 
-def loss_and_grad(W, b, X, y, l2: float, weights=None, mesh=None):
+def loss_and_grad(W, b, X, y, l2: float, weights=None, mesh=None, first=None):
     """``(value, dW, db)`` of the loss at ``(W, b)`` (K7). On a ``mesh``,
     X, y and the row ``weights`` are this rank's block of rows sharded over
     its data axis, and the data term is the reference's ``sum w nll / sum
     w`` over every rank's rows: K7's sums form, gathered and added in rank
-    order, so that every rank holds the same bits."""
+    order, so that every rank holds the same bits. ``first``: W and b are
+    this rank's class shard, classes ``[first, first + Cs)`` of the model
+    group's (K7's class-shard form, :func:`_shard_loss_and_grad`)."""
     _check_operands(X, y, W, b)
     _check_block_weights(X, weights, mesh)
     num_features, num_classes = W.shape
+    if first is not None:
+        return _shard_loss_and_grad(W, b, X, y, l2, weights, mesh, first)
     if mesh is not None:
         if X.device.type == "cpu":
             sums = _weighted_sums(W, b, X, y, weights)
@@ -478,12 +513,15 @@ def loss_and_grad(W, b, X, y, l2: float, weights=None, mesh=None):
     return out[-1] + _l2_term(W, l2), dW + l2 * W, db
 
 
-def trial_losses(W4, b4, X, y, l2: float, weights=None, mesh=None):
+def trial_losses(W4, b4, X, y, l2: float, weights=None, mesh=None, first=None):
     """``(4,)`` losses at the Armijo trial points ``W4 (4, F, C)``,
     ``b4 (4, C)`` (K7, one read of X for all four); on a ``mesh`` over
-    every rank's rows, as :func:`loss_and_grad`."""
+    every rank's rows, and on a class shard (``first``), as
+    :func:`loss_and_grad`."""
     _check_operands(X, y, W4, b4, leading=(_BACKTRACK_STEPS,))
     _check_block_weights(X, weights, mesh)
+    if first is not None:
+        return _shard_trial_losses(W4, b4, X, y, l2, weights, mesh, first)
     if mesh is not None:
         if X.device.type == "cpu":
             sums = _weighted_trial_sums(W4, b4, X, y, weights)
@@ -496,6 +534,196 @@ def trial_losses(W4, b4, X, y, l2: float, weights=None, mesh=None):
         out = _launch_trial_losses(W4, b4, X, y, None, 1)[0]
     return out + 0.5 * l2 * (W4 * W4).sum(dim=(1, 2))
 
+
+# --------------------------------------------------------------------------
+# K7's class-shard form: W and b's classes over the mesh's model group
+# --------------------------------------------------------------------------
+
+def _shard_logits(X, W, b):
+    """The shard's logits ``(rows, Cs)`` float32, as :func:`_row_terms`
+    forms them (a float64 product rounded once, then b)."""
+    return torch.matmul(X.to(torch.float64), W.to(torch.float64)).to(torch.float32) + b
+
+
+def _in_shard(y, first: int, classes: int):
+    """Each row's label as the shard's class index (clamped) and whether it
+    lies in the shard."""
+    local = y.long() - first
+    return local.clamp(0, classes - 1), (local >= 0) & (local < classes)
+
+
+def _shard_stats(W, b, X, y, first: int):
+    """The plain twin of :func:`shard_stats`: ``(points, rows, 3)`` float32,
+    each row's ``[top, sum exp(z - top), z_y or 0]`` over the shard."""
+    classes = W.shape[-1]
+    local, inside = _in_shard(y, first, classes)
+    out = []
+    for p in range(W.shape[0]):
+        z = _shard_logits(X, W[p], b[p])
+        top = z.max(dim=1).values if z.shape[0] else z.new_zeros(0)
+        total = torch.exp(z - top[:, None]).sum(dim=1)
+        at_label = torch.where(inside, z.gather(1, local[:, None])[:, 0], torch.zeros_like(top))
+        out.append(torch.stack([top, total, at_label], dim=1))
+    return torch.stack(out)
+
+
+def _shard_grad(W, b, X, y, weights, lse, first: int):
+    """The plain twin of :func:`shard_grad`: the shard's float64 sums
+    ``[sum w x r (F*Cs) | sum w r (Cs) | sum_{y in shard} w (lse - z_y) |
+    sum w]``, ``r = exp(z - lse) - onehot(y)`` in float64."""
+    classes = W.shape[-1]
+    local, inside = _in_shard(y, first, classes)
+    z = _shard_logits(X, W, b).to(torch.float64)
+    wd = weights.to(torch.float64)
+    onehot = torch.nn.functional.one_hot(local, classes).to(torch.float64) * inside[:, None]
+    residual = (torch.exp(z - lse[:, None]) - onehot) * wd[:, None]
+    nll = torch.where(inside, (lse - z.gather(1, local[:, None])[:, 0]) * wd, torch.zeros_like(wd))
+    return torch.cat([
+        torch.matmul(X.to(torch.float64).T, residual).reshape(-1), residual.sum(dim=0),
+        nll.sum()[None], wd.sum()[None],
+    ])
+
+
+def _check_shard(W, first):
+    if not isinstance(first, int) or first < 0:
+        raise ValueError(f"the shard's first class must be an int >= 0, got {first!r}")
+    if W.shape[-1] < 1:
+        raise ValueError("a class shard holds one class or more")
+
+
+def shard_stats(W, b, X, y, first: int):
+    """Each row's stats over the shard's classes ``[first, first + Cs)``
+    at ``points`` parameter sets ``W (points, F, Cs)``, ``b (points, Cs)``
+    (1: the loss's point; 4: the Armijo trial points, one read of X):
+    ``(points, rows, 3)`` float32, ``[largest logit, sum of exp(z - it),
+    the label's logit where the label lies in the shard, else 0]``. On a
+    CUDA tensor one launch of K7's ``lo_logistic_shard_stats``."""
+    points = W.shape[0] if W.dim() == 3 else -1
+    _check_operands(X, y, W, b, leading=(points,))
+    _check_shard(W, first)
+    if X.device.type == "cpu":
+        return _shard_stats(W, b, X, y, first)
+    kernels.check_operands(X, y, W, b)
+    rows, num_features = X.shape
+    out = torch.empty((points, rows, 3), dtype=torch.float32, device=X.device)
+    kernels.launch(
+        "logistic_shard_stats", "lo_logistic_shard_stats",
+        X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(), W.data_ptr(), b.data_ptr(),
+        out.data_ptr(), rows, num_features, W.shape[-1], points, first,
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    return out
+
+
+def shard_grad(W, b, X, y, weights, lse, first: int):
+    """The shard's un-divided float64 sums in K7's sums layout, given each
+    row's log-sum-exp over every class ``lse (rows,)`` float64: ``(F*Cs +
+    Cs + 2,)``, ``[sum w x r | sum w r | sum_{y in shard} w nll | sum w]``.
+    On a CUDA tensor one launch of K7's ``lo_logistic_shard_grad`` (its
+    chunks added in chunk order by ``sums_kernel``)."""
+    _check_operands(X, y, W, b)
+    _check_shard(W, first)
+    if weights is None or weights.dtype != torch.float32 or tuple(weights.shape) != (X.shape[0],):
+        raise TypeError("weights must be float32, one a row of X")
+    if lse.dtype != torch.float64 or tuple(lse.shape) != (X.shape[0],):
+        raise TypeError("lse must be float64, one a row of X")
+    if X.device.type == "cpu":
+        return _shard_grad(W, b, X, y, weights, lse, first)
+    kernels.check_operands(X, y, weights, lse, W, b)
+    rows, num_features = X.shape
+    classes = W.shape[-1]
+    cells = num_features * classes + classes + 2
+    chunks, per_chunk = kernels.row_chunks(rows)
+    partials = torch.empty((max(chunks, 1), cells), dtype=torch.float64, device=X.device)
+    out = torch.empty(cells, dtype=torch.float64, device=X.device)
+    kernels.launch(
+        "logistic_shard_grad", "lo_logistic_shard_grad",
+        X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(), weights.data_ptr(),
+        lse.data_ptr(), W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        rows, num_features, classes, first, chunks, per_chunk,
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+    )
+    return out
+
+
+def _shard_log_sums(stats):
+    """Each row's float64 log-sum over the shard's classes, from its stats:
+    ``top + log(sum exp(z - top))``."""
+    return stats[..., 0].to(torch.float64) + torch.log(stats[..., 1].to(torch.float64))
+
+
+def _combine_log_sums(parts):
+    """Each row's log-sum-exp over every shard's classes from the shards'
+    log-sums (in model-rank order), in float64: the largest, plus the log
+    of the sum of each shard's exp about it, added in model-rank order."""
+    top = parts[0]
+    for part in parts[1:]:
+        top = torch.maximum(top, part)
+    total = torch.exp(parts[0] - top)
+    for part in parts[1:]:
+        total = total + torch.exp(part - top)
+    return top + torch.log(total)
+
+
+def _rank_sum(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _shard_loss_and_grad(W, b, X, y, l2: float, weights, mesh, first: int):
+    """``(value, dW, db)`` on a class shard: the shard's stats (K7's class-
+    shard stats), each row's log-sum-exp and the L2 term's ``|W|^2`` over
+    the model group (one gather), the shard's sums (K7's class-shard grad)
+    over the data group, the nll over the model group; dW and db are the
+    shard's. The same value on every rank."""
+    from learningorchestra_tpu_torch.parallel.multihost import (
+        all_sum, model_all_gather, model_all_sum)
+
+    stats = shard_stats(W[None], b[None], X, y, first)[0]
+    local = torch.cat([_shard_log_sums(stats), (W.to(torch.float64) ** 2).sum()[None]])
+    parts = model_all_gather(local, mesh)
+    lse = _combine_log_sums([part[:-1] for part in parts])
+    squares = _rank_sum([part[-1:] for part in parts])
+    total = all_sum(shard_grad(W, b, X, y, weights, lse, first), mesh)
+    nll = model_all_sum(total[-2:-1], mesh)
+    cells = W.shape[0] * W.shape[1]
+    dW = (total[:cells] / total[-1]).to(torch.float32).view(W.shape)
+    db = (total[cells:-2] / total[-1]).to(torch.float32)
+    value = (nll / total[-1]).to(torch.float32)[0] + 0.5 * l2 * squares.to(torch.float32)[0]
+    return value, dW + l2 * W, db
+
+
+def _shard_trial_losses(W4, b4, X, y, l2: float, weights, mesh, first: int):
+    """``(4,)`` trial losses on a class shard from K7's class-shard stats
+    alone: each row's log-sum-exp at each point, the shards' label logits
+    and ``|W4|^2`` over the model group (one gather), then ``sum w (lse -
+    z_y)`` and ``sum w`` over the data group."""
+    from learningorchestra_tpu_torch.parallel.multihost import all_sum, model_all_gather
+
+    points, rows = W4.shape[0], X.shape[0]
+    stats = shard_stats(W4, b4, X, y, first)
+    wd = weights.to(torch.float64)
+    at_label = (stats[..., 2].to(torch.float64) * wd).sum(dim=1)
+    squares = (W4.to(torch.float64) ** 2).sum(dim=(1, 2))
+    local = torch.cat([_shard_log_sums(stats).reshape(-1), at_label, squares])
+    parts = model_all_gather(local, mesh)
+    lse = _combine_log_sums([part[: points * rows].view(points, rows) for part in parts])
+    labels = _rank_sum([part[points * rows : points * (rows + 1)] for part in parts])
+    squares = _rank_sum([part[points * (rows + 1) :] for part in parts])
+    total = all_sum(torch.cat([(lse * wd).sum(dim=1) - labels, wd.sum()[None]]), mesh)
+    return (total[:-1] / total[-1]).to(torch.float32) + 0.5 * l2 * squares.to(torch.float32)
+
+
+def _shard_dot(a, b, mesh):
+    """The pytree inner product over a class shard: each shard's float64
+    ``vdot(b) + vdot(w)``, added over the model group in model-rank order,
+    rounded once to float32 (the same bits on every rank)."""
+    from learningorchestra_tpu_torch.parallel.multihost import model_all_sum
+
+    local = sum((a[key].to(torch.float64) * b[key].to(torch.float64)).sum() for key in ("b", "w"))
+    return model_all_sum(local[None], mesh).to(torch.float32)[0]
 
 # --------------------------------------------------------------------------
 # K7 over a job axis: many fits in one launch (the sweep's fused L-BFGS)
@@ -731,6 +959,55 @@ def _two_loop(state):
     return {key: -value for key, value in r.items()}
 
 
+def _shard_direction(state, mesh):
+    """The two-loop recursion of :func:`_two_loop` on a class shard, every
+    inner product it needs taken at once: the float64 Gram matrix of the
+    ring's pairs and the gradient ``[S; Y; g]`` on each shard, added over
+    the model group in model-rank order (one collective, where a dot at a
+    time would take 2m + 3), then the recursion's scalars from it in
+    float64 (``s_k.q = s_k.g - sum_{j<k} alpha_j s_k.y_j``, ``y_k.r`` the
+    same way), and the direction from them. Returns ``(direction, slope
+    g.d, g.g)``, the scalars rounded once to float32, the same bits on
+    every rank of the model group."""
+    from learningorchestra_tpu_torch.parallel.multihost import model_all_sum
+
+    m = _LBFGS_MEMORY
+    steps = torch.arange(m, device=state["rho"].device)
+    order = torch.remainder(state["head"] - 1 - steps, m)
+    valid = (steps < state["filled"]).to(torch.float64)
+    rho = state["rho"].index_select(0, order).to(torch.float64)
+    S = {key: state["S"][key].index_select(0, order) for key in ("w", "b")}
+    Y = {key: state["Y"][key].index_select(0, order) for key in ("w", "b")}
+    grad = state["grad"]
+
+    def rows(tree, count):
+        return torch.cat([tree["b"].reshape(count, -1), tree["w"].reshape(count, -1)], dim=1)
+
+    V = torch.cat([rows(S, m), rows(Y, m), rows(grad, 1)]).to(torch.float64)
+    gram = model_all_sum(V @ V.T, mesh)
+    SY, YY = gram[:m, m:2 * m], gram[m:2 * m, m:2 * m]   # SY[k, j] = s_k . y_j
+    SG, YG, GG = gram[:m, 2 * m], gram[m:2 * m, 2 * m], gram[2 * m, 2 * m]
+    alphas = torch.zeros(m, dtype=torch.float64, device=gram.device)
+    for k in range(m):   # newest pair first
+        alphas[k] = valid[k] * rho[k] * (SG[k] - (alphas[:k] * SY[k, :k]).sum())
+    gamma = torch.where(
+        (state["filled"] > 0) & (YY[0, 0] > 0.0), SY[0, 0] / torch.clamp(YY[0, 0], min=1e-20), 1.0)
+    # q = g - sum_i alpha_i y_i; r = gamma q + sum_j (alpha_j - beta_j) s_j over the pairs done
+    yq = YG - YY @ alphas
+    coefficients = torch.zeros(m, dtype=torch.float64, device=gram.device)
+    for k in range(m - 1, -1, -1):   # oldest of the valid window first
+        beta = valid[k] * rho[k] * (gamma * yq[k] + (coefficients * SY[:, k]).sum())
+        coefficients[k] = alphas[k] - beta
+    slope = -(gamma * (GG - (alphas * YG).sum()) + (coefficients * SG).sum())
+    direction = {
+        key: -(gamma * grad[key].to(torch.float64)
+               - torch.tensordot(gamma * alphas, Y[key].to(torch.float64), dims=1)
+               + torch.tensordot(coefficients, S[key].to(torch.float64), dims=1)).to(torch.float32)
+        for key in ("w", "b")
+    }
+    return direction, slope.to(torch.float32), GG.to(torch.float32)
+
+
 def _first_accepted(steps, ok, floor: float):
     """The first step whose trial passed, else ``floor``: the reference's
     backtracking while_loop, chosen on the device."""
@@ -738,17 +1015,24 @@ def _first_accepted(steps, ok, floor: float):
     return torch.where(ok.any(), (steps * first).sum(), floor)
 
 
-def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float, weights=None, mesh=None):
+def _fit_segment_impl(
+    W, b, state, X, y, iters: int, l2: float, weights=None, mesh=None, first=None,
+):
     """``iters`` L-BFGS iterations, optimizer state in and out: the
     reference's segment (seed pass, descent safeguard, Armijo choice, ring
     writes gated by ``s.y > 1e-10``). Returns ``(W, b, state, losses)``,
     the losses the ``(iters,)`` pre-step values, all on the device. On a
     ``mesh`` the passes run over every rank's rows (:func:`loss_and_grad`),
-    so that every rank takes the same steps."""
+    so that every rank takes the same steps; on a class shard (``first``)
+    the inner products are the model group's (:func:`_shard_direction`,
+    :func:`_shard_dot`), so that every rank of it takes them too."""
     x = {"w": W, "b": b}
     # the solo call keeps the wrappers' five arguments (a plain-version
     # context swaps in the twins, which take those alone)
     over_ranks = () if mesh is None else (weights, mesh)
+    if first is not None:
+        over_ranks += (first,)
+    dot = _tree_dot if first is None else functools.partial(_shard_dot, mesh=mesh)
     value, dW, db = loss_and_grad(W, b, X, y, l2, *over_ranks)
     state = {**state, "value": value, "grad": {"w": dW, "b": db}}
     # the trial steps 1, 1/2, 1/4, 1/8, made on the device (a copy from the
@@ -760,12 +1044,15 @@ def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float, weights=None, me
     losses = []
     for _ in range(iters):
         value, grad = state["value"], state["grad"]
-        direction = _two_loop(state)
-        slope = _tree_dot(grad, direction)
+        if first is None:
+            direction = _two_loop(state)
+            slope, steepest = _tree_dot(grad, direction), _tree_dot(grad, grad)
+        else:
+            direction, slope, steepest = _shard_direction(state, mesh)
         # a non-descent direction (stale curvature) falls back to steepest descent
         descent = slope < 0.0
         direction = {key: torch.where(descent, direction[key], -grad[key]) for key in ("w", "b")}
-        slope = torch.where(descent, slope, -_tree_dot(grad, grad))
+        slope = torch.where(descent, slope, -steepest)
 
         trial = trial_losses(
             x["w"][None] + steps[:, None, None] * direction["w"][None],
@@ -780,7 +1067,7 @@ def _fit_segment_impl(W, b, state, X, y, iters: int, l2: float, weights=None, me
         # curvature pair; skipped when s.y is not positive
         s = {key: x_new[key] - x[key] for key in ("w", "b")}
         y_vec = {key: grad_new[key] - grad[key] for key in ("w", "b")}
-        sy = _tree_dot(s, y_vec)
+        sy = dot(s, y_vec)
         keep = sy > 1e-10
         head = state["head"]
         write = keep & (slots == head)
@@ -836,7 +1123,10 @@ def _segment_iters(max_iter: int, rows: int, features: int, tol: float) -> int:
     return iters
 
 
-def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=None, mesh=None):
+def _fit(
+    W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=None, mesh=None,
+    first=None,
+):
     """L-BFGS in segments of ``iters`` iterations (the reference's
     ``segment_steps`` over ``_LR_ROW_ITERS_BUDGET``, capped at
     ``_LR_CHECK_ITERS`` for the convergence check), stopping at the top
@@ -859,7 +1149,10 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=Non
     are cut from the global padded rows, as the reference's, and every
     rank holds the same values, steps and losses, so the plateau check
     stops every rank at the same segment (a stop decided from one rank's
-    own values would leave the others in their next collective)."""
+    own values would leave the others in their next collective). On a class
+    shard (``first``, W and b this rank's classes) every rank of the model
+    group holds the same values too; no progress is saved (a shard's leaves
+    are not a resumable fit's)."""
     if max_iter <= 0:  # MLlib allows maxIter=0: the initial model
         return W, b, W.new_zeros(0)
     rows = X.shape[0] * (mesh.shape["data"] if mesh is not None else 1)
@@ -872,7 +1165,7 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=Non
     window = _LR_STOP_DELTAS + 1
     total_segments = max_iter // iters
     key = {"iters": iters, "max_iter": max_iter, "l2": float(l2)}
-    sink = _progress.current_sink()
+    sink = _progress.current_sink() if first is None else None
     start = 0
     if sink is not None:
         restored = sink.load("logistic")
@@ -899,7 +1192,8 @@ def _fit(W, b, X, y, max_iter: int, l2: float, tol: float = _LR_TOL, weights=Non
         # already converged stops where the uninterrupted one did
         if tol > 0 and _plateaued(history, tol, window):
             break
-        W, b, state, segment_losses = _fit_segment_impl(W, b, state, X, y, iters, l2, weights, mesh)
+        W, b, state, segment_losses = _fit_segment_impl(
+            W, b, state, X, y, iters, l2, weights, mesh, first)
         losses.append(segment_losses)
         if tol > 0:
             history.extend(float(v) for v in to_host(segment_losses))
@@ -937,13 +1231,8 @@ def _standardized(X, mean, scale) -> np.ndarray:
 def _check_block(X, w, *params):
     if not isinstance(X, torch.Tensor) or X.dim() != 2:
         raise TypeError("X must be a 2-D tensor of a block's rows")
-    if X.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the masked scaler takes float32 rows; bfloat16 rows under LO_DTYPE_POLICY=bf16 "
-            "are ROADMAP Queue 1 item 6e (K8′ under bf16)"
-        )
-    if X.dtype != torch.float32:
-        raise TypeError("X must be float32")
+    if X.dtype not in FEATURE_DTYPES:
+        raise TypeError("X must be float32 or bfloat16")
     if w.dtype != torch.float32 or tuple(w.shape) != (X.shape[0],):
         raise TypeError("w must be float32, one weight a row of X")
     for tensor in (w, *params):
@@ -951,11 +1240,27 @@ def _check_block(X, w, *params):
             raise ValueError(f"operands on {tensor.device} and {X.device}")
 
 
+def _bf16(values):
+    """``values`` rounded to bfloat16 as float32 rounds (through float32:
+    the reference's float32 sums, then its bfloat16 result)."""
+    return values.to(torch.float32).to(torch.bfloat16)
+
+
 def _masked_col_sums(X, w, mean=None):
     """The plain twin of :func:`masked_col_sums`: ``[sum w x_f ... | sum
     w]``, or about ``mean`` ``[sum w (x_f - mean_f)^2 ... | sum w]``, in
-    float64 (the same products; the adds in torch's order)."""
+    float64 (the same products; the adds in torch's order). On bfloat16
+    rows each term is the reference's bfloat16 one: ``bf16(x w)``, and
+    about the bfloat16 mean ``bf16(bf16(d d) w)``, ``d = bf16(x - mean)``."""
     wd = w.to(torch.float64)
+    if X.dtype == torch.bfloat16:
+        x, wf = X.to(torch.float32), w[:, None]
+        if mean is None:
+            terms = _bf16(x * wf)
+        else:
+            d = _bf16(x - mean.to(torch.float32)).to(torch.float32)
+            terms = _bf16(_bf16(d * d).to(torch.float32) * wf)
+        return torch.cat([terms.to(torch.float64).sum(dim=0), wd.sum()[None]])
     if mean is None:
         terms = X.to(torch.float64) * wd[:, None]
     else:
@@ -992,10 +1297,13 @@ def _sums_chunks(rows: int, num_features: int) -> tuple[int, int]:
 def masked_col_sums(X, w, mean=None):
     """A block's float64 column sums weighted by its rows' ``w``, and the
     sum of ``w``: ``(F + 1,)``. Pass 1 (``mean=None``) sums ``w x``; the
-    centred pass sums ``w (x - mean)^2`` about the float64 ``mean``. On a
-    CUDA tensor one launch of the kernel (``kernels/csrc/scaler.cu``) adds
-    in an order fixed by the shape: the chunks of :func:`_sums_chunks`, its
-    last block adding their sums."""
+    centred pass sums ``w (x - mean)^2`` about the float64 ``mean``. X is
+    float32, or bfloat16 (each term then rounded as the reference's
+    bfloat16 arithmetic rounds it, about a bfloat16 ``mean`` given as
+    float64: :func:`_masked_col_sums`). On a CUDA tensor one launch of the
+    kernel (``kernels/csrc/scaler.cu``) adds in an order fixed by the
+    shape: the chunks of :func:`_sums_chunks`, its last block adding their
+    sums."""
     _check_block(X, w, *(() if mean is None else (mean,)))
     if mean is not None and (mean.dtype != torch.float64 or tuple(mean.shape) != (X.shape[1],)):
         raise TypeError("mean must be float64, one a feature")
@@ -1010,7 +1318,8 @@ def masked_col_sums(X, w, mean=None):
     out = torch.empty(num_features + 1, dtype=torch.float64, device=X.device)
     kernels.launch(
         "masked_col_sums" if mean is None else "masked_col_sums_centred", "lo_masked_col_sums",
-        X.data_ptr(), w.data_ptr(), None if mean is None else mean.data_ptr(),
+        X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(),
+        None if mean is None else mean.data_ptr(),
         partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), rows, num_features, chunks,
         per_chunk, X.device.index, _stream(X),
     )
@@ -1025,12 +1334,25 @@ def masked_stats(X, w, mesh=None):
     sqrt(var)``, each rounded once to float32, a std of 0 pinned to 1.
     Returns ``(mean, scale)``, float32, the same bits on every rank. Two
     passes, as the reference: ``E[x^2] - mean^2`` cancels on features with
-    large means. ``mesh=None``: this block's rows alone."""
+    large means. ``mesh=None``: this block's rows alone.
+
+    On bfloat16 rows the reference computes in bfloat16: its count, sums,
+    mean, variance and std are bfloat16, so here each total is rounded
+    once (float32, then bfloat16), and ``mean = sum / count``, ``var``
+    and ``sqrt`` are bfloat16 operations; ``(mean, scale)`` are bfloat16."""
     from learningorchestra_tpu_torch.parallel.multihost import all_sum
 
     def across(sums):
         return sums if mesh is None else all_sum(sums, mesh)
 
+    if X.dtype == torch.bfloat16:
+        first = across(masked_col_sums(X, w))
+        count = _bf16(first[-1]).to(torch.float32)
+        mean = _bf16(_bf16(first[:-1]).to(torch.float32) / count)
+        second = across(masked_col_sums(X, w, mean.to(torch.float64)))
+        var = _bf16(_bf16(second[:-1]).to(torch.float32) / count)
+        std = _bf16(torch.sqrt(var.to(torch.float32)))
+        return mean, torch.where(std > 0, std, torch.ones_like(std))
     first = across(masked_col_sums(X, w))
     total = first[-1]
     mean = first[:-1] / total
@@ -1040,27 +1362,36 @@ def masked_stats(X, w, mesh=None):
 
 
 def _standardize(X, mean, scale, w):
-    """The plain twin of :func:`standardize` (reference :426, exactly)."""
+    """The plain twin of :func:`standardize` (reference :426, exactly): on
+    bfloat16 rows each operation rounded to bfloat16."""
+    if X.dtype == torch.bfloat16:
+        centred = _bf16(X.to(torch.float32) - mean.to(torch.float32)).to(torch.float32)
+        scaled = _bf16(centred / scale.to(torch.float32)).to(torch.float32)
+        return _bf16(scaled * w[:, None])
     return ((X - mean) / scale) * w[:, None]
 
 
 def standardize(X, mean, scale, w):
-    """``((X - mean) / scale) * w`` in float32, row by row: a block's rows
-    standardized, its padded rows (w = 0) zeroed. On a CUDA tensor the
-    kernel (``kernels/csrc/scaler.cu``) rounds each operation on its own,
-    so its output is bit-equal to the plain twin's."""
+    """``((X - mean) / scale) * w`` in X's type, row by row: a block's rows
+    standardized, its padded rows (w = 0) zeroed. Float32 rows take a
+    float32 mean and scale; bfloat16 rows the bfloat16 ones of
+    :func:`masked_stats`, each operation rounded to bfloat16. On a CUDA
+    tensor the kernel (``kernels/csrc/scaler.cu``) rounds each operation
+    on its own, so its output is bit-equal to the plain twin's."""
     _check_block(X, w, mean, scale)
     for name, value in (("mean", mean), ("scale", scale)):
-        if value.dtype != torch.float32 or tuple(value.shape) != (X.shape[1],):
-            raise TypeError(f"{name} must be float32, one a feature")
+        if value.dtype != X.dtype or tuple(value.shape) != (X.shape[1],):
+            raise TypeError(f"{name} must be of X's type, one a feature")
     if X.device.type == "cpu":
         return _standardize(X, mean, scale, w)
     kernels.check_operands(X, mean, scale, w)
+    mean, scale = mean.to(torch.float32), scale.to(torch.float32)   # bfloat16 widened exactly
     out = torch.empty_like(X)
     kernels.launch(
         "masked_standardize", "lo_masked_standardize",
-        X.data_ptr(), mean.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(),
-        X.shape[0], X.shape[1], kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+        X.data_ptr(), int(X.dtype == torch.bfloat16), mean.data_ptr(), scale.data_ptr(),
+        w.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1],
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
     )
     return out
 
@@ -1100,7 +1431,9 @@ class LogisticRegression:
     ``mesh``: the ranks to fit over (``parallel/mesh.py``), by default
     every rank of the process group, as the reference's ``resolve_mesh``:
     in one process a 1×1 mesh on ``device``, and the single-device fit.
-    ``loss_history_``: the last fit's losses, on the device."""
+    Over a model axis of M ranks the classes are sharded when M divides
+    them (the reference's ``_fit_prepared``). ``loss_history_``: the last
+    fit's losses, on the device."""
 
     def __init__(
         self,
@@ -1129,7 +1462,7 @@ class LogisticRegression:
         mean, scale = scaler_stats(X)
         mean32 = torch.from_numpy(mean.astype(np.float32)).to(self.device)
         scale32 = torch.from_numpy(scale.astype(np.float32)).to(self.device)
-        if self.mesh.shape["data"] > 1:
+        if self.mesh.shape["data"] > 1 or self.mesh.shape["model"] > 1:
             # the standardized rows in the policy's type (reference :476-479)
             X_dev, mask = shard_rows(_standardized(X, mean, scale), self.mesh, dtype=np.float32)
             y_dev, _ = shard_rows(np.asarray(y), self.mesh, dtype=np.int32)
@@ -1153,15 +1486,44 @@ class LogisticRegression:
         weights = mask.to(torch.float32)
         mean, scale = masked_stats(X_dev, weights, self.mesh)
         X_std = standardize(X_dev, mean, scale, weights)
-        return self._fit_prepared(X_std, y_dev.to(torch.int32), mask, num_classes, mean, scale)
+        return self._fit_prepared(
+            X_std, y_dev.to(torch.int32), mask, num_classes, mean.to(torch.float32),
+            scale.to(torch.float32))
 
     def _fit_prepared(self, X_dev, y_dev, mask, num_classes, mean, scale) -> LogisticRegressionModel:
         """The data-parallel fit of a block: the mask as row weights (the
-        reference's sharded ``_fit``, :551)."""
-        W = torch.zeros((X_dev.shape[1], num_classes), dtype=torch.float32, device=self.device)
-        b = torch.zeros(num_classes, dtype=torch.float32, device=self.device)
+        reference's sharded ``_fit``, :551). Over a model axis of M ranks
+        that divides the classes, this rank fits its shard of W and b
+        (classes ``[m C/M, (m+1) C/M)``) with its model group, and the
+        shards are gathered in class order at the end; else the
+        reference's warning, and W and b replicate."""
+        from learningorchestra_tpu_torch.parallel.mesh import model_size, over_model
+
+        model = model_size(self.mesh)
+        shardable = num_classes % model == 0
+        if not shardable:
+            import warnings
+
+            warnings.warn(
+                f"LogisticRegression: {num_classes} classes do not divide "
+                f"the model axis ({model} devices); W/b "
+                "replicate and the model axis adds no parallelism for "
+                "this fit",
+                stacklevel=3,
+            )
+        first, classes = None, num_classes
+        if shardable and over_model(self.mesh):
+            classes = num_classes // model
+            first = self.mesh.model_index * classes
+        W = torch.zeros((X_dev.shape[1], classes), dtype=torch.float32, device=self.device)
+        b = torch.zeros(classes, dtype=torch.float32, device=self.device)
         W, b, self.loss_history_ = _fit(
             W, b, X_dev, y_dev, self.max_iter, float(self.reg_param), self.tol,
-            weights=mask.to(torch.float32), mesh=self.mesh,
+            weights=mask.to(torch.float32), mesh=self.mesh, first=first,
         )
+        if first is not None:
+            from learningorchestra_tpu_torch.parallel.multihost import model_all_gather
+
+            W = torch.cat(model_all_gather(W, self.mesh), dim=1)
+            b = torch.cat(model_all_gather(b, self.mesh))
         return LogisticRegressionModel(W, b, mean, scale, mesh=self.mesh)

@@ -78,7 +78,12 @@ from learningorchestra_tpu_torch.ml.base import (
     to_host,
 )
 from learningorchestra_tpu_torch.ml.binning import MAX_BINS, apply_bins, make_thresholds
-from learningorchestra_tpu_torch.parallel.mesh import default_mesh, over_ranks
+from learningorchestra_tpu_torch.parallel.mesh import (
+    default_mesh,
+    model_size,
+    over_model,
+    over_ranks,
+)
 
 MAX_DEPTH = 5          # MLlib default maxDepth
 NUM_TREES = 20         # MLlib default numTrees (RF)
@@ -1781,7 +1786,16 @@ class RandomForestClassifier:
     Over several ranks (``mesh``) every rank draws the global rows' draws
     from the same seeded generator and takes its block of the bootstrap
     (the padded rows weighted 0): handed the same draws, a fit over any
-    number of ranks grows the one-process fit's heaps."""
+    number of ranks grows the one-process fit's heaps.
+
+    Over a model axis of M ranks that divides the trees (the reference's
+    ``_rf_chunk`` with its tree axis on ``MODEL_AXIS``, ``ml/trees.py
+    :423-441``, and ``_rf_fit`` :480-482), model rank m grows trees ``[m
+    T/M, (m+1) T/M)`` from those trees' draws, their histograms summed over
+    its data group only, and the heaps are gathered over the model group
+    in model-rank order: the same forest, bit for bit. An uneven split
+    grows every tree on every rank of the model group, as the reference
+    replicates."""
 
     def __init__(
         self,
@@ -1812,13 +1826,28 @@ class RandomForestClassifier:
         num_classes = infer_num_classes(y)
         subset_k = max(1, int(np.ceil(np.sqrt(np.shape(X)[1]))))
         X_dev, y_dev, thresholds, weights = _fit_inputs(X, y, self.max_bins, self.mesh)
+        model = model_size(self.mesh)
+        trees = self.num_trees
+        sharded = over_model(self.mesh) and trees % model == 0
+        if sharded:   # this model rank's trees and their draws
+            trees //= model
+            first = self.mesh.model_index * trees
+            draws = ForestDraws(
+                draws.bootstrap[first : first + trees], draws.subset_scores[first : first + trees])
         if over_ranks(self.mesh):
             draws = _block_draws(draws, self.mesh, X_dev.shape[0])
         bins = apply_bins(X_dev, thresholds)
         features_heap, bins_heap, leaf_probs = _rf_fit(
             bins, y_dev, weights, draws, num_classes, self.max_depth, self.max_bins,
-            self.num_trees, subset_k, self.mesh,
+            trees, subset_k, self.mesh,
         )
+        if sharded:
+            from learningorchestra_tpu_torch.parallel.multihost import model_all_gather
+
+            features_heap, bins_heap, leaf_probs = (
+                torch.cat(model_all_gather(heap, self.mesh))
+                for heap in (features_heap, bins_heap, leaf_probs)
+            )
         thresholds_heap = _heap_thresholds(features_heap, bins_heap, thresholds)
         return _TreeEnsembleModel(
             features_heap, thresholds_heap, leaf_probs, self.max_depth, self.mesh

@@ -3,14 +3,14 @@
 Counterpart of ``learningorchestra_tpu/parallel/``: rows of a dataset go
 in blocks over the ``data`` axis of ``torch.distributed`` ranks (one
 process a rank), the way the reference shards them over a JAX mesh, and
-the sums that cross blocks are gathered and added in rank order. The
+the sums that cross blocks are gathered and added in rank order; lr's
+classes and rf's trees go in shards over the ``model`` axis. The
 reference's ``NamedSharding`` helpers (``row_sharded``, ``replicated``)
 have no counterpart: a rank holds its block (:func:`shard_rows`) or a
 replicated tensor (:func:`put_replicated`). Every fit takes a mesh (lr,
 nb, dt, rf, gb), a fitted model's forward and metrics run over its ranks,
 and so do the builder's ``train_one`` and ``build_model``, PCA and t-SNE.
-``spmd.py`` (the multi-host dispatcher) and the model axis are ROADMAP
-Queue 1 items 6d and 6c.
+``spmd.py`` (the multi-host dispatcher) is ROADMAP Queue 1 item 6d.
 """
 
 from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -19,8 +19,10 @@ from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     data_size,
     default_mesh,
+    grid,
     make_mesh,
     model_size,
+    over_model,
     over_ranks,
 )
 from learningorchestra_tpu_torch.parallel.sharding import (  # noqa: F401
@@ -37,5 +39,7 @@ from learningorchestra_tpu_torch.parallel.multihost import (  # noqa: F401
     gather_rows,
     host_row_range,
     initialize_from_env,
+    model_all_gather,
+    model_all_sum,
     shard_rows_local,
 )

@@ -17,9 +17,14 @@ axis's collectives; the port runs one process a rank over
   the same for a tensor of each rank's ``host_row_range`` rows, left on
   the device.
 - :func:`all_sum` — the sums that cross the data axis (a fit's float64
-  partial sums, the confusion counts): gathered from every rank and added
-  in rank order in float64, so that every rank holds the same bits and a
-  run repeats them. No all-reduce: its order of addition is the library's.
+  partial sums, the confusion counts): gathered from every rank of the
+  data group and added in rank order in float64, so that every rank holds
+  the same bits and a run repeats them. No all-reduce: its order of
+  addition is the library's.
+- :func:`model_all_gather` / :func:`model_all_sum` — their counterparts
+  on the model group (the ranks that share this rank's block of rows: lr's
+  class shards, rf's tree shards), in model-rank order, the sums in
+  float64.
 
 Gloo on CUDA tensors: the collectives take them as they are. Where the
 installed gloo refuses them, :func:`stage_through_host` makes every
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.device import DeviceLike, resolve_device
-from learningorchestra_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from learningorchestra_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from learningorchestra_tpu_torch.parallel.sharding import padded_row_count, to_device
 from learningorchestra_tpu_torch.telemetry import profile as _profile
 
@@ -49,7 +54,8 @@ _ENV_PROCESS_ID = "LO_PROCESS_ID"
 # a collective that waits longer than this raises instead of hanging
 DEFAULT_TIMEOUT_S = 300.0
 
-_state = {"host_staging": False, "collective_s": 0.0, "collectives": 0}
+_state = {"host_staging": False, "collective_s": 0.0, "collectives": 0,
+          "model_collective_s": 0.0, "model_collectives": 0}
 _state_lock = threading.Lock()
 
 
@@ -100,8 +106,9 @@ def stage_through_host(on: bool = True) -> None:
 
 
 def collective_stats() -> dict:
-    """``{"host_staging", "collective_s", "collectives"}``: host seconds
-    spent in this process's collective calls, and their count."""
+    """``{"host_staging", "collective_s", "collectives", "model_collective_s",
+    "model_collectives"}``: host seconds spent in this process's collective
+    calls and their count, on the data group and on the model group apart."""
     with _state_lock:
         return dict(_state)
 
@@ -109,37 +116,62 @@ def collective_stats() -> dict:
 def reset_collective_stats() -> None:
     with _state_lock:
         _state["collective_s"], _state["collectives"] = 0.0, 0
+        _state["model_collective_s"], _state["model_collectives"] = 0.0, 0
 
 
-def all_gather(tensor: torch.Tensor, mesh: Mesh) -> list:
-    """Every data rank's ``tensor`` (equal shapes), in rank order, on this
-    rank's device. A data axis of 1 gives ``[tensor]`` with no collective."""
+def _gather(tensor: torch.Tensor, group, size: int, axis: str) -> list:
+    """Every rank's ``tensor`` of ``group`` (``size`` ranks, equal shapes),
+    in group-rank order, on this rank's device; its time and count booked
+    under ``axis``. No group gives ``[tensor]`` with no collective."""
     import torch.distributed as dist
 
-    if mesh.group is None:
+    if group is None:
         return [tensor]
     staged = _state["host_staging"] and tensor.device.type == "cuda"
     local = tensor.contiguous()
     if staged:
         local = local.cpu()
         _profile.account_d2h(local.numel() * local.element_size())
-    parts = [torch.empty_like(local) for _ in range(mesh.shape[DATA_AXIS])]
+    parts = [torch.empty_like(local) for _ in range(size)]
     started = time.perf_counter()
-    dist.all_gather(parts, local, group=mesh.group)
+    dist.all_gather(parts, local, group=group)
+    prefix = "" if axis == DATA_AXIS else "model_"
     with _state_lock:
-        _state["collective_s"] += time.perf_counter() - started
-        _state["collectives"] += 1
+        _state[prefix + "collective_s"] += time.perf_counter() - started
+        _state[prefix + "collectives"] += 1
     return [part.to(tensor.device) for part in parts] if staged else parts
+
+
+def _rank_order_sum(parts: list) -> torch.Tensor:
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def all_gather(tensor: torch.Tensor, mesh: Mesh) -> list:
+    """Every data rank's ``tensor`` (equal shapes), in rank order, on this
+    rank's device. A data axis of 1 gives ``[tensor]`` with no collective."""
+    return _gather(tensor, mesh.group, mesh.shape[DATA_AXIS], DATA_AXIS)
 
 
 def all_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of every data rank's ``tensor``, added in rank order (the
     same bits on every rank). A data axis of 1 returns ``tensor``."""
-    parts = all_gather(tensor, mesh)
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part
-    return total
+    return _rank_order_sum(all_gather(tensor, mesh))
+
+
+def model_all_gather(tensor: torch.Tensor, mesh: Mesh) -> list:
+    """Every model rank's ``tensor`` (equal shapes) of this rank's model
+    group, in model-rank order. A model axis of 1 gives ``[tensor]``."""
+    return _gather(tensor, mesh.model_group, mesh.shape[MODEL_AXIS], MODEL_AXIS)
+
+
+def model_all_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over this rank's model group of ``tensor`` taken in float64,
+    added in model-rank order: float64, the same bits on every rank of
+    the group. A model axis of 1 returns ``tensor`` in float64."""
+    return _rank_order_sum(model_all_gather(tensor.to(torch.float64), mesh))
 
 
 def _block(n_rows: int, mesh: Mesh) -> int:
@@ -149,9 +181,10 @@ def _block(n_rows: int, mesh: Mesh) -> int:
 
 def host_row_range(n_rows: int, mesh: Mesh) -> tuple[int, int]:
     """Global row range this rank must feed for an ``n_rows`` dataset
-    row-sharded over ``mesh``'s data axis: its block of the padded row
-    space (the reference's block rule), clamped to ``n_rows``. Padding rows
-    are made by :func:`shard_rows_local`, never loaded."""
+    row-sharded over ``mesh``'s data axis: its data index's block of the
+    padded row space (the reference's block rule), clamped to ``n_rows``;
+    the ranks of one model group feed the same block. Padding rows are
+    made by :func:`shard_rows_local`, never loaded."""
     block = _block(n_rows, mesh)
     index = mesh.data_index
     return min(index * block, n_rows), min((index + 1) * block, n_rows)

@@ -8,10 +8,12 @@ nearby sizes fuse. The mask keeps the padded rows out of every sum.
 
 The reference puts the whole padded array on a ``NamedSharding`` and XLA
 hands each device its shard; here each rank keeps only its own block:
-:func:`shard_rows` returns rank ``r``'s rows ``[r * block, (r + 1) *
-block)`` of the padded array and their validity mask, the reference's
-shard ``r`` exactly. The single-card callers (the sweep's job axis) pass
-``multiple=1`` to :func:`pad_rows`.
+:func:`shard_rows` returns data index ``r``'s rows ``[r * block, (r + 1)
+* block)`` of the padded array and their validity mask, the reference's
+shard ``r`` exactly, replicated over the model group (its
+``P(DATA_AXIS)``: every rank of one model group holds the same block).
+The single-card callers (the sweep's job axis) pass ``multiple=1`` to
+:func:`pad_rows`.
 """
 
 from __future__ import annotations
@@ -85,8 +87,9 @@ def to_device(host: np.ndarray, device, dtype: Optional[torch.dtype] = None) -> 
 
 
 def shard_rows(array: np.ndarray, mesh: Mesh, dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pad ``array`` over the mesh's data axis and copy this rank's block to
-    its device. Returns ``(block, mask)``: the block's rows and a boolean
+    """Pad ``array`` over the mesh's data axis and copy this rank's data
+    index's block to its device (the same block on every rank of its model
+    group). Returns ``(block, mask)``: the block's rows and a boolean
     tensor marking its real (non-padding) rows. Float ``dtype`` requests go
     through :func:`policy_dtype`."""
     data = mesh.shape[DATA_AXIS]

@@ -1,11 +1,12 @@
-"""The port's other fits over data ranks: R gloo processes on the CPU, held
-against the port's one-process fits and the JAX package's 8-device mesh.
+"""The port's fits over ranks: R gloo processes on the CPU, held against the
+port's one-process fits and the JAX package's 8-device mesh.
 
 A gloo analogue of tests/test_multichip.py:40-152. The file launches
 itself as the worker (``python tests/test_torch_multichip.py <rank>
-<world> <addr> <out>``): each rank joins a ``torch.distributed`` gloo
-group of R in {2, 4} processes (a group timeout of 60 s), builds the
-default mesh (every rank on the data axis, ``device="cpu"``) and, on the
+<world> <addr> <out> [<model>]``): each rank joins a ``torch.distributed``
+gloo group of R in {2, 4} processes (a group timeout of 60 s), builds the
+mesh (every rank on the data axis, ``device="cpu"``; in the third run a
+2 × 2 grid, ``make_mesh(data=2, model=2)``) and, on the
 reference test's data (640 x 6 XOR rows, 200 x 5 PCA rows, 120 blob rows,
 each from ``default_rng(0)``), fits dt, rf (on injected draws: the
 reference's own, rebuilt with ``jax.random`` in the test process as
@@ -35,6 +36,27 @@ What is held:
 - ``train_one`` over the ranks: only rank 0 writes, and its metadata
   metrics equal the one-process build's.
 
+lr on seeded blobs (640 x 6) with C = 2, 4 and 3 classes, in every run:
+- the 2 × 2 grid shards C = 2 and C = 4 over the model axis (one and two
+  classes a rank): every rank's bits equal, the losses within 1e-5
+  relative of the 2 × 1 run's (float64 sums over the shards against one
+  rank's whole classes, the same iterations), accuracy within 0.02 of the
+  JAX package's fit on ``make_mesh(data=2, model=2)`` (the reference's own
+  bound, tests/test_multichip.py:57-64); C = 3 raises the reference's
+  warning word for word and replicates, and is then the 2 × 1 fit bit for
+  bit;
+- rf's 10 trees on the reference's draws over 2 × 2: each rank grew 5,
+  and the gathered heaps are the one-process fit's bit for bit; nb, dt,
+  gb, PCA, the affinities and t-SNE on 2 × 2 are the 2 × 1 run's bits;
+- ``fit_sharded`` under ``LO_DTYPE_POLICY=bf16`` (K8′ on bfloat16 rows,
+  K7 on the standardized bfloat16 rows) over 2 × 1 against the JAX
+  package's on ``make_mesh(data=2)``: mean and scale within one bfloat16
+  ulp, probabilities within 1e-4 and labels equal but at near ties (the
+  tolerances of tests/test_torch_bf16.py); over 2 × 2 its losses within
+  1e-5 relative of the 2 × 1 run's;
+- ``train_one`` over 2 × 2 writes on rank 0 only, and lr's ``.model``
+  file has the one-process layout (every rank entered the gathers).
+
 The twins of the four new kernel forms are held beside them, in the test
 process: each rank's block (or slab) added in rank order against the
 whole, with no launch on the CPU.
@@ -52,6 +74,7 @@ import numpy as np
 _TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(_TESTS_DIR)
 WORLDS = (2, 4)
+GRID = "2x2"                  # the third run: four ranks as data 2 x model 2
 GROUP_TIMEOUT_S = 60
 RF_TREES = 10
 GB_ROUNDS = 5
@@ -60,6 +83,19 @@ TSNE_SEED = 3
 PERPLEXITY = 10.0
 MODEL_NAMES = ("lr", "dt", "rf", "gb", "nb")
 DRAWS_FILE = "reference_draws.npz"
+LR_CLASSES = (2, 4, 3)
+LR_LOSS_RTOL = 1e-5
+BF16_PROB_TOL = 1e-4
+NEAR_TIE = 2e-4
+SHARD_WARNING = ("LogisticRegression: 3 classes do not divide the model axis (2 devices); W/b "
+                 "replicate and the model axis adds no parallelism for this fit")
+
+
+def lr_data(classes: int):
+    rng = np.random.default_rng(classes)
+    centers = rng.normal(size=(classes, 6)) * 0.8
+    labels = rng.integers(0, classes, size=640)
+    return centers[labels] + rng.normal(size=(640, 6)), labels
 
 
 def xor_data():
@@ -141,7 +177,57 @@ def gb_resume(torch, dist, X, y, folder: str) -> dict:
     }
 
 
-def worker(rank: int, world: int, address: str, out_path: str) -> None:
+def lr_fits(torch, mesh) -> dict:
+    """lr on each of LR_CLASSES' blobs over ``mesh``: losses, accuracy,
+    parameters (as bits), probabilities and the warnings raised."""
+    import warnings
+
+    from learningorchestra_tpu_torch.ml.logistic import LogisticRegression
+
+    out = {}
+    for classes in LR_CLASSES:
+        X, y = lr_data(classes)
+        estimator = LogisticRegression(device="cpu", mesh=mesh)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model = estimator.fit(X, y)
+        labels, probs = model.predict_both(X)
+        out[str(classes)] = {
+            "losses": estimator.loss_history_.tolist(), "accuracy": float((labels == y).mean()),
+            "w_shape": list(model.w.shape), "w_bits": _hex(model.w.numpy()), "b_bits": _hex(model.b.numpy()),
+            "probs_bits": _hex(probs),
+            "warnings": [str(w.message) for w in caught if issubclass(w.category, UserWarning)],
+        }
+    return out
+
+
+def lr_bf16_fit_sharded(torch, mesh) -> dict:
+    """``fit_sharded`` on the C = 2 blobs under ``LO_DTYPE_POLICY=bf16``:
+    each rank's block of the rows in bfloat16 (``shard_rows``), K8′ on
+    them, then the fit; the policy is set for this fit alone."""
+    from learningorchestra_tpu_torch.ml.logistic import LogisticRegression
+    from learningorchestra_tpu_torch.parallel import shard_rows
+    from learningorchestra_tpu_torch.utils import dtypepolicy
+
+    os.environ["LO_DTYPE_POLICY"] = "bf16"
+    dtypepolicy._POLICY.clear()
+    try:
+        X, y = lr_data(2)
+        X_block, mask = shard_rows(X, mesh, dtype=np.float32)
+        y_block, _ = shard_rows(y, mesh, dtype=np.int32)
+        assert X_block.dtype == torch.bfloat16
+        estimator = LogisticRegression(device="cpu", mesh=mesh)
+        model = estimator.fit_sharded(X_block, y_block, mask, 2)
+        labels, probs = model.predict_both(X)
+    finally:
+        os.environ.pop("LO_DTYPE_POLICY")
+        dtypepolicy._POLICY.clear()
+    return {"losses": estimator.loss_history_.tolist(), "mean": model.mean.tolist(),
+            "scale": model.scale.tolist(), "probs": probs.tolist(), "labels": labels.tolist(),
+            "probs_bits": _hex(probs)}
+
+
+def worker(rank: int, world: int, address: str, out_path: str, model_axis: int = 1) -> None:
     os.environ["LO_COORDINATOR"] = address
     os.environ["LO_NUM_PROCESSES"] = str(world)
     os.environ["LO_PROCESS_ID"] = str(rank)
@@ -150,24 +236,37 @@ def worker(rank: int, world: int, address: str, out_path: str) -> None:
 
     from learningorchestra_tpu_torch.core.store import InMemoryStore
     from learningorchestra_tpu_torch.frame.dataframe import DataFrame
-    from learningorchestra_tpu_torch.ml import builder, trees
+    from learningorchestra_tpu_torch.ml import builder, checkpoint, trees
     from learningorchestra_tpu_torch.ml.naive_bayes import NaiveBayes
     from learningorchestra_tpu_torch.ops import pca, tsne
     from learningorchestra_tpu_torch.parallel import gather_rows, initialize_from_env, make_mesh
 
     assert initialize_from_env(device="cpu", timeout_s=GROUP_TIMEOUT_S)
-    mesh = make_mesh(device="cpu")
+    mesh = make_mesh(data=world // model_axis, model=model_axis, device="cpu")
     X, y = xor_data()
+    grown = []   # the trees each call of the forest fit grew on this rank
+    forest_fit = trees._rf_fit
+
+    def counted_forest_fit(*args, **kwargs):
+        grown.append(args[7])
+        return forest_fit(*args, **kwargs)
+
+    trees._rf_fit = counted_forest_fit
+    try:
+        rf_draws = trees.RandomForestClassifier(num_trees=RF_TREES, device="cpu", mesh=mesh)._fit_with_draws(
+            X, y, load_draws(torch, trees, os.path.join(os.path.dirname(out_path), DRAWS_FILE)))
+    finally:
+        trees._rf_fit = forest_fit
     models = {
-        "dt": trees.DecisionTreeClassifier(device="cpu").fit(X, y),
-        "rf_draws": trees.RandomForestClassifier(num_trees=RF_TREES, device="cpu")._fit_with_draws(
-            X, y, load_draws(torch, trees, os.path.join(os.path.dirname(out_path), DRAWS_FILE))),
-        "rf": trees.RandomForestClassifier(num_trees=RF_TREES, device="cpu").fit(X, y),
-        "gb": trees.GBTClassifier(rounds=GB_ROUNDS, device="cpu").fit(X, y),
-        "nb": NaiveBayes(device="cpu").fit(np.abs(X), y),
+        "dt": trees.DecisionTreeClassifier(device="cpu", mesh=mesh).fit(X, y),
+        "rf_draws": rf_draws,
+        "rf": trees.RandomForestClassifier(num_trees=RF_TREES, device="cpu", mesh=mesh).fit(X, y),
+        "gb": trees.GBTClassifier(rounds=GB_ROUNDS, device="cpu", mesh=mesh).fit(X, y),
+        "nb": NaiveBayes(device="cpu", mesh=mesh).fit(np.abs(X), y),
     }
     record = {
-        "rank": rank, "world": world, "data": mesh.shape["data"],
+        "rank": rank, "world": world, "data": mesh.shape["data"], "model": mesh.shape["model"],
+        "coordinates": [mesh.data_index, mesh.model_index], "rf_trees_grown": grown,
         "models": {
             name: model_record(model, np.abs(X) if name == "nb" else X, y)
             for name, model in models.items()
@@ -182,19 +281,33 @@ def worker(rank: int, world: int, address: str, out_path: str) -> None:
     record["tsne"] = tsne.tsne_embedding(
         blobs, iterations=TSNE_ITERATIONS, seed=TSNE_SEED, mesh=mesh).tolist()
 
-    record["gb_resume"] = gb_resume(torch, dist, X, y, os.path.dirname(out_path))
+    if model_axis == 1:
+        record["gb_resume"] = gb_resume(torch, dist, X, y, os.path.dirname(out_path))
+    record["lr"] = lr_fits(torch, mesh)
+    if world == 2 or model_axis > 1:
+        record["lr_bf16"] = lr_bf16_fit_sharded(torch, mesh)
 
     store = InMemoryStore()
     frame = DataFrame({"features": np.abs(X), "label": y.astype(np.float64)})   # nb takes no negatives
-    metadata = {}
+    models_dir = os.path.join(os.path.dirname(out_path), "models")
+    metadata, checkpoints = {}, {}
     for name in MODEL_NAMES:
         out = builder.train_one(store, name, frame, frame, frame, "multichip", device="cpu",
-                                mesh=mesh, write_outputs=rank == 0)
+                                models_dir=models_dir, mesh=mesh, write_outputs=rank == 0)
         metadata[name] = {"F1": out["F1"], "accuracy": out["accuracy"],
                           "written": store.find_one(out["filename"], {builder.ROW_ID: 0}) is not None}
+        if rank == 0:
+            kind, arrays, _ = checkpoint.read_checkpoint(out["model_checkpoint"])
+            checkpoints[name] = {
+                "kind": kind, "arrays": {key: [list(value.shape), str(value.dtype)]
+                                         for key, value in arrays.items()},
+                **({"w": arrays["w"].tolist()} if name == "lr" else {}),
+            }
     record["train_one"] = metadata
+    record["checkpoints"] = checkpoints
+    record["model_files"] = sorted(os.listdir(models_dir)) if os.path.isdir(models_dir) else []
     digest = hashlib.sha256(json.dumps(
-        {key: record[key] for key in ("models", "pca", "affinities", "tsne")}, sort_keys=True,
+        {key: record[key] for key in ("models", "pca", "affinities", "tsne", "lr")}, sort_keys=True,
     ).encode()).hexdigest()
     record["digest"] = digest
     with open(out_path, "w") as handle:
@@ -204,7 +317,8 @@ def worker(rank: int, world: int, address: str, out_path: str) -> None:
 
 if __name__ == "__main__":
     sys.path[:0] = [_REPO_ROOT, _TESTS_DIR]
-    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+           int(sys.argv[5]) if len(sys.argv) > 5 else 1)
     sys.exit(0)
 
 
@@ -253,7 +367,8 @@ def draws_file(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, draws_file):
-    """``{R: [each rank's record]}`` for R in WORLDS, both runs at once."""
+    """``{R: [each rank's record]}`` for R in WORLDS and the 2 × 2 grid
+    (``GRID``), the three runs at once."""
     import shutil
 
     env = dict(os.environ)
@@ -261,36 +376,36 @@ def runs(tmp_path_factory, draws_file):
     env.pop("LO_DTYPE_POLICY", None)
     env["OMP_NUM_THREADS"] = "1"
     procs, outs = {}, {}
-    for world in WORLDS:
-        folder = tmp_path_factory.mktemp(f"torch_multichip_{world}")
+    for run, (world, model) in {**{world: (world, 1) for world in WORLDS}, GRID: (4, 2)}.items():
+        folder = tmp_path_factory.mktemp(f"torch_multichip_{run}")
         shutil.copy(draws_file, folder / DRAWS_FILE)
         address = f"127.0.0.1:{_free_port()}"
-        outs[world] = [str(folder / f"p{rank}.json") for rank in range(world)]
-        procs[world] = [
+        outs[run] = [str(folder / f"p{rank}.json") for rank in range(world)]
+        procs[run] = [
             subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), str(rank), str(world), address,
-                 outs[world][rank]],
+                 outs[run][rank], str(model)],
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=_TESTS_DIR,
             )
             for rank in range(world)
         ]
     logs = {}
     try:
-        for world in WORLDS:
-            logs[world] = [proc.communicate(timeout=240)[0].decode(errors="replace")
-                           for proc in procs[world]]
+        for run in procs:
+            logs[run] = [proc.communicate(timeout=240)[0].decode(errors="replace")
+                         for proc in procs[run]]
     finally:
         for proc in (p for group in procs.values() for p in group):
             if proc.poll() is None:
                 proc.kill()
     results = {}
-    for world in WORLDS:
-        for rank, proc in enumerate(procs[world]):
-            assert proc.returncode == 0, f"R={world} rank {rank} failed:\n{logs[world][rank]}"
-        results[world] = []
-        for path in outs[world]:
+    for run in procs:
+        for rank, proc in enumerate(procs[run]):
+            assert proc.returncode == 0, f"run {run} rank {rank} failed:\n{logs[run][rank]}"
+        results[run] = []
+        for path in outs[run]:
             with open(path) as handle:
-                results[world].append(json.load(handle))
+                results[run].append(json.load(handle))
     return results
 
 
@@ -324,7 +439,9 @@ def solo(draws_file):
 
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX package's fits, PCA, affinities and t-SNE on its 8-device mesh."""
+    """The JAX package's fits, PCA, affinities and t-SNE on its 8-device mesh,
+    and lr on its 2 × 2 mesh."""
+    import jax
     import jax.numpy as jnp
 
     from learningorchestra_tpu.ml.evaluation import accuracy_score
@@ -338,13 +455,21 @@ def reference():
     from learningorchestra_tpu.ops.tsne import _affinities, _pad_for_mesh
     from learningorchestra_tpu.parallel.mesh import make_mesh
 
+    from learningorchestra_tpu.ml.logistic import LogisticRegression as JaxLogistic
+
     mesh = make_mesh(data=8, model=1)
+    grid = make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    lr_accuracy = {}
+    for classes in (2, 4):
+        X_lr, y_lr = lr_data(classes)
+        lr_accuracy[str(classes)] = accuracy_score(y_lr, JaxLogistic(mesh=grid).fit(X_lr, y_lr).predict(X_lr))
     X, y = xor_data()
     dt = JaxDecisionTree(mesh=mesh).fit(X, y)
     blobs, _ = blob_data()
     X_pad, valid, chunk = _pad_for_mesh(blobs, mesh, 1024)
     P = _affinities(mesh, jnp.asarray(X_pad), jnp.asarray(valid), jnp.float32(PERPLEXITY), chunk)
     return {
+        "lr_accuracy": lr_accuracy,
         "nb_probs": JaxNaiveBayes(mesh=mesh).fit(np.abs(X), y).predict_proba(np.abs(X)),
         "dt": {name: np.asarray(getattr(dt, name)) for name in (
             "features_heap", "thresholds_heap", "leaf_probs")},
@@ -475,6 +600,134 @@ def test_train_one_over_two_ranks_writes_on_rank_zero(runs, solo, name):
     want = solo["train_one"][name]
     np.testing.assert_allclose([float(got["accuracy"]), float(got["F1"])],
                                [float(want["accuracy"]), float(want["F1"])], rtol=0, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# The model axis: the 2 x 2 grid against the 2 x 1 run and the reference
+# --------------------------------------------------------------------------
+
+def test_the_grid_holds_the_references_layout_and_the_same_bits(runs):
+    records = runs[GRID]
+    assert [r["coordinates"] for r in records] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+    assert all((r["data"], r["model"]) == (2, 2) for r in records)
+    assert len({r["digest"] for r in records}) == 1
+    assert all(r["train_one"] == {name: {**value, "written": r["train_one"][name]["written"]}
+                                  for name, value in records[0]["train_one"].items()} for r in records)
+
+
+@pytest.mark.parametrize("classes", ["2", "4"])
+def test_lr_classes_over_the_model_axis_match_the_data_axis_and_the_reference(runs, reference, classes):
+    got, want = runs[GRID][0]["lr"][classes], runs[2][0]["lr"][classes]
+    assert got["warnings"] == [] and got["w_shape"] == [6, int(classes)]
+    assert len(got["losses"]) == len(want["losses"])
+    losses, wanted = np.asarray(got["losses"]), np.asarray(want["losses"])
+    assert np.max(np.abs(losses - wanted) / np.abs(wanted)) <= LR_LOSS_RTOL
+    assert abs(got["accuracy"] - want["accuracy"]) <= 0.02
+    assert abs(got["accuracy"] - reference["lr_accuracy"][classes]) < 0.02
+
+
+def test_lr_classes_that_do_not_divide_the_model_axis_warn_and_replicate(runs):
+    got, want = runs[GRID][0]["lr"]["3"], runs[2][0]["lr"]["3"]
+    assert got["warnings"] == [SHARD_WARNING] and want["warnings"] == []
+    for key in ("losses", "w_bits", "b_bits", "probs_bits"):
+        assert got[key] == want[key], key
+
+
+def test_the_reference_warns_with_the_same_words():
+    import warnings
+
+    import jax
+
+    from learningorchestra_tpu.ml.logistic import LogisticRegression as JaxLogistic
+    from learningorchestra_tpu.parallel.mesh import make_mesh
+
+    X, y = lr_data(3)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        JaxLogistic(max_iter=2, mesh=make_mesh(data=2, model=2, devices=jax.devices()[:4])).fit(X, y)
+    assert SHARD_WARNING in [str(w.message) for w in caught]
+
+
+def test_rf_trees_over_the_model_axis_grow_the_one_process_heaps(runs, solo):
+    """The counterpart of the reference's test_rf_tree_axis_actually_sharded:
+    each rank grew its 5 of the 10 trees, and the gathered heaps are the
+    one-process fit's."""
+    assert [r["rf_trees_grown"] for r in runs[GRID]] == [[RF_TREES // 2]] * 4
+    assert all(r["rf_trees_grown"] == [RF_TREES] for r in runs[2])
+    got, want = runs[GRID][0]["models"]["rf_draws"], solo["models"]["rf_draws"]
+    for key in ("features_heap_bits", "thresholds_heap_bits", "leaf_probs_bits", "probs_bits"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("name", ("dt", "rf_draws", "rf", "gb", "nb"))
+def test_the_other_fits_on_the_grid_are_the_data_axis_bits(runs, name):
+    got, want = runs[GRID][0]["models"][name], runs[2][0]["models"][name]
+    assert {key: value for key, value in got.items() if key.endswith("_bits")} == {
+        key: value for key, value in want.items() if key.endswith("_bits")}
+
+
+@pytest.mark.parametrize("what", ("pca", "affinities", "tsne"))
+def test_pca_and_tsne_on_the_grid_are_the_data_axis_results(runs, what):
+    assert runs[GRID][0][what] == runs[2][0][what]
+
+
+def test_train_one_on_the_grid_writes_once_in_the_one_process_layout(runs):
+    for name in MODEL_NAMES:
+        assert [r["train_one"][name]["written"] for r in runs[GRID]] == [True, False, False, False]
+        got, want = runs[GRID][0]["train_one"][name], runs[2][0]["train_one"][name]
+        np.testing.assert_allclose([float(got["accuracy"]), float(got["F1"])],
+                                   [float(want["accuracy"]), float(want["F1"])], rtol=0, atol=1e-6)
+    assert len(runs[GRID][0]["model_files"]) == len(MODEL_NAMES)
+    for name in MODEL_NAMES:
+        got, want = runs[GRID][0]["checkpoints"][name], runs[2][0]["checkpoints"][name]
+        assert (got["kind"], got["arrays"]) == (want["kind"], want["arrays"])
+    np.testing.assert_allclose(runs[GRID][0]["checkpoints"]["lr"]["w"],
+                               runs[2][0]["checkpoints"]["lr"]["w"], rtol=0, atol=1e-3)
+
+
+def test_bf16_fit_sharded_over_the_grid_matches_the_data_axis(runs):
+    got, want = runs[GRID][0]["lr_bf16"], runs[2][0]["lr_bf16"]
+    assert all(r["lr_bf16"]["probs_bits"] == got["probs_bits"] for r in runs[GRID])
+    assert (got["mean"], got["scale"]) == (want["mean"], want["scale"])
+    losses, wanted = np.asarray(got["losses"]), np.asarray(want["losses"])
+    assert losses.shape == wanted.shape
+    assert np.max(np.abs(losses - wanted) / np.abs(wanted)) <= LR_LOSS_RTOL
+
+
+def test_bf16_fit_sharded_over_two_ranks_is_the_references(runs, monkeypatch):
+    """K8′ on bfloat16 rows and the fit on them, over 2 × 1 gloo ranks,
+    against the JAX package's ``fit_sharded`` on ``make_mesh(data=2)``
+    under the same policy."""
+    import jax
+    import jax.numpy as jnp
+
+    from learningorchestra_tpu.ml.logistic import LogisticRegression as JaxLogistic
+    from learningorchestra_tpu.parallel.mesh import make_mesh
+    from learningorchestra_tpu.parallel.sharding import shard_rows
+    from learningorchestra_tpu.utils import dtypepolicy as jax_dtypepolicy
+
+    monkeypatch.setenv("LO_DTYPE_POLICY", "bf16")
+    monkeypatch.setattr(jax_dtypepolicy, "_POLICY", [])
+    mesh = make_mesh(data=2, devices=jax.devices()[:2])
+    X, y = lr_data(2)
+    X_dev, mask = shard_rows(X, mesh, dtype=np.float32)
+    y_dev, _ = shard_rows(y, mesh, dtype=np.int32)
+    assert X_dev.dtype == jnp.bfloat16
+    theirs = JaxLogistic(mesh=mesh).fit_sharded(X_dev, y_dev, mask, 2)
+    their_probs = np.asarray(theirs.predict_proba(X))
+    got = runs[2][0]["lr_bf16"]
+
+    def steps(ours, want):   # bfloat16 ulps between float32 copies of bfloat16 values
+        a = np.asarray(ours, np.float32).view(np.int32) >> 16
+        return int(np.abs(a.astype(np.int64) - (np.asarray(want, np.float32).view(np.int32) >> 16)).max())
+
+    assert steps(got["mean"], theirs.mean) <= 1 and steps(got["scale"], theirs.scale) <= 1
+    probs = np.asarray(got["probs"])
+    np.testing.assert_allclose(probs, their_probs, rtol=0, atol=BF16_PROB_TOL)
+    labels, their_labels = np.asarray(got["labels"]), np.argmax(their_probs, axis=1)
+    differ = labels != their_labels
+    top = np.sort(their_probs[differ], axis=1)
+    assert not differ.any() or (top[:, -1] - top[:, -2]).max() < NEAR_TIE
 
 
 # --------------------------------------------------------------------------

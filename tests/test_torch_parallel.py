@@ -85,12 +85,33 @@ def test_make_mesh_shape_errors_are_the_reference(data, model, devices):
 
 
 def test_one_process_gets_a_one_by_one_mesh_and_no_model_axis():
+    """One process is one rank: a 1×1 mesh with no group on either axis; a
+    model axis of 2 needs two ranks of a process group."""
     one = mesh.make_mesh(device="cpu")
     assert (mesh.data_size(one), mesh.model_size(one)) == (1, 1)
     assert one.group is None and one.data_index == 0 and one.device == torch.device("cpu")
+    assert one.model_group is None and one.model_index == 0
+    assert not mesh.over_ranks(one) and not mesh.over_model(one)
     assert parallel.default_mesh(device="cpu").shape == one.shape
-    with pytest.raises(NotImplementedError, match="6c"):
+    with pytest.raises(ValueError, match="world size 1"):
         mesh.make_mesh(model=2, devices=[0, 1], device="cpu")
+
+
+@pytest.mark.parametrize("data, model, devices", [
+    (2, 2, 4), (4, 2, 8), (2, 3, 8), (None, 2, 8), (None, 4, 8), (1, 8, 8), (8, 1, 8), (3, 2, 7),
+])
+def test_the_two_d_layout_is_the_references(data, model, devices):
+    """``mesh.grid`` lays the ranks out as the reference's ``make_mesh``
+    lays out its devices (``devices[:data*model].reshape(data, model)``):
+    rank r at data index r // model and model index r % model; a model
+    group a row, a data group a column."""
+    expected = jax_mesh.make_mesh(data=data, model=model, devices=jax.devices()[:devices])
+    D, M = expected.shape[mesh.DATA_AXIS], expected.shape[mesh.MODEL_AXIS]
+    layout = mesh.grid(D, M)
+    assert layout == [[device.id for device in row] for row in expected.devices]
+    for d, row in enumerate(layout):
+        for m, rank in enumerate(row):
+            assert divmod(rank, M) == (d, m)
 
 
 @pytest.mark.parametrize("n", ROW_COUNTS + (0, 5_000, 1 << 20, (1 << 20) + 1))
@@ -244,11 +265,14 @@ def test_masked_col_sums_two_passes_and_the_operands():
     assert centred[2] == 0.0        # the constant column
     with pytest.raises(TypeError):
         logistic.masked_col_sums(torch.from_numpy(X).double(), torch.from_numpy(w))
-    with pytest.raises(NotImplementedError, match="6e"):
-        logistic.masked_stats(torch.from_numpy(X).to(torch.bfloat16), torch.from_numpy(w))
-    with pytest.raises(NotImplementedError, match="6e"):
-        logistic.standardize(torch.from_numpy(X).to(torch.bfloat16), torch.zeros(5), torch.ones(5),
-                             torch.from_numpy(w))
+    # bfloat16 rows: bfloat16 statistics, and a standardization that takes them
+    X16 = torch.from_numpy(X).to(torch.bfloat16)
+    mean16, scale16 = logistic.masked_stats(X16, torch.from_numpy(w))
+    assert mean16.dtype == scale16.dtype == torch.bfloat16 and float(scale16[2]) == 1.0
+    out = logistic.standardize(X16, mean16, scale16, torch.from_numpy(w))
+    assert out.dtype == torch.bfloat16 and not bool(out[250:].any())
+    with pytest.raises(TypeError):   # float32 statistics for bfloat16 rows
+        logistic.standardize(X16, torch.zeros(5), torch.ones(5), torch.from_numpy(w))
 
 
 def test_k8_kernels_are_registered_and_not_launched_on_the_cpu():

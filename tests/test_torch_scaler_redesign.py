@@ -105,7 +105,8 @@ def test_the_split_and_the_kernel_state_the_same_geometry():
         assert logistic._sums_windows(features) == (1 if features <= 64 else -(-features // 32))
     # one kernel, no second pass over the chunks
     assert "sum_chunks_kernel" not in source and "col_sums_kernel" not in source
-    assert len(re.findall(r"__global__ void", source)) == 3   # the sums, two standardizations
+    # the sums; two standardizations of float32 rows and two of bfloat16 rows
+    assert len(re.findall(r"__global__ void", source)) == 5
 
 
 # --------------------------------------------------------------------------
@@ -156,9 +157,10 @@ def test_a_pass_is_one_launch_over_the_split_with_the_zeroed_ticket(recorded, ro
     [(name, entry, args)] = recorded["launches"]
     assert name == ("masked_col_sums_centred" if centred else "masked_col_sums")
     assert entry == "lo_masked_col_sums"
-    assert len(args) == 12
+    assert len(args) == 13
+    assert args[1] == 0     # float32 rows
     # rows, F, the blocks along the rows (one of no rows at 0 rows), rows a chunk
-    assert args[6:10] == (rows, features, max(chunks, 1), per_chunk)
+    assert args[7:11] == (rows, features, max(chunks, 1), per_chunk)
     assert recorded["scratch"] == [(X.device, 1)]
     # the wrapper's own tensors: the partials, a row of F + 1 a chunk, and out
     assert [entry for entry in recorded["empty"] if entry[1] == torch.float64] == [
@@ -190,7 +192,7 @@ def test_wrong_dtypes_shapes_and_devices_raise():
     for bad_X, bad_w, error in (
         (X.double(), w, TypeError),
         (X.to(torch.int32), w, TypeError),
-        (X.to(torch.bfloat16), w, NotImplementedError),
+        (X.half(), w, TypeError),
         (X[0], w, TypeError),
         (X.numpy(), w, TypeError),
         (X, w.double(), TypeError),

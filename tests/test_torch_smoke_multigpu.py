@@ -7,6 +7,10 @@ rf, gb and nb with ``evaluate_predict`` over the ranks, PCA and a landmark
 t-SNE request over the ranks, and the parent holds runs (b) and (c)
 against its one-process fits (``_others_against_one_process``).
 
+Run (d), four gloo ranks as data 2 x model 2 (lr's classes and rf's
+trees over the model axis), is rehearsed beside a one-rank run (b), as the
+phase holds it.
+
 Here two gloo ranks run as child processes on the CPU: each child is a
 small wrapper that cuts the sizes (3,000 fit rows, 3,000 embed rows, 1,000
 landmarks: fewer part the two fits' KL by more than the phase's margin, as
@@ -43,7 +47,8 @@ import torch
 torch.cuda.synchronize = lambda *args, **kwargs: None
 import chip_smoke
 from learningorchestra_tpu_torch import kernels
-from learningorchestra_tpu_torch.ops import tsne
+from learningorchestra_tpu_torch.ops import pca, tsne
+pca.resolve_device = tsne.resolve_device = lambda device=None: torch.device("cpu")   # a one-rank run's
 for name, value in {sizes!r}.items():
     setattr(chip_smoke, name, value)
 tsne.LANDMARKS = {landmarks}
@@ -166,3 +171,65 @@ def test_a_gb_split_difference_names_the_node_and_both_gains():
     assert (difference["round"], difference["node"], difference["rows"]) == (1, 0, 500)
     assert difference["one_process"]["gain"] > difference["over_ranks"]["gain"]
     assert depth == 5
+
+
+# --------------------------------------------------------------------------
+# Run d: the model axis (four gloo ranks as data 2 x model 2) against run b
+# --------------------------------------------------------------------------
+
+@pytest.fixture()
+def grid_rehearsed(on_the_cpu, tmp_path):
+    folder = str(tmp_path / "runs")
+    runs = {
+        "b": chip_smoke._multigpu_run(torch, "b", "gloo", 1, 1, False, folder, 1, "ten,bf16"),
+        "d": chip_smoke._multigpu_run(torch, "d", "gloo", chip_smoke.GRID_DATA * chip_smoke.GRID_MODEL,
+                                      1, False, folder, chip_smoke.GRID_MODEL, "ten,bf16"),
+    }
+    return runs, chip_smoke._one_process_others(torch)
+
+
+def test_run_d_shards_lr_and_rf_over_the_model_axis(grid_rehearsed):
+    """Run d's lr fits (two classes, ten, and under bf16) agree with run b's
+    as the phase holds them (labels 0.999, losses MULTIGPU_LOSS_RTOL, the
+    same iterations); its ranks hold the same bits; rf's heaps are the
+    one-process fit's and nb's probabilities within MULTIGPU_NB_TOL."""
+    runs, solo = grid_rehearsed
+    summary, arrays = runs["d"]["summary"], runs["d"]["arrays"]
+    assert summary["mesh"] == [2, 2] and summary["coordinates"] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+    assert set(summary["others"]) == set(chip_smoke.GRID_FITS)
+    base = runs["b"]["arrays"]
+    for fit in chip_smoke.LR_FITS:
+        assert len(summary[fit]["wall_s"]) == 4
+        assert all(count > 0 for count in summary[fit]["model_collectives"]), fit
+        chip_smoke._agreement(fit, arrays[f"{fit}_labels"], arrays[f"{fit}_losses"],
+                              base[f"{fit}_labels"], base[f"{fit}_losses"])
+    assert runs["b"]["summary"]["fit_sharded"]["model_collectives"] == [0]
+    held = chip_smoke._grid_against_one_process("d", arrays, solo)
+    assert held["rf"]["heaps_identical"] and held["nb"]["probs_max_abs_err"] <= chip_smoke.MULTIGPU_NB_TOL
+    json.dumps(summary)
+
+
+def test_the_lr_path_names_the_class_shard_kernels_where_the_model_axis_shards():
+    shard = chip_smoke._lr_path("fit_sharded", [2, 2])
+    assert {"logistic_shard_stats", "logistic_shard_grad", "masked_col_sums"} <= set(shard)
+    assert "logistic_loss_grad_sums" not in shard
+    assert chip_smoke._lr_path("fit_sharded", [2, 1]) == tuple(chip_smoke.MULTIGPU_REPLACES)
+    assert chip_smoke._lr_path("fit", [4, 1]) == ("logistic_loss_grad_sums", "logistic_trial_losses_sums")
+
+
+@pytest.mark.parametrize("name", ("logistic_shard_stats", "logistic_shard_grad"))
+@pytest.mark.parametrize("x_bytes", (4, 2))
+def test_shard_bounds_are_bytes_at_run_ds_block(name, x_bytes):
+    rows = chip_smoke._grid_block_rows()
+    assert rows == 524_288
+    bound_ms, bound_by = chip_smoke._shard_bound(name, rows, 16, 5, 4 if name.endswith("stats") else 1,
+                                                 x_bytes)
+    assert bound_by == "bytes" and 0.005 < bound_ms < 0.05
+
+
+def test_bf16_ulps_count_bfloat16_steps():
+    a = torch.tensor([1.0, 2.0, -3.0], dtype=torch.bfloat16)
+    b = a.clone()
+    assert chip_smoke._bf16_ulps(torch, a, b) == 0
+    b[1] = 2.015625   # the next bfloat16 after 2
+    assert chip_smoke._bf16_ulps(torch, a, b) == 1
