@@ -337,7 +337,9 @@ Phases, one JSON line each:
                  at the 5,000 landmarks cut four ways, bit-equal to the
                  whole launch's rows; K12's slab at the landmark fit's Y0
                  and final embedding, within embed-kernels' K12
-                 tolerances; each timed. In every child, after the lr
+                 tolerances, and at edge shapes (1 to 5,000 rows cut 1,
+                 3 and 4 ways; P by the 16-byte and the 4-byte path, the
+                 two bit-equal); each timed. In every child, after the lr
                  fits, the SPMD fits of dt, rf, gb and nb (their
                  ``evaluate_predict`` over the ranks), PCA and a landmark
                  t-SNE request at 1,000,000 rows; runs (b) and (c) held
@@ -603,6 +605,10 @@ KL_MARGIN = 0.02
 # float32 instructions, a fused multiply-add one of them, at the card's
 # instruction rate, half the 67 TFLOP/s that counts a multiply-add as two.
 PEAK_FP32_INSTRUCTIONS_PER_S = PEAK_FP32_OPS_PER_S / 2
+# Float64 instructions (an add, or a fused multiply-add counted once) at
+# half the float32 instruction rate: 33.5 TFLOP/s counts a fused
+# multiply-add as two
+PEAK_FP64_INSTRUCTIONS_PER_S = PEAK_FP64_OPS_PER_S / 2
 # The float32 instructions a t-SNE kernel needs, an exp and a division
 # one each (a lower bound: each is several on the card), counted from the
 # kernels' arithmetic (tsne.cu). K11 and K13, for one (row, column) pair:
@@ -7033,8 +7039,8 @@ FORM_KERNELS = {   # the CUDA kernels a call runs, as the profiler names them
     "level_histograms_sums": ("level_histograms_kernel", "sum_partials_kernel", "partition_rows_kernel"),
     "leaf_sums_sums": ("leaf_sums_kernel", "sum_partials_kernel"),
     "tsne_affinities_slab": ("distances_kernel", "affinities_kernel"),
-    "tsne_z_slab": ("z_slab_kernel", "slab_total_kernel"),
-    "tsne_grad_slab": ("grad_slab_kernel",),
+    "tsne_z_slab": ("z_slab_tiles_kernel", "slab_total_kernel"),
+    "tsne_grad_slab": ("grad_slab_tiles_kernel", "gradient_finish_kernel"),
 }
 FORMS_LIBRARY = {
     "level_histograms_sums": "none: no PyTorch call gives float64 (node, feature, bin) sums of (g, h)",
@@ -7079,20 +7085,24 @@ def _slab_bound(name: str, slab: int, n: int, features: int = FEATURES) -> tuple
     """The row slabs: K11 reads X and writes the slab's (slab, n) P, its
     pairs' float32 instructions as K11's; K12 reads Y (and for the gradient
     the slab of P) and writes its float64 part of Z or the slab's gradient,
-    its slab x (n - 1) ordered pairs' instructions (a pair's inverse and its
-    sum for Z; the inverse, q, W and its three sums for the gradient)."""
+    its slab x (n - 1) ordered pairs' float32 instructions (a pair's
+    inverse for Z; the inverse, q and its floor, the exaggerated P less q
+    and W for the gradient) at the float32 instruction rate, and their
+    float64 ones (Z's add; the gradient's add and two fused multiply-adds)
+    at the float64 rate."""
     pairs = slab * max(n - 1, 0)
+    fp64 = 0
     if name == "tsne_affinities_slab":
         bytes_moved = n * features * 4 + slab * n * 4
         instructions = slab * n * (features + 3 + TSNE_AFFINITY_INSTRUCTIONS)
     elif name == "tsne_z_slab":
         bytes_moved = n * 8 + 8
-        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 1)
+        instructions, fp64 = pairs * TSNE_INVERSE_INSTRUCTIONS, pairs
     else:
         bytes_moved = slab * n * 4 + n * 8 + slab * 8 + 4
-        instructions = pairs * (TSNE_INVERSE_INSTRUCTIONS + 2 + 6)
+        instructions, fp64 = pairs * (TSNE_INVERSE_INSTRUCTIONS + 2 + 3), 3 * pairs
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    op_ms = instructions / PEAK_FP32_INSTRUCTIONS_PER_S * 1e3
+    op_ms = (instructions / PEAK_FP32_INSTRUCTIONS_PER_S + fp64 / PEAK_FP64_INSTRUCTIONS_PER_S) * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -7205,7 +7215,8 @@ def check_slab_forms(torch, flush) -> dict:
     one-process exact fit of 1,000 iterations): the slabs' float64 parts of
     Z added in rank order within K12_Z_RTOL of the twins', the gradient
     rows no farther from a float64 evaluation than the twin's (within the
-    embed-kernels tolerance of the twin), a second launch bit identical.
+    embed-kernels tolerance of the twin), a second launch bit identical;
+    then K12's slab at the edges of its tiles (``check_slab_edges``).
     Times at slab 0 (the final embedding for K12)."""
     X_np, _ = embed_blobs(EMBED_ROWS)
     chosen = tsne._choose_landmarks(EMBED_ROWS, tsne.LANDMARKS, 0)
@@ -7268,21 +7279,13 @@ def check_slab_forms(torch, flush) -> dict:
             grads.append(grad)
             twins.append(tsne._tsne_grad_slab(Y, P_slab, Z, first, exaggeration))
             grads64.append(tsne._tsne_grad_slab(Y.double(), P_slab.double(), Z.double(), first, exaggeration))
-        grad, twin, grad64 = torch.cat(grads), torch.cat(twins), torch.cat(grads64)
-        scale64 = float(grad64.abs().max()) or 1.0
-        float64_err = float((grad - grad64).abs().max()) / scale64
-        twin_float64_err = float((twin - grad64).abs().max()) / scale64
-        difference = float((grad - twin).abs().max())
-        rel = difference / (float(twin.abs().max()) or 1.0)
-        tolerance = max(K12_PLAIN_TOL, 2.0 * twin_float64_err + K12_FLOAT64_SLACK)
-        if not rel <= tolerance or not float64_err <= twin_float64_err + K12_FLOAT64_SLACK:
-            raise AssertionError(
-                f"tsne_grad_slab at {key}: {rel} of the twin's largest (tolerance {tolerance}); "
-                f"{float64_err} from float64 against the twin's {twin_float64_err}")
-        results["tsne_grad_slab"]["max_rel_err"] = max(results["tsne_grad_slab"]["max_rel_err"], rel)
-        results["tsne_grad_slab"]["max_abs_err"] = max(results["tsne_grad_slab"]["max_abs_err"], difference)
-        results["tsne_grad_slab"]["by_rows"][key] = {"float64_err": float64_err,
-                                                    "twin_float64_err": twin_float64_err}
+        held = _held_slab_gradient(key, torch.cat(grads), torch.cat(twins), torch.cat(grads64))
+        results["tsne_grad_slab"]["max_rel_err"] = max(results["tsne_grad_slab"]["max_rel_err"],
+                                                       held["max_rel_err"])
+        results["tsne_grad_slab"]["max_abs_err"] = max(results["tsne_grad_slab"]["max_abs_err"],
+                                                       held["max_abs_err"])
+        results["tsne_grad_slab"]["by_rows"][key] = {"float64_err": held["float64_err"],
+                                                    "twin_float64_err": held["twin_float64_err"]}
         if label == "final":
             first, stop = slabs[0]
             P_slab = P[first:stop].contiguous()
@@ -7304,6 +7307,100 @@ def check_slab_forms(torch, flush) -> dict:
     del read_flush
     for name, result in results.items():
         result.update(result["by_rows"][f"{n}:slab0" if name == "tsne_affinities_slab" else f"{n}:final"])
+    edges = check_slab_edges(torch)
+    results["tsne_z_slab"]["edges"] = {key: {"slabs": edge["slabs"], "rel_err": edge["z_rel_err"]}
+                                       for key, edge in edges.items()}
+    results["tsne_grad_slab"]["edges"] = {key: {field: value for field, value in edge.items()
+                                                if field != "z_rel_err"} for key, edge in edges.items()}
+    return results
+
+
+# K12's slab kernels at the edges of their tiles: n rows cut 1, 3 and 4
+# ways by the block rule (so that a slab starts mid-tile, and some slabs
+# are empty), odd n taking the 4-byte path for P; at n % 4 == 0 the slabs
+# of P also 4 bytes past a 16-byte boundary, which takes the 4-byte path
+# and must give the 16-byte path's bits
+SLAB_EDGE_ROWS = (1, 2, 33, 127, 129, 132, 1_001, 5_000)
+SLAB_EDGE_WAYS = (1, 3, 4)
+
+
+def _misaligned(torch, tensor):
+    """A copy of ``tensor`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buffer = torch.empty(tensor.numel() + 4, dtype=tensor.dtype, device=tensor.device)
+    copy = buffer[1:1 + tensor.numel()].view(tensor.shape)
+    copy.copy_(tensor)
+    return copy
+
+
+def _held_slab_gradient(key: str, grad, twin, grad64) -> dict:
+    """The slab gradient rows against the twin's and float64's, as the
+    embed-kernels phase holds K12: within max(K12_PLAIN_TOL, 2 x the twin's
+    float64 error + K12_FLOAT64_SLACK) of the twin's largest entry, and no
+    farther from float64 than the twin (+ K12_FLOAT64_SLACK)."""
+    scale64 = float(grad64.abs().max()) if grad64.numel() else 0.0
+    scale64 = scale64 or 1.0
+    float64_err = float((grad - grad64).abs().max()) / scale64 if grad.numel() else 0.0
+    twin_float64_err = float((twin - grad64).abs().max()) / scale64 if grad.numel() else 0.0
+    difference = float((grad - twin).abs().max()) if grad.numel() else 0.0
+    rel = difference / ((float(twin.abs().max()) if twin.numel() else 0.0) or 1.0)
+    tolerance = max(K12_PLAIN_TOL, 2.0 * twin_float64_err + K12_FLOAT64_SLACK)
+    if not rel <= tolerance or not float64_err <= twin_float64_err + K12_FLOAT64_SLACK:
+        raise AssertionError(
+            f"tsne_grad_slab at {key}: {rel} of the twin's largest (tolerance {tolerance}); "
+            f"{float64_err} from float64 against the twin's {twin_float64_err}")
+    return {"max_abs_err": difference, "max_rel_err": rel, "float64_err": float64_err,
+            "twin_float64_err": twin_float64_err}
+
+
+def check_slab_edges(torch) -> dict:
+    """K12's slab kernels against their twins at SLAB_EDGE_ROWS rows cut
+    SLAB_EDGE_WAYS ways (a seeded Y of coordinates ~5 and a P that is not
+    symmetric, exaggeration 12): the slabs' float64 parts of Z added in
+    rank order within K12_Z_RTOL of the twins' (0 where there is no pair),
+    the gradient rows held as ``_held_slab_gradient`` holds them, a second
+    launch bit identical, and at n % 4 == 0 a misaligned P's rows (the
+    4-byte path) bit-equal to the aligned ones (the 16-byte path)."""
+    results = {}
+    for n in SLAB_EDGE_ROWS:
+        rng = np.random.default_rng(n)
+        Y = torch.from_numpy((rng.normal(size=(n, 2)) * 5.0).astype(np.float32)).cuda()
+        P_np = rng.random((n, n), dtype=np.float32)
+        P = torch.from_numpy(P_np / P_np.sum(dtype=np.float64).astype(np.float32)).cuda()
+        for ways in SLAB_EDGE_WAYS:
+            key = f"{n}/{ways}"
+            slabs = _row_slabs(n, ways)
+            parts = [tsne.tsne_z_slab(Y, first, stop - first) for first, stop in slabs]
+            if not all(torch.equal(part, tsne.tsne_z_slab(Y, first, stop - first))
+                       for part, (first, stop) in zip(parts, slabs)):
+                raise AssertionError(f"tsne_z_slab at {key}: a second launch differs")
+            Z64, twin64 = parts[0], tsne._tsne_z_slab(Y, *_as_slab(slabs[0]))
+            for part, (first, stop) in zip(parts[1:], slabs[1:]):
+                Z64, twin64 = Z64 + part, twin64 + tsne._tsne_z_slab(Y, first, stop - first)
+            z_difference = abs(float(Z64) - float(twin64))
+            if not z_difference <= K12_Z_RTOL * float(twin64):
+                raise AssertionError(f"tsne_z_slab at {key}: {Z64} against the twins' {twin64}")
+            Z = Z64.to(torch.float32)
+            grads, twins, grads64, misaligned = [], [], [], n % 4 == 0
+            for first, stop in slabs:
+                P_slab = P[first:stop].contiguous()
+                grad = tsne.tsne_grad_slab(Y, P_slab, Z, first, tsne.EARLY_EXAGGERATION)
+                if not torch.equal(grad, tsne.tsne_grad_slab(Y, P_slab, Z, first, tsne.EARLY_EXAGGERATION)):
+                    raise AssertionError(f"tsne_grad_slab at {key} [{first}, {stop}): a second launch differs")
+                if misaligned and not torch.equal(grad, tsne.tsne_grad_slab(
+                        Y, _misaligned(torch, P_slab), Z, first, tsne.EARLY_EXAGGERATION)):
+                    raise AssertionError(
+                        f"tsne_grad_slab at {key} [{first}, {stop}): the 4-byte path's rows differ "
+                        "from the 16-byte path's")
+                grads.append(grad)
+                twins.append(tsne._tsne_grad_slab(Y, P_slab, Z, first, tsne.EARLY_EXAGGERATION))
+                grads64.append(tsne._tsne_grad_slab(Y.double(), P_slab.double(), Z.double(), first,
+                                                    tsne.EARLY_EXAGGERATION))
+            held = _held_slab_gradient(key, torch.cat(grads), torch.cat(twins), torch.cat(grads64))
+            results[key] = {"slabs": [stop - first for first, stop in slabs],
+                            "z_rel_err": z_difference / (float(twin64) or 1.0),
+                            "vector_path": n % 4 == 0, "misaligned_bit_equal": misaligned or None,
+                            **{f"grad_{field}": value for field, value in held.items()}}
     return results
 
 

@@ -360,13 +360,15 @@ def _bind_tsne(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, ptr,                   # max_blocks, device, stream
     ]
     lib.lo_tsne_z_slab.argtypes = [
-        ptr, ptr, ptr,                       # Y, a row's sum a slab row, the slab's total
+        ptr, ptr, ptr,                       # Y, a slot a block, the slab's total
         c_int, c_int, c_int,                 # n, first row, slab rows
+        c_int, c_int,                        # columns a range, ranges
         c_int, ptr,                          # device, stream
     ]
     lib.lo_tsne_grad_slab.argtypes = [
-        ptr, ptr, ptr, ptr,                  # Y, the slab of P, Z, the slab's gradient
-        c_int, c_int, c_int, c_float,        # n, first row, slab rows, exaggeration
+        ptr, ptr, ptr, ptr, ptr,             # Y, the slab of P, Z, (ranges, slab, 3) partials, gradient
+        c_int, c_int, c_int,                 # n, first row, slab rows
+        c_int, c_int, c_float,               # columns a range, ranges, exaggeration
         c_int, ptr,                          # device, stream
     ]
     for entry in ("affinities", "z", "grad", "interpolate", "affinities_slab", "z_slab",

@@ -40,7 +40,9 @@ reference lets XLA transpose across devices. Each iteration K12's
 row-slab form gives the slab's float64 part of Z, every rank's added in
 rank order and rounded once before any rank divides, then the slab's
 gradient rows, gathered so that Y, the velocity and the gains stay
-replicated (the reference's ``_optimize``). ``Y0`` comes from the same
+replicated (the reference's ``_optimize``). Both slab kernels tile the
+slab's rows against ranges of the columns (``_slab_split``) and add the
+blocks' float64 partials in a fixed order. ``Y0`` comes from the same
 seeded generator on every rank. The landmark path runs that exact fit on
 the landmarks, then K13 on each rank's block of rows, gathered.
 
@@ -81,6 +83,17 @@ INTERP_CHUNK = 8_192
 # bounds how long one launch runs at any n.
 _INTERP_ROWS_PER_PROGRAM = 4_000_000
 BISECTION_STEPS = 32
+# K12's row slab: ``PAIR_TILE`` slab rows a block against a range of
+# columns, the range a multiple of SLAB_Z_STEP (Z: a warp's share of it)
+# or SLAB_GRAD_STEP (the gradient: its P chunks of 32 columns) up to
+# SLAB_MAX_SPAN (tsne.cu kPairWarps, kChunk, kMaxSpan), cut so that a
+# launch has about as many blocks as the H100's 132 SMs hold at once:
+# six of Z's an SM, two of the gradient's (their launch bounds)
+SLAB_Z_STEP = 8
+SLAB_GRAD_STEP = 32
+SLAB_MAX_SPAN = 2048
+SLAB_Z_BLOCKS = 6 * 132
+SLAB_GRAD_BLOCKS = 2 * 132
 
 
 def _target_entropy(perplexity: float) -> float:
@@ -274,6 +287,20 @@ def _tile_pairs(n: int):
     return tiles, tuple((I, J) for I in range(tiles) for J in range(I, tiles))
 
 
+@functools.lru_cache(maxsize=64)
+def _slab_split(n: int, slab: int, step: int, blocks: int) -> tuple[int, int]:
+    """K12's row-slab tiling: ``(span, splits)``, ``splits`` ranges of
+    ``span`` columns (the last one ragged) against the slab's
+    ``PAIR_TILE``-row tiles. ``span`` is the least multiple of ``step`` (at
+    most ``SLAB_MAX_SPAN``) that keeps the tiles times the ranges within
+    ``blocks``. A function of n and the slab alone, so the order of every
+    float64 sum, and with it a fit, repeats bit for bit."""
+    tiles = max(1, -(-slab // PAIR_TILE))
+    wanted = max(1, blocks // tiles)
+    span = min(SLAB_MAX_SPAN, max(step, -(-max(n, 1) // (wanted * step)) * step))
+    return span, -(-n // span)
+
+
 def _check_float32(*tensors) -> None:
     for tensor in tensors:
         if tensor.dtype != torch.float32:
@@ -420,11 +447,13 @@ def tsne_z_slab(Y, first: int, slab: int):
     if Y.device.type == "cpu":
         return _tsne_z_slab(Y, first, slab)
     kernels.check_operands(Y)
-    row_sums = torch.empty(max(slab, 1), dtype=torch.float64, device=Y.device)
+    n = Y.shape[0]
+    span, splits = _slab_split(n, slab, SLAB_Z_STEP, SLAB_Z_BLOCKS)
+    slots = torch.empty(max(-(-slab // PAIR_TILE) * splits, 1), dtype=torch.float64, device=Y.device)
     total = torch.empty(1, dtype=torch.float64, device=Y.device)
     kernels.launch(
         "tsne_z_slab", "lo_tsne_z_slab",
-        Y.data_ptr(), row_sums.data_ptr(), total.data_ptr(), Y.shape[0], first, slab,
+        Y.data_ptr(), slots.data_ptr(), total.data_ptr(), n, first, slab, span, splits,
         Y.device.index, _stream(Y),
     )
     return total
@@ -445,11 +474,13 @@ def tsne_grad_slab(Y, P_slab, Z, first: int, exaggeration: float):
     if Y.device.type == "cpu":
         return _tsne_grad_slab(Y, P_slab, Z, first, exaggeration)
     kernels.check_operands(Y, P_slab, Z)
+    span, splits = _slab_split(n, slab, SLAB_GRAD_STEP, SLAB_GRAD_BLOCKS)
+    partials = torch.empty((splits, max(slab, 1), 3), dtype=torch.float64, device=Y.device)
     grad = torch.empty((slab, 2), dtype=torch.float32, device=Y.device)
     kernels.launch(
         "tsne_grad_slab", "lo_tsne_grad_slab",
-        Y.data_ptr(), P_slab.data_ptr(), Z.data_ptr(), grad.data_ptr(), n, first, slab,
-        exaggeration, Y.device.index, _stream(Y),
+        Y.data_ptr(), P_slab.data_ptr(), Z.data_ptr(), partials.data_ptr(), grad.data_ptr(),
+        n, first, slab, span, splits, exaggeration, Y.device.index, _stream(Y),
     )
     return grad
 
