@@ -4992,17 +4992,22 @@ def phase_stack(torch, card: str) -> dict:
 
 BATCH_ROWS = 1_000_000        # the batch lane's test collection
 BATCH_TEST = "batch_1m"
+# the store and shards phases' test collection: their checks (labels equal
+# to the in-process store's, the ring and the body, the slabs and the
+# stripes over both groups) hold at any size, and the host's parse, write
+# and cast of 1,000,000 rows took most of their minutes
+STORE_BATCH_ROWS = 250_000
 
 
-def batch_test_collection(store, seed: int = 2) -> float:
+def batch_test_collection(store, seed: int = 2, rows: "int | None" = None) -> float:
     """A test collection of the product path's schema (16 features and
-    the label, bench.py's synthetic rows from another seed), written
-    columnar as ``embed_store`` writes ``blobs_1m``; returns the seconds
-    the write took."""
+    the label, bench.py's synthetic rows from another seed), ``rows``
+    rows (BATCH_ROWS when None) written columnar as ``embed_store`` writes
+    ``blobs_1m``; returns the seconds the write took."""
     from learningorchestra_tpu_torch.core.table import ColumnTable, write_table
 
     started = time.perf_counter()
-    X, y = bench_synthetic(BATCH_ROWS, seed)
+    X, y = bench_synthetic(BATCH_ROWS if rows is None else rows, seed)
     columns = {f"f{i}": X[:, i].astype(np.float64) for i in range(FEATURES)}
     columns["label"] = y.astype(np.float64)
     write_table(
@@ -5290,7 +5295,7 @@ def _labels(store, collection: str) -> np.ndarray:
 
 
 def _same_labels(what: str, got: np.ndarray, want: np.ndarray) -> None:
-    if len(got) != BATCH_ROWS or not np.array_equal(got, want):
+    if len(got) != STORE_BATCH_ROWS or not np.array_equal(got, want):
         raise AssertionError(f"store: {what}'s labels differ from the in-process store's")
 
 
@@ -5301,10 +5306,10 @@ def phase_store(torch, card: str) -> dict:
     processes; the seven services run in this process (``start_all``)
     on the card over ``connect("primary,follower")``, whose client owns a
     shared-memory ring. The product collections (100,000 rows) and a
-    1,000,000-row test collection go in through the binary verbs. With
-    the launch counts set to 0 first: a sync product build, whose metrics
-    equal an in-process ``InMemoryStore`` build's on the same data; a
-    batch request (gb, 1,000,000 rows) whose labels equal the same
+    STORE_BATCH_ROWS-row test collection go in through the binary verbs.
+    With the launch counts set to 0 first: a sync product build, whose
+    metrics equal an in-process ``InMemoryStore`` build's on the same data;
+    a batch request (gb, STORE_BATCH_ROWS rows) whose labels equal the same
     request's over the ``InMemoryStore``, with ``load_data`` read over
     the ring, and again from a client with ``LO_SHM_BYTES=0``, over the
     HTTP body (then the test collection's read alone by each road, in
@@ -5329,7 +5334,7 @@ def phase_store(torch, card: str) -> dict:
     with tempfile.TemporaryDirectory() as folder:
         # the in-process reference: the same data, the same requests
         local = product_store()
-        batch_test_collection(local)
+        batch_test_collection(local, rows=STORE_BATCH_ROWS)
         server = ServerThread(create_app(local, models_dir=os.path.join(folder, "local_models"))).start()
         try:
             client = _Client(server.port)
@@ -5360,7 +5365,7 @@ def phase_store(torch, card: str) -> dict:
             rings.append(remote)
             ingest_started = time.perf_counter()
             product_store(remote)
-            batch_test_collection(remote)
+            batch_test_collection(remote, rows=STORE_BATCH_ROWS)
             _copy_product_test(local, remote, STORE_FAILOVER_TEST)
             ingest_s = time.perf_counter() - ingest_started
 
@@ -5475,7 +5480,7 @@ def phase_store(torch, card: str) -> dict:
                 follower.stop()
     record = {
         "phase": "store",
-        "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS, "batch_test": BATCH_ROWS},
+        "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS, "batch_test": STORE_BATCH_ROWS},
         "shm_bytes": STORE_SHM_BYTES,
         "boot_s": boot_s,
         "ingest_s": ingest_s,
@@ -5525,7 +5530,7 @@ def _roads_delta(now: dict, before: dict) -> dict:
 
 SHARDS_GROUPS = 2
 SHARDS_STRIPE_ROWS = 8192      # the reference's default stripe (core/shardmap.DEFAULT_STRIPE_ROWS)
-SHARDS_SLABS = 5               # LO_INGEST_SLAB_BYTES is set so that the 1,000,000-row CSV parses in 5
+SHARDS_SLABS = 5               # LO_INGEST_SLAB_BYTES is set so that the test CSV parses in 5
 SHARDS_DEVICE = None           # the stack's device: the CUDA card
 SHARDS_FIELDS = tuple(f"f{i}" for i in range(FEATURES)) + ("label",)
 SHARDS_INGEST_TIMEOUT_S = 600
@@ -5660,9 +5665,10 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
     child processes; the seven services run in this process on the card
     over ``connect("p0,f0;p1,f1")``, a ``ShardedStore`` striping 8,192-row
     stripes over both. bench.py's product rows (100,000 × 16 and the
-    label) and a 1,000,000-row test file of the same columns go in as
-    CSVs through ``POST /files``, the large one natively in at least 4
-    slabs (``LO_INGEST_SLAB_BYTES``), then through ``PATCH /fieldtypes``.
+    label) and a STORE_BATCH_ROWS-row test file of the same columns go in
+    as CSVs through ``POST /files``, natively in slabs
+    (``LO_INGEST_SLAB_BYTES``: the test file in at least 4, each product
+    file in as many as its size gives), then through ``PATCH /fieldtypes``.
     Held, before and after the cast: each collection equals the same CSV
     ingested whole by the Python parser into an in-process
     ``InMemoryStore``, byte for byte; each group's block rows are what
@@ -5670,12 +5676,12 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
     slab and never fell back; the shard map says 2 groups of 8,192-row
     stripes. With the launch counts set to 0: a sync product build whose
     metrics equal the in-process store's build's, a gb batch request
-    over the 1,000,000 rows whose labels equal the in-process request's.
+    over the test rows whose labels equal the in-process request's.
     Then ``kill -9`` of group 1's primary: its follower's promotion
     (seconds, a loss window of 0), a batch request with the labels from
     before, the groups' block rows as placed, model_builder's
     ``/metrics`` with the shard gauges of both groups. K1-K7 and K6
-    (both forwards) must launch in the phase. The 1,000,000-row CSV's
+    (both forwards) must launch in the phase. The test CSV's
     ingest wall three ways: native in slabs over the shards, native
     whole and Python whole into an in-process store."""
     import signal
@@ -5694,15 +5700,16 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
         X, y = bench_synthetic(FIT_ROWS)
         product_csv, test_csv = os.path.join(folder, "product.csv"), os.path.join(folder, "test_1m.csv")
         _write_product_csv(product_csv, X[:PRODUCT_ROWS], y[:PRODUCT_ROWS])
-        X, y = bench_synthetic(BATCH_ROWS, 2)
+        X, y = bench_synthetic(STORE_BATCH_ROWS, 2)
         _write_product_csv(test_csv, X, y)
         del X, y
         files = {"bench_train": product_csv, "bench_test": product_csv, BATCH_TEST: test_csv}
-        rows = {"bench_train": PRODUCT_ROWS, "bench_test": PRODUCT_ROWS, BATCH_TEST: BATCH_ROWS}
+        rows = {"bench_train": PRODUCT_ROWS, "bench_test": PRODUCT_ROWS, BATCH_TEST: STORE_BATCH_ROWS}
         test_bytes = os.path.getsize(test_csv)
         slab_bytes = -(-test_bytes // SHARDS_SLABS)
         slabs = _expected_slabs(test_csv, slab_bytes)
-        if slabs < 4 or os.path.getsize(product_csv) >= slab_bytes:
+        product_slabs = _expected_slabs(product_csv, slab_bytes)
+        if slabs < 4:
             raise AssertionError(f"shards: the test CSV cuts into {slabs} slabs of {slab_bytes} bytes")
         csv_s = time.perf_counter() - started
 
@@ -5758,10 +5765,10 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
                     _wait_ingested(sharded, name)
                     walls[f"ingest {name}"] = time.perf_counter() - ingest_started
             parses = loader.native_stats()
-            if parses["fallbacks"] or parses["native_parses"] != 1 + 2 + slabs:
+            if parses["fallbacks"] or parses["native_parses"] != 1 + 2 * product_slabs + slabs:
                 raise AssertionError(
-                    f"shards: the native parser ran {parses} times, not once a slab ({slabs}) and once "
-                    "a whole file (3)"
+                    f"shards: the native parser ran {parses} times, not once a slab (the test file's "
+                    f"{slabs}, each product file's {product_slabs}) and once the whole test file"
                 )
             held = {}
             for name in files:
@@ -5850,7 +5857,7 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
         "rows": rows,
         "test_csv_bytes": test_bytes,
         "slab_bytes": slab_bytes,
-        "slabs": slabs,
+        "slabs": slabs, "product_slabs": product_slabs, "test_rows": STORE_BATCH_ROWS,
         "native": parses,
         "csv_write_s": csv_s,
         "boot_s": boot_s,
@@ -6715,8 +6722,8 @@ SHARD_REPLACES = {
     ),
 }
 SHARD_KERNELS = {   # the CUDA kernels a call runs, as the profiler names them
-    "logistic_shard_stats": ("shard_stats_kernel",),
-    "logistic_shard_grad": ("shard_grad_kernel", "sums_kernel"),
+    "logistic_shard_stats": ("shard_stats_tiles_kernel",),
+    "logistic_shard_grad": ("shard_grad_tiles_kernel", "sums_kernel"),
 }
 SHARD_LIBRARY = {
     "logistic_shard_stats": (
@@ -6909,6 +6916,130 @@ def check_k7_shards(torch, flush) -> tuple[dict, dict]:
     for result in results.values():
         result.update(result["by_shape"][main])
     return results, k7_bf16
+
+
+# K7's class-shard kernels at the edges of their tiles, staging and forms:
+# rows about a 16-row group and a tile (0: no rows); features about the odd
+# row stride and past the staging (444: the float32 stats' rows read from
+# global memory; 2,000: both kernels'); classes about a 16-byte word of
+# parameters and kRegisterClasses (past it each logit again; the serial
+# grad form past the owners' cells); 1 and 4 points; labels in [0, 2 Cs +
+# 1) about a shard from class Cs // 2, so that some lie outside it; row
+# weights of 0 and 1; float32 and bfloat16 rows, each also from an address
+# 4 bytes past a 16-byte boundary
+SHARD_EDGE_ROWS = (0, 1, 15, 16, 17, 255, 257, 4_097)
+SHARD_EDGE_FEATURES = (1, 5, 16, 17, 444, 2_000)
+SHARD_EDGE_CLASSES = (1, 3, 5, 16, 17, 33)
+
+
+def _held_shard_stats(what: str, got, want, X, W, b) -> tuple[float, float]:
+    """The stats against their twin's at check_k7_shards' tolerances: the
+    largest logit and the label logit within K7_LOSS_RTOL of the logits'
+    scale, the sums of exps within K7_LOSS_RTOL. The scale is the largest
+    sum of magnitudes a logit adds (|x| |W| + |b|), which bounds a float32
+    chain's rounding over any width (check_k7_shards, at 524,288 rows,
+    takes the largest logit). Returns the two relative errors."""
+    if not got.numel():
+        return 0.0, 0.0
+    X64 = X.double().abs()
+    scale = max(float((X64 @ W[p].double().abs() + b[p].double().abs()).max())
+                for p in range(W.shape[0]))
+    logit_rel = float((got[..., (0, 2)] - want[..., (0, 2)]).abs().max()) / scale
+    sum_rel = float(((got[..., 1] - want[..., 1]).abs() / want[..., 1]).max())
+    if not logit_rel <= K7_LOSS_RTOL or not sum_rel <= K7_LOSS_RTOL:
+        raise AssertionError(f"{what}: stats {logit_rel} of the logits' scale {scale}, sums {sum_rel}")
+    return logit_rel, sum_rel
+
+
+def _held_shard_grad(what: str, got, want, rows: int) -> tuple[float, float]:
+    """The shard sums against their twin's, as check_k7_shards holds them:
+    divided by the rows, within K7_GRAD_ATOL; the nll within K7_LOSS_RTOL
+    (exactly 0 where no label lies in the shard); the weights' sum exact."""
+    if float(got[-1]) != float(want[-1]):
+        raise AssertionError(f"{what}: sum w {float(got[-1])} against the twin's {float(want[-1])}")
+    grad_err = float(((got[:-2] - want[:-2]) / max(rows, 1)).abs().max())
+    nll, twin_nll = float(got[-2]), float(want[-2])
+    nll_rel = abs(nll - twin_nll) / abs(twin_nll) if twin_nll else float(nll != 0.0)
+    if not grad_err <= K7_GRAD_ATOL or not nll_rel <= K7_LOSS_RTOL:
+        raise AssertionError(f"{what}: grad against its twin {grad_err}, nll {nll_rel}")
+    return grad_err, nll_rel
+
+
+def _edge_weight_scale(features: int) -> float:
+    """The edge shapes' weights' scale: x W of ~N(0, 1) up to 4
+    features, and past them a float32 fmaf chain whose rounding stays
+    ~1e-7 (its sum of magnitudes ~2), so that a one-row shape holds K7's
+    float32 logits to the twin's float64 product at K7_GRAD_ATOL over any
+    width."""
+    return min(1.0 / np.sqrt(features), 2.0 / features)
+
+
+def check_shard_edges(torch) -> dict:
+    """K7's class-shard kernels against their twins at every edge shape
+    (SHARD_EDGE_ROWS x SHARD_EDGE_FEATURES x SHARD_EDGE_CLASSES, 1 and 4
+    points, float32 and bfloat16 rows; seeded rows, weights of the scale
+    ``_edge_weight_scale`` gives, and 0/1 row weights): the stats
+    (``_held_shard_stats``) and, given a log-sum-exp over four shards (the
+    twin's log-sums at the four points, combined as a model group's), the
+    grad (``_held_shard_grad``) at K7's tolerances; a second launch and a
+    launch on rows 4 bytes off 16 bytes bit-equal to the first. Records
+    each kernel's geometries, so that a run shows every path it took."""
+    started = time.perf_counter()
+    record = {"shapes": 0, "stats_logit_rel": 0.0, "stats_sum_rel": 0.0, "grad_err": 0.0,
+              "nll_rel": 0.0, "stats_geometries": set(), "grad_geometries": set()}
+    seconds = {}
+    for rows in SHARD_EDGE_ROWS:
+        for features in SHARD_EDGE_FEATURES:
+            shape_started = time.perf_counter()
+            rng = np.random.default_rng(rows * 10_007 + features)
+            X32 = torch.from_numpy(rng.normal(size=(rows, features)).astype(np.float32)).cuda()
+            rows_by_type = {dtype: (X, _misaligned(torch, X)) for dtype, X in (
+                (torch.float32, X32), (torch.bfloat16, X32.to(torch.bfloat16)))}
+            for classes in SHARD_EDGE_CLASSES:
+                W4 = torch.from_numpy((rng.normal(size=(4, features, classes))
+                                       * _edge_weight_scale(features)).astype(np.float32)).cuda()
+                b4 = torch.from_numpy(rng.normal(size=(4, classes)).astype(np.float32)).cuda()
+                y = torch.from_numpy(rng.integers(0, 2 * classes + 1, size=rows).astype(np.int32)).cuda()
+                w = torch.from_numpy((rng.random(rows) < 0.9).astype(np.float32)).cuda()
+                first = classes // 2
+                for dtype, (X, shifted) in rows_by_type.items():
+                    what = f"K7's class-shard form at {rows}x{features}, Cs {classes}, {dtype}"
+                    want = logistic._shard_stats(W4, b4, X, y, first)   # point p's twin: want[p]
+                    for points in (1, 4):
+                        Wp, bp = W4[:points].contiguous(), b4[:points].contiguous()
+                        got = logistic.shard_stats(Wp, bp, X, y, first)
+                        if not torch.equal(got, logistic.shard_stats(Wp, bp, X, y, first)) or \
+                                not torch.equal(got, logistic.shard_stats(Wp, bp, shifted, y, first)):
+                            raise AssertionError(f"{what}, {points} points: stats not bit-equal "
+                                                 "on a second launch or rows 4 bytes off")
+                        logit_rel, sum_rel = _held_shard_stats(f"{what}, {points} points", got,
+                                                               want[:points], X, Wp, bp)
+                        record["stats_logit_rel"] = max(record["stats_logit_rel"], logit_rel)
+                        record["stats_sum_rel"] = max(record["stats_sum_rel"], sum_rel)
+                        record["stats_geometries"].add(logistic._shard_stats_geometry(
+                            features, classes, points, X.element_size()))
+                    # each row's log-sum-exp over a model group of four: this
+                    # shard's classes and three others' (the twin's at points 1-3)
+                    W, b = W4[0].contiguous(), b4[0].contiguous()
+                    lse = logistic._combine_log_sums([logistic._shard_log_sums(part) for part in want])
+                    got = logistic.shard_grad(W, b, X, y, w, lse, first)
+                    if not torch.equal(got, logistic.shard_grad(W, b, X, y, w, lse, first)) or \
+                            not torch.equal(got, logistic.shard_grad(W, b, shifted, y, w, lse, first)):
+                        raise AssertionError(f"{what}: grad not bit-equal on a second launch or rows "
+                                             "4 bytes off")
+                    grad_err, nll_rel = _held_shard_grad(
+                        what, got, logistic._shard_grad(W, b, X, y, w, lse, first), rows)
+                    record["grad_err"] = max(record["grad_err"], grad_err)
+                    record["nll_rel"] = max(record["nll_rel"], nll_rel)
+                    record["grad_geometries"].add(logistic._shard_grad_geometry(
+                        features, classes, X.element_size()))
+                    record["shapes"] += 1
+            seconds[f"{rows}x{features}"] = time.perf_counter() - shape_started
+    for key in ("stats_geometries", "grad_geometries"):
+        record[key] = [list(geometry) for geometry in sorted(record[key])]
+    record["seconds"] = time.perf_counter() - started
+    record["seconds_by_shape"] = seconds
+    return record
 
 
 def _bf16_ulps(torch, got, want) -> int:
@@ -7327,8 +7458,9 @@ SLAB_EDGE_WAYS = (1, 3, 4)
 def _misaligned(torch, tensor):
     """A copy of ``tensor`` whose data starts 4 bytes past a 16-byte
     boundary."""
+    step = 4 // tensor.element_size()
     buffer = torch.empty(tensor.numel() + 4, dtype=tensor.dtype, device=tensor.device)
-    copy = buffer[1:1 + tensor.numel()].view(tensor.shape)
+    copy = buffer[step:step + tensor.numel()].view(tensor.shape)
     copy.copy_(tensor)
     return copy
 
@@ -7921,6 +8053,7 @@ def phase_multigpu(torch, card: str) -> list:
     forms_s = time.perf_counter() - forms_started
     model_axis_started = time.perf_counter()
     shard_results, k7_sums_bf16 = check_k7_shards(torch, flush)
+    shard_edges = check_shard_edges(torch)
     bf16_results, bf16_stats_timing = check_scaler_bf16(torch, flush)
     model_axis_checks_s = time.perf_counter() - model_axis_started
     del flush
@@ -7981,7 +8114,7 @@ def phase_multigpu(torch, card: str) -> list:
     emit({"phase": "multigpu", "wall_s": time.perf_counter() - started, "forms_s": forms_s,
           "model_axis_checks_s": model_axis_checks_s, "run_s": run_s,
           "masked_stats": stats_timing, "masked_stats_bf16": bf16_stats_timing,
-          "k7_sums_bf16": k7_sums_bf16,
+          "k7_sums_bf16": k7_sums_bf16, "shard_edges": shard_edges,
           "one_process": {name: {field: solo[name][field] for field in ("wall_s", "accuracy", "weighted_f1")
                                  if field in solo[name]} for name in (*OTHER_FITS, "pca", "tsne")},
           "kernels": {name: {key: value for key, value in result.items()}

@@ -318,6 +318,7 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr,                       # W (points, F, Cs), b (points, Cs), out (points, rows, 3)
         c_int, c_int, c_int, c_int, c_int,   # rows, F, Cs, points, the shard's first class
         c_int, c_int, ptr,                   # max_blocks, device, stream
+        ptr,                                 # the block's layout (ml/logistic.py _ShardLayout)
     ]
     lib.lo_logistic_shard_grad.argtypes = [
         ptr, c_int, ptr, ptr, ptr,           # X, X is bfloat16 (else float32), y, weights, lse
@@ -325,6 +326,7 @@ def _bind_logistic(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int, c_int, c_int,          # rows, F, Cs, the shard's first class
         c_int, c_int,                        # chunks, rows/chunk
         c_int, c_int, ptr,                   # max_blocks, device, stream
+        ptr,                                 # the block's layout (ml/logistic.py _ShardLayout)
     ]
     for entry in ("loss_grad", "trial_losses", "shard_stats", "shard_grad"):
         getattr(lib, f"lo_logistic_{entry}").restype = c_int

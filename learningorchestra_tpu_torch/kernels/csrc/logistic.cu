@@ -138,6 +138,19 @@ struct Layout {
   int ring, raw, xd, terms, nll, wd, scratch, sums, sources, one, params_w, params_b, bytes;
 };
 
+// The class-shard form's block geometry and shared memory, laid out by the
+// wrapper (ml/logistic.py `_shard_layout`, field for field its
+// `_ShardLayout`): the tile's rows; x's row stride in floats (0: rows read
+// from global memory); a feature's class stride in the shared parameters
+// (0: the parameters read from global memory); grad's sum form; the
+// residuals' stride in doubles a class; a ring buffer's bytes; the byte
+// offsets of each region; a point's floats in the outputs' stage; the
+// total bytes.
+struct ShardLayout {
+  int tile, xs, ws, form, tp, buffer;
+  int params_w, params_b, raw, x, ring, terms, nll, wd, sums, stage, stage_floats, bytes;
+};
+
 namespace {
 
 constexpr int kThreads = 256;   // _THREADS in ml/logistic.py
@@ -239,33 +252,46 @@ __device__ __forceinline__ Bf16Rows global_rows(const bf16_bits* X, size_t offse
   return {X + offset};
 }
 
-// A raw tile of bfloat16 X: value i of the values from `from` at
-// raw[raw_shift(from) + i], the shift (0 to 7) putting `from`'s 16-byte
-// words on raw's; raw_head(from) values precede the first whole word.
-__device__ __forceinline__ int raw_head(const bf16_bits* from) {
-  return static_cast<int>((16 - (reinterpret_cast<uintptr_t>(from) & 15)) & 15) / 2;
+// A raw tile of X (bfloat16, or float32 for the class-shard form): value i
+// of the values from `from` at raw[raw_shift(from) + i], the shift putting
+// `from`'s 16-byte words on raw's; raw_head(from) values precede the first
+// whole word. kWordValues: the values of a 16-byte word.
+template <typename In>
+constexpr int kWordValues = 16 / static_cast<int>(sizeof(In));
+template <typename In>
+__device__ __forceinline__ int raw_head(const In* from) {
+  return static_cast<int>((16 - (reinterpret_cast<uintptr_t>(from) & 15)) & 15) /
+         static_cast<int>(sizeof(In));
 }
-__device__ __forceinline__ int raw_shift(const bf16_bits* from) { return (8 - raw_head(from)) & 7; }
+template <typename In>
+__device__ __forceinline__ int raw_shift(const In* from) {
+  return (kWordValues<In> - raw_head(from)) & (kWordValues<In> - 1);
+}
 
-// Issue the copies of `count` bfloat16 values from `from` into the raw
-// tile: their whole 16-byte words by 16-byte cp.async, the values before
-// the first and after the last whole word by loads.
-__device__ __forceinline__ void stage_raw(bf16_bits* raw, const bf16_bits* __restrict__ from,
-                                          int count) {
-  bf16_bits* to = raw + raw_shift(from);
+// Issue the copies of `count` values from `from` into the raw tile: their
+// whole 16-byte words by 16-byte cp.async, the values before the first and
+// after the last whole word by loads.
+template <typename In>
+__device__ __forceinline__ void stage_raw(In* raw, const In* __restrict__ from, int count) {
+  constexpr int kV = kWordValues<In>;
+  In* to = raw + raw_shift(from);
   const int head = min(count, raw_head(from));
-  const int words = (count - head) / 8;
+  const int words = (count - head) / kV;
   for (int i = threadIdx.x; i < words; i += kThreads)
-    copy_async16(to + head + 8 * i, from + head + 8 * i);
-  const int tail = head + 8 * words, edges = head + count - tail;
+    copy_async16(to + head + kV * i, from + head + kV * i);
+  const int tail = head + kV * words, edges = head + count - tail;
   for (int i = threadIdx.x; i < edges; i += kThreads) {
     const int at = i < head ? i : tail + i - head;
     to[at] = __ldg(from + at);
   }
 }
 
-// The raw tile's n rows widened exactly into the tile's x (row stride xs).
-__device__ __forceinline__ void widen_tile(float* x, const bf16_bits* raw, int n, int F, int xs) {
+__device__ __forceinline__ float widen(float value) { return value; }
+
+// The raw tile's n rows widened exactly (float32: copied) into the tile's x
+// (row stride xs).
+template <typename In>
+__device__ __forceinline__ void widen_tile(float* x, const In* raw, int n, int F, int xs) {
   const int step_r = kThreads / F, step_f = kThreads % F;
   int r = threadIdx.x / F, f = threadIdx.x % F;
   while (r < n) {
@@ -1170,206 +1196,603 @@ K7Kernel trial_losses_for(bool bf16, bool two) {
 //
 // What bounds them on this card, at a rank's block of 1,000,000 rows over
 // a data axis of 2 (524,288 rows x 16 features, Cs = 1 or 5): stats reads
-// X and y once (36 MB) and writes 12 bytes a row and point (6 MB, 25 MB
-// for four points: 18 us at 3.35 TB/s); grad reads X, y, w and lse once
-// (42 MB, 12.5 us). The float64 work of grad (F + 1 fma a row and class)
-// is under 2 us at 33.5 TFLOP/s: bytes bound both.
+// X and y once (36 MB) and writes 12 bytes a row and point (25 MB for four
+// points): 18 us at 3.35 TB/s; its ~168 M fmaf (four points, Cs = 5) are
+// ~5 us at the float32 rate. grad reads X, y, w and lse once (42 MB,
+// 12.5 us); its float64 work (~46 M fma for the sums, 2.6 M exp) is a few
+// us at the float64 rate. Bytes bound both. The first form (a thread a
+// row, each logit computed twice from parameters loaded from global memory
+// at every fmaf; a thread a gradient cell, its float64 sum one serial
+// chain over the chunk) took 8.3x and 14x those bounds: its parameter
+// loads and its idle threads set the pace, not the bytes. This form takes
+// ~3x (stats) and ~6x (grad) on an H100 at 700 W (logistic_shard_variants.py):
+// the stats' memory path alone ~1.5x, its arithmetic not all hidden
+// behind it at two blocks an SM; the grad's tiles, spread and barriers
+// alone ~3x, its sums' items and `sums_kernel` (the chunks, one block) the
+// rest.
 //
-// Design (a simple first form; no redesign yet):
-//   - stats: a thread a row, a block kThreads rows at a time (grid-stride),
-//     each tile of rows staged once in shared memory at an odd stride
-//     (bfloat16 widened where it is loaded), or read from global memory
-//     where a tile does not fit 48 KB; every point's logits from the staged
-//     row. Each logit is computed again in each pass over the classes (the
-//     same fmaf chain, the same bits), so no class count runs out of
-//     registers.
-//   - grad: a block is a chunk of rows (the wrapper's kernels.row_chunks),
-//     taken a tile at a time: phase 1 a thread a row (its residuals, nll
-//     term and weight as float64 in shared memory), phase 2 a thread a cell
-//     (x_f r_c, r_c, the nll or the weight), each cell's float64 sum in
-//     shared memory added over the tile's rows in row order, tile after
-//     tile; the chunk's sums go to `partials`, and `sums_kernel` adds the
-//     chunks in chunk order. No float atomics; the tile and the staging do
-//     not change a bit (every cell adds the same terms in the same order).
-//   - Any Cs >= 1: K7's two-class specialisation (`two_classes`) does not
-//     serve a shard, whose label may lie outside it.
+// Design (the wrapper, ml/logistic.py `_shard_stats_geometry` and
+// `_shard_grad_geometry`, lays out each block's shared memory in a
+// `ShardLayout`):
+//   - A tile's rows land by 16-byte cp.async, contiguous as they lie in X,
+//     in a raw tile (the values before the first and after the last whole
+//     16-byte word by loads, so X may start anywhere), and are then spread
+//     (float32) or widened (bfloat16) into the tile's x at an odd row
+//     stride, where a warp's threads, a row each, read 32 banks: a 16-byte
+//     copy cannot land at that stride, and at F = 16 a warp's rows read in
+//     place would share two banks. The labels (grad: the weights and the
+//     log-sum-exp too) come by 4- and 8-byte cp.async into a ring of two
+//     buffers. The stats issue the next tile's copies once this tile's raw
+//     x is spread, so that they land while it is computed; the grad keeps
+//     three tiles' raw x and buffers in a ring (kGradStages), the next two
+//     tiles in flight while one is spread and computed. Rows too wide to
+//     stage (a tile of 32 past the block's share) are read from global
+//     memory.
+//   - The parameters (every point's W and b) sit in shared memory once a
+//     block, a feature's classes at a stride of Cs rounded up to 4, so that
+//     a warp reads four classes with one broadcast 16-byte load; past their
+//     share they are read from global memory.
+//   - A row's logits: all of the shard's classes at once, feature-major
+//     (x_f read once, then z_c = fmaf(x_f, W[f][c], z_c) for every class),
+//     in registers up to kRegisterClasses classes: each class's chain is
+//     the fmaf chain over the features in order from 0, then + b_c, dot()'s
+//     bits. Past kRegisterClasses each logit is computed again in each pass
+//     (dot() itself), so no class count runs out of registers.
+//   - stats: a thread kStatsRows rows (a parameter load serves each), a
+//     tile kThreads * kStatsRows rows, a grid of the blocks the card holds
+//     at once walking the tiles. The max in class order, the exps added in
+//     class order from 0 with __fadd_rn, the accurate expf: the first
+//     form's arithmetic, so its bits at every shape. A tile's outputs are
+//     gathered in shared memory and written as 16-byte words.
+//   - grad: a block a chunk of rows (kernels.row_chunks), a tile at a time.
+//     Phase 1, a thread a row: its residuals, nll term and weight as
+//     float64 in shared memory (the first form's arithmetic: the float64
+//     exp(z - lse), the __dmul_rn by the weight). Phase 2, the float64 sums
+//     in K7's fixed shape: a cell's sum over a chunk is the sum of its
+//     16-row groups (kGroupRows), each from 0 in row order, added in group
+//     order. The narrow form gives any thread any (group, item), an item
+//     a feature's cells for up to kGradClasses classes (one float64 x a
+//     row for all of them), the same classes' db cells, or the nll and the
+//     weights; so all threads work at 19 or 87 cells, and each cell's
+//     owner adds the previous tile's groups while this one is computed.
+//     Past kMaxOwned cells a thread, or where a tile's group sums do not
+//     fit, the serial form gives a thread a cell, its groups in order, its
+//     running sum in `partials`. Both give the same bits; `sums_kernel`
+//     adds the chunks in chunk order. No float atomics: the groups and the
+//     chunks are a function of the row count alone, so a second launch is
+//     bit-equal and a refit bit-identical. The first form added each
+//     cell's rows in one chain over the chunk; the groups reassociate those
+//     sums, so the grad's bits differ from the first form's (within K7's
+//     tolerances of the twin). No consumer needed those bits: the data
+//     group adds the ranks' sums in rank order, and the model axis's fit
+//     agrees with one rank's within a tolerance, not bit for bit.
+//   - Any Cs >= 1 (K7's two-class specialisation does not serve a shard,
+//     whose label may lie outside it), any F >= 1, 1 or 4 points, float32
+//     or bfloat16 rows.
 // ---------------------------------------------------------------------------
 
-// Rows of X staged in shared memory as float32: value i of rows [start,
-// start + n) at x[(i / F) * xs + i % F].
-template <typename In>
-__device__ __forceinline__ void stage_rows(float* x, const In* __restrict__ X, long long start,
-                                           int n, int F, int xs) {
-  const In* from = X + start * F;
-  for (int i = threadIdx.x; i < n * F; i += blockDim.x) {
-    const int row = i / F;
-    const float v = [&] {
-      if constexpr (std::is_same<In, float>::value) return __ldg(from + i);
-      else return widen(__ldg(from + i));
-    }();
-    x[row * xs + (i - row * F)] = v;
+constexpr int kStatsRows = 2;      // a stats thread's rows (ml/logistic.py _STATS_ROWS)
+// The grad's ring of tiles (ml/logistic.py _GRAD_STAGES): two in flight
+// while one is computed
+constexpr int kGradStages = 3;
+constexpr int kGradClasses = 8;    // a narrow grad item's classes (_GRAD_CLASSES)
+constexpr int kShardNarrow = 0, kShardSerial = 1;   // _SHARD_NARROW, _SHARD_SERIAL
+constexpr int kMaxSharedBytes = 232448;             // kernels.SHARED_BYTES
+
+// Wait until at most N of this thread's latest cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void copy_async8(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+
+// The parameter sets W (sets, F, Cs), b (sets, Cs) into shared memory, a
+// feature's classes at stride ws (Cs rounded up to 4), padded with 0.
+__device__ __forceinline__ void stage_params(float* sw, float* sb, const float* __restrict__ W,
+                                             const float* __restrict__ b, int sets, int F, int Cs,
+                                             int ws) {
+  for (int i = threadIdx.x; i < sets * F * ws; i += kThreads) {
+    const int row = i / ws, c = i - row * ws;
+    sw[i] = c < Cs ? W[static_cast<size_t>(row) * Cs + c] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < sets * ws; i += kThreads) {
+    const int set = i / ws, c = i - set * ws;
+    sb[i] = c < Cs ? b[set * Cs + c] : 0.0f;
   }
 }
 
-// The shard's logit z_c: b_c + K7's fmaf chain (softmax_any's bits).
-template <typename XP>
-__device__ __forceinline__ float shard_logit(XP x, int F, const float* W, const float* b, int Cs,
-                                             int c) {
-  return __fadd_rn(dot(x, F, W, Cs, c), b[c]);
+// Classes c .. c + 3 of a feature's parameters: one 16-byte load from the
+// shared copy, or loads from global memory (0 past Cs).
+template <bool kShared>
+__device__ __forceinline__ float4 class_quad(const float* W_f, int c, int Cs) {
+  if constexpr (kShared) {
+    return *reinterpret_cast<const float4*>(W_f + c);
+  } else {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = c + j < Cs ? __ldg(W_f + c + j) : 0.0f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
-// Whether a tile of kThreads rows of F features fits shared memory.
-__host__ __device__ __forceinline__ bool stats_staged(int F) {
-  return static_cast<size_t>(kThreads) * (F | 1) * sizeof(float) <= kDefaultSharedBytes;
-}
-
-template <typename In>
-__global__ void __launch_bounds__(kThreads)
-    shard_stats_kernel(const In* __restrict__ X, const int* __restrict__ y,
-                       const float* __restrict__ W, const float* __restrict__ b,
-                       float* __restrict__ out, int rows, int F, int Cs, int points, int first) {
-  extern __shared__ float staged_x[];
-  const bool staged = stats_staged(F);
-  const int xs = F | 1;
-  for (long long start = static_cast<long long>(blockIdx.x) * kThreads; start < rows;
-       start += static_cast<long long>(gridDim.x) * kThreads) {
-    const int n = static_cast<int>(min(static_cast<long long>(kThreads), rows - start));
-    if (staged) {
-      __syncthreads();  // the last tile's rows are read
-      stage_rows(staged_x, X, start, n, F, xs);
-      __syncthreads();
+// kR rows' logits without b at one parameter set (a feature's classes at
+// stride ws), the first kC classes (kC: 1, or Cs rounded up to 4, the
+// padding's parameters 0): feature-major, x_f read once a row, each
+// class's chain dot()'s fmaf chain over the features in order. No guard
+// in the loop: the caller uses classes [0, Cs) only.
+template <int kR, int kC, bool kShared, typename XP>
+__device__ __forceinline__ void class_logits(const XP (&x)[kR], int F, const float* W, int ws,
+                                             int Cs, float (&z)[kR][kRegisterClasses]) {
+#pragma unroll 4
+  for (int f = 0; f < F; ++f) {
+    float xf[kR];
+#pragma unroll
+    for (int q = 0; q < kR; ++q) xf[q] = x[q][f];
+    const float* W_f = W + static_cast<size_t>(f) * ws;
+    if constexpr (kC == 1) {
+      const float w = W_f[0];
+#pragma unroll
+      for (int q = 0; q < kR; ++q) z[q][0] = fmaf(xf[q], w, z[q][0]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kC; c += 4) {
+        const float4 quad = class_quad<kShared>(W_f, c, Cs);
+        const float w[4] = {quad.x, quad.y, quad.z, quad.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < kR; ++q) z[q][c + j] = fmaf(xf[q], w[j], z[q][c + j]);
+      }
     }
-    if (threadIdx.x >= n) continue;
-    const long long row = start + threadIdx.x;
-    const int local = y[row] - first;
-    auto row_stats = [&](auto x) {
-      for (int p = 0; p < points; ++p) {
-        const float* Wp = W + static_cast<size_t>(p) * F * Cs;
-        const float* bp = b + static_cast<size_t>(p) * Cs;
-        float top = -INFINITY;
-        for (int c = 0; c < Cs; ++c) top = fmaxf(top, shard_logit(x, F, Wp, bp, Cs, c));
-        float sum = 0.0f, at_label = 0.0f;
-        for (int c = 0; c < Cs; ++c) {
-          const float z = shard_logit(x, F, Wp, bp, Cs, c);
-          sum = __fadd_rn(sum, expf(__fsub_rn(z, top)));
-          if (c == local) at_label = z;
+  }
+}
+
+// kR rows' logits without b, Cs <= kRegisterClasses: class_logits at the
+// least class count that holds Cs; with the parameters in global memory
+// (past their share: wide rows, a rarer path) at kRegisterClasses, which
+// keeps the build short.
+template <int kR, bool kShared, typename XP>
+__device__ __forceinline__ void register_logits(const XP (&x)[kR], int F, const float* W, int ws,
+                                                int Cs, float (&z)[kR][kRegisterClasses]) {
+#pragma unroll
+  for (int q = 0; q < kR; ++q)
+#pragma unroll
+    for (int c = 0; c < kRegisterClasses; ++c) z[q][c] = 0.0f;
+  if constexpr (!kShared)
+    class_logits<kR, kRegisterClasses, kShared>(x, F, W, ws, Cs, z);
+  else if (Cs == 1)
+    class_logits<kR, 1, kShared>(x, F, W, ws, Cs, z);
+  else if (Cs <= 4)
+    class_logits<kR, 4, kShared>(x, F, W, ws, Cs, z);
+  else if (Cs <= 8)
+    class_logits<kR, 8, kShared>(x, F, W, ws, Cs, z);
+  else
+    class_logits<kR, 16, kShared>(x, F, W, ws, Cs, z);
+}
+
+// kR rows' stats at one point (W at stride ws, b): the largest logit, the
+// sum of the exps about it in class order, and the label's logit (0 when
+// the label lies outside the shard).
+template <int kR, bool kShared, typename XP>
+__device__ __forceinline__ void rows_stats(const XP (&x)[kR], int F, const float* W,
+                                           const float* b, int ws, int Cs,
+                                           const int (&local)[kR], float (&top)[kR],
+                                           float (&sum)[kR], float (&at)[kR]) {
+  if (Cs <= kRegisterClasses) {
+    float z[kR][kRegisterClasses];
+    register_logits<kR, kShared>(x, F, W, ws, Cs, z);
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      top[q] = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kRegisterClasses; ++c)
+        if (c < Cs) {
+          z[q][c] = __fadd_rn(z[q][c], b[c]);
+          top[q] = fmaxf(top[q], z[q][c]);
         }
-        float* o = out + (static_cast<size_t>(p) * rows + row) * 3;
-        o[0] = top;
-        o[1] = sum;
-        o[2] = at_label;
+      sum[q] = 0.0f;
+      at[q] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kRegisterClasses; ++c)
+        if (c < Cs) {
+          sum[q] = __fadd_rn(sum[q], expf(__fsub_rn(z[q][c], top[q])));
+          if (c == local[q]) at[q] = z[q][c];
+        }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      top[q] = -INFINITY;
+      for (int c = 0; c < Cs; ++c) top[q] = fmaxf(top[q], __fadd_rn(dot(x[q], F, W, ws, c), b[c]));
+      sum[q] = 0.0f;
+      at[q] = 0.0f;
+      for (int c = 0; c < Cs; ++c) {
+        const float z = __fadd_rn(dot(x[q], F, W, ws, c), b[c]);
+        sum[q] = __fadd_rn(sum[q], expf(__fsub_rn(z, top[q])));
+        if (c == local[q]) at[q] = z;
+      }
+    }
+  }
+}
+
+// A float's offset in its 16-byte word.
+__device__ __forceinline__ int word_shift(const float* at) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(at) >> 2) & 3);
+}
+
+// `count` floats gathered in shared memory (value i at stage[word_shift(dst)
+// + i], stage on 16 bytes) to dst: the whole 16-byte words by 16-byte
+// stores, the values before the first and after the last one by one.
+__device__ __forceinline__ void store_words(float* __restrict__ dst, const float* stage,
+                                            int count) {
+  const int shift = word_shift(dst);
+  const int head = min(count, (4 - shift) & 3);
+  const int words = (count - head) / 4;
+  const float4* from = reinterpret_cast<const float4*>(stage + shift + head);
+  float4* to = reinterpret_cast<float4*>(dst + head);
+  for (int i = threadIdx.x; i < words; i += kThreads) to[i] = from[i];
+  const int tail = head + 4 * words, edges = head + count - tail;
+  for (int i = threadIdx.x; i < edges; i += kThreads) {
+    const int at = i < head ? i : tail + i - head;
+    dst[at] = stage[shift + at];
+  }
+}
+
+// The tiles walk the rows, tile k at rows [k * tile, ...), k = blockIdx.x
+// + i * gridDim.x: a block's tile i + 1 lands in ring buffer (i + 1) & 1
+// (its x in the raw tile, spread at i) while tile i is computed.
+template <typename In, bool kShared>
+__global__ void __launch_bounds__(kThreads, 2)
+    shard_stats_tiles_kernel(const void* __restrict__ X_rows, const int* __restrict__ y,
+                             const float* __restrict__ W, const float* __restrict__ b,
+                             float* __restrict__ out, int rows, int F, int Cs, int points,
+                             int first, const ShardLayout layout) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  const In* X = static_cast<const In*>(X_rows);
+  const int tile = layout.tile, xs = layout.xs;
+  const float* Wp = W;
+  const float* bp = b;
+  int ws = Cs;
+  if constexpr (kShared) {
+    float* sw = reinterpret_cast<float*>(shared + layout.params_w);
+    float* sb = reinterpret_cast<float*>(shared + layout.params_b);
+    ws = layout.ws;
+    stage_params(sw, sb, W, b, points, F, Cs, ws);
+    Wp = sw;
+    bp = sb;
+  }
+  In* raw = reinterpret_cast<In*>(shared + layout.raw);
+  float* x_tile = reinterpret_cast<float*>(shared + layout.x);
+  int* labels = reinterpret_cast<int*>(shared + layout.ring);
+  float* stage = reinterpret_cast<float*>(shared + layout.stage);
+  const int tiles = (rows + tile - 1) / tile;
+  auto issue = [&](int k, int buffer) {  // the copies of tile k
+    const int start = k * tile, n = min(tile, rows - start);
+    if (xs > 0) stage_raw(raw, X + static_cast<size_t>(start) * F, n * F);
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      copy_async4(labels + buffer * tile + i, y + start + i);
+    async_commit();
+  };
+  int k = blockIdx.x;
+  if (k < tiles) issue(k, 0);
+  for (int i = 0; k < tiles; k += gridDim.x, ++i) {
+    const int start = k * tile, n = min(tile, rows - start);
+    const int* tile_labels = labels + (i & 1) * tile;
+    async_wait_all();
+    __syncthreads();  // the tile has landed (and the parameters); the last outputs are stored
+    if (xs > 0) {
+      widen_tile(x_tile, raw + raw_shift(X + static_cast<size_t>(start) * F), n, F, xs);
+      __syncthreads();  // the rows are in x: raw is free for the next tile
+    }
+    if (k + static_cast<int>(gridDim.x) < tiles) issue(k + gridDim.x, (i + 1) & 1);
+    auto pass = [&](auto x0, int stride) {  // x staged or from global memory
+      decltype(x0) x[kStatsRows];
+      int local[kStatsRows];
+#pragma unroll
+      for (int q = 0; q < kStatsRows; ++q) {
+        const int r = q * kThreads + threadIdx.x;
+        const int row = r < n ? r : 0;  // rows past the tile compute row 0 again, unused
+        x[q] = x0 + static_cast<long long>(row) * stride;
+        local[q] = tile_labels[row] - first;
+      }
+      for (int p = 0; p < points; ++p) {
+        float top[kStatsRows], sum[kStatsRows], at[kStatsRows];
+        rows_stats<kStatsRows, kShared>(x, F, Wp + static_cast<size_t>(p) * F * ws, bp + p * ws,
+                                        ws, Cs, local, top, sum, at);
+        float* o = stage + p * layout.stage_floats +
+                   word_shift(out + (static_cast<size_t>(p) * rows + start) * 3);
+#pragma unroll
+        for (int q = 0; q < kStatsRows; ++q) {
+          const int r = q * kThreads + threadIdx.x;
+          if (r < n) {
+            o[3 * r] = top[q];
+            o[3 * r + 1] = sum[q];
+            o[3 * r + 2] = at[q];
+          }
+        }
       }
     };
-    if (staged) row_stats(static_cast<const float*>(staged_x + threadIdx.x * xs));
-    else row_stats(global_rows(X, static_cast<size_t>(row) * F));
+    if (xs > 0)
+      pass(static_cast<const float*>(x_tile), xs);
+    else
+      pass(global_rows(X, static_cast<size_t>(start) * F), F);
+    __syncthreads();  // the tile's outputs are gathered
+    for (int p = 0; p < points; ++p)
+      store_words(out + (static_cast<size_t>(p) * rows + start) * 3,
+                  stage + p * layout.stage_floats, 3 * n);
   }
 }
 
-// grad's shared memory for a tile of `tile` rows: x (staged: tile * xs
-// floats, rounded up to 8 bytes), the residuals (Cs * tile doubles), the
-// nll terms and the weights (tile doubles each), the cells' sums.
-struct ShardGradLayout {
-  int tile, xs, cells;
-  size_t residuals, nll, weights, sums, bytes;
-};
-
-__host__ __device__ __forceinline__ ShardGradLayout shard_grad_layout(int F, int Cs, int tile,
-                                                                       bool staged) {
-  ShardGradLayout l;
-  l.tile = tile;
-  l.xs = staged ? (F | 1) : 0;
-  l.cells = F * Cs + Cs + 2;
-  l.residuals = (static_cast<size_t>(tile) * l.xs * sizeof(float) + 7) / 8 * 8;
-  l.nll = l.residuals + static_cast<size_t>(Cs) * tile * sizeof(double);
-  l.weights = l.nll + static_cast<size_t>(tile) * sizeof(double);
-  l.sums = l.weights + static_cast<size_t>(tile) * sizeof(double);
-  l.bytes = l.sums + static_cast<size_t>(l.cells) * sizeof(double);
-  return l;
+// One item's group sums over rows [r0, r1) in row order, kN classes from
+// t0 (a class's terms at stride tp): x_f r_c (f < F), or r_c (db, f = F:
+// 1.0 r_c + s, one rounding, __dadd_rn's bits).
+template <int kN, typename XP>
+__device__ __forceinline__ void item_sums(double (&s)[kGradClasses], XP x, int stride,
+                                          const double* t0, int tp, int f, int F, int r0, int r1) {
+  auto add_row = [&](int r) {
+    const double a = f < F ? static_cast<double>(x[static_cast<long long>(r) * stride + f]) : 1.0;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) s[i] = __fma_rn(a, t0[i * tp + r], s[i]);
+  };
+  if (r1 - r0 == kGroupRows) {  // a whole group's rows unrolled
+#pragma unroll
+    for (int r = 0; r < kGroupRows; ++r) add_row(r0 + r);
+  } else {
+    for (int r = r0; r < r1; ++r) add_row(r);
+  }
 }
 
-template <typename In>
-__global__ void __launch_bounds__(kThreads)
-    shard_grad_kernel(const In* __restrict__ X, const int* __restrict__ y,
+// The narrow form: each (group, item) of the tile's n rows to any thread,
+// items fastest. Item (f, class block) sums x_f r_c for the block's
+// classes, (F, class block) their r_c (db), the last item the nll and the
+// weights: each cell's group sum from 0 in row order, into sums[group *
+// cells + cell].
+template <typename XP>
+__device__ __forceinline__ void grad_items(double* __restrict__ sums, XP x, int stride,
+                                           const double* terms, int tp, const double* nll,
+                                           const double* wd, int n, int F, int Cs, int cells) {
+  const int blocks = (Cs + kGradClasses - 1) / kGradClasses;
+  const int per_group = (F + 1) * blocks + 1;
+  const int groups = (n + kGroupRows - 1) / kGroupRows;
+  for (int item = threadIdx.x; item < groups * per_group; item += kThreads) {
+    const int group = item / per_group, j = item - group * per_group;
+    const int r0 = group * kGroupRows, r1 = min(n, r0 + kGroupRows);
+    double* out = sums + static_cast<size_t>(group) * cells;
+    if (j == per_group - 1) {
+      double nll_sum = 0.0, weight_sum = 0.0;
+      for (int r = r0; r < r1; ++r) {
+        nll_sum = __dadd_rn(nll_sum, nll[r]);
+        weight_sum = __dadd_rn(weight_sum, wd[r]);
+      }
+      out[F * Cs + Cs] = nll_sum;
+      out[F * Cs + Cs + 1] = weight_sum;
+      continue;
+    }
+    const int f = j / blocks, c0 = (j - f * blocks) * kGradClasses;
+    const int classes = min(kGradClasses, Cs - c0);
+    const double* t0 = terms + static_cast<size_t>(c0) * tp;
+    double s[kGradClasses];
+#pragma unroll
+    for (int i = 0; i < kGradClasses; ++i) s[i] = 0.0;
+    switch (classes) {  // the block's classes, unguarded in the rows' loop
+      case 1: item_sums<1>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 2: item_sums<2>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 3: item_sums<3>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 4: item_sums<4>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 5: item_sums<5>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 6: item_sums<6>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      case 7: item_sums<7>(s, x, stride, t0, tp, f, F, r0, r1); break;
+      default: item_sums<kGradClasses>(s, x, stride, t0, tp, f, F, r0, r1); break;
+    }
+    double* to = out + (f < F ? f * Cs : F * Cs) + c0;
+#pragma unroll
+    for (int i = 0; i < kGradClasses; ++i)
+      if (i < classes) to[i] = s[i];
+  }
+}
+
+// The serial form: a thread a cell, the tile's groups in order (each from 0
+// in row order) added to the cell's running sum in `chunk_sums` (from 0 at
+// the chunk's first tile): the narrow form's bits.
+template <typename XP>
+__device__ __forceinline__ void serial_cells(double* __restrict__ chunk_sums, bool first_tile,
+                                             XP x, int stride, const double* terms, int tp,
+                                             const double* nll, const double* wd, int n, int F,
+                                             int Cs, int cells) {
+  const int FC = F * Cs;
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
+    const int f = cell < FC ? cell / Cs : -1;
+    const double* term = cell < FC        ? terms + static_cast<size_t>(cell - f * Cs) * tp
+                         : cell < FC + Cs ? terms + static_cast<size_t>(cell - FC) * tp
+                         : cell == FC + Cs ? nll
+                                           : wd;
+    double sum = first_tile ? 0.0 : chunk_sums[cell];
+    for (int r0 = 0; r0 < n; r0 += kGroupRows) {
+      const int r1 = min(n, r0 + kGroupRows);
+      double s = 0.0;
+      for (int r = r0; r < r1; ++r)  // 1.0 t + s: __dadd_rn's bits
+        s = __fma_rn(f >= 0 ? static_cast<double>(x[static_cast<long long>(r) * stride + f]) : 1.0,
+                     term[r], s);
+      sum = __dadd_rn(sum, s);
+    }
+    chunk_sums[cell] = sum;
+  }
+}
+
+// Block: a chunk of rows, its float64 sums into partials[chunk].
+template <typename In, bool kShared, int kForm>
+__global__ void __launch_bounds__(kThreads, 2)
+    shard_grad_tiles_kernel(const void* __restrict__ X_rows, const int* __restrict__ y,
                       const float* __restrict__ w, const double* __restrict__ lse,
                       const float* __restrict__ W, const float* __restrict__ b,
                       double* __restrict__ partials, int rows, int F, int Cs, int first,
-                      int rows_per_chunk, const ShardGradLayout layout) {
-  extern __shared__ __align__(16) unsigned char shard_shared[];
-  float* x_tile = reinterpret_cast<float*>(shard_shared);
-  double* residuals = reinterpret_cast<double*>(shard_shared + layout.residuals);
-  double* nll = reinterpret_cast<double*>(shard_shared + layout.nll);
-  double* weights = reinterpret_cast<double*>(shard_shared + layout.weights);
-  double* sums = reinterpret_cast<double*>(shard_shared + layout.sums);
-  const int tile = layout.tile, xs = layout.xs, cells = layout.cells, FC = F * Cs;
-  for (int cell = threadIdx.x; cell < cells; cell += kThreads) sums[cell] = 0.0;
-  const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
-  const long long row1 = min(static_cast<long long>(rows), row0 + rows_per_chunk);
-  for (long long start = row0; start < row1; start += tile) {
-    const int n = static_cast<int>(min(static_cast<long long>(tile), row1 - start));
-    __syncthreads();  // the last tile's terms are added
-    if (xs > 0) {
-      stage_rows(x_tile, X, start, n, F, xs);
-      __syncthreads();
-    }
-    // phase 1: a thread a row of the tile
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const long long row = start + i;
-      const int local = y[row] - first;
-      const double row_lse = lse[row];
-      const double weight = static_cast<double>(w[row]);
-      auto terms = [&](auto x) {
-        double at_label = 0.0;
-        for (int c = 0; c < Cs; ++c) {
-          const double z = static_cast<double>(shard_logit(x, F, W, b, Cs, c));
-          const double r = __dsub_rn(exp(__dsub_rn(z, row_lse)), c == local ? 1.0 : 0.0);
-          residuals[static_cast<size_t>(c) * tile + i] = __dmul_rn(r, weight);
-          if (c == local) at_label = z;
-        }
-        nll[i] = local >= 0 && local < Cs ? __dmul_rn(__dsub_rn(row_lse, at_label), weight) : 0.0;
-        weights[i] = weight;
-      };
-      if (xs > 0) terms(static_cast<const float*>(x_tile + i * xs));
-      else terms(global_rows(X, static_cast<size_t>(row) * F));
-    }
-    __syncthreads();
-    // phase 2: a thread a cell, the tile's rows in row order
-    for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
-      double sum = sums[cell];
-      if (cell < FC) {
-        const int f = cell / Cs, c = cell - f * Cs;
-        const double* r = residuals + static_cast<size_t>(c) * tile;
-        if (xs > 0) {
-          for (int i = 0; i < n; ++i)
-            sum = fma(r[i], static_cast<double>(x_tile[i * xs + f]), sum);
-        } else {
-          const auto x = global_rows(X, static_cast<size_t>(start) * F);
-          for (int i = 0; i < n; ++i)
-            sum = fma(r[i], static_cast<double>(x[static_cast<long long>(i) * F + f]), sum);
-        }
-      } else {
-        const double* terms = cell < FC + Cs ? residuals + static_cast<size_t>(cell - FC) * tile
-                              : cell == FC + Cs ? nll : weights;
-        for (int i = 0; i < n; ++i) sum = __dadd_rn(sum, terms[i]);
+                      int rows_per_chunk, const ShardLayout layout) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  const In* X = static_cast<const In*>(X_rows);
+  const int tile = layout.tile, xs = layout.xs, tp = layout.tp;
+  const int cells = F * Cs + Cs + 2;
+  const float* Wp = W;
+  const float* bp = b;
+  int ws = Cs;
+  if constexpr (kShared) {
+    float* sw = reinterpret_cast<float*>(shared + layout.params_w);
+    float* sb = reinterpret_cast<float*>(shared + layout.params_b);
+    ws = layout.ws;
+    stage_params(sw, sb, W, b, 1, F, Cs, ws);
+    Wp = sw;
+    bp = sb;
+  }
+  In* raw = reinterpret_cast<In*>(shared + layout.raw);
+  float* x_tile = reinterpret_cast<float*>(shared + layout.x);
+  unsigned char* ring = shared + layout.ring;
+  double* terms = reinterpret_cast<double*>(shared + layout.terms);
+  double* nll = reinterpret_cast<double*>(shared + layout.nll);
+  double* wd = reinterpret_cast<double*>(shared + layout.wd);
+  double* group_sums = reinterpret_cast<double*>(shared + layout.sums);
+  double* chunk_sums = partials + static_cast<size_t>(blockIdx.x) * cells;
+  const long long chunk_begin = static_cast<long long>(blockIdx.x) * rows_per_chunk;
+  const long long all_rows = rows;
+  const int row0 = static_cast<int>(min(chunk_begin, all_rows));
+  const int row1 = static_cast<int>(min(chunk_begin + rows_per_chunk, all_rows));
+  const int tiles = (row1 - row0 + tile - 1) / tile;
+  if (tiles == 0) {  // no rows: sums of 0
+    for (int cell = threadIdx.x; cell < cells; cell += kThreads) chunk_sums[cell] = 0.0;
+    return;
+  }
+  // ring slot t % kGradStages: tile t's raw x, its lse (doubles), labels and
+  // weights; a commit a tile, none past the last, so that the groups count
+  // the same on every tile
+  const int raw_values = tile * F + kWordValues<In>;
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      const int start = row0 + t * tile, n = min(tile, row1 - start), slot = t % kGradStages;
+      if (xs > 0) stage_raw(raw + slot * raw_values, X + static_cast<size_t>(start) * F, n * F);
+      unsigned char* to = ring + slot * layout.buffer;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        copy_async8(reinterpret_cast<double*>(to) + i, lse + start + i);
+        copy_async4(reinterpret_cast<int*>(to + 8 * tile) + i, y + start + i);
+        copy_async4(reinterpret_cast<float*>(to + 12 * tile) + i, w + start + i);
       }
-      sums[cell] = sum;
+    }
+    async_commit();
+  };
+  const int tile_groups = tile / kGroupRows;
+  double owned[kMaxOwned] = {};
+  for (int t = 0; t < kGradStages - 1; ++t) issue(t);
+  for (int t = 0; t < tiles; ++t) {
+    const int start = row0 + t * tile, n = min(tile, row1 - start), slot = t % kGradStages;
+    const unsigned char* here = ring + slot * layout.buffer;
+    const double* tile_lse = reinterpret_cast<const double*>(here);
+    const int* tile_labels = reinterpret_cast<const int*>(here + 8 * tile);
+    const float* tile_weights = reinterpret_cast<const float*>(here + 12 * tile);
+    async_wait<kGradStages - 2>();
+    __syncthreads();  // the tile has landed (and the parameters); the last tile's sums are done
+    // the tile kGradStages - 1 ahead, into the last tile's slot
+    issue(t + kGradStages - 1);
+    if (xs > 0) {
+      widen_tile(x_tile, raw + slot * raw_values + raw_shift(X + static_cast<size_t>(start) * F),
+                 n, F, xs);
+      __syncthreads();  // the rows are in x
+    }
+    auto pass = [&](auto x0, int stride) {  // x staged or from global memory
+      // phase 1: a thread a row
+      for (int r = threadIdx.x; r < n; r += kThreads) {
+        const int local = tile_labels[r] - first;
+        const double row_lse = tile_lse[r];
+        const double weight = static_cast<double>(tile_weights[r]);
+        decltype(x0) xr[1] = {x0 + static_cast<long long>(r) * stride};
+        double at_label = 0.0;
+        auto term = [&](int c, float z) {  // z: the logit with b
+          const double zd = static_cast<double>(z);
+          const double residual = __dsub_rn(exp(__dsub_rn(zd, row_lse)), c == local ? 1.0 : 0.0);
+          terms[static_cast<size_t>(c) * tp + r] = __dmul_rn(residual, weight);
+          if (c == local) at_label = zd;
+        };
+        if (Cs <= kRegisterClasses) {
+          float z[1][kRegisterClasses];
+          register_logits<1, kShared>(xr, F, Wp, ws, Cs, z);
+#pragma unroll
+          for (int c = 0; c < kRegisterClasses; ++c)
+            if (c < Cs) term(c, __fadd_rn(z[0][c], bp[c]));
+        } else {
+          for (int c = 0; c < Cs; ++c) term(c, __fadd_rn(dot(xr[0], F, Wp, ws, c), bp[c]));
+        }
+        nll[r] = local >= 0 && local < Cs ? __dmul_rn(__dsub_rn(row_lse, at_label), weight) : 0.0;
+        wd[r] = weight;
+      }
+      __syncthreads();  // the terms are in
+      // phase 2: the sums, group by group
+      if constexpr (kForm == kShardNarrow) {
+        // the previous tile's group sums into their owners' (that tile was whole)
+        if (t > 0)
+          add_groups(owned, group_sums + ((t - 1) & 1) * tile_groups * cells, cells, tile_groups);
+        grad_items(group_sums + (t & 1) * tile_groups * cells, x0, stride, terms, tp, nll, wd, n,
+                   F, Cs, cells);
+      } else {
+        serial_cells(chunk_sums, t == 0, x0, stride, terms, tp, nll, wd, n, F, Cs, cells);
+      }
+    };
+    if (xs > 0)
+      pass(static_cast<const float*>(x_tile), xs);
+    else
+      pass(global_rows(X, static_cast<size_t>(start) * F), F);
+  }
+  if constexpr (kForm == kShardNarrow) {
+    __syncthreads();  // the last tile's group sums are in
+    const int last = tiles - 1;
+    const int n = row1 - (row0 + last * tile);
+    add_groups(owned, group_sums + (last & 1) * tile_groups * cells, cells,
+               (n + kGroupRows - 1) / kGroupRows);
+#pragma unroll
+    for (int k = 0; k < kMaxOwned; ++k) {
+      const int cell = threadIdx.x + k * kThreads;
+      if (cell < cells) chunk_sums[cell] = owned[k];
     }
   }
-  __syncthreads();
-  for (int cell = threadIdx.x; cell < cells; cell += kThreads)
-    partials[static_cast<size_t>(blockIdx.x) * cells + cell] = sums[cell];
 }
 
-// The largest tile of rows (256 down to 16) whose layout fits 48 KB,
-// staged first; a zero tile when none does.
-ShardGradLayout pick_shard_grad_layout(int F, int Cs) {
-  for (int tile = kThreads; tile >= kGroupRows; tile /= 2)
-    for (int staged = 1; staged >= 0; --staged) {
-      const ShardGradLayout l = shard_grad_layout(F, Cs, tile, staged != 0);
-      if (l.bytes <= kDefaultSharedBytes) return l;
-    }
-  ShardGradLayout none = shard_grad_layout(F, Cs, 0, false);
-  none.tile = 0;
-  return none;
+typedef void (*ShardStatsKernel)(const void*, const int*, const float*, const float*, float*, int,
+                                 int, int, int, int, const ShardLayout);
+typedef void (*ShardGradKernel)(const void*, const int*, const float*, const double*,
+                                const float*, const float*, double*, int, int, int, int, int,
+                                const ShardLayout);
+
+ShardStatsKernel shard_stats_for(bool bf16, bool shared_params) {
+  static const ShardStatsKernel table[2][2] = {
+      {shard_stats_tiles_kernel<float, false>, shard_stats_tiles_kernel<float, true>},
+      {shard_stats_tiles_kernel<bf16_bits, false>, shard_stats_tiles_kernel<bf16_bits, true>},
+  };
+  return table[bf16 ? 1 : 0][shared_params ? 1 : 0];
+}
+
+// The narrow form's cells (at most kMaxOwned * kThreads) keep their
+// parameters in shared memory at any F (ml/logistic.py _params_shared), so
+// it has no global-parameters kernel.
+ShardGradKernel shard_grad_for(bool bf16, bool shared_params, int form) {
+  static const ShardGradKernel table[2][3] = {
+      {shard_grad_tiles_kernel<float, true, kShardNarrow>,
+       shard_grad_tiles_kernel<float, false, kShardSerial>,
+       shard_grad_tiles_kernel<float, true, kShardSerial>},
+      {shard_grad_tiles_kernel<bf16_bits, true, kShardNarrow>,
+       shard_grad_tiles_kernel<bf16_bits, false, kShardSerial>,
+       shard_grad_tiles_kernel<bf16_bits, true, kShardSerial>},
+  };
+  return table[bf16 ? 1 : 0][form == kShardNarrow ? 0 : shared_params ? 2 : 1];
+}
+
+// A class-shard layout the kernels can run: whole units of rows in a tile,
+// no more than its threads take, strides that hold a row and a feature's
+// classes, and no more shared memory than a block may have.
+bool valid_shard_layout(const ShardLayout& l, int F, int Cs, int unit, int most) {
+  if (l.tile < unit || l.tile % unit != 0 || l.tile > most) return false;
+  if (l.xs != 0 && l.xs < F) return false;
+  if (l.ws != 0 && (l.ws < Cs || l.ws % 4 != 0)) return false;
+  return l.bytes >= 0 && l.bytes <= kMaxSharedBytes;
 }
 
 bool valid_geometry(int F, int C, int jobs, const Layout& layout, long long x_job_stride,
@@ -1530,25 +1953,34 @@ int lo_logistic_trial_losses(const void* X, int x_bf16, const int* y,
 
 // K7's class-shard form (ml/logistic.py `shard_stats`, `shard_grad`): X
 // (rows, F) float32, or bfloat16 when x_bf16; y (rows,) int32 (global
-// labels); the shard's classes [first, first + Cs). stats: W (points, F,
-// Cs), b (points, Cs); out (points, rows, 3) floats.
+// labels); the shard's classes [first, first + Cs); `layout` the block's
+// geometry (ml/logistic.py `_shard_stats_layout`, `_shard_grad_layout`).
+// stats: W (points, F, Cs), b (points, Cs); out (points, rows, 3) floats;
+// a grid of the blocks the card holds at once (at most max_blocks).
 int lo_logistic_shard_stats(const void* X, int x_bf16, const int* y, const float* W,
                             const float* b, float* out, int rows, int F, int Cs, int points,
-                            int first, int max_blocks, int device, void* stream) {
+                            int first, int max_blocks, int device, void* stream,
+                            const ShardLayout* layout) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
-  if (F <= 0 || Cs <= 0 || rows < 0 || points <= 0 || max_blocks <= 0)
+  if (F <= 0 || Cs <= 0 || rows < 0 || points <= 0 || max_blocks <= 0 ||
+      !valid_shard_layout(*layout, F, Cs, 32, kThreads * kStatsRows) ||
+      layout->stage_floats < 3 * layout->tile + 3 || layout->stage_floats % 4 != 0)
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = stats_staged(F) ? static_cast<size_t>(kThreads) * (F | 1) * sizeof(float) : 0;
-  const int grid = grid_for(rows, max_blocks);
-  if (x_bf16)
-    shard_stats_kernel<bf16_bits><<<grid, kThreads, bytes, s>>>(
-        static_cast<const bf16_bits*>(X), y, W, b, out, rows, F, Cs, points, first);
-  else
-    shard_stats_kernel<float><<<grid, kThreads, bytes, s>>>(
-        static_cast<const float*>(X), y, W, b, out, rows, F, Cs, points, first);
+  const ShardStatsKernel kernel = shard_stats_for(x_bf16 != 0, layout->ws > 0);
+  if ((error = allow_shared(kernel, layout->bytes)) != cudaSuccess) return error;
+  int sms = 0, per_sm = 0;
+  if ((error = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return error;
+  error = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, layout->bytes);
+  if (error != cudaSuccess) return error;
+  const long long tiles = (static_cast<long long>(rows) + layout->tile - 1) / layout->tile;
+  const int grid = static_cast<int>(
+      std::max(1LL, std::min({tiles, static_cast<long long>(max_blocks),
+                              static_cast<long long>(sms) * std::max(per_sm, 1)})));
+  kernel<<<grid, kThreads, layout->bytes, static_cast<cudaStream_t>(stream)>>>(
+      X, y, W, b, out, rows, F, Cs, points, first, *layout);
   return cudaGetLastError();
 }
 
@@ -1559,29 +1991,28 @@ int lo_logistic_shard_stats(const void* X, int x_bf16, const int* y, const float
 int lo_logistic_shard_grad(const void* X, int x_bf16, const int* y, const float* weights,
                            const double* lse, const float* W, const float* b, double* partials,
                            double* out, int rows, int F, int Cs, int first, int chunks,
-                           int rows_per_chunk, int max_blocks, int device, void* stream) {
+                           int rows_per_chunk, int max_blocks, int device, void* stream,
+                           const ShardLayout* layout) {
   cudaError_t error = cudaSetDevice(device);
   if (error != cudaSuccess) return error;
+  const long long cells = static_cast<long long>(F) * Cs + Cs + 2;
   if (F <= 0 || Cs <= 0 || rows < 0 || chunks < 0 || rows_per_chunk <= 0 || max_blocks <= 0 ||
-      static_cast<long long>(chunks) * rows_per_chunk < rows)
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      !valid_shard_layout(*layout, F, Cs, kGroupRows, kThreads) || layout->tp < layout->tile ||
+      (layout->form != kShardNarrow && layout->form != kShardSerial) ||
+      (layout->form == kShardNarrow && (cells > kMaxOwned * kThreads || layout->ws == 0)))
     return cudaErrorInvalidValue;
-  const ShardGradLayout layout = pick_shard_grad_layout(F, Cs);
-  if (layout.tile == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunks > 0) {
-    if (x_bf16)
-      shard_grad_kernel<bf16_bits><<<chunks, kThreads, layout.bytes, s>>>(
-          static_cast<const bf16_bits*>(X), y, weights, lse, W, b, partials, rows, F, Cs, first,
-          rows_per_chunk, layout);
-    else
-      shard_grad_kernel<float><<<chunks, kThreads, layout.bytes, s>>>(
-          static_cast<const float*>(X), y, weights, lse, W, b, partials, rows, F, Cs, first,
-          rows_per_chunk, layout);
+    const ShardGradKernel kernel = shard_grad_for(x_bf16 != 0, layout->ws > 0, layout->form);
+    if ((error = allow_shared(kernel, layout->bytes)) != cudaSuccess) return error;
+    kernel<<<chunks, kThreads, layout->bytes, s>>>(X, y, weights, lse, W, b, partials, rows, F,
+                                                     Cs, first, rows_per_chunk, *layout);
     error = cudaGetLastError();
     if (error != cudaSuccess) return error;
   }
-  sums_kernel<<<dim3(grid_for(layout.cells, max_blocks), 1), kThreads, 0, s>>>(
-      partials, out, chunks, layout.cells);
+  sums_kernel<<<dim3(grid_for(cells, max_blocks), 1), kThreads, 0, s>>>(
+      partials, out, chunks, static_cast<int>(cells));
   return cudaGetLastError();
 }
 

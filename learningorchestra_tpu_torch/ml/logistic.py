@@ -584,6 +584,144 @@ def _shard_grad(W, b, X, y, weights, lse, first: int):
     ])
 
 
+# The class-shard form's launch geometry (kernels/csrc/logistic.cu): a
+# stats thread's rows, the tiles a block may take (largest first), a narrow
+# grad item's classes, grad's sum forms, and the shared memory a block keeps
+# to (two blocks an SM), the parameters' share of it
+_STATS_ROWS = 2             # kStatsRows
+_GRAD_STAGES = 3            # kGradStages: the grad's ring of tiles
+_STATS_TILES = tuple(_THREADS * _STATS_ROWS >> k for k in range(5))   # 512 .. 32 rows
+_GRAD_TILES = tuple(range(_THREADS, 0, -_GROUP_ROWS * 2)) + (_GROUP_ROWS,)   # 256, 224 .. 32, 16
+_GRAD_CLASSES = 8           # kGradClasses
+_SHARD_NARROW, _SHARD_SERIAL = 0, 1
+_SHARD_BLOCK_BYTES = _K7_BLOCK_BYTES
+_SHARD_PARAMS_BYTES = 32 * 1024
+
+
+class _ShardLayout(ctypes.Structure):
+    """A class-shard block's geometry and shared memory, as the kernels read
+    it (``ShardLayout`` in kernels/csrc/logistic.cu, field for field): the
+    tile's rows; x's row stride (0: rows read from global memory); a
+    feature's class stride in the shared parameters (0: read from global
+    memory); grad's sum form; the residuals' stride a class; a ring
+    buffer's bytes; each region's byte offset; a point's floats in the
+    outputs' stage; the total bytes."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "tile", "xs", "ws", "form", "tp", "buffer",
+        "params_w", "params_b", "raw", "x", "ring", "terms", "nll", "wd", "sums", "stage",
+        "stage_floats", "bytes",
+    )]
+
+
+def _shard_cells(num_features: int, classes: int) -> int:
+    """The shard's sums: ``F*Cs`` of dW, ``Cs`` of db, the nll, the weights."""
+    return num_features * classes + classes + 2
+
+
+def _shard_layout(
+    num_features: int, classes: int, points: int, tile: int, x_staged: bool,
+    params_shared: bool, x_bytes: int, grad: bool, form: int = _SHARD_NARROW,
+) -> dict:
+    """The fields of :class:`_ShardLayout` for a stats (``grad`` False) or a
+    grad block. Its shared memory, in order: the parameters when they sit
+    there (every point's W, a feature's classes at a stride of Cs rounded up
+    to 4, then b at that stride); for staged x the raw tile (a tile's
+    values as they arrive, a 16-byte word of slack) and x at an odd row
+    stride; the buffers (stats: the labels, two; grad: the log-sum-exp,
+    the labels and the weights, its raw tiles and buffers a ring of
+    ``_GRAD_STAGES``); grad's residuals (a class's at ``tp`` doubles), nll
+    terms and weights in float64 and, in the narrow form, the group sums of
+    two tiles; stats' outputs of every point (``3 tile + 4`` floats each,
+    so that a point's 16-byte words line up with its rows'). Each region
+    starts on 16 bytes."""
+    F, Cs = num_features, classes
+    sets = 1 if grad else points
+    xs = (F | 1) if x_staged else 0
+    ws = -(-Cs // 4) * 4 if params_shared else 0
+    tp = tile
+    buffer = 16 * tile if grad else 4 * tile
+    stage_floats = 0 if grad else 3 * tile + 4
+    narrow = grad and form == _SHARD_NARROW
+    sizes = {   # region -> bytes, in the order they lie
+        "params_w": 4 * sets * F * ws,
+        "params_b": 4 * sets * ws,
+        "raw": (_GRAD_STAGES if grad else 1) * x_bytes * (tile * F + 16 // x_bytes) if x_staged else 0,
+        "x": 4 * tile * xs,
+        "ring": (_GRAD_STAGES if grad else 2) * buffer,
+        "terms": 8 * Cs * tp if grad else 0,
+        "nll": 8 * tile if grad else 0,
+        "wd": 8 * tile if grad else 0,
+        "sums": 8 * 2 * (tile // _GROUP_ROWS) * _shard_cells(F, Cs) if narrow else 0,
+        "stage": 4 * points * stage_floats,
+    }
+    offsets, at = {}, 0
+    for region, size in sizes.items():
+        offsets[region] = at
+        at += -(-size // 16) * 16
+    return dict(tile=tile, xs=xs, ws=ws, form=form if grad else 0, tp=tp, buffer=buffer,
+                stage_floats=stage_floats, bytes=at, **offsets)
+
+
+def _params_shared(num_features: int, classes: int, sets: int) -> bool:
+    """Whether a block keeps the parameter sets in shared memory."""
+    ws = -(-classes // 4) * 4
+    return 4 * sets * (num_features * ws + ws) <= _SHARD_PARAMS_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_stats_geometry(num_features: int, classes: int, points: int,
+                          x_bytes: int) -> tuple[int, bool, bool]:
+    """``(tile rows, x staged, parameters in shared memory)`` of a stats
+    launch: the largest tile whose staged rows fit ``_SHARD_BLOCK_BYTES``,
+    else rows read from global memory at the largest tile. None of these
+    changes a bit of the outputs."""
+    F, Cs = num_features, classes
+    shared = _params_shared(F, Cs, points)
+    for x_staged in (True, False):
+        for tile in _STATS_TILES:
+            if _shard_layout(F, Cs, points, tile, x_staged, shared, x_bytes, False)["bytes"] \
+                    <= _SHARD_BLOCK_BYTES:
+                return tile, x_staged, shared
+    raise ValueError(f"{points} points x {F} features x {Cs} classes: no stats tile fits a block")
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_grad_geometry(num_features: int, classes: int, x_bytes: int) -> tuple[int, bool, bool, int]:
+    """``(tile rows, x staged, parameters in shared memory, sum form)`` of a
+    grad launch: staged rows first, the narrow form while a thread owns at
+    most ``_MAX_OWNED`` cells and its group sums fit, the largest tile that
+    fits ``_SHARD_BLOCK_BYTES``; else the serial form, else rows from
+    global memory. Both forms give the same bits."""
+    F, Cs = num_features, classes
+    shared = _params_shared(F, Cs, 1)
+    forms = (_SHARD_NARROW, _SHARD_SERIAL) if _shard_cells(F, Cs) <= _MAX_OWNED * _THREADS \
+        else (_SHARD_SERIAL,)
+    for x_staged in (True, False):
+        for form in forms:
+            for tile in _GRAD_TILES:
+                if _shard_layout(F, Cs, 1, tile, x_staged, shared, x_bytes, True, form)["bytes"] \
+                        <= _SHARD_BLOCK_BYTES:
+                    return tile, x_staged, shared, form
+    raise ValueError(f"{F} features x {Cs} classes: no grad tile fits a block")
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_stats_layout(num_features: int, classes: int, points: int, x_bytes: int) -> _ShardLayout:
+    """The layout a stats launch hands its kernel (read, never written)."""
+    tile, x_staged, shared = _shard_stats_geometry(num_features, classes, points, x_bytes)
+    return _ShardLayout(**_shard_layout(
+        num_features, classes, points, tile, x_staged, shared, x_bytes, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_grad_layout(num_features: int, classes: int, x_bytes: int) -> _ShardLayout:
+    """The layout a grad launch hands its kernel (read, never written)."""
+    tile, x_staged, shared, form = _shard_grad_geometry(num_features, classes, x_bytes)
+    return _ShardLayout(**_shard_layout(
+        num_features, classes, 1, tile, x_staged, shared, x_bytes, True, form))
+
+
 def _check_shard(W, first):
     if not isinstance(first, int) or first < 0:
         raise ValueError(f"the shard's first class must be an int >= 0, got {first!r}")
@@ -597,7 +735,8 @@ def shard_stats(W, b, X, y, first: int):
     (1: the loss's point; 4: the Armijo trial points, one read of X):
     ``(points, rows, 3)`` float32, ``[largest logit, sum of exp(z - it),
     the label's logit where the label lies in the shard, else 0]``. On a
-    CUDA tensor one launch of K7's ``lo_logistic_shard_stats``."""
+    CUDA tensor one launch of K7's ``lo_logistic_shard_stats`` (its tiles,
+    staging and parameters' place from :func:`_shard_stats_geometry`)."""
     points = W.shape[0] if W.dim() == 3 else -1
     _check_operands(X, y, W, b, leading=(points,))
     _check_shard(W, first)
@@ -605,12 +744,13 @@ def shard_stats(W, b, X, y, first: int):
         return _shard_stats(W, b, X, y, first)
     kernels.check_operands(X, y, W, b)
     rows, num_features = X.shape
+    layout = _shard_stats_layout(num_features, W.shape[-1], points, X.element_size())
     out = torch.empty((points, rows, 3), dtype=torch.float32, device=X.device)
     kernels.launch(
         "logistic_shard_stats", "lo_logistic_shard_stats",
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(), W.data_ptr(), b.data_ptr(),
         out.data_ptr(), rows, num_features, W.shape[-1], points, first,
-        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X), ctypes.addressof(layout),
     )
     return out
 
@@ -620,7 +760,8 @@ def shard_grad(W, b, X, y, weights, lse, first: int):
     row's log-sum-exp over every class ``lse (rows,)`` float64: ``(F*Cs +
     Cs + 2,)``, ``[sum w x r | sum w r | sum_{y in shard} w nll | sum w]``.
     On a CUDA tensor one launch of K7's ``lo_logistic_shard_grad`` (its
-    chunks added in chunk order by ``sums_kernel``)."""
+    geometry from :func:`_shard_grad_geometry`; each cell's 16-row groups
+    added in group order, the chunks in chunk order by ``sums_kernel``)."""
     _check_operands(X, y, W, b)
     _check_shard(W, first)
     if weights is None or weights.dtype != torch.float32 or tuple(weights.shape) != (X.shape[0],):
@@ -632,7 +773,8 @@ def shard_grad(W, b, X, y, weights, lse, first: int):
     kernels.check_operands(X, y, weights, lse, W, b)
     rows, num_features = X.shape
     classes = W.shape[-1]
-    cells = num_features * classes + classes + 2
+    cells = _shard_cells(num_features, classes)
+    layout = _shard_grad_layout(num_features, classes, X.element_size())
     chunks, per_chunk = kernels.row_chunks(rows)
     partials = torch.empty((max(chunks, 1), cells), dtype=torch.float64, device=X.device)
     out = torch.empty(cells, dtype=torch.float64, device=X.device)
@@ -641,7 +783,7 @@ def shard_grad(W, b, X, y, weights, lse, first: int):
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(), weights.data_ptr(),
         lse.data_ptr(), W.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
         rows, num_features, classes, first, chunks, per_chunk,
-        kernels.max_blocks(X.device.index), X.device.index, _stream(X),
+        kernels.max_blocks(X.device.index), X.device.index, _stream(X), ctypes.addressof(layout),
     )
     return out
 

@@ -4,7 +4,8 @@ The phase starts two shard groups, each a primary and a follower store
 server as child processes (sync replication, automatic promotion), runs
 the seven services in this process over ``connect("p0,f0;p1,f1")``,
 writes bench.py's product rows and a larger test file as CSVs and sends
-them through ``POST /files`` (the test file natively in 5 slabs) and
+them through ``POST /files`` (natively in slabs: the test file in 5,
+each product file in as many as its size gives) and
 ``PATCH /fieldtypes``, and holds: every collection to the Python parse's
 in an in-process ``InMemoryStore``, byte for byte, before and after the
 cast; each group's block rows to the placement; one native parse a slab
@@ -39,7 +40,7 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
     count_cpu_copies(monkeypatch.setattr)
     for name, value in (
-        ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("BATCH_ROWS", 12_000),
+        ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("STORE_BATCH_ROWS", 5_000),
         ("STORE_SHM_BYTES", 8 * 2**20), ("SHARDS_STRIPE_ROWS", 256),
     ):
         monkeypatch.setattr(chip_smoke, name, value)
@@ -52,11 +53,13 @@ def test_shards_phase_runs_on_the_cpu(on_the_cpu, capsys):
     one_group = {"batch_over_ring": {"wall_s": 1.0, "timings": {"load_data": 0.5}}}
     record = chip_smoke.phase_shards(torch, "cpu rehearsal", one_group)
     assert record["build"]["metrics"] == record["local_build"]["metrics"]
-    assert record["batch"]["rows"] == record["failover"]["batch"]["rows"] == 12_000
+    assert record["batch"]["rows"] == record["failover"]["batch"]["rows"] == 5_000
     assert "load_data" in record["batch"]["timings"]
     assert record["one_group_batch"] == one_group["batch_over_ring"]
     assert record["slabs"] >= 4 and record["native"]["fallbacks"] == 0
-    assert record["native"]["native_parses"] == record["slabs"] + 3
+    # product files larger than a slab of the test file, as on the card
+    assert record["test_rows"] == 5_000 and record["product_slabs"] >= 2
+    assert record["native"]["native_parses"] == record["slabs"] + 1 + 2 * record["product_slabs"]
     for name, held in record["block_rows"].items():
         assert sum(held) == record["rows"][name] and all(rows > 0 for rows in held)
         assert record["block_rows_after_kill"][name] == held

@@ -40,7 +40,8 @@ def on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
     count_cpu_copies(monkeypatch.setattr)
     for name, value in (
-        ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("BATCH_ROWS", 3_000), ("STORE_SHM_BYTES", 8 * 2**20),
+        ("PRODUCT_ROWS", 2_000), ("FIT_ROWS", 4_000), ("STORE_BATCH_ROWS", 3_000),
+        ("STORE_SHM_BYTES", 8 * 2**20),
     ):
         monkeypatch.setattr(chip_smoke, name, value)
     devcache.reset_global_devcache()
