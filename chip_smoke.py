@@ -4040,6 +4040,24 @@ def _sweep_launches(kind: str, payload, padded: int) -> tuple[dict, dict]:
     return expected, {"lr_fused_segment": 0, "lr_fused_eval": 0, "dt_fused": programs}
 
 
+def sweep_members(device=None, mesh=None) -> dict:
+    """The sweep phase's two members, prepared for ``device`` or over the
+    data ranks of ``mesh``: bench.py's sweep_100 λ grid over lr and the
+    depth grid over dt, on its 1,000,000 rows (seed 0) and an eval draw of
+    200,000 (seed 1)."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    X, y = bench_synthetic(SWEEP_ROWS, seed=0)
+    X_eval, y_eval = bench_synthetic(SWEEP_EVAL_ROWS, seed=1)
+    lambdas = [{"reg_param": float(v)} for v in np.linspace(0.0, 1.0, SWEEP_POINTS)]
+    depths = [{"max_depth": depth} for depth in SWEEP_DEPTHS]
+    return {
+        "lr": sweep.prepare_member("lr", X, y, X_eval, y_eval, lambdas, device=device,
+                                   max_iter=SWEEP_MAX_ITER, mesh=mesh)[1],
+        "dt": sweep.prepare_member("dt", X, y, X_eval, y_eval, depths, device=device, mesh=mesh)[1],
+    }
+
+
 def phase_sweep(torch, card: str) -> dict:
     """The fused programs on the card at full width: bench.py's sweep_100
     λ grid over lr and a depth grid over dt on 1,000,000 rows, each one
@@ -4051,14 +4069,9 @@ def phase_sweep(torch, card: str) -> dict:
     device = _card(torch)
     record = {"phase": "sweep", "rows": SWEEP_ROWS, "eval_rows": SWEEP_EVAL_ROWS, "features": FEATURES}
     started = time.perf_counter()
-    X, y = bench_synthetic(SWEEP_ROWS, seed=0)
-    X_eval, y_eval = bench_synthetic(SWEEP_EVAL_ROWS, seed=1)
-    lambdas = [{"reg_param": float(v)} for v in np.linspace(0.0, 1.0, SWEEP_POINTS)]
-    depths = [{"max_depth": depth} for depth in SWEEP_DEPTHS]
-    _, lr_payload = sweep.prepare_member(
-        "lr", X, y, X_eval, y_eval, lambdas, device=device, max_iter=SWEEP_MAX_ITER
-    )
-    _, dt_payload = sweep.prepare_member("dt", X, y, X_eval, y_eval, depths, device=device)
+    members = sweep_members(device=device)
+    lr_payload, dt_payload = members["lr"], members["dt"]
+    X_eval, _ = bench_synthetic(SWEEP_EVAL_ROWS, seed=1)
     record["prepare_s"] = time.perf_counter() - started
 
     # the main path: each sweep with the counts set to 0 just before it
@@ -4784,7 +4797,8 @@ class _LoggedChild:
 
     def wait_for(self, marker: str, timeout_s: float, what: str) -> list:
         """The log's lines once one holds ``marker``; raises when the
-        child dies or the time passes first."""
+        child dies or the time passes first (:class:`_PortTaken` when it
+        died because its port was taken)."""
         deadline = time.time() + timeout_s
         while time.time() < deadline:
             lines = self.lines()
@@ -4793,7 +4807,10 @@ class _LoggedChild:
             if self.process.poll() is not None:
                 break
             time.sleep(0.05)
-        raise AssertionError(f"{what} never served:\n" + "\n".join(self.lines()[-40:]))
+        lines = self.lines()
+        if self.process.poll() is not None and _port_taken(lines):
+            raise _PortTaken(f"{what}: its port was taken")
+        raise AssertionError(f"{what} never served:\n" + "\n".join(lines[-40:]))
 
     def stop(self) -> None:
         if self.process.poll() is None:
@@ -5176,11 +5193,44 @@ STORE_FAILOVER_TEST = "bench_test_failover"   # the test rows of the build after
 
 
 def _free_port() -> int:
+    """A port free now. Another process may bind it before the child it
+    is meant for does, so only a port that must be known before its
+    child binds is picked here (a peer's URL, ``LO_PLANE_MEMBERS``, the
+    ranks' rendezvous), and :func:`_on_new_ports` starts again when it
+    was taken; every other HTTP child binds port 0 and names its port in
+    its log."""
     import socket
 
     with socket.socket() as probe:
         probe.bind(("127.0.0.1", 0))
         return probe.getsockname()[1]
+
+
+PORT_RETRIES = 2   # starts again on new ports after a taken one, at most
+
+
+class _PortTaken(AssertionError):
+    """A child found the port picked for it taken."""
+
+
+def _port_taken(lines) -> bool:
+    return any("address already in use" in line.lower() for line in lines)
+
+
+def _on_new_ports(start, what: str):
+    """``start()``, which picks its ports with :func:`_free_port`, starts
+    its children on them, waits until they serve and stops them before
+    it raises; where a child found its port taken (:class:`_PortTaken`),
+    once more on new ports, at most ``PORT_RETRIES`` times, each retry
+    printed."""
+    for attempt in range(PORT_RETRIES + 1):
+        try:
+            return start()
+        except _PortTaken as taken:
+            if attempt == PORT_RETRIES:
+                raise
+            print(f"chip_smoke: {what}: {taken}; starting again on new ports "
+                  f"(retry {attempt + 1} of {PORT_RETRIES})", flush=True)
 
 
 def _stop_collectors(stores) -> None:
@@ -5198,18 +5248,64 @@ def _stop_collectors(stores) -> None:
 
 class _StoreServer(_LoggedChild):
     """``python -m learningorchestra_tpu_torch.core.store_service`` as a
-    child process."""
+    child process, on ``port`` (0: one the system picks, read from its
+    boot line). A new start of ``name`` begins on an empty data folder."""
 
-    def __init__(self, folder: str, name: str, port: int, extra_env: dict):
+    def __init__(self, folder: str, name: str, port: int = 0, extra_env: "dict | None" = None):
+        import shutil
+
+        data_dir = os.path.join(folder, name)
+        shutil.rmtree(data_dir, ignore_errors=True)
         env = {
-            **os.environ, "LO_STORE_PORT": str(port), "LO_DATA_DIR": os.path.join(folder, name),
-            "LO_NODE_ID": name, "LO_SHM_BYTES": str(STORE_SHM_BYTES), **extra_env,
+            **os.environ, "LO_STORE_PORT": str(port), "LO_DATA_DIR": data_dir,
+            "LO_NODE_ID": name, "LO_SHM_BYTES": str(STORE_SHM_BYTES), **(extra_env or {}),
         }
         super().__init__(STORE_SERVER_COMMAND, env, os.path.join(folder, f"{name}.log"))
-        self.url = f"http://127.0.0.1:{port}"
+        self.name = name
+        self.url = f"http://127.0.0.1:{port}" if port else None
 
     def wait_serving(self) -> None:
-        self.wait_for("store server on", STORE_BOOT_TIMEOUT_S, f"store server {self.url}")
+        import re
+
+        for line in self.wait_for("store server on", STORE_BOOT_TIMEOUT_S, f"store server {self.name}"):
+            match = re.search(r"store server on [\d.]+:(\d+)", line)
+            if match:
+                self.url = f"http://127.0.0.1:{match.group(1)}"
+
+
+def _replicated_pairs(folder: str, names: list) -> list:
+    """A primary and its follower (sync replication, each the other's
+    peer, the follower promoting itself after ``STORE_AUTO_PROMOTE_S``)
+    for each ``(primary, follower)`` of ``names``, all serving: the
+    primaries on ports the system picks, then the followers on ports
+    picked first (each primary's ``LO_PEERS`` names its follower). On a
+    failure every server started is stopped."""
+    f_ports = [_free_port() for _ in names]
+    started = []
+    try:
+        primaries = []
+        for (primary, _), f_port in zip(names, f_ports):
+            primaries.append(_StoreServer(folder, primary, 0, {
+                "LO_REPLICATE": "1", "LO_STORE_SYNC_REPL": "1", "LO_STORE_ACK_TIMEOUT_S": STORE_ACK_TIMEOUT_S,
+                "LO_PEERS": f"http://127.0.0.1:{f_port}",
+            }))
+            started.append(primaries[-1])
+        for server in primaries:
+            server.wait_serving()
+        followers = []
+        for (_, follower), f_port, primary in zip(names, f_ports, primaries):
+            followers.append(_StoreServer(folder, follower, f_port, {
+                "LO_PRIMARY_URL": primary.url, "LO_PEERS": primary.url,
+                "LO_AUTO_PROMOTE_S": STORE_AUTO_PROMOTE_S,
+            }))
+            started.append(followers[-1])
+        for server in followers:
+            server.wait_serving()
+    except BaseException:
+        for server in started:
+            server.stop()
+        raise
+    return list(zip(primaries, followers))
 
 
 class _WireRoads:
@@ -5344,21 +5440,14 @@ def phase_store(torch, card: str) -> dict:
             server.stop()
         want_labels = _labels(local, "batch_gb")
 
-        p_port, f_port = _free_port(), _free_port()
-        p_url, f_url = f"http://127.0.0.1:{p_port}", f"http://127.0.0.1:{f_port}"
-        primary = _StoreServer(folder, "primary", p_port, {
-            "LO_REPLICATE": "1", "LO_STORE_SYNC_REPL": "1", "LO_STORE_ACK_TIMEOUT_S": STORE_ACK_TIMEOUT_S,
-            "LO_PEERS": f_url,
-        })
-        follower = None
+        # the primary binds port 0; its LO_PEERS names the follower's
+        # port, picked before the follower binds it
+        primary, follower = _on_new_ports(lambda: _replicated_pairs(folder, [("primary", "follower")])[0],
+                                          "store: the replicated pair")
+        p_url, f_url = primary.url, follower.url
         servers = []
         rings = []
         try:
-            primary.wait_serving()
-            follower = _StoreServer(folder, "follower", f_port, {
-                "LO_PRIMARY_URL": p_url, "LO_PEERS": p_url, "LO_AUTO_PROMOTE_S": STORE_AUTO_PROMOTE_S,
-            })
-            follower.wait_serving()
             boot_s = time.perf_counter() - started
             urls = f"{p_url},{f_url}"
             remote, roads = _remote_store(urls, STORE_SHM_BYTES)
@@ -5476,8 +5565,7 @@ def phase_store(torch, card: str) -> dict:
             for store in rings:
                 store.close()
             primary.stop()
-            if follower is not None:
-                follower.stop()
+            follower.stop()
     record = {
         "phase": "store",
         "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS, "batch_test": STORE_BATCH_ROWS},
@@ -5726,24 +5814,14 @@ def phase_shards(torch, card: str, store_record: "dict | None" = None) -> dict:
         _same_collection("the native parse in process", native_local, local, BATCH_TEST)
         del native_local
 
-        ports = [(_free_port(), _free_port()) for _ in range(SHARDS_GROUPS)]
-        urls = [(f"http://127.0.0.1:{p}", f"http://127.0.0.1:{f}") for p, f in ports]
-        primaries, followers, servers, sharded = [], [], [], None
+        boot_started = time.perf_counter()
+        pairs = _on_new_ports(lambda: _replicated_pairs(
+            folder, [(f"primary{group}", f"follower{group}") for group in range(SHARDS_GROUPS)]),
+            "shards: the replicated pairs")
+        primaries, followers = [p for p, _ in pairs], [f for _, f in pairs]
+        urls = [(primary.url, follower.url) for primary, follower in pairs]
+        servers, sharded = [], None
         try:
-            boot_started = time.perf_counter()
-            for group, ((p_port, _), (_, f_url)) in enumerate(zip(ports, urls)):
-                primaries.append(_StoreServer(folder, f"primary{group}", p_port, {
-                    "LO_REPLICATE": "1", "LO_STORE_SYNC_REPL": "1",
-                    "LO_STORE_ACK_TIMEOUT_S": STORE_ACK_TIMEOUT_S, "LO_PEERS": f_url,
-                }))
-            for primary in primaries:
-                primary.wait_serving()
-            for group, ((_, f_port), (p_url, _)) in enumerate(zip(ports, urls)):
-                followers.append(_StoreServer(folder, f"follower{group}", f_port, {
-                    "LO_PRIMARY_URL": p_url, "LO_PEERS": p_url, "LO_AUTO_PROMOTE_S": STORE_AUTO_PROMOTE_S,
-                }))
-            for follower in followers:
-                follower.wait_serving()
             boot_s = time.perf_counter() - boot_started
 
             with _slabs_and_stripes(slab_bytes):
@@ -7567,6 +7645,9 @@ def _fit_arrays(torch, name: str, model, X_dev) -> dict:
 
 
 OTHER_FITS = ("dt", "rf", "gb", "nb")
+# each rank's launches in run (c)'s sweeps, by kind: the kernels line's
+# job-axis entries list them beside the sweep phase's single-card ones
+MULTIGPU_SWEEP_LAUNCHES: dict = {}
 COLLECTIVE_FIELDS = ("collective_s", "collectives", "model_collective_s", "model_collectives")
 # a child's lr fits: bench.py's two classes always; ten classes and the
 # bfloat16 policy where the run asks for them
@@ -7653,19 +7734,90 @@ def _dtype_policy(policy):
         dtypepolicy._POLICY.clear()
 
 
+def _lr_slots_alone(sweep, payload: dict, result: dict, mesh) -> dict:
+    """Each real lr slot of this rank's block run alone at the rank's
+    local padded width (the slot repeated across it): its W, b,
+    accuracy and weighted F1 bit-identical to the sweep over the ranks
+    (the coalescer's bar)."""
+    from learningorchestra_tpu_torch.parallel.mesh import data_size
+    from learningorchestra_tpu_torch.utils.shapegrid import padded_indices
+
+    chunk = [(0, point) for point in range(len(payload["grid"]))]
+    padded = sweep._job_axis(len(chunk), mesh)
+    slots = [chunk[i] for i in padded_indices(len(chunk), padded)]
+    local = padded // data_size(mesh)
+    began = time.perf_counter()
+    checked = 0
+    for offset, slot in enumerate(sweep._rank_block(slots, mesh)):
+        if mesh.data_index * local + offset >= len(chunk):
+            continue   # a dummy slot
+        point = slot[1]
+        w, b, accuracy, f1 = (array[0] for array in sweep._lr_slots([payload], [slot] * local, mesh.device))
+        params, at = result["params"][point], result["points"][point]
+        if not (np.array_equal(w, params["w"]) and np.array_equal(b, params["b"])
+                and float(accuracy) == at["accuracy"] and float(f1) == at["weighted_f1"]):
+            raise AssertionError(f"sweep over ranks: lr slot {point} differs from its run alone at width {local}")
+        checked += 1
+    return {"slots": checked, "width": local, "wall_s": time.perf_counter() - began}
+
+
+def _sweeps_over_ranks(torch, mesh, rank: int, folder: str) -> tuple:
+    """The sweep phase's λ and depth sweeps over the data ranks of
+    ``mesh`` (``group_runner(mesh=...)``, every rank the same member),
+    each with the counts set to 0 just before it; then each lr slot of
+    this rank's block alone. Rank 0 saves the outcomes. Returns the
+    records and a digest of the outcomes' bits."""
+    import hashlib
+    import pickle
+
+    from learningorchestra_tpu_torch.ml import sweep
+    from learningorchestra_tpu_torch.parallel import multihost
+
+    began = time.perf_counter()
+    members = sweep_members(mesh=mesh)
+    records = {"prepare_s": time.perf_counter() - began}
+    digest = hashlib.sha256()
+    for kind in ("lr", "dt"):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        multihost.reset_collective_stats()
+        began = time.perf_counter()
+        result = _outcome(sweep.group_runner(mesh=mesh)([members[kind]]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - began
+        launches = {name: count for name, count in kernels.launches().items() if count}
+        collectives = multihost.collective_stats()
+        bits = hashlib.sha256(json.dumps([result["points"], result["best"]]).encode())
+        for params in result["params"]:
+            for key in sorted(params):
+                if isinstance(params[key], np.ndarray):
+                    bits.update(np.ascontiguousarray(params[key]).tobytes())
+        digest.update(bits.digest())
+        records[kind] = {"wall_s": wall_s, "launches": launches, "collectives": collectives["collectives"],
+                         "collective_s": collectives["collective_s"], "best": result["best"],
+                         "digest": bits.hexdigest()}
+        if kind == "lr":
+            records[kind]["alone"] = _lr_slots_alone(sweep, members[kind], result, mesh)
+        if rank == 0:
+            with open(os.path.join(folder, f"sweep_{kind}.pkl"), "wb") as handle:
+                pickle.dump(result, handle)
+    return records, digest.hexdigest()
+
+
 def multigpu_child(argv) -> int:
     """One rank of a ``multigpu`` run: ``chip_smoke.py multigpu-child
     <rank> <world> <backend> <address> <device> <folder> <spmd> [<model>
-    <fits>]``. Joins the group, builds a mesh of ``world / model`` data
+    <fits> <sweeps>]``. Joins the group, builds a mesh of ``world / model`` data
     ranks by ``model`` model ranks, feeds its block of bench.py's 1,000,000
     rows (``host_row_range``, ``shard_rows_local``), runs ``fit_sharded``
     with the counts set to 0 just before it, and the fits named in
     ``<fits>`` (``ten``: on ``ten_classes``; ``bf16``: under
     ``LO_DTYPE_POLICY=bf16``, the block in bfloat16); then (``spmd`` 1)
     the SPMD ``fit`` of the full rows; then the other fits (over a model
-    axis: rf and nb alone); checks over the group that every rank holds the
-    same bits; writes its record to ``<folder>/rank<rank>.json`` (rank 0
-    also the predictions and losses as .npy)."""
+    axis: rf and nb alone); then (``sweeps`` 1) the sweeps over the data
+    ranks; checks over the group that every rank holds the same bits;
+    writes its record to ``<folder>/rank<rank>.json`` (rank 0 also the
+    predictions and losses as .npy)."""
     import hashlib
 
     import torch
@@ -7678,20 +7830,15 @@ def multigpu_child(argv) -> int:
     rank, world, device, spmd = int(rank), int(world), torch.device(device), spmd == "1"
     model_axis = int(argv[7]) if len(argv) > 7 else 1
     extra = argv[8].split(",") if len(argv) > 8 and argv[8] else []
+    sweeps = len(argv) > 9 and argv[9] == "1"
     fits = ["fit_sharded"] + [f"fit_sharded_{name}" for name in extra]
     os.environ.update(LO_COORDINATOR=address, LO_NUM_PROCESSES=str(world), LO_PROCESS_ID=str(rank))
     for name in kernels.SOURCES:   # built by the parent
         kernels.library(name)
     started = time.perf_counter()
     multihost.initialize_from_env(backend=backend, device=device, timeout_s=MULTIGPU_GROUP_TIMEOUT_S)
-    staging_reason = None
-    if backend == "gloo" and world > 1:
-        probe = [torch.empty(2, device=device) for _ in range(world)]
-        try:
-            dist.all_gather(probe, torch.full((2,), float(rank), device=device))
-        except RuntimeError as error:   # this gloo takes no CUDA tensor: copy through the host
-            staging_reason = str(error).splitlines()[0][:200]
-            multihost.stage_through_host(True)
+    # a gloo that takes no CUDA tensor: every collective through the host
+    staging_reason = multihost.stage_if_refused(device)
     mesh = make_mesh(data=world // model_axis, model=model_axis, device=device)
     join_s = time.perf_counter() - started
     X, y = bench_synthetic(FIT_ROWS)
@@ -7753,6 +7900,9 @@ def multigpu_child(argv) -> int:
     record["others"], others_digest = _other_fits_over_ranks(
         torch, mesh, X, y, rank, folder, *((GRID_FITS, False) if model_axis > 1 else ()))
     digests.append(others_digest)
+    if sweeps:
+        record["sweeps"], sweeps_digest = _sweeps_over_ranks(torch, mesh, rank, folder)
+        digests.append(sweeps_digest)
     # every rank's digests over the group (NCCL also for one rank): the same bits
     mine = torch.tensor(np.frombuffer(bytes.fromhex("".join(digests)), np.uint8).copy())
     mine = mine.to(device) if backend == "nccl" else mine   # gloo: the host's copy
@@ -7766,39 +7916,47 @@ def multigpu_child(argv) -> int:
 
 
 def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: bool, folder: str,
-                  model: int = 1, fits: str = "") -> dict:
+                  model: int = 1, fits: str = "", sweeps: bool = False) -> dict:
     """One run of ``world`` child ranks over ``cards`` cards (rank r on card
     r mod cards), all started together, as a mesh of ``world / model`` data
-    ranks by ``model`` model ranks, with the extra lr ``fits``; fails when
-    a child fails."""
+    ranks by ``model`` model ranks, with the extra lr ``fits`` (and
+    ``sweeps``: the sweeps over the data ranks); fails when a child
+    fails."""
     folder = os.path.join(folder, run)
     os.makedirs(folder)
-    address = f"127.0.0.1:{_free_port()}"
-    children = [
-        _LoggedChild(
-            MULTIGPU_CHILD_COMMAND + [
-                str(rank), str(world), backend, address, f"cuda:{rank % cards}", folder,
-                "1" if spmd else "0", str(model), fits,
-            ],
-            dict(os.environ), os.path.join(folder, f"rank{rank}.log"),
-        )
-        for rank in range(world)
-    ]
-    started = time.perf_counter()
-    try:
-        for rank, child in enumerate(children):
-            remaining = max(1.0, MULTIGPU_CHILD_TIMEOUT_S - (time.perf_counter() - started))
-            try:
-                code = child.process.wait(timeout=remaining)
-            except subprocess.TimeoutExpired:
-                code = None
-            if code != 0:
-                raise AssertionError(
-                    f"multigpu run {run}: rank {rank} exited {code}:\n" + "\n".join(child.lines()[-40:]))
-    finally:
-        for child in children:
-            child.stop()
-    wall_s = time.perf_counter() - started
+
+    def start() -> float:
+        # the rendezvous port is named to every rank before rank 0 binds it
+        address = f"127.0.0.1:{_free_port()}"
+        children = [
+            _LoggedChild(
+                MULTIGPU_CHILD_COMMAND + [
+                    str(rank), str(world), backend, address, f"cuda:{rank % cards}", folder,
+                    "1" if spmd else "0", str(model), fits, "1" if sweeps else "0",
+                ],
+                dict(os.environ), os.path.join(folder, f"rank{rank}.log"),
+            )
+            for rank in range(world)
+        ]
+        started = time.perf_counter()
+        try:
+            for rank, child in enumerate(children):
+                remaining = max(1.0, MULTIGPU_CHILD_TIMEOUT_S - (time.perf_counter() - started))
+                try:
+                    code = child.process.wait(timeout=remaining)
+                except subprocess.TimeoutExpired:
+                    code = None
+                if code != 0:
+                    if rank == 0 and code is not None and _port_taken(child.lines()):
+                        raise _PortTaken(f"multigpu run {run}: the rendezvous port of {address} was taken")
+                    raise AssertionError(
+                        f"multigpu run {run}: rank {rank} exited {code}:\n" + "\n".join(child.lines()[-40:]))
+        finally:
+            for child in children:
+                child.stop()
+        return time.perf_counter() - started
+
+    wall_s = _on_new_ports(start, f"multigpu run {run}")
     records = []
     for rank in range(world):
         with open(os.path.join(folder, f"rank{rank}.json")) as handle:
@@ -7844,6 +8002,21 @@ def _multigpu_run(torch, run: str, backend: str, world: int, cards: int, spmd: b
         if name in OTHER_FITS:
             with np.load(os.path.join(folder, f"{name}.npz")) as saved:
                 arrays[name] = dict(saved)
+    if "sweeps" in records[0]:
+        import pickle
+
+        summary["sweeps"] = {"prepare_s": [record["sweeps"]["prepare_s"] for record in records]}
+        for kind in ("lr", "dt"):
+            if len({record["sweeps"][kind]["digest"] for record in records}) != 1:
+                raise AssertionError(f"multigpu run {run}: the ranks' {kind} sweep outcomes differ")
+            summary["sweeps"][kind] = {
+                field: [record["sweeps"][kind][field] for record in records]
+                for field in ("wall_s", "launches", "collectives", "collective_s")
+                + (("alone",) if kind == "lr" else ())
+            }
+            summary["sweeps"][kind]["best"] = records[0]["sweeps"][kind]["best"]
+            with open(os.path.join(folder, f"sweep_{kind}.pkl"), "rb") as handle:
+                arrays[f"sweep_{kind}"] = pickle.load(handle)
     return {"summary": summary, "arrays": arrays}
 
 
@@ -7980,6 +8153,57 @@ def _others_against_one_process(torch, run: str, arrays: dict, solo: dict) -> di
     return out
 
 
+SWEEP_PARAMS_TOL = 1e-4   # lr's W and b over ranks against one process, of their largest entry
+
+
+def _sweeps_against_one_process(torch, run: str, arrays: dict) -> dict:
+    """The sweeps over the ranks against the same sweeps in this process
+    on the card at full width: dt bit-equal (heaps, leaf probabilities,
+    metrics); lr the same ``best`` and accuracies, weighted F1 within
+    1e-6, W and b within SWEEP_PARAMS_TOL of their largest entry (the
+    bar of ``tests/test_torch_sweep.py``; a job axis of another width
+    sums in another order)."""
+    from learningorchestra_tpu_torch.ml import sweep
+
+    device = _card(torch)
+    began = time.perf_counter()
+    members = sweep_members(device=device)
+    out = {"prepare_s": time.perf_counter() - began}
+    for kind in ("lr", "dt"):
+        began = time.perf_counter()
+        want = _outcome(sweep.run_group([members[kind]], device))
+        torch.cuda.synchronize()
+        got = arrays[f"sweep_{kind}"]
+        out[kind] = {"one_process_wall_s": time.perf_counter() - began}
+        if got["best"] != want["best"] or [p["accuracy"] for p in got["points"]] != [
+                p["accuracy"] for p in want["points"]]:
+            raise AssertionError(f"multigpu run {run}: the {kind} sweep's best or accuracies differ from "
+                                 "one process's")
+        if kind == "dt":
+            for params, want_params in zip(got["params"], want["params"]):
+                for field in ("features_heap", "thresholds_heap", "leaf_probs"):
+                    if not np.array_equal(params[field], want_params[field]):
+                        raise AssertionError(f"multigpu run {run}: the dt sweep's {field} differs")
+            if got["points"] != want["points"]:
+                raise AssertionError(f"multigpu run {run}: the dt sweep's metrics differ")
+            out[kind]["bit_equal"] = True
+            continue
+        f1_err = max(abs(p["weighted_f1"] - q["weighted_f1"]) for p, q in zip(got["points"], want["points"]))
+        errors = {
+            field: max(float(np.abs(params[field] - want_params[field]).max())
+                       / max(float(np.abs(want_params[field]).max()), 1e-30)
+                       for params, want_params in zip(got["params"], want["params"]))
+            for field in ("w", "b")
+        }
+        if not f1_err <= 1e-6 or not max(errors.values()) <= SWEEP_PARAMS_TOL:
+            raise AssertionError(f"multigpu run {run}: the lr sweep's F1 {f1_err} and params {errors} apart")
+        out[kind].update(f1_max_abs_err=f1_err, params_max_rel_err=errors,
+                         bit_equal=all(np.array_equal(params[field], want_params[field])
+                                       for params, want_params in zip(got["params"], want["params"])
+                                       for field in ("w", "b")))
+    return out
+
+
 def _grid_against_one_process(run: str, arrays: dict, solo: dict) -> dict:
     """Run d's rf and nb against the one-process fits: rf's heaps (grown
     ten trees a model rank, gathered in model-rank order) identical, nb's
@@ -7991,6 +8215,303 @@ def _grid_against_one_process(run: str, arrays: dict, solo: dict) -> dict:
     if not nb_err <= MULTIGPU_NB_TOL:
         raise AssertionError(f"multigpu run {run}: nb probabilities {nb_err} apart")
     return {"rf": {"heaps_identical": True}, "nb": {"probs_max_abs_err": nb_err}}
+
+
+# --------------------------------------------------------------------------
+# Run (e): the SPMD stack, two runner ranks over gloo on card 0
+# --------------------------------------------------------------------------
+
+SPMD_RANKS = 2
+SPMD_DEVICE = "cuda:0"
+# the runner's multi-host mode on ranks that share card 0: gloo, asked for
+# by the caller (two NCCL ranks cannot share a card)
+SPMD_RUNNER_COMMAND = [
+    sys.executable, "-c",
+    f"from learningorchestra_tpu_torch.services.runner import main; main(device={SPMD_DEVICE!r}, backend='gloo')",
+]
+SPMD_BOOT_TIMEOUT_S = 300
+SPMD_TIMEOUT_S = "20"            # LO_SPMD_TIMEOUT_S of the run: the drill's watchdog
+SPMD_CID = "chip-smoke-spmd"
+SPMD_DRILL_WAIT_S = 60           # the drill's request ends within this, or it hung
+PRODUCT_FIELDS = [f"f{i}" for i in range(FEATURES)] + ["label"]
+# fits whose sums over ranks add in another order than one process's: held
+# as the multigpu runs hold them (labels MULTIGPU_MIN_AGREEMENT, accuracy
+# FIT_MARGIN_TOL); the others' labels and accuracy equal
+SPMD_REORDERED = ("lr", "gb")
+
+
+class _SpmdRank(_LoggedChild):
+    """One rank of the runner's multi-host mode (``SPMD_RUNNER_COMMAND``)."""
+
+    def __init__(self, folder: str, rank: int, env: dict):
+        self.rank = rank
+        super().__init__(SPMD_RUNNER_COMMAND, {**env, "LO_PROCESS_ID": str(rank)},
+                         os.path.join(folder, f"spmd_rank{rank}.log"))
+
+    def jobs_done(self) -> list:
+        """The jobs this worker ran: ``(op, {wall_s, launches, collectives})``
+        from its ``spmd worker <rank>: job <op> done`` lines."""
+        import ast
+        import re
+
+        done = []
+        for line in self.lines():
+            match = re.match(rf"spmd worker {self.rank}: job (\S+) done (.*)$", line)
+            if match:
+                done.append((ast.literal_eval(match.group(1)), json.loads(match.group(2))))
+        return done
+
+
+def _text_call(client, method: str, path: str, payload=None, timeout_s: float = 120) -> tuple:
+    """``(status, body text)`` of one request (a route's 500 is text)."""
+    request = urllib.request.Request(
+        client.base + path, data=None if payload is None else json.dumps(payload).encode(), method=method,
+        headers={"Content-Type": "application/json", **client.headers})
+    try:
+        with client.opener.open(request, timeout=timeout_s) as response:
+            return response.status, response.read().decode()
+    except urllib.error.HTTPError as error:
+        return error.code, error.read().decode()
+
+
+def _product_csvs(folder: str) -> dict:
+    """The product collections' rows (``product_store``'s) as CSV files."""
+    X, y = bench_synthetic(FIT_ROWS)
+    rows = np.concatenate([X[:PRODUCT_ROWS].astype(np.float64), y[:PRODUCT_ROWS, None]], axis=1)
+    paths = {}
+    for name in ("bench_train", "bench_test"):
+        paths[name] = os.path.join(folder, f"{name}.csv")
+        np.savetxt(paths[name], rows, fmt=["%.9g"] * FEATURES + ["%d"], delimiter=",",
+                   header=",".join(PRODUCT_FIELDS), comments="")
+    return paths
+
+
+def _spmd_required_launches(op: str) -> tuple:
+    """The kernels rank 1 must launch in a job: a build's fits over the
+    two ranks (the sums forms, K7's SPMD ``fit``) and their evaluates, a
+    landmark t-SNE's slabs."""
+    if op == "build_model":
+        names = [kernel for fit in ("dt", "rf", "gb") for kernel in _required_launches(fit, SPMD_RANKS)]
+        names += list(_lr_path("fit", [SPMD_RANKS, 1])) + sorted(set(EVALUATE_LAUNCHES.values()))
+        return tuple(dict.fromkeys(names))
+    if op == "tsne":
+        return _required_launches("tsne", SPMD_RANKS)
+    return ()
+
+
+def _one_process_product_build(torch, paths: dict, folder: str) -> tuple:
+    """The CSVs ingested and cast in this process, built on the card by
+    ``build_model``: each classifier's labels and accuracy, and the wall."""
+    from learningorchestra_tpu_torch.core.ingest import ingest_csv, write_ingest_metadata
+    from learningorchestra_tpu_torch.ml.builder import build_model
+    from learningorchestra_tpu_torch.ops.dtype import convert_field_types
+
+    store = InMemoryStore()
+    for name, path in paths.items():
+        write_ingest_metadata(store, name, "file://" + path)
+        ingest_csv(store, name, "file://" + path)
+        convert_field_types(store, name, {field: "number" for field in PRODUCT_FIELDS})
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    build_model(store, "bench_train", "bench_test", PRODUCT_PREPROCESSOR, list(MODEL_NAMES),
+                device=_card(torch), models_dir=os.path.join(folder, "one_process_models"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - began
+    return {name: {"labels": _labels(store, f"bench_test_prediction_{name}"),
+                   "accuracy": float(store.find_one(f"bench_test_prediction_{name}", {"_id": 0})["accuracy"])}
+            for name in MODEL_NAMES}, wall_s
+
+
+def _spmd_stack_run(torch, card: str, folder: str) -> dict:
+    """Run (e): the runner's multi-host mode on card 0. A store server
+    (port 0) and two ranks of ``services.runner.main(device="cuda:0",
+    backend="gloo")`` (the rendezvous port picked first, started again on
+    a new one if it was taken): rank 0 serves the seven services on
+    OS-assigned ports, rank 1 runs the SPMD worker loop. Through rank 0's
+    REST: the product CSVs ingested and cast, a sync build of the five
+    classifiers, a batch prediction from the lr checkpoint, a PCA and a
+    t-SNE image, each with its own correlation id. Held: every answer is
+    the reference's; each prediction collection holds its rows and one
+    metadata document; the labels and accuracy of the build equal the
+    same build in this process on the card (lr and gb: as the multigpu
+    runs hold fits whose sums add in another order); one PNG an image;
+    rank 1's log names each job's op and correlation id and its
+    launches hold each fit's kernels. The drill: rank 1 killed during a
+    t-SNE request, which must end in an error within the watchdog
+    (``LO_SPMD_TIMEOUT_S``), and the next build must answer the
+    dispatcher's poisoned error at once."""
+    from learningorchestra_tpu_torch.core.store_service import connect
+
+    folder = os.path.join(folder, "e")
+    os.makedirs(folder)
+    walls: dict = {}
+    started = time.perf_counter()
+    store_server = _StoreServer(folder, "spmd_store")
+    ranks: list = []
+    remote = None
+    try:
+        store_server.wait_serving()
+        walls["store server boot"] = time.perf_counter() - started
+        env = {
+            **os.environ, "LO_EPHEMERAL": "1", "LO_STORE_URL": store_server.url,
+            "LO_MODELS_DIR": os.path.join(folder, "models"), "LO_IMAGES_DIR": os.path.join(folder, "images"),
+            "LO_DATA_DIR": os.path.join(folder, "lo_data"), "LO_NUM_PROCESSES": str(SPMD_RANKS),
+            "LO_SPMD_TIMEOUT_S": SPMD_TIMEOUT_S,
+        }
+        for name in ("LO_SERVICE", "LO_PORT", "LO_FAULT_BUILDER_PHASE", "LO_DTYPE_POLICY", "LO_BUILD_WORKERS"):
+            env.pop(name, None)
+
+        booted = time.perf_counter()
+        ranks = _on_new_ports(lambda: _spmd_boot(folder, env), "run e: the rendezvous")
+        walls["ranks boot"] = time.perf_counter() - booted
+        coordinator, worker = ranks
+
+        def client(service: str, what: str):
+            return _Client(coordinator.ports[service], {"X-Correlation-Id": f"{SPMD_CID}-{what}"})
+
+        paths = _product_csvs(folder)
+        for name, path in paths.items():
+            _ingest_over_rest(client("database_api", "ingest"), walls, name, path)
+            _timed(walls, f"PATCH /fieldtypes {name}", client("data_type_handler", "cast"), "PATCH",
+                   f"/fieldtypes/{name}", {field: "number" for field in PRODUCT_FIELDS}, expect=(200,))
+        remote = connect(store_server.url)
+        answer = _timed(walls, "POST /models (sync)", client("model_builder", "build"), "POST", "/models",
+                        _build_body("bench_train", "bench_test", PRODUCT_PREPROCESSOR, False), expect=(201,))
+        if answer != {"result": "created_file"}:
+            raise AssertionError(f"run e: the build answered {answer}")
+        answer = _timed(walls, "POST /models/<lr>/predictions", client("model_builder", "predict"), "POST",
+                        "/models/bench_test_prediction_lr/predictions", {
+                            "training_filename": "bench_train", "test_filename": "bench_test",
+                            "preprocessor_code": PRODUCT_PREPROCESSOR, "prediction_filename": "spmd_batch_lr",
+                        }, expect=(201,))
+        if answer != {"result": "created_file"}:
+            raise AssertionError(f"run e: the batch prediction answered {answer}")
+        for method in ("pca", "tsne"):
+            answer = _timed(walls, f"POST /images ({method})", client(method, method), "POST", "/images/bench_train",
+                            {f"{method}_filename": f"spmd_{method}", "label_name": "label"}, expect=(201,))
+            if answer != {"result": "created_file"}:
+                raise AssertionError(f"run e: the {method} image answered {answer}")
+
+        # the store holds each collection once, and the images once
+        counts = {name: remote.count(f"bench_test_prediction_{name}") for name in MODEL_NAMES}
+        counts["spmd_batch_lr"] = remote.count("spmd_batch_lr")
+        if any(count != PRODUCT_ROWS + 1 for count in counts.values()):
+            raise AssertionError(f"run e: the prediction collections hold {counts} documents")
+        images = {method: sorted(os.listdir(os.path.join(folder, "images", method))) for method in ("pca", "tsne")}
+        if images != {method: [f"spmd_{method}.png"] for method in ("pca", "tsne")}:
+            raise AssertionError(f"run e: the images folder holds {images}")
+        over_ranks = {name: {"labels": _labels(remote, f"bench_test_prediction_{name}"),
+                             "accuracy": float(remote.find_one(f"bench_test_prediction_{name}", {"_id": 0})["accuracy"])}
+                      for name in MODEL_NAMES}
+        if not np.array_equal(_labels(remote, "spmd_batch_lr"), over_ranks["lr"]["labels"]):
+            raise AssertionError("run e: the batch prediction's labels are not the build's")
+
+        # rank 1: each job by op and correlation id, and its launches
+        log = "\n".join(worker.lines())
+        jobs = {"build_model": "build", "predict_model": "predict", "embedding_image": None}
+        for op, what in jobs.items():
+            cids = [what] if what else ["pca", "tsne"]
+            for cid in cids:
+                if f"[spmd worker 1] job {op!r} (cid {SPMD_CID}-{cid})" not in log:
+                    raise AssertionError(f"run e: rank 1's log names no {op} of cid {SPMD_CID}-{cid}")
+        done = worker.jobs_done()
+        if [op for op, _ in done] != ["build_model", "predict_model", "embedding_image", "embedding_image"]:
+            raise AssertionError(f"run e: rank 1 ran {[op for op, _ in done]}")
+        worker_jobs = dict(zip(("build", "predict", "pca", "tsne"), (counts for _, counts in done)))
+        for what, required in (("build", _spmd_required_launches("build_model")),
+                               ("tsne", _spmd_required_launches("tsne"))):
+            missing = [name for name in required if not worker_jobs[what]["launches"].get(name)]
+            if missing:
+                raise AssertionError(f"run e: rank 1's {what} job never launched {missing}")
+
+        # the drill: rank 1 killed during a t-SNE request
+        answer_box: dict = {}
+
+        def drill_request():
+            began = time.perf_counter()
+            answer_box["status"], answer_box["body"] = _text_call(
+                client("tsne", "drill"), "POST", "/images/bench_train",
+                {"tsne_filename": "spmd_tsne_drill", "label_name": "label"}, timeout_s=SPMD_DRILL_WAIT_S)
+            answer_box["wall_s"] = time.perf_counter() - began
+
+        requester = threading.Thread(target=drill_request)
+        requester.start()
+        worker.wait_for(f"(cid {SPMD_CID}-drill)", 60, "run e: rank 1's drill job")
+        time.sleep(0.5)   # inside the job's collectives
+        killed_at = time.perf_counter()
+        worker.process.kill()
+        worker.process.wait(timeout=30)
+        requester.join(timeout=SPMD_DRILL_WAIT_S + 10)
+        if requester.is_alive() or "status" not in answer_box:
+            raise AssertionError("run e: the drill's t-SNE request hung")
+        walls["drill: kill to error"] = time.perf_counter() - killed_at
+        if answer_box["status"] != 500 or walls["drill: kill to error"] > float(SPMD_TIMEOUT_S) + 5:
+            raise AssertionError(f"run e: the drill's request answered {answer_box} "
+                                 f"{walls['drill: kill to error']} s after the kill")
+        began = time.perf_counter()
+        status, body = _text_call(client("model_builder", "poisoned"), "POST", "/models",
+                                  _build_body("bench_train", "bench_test", PRODUCT_PREPROCESSOR, False))
+        walls["build after the drill"] = time.perf_counter() - began
+        if status != 500 or "SpmdRuntimePoisonedError" not in body or walls["build after the drill"] > 5:
+            raise AssertionError(f"run e: the build after the drill answered {status} {body!r}")
+        metrics = {line for line in _metrics_text(_Client(coordinator.ports["model_builder"])).splitlines()
+                   if line.startswith("lo_spmd_")}
+        if not any(line.startswith("lo_spmd_poisoned ") and float(line.split()[1]) == 1.0 for line in metrics):
+            raise AssertionError(f"run e: lo_spmd_poisoned is not 1 ({sorted(metrics)})")
+    finally:
+        if remote is not None:
+            remote.close()
+        for child in ranks:
+            child.stop()
+        store_server.stop()
+    one_process, one_process_wall_s = _one_process_product_build(torch, paths, folder)
+    held = {}
+    for name in MODEL_NAMES:
+        got, want = over_ranks[name], one_process[name]
+        agreement = float((got["labels"] == want["labels"]).mean())
+        accuracy_diff = abs(got["accuracy"] - want["accuracy"])
+        exact = agreement == 1.0 and accuracy_diff == 0.0
+        if name in SPMD_REORDERED:
+            if not (agreement >= MULTIGPU_MIN_AGREEMENT and accuracy_diff <= FIT_MARGIN_TOL):
+                raise AssertionError(f"run e: {name}'s labels agree on {agreement}, accuracy {accuracy_diff} apart")
+        elif not exact:
+            raise AssertionError(f"run e: {name}'s labels agree on {agreement}, accuracy {accuracy_diff} apart "
+                                 "from one process's")
+        held[name] = {"agreement": agreement, "accuracy_diff": accuracy_diff, "equal": exact}
+    return {
+        "phase": "multigpu-run", "run": "e", "backend": "gloo", "ranks": SPMD_RANKS, "cards": 1,
+        "transport": "gloo, two runner ranks sharing card 0, the SPMD dispatcher over them",
+        "walls_s": walls, "run_s": time.perf_counter() - started,
+        "one_process_build_wall_s": one_process_wall_s, "against_one_process": held,
+        "prediction_documents": counts, "images": images, "worker_jobs": worker_jobs,
+        "drill": {"status": answer_box["status"], "error": answer_box["body"][:300],
+                  "request_wall_s": answer_box["wall_s"], "poisoned_build": body[:300]},
+        "lo_spmd": sorted(metrics),
+    }
+
+
+def _spmd_boot(folder: str, env: dict) -> list:
+    """Both ranks of run (e) serving: rank 0's seven services (their
+    ports read from its boot lines into ``ports``) and rank 1's worker
+    loop; on a failure both are stopped. Every rank is told the
+    rendezvous port before rank 0 binds it."""
+    import re
+
+    address = f"127.0.0.1:{_free_port()}"
+    ranks = [_SpmdRank(folder, rank, {**env, "LO_COORDINATOR": address}) for rank in range(SPMD_RANKS)]
+    try:
+        lines = ranks[0].wait_for("serving all services", SPMD_BOOT_TIMEOUT_S, "run e: rank 0")
+        ranks[1].wait_for("spmd worker: waiting for jobs", SPMD_BOOT_TIMEOUT_S, "run e: rank 1")
+    except BaseException:
+        for child in ranks:
+            child.stop()
+        raise
+    ranks[0].ports = {}
+    for line in lines:
+        match = re.search(r"service (\w+) on [\d.]+:(\d+)", line)
+        if match:
+            ranks[0].ports[match.group(1)] = int(match.group(2))
+    return ranks
 
 
 def _lr_path(fit: str, mesh: list) -> tuple:
@@ -8041,9 +8562,16 @@ def phase_multigpu(torch, card: str) -> list:
     bits; each run's lr predictions agree with run (b)'s and its losses
     match; run (c)'s SPMD ``fit`` agrees with the one-process ``fit``; runs
     (b) and (c) hold the other fits, PCA and t-SNE against the one-process
-    ones, run (d) rf and nb. Returns the kernels' summary entries
-    (launches: rank 0 of run (b) for the lr path, of run (c) for the new
-    forms, of run (d) for the model axis's kernels; each run's beside)."""
+    ones, run (d) rf and nb. Run (c) then sweeps over its four data ranks
+    (the sweep phase's λ and depth sweeps, ``group_runner(mesh=...)``):
+    the ranks' outcomes identical, dt bit-equal to one process's, each lr
+    slot bit-identical to its run alone at the rank's width, lr's best
+    and accuracies one process's, every rank launching the job-axis
+    kernels. Run (e) is the runner's multi-host mode: the SPMD stack on
+    two gloo ranks of card 0 (``_spmd_stack_run``). Returns the kernels'
+    summary entries (launches: rank 0 of run (b) for the lr path, of run
+    (c) for the new forms, of run (d) for the model axis's kernels; each
+    run's beside)."""
     started = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     scaler_results, stats_timing = check_scaler_kernels(torch, flush)
@@ -8065,18 +8593,21 @@ def phase_multigpu(torch, card: str) -> list:
     solo_wall_s = time.perf_counter() - began
     solo_losses = estimator.loss_history_.cpu().numpy()
     count = torch.cuda.device_count()
-    # (run, backend, ranks, cards, SPMD fit, model axis, extra lr fits)
-    plan = [("b", "nccl", 1, 1, False, 1, "ten,bf16"),
-            ("c", "gloo", MULTIGPU_GLOO_RANKS, 1, True, 1, ""),
-            ("d", "gloo", GRID_DATA * GRID_MODEL, 1, False, GRID_MODEL, "ten,bf16")]
+    # (run, backend, ranks, cards, SPMD fit, model axis, extra lr fits, sweeps)
+    plan = [("b", "nccl", 1, 1, False, 1, "ten,bf16", False),
+            ("c", "gloo", MULTIGPU_GLOO_RANKS, 1, True, 1, "", True),
+            ("d", "gloo", GRID_DATA * GRID_MODEL, 1, False, GRID_MODEL, "ten,bf16", False)]
     if count >= 2:
-        plan.insert(0, ("a", "nccl", count, count, False, 1, ""))
+        plan.insert(0, ("a", "nccl", count, count, False, 1, "", False))
     runs, run_s = {}, {}
     with tempfile.TemporaryDirectory(prefix="lo_multigpu_") as folder:
-        for run, backend, world, cards, spmd, model, fits in plan:
+        for run, backend, world, cards, spmd, model, fits, sweeps in plan:
             began = time.perf_counter()
-            runs[run] = _multigpu_run(torch, run, backend, world, cards, spmd, folder, model, fits)
+            runs[run] = _multigpu_run(torch, run, backend, world, cards, spmd, folder, model, fits, sweeps)
             run_s[run] = time.perf_counter() - began
+        began = time.perf_counter()
+        spmd_stack = _spmd_stack_run(torch, card, folder)
+        run_s["e"] = time.perf_counter() - began
     base = runs["b"]["arrays"]
     for run, result in runs.items():
         arrays, summary = result["arrays"], result["summary"]
@@ -8108,9 +8639,19 @@ def phase_multigpu(torch, card: str) -> list:
             summary["others_against_one_process"] = _others_against_one_process(torch, run, arrays, solo)
         if run == "d":
             summary["others_against_one_process"] = _grid_against_one_process(run, arrays, solo)
+        if "sweeps" in summary:
+            for kind in ("lr", "dt"):
+                for rank, launches in enumerate(summary["sweeps"][kind]["launches"]):
+                    missing = [name for name in SWEEP_KERNELS[kind] if not launches.get(name)]
+                    if missing:
+                        raise AssertionError(f"multigpu run {run} ({kind} sweep), rank {rank}: {missing} never launched")
+                MULTIGPU_SWEEP_LAUNCHES[kind] = summary["sweeps"][kind]["launches"]
+            summary["sweeps_against_one_process"] = _sweeps_against_one_process(torch, run, arrays)
         summary["nvidia_smi"] = card
         summary["run_s"] = run_s[run]
         emit(summary)
+    spmd_stack["nvidia_smi"] = card
+    emit(spmd_stack)
     emit({"phase": "multigpu", "wall_s": time.perf_counter() - started, "forms_s": forms_s,
           "model_axis_checks_s": model_axis_checks_s, "run_s": run_s,
           "masked_stats": stats_timing, "masked_stats_bf16": bf16_stats_timing,
@@ -8216,6 +8757,8 @@ class _ServiceChild(_LoggedChild):
         lines = self.lines()
         if not any(f"service {self.name} on 127.0.0.1:{self.port}" in line for line in lines):
             if self.process.poll() is not None:
+                if _port_taken(lines):
+                    raise _PortTaken(f"service {self.name}: its port {self.port} was taken")
                 raise AssertionError(f"service {self.name} never served:\n" + "\n".join(lines[-40:]))
             return False
         if not any(f"device={SERVICES_CHILD_DEVICE}" in line for line in lines):
@@ -8365,24 +8908,34 @@ def phase_services(torch, card: str) -> dict:
     walls: dict = {}
     headers = {"X-Correlation-Id": SERVICES_CID}
     with tempfile.TemporaryDirectory() as folder:
-        store_port = _free_port()
-        store_server = _StoreServer(folder, "services_store", store_port, {})
+        store_server = _StoreServer(folder, "services_store")
         children: list = []
         try:
             store_server.wait_serving()
             walls["store server boot"] = time.perf_counter() - started
-            ports = {name: _free_port() for name in SERVICE_NAMES}
-            members = ",".join(f"http://127.0.0.1:{port}" for port in ports.values())
             env = {
-                **os.environ, "LO_STORE_URL": store_server.url, "LO_PLANE_MEMBERS": members,
+                **os.environ, "LO_STORE_URL": store_server.url,
                 "LO_METRICS_INTERVAL_S": SERVICES_METRICS_INTERVAL_S,
                 "LO_MODELS_DIR": os.path.join(folder, "models"), "LO_IMAGES_DIR": os.path.join(folder, "images"),
                 "LO_DATA_DIR": os.path.join(folder, "lo_data"),
             }
             for name in ("LO_SERVICE", "LO_PORT", "LO_FAULT_BUILDER_PHASE", "LO_DTYPE_POLICY", "LO_TSDB_COLLECT"):
                 env.pop(name, None)
-            children = [_ServiceChild(folder, name, ports[name], env) for name in SERVICE_NAMES]
-            boot_s = _boot_seconds(children)
+
+            def boot():
+                # LO_PLANE_MEMBERS names every runner's port before it binds
+                ports = {name: _free_port() for name in SERVICE_NAMES}
+                members = ",".join(f"http://127.0.0.1:{port}" for port in ports.values())
+                children[:] = [_ServiceChild(folder, name, ports[name], {**env, "LO_PLANE_MEMBERS": members})
+                               for name in SERVICE_NAMES]
+                try:
+                    return ports, _boot_seconds(children)
+                except _PortTaken:
+                    for child in children:
+                        child.stop()
+                    raise
+
+            ports, boot_s = _on_new_ports(boot, "services: the seven runners")
             clients = {name: _Client(port, headers) for name, port in ports.items()}
             remote = connect(store_server.url)
 
@@ -8528,7 +9081,7 @@ FLEET_BOOT_TIMEOUT_S = 300
 FLEET_DOWN_S = 2.0                # LO_FLEET_DOWN_S: the drill's down window
 FLEET_VIEW_TTL_S = 0.5            # serve/fleet.DEFAULT_VIEW_TTL_S: the router's view
 FLEET_CLIENTS = 16
-FLEET_REQUESTS = 50               # a client's requests in each closed loop
+FLEET_REQUESTS = 20               # a client's requests in each closed loop
 FLEET_ROWS = (1, 64)
 FLEET_DRILL_MODEL = "dt"          # its primary is the replica the drill kills
 FLEET_DRILL_REQUESTS = 60
@@ -8540,17 +9093,20 @@ class _FleetChild(_LoggedChild):
     """One runner of the fleet (a replica's model_builder, or the router)
     on the card, its port picked for it."""
 
-    def __init__(self, folder: str, label: str, service: str, port: int, env: dict):
-        self.label, self.service, self.port = label, service, port
+    def __init__(self, folder: str, label: str, service: str, env: dict):
+        self.label, self.service, self.port = label, service, None
         self.spawned = time.perf_counter()
-        super().__init__(FLEET_COMMAND, {**env, "LO_SERVICE": service, "LO_PORT": str(port)},
+        super().__init__(FLEET_COMMAND, {**env, "LO_SERVICE": service, "LO_PORT": "0"},
                          os.path.join(folder, f"{label}.log"))
 
     def serving(self) -> bool:
-        """Whether the child serves (a replica: its agent started too);
-        raises when it died first or booted on another device."""
+        """Whether the child serves (a replica: its agent started too),
+        its port read from its boot line; raises when it died first or
+        booted on another device."""
+        import re
+
         lines = self.lines()
-        marks = [f"service {self.service} on 127.0.0.1:{self.port}"]
+        marks = [f"service {self.service} on 127.0.0.1:"]
         if self.service == "model_builder":
             marks.append(f"fleet replica {self.label[-1]}: agent started")
         if not all(any(mark in line for line in lines) for mark in marks):
@@ -8561,6 +9117,10 @@ class _FleetChild(_LoggedChild):
             raise AssertionError(f"fleet: {self.label} did not boot on {FLEET_CHILD_DEVICE}:\n" + "\n".join(lines))
         if not any(line.startswith("fleet config: ") for line in lines):
             raise AssertionError(f"fleet: {self.label} stated no fleet config:\n" + "\n".join(lines))
+        for line in lines:
+            match = re.search(rf"service {self.service} on 127\.0\.0\.1:(\d+)", line)
+            if match:
+                self.port = int(match.group(1))
         return True
 
     def kill9(self) -> None:
@@ -8725,7 +9285,7 @@ def phase_fleet(torch, card: str) -> dict:
             tolerances[name] = TREE_TOL if gathered[0] in ("tree_ensemble", "gbt") else LINEAR_TOL
             cpu_models[name] = load_model(checkpoint_path(models_dir, name), device="cpu")
         names = sorted(tolerances)
-        store_server = _StoreServer(folder, "fleet_store", _free_port(), {})
+        store_server = _StoreServer(folder, "fleet_store")
         children: list = []
         remote = None
         try:
@@ -8739,13 +9299,14 @@ def phase_fleet(torch, card: str) -> dict:
             for knob in ("LO_SERVICE", "LO_PORT", "LO_FLEET_REPLICA", "LO_FLEET_MODEL_QPS", "LO_WEB_ASYNC",
                          "LO_FAULT_BUILDER_PHASE", "LO_DTYPE_POLICY"):
                 env.pop(knob, None)
-            ports = {label: _free_port() for label in ("replica0", "replica1", "router")}
+            # each binds port 0 and names its port in its boot line
             children = [
-                _FleetChild(folder, "replica0", "model_builder", ports["replica0"], {**env, "LO_FLEET_REPLICA": "0"}),
-                _FleetChild(folder, "replica1", "model_builder", ports["replica1"], {**env, "LO_FLEET_REPLICA": "1"}),
-                _FleetChild(folder, "router", "router", ports["router"], env),
+                _FleetChild(folder, "replica0", "model_builder", {**env, "LO_FLEET_REPLICA": "0"}),
+                _FleetChild(folder, "replica1", "model_builder", {**env, "LO_FLEET_REPLICA": "1"}),
+                _FleetChild(folder, "router", "router", env),
             ]
             boot_s.update(_fleet_boot_seconds(children))
+            ports = {child.label: child.port for child in children}
             replica0, replica1, router = (_Client(ports[label]) for label in ("replica0", "replica1", "router"))
             walls["heartbeats list the five"] = _fleet_held(router, names, 120)
 
@@ -8952,6 +9513,15 @@ def check_bounds(summary) -> None:
                     )
 
 
+def _timed_phase(walls: dict, name: str, phase, *args):
+    """``phase(*args)``, its wall booked under ``name``."""
+    began = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        walls[name] = time.perf_counter() - began
+
+
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
     "batch", "store", "shards", "bf16", "multigpu", "fleet", "services",
@@ -8977,12 +9547,14 @@ def main(argv) -> int:
     unknown = sorted(set(wanted) - set(PHASES))
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {unknown}; phases are {list(PHASES)}")
-    device = phase_device(torch)
-    phase_build()
+    walls: dict = {}   # each phase's wall, printed before the kernels line
+    began = time.perf_counter()
+    device = _timed_phase(walls, "device", phase_device, torch)
+    _timed_phase(walls, "build", phase_build)
     summary = []
     if "kernels" in wanted:
-        kernel_results = phase_kernels(torch)
-        serve = phase_serve(torch, device["card"]) if "serve" in wanted else None
+        kernel_results = _timed_phase(walls, "kernels", phase_kernels, torch)
+        serve = _timed_phase(walls, "serve", phase_serve, torch, device["card"]) if "serve" in wanted else None
         for name, result in kernel_results.items():
             at_serve = result["by_rows"][4096]
             summary.append({
@@ -9002,9 +9574,9 @@ def main(argv) -> int:
                 "by_rows": result["by_rows"],
             })
     elif "serve" in wanted:
-        phase_serve(torch, device["card"])
-    fit_kernels = phase_fit_kernels(torch) if "fit-kernels" in wanted else None
-    fit = phase_fit(torch, device["card"]) if "fit" in wanted else None
+        _timed_phase(walls, "serve", phase_serve, torch, device["card"])
+    fit_kernels = _timed_phase(walls, "fit-kernels", phase_fit_kernels, torch) if "fit-kernels" in wanted else None
+    fit = _timed_phase(walls, "fit", phase_fit, torch, device["card"]) if "fit" in wanted else None
     for entry in summary:   # K6: the fits' evaluates (evaluate_predict on the fit's rows) launch it too
         entry["evaluate_launches"] = sum(
             fit[name]["evaluate_launches"].get(entry["name"], 0) for name in ("dt", "rf", "gb")
@@ -9029,9 +9601,9 @@ def main(argv) -> int:
                 **({"forest": result["forest"]} if name in FOREST_KERNELS else {}),
             })
     if "embed-kernels" in wanted or "embed" in wanted:
-        store, labels_by_name, setup_s = embed_store()
-    embed_kernels = phase_embed_kernels(torch, store) if "embed-kernels" in wanted else None
-    embed = phase_embed(torch, device["card"], store, labels_by_name, setup_s) if "embed" in wanted else None
+        store, labels_by_name, setup_s = _timed_phase(walls, "embed store", embed_store)
+    embed_kernels = _timed_phase(walls, "embed-kernels", phase_embed_kernels, torch, store) if "embed-kernels" in wanted else None
+    embed = _timed_phase(walls, "embed", phase_embed, torch, device["card"], store, labels_by_name, setup_s) if "embed" in wanted else None
     if embed_kernels:
         # each at the main path's largest shape: K11 and K12 at the exact
         # fit's 20,000 rows (K12 late), K13 at 1,000,000 rows x 5,000
@@ -9059,7 +9631,7 @@ def main(argv) -> int:
                 "library_ms": None,
                 "by_rows": result["by_rows"],
             })
-    sweep_record = phase_sweep(torch, device["card"]) if "sweep" in wanted else None
+    sweep_record = _timed_phase(walls, "sweep", phase_sweep, torch, device["card"]) if "sweep" in wanted else None
     if sweep_record:
         for name, result in sweep_record["kernels"].items():
             _, source, replaces = JOB_KERNELS[name]
@@ -9081,26 +9653,33 @@ def main(argv) -> int:
                 "library_ms": None, "library_note": NO_LIBRARY[name],
             })
     if "models" in wanted:
-        phase_models(torch, device["card"])
+        _timed_phase(walls, "models", phase_models, torch, device["card"])
     if "stack" in wanted:
-        phase_stack(torch, device["card"])
-    batch = phase_batch(torch, device["card"]) if "batch" in wanted else None
-    store_record = phase_store(torch, device["card"]) if "store" in wanted else None
+        _timed_phase(walls, "stack", phase_stack, torch, device["card"])
+    batch = _timed_phase(walls, "batch", phase_batch, torch, device["card"]) if "batch" in wanted else None
+    store_record = _timed_phase(walls, "store", phase_store, torch, device["card"]) if "store" in wanted else None
     if "shards" in wanted:
-        phase_shards(torch, device["card"], store_record)
+        _timed_phase(walls, "shards", phase_shards, torch, device["card"], store_record)
     if "bf16" in wanted:
-        bf16 = phase_bf16(torch, device["card"], batch["f32_metrics"] if batch else None)
+        bf16 = _timed_phase(walls, "bf16", phase_bf16, torch, device["card"], batch["f32_metrics"] if batch else None)
         summary.extend(bf16["kernels"])
     if "multigpu" in wanted:
-        summary.extend(phase_multigpu(torch, device["card"]))
+        summary.extend(_timed_phase(walls, "multigpu", phase_multigpu, torch, device["card"]))
+        for entry in summary:   # the job-axis kernels: each rank's launches in run (c)'s sweeps
+            if entry["name"] in JOB_KERNELS and "sweep" in wanted:
+                counter = JOB_KERNELS[entry["name"]][0]
+                kind = "lr" if counter.startswith("logistic") else "dt"
+                entry["launches_over_ranks"] = {"c": [launches.get(counter, 0)
+                                                      for launches in MULTIGPU_SWEEP_LAUNCHES[kind]]}
     if "fleet" in wanted:
-        fleet = phase_fleet(torch, device["card"])
+        fleet = _timed_phase(walls, "fleet", phase_fleet, torch, device["card"])
         for entry in summary:   # K6 on the replicas under the fleet's load
             if entry["name"] in FORWARD_KERNELS:
                 entry["fleet_launches"] = {label: counts[entry["name"]] for label, counts in fleet["launches"].items()}
     if "services" in wanted:
-        phase_services(torch, device["card"])
+        _timed_phase(walls, "services", phase_services, torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})
+    emit({"phase": "walls", "walls_s": walls, "total_s": time.perf_counter() - began, "nvidia_smi": device["card"]})
     check_bounds(summary)
     emit({"kernels": summary})
     print(device["card"], flush=True)

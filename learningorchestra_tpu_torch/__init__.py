@@ -25,6 +25,15 @@ Rules that hold for every module:
   ``device="cpu"``.
 """
 
-from learningorchestra_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # torch loads with the first module that needs it, not with the
+    # package: a store server's process (core/store_service.py) runs
+    # without it and boots seconds sooner
+    if name == "resolve_device":
+        from learningorchestra_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

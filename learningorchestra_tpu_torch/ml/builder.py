@@ -32,9 +32,9 @@ Over a data axis of several ranks (``mesh``, parallel/mesh.py): every
 rank runs the same build, the fits, evaluations and predictions over the
 ranks (their collectives in one order: the classifiers one at a time),
 and only a rank with ``write_outputs`` writes to the store, as the
-reference's SPMD workers (``ml/builder.py:196-255``). Not ported yet: the
-SPMD dispatcher and the runner's multi-host mode (ROADMAP Queue 1 item
-6d), and the CPU rendezvous guard (JAX's own).
+reference's SPMD workers (``ml/builder.py:196-255``). In the runner's
+multi-host mode the SPMD dispatcher (parallel/spmd.py) starts the build
+and the batch lane on every rank, the coordinator with ``write_outputs``.
 """
 
 from __future__ import annotations
@@ -393,6 +393,8 @@ def predict_with_model(
     preprocessor_code: str,
     prediction_filename: str,
     device: DeviceLike = None,
+    mesh=None,
+    write_outputs: bool = True,
 ) -> dict:
     """Predictions from a saved checkpoint, with no refit (reference
     ``ml/builder.py:861-902``).
@@ -405,27 +407,34 @@ def predict_with_model(
     the shape build_model writes, its metadata naming the
     ``model_checkpoint``. The metadata's ``timings`` take the lane apart:
     ``load_data``, ``preprocess``, ``h2d`` (the test matrix to the card, 0
-    bytes on a device-cache hit), ``predict`` and ``write``."""
+    bytes on a device-cache hit), ``predict`` and ``write``.
+
+    ``mesh``: the ranks to predict over (its device replaces ``device``;
+    every rank calls this with the same arguments, and each predicts its
+    block of the test rows, so there is no ``h2d`` phase).
+    ``write_outputs=False`` predicts and writes nothing (an SPMD worker)."""
     from learningorchestra_tpu_torch.ml.checkpoint import load_model
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     timer = PhaseTimer()
-    model = load_model(checkpoint_path, device=device)
+    model = load_model(checkpoint_path, device=device, mesh=mesh)
     with timer.phase("load_data"):
         training_df = load_dataframe(store, training_filename)
         testing_df = load_dataframe(store, test_filename)
     with timer.phase("preprocess"):
         out = run_preprocessor(preprocessor_code, training_df, testing_df)
     features_testing = out["features_testing"]
-    with timer.phase("h2d", rows=features_testing.count(), dtype=dtype_policy()):
-        features_testing.device_matrix(FEATURES_COL, device)   # cached on the frame
+    if not over_ranks(mesh):
+        with timer.phase("h2d", rows=features_testing.count(), dtype=dtype_policy()):
+            features_testing.device_matrix(FEATURES_COL, device)   # cached on the frame
     metadata = {
         "filename": prediction_filename,
         "model_checkpoint": checkpoint_path,
         ROW_ID: 0,
     }
     return _predict_and_write(
-        store, model, features_testing, prediction_filename, metadata, timer, device
+        store, model, features_testing, prediction_filename, metadata, timer, device,
+        write_outputs=write_outputs,
     )
 
 

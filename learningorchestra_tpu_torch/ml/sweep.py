@@ -23,9 +23,20 @@ level or an iteration, and the L-BFGS bookkeeping around K7 is torch ops
 on ``(J, ...)`` tensors.
 
 The job axis pads to the shared quarter-octave shape grid
-(utils/shapegrid.py) with a fixed floor; one card has no data axis to
-align it to. Dummy slots replicate slot 0 rather than holding zeros (an
-all-zero member would drive 0/0 NaNs through its slots).
+(utils/shapegrid.py) with a fixed floor. Dummy slots replicate slot 0
+rather than holding zeros (an all-zero member would drive 0/0 NaNs
+through its slots).
+
+Over a data axis of several ranks (``mesh``, parallel/mesh.py), as the
+reference lays its job axis over its data axis (``ml/sweep.py:293-327``):
+the padded axis is rounded up to a multiple of the data size, every rank
+calls :func:`run_group` with the same payloads, runs its own contiguous
+block of slots through the same fused programs with no collective inside
+them (a block is a dispatch of its own width), and the blocks' results
+are gathered over the data group in rank order, one collective a fused
+program, so that every rank builds the same outcomes and the same
+``best``. The members' finiteness verdicts are gathered first: a member
+any rank found poisoned fails alone, on every rank.
 
 Reproducibility contract (the coalescer's acceptance bar): a job's
 results depend only on its own inputs. Every per-job sum in the kernels
@@ -67,6 +78,7 @@ from learningorchestra_tpu_torch.ml.logistic import (
     _LR_ROW_ITERS_BUDGET,
     scaler_stats,
 )
+from learningorchestra_tpu_torch.parallel.mesh import data_size, over_ranks
 from learningorchestra_tpu_torch.parallel.sharding import pad_rows
 from learningorchestra_tpu_torch.sched.cancel import check_cancelled
 from learningorchestra_tpu_torch.telemetry import tracing as _tracing
@@ -171,18 +183,21 @@ def prepare_member(
     grid: list[dict],
     device: DeviceLike = None,
     max_iter: int = _DEFAULT_MAX_ITER,
+    mesh=None,
 ) -> tuple[tuple, dict]:
     """Host-side prep for one coalescible fit/sweep job: pad + dtype the
     arrays and derive the compatibility ``key`` — everything the fused
     program's shape depends on, so two members with equal keys stack on
     one job axis. Runs on the submitting thread (prep must precede the
     device queue: a leader can only stack payloads that already exist).
+    With a ``mesh`` (its device replaces ``device``) the rows pad to a
+    multiple of its data size and its signature is part of the key.
 
     Deliberately does NOT validate finiteness: a NaN-poisoned member
     must fail INSIDE the fused dispatch (alone, neighbours unaffected) —
     that isolation is part of the coalescer's contract and is tested.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     grid = validate_grid(kind, grid)
     if not isinstance(max_iter, int) or max_iter < 1:
         raise ValueError(f"max_iter must be an integer >= 1, got {max_iter!r}")
@@ -195,11 +210,11 @@ def prepare_member(
     if X_train.shape[1] != X_eval.shape[1]:
         raise ValueError("train/eval feature widths differ")
     num_classes = max(infer_num_classes(y_train), infer_num_classes(y_eval))
-    # one card: no data axis to align the padded rows to
-    X_pad, mask = pad_rows(X_train, 1)
-    y_pad, _ = pad_rows(y_train, 1)
-    Xe_pad, mask_e = pad_rows(X_eval, 1)
-    ye_pad, _ = pad_rows(y_eval, 1)
+    multiple = data_size(mesh) if mesh is not None else 1
+    X_pad, mask = pad_rows(X_train, multiple)
+    y_pad, _ = pad_rows(y_train, multiple)
+    Xe_pad, mask_e = pad_rows(X_eval, multiple)
+    ye_pad, _ = pad_rows(y_eval, multiple)
     payload = {
         "kind": kind,
         "grid": grid,
@@ -239,7 +254,7 @@ def prepare_member(
         num_classes,
         int(max_iter) if kind == "lr" else MAX_BINS,
         "f32",
-        _device_signature(device),
+        _device_signature(device) if mesh is None else _mesh_signature(mesh),
     )
     return key, payload
 
@@ -249,6 +264,11 @@ def _device_signature(device: torch.device) -> tuple:
     signature): members fuse only onto the card their payloads were
     prepared for."""
     return (device.type, device.index)
+
+
+def _mesh_signature(mesh) -> tuple:
+    """A mesh's part of a member's key: its device and its axes."""
+    return (*_device_signature(mesh.device), "mesh", data_size(mesh), mesh.shape["model"])
 
 
 # --------------------------------------------------------------------------
@@ -469,9 +489,45 @@ def _dt_fused(Xs, ys, ws, thresholds, Xe, ye, we, num_classes: int, max_depth: i
     return features_heap, thresholds_heap, leaf_probs, accuracy, weighted_f1
 
 
-def _job_axis(n: int) -> int:
-    """Padded slot count of a fused job axis: the grid with its floor."""
-    return grid_size(n, _JOB_PAD_FLOOR)
+def _job_axis(n: int, mesh=None) -> int:
+    """Padded slot count of a fused job axis: the grid with its floor,
+    then rounded up to a multiple of ``mesh``'s data size, so that the
+    axis always splits evenly over its ranks (slots are independent, so
+    the split needs no collective)."""
+    devices = data_size(mesh) if mesh is not None else 1
+    target = grid_size(n, _JOB_PAD_FLOOR)
+    return ((target + devices - 1) // devices) * devices
+
+
+def _rank_block(items: list, mesh) -> list:
+    """This rank's contiguous block of a padded slot list (all of it off
+    a data axis of several ranks)."""
+    if not over_ranks(mesh):
+        return items
+    local = len(items) // data_size(mesh)
+    return items[mesh.data_index * local : (mesh.data_index + 1) * local]
+
+
+def _gathered(arrays: list, mesh) -> list:
+    """Every data rank's host ``arrays`` (each with a leading block axis,
+    equal shapes on every rank), concatenated in rank order along that
+    axis, with one collective: their bytes in one uint8 tensor. Off a
+    data axis of several ranks, ``arrays`` as they are."""
+    if not over_ranks(mesh):
+        return arrays
+    from learningorchestra_tpu_torch.parallel.multihost import all_gather
+
+    arrays = [np.ascontiguousarray(array) for array in arrays]
+    flat = np.concatenate([array.reshape(-1).view(np.uint8) for array in arrays])
+    parts = [to_host(part) for part in all_gather(torch.from_numpy(flat).to(mesh.device), mesh)]
+    out, offset = [], 0
+    for array in arrays:
+        size = array.nbytes
+        out.append(np.concatenate([
+            part[offset : offset + size].view(array.dtype).reshape(array.shape) for part in parts
+        ]))
+        offset += size
+    return out
 
 
 def _stack(arrays: dict, members: list[int]) -> torch.Tensor:
@@ -501,28 +557,44 @@ def _uploaded(payloads, members, name: str, device) -> dict:
 # The group runner (executed ONCE per fused batch by the coalescer leader)
 # --------------------------------------------------------------------------
 
-def group_runner(device: DeviceLike = None):
+def group_runner(device: DeviceLike = None, mesh=None):
     """The coalescer's runner for sweep/fit members: ``(payloads) ->
     [outcome, ...]`` with the per-member isolation contract from
     sched/coalesce.py (an outcome is ``("ok", result)`` or
-    ``("error", exception)``)."""
-    device = resolve_device(device)
+    ``("error", exception)``). With a ``mesh`` (its device replaces
+    ``device``) the job axis lies over its data ranks (module
+    docstring)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     def run(payloads: list) -> list:
-        return run_group(payloads, device)
+        return run_group(payloads, device, mesh)
 
     return run
 
 
-def run_group(payloads: list, device: DeviceLike = None) -> list:
-    device = resolve_device(device)
+def _finite_verdicts(payloads: list, mesh) -> list:
+    """Each member's ``finite`` verdict, over a data axis of several ranks
+    the verdicts of every rank combined (one collective): a member is
+    finite only where every rank found it so."""
+    verdicts = np.array([bool(payload.get("finite", True)) for payload in payloads], np.uint8)
+    if over_ranks(mesh) and len(payloads):
+        (gathered,) = _gathered([verdicts[None]], mesh)
+        verdicts = gathered.min(axis=0)
+    return [bool(verdict) for verdict in verdicts]
+
+
+def run_group(payloads: list, device: DeviceLike = None, mesh=None) -> list:
+    """Run a fused group (see :func:`group_runner`). Over a data axis of
+    several ranks every rank calls this with the same payloads and gets
+    the same outcomes."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     outcomes: list = [None] * len(payloads)
     live: list[int] = []
-    for index, payload in enumerate(payloads):
+    for index, finite in enumerate(_finite_verdicts(payloads, mesh)):
         # per-member validation verdict (computed at prepare_member on
         # the submitting thread): a poisoned member fails ALONE — NaN
         # features would otherwise silently NaN its fitted params
-        if not payload.get("finite", True):
+        if not finite:
             outcomes[index] = (
                 "error",
                 ValueError(
@@ -547,9 +619,9 @@ def run_group(payloads: list, device: DeviceLike = None) -> list:
     for start in range(0, len(slices), _MAX_FUSED_SLICES):
         chunk = slices[start : start + _MAX_FUSED_SLICES]
         if kind == "lr":
-            _run_lr_chunk(payloads, chunk, per_point, device)
+            _run_lr_chunk(payloads, chunk, per_point, device, mesh)
         else:
-            _run_dt_chunk(payloads, chunk, per_point, device)
+            _run_dt_chunk(payloads, chunk, per_point, device, mesh)
         if len(payloads) == 1:
             # chunk boundary of a single-member (big-grid) sweep: the
             # executing leader IS that member, so its DELETE aborts
@@ -592,59 +664,70 @@ def run_group(payloads: list, device: DeviceLike = None) -> list:
     return outcomes
 
 
-def _run_lr_chunk(payloads, chunk, per_point, device) -> None:
-    first = payloads[chunk[0][0]]
+def _lr_slots(payloads, slots: list, device) -> tuple:
+    """The fused lr programs over ``slots`` ((member, point) pairs, the
+    job axis at their count): ``(W, b, accuracy, weighted_f1)`` on the
+    host, one row a slot."""
+    first = payloads[slots[0][0]]
     features = first["X"].shape[1]
     num_classes = first["num_classes"]
     max_iter = first["max_iter"]
-    padded = _job_axis(len(chunk))
-    # dummy slots replicate slot 0's (member, point) pair
-    slots = [chunk[i] for i in padded_indices(len(chunk), padded)]
+    padded = len(slots)
     members = [member for member, _ in slots]
     l2s = torch.tensor(
         [payloads[member]["grid"][point]["reg_param"] for member, point in slots],
         dtype=torch.float32,
     ).to(device)
-    with _tracing.span(
-        "coalesce:lr_chunk", slices=len(chunk), padded=padded
-    ):
-        # standardized ON DEVICE in float32 from the per-member scaler, as
-        # the reference does (λ shares one standardization; members each
-        # carry their own)
-        means = _uploaded(payloads, members, "mean", device)
-        scales = _uploaded(payloads, members, "scale", device)
-        X_std = {
-            m: (X - means[m]) / scales[m]
-            for m, X in _uploaded(payloads, members, "X", device).items()
-        }
-        Xs = _slot_rows(X_std, members)
-        ys = _slot_rows(_uploaded(payloads, members, "y", device), members)
-        masks = _slot_rows(_uploaded(payloads, members, "mask", device), members)
-        W = torch.zeros((padded, features, num_classes), dtype=torch.float32, device=device)
-        b = torch.zeros((padded, num_classes), dtype=torch.float32, device=device)
-        states = _job_lbfgs_state(W, b)
-        # the reference's segmentation, the job axis multiplying the
-        # per-program row cost; NO plateau exit — batched stopping must
-        # not couple members (module docstring)
-        iters = segment_steps(
-            max_iter, first["X"].shape[0] * padded, _LR_ROW_ITERS_BUDGET,
-            features,
-        )
-        for _ in range(max(1, max_iter // iters)):
-            W, b, states, _ = _lr_fused_segment(W, b, states, Xs, ys, masks, l2s, iters)
-        Xe = _stack(_uploaded(payloads, members, "X_eval", device), members)
-        ye = _stack(_uploaded(payloads, members, "y_eval", device), members)
-        we = _stack(_uploaded(payloads, members, "mask_eval", device), members)
-        accuracy, weighted_f1 = _lr_fused_eval(
-            W, b, Xe, _stack(means, members), _stack(scales, members), ye, we, num_classes
-        )
-        # ONE host transfer for the whole chunk's params + metrics
-        flat = to_host(torch.cat([W.reshape(-1), b.reshape(-1), accuracy, weighted_f1]))
+    # standardized ON DEVICE in float32 from the per-member scaler, as
+    # the reference does (λ shares one standardization; members each
+    # carry their own)
+    means = _uploaded(payloads, members, "mean", device)
+    scales = _uploaded(payloads, members, "scale", device)
+    X_std = {
+        m: (X - means[m]) / scales[m]
+        for m, X in _uploaded(payloads, members, "X", device).items()
+    }
+    Xs = _slot_rows(X_std, members)
+    ys = _slot_rows(_uploaded(payloads, members, "y", device), members)
+    masks = _slot_rows(_uploaded(payloads, members, "mask", device), members)
+    W = torch.zeros((padded, features, num_classes), dtype=torch.float32, device=device)
+    b = torch.zeros((padded, num_classes), dtype=torch.float32, device=device)
+    states = _job_lbfgs_state(W, b)
+    # the reference's segmentation, the job axis multiplying the
+    # per-program row cost; NO plateau exit — batched stopping must
+    # not couple members (module docstring)
+    iters = segment_steps(
+        max_iter, first["X"].shape[0] * padded, _LR_ROW_ITERS_BUDGET,
+        features,
+    )
+    for _ in range(max(1, max_iter // iters)):
+        W, b, states, _ = _lr_fused_segment(W, b, states, Xs, ys, masks, l2s, iters)
+    Xe = _stack(_uploaded(payloads, members, "X_eval", device), members)
+    ye = _stack(_uploaded(payloads, members, "y_eval", device), members)
+    we = _stack(_uploaded(payloads, members, "mask_eval", device), members)
+    accuracy, weighted_f1 = _lr_fused_eval(
+        W, b, Xe, _stack(means, members), _stack(scales, members), ye, we, num_classes
+    )
+    # ONE host transfer for the whole chunk's params + metrics
+    flat = to_host(torch.cat([W.reshape(-1), b.reshape(-1), accuracy, weighted_f1]))
     w_size, b_size = W.numel(), b.numel()
-    w_host = flat[:w_size].reshape(W.shape)
-    b_host = flat[w_size : w_size + b_size].reshape(b.shape)
-    acc_host = flat[w_size + b_size : w_size + b_size + padded]
-    f1_host = flat[w_size + b_size + padded :]
+    return (
+        flat[:w_size].reshape(W.shape),
+        flat[w_size : w_size + b_size].reshape(b.shape),
+        flat[w_size + b_size : w_size + b_size + padded],
+        flat[w_size + b_size + padded :],
+    )
+
+
+def _run_lr_chunk(payloads, chunk, per_point, device, mesh=None) -> None:
+    padded = _job_axis(len(chunk), mesh)
+    # dummy slots replicate slot 0's (member, point) pair
+    slots = [chunk[i] for i in padded_indices(len(chunk), padded)]
+    block = _rank_block(slots, mesh)
+    with _tracing.span(
+        "coalesce:lr_chunk", slices=len(chunk), padded=padded, block=len(block)
+    ):
+        w_host, b_host, acc_host, f1_host = _gathered(list(_lr_slots(payloads, block, device)), mesh)
     for i, (member, point) in enumerate(chunk):
         per_point[(member, point)] = {
             "accuracy": float(acc_host[i]),
@@ -659,7 +742,7 @@ def _run_lr_chunk(payloads, chunk, per_point, device) -> None:
         }
 
 
-def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
+def _run_dt_chunk(payloads, chunk, per_point, device, mesh=None) -> None:
     first = payloads[chunk[0][0]]
     num_classes = first["num_classes"]
     # depth is a shape of the program: group this chunk's slots by depth
@@ -670,13 +753,13 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
         depth = payloads[member]["grid"][point]["max_depth"]
         by_depth.setdefault(depth, []).append((member, point))
     for depth, group in sorted(by_depth.items()):
-        padded = _job_axis(len(group))
-        members = [
+        padded = _job_axis(len(group), mesh)
+        members = _rank_block([
             group[i][0] for i in padded_indices(len(group), padded)
-        ]
+        ], mesh)
         with _tracing.span(
             "coalesce:dt_chunk", slices=len(group), padded=padded,
-            depth=depth,
+            depth=depth, block=len(members),
         ):
             Xs = _slot_rows(_uploaded(payloads, members, "X", device), members)
             ys = _stack(_uploaded(payloads, members, "y", device), members)
@@ -688,9 +771,9 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
             features_heap, thresholds_heap, leaf_probs, accuracy, f1 = _dt_fused(
                 Xs, ys, ws, ths, Xe, ye, we, num_classes, depth, MAX_BINS,
             )
-            fh, th, lp, acc_host, f1_host = (
+            fh, th, lp, acc_host, f1_host = _gathered([
                 to_host(t) for t in (features_heap, thresholds_heap, leaf_probs, accuracy, f1)
-            )
+            ], mesh)
         for i, (member, point) in enumerate(group):
             per_point[(member, point)] = {
                 "accuracy": float(acc_host[i]),
@@ -709,10 +792,11 @@ def _run_dt_chunk(payloads, chunk, per_point, device) -> None:
 # Model reconstruction + the service-level sweep orchestration
 # --------------------------------------------------------------------------
 
-def model_from_params(params: dict, device: DeviceLike = None):
+def model_from_params(params: dict, device: DeviceLike = None, mesh=None):
     """A predict-ready model from one grid point's fitted params — the
-    object the argmax checkpoint serializes."""
-    device = resolve_device(device)
+    object the argmax checkpoint serializes (over the ranks of ``mesh``,
+    given one: its device replaces ``device``)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     def on_device(array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(device)
@@ -723,12 +807,14 @@ def model_from_params(params: dict, device: DeviceLike = None):
             on_device(params["b"]),
             on_device(params["mean"]),
             on_device(params["scale"]),
+            mesh,
         )
     return trees._TreeEnsembleModel(
         on_device(params["features_heap"])[None],
         on_device(params["thresholds_heap"])[None],
         on_device(params["leaf_probs"])[None],
         params["max_depth"],
+        mesh,
     )
 
 
@@ -740,12 +826,17 @@ def run_sweep(
     coalescer,
     models_dir: Optional[str] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> dict:
     """The ``POST /models/sweep`` flow (reference ``ml/sweep.py:551``):
     prep on the request thread, ONE coalescible device job for the whole
     grid (concurrent sweeps with compatible shapes fuse), the argmax
     checkpoint published atomically, per-point metrics persisted as
     collection ``sweep_name``.
+
+    ``mesh``: the data ranks to sweep over (every rank calls this with
+    the same body, and each gets the same result); only the mesh's rank
+    (0, 0) saves the checkpoint and inserts the sweep's document.
 
     Raises whatever the member job raises (the route maps
     ``QueueFullError`` to 429 and ``DuplicateJobError`` to 409). The
@@ -759,7 +850,8 @@ def run_sweep(
     from learningorchestra_tpu_torch.sched.cancel import CancelToken
     from learningorchestra_tpu_torch.sched.scheduler import DEVICE_CLASS
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    write_outputs = mesh is None or (mesh.data_index == 0 and mesh.model_index == 0)
     name = body["sweep_name"]
     training_df = load_dataframe(store, body["training_filename"])
     testing_df = load_dataframe(store, body["test_filename"])
@@ -778,9 +870,10 @@ def run_sweep(
         body["grid"],
         device=device,
         max_iter=int(body.get("max_iter", _DEFAULT_MAX_ITER)),
+        mesh=mesh,
     )
     token = CancelToken()
-    member = coalescer.register(key, payload, group_runner(device), token=token, name=f"sweep:{name}")
+    member = coalescer.register(key, payload, group_runner(device, mesh), token=token, name=f"sweep:{name}")
     try:
         # collection=name opts the member into the journal; store= is
         # not passed: the failure-marking write it enables targets a
@@ -803,8 +896,9 @@ def run_sweep(
     best = result["best"]
     checkpoint = None
     if models_dir:
-        os.makedirs(models_dir, exist_ok=True)
         checkpoint = checkpoint_path(models_dir, name)
+    if models_dir and write_outputs:
+        os.makedirs(models_dir, exist_ok=True)
         # atomic publication (temp + os.replace): the serving registry's
         # stamp sees the winner, never a partial file
         save_model(model_from_params(result["params"][best], device), checkpoint)
@@ -815,18 +909,19 @@ def run_sweep(
         {**p["grid"], "accuracy": p["accuracy"], "weighted_f1": p["weighted_f1"]}
         for p in result["points"]
     ]
-    store.insert_one(
-        name,
-        {
-            ROW_ID: 0,
-            "filename": name,
-            "classificator": result["kind"],
-            "points": points,
-            "best": best,
-            "model_checkpoint": checkpoint,
-            "finished": True,
-        },
-    )
+    if write_outputs:
+        store.insert_one(
+            name,
+            {
+                ROW_ID: 0,
+                "filename": name,
+                "classificator": result["kind"],
+                "points": points,
+                "best": best,
+                "model_checkpoint": checkpoint,
+                "finished": True,
+            },
+        )
     return {
         "model": name,
         "classificator": result["kind"],

@@ -118,24 +118,34 @@ def create_embedding_image(
     images_path: str,
     method: str,
     device: DeviceLike = None,
+    render: bool = True,
+    mesh=None,
 ) -> str:
     """Embed ``parent_filename`` with ``method`` ("pca" or "tsne") on the
     card and write ``<images_path>/<output_filename>.png``. Returns the
-    image path. The embedding runs in this process on ``device``: PCA and
-    t-SNE take a ``mesh`` of data ranks (``ops/pca.py``, ``ops/tsne.py``),
-    but the service has no worker processes to run them with; the
-    reference's ``render`` flag, which its SPMD workers pass, comes with
-    the port's dispatcher (ROADMAP Queue 1 item 6d)."""
+    image path.
+
+    ``mesh``: the data ranks to embed over (its device replaces
+    ``device``; every rank calls this with the same arguments and gets
+    the same embedding, ``ops/pca.py``, ``ops/tsne.py``). ``render=False``
+    runs the embedding, whose collectives every rank must enter, and
+    writes no PNG: the runner's SPMD workers pass it, so only the
+    coordinator touches the images folder (parallel/spmd.py)."""
     if not safe_filename(output_filename):
         raise ValueError(f"unsafe image filename {output_filename!r}")
     embed = EMBEDDINGS[method]
+    # an embedding registered without a ``mesh`` keyword still serves one card
+    over = {} if mesh is None else {"mesh": mesh}
+    if mesh is not None:
+        device = mesh.device
     # one read: the hue labels always match the embedded rows
     encoded, _, X = dataset_embedding_inputs(store, parent_filename, device)
-    embedded = embed(X, device=X.device)
+    embedded = embed(X, device=X.device, **over)
     image_path = os.path.join(images_path, output_filename + IMAGE_FORMAT)
-    hue = None
-    if label_name is not None:
-        hue = np.asarray(encoded.columns[label_name])
-    os.makedirs(images_path, exist_ok=True)
-    _scatter_png(embedded, hue, image_path)
+    if render:
+        hue = None
+        if label_name is not None:
+            hue = np.asarray(encoded.columns[label_name])
+        os.makedirs(images_path, exist_ok=True)
+        _scatter_png(embedded, hue, image_path)
     return image_path

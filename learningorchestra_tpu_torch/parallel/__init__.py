@@ -10,7 +10,8 @@ have no counterpart: a rank holds its block (:func:`shard_rows`) or a
 replicated tensor (:func:`put_replicated`). Every fit takes a mesh (lr,
 nb, dt, rf, gb), a fitted model's forward and metrics run over its ranks,
 and so do the builder's ``train_one`` and ``build_model``, PCA and t-SNE.
-``spmd.py`` (the multi-host dispatcher) is ROADMAP Queue 1 item 6d.
+``spmd.py`` dispatches a job the coordinator (rank 0) accepts to every
+rank: the runner's multi-host mode (services/runner.py).
 """
 
 from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -42,4 +43,10 @@ from learningorchestra_tpu_torch.parallel.multihost import (  # noqa: F401
     model_all_gather,
     model_all_sum,
     shard_rows_local,
+)
+from learningorchestra_tpu_torch.parallel.spmd import (  # noqa: F401
+    SpmdDispatcher,
+    SpmdJobError,
+    SpmdRuntimePoisonedError,
+    SpmdTimeoutError,
 )

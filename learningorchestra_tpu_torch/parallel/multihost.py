@@ -105,6 +105,26 @@ def stage_through_host(on: bool = True) -> None:
         _state["host_staging"] = bool(on)
 
 
+def stage_if_refused(device: DeviceLike = None) -> Optional[str]:
+    """Under gloo over several ranks on a CUDA ``device``: one
+    ``all_gather`` of a CUDA tensor, and where this gloo refuses it,
+    :func:`stage_through_host` for every later collective. Returns the
+    first line of the refusal (None: staged nothing). A collective: every
+    rank of the world calls it at the same point."""
+    import torch.distributed as dist
+
+    device = resolve_device(device)
+    if device.type != "cuda" or dist.get_backend() != "gloo" or dist.get_world_size() == 1:
+        return None
+    parts = [torch.empty(2, device=device) for _ in range(dist.get_world_size())]
+    try:
+        dist.all_gather(parts, torch.full((2,), float(dist.get_rank()), device=device))
+    except RuntimeError as error:
+        stage_through_host(True)
+        return str(error).splitlines()[0][:200]
+    return None
+
+
 def collective_stats() -> dict:
     """``{"host_staging", "collective_s", "collectives", "model_collective_s",
     "model_collectives"}``: host seconds spent in this process's collective

@@ -84,7 +84,18 @@ def _build_model_replay(store, payload: dict, progress=None, device=None) -> Non
     ``device=None`` is the CUDA card; the runner registers the handler
     again with its own device bound (:func:`register_build_model`). The
     journaled payload names no device, so a journal written on one
-    machine replays on another."""
+    machine replays on another.
+
+    Single-process only, as the reference's: a resume on one rank of
+    several would enter collectives the other ranks never join (a hang,
+    not a recovery), so a build over ranks is restarted by its client."""
+    from learningorchestra_tpu_torch.parallel.spmd import process_count
+
+    if process_count() > 1:
+        raise RuntimeError(
+            "build_model replay is single-host only "
+            f"(process_count={process_count()})"
+        )
     from learningorchestra_tpu_torch.ml.builder import build_model
 
     build_model(

@@ -17,8 +17,21 @@ topologies run on the CUDA card (the runner raises without one):
   pca) holds its own CUDA context, device cache (``LO_DEVCACHE_BYTES``)
   and serve registry (``LO_SERVE_BYTES``).
 
+- **several processes, one a rank** (the reference's multi-host mode):
+  with ``LO_COORDINATOR``, ``LO_NUM_PROCESSES`` and ``LO_PROCESS_ID``
+  set, every process joins one ``torch.distributed`` group
+  (parallel/multihost.py); rank 0 serves REST and submits the compute
+  jobs (model builds, batch predictions, PCA and t-SNE images) through
+  the SPMD dispatcher (parallel/spmd.py), and every other rank runs its
+  worker loop, with no REST surface. Every rank then runs the job over
+  the all-ranks data mesh; only rank 0 writes to the store and the
+  images folder. It needs ``LO_STORE_URL`` (one store server for every
+  rank) and ``LO_MODELS_DIR`` (a folder every rank reads). Sweeps are
+  not dispatched: ``POST /models/sweep`` runs on rank 0's card.
+
 Tests start the stack with ``start_all(..., device="cpu")`` or
-``main(device="cpu")``.
+``main(device="cpu")``; ranks that share one card, or the CPU, join over
+gloo with ``main(device=..., backend="gloo")``.
 
 Environment:
 - ``LO_SERVICE`` — serve only this service (``database_api``,
@@ -51,6 +64,11 @@ Environment:
 - ``LO_MODELS_DIR`` — model checkpoint and progress-artifact volume
   (default ``<data>/models``; empty string disables checkpointing, and
   with it crash resume); shared by every process of the topology
+- ``LO_COORDINATOR`` (host:port of rank 0's rendezvous),
+  ``LO_NUM_PROCESSES``, ``LO_PROCESS_ID`` — the multi-host mode above:
+  all three set joins the group (NCCL on a CUDA card, gloo on the CPU);
+  ``LO_SPMD_TIMEOUT_S`` (default 3600; 0: off) is a job's watchdog and
+  ``LO_SPMD_HEARTBEAT_S`` (default 10) the coordinator's idle ping
 - ``LO_HOST`` — bind host (default ``127.0.0.1``: the model builder runs
   request-supplied preprocessor code, so exposing the stack must be an
   explicit opt-in)
@@ -70,13 +88,15 @@ Environment:
   ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
 
 Not ported: the XLA precompile plane (the port's kernels are nvcc
-libraries) and the multi-host SPMD dispatcher.
+libraries).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 from typing import Optional
 
 from learningorchestra_tpu_torch.core.jobs import JobManager
@@ -119,6 +139,95 @@ SERVICES: dict[str, int] = {
 }
 
 
+def make_dispatcher(store: DocumentStore, images_dir: str, device: DeviceLike = None):
+    """The SPMD dispatcher of the compute jobs (reference
+    ``services/runner.py:180-233``): the coordinator's REST handlers
+    submit, every rank runs the job over the all-ranks data mesh on
+    ``device`` (None: the CUDA card), and only the coordinator writes to
+    the store and the images folder. A worker logs each job's kernel
+    launches and collectives when it ends (``spmd worker <rank>: job
+    <op> done {...}``)."""
+    from learningorchestra_tpu_torch import kernels
+    from learningorchestra_tpu_torch.ml.builder import build_model, predict_with_model
+    from learningorchestra_tpu_torch.ops.images import create_embedding_image
+    from learningorchestra_tpu_torch.parallel import multihost
+    from learningorchestra_tpu_torch.parallel.mesh import default_mesh
+    from learningorchestra_tpu_torch.parallel.spmd import SpmdDispatcher, process_index
+
+    device = resolve_device(device)
+    rank = process_index()
+    coordinator = rank == 0
+    # the reference's default mesh spans every process; the port's
+    # mesh=None is one device, so the handlers pass the all-ranks mesh
+    mesh = default_mesh(device)
+    dispatcher = SpmdDispatcher(device if device.type == "cuda" else None)
+
+    def handle_build_model(payload: dict) -> None:
+        # models_dir comes from the BROADCAST payload on every rank, never
+        # from this host's environment
+        build_model(
+            store,
+            payload["training_filename"],
+            payload["test_filename"],
+            payload["preprocessor_code"],
+            payload["classificators_list"],
+            mesh=mesh,
+            write_outputs=coordinator,
+            models_dir=payload.get("models_dir"),
+        )
+
+    def handle_predict_model(payload: dict) -> None:
+        predict_with_model(
+            store,
+            payload["checkpoint_path"],
+            payload["training_filename"],
+            payload["test_filename"],
+            payload["preprocessor_code"],
+            payload["prediction_filename"],
+            mesh=mesh,
+            write_outputs=coordinator,
+        )
+
+    def handle_embedding_image(payload: dict) -> None:
+        create_embedding_image(
+            store,
+            payload["parent_filename"],
+            payload["label_name"],
+            payload["output_filename"],
+            os.path.join(images_dir, payload["method"]),
+            payload["method"],
+            render=coordinator,
+            mesh=mesh,
+        )
+
+    def logged(op: str, handler):
+        if coordinator:
+            return handler
+
+        def run(payload: dict) -> None:
+            kernels.reset_launches()
+            multihost.reset_collective_stats()
+            started = time.perf_counter()
+            handler(payload)
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(device)
+            counts = {
+                "wall_s": time.perf_counter() - started,
+                "launches": {name: n for name, n in kernels.launches().items() if n},
+                "collectives": multihost.collective_stats()["collectives"],
+            }
+            print(f"spmd worker {rank}: job {op!r} done {json.dumps(counts)}", flush=True)
+
+        return run
+
+    dispatcher.register("build_model", logged("build_model", handle_build_model))
+    dispatcher.register("predict_model", logged("predict_model", handle_predict_model))
+    dispatcher.register("embedding_image", logged("embedding_image", handle_embedding_image))
+    return dispatcher
+
+
 def make_job_manager(store: DocumentStore, scope: str = "all") -> JobManager:
     """One JobManager for the whole process: every service submits
     through a single scheduler, so the DEVICE class serializes builds,
@@ -137,7 +246,11 @@ def build_app(
     models_dir: str = "",
     jobs: Optional[JobManager] = None,
     device: DeviceLike = None,
+    dispatcher=None,
 ):
+    """One service's app. With a ``dispatcher`` (the multi-host mode),
+    model_builder's build and batch predictions and the images' creates
+    are submitted through it (the reference's wiring)."""
     if name == "database_api":
         return database_api.create_app(store, jobs or JobManager())
     if name == "projection":
@@ -146,14 +259,59 @@ def build_app(
         # opt-in (LO_MODELS_DIR / models_dir): library and test callers of
         # start_all don't silently grow a checkpoint directory
         models_dir = models_dir or os.environ.get("LO_MODELS_DIR", "")
-        return model_builder.create_app(store, models_dir=models_dir, jobs=jobs, device=device)
+        build = predict = None
+        if dispatcher is not None:
+            from learningorchestra_tpu_torch.ml.checkpoint import checkpoint_path
+
+            def build(body: dict) -> None:
+                payload = {
+                    key: body[key]
+                    for key in (
+                        "training_filename",
+                        "test_filename",
+                        "preprocessor_code",
+                        "classificators_list",
+                    )
+                }
+                payload["models_dir"] = models_dir
+                dispatcher.submit("build_model", payload)
+
+            def predict(model_name: str, body: dict) -> None:
+                dispatcher.submit(
+                    "predict_model",
+                    {
+                        "checkpoint_path": checkpoint_path(models_dir, model_name),
+                        "training_filename": body["training_filename"],
+                        "test_filename": body["test_filename"],
+                        "preprocessor_code": body["preprocessor_code"],
+                        "prediction_filename": body["prediction_filename"],
+                    },
+                )
+
+        return model_builder.create_app(
+            store, build=build, models_dir=models_dir, jobs=jobs, device=device, predict=predict
+        )
     if name == "data_type_handler":
         return data_type_handler.create_app(store, jobs)
     if name == "histogram":
         return histogram.create_app(store, jobs)
     if name in ("tsne", "pca"):
+        create = None
+        if dispatcher is not None:
+
+            def create(parent_filename, label_name, output_filename):
+                dispatcher.submit(
+                    "embedding_image",
+                    {
+                        "parent_filename": parent_filename,
+                        "label_name": label_name,
+                        "output_filename": output_filename,
+                        "method": name,
+                    },
+                )
+
         return images.create_app(
-            store, os.path.join(images_dir, name), name, device=device, jobs=jobs
+            store, os.path.join(images_dir, name), name, create=create, device=device, jobs=jobs
         )
     if name == "router":
         # the fleet router, its own LO_SERVICE only: a router in front
@@ -170,6 +328,7 @@ def build_apps(
     models_dir: str = "",
     jobs: Optional[JobManager] = None,
     device: DeviceLike = None,
+    dispatcher=None,
 ) -> dict[int, object]:
     # one shared JobManager unless the caller brings its own: the seven
     # services must share a scheduler, or the device class cannot
@@ -177,7 +336,7 @@ def build_apps(
     jobs = jobs or make_job_manager(store)
     device = resolve_device(device)
     return {
-        port: build_app(name, store, images_dir, models_dir, jobs, device)
+        port: build_app(name, store, images_dir, models_dir, jobs, device, dispatcher)
         for name, port in SERVICES.items()
     }
 
@@ -216,10 +375,12 @@ def start_all(
     models_dir: str = "",
     jobs: Optional[JobManager] = None,
     device: DeviceLike = None,
+    dispatcher=None,
 ) -> tuple[DocumentStore, list[ServerThread]]:
     """Start all seven services on their reference ports; returns the
     shared store and the server threads (callers stop() them).
-    ``device=None`` is the CUDA card (raises without one).
+    ``device=None`` is the CUDA card (raises without one); ``dispatcher``
+    (the multi-host mode's) carries the compute jobs to every rank.
 
     ``ephemeral=True`` binds OS-assigned ports instead (tests can't
     assume 5000-5006 are free); each server's ``canonical_port`` records
@@ -229,7 +390,7 @@ def start_all(
     images_dir = images_dir or os.path.join(os.getcwd(), "lo_images")
     maybe_start_collector(store)
     servers = []
-    apps = build_apps(store, images_dir, models_dir, jobs, device)
+    apps = build_apps(store, images_dir, models_dir, jobs, device, dispatcher)
     for port, app in apps.items():
         server = ServerThread(app, host, 0 if ephemeral else port)
         server.canonical_port = port
@@ -237,12 +398,16 @@ def start_all(
     return store, servers
 
 
-def main(device: DeviceLike = None) -> None:
-    """Boot the stack, or the one service ``LO_SERVICE`` names: open the
-    store, replay the job journal (this service's, or every service's:
-    never-started jobs re-enqueue, orphaned builds resume from their
-    progress artifacts), start the TSDB collector, then serve.
-    ``device=None`` is the CUDA card."""
+def main(device: DeviceLike = None, backend: Optional[str] = None) -> None:
+    """Boot the stack, or the one service ``LO_SERVICE`` names: join the
+    ranks' process group when ``LO_COORDINATOR``, ``LO_NUM_PROCESSES``
+    and ``LO_PROCESS_ID`` ask for one (a rank past 0 then runs the SPMD
+    worker loop and serves nothing), open the store, replay the job
+    journal (this service's, or every service's: never-started jobs
+    re-enqueue, orphaned builds resume from their progress artifacts),
+    start the TSDB collector, then serve. ``device=None`` is the CUDA
+    card; ``backend`` the group's (None: NCCL on a card, gloo on the
+    CPU; ``"gloo"`` for ranks that share one card)."""
     from learningorchestra_tpu_torch.sched import config as sched_config
     from learningorchestra_tpu_torch.sched import recovery
     from learningorchestra_tpu_torch.serve import config as serve_config
@@ -258,7 +423,18 @@ def main(device: DeviceLike = None) -> None:
     except ValueError:
         raise SystemExit(f"LO_PORT must be an integer, got {port_env!r}") from None
     device = resolve_device(device)
-    print(f"runner starting: LO_SERVICE={service!r} device={device}", flush=True)
+    print(
+        f"runner starting: LO_SERVICE={service!r} device={device} "
+        f"LO_COORDINATOR={os.environ.get('LO_COORDINATOR')!r} "
+        f"LO_PROCESS_ID={os.environ.get('LO_PROCESS_ID')!r}",
+        flush=True,
+    )
+    # join the ranks' group first when the deployment asks for one: the
+    # compute jobs then run over every rank (the reference's "add spark
+    # workers" knob as an environment setting)
+    from learningorchestra_tpu_torch.parallel.multihost import initialize_from_env
+
+    multi_host = initialize_from_env(backend=backend, device=device)
     # fail fast on malformed knobs, and state them at boot
     from learningorchestra_tpu_torch.core.devcache import capacity_bytes
     from learningorchestra_tpu_torch.utils.dtypepolicy import dtype_policy
@@ -333,7 +509,48 @@ def main(device: DeviceLike = None) -> None:
     # a store server's URL (LO_STORE_URL: a comma-separated replica list
     # fails over between its servers), else the WAL-backed local store
     store_url = os.environ.get("LO_STORE_URL", "").strip()
+    if multi_host and not store_url:
+        # every rank must read the same datasets: a store a process
+        # would leave the workers reading an empty one
+        raise SystemExit(
+            "multi-host mode requires LO_STORE_URL: all processes "
+            "must share one store server "
+            "(python -m learningorchestra_tpu_torch.core.store_service)"
+        )
+    if multi_host and os.environ.get("LO_MODELS_DIR") is None:
+        # a batch prediction broadcasts the checkpoint's path to every
+        # rank: the folder must be one that every rank reads
+        raise SystemExit(
+            "multi-host mode requires LO_MODELS_DIR pointing at a "
+            "volume shared by all hosts (set it to '' to disable "
+            "checkpointing)"
+        )
     store = connect(store_url) if store_url else InMemoryStore(data_dir=data_dir)
+    dispatcher = None
+    if multi_host:
+        import torch.distributed as dist
+
+        from learningorchestra_tpu_torch.parallel.multihost import stage_if_refused
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        print(
+            f"multi-host runtime: process {rank}/{world}, {world} global devices "
+            f"(backend {dist.get_backend()}, device {device})",
+            flush=True,
+        )
+        # a gloo that refuses CUDA tensors: every collective through the host
+        refused = stage_if_refused(device)
+        if refused is not None:
+            print(f"multi-host runtime: collectives staged through the host ({refused})", flush=True)
+        dispatcher = make_dispatcher(store, images_dir, device)
+        # keeps an idle worker's broadcast inside the group's timeout
+        dispatcher.start_heartbeat()
+        if rank > 0:
+            # no REST surface here: run the jobs the coordinator broadcasts
+            print("spmd worker: waiting for jobs", flush=True)
+            dispatcher.run_worker_loop()
+            print(f"spmd worker {rank}: loop exited", flush=True)
+            return
     maybe_start_collector(store, instance=service or "runner", service=service or "runner")
 
     # Recovery runs BEFORE the REST surface accepts traffic, with the
@@ -352,7 +569,7 @@ def main(device: DeviceLike = None) -> None:
             flush=True,
         )
     if service is not None:
-        app = build_app(service, store, images_dir, models_dir, jobs, device)
+        app = build_app(service, store, images_dir, models_dir, jobs, device, dispatcher)
         default_port = ROUTER_PORT if service == "router" else SERVICES[service]
         server = ServerThread(app, host, default_port if port is None else port).start()
         print(f"service {service} on {host}:{server.port}", flush=True)
@@ -372,7 +589,8 @@ def main(device: DeviceLike = None) -> None:
             print(f"fleet replica {agent.index}: agent started (interval {agent.interval_s}s)", flush=True)
     else:
         _, servers = start_all(
-            store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device
+            store, images_dir, host, ephemeral=ephemeral, models_dir=models_dir, jobs=jobs, device=device,
+            dispatcher=dispatcher,
         )
         port_names = {port: name for name, port in SERVICES.items()}
         for server in servers:

@@ -105,7 +105,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "ops.pca", "ops.tsne", "ops.images", "services.images", "services.validators",
         "ml.sweep", "sched", "sched.coalesce", "sched.config", "sched.cancel",
         "telemetry", "telemetry.metrics", "telemetry.tracing", "testing", "testing.faults",
-        "parallel", "parallel.sharding",
+        "parallel", "parallel.sharding", "parallel.mesh", "parallel.multihost", "parallel.spmd",
         "ml.progress", "sched.journal", "sched.recovery", "core.jobs",
         "services.database_api", "services.projection", "services.data_type_handler",
         "services.histogram", "services.runner", "ops.projection", "ops.histogram",

@@ -11,6 +11,12 @@ Run (d), four gloo ranks as data 2 x model 2 (lr's classes and rf's
 trees over the model axis), is rehearsed beside a one-rank run (b), as the
 phase holds it.
 
+Run (c)'s sweeps over its data ranks (the λ and depth sweeps through
+``group_runner(mesh=...)``) and run (e), the runner's multi-host mode
+(a store server and two runner ranks over gloo, the SPMD dispatcher
+carrying the build, the batch prediction and the images to rank 1, and
+the drill that kills rank 1 mid-t-SNE), are rehearsed the same way.
+
 Here two gloo ranks run as child processes on the CPU: each child is a
 small wrapper that cuts the sizes (3,000 fit rows, 3,000 embed rows, 1,000
 landmarks: fewer part the two fits' KL by more than the phase's margin, as
@@ -35,7 +41,9 @@ import chip_smoke  # noqa: E402
 from learningorchestra_tpu_torch.ops import tsne  # noqa: E402
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = {"FIT_ROWS": 3_000, "EMBED_ROWS": 3_000}
+SIZES = {"FIT_ROWS": 3_000, "EMBED_ROWS": 3_000, "SWEEP_ROWS": 3_000, "SWEEP_EVAL_ROWS": 1_000,
+         "SWEEP_POINTS": 12}
+SPMD_ROWS = 1_000   # run e's product rows
 LANDMARKS = 1_000
 ITERATIONS = 1_000
 RANKS = 2
@@ -94,11 +102,12 @@ def on_the_cpu(monkeypatch, tmp_path):
         monkeypatch.setattr(module, "resolve_device", cpu)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *args, **kwargs: self)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args, **kwargs: None)
+    monkeypatch.setattr(chip_smoke, "_card", lambda torch: torch.device("cpu"))
 
 
 @pytest.fixture()
 def rehearsed(on_the_cpu, tmp_path):
-    run = chip_smoke._multigpu_run(torch, "c", "gloo", RANKS, 1, True, str(tmp_path / "runs"))
+    run = chip_smoke._multigpu_run(torch, "c", "gloo", RANKS, 1, True, str(tmp_path / "runs"), sweeps=True)
     return run, chip_smoke._one_process_others(torch)
 
 
@@ -122,6 +131,36 @@ def test_the_other_fits_over_two_gloo_ranks(rehearsed):
     assert held["tsne"]["kl"]["rel_diff"] <= chip_smoke.KL_MARGIN
     assert arrays["tsne"].shape == (SIZES["EMBED_ROWS"], 2)
     json.dumps(held)   # the record is emitted as JSON
+
+
+def test_run_cs_sweeps_over_the_ranks(rehearsed):
+    """Run (c)'s sweeps: the ranks' outcomes identical (the run checks
+    their digests), each lr slot of every rank's block bit-identical to
+    its run alone at the rank's width, every rank launching the job-axis
+    kernels, and against one process: dt bit-equal, lr's best and
+    accuracies equal and its params within SWEEP_PARAMS_TOL."""
+    run, _ = rehearsed
+    sweeps, arrays = run["summary"]["sweeps"], run["arrays"]
+    from learningorchestra_tpu_torch.ml import sweep
+
+    points = SIZES["SWEEP_POINTS"]
+    local = sweep._job_axis(points, _mesh(RANKS)) // RANKS
+    assert [alone["width"] for alone in sweeps["lr"]["alone"]] == [local] * RANKS
+    assert sum(alone["slots"] for alone in sweeps["lr"]["alone"]) == points
+    for kind in ("lr", "dt"):
+        assert len(sweeps[kind]["wall_s"]) == RANKS
+        assert all(count > 0 for count in sweeps[kind]["collectives"])
+        assert arrays[f"sweep_{kind}"]["best"] == sweeps[kind]["best"]
+    held = chip_smoke._sweeps_against_one_process(torch, "c", arrays)
+    assert held["dt"]["bit_equal"] is True
+    assert max(held["lr"]["params_max_rel_err"].values()) <= chip_smoke.SWEEP_PARAMS_TOL
+    json.dumps(run["summary"])
+
+
+def _mesh(world):
+    from learningorchestra_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(shape={"data": world, "model": 1}, data_index=0, group=None, device=torch.device("cpu"))
 
 
 def test_a_run_fails_when_a_rank_launched_no_sums_form():
@@ -233,3 +272,51 @@ def test_bf16_ulps_count_bfloat16_steps():
     assert chip_smoke._bf16_ulps(torch, a, b) == 0
     b[1] = 2.015625   # the next bfloat16 after 2
     assert chip_smoke._bf16_ulps(torch, a, b) == 1
+
+
+# --------------------------------------------------------------------------
+# Run e: the runner's multi-host mode, two gloo ranks
+# --------------------------------------------------------------------------
+
+SPMD_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+from learningorchestra_tpu_torch import kernels
+kernels.library = lambda name: None
+kernels.launches = lambda: {{name: 1 for name in kernels.KERNEL_NAMES}}
+from learningorchestra_tpu_torch.services.runner import main
+main(device="cpu", backend="gloo")
+"""
+
+
+@pytest.fixture()
+def spmd_rehearsed(monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "SPMD_RUNNER_COMMAND", [sys.executable, "-c", SPMD_CHILD.format(root=_ROOT)])
+    monkeypatch.setattr(chip_smoke, "PRODUCT_ROWS", SPMD_ROWS)
+    monkeypatch.setattr(chip_smoke, "FIT_ROWS", SIZES["FIT_ROWS"])
+    monkeypatch.setattr(chip_smoke, "_card", lambda torch: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args, **kwargs: None)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    folder = tmp_path / "runs"
+    folder.mkdir()
+    return chip_smoke._spmd_stack_run(torch, "cpu", str(folder))
+
+
+def test_run_e_dispatches_the_stack_over_two_ranks(spmd_rehearsed):
+    """Run (e) on the CPU: every answer the reference's, each collection
+    its rows and one metadata document, one PNG an image, rank 1's log
+    naming each job and its (stubbed) launches, the build held to one
+    process's, the drill's t-SNE request a 500 within the watchdog and the
+    next build the poisoned error."""
+    record = spmd_rehearsed
+    assert set(record["prediction_documents"].values()) == {SPMD_ROWS + 1}
+    assert record["images"] == {"pca": ["spmd_pca.png"], "tsne": ["spmd_tsne.png"]}
+    assert set(record["worker_jobs"]) == {"build", "predict", "pca", "tsne"}
+    assert all(job["collectives"] > 0 for what, job in record["worker_jobs"].items() if what != "predict")
+    for name in ("dt", "rf", "nb"):
+        assert record["against_one_process"][name]["equal"], name
+    assert record["drill"]["status"] == 500
+    assert "SpmdRuntimePoisonedError" in record["drill"]["poisoned_build"]
+    assert record["walls_s"]["drill: kill to error"] <= float(chip_smoke.SPMD_TIMEOUT_S) + 5
+    assert any(line.startswith("lo_spmd_jobs_total") for line in record["lo_spmd"])
+    json.dumps(record)
