@@ -8,8 +8,9 @@ networked store (a replicated pair of store servers, failover), the
 sharded over ``torch.distributed`` processes), one process a service
 with the observability plane, the stack over two shard groups with
 CSVs ingested natively in slabs, and the serving fleet (two replicas
-behind the router, the publish-time warmup, a kill -9 drill), on one
-CUDA card. Every server runs on the event loop (``LO_WEB_ASYNC``'s
+behind the router, the publish-time warmup, a kill -9 drill), and its
+deployment (the supervised stack and the cluster driver, with the kernel
+libraries built at boot and shared over the store), on one CUDA card. Every server runs on the event loop (``LO_WEB_ASYNC``'s
 default); the serve phase also runs on the threaded server.
 
 Run from the repository root, with one card visible:
@@ -25,6 +26,7 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py services         # a store server and seven LO_SERVICE runners
     python3 chip_smoke.py shards           # two replicated shard groups, slabbed native CSV ingest
     python3 chip_smoke.py fleet serve      # two replicas behind the router; serve on both servers
+    python3 chip_smoke.py deploy           # deploy.stack and deploy.cluster up, on the card
 
 Phases, one JSON line each:
 
@@ -399,6 +401,39 @@ Phases, one JSON line each:
                  counters are read: launches and bytes include them on
                  both sides, and the build's and its warmups' traces
                  together hold the h2d bytes counted.
+
+17. deploy     — after the build phase (the libraries exist), before
+                 services: (a) ``python
+                 -m learningorchestra_tpu_torch.deploy.stack`` with
+                 ``LO_EPHEMERAL=1``, ``LO_AOT=1``, ``LO_AOT_PUBLISH=1``,
+                 ``LO_RESTART_DELAY=0.5``: the store and seven services up,
+                 each child's boot line naming ``cuda:0``,
+                 ``stack_ports.json``; every runner's compile pass five
+                 hits, model_builder's ``lo_aot_programs_compiled_total``
+                 5 and its compile events five ``aot`` hits, no miss;
+                 ``__lo_executables__`` five meta rows of this card's
+                 fingerprint; a sync five-classifier build over REST at
+                 100,000 x 16 (K1-K7 and K6 launched in model_builder)
+                 bit-equal to ``build_model`` in this process on the card
+                 over the same store; model_builder SIGKILLed, restarted
+                 by the supervisor, a second build answering 201 with the
+                 same outputs. (b) ``python -m
+                 learningorchestra_tpu_torch.deploy.cluster up`` over the
+                 local transport: a head (store and coordinator) and a
+                 worker-only machine, both ``LO_DIST_BACKEND=gloo`` on
+                 card 0, the manifest's ``compile`` section on, the
+                 worker's ``LO_JIT_CACHE`` an empty folder of its own:
+                 its pass fetches the five libraries from the head's
+                 store (``hit/fleetcache`` = fetched, no miss, no nvcc);
+                 a build over REST whose labels equal (a)'s one-process
+                 build's (lr and gb as the multigpu runs hold them), the
+                 worker rank's kernels launched and no compile miss; the
+                 worker's runner SIGKILLed, every machine's group
+                 relaunched by the driver, the next build 201 with the
+                 same labels. One record line: each boot's seconds, the
+                 passes' seconds, the fetch's beside the build phase's
+                 cold nvcc seconds, the builds' walls beside the
+                 in-process build's, the heals' seconds.
 
 Then the ``kernels`` summary line (the bf16 forms as ``<kernel>:bf16``
 rows), the card's ``nvidia-smi`` name and power
@@ -9495,6 +9530,413 @@ def phase_fleet(torch, card: str) -> dict:
     return record
 
 
+DEPLOY_STACK_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.deploy.stack"]
+DEPLOY_CLUSTER_COMMAND = [sys.executable, "-m", "learningorchestra_tpu_torch.deploy.cluster", "up"]
+DEPLOY_CHILD_DEVICE = "cuda:0"   # what every child's boot line must name
+DEPLOY_DEVICE = None             # the in-process build's device: the card
+DEPLOY_ENV: dict = {}            # more environment for every child (a CPU rehearsal's LO_DEVICE)
+DEPLOY_JIT_CACHE = None          # the stack's and the head's LO_JIT_CACHE (None: kernels/_build)
+DEPLOY_BOOT_TIMEOUT_S = 300
+DEPLOY_RESTART_DELAY = "0.5"
+DEPLOY_SPMD_TIMEOUT_S = "20"     # the cluster's LO_SPMD_TIMEOUT_S: a dead rank raises, never hangs
+DEPLOY_PASS_TIMEOUT_S = 120      # the AOT passes end within this
+
+
+class _GroupChild(_LoggedChild):
+    """A supervisor (the stack, the cluster driver) as a child in a
+    session of its own, run from ``cwd``: :meth:`stop` ends its whole
+    process group, the children it started included."""
+
+    def __init__(self, command: list, env: dict, log_path: str, cwd: str):
+        env = {**env, "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", ""), "PYTHONUNBUFFERED": "1"}
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        self.spawned = time.perf_counter()
+        self.process = subprocess.Popen(command, env=env, stdout=self.log, stderr=subprocess.STDOUT, cwd=cwd,
+                                        start_new_session=True)
+
+    def stop(self) -> None:
+        import signal
+
+        for signum, wait_s in ((signal.SIGTERM, 60), (signal.SIGKILL, 15)):
+            try:
+                os.killpg(self.process.pid, signum)
+            except ProcessLookupError:
+                break
+            try:
+                self.process.wait(timeout=wait_s)
+            except subprocess.TimeoutExpired:
+                continue
+            # the group's members may outlive the supervisor by a moment
+            time.sleep(0.5)
+        try:
+            os.killpg(self.process.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.log.close()
+
+
+def _deploy_env() -> dict:
+    """The children's environment: this one without the knobs of the
+    other phases, and ``DEPLOY_ENV``."""
+    env = {key: value for key, value in os.environ.items() if not key.startswith("LO_")}
+    return {**env, **DEPLOY_ENV}
+
+
+def _first_seen(child: _GroupChild, markers: dict, timeout_s: float, what: str) -> dict:
+    """Each marker's seconds from the child's spawn to the first log line
+    that holds it, watched together; raises when the child dies or the
+    time passes first (:class:`_PortTaken` when a port was taken)."""
+    seen: dict = {}
+    deadline = time.time() + timeout_s
+    while len(seen) < len(markers):
+        text = open(child.log_path).read()
+        for key, marker in markers.items():
+            if key not in seen and marker in text:
+                seen[key] = time.perf_counter() - child.spawned
+        if len(seen) == len(markers):
+            break
+        if child.process.poll() is not None or time.time() > deadline:
+            lines = child.lines()
+            if _port_taken(lines):
+                raise _PortTaken(f"{what}: a port was taken")
+            raise AssertionError(f"{what}: only {sorted(seen)} of {sorted(markers)}:\n" + "\n".join(lines[-60:]))
+        time.sleep(0.05)
+    return seen
+
+
+def _pass_done(lines: list, prefix: str, nth: int = 0) -> "dict | None":
+    """The stats of the ``nth`` ``[aot] pass done`` line after ``prefix``."""
+    found = [json.loads(line.split("[aot] pass done: ", 1)[1]) for line in lines
+             if line.startswith(prefix + "[aot] pass done: ")]
+    return found[nth] if len(found) > nth else None
+
+
+def _wait_pass(child: _GroupChild, prefix: str, nth: int = 0) -> dict:
+    deadline = time.time() + DEPLOY_PASS_TIMEOUT_S
+    while True:
+        stats = _pass_done(child.lines(), prefix, nth)
+        if stats is not None:
+            return stats
+        if child.process.poll() is not None or time.time() > deadline:
+            raise AssertionError(f"deploy: {prefix!r}'s compile pass never ended:\n" + "\n".join(child.lines()[-40:]))
+        time.sleep(0.1)
+
+
+def _ports_file(path: str) -> dict:
+    with open(path) as handle:
+        return json.load(handle)
+
+
+def _fingerprinted_metas(store) -> list:
+    """``__lo_executables__``'s meta rows: (artifact, fingerprint)."""
+    from learningorchestra_tpu_torch.compile import fleetcache
+
+    return sorted((doc["artifact"], doc["fingerprint"]) for doc in store.find(fleetcache.COLLECTION, {"meta": 1}))
+
+
+def _worker_job_launches(counts: dict) -> dict:
+    """A worker rank's launches in one job, from its ``done`` line."""
+    return counts["launches"]
+
+
+def _held_to_one_process(what: str, got: dict, want: dict) -> dict:
+    """A build over two ranks against one process's: dt, rf and nb labels
+    and accuracy equal; lr and gb (sums added over the ranks in another
+    order) as the multigpu runs hold them."""
+    held = {}
+    for name in MODEL_NAMES:
+        agreement = float((got[name]["labels"] == want[name]["labels"]).mean())
+        accuracy_diff = abs(float(got[name]["metrics"][0]) - float(want[name]["metrics"][0]))
+        if name in SPMD_REORDERED:
+            if not (agreement >= MULTIGPU_MIN_AGREEMENT and accuracy_diff <= FIT_MARGIN_TOL):
+                raise AssertionError(f"{what}: {name}'s labels agree on {agreement}, accuracy {accuracy_diff} apart")
+        elif agreement != 1.0 or accuracy_diff != 0.0:
+            raise AssertionError(f"{what}: {name}'s labels agree on {agreement}, accuracy {accuracy_diff} apart "
+                                 "from one process's")
+        held[name] = {"agreement": agreement, "accuracy_diff": accuracy_diff}
+    return held
+
+
+def _deploy_stack(torch, folder: str, walls: dict) -> dict:
+    """(a) ``python -m learningorchestra_tpu_torch.deploy.stack`` on the
+    card with the compile plane on: the store and seven services up, each
+    booted on ``DEPLOY_CHILD_DEVICE``, ``stack_ports.json``; every pass
+    all hits (the build phase built the libraries), ``__lo_executables__``
+    five meta rows of this card's fingerprint; a sync five-classifier
+    build over REST held bit for bit to the same build in this process
+    over the same store; model_builder SIGKILLed, restarted by the
+    supervisor, and a second build answering 201 with the same outputs."""
+    import signal
+
+    from learningorchestra_tpu_torch.compile import fleetcache
+    from learningorchestra_tpu_torch.core.store_service import connect
+    from learningorchestra_tpu_torch.ml.builder import build_model
+
+    data_dir = os.path.join(folder, "stack")
+    env = {**_deploy_env(), "LO_EPHEMERAL": "1", "LO_STORE_PORT": "0", "LO_AOT": "1", "LO_AOT_PUBLISH": "1",
+           "LO_RESTART_DELAY": DEPLOY_RESTART_DELAY, "LO_MODELS_DIR": os.path.join(folder, "stack_models")}
+    if DEPLOY_JIT_CACHE is not None:
+        env["LO_JIT_CACHE"] = DEPLOY_JIT_CACHE
+    stack = _GroupChild(DEPLOY_STACK_COMMAND + [data_dir], env, os.path.join(folder, "stack.log"), folder)
+    remote = None
+    try:
+        markers = {name: f"[{name}] service {name} on " for name in SERVICE_NAMES}
+        markers["all services up"] = "[stack] all services up"
+        boot_s = _first_seen(stack, markers, DEPLOY_BOOT_TIMEOUT_S, "deploy: the stack")
+        lines = stack.lines()
+        for name in SERVICE_NAMES:
+            if not any(line.startswith(f"[{name}] runner starting:") and f"device={DEPLOY_CHILD_DEVICE}" in line
+                       for line in lines):
+                raise AssertionError(f"deploy: {name} did not boot on {DEPLOY_CHILD_DEVICE}")
+        ports = _ports_file(os.path.join(data_dir, "stack_ports.json"))
+        if sorted(ports["ports"]) != sorted(["store", *SERVICE_NAMES]) or sorted(ports["pids"]) != sorted(
+                ["store", *SERVICE_NAMES]):
+            raise AssertionError(f"deploy: stack_ports.json holds {ports}")
+        passes = {name: _wait_pass(stack, f"[{name}] ") for name in SERVICE_NAMES}
+        for name, stats in passes.items():
+            misses = {key: count for key, count in stats["events"].items() if key.startswith("miss/")}
+            if stats["compiled"] != 5 or stats["failed"] or misses or stats["events"].get("hit/aot", 0) < 5:
+                raise AssertionError(f"deploy: {name}'s compile pass {stats}")
+        builder = _Client(ports["ports"]["model_builder"])
+        text = _metrics_text(builder)
+        aot = {"compiled": _metric_total(text, "lo_aot_programs_compiled_total"),
+               "hits": _labelled_total(text, "lo_compile_events_total", 'result="hit",source="aot"'),
+               "misses": _labelled_total(text, "lo_compile_events_total", 'result="miss"')}
+        if aot != {"compiled": 5.0, "hits": 5.0, "misses": 0.0}:
+            raise AssertionError(f"deploy: model_builder's compile counters {aot}")
+        remote = connect(f"http://127.0.0.1:{ports['ports']['store']}")
+        from learningorchestra_tpu_torch.compile.aot import backend_fingerprint
+
+        fingerprint = json.dumps(backend_fingerprint(), sort_keys=True)
+        metas = _fingerprinted_metas(remote)
+        libraries = sorted(kernels.library_file(name) for name in kernels.SOURCES)
+        if metas != [(library, fingerprint) for library in libraries]:
+            raise AssertionError(f"deploy: {fleetcache.COLLECTION} holds {[artifact for artifact, _ in metas]}")
+
+        product_store(remote)
+        before = _metrics_text(builder)
+        build = _store_build(builder, remote, "bench_test", False)
+        _settled_jobs(builder, BENCH_WARMUPS)
+        launches = _served_launches(before, _metrics_text(builder))
+        missing = [name for name in BUILD_KERNELS if not launches[name]]
+        if missing:
+            raise AssertionError(f"deploy: the stack's build never launched {missing}")
+        served = _stored_outputs(remote, "bench_test")
+        if DEPLOY_DEVICE is None:
+            torch.cuda.synchronize()
+        began = time.perf_counter()
+        build_model(remote, "bench_train", "bench_test", PRODUCT_PREPROCESSOR, list(MODEL_NAMES),
+                    device=DEPLOY_DEVICE, models_dir=os.path.join(folder, "in_process_models"))
+        if DEPLOY_DEVICE is None:
+            torch.cuda.synchronize()
+        in_process_wall_s = time.perf_counter() - began
+        held = _held_bitwise("deploy: the stack's build", served, _stored_outputs(remote, "bench_test"))
+
+        # the heal: model_builder killed, restarted, and a second build
+        victim = ports["pids"]["model_builder"]
+        killed_at = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        deadline = time.time() + DEPLOY_BOOT_TIMEOUT_S
+        while True:
+            ports = _ports_file(os.path.join(data_dir, "stack_ports.json"))
+            if ports["pids"].get("model_builder") not in (None, victim) and "model_builder" in ports["ports"]:
+                break
+            if stack.process.poll() is not None or time.time() > deadline:
+                raise AssertionError("deploy: the stack never restarted model_builder:\n"
+                                     + "\n".join(stack.lines()[-40:]))
+            time.sleep(0.05)
+        restarted_s = time.perf_counter() - killed_at
+        builder = _Client(ports["ports"]["model_builder"])
+        second = _store_build(builder, remote, "bench_test", False)
+        heal_s = time.perf_counter() - killed_at
+        _held_bitwise("deploy: the build after the restart", _stored_outputs(remote, "bench_test"), served)
+        reboots = [line for line in stack.lines() if line.startswith("[model_builder] runner starting:")]
+        if len(reboots) != 2 or f"device={DEPLOY_CHILD_DEVICE}" not in reboots[1]:
+            raise AssertionError(f"deploy: model_builder's boots {reboots}")
+        restart_pass = _wait_pass(stack, "[model_builder] ", 1)
+        if restart_pass["compiled"] != 5 or any(key.startswith("miss/") for key in restart_pass["events"]):
+            raise AssertionError(f"deploy: the restarted model_builder's pass {restart_pass}")
+    finally:
+        if remote is not None:
+            remote.close()
+        stack.stop()
+    walls.update({"stack: build over REST": build["wall_s"], "stack: build in process": in_process_wall_s,
+                  "stack: kill to restart": restarted_s, "stack: kill to the next 201": heal_s,
+                  "stack: second build": second["wall_s"]})
+    return {
+        "boot_s": boot_s,
+        "aot_pass_s": {name: stats["seconds"] for name, stats in passes.items()},
+        "aot": aot, "libraries": libraries, "launches": launches, "held": held, "outputs": served,
+    }
+
+
+def _deploy_cluster(torch, folder: str, walls: dict, one_process: dict) -> dict:
+    """(b) ``python -m learningorchestra_tpu_torch.deploy.cluster up`` over
+    the local transport on one card: a head (store and coordinator) and a
+    worker-only machine, both ``LO_DIST_BACKEND=gloo`` on card 0, the
+    manifest's ``compile`` section on. The worker's ``LO_JIT_CACHE`` is an
+    empty folder of its own: its pass fetches the five libraries from the
+    head's ``__lo_executables__`` and runs nvcc zero times. A sync build
+    over REST held to one process's (``one_process``: the stack's); the
+    worker's runner SIGKILLed, every machine's group relaunched by the
+    driver, and a second build answering 201 with the same labels."""
+    import signal
+
+    from learningorchestra_tpu_torch.core.store_service import connect
+
+    cluster_dir = os.path.join(folder, "cluster")
+    os.makedirs(cluster_dir)
+    head_data, worker_data = os.path.join(cluster_dir, "head"), os.path.join(cluster_dir, "machine1")
+    worker_cache = os.path.join(cluster_dir, "machine1_kernels")
+    os.makedirs(worker_cache)
+    head_env = {} if DEPLOY_JIT_CACHE is None else {"LO_JIT_CACHE": DEPLOY_JIT_CACHE}
+
+    def boot():
+        import shutil
+
+        for stale in (head_data, worker_data):
+            shutil.rmtree(stale, ignore_errors=True)
+        manifest = {
+            "transport": "local",
+            "head": {"host": "127.0.0.1", "bind": "127.0.0.1", "data_dir": head_data, "workers": 0,
+                     "env": head_env},
+            "workers": [{"host": "127.0.0.1", "data_dir": worker_data, "env": {"LO_JIT_CACHE": worker_cache}}],
+            "models_dir": os.path.join(cluster_dir, "models"),
+            "store_port": _free_port(), "coord_port": _free_port(),
+            "restart_delay": float(DEPLOY_RESTART_DELAY),
+            "compile": {"aot": 1, "publish": 1},
+            "env": {"LO_EPHEMERAL": "1", "LO_RESTART_DELAY": DEPLOY_RESTART_DELAY, "LO_DIST_BACKEND": "gloo",
+                    "LO_SPMD_TIMEOUT_S": DEPLOY_SPMD_TIMEOUT_S},
+        }
+        path = os.path.join(cluster_dir, "manifest.json")
+        with open(path, "w") as handle:
+            json.dump(manifest, handle)
+        driver = _GroupChild(DEPLOY_CLUSTER_COMMAND + [path], _deploy_env(), os.path.join(cluster_dir, "driver.log"),
+                             cluster_dir)
+        try:
+            return driver, _first_seen(driver, {
+                "store": "[cluster] store healthy", "coordinator": "[head] [coordinator] service model_builder on",
+                "worker": "[machine1] [worker1] spmd worker: waiting for jobs", "cluster": "[cluster] up:",
+            }, DEPLOY_BOOT_TIMEOUT_S, "deploy: the cluster")
+        except BaseException:
+            driver.stop()
+            raise
+
+    driver, boot_s = _on_new_ports(boot, "deploy: the cluster")
+    remote = None
+    try:
+        lines = driver.lines()
+        for prefix in ("[head] [coordinator] ", "[machine1] [worker1] "):
+            if not any(line.startswith(prefix + "runner starting:") and f"device={DEPLOY_CHILD_DEVICE}" in line
+                       for line in lines):
+                raise AssertionError(f"deploy: {prefix.strip()} did not boot on {DEPLOY_CHILD_DEVICE}")
+        head_pass = _wait_pass(driver, "[head] [coordinator] ")
+        worker_pass = _wait_pass(driver, "[machine1] [worker1] ")
+        if head_pass["published"] != 5:
+            raise AssertionError(f"deploy: the head's pass {head_pass}")
+        fetched = sorted(os.listdir(worker_cache))
+        misses = {key: count for key, count in worker_pass["events"].items() if key.startswith("miss/")}
+        if (worker_pass["fetched"] != 5 or worker_pass["compiled"] != 5 or misses
+                or worker_pass["events"].get("hit/fleetcache") != worker_pass["fetched"]
+                or fetched != sorted(kernels.library_file(name) for name in kernels.SOURCES)):
+            raise AssertionError(f"deploy: the worker machine's pass {worker_pass}, its folder {fetched}")
+
+        head_ports = os.path.join(head_data, "stack_ports.json")
+        ports = _ports_file(head_ports)
+        remote = connect(f"http://127.0.0.1:{ports['ports']['store']}")
+        product_store(remote)
+        builds, done_lines = [], []
+        for attempt in range(2):
+            if attempt:
+                # the heal: the worker machine's runner killed; the driver
+                # relaunches every machine's group
+                victim = _ports_file(os.path.join(worker_data, "stack_ports.json"))["pids"]["worker1"]
+                coordinator = ports["pids"]["coordinator"]
+                killed_at = time.perf_counter()
+                os.kill(victim, signal.SIGKILL)
+                deadline = time.time() + DEPLOY_BOOT_TIMEOUT_S
+                while True:
+                    text = open(driver.log_path).read()
+                    ports = _ports_file(head_ports) if os.path.exists(head_ports) else {"pids": {}, "ports": {}}
+                    if (text.count("[cluster] up:") == 2 and ports["pids"].get("coordinator") not in (None, coordinator)
+                            and "model_builder" in ports["ports"]):
+                        break
+                    if driver.process.poll() is not None or time.time() > deadline:
+                        raise AssertionError("deploy: the cluster never healed:\n" + "\n".join(driver.lines()[-60:]))
+                    time.sleep(0.05)
+                relaunched_s = time.perf_counter() - killed_at
+                remote.close()
+                remote = connect(f"http://127.0.0.1:{ports['ports']['store']}")
+            build = _store_build(_Client(ports["ports"]["model_builder"]), remote, "bench_test", False)
+            if attempt:
+                heal_s = time.perf_counter() - killed_at
+            builds.append(build["wall_s"])
+            held = _held_to_one_process("deploy: the cluster's build", _stored_outputs(remote, "bench_test"),
+                                        one_process)
+            done = [json.loads(line.split(" done ", 1)[1]) for line in driver.lines()
+                    if line.startswith("[machine1] [worker1] spmd worker 1: job 'build_model' done ")]
+            if len(done) != attempt + 1:
+                raise AssertionError(f"deploy: the worker ran {len(done)} builds")
+            launches = _worker_job_launches(done[-1])
+            missing = [name for name in _spmd_required_launches("build_model") if not launches.get(name)]
+            misses = {key: count for key, count in done[-1]["compile_events"].items() if key.startswith("miss/")}
+            if missing or misses:
+                raise AssertionError(f"deploy: the worker's build never launched {missing}, compile misses {misses}")
+            done_lines.append(done[-1])
+        if sorted(os.listdir(worker_cache)) != fetched:
+            raise AssertionError(f"deploy: the worker's folder now holds {os.listdir(worker_cache)}")
+    finally:
+        if remote is not None:
+            remote.close()
+        driver.stop()
+    walls.update({"cluster: first build over REST": builds[0], "cluster: kill to relaunched": relaunched_s,
+                  "cluster: kill to the next 201": heal_s, "cluster: second build": builds[1]})
+    return {
+        "boot_s": boot_s,
+        "aot_pass_s": {"head": head_pass["seconds"], "worker": worker_pass["seconds"]},
+        "fetch": {"fetched": worker_pass["fetched"], "seconds": worker_pass["fetch_seconds"],
+                  "events": worker_pass["events"]},
+        "held": held,
+        "worker_jobs": [{"wall_s": done["wall_s"], "launches": done["launches"],
+                         "compile_events": done["compile_events"]} for done in done_lines],
+    }
+
+
+def phase_deploy(torch, card: str) -> dict:
+    """The port's deployment on the card (its children each on
+    ``DEPLOY_CHILD_DEVICE``): (a) the supervised stack
+    (``deploy.stack``, the compile plane on), its build over REST held to
+    an in-process build, model_builder killed and restarted; (b) the
+    cluster driver (``deploy.cluster up``) with a head and a worker-only
+    machine whose empty build folder fills from the head's store with no
+    nvcc, its build over REST held to one process's, the worker's runner
+    killed and every machine's group relaunched. K1-K7 and K6 launch in
+    the stack's model_builder and on the worker's rank. Printed: each
+    boot's seconds, the passes' seconds, the fetch's seconds beside the
+    build phase's cold nvcc seconds, the builds' walls beside the
+    in-process build's, and the heals' seconds."""
+    started = time.perf_counter()
+    walls: dict = {}
+    with tempfile.TemporaryDirectory() as folder:
+        stack = _deploy_stack(torch, folder, walls)
+        cluster = _deploy_cluster(torch, folder, walls, stack.pop("outputs"))
+    record = {
+        "phase": "deploy",
+        "rows": {"train": PRODUCT_ROWS, "test": PRODUCT_ROWS},
+        "stack": stack,
+        "cluster": cluster,
+        "walls_s": walls,
+        "cold_nvcc_s": {name: info["seconds"] for name, info in kernels.build_info.items() if info.get("built")},
+        "launches": stack["launches"],
+        "worker_launches": cluster["worker_jobs"][0]["launches"],
+        "phase_s": time.perf_counter() - started,
+        "nvidia_smi": card,
+    }
+    emit(record)
+    return record
+
+
 def check_bounds(summary) -> None:
     """A time below its kernel's bound means that the bound or the timing
     is wrong: raise."""
@@ -9524,7 +9966,7 @@ def _timed_phase(walls: dict, name: str, phase, *args):
 
 PHASES = (
     "kernels", "serve", "fit-kernels", "fit", "embed-kernels", "embed", "sweep", "models", "stack",
-    "batch", "store", "shards", "bf16", "multigpu", "fleet", "services",
+    "batch", "store", "shards", "bf16", "multigpu", "fleet", "deploy", "services",
 )
 
 # why no single PyTorch call stands beside a job-axis kernel or a program
@@ -9676,6 +10118,12 @@ def main(argv) -> int:
         for entry in summary:   # K6 on the replicas under the fleet's load
             if entry["name"] in FORWARD_KERNELS:
                 entry["fleet_launches"] = {label: counts[entry["name"]] for label, counts in fleet["launches"].items()}
+    if "deploy" in wanted:
+        deploy = _timed_phase(walls, "deploy", phase_deploy, torch, device["card"])
+        for entry in summary:   # the build kernels in the stack's model_builder and on the worker's rank
+            if entry["name"] in deploy["launches"]:
+                entry["deploy_launches"] = {"stack": deploy["launches"][entry["name"]],
+                                            "cluster_worker": deploy["worker_launches"].get(entry["name"], 0)}
     if "services" in wanted:
         _timed_phase(walls, "services", phase_services, torch, device["card"])
     emit({"phase": "profiler", "lost_traces": LOST_TRACES})

@@ -1,23 +1,45 @@
-"""The publish hook of the compile plane.
+"""The compile plane.
 
-Counterpart of ``learningorchestra_tpu/compile/__init__.py:43-71``:
-checkpoint writers (``ml/builder.py``, ``ml/sweep.py``) call
-:func:`checkpoint_published` after their atomic ``os.replace``; a
-service that can warm the serve path (``services/model_builder.py``)
-registers the handler, which runs :mod:`.warmup` as a low-priority
-device job. The default is a no-op: library callers, tests and scripts
-publish checkpoints without the serve plane.
+Counterpart of ``learningorchestra_tpu/compile/__init__.py``. Four
+pieces, one goal: a fleet member never pays for an nvcc build another
+member (or its own boot) already paid for.
 
-The reference's XLA precompile plane (``compile/aot.py``,
-``fleetcache.py``, ``manifest.py``, ``config.py``) has no counterpart:
-the port's kernels are nvcc libraries built at first use into
-``kernels/_build/``, not XLA executables.
+- :mod:`.manifest` lists the kernel libraries, the ones the published
+  checkpoints need first;
+- :mod:`.aot` builds them at boot (on a daemon thread, off the device
+  queue) into the build folder (``kernels.build_dir()``), under
+  ``LO_AOT`` (:mod:`.config` has the knobs);
+- :mod:`.fleetcache` moves the built libraries through the
+  ``__lo_executables__`` store collection, trusted only under a
+  matching fingerprint;
+- :mod:`.warmup` runs the serve path's fixed dispatch shape when a
+  checkpoint publishes.
+
+This module owns the process-wide **publish hook**: checkpoint writers
+(``ml/builder.py``, ``ml/sweep.py``) call :func:`checkpoint_published`
+after their atomic ``os.replace``; a service that can warm the serve
+path (``services/model_builder.py``) registers the handler, which runs
+:mod:`.warmup` as a low-priority device job. The default is a no-op:
+library callers, tests and scripts publish checkpoints without the
+serve plane.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, Optional
+
+from learningorchestra_tpu_torch.compile.aot import (  # noqa: F401
+    AotPlane,
+    backend_fingerprint,
+    boot_compile_plane,
+    compile_spec,
+)
+from learningorchestra_tpu_torch.compile.manifest import (  # noqa: F401
+    ProgramSpec,
+    enumerate_programs,
+    specs_for_artifact,
+)
 
 _HANDLER: Optional[Callable[[str, Optional[int]], None]] = None
 _HANDLER_LOCK = threading.Lock()

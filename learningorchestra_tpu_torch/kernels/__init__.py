@@ -23,9 +23,12 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
   interpolation (K13), for the image lane, and K11's and K12's row-slab
   forms for the rows a rank owns.
 
-A library lands in ``_build/`` under a name that carries a hash of its
-source, and is published with ``os.replace``, so two processes never load
-half a file and an edited source is rebuilt.
+A library lands in the build folder (:func:`build_dir`: ``LO_JIT_CACHE``
+when it is set, else ``_build/`` here) under a name that carries a hash of
+its source, and is published with ``os.replace``, so two processes never
+load half a file and an edited source is rebuilt. The compile plane
+(``compile/aot.py``) builds them at boot and moves them between machines
+through the store (``compile/fleetcache.py``).
 
 The wrappers that launch these kernels live beside their plain PyTorch
 versions (``ml/binning.py``, ``ml/trees.py``, ``ml/logistic.py``,
@@ -48,7 +51,7 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-BUILD_DIR = os.path.join(_HERE, "_build")
+BUILD_DIR = os.path.join(_HERE, "_build")   # the build folder when LO_JIT_CACHE is unset
 # library name -> its source; each source builds into a library of its own
 SOURCES = {
     "tree_forward": os.path.join(_HERE, "csrc", "tree_forward.cu"),
@@ -146,20 +149,67 @@ def _find_nvcc() -> str:
     )
 
 
-def build(name: str) -> str:
-    """Compile library ``name`` into ``_build/`` unless a library built
-    from the same source bytes is already there; returns its path."""
+def build_dir() -> "str | None":
+    """The folder kernel libraries are built into and loaded from, read
+    at each call: ``LO_JIT_CACHE`` when it is set (the reference's
+    persistent-cache knob, ``utils/jitcache.py:140-170``), else
+    :data:`BUILD_DIR`. The empty string turns the shared folder off, as
+    it turns the reference's persistent cache off: None, and
+    :func:`build` then builds into a folder of this process's own,
+    removed when it exits, so nothing it builds is kept or shared."""
+    folder = os.environ.get("LO_JIT_CACHE")
+    if folder is None:
+        return BUILD_DIR
+    return os.path.abspath(folder) if folder else None
+
+
+_private: list = []   # this process's own build folder, made once (LO_JIT_CACHE="")
+_private_lock = threading.Lock()
+
+
+def _private_dir() -> str:
+    with _private_lock:
+        if not _private:
+            import atexit
+            import tempfile
+
+            _private.append(tempfile.mkdtemp(prefix="lo_kernels_"))
+            atexit.register(shutil.rmtree, _private[0], True)
+        return _private[0]
+
+
+def source_digest(name: str) -> str:
+    """The hash of library ``name``'s source that its file name carries."""
+    with open(SOURCES[name], "rb") as handle:
+        return hashlib.sha256(handle.read()).hexdigest()[:16]
+
+
+def library_file(name: str) -> str:
+    """Library ``name``'s file name: ``<name>-<source digest>.so``."""
+    return f"{name}-{source_digest(name)}.so"
+
+
+def build(name: str, account: bool = False) -> str:
+    """Compile library ``name`` into the build folder unless a library
+    built from the same source bytes is already there; returns its path.
+    ``account``: book this call in ``lo_compile_events_total`` under this
+    thread's lane (``telemetry.profile.compile_source``), ``miss`` with
+    nvcc's seconds when it ran nvcc, else ``hit``: the compile plane's
+    pass does, where :func:`library` books a process's first load."""
     source = SOURCES[name]
-    with open(source, "rb") as handle:
-        digest = hashlib.sha256(handle.read()).hexdigest()[:16]
-    target = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    folder = build_dir() or _private_dir()
+    target = os.path.join(folder, library_file(name))
     if os.path.isfile(target):
         # keep the record of a build made earlier in this process
         if build_info.get(name, {}).get("path") != target:
             build_info[name] = dict(path=target, seconds=0.0, built=False, ptxas="")
+        if account:
+            from learningorchestra_tpu_torch.telemetry import profile
+
+            profile.account_compile("hit")
         return target
     nvcc = _find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(folder, exist_ok=True)
     partial = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
     started = time.perf_counter()
     result = subprocess.run(
@@ -173,12 +223,17 @@ def build(name: str) -> str:
             f"nvcc failed to build {source}:\n{result.stdout}{result.stderr}"
         )
     os.replace(partial, target)
+    seconds = time.perf_counter() - started
     build_info[name] = dict(
         path=target,
-        seconds=time.perf_counter() - started,
+        seconds=seconds,
         built=True,
         ptxas=result.stdout + result.stderr,
     )
+    if account:
+        from learningorchestra_tpu_torch.telemetry import profile
+
+        profile.account_compile("miss", seconds)
     return target
 
 

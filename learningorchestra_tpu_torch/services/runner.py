@@ -69,6 +69,21 @@ Environment:
   all three set joins the group (NCCL on a CUDA card, gloo on the CPU);
   ``LO_SPMD_TIMEOUT_S`` (default 3600; 0: off) is a job's watchdog and
   ``LO_SPMD_HEARTBEAT_S`` (default 10) the coordinator's idle ping
+- ``LO_DEVICE`` (``cuda`` or ``cpu``) and ``LO_DIST_BACKEND`` (``nccl`` or
+  ``gloo``) — read by the module entry only (``python -m
+  learningorchestra_tpu_torch.services.runner``), where the reference
+  reads ``JAX_PLATFORMS`` and lets jax.distributed pick its transport:
+  unset is ``cuda`` (raises without a card) and NCCL on a card, gloo on
+  the CPU; any other value refuses to boot, and only the knob set to
+  ``cpu`` or ``gloo`` picks them
+- ``LO_AOT``, ``LO_AOT_MAX_PROGRAMS``, ``LO_AOT_PUBLISH`` — the compile
+  plane (compile/config.py): with ``LO_AOT=1`` the runner fetches the
+  kernel libraries the fleet published into its build folder at boot
+  (``LO_JIT_CACHE``, else ``kernels/_build/``), then builds the rest on a
+  daemon thread and publishes them (compile/aot.py). In the multi-host
+  mode a rank past 0 fetches once rank 0's pass has ended, so the
+  libraries rank 0 holds come over the store; the ``compile config:``
+  boot line states the knobs, and a malformed value refuses bring-up
 - ``LO_HOST`` — bind host (default ``127.0.0.1``: the model builder runs
   request-supplied preprocessor code, so exposing the stack must be an
   explicit opt-in)
@@ -86,9 +101,6 @@ Environment:
   ``LO_RESUME_EVERY_SEGMENTS``, ``LO_COALESCE_WINDOW_MS``,
   ``LO_SERVE_*``, ...), ``LO_BUILD_WORKERS`` (ml/builder.py) and
   ``LO_PROGRAM_ROW_STEPS`` (ml/base.py).
-
-Not ported: the XLA precompile plane (the port's kernels are nvcc
-libraries).
 """
 
 from __future__ import annotations
@@ -139,6 +151,59 @@ SERVICES: dict[str, int] = {
 }
 
 
+DEVICES = ("cuda", "cpu")
+DIST_BACKENDS = ("nccl", "gloo")
+
+
+def _choice_env(name: str, choices: tuple) -> Optional[str]:
+    """A knob that names one of ``choices``; unset or empty: None."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    if raw not in choices:
+        raise ValueError(f"{name} must be one of {'|'.join(choices)}, got {raw!r}")
+    return raw
+
+
+def device_from_env() -> Optional[str]:
+    """``LO_DEVICE``: the device the module entry boots on, where the
+    reference reads ``JAX_PLATFORMS``. Unset: None, the CUDA card."""
+    return _choice_env("LO_DEVICE", DEVICES)
+
+
+def backend_from_env() -> Optional[str]:
+    """``LO_DIST_BACKEND``: the multi-host group's backend, where the
+    reference lets jax.distributed pick its transport. Unset: None, NCCL
+    on a card and gloo on the CPU (``parallel/multihost.py``)."""
+    return _choice_env("LO_DIST_BACKEND", DIST_BACKENDS)
+
+
+def _compile_rendezvous(rank: int, timeout_s: float = 900.0):
+    """``(before_fetch, after_run)`` of a rank's compile-plane pass in the
+    multi-host mode: rank 0 marks its pass's end in the group's
+    rendezvous store, and a rank past 0 waits for that mark before it
+    fetches, so what rank 0 built or fetched reaches it over the store
+    instead of through its own nvcc. The mark is polled (``check``), so
+    the wait never holds the store's client against the group's own use
+    of it; past ``timeout_s`` the rank fetches what is there."""
+    from torch.distributed import distributed_c10d
+
+    try:
+        group_store = distributed_c10d._get_default_store()
+    except (AttributeError, RuntimeError, ValueError):   # no rendezvous store to mark
+        return None, None
+    key = "lo_aot_pass_done"
+    if rank == 0:
+        return None, lambda stats: group_store.set(key, "1")
+
+    def wait() -> None:
+        deadline = time.monotonic() + timeout_s
+        while not group_store.check([key]) and time.monotonic() < deadline:
+            time.sleep(0.2)
+
+    return wait, None
+
+
 def make_dispatcher(store: DocumentStore, images_dir: str, device: DeviceLike = None):
     """The SPMD dispatcher of the compute jobs (reference
     ``services/runner.py:180-233``): the coordinator's REST handlers
@@ -153,6 +218,7 @@ def make_dispatcher(store: DocumentStore, images_dir: str, device: DeviceLike = 
     from learningorchestra_tpu_torch.parallel import multihost
     from learningorchestra_tpu_torch.parallel.mesh import default_mesh
     from learningorchestra_tpu_torch.parallel.spmd import SpmdDispatcher, process_index
+    from learningorchestra_tpu_torch.telemetry.profile import compile_events
 
     device = resolve_device(device)
     rank = process_index()
@@ -217,6 +283,7 @@ def make_dispatcher(store: DocumentStore, images_dir: str, device: DeviceLike = 
                 "wall_s": time.perf_counter() - started,
                 "launches": {name: n for name, n in kernels.launches().items() if n},
                 "collectives": multihost.collective_stats()["collectives"],
+                "compile_events": compile_events(),
             }
             print(f"spmd worker {rank}: job {op!r} done {json.dumps(counts)}", flush=True)
 
@@ -486,6 +553,13 @@ def main(device: DeviceLike = None, backend: Optional[str] = None) -> None:
     from learningorchestra_tpu_torch.utils import webloop
 
     print(f"web config: {webloop.validate_env()}", flush=True)
+    # the compile plane's knobs: whether the boot pass runs, how much of
+    # the manifest it covers and whether it publishes to the fleet; a
+    # typo'd LO_AOT refuses bring-up, never silently boots cold
+    from learningorchestra_tpu_torch.compile import boot_compile_plane
+    from learningorchestra_tpu_torch.compile import config as compile_config
+
+    print(f"compile config: {compile_config.validate_env()}", flush=True)
     from learningorchestra_tpu_torch.telemetry import profile as _profile
     from learningorchestra_tpu_torch.telemetry import slo as _slo
     from learningorchestra_tpu_torch.telemetry import tracing as _tracing
@@ -527,6 +601,7 @@ def main(device: DeviceLike = None, backend: Optional[str] = None) -> None:
         )
     store = connect(store_url) if store_url else InMemoryStore(data_dir=data_dir)
     dispatcher = None
+    after_run = None   # rank 0's mark of its pass's end (the multi-host mode)
     if multi_host:
         import torch.distributed as dist
 
@@ -545,13 +620,25 @@ def main(device: DeviceLike = None, backend: Optional[str] = None) -> None:
         dispatcher = make_dispatcher(store, images_dir, device)
         # keeps an idle worker's broadcast inside the group's timeout
         dispatcher.start_heartbeat()
+        before_fetch, after_run = _compile_rendezvous(rank)
         if rank > 0:
+            # the kernel libraries rank 0 holds, over the store, once its
+            # pass has ended: this rank's jobs then run no nvcc
+            if boot_compile_plane(store=store, models_dir=models_dir or "", before_fetch=before_fetch):
+                print("aot compile plane: fetching once rank 0's pass has ended", flush=True)
             # no REST surface here: run the jobs the coordinator broadcasts
             print("spmd worker: waiting for jobs", flush=True)
             dispatcher.run_worker_loop()
             print(f"spmd worker {rank}: loop exited", flush=True)
             return
     maybe_start_collector(store, instance=service or "runner", service=service or "runner")
+
+    # the compile plane: the fleet's kernel libraries fetched into the
+    # build folder now, the rest built (and published) on a daemon thread,
+    # never in a device-class slot; a restarted runner pulls what it
+    # published before and runs no nvcc
+    if boot_compile_plane(store=store, models_dir=models_dir or "", after_run=after_run):
+        print("aot compile plane: precompiling in background", flush=True)
 
     # Recovery runs BEFORE the REST surface accepts traffic, with the
     # build handlers bound to this process's device (the journal names
@@ -609,4 +696,8 @@ def main(device: DeviceLike = None, backend: Optional[str] = None) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        device_choice, backend_choice = device_from_env(), backend_from_env()
+    except ValueError as error:
+        raise SystemExit(f"runner: {error}") from None
+    main(device=device_choice, backend=backend_choice)

@@ -247,6 +247,15 @@ def account_compile(
         metrics["compile_seconds"].inc(seconds)
 
 
+def compile_events() -> dict:
+    """This process's ``lo_compile_events_total`` samples as
+    ``{"<result>/<source>": count}`` (a label set with no event yet is
+    absent): the compile plane's pass reports them when it ends."""
+    metric = _flow_metrics()["compile_events"]
+    with metric._lock:
+        return {"/".join(key): child.value for key, child in sorted(metric._children.items())}
+
+
 # --- Chrome trace-event export ----------------------------------------------
 
 # meta keys the exporter treats as byte flows (span attr -> counter track)

@@ -46,3 +46,9 @@ def dtype_policy() -> str:
         _POLICY.append(validate_policy(os.environ.get("LO_DTYPE_POLICY", "f32")))
     return _POLICY[0]
 
+
+def validate_env() -> None:
+    """Fail fast on a malformed ``LO_DTYPE_POLICY``: the preflight
+    (``deploy/preflight.py``) calls this, uncached, so it always reads
+    the environment again."""
+    validate_policy(os.environ.get("LO_DTYPE_POLICY", "f32"))

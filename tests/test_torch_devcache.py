@@ -8,16 +8,14 @@ capacity bound, recency and pass-through, concurrent readers, the
 content-addressed device matrices and labels of frames, the image
 pipeline's atomic inputs and its cache hit on a second embed, the
 builder's overlapped write-back (and a failing write failing the build),
-the capacity knob's validation and a second build's cached reads, and
-the cases over a ``RemoteStore`` (rev probes over the wire, the
-mid-stream fault's purge and its in-place retry, paged reads with the
-read-ahead, wire compression). The port's entry points default to the
+the capacity knob's validation and a second build's cached reads, the
+cluster manifest's dataplane section (on the port's cluster driver,
+``deploy/cluster.py`` of the port), and the cases over a ``RemoteStore``
+(rev probes over the wire, the mid-stream fault's purge and its
+in-place retry, paged reads with the read-ahead, wire compression). The port's entry points default to the
 card, so the calls that would take it are given ``device="cpu"``; where
 the reference's tests make ``requests`` raise its connection error, they
 raise the port's transport's (``utils/httpclient.py``).
-
-Left out (``NOT_PORTED``): the cluster manifest's dataplane section (it
-reads the deploy scripts, which launch only the JAX package).
 """
 
 import pathlib
@@ -32,9 +30,10 @@ from learningorchestra_tpu.core.store import InMemoryStore as JaxStore  # noqa: 
 from learningorchestra_tpu_torch.utils import httpclient  # noqa: E402,F401 (the edits name it)
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_devcache.py")
-NOT_PORTED = {
-    "TestKnobPlumbing": "test_cluster_manifest_dataplane_section",   # deploy/cluster.py
-}
+CLUSTER_IMPORT = (
+    '        sys.path.insert(0, "deploy")\n        try:\n            import cluster\n'
+    '        finally:\n            sys.path.pop(0)\n'
+)
 # (text in the reference's tests, its count, the port's text)
 EDITS = (
     ('raise requests.ConnectionError("injected', 2, 'raise httpclient.ConnectionError("injected'),
@@ -47,6 +46,7 @@ EDITS = (
      'dataset_embedding_inputs(store, "ds", "cpu", cache=cache)'),
     ('dataset_embedding_inputs(store, "ds", cache=cache)', 1,
      'dataset_embedding_inputs(store, "ds", "cpu", cache=cache)'),
+    (CLUSTER_IMPORT, 1, "        from learningorchestra_tpu_torch.deploy import cluster\n"),
     ("pca_embedding(X)", 1, 'pca_embedding(X, device="cpu")'),
     ("pca_embedding(shard_matrix(X))", 1, 'pca_embedding(shard_matrix(X, "cpu"), device="cpu")'),
     ('"pca", render=False', 2, '"pca", device="cpu"'),
@@ -60,11 +60,6 @@ for _old, _count, _new in EDITS:
     _source = _source.replace(_old, _new)
 _source = _source.replace("learningorchestra_tpu.", "learningorchestra_tpu_torch.")
 exec(compile(_source, str(REFERENCE_TESTS), "exec"), globals())  # noqa: S102
-for _class, _test in NOT_PORTED.items():
-    if _test is None:
-        del globals()[_class]
-    else:
-        delattr(globals()[_class], _test)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -4,7 +4,9 @@ The port (learningorchestra_tpu_torch/) and chip_smoke.py import torch,
 numpy and the standard library, never ``jax`` and never any module of the
 JAX package ``learningorchestra_tpu`` (matched by its exact name or the
 prefix ``learningorchestra_tpu.``; the port's own name shares the prefix
-without the dot). Nor ``requests`` or ``werkzeug``, which the machine
+without the dot), nor the JAX package's deployment scripts (the
+top-level ``deploy``: the port has its own, ``learningorchestra_tpu_torch.
+deploy``). Nor ``requests`` or ``werkzeug``, which the machine
 with the card does not have: the port's web layer and its store client
 are on ``http.server`` and ``http.client``.
 """
@@ -30,7 +32,7 @@ def forbidden(module: str) -> bool:
         or module.startswith("jaxlib")
         or module == "learningorchestra_tpu"
         or module.startswith("learningorchestra_tpu.")
-        or module.split(".")[0] in ("requests", "werkzeug")
+        or module.split(".")[0] in ("requests", "werkzeug", "deploy", "cluster", "stack")
     )
 
 
@@ -49,6 +51,8 @@ def test_forbidden_names():
     assert not forbidden("learningorchestra_tpu_torch")
     assert not forbidden("learningorchestra_tpu_torch.serve")
     assert not forbidden("requests_like") and not forbidden("http.client")
+    assert forbidden("deploy") and forbidden("deploy.cluster") and forbidden("cluster")
+    assert not forbidden("learningorchestra_tpu_torch.deploy.cluster")
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
@@ -113,6 +117,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "telemetry.profile", "telemetry.stitch", "telemetry.tsdb", "telemetry.slo",
         "core.shardmap", "core.shardstore", "core.ingest", "native", "native.loader",
         "utils.webloop", "compile", "compile.warmup", "serve.fleet", "serve.router", "serve.loadgen",
+        "compile.aot", "compile.config", "compile.fleetcache", "compile.manifest",
+        "deploy", "deploy.preflight", "deploy.run", "deploy.stack", "deploy.cluster",
     ):
         assert f"learningorchestra_tpu_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["added"]

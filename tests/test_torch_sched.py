@@ -10,16 +10,17 @@ sequence and retries, cancellation and deadlines, the journal's
 lifecycle records and recovery after a restart (``TestJournalRecovery``),
 the device class end to end through the port's ``POST /models`` (a fake
 build, on the CPU), record eviction, the wait race and the knobs'
-validation. Left out: ``test_cluster_manifest_sched_section`` (it reads
-the deploy scripts, not the port).
+validation, and the cluster manifest's sched section on the port's
+cluster driver (``learningorchestra_tpu_torch/deploy/cluster.py``).
 """
 
 import pathlib
 
 REFERENCE_TESTS = pathlib.Path(__file__).with_name("test_sched.py")
-NOT_PORTED = {
-    "TestKnobValidation": "test_cluster_manifest_sched_section",
-}
+CLUSTER_IMPORT = (
+    '        sys.path.insert(0, "deploy")\n        try:\n            import cluster\n'
+    '        finally:\n            sys.path.pop(0)\n'
+)
 
 _source = REFERENCE_TESTS.read_text().replace(
     "learningorchestra_tpu.", "learningorchestra_tpu_torch."
@@ -27,12 +28,9 @@ _source = REFERENCE_TESTS.read_text().replace(
 _old, _new = 'models_dir="", jobs=jobs\n', 'models_dir="", jobs=jobs, device="cpu"\n'
 assert _source.count(_old) == 2, _old  # the two device-class tests
 _source = _source.replace(_old, _new)
+assert _source.count(CLUSTER_IMPORT) == 1
+_source = _source.replace(CLUSTER_IMPORT, "        from learningorchestra_tpu_torch.deploy import cluster\n")
 exec(compile(_source, str(REFERENCE_TESTS), "exec"), globals())  # noqa: S102
-for _class, _test in NOT_PORTED.items():
-    if _test is None:
-        del globals()[_class]
-    else:
-        delattr(globals()[_class], _test)
 
 
 def test_the_reference_tests_run_on_the_port():
